@@ -1,0 +1,38 @@
+"""The port's public API: `EngineConfig` + `Engine` (one-shot serving).
+
+The facade loads lazily (PEP 562): the registry decorators must be
+importable from the ``compression``/``core`` provider modules without
+dragging in the serving stack, which would cycle back into them mid-import.
+"""
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.api.registry import (  # noqa: F401
+    ASSIGNMENT_ENGINE_REGISTRY,
+    POLICY_REGISTRY,
+    Registry,
+    list_engines,
+    list_policies,
+    register_assignment_engine,
+    register_policy,
+)
+
+_LAZY = {
+    "EngineConfig": "repro_torch.api.config",
+    "DTYPES": "repro_torch.api.config",
+    "Engine": "repro_torch.api.engine",
+    "GenerationResult": "repro_torch.api.engine",
+    "CompressionConfig": "repro_torch.compression.base",
+    "PlannerConfig": "repro_torch.core.planner",
+}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'repro_torch.api' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY))

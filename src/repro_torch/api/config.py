@@ -1,0 +1,100 @@
+"""`EngineConfig`: one validated config for the one-shot serving path.
+
+The port's counterpart of ``repro.api.config.EngineConfig`` for what this
+slice runs: ``ModelConfig`` (architecture), ``CompressionConfig`` (per-head
+KV budgets), ``PlannerConfig`` (FairKV placement) and the engine-level
+knobs.  ``__post_init__`` validates every name-typed field against the
+port's registries, so a typo fails at construction with the registered
+names.  ``device`` defaults to ``"cuda"``: the CPU runs only when asked for.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass, field
+
+import torch
+
+from repro_torch.api.registry import list_engines, list_policies
+from repro_torch.compression.base import CompressionConfig
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.planner import PLANNER_MODES, PlannerConfig
+
+# the one dtype-name table: validation and Engine's resolution both read it
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
+
+
+@dataclass(frozen=True)
+class EngineConfig:
+    """Everything `Engine.build` needs, validated at construction.
+
+    ``dtype`` is a string (``float32`` / ``bfloat16`` / ``float16``);
+    `Engine` resolves it to a torch dtype.  ``profile_skew`` /
+    ``profile_seed`` parameterize the synthetic per-head workload profile
+    used when the caller does not supply a measured one.  ``device`` is
+    where weights, cache and steps live (``"cuda"``, ``"cuda:1"``,
+    ``"cpu"``).
+    """
+
+    model: ModelConfig
+    compression: CompressionConfig = field(default_factory=CompressionConfig)
+    planner: PlannerConfig = field(default_factory=PlannerConfig)
+    n_shards: int = 1
+    dtype: str = "float32"
+    max_seq_len: int = 512
+    seed: int = 0  # seed of the default parameter init
+    profile_skew: float = 1.0
+    profile_seed: int = 1
+    device: str = "cuda"
+
+    def __post_init__(self):
+        if not isinstance(self.model, ModelConfig):
+            raise TypeError(
+                f"model must be a ModelConfig, got {type(self.model).__name__}")
+        policy = self.compression.policy
+        if policy != "none" and policy not in list_policies():
+            raise ValueError(
+                f"unknown compression policy {policy!r}; registered: "
+                f"{list_policies()} (plus 'none')")
+        if self.planner.mode not in PLANNER_MODES:
+            raise ValueError(
+                f"unknown planner mode {self.planner.mode!r}; known: "
+                f"{list(PLANNER_MODES)}")
+        if self.planner.engine not in list_engines():
+            raise ValueError(
+                f"unknown assignment engine {self.planner.engine!r}; "
+                f"registered: {list_engines()}")
+        if self.dtype not in DTYPES:
+            raise ValueError(
+                f"unknown dtype {self.dtype!r}; known: {list(DTYPES)}")
+        if self.n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {self.n_shards}")
+        if self.max_seq_len < 1:
+            raise ValueError(
+                f"max_seq_len must be >= 1, got {self.max_seq_len}")
+        if self.compression.budget < 1:
+            raise ValueError(
+                f"compression.budget must be >= 1, got "
+                f"{self.compression.budget}")
+        torch.device(self.device)  # raises on a malformed device string
+
+    # ---- constructors ------------------------------------------------------
+
+    @classmethod
+    def for_arch(cls, arch: str, *, smoke: bool = False,
+                 **overrides) -> "EngineConfig":
+        """Config for a registered architecture id.  ``smoke=True`` uses the
+        arch's reduced CPU-testable variant; remaining keyword arguments
+        override `EngineConfig` fields."""
+        model = get_smoke_config(arch) if smoke else get_config(arch)
+        return cls(model=model, **overrides)
+
+    @classmethod
+    def smoke(cls, arch: str, **overrides) -> "EngineConfig":
+        """Shorthand for ``for_arch(arch, smoke=True, ...)``."""
+        return cls.for_arch(arch, smoke=True, **overrides)
+
+    def replace(self, **changes) -> "EngineConfig":
+        """`dataclasses.replace` that re-runs validation."""
+        return dataclasses.replace(self, **changes)

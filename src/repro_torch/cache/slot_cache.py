@@ -1,0 +1,185 @@
+"""Slot-layout budgeted KV cache (port of ``repro.cache.slot_cache``).
+
+Layout: every model shard owns ``slots_per_shard`` *slots*; globally
+
+    k, v     : (L, S, B, C, Dh)   S = total slots, C = static capacity
+    lengths  : (L, S, B) int32     retained tokens per (slot, row); 0 for
+                                   unowned rows and empty slots
+    pos      : (L, S, B, C) int32  absolute position of each entry (-1 = none)
+    positions: (B,) int32          next absolute position per row (for RoPE)
+
+Replicas of one head split the batch by the strided rule
+``owner(slot, b) = (b % replica_count) == replica_idx``; a slot only ever has
+nonzero ``lengths`` on rows it owns, so the decode kernel's work is
+proportional to Σ lengths and unowned pairs give exactly-zero output.
+
+Unlike the reference (immutable arrays, a new cache per update), the port
+updates the cache tensors in place: `fill_from_selection` overwrites one
+layer's slice and `append_token` writes only the one column per (slot, row)
+that receives the new token.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+import numpy as np
+import torch
+
+from repro_torch.core.placement import HeadPlacement
+
+
+@dataclass
+class PlanArrays:
+    """Runtime form of a HeadPlacement, as tensors on the serving device.
+
+    slot_head / replica_idx / replica_count: (L, S) int32.
+    first_slot: (L, Hkv) int64 — the replica-0 slot of each head (prefill
+    recovers original-layout weights from the slot layout through it, so no
+    second weight copy is stored).
+    """
+
+    slot_head: torch.Tensor
+    replica_idx: torch.Tensor
+    replica_count: torch.Tensor
+    first_slot: torch.Tensor
+
+    @staticmethod
+    def from_plan(plan: HeadPlacement, device="cpu") -> "PlanArrays":
+        arrs = plan.as_arrays()
+        sh = arrs["slot_head"]
+        L, S = sh.shape
+        first = np.zeros((L, plan.n_heads), dtype=np.int64)
+        for l in range(L):
+            for h in range(plan.n_heads):
+                first[l, h] = int(np.nonzero(sh[l] == h)[0][0])
+
+        def t(a):
+            return torch.as_tensor(a, device=device)
+
+        return PlanArrays(slot_head=t(arrs["slot_head"]),
+                          replica_idx=t(arrs["replica_idx"]),
+                          replica_count=t(arrs["replica_count"]),
+                          first_slot=t(first))
+
+    def owner_mask(self, layer: int, batch: int) -> torch.Tensor:
+        """(S, B) bool — slot owns row."""
+        rows = torch.arange(batch, dtype=torch.int32, device=self.slot_head.device)
+        return self.owner_mask_rows(layer, rows)
+
+    def owner_mask_rows(self, layer: int, rows: torch.Tensor) -> torch.Tensor:
+        """(S, len(rows)) bool ownership for explicit *global* row ids (the
+        strided owner rule keys on the global batch-row index)."""
+        rows = rows.to(torch.int32)[None, :]
+        rc = self.replica_count[layer][:, None]
+        ri = self.replica_idx[layer][:, None]
+        valid = (self.slot_head[layer] >= 0)[:, None]
+        return valid & ((rows % rc) == ri)
+
+
+@dataclass
+class SlotCache:
+    k: torch.Tensor  # (L, S, B, C, Dh)
+    v: torch.Tensor  # (L, S, B, C, Dh)
+    lengths: torch.Tensor  # (L, S, B) int32
+    pos: torch.Tensor  # (L, S, B, C) int32
+    positions: torch.Tensor  # (B,) int32
+
+
+def init_cache(n_layers: int, n_slots: int, batch: int, capacity: int,
+               head_dim: int, dtype=torch.bfloat16, device="cpu") -> SlotCache:
+    shape = (n_layers, n_slots, batch, capacity)
+    return SlotCache(
+        k=torch.zeros(shape + (head_dim,), dtype=dtype, device=device),
+        v=torch.zeros(shape + (head_dim,), dtype=dtype, device=device),
+        lengths=torch.zeros(shape[:3], dtype=torch.int32, device=device),
+        pos=torch.full(shape, -1, dtype=torch.int32, device=device),
+        positions=torch.zeros((batch,), dtype=torch.int32, device=device),
+    )
+
+
+def ring_write_index(lengths: torch.Tensor, total_appended: int,
+                     capacity: int, ring: int) -> torch.Tensor:
+    """Write position for the next token.
+
+    While a row is below capacity, append at ``lengths``.  Once full, cycle
+    through the last ``ring`` positions (a recency window): overwritten
+    entries are the oldest *dynamic* tokens; the compression-selected head
+    of the buffer is preserved.  ``total_appended`` counts decode appends so
+    far (the cycle phase, shared across rows).
+    """
+    ring = max(1, min(ring, capacity))
+    cyc = capacity - ring + total_appended % ring
+    return torch.where(lengths < capacity, lengths, cyc).to(torch.int32)
+
+
+def append_token(
+    cache: SlotCache,
+    layer: int,
+    k_new: torch.Tensor,  # (S, B, Dh) post-RoPE
+    v_new: torch.Tensor,  # (S, B, Dh)
+    own: torch.Tensor,  # (S, B) bool
+    decode_step: int,  # appends since prefill
+    ring: int = 128,
+) -> None:
+    """Append one token into layer ``layer`` for owned (slot, row) pairs,
+    in place.
+
+    One indexed write of one column per (slot, row): owned pairs get the
+    new entry, unowned pairs get their current value back, so they stay
+    bitwise untouched (``lengths == 0``, exactly-zero attention output).
+    The reference's ``onehot`` mode rewrites the whole (S, B, C, Dh) layer
+    slice per step to get the same values; its ``scatter`` mode is this
+    write.  Both agree with this bitwise.
+    """
+    L, S, B, C, Dh = cache.k.shape
+    lengths = cache.lengths[layer]  # (S, B)
+    idx = ring_write_index(lengths, decode_step, C, ring).long()  # (S, B)
+    dev = cache.k.device
+    s_ix = torch.arange(S, device=dev)[:, None].expand(S, B)
+    b_ix = torch.arange(B, device=dev)[None, :].expand(S, B)
+    at = (s_ix, b_ix, idx)
+    k_l, v_l, p_l = cache.k[layer], cache.v[layer], cache.pos[layer]
+    own_d = own[..., None]
+    k_l.index_put_(at, torch.where(own_d, k_new.to(k_l.dtype), k_l[at]))
+    v_l.index_put_(at, torch.where(own_d, v_new.to(v_l.dtype), v_l[at]))
+    p_new = cache.positions[None, :].expand(S, B)
+    p_l.index_put_(at, torch.where(own, p_new, p_l[at]))
+    lengths.copy_(torch.where(own, torch.clamp(lengths + 1, max=C), lengths))
+
+
+def fill_from_selection(
+    cache: SlotCache,
+    layer: int,
+    k_full: torch.Tensor,  # (B, T, Hkv, Dh) post-RoPE prefill keys
+    v_full: torch.Tensor,  # (B, T, Hkv, Dh)
+    sel_idx: torch.Tensor,  # (B, Hkv, Csel) selected positions into T
+    sel_len: torch.Tensor,  # (B, Hkv) int32 retained counts (<= Csel)
+    plan: PlanArrays,
+) -> None:
+    """Scatter the compression-selected prefill KV into slot layout, in
+    place: layer ``layer``'s whole slice is overwritten.
+
+    Slot s holds head ``slot_head[s]``'s selection on the rows it owns and
+    zeros (length 0, positions -1) elsewhere.
+    """
+    L, S, B, C, Dh = cache.k.shape
+    heads = torch.clamp(plan.slot_head[layer], min=0).long()  # (S,)
+    own = plan.owner_mask(layer, B)  # (S, B)
+    Csel = sel_idx.shape[2]
+    if Csel > C:
+        raise ValueError(
+            f"selection capacity {Csel} exceeds cache capacity {C}")
+    idx = sel_idx[:, heads, :].permute(1, 0, 2).long()  # (S, B, Csel)
+    b_ix = torch.arange(B, device=idx.device)[None, :, None]
+    h_ix = heads[:, None, None]
+    own4 = own[..., None, None]
+    k_l, v_l, p_l = cache.k[layer], cache.v[layer], cache.pos[layer]
+    k_l.zero_()
+    v_l.zero_()
+    k_l[:, :, :Csel] = torch.where(own4, k_full[b_ix, idx, h_ix].to(k_l.dtype), 0)
+    v_l[:, :, :Csel] = torch.where(own4, v_full[b_ix, idx, h_ix].to(v_l.dtype), 0)
+    # entry positions == selected indices (prefill positions are arange(T));
+    # pad/unowned entries get -1 (outside any window, masked by length)
+    p_l.fill_(-1)
+    p_l[:, :, :Csel] = torch.where(own[..., None], idx.to(torch.int32), -1)
+    lens = sel_len[:, heads].T  # (S, B)
+    cache.lengths[layer] = torch.where(own, lens, 0).to(torch.int32)

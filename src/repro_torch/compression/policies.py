@@ -1,0 +1,84 @@
+"""Compression policies (port of ``repro.compression.policies``).
+
+Each policy maps pooled observation scores (B, Hkv, T) → (indices, lengths):
+``indices`` (B, Hkv, C) positions retained per head, ``lengths`` (B, Hkv).
+
+- ``snapkv``      balanced: per-head top-budget by pooled obs scores
+- ``ada_snapkv``  imbalanced (the paper's target): a layer-wide pool of
+                  Hkv·budget entries, allocated to heads by global score
+                  ranking (Ada-KV's safeguarded variant: every head keeps at
+                  least ``min(sink + obs_window, budget)``)
+
+The other reference policies (streaming_llm, pyramidkv, h2o, headkv) are
+not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.api.registry import POLICY_REGISTRY, register_policy
+from repro_torch.compression.base import CompressionConfig, topk_select
+
+Selection = Tuple[torch.Tensor, torch.Tensor]  # (idx (B,Hkv,C), lengths (B,Hkv))
+
+
+def _boost_guaranteed(scores: torch.Tensor, t_len: int, cfg: CompressionConfig,
+                      positions: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Force sinks + the observation window into every selection."""
+    T = scores.shape[-1]
+    pos = torch.arange(T, device=scores.device) if positions is None else positions
+    guaranteed = (pos < cfg.sink) | (pos >= t_len - cfg.obs_window)
+    return torch.where(guaranteed, float("inf"), scores)
+
+
+def _uniform_budget(scores: torch.Tensor, budget: int, capacity: int) -> Selection:
+    B, Hkv, T = scores.shape
+    keep = torch.full((B, Hkv), min(budget, T, capacity), dtype=torch.int32,
+                      device=scores.device)
+    return topk_select(scores, keep, capacity)
+
+
+@register_policy("snapkv")
+def snapkv(scores: torch.Tensor, cfg: CompressionConfig,
+           layer_idx: int, n_layers: int) -> Selection:
+    scores = _boost_guaranteed(scores, scores.shape[-1], cfg)
+    return _uniform_budget(scores, cfg.budget, cfg.static_capacity())
+
+
+def _pooled_allocation(scores: torch.Tensor, pool_size: int,
+                       floor: int, capacity: int) -> torch.Tensor:
+    """Ada-KV allocation: per-row global threshold over (Hkv·T) scores.
+
+    keep[b, h] = #scores of head h among the layer-wide top-``pool_size``,
+    safeguarded to at least ``floor`` and clipped to ``capacity``.  Only
+    the k-th largest *value* is used, so tie order does not matter here.
+    """
+    B, Hkv, T = scores.shape
+    flat = scores.reshape(B, Hkv * T)
+    k = min(int(pool_size), Hkv * T)
+    thresh = torch.topk(flat, k, dim=-1).values[:, -1]  # (B,)
+    keep = (scores >= thresh[:, None, None]).sum(dim=-1)  # (B, Hkv)
+    return torch.clamp(keep, floor, capacity).to(torch.int32)
+
+
+@register_policy("ada_snapkv")
+def ada_snapkv(scores: torch.Tensor, cfg: CompressionConfig,
+               layer_idx: int, n_layers: int) -> Selection:
+    B, Hkv, T = scores.shape
+    scores = _boost_guaranteed(scores, T, cfg)
+    cap = cfg.static_capacity()
+    floor = min(cfg.sink + cfg.obs_window, cfg.budget)
+    keep = _pooled_allocation(scores, Hkv * cfg.budget, floor, min(cap, T))
+    return topk_select(scores, keep, cap)
+
+
+def select(policy: str, scores: torch.Tensor, cfg: CompressionConfig,
+           layer_idx: int, n_layers: int) -> Selection:
+    """Dispatch to a registered policy; ``"none"`` retains every position."""
+    if policy == "none":
+        B, Hkv, T = scores.shape
+        idx = torch.arange(T, dtype=torch.int32, device=scores.device).expand(B, Hkv, T)
+        return idx, torch.full((B, Hkv), T, dtype=torch.int32, device=scores.device)
+    return POLICY_REGISTRY[policy](scores, cfg, layer_idx, n_layers)

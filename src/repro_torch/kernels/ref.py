@@ -1,0 +1,72 @@
+"""Plain PyTorch versions of the port's kernels (port of ``repro.kernels.ref``).
+
+These define the semantics: the CUDA kernels must match them (fp32
+accumulation) on the card, and the CPU path runs them.  Each follows the
+reference oracle step for step.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+def fairkv_decode_ref(
+    q: torch.Tensor,  # (B, S, G, Dh) — one new query per row per slot group
+    k: torch.Tensor,  # (S, B, C, Dh) slot-layout cache keys (post-RoPE)
+    v: torch.Tensor,  # (S, B, C, Dh)
+    lengths: torch.Tensor,  # (S, B) int32 — retained tokens per (slot, row)
+    attn_cap: float = 0.0,
+    k_pos: Optional[torch.Tensor] = None,  # (S, B, C) absolute entry positions
+    q_pos: Optional[torch.Tensor] = None,  # (B,) current positions
+    window: int = 0,  # >0: sliding-window mask via k_pos/q_pos
+) -> torch.Tensor:
+    """Decode attention over the slot-layout cache.
+
+    Rows a slot does not own have ``lengths == 0`` and yield exactly 0
+    output, so the o-projection contraction over slots reassembles the
+    batch.  Returns (B, S, G, Dh) in q's dtype.
+    """
+    B, S, G, Dh = q.shape
+    C = k.shape[2]
+    scores = torch.einsum("bsgd,sbcd->bsgc", q.float(), k.float()) / math.sqrt(Dh)
+    if attn_cap > 0:
+        scores = attn_cap * torch.tanh(scores / attn_cap)
+    valid = (torch.arange(C, device=q.device)[None, None, :]
+             < lengths.T[..., None])  # (B, S, C)
+    if window > 0:
+        if k_pos is None or q_pos is None:
+            raise ValueError("window > 0 needs k_pos and q_pos")
+        valid &= k_pos.permute(1, 0, 2) > (q_pos[:, None, None] - window)
+    scores = torch.where(valid[:, :, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    nonempty = valid.any(dim=-1)[:, :, None, None]
+    probs = torch.where(nonempty, probs, 0.0)
+    out = torch.einsum("bsgc,sbcd->bsgd", probs, v.float())
+    return out.to(q.dtype)
+
+
+def snapkv_scores_ref(
+    q_obs: torch.Tensor,  # (B, W, Hq, Dh) observation-window queries (RoPE'd)
+    k: torch.Tensor,  # (B, T, Hkv, Dh)
+    obs_positions: torch.Tensor,  # (B, W)
+    k_positions: torch.Tensor,  # (B, T)
+    attn_cap: float = 0.0,
+) -> torch.Tensor:
+    """Observation-window importance: Σ_{w,g} softmax_T(q_w · k) → (B, Hkv, T)
+    fp32.  (Pooling is applied by the caller.)"""
+    B, W, Hq, Dh = q_obs.shape
+    Hkv = k.shape[2]
+    G = Hq // Hkv
+    qg = q_obs.reshape(B, W, Hkv, G, Dh).float()
+    s = torch.einsum("bwhgd,bthd->bhgwt", qg, k.float()) / math.sqrt(Dh)
+    if attn_cap > 0:
+        s = attn_cap * torch.tanh(s / attn_cap)
+    causal = k_positions[:, None, :] <= obs_positions[:, :, None]  # (B, W, T)
+    s = torch.where(causal[:, None, None], s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    p = torch.where(causal[:, None, None], p, 0.0)
+    return p.sum(dim=(2, 3))  # (B, Hkv, T)

@@ -1,0 +1,285 @@
+"""Serving engine: prefill (+compression) → slot-layout cache → decode.
+
+The port of ``repro.serving.engine`` for dense decoder-only models.  The
+FairKV plan enters the runtime in two places:
+
+1. **Weight layout** — ``slotify_params`` permutes/replicates the attention
+   projections into slot layout once at load time: per layer,
+   ``wq: (S, D, G, Dh)``, ``wk/wv: (S, D, Dh)``, ``wo: (S, G, Dh, D)`` with
+   slot s carrying kv-head ``slot_head[l, s]`` (zeros for empty slots).
+
+2. **Cache ownership** — replicas split the batch by the strided owner rule;
+   unowned (slot, row) pairs keep ``lengths == 0`` forever, so their decode
+   output is exactly zero and the o-projection contraction over slots
+   reassembles the full batch.
+
+The decode step is the paper's measured quantity; its attention inner loop
+is ``kernels.ops.fairkv_decode`` and the prefill compression score is
+``kernels.ops.snapkv_scores`` (hand-written CUDA on the card, the plain
+PyTorch versions on the CPU).  Everything runs eagerly; callers wrap the
+steps in ``torch.inference_mode()``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.cache.slot_cache import (
+    PlanArrays,
+    SlotCache,
+    append_token,
+    fill_from_selection,
+    init_cache,
+)
+from repro_torch.compression.base import CompressionConfig, pool_scores
+from repro_torch.compression.policies import select as policy_select
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.placement import HeadPlacement
+from repro_torch.kernels import ops as K
+from repro_torch.models import layers as L
+from repro_torch.models import transformer as M
+
+
+# ---------------------------------------------------------------------------
+# Serve state
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class ServeState:
+    cache: SlotCache
+    last_tokens: torch.Tensor  # (B,) int64
+    decode_steps: int  # decode appends since prefill (the ring-write phase)
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if (cfg.family != "dense" or cfg.attention_free or cfg.moe.num_experts
+            or cfg.is_encoder_decoder or cfg.is_vlm or cfg.qkv_bias):
+        raise NotImplementedError(
+            f"the port serves dense decoder-only models without qkv bias, "
+            f"got family={cfg.family!r} ({cfg.name})")
+
+
+# ---------------------------------------------------------------------------
+# Slot-layout weights
+# ---------------------------------------------------------------------------
+
+
+def slotify_layer(pl: dict, slot_head: np.ndarray, cfg: ModelConfig) -> dict:
+    """Build slot-layout q/k/v/o weights for one layer.  The
+    original-layout attention weights are left out of the returned dict
+    (the caller's tree keeps them)."""
+    G, Dh, D = cfg.q_per_kv, cfg.head_dim, cfg.d_model
+    dev = pl["wq"].device
+    heads = torch.as_tensor(np.maximum(slot_head, 0), dtype=torch.long, device=dev)
+    mask = torch.as_tensor(slot_head >= 0, device=dev).to(pl["wq"].dtype)
+    wq = pl["wq"].reshape(D, cfg.n_kv_heads, G, Dh)
+    wo = pl["wo"].reshape(cfg.n_kv_heads, G, Dh, D)
+    out = {k: v for k, v in pl.items() if k not in ("wq", "wk", "wv", "wo")}
+    out["wq_s"] = (wq[:, heads].permute(1, 0, 2, 3) * mask[:, None, None, None]).contiguous()
+    out["wk_s"] = (pl["wk"][:, heads].permute(1, 0, 2) * mask[:, None, None]).contiguous()
+    out["wv_s"] = (pl["wv"][:, heads].permute(1, 0, 2) * mask[:, None, None]).contiguous()
+    out["wo_s"] = (wo[heads] * mask[:, None, None, None]).contiguous()
+    return out
+
+
+def slotify_params(params: dict, plan: HeadPlacement, cfg: ModelConfig) -> dict:
+    """Serve-layout params: attention weights per plan; everything else is
+    shared with ``params`` (no copy)."""
+    arrs = plan.as_arrays()["slot_head"]
+    out = dict(params)
+    out["layers"] = [slotify_layer(pl, arrs[i], cfg)
+                     for i, pl in enumerate(params["layers"])]
+    return out
+
+
+def first_weights(pl: dict, plan: PlanArrays, layer_idx: int) -> dict:
+    """Recover original-layout q/k/v/o weights from each head's replica-0
+    slot (a gather — no second weight copy is stored)."""
+    fs = plan.first_slot[layer_idx]  # (Hkv,)
+    return {
+        "wq": pl["wq_s"][fs],  # (Hkv, D, G, Dh)
+        "wk": pl["wk_s"][fs],  # (Hkv, D, Dh)
+        "wv": pl["wv_s"][fs],
+        "wo": pl["wo_s"][fs],  # (Hkv, G, Dh, D)
+    }
+
+
+# ---------------------------------------------------------------------------
+# Prefill
+# ---------------------------------------------------------------------------
+
+
+def prefill(
+    serve_params: dict,
+    batch: Dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    plan: PlanArrays,
+    ccfg: CompressionConfig,
+) -> Tuple[ServeState, torch.Tensor, torch.Tensor]:
+    """Run the full prompt, compress each layer's KV into the slot cache.
+
+    Prefill attention runs in *original head layout*; q/k/v are recovered
+    from the slot weights of the replica-0 slots, so the result does not
+    depend on the plan.
+
+    Returns (state, last_logits (B, V) fp32, lengths (L, Hkv, B) — the
+    realized per-head retained lengths, the paper's workload observable).
+    """
+    _check_dense(cfg)
+    h, positions = M.embed_inputs(serve_params, batch, cfg)
+    B, T, D = h.shape
+    cache = init_cache(cfg.n_layers, plan.slot_head.shape[1], B,
+                       ccfg.static_capacity(), cfg.head_dim, dtype=h.dtype,
+                       device=h.device)
+    lengths_all = []
+    W = min(ccfg.obs_window, T)
+    for i, pl in enumerate(serve_params["layers"]):
+        hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
+        attn_flat, lens = _prefill_attention(pl, hn, positions, cfg, i, cache,
+                                             plan, ccfg, W)
+        h = h + _slot_o_proj(pl, attn_flat, cfg, plan, i)
+        lengths_all.append(lens)
+        hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
+        h = h + M.mlp_block(pl, hn2, cfg)
+
+    h_last = L.rms_norm(h[:, -1:], serve_params["final_norm"], cfg.rms_eps)
+    table = serve_params.get("head", serve_params["embed"])
+    logits = L.unembed(h_last, table, cfg.logit_softcap)[:, 0]
+    cache.positions.fill_(T)
+    state = ServeState(cache=cache,
+                       last_tokens=torch.argmax(logits[..., :cfg.vocab_size], dim=-1),
+                       decode_steps=0)
+    return state, logits, torch.stack(lengths_all)
+
+
+def _prefill_attention(pl, hn, positions, cfg, layer_idx, cache, plan, ccfg,
+                       W):
+    """Full attention + compression + slot-cache fill for one layer."""
+    B, T, D = hn.shape
+    Hkv, G, Dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+    fw = first_weights(pl, plan, layer_idx)
+    q = torch.einsum("btd,hdgx->bthgx", hn, fw["wq"])  # (B,T,Hkv,G,Dh)
+    k = torch.einsum("btd,hdx->bthx", hn, fw["wk"])
+    v = torch.einsum("btd,hdx->bthx", hn, fw["wv"])
+    q = q.reshape(B, T, Hkv * G, Dh)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    window = M.layer_window(cfg, layer_idx)
+    out = L.attention(q, k, v, positions, positions, window=window,
+                      attn_cap=cfg.attn_softcap, causal=True)
+    out_flat = out.reshape(B, T, Hkv * G * Dh)
+
+    # --- compression ---------------------------------------------------------
+    scores = K.snapkv_scores(q[:, T - W:].contiguous(), k.contiguous(),
+                             positions[:, T - W:].contiguous(),
+                             positions.contiguous(), attn_cap=cfg.attn_softcap)
+    scores = pool_scores(scores, ccfg.pool)
+    if window > 0:
+        # sliding-window layers never need positions older than the window
+        pos = torch.arange(T, device=scores.device)
+        scores = torch.where(pos[None, None, :] >= T - window, scores, float("-inf"))
+    idx, keep = policy_select(ccfg.policy, scores, ccfg, layer_idx, cfg.n_layers)
+    fill_from_selection(cache, layer_idx, k, v, idx, keep, plan)
+    return out_flat, keep.T  # lens (Hkv, B)
+
+
+def _slot_o_proj(pl, attn_flat, cfg, plan, layer_idx):
+    """(B, T, Hkv·G·Dh) → (B, T, D) via the first-replica o weights."""
+    fs = plan.first_slot[layer_idx]
+    wo = pl["wo_s"][fs].reshape(cfg.n_kv_heads * cfg.q_per_kv * cfg.head_dim,
+                                cfg.d_model)
+    return torch.einsum("bte,ed->btd", attn_flat, wo)
+
+
+# ---------------------------------------------------------------------------
+# Decode
+# ---------------------------------------------------------------------------
+
+
+def decode_step(
+    serve_params: dict,
+    state: ServeState,
+    cfg: ModelConfig,
+    plan: PlanArrays,
+    ccfg: CompressionConfig,
+    tokens: Optional[torch.Tensor] = None,
+) -> Tuple[ServeState, torch.Tensor]:
+    """One decode step for the whole batch.  Returns (state, logits (B, V)).
+
+    The cache is updated in place (one appended column per owned
+    (slot, row) per layer); the returned state shares it.
+    """
+    _check_dense(cfg)
+    tokens = state.last_tokens if tokens is None else tokens
+    h = L.embed(tokens[:, None], serve_params["embed"])  # (B, 1, D)
+    cache = state.cache
+    positions = cache.positions
+    for i, pl in enumerate(serve_params["layers"]):
+        hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
+        attn = _decode_attention(pl, hn, positions, cfg, i, cache, plan,
+                                 state.decode_steps, ccfg)
+        h = h + _decode_slot_o(pl, attn, cfg)
+        hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
+        h = h + M.mlp_block(pl, hn2, cfg)
+
+    h = L.rms_norm(h, serve_params["final_norm"], cfg.rms_eps)
+    table = serve_params.get("head", serve_params["embed"])
+    logits = L.unembed(h, table, cfg.logit_softcap)[:, 0]  # (B, V)
+    cache.positions += 1  # in place: every row is live in one-shot decode
+    new_state = ServeState(
+        cache=cache,
+        last_tokens=torch.argmax(logits[..., :cfg.vocab_size], dim=-1),
+        decode_steps=state.decode_steps + 1)
+    return new_state, logits
+
+
+def _decode_attention(pl, hn, positions, cfg, layer_idx, cache, plan,
+                      decode_steps, ccfg):
+    """Slot-layout attention for one new token; appends to the cache."""
+    B = hn.shape[0]
+    x = hn[:, 0]  # (B, D)
+    q = torch.einsum("bd,sdgx->bsgx", x, pl["wq_s"])  # (B, S, G, Dh)
+    k_new = torch.einsum("bd,sdx->bsx", x, pl["wk_s"])  # (B, S, Dh)
+    v_new = torch.einsum("bd,sdx->bsx", x, pl["wv_s"])
+    # RoPE at each row's absolute position
+    q = _rope_slots(q, positions, cfg)
+    k_new = _rope_slots(k_new[:, :, None, :], positions, cfg)[:, :, 0, :]
+    own = plan.owner_mask(layer_idx, B)  # (S, B)
+    append_token(cache, layer_idx, k_new.transpose(0, 1), v_new.transpose(0, 1),
+                 own, decode_steps, ring=max(1, ccfg.decode_margin))
+    return K.fairkv_decode(q, cache.k[layer_idx], cache.v[layer_idx],
+                           cache.lengths[layer_idx], attn_cap=cfg.attn_softcap,
+                           k_pos=cache.pos[layer_idx], q_pos=positions,
+                           window=M.layer_window(cfg, layer_idx))  # (B, S, G, Dh)
+
+
+def _rope_slots(q, positions, cfg):
+    """RoPE over (B, S, G, Dh) at per-row positions."""
+    B, S_, G, Dh = q.shape
+    q2 = q.reshape(B, 1, S_ * G, Dh)  # one 'seq' position per row
+    q2 = L.apply_rope(q2, positions[:, None], cfg.rope_theta)
+    return q2.reshape(B, S_, G, Dh)
+
+
+def _decode_slot_o(pl, attn, cfg):
+    """(B, S, G, Dh) → (B, 1, D): the contraction over slots.  Every
+    (head, row) pair has exactly one owning slot and unowned slots give
+    exact zeros, so the sum over S reassembles the batch's activation."""
+    return torch.einsum("bsgx,sgxd->bd", attn, pl["wo_s"])[:, None]
+
+
+def init_serve_state(cfg: ModelConfig, plan: PlanArrays, batch: int,
+                     ccfg: CompressionConfig, dtype=torch.float32,
+                     device="cpu") -> ServeState:
+    """Empty B-row ServeState: every row retired (lengths 0, positions 0)."""
+    _check_dense(cfg)
+    cache = init_cache(cfg.n_layers, int(plan.slot_head.shape[1]), batch,
+                       ccfg.static_capacity(), cfg.head_dim, dtype=dtype,
+                       device=device)
+    return ServeState(cache=cache,
+                      last_tokens=torch.zeros((batch,), dtype=torch.int64, device=device),
+                      decode_steps=0)
