@@ -6,12 +6,14 @@
 Phases (any failure exits non-zero; no phase carries on past its own):
 
 1. print the card's name and power limit (nvidia-smi);
-2. build both CUDA kernels from `src/repro_torch/csrc` with nvcc (one
+2. build the three CUDA kernels from `src/repro_torch/csrc` with nvcc (one
    process per source, started together) and print the build seconds and
    the ptxas report;
 3. hold each kernel against its plain PyTorch version on the card over a
-   shape sweep plus the main path's shapes, fp32 and bf16, ragged lengths,
-   an all-zero slot, window and softcap (tolerances stated at each check);
+   shape sweep plus the main path's shapes: fp32 and bf16, ragged lengths,
+   an all-zero slot, window and softcap; for the paged kernel also int8,
+   fp8 and mixed-kind pools, G in {1, 2, 4, 8}, null-block tables and
+   partial last blocks (tolerances stated at each check);
 4. check the port's CUDA path against its own CPU path on minitron-8b smoke
    (same weights, fp32): identical tokens and lengths, close logits;
 5. the main path at full width: minitron-8b (32 layers, d_model 4096, 32/8
@@ -19,14 +21,28 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    slots, Ada-SnapKV (budget 256 -> capacity 576), B=8 prompts of T=2048
    tokens, 32 new tokens: `measure_profile`, then `generate` under sha,
    fairkv_nodp and fairkv_dp.  Launch counters are zeroed just before and
-   read just after; asserts the launch counts, plan-invariant retained
-   lengths and a bf16 logit bound; prints timings, plan metrics, memory;
-   then one torch.profiler pass over decode steps for the kernels' share;
-6. time each kernel, its plain version and the PyTorch library call where
+   read just after each phase; asserts the launch counts, plan-invariant
+   retained lengths and a bf16 logit bound; prints timings, plan metrics,
+   memory; then one torch.profiler pass over decode steps;
+6. one-shot `generate` on the paged backend (fairkv_dp, block size 16):
+   bf16 pools next to the slot run (lengths bitwise, logit gap under the
+   bf16 bound, 32 paged-kernel launches per step, no slot-kernel launch),
+   then int8 and fp8 pools against the bf16 pools (logit cosine, argmax
+   agreement; bars in QUANT_BARS);
+7. continuous batching: a 24-request Poisson trace (prompts 512-2048
+   tokens, 16-64 new tokens) through `Engine.run_trace` with 8 rows and
+   online replanning, on the slot backend, bf16 pools, int8 pools and an
+   undersized fp8 pool that must preempt; every request must finish and
+   every pool end empty; one profiler pass over continuous decode ticks;
+8. time each kernel, its plain version and the PyTorch library call where
    one exists on the main path's own inputs (CUDA events, median of 25
    runs after warmup, L2 flushed before each run) beside the least time the
    card could take, and print them as one JSON line;
-7. last line: {"ok": true, "device": {...}}.
+9. last line: {"ok": true, "device": {...}}.
+
+``python3 chip_smoke.py --sweep-undersize 3.5 3.6 ...`` builds the
+kernels and runs only the undersized continuous run at each pool size (in
+admission charges of the largest request): how `UNDERSIZE` was chosen.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -58,6 +74,14 @@ FP32_FLOP_PER_S = 67e12  # outside the tensor cores
 
 FP32_TOL = 1e-4  # fp32 kernel vs fp32 plain version: only the summation order differs
 BF16_ULP = 2.0 ** -7  # one bf16 rounding step, relative (8-bit significand)
+# paged kernel vs its plain version: the reference's own bars for its TPU
+# kernel (tests/test_paged_kernel.py) — 1e-5 absolute with fp32 outputs
+# (fp32 and int8/fp8 pools alike: both sides dequantize to the same fp32
+# values), 0.03 absolute with bf16 outputs (one bf16 rounding of a value
+# of magnitude up to ~4)
+PAGED_FP32_TOL = 1e-5
+PAGED_BF16_TOL = 0.03
+BLOCK = 16  # paged block size of the continuous runs
 
 
 def fail(msg: str) -> None:
@@ -198,6 +222,67 @@ def check_scores(gen):
         f"(tol {FP32_TOL:g} + 1e-5|plain|), mass W*G per (b, h) conserved")
 
 
+def check_paged():
+    """paged_fairkv_decode against paged_fairkv_decode_ref on the card:
+    bf16 / fp32 pools, int8, fp8 and mixed kinds (fp32 and bf16 queries),
+    G in {1, 2, 4, 8}, ragged lengths with empty (all-null) table rows,
+    partial last blocks, an all-zero-length layer, window + softcap, fp8
+    NaN codes inside the valid range (read as 0 by both), and the main
+    path's shape (S=16, B=8, G=4, Dh=128, C=576, bs=16)."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
+    from repro_torch.kernels.ref import paged_fairkv_decode_ref
+    from repro_torch.paging.testing import make_paged_layer, quantize_paged_layer
+    rng = np.random.default_rng(SEED)
+    C_main = int(round(ALPHA * BUDGET)) + MARGIN
+    shapes = [(3, 2, 1, 64, 96, 16), (4, 3, 2, 32, 200, 8), (2, 2, 8, 64, 256, 32),
+              (3, 2, 4, 128, 100, 64), (N_SHARDS * SLOTS_PER_SHARD, B, 4, 128, C_main, BLOCK)]
+    worst = {}  # (pools, output dtype) -> max abs err
+    n = 0
+    for (S, Bq, G, Dh, C, bs) in shapes:
+        for window, cap in ((0, 0.0), (C // 3, 0.0), (0, 30.0), (C // 2, 30.0)):
+            for mode in ("fp32", "bf16", "int8", "fp8", "mixed"):
+                for q_dt in ((torch.float32, torch.bfloat16) if mode in ("int8", "fp8", "mixed")
+                             else (torch.float32 if mode == "fp32" else torch.bfloat16,)):
+                    pool_dt = torch.bfloat16 if mode == "bf16" else torch.float32
+                    lengths = np.zeros((S, Bq), np.int32) if n % 17 == 5 else None
+                    kp, vp, pp, tbl, ln = make_paged_layer(rng, S, Bq, C, bs, Dh, dtype=pool_dt,
+                                                           lengths=lengths, device="cuda")
+                    q = torch.from_numpy(rng.normal(size=(Bq, S, G, Dh)).astype(np.float32)
+                                         ).to("cuda", q_dt)
+                    qpos = torch.full((Bq,), C + 7, dtype=torch.int32, device="cuda")
+                    qkw = {}
+                    if mode in ("int8", "fp8", "mixed"):
+                        kinds = {"int8": np.zeros(S), "fp8": np.ones(S),
+                                 "mixed": np.arange(S) % 2}[mode].astype(np.int32)
+                        kinds = torch.from_numpy(kinds).to("cuda")
+                        kp, vp, ks, vs = quantize_paged_layer(kp, vp, tbl, kinds)
+                        if mode != "int8":
+                            # fp8 NaN codes inside valid columns of fp8 slots read as 0
+                            fp8_blocks = tbl[kinds.bool()][..., 0]
+                            fp8_blocks = fp8_blocks[fp8_blocks > 0]
+                            kp[fp8_blocks, 0, :4] = 0x7F
+                            vp[fp8_blocks, 0, 4:8] = -1  # 0xFF
+                        qkw = dict(k_scale=ks, v_scale=vs, kinds=kinds)
+                    out = paged_fairkv_decode_cuda(q, kp, vp, pp, tbl, ln, C, cap,
+                                                   q_pos=qpos, window=window, **qkw)
+                    ref = paged_fairkv_decode_ref(q, kp, vp, pp, tbl, ln, C, cap,
+                                                  q_pos=qpos, window=window, **qkw)
+                    tag = (f"paged_fairkv_decode {mode} q={q_dt} {(S, Bq, G, Dh, C, bs)} "
+                           f"w={window} cap={cap}")
+                    tol = PAGED_FP32_TOL if q_dt == torch.float32 else PAGED_BF16_TOL
+                    key = (mode, str(q_dt).replace("torch.", ""))
+                    worst[key] = max(worst.get(key, 0.0), _cmp(tag, out, ref, tol))
+                    empty = (ln == 0).T  # (B, S)
+                    if bool(empty.any()) and out[empty].abs().max().item() != 0.0:
+                        fail(f"{tag}: a (slot, row) of length 0 is not exactly 0")
+                    n += 1
+    log(f"[check] paged_fairkv_decode: {n} cases vs plain (tol {PAGED_FP32_TOL:g} with "
+        f"fp32 outputs, {PAGED_BF16_TOL:g} with bf16); max abs err by (pools, q): "
+        + ", ".join(f"{p}/{q} {e:.3e}" for (p, q), e in sorted(worst.items())))
+
+
 # ---------------------------------------------------------------------------
 # phase 4: CUDA port vs CPU port at smoke size
 # ---------------------------------------------------------------------------
@@ -244,25 +329,34 @@ def smoke_parity():
 # ---------------------------------------------------------------------------
 
 
-def main_path():
-    import numpy as np
-    import torch
-    from repro_torch.api import CompressionConfig, Engine, EngineConfig, PlannerConfig
-    from repro_torch.configs.base import InputShape
-    from repro_torch.kernels import build
-    from repro_torch.training.data import SyntheticLM
+def planner(mode, ch):
+    from repro_torch.api import PlannerConfig
+    return PlannerConfig(mode=mode, extra_copies=ch, slots_per_shard=SLOTS_PER_SHARD,
+                         batch_cap=B)
 
-    def planner(mode, ch):
-        return PlannerConfig(mode=mode, extra_copies=ch,
-                             slots_per_shard=SLOTS_PER_SHARD, batch_cap=B)
 
-    cfg = EngineConfig.for_arch(
+def main_config():
+    """minitron-8b at full width in bf16 on the card, Ada-SnapKV budget 256
+    (capacity 576), 8 shards x 2 slots; planner sha (callers replace it)."""
+    from repro_torch.api import CompressionConfig, EngineConfig
+    return EngineConfig.for_arch(
         ARCH, n_shards=N_SHARDS, dtype="bfloat16", max_seq_len=T + GEN,
         seed=SEED, device="cuda",
         compression=CompressionConfig(policy="ada_snapkv", budget=BUDGET,
                                       alpha_max=ALPHA, obs_window=OBS, pool=POOL,
                                       sink=SINK, decode_margin=MARGIN),
         planner=planner("sha", 0))
+
+
+def main_path():
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine
+    from repro_torch.configs.base import InputShape
+    from repro_torch.kernels import build
+    from repro_torch.training.data import SyntheticLM
+
+    cfg = main_config()
     m = cfg.model
     log(f"[main] {m.name}: {m.n_layers} layers (full depth), d_model {m.d_model}, "
         f"{m.n_heads}/{m.n_kv_heads} heads, head_dim {m.head_dim}, d_ff {m.d_ff}, "
@@ -321,10 +415,10 @@ def main_path():
             f"E={res.efficiency:.4f} makespan={res.makespan:.1f} | "
             f"replicas {int((eng.plan.as_arrays()['slot_head'] >= 0).sum())}")
     launches = dict(build.LAUNCHES)
-    log(f"[main] launches over the main path (measure_profile + 3 x generate): {launches}")
-    for name, n in launches.items():
-        if n == 0:
-            fail(f"kernel {name} was never launched on the main path")
+    log(f"[main] launches over the slot one-shot path (measure_profile + 3 x generate): "
+        f"{launches}")
+    if launches["paged_fairkv_decode"] != 0:
+        fail("the slot backend launched the paged kernel")
 
     lens = [results[mode].lengths for mode, _ in PLANNERS]
     if not all(np.array_equal(lens[0], x) for x in lens[1:]):
@@ -356,12 +450,16 @@ def main_path():
     log("[main] summary " + json.dumps({"planners": mode_rows,
                                          "max_memory_allocated": peak,
                                          "kernel_share_of_decode": share}))
-    return eng, launches
+    ctx = {"cfg": cfg.replace(planner=planner("fairkv_dp", 4)), "params": params,
+           "profile": profile, "prompts": prompts, "slot_dp": results["fairkv_dp"],
+           "teacher": results["sha"].tokens[:, :GEN]}
+    return eng, launches, ctx
 
 
-def _device_profile(fn):
+def _device_profile(fn, ours_keys=("fairkv_decode_kernel", "snapkv_")):
     """Run ``fn`` under torch.profiler; returns (wall s, total device us,
-    our kernels' device us, top kernels [(name, us)])."""
+    device us of the kernels whose names contain one of ``ours_keys``, top
+    kernels [(name, us)])."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -374,7 +472,7 @@ def _device_profile(fn):
             us = ev.self_device_time_total
             total += us
             kernels.append((ev.key[:70], us))
-            if "fairkv_decode_kernel" in ev.key or "snapkv_" in ev.key:
+            if any(k in ev.key for k in ours_keys):
                 ours += us
     kernels.sort(key=lambda kv: -kv[1])
     return wall, total, ours, kernels[:6]
@@ -424,7 +522,334 @@ def profile_prefill(eng, prompts):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: timings on the main path's inputs
+# phase 6: the paged backend, one-shot (bf16 pools next to the slot run,
+# then int8 and fp8 pools against the bf16 pools)
+# ---------------------------------------------------------------------------
+
+# int8 / fp8 pools against bf16 pools, both teacher-forced on the same
+# tokens (32 steps x 8 rows = 256 positions + the prefill's 8).  Why
+# these bars: an int8 code carries ~2
+# decimal digits per block (relative step 1/254 of the block's amax) and
+# e4m3 ~1 (relative step 1/16); attention averages the per-entry errors,
+# but 32 layers stack them, and random-weight logits are nearly flat, so
+# argmax flips easily: the bf16 plans alone agree on only ~97.5% of argmax
+# tokens (PERF.md).  So the bars are on the logit vector's direction
+# (mean cosine over positions) first, and loose on argmax agreement.
+QUANT_BARS = {"int8": {"cosine": 0.99, "argmax": 0.80},
+              "fp8": {"cosine": 0.95, "argmax": 0.50}}
+
+
+def _count(fn):
+    """Run ``fn`` with the launch counters zeroed just before; returns
+    (result, launches during the run)."""
+    from repro_torch.kernels import build
+    build.reset_launches()
+    out = fn()
+    return out, dict(build.LAUNCHES)
+
+
+def _layer0(cache):
+    """Layer 0 of a paged cache, cloned (the kernel's own inputs)."""
+    t = {"k_pool": cache.k_pool[0], "v_pool": cache.v_pool[0],
+         "pos_pool": cache.pos_pool[0], "table": cache.block_table[0],
+         "lengths": cache.lengths[0], "positions": cache.positions}
+    if cache.k_scale is not None:
+        t["k_scale"], t["v_scale"] = cache.k_scale[0], cache.v_scale[0]
+    return {k: v.clone() for k, v in t.items()}
+
+
+def paged_oneshot(ctx):
+    """`Engine.generate` with ``cache_backend="paged"`` at full width:
+    bf16 pools at worst-case size next to the slot run of the same plan
+    (lengths bitwise, logit gap under the bf16 bound, the paged kernel on
+    every layer of every step and the slot kernel never), then int8 and
+    fp8 pools against the bf16 pools (QUANT_BARS)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine, PagingConfig
+    m = ctx["cfg"].model
+    out = {"launches": {}}
+    ref = None
+    for kv in ("fp32", "int8", "fp8"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = ctx["cfg"].replace(cache_backend="paged",
+                                 paging=PagingConfig(block_size=BLOCK, kv_dtype=kv))
+        eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
+        res, got = _count(lambda: eng.generate(ctx["prompts"], GEN,
+                                               teacher_tokens=ctx["teacher"]))
+        name = "bf16" if kv == "fp32" else kv
+        mem = eng.memory_stats()
+        log(f"[paged] one-shot {name} pools: prefill {res.prefill_s:.3f} s | decode median "
+            f"{1e3 * statistics.median(res.step_s):.2f} ms/step | blocks in use "
+            f"{mem['blocks_in_use']} of {mem['blocks_total']} ({mem['cache_bytes']} B vs "
+            f"{mem['slot_equivalent_bytes']} B slot-equivalent) | launches {got}")
+        if got["paged_fairkv_decode"] != m.n_layers * GEN or got["fairkv_decode"] != 0:
+            fail(f"paged {name}: paged_fairkv_decode launched {got['paged_fairkv_decode']} "
+                 f"times (expected {m.n_layers} x {GEN}), fairkv_decode "
+                 f"{got['fairkv_decode']} (expected 0)")
+        if not np.isfinite(res.logits).all():
+            fail(f"paged {name}: non-finite logits")
+        for k, v in got.items():
+            out["launches"][k] = out["launches"].get(k, 0) + v
+        out[name] = _layer0(eng.state.cache)
+        if kv == "fp32":
+            slot = ctx["slot_dp"]
+            if not np.array_equal(res.lengths, slot.lengths):
+                fail("paged vs slot: retained lengths differ")
+            tol = m.n_layers * 2.0 ** -8 * float(np.abs(slot.logits).max())
+            d = float(np.abs(res.logits - slot.logits).max())
+            same = float((res.tokens == slot.tokens).mean())
+            log(f"[paged] bf16 pools vs slot cache (fairkv_dp, teacher-forced): lengths "
+                f"bitwise equal; max |logit gap| {d:.4f} (bound {tol:.4f}); argmax equal "
+                f"at {100 * same:.1f}% of positions")
+            if not d < tol:
+                fail(f"paged vs slot: logit gap {d} >= {tol}")
+            ref = res
+        else:
+            a = torch.from_numpy(res.logits).double().reshape(-1, res.logits.shape[-1])
+            b = torch.from_numpy(ref.logits).double().reshape(-1, ref.logits.shape[-1])
+            cos = float(torch.nn.functional.cosine_similarity(a, b, dim=-1).mean())
+            agree = float((res.tokens == ref.tokens).mean())
+            bars = QUANT_BARS[kv]
+            log(f"[paged] {kv} pools vs bf16 pools (teacher-forced): mean logit cosine "
+                f"{cos:.6f} (bar {bars['cosine']}), argmax agreement {100 * agree:.1f}% "
+                f"(bar {100 * bars['argmax']:.0f}%), max |logit gap| "
+                f"{float(np.abs(res.logits - ref.logits).max()):.4f}")
+            if cos < bars["cosine"] or agree < bars["argmax"]:
+                fail(f"{kv} pools below their quality bars")
+        del eng, res
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 7: continuous batching at full width
+# ---------------------------------------------------------------------------
+
+N_REQ, RATE, PROMPT_MIN, PROMPT_MAX, NEW_MIN, NEW_MAX, MAX_ROWS = 24, 0.25, 512, 2048, 16, 64, 8
+# undersized pool of run (d), in admission charges of the largest request.
+# Admission charges a request its prefill bound plus one growth block per
+# head, about 30 blocks per layer more than a request realizes at prefill,
+# and that slack covers most of a request's own 16-64-token growth; so on
+# this trace a dry pool is rare and depends on how the growth of
+# concurrent requests lines up.  The candidates are tried in order until
+# one preempts (each attempt is a full run with its own checks); the trace
+# and the realized lengths are deterministic, so the first one normally
+# does.  Chosen from a sweep of sizes on this trace (`--sweep-undersize`,
+# results in PERF.md).
+UNDERSIZE = (3.6, 3.65, 3.55)
+
+
+def make_trace(vocab):
+    """24 requests from `synthesize_requests` (seed 0): Poisson arrivals,
+    prompts of 512-2048 tokens; 16-64 new tokens each, drawn from a numpy
+    generator of the same seed."""
+    import numpy as np
+    from repro_torch.api import synthesize_requests
+    reqs = synthesize_requests(N_REQ, RATE, vocab, min_prompt=PROMPT_MIN,
+                               max_prompt=PROMPT_MAX, max_new_tokens=NEW_MAX, seed=SEED)
+    gen = np.random.default_rng(SEED).integers(NEW_MIN, NEW_MAX + 1, size=N_REQ)
+    for r, g in zip(reqs, gen):
+        r.max_new_tokens = int(g)
+    return reqs
+
+
+def continuous_run(ctx, name, backend, kv, n_blocks=0, profile=False):
+    """One trace through `Engine.run_trace` (8 rows, replanning on with
+    `SchedulerConfig`'s defaults) with the launch counters zeroed just
+    before and read just after; checks that every request finished with
+    all its tokens, the launch counts, and (paged) an empty, consistent
+    pool at the end.  Returns (launches, summary)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine, PagingConfig, SchedulerConfig
+    m = ctx["cfg"].model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ctx["cfg"].replace(
+        cache_backend=backend, scheduler=SchedulerConfig(max_rows=MAX_ROWS),
+        paging=PagingConfig(block_size=BLOCK, kv_dtype=kv, n_blocks=n_blocks))
+    eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
+    reqs = make_trace(m.vocab_size)
+    sched = eng._ensure_scheduler()
+    peak_blocks = [0]
+    if backend == "paged":
+        step = sched.step
+
+        def counted_step():  # realized need: peak blocks in use per layer
+            ev = step()
+            pool = sched.backend.pool
+            peak_blocks[0] = max(peak_blocks[0],
+                                 int((pool.usable_blocks - pool.free_blocks()).max()))
+            return ev
+
+        sched.step = counted_step
+    torch.cuda.reset_peak_memory_stats()
+    summary, got = _count(lambda: eng.run_trace(reqs, max_steps=5000))
+    ticks = summary["decode_ticks"]
+    admissions = N_REQ + summary["preemptions"]
+    lat = summary["latency"]
+    step_ms = 1e3 * np.asarray(sched.step_s)
+    acc = sum(1 for e in summary["replan_log"] if e["accepted"])
+    rej = len(summary["replan_log"]) - acc
+    in_use = summary["memory"].get("blocks_in_use", 0)
+    log(f"[cont] {name:10s} finished {summary['finished']}/{N_REQ} | tokens "
+        f"{summary['generated_tokens']} | steps {summary['steps']} (decode ticks {ticks}) | "
+        f"preemptions {summary['preemptions']} | replans accepted {acc} rejected {rej} | "
+        f"step median {np.median(step_ms):.2f} ms p90 {np.percentile(step_ms, 90):.2f} ms | "
+        f"TTFT p50 {lat.get('p50_ttft_s', float('nan')):.3f} s p99 "
+        f"{lat.get('p99_ttft_s', float('nan')):.3f} s | {summary['tokens_per_s']:.1f} tokens/s | "
+        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
+        + (f"pool {n_blocks or 'worst-case'} blocks/layer, peak in use {peak_blocks[0]}/layer, "
+           f"in use at the end {in_use} | " if backend == "paged" else "")
+        + f"launches {got}")
+    if summary["finished"] != N_REQ or any(not r.is_finished or r.cancelled for r in reqs):
+        fail(f"{name}: {summary['finished']} of {N_REQ} requests finished")
+    if summary["generated_tokens"] != sum(r.max_new_tokens for r in reqs):
+        fail(f"{name}: generated {summary['generated_tokens']} tokens, expected "
+             f"{sum(r.max_new_tokens for r in reqs)}")
+    decode_kernel = "paged_fairkv_decode" if backend == "paged" else "fairkv_decode"
+    other = "fairkv_decode" if backend == "paged" else "paged_fairkv_decode"
+    if got[decode_kernel] != m.n_layers * ticks or got[other] != 0:
+        fail(f"{name}: {decode_kernel} launched {got[decode_kernel]} times (expected "
+             f"{m.n_layers} x {ticks} ticks), {other} {got[other]} (expected 0)")
+    if got["snapkv_scores"] != m.n_layers * admissions:
+        fail(f"{name}: snapkv_scores launched {got['snapkv_scores']} times, expected "
+             f"{m.n_layers} x {admissions} prefills")
+    if backend == "paged":
+        pool = sched.backend.pool
+        pool.check_invariants()
+        if pool.blocks_in_use() != 0:
+            fail(f"{name}: {pool.blocks_in_use()} blocks still in use at the end")
+        log(f"[cont] {name}: BlockPool.check_invariants() passed; 0 blocks in use")
+    out = {k: summary[k] for k in ("steps", "decode_ticks", "wall_s", "finished",
+                                   "generated_tokens", "replans", "preemptions",
+                                   "tokens_per_s")}
+    out.update(step_ms_median=float(np.median(step_ms)),
+               step_ms_p90=float(np.percentile(step_ms, 90)),
+               ttft_s_p50=lat.get("p50_ttft_s"), ttft_s_p99=lat.get("p99_ttft_s"),
+               replans_accepted=acc, replans_rejected=rej,
+               peak_memory=torch.cuda.max_memory_allocated(), peak_blocks=peak_blocks[0],
+               n_blocks=n_blocks, tokens=[list(r.generated) for r in reqs])
+    if profile:
+        profile_continuous(eng)
+    return got, out
+
+
+def undersized_blocks(ctx, factor: float) -> int:
+    """Pool size (blocks per layer) of an undersized run: ``factor`` times
+    the admission charge of the largest request, and never below the
+    worst case of a single request (which `never_fits` requires)."""
+    from repro_torch.api import PagingConfig
+    from repro_torch.paging.backend import PagedBackend
+    probe = PagedBackend(ctx["cfg"].model, ctx["cfg"].compression,
+                         paging=PagingConfig(block_size=BLOCK))
+    admit = int(probe._layer_blocks(PROMPT_MAX, NEW_MAX, False).max())
+    worst = int(probe._layer_blocks(PROMPT_MAX, NEW_MAX, True).max())
+    return max(int(factor * admit), worst) + 1
+
+
+def continuous_runs(ctx):
+    """The same trace on (a) the slot backend, (b) bf16 pools at worst-case
+    size, (c) int8 pools at worst-case size, (d) fp8 pools sized below the
+    realized need (`undersized_blocks`), which must preempt."""
+    launches, runs = {}, {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for name, backend, kv in (("slot", "slot", "fp32"), ("paged bf16", "paged", "fp32"),
+                              ("paged int8", "paged", "int8")):
+        got, runs[name] = continuous_run(ctx, name, backend, kv,
+                                         profile=name == "paged bf16")
+        add(got)
+    for factor in UNDERSIZE:
+        n_blocks = undersized_blocks(ctx, factor)
+        got, runs["paged fp8"] = continuous_run(ctx, "paged fp8", "paged", "fp8", n_blocks)
+        add(got)
+        if runs["paged fp8"]["preemptions"] >= 1:
+            break
+        log(f"[cont] paged fp8: no preemption with {n_blocks} blocks/layer "
+            f"({factor} admission charges); next size")
+    else:
+        fail(f"paged fp8: no undersized pool of {UNDERSIZE} admission charges preempted")
+    same = sum(a == b for a, b in zip(runs["slot"]["tokens"], runs["paged bf16"]["tokens"]))
+    log(f"[cont] slot vs paged bf16: {same}/{N_REQ} requests with identical tokens")
+    log("[cont] summary " + json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in runs.items()}))
+    return launches
+
+
+def sweep_undersize(factors):
+    """``python3 chip_smoke.py --sweep-undersize F1 F2 ...``: run (d) alone
+    with pools of each factor of admission charges and print one line per
+    size (preemptions, peak blocks in use, steps); how `UNDERSIZE` was
+    chosen.  Same weights, profile and trace as the full run."""
+    from repro_torch.api import Engine
+    from repro_torch.configs.base import InputShape
+    from repro_torch.training.data import SyntheticLM
+    cfg = main_config()
+    data = SyntheticLM(cfg.model, InputShape("chip_smoke", T, B, "prefill"))
+    probe = Engine.build(cfg)
+    ctx = {"cfg": cfg.replace(planner=planner("fairkv_dp", 4)), "params": probe.params,
+           "profile": probe.measure_profile(data.get_batch(123)["tokens"])}
+    del probe
+    for factor in factors:
+        n_blocks = undersized_blocks(ctx, factor)
+        _, out = continuous_run(ctx, f"fp8 x{factor}", "paged", "fp8", n_blocks)
+        log(f"[sweep] {factor} admission charges = {n_blocks} blocks/layer: preemptions "
+            f"{out['preemptions']}, peak in use {out['peak_blocks']}, steps {out['steps']}")
+
+
+def profile_continuous(eng, steps=4):
+    """Where a continuous decode tick's time goes: fill all eight rows,
+    then one torch.profiler pass over a few pure decode ticks, with the
+    host time of `prepare_decode` (block allocation + table copy) taken
+    apart; the requests are cancelled afterwards."""
+    import numpy as np
+    sched = eng.scheduler
+    rng = np.random.default_rng(SEED + 7)
+    reqs = [eng.submit(rng.integers(0, eng.cfg.model.vocab_size, size=PROMPT_MAX // 2),
+                       max_new_tokens=NEW_MAX) for _ in range(MAX_ROWS)]
+    sched.trigger.window = 10 ** 9  # no replan inside the measured ticks
+    while sched.queue:
+        eng.step()
+    prep = sched.backend.prepare_decode
+    spent = []
+
+    def timed_prepare(*a, **k):
+        t0 = time.perf_counter()
+        out = prep(*a, **k)
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    sched.backend.prepare_decode = timed_prepare
+    t_plain = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    plain_ms = 1e3 * (time.perf_counter() - t_plain) / steps
+    wall, total, ours, top = _device_profile(lambda: [eng.step() for _ in range(steps)],
+                                             ours_keys=("paged_decode_kernel",))
+    sched.backend.prepare_decode = prep
+    for r in reqs:
+        eng.cancel(r.req_id)
+    if total <= 0:
+        log("[profile] torch.profiler recorded no device time for the continuous ticks")
+        return
+    log(f"[profile] continuous paged bf16, {MAX_ROWS} live rows: un-profiled tick "
+        f"{plain_ms:.2f} ms; prepare_decode {1e3 * float(np.mean(spent[:steps])):.3f} ms host per "
+        f"tick; profiled {steps} ticks: device busy {total / 1e3:.2f} ms of {wall * 1e3:.2f} ms "
+        f"wall ({100 * total / 1e6 / wall:.1f}%), device time per tick {total / 1e3 / steps:.2f} ms "
+        f"= {100 * total / 1e6 / steps / (plain_ms / 1e3):.1f}% of the un-profiled tick; "
+        f"paged_fairkv_decode {ours / 1e3 / steps:.3f} ms per tick "
+        f"({100 * ours / total:.2f}% of device time)")
+    for name, us in top:
+        log(f"[profile]   tick top kernel {us / 1e3 / steps:8.3f} ms/tick  {name}")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: timings on the main path's inputs
 # ---------------------------------------------------------------------------
 
 
@@ -447,7 +872,7 @@ def time_ms(fn, flush, iters=25, warmup=5):
     return statistics.median(ts)
 
 
-def time_kernels(engine, launches):
+def time_kernels(engine, launches, paged):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda
@@ -520,6 +945,53 @@ def time_kernels(engine, launches):
         f"Dh={Dh}, T={T}) bf16: kernel {kern2:.4f} ms, plain {plain2:.4f} ms, "
         f"bound {bound2:.4f} ms (max of {bytes2} B / 3.35 TB/s and {flops2} FLOP / "
         f"989 TFLOP/s; {flops2 / FP32_FLOP_PER_S * 1e3:.4f} ms at the fp32 CUDA-core peak)")
+
+    # kernel 3 on layer 0 of the paged caches after the one-shot decode
+    # (bf16 pools; int8 pools beside them)
+    from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
+    from repro_torch.kernels.ref import paged_fairkv_decode_ref
+    C = int(round(ALPHA * BUDGET)) + MARGIN
+    row = {"name": "paged_fairkv_decode", "route": "cuda",
+           "source": "src/repro_torch/csrc/paged_fairkv_decode.cu",
+           "replaces": "src/repro/kernels/paged_fairkv_decode.py:326",
+           "launches": launches["paged_fairkv_decode"], "library_ms": None}
+    for name in ("bf16", "int8"):
+        t = paged[name]
+        tbl, ln = t["table"], t["lengths"]
+        S, Bq, M = tbl.shape
+        q3 = torch.randn((Bq, S, G, Dh), generator=gen, device="cuda").to(torch.bfloat16)
+        kw = {}
+        if name == "int8":
+            kinds = torch.zeros((S,), dtype=torch.int32, device="cuda")
+            kw = dict(k_scale=t["k_scale"], v_scale=t["v_scale"], kinds=kinds)
+        args = (q3, t["k_pool"], t["v_pool"], t["pos_pool"], tbl, ln, C)
+        out3 = paged_fairkv_decode_cuda(*args, **kw)
+        ref3 = paged_fairkv_decode_ref(*args, **kw)
+        err3 = _cmp(f"paged_fairkv_decode ({name} pools, main-path cache)", out3, ref3,
+                    PAGED_BF16_TOL)
+        kern3 = time_ms(lambda: paged_fairkv_decode_cuda(*args, **kw), flush)
+        plain3 = time_ms(lambda: paged_fairkv_decode_ref(*args, **kw), flush)
+        # bytes this data needs: the K and V rows of the retained columns,
+        # the table entries and (int8) the two scales of each valid block,
+        # q, out, lengths; operations: q.k and p.v per retained column
+        n_ret = int(ln.sum().item())
+        n_blk = int(((ln + BLOCK - 1) // BLOCK).sum().item())
+        it3 = t["k_pool"].element_size()
+        bytes3 = (n_ret * Dh * 2 * it3 + n_blk * 4 + (n_blk * 8 if kw else 0)
+                  + 2 * q3.numel() * 2 + ln.numel() * 4)
+        flops3 = 4 * n_ret * G * Dh
+        bound3 = 1e3 * max(bytes3 / HBM_BYTES_PER_S, flops3 / BF16_FLOP_PER_S)
+        sfx = "" if name == "bf16" else "_int8"
+        row.update({f"max_abs_err{sfx}": err3, f"ms{sfx}": kern3, f"plain_ms{sfx}": plain3,
+                    f"bound_ms{sfx}": bound3})
+        if name == "bf16":
+            row["bound_by"] = ("bytes" if bytes3 / HBM_BYTES_PER_S >= flops3 / BF16_FLOP_PER_S
+                               else "operations")
+        log(f"[time] paged_fairkv_decode, {name} pools, at (B={Bq}, S={S}, G={G}, Dh={Dh}, "
+            f"bs={BLOCK}, M={M}), sum(lengths)={n_ret} in {n_blk} blocks: kernel "
+            f"{kern3:.4f} ms, plain {plain3:.4f} ms, bound {bound3:.4f} ms "
+            f"({bytes3} B / 3.35 TB/s); no single PyTorch call reads a block table")
+    rows.append(row)
     return rows
 
 
@@ -547,13 +1019,27 @@ def main() -> int:
     card = card_line()
     log(f"[card] {card}")
     build_kernels()
+    if "--sweep-undersize" in sys.argv:
+        sweep_undersize([float(a) for a in sys.argv[sys.argv.index("--sweep-undersize") + 1:]])
+        return 0
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     check_decode(gen)
     check_scores(gen)
+    check_paged()
     smoke_parity()
-    engine, launches = main_path()
-    rows = time_kernels(engine, launches)
+    engine, launches, ctx = main_path()
+    paged = paged_oneshot(ctx)
+    cont = continuous_runs(ctx)
+    # each phase of the main path counts its own launches (zeroed just
+    # before, read just after): one-shot slot, one-shot paged, continuous
+    for k in launches:
+        launches[k] += paged["launches"][k] + cont[k]
+    log(f"[main] launches over the whole main path: {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"kernel {name} was never launched on the main path")
+    rows = time_kernels(engine, launches, paged)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,4 +1,5 @@
-"""The port's public API: `EngineConfig` + `Engine` (one-shot serving).
+"""The port's public API: `EngineConfig` + `Engine` (one-shot and
+continuous serving).
 
 The facade loads lazily (PEP 562): the registry decorators must be
 importable from the ``compression``/``core`` provider modules without
@@ -10,11 +11,14 @@ import importlib
 
 from repro_torch.api.registry import (  # noqa: F401
     ASSIGNMENT_ENGINE_REGISTRY,
+    CACHE_BACKEND_REGISTRY,
     POLICY_REGISTRY,
     Registry,
+    list_cache_backends,
     list_engines,
     list_policies,
     register_assignment_engine,
+    register_cache_backend,
     register_policy,
 )
 
@@ -23,6 +27,11 @@ _LAZY = {
     "DTYPES": "repro_torch.api.config",
     "Engine": "repro_torch.api.engine",
     "GenerationResult": "repro_torch.api.engine",
+    "StreamEvent": "repro_torch.api.engine",
+    "PagingConfig": "repro_torch.paging.block_pool",
+    "SchedulerConfig": "repro_torch.serving.scheduler",
+    "Request": "repro_torch.serving.request",
+    "synthesize_requests": "repro_torch.serving.request",
     "CompressionConfig": "repro_torch.compression.base",
     "PlannerConfig": "repro_torch.core.planner",
 }

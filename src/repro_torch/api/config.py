@@ -1,9 +1,10 @@
-"""`EngineConfig`: one validated config for the one-shot serving path.
+"""`EngineConfig`: one validated config for the serving stack.
 
-The port's counterpart of ``repro.api.config.EngineConfig`` for what this
-slice runs: ``ModelConfig`` (architecture), ``CompressionConfig`` (per-head
-KV budgets), ``PlannerConfig`` (FairKV placement) and the engine-level
-knobs.  ``__post_init__`` validates every name-typed field against the
+The port's counterpart of ``repro.api.config.EngineConfig`` for what the
+port runs: ``ModelConfig`` (architecture), ``CompressionConfig`` (per-head
+KV budgets), ``PlannerConfig`` (FairKV placement), ``SchedulerConfig``
+(continuous batching), the cache backend and its ``PagingConfig``, and the
+engine-level knobs.  ``__post_init__`` validates every name-typed field against the
 port's registries, so a typo fails at construction with the registered
 names.  ``device`` defaults to ``"cuda"``: the CPU runs only when asked for.
 """
@@ -14,11 +15,13 @@ from dataclasses import dataclass, field
 
 import torch
 
-from repro_torch.api.registry import list_engines, list_policies
+from repro_torch.api.registry import list_cache_backends, list_engines, list_policies
 from repro_torch.compression.base import CompressionConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.planner import PLANNER_MODES, PlannerConfig
+from repro_torch.paging.block_pool import PagingConfig
+from repro_torch.serving.scheduler import SchedulerConfig
 
 # the one dtype-name table: validation and Engine's resolution both read it
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -34,12 +37,15 @@ class EngineConfig:
     ``profile_seed`` parameterize the synthetic per-head workload profile
     used when the caller does not supply a measured one.  ``device`` is
     where weights, cache and steps live (``"cuda"``, ``"cuda:1"``,
-    ``"cpu"``).
+    ``"cpu"``).  ``cache_backend`` names a registered backend (``"slot"``:
+    dense static capacity; ``"paged"``: block pools sized by ``paging``);
+    ``scheduler`` configures continuous batching.
     """
 
     model: ModelConfig
     compression: CompressionConfig = field(default_factory=CompressionConfig)
     planner: PlannerConfig = field(default_factory=PlannerConfig)
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
     n_shards: int = 1
     dtype: str = "float32"
     max_seq_len: int = 512
@@ -47,6 +53,8 @@ class EngineConfig:
     profile_skew: float = 1.0
     profile_seed: int = 1
     device: str = "cuda"
+    cache_backend: str = "slot"
+    paging: PagingConfig = field(default_factory=PagingConfig)
 
     def __post_init__(self):
         if not isinstance(self.model, ModelConfig):
@@ -77,6 +85,33 @@ class EngineConfig:
             raise ValueError(
                 f"compression.budget must be >= 1, got "
                 f"{self.compression.budget}")
+        if self.scheduler.max_rows < 1:
+            raise ValueError(
+                f"scheduler.max_rows must be >= 1, got "
+                f"{self.scheduler.max_rows}")
+        if self.cache_backend not in list_cache_backends():
+            raise ValueError(
+                f"unknown cache backend {self.cache_backend!r}; registered: "
+                f"{list_cache_backends()}")
+        if not isinstance(self.paging, PagingConfig):
+            raise TypeError(
+                f"paging must be a PagingConfig, got "
+                f"{type(self.paging).__name__}")
+        # int8/fp8 pools exist only on the paged backend, and overrides must
+        # address real (layer, head) cells of this model
+        if self.paging.kv_dtype != "fp32":
+            if self.cache_backend != "paged":
+                raise ValueError(
+                    f"paging.kv_dtype={self.paging.kv_dtype!r} (quantized "
+                    f"KV pools) requires cache_backend='paged', got "
+                    f"{self.cache_backend!r}")
+            L, H = self.model.n_layers, self.model.n_kv_heads
+            for lyr, hd, dt in self.paging.kv_dtype_overrides:
+                if lyr >= L or hd >= H:
+                    raise ValueError(
+                        f"paging.kv_dtype override ({lyr}, {hd}) -> {dt!r} "
+                        f"out of range for model {self.model.name!r} with "
+                        f"{L} layers x {H} kv heads")
         torch.device(self.device)  # raises on a malformed device string
 
     # ---- constructors ------------------------------------------------------

@@ -1,36 +1,48 @@
-"""The `Engine` facade: one front door for FairKV one-shot serving.
+"""The `Engine` facade: one front door for FairKV serving.
 
 Owns the serving composition — parameter init, plan construction,
-slot-layout weight permutation, and cache state — behind a few methods:
+slot-layout weight permutation, cache backend and cache state — behind a
+few methods:
 
-- `Engine.generate(prompts, max_new_tokens)` runs prefill + compression +
-  the decode loop and returns a `GenerationResult` (tokens, logits,
-  realized per-head lengths, plan metrics, timings);
+- one-shot: `Engine.generate(prompts, max_new_tokens)` runs prefill +
+  compression + the decode loop on the configured cache backend and
+  returns a `GenerationResult` (tokens, logits, realized per-head lengths,
+  plan metrics, timings);
+- continuous: `submit` / `step` / `stream` / `run_trace` / `cancel` /
+  `drain` drive the request scheduler
+  (`repro_torch.serving.scheduler.Scheduler`); `stream` yields a
+  `StreamEvent` per generated token;
+- `replan()` rebuilds the head placement (online, from the live cache, in
+  continuous mode); `memory_stats()` reports the cache footprint;
 - `Engine.measure_profile(batch)` runs a profiling prefill and returns the
   (L, H) realized per-head retained lengths (the paper's §4.1 offline
   statistic) for feeding into a fresh `build`.
 
 The facade holds the *original-layout* parameters (`.params`, shareable
-between engines) and exposes the plan (`.plan`), plan arrays (`.pa`) and
-slot-layout weights (`.sp`).
+between engines) and exposes the plan (`.plan`), plan arrays (`.pa`),
+slot-layout weights (`.sp`) and the live scheduler (`.scheduler`).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional, Union
+from typing import Dict, Iterator, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 from repro_torch.api.config import DTYPES, EngineConfig
-from repro_torch.cache.slot_cache import PlanArrays
+from repro_torch.cache.slot_cache import PlanArrays, SlotCache, migrate_cache
 from repro_torch.core.placement import HeadPlacement
 from repro_torch.core.planner import build_plan
 from repro_torch.core.profiles import profile_from_lengths, synthetic_profile
 from repro_torch.exec.local import LocalExecutor
 from repro_torch.models import init_params
+from repro_torch.paging.block_pool import PoolExhausted
 from repro_torch.serving import engine as _serve
+from repro_torch.serving.cache_backend import make_cache_backend
+from repro_torch.serving.request import Request
+from repro_torch.serving.scheduler import Scheduler
 
 
 @dataclass
@@ -57,6 +69,17 @@ class GenerationResult:
     step_s: List[float] = field(default_factory=list)
 
 
+@dataclass(frozen=True)
+class StreamEvent:
+    """One generated token from the continuous-mode `Engine.stream`."""
+
+    req_id: int
+    token: int
+    index: int  # position within the request's generated sequence
+    step: int  # scheduler step that produced it
+    finished: bool  # True on the request's last token
+
+
 def resolve_device(device: str) -> torch.device:
     """The configured device; CUDA must exist unless the CPU was asked for."""
     dev = torch.device(device)
@@ -80,8 +103,22 @@ class Engine:
         self.pa = PlanArrays.from_plan(plan, device=self.device)
         with torch.inference_mode():
             self.sp = _serve.slotify_params(params, plan, cfg.model)
-        self.executor = LocalExecutor(cfg.model, cfg.compression, self.device)
+        self.executor = LocalExecutor(cfg.model, cfg.compression, self.device,
+                                      paging=cfg.paging)
+        self.backend = self._make_backend()
         self.state: Optional[_serve.ServeState] = None
+        self._mode: Optional[str] = None  # "oneshot" | "continuous" (last used)
+        self._scheduler: Optional[Scheduler] = None
+        self._next_req_id = 0
+        self._drain_pending = False  # drain() before the scheduler exists
+
+    def _make_backend(self):
+        c = self.cfg
+        return make_cache_backend(
+            c.cache_backend, c.model, c.compression,
+            max_live_tokens=c.scheduler.max_live_tokens, paging=c.paging,
+            n_shards=c.n_shards,
+            max_live_tokens_per_shard=c.scheduler.max_live_tokens_per_shard)
 
     @classmethod
     def build(cls, cfg: EngineConfig, *, params: Optional[dict] = None,
@@ -117,8 +154,10 @@ class Engine:
         state, logits, lengths = self.executor.prefill(
             self.sp, self._as_batch(batch), self.pa)
         self.state = state
+        self._mode = "oneshot"
         return logits, lengths
 
+    @torch.inference_mode()
     def generate(self, prompts: Union[Dict[str, torch.Tensor], np.ndarray],
                  max_new_tokens: int,
                  teacher_tokens: Optional[np.ndarray] = None,
@@ -129,11 +168,21 @@ class Engine:
         ``prompts`` is a (B, T) int token array or a batch dict.
         ``teacher_tokens`` (B, max_new_tokens), when given, forces the token
         *fed* at each decode step; the returned ``tokens`` are still the
-        model's argmax choices.
+        model's argmax choices.  The prefilled cache is re-housed in the
+        configured backend's layout (the paged backend allocates blocks for
+        the realized lengths) and each step's appends get their storage
+        first (`prepare_decode`); one-shot mode cannot preempt, so a pool
+        that runs dry is a configuration error.
         """
         t0 = time.perf_counter()
         logits, lengths = self.prefill(prompts)
         prefill_s = time.perf_counter() - t0
+        try:
+            self.state = self.backend.from_prefill(self.state, self.pa)
+        except PoolExhausted as e:
+            raise ValueError(
+                f"cache pool too small for one-shot generation ({e}); raise "
+                f"PagingConfig.n_blocks or leave it 0 for worst-case sizing") from e
         state = self.state
         tokens = [state.last_tokens.cpu().numpy()]
         logits_all = [logits.cpu().numpy()] if collect_logits else None
@@ -143,6 +192,12 @@ class Engine:
                 np.asarray(teacher_tokens)[:, t], dtype=torch.int64,
                 device=self.device))
             t0 = time.perf_counter()
+            try:
+                state = self.backend.prepare_decode(state, None)
+            except PoolExhausted as e:
+                raise ValueError(
+                    f"cache pool ran dry at decode step {t} ({e}); one-shot "
+                    f"generation cannot preempt — raise PagingConfig.n_blocks") from e
             state, lg = self.executor.decode(self.sp, state, self.pa, tok)
             step_s.append(time.perf_counter() - t0)
             self.state = state
@@ -164,12 +219,156 @@ class Engine:
         batch; returns the (L, H) mean realized per-head lengths.  The
         selection is plan-independent, so the measurement is valid for
         planning any layout.  Engine state is left untouched."""
-        saved = self.state
+        saved, mode = self.state, self._mode
         try:
             _, lengths = self.prefill(batch)
             return profile_from_lengths(lengths.cpu().numpy().astype(np.float64))
         finally:
-            self.state = saved
+            self.state, self._mode = saved, mode
+
+    # ---- replanning --------------------------------------------------------
+
+    @torch.inference_mode()
+    def replan(self, profile: Optional[np.ndarray] = None,
+               shard_speeds: Optional[Sequence[float]] = None) -> dict:
+        """Rebuild the head placement and swap it in.
+
+        Continuous mode (scheduler live): the scheduler's online replan —
+        live-cache migration, kept only if the realized imbalance drops —
+        from the realized profile unless ``profile`` / ``shard_speeds``
+        override the inputs.  One-shot mode: the plan is rebuilt from
+        ``profile`` (default: the build-time profile) and ``shard_speeds``,
+        and a live cache is migrated into the new layout.
+        """
+        if self._scheduler is not None:
+            event = self._scheduler.replan(profile=profile, shard_speeds=shard_speeds)
+            self._sync_from_scheduler()
+            return event
+        prof = self.profile if profile is None else np.asarray(profile)
+        speeds = None if shard_speeds is None else np.asarray(shard_speeds, float)
+        old_pa = self.pa
+        self.plan = build_plan(prof, self.cfg.n_shards, self.cfg.planner,
+                               shard_speeds=speeds)
+        self.profile = prof
+        self.pa = PlanArrays.from_plan(self.plan, device=self.device)
+        self.sp = _serve.slotify_params(self.params, self.plan, self.cfg.model)
+        migrated = False
+        if self.state is not None:
+            if isinstance(self.state.cache, SlotCache):
+                # prefill leaves the slot layout whatever the backend
+                self.state.cache = migrate_cache(self.state.cache, old_pa, self.pa)
+            else:
+                _, commit = self.backend.migrate_cache(self.state.cache, old_pa,
+                                                       self.pa)
+                self.state.cache = commit()
+            migrated = True
+        return {"plan": self.plan, "migrated_cache": migrated,
+                "shard_speeds": None if speeds is None else list(speeds)}
+
+    # ---- continuous serving ------------------------------------------------
+
+    @property
+    def scheduler(self) -> Optional[Scheduler]:
+        """The live continuous-batching scheduler (None until first used)."""
+        return self._scheduler
+
+    def _ensure_scheduler(self) -> Scheduler:
+        self._mode = "continuous"
+        if self._scheduler is None:
+            # its OWN backend instance: a backend carries allocator state
+            # (pool + table mirror), and a later one-shot generate() resets
+            # the engine's backend
+            self._scheduler = Scheduler(
+                self.cfg.model, self.params, self.plan, self.cfg.compression,
+                self.cfg.scheduler, self.executor, planner_cfg=self.cfg.planner,
+                dtype=DTYPES[self.cfg.dtype], serve_params=self.sp,
+                backend=self._make_backend())
+            if self._drain_pending:
+                self._scheduler.drain()
+        return self._scheduler
+
+    def _sync_from_scheduler(self) -> None:
+        """Adopt the scheduler's plan and weights after an online replan."""
+        sched = self._scheduler
+        if sched is not None and sched.plan is not self.plan:
+            self.plan, self.pa, self.sp = sched.plan, sched.pa, sched.sp
+
+    def submit(self, request: Union[Request, np.ndarray, Sequence[int]],
+               max_new_tokens: int = 16, eos_id: Optional[int] = None,
+               arrival_step: int = 0, priority: int = 1) -> Request:
+        """Queue a request (continuous mode): a prepared `Request` or a raw
+        prompt token sequence."""
+        if not isinstance(request, Request):
+            request = Request(req_id=self._next_req_id,
+                              prompt=np.asarray(request, np.int32),
+                              arrival_step=arrival_step,
+                              max_new_tokens=max_new_tokens, eos_id=eos_id,
+                              priority=priority)
+        self._next_req_id = max(self._next_req_id, request.req_id + 1)
+        self._ensure_scheduler().submit(request)
+        return request
+
+    def cancel(self, request_id: int) -> bool:
+        """Retire an in-flight or queued request early; its row and blocks
+        are released like a normal retirement.  False when unknown."""
+        if self._scheduler is None:
+            return False
+        return self._scheduler.cancel(request_id)
+
+    def drain(self) -> None:
+        """Graceful shutdown: stop admitting, let live rows finish."""
+        self._drain_pending = True
+        if self._scheduler is not None:
+            self._scheduler.drain()
+
+    def step(self) -> dict:
+        """One scheduler tick: admit → decode → retire → (maybe) replan."""
+        ev = self._ensure_scheduler().step()
+        self._sync_from_scheduler()
+        return ev
+
+    def stream(self, requests: Sequence[Request],
+               max_steps: int = 10_000) -> Iterator[StreamEvent]:
+        """Drive a trace, yielding a `StreamEvent` per generated token as
+        the ticks complete; requests enter at their ``arrival_step``, and
+        the stream ends when all of them have finished or after
+        ``max_steps``."""
+        sched = self._ensure_scheduler()
+        pending = sorted(requests, key=lambda r: (r.arrival_step, r.req_id))
+        emitted = {r.req_id: 0 for r in pending}
+        i = 0
+        while any(not r.is_finished for r in pending) and sched.step_idx < max_steps:
+            while i < len(pending) and pending[i].arrival_step <= sched.step_idx:
+                self.submit(pending[i])
+                i += 1
+            ev = sched.step()
+            self._sync_from_scheduler()
+            for req in pending:
+                n = req.n_generated
+                while emitted[req.req_id] < n:
+                    k = emitted[req.req_id]
+                    emitted[req.req_id] = k + 1
+                    yield StreamEvent(req_id=req.req_id, token=req.generated[k],
+                                      index=k, step=ev["step"],
+                                      finished=req.is_finished and k == n - 1)
+
+    def run_trace(self, requests: Sequence[Request],
+                  max_steps: int = 10_000) -> dict:
+        """Drive a full trace to completion; returns the scheduler's summary
+        (steps, tokens/s, replan log, preemptions, latency, memory)."""
+        out = self._ensure_scheduler().run(requests, max_steps=max_steps)
+        self._sync_from_scheduler()
+        return out
+
+    def memory_stats(self) -> dict:
+        """Cache footprint of whichever mode (one-shot / continuous) ran
+        most recently; raises with no live cache."""
+        if self._mode == "continuous" and self._scheduler is not None:
+            return self._scheduler.backend.memory_stats(self._scheduler.state)
+        if self.state is not None:
+            return self.backend.memory_stats(self.state)
+        raise RuntimeError("memory_stats() needs a live cache; call "
+                           "generate/prefill or submit/stream first")
 
     def _as_batch(self, batch) -> Dict[str, torch.Tensor]:
         if isinstance(batch, dict):

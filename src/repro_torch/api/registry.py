@@ -19,6 +19,10 @@ Decorator-based registries replace what used to be hardcoded tables:
   solver for the makespan problem (Eq. 4) that ``assign_items`` and
   ``PlannerConfig.engine`` can name.
 
+- **cache backends** — ``@register_cache_backend("name")`` on a
+  ``CacheBackend`` subclass makes ``EngineConfig.cache_backend`` accept the
+  name (built-ins: ``slot``, ``paged``).
+
 This module is a dependency *leaf*: it imports nothing from ``repro_torch`` at
 module scope, so the registered-to modules (``compression.policies``,
 ``core.assignment``) can import it without cycling through the heavyweight
@@ -102,9 +106,11 @@ class Registry(Mapping):
 
 POLICY_REGISTRY = Registry("compression policy")
 ASSIGNMENT_ENGINE_REGISTRY = Registry("assignment engine")
+CACHE_BACKEND_REGISTRY = Registry("cache backend")
 
 register_policy = POLICY_REGISTRY.register
 register_assignment_engine = ASSIGNMENT_ENGINE_REGISTRY.register
+register_cache_backend = CACHE_BACKEND_REGISTRY.register
 
 
 def _ensure_builtin() -> None:
@@ -116,6 +122,8 @@ def _ensure_builtin() -> None:
     """
     import repro_torch.compression.policies  # noqa: F401
     import repro_torch.core.assignment  # noqa: F401
+    import repro_torch.paging.backend  # noqa: F401
+    import repro_torch.serving.cache_backend  # noqa: F401
 
 
 def list_policies() -> List[str]:
@@ -128,3 +136,14 @@ def list_engines() -> List[str]:
     """Registered assignment-engine names (built-ins + plugins)."""
     _ensure_builtin()
     return ASSIGNMENT_ENGINE_REGISTRY.names()
+
+
+def get_cache_backend(name: str) -> Callable:
+    _ensure_builtin()
+    return CACHE_BACKEND_REGISTRY[name]
+
+
+def list_cache_backends() -> List[str]:
+    """Registered cache-backend names (built-ins + plugins)."""
+    _ensure_builtin()
+    return CACHE_BACKEND_REGISTRY.names()

@@ -21,6 +21,8 @@ that receives the new token.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional, Sequence, Union
+
 import numpy as np
 import torch
 
@@ -72,6 +74,15 @@ class PlanArrays:
         rc = self.replica_count[layer][:, None]
         ri = self.replica_idx[layer][:, None]
         valid = (self.slot_head[layer] >= 0)[:, None]
+        return valid & ((rows % rc) == ri)
+
+    def owner_mask_all(self, batch: int) -> torch.Tensor:
+        """(L, S, B) bool — `owner_mask` over every layer at once."""
+        rows = torch.arange(batch, dtype=torch.int32,
+                            device=self.slot_head.device)[None, None, :]
+        rc = self.replica_count[:, :, None]
+        ri = self.replica_idx[:, :, None]
+        valid = (self.slot_head >= 0)[:, :, None]
         return valid & ((rows % rc) == ri)
 
 
@@ -154,16 +165,21 @@ def fill_from_selection(
     sel_idx: torch.Tensor,  # (B, Hkv, Csel) selected positions into T
     sel_len: torch.Tensor,  # (B, Hkv) int32 retained counts (<= Csel)
     plan: PlanArrays,
+    rows: Optional[torch.Tensor] = None,  # (B,) global row ids for ownership
 ) -> None:
     """Scatter the compression-selected prefill KV into slot layout, in
     place: layer ``layer``'s whole slice is overwritten.
 
     Slot s holds head ``slot_head[s]``'s selection on the rows it owns and
-    zeros (length 0, positions -1) elsewhere.
+    zeros (length 0, positions -1) elsewhere.  ``rows`` are the global row
+    ids the strided owner rule is evaluated at: a request prefilled alone
+    for admission must be owned as the row it will occupy in the live
+    cache, not as row 0.
     """
     L, S, B, C, Dh = cache.k.shape
     heads = torch.clamp(plan.slot_head[layer], min=0).long()  # (S,)
-    own = plan.owner_mask(layer, B)  # (S, B)
+    own = (plan.owner_mask(layer, B) if rows is None
+           else plan.owner_mask_rows(layer, rows))  # (S, B)
     Csel = sel_idx.shape[2]
     if Csel > C:
         raise ValueError(
@@ -183,3 +199,106 @@ def fill_from_selection(
     p_l[:, :, :Csel] = torch.where(own[..., None], idx.to(torch.int32), -1)
     lens = sel_len[:, heads].T  # (S, B)
     cache.lengths[layer] = torch.where(own, lens, 0).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Row-level ops (continuous batching)
+# ---------------------------------------------------------------------------
+
+Rows = Union[Sequence[int], np.ndarray, torch.Tensor]
+
+
+def rows_to_mask(rows: Rows, batch: int, device="cpu") -> torch.Tensor:
+    """(B,) bool mask from int row indices (a bool mask passes through)."""
+    rows = torch.as_tensor(rows, device=device)
+    if rows.dtype == torch.bool:
+        return rows
+    m = torch.zeros((batch,), dtype=torch.bool, device=device)
+    m[rows.long()] = True
+    return m
+
+
+def row_index(rows: Rows, device) -> torch.Tensor:
+    """(R,) int64 row ids on ``device`` from ints, numpy or a tensor."""
+    if torch.is_tensor(rows):
+        return rows.to(device=device, dtype=torch.int64)
+    return torch.as_tensor(np.asarray(rows, np.int64), device=device)
+
+
+def reset_rows(cache: SlotCache, rows: Rows) -> None:
+    """Retire batch rows in place: zero K/V and ``lengths``, set ``pos`` to
+    -1 and ``positions`` to 0 on every (layer, slot) of the rows (int ids
+    or a (B,) bool mask).  A reset row's decode output is exactly zero
+    (lengths 0), so retired rows ride along in the batched decode step
+    until re-admission."""
+    r = rows_to_mask(rows, cache.k.shape[2], cache.k.device)
+    cache.k[:, :, r] = 0
+    cache.v[:, :, r] = 0
+    cache.lengths[:, :, r] = 0
+    cache.pos[:, :, r] = -1
+    cache.positions[r] = 0
+
+
+def insert_rows(cache: SlotCache, sub: SlotCache, rows: Rows) -> None:
+    """Splice a freshly prefilled sub-cache into ``rows`` of the live cache,
+    in place.  ``sub`` (batch ``len(rows)``) must share (L, S, C, Dh) with
+    ``cache`` and must have been filled with ownership at the target global
+    rows (``prefill(..., rows=rows)``)."""
+    L, S, B, C, Dh = cache.k.shape
+    if (sub.k.shape[0] != L or sub.k.shape[1] != S
+            or tuple(sub.k.shape[3:]) != (C, Dh)):
+        raise ValueError(
+            f"sub-cache layout {tuple(sub.k.shape)} incompatible with "
+            f"{tuple(cache.k.shape)}")
+    r = row_index(rows, cache.k.device)
+    cache.k[:, :, r] = sub.k.to(cache.k.dtype)
+    cache.v[:, :, r] = sub.v.to(cache.v.dtype)
+    cache.lengths[:, :, r] = sub.lengths
+    cache.pos[:, :, r] = sub.pos
+    cache.positions[r] = sub.positions
+
+
+def gather_head_layout(cache: SlotCache, plan: PlanArrays):
+    """Slot layout → original head layout: ``(k, v, lengths, pos)`` shaped
+    (L, H, B, C, Dh) / (L, H, B) / (L, H, B, C).
+
+    Replicas of a head partition the rows, so every (head, row) has exactly
+    one owning slot; its entries are gathered directly (the reference sums
+    over slots under the owner mask, which gives the same values).
+    """
+    L, S, B, C, Dh = cache.k.shape
+    H = int(plan.first_slot.shape[1])
+    dev = cache.k.device
+    own = plan.owner_mask_all(B)  # (L, S, B)
+    hit = (plan.slot_head[:, :, None, None]
+           == torch.arange(H, device=dev)[None, None, :, None]) & own[:, :, None, :]
+    slot = hit.to(torch.int32).argmax(dim=1)  # (L, H, B) the owning slot
+    l_ix = torch.arange(L, device=dev)[:, None, None]
+    b_ix = torch.arange(B, device=dev)[None, None, :]
+    at = (l_ix, slot, b_ix)
+    return cache.k[at], cache.v[at], cache.lengths[at], cache.pos[at]
+
+
+def migrate_cache(cache: SlotCache, old_plan: PlanArrays,
+                  new_plan: PlanArrays) -> SlotCache:
+    """Re-layout a live cache for a new placement (online replanning): back
+    to head layout under ``old_plan``, then into the slots and owner split
+    of ``new_plan``.  Returns a new cache (the layouts differ per row, so
+    the move cannot run in place); the slot grid and capacity must match."""
+    L, S, B, C, Dh = cache.k.shape
+    if tuple(new_plan.slot_head.shape) != tuple(old_plan.slot_head.shape):
+        raise ValueError(
+            f"plan slot grids differ: {tuple(old_plan.slot_head.shape)} vs "
+            f"{tuple(new_plan.slot_head.shape)}")
+    k_h, v_h, len_h, pos_h = gather_head_layout(cache, old_plan)
+    heads = torch.clamp(new_plan.slot_head, min=0).long()  # (L, S)
+    own = new_plan.owner_mask_all(B)  # (L, S, B)
+    l_ix = torch.arange(L, device=heads.device)[:, None]
+    k_s, v_s = k_h[l_ix, heads], v_h[l_ix, heads]  # (L, S, B, C, Dh)
+    return SlotCache(
+        k=torch.where(own[..., None, None], k_s, 0),
+        v=torch.where(own[..., None, None], v_s, 0),
+        lengths=torch.where(own, len_h[l_ix, heads], 0).to(torch.int32),
+        pos=torch.where(own[..., None], pos_h[l_ix, heads], -1),
+        positions=cache.positions.clone(),
+    )

@@ -10,7 +10,8 @@ Each policy maps pooled observation scores (B, Hkv, T) → (indices, lengths):
                   least ``min(sink + obs_window, budget)``)
 
 The other reference policies (streaming_llm, pyramidkv, h2o, headkv) are
-not ported yet.
+not ported yet.  `layer_keep_bound` / `projected_request_tokens` are the
+admission projections the continuous scheduler charges requests with.
 """
 from __future__ import annotations
 
@@ -72,6 +73,45 @@ def ada_snapkv(scores: torch.Tensor, cfg: CompressionConfig,
     floor = min(cfg.sink + cfg.obs_window, cfg.budget)
     keep = _pooled_allocation(scores, Hkv * cfg.budget, floor, min(cap, T))
     return topk_select(scores, keep, cap)
+
+
+def layer_keep_bound(policy: str, cfg: CompressionConfig, T: int,
+                     n_heads: int, layer_idx: int, n_layers: int) -> int:
+    """Upper bound on Σ_h keep for one layer's prefill selection of a
+    ``T``-token prompt, so admission never overcommits:
+
+    - ``snapkv`` keeps ``min(budget, T, C)`` per head exactly;
+    - ``ada_snapkv`` counts the layer-wide top-``H·budget`` scores, and the
+      per-head floor ``min(sink + obs, budget)`` adds at most ``H·floor``
+      more (when the guaranteed positions exceed the pool the count is
+      ``H·(sink + obs)``): all within ``H·(budget + sink + obs_window)``;
+    - ``none`` keeps every position, ``H·min(T, C)``.
+
+    Any other (third-party) policy gets the conservative ``H·min(T, C)``.
+    """
+    H = int(n_heads)
+    per_head_max = max(0, min(cfg.static_capacity(), T))
+    if policy == "snapkv":
+        return H * min(cfg.budget, per_head_max)
+    if policy == "ada_snapkv":
+        return H * min(cfg.budget + cfg.sink + cfg.obs_window, per_head_max)
+    return H * per_head_max
+
+
+def projected_request_tokens(policy: str, cfg: CompressionConfig,
+                             prompt_len: int, max_new_tokens: int,
+                             n_layers: int, n_heads: int) -> int:
+    """Upper bound on Σ lengths a request can ever pin across the cache:
+    per layer the prefill bound plus one append per head per generated
+    token, each head clipped at the static capacity (the recency ring
+    overwrites in place there)."""
+    H, cap = int(n_heads), cfg.static_capacity()
+    total = 0
+    for layer in range(n_layers):
+        prefill = layer_keep_bound(policy, cfg, prompt_len, H, layer, n_layers)
+        total += min(prefill + H * max_new_tokens,
+                     H * min(prompt_len + max_new_tokens, cap))
+    return total
 
 
 def select(policy: str, scores: torch.Tensor, cfg: CompressionConfig,

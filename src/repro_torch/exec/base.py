@@ -15,31 +15,46 @@ import torch
 
 from repro_torch.compression.base import CompressionConfig
 from repro_torch.configs.base import ModelConfig
+from repro_torch.paging import kvquant
 
 
 class Executor:
     """Interface: ``prefill`` and ``decode`` steps over explicit arguments
     (slot weights ``sp`` and plan arrays ``pa``), so a replan is new
-    arguments, never a new executor."""
+    arguments, never a new executor.
+
+    ``paging`` (a `PagingConfig`) resolves the static (L, H) kind grid of
+    int8/fp8 pools once; the decode step indexes it by the plan's
+    ``slot_head``, so a replan that moves heads between slots needs no new
+    grid.  None on unquantized pools.
+    """
 
     name: str = "?"
 
     def __init__(self, model_cfg: ModelConfig, ccfg: CompressionConfig,
-                 device: torch.device):
+                 device: torch.device, paging=None):
         self.cfg = model_cfg
         self.ccfg = ccfg
         self.device = torch.device(device)
+        spec = kvquant.spec_from_paging(paging)
+        self.kv_kinds = (None if spec is None else torch.as_tensor(
+            kvquant.kind_grid(spec, model_cfg.n_layers, model_cfg.n_kv_heads),
+            device=self.device))
 
     def synchronize(self) -> None:
         """Wait for the device (no-op on the CPU, which runs synchronously)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def prefill(self, sp: dict, batch: dict, pa) -> Tuple:
-        """Prefill step → (ServeState, logits (B, V), lengths (L, Hkv, B))."""
+    def prefill(self, sp: dict, batch: dict, pa,
+                rows: Optional[torch.Tensor] = None) -> Tuple:
+        """Prefill step → (ServeState, logits (B, V), lengths (L, Hkv, B));
+        ``rows`` are the global rows the sub-batch will occupy."""
         raise NotImplementedError
 
     def decode(self, sp: dict, state, pa,
-               tokens: Optional[torch.Tensor] = None) -> Tuple:
-        """Decode step → (ServeState, logits (B, V))."""
+               tokens: Optional[torch.Tensor] = None,
+               active: Optional[torch.Tensor] = None) -> Tuple:
+        """Decode step → (ServeState, logits (B, V)); ``active`` ((B,) bool)
+        marks the live rows (None: all)."""
         raise NotImplementedError

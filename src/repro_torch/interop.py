@@ -5,10 +5,11 @@ the reference's weights across: ``jax.tree.map(np.asarray, params)`` on the
 reference side, `to_torch` here.  Trees are nested dicts / lists / tuples
 whose leaves are arrays; structure is preserved.
 
-bf16 needs a detour: numpy has no bfloat16, JAX exports it as
-``ml_dtypes.bfloat16``, and ``torch.from_numpy`` rejects that dtype — so the
-bits travel as uint16 and are reinterpreted on the torch side (and the
-reverse on the way back).
+bf16 and fp8-e4m3 need a detour: numpy has neither, JAX exports them as
+``ml_dtypes.bfloat16`` / ``ml_dtypes.float8_e4m3fn``, and
+``torch.from_numpy`` rejects those dtypes — so the bits travel as 16- or
+8-bit integers and are reinterpreted on the torch side (and the reverse on
+the way back).  int8 leaves (the paged pools' codes) cross as they are.
 """
 from __future__ import annotations
 
@@ -18,19 +19,27 @@ import numpy as np
 import torch
 
 
+# dtype name on the JAX side -> (same-width integer carrier, torch dtype)
+_BITCAST = {"bfloat16": (np.int16, torch.bfloat16),
+            "float8_e4m3fn": (np.int8, torch.float8_e4m3fn)}
+
+
 def _leaf_to_torch(a, device) -> torch.Tensor:
     a = np.array(a)  # a writable copy: the tensor must not alias a JAX buffer
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    if a.dtype.name in _BITCAST:
+        carrier, dt = _BITCAST[a.dtype.name]
+        return torch.from_numpy(a.view(carrier)).view(dt).to(device)
     return torch.from_numpy(a).to(device)
 
 
 def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
-    if t.dtype == torch.bfloat16:
-        import ml_dtypes  # only needed when handing bf16 back to JAX
+    for name, (carrier, dt) in _BITCAST.items():
+        if t.dtype == dt:
+            import ml_dtypes  # only needed when handing bf16 / fp8 back to JAX
 
-        return t.view(torch.int16).numpy().view(np.uint16).view(ml_dtypes.bfloat16)
+            int_dt = torch.int16 if carrier is np.int16 else torch.int8
+            return t.view(int_dt).numpy().view(getattr(ml_dtypes, name))
     return t.numpy()
 
 

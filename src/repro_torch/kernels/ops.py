@@ -39,3 +39,23 @@ def snapkv_scores(q_obs, k, obs_positions, k_positions, attn_cap: float = 0.0):
         return snapkv_scores_cuda(q_obs, k, obs_positions, k_positions, attn_cap)
     _plain_or_raise(q_obs, "snapkv_scores")
     return _ref.snapkv_scores_ref(q_obs, k, obs_positions, k_positions, attn_cap)
+
+
+def paged_fairkv_decode(q, k_pool, v_pool, pos_pool, block_table, lengths,
+                        capacity: int, attn_cap: float = 0.0,
+                        q_pos: Optional[torch.Tensor] = None, window: int = 0,
+                        k_scale=None, v_scale=None, kinds=None):
+    """Paged decode attention over one layer's pools (see
+    ref.paged_fairkv_decode_ref); int8/fp8 pools pass their per-block
+    scales and per-slot kinds."""
+    if q.is_cuda:
+        from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
+        return paged_fairkv_decode_cuda(
+            q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
+            attn_cap, q_pos=q_pos, window=window, k_scale=k_scale,
+            v_scale=v_scale, kinds=kinds)
+    _plain_or_raise(q, "paged_fairkv_decode")
+    return _ref.paged_fairkv_decode_ref(
+        q, k_pool, v_pool, pos_pool, block_table, lengths, capacity, attn_cap,
+        q_pos=q_pos, window=window, k_scale=k_scale, v_scale=v_scale,
+        kinds=kinds)

@@ -14,6 +14,20 @@ import torch
 NEG_INF = -1e30
 
 
+def dequant_block_codes(codes: torch.Tensor, scale: torch.Tensor,
+                        kind) -> torch.Tensor:
+    """int8 block codes → fp32 under per-block ``scale`` and ``kind``
+    (0 = int8, 1 = fp8-e4m3 bit patterns).  fp8 NaN patterns (possible in
+    never-written pool memory) flush to 0, so a masked entry cannot poison
+    the probability-weighted sum through 0·NaN.  The oracle keeps its own
+    copy of the codec's decode, apart from ``paging.kvquant``."""
+    f = codes.float()
+    f8 = codes.view(torch.float8_e4m3fn).float()
+    f8 = torch.where(f8 == f8, f8, 0.0)
+    f = torch.where(torch.as_tensor(kind, device=codes.device) == 1, f8, f)
+    return f * scale
+
+
 def fairkv_decode_ref(
     q: torch.Tensor,  # (B, S, G, Dh) — one new query per row per slot group
     k: torch.Tensor,  # (S, B, C, Dh) slot-layout cache keys (post-RoPE)
@@ -47,6 +61,47 @@ def fairkv_decode_ref(
     probs = torch.where(nonempty, probs, 0.0)
     out = torch.einsum("bsgc,sbcd->bsgd", probs, v.float())
     return out.to(q.dtype)
+
+
+def paged_fairkv_decode_ref(
+    q: torch.Tensor,  # (B, S, G, Dh)
+    k_pool: torch.Tensor,  # (N, bs, Dh) — one layer's pools
+    v_pool: torch.Tensor,  # (N, bs, Dh)
+    pos_pool: torch.Tensor,  # (N, bs) int32
+    block_table: torch.Tensor,  # (S, B, M) int32; <= 0 = null block
+    lengths: torch.Tensor,  # (S, B) int32
+    capacity: int,
+    attn_cap: float = 0.0,
+    q_pos: Optional[torch.Tensor] = None,  # (B,) int32
+    window: int = 0,
+    k_scale: Optional[torch.Tensor] = None,  # (N,) fp32 per-block scales
+    v_scale: Optional[torch.Tensor] = None,  # (N,)
+    kinds: Optional[torch.Tensor] = None,  # (S,) int32 per-slot kind codes
+) -> torch.Tensor:
+    """Paged decode attention, defined as slot decode over the gathered
+    view: column ``c`` of a (slot, row) lives at offset ``c % bs`` of block
+    ``table[c // bs]``; the blocks are gathered into the contiguous
+    (S, B, C, Dh) view the slot cache would hold, then `fairkv_decode_ref`
+    runs on it unchanged.  Quantized pools (``k_scale`` given) are
+    dequantized after the gather (`dequant_block_codes`; all-int8 kinds
+    when ``kinds`` is omitted).  Returns (B, S, G, Dh) in q's dtype.
+    """
+    ids = torch.clamp(block_table, min=0).long()
+    S, B, M = ids.shape
+    bs, Dh = k_pool.shape[1], k_pool.shape[2]
+    k = k_pool[ids]  # (S, B, M, bs, Dh)
+    v = v_pool[ids]
+    if k_scale is not None:
+        kind = (torch.zeros((S,), dtype=torch.int32, device=q.device)
+                if kinds is None else kinds.to(torch.int32))
+        kind = kind[:, None, None, None, None]
+        k = dequant_block_codes(k, k_scale[ids][..., None, None], kind)
+        v = dequant_block_codes(v, v_scale[ids][..., None, None], kind)
+    k = k.reshape(S, B, M * bs, Dh)[:, :, :capacity]
+    v = v.reshape(S, B, M * bs, Dh)[:, :, :capacity]
+    pos = pos_pool[ids].reshape(S, B, M * bs)[:, :, :capacity]
+    return fairkv_decode_ref(q, k, v, lengths, attn_cap, k_pos=pos,
+                             q_pos=q_pos, window=window)
 
 
 def snapkv_scores_ref(

@@ -1,0 +1,84 @@
+"""Shared paged-layer fixture for the kernel checks (port of
+``repro.paging.testing``).
+
+One layer's (pools, table, lengths) built adversarially: block ids handed
+out in shuffled order (nothing may rely on contiguity), every pool entry a
+valid column does not overwrite left as garbage (a missing mask shows as a
+mismatch, not as silent zeros), absolute positions written per column.
+The draws from the numpy generator follow the reference fixture's order,
+so one seed gives both packages the same layer.  Used by the CPU tests and
+by ``chip_smoke.py``.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.paging import kvquant
+
+
+def make_paged_layer(rng: np.random.Generator, S, B, C, bs, Dh, empty_frac=0.3,
+                     dtype=torch.float32, lengths: Optional[np.ndarray] = None,
+                     device="cpu"):
+    """One layer's (k_pool, v_pool, pos_pool, block_table, lengths) as
+    tensors on ``device``; ``lengths`` defaults to a ragged draw with
+    ``empty_frac`` of the (slot, row) pairs empty (all-null table rows).
+    The pools are drawn in fp32 and cast to ``dtype``."""
+    M = -(-C // bs)
+    if lengths is None:
+        lengths = rng.integers(1, C + 1, size=(S, B)).astype(np.int32)
+        lengths[rng.random((S, B)) < empty_frac] = 0
+    else:
+        lengths = np.asarray(lengths, np.int32)
+    need = -(-lengths // bs)
+    N = int(need.sum()) + 2
+    ids = list(rng.permutation(np.arange(1, N)))
+    table = np.zeros((S, B, M), np.int32)  # 0 = null block
+    k_pool = rng.normal(size=(N, bs, Dh)).astype(np.float32)
+    v_pool = rng.normal(size=(N, bs, Dh)).astype(np.float32)
+    pos_pool = rng.integers(-1, 10**6, size=(N, bs)).astype(np.int32)
+    for s in range(S):
+        for b in range(B):
+            n = int(need[s, b])
+            blocks = [ids.pop() for _ in range(n)]
+            table[s, b, :n] = blocks
+            for c in range(int(lengths[s, b])):
+                pos_pool[blocks[c // bs], c % bs] = c  # absolute positions
+
+    def t(a, dt=None):
+        out = torch.from_numpy(a).to(device)
+        return out if dt is None else out.to(dt)
+
+    return (t(k_pool, dtype), t(v_pool, dtype), t(pos_pool), t(table),
+            t(lengths))
+
+
+def quantize_paged_layer(k_pool, v_pool, block_table, kinds):
+    """Quantize a `make_paged_layer` pool pair into int8 codes with (N,)
+    fp32 per-block scales, each block at its owning slot's ``kinds`` entry
+    (the null block and spare blocks as int8).  Whole blocks are encoded,
+    garbage tail entries included: they have the magnitude of real data
+    here, so they exercise the masking without distorting the scales.
+    Returns (k_codes, v_codes, k_scale, v_scale) on the pools' device."""
+    dev = k_pool.device
+    N = k_pool.shape[0]
+    tbl = block_table.cpu().numpy()
+    kinds = np.broadcast_to(np.asarray(torch.as_tensor(kinds).cpu(), np.int32),
+                            (tbl.shape[0],))
+    block_kind = np.zeros((N,), np.int32)
+    for s in range(tbl.shape[0]):
+        owned = np.unique(tbl[s][tbl[s] > 0])
+        block_kind[owned] = kinds[s]
+    qmax = np.where(block_kind == kvquant.KIND_FP8, kvquant.FP8_QMAX,
+                    kvquant.INT8_QMAX)
+    k = k_pool.float().cpu().numpy()
+    v = v_pool.float().cpu().numpy()
+    k_scale = (np.abs(k).max(axis=(1, 2)) / qmax).astype(np.float32)
+    v_scale = (np.abs(v).max(axis=(1, 2)) / qmax).astype(np.float32)
+    kb = torch.from_numpy(block_kind)[:, None, None]
+    k_codes = kvquant.encode(torch.from_numpy(k), torch.from_numpy(k_scale)[:, None, None], kb)
+    v_codes = kvquant.encode(torch.from_numpy(v), torch.from_numpy(v_scale)[:, None, None], kb)
+    return (k_codes.to(dev), v_codes.to(dev), torch.from_numpy(k_scale).to(dev),
+            torch.from_numpy(v_scale).to(dev))

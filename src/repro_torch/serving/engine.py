@@ -14,25 +14,36 @@ FairKV plan enters the runtime in two places:
    reassembles the full batch.
 
 The decode step is the paper's measured quantity; its attention inner loop
-is ``kernels.ops.fairkv_decode`` and the prefill compression score is
-``kernels.ops.snapkv_scores`` (hand-written CUDA on the card, the plain
-PyTorch versions on the CPU).  Everything runs eagerly; callers wrap the
-steps in ``torch.inference_mode()``.
+is ``kernels.ops.fairkv_decode`` over the slot cache or
+``kernels.ops.paged_fairkv_decode`` over a `PagedCache`, and the prefill
+compression score is ``kernels.ops.snapkv_scores`` (hand-written CUDA on
+the card, the plain PyTorch versions on the CPU).  Everything runs
+eagerly; callers wrap the steps in ``torch.inference_mode()``.
+
+Continuous batching adds row-level state ops: ``prefill(..., rows=)``
+evaluates ownership at the global rows a request will occupy,
+``decode_step(..., active=)`` appends and advances positions only on live
+rows, and `splice_state` / `reset_state_rows` admit and retire rows.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.cache.slot_cache import (
     PlanArrays,
+    Rows,
     SlotCache,
     append_token,
     fill_from_selection,
     init_cache,
+    insert_rows,
+    reset_rows,
+    row_index,
+    rows_to_mask,
 )
 from repro_torch.compression.base import CompressionConfig, pool_scores
 from repro_torch.compression.policies import select as policy_select
@@ -41,6 +52,8 @@ from repro_torch.core.placement import HeadPlacement
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as M
+from repro_torch.paging.paged_cache import PagedCache, paged_append_token
+from repro_torch.paging.paged_cache import release_rows as paged_release_rows
 
 
 # ---------------------------------------------------------------------------
@@ -50,9 +63,9 @@ from repro_torch.models import transformer as M
 
 @dataclass
 class ServeState:
-    cache: SlotCache
+    cache: Union[SlotCache, PagedCache]
     last_tokens: torch.Tensor  # (B,) int64
-    decode_steps: int  # decode appends since prefill (the ring-write phase)
+    decode_steps: int  # decode ticks since the state began (the ring phase)
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -119,12 +132,15 @@ def prefill(
     cfg: ModelConfig,
     plan: PlanArrays,
     ccfg: CompressionConfig,
+    rows: Optional[torch.Tensor] = None,
 ) -> Tuple[ServeState, torch.Tensor, torch.Tensor]:
     """Run the full prompt, compress each layer's KV into the slot cache.
 
     Prefill attention runs in *original head layout*; q/k/v are recovered
     from the slot weights of the replica-0 slots, so the result does not
-    depend on the plan.
+    depend on the plan.  ``rows`` ((B,) int) are the global batch rows this
+    sub-batch will occupy in a live cache: ownership is evaluated there, so
+    the sub-cache can be spliced in (`splice_state`).  Default arange(B).
 
     Returns (state, last_logits (B, V) fp32, lengths (L, Hkv, B) — the
     realized per-head retained lengths, the paper's workload observable).
@@ -132,6 +148,8 @@ def prefill(
     _check_dense(cfg)
     h, positions = M.embed_inputs(serve_params, batch, cfg)
     B, T, D = h.shape
+    if rows is not None:
+        rows = row_index(rows, h.device)
     cache = init_cache(cfg.n_layers, plan.slot_head.shape[1], B,
                        ccfg.static_capacity(), cfg.head_dim, dtype=h.dtype,
                        device=h.device)
@@ -140,7 +158,7 @@ def prefill(
     for i, pl in enumerate(serve_params["layers"]):
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
         attn_flat, lens = _prefill_attention(pl, hn, positions, cfg, i, cache,
-                                             plan, ccfg, W)
+                                             plan, ccfg, W, rows)
         h = h + _slot_o_proj(pl, attn_flat, cfg, plan, i)
         lengths_all.append(lens)
         hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
@@ -157,7 +175,7 @@ def prefill(
 
 
 def _prefill_attention(pl, hn, positions, cfg, layer_idx, cache, plan, ccfg,
-                       W):
+                       W, rows=None):
     """Full attention + compression + slot-cache fill for one layer."""
     B, T, D = hn.shape
     Hkv, G, Dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
@@ -183,7 +201,7 @@ def _prefill_attention(pl, hn, positions, cfg, layer_idx, cache, plan, ccfg,
         pos = torch.arange(T, device=scores.device)
         scores = torch.where(pos[None, None, :] >= T - window, scores, float("-inf"))
     idx, keep = policy_select(ccfg.policy, scores, ccfg, layer_idx, cfg.n_layers)
-    fill_from_selection(cache, layer_idx, k, v, idx, keep, plan)
+    fill_from_selection(cache, layer_idx, k, v, idx, keep, plan, rows=rows)
     return out_flat, keep.T  # lens (Hkv, B)
 
 
@@ -207,11 +225,19 @@ def decode_step(
     plan: PlanArrays,
     ccfg: CompressionConfig,
     tokens: Optional[torch.Tensor] = None,
+    active: Optional[torch.Tensor] = None,
+    kv_kinds: Optional[torch.Tensor] = None,
 ) -> Tuple[ServeState, torch.Tensor]:
     """One decode step for the whole batch.  Returns (state, logits (B, V)).
 
     The cache is updated in place (one appended column per owned
-    (slot, row) per layer); the returned state shares it.
+    (slot, row) per layer); the returned state shares it.  ``active``
+    ((B,) bool) marks the rows holding a live request: appends and position
+    increments skip the others, so a retired row keeps lengths 0 and an
+    exactly-zero attention output until a request is spliced in.  ``None``
+    treats every row as live (one-shot serving).  ``kv_kinds`` ((L, H)
+    int32, on the cache's device) is the kind grid of int8/fp8 pools; the
+    per-slot kinds follow from the plan's ``slot_head`` at each layer.
     """
     _check_dense(cfg)
     tokens = state.last_tokens if tokens is None else tokens
@@ -221,7 +247,7 @@ def decode_step(
     for i, pl in enumerate(serve_params["layers"]):
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
         attn = _decode_attention(pl, hn, positions, cfg, i, cache, plan,
-                                 state.decode_steps, ccfg)
+                                 state.decode_steps, ccfg, active, kv_kinds)
         h = h + _decode_slot_o(pl, attn, cfg)
         hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
         h = h + M.mlp_block(pl, hn2, cfg)
@@ -229,7 +255,10 @@ def decode_step(
     h = L.rms_norm(h, serve_params["final_norm"], cfg.rms_eps)
     table = serve_params.get("head", serve_params["embed"])
     logits = L.unembed(h, table, cfg.logit_softcap)[:, 0]  # (B, V)
-    cache.positions += 1  # in place: every row is live in one-shot decode
+    if active is None:
+        cache.positions += 1  # in place: every row is live in one-shot decode
+    else:
+        cache.positions += active.to(cache.positions.dtype)
     new_state = ServeState(
         cache=cache,
         last_tokens=torch.argmax(logits[..., :cfg.vocab_size], dim=-1),
@@ -238,7 +267,7 @@ def decode_step(
 
 
 def _decode_attention(pl, hn, positions, cfg, layer_idx, cache, plan,
-                      decode_steps, ccfg):
+                      decode_steps, ccfg, active=None, kv_kinds=None):
     """Slot-layout attention for one new token; appends to the cache."""
     B = hn.shape[0]
     x = hn[:, 0]  # (B, D)
@@ -249,12 +278,37 @@ def _decode_attention(pl, hn, positions, cfg, layer_idx, cache, plan,
     q = _rope_slots(q, positions, cfg)
     k_new = _rope_slots(k_new[:, :, None, :], positions, cfg)[:, :, 0, :]
     own = plan.owner_mask(layer_idx, B)  # (S, B)
+    if active is not None:
+        own = own & active[None, :]
+    window = M.layer_window(cfg, layer_idx)
+    ring = max(1, ccfg.decode_margin)
+    if isinstance(cache, PagedCache):
+        # paged backend: the same append index rule into pool blocks, then
+        # decode attention through the block table
+        capacity = ccfg.static_capacity()
+        kinds = None
+        if cache.k_scale is not None:
+            grid = (torch.zeros((cfg.n_kv_heads,), dtype=torch.int32,
+                                device=own.device)
+                    if kv_kinds is None else kv_kinds[layer_idx])
+            kinds = grid[torch.clamp(plan.slot_head[layer_idx], min=0).long()]
+        paged_append_token(cache, layer_idx, k_new.transpose(0, 1),
+                           v_new.transpose(0, 1), own, decode_steps, capacity,
+                           ring=ring, kinds=kinds)
+        return K.paged_fairkv_decode(
+            q, cache.k_pool[layer_idx], cache.v_pool[layer_idx],
+            cache.pos_pool[layer_idx], cache.block_table[layer_idx],
+            cache.lengths[layer_idx], capacity, attn_cap=cfg.attn_softcap,
+            q_pos=positions, window=window,
+            k_scale=None if kinds is None else cache.k_scale[layer_idx],
+            v_scale=None if kinds is None else cache.v_scale[layer_idx],
+            kinds=kinds)  # (B, S, G, Dh)
     append_token(cache, layer_idx, k_new.transpose(0, 1), v_new.transpose(0, 1),
-                 own, decode_steps, ring=max(1, ccfg.decode_margin))
+                 own, decode_steps, ring=ring)
     return K.fairkv_decode(q, cache.k[layer_idx], cache.v[layer_idx],
                            cache.lengths[layer_idx], attn_cap=cfg.attn_softcap,
                            k_pos=cache.pos[layer_idx], q_pos=positions,
-                           window=M.layer_window(cfg, layer_idx))  # (B, S, G, Dh)
+                           window=window)  # (B, S, G, Dh)
 
 
 def _rope_slots(q, positions, cfg):
@@ -272,14 +326,51 @@ def _decode_slot_o(pl, attn, cfg):
     return torch.einsum("bsgx,sgxd->bd", attn, pl["wo_s"])[:, None]
 
 
+_KEEP = object()  # sentinel: "no cache override"
+
+
 def init_serve_state(cfg: ModelConfig, plan: PlanArrays, batch: int,
                      ccfg: CompressionConfig, dtype=torch.float32,
-                     device="cpu") -> ServeState:
-    """Empty B-row ServeState: every row retired (lengths 0, positions 0)."""
+                     device="cpu", cache=_KEEP) -> ServeState:
+    """Empty B-row ServeState: every row retired (lengths 0, positions 0).
+
+    The continuous scheduler starts from it and splices requests into rows
+    as they are admitted.  ``cache`` lets a cache backend put its own
+    layout (a `PagedCache`) in place of the slot cache."""
     _check_dense(cfg)
-    cache = init_cache(cfg.n_layers, int(plan.slot_head.shape[1]), batch,
-                       ccfg.static_capacity(), cfg.head_dim, dtype=dtype,
-                       device=device)
+    if cache is _KEEP:
+        cache = init_cache(cfg.n_layers, int(plan.slot_head.shape[1]), batch,
+                           ccfg.static_capacity(), cfg.head_dim, dtype=dtype,
+                           device=device)
     return ServeState(cache=cache,
                       last_tokens=torch.zeros((batch,), dtype=torch.int64, device=device),
                       decode_steps=0)
+
+
+def splice_state(state: ServeState, sub: ServeState, rows: Rows,
+                 cache=_KEEP) -> ServeState:
+    """Splice a prefilled sub-batch into ``rows`` of the live state, in
+    place.  ``sub`` must come from ``prefill(..., rows=rows)``.
+    ``decode_steps`` keeps the live value: the ring-write phase is global,
+    not per request.  ``cache`` tells that a backend already placed the
+    sub-cache in its own layout (the slot cache's `insert_rows` is then
+    skipped)."""
+    r = row_index(rows, state.last_tokens.device)
+    if cache is _KEEP:
+        insert_rows(state.cache, sub.cache, r)
+    state.last_tokens[r] = sub.last_tokens.to(state.last_tokens.dtype)
+    return state
+
+
+def reset_state_rows(state: ServeState, rows: Rows, cache=_KEEP) -> ServeState:
+    """Retire rows in place: clear their cache rows, so their decode output
+    is exactly zero and the rows can return to the freelist.  ``cache``
+    tells that a backend already cleared its own layout."""
+    r = rows_to_mask(rows, state.last_tokens.shape[0], state.last_tokens.device)
+    if cache is _KEEP:
+        if isinstance(state.cache, PagedCache):
+            paged_release_rows(state.cache, r)
+        else:
+            reset_rows(state.cache, r)
+    state.last_tokens[r] = 0
+    return state

@@ -4,15 +4,20 @@ Skipped without a CUDA device; on the GPU machine run
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 Each kernel is held against its plain PyTorch version on the same inputs:
 1e-4 absolute in fp32 (the summation order differs), plus one bf16 rounding
-step relative for bf16 outputs (both sides round an fp32 result once).
+step relative for bf16 outputs (both sides round an fp32 result once); the
+paged kernel to the reference's own bars for its TPU kernel, 1e-5 with
+fp32 outputs and 0.03 with bf16 outputs.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.api import CompressionConfig, Engine, EngineConfig, PlannerConfig
+from repro_torch.api import (CompressionConfig, Engine, EngineConfig, PagingConfig,
+                             PlannerConfig, SchedulerConfig, synthesize_requests)
 from repro_torch.kernels import build
-from repro_torch.kernels.ref import fairkv_decode_ref, snapkv_scores_ref
+from repro_torch.kernels.ref import (fairkv_decode_ref, paged_fairkv_decode_ref,
+                                     snapkv_scores_ref)
+from repro_torch.paging.testing import make_paged_layer, quantize_paged_layer
 
 pytestmark = pytest.mark.cuda
 
@@ -81,7 +86,70 @@ def test_engine_cuda_matches_cpu(gen):
                                           compression=comp, planner=plan), params=params)
     build.reset_launches()
     a, b = cpu.generate(prompts, 8), gpu.generate(prompts, 8)
-    assert build.LAUNCHES == {"fairkv_decode": 2 * 8, "snapkv_scores": 2}
+    assert build.LAUNCHES == {"fairkv_decode": 2 * 8, "snapkv_scores": 2,
+                              "paged_fairkv_decode": 0}
     assert np.array_equal(a.tokens, b.tokens)
     assert np.array_equal(a.lengths, b.lengths)
     assert np.abs(a.logits - b.logits).max() < 1e-3
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("S,B,G,Dh,C,bs,window,cap", [
+    (3, 2, 1, 64, 96, 16, 0, 0.0), (4, 3, 8, 32, 200, 8, 60, 0.0),
+    (16, 8, 4, 128, 576, 16, 0, 30.0)])
+def test_paged_fairkv_decode_kernel(gen, mode, S, B, G, Dh, C, bs, window, cap):
+    from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
+    rng = np.random.default_rng(S * 100 + C)
+    pool_dt = torch.bfloat16 if mode == "bf16" else torch.float32
+    q_dt = torch.bfloat16 if mode in ("bf16", "mixed") else torch.float32
+    kp, vp, pp, tbl, ln = make_paged_layer(rng, S, B, C, bs, Dh, dtype=pool_dt, device="cuda")
+    q = torch.from_numpy(rng.normal(size=(B, S, G, Dh)).astype(np.float32)).to("cuda", q_dt)
+    qpos = torch.full((B,), C + 7, dtype=torch.int32, device="cuda")
+    kw = {}
+    if mode in ("int8", "fp8", "mixed"):
+        kinds = {"int8": np.zeros(S), "fp8": np.ones(S), "mixed": np.arange(S) % 2}[mode]
+        kinds = torch.from_numpy(kinds.astype(np.int32)).cuda()
+        kp, vp, ks, vs = quantize_paged_layer(kp, vp, tbl, kinds)
+        kw = dict(k_scale=ks, v_scale=vs, kinds=kinds)
+    before = build.LAUNCHES["paged_fairkv_decode"]
+    out = paged_fairkv_decode_cuda(q, kp, vp, pp, tbl, ln, C, cap, q_pos=qpos,
+                                   window=window, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["paged_fairkv_decode"] == before + 1
+    ref = paged_fairkv_decode_ref(q, kp, vp, pp, tbl, ln, C, cap, q_pos=qpos,
+                                  window=window, **kw)
+    tol = 1e-5 if q_dt == torch.float32 else 0.03
+    assert (out.float() - ref.float()).abs().max().item() < tol
+    empty = (ln == 0).T
+    assert not bool(empty.any()) or out[empty].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("kv", ["fp32", "int8"])
+def test_paged_run_trace_cuda_matches_cpu(gen, kv):
+    """A short continuous trace on paged pools: the card's tokens equal the
+    CPU path's (fp32 weights), the paged kernel carries every decode step,
+    and the pool ends empty."""
+    comp = CompressionConfig(policy="ada_snapkv", budget=12, alpha_max=2.0,
+                             obs_window=8, sink=2, decode_margin=8)
+    kw = dict(n_shards=4, compression=comp, cache_backend="paged",
+              paging=PagingConfig(block_size=8, kv_dtype=kv),
+              planner=PlannerConfig(mode="fairkv_dp", extra_copies=4, batch_cap=2),
+              scheduler=SchedulerConfig(max_rows=2, replan_window=2,
+                                        replan_threshold=1.01, replan_cooldown=2,
+                                        replan_min_rows=1))
+    cpu = Engine.build(EngineConfig.smoke("minitron-8b", device="cpu", **kw))
+    params = {"embed": cpu.params["embed"].cuda(), "head": cpu.params["head"].cuda(),
+              "final_norm": cpu.params["final_norm"].cuda(),
+              "layers": [{k: v.cuda() for k, v in pl.items()} for pl in cpu.params["layers"]]}
+    gpu = Engine.build(EngineConfig.smoke("minitron-8b", device="cuda", **kw), params=params)
+    traces = [synthesize_requests(5, 0.5, cpu.cfg.model.vocab_size, min_prompt=12,
+                                  max_prompt=24, max_new_tokens=6, seed=0) for _ in range(2)]
+    a = cpu.run_trace(traces[0])
+    build.reset_launches()
+    b = gpu.run_trace(traces[1])
+    assert a["finished"] == b["finished"] == 5
+    assert [r.generated for r in traces[0]] == [r.generated for r in traces[1]]
+    # one launch per layer per decode tick
+    assert build.LAUNCHES["paged_fairkv_decode"] == cpu.cfg.model.n_layers * b["decode_ticks"] > 0
+    assert build.LAUNCHES["fairkv_decode"] == 0
+    assert gpu.scheduler.backend.pool.blocks_in_use() == 0

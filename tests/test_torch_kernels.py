@@ -108,7 +108,8 @@ def test_ops_dispatch_cpu_runs_plain_and_launches_nothing():
     sq, sk, so, sp = (torch.from_numpy(a) for a in _scores_inputs(4, 1, 4, 4, 2, 16, 40))
     assert torch.equal(ops.snapkv_scores(sq, sk, so, sp),
                        tref.snapkv_scores_ref(sq, sk, so, sp))
-    assert build.LAUNCHES == {"fairkv_decode": 0, "snapkv_scores": 0}
+    assert build.LAUNCHES == {"fairkv_decode": 0, "snapkv_scores": 0,
+                              "paged_fairkv_decode": 0}
 
 
 def test_cuda_wrappers_reject_cpu_tensors():

@@ -1,0 +1,148 @@
+"""The port's plain paged decode against the JAX package, on the CPU.
+
+`repro_torch.kernels.ref.paged_fairkv_decode_ref` is what the CUDA kernel
+is held to on the card and what the CPU path runs.  Here the same numpy
+layer (`paging.testing.make_paged_layer`, whose draws follow the
+reference fixture's, checked below) goes through (a) the JAX oracle
+``repro.kernels.ref.paged_fairkv_decode_ref`` and (b) the Pallas TPU
+kernel in interpret mode: ragged lengths, shuffled block ids, empty and
+all-null rows, partial last blocks, window and softcap, G in {1, 2, 4, 8},
+and int8 / fp8 / mixed-kind pools quantized by both packages.  Tolerance
+1e-5 with fp32 outputs (the reference's own bar for its kernel), 0.03
+with bf16 outputs (one bf16 rounding).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.paged_fairkv_decode import paged_fairkv_decode_pallas
+from repro.kernels.ref import paged_fairkv_decode_ref as jref
+from repro.paging.testing import make_paged_layer as jmake
+from repro.paging.testing import quantize_paged_layer as jquant
+from repro_torch.kernels import build, ops
+from repro_torch.kernels.ref import paged_fairkv_decode_ref as tref
+from repro_torch.paging.testing import make_paged_layer as tmake
+from repro_torch.paging.testing import quantize_paged_layer as tquant
+
+from tests._hypothesis_compat import given, settings, st
+
+torch.set_num_threads(2)
+TOL = 1e-5
+
+
+def _layers(seed, S, B, C, bs, Dh, lengths=None):
+    j = jmake(np.random.default_rng(seed), S, B, C, bs, Dh, lengths=lengths)
+    t = tmake(np.random.default_rng(seed), S, B, C, bs, Dh, lengths=lengths)
+    for a, b in zip(j, t):  # one seed, one layer in both packages
+        assert np.array_equal(np.asarray(a), b.numpy())
+    return j, t
+
+
+def _compare(seed, S, B, G, Dh, C, bs, window=0, cap=0.0, kinds=None, lengths=None,
+             pallas=True):
+    """Max |port − JAX oracle| and |port − Pallas interpret| for one layer;
+    ``kinds`` (S,) quantizes the pools (both packages' codecs)."""
+    (jk, jv, jp, jt, jl), (tk, tv, tp, tt, tl) = _layers(seed, S, B, C, bs, Dh, lengths)
+    rng = np.random.default_rng(seed + 1)
+    q = rng.normal(size=(B, S, G, Dh)).astype(np.float32)
+    qpos = np.full((B,), C + 7, np.int32)
+    jkw, tkw = {}, {}
+    if kinds is not None:
+        kinds = np.broadcast_to(np.asarray(kinds, np.int32), (S,)).copy()
+        jk, jv, jks, jvs = jquant(jk, jv, jt, jnp.asarray(kinds))
+        tk, tv, tks, tvs = tquant(tk, tv, tt, torch.from_numpy(kinds))
+        assert np.array_equal(np.asarray(jk), tk.numpy())
+        assert np.array_equal(np.asarray(jks), tks.numpy())
+        jkw = dict(k_scale=jks, v_scale=jvs, kinds=jnp.asarray(kinds))
+        tkw = dict(k_scale=tks, v_scale=tvs, kinds=torch.from_numpy(kinds))
+    out = tref(torch.from_numpy(q), tk, tv, tp, tt, tl, C, cap,
+               q_pos=torch.from_numpy(qpos), window=window, **tkw).numpy()
+    oracle = np.asarray(jref(jnp.asarray(q), jk, jv, jp, jt, jl, C, cap,
+                             q_pos=jnp.asarray(qpos), window=window, **jkw))
+    errs = [float(np.abs(out - oracle).max())]
+    if pallas:
+        kern = np.asarray(paged_fairkv_decode_pallas(
+            jnp.asarray(q), jk, jv, jp, jt, jl, C, attn_cap=cap,
+            q_pos=jnp.asarray(qpos), window=window, interpret=True, **jkw))
+        errs.append(float(np.abs(out - kern).max()))
+    empty = (tl.numpy() == 0).T  # (B, S): empty pairs give exact zeros
+    assert not np.any(out[empty])
+    return max(errs)
+
+
+@settings(max_examples=6, deadline=None)
+@given(S=st.integers(2, 5), B=st.integers(1, 4), G=st.sampled_from([1, 2, 4, 8]),
+       C=st.integers(6, 200), bs=st.sampled_from([2, 8, 16, 32, 64]),
+       seed=st.integers(0, 10))
+def test_paged_ref_ragged_lengths(S, B, G, C, bs, seed):
+    """Ragged lengths, empty rows, shuffled blocks, partial last blocks."""
+    assert _compare(seed, S, B, G, 32, C, bs) < TOL
+
+
+@pytest.mark.parametrize("S,B,G,Dh,C,bs", [
+    (4, 3, 4, 64, 96, 16),    # several blocks, ragged
+    (2, 2, 8, 64, 256, 32),   # GQA 8:1
+    (3, 2, 1, 128, 200, 64),  # MHA, capacity not a block multiple
+    (2, 2, 2, 16, 16, 16),    # one block per row
+])
+def test_paged_ref_shapes(S, B, G, Dh, C, bs):
+    assert _compare(S * 10 + C, S, B, G, Dh, C, bs) < TOL
+
+
+@pytest.mark.parametrize("window,cap", [(40, 0.0), (0, 30.0), (40, 30.0)])
+def test_paged_ref_window_softcap(window, cap):
+    assert _compare(5, 3, 2, 4, 32, 96, 16, window=window, cap=cap) < TOL
+
+
+def test_paged_ref_null_block_tables():
+    """All-null tables (every length 0) decode to exact zeros."""
+    assert _compare(6, 3, 2, 4, 32, 96, 16, lengths=np.zeros((3, 2))) == 0.0
+
+
+def test_paged_ref_partial_last_blocks():
+    lengths = np.asarray([[1, 17], [31, 33], [16, 47]])  # every partial case at bs 16
+    assert _compare(7, 3, 2, 2, 32, 48, 16, lengths=lengths) < TOL
+
+
+@pytest.mark.parametrize("kinds", [0, 1, [0, 1, 0, 1]], ids=["int8", "fp8", "mixed"])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (40, 30.0)])
+def test_paged_ref_quantized(kinds, window, cap):
+    """int8 / fp8 / mixed-kind pools: codes and scales from both codecs are
+    identical, and the dequantizing decode matches oracle and kernel."""
+    assert _compare(8, 4, 3, 4, 32, 96, 16, window=window, cap=cap, kinds=kinds) < TOL
+
+
+@settings(max_examples=4, deadline=None)
+@given(S=st.integers(2, 5), B=st.integers(1, 4), C=st.integers(6, 120),
+       bs=st.sampled_from([2, 8, 16]), kind=st.sampled_from([0, 1]),
+       seed=st.integers(0, 10))
+def test_paged_ref_quantized_ragged(S, B, C, bs, kind, seed):
+    assert _compare(seed, S, B, 4, 32, C, bs, kinds=kind, pallas=False) < TOL
+
+
+def test_paged_ref_quantized_null_tables():
+    assert _compare(9, 3, 2, 4, 32, 96, 16, kinds=1, lengths=np.zeros((3, 2))) == 0.0
+
+
+def test_paged_ref_bf16():
+    """bf16 pools and queries (0.03: one bf16 rounding of the output)."""
+    (jk, jv, jp, jt, jl), (tk, tv, tp, tt, tl) = _layers(10, 3, 2, 96, 16, 64)
+    q = np.random.default_rng(11).normal(size=(2, 3, 4, 64)).astype(np.float32)
+    out = tref(torch.from_numpy(q).bfloat16(), tk.bfloat16(), tv.bfloat16(), tp, tt, tl,
+               96).float().numpy()
+    oracle = np.asarray(jref(jnp.asarray(q, jnp.bfloat16), jk.astype(jnp.bfloat16),
+                             jv.astype(jnp.bfloat16), jp, jt, jl, 96).astype(jnp.float32))
+    assert np.abs(out - oracle).max() < 0.03
+
+
+def test_ops_dispatch_cpu_runs_plain_version():
+    """On CPU tensors `ops.paged_fairkv_decode` is the plain version, and
+    no kernel launch is counted."""
+    _, (tk, tv, tp, tt, tl) = _layers(12, 3, 2, 64, 16, 32)
+    q = torch.randn(2, 3, 2, 32, generator=torch.Generator().manual_seed(0))
+    before = build.LAUNCHES["paged_fairkv_decode"]
+    a = ops.paged_fairkv_decode(q, tk, tv, tp, tt, tl, 64)
+    assert torch.equal(a, tref(q, tk, tv, tp, tt, tl, 64))
+    assert build.LAUNCHES["paged_fairkv_decode"] == before
+    assert "paged_fairkv_decode" in build.KERNELS
