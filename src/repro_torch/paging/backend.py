@@ -139,7 +139,7 @@ class PagedBackend(CacheBackend):
         self.table[:, :, rows_np, :] = table_sub
         paginate_rows(state.cache, sub.cache, rows_np, table_sub,
                       kinds=self._slot_kinds(self.pa))
-        return _serve.splice_state(state, sub, rows_np, cache=state.cache)
+        return _serve.set_row_tokens(state, rows_np, sub.last_tokens)
 
     def release_rows(self, state, rows):
         rows_np = np.asarray(rows, np.int64)
@@ -147,7 +147,7 @@ class PagedBackend(CacheBackend):
             self.table[:, :, rows_np, :].reshape(self.table.shape[0], -1))
         self.table[:, :, rows_np, :] = 0
         release_rows(state.cache, rows_np)
-        return _serve.reset_state_rows(state, rows_np, cache=state.cache)
+        return _serve.set_row_tokens(state, rows_np)
 
     def prepare_decode(self, state, active, n_tokens: int = 1):
         """Allocate the block backing each active row's next append.
@@ -227,6 +227,7 @@ class PagedBackend(CacheBackend):
                 kv_quant=self.kv_quant, device=cache.k_pool.device)
             paginate_rows(empty, slot2, np.arange(B), table,
                           kinds=self._slot_kinds(new_pa))
+            trial.peak_in_use = max(trial.peak_in_use, self.pool.peak_in_use)
             self.pool, self.table, self.pa = trial, table, new_pa
             self._pending_scale_reset.clear()
             self._table_stale = False
@@ -287,6 +288,7 @@ class PagedBackend(CacheBackend):
             return {"backend": self.name, "layout": "slot (pre-adoption)",
                     "block_size": self.block_size,
                     "blocks_in_use": 0, "blocks_total": 0,
+                    "peak_blocks_in_use_per_layer": 0,
                     "cache_bytes": int(2 * L * S * B * C * Dh * c.k.element_size()),
                     "pool_bytes": 0, "slot_equivalent_bytes": 0,
                     "live_tokens": int(c.lengths.sum())}
@@ -304,6 +306,7 @@ class PagedBackend(CacheBackend):
             "kv_dtype": self.paging.kv_dtype,
             "blocks_in_use": in_use,
             "blocks_total": L * usable,
+            "peak_blocks_in_use_per_layer": self.pool.peak_in_use,
             "cache_bytes": in_use * block_bytes,
             "pool_bytes": L * usable * block_bytes,
             "slot_equivalent_bytes": int(2 * L * S * B * self.capacity * Dh * model_item),

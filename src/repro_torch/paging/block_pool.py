@@ -120,6 +120,8 @@ class BlockPool:
         self.refcount[:, 0] = 1  # the null block: pinned forever
         self._free: List[List[int]] = [list(range(n_blocks - 1, 0, -1))
                                        for _ in range(n_layers)]
+        # most blocks one layer has held at once (the realized need)
+        self.peak_in_use = 0
 
     # ---- introspection -----------------------------------------------------
 
@@ -152,6 +154,7 @@ class BlockPool:
                 f"(pool {self.usable_blocks}/layer)")
         ids = [free.pop() for _ in range(n)]
         self.refcount[layer, ids] = 1
+        self.peak_in_use = max(self.peak_in_use, self.usable_blocks - len(free))
         return ids
 
     def decref(self, layer: int, ids: Iterable[int]) -> None:

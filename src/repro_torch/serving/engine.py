@@ -23,7 +23,9 @@ eagerly; callers wrap the steps in ``torch.inference_mode()``.
 Continuous batching adds row-level state ops: ``prefill(..., rows=)``
 evaluates ownership at the global rows a request will occupy,
 ``decode_step(..., active=)`` appends and advances positions only on live
-rows, and `splice_state` / `reset_state_rows` admit and retire rows.
+rows, and `splice_state` / `reset_state_rows` admit and retire rows of a
+slot cache (a paged backend does its own cache work, then
+`set_row_tokens`).
 """
 from __future__ import annotations
 
@@ -53,7 +55,6 @@ from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as M
 from repro_torch.paging.paged_cache import PagedCache, paged_append_token
-from repro_torch.paging.paged_cache import release_rows as paged_release_rows
 
 
 # ---------------------------------------------------------------------------
@@ -326,19 +327,16 @@ def _decode_slot_o(pl, attn, cfg):
     return torch.einsum("bsgx,sgxd->bd", attn, pl["wo_s"])[:, None]
 
 
-_KEEP = object()  # sentinel: "no cache override"
-
-
 def init_serve_state(cfg: ModelConfig, plan: PlanArrays, batch: int,
                      ccfg: CompressionConfig, dtype=torch.float32,
-                     device="cpu", cache=_KEEP) -> ServeState:
+                     device="cpu", cache: Optional[PagedCache] = None) -> ServeState:
     """Empty B-row ServeState: every row retired (lengths 0, positions 0).
 
     The continuous scheduler starts from it and splices requests into rows
     as they are admitted.  ``cache`` lets a cache backend put its own
     layout (a `PagedCache`) in place of the slot cache."""
     _check_dense(cfg)
-    if cache is _KEEP:
+    if cache is None:
         cache = init_cache(cfg.n_layers, int(plan.slot_head.shape[1]), batch,
                            ccfg.static_capacity(), cfg.head_dim, dtype=dtype,
                            device=device)
@@ -347,30 +345,32 @@ def init_serve_state(cfg: ModelConfig, plan: PlanArrays, batch: int,
                       decode_steps=0)
 
 
-def splice_state(state: ServeState, sub: ServeState, rows: Rows,
-                 cache=_KEEP) -> ServeState:
-    """Splice a prefilled sub-batch into ``rows`` of the live state, in
-    place.  ``sub`` must come from ``prefill(..., rows=rows)``.
+def set_row_tokens(state: ServeState, rows: Rows,
+                   tokens: Optional[torch.Tensor] = None) -> ServeState:
+    """Set the last token of ``rows`` in place: ``tokens`` of a spliced
+    sub-batch at int row ids, or 0 for retired rows (int ids or a (B,)
+    bool mask).  Each cache backend does its own cache work and then calls
+    this."""
+    dev = state.last_tokens.device
+    if tokens is None:
+        state.last_tokens[rows_to_mask(rows, state.last_tokens.shape[0], dev)] = 0
+    else:
+        state.last_tokens[row_index(rows, dev)] = tokens.to(state.last_tokens.dtype)
+    return state
+
+
+def splice_state(state: ServeState, sub: ServeState, rows: Rows) -> ServeState:
+    """Splice a prefilled sub-batch into ``rows`` of a live slot-cache
+    state, in place.  ``sub`` must come from ``prefill(..., rows=rows)``.
     ``decode_steps`` keeps the live value: the ring-write phase is global,
-    not per request.  ``cache`` tells that a backend already placed the
-    sub-cache in its own layout (the slot cache's `insert_rows` is then
-    skipped)."""
-    r = row_index(rows, state.last_tokens.device)
-    if cache is _KEEP:
-        insert_rows(state.cache, sub.cache, r)
-    state.last_tokens[r] = sub.last_tokens.to(state.last_tokens.dtype)
-    return state
+    not per request."""
+    insert_rows(state.cache, sub.cache, rows)
+    return set_row_tokens(state, rows, sub.last_tokens)
 
 
-def reset_state_rows(state: ServeState, rows: Rows, cache=_KEEP) -> ServeState:
-    """Retire rows in place: clear their cache rows, so their decode output
-    is exactly zero and the rows can return to the freelist.  ``cache``
-    tells that a backend already cleared its own layout."""
-    r = rows_to_mask(rows, state.last_tokens.shape[0], state.last_tokens.device)
-    if cache is _KEEP:
-        if isinstance(state.cache, PagedCache):
-            paged_release_rows(state.cache, r)
-        else:
-            reset_rows(state.cache, r)
-    state.last_tokens[r] = 0
-    return state
+def reset_state_rows(state: ServeState, rows: Rows) -> ServeState:
+    """Retire rows of a slot-cache state in place: clear their cache rows,
+    so their decode output is exactly zero and the rows can return to the
+    freelist."""
+    reset_rows(state.cache, rows)
+    return set_row_tokens(state, rows)

@@ -123,7 +123,8 @@ class Scheduler:
     ``torch.inference_mode()`` (every public method that touches them
     enters it).  ``step_s`` keeps the host wall time of every tick (each
     decode step ends in a device synchronize, so it covers the device
-    work).
+    work), ``prepare_s`` that of each tick's backend `prepare_decode`
+    (block allocation and table copy; preemptions included).
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, plan: HeadPlacement,
@@ -168,6 +169,7 @@ class Scheduler:
         self.replan_log: List[dict] = []
         self.finished: List[Request] = []
         self.step_s: List[float] = []
+        self.prepare_s: List[float] = []  # host time of each tick's prepare_decode
         self.decode_ticks = 0  # ticks that ran a decode step
 
     # ---- load accounting ---------------------------------------------------
@@ -441,7 +443,9 @@ class Scheduler:
             if req.is_finished:  # max_new_tokens == 1 or instant EOS
                 events["finished"].append(req.req_id)
         if self.active:
+            t_prep = time.perf_counter()
             self._prepare_decode()  # may preempt (paged pool dry)
+            self.prepare_s.append(time.perf_counter() - t_prep)
         if self.active:
             self.state, logits = self.executor.decode(
                 self.sp, self.state, self.pa, self.state.last_tokens,

@@ -205,6 +205,7 @@ def test_block_pool_sequence_matches_reference():
     rng = np.random.default_rng(5)
     j, t = jbp.BlockPool(3, 24), tbp.BlockPool(3, 24)
     held = {0: [], 1: [], 2: []}
+    peak = 0  # most blocks one layer held at once
     for _ in range(60):
         layer = int(rng.integers(3))
         if held[layer] and rng.random() < 0.45:
@@ -222,9 +223,11 @@ def test_block_pool_sequence_matches_reference():
             continue
         assert t.alloc(layer, n) == a
         held[layer] += a
+        peak = max(peak, max(len(h) for h in held.values()))
     assert np.array_equal(j.refcount, t.refcount)
     assert [fl[0] for fl in j._free] == t._free
     assert j.blocks_in_use() == t.blocks_in_use()
+    assert t.peak_in_use == peak > 0
     t.check_invariants()
     with pytest.raises(ValueError, match="double free"):
         t.decref(0, [next(b for b in range(1, 24) if t.refcount[0, b] == 0)])

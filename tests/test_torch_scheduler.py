@@ -110,11 +110,13 @@ def test_trace_matches_reference(runs, name):
     assert ([e["accepted"] for e in tsum["replan_log"]]
             == [e["accepted"] for e in jsum["replan_log"]])
     assert tsum["steps"] == jsum["steps"]
+    assert len(te.scheduler.prepare_s) >= tsum["decode_ticks"] > 0
     if te.cfg.cache_backend == "paged":
         pool = te.scheduler.backend.pool
         assert pool.blocks_in_use() == 0
         pool.check_invariants()
         assert tsum["memory"]["blocks_in_use"] == jsum["memory"]["blocks_in_use"] == 0
+        assert 0 < tsum["memory"]["peak_blocks_in_use_per_layer"] <= pool.usable_blocks
 
 
 def test_slot_and_paged_give_the_same_tokens(runs):
