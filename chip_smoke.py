@@ -6,16 +6,20 @@
 Phases (any failure exits non-zero; no phase carries on past its own):
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the three CUDA kernels from `src/repro_torch/csrc` with nvcc (one
+2. build the four CUDA kernels from `src/repro_torch/csrc` with nvcc (one
    process per source, started together) and print the build seconds and
    the ptxas report;
 3. hold each kernel against its plain PyTorch version on the card over a
    shape sweep plus the main path's shapes: fp32 and bf16, ragged lengths,
-   an all-zero slot, window and softcap; for the paged kernel also int8,
+   an all-zero slot, window and softcap; for the paged kernels also int8,
    fp8 and mixed-kind pools, G in {1, 2, 4, 8}, null-block tables and
-   partial last blocks (tolerances stated at each check);
+   partial last blocks; for the multi-query (speculative-verify) kernel Q
+   in {1, 3, 5} with ragged q_lens, and at Q = 1 bitwise equality with the
+   single-query paged kernel (tolerances stated at each check);
 4. check the port's CUDA path against its own CPU path on minitron-8b smoke
-   (same weights, fp32): identical tokens and lengths, close logits;
+   (same weights, fp32): identical tokens and lengths, close logits; then
+   speculative `run_trace` (full-depth and 1-layer drafts) against the
+   card's plain paged run and the CPU's spec run: identical tokens;
 5. the main path at full width: minitron-8b (32 layers, d_model 4096, 32/8
    heads, vocab 256000) in bf16 with random weights from a seed, 8 shards x 2
    slots, Ada-SnapKV (budget 256 -> capacity 576), B=8 prompts of T=2048
@@ -34,7 +38,12 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    online replanning, on the slot backend, bf16 pools, int8 pools and an
    undersized fp8 pool that must preempt; every request must finish, every
    pool end empty, and the slot and bf16-pool runs give identical tokens
-   and replan decisions; one profiler pass over continuous decode ticks;
+   and replan decisions; then self-speculative decoding on the same trace:
+   (e) an 8-layer draft with adaptive depth, (f) the full-depth self-draft
+   (acceptance >= 0.90) on bf16 pools, (g) (e)'s draft on int8 pools;
+   (e) against the bf16 run: logit gap under the bf16 bound while the
+   tokens agree and every divergence a near-tie; one profiler pass over
+   continuous decode ticks and one over speculative ticks;
 8. time each kernel, its plain version and the PyTorch library call where
    one exists on the main path's own inputs (CUDA events, median of 25
    runs after warmup, L2 flushed before each run) beside the least time the
@@ -241,7 +250,6 @@ def check_paged():
     import torch
     from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
     from repro_torch.kernels.ref import paged_fairkv_decode_ref
-    from repro_torch.paging.testing import make_paged_layer, quantize_paged_layer
     rng = np.random.default_rng(SEED)
     C_main = int(round(ALPHA * BUDGET)) + MARGIN
     shapes = [(3, 2, 1, 64, 96, 16), (4, 3, 2, 32, 200, 8), (2, 2, 8, 64, 256, 32),
@@ -253,26 +261,12 @@ def check_paged():
             for mode in ("fp32", "bf16", "int8", "fp8", "mixed"):
                 for q_dt in ((torch.float32, torch.bfloat16) if mode in ("int8", "fp8", "mixed")
                              else (torch.float32 if mode == "fp32" else torch.bfloat16,)):
-                    pool_dt = torch.bfloat16 if mode == "bf16" else torch.float32
                     lengths = np.zeros((S, Bq), np.int32) if n % 17 == 5 else None
-                    kp, vp, pp, tbl, ln = make_paged_layer(rng, S, Bq, C, bs, Dh, dtype=pool_dt,
-                                                           lengths=lengths, device="cuda")
+                    kp, vp, pp, tbl, ln, qkw = _paged_case(rng, mode, S, Bq, C, bs, Dh,
+                                                           lengths)
                     q = torch.from_numpy(rng.normal(size=(Bq, S, G, Dh)).astype(np.float32)
                                          ).to("cuda", q_dt)
                     qpos = torch.full((Bq,), C + 7, dtype=torch.int32, device="cuda")
-                    qkw = {}
-                    if mode in ("int8", "fp8", "mixed"):
-                        kinds = {"int8": np.zeros(S), "fp8": np.ones(S),
-                                 "mixed": np.arange(S) % 2}[mode].astype(np.int32)
-                        kinds = torch.from_numpy(kinds).to("cuda")
-                        kp, vp, ks, vs = quantize_paged_layer(kp, vp, tbl, kinds)
-                        if mode != "int8":
-                            # fp8 NaN codes inside valid columns of fp8 slots read as 0
-                            fp8_blocks = tbl[kinds.bool()][..., 0]
-                            fp8_blocks = fp8_blocks[fp8_blocks > 0]
-                            kp[fp8_blocks, 0, :4] = 0x7F
-                            vp[fp8_blocks, 0, 4:8] = -1  # 0xFF
-                        qkw = dict(k_scale=ks, v_scale=vs, kinds=kinds)
                     out = paged_fairkv_decode_cuda(q, kp, vp, pp, tbl, ln, C, cap,
                                                    q_pos=qpos, window=window, **qkw)
                     ref = paged_fairkv_decode_ref(q, kp, vp, pp, tbl, ln, C, cap,
@@ -288,6 +282,96 @@ def check_paged():
     log(f"[check] paged_fairkv_decode: {n} cases vs plain (tol {PAGED_FP32_TOL:g} with "
         f"fp32 outputs; {PAGED_BF16_TOL:g} and {FP32_TOL:g} + {BF16_ULP:g}|plain| with "
         f"bf16); max abs err by (pools, q): "
+        + ", ".join(f"{p}/{q} {e:.3e}" for (p, q), e in sorted(worst.items())))
+
+
+def _paged_case(rng, mode, S, Bq, C, bs, Dh, lengths=None):
+    """One layer for the paged kernels' checks: (k, v, pos, table, lengths,
+    quantization kwargs); int8 / fp8 / mixed pools get fp8 NaN codes
+    planted in valid columns of their fp8 slots (both sides read 0)."""
+    import numpy as np
+    import torch
+    from repro_torch.paging.testing import make_paged_layer, quantize_paged_layer
+    pool_dt = torch.bfloat16 if mode == "bf16" else torch.float32
+    kp, vp, pp, tbl, ln = make_paged_layer(rng, S, Bq, C, bs, Dh, dtype=pool_dt,
+                                           lengths=lengths, device="cuda")
+    kw = {}
+    if mode in ("int8", "fp8", "mixed"):
+        kinds = {"int8": np.zeros(S), "fp8": np.ones(S),
+                 "mixed": np.arange(S) % 2}[mode].astype(np.int32)
+        kinds = torch.from_numpy(kinds).to("cuda")
+        kp, vp, ks, vs = quantize_paged_layer(kp, vp, tbl, kinds)
+        if mode != "int8":
+            fp8_blocks = tbl[kinds.bool()][..., 0]
+            fp8_blocks = fp8_blocks[fp8_blocks > 0]
+            kp[fp8_blocks, 0, :4] = 0x7F
+            vp[fp8_blocks, 0, 4:8] = -1  # 0xFF
+        kw = dict(k_scale=ks, v_scale=vs, kinds=kinds)
+    return kp, vp, pp, tbl, ln, kw
+
+
+def check_paged_mq():
+    """paged_fairkv_decode_mq against paged_fairkv_decode_ref with a 5-D q
+    on the card: Q in {1, 3, 5} with ragged q_lens (garbage lanes past
+    them), G in {1, 4, 8}, fp32 / bf16 / int8 / fp8 / mixed pools (fp32 and
+    bf16 queries on the quantized ones), ragged lengths with empty pairs
+    and lengths under the window (queries with no visible entry), null
+    tables, partial last blocks, window + softcap, and the full-width shape
+    (S=16, B=8, G=4, Dh=128, C=576, bs=16).  Tolerance: fp32 outputs within
+    FP32_TOL, bf16 outputs within one bf16 step (FP32_TOL + BF16_ULP|plain|).
+    At Q = 1 the kernel must equal `paged_fairkv_decode_cuda` bitwise."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_fairkv_decode import (paged_fairkv_decode_cuda,
+                                                         paged_fairkv_decode_mq_cuda)
+    from repro_torch.kernels.ref import paged_fairkv_decode_ref
+    rng = np.random.default_rng(SEED + 2)
+    C_main = int(round(ALPHA * BUDGET)) + MARGIN
+    shapes = [(3, 2, 1, 64, 96, 16), (4, 3, 4, 32, 200, 8), (2, 2, 8, 64, 64, 32),
+              (N_SHARDS * SLOTS_PER_SHARD, B, 4, 128, C_main, BLOCK)]
+    worst, n, n_bitwise = {}, 0, 0
+    for (S, Bq, G, Dh, C, bs) in shapes:
+        for Q in (1, 3, 5):
+            for window, cap in ((0, 0.0), (C // 3, 30.0)):
+                for mode in ("fp32", "bf16", "int8", "fp8", "mixed"):
+                    for q_dt in ((torch.float32, torch.bfloat16)
+                                 if mode in ("int8", "fp8", "mixed")
+                                 else (torch.float32 if mode == "fp32" else torch.bfloat16,)):
+                        lengths = np.zeros((S, Bq), np.int32) if n % 23 == 7 else None
+                        kp, vp, pp, tbl, ln, kw = _paged_case(rng, mode, S, Bq, C, bs, Dh,
+                                                              lengths)
+                        q = torch.from_numpy(rng.normal(size=(Bq, S, Q, G, Dh)).astype(
+                            np.float32)).to("cuda", q_dt)
+                        q_lens = torch.from_numpy(rng.integers(1, Q + 1, size=Bq).astype(
+                            np.int32)).to("cuda")
+                        qpos = torch.full((Bq,), C + 7, dtype=torch.int32, device="cuda")
+                        args = (q, kp, vp, pp, tbl, ln, C, cap)
+                        out = paged_fairkv_decode_mq_cuda(*args, q_pos=qpos, window=window,
+                                                          q_lens=q_lens, **kw)
+                        ref = paged_fairkv_decode_ref(*args, q_pos=qpos, window=window,
+                                                      q_lens=q_lens, **kw)
+                        tag = (f"paged_fairkv_decode_mq {mode} q={q_dt} Q={Q} "
+                               f"{(S, Bq, G, Dh, C, bs)} w={window} cap={cap}")
+                        rel = 0.0 if q_dt == torch.float32 else BF16_ULP
+                        key = (mode, str(q_dt).replace("torch.", ""))
+                        worst[key] = max(worst.get(key, 0.0), _cmp(tag, out, ref, FP32_TOL, rel))
+                        lnT = ln.T[:, :, None].long()  # (B, S, 1)
+                        limit = torch.minimum(lnT - (q_lens.long()[:, None, None] - 1
+                                                     - torch.arange(Q, device="cuda")), lnT)
+                        dead = limit <= 0  # queries that see no entry
+                        if bool(dead.any()) and out[dead].abs().max().item() != 0.0:
+                            fail(f"{tag}: a query with no visible entry is not exactly 0")
+                        if Q == 1:
+                            single = paged_fairkv_decode_cuda(q[:, :, 0].contiguous(), kp, vp,
+                                                              pp, tbl, ln, C, cap, q_pos=qpos,
+                                                              window=window, **kw)
+                            if not torch.equal(single, out[:, :, 0]):
+                                fail(f"{tag}: Q = 1 differs from paged_fairkv_decode_cuda")
+                            n_bitwise += 1
+                        n += 1
+    log(f"[check] paged_fairkv_decode_mq: {n} cases vs plain (tol {FP32_TOL:g} with fp32 "
+        f"outputs, {FP32_TOL:g} + {BF16_ULP:g}|plain| with bf16); {n_bitwise} Q = 1 cases "
+        f"bitwise equal to paged_fairkv_decode_cuda; max abs err by (pools, q): "
         + ", ".join(f"{p}/{q} {e:.3e}" for (p, q), e in sorted(worst.items())))
 
 
@@ -330,6 +414,63 @@ def smoke_parity():
     del res
     gc.collect()
     torch.cuda.empty_cache()
+
+
+def smoke_spec_parity():
+    """Speculative `run_trace` on paged fp32 pools at smoke size (the
+    reference's speculative-test setup: no compression, block size 8, 4
+    rows), full-depth and 1-layer drafts: on the card each gives the plain
+    paged run's tokens and the same spec run's tokens on the CPU; the mq
+    kernel carries every verify (n_layers launches per tick), the paged
+    kernel every draft step (draft layers x max_k per tick)."""
+    from repro_torch import interop
+    from repro_torch.api import (CompressionConfig, Engine, EngineConfig, PagingConfig,
+                                 PlannerConfig, SchedulerConfig, SpeculationConfig,
+                                 synthesize_requests)
+    rows, max_k = 4, 3
+    params = {}
+    tokens = {}
+    for dev in ("cpu", "cuda"):
+        for name, spec in (("plain", SpeculationConfig()),
+                           ("full draft", SpeculationConfig(enabled=True, max_k=max_k)),
+                           ("1-layer draft", SpeculationConfig(enabled=True, max_k=max_k,
+                                                               draft_layers=1))):
+            cfg = EngineConfig.smoke(
+                ARCH, n_shards=4, max_seq_len=38, device=dev,
+                compression=CompressionConfig(policy="none", budget=64, capacity=64,
+                                              alpha_max=1.0, obs_window=8, sink=2,
+                                              decode_margin=8),
+                planner=PlannerConfig(mode="fairkv_dp", extra_copies=6, batch_cap=rows),
+                scheduler=SchedulerConfig(max_rows=rows, enable_replan=False),
+                cache_backend="paged", paging=PagingConfig(block_size=8),
+                speculation=spec)
+            if "cpu" not in params:
+                params["cpu"] = Engine.build(cfg).params
+                params["cuda"] = interop.to_torch(interop.to_numpy(params["cpu"]), "cuda")
+            eng = Engine.build(cfg, params=params[dev])
+            reqs = synthesize_requests(6, 0.5, cfg.model.vocab_size, min_prompt=8,
+                                       max_prompt=20, max_new_tokens=10, seed=3)
+            out, got = _count(lambda: eng.run_trace(reqs, max_steps=400))
+            if out["finished"] != 6 or eng.scheduler.backend.pool.blocks_in_use() != 0:
+                fail(f"smoke spec {name} on {dev}: {out['finished']}/6 finished, "
+                     f"{eng.scheduler.backend.pool.blocks_in_use()} blocks left")
+            tokens[dev, name] = [r.generated for r in reqs]
+            if dev == "cuda" and spec.enabled:
+                nL, ticks = cfg.model.n_layers, out["decode_ticks"]
+                d = spec.draft_layers or nL
+                if (got["paged_fairkv_decode_mq"] != nL * ticks
+                        or got["paged_fairkv_decode"] != d * max_k * ticks):
+                    fail(f"smoke spec {name}: launches {got}, expected mq {nL} x {ticks}, "
+                         f"paged {d} x {max_k} x {ticks}")
+            log(f"[smoke] spec {dev:4s} {name:13s}: {out['decode_ticks']} ticks, "
+                f"acceptance {out['acceptance']}")
+    for name in ("full draft", "1-layer draft"):
+        if tokens["cuda", name] != tokens["cuda", "plain"]:
+            fail(f"smoke spec {name}: card tokens differ from the card's plain paged run")
+        if tokens["cuda", name] != tokens["cpu", name]:
+            fail(f"smoke spec {name}: card tokens differ from the CPU spec run")
+    log("[smoke] speculative run_trace (full and 1-layer drafts): card tokens == card plain "
+        "paged tokens == CPU spec tokens (fp32)")
 
 
 # ---------------------------------------------------------------------------
@@ -664,21 +805,25 @@ def make_trace(vocab):
     return reqs
 
 
-def continuous_run(ctx, name, backend, kv, n_blocks=0):
+def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False):
     """One trace through `Engine.run_trace` (8 rows, replanning on with
     `SchedulerConfig`'s defaults) with the launch counters zeroed just
     before and read just after; checks that every request finished with
     all its tokens, the launch counts, and (paged) an empty, consistent
-    pool at the end.  Returns (launches, summary)."""
+    pool at the end.  ``spec`` (a `SpeculationConfig`) turns speculation
+    on; ``logits`` keeps each token's logits.  Returns (launches, summary)."""
     import numpy as np
     import torch
-    from repro_torch.api import Engine, PagingConfig, SchedulerConfig
+    from repro_torch.api import Engine, PagingConfig, SchedulerConfig, SpeculationConfig
     m = ctx["cfg"].model
+    spec = spec or SpeculationConfig()
     gc.collect()
     torch.cuda.empty_cache()
     cfg = ctx["cfg"].replace(
-        cache_backend=backend, scheduler=SchedulerConfig(max_rows=MAX_ROWS),
-        paging=PagingConfig(block_size=BLOCK, kv_dtype=kv, n_blocks=n_blocks))
+        cache_backend=backend,
+        scheduler=SchedulerConfig(max_rows=MAX_ROWS, collect_logits=logits),
+        paging=PagingConfig(block_size=BLOCK, kv_dtype=kv, n_blocks=n_blocks),
+        speculation=spec)
     eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
     reqs = make_trace(m.vocab_size)
     torch.cuda.reset_peak_memory_stats()
@@ -692,6 +837,8 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0):
     rej = len(summary["replan_log"]) - acc
     in_use = summary["memory"].get("blocks_in_use", 0)
     peak_blocks = summary["memory"].get("peak_blocks_in_use_per_layer", 0)
+    host_ms = {k: 1e3 * float(np.median(getattr(sched, k))) if getattr(sched, k) else None
+               for k in ("prepare_s", "propose_s", "verify_s")}
     log(f"[cont] {name:10s} finished {summary['finished']}/{N_REQ} | tokens "
         f"{summary['generated_tokens']} | steps {summary['steps']} (decode ticks {ticks}) | "
         f"preemptions {summary['preemptions']} | replans accepted {acc} rejected {rej} | "
@@ -701,6 +848,10 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0):
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
         + (f"pool {n_blocks or 'worst-case'} blocks/layer, peak in use {peak_blocks}/layer, "
            f"in use at the end {in_use} | " if backend == "paged" else "")
+        + (f"acceptance {summary['acceptance']:.4f} ({summary['spec_accepted']}/"
+           f"{summary['spec_proposed']}) | host ms per tick (median): prepare "
+           f"{host_ms['prepare_s']:.2f}, propose {host_ms['propose_s']:.2f}, verify "
+           f"{host_ms['verify_s']:.2f} | " if spec.enabled else "")
         + f"launches {got}")
     if summary["finished"] != N_REQ or any(not r.is_finished or r.cancelled for r in reqs):
         fail(f"{name}: {summary['finished']} of {N_REQ} requests finished")
@@ -709,9 +860,15 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0):
              f"{sum(r.max_new_tokens for r in reqs)}")
     decode_kernel = "paged_fairkv_decode" if backend == "paged" else "fairkv_decode"
     other = "fairkv_decode" if backend == "paged" else "paged_fairkv_decode"
-    if got[decode_kernel] != m.n_layers * ticks or got[other] != 0:
-        fail(f"{name}: {decode_kernel} launched {got[decode_kernel]} times (expected "
-             f"{m.n_layers} x {ticks} ticks), {other} {got[other]} (expected 0)")
+    expect = {decode_kernel: m.n_layers * ticks, other: 0, "paged_fairkv_decode_mq": 0}
+    if spec.enabled:
+        # every tick: max_k draft steps over the draft layers (paged kernel),
+        # then one verify over every layer (multi-query kernel)
+        d = spec.draft_layers or m.n_layers
+        expect.update(paged_fairkv_decode=d * spec.max_k * ticks,
+                      paged_fairkv_decode_mq=m.n_layers * ticks)
+    if any(got[k] != v for k, v in expect.items()):
+        fail(f"{name}: launches {got}, expected {expect} ({ticks} ticks)")
     if got["snapkv_scores"] != m.n_layers * admissions:
         fail(f"{name}: snapkv_scores launched {got['snapkv_scores']} times, expected "
              f"{m.n_layers} x {admissions} prefills")
@@ -723,14 +880,17 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0):
         log(f"[cont] {name}: BlockPool.check_invariants() passed; 0 blocks in use")
     out = {k: summary[k] for k in ("steps", "decode_ticks", "wall_s", "finished",
                                    "generated_tokens", "replans", "preemptions",
-                                   "tokens_per_s")}
+                                   "tokens_per_s", "acceptance")}
     out.update(step_ms_median=float(np.median(step_ms)),
                step_ms_p90=float(np.percentile(step_ms, 90)),
                ttft_s_p50=lat.get("p50_ttft_s"), ttft_s_p99=lat.get("p99_ttft_s"),
                replans_accepted=acc, replans_rejected=rej,
                peak_memory=torch.cuda.max_memory_allocated(), peak_blocks=peak_blocks,
                n_blocks=n_blocks, tokens=[list(r.generated) for r in reqs],
-               replan_decisions=[e["accepted"] for e in summary["replan_log"]])
+               replan_decisions=[e["accepted"] for e in summary["replan_log"]],
+               **{f"{k[:-2]}_ms_median": v for k, v in host_ms.items()})
+    if logits:
+        out["logits"] = [np.stack(r.logits) for r in reqs]
     return got, out
 
 
@@ -747,10 +907,57 @@ def undersized_blocks(ctx, factor: float) -> int:
     return max(int(factor * admit), worst) + 1
 
 
+# speculative runs of the continuous trace: (e) an 8-layer draft (a quarter
+# of the stack) with adaptive depth, (f) the full-depth self-draft, whose
+# acceptance would be 1.0 in exact arithmetic; in bf16 the draft's
+# single-row projections and the verify's B*Q-row ones may round apart
+SPEC_E = dict(enabled=True, max_k=4, draft_layers=8)
+SPEC_F = dict(enabled=True, max_k=4, draft_layers=0)
+SPEC_F_ACCEPTANCE = 0.90
+
+
+def near_tie_check(plain, spec, m):
+    """(e) against the plain bf16 run (b), both with per-token logits:
+    while a request's tokens agree (its first differing position
+    included: the history is still the same) the logit gap stays under
+    the bf16 bound n_layers * 2^-8 * max|logit|, and at the first
+    differing position the plain run's top-2 margin is under it too, so
+    every divergence is a near-tie.  Returns (identical requests, max gap,
+    bound, margins at the divergences)."""
+    import numpy as np
+    V = m.vocab_size
+    bound = m.n_layers * 2.0 ** -8 * max(float(np.abs(x[:, :V]).max())
+                                         for x in plain["logits"])
+    same, gap, margins = 0, 0.0, []
+    for i in range(N_REQ):
+        a, b = plain["tokens"][i], spec["tokens"][i]
+        first = next((t for t in range(len(a)) if a[t] != b[t]), None)
+        upto = len(a) if first is None else first + 1
+        la, lb = plain["logits"][i][:upto, :V], spec["logits"][i][:upto, :V]
+        gap = max(gap, float(np.abs(la - lb).max()))
+        if first is None:
+            same += 1
+            continue
+        top2 = np.sort(la[first])[-2:]
+        margins.append(float(top2[1] - top2[0]))
+    if not gap < bound:
+        fail(f"spec vs plain bf16: logit gap {gap:.4f} >= bound {bound:.4f} while the "
+             f"tokens agree")
+    if any(mg >= bound for mg in margins):
+        fail(f"spec vs plain bf16: a divergence with top-2 margin {max(margins):.4f} >= "
+             f"bound {bound:.4f} is not a near-tie")
+    return same, gap, bound, margins
+
+
 def continuous_runs(ctx):
     """The same trace on (a) the slot backend, (b) bf16 pools at worst-case
     size, (c) int8 pools at worst-case size, (d) fp8 pools sized below the
-    realized need (`undersized_blocks`), which must preempt."""
+    realized need (`undersized_blocks`), which must preempt; then
+    speculative decoding on (e) bf16 pools with an 8-layer draft, (f) bf16
+    pools with the full-depth self-draft and (g) int8 pools with (e)'s
+    draft.  Returns (launches, the mq kernel's inputs at a verify tick)."""
+    from repro_torch.api import SpeculationConfig
+    m = ctx["cfg"].model
     launches, runs = {}, {}
 
     def add(got):
@@ -759,7 +966,8 @@ def continuous_runs(ctx):
 
     for name, backend, kv in (("slot", "slot", "fp32"), ("paged bf16", "paged", "fp32"),
                               ("paged int8", "paged", "int8")):
-        got, runs[name] = continuous_run(ctx, name, backend, kv)
+        got, runs[name] = continuous_run(ctx, name, backend, kv,
+                                         logits=name == "paged bf16")
         add(got)
     n_blocks = undersized_blocks(ctx, UNDERSIZE)
     got, runs["paged fp8"] = continuous_run(ctx, "paged fp8", "paged", "fp8", n_blocks)
@@ -778,10 +986,43 @@ def continuous_runs(ctx):
         fail(f"slot vs paged bf16: only {same}/{N_REQ} requests with identical tokens")
     if a["replan_decisions"] != b["replan_decisions"]:
         fail("slot vs paged bf16: the replan decisions differ")
+
+    for name, kv, spec, logits in (("spec d=8", "fp32", SPEC_E, True),
+                                   ("spec d=32", "fp32", SPEC_F, False),
+                                   ("spec int8", "int8", SPEC_E, False)):
+        got, runs[name] = continuous_run(ctx, name, "paged", kv,
+                                         spec=SpeculationConfig(**spec), logits=logits)
+        add(got)
+    plain, e, f, g = (runs[k] for k in ("paged bf16", "spec d=8", "spec d=32", "spec int8"))
+    if not f["acceptance"] >= SPEC_F_ACCEPTANCE:
+        fail(f"spec d=32 (full-depth self-draft): acceptance {f['acceptance']:.4f} < "
+             f"{SPEC_F_ACCEPTANCE}")
+    same_e, gap, bound, margins = near_tie_check(plain, e, m)
+    same_f = sum(x == y for x, y in zip(plain["tokens"], f["tokens"]))
+    same_g = sum(x == y for x, y in zip(runs["paged int8"]["tokens"], g["tokens"]))
+    tok_g = sum(sum(p == q for p, q in zip(x, y))
+                for x, y in zip(runs["paged int8"]["tokens"], g["tokens"]))
+    log(f"[cont] spec d=8 vs paged bf16: {same_e}/{N_REQ} requests identical; max logit gap "
+        f"while the tokens agree {gap:.4f} (bound {bound:.4f}); top-2 margins of the plain "
+        f"run at the {len(margins)} divergences: "
+        + ", ".join(f"{x:.4f}" for x in sorted(margins)) + " (all under the bound)")
+    log(f"[cont] spec d=32 vs paged bf16: {same_f}/{N_REQ} requests identical; acceptance "
+        f"{f['acceptance']:.4f} (bar {SPEC_F_ACCEPTANCE})")
+    log(f"[cont] spec int8 vs paged int8: {same_g}/{N_REQ} requests identical, {tok_g} of "
+        f"{sum(len(x) for x in g['tokens'])} tokens at equal positions (reported, not a bar)")
+    for name in ("spec d=8", "spec d=32", "spec int8"):
+        base = runs["paged int8" if "int8" in name else "paged bf16"]
+        log(f"[cont] {name}: {runs[name]['tokens_per_s']:.1f} tokens/s = "
+            f"{runs[name]['tokens_per_s'] / base['tokens_per_s']:.3f} x its plain run; "
+            f"decode ticks {runs[name]['decode_ticks']} vs {base['decode_ticks']}")
     log("[cont] summary " + json.dumps(
-        {k: {kk: vv for kk, vv in v.items() if kk != "tokens"} for k, v in runs.items()}))
+        {k: {kk: vv for kk, vv in v.items() if kk not in ("tokens", "logits")}
+         for k, v in runs.items()}))
+    del runs, a, b, plain, e, f, g
+    gc.collect()
     profile_continuous(ctx)
-    return launches
+    mq_inputs = profile_speculative(ctx)
+    return launches, mq_inputs
 
 
 def profile_continuous(ctx, steps=4):
@@ -828,6 +1069,73 @@ def profile_continuous(ctx, steps=4):
         log(f"[profile]   tick top kernel {us / 1e3 / steps:8.3f} ms/tick  {name}")
 
 
+def profile_speculative(ctx, steps=4):
+    """Where a speculative tick's time goes, with (e)'s speculation on paged
+    bf16 pools and replanning off: fill all eight rows, then a few ticks
+    un-profiled (with the scheduler's host timers of prepare, propose and
+    verify) and one torch.profiler pass over as many more, which gives the
+    multi-query kernel's share of device time.  One more tick records the
+    multi-query kernel's inputs at layer 0 (Q = max_k + 1 = 5), which phase
+    8 times.  The requests are cancelled afterwards."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine, PagingConfig, SchedulerConfig, SpeculationConfig
+    from repro_torch.kernels import ops
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ctx["cfg"].replace(
+        cache_backend="paged", paging=PagingConfig(block_size=BLOCK),
+        scheduler=SchedulerConfig(max_rows=MAX_ROWS, enable_replan=False),
+        speculation=SpeculationConfig(**SPEC_E))
+    eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
+    rng = np.random.default_rng(SEED + 7)
+    reqs = [eng.submit(rng.integers(0, cfg.model.vocab_size, size=PROMPT_MAX // 2),
+                       max_new_tokens=NEW_MAX) for _ in range(MAX_ROWS)]
+    sched = eng.scheduler
+    while sched.queue:
+        eng.step()
+    t_plain = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    tick_ms = 1e3 * (time.perf_counter() - t_plain) / steps
+    host = {k: 1e3 * float(np.mean(getattr(sched, k)[-steps:]))
+            for k in ("prepare_s", "propose_s", "verify_s")}
+    wall, total, ours, top = _device_profile(lambda: [eng.step() for _ in range(steps)],
+                                             ours_keys=("paged_decode_mq_kernel",))
+    seen = {}
+    orig = ops.paged_fairkv_decode
+
+    def spy(q, *args, **kw):
+        if q.dim() == 5 and not seen:  # the first verify call: layer 0
+            seen["args"] = tuple(a.clone() if hasattr(a, "clone") else a
+                                 for a in (q,) + args)
+            seen["kw"] = {k: v.clone() if hasattr(v, "clone") else v for k, v in kw.items()}
+        return orig(q, *args, **kw)
+
+    ops.paged_fairkv_decode = spy
+    try:
+        eng.step()
+    finally:
+        ops.paged_fairkv_decode = orig
+    for r in reqs:
+        eng.cancel(r.req_id)
+    if not seen:
+        fail("profile_speculative: no verify call recorded")
+    if total <= 0:
+        log("[profile] torch.profiler recorded no device time for the speculative ticks")
+    else:
+        log(f"[profile] speculative paged bf16 (draft 8 layers, max_k 4), {MAX_ROWS} live "
+            f"rows: un-profiled tick {tick_ms:.2f} ms; host ms per tick: prepare "
+            f"{host['prepare_s']:.3f}, propose {host['propose_s']:.2f}, verify "
+            f"{host['verify_s']:.2f}; profiled {steps} ticks: device busy {total / 1e3:.2f} ms "
+            f"of {wall * 1e3:.2f} ms wall ({100 * total / 1e6 / wall:.1f}%), device time per "
+            f"tick {total / 1e3 / steps:.2f} ms; paged_fairkv_decode_mq "
+            f"{ours / 1e3 / steps:.3f} ms per tick ({100 * ours / total:.2f}% of device time)")
+        for name, us in top:
+            log(f"[profile]   spec tick top kernel {us / 1e3 / steps:8.3f} ms/tick  {name}")
+    return seen
+
+
 # ---------------------------------------------------------------------------
 # phase 8: timings on the main path's inputs
 # ---------------------------------------------------------------------------
@@ -852,7 +1160,7 @@ def time_ms(fn, flush, iters=25, warmup=5):
     return statistics.median(ts)
 
 
-def time_kernels(engine, launches, paged):
+def time_kernels(engine, launches, paged, mq_inputs):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda
@@ -971,6 +1279,47 @@ def time_kernels(engine, launches, paged):
             f"{kern3:.4f} ms, plain {plain3:.4f} ms, bound {bound3:.4f} ms "
             f"({bytes3} B / 3.35 TB/s); no single PyTorch call reads a block table")
     rows.append(row)
+
+    # kernel 4 on the inputs of layer 0 at a verify tick of (e) (Q = 5)
+    from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_mq_cuda
+    args, kw = mq_inputs["args"], mq_inputs["kw"]
+    q4, tbl, ln = args[0], args[4], args[5]
+    Bq, S, Q, G, Dh = q4.shape
+    out4 = paged_fairkv_decode_mq_cuda(*args, **kw)
+    ref4 = paged_fairkv_decode_ref(*args, **kw)
+    err4 = _cmp("paged_fairkv_decode_mq (main-path verify inputs)", out4, ref4,
+                FP32_TOL, BF16_ULP)
+    kern4 = time_ms(lambda: paged_fairkv_decode_mq_cuda(*args, **kw), flush)
+    plain4 = time_ms(lambda: paged_fairkv_decode_ref(*args, **kw), flush)
+    # bytes this data needs: the K and V rows of the retained columns (every
+    # column below len is visible to the window's last query), the table
+    # entries of the valid blocks, q, out, lengths, q_lens; operations:
+    # q.k and p.v for each (query, visible column) pair
+    n_ret = int(ln.sum().item())
+    n_blk = int(((ln + BLOCK - 1) // BLOCK).sum().item())
+    it4 = args[1].element_size()
+    qn = kw["q_lens"].long()[:, None, None]  # (B, 1, 1)
+    lnT = ln.T.long()[:, :, None]  # (B, S, 1)
+    vis = torch.clamp(torch.minimum(lnT - (qn - 1 - torch.arange(Q, device="cuda")), lnT),
+                      min=0)
+    n_vis = int(vis.sum().item())
+    bytes4 = (n_ret * Dh * 2 * it4 + n_blk * 4 + 2 * q4.numel() * q4.element_size()
+              + ln.numel() * 4 + Bq * 4)
+    flops4 = 4 * n_vis * G * Dh
+    bound4 = 1e3 * max(bytes4 / HBM_BYTES_PER_S, flops4 / BF16_FLOP_PER_S)
+    rows.append({"name": "paged_fairkv_decode_mq", "route": "cuda",
+                 "source": "src/repro_torch/csrc/paged_fairkv_decode_mq.cu",
+                 "replaces": "src/repro/kernels/paged_fairkv_decode.py:238",
+                 "launches": launches["paged_fairkv_decode_mq"], "max_abs_err": err4,
+                 "ms": kern4, "plain_ms": plain4, "bound_ms": bound4,
+                 "bound_by": "bytes" if bytes4 / HBM_BYTES_PER_S >= flops4 / BF16_FLOP_PER_S
+                 else "operations",
+                 "library_ms": None})
+    log(f"[time] paged_fairkv_decode_mq, bf16 pools, verify inputs of layer 0 at (B={Bq}, "
+        f"S={S}, Q={Q}, G={G}, Dh={Dh}, bs={BLOCK}), q_lens {kw['q_lens'].tolist()}, "
+        f"sum(lengths)={n_ret} in {n_blk} blocks, {n_vis} visible (query, column) pairs: "
+        f"kernel {kern4:.4f} ms, plain {plain4:.4f} ms, bound {bound4:.4f} ms ({bytes4} B / "
+        f"3.35 TB/s; {flops4} FLOP); no single PyTorch call reads a block table")
     return rows
 
 
@@ -1003,10 +1352,12 @@ def main() -> int:
     check_decode(gen)
     check_scores(gen)
     check_paged()
+    check_paged_mq()
     smoke_parity()
+    smoke_spec_parity()
     engine, launches, ctx = main_path()
     paged = paged_oneshot(ctx)
-    cont = continuous_runs(ctx)
+    cont, mq_inputs = continuous_runs(ctx)
     # each phase of the main path counts its own launches (zeroed just
     # before, read just after): one-shot slot, one-shot paged, continuous
     for k in launches:
@@ -1015,7 +1366,7 @@ def main() -> int:
     for name, n in launches.items():
         if n == 0:
             fail(f"kernel {name} was never launched on the main path")
-    rows = time_kernels(engine, launches, paged)
+    rows = time_kernels(engine, launches, paged, mq_inputs)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

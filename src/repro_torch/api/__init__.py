@@ -30,6 +30,7 @@ _LAZY = {
     "StreamEvent": "repro_torch.api.engine",
     "PagingConfig": "repro_torch.paging.block_pool",
     "SchedulerConfig": "repro_torch.serving.scheduler",
+    "SpeculationConfig": "repro_torch.serving.speculation",
     "Request": "repro_torch.serving.request",
     "synthesize_requests": "repro_torch.serving.request",
     "CompressionConfig": "repro_torch.compression.base",

@@ -3,8 +3,9 @@
 The port's counterpart of ``repro.api.config.EngineConfig`` for what the
 port runs: ``ModelConfig`` (architecture), ``CompressionConfig`` (per-head
 KV budgets), ``PlannerConfig`` (FairKV placement), ``SchedulerConfig``
-(continuous batching), the cache backend and its ``PagingConfig``, and the
-engine-level knobs.  ``__post_init__`` validates every name-typed field against the
+(continuous batching), the cache backend and its ``PagingConfig``,
+``SpeculationConfig`` (self-speculative decoding), and the engine-level
+knobs.  ``__post_init__`` validates every name-typed field against the
 port's registries, so a typo fails at construction with the registered
 names.  ``device`` defaults to ``"cuda"``: the CPU runs only when asked for.
 """
@@ -21,7 +22,9 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.planner import PLANNER_MODES, PlannerConfig
 from repro_torch.paging.block_pool import PagingConfig
+from repro_torch.serving.engine import _spec_supported
 from repro_torch.serving.scheduler import SchedulerConfig
+from repro_torch.serving.speculation import SpeculationConfig
 
 # the one dtype-name table: validation and Engine's resolution both read it
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
@@ -39,7 +42,8 @@ class EngineConfig:
     where weights, cache and steps live (``"cuda"``, ``"cuda:1"``,
     ``"cpu"``).  ``cache_backend`` names a registered backend (``"slot"``:
     dense static capacity; ``"paged"``: block pools sized by ``paging``);
-    ``scheduler`` configures continuous batching.
+    ``scheduler`` configures continuous batching; ``speculation`` turns on
+    self-speculative decoding in it (paged backend only).
     """
 
     model: ModelConfig
@@ -55,6 +59,7 @@ class EngineConfig:
     device: str = "cuda"
     cache_backend: str = "slot"
     paging: PagingConfig = field(default_factory=PagingConfig)
+    speculation: SpeculationConfig = field(default_factory=SpeculationConfig)
 
     def __post_init__(self):
         if not isinstance(self.model, ModelConfig):
@@ -112,6 +117,21 @@ class EngineConfig:
                         f"paging.kv_dtype override ({lyr}, {hd}) -> {dt!r} "
                         f"out of range for model {self.model.name!r} with "
                         f"{L} layers x {H} kv heads")
+        if not isinstance(self.speculation, SpeculationConfig):
+            raise TypeError(
+                f"speculation must be a SpeculationConfig, got "
+                f"{type(self.speculation).__name__}")
+        if self.speculation.enabled:
+            if self.cache_backend != "paged":
+                raise ValueError(
+                    "speculation.enabled requires cache_backend='paged' "
+                    "(provisional blocks + rollback-on-reject), got "
+                    f"{self.cache_backend!r}")
+            _spec_supported(self.model)
+            if self.speculation.draft_layers > self.model.n_layers:
+                raise ValueError(
+                    f"speculation.draft_layers={self.speculation.draft_layers} "
+                    f"exceeds the model's {self.model.n_layers} layers")
         torch.device(self.device)  # raises on a malformed device string
 
     # ---- constructors ------------------------------------------------------

@@ -10,7 +10,8 @@ few methods:
   plan metrics, timings);
 - continuous: `submit` / `step` / `stream` / `run_trace` / `cancel` /
   `drain` drive the request scheduler
-  (`repro_torch.serving.scheduler.Scheduler`); `stream` yields a
+  (`repro_torch.serving.scheduler.Scheduler`, self-speculative when
+  ``EngineConfig.speculation`` is enabled); `stream` yields a
   `StreamEvent` per generated token;
 - `replan()` rebuilds the head placement (online, from the live cache, in
   continuous mode); `memory_stats()` reports the cache footprint;
@@ -282,7 +283,7 @@ class Engine:
                 self.cfg.model, self.params, self.plan, self.cfg.compression,
                 self.cfg.scheduler, self.executor, planner_cfg=self.cfg.planner,
                 dtype=DTYPES[self.cfg.dtype], serve_params=self.sp,
-                backend=self._make_backend())
+                backend=self._make_backend(), spec_cfg=self.cfg.speculation)
             if self._drain_pending:
                 self._scheduler.drain()
         return self._scheduler

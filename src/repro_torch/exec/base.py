@@ -1,7 +1,8 @@
 """`Executor`: the device-execution strategy behind the serving stack.
 
-An executor owns *how* the serving steps run — one prefill step and one
-decode step — while *what* they compute lives in
+An executor owns *how* the serving steps run — one prefill step, one
+decode step, and the propose / verify steps of speculative decoding —
+while *what* they compute lives in
 ``repro_torch.serving.engine``.  The port runs eagerly (PyTorch has no jit
 step the port needs); each step ends in a device synchronize, so a caller's
 host clock around it measures device time, not enqueue time.  CUDA-graph
@@ -57,4 +58,18 @@ class Executor:
                active: Optional[torch.Tensor] = None) -> Tuple:
         """Decode step → (ServeState, logits (B, V)); ``active`` ((B,) bool)
         marks the live rows (None: all)."""
+        raise NotImplementedError
+
+    def propose(self, sp: dict, state, pa, depths: torch.Tensor,
+                active: Optional[torch.Tensor] = None, *, draft_layers: int,
+                max_k: int) -> Tuple:
+        """Draft step → (ServeState, proposals (B, max_k)): up to ``depths``
+        tokens per row from the first ``draft_layers`` layers (0: all)."""
+        raise NotImplementedError
+
+    def verify(self, sp: dict, state, pa, tokens: torch.Tensor,
+               q_lens: torch.Tensor, active: Optional[torch.Tensor] = None, *,
+               draft_layers: int) -> Tuple:
+        """Verify step over (B, Q) window tokens → (ServeState, g (B, Q),
+        n_commit (B,), logits (B, Q, V)), rejected entries rolled back."""
         raise NotImplementedError

@@ -23,3 +23,19 @@ class LocalExecutor(Executor):
                                  kv_kinds=self.kv_kinds)
         self.synchronize()
         return out
+
+    @torch.inference_mode()
+    def propose(self, sp, state, pa, depths, active=None, *, draft_layers, max_k):
+        out = _serve.propose_step(sp, state, self.cfg, pa, self.ccfg, depths,
+                                  active=active, kv_kinds=self.kv_kinds,
+                                  draft_layers=draft_layers, max_k=max_k)
+        self.synchronize()
+        return out
+
+    @torch.inference_mode()
+    def verify(self, sp, state, pa, tokens, q_lens, active=None, *, draft_layers):
+        out = _serve.verify_step(sp, state, self.cfg, pa, self.ccfg, tokens,
+                                 q_lens, active=active, kv_kinds=self.kv_kinds,
+                                 draft_layers=draft_layers)
+        self.synchronize()
+        return out

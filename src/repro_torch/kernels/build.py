@@ -23,7 +23,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-KERNELS = ("fairkv_decode", "snapkv_scores", "paged_fairkv_decode")
+KERNELS = ("fairkv_decode", "snapkv_scores", "paged_fairkv_decode",
+           "paged_fairkv_decode_mq")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

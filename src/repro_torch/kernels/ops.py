@@ -44,13 +44,21 @@ def snapkv_scores(q_obs, k, obs_positions, k_positions, attn_cap: float = 0.0):
 def paged_fairkv_decode(q, k_pool, v_pool, pos_pool, block_table, lengths,
                         capacity: int, attn_cap: float = 0.0,
                         q_pos: Optional[torch.Tensor] = None, window: int = 0,
-                        k_scale=None, v_scale=None, kinds=None):
+                        k_scale=None, v_scale=None, kinds=None,
+                        q_lens: Optional[torch.Tensor] = None):
     """Paged decode attention over one layer's pools (see
     ref.paged_fairkv_decode_ref); int8/fp8 pools pass their per-block
-    scales and per-slot kinds."""
+    scales and per-slot kinds.  A 5-D ``q`` (B, S, Q, G, Dh) is the
+    multi-query speculative-verify form, with ``q_lens`` (B,) valid queries
+    per row."""
     if q.is_cuda:
-        from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
-        return paged_fairkv_decode_cuda(
+        from repro_torch.kernels import paged_fairkv_decode as P
+        if q.dim() == 5:
+            return P.paged_fairkv_decode_mq_cuda(
+                q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
+                attn_cap, q_pos=q_pos, window=window, k_scale=k_scale,
+                v_scale=v_scale, kinds=kinds, q_lens=q_lens)
+        return P.paged_fairkv_decode_cuda(
             q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
             attn_cap, q_pos=q_pos, window=window, k_scale=k_scale,
             v_scale=v_scale, kinds=kinds)
@@ -58,4 +66,4 @@ def paged_fairkv_decode(q, k_pool, v_pool, pos_pool, block_table, lengths,
     return _ref.paged_fairkv_decode_ref(
         q, k_pool, v_pool, pos_pool, block_table, lengths, capacity, attn_cap,
         q_pos=q_pos, window=window, k_scale=k_scale, v_scale=v_scale,
-        kinds=kinds)
+        kinds=kinds, q_lens=q_lens)

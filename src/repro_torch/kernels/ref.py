@@ -63,8 +63,57 @@ def fairkv_decode_ref(
     return out.to(q.dtype)
 
 
+def fairkv_decode_mq_ref(
+    q: torch.Tensor,  # (B, S, Q, G, Dh): Q query positions per row per slot
+    k: torch.Tensor,  # (S, B, C, Dh) slot-layout cache keys (post-RoPE)
+    v: torch.Tensor,  # (S, B, C, Dh)
+    lengths: torch.Tensor,  # (S, B) int32: retained tokens AFTER the appends
+    attn_cap: float = 0.0,
+    k_pos: Optional[torch.Tensor] = None,  # (S, B, C) absolute entry positions
+    q_pos: Optional[torch.Tensor] = None,  # (B,) position of query index 0
+    q_lens: Optional[torch.Tensor] = None,  # (B,) valid queries per row (<= Q)
+    window: int = 0,
+) -> torch.Tensor:
+    """Multi-query decode attention (speculative verify).
+
+    Query ``i`` of row ``b`` sits at absolute position ``q_pos[b] + i``;
+    with ``qn = q_lens[b]`` valid queries and ``lengths`` counting the
+    cache after all ``qn`` appends, it sees the first
+    ``min(lengths - (qn - 1 - i), lengths)`` entries (its own token
+    included, later speculative tokens excluded).  Lanes ``i >= qn`` are
+    garbage (the caller discards them) and clamp to the full length.  A
+    (slot, row) query with no valid entry gives exact zeros.  With Q == 1
+    and ``q_lens == 1`` this is `fairkv_decode_ref`.  Returns
+    (B, S, Q, G, Dh) in q's dtype.
+    """
+    B, S, Q, G, Dh = q.shape
+    C = k.shape[2]
+    if q_lens is None:
+        q_lens = torch.full((B,), Q, dtype=torch.int32, device=q.device)
+    scores = torch.einsum("bsqgd,sbcd->bsqgc", q.float(), k.float()) / math.sqrt(Dh)
+    if attn_cap > 0:
+        scores = attn_cap * torch.tanh(scores / attn_cap)
+    ln = lengths.T  # (B, S)
+    qi = torch.arange(Q, device=q.device)[None, None, :]  # (1, 1, Q)
+    limit = ln[:, :, None] - (q_lens[:, None, None] - 1 - qi)
+    limit = torch.minimum(limit, ln[:, :, None])  # (B, S, Q)
+    valid = (torch.arange(C, device=q.device)[None, None, None, :]
+             < limit[..., None])  # (B, S, Q, C)
+    if window > 0:
+        if k_pos is None or q_pos is None:
+            raise ValueError("window > 0 needs k_pos and q_pos")
+        qp = q_pos[:, None, None] + qi  # (B, 1, Q)
+        valid &= k_pos.permute(1, 0, 2)[:, :, None, :] > (qp[..., None] - window)
+    scores = torch.where(valid[:, :, :, None, :], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1)
+    nonempty = valid.any(dim=-1)[:, :, :, None, None]
+    probs = torch.where(nonempty, probs, 0.0)
+    out = torch.einsum("bsqgc,sbcd->bsqgd", probs, v.float())
+    return out.to(q.dtype)
+
+
 def paged_fairkv_decode_ref(
-    q: torch.Tensor,  # (B, S, G, Dh)
+    q: torch.Tensor,  # (B, S, G, Dh), or (B, S, Q, G, Dh) multi-query
     k_pool: torch.Tensor,  # (N, bs, Dh) — one layer's pools
     v_pool: torch.Tensor,  # (N, bs, Dh)
     pos_pool: torch.Tensor,  # (N, bs) int32
@@ -77,6 +126,7 @@ def paged_fairkv_decode_ref(
     k_scale: Optional[torch.Tensor] = None,  # (N,) fp32 per-block scales
     v_scale: Optional[torch.Tensor] = None,  # (N,)
     kinds: Optional[torch.Tensor] = None,  # (S,) int32 per-slot kind codes
+    q_lens: Optional[torch.Tensor] = None,  # (B,) valid queries (5-D q only)
 ) -> torch.Tensor:
     """Paged decode attention, defined as slot decode over the gathered
     view: column ``c`` of a (slot, row) lives at offset ``c % bs`` of block
@@ -84,7 +134,9 @@ def paged_fairkv_decode_ref(
     (S, B, C, Dh) view the slot cache would hold, then `fairkv_decode_ref`
     runs on it unchanged.  Quantized pools (``k_scale`` given) are
     dequantized after the gather (`dequant_block_codes`; all-int8 kinds
-    when ``kinds`` is omitted).  Returns (B, S, G, Dh) in q's dtype.
+    when ``kinds`` is omitted).  A 5-D ``q`` selects the multi-query
+    (speculative-verify) semantics of `fairkv_decode_mq_ref`.  Returns
+    q's shape in q's dtype.
     """
     ids = torch.clamp(block_table, min=0).long()
     S, B, M = ids.shape
@@ -100,6 +152,9 @@ def paged_fairkv_decode_ref(
     k = k.reshape(S, B, M * bs, Dh)[:, :, :capacity]
     v = v.reshape(S, B, M * bs, Dh)[:, :, :capacity]
     pos = pos_pool[ids].reshape(S, B, M * bs)[:, :, :capacity]
+    if q.ndim == 5:
+        return fairkv_decode_mq_ref(q, k, v, lengths, attn_cap, k_pos=pos,
+                                    q_pos=q_pos, q_lens=q_lens, window=window)
     return fairkv_decode_ref(q, k, v, lengths, attn_cap, k_pos=pos,
                              q_pos=q_pos, window=window)
 

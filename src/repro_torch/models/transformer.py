@@ -72,6 +72,21 @@ def init_params(cfg: ModelConfig, seed: int, dtype=torch.bfloat16,
     return params
 
 
+def draft_view(params: dict, n_layers: int) -> dict:
+    """Layer-truncated draft model for self-speculative decoding: the
+    target's first ``n_layers`` blocks followed by its own final norm and
+    unembedding.  The returned dict shares every tensor with ``params`` (no
+    copies), so it works on original-layout and slot-layout params alike,
+    and its cache writes are real target KV for those layers."""
+    if not 0 < n_layers <= len(params["layers"]):
+        raise ValueError(
+            f"draft n_layers must be in [1, {len(params['layers'])}], "
+            f"got {n_layers}")
+    out = dict(params)
+    out["layers"] = list(params["layers"])[:n_layers]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------

@@ -15,6 +15,10 @@ decode the scheduler preempts (this backend raises ``PoolExhausted``).  A
 request whose worst case exceeds the whole pool fails at submit
 (`never_fits`).
 
+A speculative tick takes provisional blocks for its whole window
+(`prepare_decode(n_tokens=...)`) and hands back what the verify pass
+rejected (`trim_rows`).
+
 Not ported yet: blocks shared between rows (prefix reuse) and their
 copy-on-write, and pool partitions for the multi-GPU executor.
 """
@@ -150,18 +154,20 @@ class PagedBackend(CacheBackend):
         return _serve.set_row_tokens(state, rows_np)
 
     def prepare_decode(self, state, active, n_tokens: int = 1):
-        """Allocate the block backing each active row's next append.
+        """Allocate the blocks backing each active row's next ``n_tokens``
+        appends.
 
         The next write index is ``lengths`` while a row is below capacity
         (past that the recency ring revisits allocated blocks), so an owned
-        (layer, slot, row) needs blocks through ``len // bs``.  Raises
+        (layer, slot, row) needs blocks through
+        ``(min(len + n_tokens, capacity) - 1) // bs``.  With ``n_tokens >
+        1`` (a speculative window) the extra blocks are provisional:
+        `trim_rows` hands back those the verify pass did not keep.  Raises
         ``PoolExhausted`` when a layer's free list runs dry — the
         scheduler's preemption signal — leaving the mirror consistent.
         """
-        if n_tokens != 1:
-            raise NotImplementedError(
-                "multi-token appends belong to speculative decoding, which "
-                "is not ported yet (ROADMAP Queue A.8)")
+        if n_tokens < 1:
+            raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
         cache = state.cache
         B = cache.positions.shape[0]
         rows = np.arange(B) if active is None else np.asarray(list(active), np.int64)
@@ -170,7 +176,8 @@ class PagedBackend(CacheBackend):
             own = _owner_mask_np(self.pa, rows)
             have = (self.table[:, :, rows, :] > 0).sum(axis=-1)  # (L, S, R)
             growing = own & (lens < self.capacity)
-            need = np.where(growing, lens // self.block_size + 1, have)
+            end = np.minimum(lens + n_tokens, self.capacity)  # exclusive
+            need = np.where(growing, (end - 1) // self.block_size + 1, have)
             missing = np.maximum(need - have, 0)
             for layer in range(self.table.shape[0]):
                 n = int(missing[layer].sum())
@@ -194,6 +201,34 @@ class PagedBackend(CacheBackend):
         if self._table_stale:
             self._sync_table(cache)
             self._table_stale = False
+        return state
+
+    def trim_rows(self, state, rows):
+        """Release provisional blocks no longer covered by ``lengths``.
+
+        Speculative verify rolls rejected window entries back by lowering
+        the device ``lengths``; the host mirror still maps the blocks that
+        backed them.  For the given rows, every mapped block past
+        ``ceil(len / bs)`` (taken by `prepare_decode(n_tokens=...)` for
+        writes that were rejected or never made) goes back to the pool and
+        its mirror entry is zeroed; then the device table is synced.  A
+        recycled block's stale scale is reset when `prepare_decode` hands it
+        out again.
+        """
+        rows_np = np.asarray(list(rows), np.int64)
+        if rows_np.size == 0:
+            return state
+        cache = state.cache
+        lens = cache.lengths.cpu().numpy()[:, :, rows_np]  # (L, S, R)
+        keep = -(-lens // self.block_size)  # ceil: blocks still covered
+        tbl = self.table[:, :, rows_np, :]  # (L, S, R, M)
+        past = np.arange(tbl.shape[-1])[None, None, None, :] >= keep[..., None]
+        drop = np.where(past, tbl, 0)
+        if drop.max(initial=0) == 0:
+            return state
+        self.pool.free_table(drop.reshape(self.table.shape[0], -1))
+        self.table[:, :, rows_np, :] = np.where(past, 0, tbl)
+        self._sync_table(cache)  # the mirror changed: the device table follows
         return state
 
     def migrate_cache(self, cache, old_pa, new_pa, active_rows=None):

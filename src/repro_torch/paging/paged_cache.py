@@ -181,9 +181,13 @@ def paged_append_token(
     capacity: int,
     ring: int = 128,
     kinds: Optional[torch.Tensor] = None,  # (S,) per-slot kind codes
+    positions: Optional[torch.Tensor] = None,  # (B,) recorded positions
 ) -> None:
     """Append one token for the owned (slot, row) pairs of ``layer``, in
     place; the slot cache's `append_token`, addressed through the table.
+    Each entry records its row's absolute position, ``positions`` when
+    given (a speculative window writes several per row), else
+    ``cache.positions``.
 
     The write index (recency ring included) is `ring_write_index`'s; the
     backend must have allocated the block that covers it
@@ -206,7 +210,8 @@ def paged_append_token(
     bid = torch.where(valid, bid, 0)
     kl, vl, pl = cache.k_pool[layer], cache.v_pool[layer], cache.pos_pool[layer]
     at = (bid, off)
-    p_new = cache.positions[None, :].expand(own.shape)
+    p_new = cache.positions if positions is None else positions
+    p_new = p_new[None, :].expand(own.shape)
     pl.index_put_(at, torch.where(valid, p_new, pl[at]))
     if cache.k_scale is None:
         vd = valid[..., None]

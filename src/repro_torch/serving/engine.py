@@ -26,6 +26,12 @@ evaluates ownership at the global rows a request will occupy,
 rows, and `splice_state` / `reset_state_rows` admit and retire rows of a
 slot cache (a paged backend does its own cache work, then
 `set_row_tokens`).
+
+Self-speculative decoding on a paged cache: `propose_step` drafts up to
+``max_k`` tokens per row with the target's first layers, `verify_step`
+checks the window in one multi-query pass
+(``kernels.ops.paged_fairkv_decode`` with a 5-D q) and rolls the rejected
+entries back.
 """
 from __future__ import annotations
 
@@ -51,6 +57,7 @@ from repro_torch.compression.base import CompressionConfig, pool_scores
 from repro_torch.compression.policies import select as policy_select
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.placement import HeadPlacement
+from repro_torch.core.planner import draft_plan
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as M
@@ -325,6 +332,203 @@ def _decode_slot_o(pl, attn, cfg):
     (head, row) pair has exactly one owning slot and unowned slots give
     exact zeros, so the sum over S reassembles the batch's activation."""
     return torch.einsum("bsgx,sgxd->bd", attn, pl["wo_s"])[:, None]
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: propose + verify
+# ---------------------------------------------------------------------------
+
+
+def _spec_supported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.attention_free:
+        raise ValueError(
+            "speculative decoding supports dense attention families only, "
+            f"got family={cfg.family!r}")
+    if cfg.is_encoder_decoder or cfg.is_vlm:
+        raise ValueError("speculative decoding does not support enc-dec/vlm")
+
+
+def propose_step(
+    serve_params: dict,
+    state: ServeState,
+    cfg: ModelConfig,
+    plan: PlanArrays,
+    ccfg: CompressionConfig,
+    depths: torch.Tensor,  # (B,) int: speculative tokens per row (<= max_k)
+    active: Optional[torch.Tensor] = None,
+    kv_kinds: Optional[torch.Tensor] = None,
+    draft_layers: int = 0,  # 0 = full depth (self-check mode)
+    max_k: int = 1,
+) -> Tuple[ServeState, torch.Tensor]:
+    """Draft up to ``max_k`` tokens per row with the layer-truncated draft.
+
+    The draft is the target's early exit (`models.transformer.draft_view`)
+    under the leading slice of the target plan (`core.planner.draft_plan`),
+    so its appends land in the target's paged cache at the target's own
+    layers < d (real KV; verify fills the layers >= d).  Step ``i`` runs
+    `decode_step` with ``active & (i < depths)``.
+
+    ``decode_step`` advances ``cache.positions`` in place; they are put
+    back afterwards, as are ``last_tokens`` and ``decode_steps``: verify
+    derives the advance from the accepted run, and the tick counts as one
+    ring step whatever its depth.  The appended entries and ``lengths``
+    stay.  Returns (state, proposals (B, max_k)); entries past a row's
+    depth are garbage lanes the caller masks.
+    """
+    _spec_supported(cfg)
+    d = draft_layers if draft_layers > 0 else cfg.n_layers
+    sp_d = M.draft_view(serve_params, d)
+    plan_d = draft_plan(plan, d)
+    B = state.last_tokens.shape[0]
+    dev = state.last_tokens.device
+    active_b = torch.ones((B,), dtype=torch.bool, device=dev) if active is None else active
+    depths = torch.as_tensor(depths, device=dev)
+    positions = state.cache.positions.clone()
+    st = state
+    proposals = []
+    for i in range(max_k):
+        st, _ = decode_step(sp_d, st, cfg, plan_d, ccfg, tokens=st.last_tokens,
+                            active=active_b & (i < depths), kv_kinds=kv_kinds)
+        proposals.append(st.last_tokens)
+    st.cache.positions.copy_(positions)
+    props = (torch.stack(proposals, dim=1) if proposals
+             else torch.zeros((B, 0), dtype=torch.int64, device=dev))
+    return ServeState(cache=st.cache, last_tokens=state.last_tokens,
+                      decode_steps=state.decode_steps), props
+
+
+def verify_step(
+    serve_params: dict,
+    state: ServeState,
+    cfg: ModelConfig,
+    plan: PlanArrays,
+    ccfg: CompressionConfig,
+    tokens: torch.Tensor,  # (B, Q): [t0, p1..p_{Q-1}] (garbage past q_lens)
+    q_lens: torch.Tensor,  # (B,) valid window per row (1 <= q_len <= Q)
+    active: Optional[torch.Tensor] = None,
+    kv_kinds: Optional[torch.Tensor] = None,
+    draft_layers: int = 0,  # layers < d were filled by propose
+) -> Tuple[ServeState, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One batched verify pass over the speculative window.
+
+    Runs the full target over ``Q`` tokens per row (the last committed
+    token, then the draft's proposals) through the multi-query paged
+    kernel (5-D q, `fairkv_decode_mq_ref` semantics).  The greedy verdicts
+    ``g[:, i]`` are what single-token decode would emit given the same
+    prefix, so committing the accepted run ``g[:, :n_commit]`` gives greedy
+    decode's tokens at any acceptance rate.
+
+    Rejected entries roll back in place: on every owned (layer, slot, row)
+    ``lengths`` drop by the rejected count and ``positions`` advance by
+    ``n_commit`` (live rows only); the backend's `trim_rows` then frees the
+    blocks no longer covered.  Returns (state, g (B, Q), n_commit (B,),
+    logits (B, Q, V) fp32).
+    """
+    _spec_supported(cfg)
+    cache = state.cache
+    if not isinstance(cache, PagedCache):
+        raise ValueError("speculative verify requires the paged cache backend")
+    d = draft_layers if draft_layers > 0 else cfg.n_layers
+    B, Q = tokens.shape
+    dev = tokens.device
+    active_b = torch.ones((B,), dtype=torch.bool, device=dev) if active is None else active
+    q_lens = torch.as_tensor(q_lens, device=dev).to(torch.int32)
+    h = L.embed(tokens, serve_params["embed"])  # (B, Q, D)
+    positions = cache.positions
+    positions_q = positions[:, None] + torch.arange(Q, dtype=torch.int32, device=dev)[None, :]
+    for i, pl in enumerate(serve_params["layers"]):
+        hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
+        attn = _verify_attention(pl, hn, positions_q, q_lens, cfg, i, cache,
+                                 plan, state.decode_steps, ccfg, i < d,
+                                 active_b, kv_kinds)
+        h = h + _verify_slot_o(pl, attn)
+        hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
+        h = h + M.mlp_block(pl, hn2, cfg)
+
+    h = L.rms_norm(h, serve_params["final_norm"], cfg.rms_eps)
+    table = serve_params.get("head", serve_params["embed"])
+    logits = L.unembed(h, table, cfg.logit_softcap)  # (B, Q, V)
+    g = torch.argmax(logits[..., :cfg.vocab_size], dim=-1)
+    # leading run of proposals the target itself would have emitted
+    if Q > 1:
+        iq = torch.arange(Q - 1, device=dev)[None, :]
+        ok = (tokens[:, 1:] == g[:, :-1]) & (iq + 1 < q_lens[:, None])
+        n_acc = torch.cumprod(ok.to(torch.int32), dim=1).sum(dim=1)
+    else:
+        n_acc = torch.zeros((B,), dtype=torch.int64, device=dev)
+    n_commit = torch.minimum(n_acc + 1, q_lens.long())  # accepted run + bonus/fix
+    # rollback: rejected entries drop out of `lengths` on every owned
+    # (layer, slot, row), so the kernels' length masks no longer see them
+    trim = torch.where(active_b, q_lens.long() - n_commit, 0)  # (B,)
+    own_all = plan.owner_mask_all(B)  # (L, S, B)
+    cache.lengths.sub_(torch.where(own_all, trim[None, None, :], 0).to(torch.int32))
+    cache.positions.add_(torch.where(active_b, n_commit, 0).to(torch.int32))
+    last = torch.gather(g, 1, torch.clamp(n_commit - 1, min=0)[:, None])[:, 0]
+    new_state = ServeState(cache=cache,
+                           last_tokens=torch.where(active_b, last, state.last_tokens),
+                           decode_steps=state.decode_steps + 1)
+    return new_state, g, n_commit, logits
+
+
+def _verify_attention(pl, hn, positions_q, q_lens, cfg, layer_idx, cache, plan,
+                      decode_steps, ccfg, draft_filled, active, kv_kinds=None):
+    """Multi-query slot attention over the speculative window (one layer).
+
+    ``hn`` is (B, Q, D); every token projects and RoPEs at its own absolute
+    position, then appends into the paged cache:
+
+    - ``draft_filled`` layers already hold the window's first ``q_len - 1``
+      entries (real KV written by propose); only query ``q_len - 1``
+      appends;
+    - verify-only layers append every valid query in query order, so
+      quantize-on-write scales evolve as under sequential decode.
+
+    After the appends every live (slot, row) sits at ``base + q_len`` and
+    the multi-query kernel masks query ``i`` to its causal prefix.
+    Returns (B, S, Q, G, Dh).
+    """
+    B, Q, _ = hn.shape
+    q = torch.einsum("bqd,sdgx->bsqgx", hn, pl["wq_s"])  # (B, S, Q, G, Dh)
+    k_new = torch.einsum("bqd,sdx->bsqx", hn, pl["wk_s"])  # (B, S, Q, Dh)
+    v_new = torch.einsum("bqd,sdx->bsqx", hn, pl["wv_s"])
+    q = _rope_slots_mq(q, positions_q, cfg)
+    k_new = _rope_slots_mq(k_new[:, :, :, None, :], positions_q, cfg)[:, :, :, 0, :]
+    own = plan.owner_mask(layer_idx, B) & active[None, :]  # (S, B)
+    capacity = ccfg.static_capacity()
+    kinds = None
+    if cache.k_scale is not None:
+        grid = (torch.zeros((cfg.n_kv_heads,), dtype=torch.int32, device=own.device)
+                if kv_kinds is None else kv_kinds[layer_idx])
+        kinds = grid[torch.clamp(plan.slot_head[layer_idx], min=0).long()]
+    for qi in range(Q):
+        m_q = (q_lens == qi + 1) if draft_filled else (qi < q_lens)
+        # each entry records its own token's absolute position
+        paged_append_token(cache, layer_idx, k_new[:, :, qi].transpose(0, 1),
+                           v_new[:, :, qi].transpose(0, 1), own & m_q[None, :],
+                           decode_steps, capacity, ring=max(1, ccfg.decode_margin),
+                           kinds=kinds, positions=positions_q[:, qi])
+    return K.paged_fairkv_decode(
+        q.contiguous(), cache.k_pool[layer_idx], cache.v_pool[layer_idx],
+        cache.pos_pool[layer_idx], cache.block_table[layer_idx],
+        cache.lengths[layer_idx], capacity, attn_cap=cfg.attn_softcap,
+        q_pos=positions_q[:, 0].contiguous(), window=M.layer_window(cfg, layer_idx),
+        k_scale=None if kinds is None else cache.k_scale[layer_idx],
+        v_scale=None if kinds is None else cache.v_scale[layer_idx],
+        kinds=kinds, q_lens=q_lens)
+
+
+def _rope_slots_mq(q, positions_q, cfg):
+    """RoPE over (B, S, Q, G, Dh) at per-(row, query) positions (B, Q)."""
+    B, S_, Q, G, Dh = q.shape
+    q2 = q.permute(0, 2, 1, 3, 4).reshape(B, Q, S_ * G, Dh)
+    q2 = L.apply_rope(q2, positions_q, cfg.rope_theta)
+    return q2.reshape(B, Q, S_, G, Dh).permute(0, 2, 1, 3, 4)
+
+
+def _verify_slot_o(pl, attn):
+    """(B, S, Q, G, Dh) → (B, Q, D): the decode o-projection's contraction
+    over slots, per query."""
+    return torch.einsum("bsqgx,sgxd->bqd", attn, pl["wo_s"])
 
 
 def init_serve_state(cfg: ModelConfig, plan: PlanArrays, batch: int,

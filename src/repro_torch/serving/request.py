@@ -55,6 +55,10 @@ class Request:
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     n_preemptions: int = 0  # times evicted back to QUEUED
+    # speculative decoding: lifetime draft tokens proposed and accepted
+    # (acceptance = spec_accepted / spec_proposed feeds the adaptive depth)
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     @property
     def prompt_len(self) -> int:
@@ -86,6 +90,8 @@ class Request:
         self.admit_step = None
         self.first_token_step = None
         self.first_token_time = None
+        self.spec_proposed = 0  # the replay speculates from scratch
+        self.spec_accepted = 0
         self.n_preemptions += 1
 
     def latency_steps(self) -> Optional[int]:

@@ -21,8 +21,13 @@ plans again from the realized per-head profile, migrates the live cache
 into the new layout, and keeps the new plan only if the realized imbalance
 drops.
 
-Not ported yet: the prefix index, chunked prefill and the speculative tick
-(ROADMAP Queue A.7, A.8), and the observability hooks (A.9).
+With speculation on (paged backend only), each tick drafts up to ``k``
+tokens per row with the target's first layers, checks them in one
+multi-query verify pass, commits the accepted run (1 to k + 1 tokens) and
+hands the rejected provisional blocks back to the pool.
+
+Not ported yet: the prefix index and chunked prefill (ROADMAP Queue A.7),
+and the observability hooks (A.9).
 """
 from __future__ import annotations
 
@@ -42,8 +47,9 @@ from repro_torch.core.planner import PlannerConfig, build_plan
 from repro_torch.exec.base import Executor
 from repro_torch.paging.block_pool import PoolExhausted
 from repro_torch.serving.cache_backend import CacheBackend, make_cache_backend
-from repro_torch.serving.engine import slotify_params
+from repro_torch.serving.engine import _spec_supported, slotify_params
 from repro_torch.serving.request import Request, RequestState, latency_percentiles
+from repro_torch.serving.speculation import SpeculationConfig
 
 
 class RowFreelist:
@@ -124,14 +130,17 @@ class Scheduler:
     enters it).  ``step_s`` keeps the host wall time of every tick (each
     decode step ends in a device synchronize, so it covers the device
     work), ``prepare_s`` that of each tick's backend `prepare_decode`
-    (block allocation and table copy; preemptions included).
+    (block allocation and table copy; preemptions included), and with
+    speculation on ``propose_s`` / ``verify_s`` those of each tick's draft
+    and verify steps.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, plan: HeadPlacement,
                  ccfg: CompressionConfig, scfg: SchedulerConfig,
                  executor: Executor, planner_cfg: Optional[PlannerConfig] = None,
                  dtype=torch.float32, serve_params: Optional[dict] = None,
-                 backend: Optional[CacheBackend] = None):
+                 backend: Optional[CacheBackend] = None,
+                 spec_cfg: Optional[SpeculationConfig] = None):
         self.cfg = cfg
         self.params = params  # original layout, kept to re-slotify on replan
         self.plan = plan
@@ -153,6 +162,22 @@ class Scheduler:
             max_live_tokens_per_shard=scfg.max_live_tokens_per_shard)
         with torch.inference_mode():
             self.state = self.backend.init_state(self.pa, scfg.max_rows, dtype)
+        # speculative decoding: provisional blocks come from the same pool
+        # as ordinary decode growth, and rejection trims them back
+        self.spec = spec_cfg if spec_cfg is not None and spec_cfg.enabled else None
+        if self.spec is not None:
+            _spec_supported(cfg)
+            if self.backend.name != "paged":
+                raise ValueError(
+                    "speculative decoding needs the paged backend "
+                    "(provisional blocks + rollback), got "
+                    f"cache_backend={self.backend.name!r}")
+            if self.spec.draft_layers > cfg.n_layers:
+                raise ValueError(
+                    f"speculation.draft_layers={self.spec.draft_layers} exceeds "
+                    f"the model's {cfg.n_layers} layers")
+        # per-row adaptive depth: seeded at max_k, dropped with the row
+        self._spec_depth: Dict[int, int] = {}
         # straggler speed factors persisted by a speed-aware replan
         self.shard_speeds: Optional[np.ndarray] = None
         self.queue: deque = deque()
@@ -170,7 +195,9 @@ class Scheduler:
         self.finished: List[Request] = []
         self.step_s: List[float] = []
         self.prepare_s: List[float] = []  # host time of each tick's prepare_decode
-        self.decode_ticks = 0  # ticks that ran a decode step
+        self.propose_s: List[float] = []  # host time of each speculative draft step
+        self.verify_s: List[float] = []  # host time of each verify step
+        self.decode_ticks = 0  # ticks that ran a decode step (plain or speculative)
 
     # ---- load accounting ---------------------------------------------------
 
@@ -267,6 +294,7 @@ class Scheduler:
         row = req.row
         self.state = self.backend.release_rows(self.state, [row])
         del self.active[row]
+        self._spec_depth.pop(row, None)
         self.freelist.release(row)
 
     def _retire(self, req: Request) -> None:
@@ -326,12 +354,16 @@ class Scheduler:
         self._evict(max(victims, key=lambda r: (r.priority, r.admit_step, r.req_id)))
         return True
 
-    def _prepare_decode(self) -> None:
+    def _prepare_decode(self, n_tokens: int = 1) -> None:
         """Backend pre-tick hook with preemption: every active row's next
-        append must have storage; evict while the pool is dry."""
+        ``n_tokens`` appends must have storage; evict while the pool is
+        dry."""
+        t0 = time.perf_counter()
         while True:
             try:
-                self.state = self.backend.prepare_decode(self.state, sorted(self.active))
+                self.state = self.backend.prepare_decode(
+                    self.state, sorted(self.active), n_tokens=n_tokens)
+                self.prepare_s.append(time.perf_counter() - t0)
                 return
             except PoolExhausted as e:
                 if not self._preempt_one():
@@ -418,6 +450,100 @@ class Scheduler:
         m[sorted(self.active)] = True
         return m.to(self.device)
 
+    def _retire_done(self, events: dict) -> None:
+        for row in sorted(self.active):
+            req = self.active[row]
+            if self._done(req):
+                self._retire(req)
+                events["finished"].append(req.req_id)
+
+    def _decode_tick(self, events: dict) -> None:
+        """One single-token decode tick over the live rows."""
+        self._prepare_decode()  # may preempt (paged pool dry)
+        if not self.active:  # everything got preempted
+            return
+        self.state, logits = self.executor.decode(
+            self.sp, self.state, self.pa, self.state.last_tokens,
+            active=self.active_mask())
+        self.decode_ticks += 1
+        toks = self.state.last_tokens.cpu().numpy()
+        logits_np = logits.cpu().numpy() if self.scfg.collect_logits else None
+        for row in sorted(self.active):
+            req = self.active[row]
+            req.generated.append(int(toks[row]))
+            if logits_np is not None:
+                req.logits.append(logits_np[row])
+        self._retire_done(events)
+
+    # ---- speculative decoding ----------------------------------------------
+
+    def _spec_depths(self) -> np.ndarray:
+        """(max_rows,) speculation depth for this tick: the per-request
+        adaptive depth clamped by the tokens left (a row never proposes past
+        its own ``max_new_tokens``) and by cache headroom (an at-capacity
+        row degrades to a window of 1, plain decode)."""
+        depth = np.zeros(self.scfg.max_rows, np.int32)
+        lens = self.state.cache.lengths.cpu().numpy()
+        cap = self.backend.capacity
+        for row, req in self.active.items():
+            want = self._spec_depth.setdefault(row, self.spec.max_k)
+            remaining = req.max_new_tokens - req.n_generated
+            headroom = cap - int(lens[:, :, row].max())
+            depth[row] = max(0, min(want, remaining - 1, headroom - 1))
+        return depth
+
+    def _decode_tick_speculative(self, events: dict) -> None:
+        """One speculative tick: propose up to k draft tokens per row, one
+        multi-query verify pass, commit the accepted run (1..k+1 tokens).
+
+        `prepare_decode(n_tokens=...)` reserves the whole window's blocks up
+        front (preempting if the pool is dry); after verify, `trim_rows`
+        returns every block past the committed lengths to the pool."""
+        spec = self.spec
+        d = spec.draft_layers if spec.draft_layers > 0 else self.cfg.n_layers
+        depth = self._spec_depths()
+        self._prepare_decode(n_tokens=int(depth.max()) + 1)
+        if not self.active:  # everything got preempted reserving blocks
+            return
+        mask = self.active_mask()
+        t0 = time.perf_counter()
+        st, props = self.executor.propose(
+            self.sp, self.state, self.pa, torch.as_tensor(depth, device=self.device),
+            active=mask, draft_layers=d, max_k=spec.max_k)
+        t1 = time.perf_counter()
+        tokens = torch.cat([st.last_tokens[:, None], props], dim=1)
+        q_lens = torch.as_tensor(depth + 1, dtype=torch.int32, device=self.device)
+        st, g, n_commit, logits = self.executor.verify(
+            self.sp, st, self.pa, tokens, q_lens, active=mask, draft_layers=d)
+        self.propose_s.append(t1 - t0)
+        self.verify_s.append(time.perf_counter() - t1)
+        self.decode_ticks += 1
+        self.state = self.backend.trim_rows(st, sorted(self.active))
+        g_np, nc = g.cpu().numpy(), n_commit.cpu().numpy()
+        logits_np = logits.cpu().numpy() if self.scfg.collect_logits else None
+        for row in sorted(self.active):
+            req = self.active[row]
+            n, prop = int(nc[row]), int(depth[row])
+            req.spec_proposed += prop
+            req.spec_accepted += max(0, n - 1)
+            # commit the accepted run, cut at EOS / max_new_tokens (the
+            # cache may hold a few tokens past the cut; the row retires
+            # right below, which frees them with the row)
+            for i in range(n):
+                req.generated.append(int(g_np[row, i]))
+                if logits_np is not None:
+                    req.logits.append(logits_np[row, i])
+                if self._done(req):
+                    break
+            if spec.adaptive and prop > 0:
+                alpha = (n - 1) / prop
+                want = self._spec_depth[row]
+                if alpha < spec.low_acceptance:
+                    self._spec_depth[row] = max(spec.min_k, want - 1)
+                elif alpha >= spec.high_acceptance:
+                    self._spec_depth[row] = min(spec.max_k, want + 1)
+        self._retire_done(events)
+
     @torch.inference_mode()
     def step(self) -> dict:
         """One tick: admit → decode → retire → (maybe) replan."""
@@ -442,27 +568,12 @@ class Scheduler:
             events["admitted"].append((req.req_id, row))
             if req.is_finished:  # max_new_tokens == 1 or instant EOS
                 events["finished"].append(req.req_id)
-        if self.active:
-            t_prep = time.perf_counter()
-            self._prepare_decode()  # may preempt (paged pool dry)
-            self.prepare_s.append(time.perf_counter() - t_prep)
-        if self.active:
-            self.state, logits = self.executor.decode(
-                self.sp, self.state, self.pa, self.state.last_tokens,
-                active=self.active_mask())
-            self.decode_ticks += 1
-            toks = self.state.last_tokens.cpu().numpy()
-            logits_np = logits.cpu().numpy() if self.scfg.collect_logits else None
-            for row in sorted(self.active):
-                req = self.active[row]
-                req.generated.append(int(toks[row]))
-                if logits_np is not None:
-                    req.logits.append(logits_np[row])
-            for row in sorted(self.active):
-                req = self.active[row]
-                if self._done(req):
-                    self._retire(req)
-                    events["finished"].append(req.req_id)
+        # one decode tick for every live row: speculative (draft proposals
+        # + one multi-query verify) when configured, single-token otherwise
+        if self.active and self.spec is not None:
+            self._decode_tick_speculative(events)
+        elif self.active:
+            self._decode_tick(events)
         events["preempted"] = self.n_preemptions - preempted_before
         self.trigger.observe(self.imbalance())
         if self.should_replan():
@@ -506,6 +617,8 @@ class Scheduler:
                 first_decode_step = ev["step"]
         wall = time.time() - t0
         total_tokens = sum(r.n_generated for r in self.finished)
+        proposed = sum(r.spec_proposed for r in self.finished)
+        accepted = sum(r.spec_accepted for r in self.finished)
         return {
             "steps": self.step_idx,
             "decode_ticks": self.decode_ticks,
@@ -522,4 +635,7 @@ class Scheduler:
             "latency": latency_percentiles([r for r in self.finished if not r.cancelled]),
             "memory": self.backend.memory_stats(self.state),
             "tokens_per_s": total_tokens / wall if wall > 0 else 0.0,
+            "spec_proposed": proposed,
+            "spec_accepted": accepted,
+            "acceptance": accepted / proposed if proposed else None,
         }

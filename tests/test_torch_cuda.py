@@ -6,14 +6,17 @@ Each kernel is held against its plain PyTorch version on the same inputs:
 1e-4 absolute in fp32 (the summation order differs), plus one bf16 rounding
 step relative for bf16 outputs (both sides round an fp32 result once); the
 paged kernel to the reference's own bars for its TPU kernel, 1e-5 with
-fp32 outputs and 0.03 with bf16 outputs.
+fp32 outputs and 0.03 with bf16 outputs; the multi-query paged kernel to
+1e-4 with fp32 outputs and one bf16 step with bf16 outputs, and bitwise to
+the single-query kernel at Q = 1.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.api import (CompressionConfig, Engine, EngineConfig, PagingConfig,
-                             PlannerConfig, SchedulerConfig, synthesize_requests)
+                             PlannerConfig, SchedulerConfig, SpeculationConfig,
+                             synthesize_requests)
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (fairkv_decode_ref, paged_fairkv_decode_ref,
                                      snapkv_scores_ref)
@@ -87,7 +90,7 @@ def test_engine_cuda_matches_cpu(gen):
     build.reset_launches()
     a, b = cpu.generate(prompts, 8), gpu.generate(prompts, 8)
     assert build.LAUNCHES == {"fairkv_decode": 2 * 8, "snapkv_scores": 2,
-                              "paged_fairkv_decode": 0}
+                              "paged_fairkv_decode": 0, "paged_fairkv_decode_mq": 0}
     assert np.array_equal(a.tokens, b.tokens)
     assert np.array_equal(a.lengths, b.lengths)
     assert np.abs(a.logits - b.logits).max() < 1e-3
@@ -152,4 +155,75 @@ def test_paged_run_trace_cuda_matches_cpu(gen, kv):
     # one launch per layer per decode tick
     assert build.LAUNCHES["paged_fairkv_decode"] == cpu.cfg.model.n_layers * b["decode_ticks"] > 0
     assert build.LAUNCHES["fairkv_decode"] == 0
+    assert gpu.scheduler.backend.pool.blocks_in_use() == 0
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("Q", [1, 3, 5])
+@pytest.mark.parametrize("S,B,G,Dh,C,bs,window,cap", [
+    (3, 2, 1, 64, 96, 16, 0, 0.0), (4, 3, 4, 32, 200, 8, 60, 30.0),
+    (16, 8, 4, 128, 576, 16, 0, 0.0)])
+def test_paged_fairkv_decode_mq_kernel(gen, mode, Q, S, B, G, Dh, C, bs, window, cap):
+    from repro_torch.kernels.paged_fairkv_decode import (paged_fairkv_decode_cuda,
+                                                         paged_fairkv_decode_mq_cuda)
+    rng = np.random.default_rng(S * 100 + C + Q)
+    pool_dt = torch.bfloat16 if mode == "bf16" else torch.float32
+    q_dt = torch.bfloat16 if mode in ("bf16", "mixed") else torch.float32
+    kp, vp, pp, tbl, ln = make_paged_layer(rng, S, B, C, bs, Dh, dtype=pool_dt, device="cuda")
+    q = torch.from_numpy(rng.normal(size=(B, S, Q, G, Dh)).astype(np.float32)).to("cuda", q_dt)
+    q_lens = torch.from_numpy(rng.integers(1, Q + 1, size=B).astype(np.int32)).cuda()
+    qpos = torch.full((B,), C + 7, dtype=torch.int32, device="cuda")
+    kw = {}
+    if mode in ("int8", "fp8", "mixed"):
+        kinds = {"int8": np.zeros(S), "fp8": np.ones(S), "mixed": np.arange(S) % 2}[mode]
+        kinds = torch.from_numpy(kinds.astype(np.int32)).cuda()
+        kp, vp, ks, vs = quantize_paged_layer(kp, vp, tbl, kinds)
+        kw = dict(k_scale=ks, v_scale=vs, kinds=kinds)
+    args = (q, kp, vp, pp, tbl, ln, C, cap)
+    before = build.LAUNCHES["paged_fairkv_decode_mq"]
+    out = paged_fairkv_decode_mq_cuda(*args, q_pos=qpos, window=window, q_lens=q_lens, **kw)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["paged_fairkv_decode_mq"] == before + 1
+    ref = paged_fairkv_decode_ref(*args, q_pos=qpos, window=window, q_lens=q_lens, **kw)
+    rel = 0.0 if q_dt == torch.float32 else 2.0 ** -7
+    err = (out.float() - ref.float()).abs()
+    assert bool((err <= 1e-4 + rel * ref.float().abs()).all())
+    empty = (ln == 0).T
+    assert not bool(empty.any()) or out[empty].abs().max().item() == 0.0
+    if Q == 1:  # the single-query kernel's arithmetic, bit for bit
+        single = paged_fairkv_decode_cuda(q[:, :, 0].contiguous(), kp, vp, pp, tbl, ln, C,
+                                          cap, q_pos=qpos, window=window, **kw)
+        assert torch.equal(single, out[:, :, 0])
+
+
+def test_spec_run_trace_cuda_matches_cpu(gen):
+    """A short speculative trace (1-layer draft) on paged fp32 pools: the
+    card's tokens equal the CPU path's and the plain run's; the mq kernel
+    carries every verify and the paged kernel every draft step."""
+    comp = CompressionConfig(policy="none", budget=64, capacity=64, alpha_max=1.0,
+                             obs_window=8, sink=2, decode_margin=8)
+    kw = dict(n_shards=4, max_seq_len=38, compression=comp, cache_backend="paged",
+              paging=PagingConfig(block_size=8),
+              planner=PlannerConfig(mode="fairkv_dp", extra_copies=6, batch_cap=4),
+              scheduler=SchedulerConfig(max_rows=4, enable_replan=False))
+    spec = SpeculationConfig(enabled=True, max_k=3, draft_layers=1)
+    cpu = Engine.build(EngineConfig.smoke("minitron-8b", device="cpu", speculation=spec, **kw))
+    params = {"embed": cpu.params["embed"].cuda(), "head": cpu.params["head"].cuda(),
+              "final_norm": cpu.params["final_norm"].cuda(),
+              "layers": [{k: v.cuda() for k, v in pl.items()} for pl in cpu.params["layers"]]}
+    gpu = Engine.build(EngineConfig.smoke("minitron-8b", device="cuda", speculation=spec,
+                                          **kw), params=params)
+    plain = Engine.build(EngineConfig.smoke("minitron-8b", device="cuda", **kw), params=params)
+    traces = [synthesize_requests(6, 0.5, cpu.cfg.model.vocab_size, min_prompt=8,
+                                  max_prompt=20, max_new_tokens=10, seed=3) for _ in range(3)]
+    a = cpu.run_trace(traces[0])
+    plain.run_trace(traces[2])
+    build.reset_launches()
+    b = gpu.run_trace(traces[1])
+    assert a["finished"] == b["finished"] == 6
+    assert [r.generated for r in traces[0]] == [r.generated for r in traces[1]]
+    assert [r.generated for r in traces[2]] == [r.generated for r in traces[1]]
+    nL = cpu.cfg.model.n_layers
+    assert build.LAUNCHES["paged_fairkv_decode_mq"] == nL * b["decode_ticks"] > 0
+    assert build.LAUNCHES["paged_fairkv_decode"] == 1 * 3 * b["decode_ticks"]
     assert gpu.scheduler.backend.pool.blocks_in_use() == 0

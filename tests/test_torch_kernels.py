@@ -109,7 +109,8 @@ def test_ops_dispatch_cpu_runs_plain_and_launches_nothing():
     assert torch.equal(ops.snapkv_scores(sq, sk, so, sp),
                        tref.snapkv_scores_ref(sq, sk, so, sp))
     assert build.LAUNCHES == {"fairkv_decode": 0, "snapkv_scores": 0,
-                              "paged_fairkv_decode": 0}
+                              "paged_fairkv_decode": 0,
+                              "paged_fairkv_decode_mq": 0}
 
 
 def test_cuda_wrappers_reject_cpu_tensors():

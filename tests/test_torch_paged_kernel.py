@@ -10,6 +10,14 @@ all-null rows, partial last blocks, window and softcap, G in {1, 2, 4, 8},
 and int8 / fp8 / mixed-kind pools quantized by both packages.  Tolerance
 1e-5 with fp32 outputs (the reference's own bar for its kernel), 0.03
 with bf16 outputs (one bf16 rounding).
+
+The multi-query form (5-D q, the speculative-verify window, ragged
+``q_lens`` with garbage lanes) is held the same way against the JAX
+oracle with a 5-D q (``_paged_decode_pallas_mq``'s own oracle) and the
+Pallas mq kernel in interpret mode: Q in {1, 3, 5}, G in {1, 4}, fp32 /
+int8 / fp8 / mixed kinds, window, softcap, null-block tables and partial
+last blocks; queries with no visible entry give exact zeros, and Q = 1
+equals the 4-D path exactly.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -136,6 +144,109 @@ def test_paged_ref_bf16():
     assert np.abs(out - oracle).max() < 0.03
 
 
+# ---------------------------------------------------------------------------
+# multi-query (speculative verify): 5-D q, ragged q_lens
+# ---------------------------------------------------------------------------
+
+
+def _compare_mq(seed, S, B, Q, G, Dh, C, bs, window=0, cap=0.0, kinds=None,
+                lengths=None, q_lens=None, pallas=False):
+    """Max |port − JAX oracle| (and |port − Pallas mq interpret|) for one
+    layer and a 5-D q.  ``lengths`` count the cache after the window's
+    appends (drawn >= Q by default, as the reference's own test does);
+    ``q_lens`` defaults to a ragged draw in [1, Q]."""
+    rng = np.random.default_rng(seed + 100)
+    if lengths is None:
+        lengths = rng.integers(Q, C + 1, size=(S, B)).astype(np.int32)
+    if q_lens is None:
+        q_lens = rng.integers(1, Q + 1, size=(B,))
+    q_lens = np.asarray(q_lens, np.int32)
+    (jk, jv, jp, jt, jl), (tk, tv, tp, tt, tl) = _layers(seed, S, B, C, bs, Dh, lengths)
+    jkw, tkw = {}, {}
+    if kinds is not None:
+        kinds = np.broadcast_to(np.asarray(kinds, np.int32), (S,)).copy()
+        jk, jv, jks, jvs = jquant(jk, jv, jt, jnp.asarray(kinds))
+        tk, tv, tks, tvs = tquant(tk, tv, tt, torch.from_numpy(kinds))
+        assert np.array_equal(np.asarray(jk), tk.numpy())
+        jkw = dict(k_scale=jks, v_scale=jvs, kinds=jnp.asarray(kinds))
+        tkw = dict(k_scale=tks, v_scale=tvs, kinds=torch.from_numpy(kinds))
+    q = rng.normal(size=(B, S, Q, G, Dh)).astype(np.float32)
+    qpos = np.full((B,), C + 7, np.int32)  # query 0's absolute position
+    out = tref(torch.from_numpy(q), tk, tv, tp, tt, tl, C, cap,
+               q_pos=torch.from_numpy(qpos), window=window,
+               q_lens=torch.from_numpy(q_lens), **tkw).numpy()
+    assert out.shape == (B, S, Q, G, Dh)
+    oracle = np.asarray(jref(jnp.asarray(q), jk, jv, jp, jt, jl, C, cap,
+                             q_pos=jnp.asarray(qpos), window=window,
+                             q_lens=jnp.asarray(q_lens), **jkw))
+    errs = [float(np.abs(out - oracle).max())]
+    if pallas:
+        kern = np.asarray(paged_fairkv_decode_pallas(
+            jnp.asarray(q), jk, jv, jp, jt, jl, C, attn_cap=cap,
+            q_pos=jnp.asarray(qpos), window=window, interpret=True,
+            q_lens=jnp.asarray(q_lens), **jkw))
+        errs.append(float(np.abs(out - kern).max()))
+    # a query with no visible entry (empty pair, or a causal limit <= 0)
+    # gives exact zeros
+    ln = tl.numpy().T[:, :, None]  # (B, S, 1)
+    limit = np.minimum(ln - (q_lens[:, None, None] - 1 - np.arange(Q)), ln)
+    assert not np.any(out[limit <= 0])
+    return max(errs)
+
+
+@pytest.mark.parametrize("Q", [1, 3, 5])
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("kinds", [None, 0, 1, [0, 1, 0, 1]],
+                         ids=["fp32", "int8", "fp8", "mixed"])
+def test_paged_ref_mq(Q, G, kinds):
+    """Ragged q_lens with garbage lanes over ragged lengths, every pool kind;
+    the Pallas mq kernel beside the oracle on the fp32 pools."""
+    assert _compare_mq(40 + Q + G, 4, 3, Q, G, 32, 96, 16, kinds=kinds,
+                       pallas=kinds is None) < TOL
+
+
+@pytest.mark.parametrize("window,cap", [(40, 0.0), (0, 30.0), (40, 30.0)])
+@pytest.mark.parametrize("kinds", [None, 1], ids=["fp32", "fp8"])
+def test_paged_ref_mq_window_softcap(window, cap, kinds):
+    """The window test uses q_pos + i per query."""
+    assert _compare_mq(50, 3, 2, 5, 4, 32, 96, 16, window=window, cap=cap,
+                       kinds=kinds, pallas=kinds is None) < TOL
+
+
+def test_paged_ref_mq_null_tables_and_partial_blocks():
+    """All-null tables give exact zeros; lengths below the window (limits
+    <= 0) zero exactly those queries; partial last blocks of every kind."""
+    assert _compare_mq(51, 3, 2, 3, 4, 32, 96, 16, lengths=np.zeros((3, 2))) == 0.0
+    assert _compare_mq(51, 3, 2, 3, 4, 32, 96, 16, kinds=1,
+                       lengths=np.zeros((3, 2))) == 0.0
+    lengths = np.asarray([[1, 17], [2, 33], [16, 47]])  # partial blocks at bs 16
+    assert _compare_mq(52, 3, 2, 5, 4, 32, 48, 16, lengths=lengths,
+                       q_lens=[5, 3], pallas=True) < TOL
+    assert _compare_mq(53, 3, 2, 5, 4, 32, 48, 16, lengths=lengths, kinds=[0, 1, 0],
+                       q_lens=[4, 5]) < TOL
+
+
+def test_paged_ref_mq_q1_equals_4d():
+    """A 5-D q with Q = 1 is the 4-D path exactly."""
+    _, (tk, tv, tp, tt, tl) = _layers(54, 3, 2, 96, 16, 32)
+    q = torch.from_numpy(np.random.default_rng(55).normal(size=(2, 3, 4, 32))
+                         .astype(np.float32))
+    qpos = torch.full((2,), 103, dtype=torch.int32)
+    for window in (0, 40):
+        a = tref(q, tk, tv, tp, tt, tl, 96, 30.0, q_pos=qpos, window=window)
+        b = tref(q[:, :, None], tk, tv, tp, tt, tl, 96, 30.0, q_pos=qpos,
+                 window=window, q_lens=torch.ones((2,), dtype=torch.int32))
+        assert torch.equal(a, b[:, :, 0])
+
+
+@settings(max_examples=4, deadline=None)
+@given(S=st.integers(2, 4), B=st.integers(1, 4), Q=st.integers(1, 5),
+       G=st.sampled_from([1, 2, 4, 8]), C=st.integers(8, 128),
+       bs=st.sampled_from([2, 8, 16, 32]), seed=st.integers(0, 10))
+def test_paged_ref_mq_ragged(S, B, Q, G, C, bs, seed):
+    assert _compare_mq(seed, S, B, Q, G, 32, max(C, Q), bs) < TOL
+
+
 def test_ops_dispatch_cpu_runs_plain_version():
     """On CPU tensors `ops.paged_fairkv_decode` is the plain version, and
     no kernel launch is counted."""
@@ -146,3 +257,15 @@ def test_ops_dispatch_cpu_runs_plain_version():
     assert torch.equal(a, tref(q, tk, tv, tp, tt, tl, 64))
     assert build.LAUNCHES["paged_fairkv_decode"] == before
     assert "paged_fairkv_decode" in build.KERNELS
+
+
+def test_ops_dispatch_cpu_runs_plain_mq_version():
+    """A 5-D q on the CPU runs the plain multi-query version; no launch."""
+    _, (tk, tv, tp, tt, tl) = _layers(13, 3, 2, 64, 16, 32)
+    q = torch.randn(2, 3, 4, 2, 32, generator=torch.Generator().manual_seed(1))
+    ql = torch.tensor([4, 2], dtype=torch.int32)
+    before = dict(build.LAUNCHES)
+    a = ops.paged_fairkv_decode(q, tk, tv, tp, tt, tl, 64, q_lens=ql)
+    assert torch.equal(a, tref(q, tk, tv, tp, tt, tl, 64, q_lens=ql))
+    assert build.LAUNCHES == before
+    assert "paged_fairkv_decode_mq" in build.KERNELS

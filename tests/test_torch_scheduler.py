@@ -210,10 +210,22 @@ def test_stream_cancel_drain(runs):
     assert not eng2.cancel(12345)
 
 
-def test_unported_features_refuse():
+def test_unported_features_refuse(runs):
+    """Pool partitions (A.10) and shared prefix blocks (prefix reuse with
+    chunked prefill, A.7) still raise."""
     from repro_torch.paging.paged_cache import init_paged_cache
     with pytest.raises(NotImplementedError, match="Queue A.10"):
         init_paged_cache(1, 4, 2, 16, 8, PagingConfig(), partitions=(2, 1))
+    _, params = runs["params"]
+    _, tc = _configs("paged")
+    eng = Engine.build(tc, params=params)
+    sched = eng._ensure_scheduler()
+    with torch.inference_mode():
+        sub, _, _ = eng.executor.prefill(eng.sp, eng._as_batch(np.arange(12)[None]), eng.pa,
+                                         rows=[0])
+        with pytest.raises(NotImplementedError, match="Queue A.7"):
+            sched.backend.splice(sched.state, sub, [0],
+                                 shared_blocks=np.ones((tc.model.n_layers,), np.int64))
 
 
 def test_request_trace_matches_reference():
