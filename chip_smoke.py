@@ -15,7 +15,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    fp8 and mixed-kind pools, G in {1, 2, 4, 8}, null-block tables and
    partial last blocks; for the multi-query (speculative-verify) kernel Q
    in {1, 3, 5} with ragged q_lens, and at Q = 1 bitwise equality with the
-   single-query paged kernel (tolerances stated at each check);
+   single-query paged kernel; the slot kernel also bitwise against the
+   paged kernel over an identity block table (lengths up to 1600), and the
+   score kernel at B = 1 with T tails off its 64-key tile and W*G from 32
+   to 256 (tolerances stated at each check);
 4. check the port's CUDA path against its own CPU path on minitron-8b smoke
    (same weights, fp32): identical tokens and lengths, close logits; then
    speculative `run_trace` (full-depth and 1-layer drafts) against the
@@ -45,9 +48,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    tokens agree and every divergence a near-tie; one profiler pass over
    continuous decode ticks and one over speculative ticks;
 8. time each kernel, its plain version and the PyTorch library call where
-   one exists on the main path's own inputs (CUDA events, median of 25
-   runs after warmup, L2 flushed before each run) beside the least time the
-   card could take, and print them as one JSON line;
+   one exists on the main path's own inputs (device time from CUDA events,
+   median of 25 runs after warmup, L2 flushed before each run; snapkv
+   also at B = 1) beside the least time the card could take, and print
+   them as one JSON line; the host time per call of kernels 1 and 2;
 9. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
@@ -171,14 +175,24 @@ def decode_inputs(gen, Bq, S, G, Dh, C, dtype, empty_slot=False, lengths=None):
     return q, k, v, lengths, k_pos, q_pos
 
 
+# (slot, row) lengths from one entry to C = 1600: partial and whole groups
+# of 8 column classes, one to 13 ring stages of the slot kernel's blocks
+SPLIT_LENGTHS = (1, 7, 32, 33, 128, 129, 577, 1000, 1599, 1600)
+
+
 def check_decode(gen):
+    """fairkv_decode against fairkv_decode_ref (tolerance below) and, on
+    every case, bitwise against paged_fairkv_decode_cuda over the same
+    cache laid out as pools with an identity block table."""
     import torch
     from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda
+    from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
     from repro_torch.kernels.ref import fairkv_decode_ref
+    from repro_torch.paging.testing import slot_layer_as_pool
     C_main = int(round(ALPHA * BUDGET)) + MARGIN
     shapes = [(4, 8, 8, 64, 256), (2, 16, 1, 128, 200), (3, 5, 4, 32, 96),
               (1, 16, 8, 128, 1600), (2, 4, 2, 16, 64),
-              (B, N_SHARDS * SLOTS_PER_SHARD, 4, 128, C_main)]
+              (B, N_SHARDS * SLOTS_PER_SHARD, 4, 128, C_main), (2, 5, 4, 128, 1600)]
     worst = 0.0
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -186,9 +200,15 @@ def check_decode(gen):
         # round once to bf16, so they may differ by one bf16 step
         tol_rel = 0.0 if dtype == torch.float32 else BF16_ULP
         for (Bq, S, G, Dh, C) in shapes:
+            lengths = None
+            if C == 1600 and S * Bq == len(SPLIT_LENGTHS):
+                lengths = torch.tensor(SPLIT_LENGTHS, dtype=torch.int32,
+                                       device="cuda").reshape(S, Bq)
             for window, cap, empty in ((0, 0.0, False), (0, 0.0, True),
                                        (C // 3, 0.0, False), (0, 50.0, True)):
-                q, k, v, ln, kp, qp = decode_inputs(gen, Bq, S, G, Dh, C, dtype, empty)
+                ln_in = None if lengths is None else lengths.clone()
+                q, k, v, ln, kp, qp = decode_inputs(gen, Bq, S, G, Dh, C, dtype, empty,
+                                                    lengths=ln_in)
                 out = fairkv_decode_cuda(q, k, v, ln, cap, k_pos=kp, q_pos=qp,
                                          window=window)
                 ref = fairkv_decode_ref(q, k, v, ln, cap, k_pos=kp, q_pos=qp,
@@ -197,9 +217,18 @@ def check_decode(gen):
                 worst = max(worst, _cmp(tag, out, ref, FP32_TOL, tol_rel))
                 if empty and out[:, 0].abs().max().item() != 0.0:
                     fail(f"{tag}: the all-zero slot's output is not exactly 0")
+                kpool, vpool, ppool, tbl = slot_layer_as_pool(k, v, kp, BLOCK)
+                paged = paged_fairkv_decode_cuda(q, kpool, vpool, ppool, tbl, ln, C, cap,
+                                                 q_pos=qp, window=window)
+                if not torch.equal(out, paged):
+                    d = (out.float() - paged.float()).abs().max().item()
+                    fail(f"{tag}: differs from paged_fairkv_decode_cuda over an identity "
+                         f"block table (max |diff| {d:.3e}); the two must agree bitwise")
                 n += 1
     log(f"[check] fairkv_decode: {n} cases vs plain, max abs err {worst:.3e} "
-        f"(tol {FP32_TOL:g} fp32; + one bf16 step {BF16_ULP:g}|plain| for bf16)")
+        f"(tol {FP32_TOL:g} fp32; + one bf16 step {BF16_ULP:g}|plain| for bf16); "
+        f"all {n} bitwise equal to paged_fairkv_decode_cuda over an identity block table "
+        f"(lengths 1 to 1600)")
 
 
 def scores_inputs(gen, Bq, W, Hq, Hkv, Dh, Tk, dtype):
@@ -216,8 +245,13 @@ def check_scores(gen):
     import torch
     from repro_torch.kernels.ref import snapkv_scores_ref
     from repro_torch.kernels.snapkv_select import snapkv_scores_cuda
+    # the main shape; B = 1 (the continuous scheduler's admission prefills)
+    # with T tails that are not multiples of the 64-key tile; G = 1, 2, 8
+    # at W = 32 (R = 32 ... 256 query rows); Dh 32, 64, 128
     shapes = [(2, 8, 8, 2, 64, 256), (1, 4, 4, 4, 32, 100), (2, 16, 8, 8, 64, 128),
               (B, OBS, 32, 8, 128, T)]
+    shapes += [(1, OBS, 32, 8, 128, Tk) for Tk in (63, 1000, 2047, 2048)]
+    shapes += [(1, OBS, 8 * G, 8, 128, 1000) for G in (1, 2, 8)]
     worst = 0.0
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -1142,7 +1176,11 @@ def profile_speculative(ctx, steps=4):
 
 
 def time_ms(fn, flush, iters=25, warmup=5):
-    """Median CUDA-event time of ``fn`` in ms; L2 flushed before each run."""
+    """Median device time of ``fn`` in ms (CUDA events), L2 flushed before
+    each run.  A ~1 ms device sleep sits between the flush and the start
+    event, so the host has enqueued all of ``fn`` before the device reaches
+    the start event: the time is the device's, without the wrapper's host
+    time (which `host_us` reports)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -1150,6 +1188,7 @@ def time_ms(fn, flush, iters=25, warmup=5):
     ts = []
     for _ in range(iters):
         flush.zero_()
+        torch.cuda._sleep(2_000_000)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -1158,6 +1197,31 @@ def time_ms(fn, flush, iters=25, warmup=5):
         b.synchronize()
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
+
+
+def host_us(fn, n=100):
+    """Host time per call of ``fn`` in us: ``n`` calls enqueued back to
+    back (the device's work is not waited for)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / n
+
+
+def _scores_bound(q, k, opos, kpos):
+    """(bytes, FLOP, bound ms) of snapkv_scores on these inputs: q and K
+    read once, the positions, the fp32 output written once; the score
+    contraction's FLOP at the bf16 tensor-core peak."""
+    Bq, W, Hq, Dh = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    nbytes = (k.numel() + q.numel()) * k.element_size() + (opos.numel() + kpos.numel()) * 4 \
+        + Bq * Hkv * Tk * 4
+    flops = 2 * Bq * Hq * W * Tk * Dh
+    return nbytes, flops, 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
 
 
 def time_kernels(engine, launches, paged, mq_inputs):
@@ -1202,9 +1266,13 @@ def time_kernels(engine, launches, paged, mq_inputs):
                  "bound_by": "bytes" if bytes1 / HBM_BYTES_PER_S >= flops1 / BF16_FLOP_PER_S
                  else "operations",
                  "library_ms": lib})
+    host_kern = host_us(lambda: fairkv_decode_cuda(q, k, v, ln))
+    host_lib = host_us(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                              enable_gqa=True))
     log(f"[time] fairkv_decode at (B={Bq}, S={S}, G={G}, C={C}, Dh={Dh}) bf16, "
         f"sum(lengths)={n_ret}: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
-        f"SDPA {lib:.4f} ms, bound {bound1:.4f} ms ({bytes1} B / 3.35 TB/s)")
+        f"SDPA {lib:.4f} ms, bound {bound1:.4f} ms ({bytes1} B / 3.35 TB/s); host time "
+        f"per call: kernel {host_kern:.1f} us, SDPA {host_lib:.1f} us")
 
     # kernel 2 at prefill's shape: q_obs (B, W, Hq, Dh), k (B, T, Hkv, Dh)
     q2 = torch.randn((B, OBS, m.n_heads, Dh), generator=gen, device="cuda").to(k.dtype)
@@ -1216,11 +1284,7 @@ def time_kernels(engine, launches, paged, mq_inputs):
     err2 = _cmp("snapkv_scores (main-path shape)", out2, ref2, FP32_TOL, 1e-5)
     kern2 = time_ms(lambda: snapkv_scores_cuda(q2, k2, opos, kpos), flush)
     plain2 = time_ms(lambda: snapkv_scores_ref(q2, k2, opos, kpos), flush)
-    it2 = k2.element_size()
-    bytes2 = k2.numel() * it2 + q2.numel() * it2 + (opos.numel() + kpos.numel()) * 4 \
-        + B * m.n_kv_heads * T * 4
-    flops2 = 2 * B * m.n_heads * OBS * T * Dh  # the score contraction
-    bound2 = 1e3 * max(bytes2 / HBM_BYTES_PER_S, flops2 / BF16_FLOP_PER_S)
+    bytes2, flops2, bound2 = _scores_bound(q2, k2, opos, kpos)
     rows.append({"name": "snapkv_scores", "route": "cuda",
                  "source": "src/repro_torch/csrc/snapkv_scores.cu",
                  "replaces": "src/repro/kernels/snapkv_select.py:89",
@@ -1232,7 +1296,19 @@ def time_kernels(engine, launches, paged, mq_inputs):
     log(f"[time] snapkv_scores at (B={B}, W={OBS}, Hq={m.n_heads}, Hkv={m.n_kv_heads}, "
         f"Dh={Dh}, T={T}) bf16: kernel {kern2:.4f} ms, plain {plain2:.4f} ms, "
         f"bound {bound2:.4f} ms (max of {bytes2} B / 3.35 TB/s and {flops2} FLOP / "
-        f"989 TFLOP/s; {flops2 / FP32_FLOP_PER_S * 1e3:.4f} ms at the fp32 CUDA-core peak)")
+        f"989 TFLOP/s; {flops2 / FP32_FLOP_PER_S * 1e3:.4f} ms at the fp32 CUDA-core peak); "
+        f"host time per call {host_us(lambda: snapkv_scores_cuda(q2, k2, opos, kpos)):.1f} us")
+    # and at B = 1, the continuous scheduler's admission prefill of T tokens
+    q1, k1, op1, kp1 = (x[:1].contiguous() for x in (q2, k2, opos, kpos))
+    err_b1 = _cmp("snapkv_scores (B=1)", snapkv_scores_cuda(q1, k1, op1, kp1),
+                  snapkv_scores_ref(q1, k1, op1, kp1), FP32_TOL, 1e-5)
+    kern_b1 = time_ms(lambda: snapkv_scores_cuda(q1, k1, op1, kp1), flush)
+    plain_b1 = time_ms(lambda: snapkv_scores_ref(q1, k1, op1, kp1), flush)
+    bytes_b1, _, bound_b1 = _scores_bound(q1, k1, op1, kp1)
+    rows[-1].update(ms_b1=kern_b1, plain_ms_b1=plain_b1, bound_ms_b1=bound_b1)
+    log(f"[time] snapkv_scores at (B=1, W={OBS}, Hq={m.n_heads}, Hkv={m.n_kv_heads}, "
+        f"Dh={Dh}, T={T}) bf16: kernel {kern_b1:.4f} ms, plain {plain_b1:.4f} ms, "
+        f"bound {bound_b1:.4f} ms ({bytes_b1} B / 3.35 TB/s); max abs err {err_b1:.3e}")
 
     # kernel 3 on layer 0 of the paged caches after the one-shot decode
     # (bf16 pools; int8 pools beside them)

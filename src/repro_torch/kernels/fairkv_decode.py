@@ -10,7 +10,7 @@ what bounds it.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 
@@ -22,18 +22,44 @@ GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head the kernel is built for
 MAX_HEAD_DIM = 128
 
 
+_LIB: Optional[ctypes.CDLL] = None
+
+
 def _launcher() -> ctypes.CDLL:
-    lib = build.load(NAME)
-    fn = lib.fairkv_decode_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib = build.load(NAME)
+        fn = lib.fairkv_decode_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        lib.fairkv_decode_scratch_floats.restype = ctypes.c_longlong
+        lib.fairkv_decode_scratch_floats.argtypes = [ctypes.c_int] * 4
+        _LIB = lib
+    return _LIB
 
 
-def _require(ok: bool, msg: str) -> None:
+# Per device, the split merge's scratch and its per-(slot, row) arrival
+# counters (zero before a launch; the launch leaves them zero).  Launches
+# on one stream run in order, so they share both.
+_SCRATCH: Dict[torch.device, torch.Tensor] = {}
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
+
+
+def _buffer(pool: Dict[torch.device, torch.Tensor], device: torch.device, n: int,
+            dtype: torch.dtype) -> torch.Tensor:
+    buf = pool.get(device)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(n, dtype=dtype, device=device)
+        pool[device] = buf
+    return buf
+
+
+def _require(ok: bool, msg: str, *detail) -> None:
+    """Raise unless ``ok``; ``detail`` is formatted only on failure (the
+    checks run on every decode launch)."""
     if not ok:
-        raise ValueError(f"{NAME}: {msg}")
+        raise ValueError(" ".join([f"{NAME}: {msg}", *map(str, detail)]))
 
 
 def fairkv_decode_cuda(
@@ -49,13 +75,12 @@ def fairkv_decode_cuda(
     """Launch the CUDA kernel; returns (B, S, G, Dh) in q's dtype."""
     B, S, G, Dh = q.shape
     C = k.shape[2]
-    _require(q.is_cuda, f"q must be a CUDA tensor, got {q.device}")
-    _require(q.dtype in _DTYPE_CODES, f"dtype {q.dtype} not supported")
-    _require(G in GROUP_SIZES, f"G={G} not in {GROUP_SIZES}")
-    _require(Dh <= MAX_HEAD_DIM, f"head_dim {Dh} > {MAX_HEAD_DIM}")
+    _require(q.is_cuda, "q must be a CUDA tensor, got", q.device)
+    _require(q.dtype in _DTYPE_CODES, "dtype not supported:", q.dtype)
+    _require(G in GROUP_SIZES, "G not in", GROUP_SIZES)
+    _require(Dh <= MAX_HEAD_DIM, "head_dim >", MAX_HEAD_DIM)
     _require(k.shape == (S, B, C, Dh) and v.shape == k.shape,
-             f"k/v shapes {tuple(k.shape)}/{tuple(v.shape)} do not match q "
-             f"{tuple(q.shape)}")
+             "k/v shapes do not match q:", k.shape, v.shape, q.shape)
     _require(k.dtype == q.dtype and v.dtype == q.dtype, "q/k/v dtypes differ")
     _require(lengths.shape == (S, B) and lengths.dtype == torch.int32,
              "lengths must be (S, B) int32")
@@ -73,13 +98,16 @@ def fairkv_decode_cuda(
         _require(t.is_contiguous(), "inputs must be contiguous")
     out = torch.empty_like(q)
     lib = _launcher()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    scratch = _buffer(_SCRATCH, q.device, lib.fairkv_decode_scratch_floats(B, S, G, Dh),
+                      torch.float32)
+    counters = _buffer(_COUNTERS, q.device, S * B, torch.int32)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     err = lib.fairkv_decode_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         k_pos.data_ptr() if window > 0 else None,
         q_pos.data_ptr() if window > 0 else None,
-        out.data_ptr(), B, S, G, C, Dh, float(attn_cap), int(window),
+        out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+        B, S, G, C, Dh, float(attn_cap), int(window),
         _DTYPE_CODES[q.dtype], stream)
     build.check(lib, NAME, err)
     build.LAUNCHES[NAME] += 1

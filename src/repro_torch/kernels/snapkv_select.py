@@ -11,6 +11,7 @@ CPU path runs and the card is checked against.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -19,18 +20,27 @@ from repro_torch.kernels import build
 NAME = "snapkv_scores"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
+MAX_HEAD_DIM = 128
+
+
+_LIB: Optional[ctypes.CDLL] = None
 
 
 def _launcher() -> ctypes.CDLL:
-    lib = build.load(NAME)
-    fn = lib.snapkv_scores_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
-    sm = lib.snapkv_scores_smem_bytes
-    sm.restype = ctypes.c_longlong
-    sm.argtypes = [ctypes.c_int] * 3
-    return lib
+    global _LIB
+    if _LIB is None:
+        lib = build.load(NAME)
+        fn = lib.snapkv_scores_launch
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        sm = lib.snapkv_scores_smem_bytes
+        sm.restype = ctypes.c_longlong
+        sm.argtypes = [ctypes.c_int] * 3
+        lib.snapkv_scores_splits.restype = ctypes.c_int
+        lib.snapkv_scores_splits.argtypes = [ctypes.c_int] * 3
+        _LIB = lib
+    return _LIB
 
 
 def _require(ok: bool, msg: str) -> None:
@@ -60,16 +70,17 @@ def snapkv_scores_cuda(
     for t in (q_obs, k, obs_positions, k_positions):
         _require(t.device == q_obs.device, "all inputs must be on one device")
         _require(t.is_contiguous(), "inputs must be contiguous")
+    _require(Dh <= MAX_HEAD_DIM, f"head_dim {Dh} > {MAX_HEAD_DIM}")
     lib = _launcher()
     G = Hq // Hkv
-    smem = lib.snapkv_scores_smem_bytes(W, G, Dh)
+    smem = lib.snapkv_scores_smem_bytes(W, Dh, _DTYPE_CODES[q_obs.dtype])
     _require(smem <= SMEM_LIMIT,
-             f"query tile W*G={W * G} x Dh={Dh} needs {smem} B of shared "
-             f"memory, more than {SMEM_LIMIT}")
-    ml = torch.empty((B, Hkv, W * G, 2), dtype=torch.float32, device=q_obs.device)
+             f"W={W}, Dh={Dh} needs {smem} B of shared memory, more than "
+             f"{SMEM_LIMIT}")
+    splits = lib.snapkv_scores_splits(B, Hkv, T)
+    ml = torch.empty((B, Hkv, W * G, splits, 2), dtype=torch.float32, device=q_obs.device)
     out = torch.empty((B, Hkv, T), dtype=torch.float32, device=q_obs.device)
-    with torch.cuda.device(q_obs.device):
-        stream = torch.cuda.current_stream().cuda_stream
+    stream = torch.cuda.current_stream(q_obs.device).cuda_stream
     err = lib.snapkv_scores_launch(
         q_obs.data_ptr(), k.data_ptr(), obs_positions.data_ptr(),
         k_positions.data_ptr(), ml.data_ptr(), out.data_ptr(),

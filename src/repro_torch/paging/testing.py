@@ -7,7 +7,8 @@ valid column does not overwrite left as garbage (a missing mask shows as a
 mismatch, not as silent zeros), absolute positions written per column.
 The draws from the numpy generator follow the reference fixture's order,
 so one seed gives both packages the same layer.  Used by the CPU tests and
-by ``chip_smoke.py``.
+by ``chip_smoke.py``, as is `slot_layer_as_pool`, which lays a slot cache
+out as pools so the slot and paged kernels can be held to each other.
 """
 from __future__ import annotations
 
@@ -82,3 +83,22 @@ def quantize_paged_layer(k_pool, v_pool, block_table, kinds):
     v_codes = kvquant.encode(torch.from_numpy(v), torch.from_numpy(v_scale)[:, None, None], kb)
     return (k_codes.to(dev), v_codes.to(dev), torch.from_numpy(k_scale).to(dev),
             torch.from_numpy(v_scale).to(dev))
+
+
+def slot_layer_as_pool(k: torch.Tensor, v: torch.Tensor, k_pos: torch.Tensor, bs: int):
+    """One layer of a slot cache, k / v (S, B, C, Dh) and k_pos (S, B, C),
+    as block pools with an identity block table: (k_pool, v_pool,
+    pos_pool, block_table), C padded with zeros to a multiple of ``bs``,
+    block 0 the null block, block 1 + (s*B + b)*M + m holding columns
+    m*bs .. (m+1)*bs - 1 of (s, b)."""
+    S, B, C = k_pos.shape
+    M = -(-C // bs)
+    n = S * B * M
+
+    def blocks(x):  # (S, B, C, ...) -> (1 + n, bs, ...)
+        pad = [0, 0] * (x.dim() - 3) + [0, M * bs - C]
+        x = torch.nn.functional.pad(x, pad).reshape(n, bs, *x.shape[3:])
+        return torch.cat([torch.zeros_like(x[:1]), x]).contiguous()
+
+    table = 1 + torch.arange(n, dtype=torch.int32, device=k.device).reshape(S, B, M)
+    return blocks(k), blocks(v), blocks(k_pos), table

@@ -8,7 +8,8 @@ step relative for bf16 outputs (both sides round an fp32 result once); the
 paged kernel to the reference's own bars for its TPU kernel, 1e-5 with
 fp32 outputs and 0.03 with bf16 outputs; the multi-query paged kernel to
 1e-4 with fp32 outputs and one bf16 step with bf16 outputs, and bitwise to
-the single-query kernel at Q = 1.
+the single-query kernel at Q = 1.  The slot kernel is also held bitwise
+to the paged kernel over an identity block table.
 """
 import numpy as np
 import pytest
@@ -60,7 +61,12 @@ def test_fairkv_decode_kernel(gen, dtype, B, S, G, Dh, C, window, cap):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,W,Hq,Hkv,Dh,T,cap", [
-    (2, 8, 8, 2, 64, 256, 0.0), (1, 4, 4, 4, 32, 100, 50.0), (2, 32, 32, 8, 128, 512, 0.0)])
+    (2, 8, 8, 2, 64, 256, 0.0), (1, 4, 4, 4, 32, 100, 50.0), (2, 32, 32, 8, 128, 512, 0.0),
+    # B = 1 with T tails off the 64-key tile; G = 1, 2, 8 at W = 32 (R = 32 ... 256)
+    (1, 32, 32, 8, 128, 63, 0.0), (1, 32, 32, 8, 128, 1000, 50.0),
+    (1, 32, 32, 8, 128, 2047, 0.0), (1, 32, 32, 8, 128, 2048, 0.0),
+    (1, 32, 8, 8, 128, 1000, 0.0), (1, 32, 16, 8, 128, 1000, 0.0),
+    (1, 32, 64, 8, 128, 1000, 50.0)])
 def test_snapkv_scores_kernel(gen, dtype, B, W, Hq, Hkv, Dh, T, cap):
     from repro_torch.kernels.snapkv_select import snapkv_scores_cuda
     q = torch.randn((B, W, Hq, Dh), generator=gen, device="cuda").to(dtype)
@@ -73,6 +79,34 @@ def test_snapkv_scores_kernel(gen, dtype, B, W, Hq, Hkv, Dh, T, cap):
     assert bool(((out - ref).abs() <= 1e-4 + 1e-5 * ref.abs()).all())
     mass = out.sum(-1)
     assert torch.allclose(mass, torch.full_like(mass, W * Hq // Hkv), rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,G,Dh,C,window,cap", [
+    (2, 5, 4, 128, 1600, 0, 0.0), (2, 5, 4, 128, 1600, 500, 30.0),
+    (8, 16, 4, 128, 576, 0, 0.0), (3, 5, 8, 32, 96, 40, 50.0)])
+def test_fairkv_decode_kernel_bitwise_paged(gen, dtype, B, S, G, Dh, C, window, cap):
+    """The slot kernel equals the paged kernel bitwise on the same cache
+    laid out as pools with an identity block table, at lengths from one
+    entry to one to many ring stages per block."""
+    from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda
+    from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
+    from repro_torch.paging.testing import slot_layer_as_pool
+    q = torch.randn((B, S, G, Dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((S, B, C, Dh), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((S, B, C, Dh), generator=gen, device="cuda").to(dtype)
+    if S * B == 10 and C == 1600:
+        ln = torch.tensor([1, 7, 32, 33, 128, 129, 577, 1000, 1599, 1600],
+                          dtype=torch.int32, device="cuda").reshape(S, B)
+    else:
+        ln = torch.randint(0, C + 1, (S, B), generator=gen, device="cuda", dtype=torch.int32)
+    kp = torch.arange(C, dtype=torch.int32, device="cuda").expand(S, B, C).contiguous()
+    qp = torch.full((B,), C + 7, dtype=torch.int32, device="cuda")
+    out = fairkv_decode_cuda(q, k, v, ln, cap, k_pos=kp, q_pos=qp, window=window)
+    pools = slot_layer_as_pool(k, v, kp, 16)
+    paged = paged_fairkv_decode_cuda(q, *pools, ln, C, cap, q_pos=qp, window=window)
+    torch.cuda.synchronize()
+    assert torch.equal(out, paged)
 
 
 def test_engine_cuda_matches_cpu(gen):

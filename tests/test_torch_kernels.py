@@ -122,3 +122,23 @@ def test_cuda_wrappers_reject_cpu_tensors():
     sq, sk, so, sp = (torch.from_numpy(a) for a in _scores_inputs(6, 1, 4, 4, 2, 16, 40))
     with pytest.raises(ValueError, match="CUDA"):
         snapkv_scores_cuda(sq, sk, so, sp)
+
+
+def test_lib_path_follows_sources_and_headers(tmp_path, monkeypatch):
+    """A kernel's library path hashes its source and every shared header, so
+    an edited header rebuilds the kernels (no nvcc needed to check)."""
+    import shutil
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", csrc)
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers, "the kernels share at least one header"
+    before = {name: build.lib_path(name) for name in build.KERNELS}
+    assert before == {name: build.lib_path(name) for name in build.KERNELS}
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {name: build.lib_path(name) for name in build.KERNELS}
+    assert all(after[name] != before[name] for name in build.KERNELS)
+    src = csrc / "snapkv_scores.cu"
+    src.write_text(src.read_text() + "\n// edited\n")
+    assert build.lib_path("snapkv_scores") != after["snapkv_scores"]
+    assert build.lib_path("fairkv_decode") == after["fairkv_decode"]

@@ -269,3 +269,31 @@ def test_ops_dispatch_cpu_runs_plain_mq_version():
     assert torch.equal(a, tref(q, tk, tv, tp, tt, tl, 64, q_lens=ql))
     assert build.LAUNCHES == before
     assert "paged_fairkv_decode_mq" in build.KERNELS
+
+
+@pytest.mark.parametrize("S,B,G,Dh,C,bs,window,cap", [
+    (3, 2, 4, 32, 100, 16, 0, 0.0), (2, 5, 1, 16, 64, 8, 20, 30.0),
+    (4, 2, 8, 64, 33, 16, 0, 50.0)])
+def test_slot_layer_as_pool_matches_slot_decode(S, B, G, Dh, C, bs, window, cap):
+    """A slot cache laid out as pools with an identity table
+    (`paging.testing.slot_layer_as_pool`, the layout the card uses to hold
+    the slot kernel bitwise to the paged one) gives, through the port's
+    plain paged decode, the JAX package's slot decode oracle."""
+    from repro.kernels.ref import fairkv_decode_ref as jslot
+    from repro_torch.paging.testing import slot_layer_as_pool
+    rng = np.random.default_rng(S * 1000 + C)
+    q = rng.normal(size=(B, S, G, Dh)).astype(np.float32)
+    k = rng.normal(size=(S, B, C, Dh)).astype(np.float32)
+    v = rng.normal(size=(S, B, C, Dh)).astype(np.float32)
+    ln = rng.integers(0, C + 1, size=(S, B)).astype(np.int32)
+    kpos = np.broadcast_to(np.arange(C, dtype=np.int32), (S, B, C)).copy()
+    qpos = np.full((B,), C + 3, np.int32)
+    kp, vp, pp, tbl = slot_layer_as_pool(torch.from_numpy(k), torch.from_numpy(v),
+                                         torch.from_numpy(kpos), bs)
+    assert tbl.shape == (S, B, -(-C // bs)) and kp.shape[0] == 1 + tbl.numel()
+    out = tref(torch.from_numpy(q), kp, vp, pp, tbl, torch.from_numpy(ln), C, cap,
+               q_pos=torch.from_numpy(qpos), window=window).numpy()
+    oracle = np.asarray(jslot(*(jnp.asarray(a) for a in (q, k, v, ln)), cap,
+                              k_pos=jnp.asarray(kpos), q_pos=jnp.asarray(qpos),
+                              window=window))
+    assert np.abs(out - oracle).max() < TOL
