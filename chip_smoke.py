@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
 
 1. print the card's name and power limit (nvidia-smi);
 2. build the four CUDA kernels from `src/repro_torch/csrc` with nvcc (one
-   process per source, started together) and print the build seconds and
-   the ptxas report;
+   process per source, started together) and print the build seconds and,
+   for every kernel instantiation, ptxas's registers, stack and spill (a
+   stack frame or a spill fails the run);
 3. hold each kernel against its plain PyTorch version on the card over a
    shape sweep plus the main path's shapes: fp32 and bf16, ragged lengths,
    an all-zero slot, window and softcap; for the paged kernels also int8,
@@ -18,7 +19,11 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    single-query paged kernel; the slot kernel also bitwise against the
    paged kernel over an identity block table (lengths up to 1600), and the
    score kernel at B = 1 with T tails off its 64-key tile and W*G from 32
-   to 256 (tolerances stated at each check);
+   to 256 (tolerances stated at each check); then the paged kernels'
+   bitwise contracts: every query of the multi-query kernel equals the
+   single-query kernel at its causal length and q_pos + i (Q 1 to 40, the
+   query chunks included), and both kernels are unchanged on pools whose
+   blocks are relabelled through the table;
 4. check the port's CUDA path against its own CPU path on minitron-8b smoke
    (same weights, fp32): identical tokens and lengths, close logits; then
    speculative `run_trace` (full-depth and 1-layer drafts) against the
@@ -116,7 +121,55 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+def ptxas_summary(report: str):
+    """[(kernel function, registers, stack bytes, spill store bytes, spill
+    load bytes)] from an ``nvcc -Xptxas -v`` report, names demangled with
+    cu++filt where the toolkit has it."""
+    import re
+    import shutil
+    rows, name, props = [], None, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, props = m.group(1), None
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and name:
+            props = tuple(int(x) for x in m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            rows.append((name, int(m.group(1)), *(props or (0, 0, 0))))
+            name = None
+    filt = shutil.which("cu++filt") or "/usr/local/cuda/bin/cu++filt"
+    if rows and Path(filt).exists():
+        out = subprocess.run([filt], input="\n".join(r[0] for r in rows), text=True,
+                             capture_output=True, timeout=60).stdout.splitlines()
+        if len(out) == len(rows):
+            rows = [(_short_name(o), *r[1:]) for o, r in zip(out, rows)]
+    return rows
+
+
+def _short_name(demangled: str) -> str:
+    """`void ns::(anonymous namespace)::kern<float, 4, true, float const*, ...>(float
+    const*, ...)` -> `kern<float, 4, true>`."""
+    name = demangled.replace("(anonymous namespace)::", "").replace("<unnamed>::", "")
+    name = name.removeprefix("void ")
+    end = name.find(">(")
+    name = name[:end + 1] if end >= 0 else name.split("(")[0]
+    head, lt, tail = name.partition("<")
+    if lt:  # drop a trailing pack of parameter types: kern<float, 4, true, float const*, ...>
+        args = tail[:-1].split(", ")
+        n = next((i for i, a in enumerate(args) if "*" in a), len(args))
+        tail = ", ".join(args[:n]) + ">"
+    return head.split("::")[-1] + lt + tail
+
+
 def build_kernels():
+    """Build every kernel library (one nvcc per source, in parallel) and
+    print the build time and, per kernel instantiation, ptxas's registers,
+    stack and spill; fails if any instantiation spills or uses a stack."""
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     reports = build.build()
@@ -124,9 +177,18 @@ def build_kernels():
     log(f"[build] {len(reports)} kernel libraries built in {dt:.1f} s "
         f"(sources: {', '.join(build.KERNELS)})")
     for name, rep in reports.items():
-        for line in rep.splitlines():
-            if "Used" in line or "spill" in line:
-                log(f"[ptxas {name}] {line.strip()}")
+        rows = ptxas_summary(rep)
+        for fn, regs, stack, st, ld in rows:
+            log(f"[ptxas {name}] {fn}: {regs} registers, {stack} B stack, "
+                f"{st}/{ld} B spill stores/loads")
+        if rows:
+            log(f"[ptxas {name}] {len(rows)} instantiations: registers "
+                f"{min(r[1] for r in rows)}-{max(r[1] for r in rows)}, max stack "
+                f"{max(r[2] for r in rows)} B, max spill {max(r[3] + r[4] for r in rows)} B")
+        bad = [r for r in rows if r[2] or r[3] or r[4]]
+        if bad:
+            fail(f"{name}: ptxas reports stack or spill in {len(bad)} instantiations "
+                 f"(first: {bad[0]})")
     for name in build.KERNELS:
         build.load(name)
 
@@ -407,6 +469,93 @@ def check_paged_mq():
         f"outputs, {FP32_TOL:g} + {BF16_ULP:g}|plain| with bf16); {n_bitwise} Q = 1 cases "
         f"bitwise equal to paged_fairkv_decode_cuda; max abs err by (pools, q): "
         + ", ".join(f"{p}/{q} {e:.3e}" for (p, q), e in sorted(worst.items())))
+
+
+def _single_per_query(q, kp, vp, pp, tbl, ln, C, cap, qpos, window, q_lens, kw):
+    """paged_fairkv_decode_cuda once per query i of a 5-D q, at the query's
+    causal lengths and q_pos + i: what the multi-query kernel's query i
+    must equal bitwise."""
+    import torch
+    from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
+    from repro_torch.paging.testing import query_lengths
+    return torch.stack([paged_fairkv_decode_cuda(q[:, :, i].contiguous(), kp, vp, pp, tbl,
+                                                 query_lengths(ln, q_lens, i), C, cap,
+                                                 q_pos=qpos + i, window=window, **kw)
+                        for i in range(q.shape[2])], dim=2)
+
+
+def check_paged_contracts():
+    """The bitwise contracts of the paged kernels on the card, with zero
+    mismatches allowed:
+
+    - query i of paged_fairkv_decode_mq equals paged_fairkv_decode at
+      lengths min(len - (qn - 1 - i), len) clamped at 0 and q_pos + i, for
+      fp32 / bf16 / int8 / fp8 / mixed pools, with and without window and
+      softcap, at Q from 1 to 40 (queries split into chunks: G = 1 at
+      Q = 9 and 40, G = 2 at Q = 7) and at the main path's shape;
+    - both kernels on pools whose blocks are relabelled, through the
+      remapped table, equal their output on the original layer."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_fairkv_decode import (paged_fairkv_decode_cuda,
+                                                         paged_fairkv_decode_mq_cuda)
+    from repro_torch.paging.testing import relabel_pool_blocks
+    rng = np.random.default_rng(SEED + 3)
+    C_main = int(round(ALPHA * BUDGET)) + MARGIN
+    shapes = [(3, 2, 1, 64, 96, 16, (1, 5, 9, 40)), (4, 3, 4, 32, 200, 8, (3, 5)),
+              (2, 2, 8, 64, 64, 32, (5,)), (2, 3, 2, 128, 300, 16, (7,)),
+              (N_SHARDS * SLOTS_PER_SHARD, B, 4, 128, C_main, BLOCK, (5,))]
+    n_query = n_perm = 0
+    for (S, Bq, G, Dh, C, bs, Qs) in shapes:
+        for mode in ("fp32", "bf16", "int8", "fp8", "mixed"):
+            for window, cap in ((0, 0.0), (C // 3, 30.0)):
+                q_dt = (torch.bfloat16 if mode == "bf16" or (mode != "fp32" and window)
+                        else torch.float32)
+                kp, vp, pp, tbl, ln, kw = _paged_case(rng, mode, S, Bq, C, bs, Dh)
+                qpos = torch.full((Bq,), C + 7, dtype=torch.int32, device="cuda")
+                perm = None
+                for Q in Qs:
+                    tag = (f"paged contracts {mode} q={q_dt} Q={Q} {(S, Bq, G, Dh, C, bs)} "
+                           f"w={window} cap={cap}")
+                    q = torch.from_numpy(rng.normal(size=(Bq, S, Q, G, Dh)).astype(
+                        np.float32)).to("cuda", q_dt)
+                    q_lens = torch.from_numpy(rng.integers(1, Q + 1, size=Bq).astype(
+                        np.int32)).to("cuda")
+                    q_lens[0] = Q
+                    args = (q, kp, vp, pp, tbl, ln, C, cap)
+                    out = paged_fairkv_decode_mq_cuda(*args, q_pos=qpos, window=window,
+                                                      q_lens=q_lens, **kw)
+                    single = _single_per_query(q, kp, vp, pp, tbl, ln, C, cap, qpos, window,
+                                               q_lens, kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, single):
+                        bad = (out != single).flatten(3).any(-1).nonzero()[0].tolist()
+                        fail(f"{tag}: query {bad[2]} of (b, s) = {tuple(bad[:2])} differs from "
+                             f"paged_fairkv_decode at its causal length and position")
+                    n_query += 1
+                    if Q in (1, 5) and mode in ("fp32", "bf16", "int8", "mixed"):
+                        if perm is None:
+                            keys = [k for k in ("k_scale", "v_scale") if k in kw]
+                            *layer, scales = relabel_pool_blocks(
+                                kp, vp, pp, tbl, [kw[k] for k in keys], seed=SEED + n_perm)
+                            perm = (*layer, dict(kw, **dict(zip(keys, scales))))
+                        kp2, vp2, pp2, tbl2, kw2 = perm
+                        out2 = paged_fairkv_decode_mq_cuda(q, kp2, vp2, pp2, tbl2, ln, C, cap,
+                                                           q_pos=qpos, window=window,
+                                                           q_lens=q_lens, **kw2)
+                        q3 = q[:, :, -1].contiguous()
+                        one = paged_fairkv_decode_cuda(q3, kp, vp, pp, tbl, ln, C, cap,
+                                                       q_pos=qpos, window=window, **kw)
+                        one2 = paged_fairkv_decode_cuda(q3, kp2, vp2, pp2, tbl2, ln, C, cap,
+                                                        q_pos=qpos, window=window, **kw2)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(out, out2) and torch.equal(one, one2)):
+                            fail(f"{tag}: the kernels differ on relabelled pool blocks")
+                        n_perm += 1
+    log(f"[check] paged contracts: {n_query} multi-query cases, every query bitwise equal to "
+        f"paged_fairkv_decode at its causal length and position (Q 1 to 40, G 1 to 8, all pool "
+        f"kinds, window and softcap); {n_perm} cases of both kernels bitwise unchanged on "
+        f"relabelled pool blocks")
 
 
 # ---------------------------------------------------------------------------
@@ -1429,6 +1578,7 @@ def main() -> int:
     check_scores(gen)
     check_paged()
     check_paged_mq()
+    check_paged_contracts()
     smoke_parity()
     smoke_spec_parity()
     engine, launches, ctx = main_path()

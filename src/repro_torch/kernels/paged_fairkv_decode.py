@@ -1,27 +1,29 @@
 """paged_fairkv_decode: decode attention over block pools through a block
 table, with int8 / fp8 pools dequantized in the loop.
 
-Two hand-written Hopper kernels, one per query shape:
+One hand-written Hopper kernel body (``csrc/paged_decode.cuh``) behind two
+entry points, one per query shape:
 
-- ``paged_fairkv_decode_cuda`` (4-D q, one query per row) launches
-  ``csrc/paged_fairkv_decode.cu``, the port of the TPU kernel
-  ``repro.kernels.paged_fairkv_decode.paged_fairkv_decode_pallas``;
+- ``paged_fairkv_decode_cuda`` (4-D q, one query per row) launches its
+  Q = 1 instantiation, ``csrc/paged_fairkv_decode.cu``, the port of the TPU
+  kernel ``repro.kernels.paged_fairkv_decode.paged_fairkv_decode_pallas``;
 - ``paged_fairkv_decode_mq_cuda`` (5-D q, the Q queries of a speculative
   verify window per row, ragged ``q_lens``) launches
   ``csrc/paged_fairkv_decode_mq.cu``, the port of ``_paged_decode_pallas_mq``.
 
 Their plain version is `repro_torch.kernels.ref.paged_fairkv_decode_ref`,
-which the CPU path runs and the card is checked against.  The sources note
-each kernel's design and what bounds it.
+which the CPU path runs and the card is checked against.  The header notes
+the kernel's design and what bounds it.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.fairkv_decode import _buffer
 
 NAME = "paged_fairkv_decode"
 NAME_MQ = "paged_fairkv_decode_mq"
@@ -31,14 +33,35 @@ GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head the kernels are built for
 MAX_HEAD_DIM = 128
 MAX_QUERY_ROWS = 40  # Q * G the multi-query kernel is built for
 
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
-def _launcher(name: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
-    lib = build.load(name)
-    fn = getattr(lib, f"{name}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints
-                   + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+def _launcher(name: str) -> ctypes.CDLL:
+    """Kernel ``name``'s library, built and loaded at first use, with its C
+    signatures declared."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = build.load(name)
+        mq = name == NAME_MQ
+        fn = getattr(lib, f"{name}_launch")
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * (14 if mq else 13) + [ctypes.c_int] * (8 if mq else 7)
+                       + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        scratch = getattr(lib, f"{name}_scratch_floats")
+        scratch.restype = ctypes.c_longlong
+        scratch.argtypes = [ctypes.c_int] * (5 if mq else 4)
+        if mq:
+            lib.paged_fairkv_decode_mq_counters.restype = ctypes.c_int
+            lib.paged_fairkv_decode_mq_counters.argtypes = [ctypes.c_int] * 3
+        _LIBS[name] = lib
     return lib
+
+
+# Per device, the merge's scratch and its per-(slot, row, query chunk)
+# arrival counters (zero before a launch; the launch leaves them zero).
+# Launches on one stream run in order, so both kernels share them.
+_SCRATCH: Dict[torch.device, torch.Tensor] = {}
+_COUNTERS: Dict[torch.device, torch.Tensor] = {}
 
 
 def _require(ok: bool, msg: str, name: str = NAME) -> None:
@@ -123,21 +146,8 @@ def paged_fairkv_decode_cuda(
     _require(q.dim() == 4, f"q must be (B, S, G, Dh), got {tuple(q.shape)}")
     _check(NAME, q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
            q_pos, window, k_scale, v_scale, kinds)
-    B, S, G, Dh = q.shape
-    quant = k_scale is not None
-    out = torch.empty_like(q)
-    lib = _launcher(NAME, 11, 6)
-    err = lib.paged_fairkv_decode_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pos_pool.data_ptr(),
-        block_table.data_ptr(), lengths.data_ptr(),
-        _ptr(q_pos) if window > 0 else None,
-        _ptr(k_scale), _ptr(v_scale), _ptr(kinds) if quant else None,
-        out.data_ptr(), B, S, G, block_table.shape[2], k_pool.shape[1], Dh,
-        float(attn_cap), int(window), _Q_DTYPES[q.dtype],
-        _POOL_DTYPES[k_pool.dtype], _stream(q))
-    build.check(lib, NAME, err)
-    build.LAUNCHES[NAME] += 1
-    return out
+    return _launch(NAME, q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
+                   attn_cap, q_pos, window, k_scale, v_scale, kinds, None)
 
 
 def paged_fairkv_decode_mq_cuda(
@@ -168,17 +178,37 @@ def paged_fairkv_decode_mq_cuda(
         _require(q_lens.shape == (B,) and q_lens.dtype == torch.int32
                  and q_lens.device == q.device and q_lens.is_contiguous(),
                  "q_lens must be (B,) int32 on q's device", NAME_MQ)
+    return _launch(NAME_MQ, q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
+                   attn_cap, q_pos, window, k_scale, v_scale, kinds, q_lens)
+
+
+def _launch(name, q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
+            attn_cap, q_pos, window, k_scale, v_scale, kinds, q_lens):
+    """One launch of kernel ``name`` on validated operands; returns the
+    output in q's shape and dtype."""
+    lib = _launcher(name)
+    mq = name == NAME_MQ
+    B, S, Dh = q.shape[0], q.shape[1], q.shape[-1]
+    G = q.shape[-2]
+    Q = q.shape[2] if mq else 1
+    if mq:
+        n_scratch = lib.paged_fairkv_decode_mq_scratch_floats(B, S, Q, G, Dh)
+        n_counters = lib.paged_fairkv_decode_mq_counters(B, S, Q)
+    else:
+        n_scratch = lib.paged_fairkv_decode_scratch_floats(B, S, G, Dh)
+        n_counters = S * B
+    scratch = _buffer(_SCRATCH, q.device, n_scratch, torch.float32)
+    counters = _buffer(_COUNTERS, q.device, n_counters, torch.int32)
     quant = k_scale is not None
     out = torch.empty_like(q)
-    lib = _launcher(NAME_MQ, 12, 7)
-    err = lib.paged_fairkv_decode_mq_launch(
-        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), pos_pool.data_ptr(),
-        block_table.data_ptr(), lengths.data_ptr(),
-        _ptr(q_pos) if window > 0 else None, _ptr(q_lens),
-        _ptr(k_scale), _ptr(v_scale), _ptr(kinds) if quant else None,
-        out.data_ptr(), B, S, Q, G, block_table.shape[2], k_pool.shape[1], Dh,
-        float(attn_cap), int(window), _Q_DTYPES[q.dtype],
+    ptrs = ([q, k_pool, v_pool, pos_pool, block_table, lengths,
+             q_pos if window > 0 else None] + ([q_lens] if mq else [])
+            + [k_scale, v_scale, kinds if quant else None, out, scratch, counters])
+    ints = [B, S] + ([Q] if mq else []) + [G, block_table.shape[2], k_pool.shape[1], Dh,
+                                           int(capacity)]
+    err = getattr(lib, f"{name}_launch")(
+        *map(_ptr, ptrs), *ints, float(attn_cap), int(window), _Q_DTYPES[q.dtype],
         _POOL_DTYPES[k_pool.dtype], _stream(q))
-    build.check(lib, NAME_MQ, err)
-    build.LAUNCHES[NAME_MQ] += 1
+    build.check(lib, name, err)
+    build.LAUNCHES[name] += 1
     return out

@@ -7,8 +7,10 @@ valid column does not overwrite left as garbage (a missing mask shows as a
 mismatch, not as silent zeros), absolute positions written per column.
 The draws from the numpy generator follow the reference fixture's order,
 so one seed gives both packages the same layer.  Used by the CPU tests and
-by ``chip_smoke.py``, as is `slot_layer_as_pool`, which lays a slot cache
-out as pools so the slot and paged kernels can be held to each other.
+by ``chip_smoke.py``, as are `slot_layer_as_pool`, which lays a slot cache
+out as pools so the slot and paged kernels can be held to each other, and
+`relabel_pool_blocks` and `query_lengths`, which set up the paged
+kernels' other bitwise contracts.
 """
 from __future__ import annotations
 
@@ -102,3 +104,29 @@ def slot_layer_as_pool(k: torch.Tensor, v: torch.Tensor, k_pos: torch.Tensor, bs
 
     table = 1 + torch.arange(n, dtype=torch.int32, device=k.device).reshape(S, B, M)
     return blocks(k), blocks(v), blocks(k_pos), table
+
+
+def relabel_pool_blocks(k_pool, v_pool, pos_pool, block_table, scales=(), seed=0):
+    """The same layer with pool blocks 1.. relabelled by a seeded
+    permutation (block 0, the null block, stays) and the table remapped:
+    a decode over it must give bitwise the original output.  ``scales``
+    are (N,) per-block tensors relabelled with the blocks.  Returns
+    (k_pool, v_pool, pos_pool, block_table, scales)."""
+    N = k_pool.shape[0]
+    g = torch.Generator().manual_seed(seed)
+    perm = torch.cat([torch.zeros(1, dtype=torch.long),
+                      1 + torch.randperm(N - 1, generator=g)]).to(k_pool.device)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(N, device=perm.device)  # new block of old block j: inv[j]
+    table = torch.where(block_table > 0, inv[block_table.long().clamp(min=0)].to(torch.int32),
+                        block_table).contiguous()
+    return (k_pool[perm].contiguous(), v_pool[perm].contiguous(), pos_pool[perm].contiguous(),
+            table, tuple(x[perm].contiguous() for x in scales))
+
+
+def query_lengths(lengths: torch.Tensor, q_lens: torch.Tensor, i: int) -> torch.Tensor:
+    """(S, B) int32 columns query ``i`` of a multi-query decode sees, the
+    lengths the single-query decode is run at to reproduce it:
+    min(len - (q_lens - 1 - i), len), clamped at 0."""
+    lim = torch.clamp(lengths.long() - (q_lens.long()[None, :] - 1 - i), min=0)
+    return torch.minimum(lim, lengths.long()).to(torch.int32).contiguous()

@@ -9,7 +9,11 @@ paged kernel to the reference's own bars for its TPU kernel, 1e-5 with
 fp32 outputs and 0.03 with bf16 outputs; the multi-query paged kernel to
 1e-4 with fp32 outputs and one bf16 step with bf16 outputs, and bitwise to
 the single-query kernel at Q = 1.  The slot kernel is also held bitwise
-to the paged kernel over an identity block table.
+to the paged kernel over an identity block table.  The paged kernels share
+one body: every query of the multi-query kernel is held bitwise to the
+single-query kernel at its causal length and position (all pool kinds,
+window and softcap, query chunks, lengths up to 1600 at block sizes 8, 16
+and 32), and both kernels bitwise to themselves on relabelled pool blocks.
 """
 import numpy as np
 import pytest
@@ -21,7 +25,8 @@ from repro_torch.api import (CompressionConfig, Engine, EngineConfig, PagingConf
 from repro_torch.kernels import build
 from repro_torch.kernels.ref import (fairkv_decode_ref, paged_fairkv_decode_ref,
                                      snapkv_scores_ref)
-from repro_torch.paging.testing import make_paged_layer, quantize_paged_layer
+from repro_torch.paging.testing import (make_paged_layer, quantize_paged_layer, query_lengths,
+                                        relabel_pool_blocks)
 
 pytestmark = pytest.mark.cuda
 
@@ -228,6 +233,147 @@ def test_paged_fairkv_decode_mq_kernel(gen, mode, Q, S, B, G, Dh, C, bs, window,
         single = paged_fairkv_decode_cuda(q[:, :, 0].contiguous(), kp, vp, pp, tbl, ln, C,
                                           cap, q_pos=qpos, window=window, **kw)
         assert torch.equal(single, out[:, :, 0])
+
+
+def _quant_layer(rng, mode, S, B, C, bs, Dh, lengths=None):
+    """A paged layer for the card checks: pools in ``mode`` (fp32, bf16, or
+    int8 / fp8 / mixed codes with their scales and kinds) and q's dtype."""
+    pool_dt = torch.bfloat16 if mode == "bf16" else torch.float32
+    q_dt = torch.bfloat16 if mode in ("bf16", "mixed") else torch.float32
+    kp, vp, pp, tbl, ln = make_paged_layer(rng, S, B, C, bs, Dh, dtype=pool_dt,
+                                           lengths=lengths, device="cuda")
+    kw = {}
+    if mode in ("int8", "fp8", "mixed"):
+        kinds = {"int8": np.zeros(S), "fp8": np.ones(S), "mixed": np.arange(S) % 2}[mode]
+        kinds = torch.from_numpy(kinds.astype(np.int32)).cuda()
+        kp, vp, ks, vs = quantize_paged_layer(kp, vp, tbl, kinds)
+        kw = dict(k_scale=ks, v_scale=vs, kinds=kinds)
+    return kp, vp, pp, tbl, ln, kw, q_dt
+
+
+def _single_per_query(q, kp, vp, pp, tbl, ln, C, cap, qpos, window, q_lens, kw):
+    """Kernel 3 run once per query i of a 5-D q, at the query's causal
+    lengths and q_pos + i."""
+    from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
+    return torch.stack([paged_fairkv_decode_cuda(q[:, :, i].contiguous(), kp, vp, pp, tbl,
+                                                 query_lengths(ln, q_lens, i), C, cap,
+                                                 q_pos=qpos + i, window=window, **kw)
+                        for i in range(q.shape[2])], dim=2)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8", "fp8", "mixed"])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (60, 0.0), (0, 30.0), (60, 30.0)])
+def test_paged_fairkv_decode_mq_query_is_single_query(gen, mode, window, cap):
+    """Query i of the multi-query kernel is, bitwise, the single-query
+    kernel at the query's causal length and position."""
+    from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_mq_cuda
+    S, B, G, Dh, C, bs, Q = 4, 3, 4, 128, 200, 16, 5
+    rng = np.random.default_rng(70)
+    kp, vp, pp, tbl, ln, kw, q_dt = _quant_layer(rng, mode, S, B, C, bs, Dh)
+    q = torch.from_numpy(rng.normal(size=(B, S, Q, G, Dh)).astype(np.float32)).to("cuda", q_dt)
+    q_lens = torch.tensor([5, 2, 4], dtype=torch.int32, device="cuda")
+    qpos = torch.full((B,), C + 7, dtype=torch.int32, device="cuda")
+    out = paged_fairkv_decode_mq_cuda(q, kp, vp, pp, tbl, ln, C, cap, q_pos=qpos,
+                                      window=window, q_lens=q_lens, **kw)
+    single = _single_per_query(q, kp, vp, pp, tbl, ln, C, cap, qpos, window, q_lens, kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out, single)
+
+
+def _permute(kp, vp, pp, tbl, kw, seed):
+    keys = [k for k in ("k_scale", "v_scale") if k in kw]
+    *layer, scales = relabel_pool_blocks(kp, vp, pp, tbl, [kw[k] for k in keys], seed=seed)
+    return (*layer, dict(kw, **dict(zip(keys, scales))))
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "mixed"])
+@pytest.mark.parametrize("Q", [1, 5])
+def test_paged_kernels_permuted_pools(gen, mode, Q):
+    """Kernels 3 and 4 on pools whose blocks are relabelled, through the
+    remapped table, give bitwise the output of the original layer."""
+    from repro_torch.kernels.paged_fairkv_decode import (paged_fairkv_decode_cuda,
+                                                         paged_fairkv_decode_mq_cuda)
+    S, B, G, Dh, C, bs = 16, 8, 4, 128, 576, 16
+    rng = np.random.default_rng(71 + Q)
+    kp, vp, pp, tbl, ln, kw, q_dt = _quant_layer(rng, mode, S, B, C, bs, Dh)
+    kp2, vp2, pp2, tbl2, kw2 = _permute(kp, vp, pp, tbl, kw, 72)
+    qpos = torch.full((B,), C + 7, dtype=torch.int32, device="cuda")
+    q = torch.from_numpy(rng.normal(size=(B, S, Q, G, Dh)).astype(np.float32)).to("cuda", q_dt)
+    q_lens = torch.from_numpy(rng.integers(1, Q + 1, size=B).astype(np.int32)).cuda()
+    for window, cap in ((0, 0.0), (C // 3, 30.0)):
+        a = paged_fairkv_decode_mq_cuda(q, kp, vp, pp, tbl, ln, C, cap, q_pos=qpos,
+                                        window=window, q_lens=q_lens, **kw)
+        b = paged_fairkv_decode_mq_cuda(q, kp2, vp2, pp2, tbl2, ln, C, cap, q_pos=qpos,
+                                        window=window, q_lens=q_lens, **kw2)
+        q3 = q[:, :, -1].contiguous()
+        c = paged_fairkv_decode_cuda(q3, kp, vp, pp, tbl, ln, C, cap, q_pos=qpos,
+                                     window=window, **kw)
+        d = paged_fairkv_decode_cuda(q3, kp2, vp2, pp2, tbl2, ln, C, cap, q_pos=qpos,
+                                     window=window, **kw2)
+        torch.cuda.synchronize()
+        assert not torch.equal(tbl, tbl2)
+        assert torch.equal(a, b) and torch.equal(c, d)
+
+
+@pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
+@pytest.mark.parametrize("G,Q", [(1, 9), (1, 40), (8, 5), (2, 7)])
+def test_paged_fairkv_decode_mq_query_chunks(gen, mode, G, Q):
+    """Shapes whose queries split over several chunks of the grid (and the
+    widest tile, G = 8 at Q = 5): within the plain version's tolerance, and
+    every query bitwise equal to the single-query kernel."""
+    from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_mq_cuda
+    S, B, Dh, C, bs = 3, 4, 64, 300, 16
+    rng = np.random.default_rng(73 + G * 100 + Q)
+    kp, vp, pp, tbl, ln, kw, q_dt = _quant_layer(rng, mode, S, B, C, bs, Dh)
+    q = torch.from_numpy(rng.normal(size=(B, S, Q, G, Dh)).astype(np.float32)).to("cuda", q_dt)
+    q_lens = torch.from_numpy(rng.integers(1, Q + 1, size=B).astype(np.int32)).cuda()
+    q_lens[0] = Q
+    qpos = torch.full((B,), C + 7, dtype=torch.int32, device="cuda")
+    for window, cap in ((0, 0.0), (C // 3, 30.0)):
+        args = (q, kp, vp, pp, tbl, ln, C, cap)
+        out = paged_fairkv_decode_mq_cuda(*args, q_pos=qpos, window=window, q_lens=q_lens, **kw)
+        ref = paged_fairkv_decode_ref(*args, q_pos=qpos, window=window, q_lens=q_lens, **kw)
+        single = _single_per_query(q, kp, vp, pp, tbl, ln, C, cap, qpos, window, q_lens, kw)
+        torch.cuda.synchronize()
+        rel = 0.0 if q_dt == torch.float32 else 2.0 ** -7
+        err = (out.float() - ref.float()).abs()
+        assert bool((err <= 1e-4 + rel * ref.float().abs()).all())
+        assert torch.equal(out, single)
+
+
+@pytest.mark.parametrize("mode", ["bf16", "int8", "fp8"])
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_kernels_many_ring_stages(gen, mode, bs):
+    """Lengths up to 1600 (up to 50 ring stages per block at G = 1, 13 at
+    G = 4): both kernels within the plain version's tolerance, kernel 4's
+    queries bitwise equal to kernel 3."""
+    from repro_torch.kernels.paged_fairkv_decode import (paged_fairkv_decode_cuda,
+                                                         paged_fairkv_decode_mq_cuda)
+    C = 1600
+    lengths = np.array([[1, 7, 32, 33, 128], [129, 577, 1000, 1599, 1600]], np.int32)
+    S, B = lengths.shape
+    for G, Dh in ((1, 128), (4, 128)):
+        rng = np.random.default_rng(74 + bs + G)
+        kp, vp, pp, tbl, ln, kw, q_dt = _quant_layer(rng, mode, S, B, C, bs, Dh, lengths)
+        q = torch.from_numpy(rng.normal(size=(B, S, 3, G, Dh)).astype(np.float32)).to(
+            "cuda", q_dt)
+        q_lens = torch.full((B,), 3, dtype=torch.int32, device="cuda")
+        qpos = torch.full((B,), C + 7, dtype=torch.int32, device="cuda")
+        for window, cap in ((0, 0.0), (500, 30.0)):
+            args = (q, kp, vp, pp, tbl, ln, C, cap)
+            out = paged_fairkv_decode_mq_cuda(*args, q_pos=qpos, window=window,
+                                              q_lens=q_lens, **kw)
+            ref = paged_fairkv_decode_ref(*args, q_pos=qpos, window=window, q_lens=q_lens,
+                                          **kw)
+            one = paged_fairkv_decode_cuda(q[:, :, -1].contiguous(), kp, vp, pp, tbl, ln, C,
+                                           cap, q_pos=qpos + 2, window=window, **kw)
+            single = _single_per_query(q, kp, vp, pp, tbl, ln, C, cap, qpos, window,
+                                       q_lens, kw)
+            torch.cuda.synchronize()
+            rel = 0.0 if q_dt == torch.float32 else 2.0 ** -7
+            err = (out.float() - ref.float()).abs()
+            assert bool((err <= 1e-4 + rel * ref.float().abs()).all())
+            assert torch.equal(out, single) and torch.equal(one, out[:, :, -1])
 
 
 def test_spec_run_trace_cuda_matches_cpu(gen):

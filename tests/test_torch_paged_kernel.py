@@ -18,6 +18,11 @@ Pallas mq kernel in interpret mode: Q in {1, 3, 5}, G in {1, 4}, fp32 /
 int8 / fp8 / mixed kinds, window, softcap, null-block tables and partial
 last blocks; queries with no visible entry give exact zeros, and Q = 1
 equals the 4-D path exactly.
+
+Two contracts the card's bitwise checks rely on are pinned in the plain
+versions of both packages: query i of the 5-D form is the 4-D form at the
+query's causal length and position, and relabelling pool blocks (the
+table remapped) changes no bit.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -32,6 +37,7 @@ from repro_torch.kernels import build, ops
 from repro_torch.kernels.ref import paged_fairkv_decode_ref as tref
 from repro_torch.paging.testing import make_paged_layer as tmake
 from repro_torch.paging.testing import quantize_paged_layer as tquant
+from repro_torch.paging.testing import query_lengths, relabel_pool_blocks
 
 from tests._hypothesis_compat import given, settings, st
 
@@ -245,6 +251,103 @@ def test_paged_ref_mq_q1_equals_4d():
        bs=st.sampled_from([2, 8, 16, 32]), seed=st.integers(0, 10))
 def test_paged_ref_mq_ragged(S, B, Q, G, C, bs, seed):
     assert _compare_mq(seed, S, B, Q, G, 32, max(C, Q), bs) < TOL
+
+
+# ---------------------------------------------------------------------------
+# the contracts the card's bitwise checks rely on, pinned in the plain
+# versions of both packages
+# ---------------------------------------------------------------------------
+
+
+def _mq_layer(seed, S, B, Q, G, Dh, C, bs, kinds):
+    """One layer in both packages (lengths >= Q, ragged q_lens) with a 5-D
+    q; ``kinds`` quantizes the pools.  Returns (jax args, jax kw, port
+    args, port kw, q_lens, lengths)."""
+    rng = np.random.default_rng(seed + 200)
+    lengths = rng.integers(Q, C + 1, size=(S, B)).astype(np.int32)
+    q_lens = rng.integers(1, Q + 1, size=(B,)).astype(np.int32)
+    (jk, jv, jp, jt, jl), (tk, tv, tp, tt, tl) = _layers(seed, S, B, C, bs, Dh, lengths)
+    jkw, tkw = {}, {}
+    if kinds is not None:
+        kinds = np.broadcast_to(np.asarray(kinds, np.int32), (S,)).copy()
+        jk, jv, jks, jvs = jquant(jk, jv, jt, jnp.asarray(kinds))
+        tk, tv, tks, tvs = tquant(tk, tv, tt, torch.from_numpy(kinds))
+        jkw = dict(k_scale=jks, v_scale=jvs, kinds=jnp.asarray(kinds))
+        tkw = dict(k_scale=tks, v_scale=tvs, kinds=torch.from_numpy(kinds))
+    q = rng.normal(size=(B, S, Q, G, Dh)).astype(np.float32)
+    return (q, jk, jv, jp, jt), jkw, (q, tk, tv, tp, tt), tkw, q_lens, lengths
+
+
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (40, 30.0)])
+@pytest.mark.parametrize("kinds", [None, 0, 1, [0, 1, 0]],
+                         ids=["fp32", "int8", "fp8", "mixed"])
+def test_paged_ref_mq_query_is_single_query(kinds, window, cap):
+    """Query i of the 5-D form is, bitwise, the 4-D form at lengths
+    min(len - (qn - 1 - i), len) clamped at 0 and q_pos + i, in the port
+    and in the JAX package (the multi-query kernel is held to the
+    single-query one this way on the card); the two packages agree within
+    TOL."""
+    S, B, Q, G, Dh, C, bs = 3, 2, 5, 4, 32, 96, 16
+    (q, jk, jv, jp, jt), jkw, (_, tk, tv, tp, tt), tkw, q_lens, lengths = _mq_layer(
+        60, S, B, Q, G, Dh, C, bs, kinds)
+    qpos = np.full((B,), C + 7, np.int32)
+    jout = np.asarray(jref(jnp.asarray(q), jk, jv, jp, jt, jnp.asarray(lengths), C, cap,
+                           q_pos=jnp.asarray(qpos), window=window,
+                           q_lens=jnp.asarray(q_lens), **jkw))
+    tout = tref(torch.from_numpy(q), tk, tv, tp, tt, torch.from_numpy(lengths), C, cap,
+                q_pos=torch.from_numpy(qpos), window=window,
+                q_lens=torch.from_numpy(q_lens), **tkw).numpy()
+    assert np.abs(tout - jout).max() < TOL
+    for i in range(Q):
+        lim = query_lengths(torch.from_numpy(lengths), torch.from_numpy(q_lens), i).numpy()
+        qi = np.ascontiguousarray(q[:, :, i])
+        j1 = np.asarray(jref(jnp.asarray(qi), jk, jv, jp, jt, jnp.asarray(lim), C, cap,
+                             q_pos=jnp.asarray(qpos + i), window=window, **jkw))
+        t1 = tref(torch.from_numpy(qi), tk, tv, tp, tt, torch.from_numpy(lim), C, cap,
+                  q_pos=torch.from_numpy(qpos + i), window=window, **tkw).numpy()
+        assert np.array_equal(j1, jout[:, :, i])
+        assert np.array_equal(t1, tout[:, :, i])
+
+
+@pytest.mark.parametrize("mq", [False, True], ids=["single", "multi"])
+@pytest.mark.parametrize("kinds", [None, [0, 1, 0]], ids=["fp32", "mixed"])
+def test_paged_ref_permuted_pools(mq, kinds):
+    """Relabelling the pool blocks and remapping the table leaves the
+    output bitwise unchanged, in the port and in the JAX package (the card
+    holds both kernels to this); the packages agree within TOL."""
+    S, B, Q, G, Dh, C, bs = 3, 2, 3, 4, 32, 96, 16
+    (q, jk, jv, jp, jt), jkw, (_, tk, tv, tp, tt), tkw, q_lens, lengths = _mq_layer(
+        61, S, B, Q, G, Dh, C, bs, kinds)
+    if not mq:
+        q = np.ascontiguousarray(q[:, :, 0])
+    qpos = np.full((B,), C + 7, np.int32)
+    extra = dict(q_lens=q_lens) if mq else {}
+    scale_keys = ["k_scale", "v_scale"] if kinds is not None else []
+    *layer, pscales = relabel_pool_blocks(tk, tv, tp, tt, [tkw[k] for k in scale_keys], seed=62)
+    pk, pv, pp, ptab = (x.numpy() for x in layer)
+    pscales = [x.numpy() for x in pscales]
+
+    def port(k, v, p, t, scales):
+        kw = dict(tkw, **{n: torch.from_numpy(np.asarray(x)) for n, x in zip(scale_keys, scales)})
+        kw.update({n: torch.from_numpy(x) for n, x in extra.items()})
+        return tref(torch.from_numpy(q), *(torch.from_numpy(np.asarray(a)) for a in (k, v, p, t)),
+                    torch.from_numpy(lengths), C, 30.0, q_pos=torch.from_numpy(qpos),
+                    window=40, **kw).numpy()
+
+    def jax_(k, v, p, t, scales):
+        kw = dict(jkw, **{n: jnp.asarray(x) for n, x in zip(scale_keys, scales)})
+        kw.update({n: jnp.asarray(x) for n, x in extra.items()})
+        return np.asarray(jref(jnp.asarray(q), *(jnp.asarray(a) for a in (k, v, p, t)),
+                               jnp.asarray(lengths), C, 30.0, q_pos=jnp.asarray(qpos),
+                               window=40, **kw))
+
+    base = [tkw[k] for k in scale_keys]
+    t0, t1 = port(tk, tv, tp, tt, base), port(pk, pv, pp, ptab, pscales)
+    j0, j1 = jax_(jk, jv, jp, jt, [jkw[k] for k in scale_keys]), jax_(pk, pv, pp, ptab, pscales)
+    assert not np.array_equal(ptab, np.asarray(tt))
+    assert np.array_equal(t0, t1)
+    assert np.array_equal(j0, j1)
+    assert np.abs(t0 - j0).max() < TOL
 
 
 def test_ops_dispatch_cpu_runs_plain_version():
