@@ -19,8 +19,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    single-query paged kernel; the slot kernel also bitwise against the
    paged kernel over an identity block table (lengths up to 1600), and the
    score kernel at B = 1 with T tails off its 64-key tile and W*G from 32
-   to 256 (tolerances stated at each check); then the paged kernels'
-   bitwise contracts: every query of the multi-query kernel equals the
+   to 256, and at the chunked-prefill shape (B = 1, 512 keys at positions
+   from 0 to 1536, padded last chunks; tolerances stated at each check);
+   then the paged kernels' bitwise contracts: every query of the multi-query kernel equals the
    single-query kernel at its causal length and q_pos + i (Q 1 to 40, the
    query chunks included), and both kernels are unchanged on pools whose
    blocks are relabelled through the table;
@@ -52,12 +53,23 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    (e) against the bf16 run: logit gap under the bf16 bound while the
    tokens agree and every divergence a near-tie; one profiler pass over
    continuous decode ticks and one over speculative ticks;
-8. time each kernel, its plain version and the PyTorch library call where
+8. chunked prefill and prefix reuse (bf16 pools, chunks of 512 tokens,
+   8 rows) on phase 7's arrivals with prompts of 1536-2048 tokens, 75% of
+   them starting with one of two 1024-token templates: (h) policy "none",
+   chunking only, and (i) with sharing: identical tokens for all 24
+   requests, prefix hits, refcount > 1 while requests are live, fewer
+   peak blocks per layer, an empty pool after flushing the index; (j)
+   copy-on-write when a donor's ring wraps into its shared prefix, the
+   late sharer's tokens equal to an unshared engine's; (k) Ada-SnapKV
+   with sharing beside phase 7's bf16 configuration on the same trace
+   (peak blocks, TTFT, tokens/s, share of equal tokens);
+9. time each kernel, its plain version and the PyTorch library call where
    one exists on the main path's own inputs (device time from CUDA events,
    median of 25 runs after warmup, L2 flushed before each run; snapkv
-   also at B = 1) beside the least time the card could take, and print
-   them as one JSON line; the host time per call of kernels 1 and 2;
-9. last line: {"ok": true, "device": {...}}.
+   also at B = 1 and at the chunk shape) beside the least time the card
+   could take, and print them as one JSON line; the host time per call of
+   kernels 1 and 2;
+10. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -333,6 +345,53 @@ def check_scores(gen):
                 n += 1
     log(f"[check] snapkv_scores: {n} cases vs plain, max abs err {worst:.3e} "
         f"(tol {FP32_TOL:g} + 1e-5|plain|), mass W*G per (b, h) conserved")
+    check_scores_chunk(gen)
+
+
+def chunk_scores_inputs(gen, W, Hq, Hkv, Dh, Ck, start, valid, dtype):
+    """Kernel 2's inputs at the chunked-prefill shape, as `_chunk_attention`
+    builds them: B = 1, the chunk's Ck keys at absolute positions
+    start .. start + Ck - 1 (keys past ``valid`` are the padding of a last
+    chunk), and the last min(W, Ck) valid queries (indices clipped at 0,
+    so a chunk with fewer than W valid tokens repeats its first query)."""
+    import torch
+    q_all = torch.randn((1, Ck, Hq, Dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((1, Ck, Hkv, Dh), generator=gen, device="cuda").to(dtype)
+    kpos = (start + torch.arange(Ck, dtype=torch.int32, device="cuda"))[None].contiguous()
+    ix = torch.clamp(valid - W + torch.arange(W, device="cuda"), 0, Ck - 1)
+    return q_all[:, ix].contiguous(), k, kpos[:, ix].contiguous(), kpos
+
+
+def check_scores_chunk(gen):
+    """Kernel 2 at the chunked-prefill shape (B = 1, W = OBS queries, Ck =
+    CHUNK keys at positions from ``start``): full chunks at start 0 and
+    1024, a padded last chunk (valid 300 < Ck) and one with fewer valid
+    tokens than W (valid 20); against the plain version (tolerance as in
+    `check_scores`), the W*G mass kept, and the padding keys scored
+    exactly 0 (every query precedes them)."""
+    import torch
+    from repro_torch.kernels.ref import snapkv_scores_ref
+    from repro_torch.kernels.snapkv_select import snapkv_scores_cuda
+    worst, n = 0.0, 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for start, valid in ((0, CHUNK), (1024, CHUNK), (1024, 300), (1536, 20)):
+            for cap in (0.0, 50.0):
+                q, k, opos, kpos = chunk_scores_inputs(gen, OBS, 32, 8, 128, CHUNK, start,
+                                                       valid, dtype)
+                out = snapkv_scores_cuda(q, k, opos, kpos, cap)
+                ref = snapkv_scores_ref(q, k, opos, kpos, cap)
+                tag = f"snapkv_scores chunk {dtype} start={start} valid={valid} cap={cap}"
+                worst = max(worst, _cmp(tag, out, ref, FP32_TOL, 1e-5))
+                mass = out.sum(dim=-1)
+                if not torch.allclose(mass, torch.full_like(mass, OBS * 4), rtol=1e-4):
+                    fail(f"{tag}: mass per (b, h) is not W*G = {OBS * 4}")
+                if valid < CHUNK and bool((out[..., valid:] != 0).any()):
+                    fail(f"{tag}: padding keys past valid scored non-zero")
+                n += 1
+    log(f"[check] snapkv_scores at the chunk shape (B=1, W={OBS}, Hq=32, Hkv=8, Dh=128, "
+        f"T={CHUNK}, start 0 / 1024 / 1536, valid {CHUNK} / 300 / 20): {n} cases vs plain, "
+        f"max abs err {worst:.3e} (tol {FP32_TOL:g} + 1e-5|plain|), mass W*G conserved, "
+        f"padding keys exactly 0")
 
 
 def check_paged():
@@ -988,13 +1047,19 @@ def make_trace(vocab):
     return reqs
 
 
-def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False):
+def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
+                   changes=None, reqs=None):
     """One trace through `Engine.run_trace` (8 rows, replanning on with
     `SchedulerConfig`'s defaults) with the launch counters zeroed just
     before and read just after; checks that every request finished with
     all its tokens, the launch counts, and (paged) an empty, consistent
-    pool at the end.  ``spec`` (a `SpeculationConfig`) turns speculation
-    on; ``logits`` keeps each token's logits.  Returns (launches, summary)."""
+    pool at the end (after flushing the prefix index, when there is one).
+    ``spec`` (a `SpeculationConfig`) turns speculation on; ``logits``
+    keeps each token's logits; ``changes`` are further `EngineConfig`
+    fields (compression, planner, scheduler, prefix, ...) and ``reqs`` a
+    trace other than `make_trace`'s.  With sharing on, the largest block
+    refcount seen while requests are live is recorded after every tick.
+    Returns (launches, summary)."""
     import numpy as np
     import torch
     from repro_torch.api import Engine, PagingConfig, SchedulerConfig, SpeculationConfig
@@ -1002,27 +1067,45 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False):
     spec = spec or SpeculationConfig()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = ctx["cfg"].replace(
-        cache_backend=backend,
-        scheduler=SchedulerConfig(max_rows=MAX_ROWS, collect_logits=logits),
-        paging=PagingConfig(block_size=BLOCK, kv_dtype=kv, n_blocks=n_blocks),
-        speculation=spec)
+    fields = dict(cache_backend=backend,
+                  scheduler=SchedulerConfig(max_rows=MAX_ROWS, collect_logits=logits),
+                  paging=PagingConfig(block_size=BLOCK, kv_dtype=kv, n_blocks=n_blocks),
+                  speculation=spec)
+    cfg = ctx["cfg"].replace(**{**fields, **(changes or {})})
     eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
-    reqs = make_trace(m.vocab_size)
+    reqs = make_trace(m.vocab_size) if reqs is None else reqs
+    n_req = len(reqs)
+    chunk = cfg.prefix.chunk_tokens
+    if chunk and min(r.prompt_len for r in reqs) <= chunk:
+        fail(f"{name}: every prompt must be longer than one chunk ({chunk} tokens)")
+    sched = eng._ensure_scheduler()
+    max_ref = [0]
+    if sched.prefix is not None:
+        tick = sched.step
+
+        def watched():
+            ev = tick()
+            if sched.active:
+                max_ref[0] = max(max_ref[0], int(sched.backend.pool.refcount[:, 1:].max()))
+            return ev
+        sched.step = watched
     torch.cuda.reset_peak_memory_stats()
     summary, got = _count(lambda: eng.run_trace(reqs, max_steps=5000))
     ticks = summary["decode_ticks"]
-    admissions = N_REQ + summary["preemptions"]
+    admissions = n_req + summary["preemptions"]
     lat = summary["latency"]
-    sched = eng.scheduler
     step_ms = 1e3 * np.asarray(sched.step_s)
     acc = sum(1 for e in summary["replan_log"] if e["accepted"])
     rej = len(summary["replan_log"]) - acc
     in_use = summary["memory"].get("blocks_in_use", 0)
     peak_blocks = summary["memory"].get("peak_blocks_in_use_per_layer", 0)
     host_ms = {k: 1e3 * float(np.median(getattr(sched, k))) if getattr(sched, k) else None
-               for k in ("prepare_s", "propose_s", "verify_s")}
-    log(f"[cont] {name:10s} finished {summary['finished']}/{N_REQ} | tokens "
+               for k in ("prepare_s", "propose_s", "verify_s", "chunk_s")}
+    held, stats = 0, eng.prefix_stats()
+    if sched.prefix is not None:  # blocks only the index holds, then none
+        held = sched.backend.pool.blocks_in_use()
+        sched.prefix.flush()
+    log(f"[cont] {name:10s} finished {summary['finished']}/{n_req} | tokens "
         f"{summary['generated_tokens']} | steps {summary['steps']} (decode ticks {ticks}) | "
         f"preemptions {summary['preemptions']} | replans accepted {acc} rejected {rej} | "
         f"step median {np.median(step_ms):.2f} ms p90 {np.percentile(step_ms, 90):.2f} ms | "
@@ -1031,13 +1114,18 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False):
         f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
         + (f"pool {n_blocks or 'worst-case'} blocks/layer, peak in use {peak_blocks}/layer, "
            f"in use at the end {in_use} | " if backend == "paged" else "")
+        + (f"chunks {len(sched.chunk_s)} of {chunk} tokens, host ms median "
+           f"{host_ms['chunk_s']:.2f} | cow copies {sched.backend.cow_copies} | "
+           if chunk else "")
+        + (f"prefix index {stats}, max refcount while live {max_ref[0]}, "
+           f"{held} blocks held by the index at the end | " if stats else "")
         + (f"acceptance {summary['acceptance']:.4f} ({summary['spec_accepted']}/"
            f"{summary['spec_proposed']}) | host ms per tick (median): prepare "
            f"{host_ms['prepare_s']:.2f}, propose {host_ms['propose_s']:.2f}, verify "
            f"{host_ms['verify_s']:.2f} | " if spec.enabled else "")
         + f"launches {got}")
-    if summary["finished"] != N_REQ or any(not r.is_finished or r.cancelled for r in reqs):
-        fail(f"{name}: {summary['finished']} of {N_REQ} requests finished")
+    if summary["finished"] != n_req or any(not r.is_finished or r.cancelled for r in reqs):
+        fail(f"{name}: {summary['finished']} of {n_req} requests finished")
     if summary["generated_tokens"] != sum(r.max_new_tokens for r in reqs):
         fail(f"{name}: generated {summary['generated_tokens']} tokens, expected "
              f"{sum(r.max_new_tokens for r in reqs)}")
@@ -1052,9 +1140,11 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False):
                       paged_fairkv_decode_mq=m.n_layers * ticks)
     if any(got[k] != v for k, v in expect.items()):
         fail(f"{name}: launches {got}, expected {expect} ({ticks} ticks)")
-    if got["snapkv_scores"] != m.n_layers * admissions:
+    # one launch per layer of every prefill, or of every chunk when chunked
+    prefills = len(sched.chunk_s) if chunk else admissions
+    if got["snapkv_scores"] != m.n_layers * prefills:
         fail(f"{name}: snapkv_scores launched {got['snapkv_scores']} times, expected "
-             f"{m.n_layers} x {admissions} prefills")
+             f"{m.n_layers} x {prefills} {'chunks' if chunk else 'prefills'}")
     if backend == "paged":
         pool = sched.backend.pool
         pool.check_invariants()
@@ -1071,6 +1161,9 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False):
                peak_memory=torch.cuda.max_memory_allocated(), peak_blocks=peak_blocks,
                n_blocks=n_blocks, tokens=[list(r.generated) for r in reqs],
                replan_decisions=[e["accepted"] for e in summary["replan_log"]],
+               chunks=len(sched.chunk_s), prefix=stats, max_refcount=max_ref[0],
+               index_blocks_at_end=held, cow_copies=getattr(sched.backend, "cow_copies", 0),
+               hit_tokens=[r.prefix_hit_tokens for r in reqs],
                **{f"{k[:-2]}_ms_median": v for k, v in host_ms.items()})
     if logits:
         out["logits"] = [np.stack(r.logits) for r in reqs]
@@ -1201,6 +1294,8 @@ def continuous_runs(ctx):
     log("[cont] summary " + json.dumps(
         {k: {kk: vv for kk, vv in v.items() if kk not in ("tokens", "logits")}
          for k, v in runs.items()}))
+    ctx["cont_bf16"] = {k: v for k, v in runs["paged bf16"].items()
+                        if k not in ("tokens", "logits")}
     del runs, a, b, plain, e, f, g
     gc.collect()
     profile_continuous(ctx)
@@ -1320,7 +1415,215 @@ def profile_speculative(ctx, steps=4):
 
 
 # ---------------------------------------------------------------------------
-# phase 8: timings on the main path's inputs
+# phase 8: chunked prefill and prefix reuse at full width
+# ---------------------------------------------------------------------------
+
+CHUNK = 512  # chunk_tokens of the chunked runs
+PREFIX_LEN, PREFIX_TEMPLATES, SHARED_FRACTION = 1024, 2, 0.75
+PREFIX_PROMPT_MIN, PREFIX_PROMPT_MAX = 1536, 2048
+# the prefix index's LRU capacity: the two templates' boundaries at 512
+# and 1024 tokens, twice over (an unbounded index keeps every finished
+# prompt's suffix blocks until the pool runs dry, and holds more blocks
+# than sharing saves)
+PREFIX_ENTRIES = 8
+# (h) / (i): policy "none" at a budget no row outgrows (prompts up to 2048
+# plus up to 64 new tokens, under 2048 + 128), so the recency ring never
+# wraps and a request's tokens do not depend on the decode phase
+NONE_BUDGET, NONE_MARGIN = 2048, 128
+# (j): the reference's ring-wrap case (capacity 64 = 32 + 32, a 48-token
+# prefix, chunk 16) scaled to chunk 512: capacity 1280 = 768 + 512, so
+# the ring covers columns 768..1279 and wraps into the shared 1024-token
+# prefix; the donor (prefix + 64 tokens) reaches capacity after 192 new
+# tokens, the late request arrives after the wrap and stays below it
+COW_BUDGET, COW_MARGIN, COW_SUFFIX, COW_DONOR_GEN, COW_LATE_GEN, COW_LATE_AT = (
+    768, 512, 64, 256, 16, 230)
+
+
+def make_prefix_trace(vocab):
+    """Phase 7's 24 Poisson arrivals and new-token draws with shared
+    prefixes: prompts of 1536-2048 tokens, 75% of them starting with one
+    of two 1024-token templates (`synthesize_requests`, seed 0)."""
+    import numpy as np
+    from repro_torch.api import synthesize_requests
+    reqs = synthesize_requests(N_REQ, RATE, vocab, min_prompt=PREFIX_PROMPT_MIN,
+                               max_prompt=PREFIX_PROMPT_MAX, max_new_tokens=NEW_MAX,
+                               seed=SEED, prefix_templates=PREFIX_TEMPLATES,
+                               prefix_len=PREFIX_LEN, shared_fraction=SHARED_FRACTION)
+    gen = np.random.default_rng(SEED).integers(NEW_MIN, NEW_MAX + 1, size=N_REQ)
+    for r, g in zip(reqs, gen):
+        r.max_new_tokens = int(g)
+    return reqs
+
+
+def _prefix_changes(enabled, budget=NONE_BUDGET, margin=NONE_MARGIN):
+    """`EngineConfig` changes of the policy-"none" runs (h), (i), (j):
+    fairkv_dp without extra copies, so no head is replicated.  With
+    replicas a request's logits depend on the row it lands in (the slot
+    of its head's replica sets the order of the o-projection's sum), and
+    sharing changes the rows requests land in (hits skip chunks, rows
+    free earlier), so tokens could be compared only up to bf16 near-ties."""
+    from repro_torch.api import CompressionConfig, PrefixConfig, SchedulerConfig
+    return dict(
+        compression=CompressionConfig(policy="none", budget=budget, capacity=budget,
+                                      obs_window=OBS, pool=POOL, sink=SINK,
+                                      decode_margin=margin),
+        planner=planner("fairkv_dp", 0),
+        scheduler=SchedulerConfig(max_rows=MAX_ROWS, enable_replan=False),
+        max_seq_len=PREFIX_PROMPT_MAX + NEW_MAX + COW_DONOR_GEN,
+        prefix=PrefixConfig(enabled=enabled, chunk_tokens=CHUNK,
+                            max_entries=PREFIX_ENTRIES))
+
+
+def prefix_runs(ctx):
+    """Chunked prefill and shared-prefix reuse through `Engine.run_trace`
+    at full width on bf16 pools (block size 16, 8 rows, chunks of 512):
+    (h) policy "none", chunking only, and (i) the same with sharing, on
+    `make_prefix_trace` (no replanning): (i) must hit, share blocks
+    (refcount > 1 while requests are live), give (h)'s tokens for all 24
+    requests with a lower peak of blocks per layer, and leave an empty,
+    consistent pool after `flush`; (j) copy-on-write: a donor whose ring
+    wraps into its registered prefix and a late request that hits after
+    the wrap, against the same two requests without sharing; (k) the main
+    path's Ada-SnapKV (fairkv_dp with 4 extra copies, replanning on) with
+    sharing on the same trace, beside the same trace through phase 7's
+    bf16 configuration (monolithic prefill, no sharing).  Returns the
+    launches of all runs."""
+    import numpy as np
+    from repro_torch.api import PrefixConfig, Request
+    m = ctx["cfg"].model
+    launches, runs = {}, {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    for name, enabled in (("(h) chunked", False), ("(i) shared", True)):
+        got, runs[name] = continuous_run(ctx, name, "paged", "fp32",
+                                         changes=_prefix_changes(enabled),
+                                         reqs=make_prefix_trace(m.vocab_size))
+        add(got)
+    h, i = runs["(h) chunked"], runs["(i) shared"]
+    same = sum(a == b for a, b in zip(h["tokens"], i["tokens"]))
+    hits = sum(1 for t in i["hit_tokens"] if t)
+    log(f"[prefix] (i) vs (h): {same}/{N_REQ} requests with identical tokens; {hits} "
+        f"requests hit ({i['prefix']['hits']} hits / {i['prefix']['misses']} misses over "
+        f"the admission lookups); max refcount while live {i['max_refcount']}; peak blocks "
+        f"per layer {i['peak_blocks']} vs {h['peak_blocks']} "
+        f"({100 * (1 - i['peak_blocks'] / h['peak_blocks']):.1f}% fewer); TTFT p50 "
+        f"{i['ttft_s_p50']:.3f} vs {h['ttft_s_p50']:.3f} s, p99 {i['ttft_s_p99']:.3f} vs "
+        f"{h['ttft_s_p99']:.3f} s; {i['tokens_per_s']:.1f} vs {h['tokens_per_s']:.1f} tokens/s; "
+        f"chunks {i['chunks']} vs {h['chunks']}")
+    if same != N_REQ:
+        fail(f"(i) vs (h): only {same}/{N_REQ} requests with identical tokens")
+    if i["prefix"]["hits"] < 1 or i["max_refcount"] <= 1:
+        fail(f"(i): no sharing ({i['prefix']}, max refcount {i['max_refcount']})")
+    if not i["peak_blocks"] < h["peak_blocks"]:
+        fail(f"(i): peak blocks per layer {i['peak_blocks']} not below (h)'s "
+             f"{h['peak_blocks']}")
+
+    # (j) copy-on-write at ring wrap: the reference's case, scaled to chunk 512
+    rng = np.random.default_rng(SEED + 11)
+    shared = rng.integers(1, m.vocab_size, size=PREFIX_LEN)
+    sfx = [rng.integers(1, m.vocab_size, size=COW_SUFFIX) for _ in range(2)]
+
+    def cow_reqs():
+        return [Request(req_id=0, prompt=np.concatenate([shared, sfx[0]]).astype(np.int32),
+                        arrival_step=0, max_new_tokens=COW_DONOR_GEN),
+                Request(req_id=1, prompt=np.concatenate([shared, sfx[1]]).astype(np.int32),
+                        arrival_step=COW_LATE_AT, max_new_tokens=COW_LATE_GEN)]
+
+    for name, enabled in (("(j) cow", True), ("(j) plain", False)):
+        got, runs[name] = continuous_run(
+            ctx, name, "paged", "fp32", reqs=cow_reqs(),
+            changes=_prefix_changes(enabled, budget=COW_BUDGET, margin=COW_MARGIN))
+        add(got)
+    cow, plain = runs["(j) cow"], runs["(j) plain"]
+    log(f"[prefix] (j): {cow['cow_copies']} blocks copied on write; the late request hit "
+        f"{cow['hit_tokens'][1]} tokens; its tokens equal the unshared engine's: "
+        f"{cow['tokens'][1] == plain['tokens'][1]}; the donor's: "
+        f"{cow['tokens'][0] == plain['tokens'][0]}")
+    if cow["cow_copies"] <= 0 or cow["hit_tokens"][1] != PREFIX_LEN:
+        fail(f"(j): {cow['cow_copies']} copies on write, late hit {cow['hit_tokens'][1]}")
+    if cow["tokens"][1] != plain["tokens"][1]:
+        fail("(j): the late sharer's tokens differ from the unshared engine's")
+
+    # (k) the main path's compression with sharing, beside phase 7's bf16 config
+    trace = make_prefix_trace(m.vocab_size)
+    got, runs["(k) mono"] = continuous_run(ctx, "(k) mono", "paged", "fp32",
+                                           reqs=make_prefix_trace(m.vocab_size))
+    add(got)
+    got, runs["(k) shared"] = continuous_run(
+        ctx, "(k) shared", "paged", "fp32", reqs=trace,
+        changes=dict(prefix=PrefixConfig(enabled=True, chunk_tokens=CHUNK,
+                                         max_entries=PREFIX_ENTRIES)))
+    add(got)
+    k0, k = runs["(k) mono"], runs["(k) shared"]
+    agree = sum(sum(a == b for a, b in zip(x, y)) for x, y in zip(k0["tokens"], k["tokens"]))
+    total = sum(len(x) for x in k0["tokens"])
+    b = ctx["cont_bf16"]
+    log(f"[prefix] (k) Ada-SnapKV with sharing vs phase 7's bf16 configuration on the same "
+        f"trace: peak blocks per layer {k['peak_blocks']} vs {k0['peak_blocks']}; TTFT p50 "
+        f"{k['ttft_s_p50']:.3f} vs {k0['ttft_s_p50']:.3f} s, p99 {k['ttft_s_p99']:.3f} vs "
+        f"{k0['ttft_s_p99']:.3f} s; {k['tokens_per_s']:.1f} vs {k0['tokens_per_s']:.1f} "
+        f"tokens/s; {agree}/{total} tokens at equal positions ({100 * agree / total:.1f}%, "
+        f"reported, not a bar); {k['prefix']['hits']} hits; phase 7's bf16 run on its own "
+        f"trace: peak {b['peak_blocks']}, TTFT p50 {b['ttft_s_p50']:.3f} s p99 "
+        f"{b['ttft_s_p99']:.3f} s, {b['tokens_per_s']:.1f} tokens/s")
+    if k["prefix"]["hits"] < 1:
+        fail(f"(k): no prefix hit ({k['prefix']})")
+    log("[prefix] summary " + json.dumps(
+        {k_: {kk: vv for kk, vv in v.items() if kk not in ("tokens", "logits")}
+         for k_, v in runs.items()}))
+    del runs
+    profile_chunk(ctx)
+    return launches
+
+
+def profile_chunk(ctx):
+    """Where a chunked-prefill step's time goes, in (h)'s configuration: a
+    2048-token prompt's four chunks into a fresh B = 1 sub-state, the
+    first as warm-up, the second un-profiled (host wall), the last two
+    under torch.profiler (device busy share and top kernels)."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine
+    from repro_torch.serving.engine import init_serve_state
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ctx["cfg"].replace(cache_backend="paged", **_prefix_changes(False))
+    eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
+    m = cfg.model
+    prompt = np.random.default_rng(SEED + 13).integers(0, m.vocab_size, size=(1, 4 * CHUNK))
+    state = init_serve_state(m, eng.pa, 1, cfg.compression, dtype=torch.bfloat16,
+                             device="cuda")
+    quota = np.full(m.n_layers, CHUNK)  # policy "none" keeps a whole chunk
+
+    def chunk(j):
+        nonlocal state
+        state, _, _ = eng.executor.prefill_chunk(
+            eng.sp, prompt[:, j * CHUNK:(j + 1) * CHUNK], eng.pa, state, [0],
+            [j * CHUNK], [CHUNK], quota)
+
+    chunk(0)
+    t0 = time.perf_counter()
+    chunk(1)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    wall, total, ours, top = _device_profile(lambda: (chunk(2), chunk(3)),
+                                             ours_keys=("snapkv_",))
+    if total <= 0:
+        log("[profile] torch.profiler recorded no device time for the chunk steps")
+        return
+    log(f"[profile] chunked prefill, {CHUNK}-token chunks (policy none, capacity "
+        f"{cfg.compression.static_capacity()}): un-profiled {plain_ms:.2f} ms per chunk; "
+        f"profiled 2 chunks: device busy {total / 1e3:.2f} ms of {wall * 1e3:.2f} ms wall "
+        f"({100 * total / 1e6 / wall:.1f}%); snapkv_scores {ours / 2e3:.3f} ms per chunk "
+        f"({100 * ours / total:.2f}% of device time)")
+    for name, us in top:
+        log(f"[profile]   chunk top kernel {us / 2e3:8.3f} ms/chunk  {name}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: timings on the main path's inputs
 # ---------------------------------------------------------------------------
 
 
@@ -1373,7 +1676,7 @@ def _scores_bound(q, k, opos, kpos):
     return nbytes, flops, 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
 
 
-def time_kernels(engine, launches, paged, mq_inputs):
+def time_kernels(engine, launches, paged, mq_inputs, prefix):
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda
@@ -1458,6 +1761,22 @@ def time_kernels(engine, launches, paged, mq_inputs):
     log(f"[time] snapkv_scores at (B=1, W={OBS}, Hq={m.n_heads}, Hkv={m.n_kv_heads}, "
         f"Dh={Dh}, T={T}) bf16: kernel {kern_b1:.4f} ms, plain {plain_b1:.4f} ms, "
         f"bound {bound_b1:.4f} ms ({bytes_b1} B / 3.35 TB/s); max abs err {err_b1:.3e}")
+    # and at the chunk shape of chunked prefill: a full chunk of CHUNK keys
+    # at positions from 1024, the last OBS queries
+    qc, kc, opc, kpc = chunk_scores_inputs(gen, OBS, m.n_heads, m.n_kv_heads, Dh, CHUNK,
+                                           1024, CHUNK, k.dtype)
+    err_c = _cmp("snapkv_scores (chunk shape)", snapkv_scores_cuda(qc, kc, opc, kpc),
+                 snapkv_scores_ref(qc, kc, opc, kpc), FP32_TOL, 1e-5)
+    kern_c = time_ms(lambda: snapkv_scores_cuda(qc, kc, opc, kpc), flush)
+    plain_c = time_ms(lambda: snapkv_scores_ref(qc, kc, opc, kpc), flush)
+    bytes_c, flops_c, bound_c = _scores_bound(qc, kc, opc, kpc)
+    rows[-1].update(ms_chunk=kern_c, plain_ms_chunk=plain_c, bound_ms_chunk=bound_c,
+                    max_abs_err_chunk=err_c, launches_chunk_phase=prefix["snapkv_scores"])
+    log(f"[time] snapkv_scores at the chunk shape (B=1, W={OBS}, Hq={m.n_heads}, "
+        f"Hkv={m.n_kv_heads}, Dh={Dh}, T={CHUNK}, positions from 1024) bf16: kernel "
+        f"{kern_c:.4f} ms, plain {plain_c:.4f} ms, bound {bound_c:.4f} ms (max of {bytes_c} B "
+        f"/ 3.35 TB/s and {flops_c} FLOP / 989 TFLOP/s); max abs err {err_c:.3e}; "
+        f"{prefix['snapkv_scores']} launches in the chunked / prefix phase")
 
     # kernel 3 on layer 0 of the paged caches after the one-shot decode
     # (bf16 pools; int8 pools beside them)
@@ -1584,15 +1903,21 @@ def main() -> int:
     engine, launches, ctx = main_path()
     paged = paged_oneshot(ctx)
     cont, mq_inputs = continuous_runs(ctx)
+    prefix = prefix_runs(ctx)
     # each phase of the main path counts its own launches (zeroed just
-    # before, read just after): one-shot slot, one-shot paged, continuous
+    # before, read just after): one-shot slot, one-shot paged, continuous,
+    # chunked prefill and prefix reuse
     for k in launches:
-        launches[k] += paged["launches"][k] + cont[k]
-    log(f"[main] launches over the whole main path: {launches}")
+        launches[k] += paged["launches"][k] + cont[k] + prefix[k]
+    log(f"[main] launches over the whole main path: {launches} (of them in the chunked / "
+        f"prefix phase: {prefix})")
     for name, n in launches.items():
         if n == 0:
             fail(f"kernel {name} was never launched on the main path")
-    rows = time_kernels(engine, launches, paged, mq_inputs)
+    for name in ("snapkv_scores", "paged_fairkv_decode"):
+        if prefix[name] == 0:
+            fail(f"kernel {name} was never launched in the chunked / prefix phase")
+    rows = time_kernels(engine, launches, paged, mq_inputs, prefix)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

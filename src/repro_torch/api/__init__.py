@@ -29,6 +29,7 @@ _LAZY = {
     "GenerationResult": "repro_torch.api.engine",
     "StreamEvent": "repro_torch.api.engine",
     "PagingConfig": "repro_torch.paging.block_pool",
+    "PrefixConfig": "repro_torch.prefix.config",
     "SchedulerConfig": "repro_torch.serving.scheduler",
     "SpeculationConfig": "repro_torch.serving.speculation",
     "Request": "repro_torch.serving.request",

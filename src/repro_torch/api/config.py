@@ -4,6 +4,7 @@ The port's counterpart of ``repro.api.config.EngineConfig`` for what the
 port runs: ``ModelConfig`` (architecture), ``CompressionConfig`` (per-head
 KV budgets), ``PlannerConfig`` (FairKV placement), ``SchedulerConfig``
 (continuous batching), the cache backend and its ``PagingConfig``,
+``PrefixConfig`` (chunked prefill and shared-prefix reuse),
 ``SpeculationConfig`` (self-speculative decoding), and the engine-level
 knobs.  ``__post_init__`` validates every name-typed field against the
 port's registries, so a typo fails at construction with the registered
@@ -22,6 +23,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.planner import PLANNER_MODES, PlannerConfig
 from repro_torch.paging.block_pool import PagingConfig
+from repro_torch.prefix.config import PrefixConfig
 from repro_torch.serving.engine import _spec_supported
 from repro_torch.serving.scheduler import SchedulerConfig
 from repro_torch.serving.speculation import SpeculationConfig
@@ -42,8 +44,10 @@ class EngineConfig:
     where weights, cache and steps live (``"cuda"``, ``"cuda:1"``,
     ``"cpu"``).  ``cache_backend`` names a registered backend (``"slot"``:
     dense static capacity; ``"paged"``: block pools sized by ``paging``);
-    ``scheduler`` configures continuous batching; ``speculation`` turns on
-    self-speculative decoding in it (paged backend only).
+    ``scheduler`` configures continuous batching; ``prefix`` turns on
+    chunked prefill in it (any backend) and shared-prefix block reuse
+    (paged backend only); ``speculation`` turns on self-speculative
+    decoding (paged backend only).
     """
 
     model: ModelConfig
@@ -59,6 +63,7 @@ class EngineConfig:
     device: str = "cuda"
     cache_backend: str = "slot"
     paging: PagingConfig = field(default_factory=PagingConfig)
+    prefix: PrefixConfig = field(default_factory=PrefixConfig)
     speculation: SpeculationConfig = field(default_factory=SpeculationConfig)
 
     def __post_init__(self):
@@ -117,6 +122,15 @@ class EngineConfig:
                         f"paging.kv_dtype override ({lyr}, {hd}) -> {dt!r} "
                         f"out of range for model {self.model.name!r} with "
                         f"{L} layers x {H} kv heads")
+        if not isinstance(self.prefix, PrefixConfig):
+            raise TypeError(
+                f"prefix must be a PrefixConfig, got {type(self.prefix).__name__}")
+        if self.prefix.enabled and self.cache_backend != "paged":
+            raise ValueError(
+                "prefix.enabled (shared-prefix block reuse) requires "
+                f"cache_backend='paged', got {self.cache_backend!r}; "
+                "chunked prefill alone (prefix.chunk_tokens > 0, "
+                "enabled=False) works on any backend")
         if not isinstance(self.speculation, SpeculationConfig):
             raise TypeError(
                 f"speculation must be a SpeculationConfig, got "

@@ -10,9 +10,11 @@ few methods:
   plan metrics, timings);
 - continuous: `submit` / `step` / `stream` / `run_trace` / `cancel` /
   `drain` drive the request scheduler
-  (`repro_torch.serving.scheduler.Scheduler`, self-speculative when
+  (`repro_torch.serving.scheduler.Scheduler`, with chunked prefill and
+  shared-prefix reuse per ``EngineConfig.prefix``, self-speculative when
   ``EngineConfig.speculation`` is enabled); `stream` yields a
-  `StreamEvent` per generated token;
+  `StreamEvent` per generated token; `prefix_stats()` reports the prefix
+  index's counters;
 - `replan()` rebuilds the head placement (online, from the live cache, in
   continuous mode); `memory_stats()` reports the cache footprint;
 - `Engine.measure_profile(batch)` runs a profiling prefill and returns the
@@ -283,7 +285,8 @@ class Engine:
                 self.cfg.model, self.params, self.plan, self.cfg.compression,
                 self.cfg.scheduler, self.executor, planner_cfg=self.cfg.planner,
                 dtype=DTYPES[self.cfg.dtype], serve_params=self.sp,
-                backend=self._make_backend(), spec_cfg=self.cfg.speculation)
+                backend=self._make_backend(), spec_cfg=self.cfg.speculation,
+                prefix_cfg=self.cfg.prefix)
             if self._drain_pending:
                 self._scheduler.drain()
         return self._scheduler
@@ -360,6 +363,13 @@ class Engine:
         out = self._ensure_scheduler().run(requests, max_steps=max_steps)
         self._sync_from_scheduler()
         return out
+
+    def prefix_stats(self) -> dict:
+        """The prefix index's counters and census (hits, misses, entries,
+        pinned, blocks held, evictions); empty until a continuous scheduler
+        with sharing on exists.  A typed stats object comes with the
+        port's observability layer."""
+        return {} if self._scheduler is None else self._scheduler.prefix_stats()
 
     def memory_stats(self) -> dict:
         """Cache footprint of whichever mode (one-shot / continuous) ran

@@ -201,6 +201,47 @@ def fill_from_selection(
     cache.lengths[layer] = torch.where(own, lens, 0).to(torch.int32)
 
 
+def append_selection(
+    cache: SlotCache,
+    layer: int,
+    k_full: torch.Tensor,  # (B, Ck, Hkv, Dh) post-RoPE chunk keys
+    v_full: torch.Tensor,  # (B, Ck, Hkv, Dh)
+    sel_idx: torch.Tensor,  # (B, Hkv, Csel) selected positions into Ck
+    sel_len: torch.Tensor,  # (B, Hkv) int32 retained counts (<= Csel)
+    plan: PlanArrays,
+    rows: torch.Tensor,  # (B,) global row ids for ownership
+    start: torch.Tensor,  # (B,) int32 absolute position of chunk token 0
+) -> None:
+    """Append a chunk's compression-selected KV after the existing entries,
+    in place: the chunked-prefill counterpart of `fill_from_selection`.
+
+    Owned (slot, row) pairs get their head's first ``sel_len`` selected
+    entries at columns ``lengths .. lengths + sel_len`` with absolute
+    positions ``start + sel_idx``, so each chunk's keep-set accumulates in
+    the slot layout (keys are post-RoPE and positions explicit, so order
+    does not matter to attention).  One indexed write of just those
+    columns, as `append_token` does; the caller guarantees headroom, and
+    columns past the capacity are dropped.
+    """
+    L, S, B, C, Dh = cache.k.shape
+    heads = torch.clamp(plan.slot_head[layer], min=0).long()  # (S,)
+    own = plan.owner_mask_rows(layer, rows)  # (S, B)
+    idx = sel_idx[:, heads, :].permute(1, 0, 2).long()  # (S, B, Csel)
+    Csel = idx.shape[2]
+    lens_new = torch.where(own, sel_len[:, heads].T, 0)  # (S, B)
+    cur = cache.lengths[layer]  # (S, B)
+    j = torch.arange(Csel, device=idx.device)
+    cols = cur[:, :, None].long() + j  # (S, B, Csel)
+    write = (j < lens_new[:, :, None]) & (cols < C)
+    s_ix, b_ix, c_ix = write.nonzero(as_tuple=True)
+    src = idx[s_ix, b_ix, c_ix]  # chunk positions of the written entries
+    at = (s_ix, b_ix, cols[s_ix, b_ix, c_ix])
+    cache.k[layer].index_put_(at, k_full[b_ix, src, heads[s_ix]].to(cache.k.dtype))
+    cache.v[layer].index_put_(at, v_full[b_ix, src, heads[s_ix]].to(cache.v.dtype))
+    cache.pos[layer].index_put_(at, (start.to(torch.int64)[b_ix] + src).to(torch.int32))
+    cur.copy_(torch.clamp(cur + lens_new, max=C).to(torch.int32))
+
+
 # ---------------------------------------------------------------------------
 # Row-level ops (continuous batching)
 # ---------------------------------------------------------------------------

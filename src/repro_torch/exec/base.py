@@ -1,7 +1,8 @@
 """`Executor`: the device-execution strategy behind the serving stack.
 
 An executor owns *how* the serving steps run — one prefill step, one
-decode step, and the propose / verify steps of speculative decoding —
+chunked-prefill step, one decode step, and the propose / verify steps of
+speculative decoding —
 while *what* they compute lives in
 ``repro_torch.serving.engine``.  The port runs eagerly (PyTorch has no jit
 step the port needs); each step ends in a device synchronize, so a caller's
@@ -51,6 +52,18 @@ class Executor:
                 rows: Optional[torch.Tensor] = None) -> Tuple:
         """Prefill step → (ServeState, logits (B, V), lengths (L, Hkv, B));
         ``rows`` are the global rows the sub-batch will occupy."""
+        raise NotImplementedError
+
+    def prefill_chunk(self, sp: dict, tokens: torch.Tensor, pa, state,
+                      rows, start, valid, quota) -> Tuple:
+        """Chunked-prefill step → (ServeState, logits (B, V), lengths
+        (L, Hkv, B)).  ``tokens`` is a fixed-width (B, chunk_tokens) slice
+        (the last chunk zero-padded, ``valid`` (B,) counting its real
+        tokens), ``start`` (B,) the absolute position of each row's chunk
+        and ``quota`` (L,) the per-head keep cap of the boundary
+        compression.  The step runs eagerly, so there is no trace to
+        count; the reference's ``prefill_chunk_traces`` has its
+        counterpart in the capture counter of CUDA-graph execution."""
         raise NotImplementedError
 
     def decode(self, sp: dict, state, pa,

@@ -17,6 +17,14 @@ class LocalExecutor(Executor):
         return out
 
     @torch.inference_mode()
+    def prefill_chunk(self, sp, tokens, pa, state, rows, start, valid, quota):
+        tokens = torch.as_tensor(tokens, dtype=torch.int64, device=self.device)
+        out = _serve.prefill_chunk(sp, tokens, self.cfg, pa, self.ccfg, state,
+                                   rows, start, valid, quota)
+        self.synchronize()
+        return out
+
+    @torch.inference_mode()
     def decode(self, sp, state, pa, tokens=None, active=None):
         out = _serve.decode_step(sp, state, self.cfg, pa, self.ccfg,
                                  tokens=tokens, active=active,

@@ -19,8 +19,14 @@ A speculative tick takes provisional blocks for its whole window
 (`prepare_decode(n_tokens=...)`) and hands back what the verify pass
 rejected (`trim_rows`).
 
-Not ported yet: blocks shared between rows (prefix reuse) and their
-copy-on-write, and pool partitions for the multi-GPU executor.
+Prefix reuse shares blocks between rows: `splice(shared_blocks=)` maps a
+row onto blocks the prefix index already holds (refcounted, never written
+through the row), and `prepare_decode` copies a shared block to a private
+one before a row's next append would land in it (copy-on-write: only the
+recency ring can wrap into a shared prefix).  Admission charges a request
+only the blocks it does not share.
+
+Not ported yet: pool partitions for the multi-GPU executor.
 """
 from __future__ import annotations
 
@@ -85,6 +91,12 @@ class PagedBackend(CacheBackend):
         # the mirror holds allocations the device table has not seen (an
         # allocation that raised PoolExhausted in a later layer)
         self._table_stale = False
+        # copy-on-write backlog: (layer, old id, new id) content copies
+        # queued by `prepare_decode` when a row's next append would land in
+        # a shared block.  It survives a PoolExhausted mid-CoW, so the
+        # retry loses nothing (the old block stays live: someone holds it)
+        self._pending_cow: List[Tuple[int, int, int]] = []
+        self.cow_copies = 0  # blocks privatized over the backend's life
 
     def _slot_kinds(self, pa) -> Optional[np.ndarray]:
         """(L, S) per-slot kinds under ``pa`` (None when unquantized)."""
@@ -108,6 +120,7 @@ class PagedBackend(CacheBackend):
             kv_quant=self.kv_quant, device=dev)
         self.table = np.zeros(tuple(cache.block_table.shape), np.int32)
         self._pending_scale_reset.clear()
+        self._pending_cow.clear()
         self._table_stale = False
         return _serve.init_serve_state(self.cfg, pa, batch, self.ccfg,
                                        dtype=dtype, device=dev, cache=cache)
@@ -131,18 +144,50 @@ class PagedBackend(CacheBackend):
 
     def splice(self, state, sub, rows, shared_blocks=None):
         """Admit: allocate blocks for the sub-state's realized lengths and
-        copy its contents in.  Atomic on ``PoolExhausted``."""
-        if shared_blocks is not None:
-            raise NotImplementedError(
-                "shared prefix blocks: prefix reuse is not ported yet "
-                "(ROADMAP Queue A.7)")
+        copy its contents in.  Atomic on ``PoolExhausted``.
+
+        ``shared_blocks`` ((L, S, len(rows), M) int32) carries a prefix
+        hit's blocks: each (layer, slot, row)'s shared full blocks,
+        contiguous from column 0, already holding the matched prefix.
+        Fresh blocks are allocated for the rest only (first, so a
+        ``PoolExhausted`` changes nothing); the shared ids are incref'd and
+        the stored table maps the row onto them, while their columns are
+        written to the null block, so a hit costs ``need - shared`` new
+        blocks and a shared block is never written.
+        """
         rows_np = np.asarray(rows, np.int64)  # retired rows: no blocks held
         own = _owner_mask_np(self.pa, rows_np)
-        table_sub = build_table(sub.cache.lengths.cpu().numpy(), self.pool,
-                                self.block_size, self.max_blocks, own=own)
-        self.table[:, :, rows_np, :] = table_sub
-        paginate_rows(state.cache, sub.cache, rows_np, table_sub,
-                      kinds=self._slot_kinds(self.pa))
+        lengths = sub.cache.lengths.cpu().numpy()
+        kinds = self._slot_kinds(self.pa)
+        if shared_blocks is None:
+            table_sub = build_table(lengths, self.pool, self.block_size,
+                                    self.max_blocks, own=own)
+            self.table[:, :, rows_np, :] = table_sub
+            paginate_rows(state.cache, sub.cache, rows_np, table_sub, kinds=kinds)
+            return _serve.set_row_tokens(state, rows_np, sub.last_tokens)
+        shared = np.asarray(shared_blocks, np.int32)
+        n_sh = (shared > 0).sum(axis=-1)  # (L, S, R) shared full blocks
+        fresh = build_table(np.maximum(lengths - n_sh * self.block_size, 0),
+                            self.pool, self.block_size, self.max_blocks, own=own)
+        L, S, R, M = fresh.shape
+        for layer in range(L):
+            ids = shared[layer][shared[layer] > 0]
+            if ids.size:
+                self.pool.incref(layer, ids.tolist())
+        table_full = np.zeros_like(fresh)
+        for layer, s, r in zip(*np.nonzero(own | (n_sh > 0))):
+            f = int(n_sh[layer, s, r])
+            fr = fresh[layer, s, r][fresh[layer, s, r] > 0]
+            nf = min(fr.size, M - f)
+            table_full[layer, s, r, :f] = shared[layer, s, r, :f]
+            table_full[layer, s, r, f:f + nf] = fr[:nf]
+            if fr.size > nf:  # a fully shared row at capacity: the growth
+                self.pool.decref(layer, fr[nf:].tolist())  # block has no home
+        self.table[:, :, rows_np, :] = table_full
+        col = np.arange(M)[None, None, None, :]
+        table_write = np.where(col < n_sh[..., None], 0, table_full)
+        paginate_rows(state.cache, sub.cache, rows_np, table_write, kinds=kinds,
+                      table_store=table_full)
         return _serve.set_row_tokens(state, rows_np, sub.last_tokens)
 
     def release_rows(self, state, rows):
@@ -165,6 +210,15 @@ class PagedBackend(CacheBackend):
         `trim_rows` hands back those the verify pass did not keep.  Raises
         ``PoolExhausted`` when a layer's free list runs dry — the
         scheduler's preemption signal — leaving the mirror consistent.
+
+        Copy-on-write: before growth is allocated, an owned next write that
+        would land in a shared (refcount > 1) block gets a private block
+        first (alloc, decref the shared id, queue a content copy of codes,
+        positions and, on int8/fp8 pools, block scales).  Checking the
+        first write block suffices for any ``n_tokens``: later writes of
+        the window land in blocks this call allocates, and at-capacity rows
+        (the only ring-wrap case) are clamped to one-token windows by the
+        scheduler.  A shared write that survives this is a hard error.
         """
         if n_tokens < 1:
             raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
@@ -174,6 +228,9 @@ class PagedBackend(CacheBackend):
         if rows.size:
             lens = cache.lengths.cpu().numpy()[:, :, rows]  # (L, S, R)
             own = _owner_mask_np(self.pa, rows)
+            blk = self._next_write_blocks(state, lens)  # (L, S, R)
+            if int(self.pool.refcount.max()) > 1:
+                self._cow_next_writes(rows, own, blk)
             have = (self.table[:, :, rows, :] > 0).sum(axis=-1)  # (L, S, R)
             growing = own & (lens < self.capacity)
             end = np.minimum(lens + n_tokens, self.capacity)  # exclusive
@@ -192,16 +249,76 @@ class PagedBackend(CacheBackend):
                     m, h = int(missing[layer, s, c]), int(have[layer, s, c])
                     self.table[layer, s, rows[c], h:h + m] = ids[at:at + m]
                     at += m
+            if int(self.pool.refcount.max()) > 1:
+                # every owned next write must have been privatized above
+                tbl = self.table[:, :, rows, :]
+                bid = np.take_along_axis(tbl, blk[..., None], axis=-1)[..., 0]
+                l_ix = np.arange(tbl.shape[0])[:, None, None]
+                still = own & (bid > 0) & (self.pool.refcount[l_ix, bid] > 1)
+                if still.any():
+                    lyr, s, r = next(zip(*np.nonzero(still)))
+                    raise RuntimeError(
+                        f"next decode append for (layer {lyr}, slot {s}, row "
+                        f"{rows[r]}) targets shared block {int(bid[lyr, s, r])} "
+                        f"(refcount > 1); copy-on-write failed to privatize it")
+        self._apply_pending(cache)
+        if self._table_stale:
+            self._sync_table(cache)
+            self._table_stale = False
+        return state
+
+    def _next_write_blocks(self, state, lens: np.ndarray) -> np.ndarray:
+        """(L, S, R) block index of each pair's next append: the host
+        mirror of `ring_write_index` (``lens`` below capacity, the shared
+        ring phase at capacity)."""
+        cap = self.capacity
+        ring = max(1, min(max(1, self.ccfg.decode_margin), cap))
+        cyc = (cap - ring) + int(state.decode_steps) % ring
+        return np.where(lens < cap, lens, cyc) // self.block_size
+
+    def _cow_next_writes(self, rows, own, blk) -> None:
+        """Privatize the shared blocks under the next write index: each
+        gets a fresh block in the mirror and the pool, and a queued content
+        copy.  A PoolExhausted mid-loop is safe to retry: the queue
+        survives and the replacements made so far are consistent."""
+        tbl = self.table[:, :, rows, :]  # (L, S, R, M)
+        bid = np.take_along_axis(tbl, blk[..., None], axis=-1)[..., 0]
+        l_ix = np.arange(tbl.shape[0])[:, None, None]
+        hit = own & (bid > 0) & (self.pool.refcount[l_ix, bid] > 1)
+        for layer, s, r in zip(*np.nonzero(hit)):
+            old = int(bid[layer, s, r])
+            new = int(self.pool.alloc(layer, 1)[0])
+            self.pool.decref(layer, [old])
+            self.table[layer, s, rows[r], int(blk[layer, s, r])] = new
+            self._table_stale = True
+            self._pending_cow.append((int(layer), old, new))
+            self.cow_copies += 1
+
+    def _apply_pending(self, cache: PagedCache) -> None:
+        """Flush the queued scale resets, then the queued CoW copies, into
+        the device pools, in place.
+
+        Resets first: an id queued for a reset, freed by a preemption and
+        handed out again as a CoW destination must end with the donor's
+        copied scale, not zero.  Copies run in queue order: a freed and
+        reused id appears as a destination only after every entry that
+        reads it as a source, so no copy reads clobbered content.  A
+        privatized block copies its codes and scales verbatim (never a
+        second quantization)."""
         if self._pending_scale_reset:
             for layer, ids in self._pending_scale_reset:
                 idx = torch.as_tensor(ids, device=cache.k_scale.device)
                 cache.k_scale[layer, idx] = 0.0
                 cache.v_scale[layer, idx] = 0.0
             self._pending_scale_reset.clear()
-        if self._table_stale:
-            self._sync_table(cache)
-            self._table_stale = False
-        return state
+        for layer, old, new in self._pending_cow:
+            cache.k_pool[layer, new] = cache.k_pool[layer, old]
+            cache.v_pool[layer, new] = cache.v_pool[layer, old]
+            cache.pos_pool[layer, new] = cache.pos_pool[layer, old]
+            if cache.k_scale is not None:
+                cache.k_scale[layer, new] = cache.k_scale[layer, old]
+                cache.v_scale[layer, new] = cache.v_scale[layer, old]
+        self._pending_cow.clear()
 
     def trim_rows(self, state, rows):
         """Release provisional blocks no longer covered by ``lengths``.
@@ -265,6 +382,7 @@ class PagedBackend(CacheBackend):
             trial.peak_in_use = max(trial.peak_in_use, self.pool.peak_in_use)
             self.pool, self.table, self.pa = trial, table, new_pa
             self._pending_scale_reset.clear()
+            self._pending_cow.clear()
             self._table_stale = False
             return empty
 
@@ -295,12 +413,24 @@ class PagedBackend(CacheBackend):
         return int(self._layer_blocks(req.prompt_len, req.max_new_tokens,
                                       worst_case=True).sum())
 
-    def admissible(self, state, req):
+    def admissible(self, state, req, pending=()):
         if self.pool is None:
             return True
-        need = self._layer_blocks(req.prompt_len, req.max_new_tokens,
-                                  worst_case=False)
+        need = np.zeros(self.cfg.n_layers, np.int64)
+        for r in (req, *pending):
+            need += self._discount_shared(
+                self._layer_blocks(r.prompt_len, r.max_new_tokens, worst_case=False), r)
         return bool((self.pool.free_blocks() >= need).all())
+
+    @staticmethod
+    def _discount_shared(need: np.ndarray, req) -> np.ndarray:
+        """Admission charges only unshared blocks: a prefix hit stamps
+        ``req.prefix_shared_blocks`` ((L,) full blocks reused from the
+        index), and those are already allocated."""
+        sh = getattr(req, "prefix_shared_blocks", None)
+        if sh is None:
+            return need
+        return np.maximum(need - np.asarray(sh, np.int64), 0)
 
     def never_fits(self, req):
         need = self._layer_blocks(req.prompt_len, req.max_new_tokens,

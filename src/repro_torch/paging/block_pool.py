@@ -105,8 +105,10 @@ class BlockPool:
 
     Deterministic: each layer's free list is kept in descending order and
     ``alloc`` pops from its end, so blocks are handed out lowest id first
-    and identical traces give identical tables.  Every allocated block has
-    refcount 1 (shared prefix blocks are later work).
+    and identical traces give identical tables.  An allocated block starts
+    at refcount 1; prefix reuse shares it (`incref`: the prefix index and
+    every row that maps it hold one reference each), and it returns to the
+    free list when the last reference is dropped (`decref`).
     """
 
     def __init__(self, n_layers: int, n_blocks: int):
@@ -156,6 +158,14 @@ class BlockPool:
         self.refcount[layer, ids] = 1
         self.peak_in_use = max(self.peak_in_use, self.usable_blocks - len(free))
         return ids
+
+    def incref(self, layer: int, ids: Iterable[int]) -> None:
+        """Take one more reference per id (a shared prefix block); every
+        id must be allocated."""
+        for b in ids:
+            if self.refcount[layer, b] < 1:
+                raise ValueError(f"incref of unallocated block {b} in layer {layer}")
+            self.refcount[layer, b] += 1
 
     def decref(self, layer: int, ids: Iterable[int]) -> None:
         """Drop one reference per id; blocks reaching 0 return to the free

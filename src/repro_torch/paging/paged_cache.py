@@ -241,7 +241,8 @@ def paged_append_token(
 
 
 def paginate_rows(cache: PagedCache, sub: SlotCache, rows: Rows,
-                  table_sub: np.ndarray, kinds=None) -> None:
+                  table_sub: np.ndarray, kinds=None,
+                  table_store: Optional[np.ndarray] = None) -> None:
     """Copy a prefilled slot sub-cache into freshly allocated blocks, in
     place.
 
@@ -252,6 +253,12 @@ def paginate_rows(cache: PagedCache, sub: SlotCache, rows: Rows,
     released first.  Quantized pools block-quantize the sub-cache on the
     way in (`kvquant.quantize_blocks`), ``kinds`` being the (L, S)
     per-slot grid.
+
+    ``table_store`` (optional) is the table the rows keep when it differs
+    from the write addressing: a shared-prefix admission stores the shared
+    blocks followed by its fresh ones, while its write table has zeros in
+    the shared columns, so a block with refcount > 1 is never written (the
+    null-redirect takes those writes).  Default: ``table_sub`` itself.
     """
     L, N, bs, Dh = cache.k_pool.shape
     _, S, B_sub, C, _ = sub.k.shape
@@ -278,7 +285,8 @@ def paginate_rows(cache: PagedCache, sub: SlotCache, rows: Rows,
         cache.k_scale.view(-1)[gids] = k_scales.reshape(-1)
         cache.v_scale.view(-1)[gids] = v_scales.reshape(-1)
     r = row_index(rows, dev)
-    cache.block_table[:, :, r] = torch.as_tensor(np.asarray(table_sub, np.int32),
+    stored = table_sub if table_store is None else table_store
+    cache.block_table[:, :, r] = torch.as_tensor(np.asarray(stored, np.int32),
                                                  device=dev)
     cache.lengths[:, :, r] = sub.lengths
     cache.positions[r] = sub.positions

@@ -97,8 +97,12 @@ class CacheBackend:
         bound on what the request can ever pin."""
         raise NotImplementedError
 
-    def admissible(self, state, req: Request) -> bool:
-        """Do free resources cover the request's projected prefill need?"""
+    def admissible(self, state, req: Request,
+                   pending: Sequence[Request] = ()) -> bool:
+        """Do free resources cover the request's projected prefill need?
+        ``pending`` are requests accepted but not yet spliced into
+        ``state`` (in-flight chunked prefills): their charge counts too, so
+        admission never promises the same resources twice."""
         raise NotImplementedError
 
     def never_fits(self, req: Request) -> Optional[str]:
@@ -176,14 +180,17 @@ class SlotBackend(CacheBackend):
             self.ccfg.policy, self.ccfg, req.prompt_len, req.max_new_tokens,
             self.cfg.n_layers, self.cfg.n_kv_heads)
 
-    def admissible(self, state, req):
+    def admissible(self, state, req, pending=()):
         if self.max_live_tokens is not None:
-            if (self.live_tokens(state) + self.request_cost(req)
+            reserved = sum(self.request_cost(p) for p in pending)
+            if (self.live_tokens(state) + reserved + self.request_cost(req)
                     > self.max_live_tokens):
                 return False
         if self.max_live_tokens_per_shard is not None and self.pa is not None:
             # the bottleneck shard gates admission
             load = self.per_shard_live(state) + self.per_shard_cost(req)
+            for p in pending:
+                load = load + self.per_shard_cost(p)
             if (load > self.max_live_tokens_per_shard).any():
                 return False
         return True

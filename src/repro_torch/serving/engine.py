@@ -27,6 +27,12 @@ rows, and `splice_state` / `reset_state_rows` admit and retire rows of a
 slot cache (a paged backend does its own cache work, then
 `set_row_tokens`).
 
+Chunked prefill: `prefill_chunk` runs one fixed-width chunk of a prompt
+against the retained entries of the chunks before it and compresses at
+the chunk boundary (``kernels.ops.snapkv_scores`` over the chunk's keys);
+the scheduler drives it one chunk per tick and seeds it from a shared
+prefix on a prefix-index hit.
+
 Self-speculative decoding on a paged cache: `propose_step` drafts up to
 ``max_k`` tokens per row with the target's first layers, `verify_step`
 checks the window in one multi-query pass
@@ -36,7 +42,7 @@ entries back.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,6 +51,7 @@ from repro_torch.cache.slot_cache import (
     PlanArrays,
     Rows,
     SlotCache,
+    append_selection,
     append_token,
     fill_from_selection,
     init_cache,
@@ -219,6 +226,173 @@ def _slot_o_proj(pl, attn_flat, cfg, plan, layer_idx):
     wo = pl["wo_s"][fs].reshape(cfg.n_kv_heads * cfg.q_per_kv * cfg.head_dim,
                                 cfg.d_model)
     return torch.einsum("bte,ed->btd", attn_flat, wo)
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill
+# ---------------------------------------------------------------------------
+
+
+def _cache_head_view(cache: SlotCache, layer: int, plan: PlanArrays,
+                     rows: torch.Tensor, n_heads: int):
+    """Head-layout view of one layer's slot cache at the given global rows:
+    ``(k (B, H, C, Dh), v, len_h (B, H), pos_h (B, H, C))``.  Every
+    (head, row) pair has exactly one owning slot, whose entries are
+    gathered (the reference sums the slots under 0/1 ownership weights,
+    which gives the same values)."""
+    B = rows.shape[0]
+    dev = cache.k.device
+    own = plan.owner_mask_rows(layer, rows)  # (S, B)
+    hit = ((plan.slot_head[layer][:, None, None]
+            == torch.arange(n_heads, device=dev)[None, None, :])
+           & own[:, :, None])  # (S, B, H)
+    slot = hit.to(torch.int32).argmax(dim=0)  # (B, H) the owning slot
+    b_ix = torch.arange(B, device=dev)[:, None]
+    at = (slot, b_ix)
+    return (cache.k[layer][at], cache.v[layer][at], cache.lengths[layer][at],
+            cache.pos[layer][at])
+
+
+def _chunk_attention(pl, hn, positions, valid, cfg, layer_idx, cache, plan,
+                     ccfg, quota_l, rows):
+    """Attention over (retained cache ‖ current chunk), then compression at
+    the chunk boundary, for one layer.
+
+    Earlier chunks kept different entries per head, so each (row, head)
+    pair is its own batch element of `dense_attention`: its keys are the
+    head's retained entries followed by the chunk's keys, masked by the
+    retained length and ``valid`` and by the causal (and window) rule over
+    absolute positions (cache keys are post-RoPE, so order does not
+    matter).  At the boundary the SnapKV scores of the chunk's last
+    ``min(obs_window, Ck)`` valid queries over the chunk's own keys
+    (``kernels.ops.snapkv_scores``, kernel 2) feed the policy, whose
+    selection is appended after the existing entries (`append_selection`),
+    clamped by the valid tokens, the per-chunk ``quota_l`` and the slot's
+    headroom.  Returns (attention output (B, Ck, Hkv·G·Dh), cumulative
+    retained lengths (Hkv, B)).
+    """
+    B, Ck, D = hn.shape
+    Hkv, G, Dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
+    C = cache.k.shape[3]
+    fw = first_weights(pl, plan, layer_idx)
+    q = torch.einsum("btd,hdgx->bthgx", hn, fw["wq"])  # (B,Ck,Hkv,G,Dh)
+    k = torch.einsum("btd,hdx->bthx", hn, fw["wk"])
+    v = torch.einsum("btd,hdx->bthx", hn, fw["wv"])
+    q = q.reshape(B, Ck, Hkv * G, Dh)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    window = M.layer_window(cfg, layer_idx)
+
+    k_c, v_c, len_h, pos_h = _cache_head_view(cache, layer_idx, plan, rows, Hkv)
+    # (row, head) pairs as the batch: each head's cache holds its own keys
+    qh = (q.reshape(B, Ck, Hkv, G, Dh).permute(0, 2, 1, 3, 4)
+          .reshape(B * Hkv, Ck, G, Dh))
+    kx = k.permute(0, 2, 1, 3).reshape(B * Hkv, Ck, 1, Dh)
+    vx = v.permute(0, 2, 1, 3).reshape(B * Hkv, Ck, 1, Dh)
+    k_cat = torch.cat([k_c.reshape(B * Hkv, C, 1, Dh).to(kx.dtype), kx], dim=1)
+    v_cat = torch.cat([v_c.reshape(B * Hkv, C, 1, Dh).to(vx.dtype), vx], dim=1)
+    q_pos = positions[:, None, :].expand(B, Hkv, Ck)
+    k_pos = torch.cat([pos_h.reshape(B * Hkv, C), q_pos.reshape(B * Hkv, Ck)], dim=1)
+    dev = hn.device
+    in_cache = torch.arange(C, device=dev)[None, None, :] < len_h[..., None]
+    in_chunk = torch.arange(Ck, device=dev)[None, :] < valid[:, None]  # (B, Ck)
+    kv_mask = torch.cat([in_cache.reshape(B * Hkv, C),
+                         in_chunk[:, None, :].expand(B, Hkv, Ck).reshape(B * Hkv, Ck)],
+                        dim=1)
+    out = L.dense_attention(qh, k_cat, v_cat, q_pos.reshape(B * Hkv, Ck), k_pos,
+                            window=window, attn_cap=cfg.attn_softcap,
+                            kv_mask=kv_mask, causal=True)
+    out_flat = (out.reshape(B, Hkv, Ck, G, Dh).permute(0, 2, 1, 3, 4)
+                .reshape(B, Ck, Hkv * G * Dh))
+
+    # --- chunk-boundary compression --------------------------------------
+    W = min(ccfg.obs_window, Ck)
+    obs_ix = torch.clamp(valid[:, None] - W + torch.arange(W, device=dev)[None, :],
+                         0, Ck - 1).long()  # (B, W): the last W valid queries
+    q_obs = torch.gather(q, 1, obs_ix[:, :, None, None].expand(B, W, Hkv * G, Dh))
+    pos_obs = torch.gather(positions, 1, obs_ix)
+    scores = K.snapkv_scores(q_obs.contiguous(), k.contiguous(), pos_obs.contiguous(),
+                             positions.contiguous(), attn_cap=cfg.attn_softcap)
+    t_ix = torch.arange(Ck, device=dev)
+    scores = torch.where(t_ix[None, None, :] < valid[:, None, None], scores,
+                         float("-inf"))
+    scores = pool_scores(scores, ccfg.pool)
+    if window > 0:
+        end = (valid + positions[:, 0])[:, None, None]
+        scores = torch.where(positions[:, None, :] >= end - window, scores,
+                             float("-inf"))
+    idx, keep = policy_select(ccfg.policy, scores, ccfg, layer_idx, cfg.n_layers)
+    keep = torch.minimum(keep, valid[:, None])  # only real tokens
+    keep = torch.clamp(keep, max=int(quota_l))  # the chunk's share of the budget
+    keep = torch.minimum(keep, C - len_h)  # slot headroom
+    keep = torch.clamp(keep, min=0).to(torch.int32)
+    append_selection(cache, layer_idx, k, v, idx, keep, plan, rows, positions[:, 0])
+    return out_flat, (len_h + keep).T  # (Hkv, B)
+
+
+def prefill_chunk(
+    serve_params: dict,
+    tokens: torch.Tensor,  # (B, Ck) fixed-width chunk (padded past ``valid``)
+    cfg: ModelConfig,
+    plan: PlanArrays,
+    ccfg: CompressionConfig,
+    state: ServeState,
+    rows: torch.Tensor,  # (B,) global row ids
+    start: torch.Tensor,  # (B,) absolute position of chunk token 0
+    valid: torch.Tensor,  # (B,) real tokens in this chunk (<= Ck)
+    quota: Sequence[int],  # (L,) per-head keep cap for this chunk
+) -> Tuple[ServeState, torch.Tensor, torch.Tensor]:
+    """Process one fixed-width prompt chunk against an accumulating cache.
+
+    The chunked twin of `prefill`: the prompt arrives ``chunk_tokens`` at a
+    time, each chunk attends over the retained entries of the earlier
+    chunks plus its own keys, and the compression policy runs at the chunk
+    boundary, so per-head keep budgets accrue chunk by chunk.  ``tokens``
+    always has the same width: the scheduler pads the last chunk and
+    passes ``valid``.  ``state``'s slot cache is updated in place.
+
+    Dense decoder-only families only: SSM / hybrid recurrences and
+    encoder-decoder / VLM inputs do not carry across a chunk boundary.
+
+    Returns (state, logits (B, V) fp32 at the last valid token, lengths
+    (L, Hkv, B): the cumulative retained lengths after this chunk).
+    """
+    if cfg.family != "dense" or cfg.attention_free:
+        raise ValueError(
+            f"chunked prefill supports dense attention families only, "
+            f"got family={cfg.family!r}")
+    if cfg.is_encoder_decoder or cfg.is_vlm:
+        raise ValueError("chunked prefill does not support enc-dec / vlm")
+    _check_dense(cfg)
+    dev = tokens.device
+    h = L.embed(tokens, serve_params["embed"])  # (B, Ck, D)
+    B, Ck, _ = h.shape
+    start = torch.as_tensor(start, device=dev).to(torch.int32)
+    valid = torch.as_tensor(valid, device=dev).to(torch.int32)
+    rows = row_index(rows, dev)
+    positions = start[:, None] + torch.arange(Ck, dtype=torch.int32, device=dev)[None, :]
+    cache = state.cache
+    lengths_all = []
+    for i, pl in enumerate(serve_params["layers"]):
+        hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
+        attn_flat, lens = _chunk_attention(pl, hn, positions, valid, cfg, i, cache,
+                                           plan, ccfg, quota[i], rows)
+        h = h + _slot_o_proj(pl, attn_flat, cfg, plan, i)
+        lengths_all.append(lens)
+        hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
+        h = h + M.mlp_block(pl, hn2, cfg)
+
+    last_ix = torch.clamp(valid - 1, min=0).long()
+    h_last = torch.gather(h, 1, last_ix[:, None, None].expand(B, 1, h.shape[2]))
+    h_last = L.rms_norm(h_last, serve_params["final_norm"], cfg.rms_eps)
+    table = serve_params.get("head", serve_params["embed"])
+    logits = L.unembed(h_last, table, cfg.logit_softcap)[:, 0]
+    cache.positions.copy_(start + valid)
+    new_state = ServeState(
+        cache=cache,
+        last_tokens=torch.argmax(logits[..., :cfg.vocab_size], dim=-1),
+        decode_steps=state.decode_steps)
+    return new_state, logits, torch.stack(lengths_all)
 
 
 # ---------------------------------------------------------------------------

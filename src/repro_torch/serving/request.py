@@ -5,8 +5,9 @@ A ``Request`` carries one prompt through the scheduler's state machine::
 
     QUEUED ──admit──▶ PREFILLING ──splice──▶ DECODING ──EOS/max──▶ FINISHED
 
-PREFILLING is transient inside one scheduler tick (prefill runs, then the
-sub-state is spliced into a live batch row).  Timestamps are kept in
+PREFILLING lasts one scheduler tick for a monolithic prefill (prefill runs,
+then the sub-state is spliced into a live batch row) and one tick per
+chunk for a chunked prefill.  Timestamps are kept in
 scheduler steps (one decode tick each) and in wall-clock seconds.  Traces
 come from a seeded numpy generator with the reference's draw order, so
 one seed gives both packages the same requests.
@@ -55,6 +56,10 @@ class Request:
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     n_preemptions: int = 0  # times evicted back to QUEUED
+    # prefix cache: stamped on a hit, (L,) full blocks per layer reused
+    # from the index (admission charges only the unshared blocks)
+    prefix_shared_blocks: Optional[np.ndarray] = None
+    prefix_hit_tokens: int = 0  # matched prefix length at admission (0 = miss)
     # speculative decoding: lifetime draft tokens proposed and accepted
     # (acceptance = spec_accepted / spec_proposed feeds the adaptive depth)
     spec_proposed: int = 0
@@ -90,6 +95,8 @@ class Request:
         self.admit_step = None
         self.first_token_step = None
         self.first_token_time = None
+        self.prefix_shared_blocks = None  # stamped again at re-admission
+        self.prefix_hit_tokens = 0
         self.spec_proposed = 0  # the replay speculates from scratch
         self.spec_accepted = 0
         self.n_preemptions += 1
@@ -147,16 +154,45 @@ def synthesize_requests(
     max_prompt: int = 48,
     max_new_tokens: int = 12,
     seed: int = 0,
+    prefix_templates: int = 0,
+    prefix_len: int = 0,
+    shared_fraction: float = 0.0,
 ) -> List[Request]:
-    """A reproducible Poisson trace of random-token requests (the
-    reference's tenant mixes and shared-prefix templates are not ported:
-    the multi-tenant front end and prefix reuse are later work)."""
+    """A reproducible Poisson trace of random-token requests.
+
+    Shared-prefix traces: with ``prefix_templates > 0``, ``shared_fraction``
+    of the requests start with one of the template prefixes (``prefix_len``
+    tokens each, drawn once per template) followed by a unique random
+    suffix; the rest stay fully random at the same total length, so
+    sharing changes the cache topology, never the workload size.  The
+    reference's tenant mixes (and their binding of tenants to templates)
+    come with the multi-tenant front end.
+    """
     rng = np.random.default_rng(seed)
     arrivals = poisson_arrivals(n_requests, rate, rng)
+    templates = None
+    if prefix_templates > 0:
+        if prefix_len <= 0:
+            raise ValueError("prefix_templates > 0 requires prefix_len > 0")
+        if not 0.0 <= shared_fraction <= 1.0:
+            raise ValueError(f"shared_fraction must be in [0, 1], "
+                             f"got {shared_fraction}")
+        if prefix_len >= min_prompt:
+            raise ValueError(f"prefix_len ({prefix_len}) must leave room for a "
+                             f"unique suffix (min_prompt {min_prompt})")
+        templates = [rng.integers(0, vocab_size, size=prefix_len).astype(np.int32)
+                     for _ in range(prefix_templates)]
     reqs = []
     for i, step in enumerate(arrivals):
         T = int(rng.integers(min_prompt, max_prompt + 1))
-        prompt = rng.integers(0, vocab_size, size=T).astype(np.int32)
+        if templates is None:
+            prompt = rng.integers(0, vocab_size, size=T).astype(np.int32)
+        elif rng.random() < shared_fraction:
+            t_ix = int(rng.integers(len(templates)))
+            suffix = rng.integers(0, vocab_size, size=T - prefix_len).astype(np.int32)
+            prompt = np.concatenate([templates[t_ix], suffix])
+        else:
+            prompt = rng.integers(0, vocab_size, size=T).astype(np.int32)
         reqs.append(Request(req_id=i, prompt=prompt, arrival_step=int(step),
                             max_new_tokens=max_new_tokens))
     return reqs

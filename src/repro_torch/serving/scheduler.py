@@ -26,8 +26,18 @@ tokens per row with the target's first layers, checks them in one
 multi-query verify pass, commits the accepted run (1 to k + 1 tokens) and
 hands the rejected provisional blocks back to the pool.
 
-Not ported yet: the prefix index and chunked prefill (ROADMAP Queue A.7),
-and the observability hooks (A.9).
+Chunked prefill (``PrefixConfig.chunk_tokens`` > 0): a prompt longer than
+one chunk reserves its row and runs one chunk per tick in a private B = 1
+sub-state, so live rows keep decoding between its chunks; the final chunk
+splices it in.  Prefix reuse (``PrefixConfig.enabled``, paged backend):
+the full-chunk boundaries of finished prompts enter a content-addressed
+index (`repro_torch.prefix.PrefixIndex`); a later prompt that starts with
+the same tokens seeds its sub-state from the longest matching boundary,
+skips those chunks, and maps the shared blocks into its row instead of
+copying them.  Index-only entries are the first memory reclaimed when the
+pool runs dry, before any preemption.
+
+Not ported yet: the observability hooks (ROADMAP Queue A.9).
 """
 from __future__ import annotations
 
@@ -41,13 +51,16 @@ import torch
 
 from repro_torch.cache.slot_cache import PlanArrays
 from repro_torch.compression.base import CompressionConfig
+from repro_torch.compression.policies import layer_keep_bound
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.placement import HeadPlacement
 from repro_torch.core.planner import PlannerConfig, build_plan
 from repro_torch.exec.base import Executor
 from repro_torch.paging.block_pool import PoolExhausted
+from repro_torch.paging.paged_cache import PagedCache, paged_to_slot
+from repro_torch.prefix import PrefixConfig, PrefixEntry, PrefixIndex
 from repro_torch.serving.cache_backend import CacheBackend, make_cache_backend
-from repro_torch.serving.engine import _spec_supported, slotify_params
+from repro_torch.serving.engine import _spec_supported, init_serve_state, slotify_params
 from repro_torch.serving.request import Request, RequestState, latency_percentiles
 from repro_torch.serving.speculation import SpeculationConfig
 
@@ -72,6 +85,27 @@ class RowFreelist:
             raise ValueError(f"row {row} double-freed")
         self._free.append(row)
         self._free.sort()
+
+
+@dataclass
+class _ChunkJob:
+    """One chunked prefill in flight: the request sits in PREFILLING with
+    its row reserved while `Scheduler.step` advances its private B = 1
+    sub-state one chunk per tick.  It holds no block of the live state
+    until the final chunk splices (atomic on PoolExhausted), so aborting it
+    only unwinds the row, the pin and the request state."""
+
+    req: Request
+    row: int
+    prompt: np.ndarray
+    state: object  # B = 1 ServeState accumulating the retained chunks
+    next_pos: int = 0  # absolute position of the next chunk's first token
+    entry: Optional[PrefixEntry] = None  # pinned seed entry on a prefix hit
+    seed_tokens: int = 0  # tokens covered by the seed (0 = cold start)
+    # full-chunk boundary -> (L, H) cumulative retained lengths, taken as
+    # each chunk lands (the donor's input to index registration)
+    boundaries: Dict[int, np.ndarray] = field(default_factory=dict)
+    last_logits: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -130,9 +164,10 @@ class Scheduler:
     enters it).  ``step_s`` keeps the host wall time of every tick (each
     decode step ends in a device synchronize, so it covers the device
     work), ``prepare_s`` that of each tick's backend `prepare_decode`
-    (block allocation and table copy; preemptions included), and with
-    speculation on ``propose_s`` / ``verify_s`` those of each tick's draft
-    and verify steps.
+    (block allocation and table copy; preemptions included), ``chunk_s``
+    that of each chunked-prefill step, and with speculation on
+    ``propose_s`` / ``verify_s`` those of each tick's draft and verify
+    steps.
     """
 
     def __init__(self, cfg: ModelConfig, params: dict, plan: HeadPlacement,
@@ -140,7 +175,8 @@ class Scheduler:
                  executor: Executor, planner_cfg: Optional[PlannerConfig] = None,
                  dtype=torch.float32, serve_params: Optional[dict] = None,
                  backend: Optional[CacheBackend] = None,
-                 spec_cfg: Optional[SpeculationConfig] = None):
+                 spec_cfg: Optional[SpeculationConfig] = None,
+                 prefix_cfg: Optional[PrefixConfig] = None):
         self.cfg = cfg
         self.params = params  # original layout, kept to re-slotify on replan
         self.plan = plan
@@ -162,6 +198,18 @@ class Scheduler:
             max_live_tokens_per_shard=scfg.max_live_tokens_per_shard)
         with torch.inference_mode():
             self.state = self.backend.init_state(self.pa, scfg.max_rows, dtype)
+        # chunked prefill needs only the dense-attention chunk step; block
+        # sharing also needs the paged backend's refcounted pool
+        self.prefix_cfg = prefix_cfg if prefix_cfg is not None else PrefixConfig()
+        self.prefilling: Dict[int, _ChunkJob] = {}  # row -> job in flight
+        self._chunk_ok = (self.prefix_cfg.chunk_tokens > 0 and cfg.family == "dense"
+                          and not cfg.attention_free)
+        self.prefix: Optional[PrefixIndex] = None
+        if (self.prefix_cfg.enabled and self._chunk_ok
+                and self.backend.name == "paged"):
+            self.prefix = PrefixIndex(self.prefix_cfg.chunk_tokens,
+                                      self.prefix_cfg.max_entries)
+            self.prefix.pool = self.backend.pool
         # speculative decoding: provisional blocks come from the same pool
         # as ordinary decode growth, and rejection trims them back
         self.spec = spec_cfg if spec_cfg is not None and spec_cfg.enabled else None
@@ -197,6 +245,7 @@ class Scheduler:
         self.prepare_s: List[float] = []  # host time of each tick's prepare_decode
         self.propose_s: List[float] = []  # host time of each speculative draft step
         self.verify_s: List[float] = []  # host time of each verify step
+        self.chunk_s: List[float] = []  # host time of each chunked-prefill step
         self.decode_ticks = 0  # ticks that ran a decode step (plain or speculative)
 
     # ---- load accounting ---------------------------------------------------
@@ -249,7 +298,11 @@ class Scheduler:
     def admissible(self, req: Request) -> bool:
         if len(self.freelist) == 0:
             return False
-        return self.backend.admissible(self.state, req)
+        # chunked prefills in flight hold rows but no blocks until their
+        # final splice: charge them as pending, so admission does not
+        # promise the same free blocks twice
+        pending = [j.req for j in self.prefilling.values()]
+        return self.backend.admissible(self.state, req, pending=pending)
 
     def _admit(self, req: Request) -> Optional[int]:
         """Prefill + splice; returns the row, or None when the backend ran
@@ -288,6 +341,233 @@ class Scheduler:
             return True
         return req.eos_id is not None and req.generated[-1] == req.eos_id
 
+    # ---- chunked prefill + prefix sharing ----------------------------------
+
+    def _should_chunk(self, req: Request) -> bool:
+        """Prompts longer than one chunk take the chunked path; a prompt
+        that fits in one chunk gains nothing from it."""
+        return self._chunk_ok and req.prompt_len > self.prefix_cfg.chunk_tokens
+
+    def _stamp_prefix_hit(self, req: Request) -> Optional[PrefixEntry]:
+        """Look up the longest shared prefix and stamp the request's
+        admission discount (``prefix_shared_blocks``); returns the entry,
+        so admission seeds from it without a second lookup."""
+        if self.prefix is None or not self._should_chunk(req):
+            req.prefix_shared_blocks = None
+            return None
+        entry = self.prefix.lookup(np.asarray(req.prompt, np.int32))
+        if entry is None:
+            req.prefix_shared_blocks = None
+            req.prefix_hit_tokens = 0
+            return None
+        req.prefix_hit_tokens = entry.tokens
+        full = np.asarray(entry.lengths) // self.backend.block_size  # (L, H)
+        req.prefix_shared_blocks = full.sum(axis=1).astype(np.int64)
+        return entry
+
+    def _reclaim_for(self, req: Request, entry: Optional[PrefixEntry]):
+        """Nothing is live, so nothing will free blocks but the index:
+        evict its LRU entries until ``req`` is admissible (or none is left)
+        and return its hit, stamped again if the entry it matched went.
+        Without this an index holding the pool would stall admission for
+        good (the reference does: ROADMAP C.5)."""
+        while self.prefix is not None and not self.admissible(req):
+            if not self.prefix.evict_lru():
+                break
+            if entry is not None and entry.key not in self.prefix._entries:
+                entry = self._stamp_prefix_hit(req)
+        return entry
+
+    def _owned_heads(self, row: int):
+        """(l, s, head) of every slot that owns ``row`` (the strided owner
+        rule), in (layer, slot) order."""
+        sh = self.pa.slot_head.cpu().numpy()
+        ri = self.pa.replica_idx.cpu().numpy()
+        rc = self.pa.replica_count.cpu().numpy()
+        own = (sh >= 0) & ((row % np.maximum(rc, 1)) == ri)  # (L, S)
+        return [(int(l), int(s), int(sh[l, s])) for l, s in zip(*np.nonzero(own))]
+
+    def _head_slot_table(self, entry: PrefixEntry, row: int):
+        """Map an entry's head-indexed blocks onto the slots that own each
+        head for this row → ((L, S, 1, M) ids, (L, S, 1) lengths).
+        Replicas of a head serve disjoint rows, so donor and recipient may
+        keep one head in different slots; block content is per head, so
+        that is only a table rewrite."""
+        L, S = self.pa.slot_head.shape
+        M = self.backend.max_blocks
+        tbl = np.zeros((L, S, 1, M), np.int32)
+        lens = np.zeros((L, S, 1), np.int32)
+        n = min(entry.table.shape[2], M)
+        for layer, s, h in self._owned_heads(row):
+            tbl[layer, s, 0, :n] = entry.table[layer, h, :n]
+            lens[layer, s, 0] = entry.lengths[layer, h]
+        return tbl, lens
+
+    def _seed_from_entry(self, entry: PrefixEntry, row: int):
+        """A fresh B = 1 sub-state holding a matched prefix.
+
+        The entry's blocks are viewed through a one-row table and gathered
+        with `paged_to_slot`: a copy, so the shared blocks are read, never
+        aliased; the final splice maps the same blocks back into the row's
+        table without writing them.  Quantized pools dequantize through the
+        live scales into the model dtype, as a replan's migration does (the
+        reference's seed gathers the raw codes: ROADMAP C.4)."""
+        live = self.state.cache
+        tbl, lens = self._head_slot_table(entry, row)
+        view = PagedCache(
+            k_pool=live.k_pool, v_pool=live.v_pool, pos_pool=live.pos_pool,
+            block_table=torch.as_tensor(tbl, device=self.device),
+            lengths=torch.as_tensor(lens, device=self.device),
+            positions=torch.full((1,), entry.tokens, dtype=torch.int32,
+                                 device=self.device),
+            k_scale=live.k_scale, v_scale=live.v_scale)
+        slot = paged_to_slot(view, self.backend.capacity,
+                             kinds=self.backend._slot_kinds(self.pa),
+                             out_dtype=self.dtype)
+        return init_serve_state(self.cfg, self.pa, 1, self.ccfg, dtype=self.dtype,
+                                device=self.device, cache=slot)
+
+    def _start_chunked(self, req: Request, entry: Optional[PrefixEntry]) -> int:
+        """Begin a chunked prefill: reserve the row, seed from the matched
+        prefix boundary (if any) and leave the job in ``prefilling``;
+        `step` advances it one chunk per tick, so decode ticks of live rows
+        interleave instead of stalling behind a long prompt."""
+        row = self.freelist.acquire()
+        req.state = RequestState.PREFILLING
+        req.row = row
+        req.admit_step = self.step_idx
+        if entry is not None:
+            sub = self._seed_from_entry(entry, row)
+            self.prefix.pin(entry)  # immune to eviction while it is read
+            start = entry.tokens
+        else:
+            sub = init_serve_state(self.cfg, self.pa, 1, self.ccfg, dtype=self.dtype,
+                                   device=self.device)
+            start = 0
+        self.prefilling[row] = _ChunkJob(
+            req=req, row=row, prompt=np.asarray(req.prompt, np.int32), state=sub,
+            next_pos=start, entry=entry, seed_tokens=start)
+        return row
+
+    def _chunk_quota(self, T: int, n: int) -> np.ndarray:
+        """(L,) per-head keep cap of an ``n``-token chunk of a ``T``-token
+        prompt: the monolithic per-head bound prorated by the chunk's share
+        of the prompt (at least 1, so every chunk may keep something).  The
+        chunks' union then tracks the monolithic budget to within a block
+        of rounding per chunk; exact for policy "none"."""
+        H, L = self.cfg.n_kv_heads, self.cfg.n_layers
+        full = np.asarray([layer_keep_bound(self.ccfg.policy, self.ccfg, T, H, layer, L)
+                           // H for layer in range(L)], np.int64)
+        return np.maximum(1, np.ceil(full * n / T)).astype(np.int32)
+
+    def _run_chunks(self, events: dict) -> None:
+        """Advance every chunked prefill in flight by exactly one chunk: a
+        live row's decode latency is bounded by one chunk plus one decode
+        step, never a whole prefill."""
+        Ck = self.prefix_cfg.chunk_tokens
+        for row in sorted(self.prefilling):
+            job = self.prefilling[row]
+            T = int(job.prompt.shape[0])
+            n = min(Ck, T - job.next_pos)
+            chunk = np.zeros((1, Ck), np.int64)
+            chunk[0, :n] = job.prompt[job.next_pos:job.next_pos + n]
+            t0 = time.perf_counter()
+            job.state, logits, lens = self.executor.prefill_chunk(
+                self.sp, chunk, self.pa, job.state, rows=[row], start=[job.next_pos],
+                valid=[n], quota=self._chunk_quota(T, n))
+            self.chunk_s.append(time.perf_counter() - t0)
+            job.next_pos += n
+            if n == Ck:  # a full-chunk boundary: keep it for registration
+                job.boundaries[job.next_pos] = lens[:, :, 0].cpu().numpy()
+            if job.next_pos >= T:
+                job.last_logits = logits.cpu().numpy()
+                self._finish_chunked(job, events)
+
+    def _finish_chunked(self, job: _ChunkJob, events: dict) -> None:
+        """The final chunk landed: splice the sub-state into the live batch
+        (sharing the seed's blocks), stamp the first token (TTFT spans
+        every chunk: submit to here) and register the prompt's boundaries
+        as new prefix entries."""
+        req, row = job.req, job.row
+        shared = None
+        if job.entry is not None:
+            shared, _ = self._head_slot_table(job.entry, row)
+        while True:
+            try:
+                if shared is None:
+                    self.state = self.backend.splice(self.state, job.state, [row])
+                else:
+                    self.state = self.backend.splice(self.state, job.state, [row],
+                                                     shared_blocks=shared)
+                break
+            except PoolExhausted:
+                # the cheapest memory first: entries only the index holds
+                if self.prefix is not None and self.prefix.evict_lru():
+                    continue
+                self._abort_job(job, requeue=True)
+                return
+        del self.prefilling[row]
+        if job.entry is not None:
+            self.prefix.unpin(job.entry)
+        req.generated.append(int(job.state.last_tokens[0]))
+        req.first_token_step = self.step_idx
+        req.first_token_time = time.time()
+        if self.scfg.collect_logits:
+            req.logits = [job.last_logits[0]]
+        req.state = RequestState.DECODING
+        self.active[row] = req
+        # register before any retirement: entries take their references off
+        # the row's table, which release_rows clears
+        self._register_boundaries(job)
+        if self._done(req):
+            self._retire(req)
+            events["finished"].append(req.req_id)
+
+    def _abort_job(self, job: _ChunkJob, requeue: bool) -> None:
+        """Unwind a job whose splice never landed: it holds no blocks, so
+        only the row, the pin and the request state roll back."""
+        del self.prefilling[job.row]
+        if job.entry is not None:
+            self.prefix.unpin(job.entry)
+        self.freelist.release(job.row)
+        req = job.req
+        req.row = None
+        if requeue:
+            req.state = RequestState.QUEUED
+            req.admit_step = None
+            req.generated = []
+            req.prefix_shared_blocks = None
+            req.prefix_hit_tokens = 0
+            self.queue.appendleft(req)
+
+    def _register_boundaries(self, job: _ChunkJob) -> None:
+        """The donor's side of the index: adopt the prompt's full-chunk
+        boundaries.  An entry keeps full blocks only, its lengths cut to
+        the block-aligned prefix: the partial tail block stays private to
+        the row (its later appends would leak into sharers), and a later
+        hit recomputes what was cut."""
+        if self.prefix is None:
+            return
+        bs = self.backend.block_size
+        L, H, M = self.cfg.n_layers, self.cfg.n_kv_heads, self.backend.max_blocks
+        owned = self._owned_heads(job.row)
+        for t_j, key in self.prefix.chain_keys(job.prompt):
+            if t_j <= job.seed_tokens or t_j not in job.boundaries:
+                continue
+            full = (job.boundaries[t_j] // bs) * bs  # (L, H) block-aligned
+            if not full.any():
+                continue
+            table = np.zeros((L, H, M), np.int32)
+            for layer, s, h in owned:
+                nb = int(full[layer, h]) // bs
+                if nb:
+                    table[layer, h, :nb] = self.backend.table[layer, s, job.row, :nb]
+            self.prefix.register(key, t_j, table, full.astype(np.int32))
+
+    def prefix_stats(self) -> dict:
+        """The index's counters and entry census (empty without sharing)."""
+        return {} if self.prefix is None else self.prefix.stats()
+
     def _release_row(self, req: Request) -> None:
         """Free a live request's row and its storage (retirement,
         cancellation and preemption share it)."""
@@ -310,12 +590,18 @@ class Scheduler:
     @torch.inference_mode()
     def cancel(self, req_id: int) -> bool:
         """Retire a request early (client disconnect, deadline shed): a live
-        row is released like a normal retirement, a queued request is
-        dropped.  It lands in ``finished`` as CANCELLED.  False when the id
+        row is released like a normal retirement, a request mid chunked
+        prefill gives back its row and pin (it holds no blocks yet), a
+        queued request is dropped.  It lands in ``finished`` as CANCELLED.  False when the id
         is unknown or already finished."""
         req = next((r for r in self.active.values() if r.req_id == req_id), None)
+        job = next((j for j in self.prefilling.values() if j.req.req_id == req_id),
+                   None)
         if req is not None:
             self._release_row(req)
+        elif job is not None:  # mid chunked prefill: no blocks held yet
+            req = job.req
+            self._abort_job(job, requeue=False)
         else:
             req = next((r for r in self.queue if r.req_id == req_id), None)
             if req is None:
@@ -366,6 +652,10 @@ class Scheduler:
                 self.prepare_s.append(time.perf_counter() - t0)
                 return
             except PoolExhausted as e:
+                # drop index-only prefix entries before evicting live work:
+                # a dropped entry may cost a recompute, a preemption costs one
+                if self.prefix is not None and self.prefix.evict_lru():
+                    continue
                 if not self._preempt_one():
                     raise RuntimeError(
                         "cache pool exhausted with nothing left to preempt "
@@ -378,6 +668,7 @@ class Scheduler:
         """Trigger armed and enough live rows for a meaningful profile."""
         return (self.scfg.enable_replan
                 and len(self.active) >= self.scfg.replan_min_rows
+                and not self.prefilling  # sub-states pin the current plan
                 and self.trigger.ready(self.step_idx))
 
     @staticmethod
@@ -401,7 +692,9 @@ class Scheduler:
         heterogeneous shards (and persists for later replans).  The
         candidate is scored on its realized lengths after migration and
         rejected (no state change, cooldown still consumed) unless it
-        strictly lowers the per-shard imbalance.
+        strictly lowers the per-shard imbalance.  It is refused while
+        chunked prefills are in flight: their sub-states are laid out under
+        the current plan and their seeds read the current pool.
         """
         with torch.inference_mode():
             return self._replan_impl(profile, shard_speeds)
@@ -413,6 +706,12 @@ class Scheduler:
         before = self._imbalance_of(self.state.cache.lengths.cpu().numpy(),
                                     self.plan.n_shards, self.plan.slots_per_shard,
                                     speeds)
+        if self.prefilling:
+            event = {"step": self.step_idx, "imbalance_before": before,
+                     "imbalance_after": before, "accepted": False,
+                     "rejected_reason": "chunked prefills in flight"}
+            self.replan_log.append(event)
+            return event
         profile = (self.realized_profile() if profile is None
                    else np.asarray(profile, np.float64))
         new_plan = build_plan(profile, self.plan.n_shards, self.pcfg,
@@ -439,6 +738,12 @@ class Scheduler:
         self.state.cache = commit()
         self.plan, self.pa = new_plan, new_pa
         self.sp = slotify_params(self.params, new_plan, self.cfg)
+        if self.prefix is not None:
+            # the backend rebuilt its pool from the live tables only (shared
+            # rows became private copies): the index's references died with
+            # the old pool, so drop the entries without a decref
+            self.prefix.flush(decref=False)
+            self.prefix.pool = self.backend.pool
         self.n_replans += 1
         self.replan_log.append(event)
         return event
@@ -558,9 +863,19 @@ class Scheduler:
         while self.queue and not self.draining:
             i = min(range(len(self.queue)), key=lambda j: (self.queue[j].priority, j))
             req = self.queue[i]
+            # prefix lookup before the admission check: a hit discounts the
+            # shared blocks from the request's charge
+            entry = self._stamp_prefix_hit(req)
             if not self.admissible(req):
-                break
+                if self.active or self.prefilling:
+                    break  # live rows will free blocks as they retire
+                entry = self._reclaim_for(req, entry)
+                if not self.admissible(req):
+                    break
             del self.queue[i]
+            if self._should_chunk(req):
+                events["admitted"].append((req.req_id, self._start_chunked(req, entry)))
+                continue
             row = self._admit(req)
             if row is None:  # backend memory dry
                 self.queue.appendleft(req)
@@ -568,6 +883,10 @@ class Scheduler:
             events["admitted"].append((req.req_id, row))
             if req.is_finished:  # max_new_tokens == 1 or instant EOS
                 events["finished"].append(req.req_id)
+        # one chunk of every chunked prefill in flight, then one decode tick:
+        # a long prompt never blocks the live rows for its whole prefill
+        if self.prefilling:
+            self._run_chunks(events)
         # one decode tick for every live row: speculative (draft proposals
         # + one multi-query verify) when configured, single-token otherwise
         if self.active and self.spec is not None:
@@ -604,7 +923,7 @@ class Scheduler:
                     self.finished.append(pending[i])
                     self.n_cancellations += 1
                     i += 1
-                if not self.active:
+                if not self.active and not self.prefilling:
                     break
             while (not self.draining and i < len(pending)
                    and pending[i].arrival_step <= self.step_idx):

@@ -13,7 +13,9 @@ to the paged kernel over an identity block table.  The paged kernels share
 one body: every query of the multi-query kernel is held bitwise to the
 single-query kernel at its causal length and position (all pool kinds,
 window and softcap, query chunks, lengths up to 1600 at block sizes 8, 16
-and 32), and both kernels bitwise to themselves on relabelled pool blocks.
+and 32), and both kernels bitwise to themselves on relabelled pool blocks.  The
+score kernel is also held at the chunked-prefill shape, and a shared-prefix
+trace on the card gives the CPU path's tokens.
 """
 import numpy as np
 import pytest
@@ -84,6 +86,64 @@ def test_snapkv_scores_kernel(gen, dtype, B, W, Hq, Hkv, Dh, T, cap):
     assert bool(((out - ref).abs() <= 1e-4 + 1e-5 * ref.abs()).all())
     mass = out.sum(-1)
     assert torch.allclose(mass, torch.full_like(mass, W * Hq // Hkv), rtol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("start,valid,cap", [
+    (0, 512, 0.0), (1024, 512, 0.0), (1024, 300, 50.0), (1536, 20, 0.0)])
+def test_snapkv_scores_kernel_chunk_shape(gen, dtype, start, valid, cap):
+    """Kernel 2 as chunked prefill calls it: B = 1, 512 chunk keys at
+    absolute positions from ``start``, the last 32 valid queries (clipped
+    at the chunk's first token when fewer than 32 are valid); the padding
+    keys of a last chunk are scored exactly 0."""
+    from repro_torch.kernels.snapkv_select import snapkv_scores_cuda
+    Ck, W, Hq, Hkv, Dh = 512, 32, 32, 8, 128
+    q_all = torch.randn((1, Ck, Hq, Dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((1, Ck, Hkv, Dh), generator=gen, device="cuda").to(dtype)
+    kp = (start + torch.arange(Ck, dtype=torch.int32, device="cuda"))[None].contiguous()
+    ix = torch.clamp(valid - W + torch.arange(W, device="cuda"), 0, Ck - 1)
+    q, op = q_all[:, ix].contiguous(), kp[:, ix].contiguous()
+    before = build.LAUNCHES["snapkv_scores"]
+    out = snapkv_scores_cuda(q, k, op, kp, cap)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["snapkv_scores"] == before + 1
+    ref = snapkv_scores_ref(q, k, op, kp, cap)
+    assert bool(((out - ref).abs() <= 1e-4 + 1e-5 * ref.abs()).all())
+    mass = out.sum(-1)
+    assert torch.allclose(mass, torch.full_like(mass, W * Hq // Hkv), rtol=1e-4)
+    assert not bool(out[..., valid:].any())
+
+
+def test_prefix_run_trace_cuda_matches_cpu():
+    """Chunked prefill with prefix sharing on the card: the CPU path's
+    tokens, hits and CoW-free topology (fp32 weights); kernel 2 runs once
+    per layer per chunk."""
+    from repro_torch.api import PrefixConfig
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (the kernels have no CPU mode)")
+    kw = dict(max_seq_len=256, cache_backend="paged", paging=PagingConfig(block_size=16),
+              compression=CompressionConfig(policy="none", budget=128, capacity=128,
+                                            decode_margin=8, obs_window=8),
+              planner=PlannerConfig(batch_cap=3),
+              scheduler=SchedulerConfig(max_rows=3, enable_replan=False),
+              prefix=PrefixConfig(enabled=True, chunk_tokens=16))
+    cpu = Engine.build(EngineConfig.smoke("minitron-8b", device="cpu", **kw))
+    params = {"embed": cpu.params["embed"].cuda(), "head": cpu.params["head"].cuda(),
+              "final_norm": cpu.params["final_norm"].cuda(),
+              "layers": [{k: v.cuda() for k, v in pl.items()} for pl in cpu.params["layers"]]}
+    gpu = Engine.build(EngineConfig.smoke("minitron-8b", device="cuda", **kw), params=params)
+    traces = [synthesize_requests(6, 0.4, cpu.cfg.model.vocab_size, min_prompt=36,
+                                  max_prompt=56, max_new_tokens=5, seed=1,
+                                  prefix_templates=2, prefix_len=32, shared_fraction=0.8)
+              for _ in range(2)]
+    cpu.run_trace(traces[0])
+    build.reset_launches()
+    gpu.run_trace(traces[1])
+    assert [r.generated for r in traces[0]] == [r.generated for r in traces[1]]
+    assert gpu.prefix_stats() == cpu.prefix_stats() and gpu.prefix_stats()["hits"] >= 1
+    chunks = len(gpu.scheduler.chunk_s)
+    assert build.LAUNCHES["snapkv_scores"] == cpu.cfg.model.n_layers * chunks > 0
+    assert [r.prefix_hit_tokens for r in traces[0]] == [r.prefix_hit_tokens for r in traces[1]]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -10,7 +10,7 @@ fp8, with online replanning (the same accepted/rejected replan sequence)
 and on an undersized pool (the same preemption count); per-token logits
 within 1e-4 (fp32, summation order).  Also one-shot `generate` on the
 paged backend, the fail-fast and unknown-backend errors, the port's
-stream / cancel / drain, and the refusals of what is not ported yet.
+stream / cancel / drain, and the refusal of what is not ported yet.
 """
 import jax
 import numpy as np
@@ -211,21 +211,10 @@ def test_stream_cancel_drain(runs):
 
 
 def test_unported_features_refuse(runs):
-    """Pool partitions (A.10) and shared prefix blocks (prefix reuse with
-    chunked prefill, A.7) still raise."""
+    """Pool partitions (the multi-GPU executor, A.10) still raise."""
     from repro_torch.paging.paged_cache import init_paged_cache
     with pytest.raises(NotImplementedError, match="Queue A.10"):
         init_paged_cache(1, 4, 2, 16, 8, PagingConfig(), partitions=(2, 1))
-    _, params = runs["params"]
-    _, tc = _configs("paged")
-    eng = Engine.build(tc, params=params)
-    sched = eng._ensure_scheduler()
-    with torch.inference_mode():
-        sub, _, _ = eng.executor.prefill(eng.sp, eng._as_batch(np.arange(12)[None]), eng.pa,
-                                         rows=[0])
-        with pytest.raises(NotImplementedError, match="Queue A.7"):
-            sched.backend.splice(sched.state, sub, [0],
-                                 shared_blocks=np.ones((tc.model.n_layers,), np.int64))
 
 
 def test_request_trace_matches_reference():
