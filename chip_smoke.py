@@ -41,7 +41,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    bf16 pools next to the slot run (lengths bitwise, logit gap under the
    bf16 bound, 32 paged-kernel launches per step, no slot-kernel launch),
    then int8 and fp8 pools against the bf16 pools (logit cosine, argmax
-   agreement; bars in QUANT_BARS);
+   agreement; bars in QUANT_BARS); one profiled step per pool format
+   (device time, `prepare_decode` host time);
 7. continuous batching: a 24-request Poisson trace (prompts 512-2048
    tokens, 16-64 new tokens) through `Engine.run_trace` with 8 rows and
    online replanning, on the slot backend, bf16 pools, int8 pools and an
@@ -63,13 +64,30 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    late sharer's tokens equal to an unshared engine's; (k) Ada-SnapKV
    with sharing beside phase 7's bf16 configuration on the same trace
    (peak blocks, TTFT, tokens/s, share of equal tokens);
-9. time each kernel, its plain version and the PyTorch library call where
+9. CUDA graphs against eager execution at full width.  Every phase above
+   runs its decode, propose, verify and chunk steps as CUDA graphs
+   (`repro_torch.exec.local`; prefill stays eager); each continuous run
+   captures them in `Engine.warmup` and fails if its trace captures again
+   or copies into a graph's storage (a replan, splice or retirement that
+   allocated new tensors).  This phase first names the op behind the
+   generic elementwise kernel of the einsum-based decode step
+   (torch.profiler grouped by op and input shapes over the einsum slot
+   projections and over one eager decode step as it is computed now,
+   which must copy no slot weight), then runs
+   eagerly: one-shot fairkv_dp (phase 5's tokens and lengths, the logit
+   gap printed and bounded; then a replan and a second generate on the
+   graphed engine capture nothing more), (b) (tokens and replan
+   decisions), (e) (tokens and acceptance) and (i) (tokens, hits,
+   copy-on-write), each on its whole trace, and prints host-clocked and
+   device time per one-shot step, continuous tick, speculative tick and
+   chunk step, graphed and eager;
+10. time each kernel, its plain version and the PyTorch library call where
    one exists on the main path's own inputs (device time from CUDA events,
    median of 25 runs after warmup, L2 flushed before each run; snapkv
    also at B = 1 and at the chunk shape) beside the least time the card
    could take, and print them as one JSON line; the host time per call of
    kernels 1 and 2;
-10. last line: {"ok": true, "device": {...}}.
+11. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -847,6 +865,11 @@ def main_path():
     return eng, launches, ctx
 
 
+# (step kind, "graphs" | "eager") -> (host-clocked ms, device ms) per step,
+# filled by the profiling passes, printed by phase 9
+TIMES = {}
+
+
 def _device_profile(fn, ours_keys=("fairkv_decode_kernel", "snapkv_")):
     """Run ``fn`` under torch.profiler; returns (wall s, total device us,
     device us of the kernels whose names contain one of ``ours_keys``, top
@@ -869,11 +892,12 @@ def _device_profile(fn, ours_keys=("fairkv_decode_kernel", "snapkv_")):
     return wall, total, ours, kernels[:6]
 
 
-def profile_decode(eng, step_s, steps=4):
+def profile_decode(eng, step_s, steps=4, label="graphs"):
     """One torch.profiler pass over a few decode steps (and one over a
     prefill): the kernels' share of device time, the top device kernels,
     and the device's busy share of the wall time (under the profiler, and
-    against ``step_s``, the un-profiled median step)."""
+    against ``step_s``, the un-profiled median step).  ``label`` names the
+    executor (CUDA graphs or eager) in `TIMES`."""
     box = {"state": eng.state}
 
     def decode():
@@ -886,7 +910,8 @@ def profile_decode(eng, step_s, steps=4):
         log("[profile] torch.profiler recorded no device time: share not measured")
         return None
     share = ours / total
-    log(f"[profile] {steps} decode steps: device busy {total / 1e3:.2f} ms of "
+    TIMES[("one-shot step", label)] = (1e3 * step_s, total / 1e3 / steps)
+    log(f"[profile] {label}: {steps} decode steps: device busy {total / 1e3:.2f} ms of "
         f"{wall * 1e3:.2f} ms wall ({100 * total / 1e6 / wall:.1f}%); "
         f"fairkv_decode kernel {ours / 1e3:.3f} ms = {100 * share:.2f}% of device time; "
         f"device time per step {total / 1e3 / steps:.2f} ms = "
@@ -985,6 +1010,7 @@ def paged_oneshot(ctx):
         for k, v in got.items():
             out["launches"][k] = out["launches"].get(k, 0) + v
         out[name] = _layer0(eng.state.cache)
+        profile_paged_step(eng, name)
         if kv == "fp32":
             slot = ctx["slot_dp"]
             if not np.array_equal(res.lengths, slot.lengths):
@@ -1017,6 +1043,33 @@ def paged_oneshot(ctx):
     return out
 
 
+def profile_paged_step(eng, name, steps=2):
+    """Where a one-shot paged step's time goes (bf16, int8 or fp8 pools):
+    the host time of `prepare_decode` and, under torch.profiler, the
+    device time per step of the graphed decode step and its top kernels."""
+    import torch
+    prep = []
+
+    def step():
+        t0 = time.perf_counter()
+        state = eng.backend.prepare_decode(eng.state, None)
+        prep.append(time.perf_counter() - t0)
+        eng.state, _ = eng.executor.decode(eng.sp, state, eng.pa)
+
+    with torch.inference_mode():
+        wall, total, ours, top = _device_profile(lambda: [step() for _ in range(steps)],
+                                                 ours_keys=("paged_decode_kernel",))
+    if total <= 0:
+        log(f"[profile] torch.profiler recorded no device time for the {name} paged step")
+        return
+    log(f"[profile] one-shot paged step, {name} pools: device {total / 1e3 / steps:.2f} ms per "
+        f"step ({100 * total / 1e6 / wall:.1f}% of the profiled wall); prepare_decode "
+        f"{1e3 * statistics.mean(prep):.2f} ms host per step; paged_fairkv_decode "
+        f"{ours / 1e3 / steps:.3f} ms per step")
+    for kname, us in top[:4]:
+        log(f"[profile]   {name} step top kernel {us / 1e3 / steps:8.3f} ms/step  {kname}")
+
+
 # ---------------------------------------------------------------------------
 # phase 7: continuous batching at full width
 # ---------------------------------------------------------------------------
@@ -1047,8 +1100,16 @@ def make_trace(vocab):
     return reqs
 
 
+def eager_executor(cfg):
+    """A `LocalExecutor` that runs every step eagerly (no CUDA graph): the
+    comparison phase 9 holds the graphs to."""
+    from repro_torch.exec.local import LocalExecutor
+    return LocalExecutor(cfg.model, cfg.compression, paging=cfg.paging, device="cuda",
+                         graphs=False)
+
+
 def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
-                   changes=None, reqs=None):
+                   changes=None, reqs=None, eager=False):
     """One trace through `Engine.run_trace` (8 rows, replanning on with
     `SchedulerConfig`'s defaults) with the launch counters zeroed just
     before and read just after; checks that every request finished with
@@ -1059,7 +1120,11 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
     fields (compression, planner, scheduler, prefix, ...) and ``reqs`` a
     trace other than `make_trace`'s.  With sharing on, the largest block
     refcount seen while requests are live is recorded after every tick.
-    Returns (launches, summary)."""
+    The steps run as CUDA graphs, captured by `Engine.warmup` before the
+    counted run; the trace must capture nothing more (replans, splices,
+    retirements and copy-on-write write into the captured tensors) and
+    copy nothing into a graph's storage.  ``eager`` runs every step
+    eagerly instead.  Returns (launches, summary)."""
     import numpy as np
     import torch
     from repro_torch.api import Engine, PagingConfig, SchedulerConfig, SpeculationConfig
@@ -1073,6 +1138,8 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
                   speculation=spec)
     cfg = ctx["cfg"].replace(**{**fields, **(changes or {})})
     eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
+    if eager:
+        eng.executor = eager_executor(cfg)
     reqs = make_trace(m.vocab_size) if reqs is None else reqs
     n_req = len(reqs)
     chunk = cfg.prefix.chunk_tokens
@@ -1089,9 +1156,26 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
                 max_ref[0] = max(max_ref[0], int(sched.backend.pool.refcount[:, 1:].max()))
             return ev
         sched.step = watched
+    ex = eng.executor
+    t_warm = time.perf_counter()
+    eng.warmup()
+    t_warm = time.perf_counter() - t_warm
+    captured = dict(ex.step_traces)
+    # one capture per distinct step shape: the decode step, the chunk step
+    # when chunking, propose and verify when speculating; prefill is eager
+    shapes = {"prefill": 0, "decode": 1, "prefill_chunk": int(bool(chunk)),
+              "propose": int(spec.enabled), "verify": int(spec.enabled)}
+    if not eager and captured != shapes:
+        fail(f"{name}: warmup captured {captured}, expected one graph per step shape {shapes}")
     torch.cuda.reset_peak_memory_stats()
     summary, got = _count(lambda: eng.run_trace(reqs, max_steps=5000))
     ticks = summary["decode_ticks"]
+    if ex.step_traces != captured:
+        fail(f"{name}: the trace captured again: {ex.step_traces} after warmup's {captured}")
+    moved = {k: ex.rebinds[k] for k in ("decode", "propose", "verify")}
+    if any(moved.values()):
+        fail(f"{name}: tensors moved under captured steps (copies into graph storage "
+             f"{moved}): a replan, splice or retirement allocated new storage")
     admissions = n_req + summary["preemptions"]
     lat = summary["latency"]
     step_ms = 1e3 * np.asarray(sched.step_s)
@@ -1123,7 +1207,10 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
            f"{summary['spec_proposed']}) | host ms per tick (median): prepare "
            f"{host_ms['prepare_s']:.2f}, propose {host_ms['propose_s']:.2f}, verify "
            f"{host_ms['verify_s']:.2f} | " if spec.enabled else "")
-        + f"launches {got}")
+        + f"launches {got} | "
+        + ("eager executor" if eager else
+           f"CUDA graphs captured by warmup ({t_warm:.2f} s) {captured}, replays "
+           f"{ex.replays}, copies into graph storage {ex.rebinds}"))
     if summary["finished"] != n_req or any(not r.is_finished or r.cancelled for r in reqs):
         fail(f"{name}: {summary['finished']} of {n_req} requests finished")
     if summary["generated_tokens"] != sum(r.max_new_tokens for r in reqs):
@@ -1164,6 +1251,7 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
                chunks=len(sched.chunk_s), prefix=stats, max_refcount=max_ref[0],
                index_blocks_at_end=held, cow_copies=getattr(sched.backend, "cow_copies", 0),
                hit_tokens=[r.prefix_hit_tokens for r in reqs],
+               captures=captured, eager=eager,
                **{f"{k[:-2]}_ms_median": v for k, v in host_ms.items()})
     if logits:
         out["logits"] = [np.stack(r.logits) for r in reqs]
@@ -1296,6 +1384,9 @@ def continuous_runs(ctx):
          for k, v in runs.items()}))
     ctx["cont_bf16"] = {k: v for k, v in runs["paged bf16"].items()
                         if k not in ("tokens", "logits")}
+    # what phase 9 holds the eager runs to
+    ctx["graphed"] = {"(b)": {k: runs["paged bf16"][k] for k in ("tokens", "replan_decisions")},
+                      "(e)": {k: runs["spec d=8"][k] for k in ("tokens", "acceptance")}}
     del runs, a, b, plain, e, f, g
     gc.collect()
     profile_continuous(ctx)
@@ -1303,12 +1394,13 @@ def continuous_runs(ctx):
     return launches, mq_inputs
 
 
-def profile_continuous(ctx, steps=4):
+def profile_continuous(ctx, steps=4, eager=False):
     """Where a continuous decode tick's time goes, on paged bf16 pools with
     replanning off (no replan inside the measured ticks): fill all eight
     rows, then a few pure decode ticks un-profiled (with the scheduler's
     own `prepare_decode` host time) and one torch.profiler pass over as
-    many more; the requests are cancelled afterwards."""
+    many more; the requests are cancelled afterwards.  ``eager`` times the
+    eager executor instead of the CUDA graphs."""
     import numpy as np
     import torch
     from repro_torch.api import Engine, PagingConfig, SchedulerConfig
@@ -1318,6 +1410,8 @@ def profile_continuous(ctx, steps=4):
         cache_backend="paged", paging=PagingConfig(block_size=BLOCK),
         scheduler=SchedulerConfig(max_rows=MAX_ROWS, enable_replan=False))
     eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
+    if eager:
+        eng.executor = eager_executor(cfg)
     rng = np.random.default_rng(SEED + 7)
     reqs = [eng.submit(rng.integers(0, cfg.model.vocab_size, size=PROMPT_MAX // 2),
                        max_new_tokens=NEW_MAX) for _ in range(MAX_ROWS)]
@@ -1336,7 +1430,9 @@ def profile_continuous(ctx, steps=4):
     if total <= 0:
         log("[profile] torch.profiler recorded no device time for the continuous ticks")
         return
-    log(f"[profile] continuous paged bf16, {MAX_ROWS} live rows: un-profiled tick "
+    label = "eager" if eager else "graphs"
+    TIMES[("continuous tick", label)] = (plain_ms, total / 1e3 / steps)
+    log(f"[profile] {label}: continuous paged bf16, {MAX_ROWS} live rows: un-profiled tick "
         f"{plain_ms:.2f} ms; prepare_decode {1e3 * float(np.mean(spent)):.3f} ms host per "
         f"tick; profiled {steps} ticks: device busy {total / 1e3:.2f} ms of {wall * 1e3:.2f} ms "
         f"wall ({100 * total / 1e6 / wall:.1f}%), device time per tick {total / 1e3 / steps:.2f} ms "
@@ -1347,14 +1443,17 @@ def profile_continuous(ctx, steps=4):
         log(f"[profile]   tick top kernel {us / 1e3 / steps:8.3f} ms/tick  {name}")
 
 
-def profile_speculative(ctx, steps=4):
+def profile_speculative(ctx, steps=4, eager=False):
     """Where a speculative tick's time goes, with (e)'s speculation on paged
     bf16 pools and replanning off: fill all eight rows, then a few ticks
     un-profiled (with the scheduler's host timers of prepare, propose and
     verify) and one torch.profiler pass over as many more, which gives the
     multi-query kernel's share of device time.  One more tick records the
     multi-query kernel's inputs at layer 0 (Q = max_k + 1 = 5), which phase
-    8 times.  The requests are cancelled afterwards."""
+    10 times; that tick runs eagerly (a graph replay calls no Python, so
+    nothing could record its inputs).  The requests are cancelled
+    afterwards.  ``eager`` times the eager executor instead of the CUDA
+    graphs and records no inputs."""
     import numpy as np
     import torch
     from repro_torch.api import Engine, PagingConfig, SchedulerConfig, SpeculationConfig
@@ -1366,6 +1465,8 @@ def profile_speculative(ctx, steps=4):
         scheduler=SchedulerConfig(max_rows=MAX_ROWS, enable_replan=False),
         speculation=SpeculationConfig(**SPEC_E))
     eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
+    if eager:
+        eng.executor = eager_executor(cfg)
     rng = np.random.default_rng(SEED + 7)
     reqs = [eng.submit(rng.integers(0, cfg.model.vocab_size, size=PROMPT_MAX // 2),
                        max_new_tokens=NEW_MAX) for _ in range(MAX_ROWS)]
@@ -1380,6 +1481,17 @@ def profile_speculative(ctx, steps=4):
             for k in ("prepare_s", "propose_s", "verify_s")}
     wall, total, ours, top = _device_profile(lambda: [eng.step() for _ in range(steps)],
                                              ours_keys=("paged_decode_mq_kernel",))
+    label = "eager" if eager else "graphs"
+    if total > 0:
+        TIMES[("speculative tick", label)] = (tick_ms, total / 1e3 / steps)
+    if eager:
+        for r in reqs:
+            eng.cancel(r.req_id)
+        log(f"[profile] eager: speculative tick {tick_ms:.2f} ms un-profiled; host ms per "
+            f"tick: prepare {host['prepare_s']:.3f}, propose {host['propose_s']:.2f}, "
+            f"verify {host['verify_s']:.2f}; device {total / 1e3 / steps:.2f} ms per tick "
+            f"({100 * total / 1e6 / wall:.1f}% busy under the profiler)")
+        return None
     seen = {}
     orig = ops.paged_fairkv_decode
 
@@ -1391,10 +1503,12 @@ def profile_speculative(ctx, steps=4):
         return orig(q, *args, **kw)
 
     ops.paged_fairkv_decode = spy
+    sched.executor = eager_executor(cfg)
     try:
         eng.step()
     finally:
         ops.paged_fairkv_decode = orig
+        sched.executor = eng.executor
     for r in reqs:
         eng.cancel(r.req_id)
     if not seen:
@@ -1402,7 +1516,7 @@ def profile_speculative(ctx, steps=4):
     if total <= 0:
         log("[profile] torch.profiler recorded no device time for the speculative ticks")
     else:
-        log(f"[profile] speculative paged bf16 (draft 8 layers, max_k 4), {MAX_ROWS} live "
+        log(f"[profile] graphs: speculative paged bf16 (draft 8 layers, max_k 4), {MAX_ROWS} live "
             f"rows: un-profiled tick {tick_ms:.2f} ms; host ms per tick: prepare "
             f"{host['prepare_s']:.3f}, propose {host['propose_s']:.2f}, verify "
             f"{host['verify_s']:.2f}; profiled {steps} ticks: device busy {total / 1e3:.2f} ms "
@@ -1515,6 +1629,7 @@ def prefix_runs(ctx):
         f"chunks {i['chunks']} vs {h['chunks']}")
     if same != N_REQ:
         fail(f"(i) vs (h): only {same}/{N_REQ} requests with identical tokens")
+    ctx["graphed"]["(i)"] = {k: i[k] for k in ("tokens", "prefix", "cow_copies", "hit_tokens")}
     if i["prefix"]["hits"] < 1 or i["max_refcount"] <= 1:
         fail(f"(i): no sharing ({i['prefix']}, max refcount {i['max_refcount']})")
     if not i["peak_blocks"] < h["peak_blocks"]:
@@ -1579,11 +1694,12 @@ def prefix_runs(ctx):
     return launches
 
 
-def profile_chunk(ctx):
+def profile_chunk(ctx, eager=False):
     """Where a chunked-prefill step's time goes, in (h)'s configuration: a
     2048-token prompt's four chunks into a fresh B = 1 sub-state, the
     first as warm-up, the second un-profiled (host wall), the last two
-    under torch.profiler (device busy share and top kernels)."""
+    under torch.profiler (device busy share and top kernels).  ``eager``
+    times the eager executor instead of the CUDA graph."""
     import numpy as np
     import torch
     from repro_torch.api import Engine
@@ -1592,6 +1708,8 @@ def profile_chunk(ctx):
     torch.cuda.empty_cache()
     cfg = ctx["cfg"].replace(cache_backend="paged", **_prefix_changes(False))
     eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
+    if eager:
+        eng.executor = eager_executor(cfg)
     m = cfg.model
     prompt = np.random.default_rng(SEED + 13).integers(0, m.vocab_size, size=(1, 4 * CHUNK))
     state = init_serve_state(m, eng.pa, 1, cfg.compression, dtype=torch.bfloat16,
@@ -1613,17 +1731,202 @@ def profile_chunk(ctx):
     if total <= 0:
         log("[profile] torch.profiler recorded no device time for the chunk steps")
         return
-    log(f"[profile] chunked prefill, {CHUNK}-token chunks (policy none, capacity "
+    label = "eager" if eager else "graphs"
+    TIMES[("chunk step", label)] = (plain_ms, total / 2e3)
+    log(f"[profile] {label}: chunked prefill, {CHUNK}-token chunks (policy none, capacity "
         f"{cfg.compression.static_capacity()}): un-profiled {plain_ms:.2f} ms per chunk; "
         f"profiled 2 chunks: device busy {total / 1e3:.2f} ms of {wall * 1e3:.2f} ms wall "
         f"({100 * total / 1e6 / wall:.1f}%); snapkv_scores {ours / 2e3:.3f} ms per chunk "
         f"({100 * ours / total:.2f}% of device time)")
     for name, us in top:
         log(f"[profile]   chunk top kernel {us / 2e3:8.3f} ms/chunk  {name}")
+    if eager:  # which ops launch those kernels: one more chunk, by op and shapes
+        state = init_serve_state(m, eng.pa, 1, cfg.compression, dtype=torch.bfloat16,
+                                 device="cuda")
+        rows, _ = _ops_by_shape(lambda: chunk(0))
+        for op, shapes, us, n in rows[:6]:
+            log(f"[attr]   chunk step {us / 1e3:8.3f} ms  {n:4d} calls  {op}  {shapes}")
 
 
 # ---------------------------------------------------------------------------
-# phase 9: timings on the main path's inputs
+# phase 9: CUDA graphs against eager execution at full width
+# ---------------------------------------------------------------------------
+
+
+def _ops_by_shape(fn):
+    """Run ``fn`` under torch.profiler with shapes recorded; returns the
+    PyTorch ops that launched device work, grouped by op and input shapes:
+    [(op, input shapes, self device us, calls)], largest first, and the
+    total device us."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        fn()
+    rows, total = [], 0.0
+    for ev in prof.key_averages(group_by_input_shape=True):
+        if str(getattr(ev, "device_type", "")).endswith("CUDA"):
+            total += ev.self_device_time_total
+        elif ev.self_device_time_total > 0:
+            rows.append((ev.key, ev.input_shapes, ev.self_device_time_total, ev.count))
+    rows.sort(key=lambda r: -r[2])
+    return rows, total
+
+
+def attribute_elementwise(eng):
+    """Which op launches the generic elementwise kernel of the decode step
+    (7.2 ms per step while the projections were einsums): the slot
+    projections as einsums, ``einsum("bd,sdgx->bsgx", x, wq_s)``, its k / v
+    siblings and the o-projection ``einsum("bsgx,sgxd->bd", attn, wo_s)``,
+    over the main path's 32 layers of slot weights, and one eager decode
+    step as the port computes it now, each under torch.profiler with the
+    device time grouped by op and input shapes.  Fails if the step still
+    copies a slot weight (an op whose first input has a slot weight's
+    element count)."""
+    import math
+    import torch
+    m = eng.cfg.model
+    layers = eng.sp["layers"]
+    x = torch.randn((B, m.d_model), device="cuda").to(layers[0]["wq_s"].dtype)
+    S = layers[0]["wq_s"].shape[0]
+    attn = torch.randn((B, S, m.q_per_kv, m.head_dim), device="cuda").to(x.dtype)
+
+    def old_projections():
+        for pl in layers:
+            torch.einsum("bd,sdgx->bsgx", x, pl["wq_s"])
+            torch.einsum("bd,sdx->bsx", x, pl["wk_s"])
+            torch.einsum("bd,sdx->bsx", x, pl["wv_s"])
+            torch.einsum("bsgx,sgxd->bd", attn, pl["wo_s"])
+
+    old_projections()
+    rows, total = _ops_by_shape(old_projections)
+    log(f"[attr] the slot projections as einsums, einsum('bd,sdgx->bsgx') and its siblings over "
+        f"{len(layers)} layers: {total / 1e3:.3f} ms of device time; by op and input shapes:")
+    for op, shapes, us, n in rows[:4]:
+        log(f"[attr]   {us / 1e3:8.3f} ms  {n:4d} calls  {op}  {shapes}")
+    ex, eng.executor = eng.executor, eager_executor(eng.cfg)
+    try:
+        state = eng.state
+        eng.executor.decode(eng.sp, state, eng.pa)  # warm
+        rows2, total2 = _ops_by_shape(lambda: eng.executor.decode(eng.sp, state, eng.pa))
+    finally:
+        eng.executor = ex
+    log(f"[attr] one eager decode step as the port computes it now: {total2 / 1e3:.3f} ms of "
+        f"device time; top ops by input shapes:")
+    for op, shapes, us, n in rows2[:8]:
+        log(f"[attr]   {us / 1e3:8.3f} ms  {n:4d} calls  {op}  {shapes}")
+    sizes = {layers[0][k].numel() for k in ("wq_s", "wk_s", "wv_s", "wo_s")}
+    copies = [r for r in rows2 if r[0] in ("aten::copy_", "aten::clone", "aten::contiguous")
+              and r[1] and math.prod(r[1][0]) in sizes]
+    if copies:
+        fail(f"the decode step still copies a slot weight: {copies}")
+    return {"old_projection_ms_per_step": total / 1e3, "old_top_op": rows[0][:2] if rows else None,
+            "step_device_ms": total2 / 1e3}
+
+
+def graphs_vs_eager(ctx, engine):
+    """Phase 9: every phase so far ran its steps as CUDA graphs; here the
+    main ones run again eagerly and must agree.
+
+    - the op behind the generic elementwise kernel (`attribute_elementwise`);
+    - one-shot fairkv_dp (B = 8, T = 2048, 32 new tokens, teacher-forced
+      on sha's tokens): an eager engine gives phase 5's tokens and
+      lengths; the logit gap is printed and bounded by n_layers * 2^-8 *
+      max|logit|; then a replan and a second generate on the graphed
+      engine capture nothing more;
+    - continuous (b), bf16 pools with replanning: identical tokens and
+      replan decisions, the pool empty at the end (`continuous_run`);
+    - speculative (e): identical tokens and acceptance;
+    - chunked + shared (i): identical tokens, hits and copy-on-write count;
+    - host-clocked and device time per one-shot step, continuous tick,
+      speculative tick and chunk step, graphed and eager (the profiling
+      passes of phases 5-8 timed the graphs; their eager twins run here).
+
+    No eager comparison is cut to a prefix of its trace."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine, SpeculationConfig
+    m = ctx["cfg"].model
+    out = {"attribution": attribute_elementwise(engine)}
+
+    # one-shot: eager against phase 5's graphed fairkv_dp run
+    gc.collect()
+    torch.cuda.empty_cache()
+    graphed = ctx["slot_dp"]
+    eng = Engine.build(ctx["cfg"], params=ctx["params"], profile=ctx["profile"])
+    eng.executor = eager_executor(eng.cfg)
+    res = eng.generate(ctx["prompts"], GEN, teacher_tokens=ctx["teacher"])
+    gap = float(np.abs(res.logits - graphed.logits).max())
+    tol = m.n_layers * 2.0 ** -8 * float(np.abs(graphed.logits).max())
+    same = bool(np.array_equal(res.tokens, graphed.tokens))
+    log(f"[graphs] one-shot fairkv_dp: eager vs CUDA graphs: tokens identical {same}, lengths "
+        f"identical {bool(np.array_equal(res.lengths, graphed.lengths))}, max |logit gap| "
+        f"{gap:.6f} (bound {tol:.4f})")
+    if not same or not np.array_equal(res.lengths, graphed.lengths):
+        fail("one-shot: the eager engine's tokens or lengths differ from the graphed engine's")
+    if not gap < tol:
+        fail(f"one-shot: logit gap {gap} >= {tol}")
+    profile_decode(eng, statistics.median(res.step_s), label="eager")
+    del eng
+    out["oneshot_logit_gap"] = gap
+    ex = engine.executor
+    before = dict(ex.step_traces)
+    flipped = np.ascontiguousarray(engine.profile[:, ::-1])
+    engine.replan(profile=flipped)
+    again = engine.generate(ctx["prompts"], GEN, teacher_tokens=ctx["teacher"])
+    log(f"[graphs] one-shot: after a replan and a second generate the graphed engine's "
+        f"captures are {ex.step_traces} (before: {before}), copies into graph storage "
+        f"{ex.rebinds}, decode replays {ex.replays['decode']}; step median "
+        f"{1e3 * statistics.median(again.step_s):.2f} ms")
+    if ex.step_traces != before or before["decode"] != 1 or ex.rebinds["decode"]:
+        fail(f"one-shot: captures {ex.step_traces} (before {before}), copies {ex.rebinds}")
+
+    # continuous (b), speculative (e), chunked + shared (i), eagerly
+    g = ctx["graphed"]
+    _, b = continuous_run(ctx, "(b) eager", "paged", "fp32", eager=True)
+    same = sum(x == y for x, y in zip(b["tokens"], g["(b)"]["tokens"]))
+    log(f"[graphs] (b) eager vs graphs: {same}/{N_REQ} requests with identical tokens; replan "
+        f"decisions {b['replan_decisions']} vs {g['(b)']['replan_decisions']}")
+    if same != N_REQ or b["replan_decisions"] != g["(b)"]["replan_decisions"]:
+        fail("(b): the eager run's tokens or replan decisions differ from the graphs'")
+    _, e = continuous_run(ctx, "(e) eager", "paged", "fp32", eager=True,
+                          spec=SpeculationConfig(**SPEC_E))
+    same = sum(x == y for x, y in zip(e["tokens"], g["(e)"]["tokens"]))
+    log(f"[graphs] (e) eager vs graphs: {same}/{N_REQ} requests with identical tokens; "
+        f"acceptance {e['acceptance']} vs {g['(e)']['acceptance']}")
+    if same != N_REQ or e["acceptance"] != g["(e)"]["acceptance"]:
+        fail("(e): the eager run's tokens or acceptance differ from the graphs'")
+    _, i = continuous_run(ctx, "(i) eager", "paged", "fp32", eager=True,
+                          changes=_prefix_changes(True), reqs=make_prefix_trace(m.vocab_size))
+    same = sum(x == y for x, y in zip(i["tokens"], g["(i)"]["tokens"]))
+    gi = g["(i)"]
+    log(f"[graphs] (i) eager vs graphs: {same}/{N_REQ} requests with identical tokens; "
+        f"prefix {i['prefix']} vs {gi['prefix']}; cow copies {i['cow_copies']} vs "
+        f"{gi['cow_copies']}")
+    if (same != N_REQ or i["prefix"] != gi["prefix"] or i["cow_copies"] != gi["cow_copies"]
+            or i["hit_tokens"] != gi["hit_tokens"]):
+        fail("(i): the eager run's tokens, hits or copy-on-write differ from the graphs'")
+    out["eager_runs"] = {k: {kk: v[kk] for kk in ("step_ms_median", "tokens_per_s",
+                                                  "ttft_s_p50", "chunk_ms_median",
+                                                  "propose_ms_median", "verify_ms_median")}
+                         for k, v in (("(b)", b), ("(e)", e), ("(i)", i))}
+
+    profile_continuous(ctx, eager=True)
+    profile_speculative(ctx, eager=True)
+    profile_chunk(ctx, eager=True)
+    for kind in ("one-shot step", "continuous tick", "speculative tick", "chunk step"):
+        cells = []
+        for label in ("graphs", "eager"):
+            host, dev = TIMES.get((kind, label), (float("nan"), float("nan")))
+            cells.append(f"{label}: host-clocked {host:.2f} ms, device {dev:.2f} ms "
+                         f"({100 * dev / host:.1f}% busy)")
+        log(f"[graphs] {kind:17s} " + " | ".join(cells))
+    out["times"] = {f"{k} ({lab})": v for (k, lab), v in TIMES.items()}
+    log("[graphs] summary " + json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: timings on the main path's inputs
 # ---------------------------------------------------------------------------
 
 
@@ -1904,6 +2207,7 @@ def main() -> int:
     paged = paged_oneshot(ctx)
     cont, mq_inputs = continuous_runs(ctx)
     prefix = prefix_runs(ctx)
+    graphs_vs_eager(ctx, engine)
     # each phase of the main path counts its own launches (zeroed just
     # before, read just after): one-shot slot, one-shot paged, continuous,
     # chunked prefill and prefix reuse

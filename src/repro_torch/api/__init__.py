@@ -12,13 +12,16 @@ import importlib
 from repro_torch.api.registry import (  # noqa: F401
     ASSIGNMENT_ENGINE_REGISTRY,
     CACHE_BACKEND_REGISTRY,
+    EXECUTOR_REGISTRY,
     POLICY_REGISTRY,
     Registry,
     list_cache_backends,
     list_engines,
+    list_executors,
     list_policies,
     register_assignment_engine,
     register_cache_backend,
+    register_executor,
     register_policy,
 )
 
@@ -36,6 +39,7 @@ _LAZY = {
     "synthesize_requests": "repro_torch.serving.request",
     "CompressionConfig": "repro_torch.compression.base",
     "PlannerConfig": "repro_torch.core.planner",
+    "ExecutorConfig": "repro_torch.exec.base",
 }
 
 

@@ -5,10 +5,10 @@ port runs: ``ModelConfig`` (architecture), ``CompressionConfig`` (per-head
 KV budgets), ``PlannerConfig`` (FairKV placement), ``SchedulerConfig``
 (continuous batching), the cache backend and its ``PagingConfig``,
 ``PrefixConfig`` (chunked prefill and shared-prefix reuse),
-``SpeculationConfig`` (self-speculative decoding), and the engine-level
-knobs.  ``__post_init__`` validates every name-typed field against the
-port's registries, so a typo fails at construction with the registered
-names.  ``device`` defaults to ``"cuda"``: the CPU runs only when asked for.
+``SpeculationConfig`` (self-speculative decoding), the executor and its
+``ExecutorConfig``, and the engine-level knobs.  ``__post_init__``
+validates every name-typed field against the port's registries, so a typo
+fails at construction with the registered names.  ``device`` defaults to ``"cuda"``: the CPU runs only when asked for.
 """
 from __future__ import annotations
 
@@ -17,11 +17,13 @@ from dataclasses import dataclass, field
 
 import torch
 
-from repro_torch.api.registry import list_cache_backends, list_engines, list_policies
+from repro_torch.api.registry import (list_cache_backends, list_engines, list_executors,
+                                      list_policies)
 from repro_torch.compression.base import CompressionConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.planner import PLANNER_MODES, PlannerConfig
+from repro_torch.exec.base import ExecutorConfig
 from repro_torch.paging.block_pool import PagingConfig
 from repro_torch.prefix.config import PrefixConfig
 from repro_torch.serving.engine import _spec_supported
@@ -47,7 +49,9 @@ class EngineConfig:
     ``scheduler`` configures continuous batching; ``prefix`` turns on
     chunked prefill in it (any backend) and shared-prefix block reuse
     (paged backend only); ``speculation`` turns on self-speculative
-    decoding (paged backend only).
+    decoding (paged backend only).  ``executor`` names a registered
+    executor (``"local"``: one device, its steps captured as CUDA graphs on
+    the card and eager on the CPU); ``executor_cfg`` carries its knobs.
     """
 
     model: ModelConfig
@@ -65,6 +69,8 @@ class EngineConfig:
     paging: PagingConfig = field(default_factory=PagingConfig)
     prefix: PrefixConfig = field(default_factory=PrefixConfig)
     speculation: SpeculationConfig = field(default_factory=SpeculationConfig)
+    executor: str = "local"
+    executor_cfg: ExecutorConfig = field(default_factory=ExecutorConfig)
 
     def __post_init__(self):
         if not isinstance(self.model, ModelConfig):
@@ -122,6 +128,15 @@ class EngineConfig:
                         f"paging.kv_dtype override ({lyr}, {hd}) -> {dt!r} "
                         f"out of range for model {self.model.name!r} with "
                         f"{L} layers x {H} kv heads")
+        if self.executor not in list_executors():
+            raise ValueError(
+                f"unknown executor {self.executor!r}; registered: "
+                f"{list_executors()}; add executors with "
+                f"@repro_torch.api.register_executor")
+        if not isinstance(self.executor_cfg, ExecutorConfig):
+            raise TypeError(
+                f"executor_cfg must be an ExecutorConfig, got "
+                f"{type(self.executor_cfg).__name__}")
         if not isinstance(self.prefix, PrefixConfig):
             raise TypeError(
                 f"prefix must be a PrefixConfig, got {type(self.prefix).__name__}")

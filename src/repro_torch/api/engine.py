@@ -16,7 +16,9 @@ few methods:
   `StreamEvent` per generated token; `prefix_stats()` reports the prefix
   index's counters;
 - `replan()` rebuilds the head placement (online, from the live cache, in
-  continuous mode); `memory_stats()` reports the cache footprint;
+  continuous mode) by copying into the live tensors; `memory_stats()`
+  reports the cache footprint; `warmup()` captures the continuous steps
+  before any timed region;
 - `Engine.measure_profile(batch)` runs a profiling prefill and returns the
   (L, H) realized per-head retained lengths (the paper's §4.1 offline
   statistic) for feeding into a fresh `build`.
@@ -35,11 +37,11 @@ import numpy as np
 import torch
 
 from repro_torch.api.config import DTYPES, EngineConfig
-from repro_torch.cache.slot_cache import PlanArrays, SlotCache, migrate_cache
+from repro_torch.cache.slot_cache import PlanArrays, SlotCache, copy_fields_, migrate_cache
 from repro_torch.core.placement import HeadPlacement
 from repro_torch.core.planner import build_plan
 from repro_torch.core.profiles import profile_from_lengths, synthetic_profile
-from repro_torch.exec.local import LocalExecutor
+from repro_torch.exec.base import make_executor
 from repro_torch.models import init_params
 from repro_torch.paging.block_pool import PoolExhausted
 from repro_torch.serving import engine as _serve
@@ -106,10 +108,17 @@ class Engine:
         self.pa = PlanArrays.from_plan(plan, device=self.device)
         with torch.inference_mode():
             self.sp = _serve.slotify_params(params, plan, cfg.model)
-        self.executor = LocalExecutor(cfg.model, cfg.compression, self.device,
-                                      paging=cfg.paging)
+        # runs the steps: CUDA graphs on the card, eager on the CPU.  A
+        # caller may put another executor here before the first step (an
+        # eager one, LocalExecutor(..., graphs=False), to compare against)
+        self.executor = make_executor(cfg.executor, cfg.model, cfg.compression,
+                                      exec_cfg=cfg.executor_cfg, paging=cfg.paging,
+                                      device=self.device)
         self.backend = self._make_backend()
         self.state: Optional[_serve.ServeState] = None
+        # the one-shot decode state; every generate() of the same shapes
+        # lands in these tensors, so a captured decode step is reused
+        self._live: Optional[_serve.ServeState] = None
         self._mode: Optional[str] = None  # "oneshot" | "continuous" (last used)
         self._scheduler: Optional[Scheduler] = None
         self._next_req_id = 0
@@ -175,7 +184,9 @@ class Engine:
         configured backend's layout (the paged backend allocates blocks for
         the realized lengths) and each step's appends get their storage
         first (`prepare_decode`); one-shot mode cannot preempt, so a pool
-        that runs dry is a configuration error.
+        that runs dry is a configuration error.  A later call with the same
+        shapes copies its prefilled state into the first call's tensors, so
+        the decode step captured then serves it.
         """
         t0 = time.perf_counter()
         logits, lengths = self.prefill(prompts)
@@ -186,8 +197,12 @@ class Engine:
             raise ValueError(
                 f"cache pool too small for one-shot generation ({e}); raise "
                 f"PagingConfig.n_blocks or leave it 0 for worst-case sizing") from e
-        state = self.state
-        tokens = [state.last_tokens.cpu().numpy()]
+        if (self._live is not None
+                and _serve.state_layout(self._live) == _serve.state_layout(self.state)):
+            self.state = _serve.copy_state_(self._live, self.state)
+        self._live = state = self.state
+        # last_tokens is updated in place: keep host copies
+        tokens = [state.last_tokens.cpu().numpy().copy()]
         logits_all = [logits.cpu().numpy()] if collect_logits else None
         step_s: List[float] = []
         for t in range(max_new_tokens):
@@ -204,7 +219,7 @@ class Engine:
             state, lg = self.executor.decode(self.sp, state, self.pa, tok)
             step_s.append(time.perf_counter() - t0)
             self.state = state
-            tokens.append(state.last_tokens.cpu().numpy())
+            tokens.append(state.last_tokens.cpu().numpy().copy())
             if collect_logits:
                 logits_all.append(lg.cpu().numpy())
         lengths_np = lengths.cpu().numpy()
@@ -249,22 +264,26 @@ class Engine:
             return event
         prof = self.profile if profile is None else np.asarray(profile)
         speeds = None if shard_speeds is None else np.asarray(shard_speeds, float)
-        old_pa = self.pa
         self.plan = build_plan(prof, self.cfg.n_shards, self.cfg.planner,
                                shard_speeds=speeds)
         self.profile = prof
-        self.pa = PlanArrays.from_plan(self.plan, device=self.device)
-        self.sp = _serve.slotify_params(self.params, self.plan, self.cfg.model)
+        new_pa = PlanArrays.from_plan(self.plan, device=self.device)
         migrated = False
+        # copies into the live tensors (cache, plan arrays, slot weights):
+        # captured steps keep their inputs
         if self.state is not None:
             if isinstance(self.state.cache, SlotCache):
                 # prefill leaves the slot layout whatever the backend
-                self.state.cache = migrate_cache(self.state.cache, old_pa, self.pa)
+                copy_fields_(self.state.cache,
+                             migrate_cache(self.state.cache, self.pa, new_pa))
             else:
-                _, commit = self.backend.migrate_cache(self.state.cache, old_pa,
-                                                       self.pa)
-                self.state.cache = commit()
+                _, commit = self.backend.migrate_cache(self.state.cache, self.pa,
+                                                       new_pa)
+                commit()
             migrated = True
+        copy_fields_(self.pa, new_pa)
+        self.backend.pa = self.pa
+        _serve.slotify_params(self.params, self.plan, self.cfg.model, out=self.sp)
         return {"plan": self.plan, "migrated_cache": migrated,
                 "shard_speeds": None if speeds is None else list(speeds)}
 
@@ -296,6 +315,47 @@ class Engine:
         sched = self._scheduler
         if sched is not None and sched.plan is not self.plan:
             self.plan, self.pa, self.sp = sched.plan, sched.pa, sched.sp
+
+    def warmup(self) -> None:
+        """Capture the continuous steps outside any timed region, with the
+        reference's semantics: one all-inactive tick (no appends, lengths
+        and positions untouched; only the retired rows' last tokens change),
+        after which ``decode_steps`` (the ring phase) is restored, so a
+        warmed scheduler stays step for step the same as a cold one.  With
+        speculation on, the tick is an all-inactive propose + verify pair
+        after the decode step; with chunking on, one chunk step also runs
+        on a scratch B = 1 sub-state.  A no-op when requests are live or
+        mid-prefill (their steps are captured by then).  On the card it
+        returns with the decode graph captured, and the propose / verify
+        or chunk graphs when those are on."""
+        sched = self._ensure_scheduler()
+        if sched.active or sched.prefilling:
+            return
+        with torch.inference_mode():
+            ex, state = self.executor, sched.state
+            steps0 = state.decode_steps
+            rows = self.cfg.scheduler.max_rows
+            idle = torch.zeros((rows,), dtype=torch.bool, device=self.device)
+            state, _ = ex.decode(sched.sp, state, sched.pa, active=idle)
+            if sched.spec is not None:
+                spec = sched.spec
+                d = spec.draft_layers if spec.draft_layers > 0 else self.cfg.model.n_layers
+                zero = torch.zeros((rows,), dtype=torch.int32, device=self.device)
+                state, props = ex.propose(sched.sp, state, sched.pa, zero, active=idle,
+                                          draft_layers=d, max_k=spec.max_k)
+                window = torch.cat([state.last_tokens[:, None], props], dim=1)
+                state, *_ = ex.verify(sched.sp, state, sched.pa, window, zero + 1,
+                                      active=idle, draft_layers=d)
+            state.decode_steps = steps0
+            sched.state = state
+            if sched._chunk_ok:
+                Ck = sched.prefix_cfg.chunk_tokens
+                scratch = _serve.init_serve_state(
+                    self.cfg.model, sched.pa, 1, self.cfg.compression,
+                    dtype=DTYPES[self.cfg.dtype], device=self.device)
+                ex.prefill_chunk(sched.sp, np.zeros((1, Ck), np.int64), sched.pa, scratch,
+                                 rows=[0], start=[0], valid=[Ck],
+                                 quota=sched._chunk_quota(Ck, Ck))
 
     def submit(self, request: Union[Request, np.ndarray, Sequence[int]],
                max_new_tokens: int = 16, eos_id: Optional[int] = None,

@@ -23,6 +23,10 @@ Decorator-based registries replace what used to be hardcoded tables:
   ``CacheBackend`` subclass makes ``EngineConfig.cache_backend`` accept the
   name (built-ins: ``slot``, ``paged``).
 
+- **executors** — ``@register_executor("name")`` on an
+  ``exec.base.Executor`` subclass makes ``EngineConfig.executor`` accept
+  the name (built-in: ``local``, one device, CUDA graphs on the card).
+
 This module is a dependency *leaf*: it imports nothing from ``repro_torch`` at
 module scope, so the registered-to modules (``compression.policies``,
 ``core.assignment``) can import it without cycling through the heavyweight
@@ -107,10 +111,12 @@ class Registry(Mapping):
 POLICY_REGISTRY = Registry("compression policy")
 ASSIGNMENT_ENGINE_REGISTRY = Registry("assignment engine")
 CACHE_BACKEND_REGISTRY = Registry("cache backend")
+EXECUTOR_REGISTRY = Registry("executor")
 
 register_policy = POLICY_REGISTRY.register
 register_assignment_engine = ASSIGNMENT_ENGINE_REGISTRY.register
 register_cache_backend = CACHE_BACKEND_REGISTRY.register
+register_executor = EXECUTOR_REGISTRY.register
 
 
 def _ensure_builtin() -> None:
@@ -122,6 +128,7 @@ def _ensure_builtin() -> None:
     """
     import repro_torch.compression.policies  # noqa: F401
     import repro_torch.core.assignment  # noqa: F401
+    import repro_torch.exec.local  # noqa: F401
     import repro_torch.paging.backend  # noqa: F401
     import repro_torch.serving.cache_backend  # noqa: F401
 
@@ -147,3 +154,14 @@ def list_cache_backends() -> List[str]:
     """Registered cache-backend names (built-ins + plugins)."""
     _ensure_builtin()
     return CACHE_BACKEND_REGISTRY.names()
+
+
+def get_executor(name: str) -> Callable:
+    _ensure_builtin()
+    return EXECUTOR_REGISTRY[name]
+
+
+def list_executors() -> List[str]:
+    """Registered executor names (built-ins + plugins)."""
+    _ensure_builtin()
+    return EXECUTOR_REGISTRY.names()

@@ -20,6 +20,7 @@ that receives the new token.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Sequence, Union
 
@@ -222,6 +223,12 @@ def append_selection(
     does not matter to attention).  One indexed write of just those
     columns, as `append_token` does; the caller guarantees headroom, and
     columns past the capacity are dropped.
+
+    The write has a fixed shape (no host sync, so a CUDA graph can hold
+    it): lane ``j`` of a (slot, row) addresses column ``(lengths + j) % C``
+    and writes what that column ends with, the entry of lane ``column -
+    lengths`` when that lane is selected and fits, else the column's
+    current value.  Lanes that meet at one column carry one value.
     """
     L, S, B, C, Dh = cache.k.shape
     heads = torch.clamp(plan.slot_head[layer], min=0).long()  # (S,)
@@ -230,15 +237,22 @@ def append_selection(
     Csel = idx.shape[2]
     lens_new = torch.where(own, sel_len[:, heads].T, 0)  # (S, B)
     cur = cache.lengths[layer]  # (S, B)
-    j = torch.arange(Csel, device=idx.device)
-    cols = cur[:, :, None].long() + j  # (S, B, Csel)
-    write = (j < lens_new[:, :, None]) & (cols < C)
-    s_ix, b_ix, c_ix = write.nonzero(as_tuple=True)
-    src = idx[s_ix, b_ix, c_ix]  # chunk positions of the written entries
-    at = (s_ix, b_ix, cols[s_ix, b_ix, c_ix])
-    cache.k[layer].index_put_(at, k_full[b_ix, src, heads[s_ix]].to(cache.k.dtype))
-    cache.v[layer].index_put_(at, v_full[b_ix, src, heads[s_ix]].to(cache.v.dtype))
-    cache.pos[layer].index_put_(at, (start.to(torch.int64)[b_ix] + src).to(torch.int32))
+    dev = idx.device
+    j = torch.arange(Csel, device=dev)
+    col = (cur[:, :, None].long() + j) % C  # (S, B, Csel) the lane's column
+    lane = col - cur[:, :, None].long()  # the lane whose entry belongs there
+    put = (lane >= 0) & (lane < lens_new[:, :, None])
+    src = torch.gather(idx, 2, torch.clamp(lane, 0, Csel - 1))  # chunk positions
+    s_ix = torch.arange(S, device=dev)[:, None, None]
+    b_ix = torch.arange(B, device=dev)[None, :, None]
+    at = (s_ix.expand_as(col), b_ix.expand_as(col), col)
+    h_ix = heads[:, None, None]
+    for pool, full in ((cache.k[layer], k_full), (cache.v[layer], v_full)):
+        pool.index_put_(at, torch.where(put[..., None], full[b_ix, src, h_ix].to(pool.dtype),
+                                        pool[at]))
+    p_l = cache.pos[layer]
+    p_new = (start.to(torch.int64)[None, :, None] + src).to(torch.int32)
+    p_l.index_put_(at, torch.where(put, p_new, p_l[at]))
     cur.copy_(torch.clamp(cur + lens_new, max=C).to(torch.int32))
 
 
@@ -318,6 +332,18 @@ def gather_head_layout(cache: SlotCache, plan: PlanArrays):
     b_ix = torch.arange(B, device=dev)[None, None, :]
     at = (l_ix, slot, b_ix)
     return cache.k[at], cache.v[at], cache.lengths[at], cache.pos[at]
+
+
+def copy_fields_(dst, src):
+    """Copy every tensor field of dataclass ``src`` (a cache, slot or
+    paged, or `PlanArrays`) into ``dst``'s tensors of the same shapes, in
+    place; returns ``dst``.  A replan writes this way, so every address a
+    captured step reads stays."""
+    for f in dataclasses.fields(dst):
+        t = getattr(dst, f.name)
+        if t is not None:
+            t.copy_(getattr(src, f.name))
+    return dst
 
 
 def migrate_cache(cache: SlotCache, old_plan: PlanArrays,

@@ -1,29 +1,77 @@
 """`Executor`: the device-execution strategy behind the serving stack.
 
-An executor owns *how* the serving steps run — one prefill step, one
-chunked-prefill step, one decode step, and the propose / verify steps of
-speculative decoding —
-while *what* they compute lives in
-``repro_torch.serving.engine``.  The port runs eagerly (PyTorch has no jit
-step the port needs); each step ends in a device synchronize, so a caller's
-host clock around it measures device time, not enqueue time.  CUDA-graph
-capture of the decode step is later work.
+An executor owns *how* the serving steps run (its StepFns: one prefill
+step, one chunked-prefill step, one decode step, and the propose / verify
+pair of speculative decoding), while *what* they compute lives in
+``repro_torch.serving.engine``.  Built-ins register with
+``@repro_torch.api.register_executor``; the port has ``"local"`` (one
+device; CUDA graphs on the card, eager on the CPU).  The multi-GPU
+executor is not ported yet (ROADMAP Queue A.10).
+
+StepFn contract (the reference's no-recompile rule, DESIGN.md §10): a step
+reads the slot weights ``sp``, the plan arrays ``pa`` and the state as
+arguments, so a replan is new *values* in the same tensors, never a new
+step.  On the card a step is captured once per shape as a CUDA graph (the
+counterpart of a ``jax.jit`` trace) and replayed after; ``step_traces``
+counts the captures per kind of the ``STEP_KINDS`` table, the regression
+observable for "replans must not re-capture".  The legacy
+``decode_traces`` / ``prefill_traces`` / ``prefill_chunk_traces`` /
+``propose_traces`` / ``verify_traces`` attributes are views into it.
+
+The ring-write phase (``ServeState.decode_steps``, a host int) reaches a
+step as ``phase``, a device scalar the executor refreshes before each call,
+so a captured step reads the live phase.  Every step ends in a device
+synchronize, so a caller's host clock around it covers the device work.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.api.registry import get_executor
 from repro_torch.compression.base import CompressionConfig
 from repro_torch.configs.base import ModelConfig
 from repro_torch.paging import kvquant
 
+# the StepFn kind table: every step an executor owns is one of these, and
+# everything keyed per kind (capture counters) derives from this tuple
+STEP_KINDS = ("prefill", "prefill_chunk", "decode", "propose", "verify")
+
+
+@dataclass(frozen=True)
+class ExecutorConfig:
+    """Execution-level knobs (validated by `EngineConfig`).
+
+    ``donate_state``: the step rewrites the cache buffers in place.  The
+    port's steps always do (a captured step replays into the storage it
+    was captured on), so ``False`` is rejected.  ``data_axis`` /
+    ``model_axis``: the mesh axis names a multi-GPU executor binds batch
+    rows / the slot dim to.
+    """
+
+    donate_state: bool = True
+    data_axis: str = "data"
+    model_axis: str = "model"
+
+    def __post_init__(self):
+        if not self.data_axis or not self.model_axis:
+            raise ValueError("data_axis and model_axis must be non-empty")
+        if self.data_axis == self.model_axis:
+            raise ValueError(
+                f"data_axis and model_axis must differ, both are "
+                f"{self.data_axis!r}")
+        if not self.donate_state:
+            raise ValueError(
+                "donate_state=False is not supported: the port's steps "
+                "update the cache in place (a captured CUDA graph replays "
+                "into the storage it was captured on), so no undonated "
+                "copy of the state exists to keep")
+
 
 class Executor:
-    """Interface: ``prefill`` and ``decode`` steps over explicit arguments
-    (slot weights ``sp`` and plan arrays ``pa``), so a replan is new
-    arguments, never a new executor.
+    """Interface; see the module docstring for the StepFn contract.
 
     ``paging`` (a `PagingConfig`) resolves the static (L, H) kind grid of
     int8/fp8 pools once; the decode step indexes it by the plan's
@@ -34,19 +82,69 @@ class Executor:
     name: str = "?"
 
     def __init__(self, model_cfg: ModelConfig, ccfg: CompressionConfig,
-                 device: torch.device, paging=None):
+                 exec_cfg: Optional[ExecutorConfig] = None, mesh=None,
+                 paging=None, device="cuda"):
         self.cfg = model_cfg
         self.ccfg = ccfg
+        self.exec_cfg = exec_cfg or ExecutorConfig()
+        self.mesh = mesh
+        self.paging = paging
         self.device = torch.device(device)
         spec = kvquant.spec_from_paging(paging)
         self.kv_kinds = (None if spec is None else torch.as_tensor(
             kvquant.kind_grid(spec, model_cfg.n_layers, model_cfg.n_kv_heads),
             device=self.device))
+        # the ring-write phase every step reads (refreshed per call)
+        self.phase = torch.zeros((), dtype=torch.int64, device=self.device)
+        # captures per StepFn kind: one per distinct shape, never per replan
+        self.step_traces = {k: 0 for k in STEP_KINDS}
+
+    # legacy per-kind counters: views into the STEP_KINDS table
+
+    @property
+    def prefill_traces(self) -> int:
+        return self.step_traces["prefill"]
+
+    @property
+    def prefill_chunk_traces(self) -> int:
+        return self.step_traces["prefill_chunk"]
+
+    @property
+    def decode_traces(self) -> int:
+        return self.step_traces["decode"]
+
+    @property
+    def propose_traces(self) -> int:
+        return self.step_traces["propose"]
+
+    @property
+    def verify_traces(self) -> int:
+        return self.step_traces["verify"]
+
+    # ---- geometry ----------------------------------------------------------
+
+    @property
+    def pool_partitions(self) -> int:
+        """Model-axis partitions of the paged block pool (1 = one flat
+        pool; a multi-GPU executor returns its model size)."""
+        return 1
+
+    @property
+    def row_partitions(self) -> int:
+        """Data-axis partitions of the pool / batch rows (1 = none)."""
+        return 1
+
+    def shard_state(self, state):
+        """Lay a fresh ServeState out for this executor: the identity on
+        one device."""
+        return state
 
     def synchronize(self) -> None:
         """Wait for the device (no-op on the CPU, which runs synchronously)."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # ---- StepFns -----------------------------------------------------------
 
     def prefill(self, sp: dict, batch: dict, pa,
                 rows: Optional[torch.Tensor] = None) -> Tuple:
@@ -61,16 +159,17 @@ class Executor:
         (the last chunk zero-padded, ``valid`` (B,) counting its real
         tokens), ``start`` (B,) the absolute position of each row's chunk
         and ``quota`` (L,) the per-head keep cap of the boundary
-        compression.  The step runs eagerly, so there is no trace to
-        count; the reference's ``prefill_chunk_traces`` has its
-        counterpart in the capture counter of CUDA-graph execution."""
+        compression: all are step inputs, so one capture serves every
+        chunk of every prompt."""
         raise NotImplementedError
 
     def decode(self, sp: dict, state, pa,
                tokens: Optional[torch.Tensor] = None,
                active: Optional[torch.Tensor] = None) -> Tuple:
-        """Decode step → (ServeState, logits (B, V)); ``active`` ((B,) bool)
-        marks the live rows (None: all)."""
+        """Decode step → (ServeState, logits (B, V)); ``tokens`` (None: the
+        state's last tokens) are fed, ``active`` ((B,) bool) marks the live
+        rows (None: all).  The new tokens land in ``state.last_tokens``, in
+        place."""
         raise NotImplementedError
 
     def propose(self, sp: dict, state, pa, depths: torch.Tensor,
@@ -86,3 +185,30 @@ class Executor:
         """Verify step over (B, Q) window tokens → (ServeState, g (B, Q),
         n_commit (B,), logits (B, Q, V)), rejected entries rolled back."""
         raise NotImplementedError
+
+    # ---- observability and audit (not ported yet) ---------------------------
+
+    def _observe_step(self, kind: str, fn, args) -> Tuple:
+        """The reference records a wall-time sample, a trace span and a
+        compile event per StepFn call here; the port's observability layer
+        is ROADMAP Queue A.9."""
+        raise NotImplementedError(
+            "StepFn observation needs the port's observability layer "
+            "(ROADMAP Queue A.9)")
+
+    def decode_hlo(self, sp: dict, state, pa, tokens: torch.Tensor) -> str:
+        """The reference audits the decode step's collectives from its
+        compiled HLO; the port's collective count belongs to the multi-GPU
+        executor (ROADMAP Queue A.10)."""
+        raise NotImplementedError(
+            "the decode step's collective audit belongs to the multi-GPU "
+            "executor (ROADMAP Queue A.10)")
+
+
+def make_executor(name: str, model_cfg: ModelConfig, ccfg: CompressionConfig,
+                  exec_cfg: Optional[ExecutorConfig] = None, mesh=None,
+                  paging=None, device="cuda", **kw) -> Executor:
+    """Instantiate a registered executor by name; ``kw`` goes to its
+    constructor (the local executor's ``graphs``)."""
+    return get_executor(name)(model_cfg, ccfg, exec_cfg=exec_cfg, mesh=mesh,
+                              paging=paging, device=device, **kw)

@@ -10,7 +10,7 @@ what bounds it.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 
@@ -44,12 +44,21 @@ def _launcher() -> ctypes.CDLL:
 # on one stream run in order, so they share both.
 _SCRATCH: Dict[torch.device, torch.Tensor] = {}
 _COUNTERS: Dict[torch.device, torch.Tensor] = {}
+# outgrown buffers stay allocated: a captured CUDA graph keeps launching
+# with the address it was captured with
+_OUTGROWN: List[torch.Tensor] = []
 
 
 def _buffer(pool: Dict[torch.device, torch.Tensor], device: torch.device, n: int,
             dtype: torch.dtype) -> torch.Tensor:
     buf = pool.get(device)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"{NAME}: a scratch buffer of {n} elements is needed inside a "
+                f"CUDA graph capture; run the step eagerly at this shape first")
+        if buf is not None:
+            _OUTGROWN.append(buf)
         buf = torch.zeros(n, dtype=dtype, device=device)
         pool[device] = buf
     return buf

@@ -30,7 +30,6 @@ Not ported yet: pool partitions for the multi-GPU executor.
 """
 from __future__ import annotations
 
-import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -51,6 +50,7 @@ from repro_torch.paging.paged_cache import (
     paged_to_slot,
     paginate_rows,
     release_rows,
+    reset_cache,
 )
 from repro_torch.serving import engine as _serve
 from repro_torch.serving.cache_backend import CacheBackend
@@ -369,22 +369,17 @@ class PagedBackend(CacheBackend):
                             self.max_blocks, own=own)
 
         def commit():
-            empty, _ = init_paged_cache(
-                self.cfg.n_layers, int(new_pa.slot_head.shape[1]), B,
-                self.capacity, self.cfg.head_dim,
-                # the live pool's block count (a byte budget resolved to it)
-                dataclasses.replace(self.paging, n_blocks=cache.n_blocks,
-                                    pool_hbm_bytes=0),
-                dtype=self.model_dtype or cache.k_pool.dtype,
-                kv_quant=self.kv_quant, device=cache.k_pool.device)
-            paginate_rows(empty, slot2, np.arange(B), table,
+            # re-paginate into the live tensors, emptied as a fresh pool
+            # would be: their addresses stay
+            reset_cache(cache)
+            paginate_rows(cache, slot2, np.arange(B), table,
                           kinds=self._slot_kinds(new_pa))
             trial.peak_in_use = max(trial.peak_in_use, self.pool.peak_in_use)
             self.pool, self.table, self.pa = trial, table, new_pa
             self._pending_scale_reset.clear()
             self._pending_cow.clear()
             self._table_stale = False
-            return empty
+            return cache
 
         return slot2.lengths, commit
 

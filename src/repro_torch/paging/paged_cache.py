@@ -117,6 +117,16 @@ def init_paged_cache(
     return cache, BlockPool(n_layers, n_blocks)
 
 
+def reset_cache(cache: PagedCache) -> PagedCache:
+    """Empty a paged cache in place, to `init_paged_cache`'s contents."""
+    for t in (cache.k_pool, cache.v_pool, cache.block_table, cache.lengths,
+              cache.positions, cache.k_scale, cache.v_scale):
+        if t is not None:
+            t.zero_()
+    cache.pos_pool.fill_(-1)
+    return cache
+
+
 def _kind_tensor(kinds, shape, device) -> torch.Tensor:
     """Per-slot kind codes as an int32 tensor (all int8 when omitted)."""
     if kinds is None:

@@ -25,7 +25,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 
 from repro_torch.api.registry import register_cache_backend
-from repro_torch.cache.slot_cache import PlanArrays, migrate_cache
+from repro_torch.cache.slot_cache import PlanArrays, copy_fields_, migrate_cache
 from repro_torch.compression.base import CompressionConfig
 from repro_torch.compression.policies import layer_keep_bound, projected_request_tokens
 from repro_torch.configs.base import ModelConfig
@@ -86,8 +86,9 @@ class CacheBackend:
                       ) -> Tuple[object, Callable[[], object]]:
         """Trial a re-layout under ``new_pa``: returns the candidate's
         (L, S, B) lengths (enough to score the replan) and a ``commit``
-        callback that returns the migrated cache.  Infeasibility raises
-        before scoring, never inside ``commit``."""
+        callback that writes the migrated cache into ``cache``'s tensors
+        and returns it.  Infeasibility raises before scoring, never inside
+        ``commit``."""
         raise NotImplementedError
 
     # ---- admission accounting ----------------------------------------------
@@ -145,7 +146,7 @@ class SlotBackend(CacheBackend):
 
         def commit():
             self.pa = new_pa
-            return migrated
+            return copy_fields_(cache, migrated)
 
         return migrated.lengths, commit
 

@@ -17,8 +17,12 @@ The decode step is the paper's measured quantity; its attention inner loop
 is ``kernels.ops.fairkv_decode`` over the slot cache or
 ``kernels.ops.paged_fairkv_decode`` over a `PagedCache`, and the prefill
 compression score is ``kernels.ops.snapkv_scores`` (hand-written CUDA on
-the card, the plain PyTorch versions on the CPU).  Everything runs
-eagerly; callers wrap the steps in ``torch.inference_mode()``.
+the card, the plain PyTorch versions on the CPU).  The steps hold no host
+sync, so the executor can capture them as CUDA graphs
+(`repro_torch.exec.local`); callers wrap them in
+``torch.inference_mode()``.  A step reads the ring-write phase from
+``phase`` when given, a device scalar the executor refreshes before each
+replay (the host keeps ``ServeState.decode_steps``).
 
 Continuous batching adds row-level state ops: ``prefill(..., rows=)``
 evaluates ownership at the global rows a request will occupy,
@@ -41,6 +45,7 @@ entries back.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -53,6 +58,7 @@ from repro_torch.cache.slot_cache import (
     SlotCache,
     append_selection,
     append_token,
+    copy_fields_,
     fill_from_selection,
     init_cache,
     insert_rows,
@@ -114,13 +120,26 @@ def slotify_layer(pl: dict, slot_head: np.ndarray, cfg: ModelConfig) -> dict:
     return out
 
 
-def slotify_params(params: dict, plan: HeadPlacement, cfg: ModelConfig) -> dict:
+SLOT_WEIGHTS = ("wq_s", "wk_s", "wv_s", "wo_s")
+
+
+def slotify_params(params: dict, plan: HeadPlacement, cfg: ModelConfig,
+                   out: Optional[dict] = None) -> dict:
     """Serve-layout params: attention weights per plan; everything else is
-    shared with ``params`` (no copy)."""
+    shared with ``params`` (no copy).  With ``out`` (an earlier result for
+    the same model and slot grid) the new slot weights are copied into its
+    tensors and ``out`` is returned: a replan keeps every address a
+    captured step reads."""
     arrs = plan.as_arrays()["slot_head"]
-    out = dict(params)
-    out["layers"] = [slotify_layer(pl, arrs[i], cfg)
-                     for i, pl in enumerate(params["layers"])]
+    if out is None:
+        out = dict(params)
+        out["layers"] = [slotify_layer(pl, arrs[i], cfg)
+                         for i, pl in enumerate(params["layers"])]
+        return out
+    for i, pl in enumerate(params["layers"]):
+        new = slotify_layer(pl, arrs[i], cfg)
+        for key in SLOT_WEIGHTS:
+            out["layers"][i][key].copy_(new[key])
     return out
 
 
@@ -228,6 +247,18 @@ def _slot_o_proj(pl, attn_flat, cfg, plan, layer_idx):
     return torch.einsum("bte,ed->btd", attn_flat, wo)
 
 
+def _slot_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(R, D) rows through every slot's (D, ...) weight → (S, R, ...).
+
+    One batched product over the slot dimension of the stored layout
+    ``(S, D, ...)``: a single product contracting ``d`` would first copy
+    the weight to ``(D, S·...)``, a strided copy of the whole weight on
+    every step."""
+    S, D = w.shape[:2]
+    out = torch.matmul(x, w.reshape(S, D, -1))  # (S, R, N)
+    return out.reshape(S, x.shape[0], *w.shape[2:])
+
+
 # ---------------------------------------------------------------------------
 # Chunked prefill
 # ---------------------------------------------------------------------------
@@ -275,9 +306,10 @@ def _chunk_attention(pl, hn, positions, valid, cfg, layer_idx, cache, plan,
     Hkv, G, Dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
     C = cache.k.shape[3]
     fw = first_weights(pl, plan, layer_idx)
-    q = torch.einsum("btd,hdgx->bthgx", hn, fw["wq"])  # (B,Ck,Hkv,G,Dh)
-    k = torch.einsum("btd,hdx->bthx", hn, fw["wk"])
-    v = torch.einsum("btd,hdx->bthx", hn, fw["wv"])
+    x = hn.reshape(B * Ck, D)
+    q = _slot_proj(x, fw["wq"]).reshape(Hkv, B, Ck, G, Dh).permute(1, 2, 0, 3, 4)
+    k = _slot_proj(x, fw["wk"]).reshape(Hkv, B, Ck, Dh).permute(1, 2, 0, 3)
+    v = _slot_proj(x, fw["wv"]).reshape(Hkv, B, Ck, Dh).permute(1, 2, 0, 3)
     q = q.reshape(B, Ck, Hkv * G, Dh)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -323,7 +355,7 @@ def _chunk_attention(pl, hn, positions, valid, cfg, layer_idx, cache, plan,
                              float("-inf"))
     idx, keep = policy_select(ccfg.policy, scores, ccfg, layer_idx, cfg.n_layers)
     keep = torch.minimum(keep, valid[:, None])  # only real tokens
-    keep = torch.clamp(keep, max=int(quota_l))  # the chunk's share of the budget
+    keep = torch.minimum(keep, quota_l)  # the chunk's share of the budget
     keep = torch.minimum(keep, C - len_h)  # slot headroom
     keep = torch.clamp(keep, min=0).to(torch.int32)
     append_selection(cache, layer_idx, k, v, idx, keep, plan, rows, positions[:, 0])
@@ -340,7 +372,7 @@ def prefill_chunk(
     rows: torch.Tensor,  # (B,) global row ids
     start: torch.Tensor,  # (B,) absolute position of chunk token 0
     valid: torch.Tensor,  # (B,) real tokens in this chunk (<= Ck)
-    quota: Sequence[int],  # (L,) per-head keep cap for this chunk
+    quota: Union[Sequence[int], torch.Tensor],  # (L,) per-head keep cap for this chunk
 ) -> Tuple[ServeState, torch.Tensor, torch.Tensor]:
     """Process one fixed-width prompt chunk against an accumulating cache.
 
@@ -369,6 +401,7 @@ def prefill_chunk(
     B, Ck, _ = h.shape
     start = torch.as_tensor(start, device=dev).to(torch.int32)
     valid = torch.as_tensor(valid, device=dev).to(torch.int32)
+    quota = torch.as_tensor(quota, device=dev).to(torch.int32)
     rows = row_index(rows, dev)
     positions = start[:, None] + torch.arange(Ck, dtype=torch.int32, device=dev)[None, :]
     cache = state.cache
@@ -409,6 +442,7 @@ def decode_step(
     tokens: Optional[torch.Tensor] = None,
     active: Optional[torch.Tensor] = None,
     kv_kinds: Optional[torch.Tensor] = None,
+    phase: Optional[torch.Tensor] = None,
 ) -> Tuple[ServeState, torch.Tensor]:
     """One decode step for the whole batch.  Returns (state, logits (B, V)).
 
@@ -420,16 +454,19 @@ def decode_step(
     treats every row as live (one-shot serving).  ``kv_kinds`` ((L, H)
     int32, on the cache's device) is the kind grid of int8/fp8 pools; the
     per-slot kinds follow from the plan's ``slot_head`` at each layer.
+    ``phase`` (a device scalar) stands for ``state.decode_steps`` in the
+    ring-write index.
     """
     _check_dense(cfg)
     tokens = state.last_tokens if tokens is None else tokens
+    phase = state.decode_steps if phase is None else phase
     h = L.embed(tokens[:, None], serve_params["embed"])  # (B, 1, D)
     cache = state.cache
     positions = cache.positions
     for i, pl in enumerate(serve_params["layers"]):
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
         attn = _decode_attention(pl, hn, positions, cfg, i, cache, plan,
-                                 state.decode_steps, ccfg, active, kv_kinds)
+                                 phase, ccfg, active, kv_kinds)
         h = h + _decode_slot_o(pl, attn, cfg)
         hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
         h = h + M.mlp_block(pl, hn2, cfg)
@@ -453,9 +490,9 @@ def _decode_attention(pl, hn, positions, cfg, layer_idx, cache, plan,
     """Slot-layout attention for one new token; appends to the cache."""
     B = hn.shape[0]
     x = hn[:, 0]  # (B, D)
-    q = torch.einsum("bd,sdgx->bsgx", x, pl["wq_s"])  # (B, S, G, Dh)
-    k_new = torch.einsum("bd,sdx->bsx", x, pl["wk_s"])  # (B, S, Dh)
-    v_new = torch.einsum("bd,sdx->bsx", x, pl["wv_s"])
+    q = _slot_proj(x, pl["wq_s"]).transpose(0, 1)  # (B, S, G, Dh)
+    k_new = _slot_proj(x, pl["wk_s"]).transpose(0, 1)  # (B, S, Dh)
+    v_new = _slot_proj(x, pl["wv_s"]).transpose(0, 1)
     # RoPE at each row's absolute position
     q = _rope_slots(q, positions, cfg)
     k_new = _rope_slots(k_new[:, :, None, :], positions, cfg)[:, :, 0, :]
@@ -504,8 +541,11 @@ def _rope_slots(q, positions, cfg):
 def _decode_slot_o(pl, attn, cfg):
     """(B, S, G, Dh) → (B, 1, D): the contraction over slots.  Every
     (head, row) pair has exactly one owning slot and unowned slots give
-    exact zeros, so the sum over S reassembles the batch's activation."""
-    return torch.einsum("bsgx,sgxd->bd", attn, pl["wo_s"])[:, None]
+    exact zeros, so the sum over S reassembles the batch's activation.
+    One product over the stored ``(S·G·Dh, D)`` layout (an einsum would
+    copy the whole weight to ``(G, S, Dh, D)`` first)."""
+    wo = pl["wo_s"]
+    return torch.matmul(attn.reshape(attn.shape[0], -1), wo.reshape(-1, wo.shape[-1]))[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -533,6 +573,7 @@ def propose_step(
     kv_kinds: Optional[torch.Tensor] = None,
     draft_layers: int = 0,  # 0 = full depth (self-check mode)
     max_k: int = 1,
+    phase: Optional[torch.Tensor] = None,
 ) -> Tuple[ServeState, torch.Tensor]:
     """Draft up to ``max_k`` tokens per row with the layer-truncated draft.
 
@@ -546,8 +587,10 @@ def propose_step(
     back afterwards, as are ``last_tokens`` and ``decode_steps``: verify
     derives the advance from the accepted run, and the tick counts as one
     ring step whatever its depth.  The appended entries and ``lengths``
-    stay.  Returns (state, proposals (B, max_k)); entries past a row's
-    depth are garbage lanes the caller masks.
+    stay.  Draft step ``i`` appends at ring phase ``decode_steps + i``
+    (``phase + i`` with a device scalar).  Returns (state, proposals
+    (B, max_k)); entries past a row's depth are garbage lanes the caller
+    masks.
     """
     _spec_supported(cfg)
     d = draft_layers if draft_layers > 0 else cfg.n_layers
@@ -562,7 +605,8 @@ def propose_step(
     proposals = []
     for i in range(max_k):
         st, _ = decode_step(sp_d, st, cfg, plan_d, ccfg, tokens=st.last_tokens,
-                            active=active_b & (i < depths), kv_kinds=kv_kinds)
+                            active=active_b & (i < depths), kv_kinds=kv_kinds,
+                            phase=None if phase is None else phase + i)
         proposals.append(st.last_tokens)
     st.cache.positions.copy_(positions)
     props = (torch.stack(proposals, dim=1) if proposals
@@ -582,6 +626,7 @@ def verify_step(
     active: Optional[torch.Tensor] = None,
     kv_kinds: Optional[torch.Tensor] = None,
     draft_layers: int = 0,  # layers < d were filled by propose
+    phase: Optional[torch.Tensor] = None,
 ) -> Tuple[ServeState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One batched verify pass over the speculative window.
 
@@ -596,7 +641,7 @@ def verify_step(
     ``lengths`` drop by the rejected count and ``positions`` advance by
     ``n_commit`` (live rows only); the backend's `trim_rows` then frees the
     blocks no longer covered.  Returns (state, g (B, Q), n_commit (B,),
-    logits (B, Q, V) fp32).
+    logits (B, Q, V) fp32).  ``phase`` is `decode_step`'s.
     """
     _spec_supported(cfg)
     cache = state.cache
@@ -610,10 +655,11 @@ def verify_step(
     h = L.embed(tokens, serve_params["embed"])  # (B, Q, D)
     positions = cache.positions
     positions_q = positions[:, None] + torch.arange(Q, dtype=torch.int32, device=dev)[None, :]
+    phase = state.decode_steps if phase is None else phase
     for i, pl in enumerate(serve_params["layers"]):
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
         attn = _verify_attention(pl, hn, positions_q, q_lens, cfg, i, cache,
-                                 plan, state.decode_steps, ccfg, i < d,
+                                 plan, phase, ccfg, i < d,
                                  active_b, kv_kinds)
         h = h + _verify_slot_o(pl, attn)
         hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
@@ -661,10 +707,12 @@ def _verify_attention(pl, hn, positions_q, q_lens, cfg, layer_idx, cache, plan,
     the multi-query kernel masks query ``i`` to its causal prefix.
     Returns (B, S, Q, G, Dh).
     """
-    B, Q, _ = hn.shape
-    q = torch.einsum("bqd,sdgx->bsqgx", hn, pl["wq_s"])  # (B, S, Q, G, Dh)
-    k_new = torch.einsum("bqd,sdx->bsqx", hn, pl["wk_s"])  # (B, S, Q, Dh)
-    v_new = torch.einsum("bqd,sdx->bsqx", hn, pl["wv_s"])
+    B, Q, D = hn.shape
+    x = hn.reshape(B * Q, D)
+    S = pl["wq_s"].shape[0]
+    q = _slot_proj(x, pl["wq_s"]).reshape(S, B, Q, *pl["wq_s"].shape[2:]).transpose(0, 1)
+    k_new = _slot_proj(x, pl["wk_s"]).reshape(S, B, Q, -1).transpose(0, 1)  # (B, S, Q, Dh)
+    v_new = _slot_proj(x, pl["wv_s"]).reshape(S, B, Q, -1).transpose(0, 1)
     q = _rope_slots_mq(q, positions_q, cfg)
     k_new = _rope_slots_mq(k_new[:, :, :, None, :], positions_q, cfg)[:, :, :, 0, :]
     own = plan.owner_mask(layer_idx, B) & active[None, :]  # (S, B)
@@ -701,8 +749,11 @@ def _rope_slots_mq(q, positions_q, cfg):
 
 def _verify_slot_o(pl, attn):
     """(B, S, Q, G, Dh) → (B, Q, D): the decode o-projection's contraction
-    over slots, per query."""
-    return torch.einsum("bsqgx,sgxd->bqd", attn, pl["wo_s"])
+    over slots, per query, as `_decode_slot_o`'s one product."""
+    B, S, Q = attn.shape[:3]
+    wo = pl["wo_s"]
+    x = attn.transpose(1, 2).reshape(B * Q, -1)  # (B·Q, S·G·Dh), a small copy
+    return torch.matmul(x, wo.reshape(-1, wo.shape[-1])).reshape(B, Q, -1)
 
 
 def init_serve_state(cfg: ModelConfig, plan: PlanArrays, batch: int,
@@ -721,6 +772,26 @@ def init_serve_state(cfg: ModelConfig, plan: PlanArrays, batch: int,
     return ServeState(cache=cache,
                       last_tokens=torch.zeros((batch,), dtype=torch.int64, device=device),
                       decode_steps=0)
+
+
+def copy_state_(dst: ServeState, src: ServeState) -> ServeState:
+    """Copy ``src``'s cache tensors, last tokens and ring phase into
+    ``dst`` (same cache layout and shapes), in place; returns ``dst``.  A
+    new state lands in storage a captured step already reads."""
+    copy_fields_(dst.cache, src.cache)
+    dst.last_tokens.copy_(src.last_tokens)
+    dst.decode_steps = src.decode_steps
+    return dst
+
+
+def state_layout(state: ServeState) -> tuple:
+    """The cache type and the shapes and dtypes of a state's tensors: two
+    states with equal layouts fit `copy_state_`, and one captured step
+    serves both."""
+    tensors = [getattr(state.cache, f.name) for f in dataclasses.fields(state.cache)]
+    return (type(state.cache).__name__,) + tuple(
+        None if t is None else (tuple(t.shape), t.dtype)
+        for t in tensors + [state.last_tokens])
 
 
 def set_row_tokens(state: ServeState, rows: Rows,

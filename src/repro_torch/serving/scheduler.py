@@ -49,7 +49,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.cache.slot_cache import PlanArrays
+from repro_torch.cache.slot_cache import PlanArrays, copy_fields_
 from repro_torch.compression.base import CompressionConfig
 from repro_torch.compression.policies import layer_keep_bound
 from repro_torch.configs.base import ModelConfig
@@ -735,9 +735,13 @@ class Scheduler:
             event["imbalance_after"] = before
             self.replan_log.append(event)
             return event
+        # a replan is copies into the live tensors (cache, plan arrays,
+        # slot weights), never new ones: captured steps keep their inputs
         self.state.cache = commit()
-        self.plan, self.pa = new_plan, new_pa
-        self.sp = slotify_params(self.params, new_plan, self.cfg)
+        self.plan = new_plan
+        copy_fields_(self.pa, new_pa)
+        self.backend.pa = self.pa
+        slotify_params(self.params, new_plan, self.cfg, out=self.sp)
         if self.prefix is not None:
             # the backend rebuilt its pool from the live tables only (shared
             # rows became private copies): the index's references died with

@@ -467,3 +467,95 @@ def test_spec_run_trace_cuda_matches_cpu(gen):
     assert build.LAUNCHES["paged_fairkv_decode_mq"] == nL * b["decode_ticks"] > 0
     assert build.LAUNCHES["paged_fairkv_decode"] == 1 * 3 * b["decode_ticks"]
     assert gpu.scheduler.backend.pool.blocks_in_use() == 0
+
+
+# ---------------------------------------------------------------------------
+# CUDA-graph execution against eager execution
+# ---------------------------------------------------------------------------
+
+# a build profile that misplaces heads for the realized lengths, so the
+# first replan of the trace is accepted (see tests/test_torch_executor.py)
+_SKEWED = np.array([[100.0, 1.0], [1.0, 1.0]])
+
+
+def _graph_cfg(mode):
+    from repro_torch.api import PrefixConfig
+    kw = dict(n_shards=2, max_seq_len=128, cache_backend="paged",
+              paging=PagingConfig(block_size=8),
+              compression=CompressionConfig(policy="ada_snapkv", budget=16, obs_window=8,
+                                            sink=2, decode_margin=8),
+              planner=PlannerConfig(mode="fairkv_dp", batch_cap=3, slots_per_shard=2,
+                                    r_max=1),
+              scheduler=SchedulerConfig(max_rows=3, collect_logits=True, replan_window=2,
+                                        replan_threshold=1.01, replan_cooldown=4,
+                                        replan_min_rows=1))
+    if mode == "spec":
+        kw["speculation"] = SpeculationConfig(enabled=True, max_k=3, draft_layers=1)
+    else:
+        kw["prefix"] = PrefixConfig(enabled=True, chunk_tokens=16)
+    return EngineConfig.smoke("minitron-8b", device="cuda", **kw)
+
+
+def _eager(eng):
+    from repro_torch.exec.local import LocalExecutor
+    c = eng.cfg
+    eng.executor = LocalExecutor(c.model, c.compression, paging=c.paging, device=eng.device,
+                                 graphs=False)
+    return eng
+
+
+@pytest.mark.parametrize("mode", ["chunked", "spec"])
+def test_graphs_match_eager_trace(gen, mode):
+    """A continuous trace with replanning, through CUDA graphs and eagerly:
+    bitwise the same logits and tokens, the same replan decisions and
+    prefix hits.  ``Engine.warmup`` captures every step the trace runs
+    (decode, and prefill_chunk or propose + verify); the trace, with its
+    replans, splices, retirements and copy-on-write, captures nothing more
+    and copies nothing into a graph's storage."""
+    cfg = _graph_cfg(mode)
+    graphed = Engine.build(cfg, profile=_SKEWED)
+    eager = _eager(Engine.build(cfg, params=graphed.params, profile=_SKEWED))
+    traces = [synthesize_requests(6, 0.5, cfg.model.vocab_size, min_prompt=36,
+                                  max_prompt=56, max_new_tokens=12, seed=4,
+                                  prefix_templates=1, prefix_len=32, shared_fraction=0.7)
+              for _ in range(2)]
+    graphed.warmup()
+    ex = graphed.executor
+    captured = dict(ex.step_traces)
+    expect = {"prefill": 0, "decode": 1, "prefill_chunk": int(mode == "chunked"),
+              "propose": int(mode == "spec"), "verify": int(mode == "spec")}
+    assert captured == expect
+    a = graphed.run_trace(traces[0])
+    b = eager.run_trace(traces[1])
+    assert ex.step_traces == captured
+    assert ex.rebinds["decode"] == ex.rebinds["propose"] == ex.rebinds["verify"] == 0
+    assert eager.executor.step_traces == {k: 0 for k in captured}
+    assert a["replans"] >= 1
+    assert [e["accepted"] for e in a["replan_log"]] == [e["accepted"] for e in b["replan_log"]]
+    assert a["finished"] == b["finished"] == 6
+    for x, y in zip(traces[0], traces[1]):
+        assert x.generated == y.generated
+        assert all(np.array_equal(p, q) for p, q in zip(x.logits, y.logits))
+    assert graphed.prefix_stats() == eager.prefix_stats()
+
+
+def test_graphs_match_eager_generate(gen):
+    """One-shot generate: the captured decode step gives the eager step's
+    logits bit for bit; a second generate and a replan between them
+    capture nothing more."""
+    from repro_torch.api import PrefixConfig
+    cfg = _graph_cfg("chunked").replace(cache_backend="slot", prefix=PrefixConfig())
+    graphed = Engine.build(cfg)
+    eager = _eager(Engine.build(cfg, params=graphed.params))
+    prompts = np.random.default_rng(2).integers(0, 256, size=(3, 40))
+    a, b = graphed.generate(prompts, 6), eager.generate(prompts, 6)
+    assert np.array_equal(a.tokens, b.tokens) and np.array_equal(a.logits, b.logits)
+    assert np.array_equal(a.lengths, b.lengths)
+    flipped = np.ascontiguousarray(graphed.profile[:, ::-1])
+    graphed.replan(profile=flipped)
+    eager.replan(profile=flipped)
+    a, b = graphed.generate(prompts, 6), eager.generate(prompts, 6)
+    assert np.array_equal(a.tokens, b.tokens) and np.array_equal(a.logits, b.logits)
+    assert graphed.executor.step_traces["decode"] == 1
+    assert graphed.executor.rebinds["decode"] == 0
+    assert graphed.executor.replays["decode"] == 2 * 6 - 1

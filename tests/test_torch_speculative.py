@@ -96,7 +96,7 @@ def _plain(eng):
     for _ in range(GEN):
         state = eng.backend.prepare_decode(state, None)
         state, _ = eng.executor.decode(eng.sp, state, eng.pa, state.last_tokens)
-        toks.append(np.asarray(state.last_tokens))
+        toks.append(np.array(state.last_tokens))  # a copy: updated in place
     return np.stack(toks, 1)
 
 
