@@ -68,26 +68,33 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    runs its decode, propose, verify and chunk steps as CUDA graphs
    (`repro_torch.exec.local`; prefill stays eager); each continuous run
    captures them in `Engine.warmup` and fails if its trace captures again
-   or copies into a graph's storage (a replan, splice or retirement that
-   allocated new tensors).  This phase first names the op behind the
-   generic elementwise kernel of the einsum-based decode step
-   (torch.profiler grouped by op and input shapes over the einsum slot
-   projections and over one eager decode step as it is computed now,
-   which must copy no slot weight), then runs
-   eagerly: one-shot fairkv_dp (phase 5's tokens and lengths, the logit
-   gap printed and bounded; then a replan and a second generate on the
-   graphed engine capture nothing more), (b) (tokens and replan
-   decisions), (e) (tokens and acceptance) and (i) (tokens, hits,
-   copy-on-write), each on its whole trace, and prints host-clocked and
-   device time per one-shot step, continuous tick, speculative tick and
-   chunk step, graphed and eager;
+   (graphs are keyed by the storage they run on, so a replan, splice or
+   retirement that allocated new tensors would show as a capture).  This
+   phase runs eagerly: one-shot fairkv_dp (phase 5's tokens and lengths,
+   the logit gap printed and bounded), (b) (tokens and replan decisions),
+   (e) (tokens and acceptance) and (i) (tokens, hits, copy-on-write), each
+   on its whole trace, and prints host-clocked and device time per
+   one-shot step, continuous tick, speculative tick and chunk step,
+   graphed and eager (a pass with no device time fails);
 10. time each kernel, its plain version and the PyTorch library call where
    one exists on the main path's own inputs (device time from CUDA events,
    median of 25 runs after warmup, L2 flushed before each run; snapkv
    also at B = 1 and at the chunk shape) beside the least time the card
    could take, and print them as one JSON line; the host time per call of
    kernels 1 and 2;
-11. last line: {"ok": true, "device": {...}}.
+11. after the timings, so that kernel 1 is timed on the main path's own
+   cache: the decode step's ops by input shapes under torch.profiler (one
+   eager step on the main engine, which fails if it copies a slot weight:
+   the einsum relayout that was the 7.2 ms elementwise kernel); then one
+   engine serving one-shot and continuous at once (slot backend, 8
+   scheduler rows, so the one-shot state and the scheduler's have one
+   layout): generate, a one-shot replan, generate, `warmup`, then the
+   first 4 requests of phase 7's trace with a generate after tick 4.
+   Graphed and eager engines driven alike give the same one-shot tokens
+   and logits and the same trace tokens; the first generate gives phase
+   5's tokens; the graphed engine captures one decode graph per live
+   state and nothing more;
+12. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -866,7 +873,7 @@ def main_path():
 
 
 # (step kind, "graphs" | "eager") -> (host-clocked ms, device ms) per step,
-# filled by the profiling passes, printed by phase 9
+# filled by the profiling passes, printed by phase 9 (graphs_vs_eager)
 TIMES = {}
 
 
@@ -1122,9 +1129,8 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
     refcount seen while requests are live is recorded after every tick.
     The steps run as CUDA graphs, captured by `Engine.warmup` before the
     counted run; the trace must capture nothing more (replans, splices,
-    retirements and copy-on-write write into the captured tensors) and
-    copy nothing into a graph's storage.  ``eager`` runs every step
-    eagerly instead.  Returns (launches, summary)."""
+    retirements and copy-on-write write into the captured tensors).
+    ``eager`` runs every step eagerly instead.  Returns (launches, summary)."""
     import numpy as np
     import torch
     from repro_torch.api import Engine, PagingConfig, SchedulerConfig, SpeculationConfig
@@ -1172,10 +1178,6 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
     ticks = summary["decode_ticks"]
     if ex.step_traces != captured:
         fail(f"{name}: the trace captured again: {ex.step_traces} after warmup's {captured}")
-    moved = {k: ex.rebinds[k] for k in ("decode", "propose", "verify")}
-    if any(moved.values()):
-        fail(f"{name}: tensors moved under captured steps (copies into graph storage "
-             f"{moved}): a replan, splice or retirement allocated new storage")
     admissions = n_req + summary["preemptions"]
     lat = summary["latency"]
     step_ms = 1e3 * np.asarray(sched.step_s)
@@ -1210,7 +1212,7 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
         + f"launches {got} | "
         + ("eager executor" if eager else
            f"CUDA graphs captured by warmup ({t_warm:.2f} s) {captured}, replays "
-           f"{ex.replays}, copies into graph storage {ex.rebinds}"))
+           f"{ex.replays}"))
     if summary["finished"] != n_req or any(not r.is_finished or r.cancelled for r in reqs):
         fail(f"{name}: {summary['finished']} of {n_req} requests finished")
     if summary["generated_tokens"] != sum(r.max_new_tokens for r in reqs):
@@ -1773,66 +1775,41 @@ def _ops_by_shape(fn):
 
 
 def attribute_elementwise(eng):
-    """Which op launches the generic elementwise kernel of the decode step
-    (7.2 ms per step while the projections were einsums): the slot
-    projections as einsums, ``einsum("bd,sdgx->bsgx", x, wq_s)``, its k / v
-    siblings and the o-projection ``einsum("bsgx,sgxd->bd", attn, wo_s)``,
-    over the main path's 32 layers of slot weights, and one eager decode
-    step as the port computes it now, each under torch.profiler with the
-    device time grouped by op and input shapes.  Fails if the step still
-    copies a slot weight (an op whose first input has a slot weight's
-    element count)."""
+    """The decode step's ops by input shapes: one eager decode step on the
+    main engine under torch.profiler, device time grouped by op and input
+    shapes.  The generic elementwise kernel of 7.2 ms per step was einsum
+    copying the slot weights to another layout (PERF.md section 5); fails
+    if the step copies a slot weight again (an op whose first input has a
+    slot weight's element count)."""
     import math
-    import torch
-    m = eng.cfg.model
     layers = eng.sp["layers"]
-    x = torch.randn((B, m.d_model), device="cuda").to(layers[0]["wq_s"].dtype)
-    S = layers[0]["wq_s"].shape[0]
-    attn = torch.randn((B, S, m.q_per_kv, m.head_dim), device="cuda").to(x.dtype)
-
-    def old_projections():
-        for pl in layers:
-            torch.einsum("bd,sdgx->bsgx", x, pl["wq_s"])
-            torch.einsum("bd,sdx->bsx", x, pl["wk_s"])
-            torch.einsum("bd,sdx->bsx", x, pl["wv_s"])
-            torch.einsum("bsgx,sgxd->bd", attn, pl["wo_s"])
-
-    old_projections()
-    rows, total = _ops_by_shape(old_projections)
-    log(f"[attr] the slot projections as einsums, einsum('bd,sdgx->bsgx') and its siblings over "
-        f"{len(layers)} layers: {total / 1e3:.3f} ms of device time; by op and input shapes:")
-    for op, shapes, us, n in rows[:4]:
-        log(f"[attr]   {us / 1e3:8.3f} ms  {n:4d} calls  {op}  {shapes}")
     ex, eng.executor = eng.executor, eager_executor(eng.cfg)
     try:
         state = eng.state
         eng.executor.decode(eng.sp, state, eng.pa)  # warm
-        rows2, total2 = _ops_by_shape(lambda: eng.executor.decode(eng.sp, state, eng.pa))
+        rows, total = _ops_by_shape(lambda: eng.executor.decode(eng.sp, state, eng.pa))
     finally:
         eng.executor = ex
-    log(f"[attr] one eager decode step as the port computes it now: {total2 / 1e3:.3f} ms of "
-        f"device time; top ops by input shapes:")
-    for op, shapes, us, n in rows2[:8]:
+    log(f"[attr] one eager decode step: {total / 1e3:.3f} ms of device time; top ops by "
+        f"input shapes:")
+    for op, shapes, us, n in rows[:8]:
         log(f"[attr]   {us / 1e3:8.3f} ms  {n:4d} calls  {op}  {shapes}")
     sizes = {layers[0][k].numel() for k in ("wq_s", "wk_s", "wv_s", "wo_s")}
-    copies = [r for r in rows2 if r[0] in ("aten::copy_", "aten::clone", "aten::contiguous")
+    copies = [r for r in rows if r[0] in ("aten::copy_", "aten::clone", "aten::contiguous")
               and r[1] and math.prod(r[1][0]) in sizes]
     if copies:
-        fail(f"the decode step still copies a slot weight: {copies}")
-    return {"old_projection_ms_per_step": total / 1e3, "old_top_op": rows[0][:2] if rows else None,
-            "step_device_ms": total2 / 1e3}
+        fail(f"the decode step copies a slot weight: {copies}")
+    return {"step_device_ms": total / 1e3}
 
 
-def graphs_vs_eager(ctx, engine):
+def graphs_vs_eager(ctx):
     """Phase 9: every phase so far ran its steps as CUDA graphs; here the
     main ones run again eagerly and must agree.
 
-    - the op behind the generic elementwise kernel (`attribute_elementwise`);
     - one-shot fairkv_dp (B = 8, T = 2048, 32 new tokens, teacher-forced
       on sha's tokens): an eager engine gives phase 5's tokens and
       lengths; the logit gap is printed and bounded by n_layers * 2^-8 *
-      max|logit|; then a replan and a second generate on the graphed
-      engine capture nothing more;
+      max|logit|;
     - continuous (b), bf16 pools with replanning: identical tokens and
       replan decisions, the pool empty at the end (`continuous_run`);
     - speculative (e): identical tokens and acceptance;
@@ -1846,7 +1823,7 @@ def graphs_vs_eager(ctx, engine):
     import torch
     from repro_torch.api import Engine, SpeculationConfig
     m = ctx["cfg"].model
-    out = {"attribution": attribute_elementwise(engine)}
+    out = {}
 
     # one-shot: eager against phase 5's graphed fairkv_dp run
     gc.collect()
@@ -1868,17 +1845,6 @@ def graphs_vs_eager(ctx, engine):
     profile_decode(eng, statistics.median(res.step_s), label="eager")
     del eng
     out["oneshot_logit_gap"] = gap
-    ex = engine.executor
-    before = dict(ex.step_traces)
-    flipped = np.ascontiguousarray(engine.profile[:, ::-1])
-    engine.replan(profile=flipped)
-    again = engine.generate(ctx["prompts"], GEN, teacher_tokens=ctx["teacher"])
-    log(f"[graphs] one-shot: after a replan and a second generate the graphed engine's "
-        f"captures are {ex.step_traces} (before: {before}), copies into graph storage "
-        f"{ex.rebinds}, decode replays {ex.replays['decode']}; step median "
-        f"{1e3 * statistics.median(again.step_s):.2f} ms")
-    if ex.step_traces != before or before["decode"] != 1 or ex.rebinds["decode"]:
-        fail(f"one-shot: captures {ex.step_traces} (before {before}), copies {ex.rebinds}")
 
     # continuous (b), speculative (e), chunked + shared (i), eagerly
     g = ctx["graphed"]
@@ -1916,7 +1882,10 @@ def graphs_vs_eager(ctx, engine):
     for kind in ("one-shot step", "continuous tick", "speculative tick", "chunk step"):
         cells = []
         for label in ("graphs", "eager"):
-            host, dev = TIMES.get((kind, label), (float("nan"), float("nan")))
+            if (kind, label) not in TIMES:
+                fail(f"no {label} time for the {kind}: its profiler pass recorded no "
+                     f"device time")
+            host, dev = TIMES[(kind, label)]
             cells.append(f"{label}: host-clocked {host:.2f} ms, device {dev:.2f} ms "
                          f"({100 * dev / host:.1f}% busy)")
         log(f"[graphs] {kind:17s} " + " | ".join(cells))
@@ -2170,6 +2139,74 @@ def time_kernels(engine, launches, paged, mq_inputs, prefix):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 11: after the timings
+# ---------------------------------------------------------------------------
+
+
+def oneshot_beside_scheduler(ctx):
+    """Phase 11: one engine serving one-shot and continuous at once, graphed
+    against an eager twin driven alike (fairkv_dp, slot backend, 8
+    scheduler rows: the one-shot state and the scheduler's share a layout,
+    and each gets a decode graph of its own).  Each engine: generate, a
+    one-shot replan to the flipped profile, generate, `warmup`, then the
+    first 4 requests of `make_trace` with a generate after tick 4.  Holds
+    the graphed engine to the eager one (one-shot tokens, the logit gap
+    within phase 5's bf16 bound, trace tokens), the first generate to phase 5's tokens, and the
+    captures to one decode graph per live state, unmoved by the replan,
+    the ticks and the later generates."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine, SchedulerConfig
+    from repro_torch.serving.engine import state_layout
+    cfg = ctx["cfg"].replace(scheduler=SchedulerConfig(max_rows=B))
+    flipped = np.ascontiguousarray(ctx["profile"][:, ::-1])
+    runs = {}
+    for label in ("graphs", "eager"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
+        if label == "eager":
+            eng.executor = eager_executor(cfg)
+        ex = eng.executor
+        gen = lambda: eng.generate(ctx["prompts"], GEN, teacher_tokens=ctx["teacher"])  # noqa: E731
+        outs = [gen()]
+        captured = dict(ex.step_traces)
+        eng.replan(profile=flipped)
+        outs.append(gen())
+        eng.warmup()
+        shared = state_layout(eng._live) == state_layout(eng.scheduler.state)
+        reqs = make_trace(cfg.model.vocab_size)[:4]
+        for ev in eng.stream(reqs):
+            if ev.step >= 4 and len(outs) == 2:
+                outs.append(gen())
+        if not all(r.is_finished for r in reqs):
+            fail(f"one-shot beside the scheduler ({label}): a request did not finish")
+        runs[label] = dict(outs=outs, reqs=reqs, captured=captured,
+                           traces=dict(ex.step_traces), shared=shared)
+        del eng, ex
+    g, e = runs["graphs"], runs["eager"]
+    tol = cfg.model.n_layers * 2.0 ** -8 * float(np.abs(e["outs"][0].logits).max())
+    gaps = [float(np.abs(a.logits - b.logits).max()) for a, b in zip(g["outs"], e["outs"])]
+    same_oneshot = all(np.array_equal(a.tokens, b.tokens) for a, b in zip(g["outs"], e["outs"]))
+    same_trace = sum(a.generated == b.generated for a, b in zip(g["reqs"], e["reqs"]))
+    as_phase5 = np.array_equal(g["outs"][0].tokens, ctx["slot_dp"].tokens)
+    log(f"[mixed] one engine, one-shot beside continuous: the two states share a layout "
+        f"{g['shared']}; graphs vs eager: one-shot tokens identical {same_oneshot}, max "
+        f"|logit gap| per generate {gaps} (bound {tol:.4f}), trace "
+        f"{same_trace}/4 requests identical; first generate equal to phase 5's {as_phase5}; "
+        f"captures after the first generate {g['captured']}, at the end {g['traces']}")
+    if not g["shared"]:
+        fail("the one-shot and scheduler states differ in layout: the check would not "
+             "exercise one executor serving two states of one shape")
+    if not same_oneshot or not max(gaps) < tol or same_trace != 4:
+        fail("one-shot beside the scheduler: the graphed engine differs from the eager one")
+    if not as_phase5:
+        fail("one-shot beside the scheduler: the first generate differs from phase 5's")
+    if g["captured"]["decode"] != 1 or g["traces"] != dict(g["captured"], decode=2):
+        fail(f"captures {g['traces']}, expected {g['captured']} plus the scheduler's decode graph")
+
+
 def main() -> int:
     try:
         import torch
@@ -2207,7 +2244,7 @@ def main() -> int:
     paged = paged_oneshot(ctx)
     cont, mq_inputs = continuous_runs(ctx)
     prefix = prefix_runs(ctx)
-    graphs_vs_eager(ctx, engine)
+    graphs_vs_eager(ctx)
     # each phase of the main path counts its own launches (zeroed just
     # before, read just after): one-shot slot, one-shot paged, continuous,
     # chunked prefill and prefix reuse
@@ -2222,6 +2259,8 @@ def main() -> int:
         if prefix[name] == 0:
             fail(f"kernel {name} was never launched in the chunked / prefix phase")
     rows = time_kernels(engine, launches, paged, mq_inputs, prefix)
+    attribute_elementwise(engine)
+    oneshot_beside_scheduler(ctx)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

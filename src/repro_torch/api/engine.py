@@ -311,10 +311,14 @@ class Engine:
         return self._scheduler
 
     def _sync_from_scheduler(self) -> None:
-        """Adopt the scheduler's plan and weights after an online replan."""
+        """Adopt the scheduler's plan after an online replan.  The slot
+        weights are one object shared with the scheduler; the plan arrays
+        are copied into the engine's own, on which a captured one-shot
+        decode step reads them."""
         sched = self._scheduler
         if sched is not None and sched.plan is not self.plan:
-            self.plan, self.pa, self.sp = sched.plan, sched.pa, sched.sp
+            self.plan = sched.plan
+            copy_fields_(self.pa, sched.pa)
 
     def warmup(self) -> None:
         """Capture the continuous steps outside any timed region, with the

@@ -18,14 +18,16 @@ outside a capture); the capture follows and records without running.
 A graph reads and writes fixed storage: the slot weights, plan arrays and
 state it was captured on, plus its own input buffers, into which each call
 copies its small inputs (active mask, depths, window, chunk tokens,
-positions, quota).  The caller's tensors are expected at the captured
-addresses: a replan, a splice, a retirement or copy-on-write writes into
-the live tensors, never new ones.  A tensor found at another address is
-copied into the captured storage before the replay (and, for the state,
-back after it); ``rebinds`` counts those copies per kind.  The chunk step
-is the exception by design: several chunked prefills may be in flight,
-each with a sub-state of its own, so its graph runs on a private sub-state
-that every call copies the job's state into and back out of.
+positions, quota).  So a graph is keyed by the storage of its state as
+well as by its shape: each live state (the one-shot state of
+`Engine.generate`, the scheduler's) gets a capture of its own, and a
+replan, a splice, a retirement or copy-on-write, which write into the live
+tensors, re-capture nothing.  The slot weights and plan arrays are updated
+in place too: a call that passes other ``sp`` / ``pa`` objects than the
+graph was captured on raises.  The chunk step runs on a private sub-state
+per shape, which every call copies the job's state into and back out of:
+several chunked prefills may be in flight, each with a sub-state of its
+own, and one capture serves them all.
 
 Outputs (logits, proposals, verdicts) live in the graph's memory and are
 overwritten by its next replay: a caller that keeps one across steps
@@ -57,8 +59,9 @@ from repro_torch.serving import engine as _serve
 class _StepGraph:
     graph: "torch.cuda.CUDAGraph"
     inputs: Dict[str, torch.Tensor]  # the call's small inputs, copied per replay
-    bound: List[torch.Tensor]  # tensors read or written in place, by address
-    n_written: int  # leading entries of ``bound`` the step writes (the state)
+    state: List[torch.Tensor]  # the state's tensors, kept alive with the graph
+    sp: dict  # the slot weights and plan arrays it reads, updated in place
+    pa: object
     outputs: Tuple[torch.Tensor, ...]
     launches: Dict[str, int]  # kernel launches per replay
 
@@ -106,34 +109,31 @@ class LocalExecutor(Executor):
         self._graphs: Dict[tuple, _StepGraph] = {}
         self._chunk_states: Dict[tuple, object] = {}  # private chunk sub-states
         self.replays = {k: 0 for k in STEP_KINDS}
-        self.rebinds = {k: 0 for k in STEP_KINDS}
 
     # ---- graph machinery ---------------------------------------------------
 
     def _run(self, kind: str, key: tuple, fn: Callable, state, sp, pa,
              inputs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         """Run one step: ``fn(**inputs)`` eagerly, or through the graph of
-        ``key`` (captured at the first call).  ``state`` is written in
-        place; ``sp`` and ``pa`` are read."""
+        ``key`` and the state's storage (captured at the first call).
+        ``state`` is written in place; ``sp`` and ``pa`` are read."""
         if not self.graphs:
             out = fn(**inputs)
             self.synchronize()
             return out
-        bound = _tensors(state) + _tensors(sp) + _tensors(pa)
-        g = self._graphs.get((kind,) + key)
+        tensors = _tensors(state)
+        full = (kind,) + key + (tuple(t.data_ptr() for t in tensors),)
+        g = self._graphs.get(full)
         if g is None:
-            out = self._capture(kind, key, fn, bound, len(_tensors(state)), inputs)
+            out = self._capture(full, fn, tensors, sp, pa, inputs)
         else:
+            if sp is not g.sp or pa is not g.pa:
+                raise RuntimeError(
+                    f"{kind}: the slot weights or plan arrays are not the objects the "
+                    f"step was captured on; a replan must copy into them in place")
             for name, value in inputs.items():
                 g.inputs[name].copy_(value)
-            moved = [i for i, t in enumerate(bound) if t.data_ptr() != g.bound[i].data_ptr()]
-            for i in moved:
-                g.bound[i].copy_(bound[i])
             g.graph.replay()
-            for i in moved:
-                if i < g.n_written:
-                    bound[i].copy_(g.bound[i])
-            self.rebinds[kind] += len(moved)
             self.replays[kind] += 1
             for name, n in g.launches.items():
                 build.LAUNCHES[name] += n
@@ -141,7 +141,7 @@ class LocalExecutor(Executor):
         self.synchronize()
         return out
 
-    def _capture(self, kind, key, fn, bound, n_written, inputs):
+    def _capture(self, full, fn, tensors, sp, pa, inputs):
         """Eager warm-up on a side stream (this call's real step), then the
         capture, which records the same kernels without running them."""
         static = {name: v.clone() for name, v in inputs.items()}
@@ -159,9 +159,8 @@ class LocalExecutor(Executor):
             launches = {name: build.LAUNCHES[name] - before[name] for name in before}
         finally:
             build.LAUNCHES.update(before)  # a capture launches nothing
-        self._graphs[(kind,) + key] = _StepGraph(graph, static, bound, n_written,
-                                                 captured, launches)
-        self.step_traces[kind] += 1
+        self._graphs[full] = _StepGraph(graph, static, tensors, sp, pa, captured, launches)
+        self.step_traces[full[0]] += 1
         return out
 
     def _host(self, x, dtype) -> torch.Tensor:

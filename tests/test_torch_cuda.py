@@ -478,7 +478,10 @@ def test_spec_run_trace_cuda_matches_cpu(gen):
 _SKEWED = np.array([[100.0, 1.0], [1.0, 1.0]])
 
 
-def _graph_cfg(mode):
+def _graph_cfg(mode, device="cuda"):
+    """Smoke config with replanning that fires: ``mode`` "spec"
+    (speculation), "chunked" (paged, chunked prefill with sharing) or
+    "slot" (slot backend, chunked prefill without sharing)."""
     from repro_torch.api import PrefixConfig
     kw = dict(n_shards=2, max_seq_len=128, cache_backend="paged",
               paging=PagingConfig(block_size=8),
@@ -492,8 +495,31 @@ def _graph_cfg(mode):
     if mode == "spec":
         kw["speculation"] = SpeculationConfig(enabled=True, max_k=3, draft_layers=1)
     else:
-        kw["prefix"] = PrefixConfig(enabled=True, chunk_tokens=16)
-    return EngineConfig.smoke("minitron-8b", device="cuda", **kw)
+        kw["prefix"] = PrefixConfig(enabled=mode == "chunked", chunk_tokens=16)
+    if mode == "slot":
+        kw["cache_backend"] = "slot"
+    return EngineConfig.smoke("minitron-8b", device=device, **kw)
+
+
+def _mixed_trace(vocab):
+    return synthesize_requests(6, 0.5, vocab, min_prompt=36, max_prompt=56,
+                               max_new_tokens=12, seed=4, prefix_templates=1,
+                               prefix_len=32, shared_fraction=0.7)
+
+
+def mixed_run(eng, reqs, prompts, tick=3, new_tokens=4):
+    """Both modes on one engine: `warmup`, a one-shot `generate` before the
+    first tick and another after tick ``tick`` while requests are live,
+    the trace streamed to its end.  Returns the two results and the plan
+    each ran under."""
+    eng.warmup()
+    outs, plans = [eng.generate(prompts, new_tokens)], [eng.plan]
+    for ev in eng.stream(reqs):
+        if ev.step >= tick and len(outs) == 1:
+            assert eng.scheduler.active
+            outs.append(eng.generate(prompts, new_tokens))
+            plans.append(eng.plan)
+    return outs, plans
 
 
 def _eager(eng):
@@ -511,7 +537,8 @@ def test_graphs_match_eager_trace(gen, mode):
     prefix hits.  ``Engine.warmup`` captures every step the trace runs
     (decode, and prefill_chunk or propose + verify); the trace, with its
     replans, splices, retirements and copy-on-write, captures nothing more
-    and copies nothing into a graph's storage."""
+    (graphs are keyed by the storage they run on, so a moved tensor would
+    show as a capture)."""
     cfg = _graph_cfg(mode)
     graphed = Engine.build(cfg, profile=_SKEWED)
     eager = _eager(Engine.build(cfg, params=graphed.params, profile=_SKEWED))
@@ -528,7 +555,6 @@ def test_graphs_match_eager_trace(gen, mode):
     a = graphed.run_trace(traces[0])
     b = eager.run_trace(traces[1])
     assert ex.step_traces == captured
-    assert ex.rebinds["decode"] == ex.rebinds["propose"] == ex.rebinds["verify"] == 0
     assert eager.executor.step_traces == {k: 0 for k in captured}
     assert a["replans"] >= 1
     assert [e["accepted"] for e in a["replan_log"]] == [e["accepted"] for e in b["replan_log"]]
@@ -557,5 +583,32 @@ def test_graphs_match_eager_generate(gen):
     a, b = graphed.generate(prompts, 6), eager.generate(prompts, 6)
     assert np.array_equal(a.tokens, b.tokens) and np.array_equal(a.logits, b.logits)
     assert graphed.executor.step_traces["decode"] == 1
-    assert graphed.executor.rebinds["decode"] == 0
     assert graphed.executor.replays["decode"] == 2 * 6 - 1
+
+
+@pytest.mark.parametrize("mode", ["slot", "chunked"])
+def test_graphs_generate_between_ticks(gen, mode):
+    """One engine serving a one-shot `generate` beside its live scheduler,
+    whose state has the one-shot state's layout: the two states get a
+    decode graph each, and neither run disturbs the other.  The graphed
+    engine gives the eager engine's one-shot logits and the trace's
+    tokens and logits bit for bit; the second generate and the ticks
+    capture nothing more."""
+    cfg = _graph_cfg(mode)
+    graphed = Engine.build(cfg, profile=_SKEWED)
+    eager = _eager(Engine.build(cfg, params=graphed.params, profile=_SKEWED))
+    prompts = np.random.default_rng(2).integers(0, 256, size=(3, 40))
+    traces = [_mixed_trace(cfg.model.vocab_size) for _ in range(2)]
+    a, _ = mixed_run(graphed, traces[0], prompts)
+    from repro_torch.serving.engine import state_layout
+    assert state_layout(graphed._live) == state_layout(graphed.scheduler.state)
+    b, _ = mixed_run(eager, traces[1], prompts)
+    for x, y in zip(a, b):
+        assert np.array_equal(x.tokens, y.tokens) and np.array_equal(x.logits, y.logits)
+    for x, y in zip(traces[0], traces[1]):
+        assert x.generated == y.generated
+        assert all(np.array_equal(p, q) for p, q in zip(x.logits, y.logits))
+    ex = graphed.executor
+    assert ex.step_traces == {"prefill": 0, "decode": 2, "prefill_chunk": 1,
+                              "propose": 0, "verify": 0}
+    assert graphed.prefix_stats() == eager.prefix_stats()

@@ -20,6 +20,9 @@ minitron-8b smoke in fp32, weights carried across with
   replan, nor across two one-shot `generate` calls around a replan; the
   tokens (and, tick by tick, lengths, refcounts, tables and counters)
   equal the reference's;
+- one engine serving a one-shot `generate` before and during a
+  continuous trace (slot backend, and paged pools with sharing): the
+  trace and each generate give what separate engines give;
 - `Engine.warmup`: an all-inactive tick that leaves the cache and the
   ring phase as they were, so a warmed engine runs a trace as a cold one.
 
@@ -327,6 +330,35 @@ def test_static_addresses_oneshot(params, backend):
     for a, b in ((j1, t1), (j2, t2)):
         assert np.array_equal(np.asarray(a.tokens), b.tokens)
         assert np.array_equal(np.asarray(a.lengths), b.lengths)
+
+
+@pytest.mark.parametrize("mode", ["slot", "chunked"])
+def test_generate_between_ticks(mode):
+    """One engine serving a one-shot `generate` before and during a
+    continuous trace, with a replan accepted mid-trace: the trace gives a
+    continuous-only engine's tokens and logits, and each generate the
+    tokens and logits of a one-shot engine built on the plan it ran under.
+    The one-shot state and the scheduler's share a layout (on the card
+    each gets its own decode graph)."""
+    from tests.test_torch_cuda import _SKEWED, _graph_cfg, _mixed_trace, mixed_run
+    cfg = _graph_cfg(mode, device="cpu")
+    eng = Engine.build(cfg, profile=_SKEWED)
+    prompts = np.random.default_rng(2).integers(0, 256, size=(3, 40))
+    reqs = _mixed_trace(cfg.model.vocab_size)
+    outs, plans = mixed_run(eng, reqs, prompts)
+    assert tserve.state_layout(eng._live) == tserve.state_layout(eng.scheduler.state)
+    cont = Engine.build(cfg, params=eng.params, profile=_SKEWED)
+    cont.warmup()
+    ref_reqs = _mixed_trace(cfg.model.vocab_size)
+    list(cont.stream(ref_reqs))
+    for x, y in zip(reqs, ref_reqs):
+        assert x.generated == y.generated
+        assert all(np.array_equal(p, q) for p, q in zip(x.logits, y.logits))
+    for out, plan in zip(outs, plans):
+        ref = Engine(cfg, eng.params, plan, eng.profile).generate(prompts, 4)
+        assert np.array_equal(out.tokens, ref.tokens)
+        assert np.array_equal(out.logits, ref.logits)
+    assert plans[0] is not plans[1]  # the scheduler replanned in between
 
 
 # ---------------------------------------------------------------------------
