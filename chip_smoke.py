@@ -94,7 +94,26 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    and logits and the same trace tokens; the first generate gives phase
    5's tokens; the graphed engine captures one decode graph per live
    state and nothing more;
-12. last line: {"ok": true, "device": {...}}.
+12. (runs after phase 9 and before the timings, so its launches are in the
+   kernel table) the six compression policies at phase 5's width: one-shot
+   B = 8, T = 2048, 32 new tokens under streaming_llm, snapkv, pyramidkv,
+   h2o, ada_snapkv and headkv (also with phase 5's measured profile as
+   head_importance), each under sha and fairkv_dp (CH = 4) planned from the
+   policy's own measured profile; bars: lengths bitwise plan-invariant,
+   balanced policies keep exactly min(budget_l, T, C) per head,
+   `layer_keep_bound` >= the realized sum of keep per layer and row, phase
+   5's logit bound; prints the retained sum per layer, the per-shard load
+   max/mean under both plans, plan efficiency, the graphed step's host and
+   device time and kernel 1's time per step.  Then phase 7's (b) under
+   headkv with obs on and off (identical tokens, no capture during the
+   trace read from stepfn_compiles_total, Prometheus text and Chrome trace
+   that parse; the tick medians) and (c)'s int8 pools with
+   `plan_kv_dtypes` overrides (every request finishes, the pool ends empty);
+13. `python -m repro_torch.launch.serve --arch minitron-8b --continuous
+   --policy headkv --cache-backend paged` in a subprocess at full width
+   with a few requests, metrics and trace written under chiprun_out/: exit
+   0, both files parse;
+14. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -1116,7 +1135,7 @@ def eager_executor(cfg):
 
 
 def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
-                   changes=None, reqs=None, eager=False):
+                   changes=None, reqs=None, eager=False, head_importance=None, inspect=None):
     """One trace through `Engine.run_trace` (8 rows, replanning on with
     `SchedulerConfig`'s defaults) with the launch counters zeroed just
     before and read just after; checks that every request finished with
@@ -1130,7 +1149,11 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
     The steps run as CUDA graphs, captured by `Engine.warmup` before the
     counted run; the trace must capture nothing more (replans, splices,
     retirements and copy-on-write write into the captured tensors).
-    ``eager`` runs every step eagerly instead.  Returns (launches, summary)."""
+    ``eager`` runs every step eagerly instead.  ``head_importance`` goes to
+    `Engine.build` (the ``headkv`` policy's weights); ``inspect(eng,
+    after_warmup)`` is called after the checks with the engine and the
+    ``stepfn_compiles_total`` counts read just after warmup.  Returns
+    (launches, summary)."""
     import numpy as np
     import torch
     from repro_torch.api import Engine, PagingConfig, SchedulerConfig, SpeculationConfig
@@ -1143,7 +1166,8 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
                   paging=PagingConfig(block_size=BLOCK, kv_dtype=kv, n_blocks=n_blocks),
                   speculation=spec)
     cfg = ctx["cfg"].replace(**{**fields, **(changes or {})})
-    eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
+    eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"],
+                       head_importance=head_importance)
     if eager:
         eng.executor = eager_executor(cfg)
     reqs = make_trace(m.vocab_size) if reqs is None else reqs
@@ -1167,6 +1191,9 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
     eng.warmup()
     t_warm = time.perf_counter() - t_warm
     captured = dict(ex.step_traces)
+    compiles_warm = {k: eng.obs.metrics.counter_value("stepfn_compiles_total", kind=k,
+                                                      executor="local")
+                     for k in ex.step_traces}
     # one capture per distinct step shape: the decode step, the chunk step
     # when chunking, propose and verify when speculating; prefill is eager
     shapes = {"prefill": 0, "decode": 1, "prefill_chunk": int(bool(chunk)),
@@ -1257,6 +1284,8 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
                **{f"{k[:-2]}_ms_median": v for k, v in host_ms.items()})
     if logits:
         out["logits"] = [np.stack(r.logits) for r in reqs]
+    if inspect is not None:
+        inspect(eng, compiles_warm)
     return got, out
 
 
@@ -1895,6 +1924,246 @@ def graphs_vs_eager(ctx):
 
 
 # ---------------------------------------------------------------------------
+# phase 12: the six compression policies at full width
+# ---------------------------------------------------------------------------
+
+# policy runs of phase 12: (label, policy, with head_importance)
+POLICY_RUNS = (("streaming_llm", "streaming_llm", False), ("snapkv", "snapkv", False),
+               ("pyramidkv", "pyramidkv", False), ("h2o", "h2o", False),
+               ("ada_snapkv", "ada_snapkv", False), ("headkv", "headkv", False),
+               ("headkv+imp", "headkv", True))
+
+
+def _policy_config(ctx, policy, mode, ch):
+    import dataclasses
+    return ctx["cfg"].replace(
+        compression=dataclasses.replace(ctx["cfg"].compression, policy=policy),
+        planner=planner(mode, ch))
+
+
+def _step_times(eng, steps=3):
+    """Device ms per graphed decode step and kernel 1's device ms per step,
+    from one torch.profiler pass over ``steps`` more steps."""
+    box = {"state": eng.state}
+
+    def decode():
+        for _ in range(steps):
+            box["state"], _ = eng.executor.decode(eng.sp, box["state"], eng.pa)
+
+    _, total, ours, _ = _device_profile(decode, ours_keys=("fairkv_decode_kernel",))
+    eng.state = box["state"]
+    if total <= 0:
+        fail("phase 12: torch.profiler recorded no device time for the decode steps")
+    return total / 1e3 / steps, ours / 1e3 / steps
+
+
+def policy_runs(ctx):
+    """Phase 12: one-shot B = 8, T = 2048, 32 new tokens under each of the
+    six policies (headkv also with phase 5's measured profile as
+    ``head_importance``), under sha and fairkv_dp (CH = 4); each fairkv_dp
+    plan is built from the policy's own measured profile (a sample batch),
+    and fairkv_dp is teacher-forced on sha's tokens.  Bars per policy:
+    retained lengths bitwise plan-invariant; balanced policies keep exactly
+    min(budget_l, T, C) per head; `layer_keep_bound` >= the realized
+    sum of keep of every layer and row; the logit gap of phase 5.  Prints
+    per policy the retained sum per layer, the per-shard load max/mean
+    (Eq. 4) under both plans, plan efficiency E, the graphed step's host
+    and device time and kernel 1's device time per step.  Then phase 7's
+    (b) configuration under headkv with obs on and off (identical tokens,
+    no capture during either trace, Prometheus text and Chrome trace that
+    parse, host-clocked tick medians), and (c)'s int8 pools with
+    `plan_kv_dtypes` overrides.  Returns the launches of the phase."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine, ObsConfig, PagingConfig, plan_kv_dtypes
+    from repro_torch.compression.policies import BALANCED, _pyramid_budget, layer_keep_bound
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.profiles import profile_from_lengths
+    from repro_torch.kernels import build
+    from repro_torch.training.data import SyntheticLM
+
+    m = ctx["cfg"].model
+    L, H = m.n_layers, m.n_kv_heads
+    data = SyntheticLM(m, InputShape("chip_smoke", T, B, "prefill"))
+    sample = data.get_batch(123)["tokens"]
+    prompts = ctx["prompts"]
+    launches = {k: 0 for k in build.LAUNCHES}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    rows = {}
+    for label, policy, with_imp in POLICY_RUNS:
+        imp = ctx["profile"] if with_imp else None
+        res, plans = {}, {}
+        profile = eng = None
+        for mode, ch in (("sha", 0), ("fairkv_dp", 4)):
+            eng = None  # free the previous engine's slot weights and cache first
+            gc.collect()
+            torch.cuda.empty_cache()
+            eng = Engine.build(_policy_config(ctx, policy, mode, ch), params=ctx["params"],
+                               profile=ctx["profile"] if profile is None else profile,
+                               head_importance=imp)
+            if profile is None:  # the policy's own offline statistic
+                profile, got = _count(lambda: eng.measure_profile(sample))
+                add(got)
+            teacher = None if mode == "sha" else res["sha"].tokens[:, :GEN]
+            r, got = _count(lambda: eng.generate(prompts, GEN, teacher_tokens=teacher))
+            add(got)
+            if got["fairkv_decode"] != L * GEN or got["snapkv_scores"] != L:
+                fail(f"{label} {mode}: launches {got}, expected {L * GEN} fairkv_decode and "
+                     f"{L} snapkv_scores")
+            if not np.isfinite(r.logits).all():
+                fail(f"{label} {mode}: logits not finite")
+            res[mode], plans[mode] = r, eng.plan
+        sha, dp = res["sha"], res["fairkv_dp"]
+        if not np.array_equal(sha.lengths, dp.lengths):
+            fail(f"{label}: retained lengths differ between sha and fairkv_dp")
+        lens = dp.lengths  # (L, Hkv, B)
+        C = eng.cfg.compression.static_capacity()
+        if policy in BALANCED:
+            for layer in range(L):
+                b = (_pyramid_budget(eng.cfg.compression, layer, L) if policy == "pyramidkv"
+                     else BUDGET)
+                if not (lens[layer] == min(b, T, C)).all():
+                    fail(f"{label}: layer {layer} keeps {np.unique(lens[layer])}, expected "
+                         f"exactly min({b}, {T}, {C})")
+        per_layer = lens.sum(axis=1)  # (L, B)
+        bounds = np.asarray([layer_keep_bound(policy, eng.cfg.compression, T, H, layer, L)
+                             for layer in range(L)])
+        if not (per_layer <= bounds[:, None]).all():
+            worst = int((per_layer - bounds[:, None]).max())
+            fail(f"{label}: a layer keeps {worst} tokens more than layer_keep_bound")
+        tol = L * 2.0 ** -8 * float(np.abs(sha.logits).max())
+        gap = float(np.abs(dp.logits - sha.logits).max())
+        if not gap < tol:
+            fail(f"{label}: fairkv_dp logits differ from sha's by {gap} >= {tol}")
+        realized = profile_from_lengths(lens.astype(np.float64))
+        load = {}
+        for mode, plan in plans.items():
+            per_shard = plan.per_shard_load(realized)
+            load[mode] = float(per_shard.max() / per_shard.mean())
+        dev_ms, k1_ms = _step_times(eng)
+        host_ms = 1e3 * statistics.median(dp.step_s)
+        rows[label] = {
+            "retained_per_layer": per_layer.sum(axis=1).astype(int).tolist(),
+            "retained_min_mean_max": [int(lens.min()), float(lens.mean()), int(lens.max())],
+            "load_max_over_mean": load, "efficiency": {"sha": sha.efficiency,
+                                                       "fairkv_dp": dp.efficiency},
+            "step_ms_host": host_ms, "step_ms_device": dev_ms, "kernel1_ms_per_step": k1_ms,
+            "prefill_s": dp.prefill_s, "logit_gap": gap, "logit_bound": tol,
+            "keep_bound_slack_min": int((bounds[:, None] - per_layer).min())}
+        log(f"[policy] {label:13s} retained per layer sum {per_layer.sum():8d} "
+            f"(per-head min/mean/max {lens.min()}/{lens.mean():.1f}/{lens.max()}) | "
+            f"load max/mean sha {load['sha']:.4f} fairkv_dp {load['fairkv_dp']:.4f} | "
+            f"E sha {sha.efficiency:.4f} fairkv_dp {dp.efficiency:.4f} | step host "
+            f"{host_ms:.2f} ms device {dev_ms:.2f} ms, kernel 1 {k1_ms:.4f} ms/step | "
+            f"logit gap {gap:.4f} (bound {tol:.4f}) | keep bound slack >= "
+            f"{rows[label]['keep_bound_slack_min']}")
+        log(f"[policy] {label:13s} retained per layer: {rows[label]['retained_per_layer']}")
+        eng = None
+    log("[policy] summary " + json.dumps(rows))
+
+    # phase 7's (b) under headkv, obs on and off
+    import dataclasses
+    comp = dataclasses.replace(ctx["cfg"].compression, policy="headkv")
+    seen = {}
+
+    def check_obs(eng, compiles_warm):
+        seen["compiles"] = {k: eng.obs.metrics.counter_value(
+            "stepfn_compiles_total", kind=k, executor="local") for k in compiles_warm}
+        seen["warm"] = compiles_warm
+        seen["prom"] = eng.metrics_prometheus()
+        seen["trace"] = eng.trace_export()
+        seen["families"] = sorted(eng.metrics())
+
+    runs = {}
+    for name, enabled in (("headkv obs on", True), ("headkv obs off", False)):
+        seen.clear()
+        got, runs[name] = continuous_run(
+            ctx, name, "paged", "fp32", head_importance=ctx["profile"], inspect=check_obs,
+            changes={"compression": comp, "obs": ObsConfig(enabled=enabled)})
+        add(got)
+        if enabled:
+            if seen["compiles"] != seen["warm"] or sum(seen["warm"].values()) < 1:
+                fail(f"{name}: stepfn_compiles_total {seen['compiles']} after the trace, "
+                     f"{seen['warm']} after warmup")
+            lines = [ln for ln in seen["prom"].splitlines() if not ln.startswith("#")]
+            for ln in lines:
+                float(ln.rsplit(" ", 1)[1])
+            events = json.loads(seen["trace"])["traceEvents"]
+            names = {e["name"] for e in events}
+            if not {"admit", "decode_tick", "stepfn_decode", "retire"} <= names:
+                fail(f"{name}: trace events {sorted(names)}")
+            log(f"[policy] {name}: {len(lines)} Prometheus series, {len(events)} trace "
+                f"events, families {seen['families']}; stepfn_compiles_total "
+                f"{seen['compiles']} after the trace = after warmup")
+    on, off = runs["headkv obs on"], runs["headkv obs off"]
+    same = sum(x == y for x, y in zip(on["tokens"], off["tokens"]))
+    log(f"[policy] headkv (b) obs on vs off: {same}/{N_REQ} requests identical; tick median "
+        f"{on['step_ms_median']:.2f} vs {off['step_ms_median']:.2f} ms (host clock); "
+        f"tokens/s {on['tokens_per_s']:.1f} vs {off['tokens_per_s']:.1f}")
+    if same != N_REQ:
+        fail(f"headkv obs on vs off: only {same}/{N_REQ} requests identical")
+
+    # (c)'s int8 pools with per-head fp8 overrides from the measured profile
+    overrides = plan_kv_dtypes(ctx["profile"])
+    got, mixed = continuous_run(
+        ctx, "int8+fp8 plan", "paged", "int8",
+        changes={"paging": PagingConfig(block_size=BLOCK, kv_dtype="int8",
+                                        kv_dtype_overrides=overrides)})
+    add(got)
+    log(f"[policy] (c) int8 with plan_kv_dtypes overrides: {len(overrides)} of {L * H} "
+        f"(layer, head) cells in fp8; {mixed['finished']}/{N_REQ} finished, "
+        f"tokens/s {mixed['tokens_per_s']:.1f}, tick median {mixed['step_ms_median']:.2f} ms")
+    log("[policy] continuous summary " + json.dumps(
+        {k: {kk: vv for kk, vv in v.items() if kk not in ("tokens", "logits")}
+         for k, v in {**runs, "int8+fp8 plan": mixed}.items()}))
+    log(f"[policy] launches over phase 12: {launches}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the serving CLI at full width
+# ---------------------------------------------------------------------------
+
+
+def cli_run():
+    """Phase 13: ``python -m repro_torch.launch.serve`` at full width in a
+    subprocess (continuous, headkv, paged pools, a few requests), writing
+    its Prometheus metrics and Chrome trace under chiprun_out/.  Bars: exit
+    0, and both files parse."""
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    metrics, trace = out_dir / "serve_metrics.prom", out_dir / "serve_trace.json"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH, "--continuous",
+           "--policy", "headkv", "--cache-backend", "paged", "--budget", str(BUDGET),
+           "--requests", "6", "--rows", "4", "--rate", "0.5", "--min-prompt", "512",
+           "--max-prompt", "1024", "--gen", "16", "--shards", str(N_SHARDS),
+           "--metrics-out", str(metrics), "--trace-out", str(trace)]
+    env = dict(__import__("os").environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True, text=True,
+                          timeout=600)
+    wall = time.perf_counter() - t0
+    tail = "\n".join(proc.stdout.splitlines()[-8:])
+    log(f"[cli] {' '.join(cmd[1:])}: exit {proc.returncode} in {wall:.1f} s\n{tail}")
+    if proc.returncode != 0:
+        fail(f"the serving CLI exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = [ln for ln in metrics.read_text().splitlines() if not ln.startswith("#")]
+    for ln in lines:
+        float(ln.rsplit(" ", 1)[1])
+    events = json.loads(trace.read_text())["traceEvents"]
+    if not lines or not events:
+        fail("the serving CLI wrote an empty metrics or trace file")
+    log(f"[cli] {metrics.name}: {len(lines)} series; {trace.name}: {len(events)} events")
+
+
+# ---------------------------------------------------------------------------
 # phase 10: timings on the main path's inputs
 # ---------------------------------------------------------------------------
 
@@ -2245,13 +2514,16 @@ def main() -> int:
     cont, mq_inputs = continuous_runs(ctx)
     prefix = prefix_runs(ctx)
     graphs_vs_eager(ctx)
+    # phases 12-13 run before the timings, so their launches are in the table
+    policies = policy_runs(ctx)
+    cli_run()
     # each phase of the main path counts its own launches (zeroed just
     # before, read just after): one-shot slot, one-shot paged, continuous,
-    # chunked prefill and prefix reuse
+    # chunked prefill and prefix reuse, the policies
     for k in launches:
-        launches[k] += paged["launches"][k] + cont[k] + prefix[k]
+        launches[k] += paged["launches"][k] + cont[k] + prefix[k] + policies[k]
     log(f"[main] launches over the whole main path: {launches} (of them in the chunked / "
-        f"prefix phase: {prefix})")
+        f"prefix phase: {prefix}; in the policy phase: {policies})")
     for name, n in launches.items():
         if n == 0:
             fail(f"kernel {name} was never launched on the main path")

@@ -1,5 +1,6 @@
 """The port's public API: `EngineConfig` + `Engine` (one-shot and
-continuous serving).
+continuous serving), the stats and observability types, and the planning
+building blocks (`build_plan`, `plan_kv_dtypes`, `select_policy`).
 
 The facade loads lazily (PEP 562): the registry decorators must be
 importable from the ``compression``/``core`` provider modules without
@@ -40,12 +41,33 @@ _LAZY = {
     "CompressionConfig": "repro_torch.compression.base",
     "PlannerConfig": "repro_torch.core.planner",
     "ExecutorConfig": "repro_torch.exec.base",
+    # planning building blocks
+    "PLANNER_MODES": "repro_torch.core.planner",
+    "build_plan": "repro_torch.core.planner",
+    "plan_kv_dtypes": "repro_torch.core.planner",
+    "select_policy": ("repro_torch.compression.policies", "select"),
+    # consolidated stats snapshot
+    "EngineStats": "repro_torch.api.stats",
+    "SchedulerStats": "repro_torch.api.stats",
+    "PoolStats": "repro_torch.api.stats",
+    "PrefixStats": "repro_torch.api.stats",
+    "PlanStats": "repro_torch.api.stats",
+    "SpeculationStats": "repro_torch.api.stats",
+    # observability
+    "Obs": "repro_torch.obs",
+    "ObsConfig": "repro_torch.obs",
+    "MetricsRegistry": "repro_torch.obs",
+    "TraceBuffer": "repro_torch.obs",
+    # continuous-batching helpers
+    "latency_percentiles": "repro_torch.serving.request",
 }
 
 
 def __getattr__(name):
     if name in _LAZY:
-        return getattr(importlib.import_module(_LAZY[name]), name)
+        target = _LAZY[name]
+        module, attr = target if isinstance(target, tuple) else (target, name)
+        return getattr(importlib.import_module(module), attr)
     raise AttributeError(f"module 'repro_torch.api' has no attribute {name!r}")
 
 

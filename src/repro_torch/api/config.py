@@ -6,9 +6,21 @@ KV budgets), ``PlannerConfig`` (FairKV placement), ``SchedulerConfig``
 (continuous batching), the cache backend and its ``PagingConfig``,
 ``PrefixConfig`` (chunked prefill and shared-prefix reuse),
 ``SpeculationConfig`` (self-speculative decoding), the executor and its
-``ExecutorConfig``, and the engine-level knobs.  ``__post_init__``
-validates every name-typed field against the port's registries, so a typo
-fails at construction with the registered names.  ``device`` defaults to ``"cuda"``: the CPU runs only when asked for.
+``ExecutorConfig``, ``ObsConfig`` (metrics and trace), and the
+engine-level knobs.  ``__post_init__`` validates every name-typed field
+against the port's registries, so a typo fails at construction with the
+registered names.  ``device`` defaults to ``"cuda"``: the CPU runs only
+when asked for.
+
+`to_dict` / `from_dict` round-trip a config through JSON (the serving
+CLI's ``--config`` file).  The dict has the reference's keys for every
+field the port has, plus ``device``.  A dict the reference wrote loads
+here: of the reference's keys the port lacks, ``compression.append_mode``
+and ``paging.decode_impl`` name implementation choices that the port
+makes by device (a known value is accepted and dropped), and ``frontend``
+is read only by the HTTP front end, which is not ported (ROADMAP A.9,
+second part), so it is accepted and dropped too.  Any other unknown key
+raises.
 """
 from __future__ import annotations
 
@@ -23,7 +35,9 @@ from repro_torch.compression.base import CompressionConfig
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.planner import PLANNER_MODES, PlannerConfig
+from repro_torch.configs.base import MoEConfig, SSMConfig
 from repro_torch.exec.base import ExecutorConfig
+from repro_torch.obs import ObsConfig
 from repro_torch.paging.block_pool import PagingConfig
 from repro_torch.prefix.config import PrefixConfig
 from repro_torch.serving.engine import _spec_supported
@@ -52,6 +66,9 @@ class EngineConfig:
     decoding (paged backend only).  ``executor`` names a registered
     executor (``"local"``: one device, its steps captured as CUDA graphs on
     the card and eager on the CPU); ``executor_cfg`` carries its knobs.
+    ``obs`` configures the metrics registry and span trace;
+    ``ObsConfig(enabled=False)`` swaps every collection point for shared
+    no-op objects.
     """
 
     model: ModelConfig
@@ -71,6 +88,7 @@ class EngineConfig:
     speculation: SpeculationConfig = field(default_factory=SpeculationConfig)
     executor: str = "local"
     executor_cfg: ExecutorConfig = field(default_factory=ExecutorConfig)
+    obs: ObsConfig = field(default_factory=ObsConfig)
 
     def __post_init__(self):
         if not isinstance(self.model, ModelConfig):
@@ -137,6 +155,9 @@ class EngineConfig:
             raise TypeError(
                 f"executor_cfg must be an ExecutorConfig, got "
                 f"{type(self.executor_cfg).__name__}")
+        if not isinstance(self.obs, ObsConfig):
+            raise TypeError(
+                f"obs must be an ObsConfig, got {type(self.obs).__name__}")
         if not isinstance(self.prefix, PrefixConfig):
             raise TypeError(
                 f"prefix must be a PrefixConfig, got {type(self.prefix).__name__}")
@@ -182,3 +203,79 @@ class EngineConfig:
     def replace(self, **changes) -> "EngineConfig":
         """`dataclasses.replace` that re-runs validation."""
         return dataclasses.replace(self, **changes)
+
+    # ---- JSON round trip ---------------------------------------------------
+
+    def to_dict(self) -> dict:
+        """JSON-serializable nested dict; `from_dict` round-trips it
+        (tuples become lists; ``from_dict`` makes them tuples again and
+        every sub-config re-validates)."""
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, data: dict) -> "EngineConfig":
+        """Rebuild from a `to_dict()` / JSON-file dict (the port's or the
+        reference's; see the module docstring for the reference's keys the
+        port drops).  Strict: any other unknown key raises ``ValueError``
+        naming its path and the valid keys.  Missing keys take the field
+        defaults (``model`` is the one required section)."""
+        return _config_from_dict(cls, data, "engine")
+
+
+_CONFIG_TYPES = {c.__name__: c for c in (
+    ModelConfig, MoEConfig, SSMConfig, CompressionConfig, PlannerConfig,
+    SchedulerConfig, PagingConfig, ExecutorConfig, ObsConfig, PrefixConfig,
+    SpeculationConfig)}
+
+# keys of the reference's dict that the port does not model, with the
+# values it accepts (None: any) — each is dropped on load
+_REFERENCE_ONLY = {
+    ("EngineConfig", "frontend"): None,
+    ("CompressionConfig", "append_mode"): ("scatter", "onehot"),
+    ("PagingConfig", "decode_impl"): ("auto", "pallas", "gather", "jnp"),
+}
+
+
+def _field_default(f):
+    if f.default_factory is not dataclasses.MISSING:  # type: ignore[misc]
+        return f.default_factory()
+    if f.default is not dataclasses.MISSING:
+        return f.default
+    return None
+
+
+def _nested_type(f):
+    """The dataclass type a dict value of this field rebuilds into."""
+    proto = _field_default(f)
+    if dataclasses.is_dataclass(proto):
+        return type(proto)
+    name = f.type if isinstance(f.type, str) else getattr(f.type, "__name__", None)
+    return _CONFIG_TYPES.get(name)
+
+
+def _config_from_dict(dc_cls, data, path):
+    if not isinstance(data, dict):
+        raise TypeError(
+            f"{path}: expected an object/dict for {dc_cls.__name__}, got "
+            f"{type(data).__name__}")
+    fields = dataclasses.fields(dc_cls)
+    names = [f.name for f in fields]
+    kwargs = {}
+    for key in sorted(set(data) - set(names)):
+        accepted = _REFERENCE_ONLY.get((dc_cls.__name__, key), ())
+        if accepted is not None and data[key] not in accepted:
+            raise ValueError(
+                f"unknown key {key!r} (value {data[key]!r}) at {path!r} for "
+                f"{dc_cls.__name__}; valid keys: {names}")
+    for f in fields:
+        if f.name not in data:
+            continue
+        v = data[f.name]
+        sub = _nested_type(f)
+        if sub is not None and isinstance(v, dict):
+            v = _config_from_dict(sub, v, f"{path}.{f.name}")
+        elif isinstance(v, list):
+            # JSON has no tuples; the frozen configs' validators expect them
+            v = tuple(tuple(e) if isinstance(e, list) else e for e in v)
+        kwargs[f.name] = v
+    return dc_cls(**kwargs)

@@ -21,7 +21,12 @@ few methods:
   before any timed region;
 - `Engine.measure_profile(batch)` runs a profiling prefill and returns the
   (L, H) realized per-head retained lengths (the paper's §4.1 offline
-  statistic) for feeding into a fresh `build`.
+  statistic) for feeding into a fresh `build` — as its planning profile,
+  or as ``head_importance``, the ``headkv`` policy's per-head weights;
+- observability: `stats()` (one typed `EngineStats` snapshot), `metrics()`
+  / `metrics_prometheus()` / `metrics_jsonl()` and `trace_export()` read
+  the engine's `Obs` handle (``EngineConfig.obs``), threaded through the
+  executor, the backends and the scheduler.
 
 The facade holds the *original-layout* parameters (`.params`, shareable
 between engines) and exposes the plan (`.plan`), plan arrays (`.pa`),
@@ -37,12 +42,14 @@ import numpy as np
 import torch
 
 from repro_torch.api.config import DTYPES, EngineConfig
+from repro_torch.api.stats import EngineStats, collect_stats
 from repro_torch.cache.slot_cache import PlanArrays, SlotCache, copy_fields_, migrate_cache
 from repro_torch.core.placement import HeadPlacement
 from repro_torch.core.planner import build_plan
 from repro_torch.core.profiles import profile_from_lengths, synthetic_profile
 from repro_torch.exec.base import make_executor
 from repro_torch.models import init_params
+from repro_torch.obs import Obs
 from repro_torch.paging.block_pool import PoolExhausted
 from repro_torch.serving import engine as _serve
 from repro_torch.serving.cache_backend import make_cache_backend
@@ -99,21 +106,29 @@ class Engine:
     """Facade over the FairKV serving stack.  Construct via `Engine.build`."""
 
     def __init__(self, cfg: EngineConfig, params: dict, plan: HeadPlacement,
-                 profile: np.ndarray):
+                 profile: np.ndarray, head_importance: Optional[np.ndarray] = None):
         self.cfg = cfg
         self.device = resolve_device(cfg.device)
         self.params = params  # original layout, shared with other engines
         self.plan = plan
         self.profile = profile  # (L, H) planning profile
+        self.head_importance = head_importance  # headkv per-head weights
+        # the same weights on the device: one (L, Hkv) tensor the prefill
+        # and chunk steps read (a captured chunk step copies it in per call)
+        self._head_importance = (None if head_importance is None else torch.as_tensor(
+            np.asarray(head_importance), dtype=torch.float32, device=self.device))
         self.pa = PlanArrays.from_plan(plan, device=self.device)
         with torch.inference_mode():
             self.sp = _serve.slotify_params(params, plan, cfg.model)
+        # one registry + trace per engine, threaded through the executor,
+        # the backends and (lazily) the scheduler
+        self.obs = Obs.build(cfg.obs)
         # runs the steps: CUDA graphs on the card, eager on the CPU.  A
         # caller may put another executor here before the first step (an
         # eager one, LocalExecutor(..., graphs=False), to compare against)
         self.executor = make_executor(cfg.executor, cfg.model, cfg.compression,
                                       exec_cfg=cfg.executor_cfg, paging=cfg.paging,
-                                      device=self.device)
+                                      device=self.device, obs=self.obs)
         self.backend = self._make_backend()
         self.state: Optional[_serve.ServeState] = None
         # the one-shot decode state; every generate() of the same shapes
@@ -130,19 +145,24 @@ class Engine:
             c.cache_backend, c.model, c.compression,
             max_live_tokens=c.scheduler.max_live_tokens, paging=c.paging,
             n_shards=c.n_shards,
-            max_live_tokens_per_shard=c.scheduler.max_live_tokens_per_shard)
+            max_live_tokens_per_shard=c.scheduler.max_live_tokens_per_shard,
+            obs=self.obs)
 
     @classmethod
     def build(cls, cfg: EngineConfig, *, params: Optional[dict] = None,
-              profile: Optional[np.ndarray] = None) -> "Engine":
+              profile: Optional[np.ndarray] = None,
+              head_importance: Optional[np.ndarray] = None) -> "Engine":
         """Assemble an engine: params (initialised on the device from
         ``cfg.seed`` if not given), plan, slot weights.
 
         ``profile`` is the (L, H) expected per-head workload the planner
         optimizes; default is a synthetic profile seeded from
         ``cfg.profile_seed`` / ``cfg.profile_skew`` (swap in a measured one
-        from `measure_profile` for paper-faithful planning).  Raises if the
-        config asks for CUDA and there is none.
+        from `measure_profile` for paper-faithful planning).
+        ``head_importance`` ((L, Hkv)) gives the ``headkv`` policy its
+        per-head weights (a measured profile, for instance); without it
+        ``headkv`` weighs heads by their realized mean score.  Raises if
+        the config asks for CUDA and there is none.
         """
         device = resolve_device(cfg.device)
         model = cfg.model
@@ -155,7 +175,7 @@ class Engine:
                 budget=cfg.compression.budget, skew=cfg.profile_skew,
                 seed=cfg.profile_seed)
         plan = build_plan(profile, cfg.n_shards, cfg.planner)
-        return cls(cfg, params, plan, profile)
+        return cls(cfg, params, plan, profile, head_importance=head_importance)
 
     # ---- one-shot serving --------------------------------------------------
 
@@ -164,7 +184,8 @@ class Engine:
         cache on ``self.state``.  Returns (logits (B, V), lengths
         (L, Hkv, B))."""
         state, logits, lengths = self.executor.prefill(
-            self.sp, self._as_batch(batch), self.pa)
+            self.sp, self._as_batch(batch), self.pa,
+            head_importance=self._head_importance)
         self.state = state
         self._mode = "oneshot"
         return logits, lengths
@@ -191,6 +212,10 @@ class Engine:
         t0 = time.perf_counter()
         logits, lengths = self.prefill(prompts)
         prefill_s = time.perf_counter() - t0
+        # one-shot TTFT is the prefill wall (no queue to wait in)
+        self.obs.metrics.histogram(
+            "ttft_s", help="time to first token (queue wait + prefill "
+                           "wall time)").observe(prefill_s)
         try:
             self.state = self.backend.from_prefill(self.state, self.pa)
         except PoolExhausted as e:
@@ -218,6 +243,10 @@ class Engine:
                     f"generation cannot preempt — raise PagingConfig.n_blocks") from e
             state, lg = self.executor.decode(self.sp, state, self.pa, tok)
             step_s.append(time.perf_counter() - t0)
+            self.obs.metrics.histogram(
+                "itl_s", help="inter-token latency (per-request mean in "
+                              "continuous mode; per-step in one-shot mode)"
+            ).observe(step_s[-1])
             self.state = state
             tokens.append(state.last_tokens.cpu().numpy().copy())
             if collect_logits:
@@ -305,7 +334,8 @@ class Engine:
                 self.cfg.scheduler, self.executor, planner_cfg=self.cfg.planner,
                 dtype=DTYPES[self.cfg.dtype], serve_params=self.sp,
                 backend=self._make_backend(), spec_cfg=self.cfg.speculation,
-                prefix_cfg=self.cfg.prefix)
+                prefix_cfg=self.cfg.prefix, head_importance=self.head_importance,
+                obs=self.obs, plan_profile=self.profile)
             if self._drain_pending:
                 self._scheduler.drain()
         return self._scheduler
@@ -359,7 +389,8 @@ class Engine:
                     dtype=DTYPES[self.cfg.dtype], device=self.device)
                 ex.prefill_chunk(sched.sp, np.zeros((1, Ck), np.int64), sched.pa, scratch,
                                  rows=[0], start=[0], valid=[Ck],
-                                 quota=sched._chunk_quota(Ck, Ck))
+                                 quota=sched._chunk_quota(Ck, Ck),
+                                 head_importance=sched._head_importance)
 
     def submit(self, request: Union[Request, np.ndarray, Sequence[int]],
                max_new_tokens: int = 16, eos_id: Optional[int] = None,
@@ -428,22 +459,68 @@ class Engine:
         self._sync_from_scheduler()
         return out
 
+    # ---- observability -------------------------------------------------------
+
+    def stats(self) -> EngineStats:
+        """One typed snapshot of the engine's operational state: nested
+        ``scheduler`` / ``pool`` / ``prefix`` / ``plan`` / ``speculation``
+        sections (`repro_torch.api.stats.EngineStats`).  Always
+        constructible: a section without a live source has ``None`` fields
+        and an empty ``detail``."""
+        return collect_stats(self)
+
     def prefix_stats(self) -> dict:
-        """The prefix index's counters and census (hits, misses, entries,
-        pinned, blocks held, evictions); empty until a continuous scheduler
-        with sharing on exists.  A typed stats object comes with the
-        port's observability layer."""
-        return {} if self._scheduler is None else self._scheduler.prefix_stats()
+        """The raw ``detail`` of ``stats().prefix`` (the index's counters
+        and census; empty until a continuous scheduler with sharing on
+        exists)."""
+        return self.stats().prefix.detail
+
+    def metrics(self) -> dict:
+        """Deterministic snapshot of every metric family (counters, gauges,
+        histograms with cumulative buckets); ``{}`` when obs is off."""
+        return self.obs.metrics.snapshot()
+
+    def metrics_prometheus(self) -> str:
+        """Prometheus text exposition of the metrics registry."""
+        return self.obs.metrics.to_prometheus()
+
+    def metrics_jsonl(self) -> str:
+        """One JSON object per metric series (appendable log format)."""
+        return self.obs.metrics.to_jsonl()
+
+    def trace_export(self) -> str:
+        """Chrome trace-event JSON of the recent span window (Perfetto,
+        chrome://tracing)."""
+        return self.obs.trace.export_json()
+
+    @property
+    def finished_requests(self) -> List[Request]:
+        return [] if self._scheduler is None else self._scheduler.finished
+
+    @property
+    def replan_log(self) -> List[dict]:
+        """``stats().scheduler.replan_log``."""
+        return self.stats().scheduler.replan_log
+
+    def imbalance(self) -> float:
+        """max/mean realized per-shard KV load (continuous mode); raises
+        until the scheduler exists (``stats().scheduler.imbalance`` is None
+        then)."""
+        v = self.stats().scheduler.imbalance
+        if v is None:
+            raise RuntimeError("imbalance() requires the continuous "
+                               "scheduler; call submit/stream first")
+        return v
 
     def memory_stats(self) -> dict:
-        """Cache footprint of whichever mode (one-shot / continuous) ran
-        most recently; raises with no live cache."""
-        if self._mode == "continuous" and self._scheduler is not None:
-            return self._scheduler.backend.memory_stats(self._scheduler.state)
-        if self.state is not None:
-            return self.backend.memory_stats(self.state)
-        raise RuntimeError("memory_stats() needs a live cache; call "
-                           "generate/prefill or submit/stream first")
+        """The raw ``detail`` of ``stats().pool``: the cache footprint of
+        whichever mode (one-shot / continuous) ran most recently; raises
+        with no live cache."""
+        pool = self.stats().pool
+        if not pool.detail:
+            raise RuntimeError("memory_stats() needs a live cache; call "
+                               "generate/prefill or submit/stream first")
+        return pool.detail
 
     def _as_batch(self, batch) -> Dict[str, torch.Tensor]:
         if isinstance(batch, dict):

@@ -3,7 +3,7 @@
 A policy looks at per-position importance scores gathered during prefill and
 decides, per (batch row, kv head), *which* positions to retain and *how many*
 (the per-head budget).  Balanced policies give every head the same budget;
-imbalanced policies (Ada-SnapKV — the paper's target) redistribute a
+imbalanced policies (Ada-SnapKV, HeadKV — the paper's targets) redistribute a
 layer-wide pool across heads, which is what creates the unfair head load.
 
 Scores come from the SnapKV observation-window statistic (the
@@ -32,6 +32,10 @@ class CompressionConfig:
     pool: int = 7
     sink: int = 4  # always-keep prefix tokens (StreamingLLM sinks)
     decode_margin: int = 64  # extra capacity for decode appends
+    # HeadKV: fraction of the pool pre-allocated uniformly ("base budget")
+    headkv_base_ratio: float = 0.2
+    # PyramidKV: budget decays linearly across layers by +/- this fraction
+    pyramid_beta: float = 0.6
 
     def static_capacity(self) -> int:
         cap = self.capacity or int(round(self.alpha_max * self.budget))

@@ -14,6 +14,7 @@ from repro_torch.core.planner import (  # noqa: F401
     PLANNER_MODES,
     PlannerConfig,
     build_plan,
+    plan_kv_dtypes,
     plan_layer,
     replan_for_stragglers,
 )

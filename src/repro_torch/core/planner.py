@@ -233,6 +233,52 @@ def replan_for_stragglers(
     return build_plan(profile, plan.n_shards, cfg, shard_speeds)
 
 
+def plan_kv_dtypes(
+    profile: np.ndarray,
+    base: str = "int8",
+    low_dtype: str = "fp8",
+    low_fraction: float = 0.5,
+) -> tuple:
+    """Per-head KV storage format as an allocatable budget axis.
+
+    Quantized pools give every head the same bytes per token; what the
+    planner can still allocate is *fidelity*.  Int8 codes spend their 8
+    bits on one block-wide scale (fine uniform steps: lower error for the
+    amplitude-stable distributions of heavily attended heads), while fp8
+    (e4m3) spends bits on exponent (graceful under outliers, coarser
+    steps).  This turns the (L, H) expected-workload profile the placement
+    planner consumes into the `PagingConfig.kv_dtype_overrides` tuple: per
+    layer, the coldest ``low_fraction`` of heads — whose retained KV
+    carries the least attention mass — are stored as ``low_dtype`` while
+    the hot heads keep ``base``.
+
+    Returns the canonical sorted ``((layer, head, dtype), ...)`` tuple
+    (empty when ``low_fraction`` rounds to zero heads or the two formats
+    are equal), ready to pass to `PagingConfig`.
+    """
+    from repro_torch.paging.kvquant import QUANT_DTYPES
+
+    for name, dt in (("base", base), ("low_dtype", low_dtype)):
+        if dt not in QUANT_DTYPES:
+            raise ValueError(
+                f"{name} must be one of {list(QUANT_DTYPES)}, got {dt!r}")
+    if not 0.0 <= low_fraction <= 1.0:
+        raise ValueError(f"low_fraction must be in [0, 1], got {low_fraction}")
+    profile = np.asarray(profile, dtype=np.float64)
+    if profile.ndim != 2:
+        raise ValueError("profile must be (n_layers, n_heads)")
+    n_layers, n_heads = profile.shape
+    n_low = int(low_fraction * n_heads)
+    if base == low_dtype or n_low == 0:
+        return ()
+    overrides = []
+    for layer in range(n_layers):
+        # stable sort: ties resolve to lower head ids, deterministically
+        cold = np.argsort(profile[layer], kind="stable")[:n_low]
+        overrides.extend((layer, int(h), low_dtype) for h in cold)
+    return tuple(sorted(overrides))
+
+
 def draft_plan(plan, n_layers: int):
     """Head placement for the layer-truncated draft model (DESIGN.md §16).
 

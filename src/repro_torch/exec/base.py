@@ -22,9 +22,18 @@ The ring-write phase (``ServeState.decode_steps``, a host int) reaches a
 step as ``phase``, a device scalar the executor refreshes before each call,
 so a captured step reads the live phase.  Every step ends in a device
 synchronize, so a caller's host clock around it covers the device work.
+
+Observability: with an enabled ``obs`` handle (`repro_torch.obs.Obs`, set
+by the `Engine` or the scheduler) every StepFn call goes through
+`_observe_step`, which records the reference's ``stepfn_wall_s{kind,
+executor}`` sample and a ``stepfn_<kind>`` trace span around the call and
+its synchronize, and counts a capture in ``stepfn_compiles_total`` (the
+reference counts a jit trace there): the "replans never re-capture"
+invariant as a metric.  With obs off the calls run unwrapped.
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -33,6 +42,7 @@ import torch
 from repro_torch.api.registry import get_executor
 from repro_torch.compression.base import CompressionConfig
 from repro_torch.configs.base import ModelConfig
+from repro_torch.obs import NULL_OBS
 from repro_torch.paging import kvquant
 
 # the StepFn kind table: every step an executor owns is one of these, and
@@ -83,12 +93,13 @@ class Executor:
 
     def __init__(self, model_cfg: ModelConfig, ccfg: CompressionConfig,
                  exec_cfg: Optional[ExecutorConfig] = None, mesh=None,
-                 paging=None, device="cuda"):
+                 paging=None, device="cuda", obs=None):
         self.cfg = model_cfg
         self.ccfg = ccfg
         self.exec_cfg = exec_cfg or ExecutorConfig()
         self.mesh = mesh
         self.paging = paging
+        self.obs = obs if obs is not None else NULL_OBS
         self.device = torch.device(device)
         spec = kvquant.spec_from_paging(paging)
         self.kv_kinds = (None if spec is None else torch.as_tensor(
@@ -147,20 +158,24 @@ class Executor:
     # ---- StepFns -----------------------------------------------------------
 
     def prefill(self, sp: dict, batch: dict, pa,
-                rows: Optional[torch.Tensor] = None) -> Tuple:
+                rows: Optional[torch.Tensor] = None,
+                head_importance: Optional[torch.Tensor] = None) -> Tuple:
         """Prefill step → (ServeState, logits (B, V), lengths (L, Hkv, B));
-        ``rows`` are the global rows the sub-batch will occupy."""
+        ``rows`` are the global rows the sub-batch will occupy,
+        ``head_importance`` ((L, Hkv)) the ``headkv`` policy's weights."""
         raise NotImplementedError
 
     def prefill_chunk(self, sp: dict, tokens: torch.Tensor, pa, state,
-                      rows, start, valid, quota) -> Tuple:
+                      rows, start, valid, quota,
+                      head_importance: Optional[torch.Tensor] = None) -> Tuple:
         """Chunked-prefill step → (ServeState, logits (B, V), lengths
         (L, Hkv, B)).  ``tokens`` is a fixed-width (B, chunk_tokens) slice
         (the last chunk zero-padded, ``valid`` (B,) counting its real
-        tokens), ``start`` (B,) the absolute position of each row's chunk
-        and ``quota`` (L,) the per-head keep cap of the boundary
-        compression: all are step inputs, so one capture serves every
-        chunk of every prompt."""
+        tokens), ``start`` (B,) the absolute position of each row's chunk,
+        ``quota`` (L,) the per-head keep cap of the boundary compression
+        and ``head_importance`` ((L, Hkv), optional) the ``headkv``
+        weights: all are step inputs, so one capture serves every chunk of
+        every prompt."""
         raise NotImplementedError
 
     def decode(self, sp: dict, state, pa,
@@ -186,15 +201,47 @@ class Executor:
         n_commit (B,), logits (B, Q, V)), rejected entries rolled back."""
         raise NotImplementedError
 
-    # ---- observability and audit (not ported yet) ---------------------------
+    # ---- observability ------------------------------------------------------
+
+    def _observed(self, kind: str, fn, *args):
+        """``fn(*args)``, through `_observe_step` when obs is on."""
+        if not self.obs.enabled:
+            return fn(*args)
+        return self._observe_step(kind, fn, args)
 
     def _observe_step(self, kind: str, fn, args) -> Tuple:
-        """The reference records a wall-time sample, a trace span and a
-        compile event per StepFn call here; the port's observability layer
-        is ROADMAP Queue A.9."""
-        raise NotImplementedError(
-            "StepFn observation needs the port's observability layer "
-            "(ROADMAP Queue A.9)")
+        """Run one StepFn call under observation: a ``stepfn_wall_s``
+        sample and a ``stepfn_<kind>`` span per call, and a
+        ``stepfn_compiles_total`` count plus a ``stepfn_<kind>_compile``
+        instant whenever the call captured a CUDA graph (`step_traces`
+        grew).  The step ends in its device synchronize, so the sample is
+        device completion, not dispatch.  Host-side only: nothing here
+        runs inside a capture."""
+        if kind not in STEP_KINDS:
+            raise ValueError(
+                f"unknown StepFn kind {kind!r}; known: {list(STEP_KINDS)}")
+        before = self.step_traces[kind]
+        t0 = time.perf_counter()
+        out = fn(*args)
+        dt = time.perf_counter() - t0
+        obs = self.obs
+        m = obs.metrics
+        obs.trace.complete(f"stepfn_{kind}", t0, dt, executor=self.name)
+        if self.step_traces[kind] > before:
+            m.counter(
+                "stepfn_compiles_total",
+                help="StepFn (re)traces; decode must stay at one per "
+                     "(shape, backend) across replans (DESIGN.md §10)",
+            ).inc(kind=kind, executor=self.name)
+            obs.trace.instant(f"stepfn_{kind}_compile", executor=self.name)
+        m.histogram(
+            "stepfn_wall_s",
+            help="StepFn wall time per invocation, seconds (blocked on "
+                 "device completion)",
+        ).observe(dt, kind=kind, executor=self.name)
+        return out
+
+    # ---- audit (not ported yet) -------------------------------------------
 
     def decode_hlo(self, sp: dict, state, pa, tokens: torch.Tensor) -> str:
         """The reference audits the decode step's collectives from its
@@ -207,8 +254,8 @@ class Executor:
 
 def make_executor(name: str, model_cfg: ModelConfig, ccfg: CompressionConfig,
                   exec_cfg: Optional[ExecutorConfig] = None, mesh=None,
-                  paging=None, device="cuda", **kw) -> Executor:
+                  paging=None, device="cuda", obs=None, **kw) -> Executor:
     """Instantiate a registered executor by name; ``kw`` goes to its
     constructor (the local executor's ``graphs``)."""
     return get_executor(name)(model_cfg, ccfg, exec_cfg=exec_cfg, mesh=mesh,
-                              paging=paging, device=device, **kw)
+                              paging=paging, device=device, obs=obs, **kw)

@@ -6,7 +6,8 @@ captured as a CUDA graph once per shape and replayed after:
 - ``decode`` per (batch rows, cache backend and geometry);
 - ``propose`` per (draft_layers, max_k, batch rows, cache);
 - ``verify`` per (draft_layers, window width Q, batch rows, cache);
-- ``prefill_chunk`` per (chunk width, sub-state geometry).
+- ``prefill_chunk`` per (chunk width, sub-state geometry, with or without
+  ``head_importance``).
 
 ``prefill`` stays eager: a prompt's prefill keeps the card busy (an
 8 x 2048 batch of minitron-8b keeps an H100 ~99% busy), so a graph would
@@ -18,7 +19,7 @@ outside a capture); the capture follows and records without running.
 A graph reads and writes fixed storage: the slot weights, plan arrays and
 state it was captured on, plus its own input buffers, into which each call
 copies its small inputs (active mask, depths, window, chunk tokens,
-positions, quota).  So a graph is keyed by the storage of its state as
+positions, quota, the ``headkv`` head weights).  So a graph is keyed by the storage of its state as
 well as by its shape: each live state (the one-shot state of
 `Engine.generate`, the scheduler's) gets a capture of its own, and a
 replan, a splice, a retirement or copy-on-write, which write into the live
@@ -93,14 +94,14 @@ class LocalExecutor(Executor):
     name = "local"
 
     def __init__(self, model_cfg, ccfg, exec_cfg=None, mesh=None, paging=None,
-                 device="cuda", graphs: Optional[bool] = None):
+                 device="cuda", obs=None, graphs: Optional[bool] = None):
         if mesh is not None:
             raise ValueError(
                 "the 'local' executor runs on a single device and takes no "
                 "mesh; the multi-GPU executor is not ported yet (ROADMAP "
                 "Queue A.10): drop mesh=")
         super().__init__(model_cfg, ccfg, exec_cfg=exec_cfg, mesh=None,
-                         paging=paging, device=device)
+                         paging=paging, device=device, obs=obs)
         if graphs is None:
             graphs = self.device.type == "cuda"
         if graphs and self.device.type != "cuda":
@@ -176,20 +177,54 @@ class LocalExecutor(Executor):
 
     # ---- StepFns -----------------------------------------------------------
 
+    # every public step runs through `_observed` (obs on: timed and traced)
+
     @torch.inference_mode()
-    def prefill(self, sp, batch, pa, rows=None):
-        out = _serve.prefill(sp, batch, self.cfg, pa, self.ccfg, rows=rows)
+    def prefill(self, sp, batch, pa, rows=None, head_importance=None):
+        return self._observed("prefill", self._prefill, sp, batch, pa, rows,
+                              head_importance)
+
+    @torch.inference_mode()
+    def prefill_chunk(self, sp, tokens, pa, state, rows, start, valid, quota,
+                      head_importance=None):
+        return self._observed("prefill_chunk", self._prefill_chunk, sp, tokens, pa,
+                              state, rows, start, valid, quota, head_importance)
+
+    @torch.inference_mode()
+    def decode(self, sp, state, pa, tokens=None, active=None):
+        return self._observed("decode", self._decode, sp, state, pa, tokens, active)
+
+    @torch.inference_mode()
+    def propose(self, sp, state, pa, depths, active=None, *, draft_layers, max_k):
+        return self._observed("propose", self._propose, sp, state, pa, depths, active,
+                              draft_layers, max_k)
+
+    @torch.inference_mode()
+    def verify(self, sp, state, pa, tokens, q_lens, active=None, *, draft_layers):
+        return self._observed("verify", self._verify, sp, state, pa, tokens, q_lens,
+                              active, draft_layers)
+
+    def _prefill(self, sp, batch, pa, rows, head_importance):
+        if head_importance is not None:
+            head_importance = self._host(head_importance, torch.float32)
+        out = _serve.prefill(sp, batch, self.cfg, pa, self.ccfg, rows=rows,
+                             head_importance=head_importance)
         self.synchronize()
         return out
 
-    @torch.inference_mode()
-    def prefill_chunk(self, sp, tokens, pa, state, rows, start, valid, quota):
+    def _prefill_chunk(self, sp, tokens, pa, state, rows, start, valid, quota,
+                       head_importance):
         inputs = {"tokens": self._host(tokens, torch.int64),
                   "rows": self._host(rows, torch.int64),
                   "start": self._host(start, torch.int32),
                   "valid": self._host(valid, torch.int32),
                   "quota": self._host(quota, torch.int32)}
-        key = (tuple(inputs["tokens"].shape), _serve.state_layout(state))
+        # the headkv weights are one more input, copied into the graph's
+        # buffer per call, so one capture serves every chunk
+        if head_importance is not None:
+            inputs["head_importance"] = self._host(head_importance, torch.float32)
+        key = (tuple(inputs["tokens"].shape), _serve.state_layout(state),
+               head_importance is not None)
         # chunk jobs in flight each hold a sub-state: the graph runs on a
         # private one, which every call copies the job's state into and out of
         sub = state
@@ -200,9 +235,10 @@ class LocalExecutor(Executor):
             else:
                 _serve.copy_state_(sub, state)
 
-        def fn(tokens, rows, start, valid, quota):
+        def fn(tokens, rows, start, valid, quota, head_importance=None):
             new, logits, lens = _serve.prefill_chunk(sp, tokens, self.cfg, pa, self.ccfg,
-                                                     sub, rows, start, valid, quota)
+                                                     sub, rows, start, valid, quota,
+                                                     head_importance=head_importance)
             sub.last_tokens.copy_(new.last_tokens)
             return logits, lens
 
@@ -212,8 +248,7 @@ class LocalExecutor(Executor):
         return (_serve.ServeState(cache=state.cache, last_tokens=state.last_tokens,
                                   decode_steps=state.decode_steps), logits, lens)
 
-    @torch.inference_mode()
-    def decode(self, sp, state, pa, tokens=None, active=None):
+    def _decode(self, sp, state, pa, tokens, active):
         if tokens is not None and tokens is not state.last_tokens:
             state.last_tokens.copy_(self._host(tokens, state.last_tokens.dtype))
 
@@ -230,8 +265,7 @@ class LocalExecutor(Executor):
         return (_serve.ServeState(cache=state.cache, last_tokens=state.last_tokens,
                                   decode_steps=state.decode_steps + 1), logits)
 
-    @torch.inference_mode()
-    def propose(self, sp, state, pa, depths, active=None, *, draft_layers, max_k):
+    def _propose(self, sp, state, pa, depths, active, draft_layers, max_k):
         def fn(depths, active):
             _, props = _serve.propose_step(sp, state, self.cfg, pa, self.ccfg, depths,
                                            active=active, kv_kinds=self.kv_kinds,
@@ -247,8 +281,7 @@ class LocalExecutor(Executor):
         return (_serve.ServeState(cache=state.cache, last_tokens=state.last_tokens,
                                   decode_steps=state.decode_steps), props)
 
-    @torch.inference_mode()
-    def verify(self, sp, state, pa, tokens, q_lens, active=None, *, draft_layers):
+    def _verify(self, sp, state, pa, tokens, q_lens, active, draft_layers):
         def fn(tokens, q_lens, active):
             new, g, n_commit, logits = _serve.verify_step(
                 sp, state, self.cfg, pa, self.ccfg, tokens, q_lens, active=active,

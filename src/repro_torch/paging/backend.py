@@ -26,6 +26,12 @@ one before a row's next append would land in it (copy-on-write: only the
 recency ring can wrap into a shared prefix).  Admission charges a request
 only the blocks it does not share.
 
+With an enabled ``obs`` handle each admission (`from_prefill`, `splice`)
+records the codec's error on the admitted sub-cache (``kv_quant_rel_err``,
+``kv_quant_tokens_total``; int8 / fp8 pools only), and `sample_metrics`
+the pool gauges, ``cache_live_tokens`` and ``kv_bytes_per_token``: all on
+the host between steps, outside every captured graph.
+
 Not ported yet: pool partitions for the multi-GPU executor.
 """
 from __future__ import annotations
@@ -118,6 +124,7 @@ class PagedBackend(CacheBackend):
             self.cfg.n_layers, int(pa.slot_head.shape[1]), batch,
             self.capacity, self.cfg.head_dim, self.paging, dtype=dtype,
             kv_quant=self.kv_quant, device=dev)
+        self.pool.obs = self.obs  # alloc / free / exhaustion counters
         self.table = np.zeros(tuple(cache.block_table.shape), np.int32)
         self._pending_scale_reset.clear()
         self._pending_cow.clear()
@@ -139,6 +146,7 @@ class PagedBackend(CacheBackend):
                                  self.block_size, self.max_blocks, own=own)
         paginate_rows(empty.cache, slot, np.arange(B), self.table,
                       kinds=self._slot_kinds(pa))
+        self._observe_quant_error(slot)
         state.cache = empty.cache
         return state
 
@@ -164,6 +172,7 @@ class PagedBackend(CacheBackend):
                                     self.max_blocks, own=own)
             self.table[:, :, rows_np, :] = table_sub
             paginate_rows(state.cache, sub.cache, rows_np, table_sub, kinds=kinds)
+            self._observe_quant_error(sub.cache)
             return _serve.set_row_tokens(state, rows_np, sub.last_tokens)
         shared = np.asarray(shared_blocks, np.int32)
         n_sh = (shared > 0).sum(axis=-1)  # (L, S, R) shared full blocks
@@ -188,7 +197,28 @@ class PagedBackend(CacheBackend):
         table_write = np.where(col < n_sh[..., None], 0, table_full)
         paginate_rows(state.cache, sub.cache, rows_np, table_write, kinds=kinds,
                       table_store=table_full)
+        self._observe_quant_error(sub.cache)
         return _serve.set_row_tokens(state, rows_np, sub.last_tokens)
+
+    def _observe_quant_error(self, slot) -> None:
+        """Quantization-error observation: roundtrip the admitted slot-layout
+        sub-cache through the codec and record the relative error.  Only
+        with obs on and int8 / fp8 pools (it costs a second encode pass and
+        a sync); it reads the sub-cache and writes nothing."""
+        if self.kv_kinds is None or not self.obs.enabled:
+            return
+        kinds = torch.as_tensor(self._slot_kinds(self.pa),
+                                device=slot.k.device)[:, :, None, None]
+        err_k, den_k = kvquant.roundtrip_error(slot.k, slot.pos, self.block_size, kinds)
+        err_v, den_v = kvquant.roundtrip_error(slot.v, slot.pos, self.block_size, kinds)
+        self.obs.metrics.counter(
+            "kv_quant_tokens_total",
+            help="KV tokens quantized into the paged pools").inc(int(slot.lengths.sum()))
+        self.obs.metrics.gauge(
+            "kv_quant_rel_err",
+            help="mean relative KV quantization error over the last "
+                 "admitted sub-cache (Σ|deq(q(x))−x| / Σ|x|)"
+        ).set(float((err_k + err_v) / max(den_k + den_v, 1e-9)))
 
     def release_rows(self, state, rows):
         rows_np = np.asarray(rows, np.int64)
@@ -365,6 +395,7 @@ class PagedBackend(CacheBackend):
         if rows.size:
             own[:, :, rows] = _owner_mask_np(new_pa, rows)
         trial = BlockPool(self.pool.n_layers, self.pool.n_blocks)
+        trial.obs = self.obs  # trial allocations are real allocator work
         table = build_table(slot2.lengths.cpu().numpy(), trial, self.block_size,
                             self.max_blocks, own=own)
 
@@ -439,6 +470,26 @@ class PagedBackend(CacheBackend):
         return None
 
     # ---- telemetry ---------------------------------------------------------
+
+    def sample_metrics(self, state) -> None:
+        if self.pool is None:
+            return
+        self.pool.sample_gauges(self.obs.metrics)
+        live = int(state.cache.lengths.sum())
+        self.obs.metrics.gauge(
+            "cache_live_tokens",
+            help="Σ retained KV tokens across the live cache").set(live)
+        if isinstance(state.cache, PagedCache):
+            per_block = block_hbm_bytes(self.block_size, self.cfg.head_dim,
+                                        state.cache.k_pool.dtype,
+                                        self.kv_kinds is not None)
+            self.obs.metrics.gauge(
+                "kv_bytes_per_token",
+                help="HBM bytes pinned per live KV token (allocated "
+                     "blocks x per-block footprint incl. scales / "
+                     "live tokens) — the decode-bandwidth unit the "
+                     "kv_dtype knob halves (DESIGN.md §15)"
+            ).set(self.pool.blocks_in_use() * per_block / max(live, 1))
 
     def memory_stats(self, state) -> dict:
         c = state.cache

@@ -18,6 +18,7 @@ from typing import Iterable, List, Optional
 
 import numpy as np
 
+from repro_torch.obs import NULL_OBS
 from repro_torch.paging import kvquant
 
 
@@ -109,6 +110,10 @@ class BlockPool:
     at refcount 1; prefix reuse shares it (`incref`: the prefix index and
     every row that maps it hold one reference each), and it returns to the
     free list when the last reference is dropped (`decref`).
+
+    ``obs`` (the owning backend's handle) counts allocations, frees and
+    refusals under the reference's ``pool_*`` names; `sample_gauges`
+    records the pool-pressure gauges.  The port's pool is one partition.
     """
 
     def __init__(self, n_layers: int, n_blocks: int):
@@ -124,6 +129,7 @@ class BlockPool:
                                        for _ in range(n_layers)]
         # most blocks one layer has held at once (the realized need)
         self.peak_in_use = 0
+        self.obs = NULL_OBS
 
     # ---- introspection -----------------------------------------------------
 
@@ -143,6 +149,38 @@ class BlockPool:
         return int(self.n_layers * self.usable_blocks
                    - int(self.free_blocks().sum()))
 
+    def sample_gauges(self, metrics) -> None:
+        """Record the pool-pressure gauges: free / in-use totals, free
+        blocks per partition (one here), fragmentation (free blocks outside
+        each layer's tightest partition: 0 with one partition) and the
+        largest refcount (the sharing depth; 1 = none)."""
+        free = self.free_blocks()[:, None]  # (L, P = 1)
+        metrics.gauge(
+            "pool_free_blocks",
+            help="free KV blocks, summed over layers and partitions"
+        ).set(int(free.sum()))
+        metrics.gauge(
+            "pool_blocks_in_use",
+            help="allocated KV blocks across all layers (nulls excluded)"
+        ).set(self.blocks_in_use())
+        g = metrics.gauge(
+            "pool_free_blocks_partition",
+            help="free KV blocks per pool partition (one partition per "
+                 "(model shard, data shard) pair), summed over layers")
+        for p, v in enumerate(free.sum(axis=0)):
+            g.set(int(v), partition=str(p))
+        metrics.gauge(
+            "pool_fragmentation_blocks",
+            help="free blocks outside each layer's tightest partition — "
+                 "free but unusable for the admission the tightest "
+                 "partition is about to refuse"
+        ).set(int((free - free.min(axis=1, keepdims=True)).sum()))
+        metrics.gauge(
+            "pool_max_refcount",
+            help="max block refcount (copy-on-write sharing depth; 1 = "
+                 "no sharing)"
+        ).set(int(self.refcount.max()))
+
     # ---- alloc / free ------------------------------------------------------
 
     def alloc(self, layer: int, n: int) -> List[int]:
@@ -151,12 +189,19 @@ class BlockPool:
         than ``n`` are free."""
         free = self._free[layer]
         if n > len(free):
+            self.obs.metrics.counter(
+                "pool_exhausted_total",
+                help="allocations refused by an empty free list (the "
+                     "scheduler's preemption signal)").inc()
             raise PoolExhausted(
                 f"layer {layer}: requested {n} blocks, {len(free)} free "
                 f"(pool {self.usable_blocks}/layer)")
         ids = [free.pop() for _ in range(n)]
         self.refcount[layer, ids] = 1
         self.peak_in_use = max(self.peak_in_use, self.usable_blocks - len(free))
+        self.obs.metrics.counter(
+            "pool_alloc_blocks_total",
+            help="KV blocks handed out by the pool").inc(n)
         return ids
 
     def incref(self, layer: int, ids: Iterable[int]) -> None:
@@ -184,6 +229,10 @@ class BlockPool:
             if rc == 1:
                 freed.append(b)
         if freed:
+            self.obs.metrics.counter(
+                "pool_freed_blocks_total",
+                help="KV blocks returned to the pool "
+                     "(refcount reached 0)").inc(len(freed))
             fl = self._free[layer]
             fl.extend(freed)
             fl.sort(reverse=True)  # lowest id first via pop()

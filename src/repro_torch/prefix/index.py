@@ -17,8 +17,8 @@ written) keeps every holder's view bit-identical.
 Eviction is LRU over unpinned entries, both to bound the index
 (``max_entries``) and on demand when the pool runs dry.  An entry is
 pinned while a chunked prefill reads from it.  The hit / miss / eviction
-counters are what `stats` reports; metrics export comes with the port's
-observability layer.
+counters are what `stats` reports, and each also feeds the reference's
+``prefix_{hits,misses,evictions}_total`` metric.
 """
 from __future__ import annotations
 
@@ -28,6 +28,8 @@ from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from repro_torch.obs import NULL_OBS
 
 
 @dataclass
@@ -59,11 +61,12 @@ class PrefixIndex:
     paged backend's splice (and dropped by its ``release_rows``).
     """
 
-    def __init__(self, chunk_tokens: int, max_entries: int = 256):
+    def __init__(self, chunk_tokens: int, max_entries: int = 256, obs=None):
         if chunk_tokens < 1:
             raise ValueError(f"chunk_tokens must be >= 1, got {chunk_tokens}")
         self.chunk_tokens = int(chunk_tokens)
         self.max_entries = int(max_entries)
+        self.obs = obs or NULL_OBS
         self.pool = None  # set by the owning scheduler (the backend's pool)
         self._entries: "OrderedDict[bytes, PrefixEntry]" = OrderedDict()
         self.hits = 0
@@ -101,9 +104,15 @@ class PrefixIndex:
                 best = hit
         if best is None:
             self.misses += 1
+            self.obs.metrics.counter(
+                "prefix_misses_total",
+                help="prefix-index lookups with no usable boundary").inc()
             return None
         self._entries.move_to_end(best.key)
         self.hits += 1
+        self.obs.metrics.counter(
+            "prefix_hits_total",
+            help="prefix-index lookups that matched a shared prefix").inc()
         return best
 
     def register(self, key: bytes, tokens: int, table: np.ndarray,
@@ -150,6 +159,9 @@ class PrefixIndex:
             if ids.size:
                 self.pool.decref(layer, ids.tolist())
         self.evictions += 1
+        self.obs.metrics.counter(
+            "prefix_evictions_total",
+            help="prefix entries dropped by LRU / pool pressure").inc()
         return True
 
     def flush(self, decref: bool = True) -> None:

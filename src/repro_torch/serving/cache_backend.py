@@ -16,7 +16,9 @@ backends update the ServeState's tensors in place and return the state;
 ``splice`` / ``prepare_decode`` may raise ``PoolExhausted`` (the
 scheduler's preemption signal); ``migrate_cache`` returns the candidate's
 lengths and a ``commit`` callback, so a replan can be scored and rejected
-without touching the live state.
+without touching the live state.  ``obs`` is the engine's observability
+handle (`NULL_OBS` unless the `Engine` or scheduler sets it), into which
+``sample_metrics`` records the cache-pressure gauges once per tick.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.cache.slot_cache import PlanArrays, copy_fields_, migrate_cache
 from repro_torch.compression.base import CompressionConfig
 from repro_torch.compression.policies import layer_keep_bound, projected_request_tokens
 from repro_torch.configs.base import ModelConfig
+from repro_torch.obs import NULL_OBS
 from repro_torch.paging.block_pool import PagingConfig, PoolExhausted  # noqa: F401
 from repro_torch.serving import engine as _serve
 from repro_torch.serving.request import Request
@@ -48,13 +51,15 @@ class CacheBackend:
                  max_live_tokens: Optional[int] = None,
                  paging: Optional[PagingConfig] = None,
                  n_shards: int = 1,
-                 max_live_tokens_per_shard: Optional[int] = None):
+                 max_live_tokens_per_shard: Optional[int] = None,
+                 obs=None):
         self.cfg = model_cfg
         self.ccfg = ccfg
         self.max_live_tokens = max_live_tokens
         self.paging = paging or PagingConfig()
         self.n_shards = int(n_shards)
         self.max_live_tokens_per_shard = max_live_tokens_per_shard
+        self.obs = obs if obs is not None else NULL_OBS
 
     # ---- state lifecycle ---------------------------------------------------
 
@@ -113,6 +118,12 @@ class CacheBackend:
 
     def memory_stats(self, state) -> dict:
         raise NotImplementedError
+
+    def sample_metrics(self, state) -> None:
+        """Per-tick gauge sampling (host-side, between steps): record this
+        backend's cache-pressure observables into ``self.obs``.  The
+        scheduler calls it once per tick when obs is on; the default
+        records nothing."""
 
 
 @register_cache_backend("slot")
@@ -212,6 +223,17 @@ class SlotBackend(CacheBackend):
                         f"empty cache")
         return None
 
+    def sample_metrics(self, state) -> None:
+        m = self.obs.metrics
+        live = self.live_tokens(state)
+        cap = int(state.cache.lengths.numel()) * self.ccfg.static_capacity()
+        m.gauge("cache_live_tokens",
+                help="Σ retained KV tokens across the live cache").set(live)
+        m.gauge("cache_utilization",
+                help="live tokens / static slot capacity (slot backend "
+                     "pressure; the paged analog is pool_free_blocks)"
+                ).set(live / max(1, cap))
+
     def memory_stats(self, state) -> dict:
         c = state.cache
         L, S, B, C, Dh = c.k.shape
@@ -230,10 +252,11 @@ def make_cache_backend(name: str, model_cfg: ModelConfig,
                        max_live_tokens: Optional[int] = None,
                        paging: Optional[PagingConfig] = None,
                        n_shards: int = 1,
-                       max_live_tokens_per_shard: Optional[int] = None
-                       ) -> CacheBackend:
+                       max_live_tokens_per_shard: Optional[int] = None,
+                       obs=None) -> CacheBackend:
     """Instantiate a registered backend by name."""
     from repro_torch.api.registry import get_cache_backend
     return get_cache_backend(name)(
         model_cfg, ccfg, max_live_tokens=max_live_tokens, paging=paging,
-        n_shards=n_shards, max_live_tokens_per_shard=max_live_tokens_per_shard)
+        n_shards=n_shards, max_live_tokens_per_shard=max_live_tokens_per_shard,
+        obs=obs)

@@ -167,6 +167,7 @@ def prefill(
     plan: PlanArrays,
     ccfg: CompressionConfig,
     rows: Optional[torch.Tensor] = None,
+    head_importance: Optional[torch.Tensor] = None,
 ) -> Tuple[ServeState, torch.Tensor, torch.Tensor]:
     """Run the full prompt, compress each layer's KV into the slot cache.
 
@@ -175,6 +176,8 @@ def prefill(
     depend on the plan.  ``rows`` ((B,) int) are the global batch rows this
     sub-batch will occupy in a live cache: ownership is evaluated there, so
     the sub-cache can be spliced in (`splice_state`).  Default arange(B).
+    ``head_importance`` ((L, Hkv), optional) feeds the ``headkv`` policy
+    its per-layer head weights; other policies ignore it.
 
     Returns (state, last_logits (B, V) fp32, lengths (L, Hkv, B) — the
     realized per-head retained lengths, the paper's workload observable).
@@ -192,7 +195,7 @@ def prefill(
     for i, pl in enumerate(serve_params["layers"]):
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
         attn_flat, lens = _prefill_attention(pl, hn, positions, cfg, i, cache,
-                                             plan, ccfg, W, rows)
+                                             plan, ccfg, W, rows, head_importance)
         h = h + _slot_o_proj(pl, attn_flat, cfg, plan, i)
         lengths_all.append(lens)
         hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
@@ -208,8 +211,16 @@ def prefill(
     return state, logits, torch.stack(lengths_all)
 
 
+def _policy_kw(ccfg: CompressionConfig, head_importance, layer_idx: int) -> dict:
+    """The policy's extra arguments: ``headkv`` reads its layer's row of
+    ``head_importance`` when one is given."""
+    if ccfg.policy == "headkv" and head_importance is not None:
+        return {"head_importance": head_importance[layer_idx]}
+    return {}
+
+
 def _prefill_attention(pl, hn, positions, cfg, layer_idx, cache, plan, ccfg,
-                       W, rows=None):
+                       W, rows=None, head_importance=None):
     """Full attention + compression + slot-cache fill for one layer."""
     B, T, D = hn.shape
     Hkv, G, Dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
@@ -234,7 +245,8 @@ def _prefill_attention(pl, hn, positions, cfg, layer_idx, cache, plan, ccfg,
         # sliding-window layers never need positions older than the window
         pos = torch.arange(T, device=scores.device)
         scores = torch.where(pos[None, None, :] >= T - window, scores, float("-inf"))
-    idx, keep = policy_select(ccfg.policy, scores, ccfg, layer_idx, cfg.n_layers)
+    idx, keep = policy_select(ccfg.policy, scores, ccfg, layer_idx, cfg.n_layers,
+                              **_policy_kw(ccfg, head_importance, layer_idx))
     fill_from_selection(cache, layer_idx, k, v, idx, keep, plan, rows=rows)
     return out_flat, keep.T  # lens (Hkv, B)
 
@@ -285,7 +297,7 @@ def _cache_head_view(cache: SlotCache, layer: int, plan: PlanArrays,
 
 
 def _chunk_attention(pl, hn, positions, valid, cfg, layer_idx, cache, plan,
-                     ccfg, quota_l, rows):
+                     ccfg, quota_l, rows, head_importance=None):
     """Attention over (retained cache ‖ current chunk), then compression at
     the chunk boundary, for one layer.
 
@@ -353,7 +365,8 @@ def _chunk_attention(pl, hn, positions, valid, cfg, layer_idx, cache, plan,
         end = (valid + positions[:, 0])[:, None, None]
         scores = torch.where(positions[:, None, :] >= end - window, scores,
                              float("-inf"))
-    idx, keep = policy_select(ccfg.policy, scores, ccfg, layer_idx, cfg.n_layers)
+    idx, keep = policy_select(ccfg.policy, scores, ccfg, layer_idx, cfg.n_layers,
+                              **_policy_kw(ccfg, head_importance, layer_idx))
     keep = torch.minimum(keep, valid[:, None])  # only real tokens
     keep = torch.minimum(keep, quota_l)  # the chunk's share of the budget
     keep = torch.minimum(keep, C - len_h)  # slot headroom
@@ -373,6 +386,7 @@ def prefill_chunk(
     start: torch.Tensor,  # (B,) absolute position of chunk token 0
     valid: torch.Tensor,  # (B,) real tokens in this chunk (<= Ck)
     quota: Union[Sequence[int], torch.Tensor],  # (L,) per-head keep cap for this chunk
+    head_importance: Optional[torch.Tensor] = None,  # (L, Hkv) headkv weights
 ) -> Tuple[ServeState, torch.Tensor, torch.Tensor]:
     """Process one fixed-width prompt chunk against an accumulating cache.
 
@@ -409,7 +423,7 @@ def prefill_chunk(
     for i, pl in enumerate(serve_params["layers"]):
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
         attn_flat, lens = _chunk_attention(pl, hn, positions, valid, cfg, i, cache,
-                                           plan, ccfg, quota[i], rows)
+                                           plan, ccfg, quota[i], rows, head_importance)
         h = h + _slot_o_proj(pl, attn_flat, cfg, plan, i)
         lengths_all.append(lens)
         hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)

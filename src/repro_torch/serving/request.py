@@ -101,6 +101,12 @@ class Request:
         self.spec_accepted = 0
         self.n_preemptions += 1
 
+    def queueing_steps(self) -> Optional[int]:
+        """Arrival → admission, in scheduler steps."""
+        if self.admit_step is None:
+            return None
+        return self.admit_step - self.arrival_step
+
     def latency_steps(self) -> Optional[int]:
         """Arrival → last token, in scheduler steps."""
         if self.finish_step is None:

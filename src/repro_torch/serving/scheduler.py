@@ -37,7 +37,14 @@ skips those chunks, and maps the shared blocks into its row instead of
 copying them.  Index-only entries are the first memory reclaimed when the
 pool runs dry, before any preemption.
 
-Not ported yet: the observability hooks (ROADMAP Queue A.9).
+Observability (``obs``, the engine's `repro_torch.obs.Obs`; `NULL_OBS`
+when constructed alone): the reference's series under the reference's
+names — admissions, retirements, preemptions, cancellations and replans
+by outcome; per tick the per-shard realized load (``shard_load_tokens``,
+Eq. 4), ``sched_imbalance``, rows, queue depth and prefix census, with the
+backend's pool gauges; the plan's projected load; speculation counters;
+TTFT / ITL / end-to-end histograms; and trace spans around admission,
+chunks, decode ticks and replans.  All host-side, between steps.
 """
 from __future__ import annotations
 
@@ -56,6 +63,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.placement import HeadPlacement
 from repro_torch.core.planner import PlannerConfig, build_plan
 from repro_torch.exec.base import Executor
+from repro_torch.obs import NULL_OBS, Obs
 from repro_torch.paging.block_pool import PoolExhausted
 from repro_torch.paging.paged_cache import PagedCache, paged_to_slot
 from repro_torch.prefix import PrefixConfig, PrefixEntry, PrefixIndex
@@ -176,7 +184,10 @@ class Scheduler:
                  dtype=torch.float32, serve_params: Optional[dict] = None,
                  backend: Optional[CacheBackend] = None,
                  spec_cfg: Optional[SpeculationConfig] = None,
-                 prefix_cfg: Optional[PrefixConfig] = None):
+                 prefix_cfg: Optional[PrefixConfig] = None,
+                 head_importance: Optional[np.ndarray] = None,
+                 obs: Optional[Obs] = None,
+                 plan_profile: Optional[np.ndarray] = None):
         self.cfg = cfg
         self.params = params  # original layout, kept to re-slotify on replan
         self.plan = plan
@@ -196,6 +207,24 @@ class Scheduler:
             "slot", cfg, ccfg, max_live_tokens=scfg.max_live_tokens,
             n_shards=plan.n_shards,
             max_live_tokens_per_shard=scfg.max_live_tokens_per_shard)
+        # per-head weights of the importance-driven policy (headkv):
+        # admission prefills compress with the budgets the profile was
+        # measured under.  One (L, Hkv) device tensor, made once, which
+        # every prefill and chunk step reads (a captured chunk step copies
+        # it into its input buffer per call)
+        self.head_importance = head_importance
+        self._head_importance = (None if head_importance is None else torch.as_tensor(
+            np.asarray(head_importance), dtype=torch.float32, device=self.device))
+        # one registry / trace for the stack: the backend before init_state,
+        # so the paged pool is born with the live handle
+        self.obs = obs if obs is not None else NULL_OBS
+        if obs is not None:
+            self.backend.obs = self.obs
+            self.executor.obs = self.obs
+        # the per-head profile the current plan was planned from (the
+        # shard_projected_load gauge); refreshed on every accepted replan
+        self.plan_profile = (None if plan_profile is None
+                             else np.asarray(plan_profile, np.float64))
         with torch.inference_mode():
             self.state = self.backend.init_state(self.pa, scfg.max_rows, dtype)
         # chunked prefill needs only the dense-attention chunk step; block
@@ -208,7 +237,7 @@ class Scheduler:
         if (self.prefix_cfg.enabled and self._chunk_ok
                 and self.backend.name == "paged"):
             self.prefix = PrefixIndex(self.prefix_cfg.chunk_tokens,
-                                      self.prefix_cfg.max_entries)
+                                      self.prefix_cfg.max_entries, obs=self.obs)
             self.prefix.pool = self.backend.pool
         # speculative decoding: provisional blocks come from the same pool
         # as ordinary decode growth, and rejection trims them back
@@ -247,6 +276,15 @@ class Scheduler:
         self.verify_s: List[float] = []  # host time of each verify step
         self.chunk_s: List[float] = []  # host time of each chunked-prefill step
         self.decode_ticks = 0  # ticks that ran a decode step (plain or speculative)
+        if self.obs.enabled:
+            # pre-register the outcome series, so exports show explicit zeros
+            c = self.obs.metrics.counter(
+                "sched_replans_total",
+                help="replan attempts by outcome (accepted replans migrated "
+                     "the live cache; rejected left state untouched)")
+            c.inc(0, outcome="accepted")
+            c.inc(0, outcome="rejected")
+            self._sample_plan_metrics()
 
     # ---- load accounting ---------------------------------------------------
 
@@ -265,6 +303,74 @@ class Scheduler:
         """max/mean per-shard realized load (1.0 = fair); with persisted
         ``shard_speeds`` the time imbalance load/speed."""
         return self._imbalance_from(self.per_shard_load())
+
+    # ---- observability sampling --------------------------------------------
+
+    def _sample_plan_metrics(self) -> None:
+        """Gauge the projected per-shard load of the current plan under the
+        profile it was planned from: the planner's promise, against which
+        ``shard_load_tokens`` shows the realized load."""
+        if self.plan_profile is None:
+            return
+        g = self.obs.metrics.gauge(
+            "shard_projected_load",
+            help="planner-projected per-shard load of the active placement "
+                 "under the profile it was planned from")
+        for s, v in enumerate(self.plan.per_shard_load(self.plan_profile)):
+            g.set(float(v), shard=str(s))
+
+    def _sample_step_metrics(self, load: np.ndarray, imb: float) -> None:
+        """Per-tick gauges (host-side; called only when obs is on)."""
+        m = self.obs.metrics
+        g = m.gauge("shard_load_tokens",
+                    help="realized Σ retained KV tokens per model shard "
+                         "(the paper's Eq. 4 observable)")
+        for s, v in enumerate(load):
+            g.set(float(v), shard=str(s))
+        m.gauge("sched_imbalance",
+                help="max/mean per-shard realized load (1.0 = fair); "
+                     "speed-normalized under persisted shard_speeds").set(imb)
+        m.gauge("sched_active_rows",
+                help="batch rows holding a live request").set(len(self.active))
+        m.gauge("sched_queue_depth",
+                help="requests waiting in the FCFS queue").set(len(self.queue))
+        m.gauge("sched_prefilling_rows",
+                help="rows held by in-flight chunked prefills "
+                     "(DESIGN.md §14)").set(len(self.prefilling))
+        if self.prefix is not None:
+            st = self.prefix.stats()
+            m.gauge("prefix_entries",
+                    help="prompt-prefix boundaries held by the index").set(
+                st["entries"])
+            m.gauge("prefix_shared_blocks",
+                    help="pool blocks referenced by prefix entries").set(
+                st["blocks_held"])
+            # every reference beyond the first on an allocated block is a
+            # block the sharing rows would otherwise each hold privately
+            extra = int(np.maximum(self.backend.pool.refcount - 1, 0).sum())
+            c = self.state.cache
+            blk_bytes = 2 * c.k_pool.shape[2] * c.k_pool.shape[3] * c.k_pool.element_size()
+            m.gauge("prefix_bytes_saved",
+                    help="KV bytes deduplicated by prefix sharing "
+                         "(Σ (refcount−1) · block bytes)").set(extra * blk_bytes)
+        self.backend.sample_metrics(self.state)
+        pe = self.obs.cfg.print_every
+        if pe > 0 and self.step_idx % pe == 0:
+            print(f"[obs] step={self.step_idx} active={len(self.active)} "
+                  f"queued={len(self.queue)} finished={len(self.finished)} "
+                  f"imbalance={imb:.3f} preemptions={self.n_preemptions} "
+                  f"replans={self.n_replans}", flush=True)
+
+    def _count_admission(self, req: Request) -> None:
+        """The admission counter and the request's TTFT sample."""
+        self.obs.metrics.counter(
+            "sched_admissions_total",
+            help="requests admitted (prefilled + spliced)").inc()
+        ttft = req.ttft_seconds()
+        if ttft is not None:
+            self.obs.metrics.histogram(
+                "ttft_s", help="time to first token (queue wait + prefill "
+                               "wall time)").observe(ttft)
 
     def realized_profile(self) -> np.ndarray:
         """(L, H) mean retained length per head over the active rows
@@ -313,7 +419,8 @@ class Scheduler:
         req.admit_step = self.step_idx
         batch = {"tokens": torch.as_tensor(np.asarray(req.prompt, np.int64)[None, :],
                                            device=self.device)}
-        sub, logits, _ = self.executor.prefill(self.sp, batch, self.pa, rows=[row])
+        sub, logits, _ = self.executor.prefill(self.sp, batch, self.pa, rows=[row],
+                                               head_importance=self._head_importance)
         try:
             self.state = self.backend.splice(self.state, sub, [row])
         except PoolExhausted:
@@ -328,6 +435,7 @@ class Scheduler:
         req.generated.append(int(sub.last_tokens[0]))
         req.first_token_step = self.step_idx
         req.first_token_time = time.time()
+        self._count_admission(req)
         if self.scfg.collect_logits:
             req.logits = [logits[0].cpu().numpy()]
         req.state = RequestState.DECODING
@@ -472,9 +580,12 @@ class Scheduler:
             chunk = np.zeros((1, Ck), np.int64)
             chunk[0, :n] = job.prompt[job.next_pos:job.next_pos + n]
             t0 = time.perf_counter()
-            job.state, logits, lens = self.executor.prefill_chunk(
-                self.sp, chunk, self.pa, job.state, rows=[row], start=[job.next_pos],
-                valid=[n], quota=self._chunk_quota(T, n))
+            with self.obs.trace.span("prefill_chunk", req=job.req.req_id,
+                                     start=job.next_pos, tokens=n):
+                job.state, logits, lens = self.executor.prefill_chunk(
+                    self.sp, chunk, self.pa, job.state, rows=[row],
+                    start=[job.next_pos], valid=[n], quota=self._chunk_quota(T, n),
+                    head_importance=self._head_importance)
             self.chunk_s.append(time.perf_counter() - t0)
             job.next_pos += n
             if n == Ck:  # a full-chunk boundary: keep it for registration
@@ -512,6 +623,7 @@ class Scheduler:
         req.generated.append(int(job.state.last_tokens[0]))
         req.first_token_step = self.step_idx
         req.first_token_time = time.time()
+        self._count_admission(req)
         if self.scfg.collect_logits:
             req.logits = [job.last_logits[0]]
         req.state = RequestState.DECODING
@@ -584,6 +696,24 @@ class Scheduler:
         req.finish_time = time.time()
         req.row = None
         self.finished.append(req)
+        m = self.obs.metrics
+        m.counter("sched_retirements_total",
+                  help="requests retired (EOS or max-new-tokens)").inc()
+        self.obs.trace.instant("retire", req=req.req_id, n_generated=req.n_generated)
+        itl = req.itl_seconds()
+        if itl is not None:
+            m.histogram("itl_s",
+                        help="inter-token latency (per-request mean in "
+                             "continuous mode; per-step in one-shot mode)"
+                        ).observe(itl)
+        if req.arrival_time is not None:
+            m.histogram("e2e_s", help="end-to-end request latency"
+                        ).observe(req.finish_time - req.arrival_time)
+        if req.spec_proposed > 0:
+            m.histogram("spec_acceptance",
+                        help="per-request draft acceptance rate "
+                             "(accepted / proposed over the lifetime)"
+                        ).observe(req.spec_accepted / req.spec_proposed)
 
     # ---- cancellation + draining -------------------------------------------
 
@@ -613,6 +743,12 @@ class Scheduler:
         req.row = None
         self.finished.append(req)
         self.n_cancellations += 1
+        self.obs.metrics.counter(
+            "sched_cancellations_total",
+            help="requests retired early (client disconnect / deadline "
+                 "shed); rows and blocks are released like a normal "
+                 "retirement").inc()
+        self.obs.trace.instant("cancel", req=req_id)
         return True
 
     def drain(self) -> None:
@@ -629,6 +765,11 @@ class Scheduler:
         victim.reset_for_requeue()
         self.queue.appendleft(victim)
         self.n_preemptions += 1
+        self.obs.metrics.counter(
+            "sched_preemptions_total",
+            help="evictions back to QUEUED (pool exhaustion or priority "
+                 "pressure), lowest-priority-youngest-first").inc()
+        self.obs.trace.instant("preempt", req=victim.req_id, priority=victim.priority)
 
     def _preempt_one(self) -> bool:
         """Evict the least urgent, then youngest, active request (the most
@@ -696,8 +837,12 @@ class Scheduler:
         chunked prefills are in flight: their sub-states are laid out under
         the current plan and their seeds read the current pool.
         """
-        with torch.inference_mode():
-            return self._replan_impl(profile, shard_speeds)
+        with torch.inference_mode(), self.obs.trace.span("replan"):
+            event = self._replan_impl(profile, shard_speeds)
+        # the outcome counter is the one source of replan counts
+        self.obs.metrics.counter("sched_replans_total").inc(
+            outcome="accepted" if event["accepted"] else "rejected")
+        return event
 
     def _replan_impl(self, profile, shard_speeds) -> dict:
         if shard_speeds is not None:
@@ -750,6 +895,10 @@ class Scheduler:
             self.prefix.pool = self.backend.pool
         self.n_replans += 1
         self.replan_log.append(event)
+        if self.obs.enabled:
+            # the new plan's promise, from the profile it was planned from
+            self.plan_profile = profile
+            self._sample_plan_metrics()
         return event
 
     # ---- main loop ---------------------------------------------------------
@@ -771,9 +920,10 @@ class Scheduler:
         self._prepare_decode()  # may preempt (paged pool dry)
         if not self.active:  # everything got preempted
             return
-        self.state, logits = self.executor.decode(
-            self.sp, self.state, self.pa, self.state.last_tokens,
-            active=self.active_mask())
+        with self.obs.trace.span("decode_tick", rows=len(self.active)):
+            self.state, logits = self.executor.decode(
+                self.sp, self.state, self.pa, self.state.last_tokens,
+                active=self.active_mask())
         self.decode_ticks += 1
         toks = self.state.last_tokens.cpu().numpy()
         logits_np = logits.cpu().numpy() if self.scfg.collect_logits else None
@@ -815,26 +965,31 @@ class Scheduler:
         if not self.active:  # everything got preempted reserving blocks
             return
         mask = self.active_mask()
-        t0 = time.perf_counter()
-        st, props = self.executor.propose(
-            self.sp, self.state, self.pa, torch.as_tensor(depth, device=self.device),
-            active=mask, draft_layers=d, max_k=spec.max_k)
-        t1 = time.perf_counter()
-        tokens = torch.cat([st.last_tokens[:, None], props], dim=1)
-        q_lens = torch.as_tensor(depth + 1, dtype=torch.int32, device=self.device)
-        st, g, n_commit, logits = self.executor.verify(
-            self.sp, st, self.pa, tokens, q_lens, active=mask, draft_layers=d)
+        with self.obs.trace.span("decode_tick", rows=len(self.active),
+                                 spec_max_depth=int(depth.max())):
+            t0 = time.perf_counter()
+            st, props = self.executor.propose(
+                self.sp, self.state, self.pa, torch.as_tensor(depth, device=self.device),
+                active=mask, draft_layers=d, max_k=spec.max_k)
+            t1 = time.perf_counter()
+            tokens = torch.cat([st.last_tokens[:, None], props], dim=1)
+            q_lens = torch.as_tensor(depth + 1, dtype=torch.int32, device=self.device)
+            st, g, n_commit, logits = self.executor.verify(
+                self.sp, st, self.pa, tokens, q_lens, active=mask, draft_layers=d)
         self.propose_s.append(t1 - t0)
         self.verify_s.append(time.perf_counter() - t1)
         self.decode_ticks += 1
         self.state = self.backend.trim_rows(st, sorted(self.active))
         g_np, nc = g.cpu().numpy(), n_commit.cpu().numpy()
         logits_np = logits.cpu().numpy() if self.scfg.collect_logits else None
+        tick_proposed = tick_accepted = 0
         for row in sorted(self.active):
             req = self.active[row]
             n, prop = int(nc[row]), int(depth[row])
             req.spec_proposed += prop
             req.spec_accepted += max(0, n - 1)
+            tick_proposed += prop
+            tick_accepted += max(0, n - 1)
             # commit the accepted run, cut at EOS / max_new_tokens (the
             # cache may hold a few tokens past the cut; the row retires
             # right below, which frees them with the row)
@@ -851,6 +1006,17 @@ class Scheduler:
                     self._spec_depth[row] = max(spec.min_k, want - 1)
                 elif alpha >= spec.high_acceptance:
                     self._spec_depth[row] = min(spec.max_k, want + 1)
+        if self.obs.enabled:
+            m = self.obs.metrics
+            m.counter("spec_proposed_total",
+                      help="draft tokens proposed by speculative decode"
+                      ).inc(tick_proposed)
+            m.counter("spec_accepted_total",
+                      help="draft tokens accepted by the verify pass"
+                      ).inc(tick_accepted)
+            m.gauge("spec_depth",
+                    help="mean adaptive speculation depth over live rows"
+                    ).set(float(np.mean([self._spec_depth[r] for r in self.active])))
         self._retire_done(events)
 
     @torch.inference_mode()
@@ -878,9 +1044,12 @@ class Scheduler:
                     break
             del self.queue[i]
             if self._should_chunk(req):
-                events["admitted"].append((req.req_id, self._start_chunked(req, entry)))
+                with self.obs.trace.span("admit_chunked", req=req.req_id):
+                    row = self._start_chunked(req, entry)
+                events["admitted"].append((req.req_id, row))
                 continue
-            row = self._admit(req)
+            with self.obs.trace.span("admit", req=req.req_id):
+                row = self._admit(req)
             if row is None:  # backend memory dry
                 self.queue.appendleft(req)
                 break
@@ -898,7 +1067,12 @@ class Scheduler:
         elif self.active:
             self._decode_tick(events)
         events["preempted"] = self.n_preemptions - preempted_before
-        self.trigger.observe(self.imbalance())
+        # one load vector feeds the replan trigger and the gauges
+        load = self.per_shard_load()
+        imb = self._imbalance_from(load)
+        self.trigger.observe(imb)
+        if self.obs.enabled:
+            self._sample_step_metrics(load, imb)
         if self.should_replan():
             self.trigger.fire(self.step_idx)
             events["replan"] = self.replan()

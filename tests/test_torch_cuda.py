@@ -612,3 +612,40 @@ def test_graphs_generate_between_ticks(gen, mode):
     assert ex.step_traces == {"prefill": 0, "decode": 2, "prefill_chunk": 1,
                               "propose": 0, "verify": 0}
     assert graphed.prefix_stats() == eager.prefix_stats()
+
+
+@pytest.mark.parametrize("policy", ["headkv", "h2o"])
+def test_graphs_policy_chunks_with_obs(gen, policy):
+    """The chunked trace under `headkv` (per-head importance as a step
+    input of the captured chunk step) and `h2o` (partial last chunks:
+    the NaN rule inside a captured step), graphed with obs on against
+    eager with obs off: bitwise the same tokens and logits, and
+    ``stepfn_compiles_total`` equal to the executor's captures after
+    `warmup` and unchanged by the trace."""
+    import dataclasses
+    from repro_torch.api import ObsConfig
+    base = _graph_cfg("chunked")
+    cfg = base.replace(compression=dataclasses.replace(base.compression, policy=policy))
+    imp = np.array([[3.0, 1.0], [1.0, 2.0]]) if policy == "headkv" else None
+    graphed = Engine.build(cfg, profile=_SKEWED, head_importance=imp)
+    eager = _eager(Engine.build(cfg.replace(obs=ObsConfig(enabled=False)),
+                                params=graphed.params, profile=_SKEWED, head_importance=imp))
+    traces = [_mixed_trace(cfg.model.vocab_size) for _ in range(2)]
+    graphed.warmup()
+    ex, m = graphed.executor, graphed.obs.metrics
+
+    def compiles():
+        return {k: m.counter_value("stepfn_compiles_total", kind=k, executor="local")
+                for k in ex.step_traces}
+    warm = compiles()
+    assert warm == {k: float(v) for k, v in ex.step_traces.items()}
+    assert warm["decode"] == warm["prefill_chunk"] == 1
+    a = graphed.run_trace(traces[0])
+    b = eager.run_trace(traces[1])
+    assert compiles() == warm
+    assert a["finished"] == b["finished"] == 6
+    for x, y in zip(traces[0], traces[1]):
+        assert x.generated == y.generated
+        assert all(np.array_equal(p, q) for p, q in zip(x.logits, y.logits))
+    assert eager.metrics() == {}
+    assert m.get("stepfn_wall_s").count(kind="prefill_chunk", executor="local") > 0

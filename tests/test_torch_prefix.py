@@ -331,7 +331,8 @@ def test_request_templates_match_reference():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("policy", ["none", "snapkv", "ada_snapkv"])
+@pytest.mark.parametrize("policy", ["none", "snapkv", "ada_snapkv", "streaming_llm", "pyramidkv",
+                                    "h2o", "headkv"])
 def test_prefill_chunk_matches_reference(params, policy):
     """Three chunks of a 40-token prompt (16, 16, then 8 valid of 16) into
     row 3 of a replicated plan (4 shards, fairkv_dp with 4 extra copies):
