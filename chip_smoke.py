@@ -112,8 +112,27 @@ Phases (any failure exits non-zero; no phase carries on past its own):
 13. `python -m repro_torch.launch.serve --arch minitron-8b --continuous
    --policy headkv --cache-backend paged` in a subprocess at full width
    with a few requests, metrics and trace written under chiprun_out/: exit
-   0, both files parse;
-14. last line: {"ok": true, "device": {...}}.
+   0, both files parse; then `serve --http --port 0` (paged pools, 4 rows)
+   in a subprocess: the script waits for its `serving on` line, sends two
+   requests, then SIGTERM: exit 0, the drain line, metrics that parse;
+14. (after phase 13, before the timings, so its launches are in the kernel
+   table) the multi-tenant front end at phase 7's configuration (b) with
+   replanning off: (a) a bursty three-tenant trace of 48 requests (seed 7,
+   batch 3x the others, bursts of 16 every 10 steps, fig10's classes)
+   through `run_frontend_trace` under admission "slo" and "fcfs", each on a
+   fresh engine: every request terminal with a recorded reason, fcfs
+   rejecting none, the pool empty, no capture, launches equal to the
+   prefills and decode ticks; prints goodput per step, SLO attainment per
+   tenant, rejections, degradations, preemptions and the front end's host
+   time per pump; (b) `FrontendServer` on 127.0.0.1 over a graphed engine,
+   driven by an asyncio client: one prompt via /v1/generate and /v1/stream
+   equal to `Engine.stream` bitwise (SSE order checked), twelve concurrent
+   requests over three tenants with one client leaving after 3 tokens
+   (cancelled), a drain with requests live and queued and a 503 for a
+   request sent after it began; the pool empty, no capture, /metrics with
+   the front end's seven families; prints TTFT per tenant and the SSE gap
+   beside the tick;
+15. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -2133,7 +2152,7 @@ def cli_run():
     """Phase 13: ``python -m repro_torch.launch.serve`` at full width in a
     subprocess (continuous, headkv, paged pools, a few requests), writing
     its Prometheus metrics and Chrome trace under chiprun_out/.  Bars: exit
-    0, and both files parse."""
+    0, and both files parse.  Then `cli_http_run`, the HTTP front end."""
     import torch
     gc.collect()
     torch.cuda.empty_cache()
@@ -2161,6 +2180,460 @@ def cli_run():
     if not lines or not events:
         fail("the serving CLI wrote an empty metrics or trace file")
     log(f"[cli] {metrics.name}: {len(lines)} series; {trace.name}: {len(events)} events")
+    cli_http_run(env)
+
+
+def cli_http_run(env):
+    """Phase 13, second subprocess: ``serve --http --port 0`` at full width
+    on paged pools.  The script waits for the ``serving on`` line, sends two
+    requests, then SIGTERM.  Bars: both requests finish with their tokens,
+    exit 0, the drain line printed, ``--metrics-out`` parses and has the
+    front end's families."""
+    import queue
+    import signal
+    import threading
+    import urllib.request
+    out_dir = ROOT / "chiprun_out"
+    metrics = out_dir / "serve_http_metrics.prom"
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", "--arch", ARCH, "--http",
+           "--port", "0", "--cache-backend", "paged", "--budget", str(BUDGET), "--rows", "4",
+           "--min-prompt", "512", "--max-prompt", "1024", "--gen", "16", "--shards",
+           str(N_SHARDS), "--metrics-out", str(metrics)]
+    import numpy as np
+    t0 = time.perf_counter()
+    err_path = out_dir / "serve_http_stderr.txt"
+    with open(err_path, "w") as err:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=err,
+                                text=True)
+    lines: "queue.Queue[str]" = queue.Queue()
+    reader = threading.Thread(target=lambda: [lines.put(ln) for ln in proc.stdout], daemon=True)
+    reader.start()
+    try:
+        line = ""
+        while not line.startswith("serving on"):
+            try:
+                line = lines.get(timeout=300)
+            except queue.Empty:
+                fail("serve --http printed no `serving on` line within 300 s")
+        ready = time.perf_counter() - t0
+        port = int(line.split("http://")[1].split()[0].rsplit(":", 1)[1])
+        rng = np.random.default_rng(SEED)
+        for i in range(2):
+            body = json.dumps({"prompt": rng.integers(1, 256, size=600 + 100 * i).tolist(),
+                               "max_new_tokens": 16, "tenant": f"cli{i}"}).encode()
+            req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/generate", data=body,
+                                         method="POST")
+            out = json.loads(urllib.request.urlopen(req, timeout=120).read())
+            if out["state"] != "finished" or len(out["tokens"]) != 16:
+                fail(f"serve --http answered {out}")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    rest = []
+    while not lines.empty():
+        rest.append(lines.get())
+    stdout = "".join(rest)
+    log(f"[cli] {' '.join(cmd[1:])}: serving after {ready:.1f} s; exit {rc} in "
+        f"{time.perf_counter() - t0:.1f} s\n{stdout.strip()}")
+    if rc != 0:
+        fail(f"serve --http exited {rc}: {err_path.read_text()[-2000:]}")
+    if "drained after" not in stdout:
+        fail("serve --http printed no drain line")
+    text = metrics.read_text()
+    series = [ln for ln in text.splitlines() if not ln.startswith("#")]
+    for ln in series:
+        float(ln.rsplit(" ", 1)[1])
+    missing = [f for f in ("slo_attained_total", "goodput_tokens_total",
+                           "frontend_admission_total") if f"{f}{{" not in text]
+    if missing:
+        fail(f"serve --http metrics lack {missing}")
+    log(f"[cli] {metrics.name}: {len(series)} series")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the multi-tenant front end at full width
+# ---------------------------------------------------------------------------
+
+# a bursty three-tenant trace: batch sends 3x the others' traffic, bursts of
+# 2x the rows every FE_GAP steps (fig10's shape, at phase 7's prompt sizes)
+FE_N_REQ, FE_BURST, FE_GAP, FE_SEED = 48, 2 * MAX_ROWS, 10, 7
+FE_MIX = {"interactive": 1.0, "standard": 1.0, "batch": 3.0}
+FE_PRIO = {"interactive": 0, "standard": 1, "batch": 2}
+# fig10's classes (benchmarks/fig10_goodput.py): every class has a step
+# TTFT target, interactive and standard shed just past theirs, interactive
+# may preempt, batch may degrade to 4 new tokens
+FE_CLASSES = (dict(name="interactive", priority=0, ttft_slo_steps=24, shed_after_steps=28,
+                   preempt_below=True),
+              dict(name="standard", priority=1, ttft_slo_steps=48, shed_after_steps=52),
+              dict(name="batch", priority=2, ttft_slo_steps=110, degrade_floor=4))
+FE_FAMILIES = ("slo_attained_total", "slo_missed_total", "goodput_tokens_total",
+               "frontend_ttft_steps_bucket", "frontend_itl_seconds_bucket",
+               "frontend_admission_total", "frontend_rejections_total")
+
+
+def frontend_engine(ctx):
+    """Phase 7's configuration (b) with replanning off (as fig10 runs it):
+    bf16 paged pools at worst-case size, fairkv_dp, Ada-SnapKV budget 256,
+    8 rows, the same weights; a fresh engine, warmed up (its steps
+    captured).  Returns (engine, the capture counts after warmup)."""
+    import torch
+    from repro_torch.api import Engine, PagingConfig, SchedulerConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = ctx["cfg"].replace(cache_backend="paged", paging=PagingConfig(block_size=BLOCK),
+                             scheduler=SchedulerConfig(max_rows=MAX_ROWS, enable_replan=False))
+    eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
+    eng.warmup()
+    return eng, _captures(eng)
+
+
+def _captures(eng):
+    """The executor's capture counts and ``stepfn_compiles_total`` per kind."""
+    m = eng.obs.metrics
+    return (dict(eng.executor.step_traces),
+            {k: m.counter_value("stepfn_compiles_total", kind=k, executor="local")
+             for k in eng.executor.step_traces})
+
+
+def frontend_trace(vocab):
+    """FE_N_REQ requests from `synthesize_requests` (seed FE_SEED) with the
+    three-tenant mix, prompts of PROMPT_MIN-PROMPT_MAX tokens, NEW_MIN-NEW_MAX
+    new tokens (a numpy generator of the same seed), re-timed into bursts."""
+    import numpy as np
+    from repro_torch.api import synthesize_requests
+    reqs = synthesize_requests(FE_N_REQ, 1.0, vocab, min_prompt=PROMPT_MIN,
+                               max_prompt=PROMPT_MAX, max_new_tokens=NEW_MAX, seed=FE_SEED,
+                               tenant_mix=FE_MIX, tenant_priorities=FE_PRIO)
+    gen = np.random.default_rng(FE_SEED).integers(NEW_MIN, NEW_MAX + 1, size=FE_N_REQ)
+    for i, (r, g) in enumerate(zip(reqs, gen)):
+        r.max_new_tokens = int(g)
+        r.arrival_step = (i // FE_BURST) * FE_GAP
+    return reqs
+
+
+def _check_pool(name, sched):
+    pool = sched.backend.pool
+    pool.check_invariants()
+    if pool.blocks_in_use() != 0:
+        fail(f"{name}: {pool.blocks_in_use()} blocks still in use at the end")
+
+
+def _check_no_capture(name, eng, warm):
+    if _captures(eng) != warm:
+        fail(f"{name}: captured during the run: {_captures(eng)} after warmup's {warm}")
+
+
+def frontend_goodput(ctx, admission, launches):
+    """(a) the trace through `run_frontend_trace` on a fresh engine under
+    ``admission``.  Bars: every request terminal (finished, or rejected
+    with a recorded reason), fcfs rejects none, the pool ends empty, no
+    capture during the trace, and the kernels' launches match the run's
+    prefills and decode ticks.  Returns the printed numbers."""
+    import collections
+    import numpy as np
+    from repro_torch.frontend import (FrontendConfig, FrontendScheduler, PriorityClass,
+                                      run_frontend_trace)
+    eng, warm = frontend_engine(ctx)
+    m = eng.cfg.model
+    sched = eng._ensure_scheduler()
+    fe = FrontendScheduler(sched, FrontendConfig(
+        admission=admission, classes=tuple(PriorityClass(**c) for c in FE_CLASSES)))
+    reqs = frontend_trace(m.vocab_size)
+    pump, host = fe.pump, []
+
+    def timed_pump():  # the front end's host time per tick outside Scheduler.step
+        t0 = time.perf_counter()
+        ev = pump()
+        host.append(time.perf_counter() - t0 - sched.step_s[-1])
+        return ev
+
+    fe.pump = timed_pump
+    out, got = _count(lambda: run_frontend_trace(fe, reqs, max_steps=3000))
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    name = f"frontend {admission}"
+    unreasoned = [r.req_id for r in reqs
+                  if not r.is_finished or (r.cancelled and r.req_id not in fe.reject_reasons)]
+    if not out["converged"] or unreasoned:
+        fail(f"{name}: {out['finished']}/{FE_N_REQ} terminal; not terminal or cancelled "
+             f"without a reason: {unreasoned}")
+    if admission == "fcfs" and out["rejected"]:
+        fail(f"{name}: fcfs rejected {out['rejected']} requests: {fe.reject_reasons}")
+    _check_pool(name, sched)
+    _check_no_capture(name, eng, warm)
+    admissions = eng.obs.metrics.counter_value("sched_admissions_total")
+    expect = {"paged_fairkv_decode": m.n_layers * sched.decode_ticks,
+              "snapkv_scores": m.n_layers * int(admissions), "fairkv_decode": 0,
+              "paged_fairkv_decode_mq": 0}
+    if got != expect:
+        fail(f"{name}: launches {got}, expected {expect} ({sched.decode_ticks} decode ticks, "
+             f"{admissions:.0f} admissions)")
+    reasons = collections.Counter(fe.reject_reasons.values())
+    row = {"steps": out["steps"], "decode_ticks": sched.decode_ticks,
+           "goodput_tokens": out["goodput_tokens"],
+           "goodput_tokens_per_step": out["goodput_tokens_per_step"],
+           "generated_tokens": out["generated_tokens"], "slo_attainment": out["slo_attainment"],
+           "attainment": {t: v["attainment"] for t, v in out["tenants"].items()},
+           "p50_ttft_steps": {t: v["p50_ttft_steps"] for t, v in out["tenants"].items()},
+           "rejections": dict(reasons),
+           "degradations": sum(r.degraded_from is not None for r in reqs),
+           "preemptions": out["preemptions"], "wall_s": out["wall_s"],
+           "host_ms_per_pump_median": 1e3 * float(np.median(host)),
+           "tick_ms_median": 1e3 * float(np.median(sched.step_s)), "launches": got}
+    log(f"[frontend] {admission}: {out['finished']}/{FE_N_REQ} terminal, {out['rejected']} "
+        f"rejected {dict(reasons)} | steps {out['steps']} (decode ticks {sched.decode_ticks}) "
+        f"| goodput {out['goodput_tokens']:.0f} of {out['generated_tokens']:.0f} tokens = "
+        f"{out['goodput_tokens_per_step']:.3f} per step | SLO attainment "
+        f"{out['slo_attainment']:.3f}, per tenant {row['attainment']} | degradations "
+        f"{row['degradations']} | preemptions {out['preemptions']} | front-end host time per "
+        f"pump outside Scheduler.step: median {row['host_ms_per_pump_median']:.3f} ms (tick "
+        f"median {row['tick_ms_median']:.2f} ms) | wall {out['wall_s']:.1f} s | launches {got}")
+    del eng, fe, sched
+    return row
+
+
+async def _http(host, port, path, payload=None, method="POST"):
+    """One HTTP/1.1 exchange (the server closes): (status, body bytes)."""
+    import asyncio
+    reader, writer = await asyncio.open_connection(host, port)
+    body = b"" if payload is None else json.dumps(payload).encode()
+    writer.write(f"{method} {path} HTTP/1.1\r\nHost: x\r\nContent-Length: {len(body)}\r\n\r\n"
+                 .encode() + body)
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, data = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), data
+
+
+async def _sse(host, port, payload, close_after=None):
+    """An SSE stream: [(event type, data dict, arrival time)]; with
+    ``close_after`` the client closes after that many token events."""
+    import asyncio
+    reader, writer = await asyncio.open_connection(host, port)
+    body = json.dumps(payload).encode()
+    writer.write(f"POST /v1/stream HTTP/1.1\r\nHost: x\r\nContent-Length: {len(body)}\r\n\r\n"
+                 .encode() + body)
+    await writer.drain()
+    status = int((await reader.readline()).split()[1])
+    if status != 200:
+        fail(f"SSE route answered {status}")
+    while (await reader.readline()) not in (b"\r\n", b""):
+        pass
+    events = []
+    while True:
+        block = (await reader.readuntil(b"\n\n")).decode().strip().split("\n")
+        events.append((block[0][len("event: "):], json.loads(block[1][len("data: "):]),
+                       time.perf_counter()))
+        if events[-1][0] == "end" or (close_after is not None and sum(
+                e[0] == "token" for e in events) >= close_after):
+            break
+    writer.close()
+    return events
+
+
+def _check_sse(name, events, want):
+    """Contiguous indices, ``finished`` on the last token only, exactly one
+    ``end`` event, last, whose tokens are the stream's."""
+    toks = [e[1] for e in events if e[0] == "token"]
+    if [e[0] for e in events] != ["token"] * len(toks) + ["end"]:
+        fail(f"{name}: SSE event order {[e[0] for e in events]}")
+    if [t["index"] for t in toks] != list(range(len(toks))):
+        fail(f"{name}: SSE indices {[t['index'] for t in toks]}")
+    if [t["finished"] for t in toks] != [False] * (len(toks) - 1) + [True]:
+        fail(f"{name}: `finished` is not set on the last token only")
+    if events[-1][1]["tokens"] != [t["token"] for t in toks]:
+        fail(f"{name}: the end event's tokens differ from the streamed ones")
+    if want is not None and [t["token"] for t in toks] != want:
+        fail(f"{name}: SSE tokens differ from Engine.stream's")
+    return [t["token"] for t in toks]
+
+
+def frontend_http(ctx, launches):
+    """(b) `FrontendServer` on 127.0.0.1, port 0, over a graphed engine
+    (warmed up; `Engine.stream` of one prompt first, for the reference
+    tokens), driven by an asyncio client in this process: (1) the prompt
+    through /v1/generate and /v1/stream, (2) twelve concurrent requests
+    over the three tenants, one SSE client closing after its third token,
+    (3) a drain with requests live and queued, a request after it began.
+    Bars: tokens equal to `Engine.stream`'s bitwise, SSE order, statuses
+    by the reference's table, the cancelled request cancelled, the pool
+    empty, no capture, /metrics parsing with the front end's families."""
+    import asyncio
+    import numpy as np
+    from repro_torch.api import Request
+    from repro_torch.frontend import FrontendConfig, FrontendServer, PriorityClass
+    from repro_torch.frontend.http import _REJECT_STATUS
+    eng, _ = frontend_engine(ctx)
+    m = eng.cfg.model
+    sched = eng._ensure_scheduler()
+    rng = np.random.default_rng(FE_SEED + 1)
+    one_gen = NEW_MAX // 2  # 1024 prompt tokens, 32 new ones
+    prompt = rng.integers(1, m.vocab_size, size=PROMPT_MAX // 2).tolist()
+    ref = [e.token for e in eng.stream([Request(req_id=10**6, prompt=np.asarray(
+        prompt, np.int32), max_new_tokens=one_gen)])]
+    warm = _captures(eng)
+    tenants = list(FE_PRIO)
+    asks = [dict(prompt=rng.integers(1, m.vocab_size, size=int(rng.integers(
+        PROMPT_MIN, PROMPT_MAX + 1))).tolist(), max_new_tokens=int(rng.integers(
+            NEW_MIN, NEW_MAX + 1)), tenant=tenants[i % 3], priority=FE_PRIO[tenants[i % 3]])
+            for i in range(22)]
+    asks[0]["max_new_tokens"] = NEW_MAX  # the client that leaves after 3 tokens
+    server = FrontendServer(eng, FrontendConfig(
+        port=0, classes=tuple(PriorityClass(**c) for c in FE_CLASSES),
+        max_prompt_tokens=PROMPT_MAX, max_new_tokens_cap=NEW_MAX))
+
+    async def one(ask, i):
+        if i % 2 == 0:
+            ev = await _sse(server.host, server.port, ask, close_after=3 if i == 0 else None)
+            end = ev[-1][1] if ev[-1][0] == "end" else None
+            return ("sse", ev, end)
+        status, data = await _http(server.host, server.port, "/v1/generate", ask)
+        return ("json", status, json.loads(data))
+
+    def all_tokens(end, ask):
+        """Every token asked, or fewer after a degradation of that ask."""
+        n = len(end["tokens"])
+        if end["degraded_from"] is None:
+            return n == ask["max_new_tokens"]
+        return end["degraded_from"] == ask["max_new_tokens"] and n < ask["max_new_tokens"]
+
+    def check_outcome(i, ask, res):
+        """A finished request has its tokens; any other ends with the
+        reference's status for its reason (SSE: a recorded reason); the
+        client that left has no end event."""
+        if res[0] == "sse":
+            end = res[2]
+            if end is None:
+                return i == 0
+            if end["state"] == "finished":
+                _check_sse(f"request {i}", res[1], None)
+                return all_tokens(end, ask)
+            return bool(end["reason"])
+        _, status, out = res
+        if status == 200:
+            return out["state"] == "finished" and all_tokens(out, ask)
+        return status == _REJECT_STATUS.get(out["reason"], 422)
+
+    async def session():
+        await server.start()
+        try:
+            h, p = server.host, server.port
+            # 1. one prompt, JSON then SSE
+            payload = {"prompt": prompt, "max_new_tokens": one_gen, "tenant": "interactive",
+                       "priority": 0}
+            status, data = await _http(h, p, "/v1/generate", payload)
+            out = json.loads(data)
+            if status != 200 or out["tokens"] != ref:
+                fail(f"/v1/generate: {status}, tokens equal to Engine.stream's: "
+                     f"{out.get('tokens') == ref}")
+            _check_sse("one prompt", await _sse(h, p, payload), ref)
+            # 2. twelve concurrent requests over three tenants
+            n0 = len(sched.step_s)
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*[one(a, i) for i, a in enumerate(asks[:12])])
+            wall = time.perf_counter() - t0
+            ticks = sched.step_s[n0:]
+            bad = [i for i, (a, r) in enumerate(zip(asks, res)) if not check_outcome(i, a, r)]
+            if bad:
+                fail(f"concurrent requests {bad} ended wrongly: {[res[i] for i in bad]}")
+            cut_id = res[0][1][0][1]["req_id"]
+            # 3. drain with requests live and queued; one sent after it began
+            late = [asyncio.create_task(one(a, 2 * i + 1)) for i, a in enumerate(asks[12:])]
+            fe = server.engine_loop.fe
+
+            async def until(cond):
+                while not cond():
+                    await asyncio.sleep(0.002)
+            await asyncio.wait_for(until(lambda: len(fe.sched.active) == MAX_ROWS
+                                         and len(fe.queue) > 0), 120)
+            drained = asyncio.get_running_loop().run_in_executor(
+                None, server.engine_loop.drain, 300.0)
+            await asyncio.wait_for(until(lambda: server.engine_loop.draining), 60)
+            status, data = await _http(h, p, "/v1/generate", asks[0])
+            if status != 503:
+                fail(f"a request after the drain began got {status}, not 503")
+            if not await drained:
+                fail("the drain did not finish")
+            late_res = await asyncio.gather(*late)
+            done = [r[2]["state"] for r in late_res]
+            if done.count("finished") < MAX_ROWS or any(
+                    r[2]["state"] != "finished" and r[2]["reason"] != "draining"
+                    for r in late_res):
+                fail(f"drain: outcomes {[(r[1], r[2]['state'], r[2]['reason']) for r in late_res]}")
+            status, prom = await _http(h, p, "/metrics", method="GET")
+            return res, wall, ticks, cut_id, late_res, prom.decode()
+        finally:
+            await server.shutdown(drain=True)
+
+    (res, wall, ticks, cut_id, late_res, prom), got = _count(lambda: asyncio.run(session()))
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    fe = server.engine_loop.fe
+    if server.engine_loop.error is not None:
+        fail(f"the engine loop failed: {server.engine_loop.error!r}")
+    cut = next(r for r in fe.finished if r.req_id == cut_id)
+    if not cut.cancelled or fe.sched.n_cancellations < 1:
+        fail(f"the request whose client left is {cut.state.value}, not cancelled")
+    _check_pool("frontend http", sched)
+    _check_no_capture("frontend http", eng, warm)
+    lines = [ln for ln in prom.splitlines() if ln and not ln.startswith("#")]
+    for ln in lines:
+        float(ln.rsplit(" ", 1)[1])
+    missing = [f for f in FE_FAMILIES if f"{f}{{" not in prom]
+    if missing:
+        fail(f"/metrics lacks {missing}")
+    if got["snapkv_scores"] == 0 or got["paged_fairkv_decode"] == 0 or got["fairkv_decode"]:
+        fail(f"frontend http: launches {got}")
+    ttft = {}
+    for r in fe.finished:  # the HTTP requests (not the reference stream's)
+        if r.tenant in FE_PRIO and not r.cancelled and r.ttft_seconds() is not None:
+            ttft.setdefault(r.tenant, []).append(r.ttft_seconds())
+    gaps = [b[2] - a[2] for kind, ev, _ in (x for x in res if x[0] == "sse")
+            for a, b in zip(ev, ev[1:]) if a[0] == b[0] == "token"]
+    row = {"ttft_s": {t: {"p50": float(np.percentile(v, 50)), "p99": float(np.percentile(v, 99)),
+                          "n": len(v)} for t, v in sorted(ttft.items())},
+           "sse_gap_ms_p50": 1e3 * float(np.median(gaps)),
+           "tick_ms_median": 1e3 * float(np.median(ticks)), "wall_s_12": wall,
+           "statuses": sorted(_outcome(r) for r in res),
+           "drain": [(r[2]["state"], r[2]["reason"]) for r in late_res],
+           "prometheus_series": len(lines), "cancelled_req": cut_id,
+           "cancelled_after_tokens": cut.n_generated, "launches": got}
+    log(f"[frontend] http: one prompt via JSON and SSE = Engine.stream's {len(ref)} tokens; 12 "
+        f"concurrent requests in {wall:.2f} s, outcomes {row['statuses']}; the client that left "
+        f"after 3 tokens: request {cut_id} cancelled at {cut.n_generated} tokens; drain "
+        f"outcomes {row['drain']}, late request 503 | TTFT per tenant (s) "
+        + ", ".join(f"{t} p50 {v['p50']:.3f} p99 {v['p99']:.3f} (n {v['n']})"
+                    for t, v in row["ttft_s"].items())
+        + f" | SSE inter-token gap p50 {row['sse_gap_ms_p50']:.2f} ms vs tick median "
+        f"{row['tick_ms_median']:.2f} ms | /metrics {len(lines)} series with "
+        f"{len(FE_FAMILIES)} front-end families | pool empty, no capture | launches {got}")
+    del eng, server
+    return row
+
+
+def _outcome(res):
+    """A client's result in a word: the JSON status, or the SSE end state
+    (``left`` for the client that closed early)."""
+    if res[0] == "json":
+        return str(res[1])
+    return "sse " + (res[2]["state"] if res[2] is not None else "left")
+
+
+def frontend_runs(ctx):
+    """Phase 14: (a) goodput under slo and fcfs, (b) HTTP in process.
+    Returns the phase's kernel launches."""
+    launches = {}
+    t0 = time.perf_counter()
+    rows = {adm: frontend_goodput(ctx, adm, launches) for adm in ("slo", "fcfs")}
+    rows["http"] = frontend_http(ctx, launches)
+    log(f"[frontend] summary {json.dumps(rows)}")
+    log(f"[frontend] phase 14 took {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2514,16 +2987,19 @@ def main() -> int:
     cont, mq_inputs = continuous_runs(ctx)
     prefix = prefix_runs(ctx)
     graphs_vs_eager(ctx)
-    # phases 12-13 run before the timings, so their launches are in the table
+    # phases 12-14 run before the timings, so their launches are in the table
     policies = policy_runs(ctx)
     cli_run()
+    frontend = frontend_runs(ctx)
     # each phase of the main path counts its own launches (zeroed just
     # before, read just after): one-shot slot, one-shot paged, continuous,
-    # chunked prefill and prefix reuse, the policies
+    # chunked prefill and prefix reuse, the policies, the front end
     for k in launches:
-        launches[k] += paged["launches"][k] + cont[k] + prefix[k] + policies[k]
+        launches[k] += (paged["launches"][k] + cont[k] + prefix[k] + policies[k]
+                        + frontend.get(k, 0))
     log(f"[main] launches over the whole main path: {launches} (of them in the chunked / "
-        f"prefix phase: {prefix}; in the policy phase: {policies})")
+        f"prefix phase: {prefix}; in the policy phase: {policies}; in the front-end "
+        f"phase: {frontend})")
     for name, n in launches.items():
         if n == 0:
             fail(f"kernel {name} was never launched on the main path")

@@ -60,6 +60,14 @@ _LAZY = {
     "TraceBuffer": "repro_torch.obs",
     # continuous-batching helpers
     "latency_percentiles": "repro_torch.serving.request",
+    # the multi-tenant serving front end
+    "FrontendConfig": "repro_torch.frontend.config",
+    "PriorityClass": "repro_torch.frontend.config",
+    "FrontendScheduler": "repro_torch.frontend.core",
+    "run_frontend_trace": "repro_torch.frontend.core",
+    "EngineLoop": "repro_torch.frontend.bridge",
+    "FrontendServer": "repro_torch.frontend.http",
+    "serve_http": "repro_torch.frontend.http",
 }
 
 

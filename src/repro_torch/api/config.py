@@ -6,8 +6,8 @@ KV budgets), ``PlannerConfig`` (FairKV placement), ``SchedulerConfig``
 (continuous batching), the cache backend and its ``PagingConfig``,
 ``PrefixConfig`` (chunked prefill and shared-prefix reuse),
 ``SpeculationConfig`` (self-speculative decoding), the executor and its
-``ExecutorConfig``, ``ObsConfig`` (metrics and trace), and the
-engine-level knobs.  ``__post_init__`` validates every name-typed field
+``ExecutorConfig``, ``ObsConfig`` (metrics and trace), ``FrontendConfig``
+(the multi-tenant HTTP front end), and the engine-level knobs.  ``__post_init__`` validates every name-typed field
 against the port's registries, so a typo fails at construction with the
 registered names.  ``device`` defaults to ``"cuda"``: the CPU runs only
 when asked for.
@@ -15,12 +15,11 @@ when asked for.
 `to_dict` / `from_dict` round-trip a config through JSON (the serving
 CLI's ``--config`` file).  The dict has the reference's keys for every
 field the port has, plus ``device``.  A dict the reference wrote loads
-here: of the reference's keys the port lacks, ``compression.append_mode``
-and ``paging.decode_impl`` name implementation choices that the port
-makes by device (a known value is accepted and dropped), and ``frontend``
-is read only by the HTTP front end, which is not ported (ROADMAP A.9,
-second part), so it is accepted and dropped too.  Any other unknown key
-raises.
+here, its ``frontend`` section (with the tuple of ``PriorityClass``) into
+an equal `FrontendConfig`: of the reference's keys the port lacks,
+``compression.append_mode`` and ``paging.decode_impl`` name implementation
+choices that the port makes by device (a known value is accepted and
+dropped).  Any other unknown key raises.
 """
 from __future__ import annotations
 
@@ -37,6 +36,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.planner import PLANNER_MODES, PlannerConfig
 from repro_torch.configs.base import MoEConfig, SSMConfig
 from repro_torch.exec.base import ExecutorConfig
+from repro_torch.frontend.config import FrontendConfig
 from repro_torch.obs import ObsConfig
 from repro_torch.paging.block_pool import PagingConfig
 from repro_torch.prefix.config import PrefixConfig
@@ -68,7 +68,9 @@ class EngineConfig:
     the card and eager on the CPU); ``executor_cfg`` carries its knobs.
     ``obs`` configures the metrics registry and span trace;
     ``ObsConfig(enabled=False)`` swaps every collection point for shared
-    no-op objects.
+    no-op objects.  ``frontend`` configures the multi-tenant serving front
+    end (fair queuing, SLO admission, HTTP ingress); only ``serve --http``
+    and `repro_torch.frontend.FrontendServer` read it.
     """
 
     model: ModelConfig
@@ -89,6 +91,7 @@ class EngineConfig:
     executor: str = "local"
     executor_cfg: ExecutorConfig = field(default_factory=ExecutorConfig)
     obs: ObsConfig = field(default_factory=ObsConfig)
+    frontend: FrontendConfig = field(default_factory=FrontendConfig)
 
     def __post_init__(self):
         if not isinstance(self.model, ModelConfig):
@@ -158,6 +161,10 @@ class EngineConfig:
         if not isinstance(self.obs, ObsConfig):
             raise TypeError(
                 f"obs must be an ObsConfig, got {type(self.obs).__name__}")
+        if not isinstance(self.frontend, FrontendConfig):
+            raise TypeError(
+                f"frontend must be a FrontendConfig, got "
+                f"{type(self.frontend).__name__}")
         if not isinstance(self.prefix, PrefixConfig):
             raise TypeError(
                 f"prefix must be a PrefixConfig, got {type(self.prefix).__name__}")
@@ -225,12 +232,11 @@ class EngineConfig:
 _CONFIG_TYPES = {c.__name__: c for c in (
     ModelConfig, MoEConfig, SSMConfig, CompressionConfig, PlannerConfig,
     SchedulerConfig, PagingConfig, ExecutorConfig, ObsConfig, PrefixConfig,
-    SpeculationConfig)}
+    SpeculationConfig, FrontendConfig)}
 
 # keys of the reference's dict that the port does not model, with the
-# values it accepts (None: any) — each is dropped on load
+# values it accepts — each is dropped on load
 _REFERENCE_ONLY = {
-    ("EngineConfig", "frontend"): None,
     ("CompressionConfig", "append_mode"): ("scatter", "onehot"),
     ("PagingConfig", "decode_impl"): ("auto", "pallas", "gather", "jnp"),
 }
@@ -253,6 +259,15 @@ def _nested_type(f):
     return _CONFIG_TYPES.get(name)
 
 
+def _element_type(f):
+    """The dataclass type of a tuple-of-dataclass field's elements
+    (``FrontendConfig.classes``)."""
+    proto = _field_default(f)
+    if isinstance(proto, tuple) and proto and dataclasses.is_dataclass(proto[0]):
+        return type(proto[0])
+    return None
+
+
 def _config_from_dict(dc_cls, data, path):
     if not isinstance(data, dict):
         raise TypeError(
@@ -262,8 +277,7 @@ def _config_from_dict(dc_cls, data, path):
     names = [f.name for f in fields]
     kwargs = {}
     for key in sorted(set(data) - set(names)):
-        accepted = _REFERENCE_ONLY.get((dc_cls.__name__, key), ())
-        if accepted is not None and data[key] not in accepted:
+        if data[key] not in _REFERENCE_ONLY.get((dc_cls.__name__, key), ()):
             raise ValueError(
                 f"unknown key {key!r} (value {data[key]!r}) at {path!r} for "
                 f"{dc_cls.__name__}; valid keys: {names}")
@@ -272,8 +286,12 @@ def _config_from_dict(dc_cls, data, path):
             continue
         v = data[f.name]
         sub = _nested_type(f)
+        elem = _element_type(f)
         if sub is not None and isinstance(v, dict):
             v = _config_from_dict(sub, v, f"{path}.{f.name}")
+        elif elem is not None and isinstance(v, (list, tuple)):
+            v = tuple(_config_from_dict(elem, e, f"{path}.{f.name}[{i}]")
+                      if isinstance(e, dict) else e for i, e in enumerate(v))
         elif isinstance(v, list):
             # JSON has no tuples; the frozen configs' validators expect them
             v = tuple(tuple(e) if isinstance(e, list) else e for e in v)

@@ -394,15 +394,17 @@ class Engine:
 
     def submit(self, request: Union[Request, np.ndarray, Sequence[int]],
                max_new_tokens: int = 16, eos_id: Optional[int] = None,
-               arrival_step: int = 0, priority: int = 1) -> Request:
+               arrival_step: int = 0, tenant: str = "default", priority: int = 1,
+               deadline_s: Optional[float] = None) -> Request:
         """Queue a request (continuous mode): a prepared `Request` or a raw
-        prompt token sequence."""
+        prompt token sequence; ``tenant`` / ``priority`` / ``deadline_s``
+        go onto a raw prompt's request (a prepared one carries its own)."""
         if not isinstance(request, Request):
             request = Request(req_id=self._next_req_id,
                               prompt=np.asarray(request, np.int32),
                               arrival_step=arrival_step,
                               max_new_tokens=max_new_tokens, eos_id=eos_id,
-                              priority=priority)
+                              tenant=tenant, priority=priority, deadline_s=deadline_s)
         self._next_req_id = max(self._next_req_id, request.req_id + 1)
         self._ensure_scheduler().submit(request)
         return request

@@ -17,14 +17,24 @@ when requests do not finish.  SIGINT / SIGTERM drain gracefully (live rows
 decode to completion, queued requests are shed, ``--metrics-out`` /
 ``--trace-out`` are still written).
 
+``--http`` serves the multi-tenant front end (`repro_torch.frontend`) over
+the continuous engine: ``POST /v1/generate`` (JSON), ``POST /v1/stream``
+(server-sent events), ``GET /metrics`` and ``GET /healthz`` on ``--host`` /
+``--port`` (0 picks a free port; the ``serving on`` line names it), with
+``--admission slo`` (tenant-fair deficit round robin, ``--quantum`` /
+``--quota-cap`` request tokens, SLO shedding, degradation and preemption)
+or ``fcfs``.  The engine is warmed up (its steps captured) before the
+listener opens.  SIGINT / SIGTERM close the listener, shed the queued
+requests, let the live rows decode to the end, print the drain line and
+write ``--metrics-out`` / ``--trace-out``.
+
 Everything runs on the card (``--device cuda``, the default) unless
 ``--device cpu`` asks for the plain PyTorch path.  ``--config`` reads an
-`EngineConfig.to_dict` JSON file (the port's or the reference's) as the
-base configuration; explicitly typed flags override it.
+`EngineConfig.to_dict` JSON file (the port's or the reference's, its
+``frontend`` section included) as the base configuration; explicitly typed
+flags override it.
 
-Refused, each with the ROADMAP item that brings it: the HTTP front end
-(``--http``, ``--host``, ``--port``, ``--admission``, ``--quantum``,
-``--quota-cap``: Queue A.9, second part), the multi-GPU executor
+Refused, each with the ROADMAP item that brings it: the multi-GPU executor
 (``--executor mesh``, ``--data``: A.10), the other model families (any
 ``--arch`` but minitron-8b: A.11) and ``--paged-impl`` (the port picks the
 paged decode implementation by device, on purpose).
@@ -44,6 +54,7 @@ from repro_torch.api import (
     CompressionConfig,
     Engine,
     EngineConfig,
+    FrontendConfig,
     ObsConfig,
     PagingConfig,
     PlannerConfig,
@@ -62,12 +73,6 @@ from repro_torch.training.data import SyntheticLM
 
 # flags of the reference's CLI the port refuses, with the reason
 _REFUSED = {
-    "http": "the HTTP front end is ROADMAP Queue A.9, second part",
-    "host": "the HTTP front end is ROADMAP Queue A.9, second part",
-    "port": "the HTTP front end is ROADMAP Queue A.9, second part",
-    "admission": "the front end's admission control is ROADMAP Queue A.9, second part",
-    "quantum": "the front end's fair queuing is ROADMAP Queue A.9, second part",
-    "quota_cap": "the front end's fair queuing is ROADMAP Queue A.9, second part",
     "data": "the multi-GPU executor (data axis) is ROADMAP Queue A.10",
     "paged_impl": ("the port picks the paged decode implementation by device "
                    "(the CUDA kernel on the card, the plain version on the CPU); "
@@ -108,7 +113,10 @@ def _engine_config(args, max_seq_len: int, batch_cap: int,
             enabled=args.speculate > 0, max_k=max(1, args.speculate),
             draft_layers=args.draft_layers),
         executor=args.executor,
-        obs=ObsConfig(enabled=not args.no_obs, print_every=args.obs_print_every))
+        obs=ObsConfig(enabled=not args.no_obs, print_every=args.obs_print_every),
+        frontend=FrontendConfig(host=args.host, port=args.port, admission=args.admission,
+                                quantum_tokens=args.quantum,
+                                quota_cap_tokens=args.quota_cap))
 
 
 # explicit CLI flag -> EngineConfig field path, for --config overrides.
@@ -129,6 +137,11 @@ _CLI_FIELD_MAP = {
     "executor": ("executor",),
     "draft_layers": ("speculation", "draft_layers"),
     "device": ("device",),
+    "host": ("frontend", "host"),
+    "port": ("frontend", "port"),
+    "admission": ("frontend", "admission"),
+    "quantum": ("frontend", "quantum_tokens"),
+    "quota_cap": ("frontend", "quota_cap_tokens"),
 }
 
 
@@ -308,6 +321,61 @@ def run_continuous(args) -> None:
                            "raise --requests or lower --rows")
 
 
+def _frontend_config(args, ecfg: EngineConfig) -> FrontendConfig:
+    """The front end ``run_http`` serves with: ``ecfg.frontend`` (the flags,
+    or the ``--config`` file under the typed flags), with every request
+    bounded by the trace-shape flags: prompts by ``--max-prompt`` (the
+    engine's ``max_seq_len`` is sized from it) and generation by ``--gen``."""
+    return dataclasses.replace(ecfg.frontend,
+                               max_prompt_tokens=max(args.min_prompt, args.max_prompt),
+                               max_new_tokens_cap=args.gen)
+
+
+def run_http(args) -> None:
+    """``--http``: the multi-tenant asyncio front end over the continuous
+    engine.  `FrontendServer.start` warms the engine up before it listens,
+    so serving replays the captured steps.  SIGINT / SIGTERM drain: the
+    listener closes, queued requests are shed (503 ``draining``), live rows
+    decode to the end, and ``--metrics-out`` / ``--trace-out`` are written."""
+    import asyncio
+    import signal
+
+    from repro_torch.frontend import FrontendServer
+
+    max_prompt = max(args.min_prompt, args.max_prompt)
+    ecfg = _engine_config(args, max_prompt + args.gen + 8, args.rows,
+                          _scheduler_config(args))
+    fcfg = _frontend_config(args, ecfg)
+    eng = Engine.build(ecfg.replace(frontend=fcfg))
+
+    async def _main() -> None:
+        server = FrontendServer(eng, fcfg)
+        await server.start()
+        print(f"serving on http://{server.host}:{server.port} "
+              f"(admission={fcfg.admission}, rows={args.rows}, "
+              f"backend={ecfg.cache_backend}, executor={ecfg.executor}, "
+              f"device {ecfg.device})", flush=True)
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGINT, signal.SIGTERM):
+            loop.add_signal_handler(sig, stop.set)
+        await stop.wait()
+        print("signal received: draining (live rows decode to completion, "
+              "queued requests shed) ...", flush=True)
+        await server.shutdown(drain=True)
+        summary = server.engine_loop.fe.summary()
+        print(f"drained after {summary['steps']} steps | "
+              f"{summary['finished']} terminal requests | goodput "
+              f"{summary['goodput_tokens']:.0f} tokens", flush=True)
+        if server.engine_loop.error is not None:
+            raise RuntimeError("the engine loop failed") from server.engine_loop.error
+
+    try:
+        asyncio.run(_main())
+    finally:
+        _export_obs(eng, args)
+
+
 def run_oneshot(args) -> None:
     """Fixed-batch serve: one prefill + ``--gen`` decode steps."""
     ecfg = _engine_config(args, args.prompt_len + args.gen + 8, args.batch)
@@ -430,25 +498,46 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write Prometheus text metrics here on exit")
     ap.add_argument("--trace-out", default="",
                     help="write Chrome trace-event JSON here on exit")
+    # --- the multi-tenant HTTP front end --------------------------------------
+    ap.add_argument("--http", action="store_true",
+                    help="serve the multi-tenant asyncio HTTP front end (POST "
+                         "/v1/generate, POST /v1/stream [SSE], GET /metrics, GET "
+                         "/healthz) over the continuous engine; SIGINT/SIGTERM "
+                         "drain gracefully")
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=8000,
+                    help="listen port (0 = a free port, printed on start)")
+    ap.add_argument("--admission", default="slo", choices=["slo", "fcfs"],
+                    help="admission controller: 'slo' (priority classes, "
+                         "degrade/shed, tenant-fair DRR) or 'fcfs' (baseline "
+                         "global queue)")
+    ap.add_argument("--quantum", type=int, default=512,
+                    help="DRR per-tenant token refill per engine tick")
+    ap.add_argument("--quota-cap", type=int, default=8192,
+                    help="DRR banked-deficit cap per tenant (tokens)")
     # --- the reference's flags the port refuses (see _REFUSED) ---------------
     refused = ap.add_argument_group("not ported (refused with the ROADMAP item)")
-    refused.add_argument("--http", action="store_true", help=argparse.SUPPRESS)
-    for flag in ("--host", "--port", "--admission", "--quantum", "--quota-cap",
-                 "--data", "--paged-impl"):
+    for flag in ("--data", "--paged-impl"):
         refused.add_argument(flag, default=None, help=argparse.SUPPRESS)
     return ap
 
 
-def main(argv: Optional[Sequence[str]] = None) -> None:
+def parse_args(argv: Sequence[str]):
+    """(parser, args): ``args._explicit`` holds the flags the user typed (vs
+    argparse defaults), which --config merging applies; "--flag value" and
+    "--flag=value" both count."""
     ap = build_parser()
-    argv = list(sys.argv[1:] if argv is None else argv)
+    argv = list(argv)
     args = ap.parse_args(argv)
-    # the flags the user typed (vs argparse defaults): --config merging
-    # applies only these; "--flag value" and "--flag=value" both count
     args._explicit = {
         a.dest for a in ap._actions
         if any(tok == opt or tok.startswith(opt + "=")
                for opt in a.option_strings for tok in argv)}
+    return ap, args
+
+
+def main(argv: Optional[Sequence[str]] = None) -> None:
+    ap, args = parse_args(sys.argv[1:] if argv is None else argv)
     for dest, why in _REFUSED.items():
         if dest in args._explicit:
             ap.error(f"--{dest.replace('_', '-')} is not supported: {why}")
@@ -460,7 +549,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if args.arch and args.arch not in list_archs():
         ap.error(f"--arch {args.arch!r} is not ported: the port runs "
                  f"{list_archs()}; the other families are ROADMAP Queue A.11")
-    if args.continuous:
+    if args.http:
+        run_http(args)
+    elif args.continuous:
         run_continuous(args)
     else:
         run_oneshot(args)

@@ -15,8 +15,9 @@ one seed gives both packages the same requests.
 from __future__ import annotations
 
 import enum
+import time
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -33,8 +34,13 @@ class RequestState(enum.Enum):
 class Request:
     """One generation request and its realized lifecycle telemetry.
 
-    ``priority`` is a class index, lower is more urgent; preemption takes
-    the least urgent, then the youngest, request first.
+    Multi-tenant metadata: ``tenant`` names the client the front end's fair
+    queues charge; ``priority`` is a class index, lower is more urgent
+    (preemption takes the least urgent, then the youngest, request first);
+    ``deadline_s`` is a wall-clock budget from arrival.  The defaults (one
+    anonymous tenant, one class, no deadline) leave a caller without a
+    front end unchanged.  A plain dataclass of host values (numpy prompt,
+    Python lists), so `dataclasses.replace` copies no device tensor.
     """
 
     req_id: int
@@ -42,7 +48,9 @@ class Request:
     arrival_step: int = 0  # scheduler step at which the request exists
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
+    tenant: str = "default"
     priority: int = 1
+    deadline_s: Optional[float] = None  # wall-clock budget from arrival
 
     state: RequestState = RequestState.QUEUED
     row: Optional[int] = None  # live batch row while DECODING
@@ -56,6 +64,7 @@ class Request:
     first_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     n_preemptions: int = 0  # times evicted back to QUEUED
+    degraded_from: Optional[int] = None  # max_new_tokens before a degradation
     # prefix cache: stamped on a hit, (L,) full blocks per layer reused
     # from the index (admission charges only the unshared blocks)
     prefix_shared_blocks: Optional[np.ndarray] = None
@@ -81,6 +90,15 @@ class Request:
     @property
     def cancelled(self) -> bool:
         return self.state is RequestState.CANCELLED
+
+    def deadline_exceeded(self, now: Optional[float] = None) -> bool:
+        """True when a wall-clock deadline was set and has elapsed since
+        arrival (False without a deadline or an arrival stamp); ``now``
+        defaults to ``time.time()``."""
+        if self.deadline_s is None or self.arrival_time is None:
+            return False
+        now = time.time() if now is None else now
+        return (now - self.arrival_time) > self.deadline_s
 
     def reset_for_requeue(self) -> None:
         """Preemption (recompute policy): drop the generated state so a
@@ -160,22 +178,38 @@ def synthesize_requests(
     max_prompt: int = 48,
     max_new_tokens: int = 12,
     seed: int = 0,
+    tenant_mix: Optional[Dict[str, float]] = None,
+    tenant_priorities: Optional[Dict[str, int]] = None,
     prefix_templates: int = 0,
     prefix_len: int = 0,
     shared_fraction: float = 0.0,
 ) -> List[Request]:
     """A reproducible Poisson trace of random-token requests.
 
+    ``tenant_mix`` draws each request's tenant from ``{name: weight}``
+    (weights normalized; names in sorted order); without it every request
+    belongs to the ``"default"`` tenant and the trace is the one a seed
+    gave before tenants existed.  ``tenant_priorities`` maps tenants to
+    priority classes (a tenant it omits keeps the `Request` default).
+
     Shared-prefix traces: with ``prefix_templates > 0``, ``shared_fraction``
     of the requests start with one of the template prefixes (``prefix_len``
     tokens each, drawn once per template) followed by a unique random
     suffix; the rest stay fully random at the same total length, so
-    sharing changes the cache topology, never the workload size.  The
-    reference's tenant mixes (and their binding of tenants to templates)
-    come with the multi-tenant front end.
+    sharing changes the cache topology, never the workload size.  With a
+    tenant mix, tenants bind to templates round-robin (a per-tenant system
+    prompt).  The numpy draws come in the reference's order in every case.
     """
     rng = np.random.default_rng(seed)
     arrivals = poisson_arrivals(n_requests, rate, rng)
+    names, probs = None, None
+    if tenant_mix:
+        names = sorted(tenant_mix)
+        w = np.asarray([float(tenant_mix[n]) for n in names])
+        if (w < 0).any() or w.sum() <= 0:
+            raise ValueError(f"tenant_mix weights must be non-negative with "
+                             f"a positive sum, got {tenant_mix}")
+        probs = w / w.sum()
     templates = None
     if prefix_templates > 0:
         if prefix_len <= 0:
@@ -191,16 +225,27 @@ def synthesize_requests(
     reqs = []
     for i, step in enumerate(arrivals):
         T = int(rng.integers(min_prompt, max_prompt + 1))
-        if templates is None:
-            prompt = rng.integers(0, vocab_size, size=T).astype(np.int32)
-        elif rng.random() < shared_fraction:
-            t_ix = int(rng.integers(len(templates)))
-            suffix = rng.integers(0, vocab_size, size=T - prefix_len).astype(np.int32)
-            prompt = np.concatenate([templates[t_ix], suffix])
-        else:
-            prompt = rng.integers(0, vocab_size, size=T).astype(np.int32)
+        # without templates the draws go (T, prompt, tenant): the order
+        # traces had before tenants, so a seed keeps its trace
+        prompt = (rng.integers(0, vocab_size, size=T).astype(np.int32)
+                  if templates is None else None)
+        kw = {}
+        tenant = None
+        if names is not None:
+            tenant = names[int(rng.choice(len(names), p=probs))]
+            kw["tenant"] = tenant
+            if tenant_priorities and tenant in tenant_priorities:
+                kw["priority"] = int(tenant_priorities[tenant])
+        if templates is not None:
+            if rng.random() < shared_fraction:
+                t_ix = (names.index(tenant) % len(templates) if tenant is not None
+                        else int(rng.integers(len(templates))))
+                suffix = rng.integers(0, vocab_size, size=T - prefix_len).astype(np.int32)
+                prompt = np.concatenate([templates[t_ix], suffix])
+            else:
+                prompt = rng.integers(0, vocab_size, size=T).astype(np.int32)
         reqs.append(Request(req_id=i, prompt=prompt, arrival_step=int(step),
-                            max_new_tokens=max_new_tokens))
+                            max_new_tokens=max_new_tokens, **kw))
     return reqs
 
 

@@ -83,6 +83,10 @@ class RowFreelist:
     def __len__(self) -> int:
         return len(self._free)
 
+    @property
+    def in_use(self) -> int:
+        return self.n_rows - len(self._free)
+
     def acquire(self) -> Optional[int]:
         return self._free.pop(0) if self._free else None
 
@@ -288,6 +292,11 @@ class Scheduler:
 
     # ---- load accounting ---------------------------------------------------
 
+    def live_tokens(self) -> int:
+        """Σ retained lengths over the whole live cache (all layers, slots
+        and rows)."""
+        return int(self.state.cache.lengths.sum())
+
     def per_shard_load(self) -> np.ndarray:
         """(n_shards,) realized Σ lengths per shard (the Eq. 4 observable)."""
         per_slot = self.state.cache.lengths.sum(dim=(0, 2)).cpu().numpy()
@@ -400,6 +409,11 @@ class Scheduler:
         if req.arrival_time is None:
             req.arrival_time = time.time()
         self.queue.append(req)
+
+    def _estimated_cost(self, req: Request) -> int:
+        """Projected cost in the backend's units (slot: Σ-lengths bound from
+        the policy's keep bound; paged: worst-case blocks)."""
+        return self.backend.request_cost(req)
 
     def admissible(self, req: Request) -> bool:
         if len(self.freelist) == 0:
@@ -776,6 +790,18 @@ class Scheduler:
         recently admitted has the least progress to replay).  False when
         nothing is left to evict."""
         victims = list(self.active.values())
+        if not victims:
+            return False
+        self._evict(max(victims, key=lambda r: (r.priority, r.admit_step, r.req_id)))
+        return True
+
+    @torch.inference_mode()
+    def preempt_lower_priority(self, than: int) -> bool:
+        """Evict one active request of a strictly less urgent class than
+        ``than`` (a larger priority index), the least urgent, then the
+        youngest, first: the front end's lever when an urgent request waits
+        behind a full batch.  False when no such request is live."""
+        victims = [r for r in self.active.values() if r.priority > than]
         if not victims:
             return False
         self._evict(max(victims, key=lambda r: (r.priority, r.admit_step, r.req_id)))

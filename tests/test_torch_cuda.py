@@ -15,7 +15,8 @@ single-query kernel at its causal length and position (all pool kinds,
 window and softcap, query chunks, lengths up to 1600 at block sizes 8, 16
 and 32), and both kernels bitwise to themselves on relabelled pool blocks.  The
 score kernel is also held at the chunked-prefill shape, and a shared-prefix
-trace on the card gives the CPU path's tokens.
+trace on the card gives the CPU path's tokens.  The HTTP front end over a
+graphed engine gives `Engine.stream`'s tokens and captures nothing.
 """
 import numpy as np
 import pytest
@@ -649,3 +650,74 @@ def test_graphs_policy_chunks_with_obs(gen, policy):
         assert all(np.array_equal(p, q) for p, q in zip(x.logits, y.logits))
     assert eager.metrics() == {}
     assert m.get("stepfn_wall_s").count(kind="prefill_chunk", executor="local") > 0
+
+
+# ---------------------------------------------------------------------------
+# the HTTP front end over a graphed engine
+# ---------------------------------------------------------------------------
+
+
+def test_http_over_graphs_matches_stream(gen):
+    """`FrontendServer` over a graphed engine (paged pools, two rows): one
+    prompt through ``/v1/generate`` and the SSE route gives `Engine.stream`'s
+    tokens on that engine bitwise (one live row under the same graphs);
+    three concurrent requests over three tenants all finish; the session
+    captures nothing (the loop replays the warmup's graphs), and the pool
+    ends empty."""
+    import asyncio
+    import json
+
+    from repro_torch.api import Request
+    from repro_torch.frontend import FrontendConfig, FrontendServer
+    from repro_torch.api import PrefixConfig
+    cfg = _graph_cfg("chunked").replace(
+        prefix=PrefixConfig(), scheduler=SchedulerConfig(max_rows=2, enable_replan=False))
+    eng = Engine.build(cfg)
+    eng.warmup()
+    prompt = np.random.default_rng(5).integers(1, 256, size=40).tolist()
+    ref = [e.token for e in eng.stream([Request(req_id=10_000, prompt=np.asarray(
+        prompt, np.int32), max_new_tokens=12)])]
+    ex, m = eng.executor, eng.obs.metrics
+    captured = dict(ex.step_traces)
+    compiles = m.counter_value("stepfn_compiles_total", kind="decode", executor="local")
+
+    async def call(host, port, path, payload):
+        reader, writer = await asyncio.open_connection(host, port)
+        body = json.dumps(payload).encode()
+        writer.write(f"POST {path} HTTP/1.1\r\nContent-Length: {len(body)}\r\n\r\n".encode()
+                     + body)
+        await writer.drain()
+        raw = await reader.read()
+        writer.close()
+        head, _, data = raw.partition(b"\r\n\r\n")
+        return int(head.split()[1]), data
+
+    async def session():
+        server = FrontendServer(eng, FrontendConfig(port=0))
+        await server.start()
+        try:
+            payload = {"prompt": prompt, "max_new_tokens": 12}
+            status, data = await call(server.host, server.port, "/v1/generate", payload)
+            assert status == 200
+            via_json = json.loads(data)["tokens"]
+            status, data = await call(server.host, server.port, "/v1/stream", payload)
+            events = [json.loads(b.split(b"\ndata: ")[1]) for b in data.strip().split(b"\n\n")]
+            via_sse = [e["token"] for e in events if e["type"] == "token"]
+            assert [e["index"] for e in events[:-1]] == list(range(12))
+            assert events[-1]["type"] == "end"
+            rng = np.random.default_rng(6)
+            many = await asyncio.gather(*[call(server.host, server.port, "/v1/generate", {
+                "prompt": rng.integers(1, 256, size=30 + i).tolist(), "max_new_tokens": 8,
+                "tenant": t}) for i, t in enumerate("abc")])
+            assert all(s == 200 for s, _ in many)
+            return via_json, via_sse
+        finally:
+            await server.shutdown(drain=True)
+
+    via_json, via_sse = asyncio.run(session())
+    assert via_json == ref and via_sse == ref
+    assert ex.step_traces == captured
+    assert m.counter_value("stepfn_compiles_total", kind="decode", executor="local") == compiles
+    pool = eng.scheduler.backend.pool
+    pool.check_invariants()
+    assert pool.blocks_in_use() == 0

@@ -5,18 +5,28 @@ One-shot and ``--continuous`` runs return normally and write Prometheus
 metrics and a Chrome trace that parse; ``--config`` takes a dict the
 reference's `EngineConfig.to_dict` wrote; a trace whose requests do not
 finish raises (a nonzero exit); SIGINT / SIGTERM drain the engine; the
-flags the port does not have are refused with the ROADMAP item.
+flags the port does not have are refused with the ROADMAP item.  The
+front end's flags build the `FrontendConfig` that ``--http`` serves with
+(from a ``--config`` file's section too), a bad ``--admission`` is refused,
+and ``--http --device cpu`` serves a request in a subprocess and drains on
+SIGTERM.
 """
 import json
 import os
 import signal
+import subprocess
+import sys
+import urllib.request
+from pathlib import Path
 
 import pytest
 import torch
 
 from repro.api import CompressionConfig as JCompression
 from repro.api import EngineConfig as JEngineConfig
-from repro_torch.api import Engine, EngineConfig
+from repro.frontend.config import FrontendConfig as JFrontendConfig
+from repro.frontend.config import PriorityClass as JClass
+from repro_torch.api import Engine, EngineConfig, FrontendConfig, PriorityClass
 from repro_torch.launch import serve
 
 torch.set_num_threads(2)
@@ -83,8 +93,6 @@ def test_unfinished_requests_fail():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--http"], "A.9"), (["--port", "8001"], "A.9"), (["--admission", "fcfs"], "A.9"),
-    (["--quantum", "5"], "A.9"), (["--quota-cap", "5"], "A.9"), (["--host", "0.0.0.0"], "A.9"),
     (["--executor", "mesh"], "A.10"), (["--data", "2"], "A.10"),
     (["--paged-impl", "pallas"], "on purpose")])
 def test_unported_flags_are_refused(capsys, flags, item):
@@ -125,3 +133,112 @@ def test_default_device_is_the_card():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             serve.main(["--arch", "minitron-8b", "--smoke", "--gen", "2"])
+
+
+# ---------------------------------------------------------------------------
+# --http: the multi-tenant front end
+# ---------------------------------------------------------------------------
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _served_frontend(argv):
+    """The `FrontendConfig` ``run_http`` would serve with for these flags."""
+    _, args = serve.parse_args(argv)
+    max_prompt = max(args.min_prompt, args.max_prompt)
+    ecfg = serve._engine_config(args, max_prompt + args.gen + 8, args.rows,
+                                serve._scheduler_config(args))
+    return serve._frontend_config(args, ecfg)
+
+
+@pytest.mark.parametrize("flags,expect", [
+    ([], dict()),
+    (["--admission", "fcfs", "--port", "0", "--host", "0.0.0.0"],
+     dict(admission="fcfs", port=0, host="0.0.0.0")),
+    (["--quantum", "64", "--quota-cap=640"], dict(quantum_tokens=64, quota_cap_tokens=640)),
+    (["--max-prompt", "40", "--gen", "7", "--port=9001"],
+     dict(port=9001, max_prompt_tokens=40, max_new_tokens_cap=7)),
+], ids=["defaults", "admission-host-port", "quota", "bounds"])
+def test_http_flags_build_the_frontend_config(flags, expect):
+    """Each front-end flag lands in its `FrontendConfig` field; prompts are
+    bounded by --max-prompt and generation by --gen."""
+    got = _served_frontend(BASE + ["--http"] + flags)
+    want = dict(max_prompt_tokens=24, max_new_tokens_cap=4)
+    want.update(expect)
+    assert got == FrontendConfig(**want)
+
+
+def test_http_config_file_frontend_section(tmp_path):
+    """A reference dict's ``frontend`` section is the base; typed flags
+    override its fields, the rest (classes included) are kept."""
+    classes = (JClass("chat", 0, ttft_slo_steps=5, preempt_below=True),
+               JClass("bulk", 3, degrade_floor=2))
+    cfg = JEngineConfig.smoke("minitron-8b", frontend=JFrontendConfig(
+        admission="fcfs", quantum_tokens=32, quota_cap_tokens=320, classes=classes,
+        latency_window=9))
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg.to_dict()))
+    got = _served_frontend(["--config", str(path), "--device", "cpu", "--http", "--port", "0",
+                            "--quantum", "48"])
+    assert got.admission == "fcfs" and got.port == 0 and got.quantum_tokens == 48
+    assert got.quota_cap_tokens == 320 and got.latency_window == 9
+    assert got.classes == (PriorityClass("chat", 0, ttft_slo_steps=5, preempt_below=True),
+                           PriorityClass("bulk", 3, degrade_floor=2))
+
+
+def test_http_bad_admission_is_refused(capsys):
+    with pytest.raises(SystemExit) as e:
+        serve.main(BASE + ["--http", "--admission", "lifo"])
+    assert e.value.code == 2
+    assert "invalid choice: 'lifo'" in capsys.readouterr().err
+
+
+def test_http_bad_quota_is_refused():
+    with pytest.raises(ValueError, match="quota_cap_tokens"):
+        serve.main(BASE + ["--http", "--quantum", "9000"])
+
+
+def test_http_without_a_card_refuses_before_listening():
+    """``--http`` runs on the card unless ``--device cpu`` is given."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device serves")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        serve.main(["--arch", "minitron-8b", "--smoke", "--http", "--port", "0"])
+
+
+def test_http_serves_and_drains_on_sigterm(tmp_path):
+    """``--http --device cpu --port 0`` in a subprocess: the ``serving on``
+    line names the port, a request gets its tokens, SIGTERM drains (exit 0,
+    the drain line) and the metrics file parses with the front end's
+    families."""
+    metrics = tmp_path / "m.prom"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "minitron-8b", "--smoke",
+         "--device", "cpu", "--http", "--port", "0", "--gen", "5", "--metrics-out",
+         str(metrics)], cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        line = proc.stdout.readline()
+        assert line.startswith("serving on http://127.0.0.1:"), line + proc.stderr.read()
+        port = int(line.split("http://")[1].split()[0].rsplit(":", 1)[1])
+        body = json.dumps({"prompt": [3, 1, 4, 1, 5, 9], "max_new_tokens": 9,
+                           "tenant": "cli"}).encode()
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/v1/generate", data=body,
+                                     method="POST")
+        out = json.loads(urllib.request.urlopen(req, timeout=60).read())
+        assert out["state"] == "finished" and len(out["tokens"]) == 5  # --gen caps it
+        proc.send_signal(signal.SIGTERM)
+        stdout, stderr = proc.communicate(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert proc.returncode == 0, stderr
+    assert "draining" in stdout and "drained after" in stdout and "1 terminal requests" in stdout
+    lines = [ln for ln in metrics.read_text().splitlines() if not ln.startswith("#")]
+    for ln in lines:
+        float(ln.rsplit(" ", 1)[1])
+    text = metrics.read_text()
+    for fam in ("slo_attained_total", "goodput_tokens_total", "frontend_admission_total"):
+        assert f'{fam}{{' in text and 'tenant="cli"' in text, fam

@@ -24,8 +24,11 @@ from repro.api import PrefixConfig as JPrefix
 from repro.api import SpeculationConfig as JSpeculation
 from repro.api import CompressionConfig as JCompression
 from repro.api import Engine as JEngine
-from repro_torch.api import (CompressionConfig, Engine, EngineConfig, EngineStats, ObsConfig,
-                             PagingConfig, PrefixConfig, SpeculationConfig)
+from repro.frontend.config import FrontendConfig as JFrontend
+from repro.frontend.config import PriorityClass as JClass
+from repro_torch.api import (CompressionConfig, Engine, EngineConfig, EngineStats,
+                             FrontendConfig, ObsConfig, PagingConfig, PrefixConfig,
+                             PriorityClass, SpeculationConfig)
 from repro_torch.api import stats as tstats
 from tests.test_torch_obs import CASES, _pool_configs, _run
 from tests.test_torch_prefix import shared_params
@@ -111,15 +114,27 @@ def _pair(**kw):
               kv_dtype_overrides={(0, 1): "fp8", (1, 0): "fp8"})
     common = dict(n_shards=2, max_seq_len=96, cache_backend="paged", dtype="bfloat16",
                   seed=3, profile_skew=1.5)
+    classes = (dict(name="chat", priority=0, ttft_slo_steps=6, ttft_slo_s=0.5,
+                    shed_after_steps=9, preempt_below=True),
+               dict(name="bulk", priority=4, itl_slo_s=0.25, degrade_floor=3))
+    fe = dict(host="0.0.0.0", port=0, admission="fcfs", quantum_tokens=96,
+              quota_cap_tokens=960, max_queue_per_tenant=5, latency_window=17,
+              idle_sleep_s=0.01, drain_timeout_s=4.0, max_prompt_tokens=40,
+              max_new_tokens_cap=12)
     j = JEngineConfig.smoke(ARCH, compression=JCompression(**comp), paging=JPaging(**pg),
                             prefix=JPrefix(enabled=True, chunk_tokens=16, max_entries=7),
                             speculation=JSpeculation(enabled=True, max_k=2, draft_layers=1),
-                            obs=JObs(enabled=False, trace_capacity=9), **common, **kw)
+                            obs=JObs(enabled=False, trace_capacity=9),
+                            frontend=JFrontend(classes=tuple(JClass(**c) for c in classes),
+                                               **fe), **common, **kw)
     t = EngineConfig.smoke(ARCH, device="cpu", compression=CompressionConfig(**comp),
                            paging=PagingConfig(**pg),
                            prefix=PrefixConfig(enabled=True, chunk_tokens=16, max_entries=7),
                            speculation=SpeculationConfig(enabled=True, max_k=2, draft_layers=1),
-                           obs=ObsConfig(enabled=False, trace_capacity=9), **common, **kw)
+                           obs=ObsConfig(enabled=False, trace_capacity=9),
+                           frontend=FrontendConfig(
+                               classes=tuple(PriorityClass(**c) for c in classes), **fe),
+                           **common, **kw)
     return j, t
 
 
@@ -133,14 +148,19 @@ def test_to_dict_round_trips_through_json():
 
 
 def test_port_dict_has_the_reference_keys():
-    """Every key of the reference's dict is in the port's, except the ones
-    the port does not model; the port adds ``device``."""
+    """The port's dict has the reference's top-level keys plus ``device``;
+    within a section, every key except the ones the port does not model;
+    the ``frontend`` section equals the reference's field by field."""
     j, t = _pair()
     jd, td = j.to_dict(), t.to_dict()
-    assert set(td) - set(jd) == {"device"}
-    assert set(jd) - set(td) == {"frontend"}
+    assert set(td) == set(jd) | {"device"}
+    jf, tf = json.loads(json.dumps(jd["frontend"])), json.loads(json.dumps(td["frontend"]))
+    assert set(tf) == set(jf)
+    for key in jf:
+        assert tf[key] == jf[key], key
+    assert len(tf["classes"]) == 2 and tf["classes"][1]["degrade_floor"] == 3
     for sec in ("compression", "paging", "planner", "scheduler", "prefix", "speculation",
-                "executor_cfg", "obs", "model"):
+                "executor_cfg", "obs", "model", "frontend"):
         extra = set(jd[sec]) - set(td[sec])
         assert extra <= {"append_mode", "decode_impl"}, (sec, extra)
         assert set(td[sec]) <= set(jd[sec]), sec
