@@ -132,7 +132,24 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    request sent after it began; the pool empty, no capture, /metrics with
    the front end's seven families; prints TTFT per tenant and the SSE gap
    beside the tick;
-15. last line: {"ok": true, "device": {...}}.
+15. (last, after phase 11) the multi-GPU executor (`repro_torch.exec.mesh`):
+   (a) one NCCL rank, graphed, at phase 5's width: the fairkv_dp one-shot
+   gives phase 5's tokens, logits and lengths bitwise; the first 8
+   requests of phase 7's trace on bf16 pools, plain and with (e)'s
+   speculation, and the first 4 with 256-token chunks give a local
+   executor's tokens on the same trace bitwise; decode, propose, verify
+   and the chunk step captured once each and never during a trace, their
+   all-reduces inside the graphs; per decode and verify step 32
+   all-reduces over model and no all-gather (the collective counter).
+   (b) two gloo ranks sharing the card (model = 2), eager, each building
+   the seed weights (checksum equal to the parent's): phase 5's one-shot
+   on the slot backend and bf16 pools (prefill lengths bitwise, logit gap
+   under the plan bar, the ranks' tokens identical), then the first 8
+   requests of phase 7's trace (all finish, both partitions end empty).
+   Prints step times, collectives and bytes per step and each rank's
+   `max_memory_allocated`, and the phase's time and launches (apart from
+   the kernel table);
+16. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -141,6 +158,7 @@ from __future__ import annotations
 
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1154,7 +1172,8 @@ def eager_executor(cfg):
 
 
 def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
-                   changes=None, reqs=None, eager=False, head_importance=None, inspect=None):
+                   changes=None, reqs=None, eager=False, head_importance=None, inspect=None,
+                   mesh=None):
     """One trace through `Engine.run_trace` (8 rows, replanning on with
     `SchedulerConfig`'s defaults) with the launch counters zeroed just
     before and read just after; checks that every request finished with
@@ -1171,8 +1190,9 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
     ``eager`` runs every step eagerly instead.  ``head_importance`` goes to
     `Engine.build` (the ``headkv`` policy's weights); ``inspect(eng,
     after_warmup)`` is called after the checks with the engine and the
-    ``stepfn_compiles_total`` counts read just after warmup.  Returns
-    (launches, summary)."""
+    ``stepfn_compiles_total`` counts read just after warmup.  ``mesh`` runs
+    the engine as this process's rank of a mesh (the ``mesh`` executor;
+    eager on gloo).  Returns (launches, summary)."""
     import numpy as np
     import torch
     from repro_torch.api import Engine, PagingConfig, SchedulerConfig, SpeculationConfig
@@ -1185,9 +1205,11 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
                   paging=PagingConfig(block_size=BLOCK, kv_dtype=kv, n_blocks=n_blocks),
                   speculation=spec)
     cfg = ctx["cfg"].replace(**{**fields, **(changes or {})})
+    if mesh is not None:
+        cfg = cfg.replace(executor="mesh")
     eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"],
-                       head_importance=head_importance)
-    if eager:
+                       head_importance=head_importance, mesh=mesh)
+    if eager and mesh is None:
         eng.executor = eager_executor(cfg)
     reqs = make_trace(m.vocab_size) if reqs is None else reqs
     n_req = len(reqs)
@@ -1206,12 +1228,13 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
             return ev
         sched.step = watched
     ex = eng.executor
+    eager = not ex.graphs
     t_warm = time.perf_counter()
     eng.warmup()
     t_warm = time.perf_counter() - t_warm
     captured = dict(ex.step_traces)
     compiles_warm = {k: eng.obs.metrics.counter_value("stepfn_compiles_total", kind=k,
-                                                      executor="local")
+                                                      executor=ex.name)
                      for k in ex.step_traces}
     # one capture per distinct step shape: the decode step, the chunk step
     # when chunking, propose and verify when speculating; prefill is eager
@@ -2381,7 +2404,9 @@ def frontend_goodput(ctx, admission, launches):
            "p50_ttft_steps": {t: v["p50_ttft_steps"] for t, v in out["tenants"].items()},
            "rejections": dict(reasons),
            "degradations": sum(r.degraded_from is not None for r in reqs),
-           "preemptions": out["preemptions"], "wall_s": out["wall_s"],
+           "preemptions": out["preemptions"],
+           "replay_swaps": eng.obs.metrics.counter_value("sched_replay_swaps_total"),
+           "wall_s": out["wall_s"],
            "host_ms_per_pump_median": 1e3 * float(np.median(host)),
            "tick_ms_median": 1e3 * float(np.median(sched.step_s)), "launches": got}
     log(f"[frontend] {admission}: {out['finished']}/{FE_N_REQ} terminal, {out['rejected']} "
@@ -2389,7 +2414,8 @@ def frontend_goodput(ctx, admission, launches):
         f"| goodput {out['goodput_tokens']:.0f} of {out['generated_tokens']:.0f} tokens = "
         f"{out['goodput_tokens_per_step']:.3f} per step | SLO attainment "
         f"{out['slo_attainment']:.3f}, per tenant {row['attainment']} | degradations "
-        f"{row['degradations']} | preemptions {out['preemptions']} | front-end host time per "
+        f"{row['degradations']} | preemptions {out['preemptions']} (replayed tokens kept over "
+        f"what the replay computed: {row['replay_swaps']:.0f}) | front-end host time per "
         f"pump outside Scheduler.step: median {row['host_ms_per_pump_median']:.3f} ms (tick "
         f"median {row['tick_ms_median']:.2f} ms) | wall {out['wall_s']:.1f} s | launches {got}")
     del eng, fe, sched
@@ -2602,7 +2628,9 @@ def frontend_http(ctx, launches):
            "statuses": sorted(_outcome(r) for r in res),
            "drain": [(r[2]["state"], r[2]["reason"]) for r in late_res],
            "prometheus_series": len(lines), "cancelled_req": cut_id,
-           "cancelled_after_tokens": cut.n_generated, "launches": got}
+           "cancelled_after_tokens": cut.n_generated, "launches": got,
+           "preempted": sum(r.n_preemptions > 0 for r in fe.finished),
+           "replay_swaps": eng.obs.metrics.counter_value("sched_replay_swaps_total")}
     log(f"[frontend] http: one prompt via JSON and SSE = Engine.stream's {len(ref)} tokens; 12 "
         f"concurrent requests in {wall:.2f} s, outcomes {row['statuses']}; the client that left "
         f"after 3 tokens: request {cut_id} cancelled at {cut.n_generated} tokens; drain "
@@ -2611,7 +2639,9 @@ def frontend_http(ctx, launches):
                     for t, v in row["ttft_s"].items())
         + f" | SSE inter-token gap p50 {row['sse_gap_ms_p50']:.2f} ms vs tick median "
         f"{row['tick_ms_median']:.2f} ms | /metrics {len(lines)} series with "
-        f"{len(FE_FAMILIES)} front-end families | pool empty, no capture | launches {got}")
+        f"{len(FE_FAMILIES)} front-end families | pool empty, no capture | {row['preempted']} "
+        f"requests preempted, {row['replay_swaps']:.0f} replayed tokens kept over what the "
+        f"replay computed | launches {got}")
     del eng, server
     return row
 
@@ -2949,6 +2979,295 @@ def oneshot_beside_scheduler(ctx):
         fail(f"captures {g['traces']}, expected {g['captured']} plus the scheduler's decode graph")
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the multi-GPU executor
+# ---------------------------------------------------------------------------
+
+MESH_REQS = 8  # the first requests of phase 7's trace
+MESH_CHUNK_REQS, MESH_CHUNK = 4, 256  # (a)'s chunked run: prompts of 512+ tokens
+
+
+def _checksum(params):
+    """One float64 sum per leaf of a parameter tree (device reductions: the
+    same bits give the same sums)."""
+    import torch
+
+    def leaves(t):
+        if torch.is_tensor(t):
+            return [t]
+        if isinstance(t, dict):
+            return [x for v in t.values() for x in leaves(v)]
+        if isinstance(t, (list, tuple)):
+            return [x for v in t for x in leaves(v)]
+        return []
+
+    return [float(torch.sum(t, dtype=torch.float64)) for t in leaves(params)]
+
+
+def _per_step(ex, kind):
+    """(steps, {group: {collective: {calls, bytes}}} per step) of ``kind``."""
+    from repro_torch.distributed import comm
+    n = ex.step_calls[kind]
+    per = comm.by_kind(ex.step_collectives[kind])
+    return n, {g: {c: {f: v[f] / max(n, 1) for f in ("calls", "bytes")}
+                   for c, v in d.items()} for g, d in per.items()}
+
+
+def _check_contract(name, n, per, n_reduce):
+    """The decode contract of ``n`` steps with collectives ``per`` per step
+    (`_per_step`): ``n_reduce`` all-reduces over model (one per layer the
+    step runs: every layer for decode and verify, draft layers x max_k for
+    a propose) and no all-gather."""
+    model = per.get("model", {})
+    if n == 0 or model.get("all_reduce", {}).get("calls") != n_reduce or "all_gather" in model:
+        fail(f"{name}: {n} steps with collectives {per} per step; expected {n_reduce} "
+             f"all-reduces over model and no all-gather")
+
+
+def mesh_nccl(ctx):
+    """Phase 15 (a): one NCCL rank, graphed, at full width.  Returns what
+    (b) compares with and the phase's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.api import Engine, PrefixConfig, SpeculationConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    m = ctx["cfg"].model
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in build.LAUNCHES}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    dist.init_process_group("nccl", init_method=f"file://{tempfile.mkdtemp()}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(model=1, data=1)
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = Engine.build(ctx["cfg"].replace(executor="mesh"), mesh=mesh,
+                           params=ctx["params"], profile=ctx["profile"])
+        res, got = _count(lambda: eng.generate(ctx["prompts"], GEN,
+                                               teacher_tokens=ctx["teacher"]))
+        add(got)
+        ref, ex = ctx["slot_dp"], eng.executor
+        for key in ("tokens", "logits", "lengths"):
+            if not np.array_equal(getattr(res, key), getattr(ref, key)):
+                fail(f"[mesh] (a) one-shot fairkv_dp: {key} differ from the local executor's "
+                     f"(max |diff| {float(np.abs(getattr(res, key) - getattr(ref, key)).max())})")
+        if ex.step_traces["decode"] != 1 or got["fairkv_decode"] != m.n_layers * GEN:
+            fail(f"[mesh] (a) captures {ex.step_traces}, launches {got}")
+        n, per = _per_step(ex, "decode")
+        _check_contract("[mesh] (a) one-shot decode", n, per, m.n_layers)
+        step_ms = 1e3 * statistics.median(res.step_s)
+        log(f"[mesh] (a) one NCCL rank, fairkv_dp one-shot: tokens, logits and lengths bitwise "
+            f"the local executor's (phase 5); decode captured once, replayed "
+            f"{ex.replays['decode']} times; per decode step "
+            f"{per['model']['all_reduce']['calls']:.0f} all-reduces over model "
+            f"({per['model']['all_reduce']['bytes']:.0f} B), no all-gather; step median "
+            f"{step_ms:.2f} ms vs the local executor's "
+            f"{1e3 * statistics.median(ref.step_s):.2f} ms; launches {got}")
+        out = {"oneshot_step_ms": step_ms, "oneshot_local_step_ms":
+               1e3 * statistics.median(ref.step_s), "decode_per_step": per}
+        eng = res = None
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        stats = {}
+
+        def keep(tag):
+            def inspect(e, warm):
+                ex = e.executor
+                for kind in ("decode", "propose", "verify", "prefill_chunk"):
+                    if ex.step_calls[kind]:
+                        stats[(tag, kind)] = _per_step(ex, kind)
+                stats[(tag, "captures")] = dict(ex.step_traces)
+            return inspect
+
+        def reqs(n=MESH_REQS):
+            return make_trace(m.vocab_size)[:n]
+
+        chunk = {"prefix": PrefixConfig(enabled=False, chunk_tokens=MESH_CHUNK)}
+        pairs = (("(b)", None, None, MESH_REQS), ("(e)", SpeculationConfig(**SPEC_E), None,
+                                                  MESH_REQS),
+                 ("chunked", None, chunk, MESH_CHUNK_REQS))
+        for tag, spec, changes, n_req in pairs:
+            _, loc = continuous_run(ctx, f"local {tag}", "paged", "fp32", spec=spec,
+                                    changes=changes, reqs=reqs(n_req))
+            got, msh = continuous_run(ctx, f"mesh {tag}", "paged", "fp32", spec=spec,
+                                      changes=changes, reqs=reqs(n_req), mesh=mesh,
+                                      inspect=keep(tag))
+            add(got)
+            if msh["tokens"] != loc["tokens"]:
+                same = sum(x == y for x, y in zip(msh["tokens"], loc["tokens"]))
+                fail(f"[mesh] (a) {tag}: {same}/{n_req} requests with the local tokens")
+            if tag == "(b)":
+                out["trace_tokens"] = loc["tokens"]
+                out["trace_local_tokens_per_s"] = loc["tokens_per_s"]
+            log(f"[mesh] (a) {tag} on bf16 pools, first {n_req} requests of phase 7's trace: "
+                f"tokens bitwise the local executor's; tokens/s {msh['tokens_per_s']:.1f} "
+                f"(local {loc['tokens_per_s']:.1f}); tick median {msh['step_ms_median']:.2f} ms "
+                f"(local {loc['step_ms_median']:.2f} ms); captures {stats[(tag, 'captures')]}")
+        ex_ok = stats[("(e)", "captures")]
+        if ex_ok["propose"] != 1 or ex_ok["verify"] != 1:
+            fail(f"[mesh] (a) (e): captures {ex_ok}")
+        if stats[("chunked", "captures")]["prefill_chunk"] != 1:
+            fail(f"[mesh] (a) chunked: captures {stats[('chunked', 'captures')]}")
+        for tag, kind, layers in (("(b)", "decode", m.n_layers), ("(e)", "verify", m.n_layers),
+                                  ("(e)", "propose", SPEC_E["draft_layers"] * SPEC_E["max_k"])):
+            n, per = stats[(tag, kind)]
+            _check_contract(f"[mesh] (a) {tag} {kind}", n, per, layers)
+            log(f"[mesh] (a) {tag}: {n} {kind} steps, per step {per}")
+            out[f"{tag} {kind}"] = per
+        n, per = stats[("chunked", "prefill_chunk")]
+        log(f"[mesh] (a) chunked: {n} chunk steps of {MESH_CHUNK} tokens, captured once; "
+            f"collectives per chunk step {per} (the cache and plan gathers over model)")
+    finally:
+        dist.destroy_process_group()
+    out["launches"] = launches
+    log(f"[mesh] (a) took {time.perf_counter() - t0:.1f} s; launches {launches}")
+    return out
+
+
+def mesh_gloo_rank(mesh, args):
+    """One rank of phase 15 (b): the seed weights on the card, this rank's
+    slots; the one-shot runs and the trace.  Returns numbers and tokens."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine, PagingConfig
+    from repro_torch.kernels import build
+    if mesh.rank:
+        sys.stdout = open(os.devnull, "w")  # rank 0 logs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = args["cfg"].replace(executor="mesh")
+    eng = Engine.build(cfg, mesh=mesh, profile=args["profile"])
+    params = eng.params
+    out = {"checksum": _checksum(params), "build_s": time.perf_counter() - t0}
+    ref_logits = np.load(args["ref_logits"], mmap_mode="r")
+    for backend in ("slot", "paged"):
+        if backend == "paged":
+            eng = Engine.build(cfg.replace(cache_backend="paged",
+                                           paging=PagingConfig(block_size=BLOCK)),
+                               mesh=mesh, params=params, profile=args["profile"])
+        build.reset_launches()
+        res = eng.generate(args["prompts"], GEN, teacher_tokens=args["teacher"])
+        n, per = _per_step(eng.executor, "decode")
+        out[backend] = {"tokens": res.tokens, "lengths": res.lengths, "steps": n,
+                        "max_abs_diff": float(np.abs(res.logits - ref_logits).max()),
+                        "step_ms": 1e3 * statistics.median(res.step_s),
+                        "prefill_s": res.prefill_s, "per_step": per,
+                        "launches": dict(build.LAUNCHES), "finite": bool(np.isfinite(res.logits).all())}
+        eng.state = eng._live = None
+    eng = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx = {"cfg": args["cfg"], "params": params, "profile": args["profile"]}
+    stats = {}
+
+    def inspect(e, warm):
+        stats["decode"] = _per_step(e.executor, "decode")
+        pool = e.scheduler.backend.pool
+        stats["partition_free"] = pool.free_blocks_by_partition().sum(axis=0).tolist()
+        stats["partition_total"] = [pool.n_layers * (pool.part_size - 1)] * pool.n_partitions
+
+    got, trace = continuous_run(ctx, f"mesh gloo rank {mesh.rank}", "paged", "fp32",
+                                reqs=make_trace(args["cfg"].model.vocab_size)[:MESH_REQS],
+                                mesh=mesh, inspect=inspect)
+    out["trace"] = {k: trace[k] for k in ("tokens", "tokens_per_s", "step_ms_median", "finished",
+                                          "replans", "preemptions")}
+    out["trace"].update(stats, launches=got)
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def mesh_gloo(ctx, a):
+    """Phase 15 (b): two gloo ranks sharing the card (model = 2, data = 1),
+    eager, at full width."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import spawn
+    m = ctx["cfg"].model
+    t0 = time.perf_counter()
+    ref = ctx["slot_dp"]
+    tmp = tempfile.mkdtemp()
+    np.save(f"{tmp}/ref_logits.npy", ref.logits)
+    args = {"cfg": ctx["cfg"], "profile": ctx["profile"], "prompts": ctx["prompts"],
+            "teacher": ctx["teacher"], "ref_logits": f"{tmp}/ref_logits.npy"}
+    parent = _checksum(ctx["params"])
+    # the parent's engines are gone; only the ranks hold weights from here
+    ctx["params"] = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    ranks = spawn(mesh_gloo_rank, model=2, data=1, backend="gloo", device="cuda",
+                  args=(args,), init_file=f"{tmp}/rendezvous", timeout=900)
+    tol = m.n_layers * 2.0 ** -8 * float(np.abs(ref.logits).max())
+    for r, out in enumerate(ranks):
+        if out["checksum"] != parent:
+            fail(f"[mesh] (b) rank {r}: weight checksum differs from the parent's")
+        for backend in ("slot", "paged"):
+            o = out[backend]
+            if not np.array_equal(o["lengths"], ref.lengths):
+                fail(f"[mesh] (b) rank {r} {backend}: prefill lengths differ from the local's")
+            if not (o["finite"] and o["max_abs_diff"] < tol):
+                fail(f"[mesh] (b) rank {r} {backend}: logit gap {o['max_abs_diff']} >= plan bar "
+                     f"{tol} (or not finite)")
+            _check_contract(f"[mesh] (b) rank {r} {backend}", o["steps"], o["per_step"],
+                            m.n_layers)
+            if not np.array_equal(o["tokens"], ranks[0][backend]["tokens"]):
+                fail(f"[mesh] (b) {backend}: the ranks' tokens differ")
+        t = out["trace"]
+        if t["finished"] != MESH_REQS or t["tokens"] != ranks[0]["trace"]["tokens"]:
+            fail(f"[mesh] (b) trace: rank {r} finished {t['finished']}, tokens equal to rank "
+                 f"0's: {t['tokens'] == ranks[0]['trace']['tokens']}")
+        if t["partition_free"] != t["partition_total"]:
+            fail(f"[mesh] (b) trace: partitions not empty at the end: {t['partition_free']} "
+                 f"free of {t['partition_total']}")
+        log(f"[mesh] (b) rank {r}: weights built in {out['build_s']:.1f} s, checksum equal to "
+            f"the parent's; max_memory_allocated {out['max_memory_allocated'] / 2**30:.2f} GiB; "
+            + "; ".join(f"{b}: step median {out[b]['step_ms']:.2f} ms, prefill "
+                        f"{out[b]['prefill_s']:.2f} s, logit gap {out[b]['max_abs_diff']:.4f} "
+                        f"(bar {tol:.4f}), per step {out[b]['per_step']}"
+                        for b in ("slot", "paged"))
+            + f"; trace {t['finished']}/{MESH_REQS} finished, {t['tokens_per_s']:.1f} tokens/s, "
+            f"tick median {t['step_ms_median']:.2f} ms, replans {t['replans']}, partitions free "
+            f"{t['partition_free']}; {out['seconds']:.1f} s")
+    same = sum(x == y for x, y in zip(ranks[0]["trace"]["tokens"], a["trace_tokens"]))
+    tok = [ranks[0][b]["tokens"] for b in ("slot", "paged")]
+    log(f"[mesh] (b) prefill lengths bitwise the local executor's on both ranks and backends; "
+        f"the ranks' tokens identical; one-shot argmax equal to the local run at "
+        + ", ".join(f"{100 * float((t_ == ref.tokens).mean()):.1f}%" for t_ in tok)
+        + f" of positions (slot, paged); trace: {same}/{MESH_REQS} requests with the local "
+        f"(a) (b) run's tokens (bf16 summation order differs; reported, not a bar)")
+    launches = {}
+    for out in ranks[:1]:  # rank 0's launches (each rank launches its own kernels)
+        for part in (out["slot"]["launches"], out["paged"]["launches"], out["trace"]["launches"]):
+            for k, v in part.items():
+                launches[k] = launches.get(k, 0) + v
+    log(f"[mesh] (b) took {time.perf_counter() - t0:.1f} s; rank 0 launches {launches}")
+    return {"launches": launches}
+
+
+def mesh_runs(ctx):
+    """Phase 15: (a) one NCCL rank, graphed; (b) two gloo ranks sharing the
+    card.  Prints the phase's time and launches."""
+    t0 = time.perf_counter()
+    a = mesh_nccl(ctx)
+    b = mesh_gloo(ctx, a)
+    log(f"[mesh] phase 15 took {time.perf_counter() - t0:.1f} s; launches (a) {a['launches']}, "
+        f"(b) rank 0 {b['launches']}")
+    log("[mesh] summary " + json.dumps({k: v for k, v in a.items()
+                                        if k not in ("trace_tokens", "launches")}))
+
+
 def main() -> int:
     try:
         import torch
@@ -3009,6 +3328,12 @@ def main() -> int:
     rows = time_kernels(engine, launches, paged, mq_inputs, prefix)
     attribute_elementwise(engine)
     oneshot_beside_scheduler(ctx)
+    # phase 15 last: its second part starts two ranks that each hold a full
+    # copy of the weights, so the main path's engines go first
+    engine = paged = cont = mq_inputs = prefix = policies = frontend = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh_runs(ctx)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -65,7 +65,9 @@ class EngineConfig:
     (paged backend only); ``speculation`` turns on self-speculative
     decoding (paged backend only).  ``executor`` names a registered
     executor (``"local"``: one device, its steps captured as CUDA graphs on
-    the card and eager on the CPU); ``executor_cfg`` carries its knobs.
+    the card and eager on the CPU; ``"mesh"``: one rank of a (data, model)
+    process mesh, built with ``Engine.build(cfg, mesh=...)``);
+    ``executor_cfg`` carries its knobs.
     ``obs`` configures the metrics registry and span trace;
     ``ObsConfig(enabled=False)`` swaps every collection point for shared
     no-op objects.  ``frontend`` configures the multi-tenant serving front

@@ -31,6 +31,12 @@ few methods:
 The facade holds the *original-layout* parameters (`.params`, shareable
 between engines) and exposes the plan (`.plan`), plan arrays (`.pa`),
 slot-layout weights (`.sp`) and the live scheduler (`.scheduler`).
+
+On the multi-GPU executor (``EngineConfig(executor="mesh")`` and
+``Engine.build(cfg, mesh=...)``, one engine per rank of a
+`repro_torch.launch.mesh` mesh) the engine holds its rank's slot weights
+and cache shard, and everything it returns is global and the same on every
+rank; `state_lengths` reads the live cache's lengths so.
 """
 from __future__ import annotations
 
@@ -43,7 +49,7 @@ import torch
 
 from repro_torch.api.config import DTYPES, EngineConfig
 from repro_torch.api.stats import EngineStats, collect_stats
-from repro_torch.cache.slot_cache import PlanArrays, SlotCache, copy_fields_, migrate_cache
+from repro_torch.cache.slot_cache import PlanArrays, SlotCache, copy_fields_
 from repro_torch.core.placement import HeadPlacement
 from repro_torch.core.planner import build_plan
 from repro_torch.core.profiles import profile_from_lengths, synthetic_profile
@@ -52,7 +58,7 @@ from repro_torch.models import init_params
 from repro_torch.obs import Obs
 from repro_torch.paging.block_pool import PoolExhausted
 from repro_torch.serving import engine as _serve
-from repro_torch.serving.cache_backend import make_cache_backend
+from repro_torch.serving.cache_backend import make_cache_backend, migrate_slots
 from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import Scheduler
 
@@ -92,6 +98,18 @@ class StreamEvent:
     finished: bool  # True on the request's last token
 
 
+def _check_mesh(cfg: EngineConfig, mesh) -> None:
+    """A mesh goes with the mesh executor, and the mesh executor needs one
+    (its own message names how to build it)."""
+    if mesh is not None and cfg.executor == "local":
+        raise ValueError(
+            "mesh= was passed but executor='local' runs on a single device; set "
+            "EngineConfig(executor='mesh') to run on the mesh")
+    if mesh is not None and torch.device(cfg.device).type != mesh.device.type:
+        raise ValueError(
+            f"EngineConfig.device={cfg.device!r} but the mesh runs on {mesh.device}")
+
+
 def resolve_device(device: str) -> torch.device:
     """The configured device; CUDA must exist unless the CPU was asked for."""
     dev = torch.device(device)
@@ -106,9 +124,12 @@ class Engine:
     """Facade over the FairKV serving stack.  Construct via `Engine.build`."""
 
     def __init__(self, cfg: EngineConfig, params: dict, plan: HeadPlacement,
-                 profile: np.ndarray, head_importance: Optional[np.ndarray] = None):
+                 profile: np.ndarray, head_importance: Optional[np.ndarray] = None,
+                 mesh=None):
         self.cfg = cfg
-        self.device = resolve_device(cfg.device)
+        _check_mesh(cfg, mesh)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(cfg.device)
         self.params = params  # original layout, shared with other engines
         self.plan = plan
         self.profile = profile  # (L, H) planning profile
@@ -118,8 +139,6 @@ class Engine:
         self._head_importance = (None if head_importance is None else torch.as_tensor(
             np.asarray(head_importance), dtype=torch.float32, device=self.device))
         self.pa = PlanArrays.from_plan(plan, device=self.device)
-        with torch.inference_mode():
-            self.sp = _serve.slotify_params(params, plan, cfg.model)
         # one registry + trace per engine, threaded through the executor,
         # the backends and (lazily) the scheduler
         self.obs = Obs.build(cfg.obs)
@@ -127,8 +146,12 @@ class Engine:
         # caller may put another executor here before the first step (an
         # eager one, LocalExecutor(..., graphs=False), to compare against)
         self.executor = make_executor(cfg.executor, cfg.model, cfg.compression,
-                                      exec_cfg=cfg.executor_cfg, paging=cfg.paging,
-                                      device=self.device, obs=self.obs)
+                                      exec_cfg=cfg.executor_cfg, mesh=mesh,
+                                      paging=cfg.paging, device=self.device, obs=self.obs)
+        # the slots this process holds (a mesh rank's share of the slot dim)
+        self._slots = self.executor.local_slots(int(self.pa.slot_head.shape[1]))
+        with torch.inference_mode():
+            self.sp = _serve.slotify_params(params, plan, cfg.model, slots=self._slots)
         self.backend = self._make_backend()
         self.state: Optional[_serve.ServeState] = None
         # the one-shot decode state; every generate() of the same shapes
@@ -146,12 +169,13 @@ class Engine:
             max_live_tokens=c.scheduler.max_live_tokens, paging=c.paging,
             n_shards=c.n_shards,
             max_live_tokens_per_shard=c.scheduler.max_live_tokens_per_shard,
-            obs=self.obs)
+            pool_partitions=self.executor.pool_partitions,
+            row_partitions=self.executor.row_partitions, mesh=self.mesh, obs=self.obs)
 
     @classmethod
     def build(cls, cfg: EngineConfig, *, params: Optional[dict] = None,
               profile: Optional[np.ndarray] = None,
-              head_importance: Optional[np.ndarray] = None) -> "Engine":
+              head_importance: Optional[np.ndarray] = None, mesh=None) -> "Engine":
         """Assemble an engine: params (initialised on the device from
         ``cfg.seed`` if not given), plan, slot weights.
 
@@ -162,9 +186,13 @@ class Engine:
         ``head_importance`` ((L, Hkv)) gives the ``headkv`` policy its
         per-head weights (a measured profile, for instance); without it
         ``headkv`` weighs heads by their realized mean score.  Raises if
-        the config asks for CUDA and there is none.
+        the config asks for CUDA and there is none.  ``mesh`` (a
+        `repro_torch.launch.mesh.Mesh`, with ``executor="mesh"``) runs the
+        engine as one rank of it, on the mesh's device; every rank builds
+        the same params, profile and plan.
         """
-        device = resolve_device(cfg.device)
+        _check_mesh(cfg, mesh)
+        device = mesh.device if mesh is not None else resolve_device(cfg.device)
         model = cfg.model
         if params is None:
             params = init_params(model, cfg.seed, dtype=DTYPES[cfg.dtype],
@@ -175,7 +203,7 @@ class Engine:
                 budget=cfg.compression.budget, skew=cfg.profile_skew,
                 seed=cfg.profile_seed)
         plan = build_plan(profile, cfg.n_shards, cfg.planner)
-        return cls(cfg, params, plan, profile, head_importance=head_importance)
+        return cls(cfg, params, plan, profile, head_importance=head_importance, mesh=mesh)
 
     # ---- one-shot serving --------------------------------------------------
 
@@ -186,7 +214,7 @@ class Engine:
         state, logits, lengths = self.executor.prefill(
             self.sp, self._as_batch(batch), self.pa,
             head_importance=self._head_importance)
-        self.state = state
+        self.state = self.executor.shard_state(state)
         self._mode = "oneshot"
         return logits, lengths
 
@@ -304,7 +332,7 @@ class Engine:
             if isinstance(self.state.cache, SlotCache):
                 # prefill leaves the slot layout whatever the backend
                 copy_fields_(self.state.cache,
-                             migrate_cache(self.state.cache, self.pa, new_pa))
+                             migrate_slots(self.state.cache, self.pa, new_pa, self.mesh))
             else:
                 _, commit = self.backend.migrate_cache(self.state.cache, self.pa,
                                                        new_pa)
@@ -312,7 +340,8 @@ class Engine:
             migrated = True
         copy_fields_(self.pa, new_pa)
         self.backend.pa = self.pa
-        _serve.slotify_params(self.params, self.plan, self.cfg.model, out=self.sp)
+        _serve.slotify_params(self.params, self.plan, self.cfg.model, out=self.sp,
+                              slots=self._slots)
         return {"plan": self.plan, "migrated_cache": migrated,
                 "shard_speeds": None if speeds is None else list(speeds)}
 
@@ -384,9 +413,7 @@ class Engine:
             sched.state = state
             if sched._chunk_ok:
                 Ck = sched.prefix_cfg.chunk_tokens
-                scratch = _serve.init_serve_state(
-                    self.cfg.model, sched.pa, 1, self.cfg.compression,
-                    dtype=DTYPES[self.cfg.dtype], device=self.device)
+                scratch = sched.sub_state()
                 ex.prefill_chunk(sched.sp, np.zeros((1, Ck), np.int64), sched.pa, scratch,
                                  rows=[0], start=[0], valid=[Ck],
                                  quota=sched._chunk_quota(Ck, Ck),
@@ -513,6 +540,17 @@ class Engine:
             raise RuntimeError("imbalance() requires the continuous "
                                "scheduler; call submit/stream first")
         return v
+
+    def state_lengths(self) -> np.ndarray:
+        """The (L, S, B) retained lengths of the live cache of whichever mode
+        ran most recently, on the host and global (on a mesh gathered over
+        the ranks, the same on every rank)."""
+        sched = self._scheduler
+        if self._mode == "continuous" and sched is not None:
+            return sched.lengths()
+        if self.state is None:
+            raise RuntimeError("no live cache: call generate/prefill or submit/stream first")
+        return self.backend.host_lengths(self.state)
 
     def memory_stats(self) -> dict:
         """The raw ``detail`` of ``stats().pool``: the cache footprint of

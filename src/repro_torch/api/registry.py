@@ -129,6 +129,7 @@ def _ensure_builtin() -> None:
     import repro_torch.compression.policies  # noqa: F401
     import repro_torch.core.assignment  # noqa: F401
     import repro_torch.exec.local  # noqa: F401
+    import repro_torch.exec.mesh  # noqa: F401
     import repro_torch.paging.backend  # noqa: F401
     import repro_torch.serving.cache_backend  # noqa: F401
 

@@ -77,10 +77,12 @@ class PlanArrays:
         valid = (self.slot_head[layer] >= 0)[:, None]
         return valid & ((rows % rc) == ri)
 
-    def owner_mask_all(self, batch: int) -> torch.Tensor:
-        """(L, S, B) bool — `owner_mask` over every layer at once."""
-        rows = torch.arange(batch, dtype=torch.int32,
-                            device=self.slot_head.device)[None, None, :]
+    def owner_mask_all(self, batch: int, rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(L, S, B) bool — `owner_mask` over every layer at once; ``rows``
+        ((B,), default arange) are the global row ids of the columns."""
+        if rows is None:
+            rows = torch.arange(batch, dtype=torch.int32, device=self.slot_head.device)
+        rows = rows.to(torch.int32)[None, None, :]
         rc = self.replica_count[:, :, None]
         ri = self.replica_idx[:, :, None]
         valid = (self.slot_head >= 0)[:, :, None]
@@ -294,6 +296,15 @@ def reset_rows(cache: SlotCache, rows: Rows) -> None:
     cache.positions[r] = 0
 
 
+def take_rows(cache: SlotCache, rows: Union[slice, Rows]) -> SlotCache:
+    """A copy of the rows ``rows`` (a slice, or int ids) of a slot cache."""
+    if not isinstance(rows, slice):
+        rows = row_index(rows, cache.k.device)
+    return SlotCache(k=cache.k[:, :, rows].clone(), v=cache.v[:, :, rows].clone(),
+                     lengths=cache.lengths[:, :, rows].clone(),
+                     pos=cache.pos[:, :, rows].clone(), positions=cache.positions[rows].clone())
+
+
 def insert_rows(cache: SlotCache, sub: SlotCache, rows: Rows) -> None:
     """Splice a freshly prefilled sub-cache into ``rows`` of the live cache,
     in place.  ``sub`` (batch ``len(rows)``) must share (L, S, C, Dh) with
@@ -313,18 +324,20 @@ def insert_rows(cache: SlotCache, sub: SlotCache, rows: Rows) -> None:
     cache.positions[r] = sub.positions
 
 
-def gather_head_layout(cache: SlotCache, plan: PlanArrays):
+def gather_head_layout(cache: SlotCache, plan: PlanArrays,
+                       rows: Optional[torch.Tensor] = None):
     """Slot layout → original head layout: ``(k, v, lengths, pos)`` shaped
     (L, H, B, C, Dh) / (L, H, B) / (L, H, B, C).
 
     Replicas of a head partition the rows, so every (head, row) has exactly
     one owning slot; its entries are gathered directly (the reference sums
     over slots under the owner mask, which gives the same values).
+    ``rows``: the global row ids of the cache's rows (default arange(B)).
     """
     L, S, B, C, Dh = cache.k.shape
     H = int(plan.first_slot.shape[1])
     dev = cache.k.device
-    own = plan.owner_mask_all(B)  # (L, S, B)
+    own = plan.owner_mask_all(B, rows)  # (L, S, B)
     hit = (plan.slot_head[:, :, None, None]
            == torch.arange(H, device=dev)[None, None, :, None]) & own[:, :, None, :]
     slot = hit.to(torch.int32).argmax(dim=1)  # (L, H, B) the owning slot
@@ -347,19 +360,20 @@ def copy_fields_(dst, src):
 
 
 def migrate_cache(cache: SlotCache, old_plan: PlanArrays,
-                  new_plan: PlanArrays) -> SlotCache:
+                  new_plan: PlanArrays, rows: Optional[torch.Tensor] = None) -> SlotCache:
     """Re-layout a live cache for a new placement (online replanning): back
     to head layout under ``old_plan``, then into the slots and owner split
     of ``new_plan``.  Returns a new cache (the layouts differ per row, so
-    the move cannot run in place); the slot grid and capacity must match."""
+    the move cannot run in place); the slot grid and capacity must match.
+    ``rows``: the global row ids of the cache's rows (default arange(B))."""
     L, S, B, C, Dh = cache.k.shape
     if tuple(new_plan.slot_head.shape) != tuple(old_plan.slot_head.shape):
         raise ValueError(
             f"plan slot grids differ: {tuple(old_plan.slot_head.shape)} vs "
             f"{tuple(new_plan.slot_head.shape)}")
-    k_h, v_h, len_h, pos_h = gather_head_layout(cache, old_plan)
+    k_h, v_h, len_h, pos_h = gather_head_layout(cache, old_plan, rows)
     heads = torch.clamp(new_plan.slot_head, min=0).long()  # (L, S)
-    own = new_plan.owner_mask_all(B)  # (L, S, B)
+    own = new_plan.owner_mask_all(B, rows)  # (L, S, B)
     l_ix = torch.arange(L, device=heads.device)[:, None]
     k_s, v_s = k_h[l_ix, heads], v_h[l_ix, heads]  # (L, S, B, C, Dh)
     return SlotCache(

@@ -4,9 +4,11 @@ An executor owns *how* the serving steps run (its StepFns: one prefill
 step, one chunked-prefill step, one decode step, and the propose / verify
 pair of speculative decoding), while *what* they compute lives in
 ``repro_torch.serving.engine``.  Built-ins register with
-``@repro_torch.api.register_executor``; the port has ``"local"`` (one
-device; CUDA graphs on the card, eager on the CPU).  The multi-GPU
-executor is not ported yet (ROADMAP Queue A.10).
+``@repro_torch.api.register_executor``: ``"local"`` (one device; CUDA
+graphs on the card, eager on the CPU) and ``"mesh"`` (one process per rank
+of a (data, model) mesh over ``torch.distributed``: the slot dim shards
+over ``model``, batch rows over ``data``, and the decode o-projection's
+all-reduce is the step's one collective; `repro_torch.exec.mesh`).
 
 StepFn contract (the reference's no-recompile rule, DESIGN.md §10): a step
 reads the slot weights ``sp``, the plan arrays ``pa`` and the state as
@@ -145,9 +147,14 @@ class Executor:
         """Data-axis partitions of the pool / batch rows (1 = none)."""
         return 1
 
+    def local_slots(self, n_slots: int) -> slice:
+        """The slots of an ``n_slots`` grid whose weights and cache this
+        process holds: all of them on one device."""
+        return slice(0, n_slots)
+
     def shard_state(self, state):
-        """Lay a fresh ServeState out for this executor: the identity on
-        one device."""
+        """Lay a prefill's ServeState (every row of the batch) out for this
+        executor's decode: the identity on one device."""
         return state
 
     def synchronize(self) -> None:
@@ -241,15 +248,22 @@ class Executor:
         ).observe(dt, kind=kind, executor=self.name)
         return out
 
-    # ---- audit (not ported yet) -------------------------------------------
+    # ---- audit -------------------------------------------------------------
 
-    def decode_hlo(self, sp: dict, state, pa, tokens: torch.Tensor) -> str:
-        """The reference audits the decode step's collectives from its
-        compiled HLO; the port's collective count belongs to the multi-GPU
-        executor (ROADMAP Queue A.10)."""
-        raise NotImplementedError(
-            "the decode step's collective audit belongs to the multi-GPU "
-            "executor (ROADMAP Queue A.10)")
+    def decode_collectives(self, sp: dict, state, pa, active=None) -> Tuple:
+        """Run one decode step → (state, the collectives it issued as
+        ``{group: {kind: {"calls", "elements", "bytes"}}}``) from the
+        `repro_torch.distributed.comm` counter (the reference reads its
+        compiled HLO instead).  The contract on a mesh: one ``all_reduce``
+        over ``model`` per attention layer and no ``all_gather`` over it;
+        over ``data`` the step gathers its rows' tokens and logits (only
+        when data > 1).  One device issues none.  The step is real: it
+        appends to ``state`` like any decode step (``active`` None: every
+        row); continue from the returned state."""
+        from repro_torch.distributed import comm
+        before = comm.snapshot()
+        state, _ = self.decode(sp, state, pa, active=active)
+        return state, comm.by_kind(comm.since(before))
 
 
 def make_executor(name: str, model_cfg: ModelConfig, ccfg: CompressionConfig,

@@ -34,8 +34,10 @@ Outputs (logits, proposals, verdicts) live in the graph's memory and are
 overwritten by its next replay: a caller that keeps one across steps
 clones it.  The new tokens land in ``state.last_tokens`` in place, so the
 next step reads them where it was captured to.  Kernel launch counters
-(``kernels.build.LAUNCHES``) count a replay's launches: each graph records
-the launches of its capture and adds them per replay.
+(``kernels.build.LAUNCHES``) and the collective counter
+(``distributed.comm.COUNTS``, the multi-GPU executor's) count a replay's
+work: each graph records the launches and collectives of its capture and
+adds them per replay.
 
 No fallback: a capture or a replay that fails raises.  ``graphs=False``
 runs every step eagerly on any device (the comparison the tests and the
@@ -44,6 +46,7 @@ chip script hold the graphs to).
 from __future__ import annotations
 
 import dataclasses
+from collections import Counter
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -51,6 +54,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.registry import register_executor
+from repro_torch.distributed import comm
 from repro_torch.exec.base import STEP_KINDS, Executor
 from repro_torch.kernels import build
 from repro_torch.serving import engine as _serve
@@ -65,6 +69,7 @@ class _StepGraph:
     pa: object
     outputs: Tuple[torch.Tensor, ...]
     launches: Dict[str, int]  # kernel launches per replay
+    collectives: object  # a `comm.COUNTS` delta per replay
 
 
 def _tensors(obj) -> List[torch.Tensor]:
@@ -92,15 +97,16 @@ def _clone_state(state):
 @register_executor("local")
 class LocalExecutor(Executor):
     name = "local"
+    takes_mesh = False  # the multi-GPU executor reuses this class with one
+    capture_error_mode = "global"  # torch.cuda.graph's
 
     def __init__(self, model_cfg, ccfg, exec_cfg=None, mesh=None, paging=None,
                  device="cuda", obs=None, graphs: Optional[bool] = None):
-        if mesh is not None:
+        if mesh is not None and not self.takes_mesh:
             raise ValueError(
                 "the 'local' executor runs on a single device and takes no "
-                "mesh; the multi-GPU executor is not ported yet (ROADMAP "
-                "Queue A.10): drop mesh=")
-        super().__init__(model_cfg, ccfg, exec_cfg=exec_cfg, mesh=None,
+                "mesh: use executor='mesh' to run on one, or drop mesh=")
+        super().__init__(model_cfg, ccfg, exec_cfg=exec_cfg, mesh=mesh,
                          paging=paging, device=device, obs=obs)
         if graphs is None:
             graphs = self.device.type == "cuda"
@@ -110,6 +116,10 @@ class LocalExecutor(Executor):
         self._graphs: Dict[tuple, _StepGraph] = {}
         self._chunk_states: Dict[tuple, object] = {}  # private chunk sub-states
         self.replays = {k: 0 for k in STEP_KINDS}
+        # steps run per kind (graph replays, captures and eager calls of the
+        # captured kinds) and the collectives they issued (a mesh's)
+        self.step_calls = {k: 0 for k in STEP_KINDS}
+        self.step_collectives = {k: Counter() for k in STEP_KINDS}
 
     # ---- graph machinery ---------------------------------------------------
 
@@ -118,15 +128,20 @@ class LocalExecutor(Executor):
         """Run one step: ``fn(**inputs)`` eagerly, or through the graph of
         ``key`` and the state's storage (captured at the first call).
         ``state`` is written in place; ``sp`` and ``pa`` are read."""
+        self.step_calls[kind] += 1
         if not self.graphs:
+            before = comm.snapshot()
             out = fn(**inputs)
             self.synchronize()
+            self.step_collectives[kind].update(comm.since(before))
             return out
         tensors = _tensors(state)
         full = (kind,) + key + (tuple(t.data_ptr() for t in tensors),)
         g = self._graphs.get(full)
         if g is None:
+            before = comm.snapshot()
             out = self._capture(full, fn, tensors, sp, pa, inputs)
+            self.step_collectives[kind].update(comm.since(before))
         else:
             if sp is not g.sp or pa is not g.pa:
                 raise RuntimeError(
@@ -138,6 +153,8 @@ class LocalExecutor(Executor):
             self.replays[kind] += 1
             for name, n in g.launches.items():
                 build.LAUNCHES[name] += n
+            comm.COUNTS.update(g.collectives)
+            self.step_collectives[kind].update(g.collectives)
             out = g.outputs
         self.synchronize()
         return out
@@ -152,15 +169,18 @@ class LocalExecutor(Executor):
         with torch.cuda.stream(side):
             out = fn(**static)
         main.wait_stream(side)
-        before = dict(build.LAUNCHES)
+        before, comm_before = dict(build.LAUNCHES), comm.snapshot()
         graph = torch.cuda.CUDAGraph()
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode=self.capture_error_mode):
                 captured = fn(**static)
             launches = {name: build.LAUNCHES[name] - before[name] for name in before}
+            collectives = comm.since(comm_before)
         finally:
             build.LAUNCHES.update(before)  # a capture launches nothing
-        self._graphs[full] = _StepGraph(graph, static, tensors, sp, pa, captured, launches)
+            comm.restore(comm_before)
+        self._graphs[full] = _StepGraph(graph, static, tensors, sp, pa, captured, launches,
+                                        collectives)
         self.step_traces[full[0]] += 1
         return out
 
@@ -174,6 +194,25 @@ class LocalExecutor(Executor):
         if active is None:
             return torch.ones((batch,), dtype=torch.bool, device=self.device)
         return self._host(active, torch.bool)
+
+    # ---- the multi-GPU executor's hooks: the identity on one device --------
+
+    def _step_pa(self, pa):
+        """The plan arrays a step reads (a mesh rank: its slots' views)."""
+        return pa
+
+    def _step_kw(self) -> dict:
+        """Extra keyword arguments of the serving steps (a mesh rank's)."""
+        return {}
+
+    def _rows(self, batch: int):
+        """(this process's rows of a ``batch``-row state, their global ids
+        for the owner rule, None for arange)."""
+        return slice(None), None
+
+    def _gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """A step output over this process's rows → over every row."""
+        return x
 
     # ---- StepFns -----------------------------------------------------------
 
@@ -214,6 +253,7 @@ class LocalExecutor(Executor):
 
     def _prefill_chunk(self, sp, tokens, pa, state, rows, start, valid, quota,
                        head_importance):
+        lpa, kw = self._step_pa(pa), self._step_kw()
         inputs = {"tokens": self._host(tokens, torch.int64),
                   "rows": self._host(rows, torch.int64),
                   "start": self._host(start, torch.int32),
@@ -236,9 +276,9 @@ class LocalExecutor(Executor):
                 _serve.copy_state_(sub, state)
 
         def fn(tokens, rows, start, valid, quota, head_importance=None):
-            new, logits, lens = _serve.prefill_chunk(sp, tokens, self.cfg, pa, self.ccfg,
+            new, logits, lens = _serve.prefill_chunk(sp, tokens, self.cfg, lpa, self.ccfg,
                                                      sub, rows, start, valid, quota,
-                                                     head_importance=head_importance)
+                                                     head_importance=head_importance, **kw)
             sub.last_tokens.copy_(new.last_tokens)
             return logits, lens
 
@@ -251,13 +291,16 @@ class LocalExecutor(Executor):
     def _decode(self, sp, state, pa, tokens, active):
         if tokens is not None and tokens is not state.last_tokens:
             state.last_tokens.copy_(self._host(tokens, state.last_tokens.dtype))
+        r, rows = self._rows(state.last_tokens.shape[0])
+        lpa, kw = self._step_pa(pa), self._step_kw()
 
         def fn(active):
-            new, logits = _serve.decode_step(sp, state, self.cfg, pa, self.ccfg,
-                                             tokens=state.last_tokens, active=active,
-                                             kv_kinds=self.kv_kinds, phase=self.phase)
-            state.last_tokens.copy_(new.last_tokens)
-            return (logits,)
+            new, logits = _serve.decode_step(sp, state, self.cfg, lpa, self.ccfg,
+                                             tokens=state.last_tokens[r], active=active[r],
+                                             kv_kinds=self.kv_kinds, phase=self.phase,
+                                             rows=rows, **kw)
+            state.last_tokens.copy_(self._gather_rows(new.last_tokens))
+            return (self._gather_rows(logits),)
 
         self.phase.fill_(state.decode_steps)
         inputs = {"active": self._active(active, state.last_tokens.shape[0])}
@@ -266,12 +309,17 @@ class LocalExecutor(Executor):
                                   decode_steps=state.decode_steps + 1), logits)
 
     def _propose(self, sp, state, pa, depths, active, draft_layers, max_k):
+        r, rows = self._rows(state.last_tokens.shape[0])
+        lpa, kw = self._step_pa(pa), self._step_kw()
+        view = _serve.ServeState(cache=state.cache, last_tokens=state.last_tokens[r],
+                                 decode_steps=state.decode_steps)
+
         def fn(depths, active):
-            _, props = _serve.propose_step(sp, state, self.cfg, pa, self.ccfg, depths,
-                                           active=active, kv_kinds=self.kv_kinds,
+            _, props = _serve.propose_step(sp, view, self.cfg, lpa, self.ccfg, depths[r],
+                                           active=active[r], kv_kinds=self.kv_kinds,
                                            draft_layers=draft_layers, max_k=max_k,
-                                           phase=self.phase)
-            return (props,)
+                                           phase=self.phase, rows=rows, **kw)
+            return (self._gather_rows(props),)
 
         self.phase.fill_(state.decode_steps)
         inputs = {"depths": self._host(depths, torch.int64),
@@ -282,12 +330,18 @@ class LocalExecutor(Executor):
                                   decode_steps=state.decode_steps), props)
 
     def _verify(self, sp, state, pa, tokens, q_lens, active, draft_layers):
+        r, rows = self._rows(state.last_tokens.shape[0])
+        lpa, kw = self._step_pa(pa), self._step_kw()
+        view = _serve.ServeState(cache=state.cache, last_tokens=state.last_tokens[r],
+                                 decode_steps=state.decode_steps)
+
         def fn(tokens, q_lens, active):
             new, g, n_commit, logits = _serve.verify_step(
-                sp, state, self.cfg, pa, self.ccfg, tokens, q_lens, active=active,
-                kv_kinds=self.kv_kinds, draft_layers=draft_layers, phase=self.phase)
-            state.last_tokens.copy_(new.last_tokens)
-            return g, n_commit, logits
+                sp, view, self.cfg, lpa, self.ccfg, tokens[r], q_lens[r], active=active[r],
+                kv_kinds=self.kv_kinds, draft_layers=draft_layers, phase=self.phase,
+                rows=rows, **kw)
+            state.last_tokens.copy_(self._gather_rows(new.last_tokens))
+            return tuple(self._gather_rows(x) for x in (g, n_commit, logits))
 
         self.phase.fill_(state.decode_steps)
         inputs = {"tokens": self._host(tokens, torch.int64),

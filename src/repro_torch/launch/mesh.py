@@ -1,0 +1,214 @@
+"""The (data, model) process mesh of the multi-GPU executor (port of
+``repro.launch.mesh``).
+
+The reference drives every device from one process (``shard_map`` over a
+``jax.make_mesh``).  The port runs one process per rank, as ``torchrun``
+does: every rank runs the same engine, scheduler and planner on the same
+host data, and only the device tensors are sharded.  Rank ``r`` of a
+``model * data`` world sits at ``(data_idx, model_idx) = divmod(r, model)``,
+the reference's device order; its ``model`` group holds the ranks of its
+data index (the slot dim splits over them), its ``data`` group the ranks of
+its model index (batch rows split over them).  Pool partition ``p =
+model_idx * data + data_idx`` lives on the rank, as in the reference.
+
+Backends: ``"nccl"`` with one rank per card (``cuda:{LOCAL_RANK}``);
+``"gloo"`` on the CPU, or with CUDA tensors when a device is asked for by
+name (several ranks sharing one card; gloo takes the CUDA tensors and
+copies them through host memory itself).  No fallback: a mesh
+without an initialised process group, a world of another size, or NCCL
+with more ranks than cards raises.
+
+`spawn` starts the ranks of a mesh on this host with ``torch.multiprocessing``
+and a ``file://`` rendezvous (no port to clash on), runs ``fn(mesh, *args)``
+in each and returns their results in rank order.
+"""
+from __future__ import annotations
+
+import os
+import pickle
+import tempfile
+import time
+from dataclasses import dataclass
+from typing import Any, Callable, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import comm
+
+
+@dataclass(frozen=True)
+class Group:
+    """One axis of the mesh as seen from this rank."""
+
+    pg: Any  # the torch.distributed process group
+    name: str  # "model" | "data"
+    size: int
+    rank: int  # this process's index in the group
+    backend: str
+
+
+@dataclass(frozen=True)
+class Mesh:
+    rank: int
+    world: int
+    model: int  # model-axis size: the slot dim splits over it
+    data: int  # data-axis size: batch rows split over it
+    model_idx: int
+    data_idx: int
+    model_group: Group
+    data_group: Group
+    device: torch.device
+    backend: str
+
+    @property
+    def part(self) -> int:
+        """This rank's pool partition (model-major, as the reference's)."""
+        return self.model_idx * self.data + self.data_idx
+
+    def slots(self, n_slots: int) -> slice:
+        """This rank's slots of an ``n_slots`` grid."""
+        if n_slots % self.model:
+            raise ValueError(
+                f"{n_slots} slots do not split over model={self.model}; plan "
+                f"with n_shards (or slots_per_shard) a multiple of the model size")
+        k = n_slots // self.model
+        return slice(self.model_idx * k, (self.model_idx + 1) * k)
+
+    def rows(self, n_rows: int) -> slice:
+        """This rank's rows of an ``n_rows`` batch."""
+        if n_rows % self.data:
+            raise ValueError(
+                f"batch {n_rows} does not split over data={self.data}; size the "
+                f"batch (scheduler max_rows / generate batch) as a multiple of it")
+        k = n_rows // self.data
+        return slice(self.data_idx * k, (self.data_idx + 1) * k)
+
+    def host_lengths(self, lengths: torch.Tensor, rows: bool = True) -> np.ndarray:
+        """A sharded (L, S/model, B[/data]) lengths tensor as the global
+        (L, S, B) numpy array, the same on every rank (every rank must call
+        it at the same point).  ``rows=False``: the rows are not split (a
+        prefill's sub-state)."""
+        full = comm.all_gather(lengths, self.model_group, dim=1)
+        if rows:
+            full = comm.all_gather(full, self.data_group, dim=2)
+        return full.cpu().numpy()
+
+    def sum_over(self, values: Sequence[float], rows: bool = True) -> List[float]:
+        """Host scalars summed over the model group (and the data group when
+        ``rows``): a metric computed from one rank's shard, made global."""
+        t = torch.as_tensor(np.asarray(values, np.float64), device=self.device)
+        comm.all_reduce_sum(t, self.model_group)
+        if rows:
+            comm.all_reduce_sum(t, self.data_group)
+        return t.cpu().tolist()
+
+
+def make_host_mesh(model: int = 1, data: int = 1, device=None) -> Mesh:
+    """The mesh over the initialised default process group, which must hold
+    exactly ``model * data`` ranks.  ``device``: the tensors' device under
+    gloo (default the CPU; ``"cuda"`` / ``"cuda:N"`` to share a card);
+    NCCL ranks take ``cuda:{LOCAL_RANK}`` and may not name another."""
+    if model < 1 or data < 1:
+        raise ValueError(f"mesh sizes must be >= 1, got model={model}, data={data}")
+    if not dist.is_available() or not dist.is_initialized():
+        raise ValueError(
+            f"make_host_mesh(model={model}, data={data}) needs an initialised "
+            f"torch.distributed process group of {model * data} ranks: start the "
+            f"ranks with repro_torch.launch.mesh.spawn or torchrun")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if model * data != world:
+        raise ValueError(
+            f"requested mesh (data={data}, model={model}) = {model * data} ranks, "
+            f"but the process group holds {world}; start exactly model * data ranks")
+    backend = str(dist.get_backend())
+    if backend == "nccl":
+        n_cards = torch.cuda.device_count()
+        if world > n_cards:
+            raise ValueError(
+                f"nccl needs one card per rank: {world} ranks, {n_cards} cards "
+                f"(gloo with device='cuda' shares one card between ranks)")
+        local = int(os.environ.get("LOCAL_RANK", rank % n_cards))
+        dev = torch.device("cuda", local)
+        if device is not None and torch.device(device) != dev:
+            raise ValueError(f"an nccl rank runs on {dev}, not {device}")
+        torch.cuda.set_device(dev)
+    elif backend == "gloo":
+        dev = torch.device(device or "cpu")
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise ValueError(f"device {device!r} asked for, but CUDA is not available")
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
+            torch.cuda.set_device(dev)
+    else:
+        raise ValueError(f"unsupported process-group backend {backend!r} (nccl or gloo)")
+    data_idx, model_idx = divmod(rank, model)
+    model_group = data_group = None
+    # every rank creates every group, in the same order
+    for d in range(data):
+        pg = dist.new_group([d * model + m for m in range(model)])
+        if d == data_idx:
+            model_group = Group(pg, "model", model, model_idx, backend)
+    for m in range(model):
+        pg = dist.new_group([d * model + m for d in range(data)])
+        if m == model_idx:
+            data_group = Group(pg, "data", data, data_idx, backend)
+    return Mesh(rank=rank, world=world, model=model, data=data, model_idx=model_idx,
+                data_idx=data_idx, model_group=model_group, data_group=data_group,
+                device=dev, backend=backend)
+
+
+def _rank_main(rank: int, fn, args, model: int, data: int, backend: str,
+               init_file: str, device) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group(backend, init_method=f"file://{init_file}", rank=rank,
+                            world_size=model * data)
+    try:
+        out = fn(make_host_mesh(model=model, data=data, device=device), *args)
+        with open(f"{init_file}.rank{rank}", "wb") as f:
+            pickle.dump(out, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn(fn: Callable, model: int = 1, data: int = 1, backend: str = "gloo",
+          init_file: Optional[str] = None, device=None, args: tuple = (),
+          timeout: float = 600.0) -> List[Any]:
+    """Run ``fn(mesh, *args)`` on ``model * data`` new processes, one per
+    rank, and return their (picklable) results in rank order.
+
+    ``fn`` must be importable by name (a module-level function); the ranks
+    meet through ``init_file`` (``file://`` rendezvous; a fresh path in a
+    new temporary directory by default; it must not exist yet).  Each rank
+    uses one CPU thread.  A rank that raises fails the call with
+    its traceback; past ``timeout`` seconds every rank is killed and
+    ``TimeoutError`` raised."""
+    import torch.multiprocessing as mp
+
+    world = model * data
+    if backend == "nccl" and world > torch.cuda.device_count():
+        raise ValueError(
+            f"nccl needs one card per rank: {world} ranks, "
+            f"{torch.cuda.device_count()} cards")
+    if init_file is None:
+        init_file = os.path.join(tempfile.mkdtemp(prefix="mesh-"), "rendezvous")
+    ctx = mp.start_processes(_rank_main, args=(fn, args, model, data, backend, init_file,
+                                               device),
+                             nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + timeout
+    try:
+        while not ctx.join(timeout=max(0.1, min(5.0, deadline - time.monotonic()))):
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"mesh ranks still running after {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    out = []
+    for r in range(world):
+        with open(f"{init_file}.rank{r}", "rb") as f:
+            out.append(pickle.load(f))
+    return out

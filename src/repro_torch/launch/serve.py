@@ -34,16 +34,28 @@ Everything runs on the card (``--device cuda``, the default) unless
 ``frontend`` section included) as the base configuration; explicitly typed
 flags override it.
 
-Refused, each with the ROADMAP item that brings it: the multi-GPU executor
-(``--executor mesh``, ``--data``: A.10), the other model families (any
-``--arch`` but minitron-8b: A.11) and ``--paged-impl`` (the port picks the
-paged decode implementation by device, on purpose).
+``--executor mesh`` runs the multi-GPU executor: one process per rank,
+started by ``torchrun``, on a (data, model) mesh with the model axis taken
+from ``--shards`` and the data axis from ``--data``, so ``WORLD_SIZE`` must
+equal ``shards * data``.  The ranks meet through torchrun's environment
+(``nccl`` with one card per rank on ``--device cuda``, ``gloo`` on
+``--device cpu``); only rank 0 prints and writes the exports, and after
+the run it prints the decode step's collectives (the reference's audit
+line: one all-reduce over ``model`` per attention layer, no all-gather)::
+
+    torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
+        --arch minitron-8b --smoke --device cpu --executor mesh --shards 2
+
+Refused, each with the ROADMAP item that brings it: the other model
+families (any ``--arch`` but minitron-8b: A.11) and ``--paged-impl`` (the
+port picks the paged decode implementation by device, on purpose).
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import json
+import os
 import sys
 from typing import Optional, Sequence
 
@@ -73,7 +85,6 @@ from repro_torch.training.data import SyntheticLM
 
 # flags of the reference's CLI the port refuses, with the reason
 _REFUSED = {
-    "data": "the multi-GPU executor (data axis) is ROADMAP Queue A.10",
     "paged_impl": ("the port picks the paged decode implementation by device "
                    "(the CUDA kernel on the card, the plain version on the CPU); "
                    "the knob is not ported, on purpose"),
@@ -185,8 +196,56 @@ def _engine_config_from_file(args, max_seq_len: int, batch_cap: int,
     return cfg
 
 
+def _mesh(args):
+    """The (data, model) mesh of ``--executor mesh`` (model = ``--shards``),
+    over the process group torchrun's environment describes; None for the
+    local executor."""
+    if args.executor != "mesh":
+        return None
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+    if not dist.is_initialized():
+        dist.init_process_group("gloo" if args.device == "cpu" else "nccl",
+                                init_method="env://")
+    return make_host_mesh(model=args.shards, data=args.data,
+                          device="cpu" if args.device == "cpu" else None)
+
+
+def _build_engine(args, ecfg: EngineConfig) -> Engine:
+    """The engine on the configured executor (mesh: this rank's)."""
+    return Engine.build(ecfg, mesh=_mesh(args))
+
+
+def _collective_audit(eng: Engine) -> None:
+    """Print the decode step's collectives per rank (mesh only): one idle
+    decode step (no row appends) under the collective counter.  The
+    contract made visible: one all-reduce over ``model`` per attention
+    layer and no all-gather; weight gathers belong to prefill."""
+    if eng.cfg.executor != "mesh":
+        return
+    import torch
+
+    sched = eng.scheduler if eng._mode == "continuous" else None
+    sp, pa = (sched.sp, sched.pa) if sched is not None else (eng.sp, eng.pa)
+    state = sched.state if sched is not None else eng.state
+    idle = torch.zeros(state.last_tokens.shape, dtype=torch.bool, device=eng.device)
+    with torch.inference_mode():
+        _, stats = eng.executor.decode_collectives(sp, state, pa, active=idle)
+    parts = [f"{group} {kind} x{v['calls']} ({v['bytes'] / 1e3:.1f} kB)"
+             for group in ("model", "data") for kind, v in sorted(stats.get(group, {}).items())]
+    n_ar = stats.get("model", {}).get("all_reduce", {}).get("calls", 0)
+    n_ag = stats.get("model", {}).get("all_gather", {}).get("calls", 0)
+    print(f"decode step collectives/rank: {', '.join(parts) or 'none'} | "
+          f"{n_ar} all-reduce over model for {eng.cfg.model.n_layers} layers, "
+          f"{n_ag} all-gather over model")
+
+
 def _export_obs(eng: Engine, args) -> None:
-    """Write the Prometheus / Chrome-trace exports when paths were given."""
+    """Write the Prometheus / Chrome-trace exports when paths were given.  On
+    a mesh only rank 0 writes: each rank's registry is its own."""
+    if eng.mesh is not None and eng.mesh.rank != 0:
+        return
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             f.write(eng.metrics_prometheus())
@@ -253,7 +312,7 @@ def run_continuous(args) -> None:
     max_prompt = max(min_prompt, args.max_prompt)
     scfg = _scheduler_config(args)
     ecfg = _engine_config(args, max_prompt + args.gen + 8, args.rows, scfg)
-    eng = Engine.build(ecfg)
+    eng = _build_engine(args, ecfg)
     reqs = synthesize_requests(args.requests, args.rate, ecfg.model.vocab_size,
                                min_prompt=min_prompt, max_prompt=max_prompt,
                                max_new_tokens=args.gen, seed=args.seed, **tkw)
@@ -267,6 +326,7 @@ def run_continuous(args) -> None:
         restore()
         # a drained (signalled) run still writes its exports
         _export_obs(eng, args)
+    _collective_audit(eng)
     for r in eng.finished_requests:
         if r.admit_step is None:  # shed by a drain before admission
             continue
@@ -346,7 +406,7 @@ def run_http(args) -> None:
     ecfg = _engine_config(args, max_prompt + args.gen + 8, args.rows,
                           _scheduler_config(args))
     fcfg = _frontend_config(args, ecfg)
-    eng = Engine.build(ecfg.replace(frontend=fcfg))
+    eng = _build_engine(args, ecfg.replace(frontend=fcfg))
 
     async def _main() -> None:
         server = FrontendServer(eng, fcfg)
@@ -379,7 +439,7 @@ def run_http(args) -> None:
 def run_oneshot(args) -> None:
     """Fixed-batch serve: one prefill + ``--gen`` decode steps."""
     ecfg = _engine_config(args, args.prompt_len + args.gen + 8, args.batch)
-    eng = Engine.build(ecfg)
+    eng = _build_engine(args, ecfg)
     data = SyntheticLM(ecfg.model, InputShape("cli", args.prompt_len, args.batch,
                                               "prefill"))
     res = eng.generate(data.get_batch(0)["tokens"], args.gen, collect_logits=False)
@@ -397,6 +457,7 @@ def run_oneshot(args) -> None:
         print(f"paged cache: {pool.cache_bytes} B in {pool.blocks_in_use} "
               f"blocks vs slot-equivalent {pool.slot_equivalent_bytes} B")
     _export_obs(eng, args)
+    _collective_audit(eng)
     for b in range(min(args.batch, 2)):
         print(f"row {b}: {res.tokens[b].tolist()}")
 
@@ -469,7 +530,11 @@ def build_parser() -> argparse.ArgumentParser:
     # --- executor --------------------------------------------------------------
     ap.add_argument("--executor", default="local",
                     help=f"device execution strategy; registered: "
-                         f"{list_executors()} ('mesh' is ROADMAP Queue A.10)")
+                         f"{list_executors()} ('mesh': one process per rank "
+                         f"under torchrun, model axis = --shards)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="--executor mesh: data-axis size (batch rows split over "
+                         "it); WORLD_SIZE must be shards * data")
     # --- continuous batching -------------------------------------------------
     ap.add_argument("--continuous", action="store_true",
                     help="run the continuous-batching scheduler on a Poisson "
@@ -517,8 +582,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="DRR banked-deficit cap per tenant (tokens)")
     # --- the reference's flags the port refuses (see _REFUSED) ---------------
     refused = ap.add_argument_group("not ported (refused with the ROADMAP item)")
-    for flag in ("--data", "--paged-impl"):
-        refused.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    refused.add_argument("--paged-impl", default=None, help=argparse.SUPPRESS)
     return ap
 
 
@@ -541,9 +605,24 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     for dest, why in _REFUSED.items():
         if dest in args._explicit:
             ap.error(f"--{dest.replace('_', '-')} is not supported: {why}")
+    if args.executor != "mesh" and "data" in args._explicit:
+        ap.error("--data sizes the mesh's data axis: it needs --executor mesh")
     if args.executor == "mesh":
-        ap.error("--executor mesh is not supported: the multi-GPU executor is "
-                 "ROADMAP Queue A.10")
+        world = os.environ.get("WORLD_SIZE")
+        if world is None:
+            ap.error(f"--executor mesh needs a process group of shards * data = "
+                     f"{args.shards * args.data} ranks: launch with torchrun "
+                     f"--nproc-per-node {args.shards * args.data} -m "
+                     f"repro_torch.launch.serve ...")
+        if args.http:
+            ap.error("--http serves from one process; a mesh needs every rank to see "
+                     "the same requests, which the front end does not do: drop --http "
+                     "or --executor mesh")
+        if int(world) != args.shards * args.data:
+            ap.error(f"WORLD_SIZE={world} but the mesh needs shards * data = "
+                     f"{args.shards * args.data} ranks")
+        if int(os.environ.get("RANK", "0")) != 0:
+            sys.stdout = open(os.devnull, "w")  # rank 0 prints and exports
     if not args.arch and not args.config:
         ap.error("one of --arch or --config is required")
     if args.arch and args.arch not in list_archs():

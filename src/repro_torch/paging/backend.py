@@ -32,18 +32,27 @@ records the codec's error on the admitted sub-cache (``kv_quant_rel_err``,
 the pool gauges, ``cache_live_tokens`` and ``kv_bytes_per_token``: all on
 the host between steps, outside every captured graph.
 
-Not ported yet: pool partitions for the multi-GPU executor.
+Pool partitions (the multi-GPU executor): with ``pool_partitions`` x
+``row_partitions`` > 1 each layer's pool splits into one partition per
+(model shard, data shard) pair with its own free list, and a (slot, row)
+pair's blocks come from its shard's partition (`build_table`,
+`prepare_decode`).  The host mirror keeps global ids and is identical on
+every rank; on a mesh (``mesh``) a rank holds only its partition of the
+pool and its (slots, rows) corner of the device table, writes through ids
+made local to its partition, and reads lengths through `host_lengths`.
+Admission is gated on the worst partition, so one full shard refuses a
+request while the pool has room elsewhere.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.api.registry import register_cache_backend
-from repro_torch.cache.slot_cache import PlanArrays
-from repro_torch.cache.slot_cache import migrate_cache as migrate_slot_cache
+from repro_torch.cache.slot_cache import PlanArrays, take_rows
 from repro_torch.compression.policies import layer_keep_bound
 from repro_torch.paging import kvquant
 from repro_torch.paging.block_pool import BlockPool
@@ -59,7 +68,7 @@ from repro_torch.paging.paged_cache import (
     reset_cache,
 )
 from repro_torch.serving import engine as _serve
-from repro_torch.serving.cache_backend import CacheBackend
+from repro_torch.serving.cache_backend import CacheBackend, migrate_slots
 
 
 def _owner_mask_np(pa: PlanArrays, rows: np.ndarray) -> np.ndarray:
@@ -110,22 +119,63 @@ class PagedBackend(CacheBackend):
             return None
         return kvquant.slot_kinds(self.kv_kinds, pa.slot_head.cpu().numpy())
 
+    @property
+    def partitions(self) -> Tuple[int, int]:
+        """(slot parts, row parts) of the pool split."""
+        return (self.pool_partitions, self.row_partitions)
+
+    def _offset(self) -> int:
+        """Global id of this process's partition's block 0."""
+        return 0 if self.mesh is None else self.mesh.part * self.pool.part_size
+
+    def _local_ids(self, table: np.ndarray) -> np.ndarray:
+        """Global block ids → ids into the pool this process holds (0 stays
+        the null block)."""
+        off = self._offset()
+        return table if off == 0 else np.where(table > 0, table - off, 0).astype(np.int32)
+
+    def _mine(self) -> Tuple[slice, slice]:
+        """(slots, rows) of the mirror whose device table this process holds."""
+        return self._shard(self.table.shape[1], self.table.shape[2])
+
     def _sync_table(self, cache: PagedCache) -> None:
         """Rebuild the device table from the host mirror."""
-        cache.block_table.copy_(torch.from_numpy(self.table))
+        sl, rl = self._mine()
+        cache.block_table.copy_(torch.from_numpy(np.ascontiguousarray(self.table[:, sl, rl])))
+
+    def _paginate(self, cache: PagedCache, sub, rows, table: np.ndarray,
+                  table_write: Optional[np.ndarray] = None) -> None:
+        """Copy the sub-cache rows bound for ``rows`` (global ids) into
+        their blocks through ``table`` (L, S, len(rows), M): on a mesh only
+        this process's slots and rows, written through local ids while the
+        stored table keeps the global ones.  ``table_write``: the write
+        addressing when it differs (a shared-prefix splice)."""
+        sel, loc = self._local_rows(rows)
+        if sel.size == 0:
+            return
+        sl = self._mine()[0]
+        if sel.size != len(rows):
+            sub = take_rows(sub, sel)
+        store = table[:, sl][:, :, sel]
+        write = store if table_write is None else table_write[:, sl][:, :, sel]
+        kinds = self._slot_kinds(self.pa)
+        paginate_rows(cache, sub, loc, self._local_ids(write),
+                      kinds=None if kinds is None else kinds[:, sl], table_store=store)
 
     # ---- state lifecycle ---------------------------------------------------
 
     def init_state(self, pa, batch, dtype):
         self.pa = pa
+        self.n_rows = int(batch)
         self.model_dtype = dtype
         dev = pa.slot_head.device
+        S = int(pa.slot_head.shape[1])
         cache, self.pool = init_paged_cache(
-            self.cfg.n_layers, int(pa.slot_head.shape[1]), batch,
-            self.capacity, self.cfg.head_dim, self.paging, dtype=dtype,
-            kv_quant=self.kv_quant, device=dev)
+            self.cfg.n_layers, S, batch, self.capacity, self.cfg.head_dim, self.paging,
+            dtype=dtype, partitions=self.partitions, kv_quant=self.kv_quant, device=dev,
+            shard=None if self.mesh is None else (self.mesh.model_idx, self.mesh.data_idx))
         self.pool.obs = self.obs  # alloc / free / exhaustion counters
-        self.table = np.zeros(tuple(cache.block_table.shape), np.int32)
+        self.table = np.zeros((self.cfg.n_layers, S, batch, self.max_blocks), np.int32)
         self._pending_scale_reset.clear()
         self._pending_cow.clear()
         self._table_stale = False
@@ -134,18 +184,21 @@ class PagedBackend(CacheBackend):
 
     def from_prefill(self, state, pa):
         """One-shot adoption: re-house a full-batch slot prefill in blocks
-        sized to its realized lengths (all rows live)."""
+        sized to its realized lengths (all rows live).  On a mesh the state
+        holds this rank's slots and rows (`Executor.shard_state`)."""
         slot = state.cache
-        L, S, B, C, Dh = slot.k.shape
+        C = slot.k.shape[3]
         if C != self.capacity:
             raise ValueError(f"prefill capacity {C} != backend capacity "
                              f"{self.capacity}")
+        B = int(state.last_tokens.shape[0])
+        lengths = self.host_lengths(state)
         empty = self.init_state(pa, B, slot.k.dtype)  # fresh pool + mirror
         own = _owner_mask_np(pa, np.arange(B))
-        self.table = build_table(slot.lengths.cpu().numpy(), self.pool,
-                                 self.block_size, self.max_blocks, own=own)
-        paginate_rows(empty.cache, slot, np.arange(B), self.table,
-                      kinds=self._slot_kinds(pa))
+        self.table = build_table(lengths, self.pool, self.block_size, self.max_blocks,
+                                 own=own, partitions=self.partitions, n_rows=B)
+        rl = self._mine()[1]
+        self._paginate(empty.cache, slot, np.arange(rl.start, rl.stop), self.table[:, :, rl])
         self._observe_quant_error(slot)
         state.cache = empty.cache
         return state
@@ -165,19 +218,19 @@ class PagedBackend(CacheBackend):
         """
         rows_np = np.asarray(rows, np.int64)  # retired rows: no blocks held
         own = _owner_mask_np(self.pa, rows_np)
-        lengths = sub.cache.lengths.cpu().numpy()
-        kinds = self._slot_kinds(self.pa)
+        lengths = self.host_lengths(sub, rows=False)  # the sub-state's rows are whole
+        place = dict(partitions=self.partitions, rows=rows_np, n_rows=self.n_rows)
         if shared_blocks is None:
             table_sub = build_table(lengths, self.pool, self.block_size,
-                                    self.max_blocks, own=own)
+                                    self.max_blocks, own=own, **place)
             self.table[:, :, rows_np, :] = table_sub
-            paginate_rows(state.cache, sub.cache, rows_np, table_sub, kinds=kinds)
-            self._observe_quant_error(sub.cache)
+            self._paginate(state.cache, sub.cache, rows_np, table_sub)
+            self._observe_quant_error(sub.cache, rows=False)
             return _serve.set_row_tokens(state, rows_np, sub.last_tokens)
         shared = np.asarray(shared_blocks, np.int32)
         n_sh = (shared > 0).sum(axis=-1)  # (L, S, R) shared full blocks
         fresh = build_table(np.maximum(lengths - n_sh * self.block_size, 0),
-                            self.pool, self.block_size, self.max_blocks, own=own)
+                            self.pool, self.block_size, self.max_blocks, own=own, **place)
         L, S, R, M = fresh.shape
         for layer in range(L):
             ids = shared[layer][shared[layer] > 0]
@@ -195,25 +248,31 @@ class PagedBackend(CacheBackend):
         self.table[:, :, rows_np, :] = table_full
         col = np.arange(M)[None, None, None, :]
         table_write = np.where(col < n_sh[..., None], 0, table_full)
-        paginate_rows(state.cache, sub.cache, rows_np, table_write, kinds=kinds,
-                      table_store=table_full)
-        self._observe_quant_error(sub.cache)
+        self._paginate(state.cache, sub.cache, rows_np, table_full, table_write=table_write)
+        self._observe_quant_error(sub.cache, rows=False)
         return _serve.set_row_tokens(state, rows_np, sub.last_tokens)
 
-    def _observe_quant_error(self, slot) -> None:
+    def _observe_quant_error(self, slot, rows: bool = True) -> None:
         """Quantization-error observation: roundtrip the admitted slot-layout
         sub-cache through the codec and record the relative error.  Only
         with obs on and int8 / fp8 pools (it costs a second encode pass and
-        a sync); it reads the sub-cache and writes nothing."""
+        a sync); it reads the sub-cache and writes nothing.  On a mesh the
+        sums are this rank's slots (and rows, when ``rows``) summed over
+        the mesh, the same on every rank."""
         if self.kv_kinds is None or not self.obs.enabled:
             return
-        kinds = torch.as_tensor(self._slot_kinds(self.pa),
+        sl = self._mine()[0]
+        kinds = torch.as_tensor(self._slot_kinds(self.pa)[:, sl],
                                 device=slot.k.device)[:, :, None, None]
         err_k, den_k = kvquant.roundtrip_error(slot.k, slot.pos, self.block_size, kinds)
         err_v, den_v = kvquant.roundtrip_error(slot.v, slot.pos, self.block_size, kinds)
+        tokens = float(slot.lengths.sum())
+        if self.mesh is not None:
+            err_k, den_k, err_v, den_v, tokens = self.mesh.sum_over(
+                [err_k, den_k, err_v, den_v, tokens], rows=rows)
         self.obs.metrics.counter(
             "kv_quant_tokens_total",
-            help="KV tokens quantized into the paged pools").inc(int(slot.lengths.sum()))
+            help="KV tokens quantized into the paged pools").inc(int(tokens))
         self.obs.metrics.gauge(
             "kv_quant_rel_err",
             help="mean relative KV quantization error over the last "
@@ -225,7 +284,9 @@ class PagedBackend(CacheBackend):
         self.pool.free_table(
             self.table[:, :, rows_np, :].reshape(self.table.shape[0], -1))
         self.table[:, :, rows_np, :] = 0
-        release_rows(state.cache, rows_np)
+        sel, loc = self._local_rows(rows_np)
+        if sel.size:
+            release_rows(state.cache, loc)
         return _serve.set_row_tokens(state, rows_np)
 
     def prepare_decode(self, state, active, n_tokens: int = 1):
@@ -253,10 +314,10 @@ class PagedBackend(CacheBackend):
         if n_tokens < 1:
             raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
         cache = state.cache
-        B = cache.positions.shape[0]
+        B = self.table.shape[2]
         rows = np.arange(B) if active is None else np.asarray(list(active), np.int64)
         if rows.size:
-            lens = cache.lengths.cpu().numpy()[:, :, rows]  # (L, S, R)
+            lens = self.host_lengths(state)[:, :, rows]  # (L, S, R)
             own = _owner_mask_np(self.pa, rows)
             blk = self._next_write_blocks(state, lens)  # (L, S, R)
             if int(self.pool.refcount.max()) > 1:
@@ -266,19 +327,28 @@ class PagedBackend(CacheBackend):
             end = np.minimum(lens + n_tokens, self.capacity)  # exclusive
             need = np.where(growing, (end - 1) // self.block_size + 1, have)
             missing = np.maximum(need - have, 0)
-            for layer in range(self.table.shape[0]):
-                n = int(missing[layer].sum())
-                if n == 0:
-                    continue
-                ids = self.pool.alloc(layer, n)
-                self._table_stale = True
-                if self.kv_kinds is not None:
-                    self._pending_scale_reset.append((layer, list(ids)))
-                at = 0
-                for s, c in zip(*np.nonzero(missing[layer])):
-                    m, h = int(missing[layer, s, c]), int(have[layer, s, c])
-                    self.table[layer, s, rows[c], h:h + m] = ids[at:at + m]
-                    at += m
+            L, S = self.table.shape[:2]
+            slot_parts, row_parts = self.partitions
+            s_per, b_per = S // slot_parts, -(-B // row_parts)
+            for layer in range(L):
+                for sp in range(slot_parts):
+                    for rp in range(row_parts):
+                        cols = np.nonzero(rows // b_per == rp)[0]
+                        miss = missing[layer, sp * s_per:(sp + 1) * s_per][:, cols]
+                        n = int(miss.sum())
+                        if n == 0:
+                            continue
+                        ids = self.pool.alloc(layer, n, partition=sp * row_parts + rp)
+                        self._table_stale = True
+                        if self.kv_kinds is not None:
+                            self._pending_scale_reset.append((layer, list(ids)))
+                        hv = have[layer, sp * s_per:(sp + 1) * s_per][:, cols]
+                        at = 0
+                        for s, c in zip(*np.nonzero(miss)):
+                            m, h = int(miss[s, c]), int(hv[s, c])
+                            self.table[layer, sp * s_per + s, rows[cols[c]],
+                                       h:h + m] = ids[at:at + m]
+                            at += m
             if int(self.pool.refcount.max()) > 1:
                 # every owned next write must have been privatized above
                 tbl = self.table[:, :, rows, :]
@@ -317,7 +387,7 @@ class PagedBackend(CacheBackend):
         hit = own & (bid > 0) & (self.pool.refcount[l_ix, bid] > 1)
         for layer, s, r in zip(*np.nonzero(hit)):
             old = int(bid[layer, s, r])
-            new = int(self.pool.alloc(layer, 1)[0])
+            new = int(self.pool.alloc(layer, 1, partition=self.pool.partition_of(old))[0])
             self.pool.decref(layer, [old])
             self.table[layer, s, rows[r], int(blk[layer, s, r])] = new
             self._table_stale = True
@@ -334,14 +404,24 @@ class PagedBackend(CacheBackend):
         reused id appears as a destination only after every entry that
         reads it as a source, so no copy reads clobbered content.  A
         privatized block copies its codes and scales verbatim (never a
-        second quantization)."""
+        second quantization).  On a mesh each process applies the entries of
+        its own partition, through local ids."""
+        off = self._offset()
+        mine = (lambda b: True) if self.mesh is None else (
+            lambda b: self.pool.partition_of(b) == self.mesh.part)
         if self._pending_scale_reset:
             for layer, ids in self._pending_scale_reset:
+                ids = [b - off for b in ids if mine(b)]
+                if not ids:
+                    continue
                 idx = torch.as_tensor(ids, device=cache.k_scale.device)
                 cache.k_scale[layer, idx] = 0.0
                 cache.v_scale[layer, idx] = 0.0
             self._pending_scale_reset.clear()
         for layer, old, new in self._pending_cow:
+            if not mine(new):
+                continue
+            old, new = old - off, new - off
             cache.k_pool[layer, new] = cache.k_pool[layer, old]
             cache.v_pool[layer, new] = cache.v_pool[layer, old]
             cache.pos_pool[layer, new] = cache.pos_pool[layer, old]
@@ -366,7 +446,7 @@ class PagedBackend(CacheBackend):
         if rows_np.size == 0:
             return state
         cache = state.cache
-        lens = cache.lengths.cpu().numpy()[:, :, rows_np]  # (L, S, R)
+        lens = self.host_lengths(state)[:, :, rows_np]  # (L, S, R)
         keep = -(-lens // self.block_size)  # ceil: blocks still covered
         tbl = self.table[:, :, rows_np, :]  # (L, S, R, M)
         past = np.arange(tbl.shape[-1])[None, None, None, :] >= keep[..., None]
@@ -378,41 +458,68 @@ class PagedBackend(CacheBackend):
         self._sync_table(cache)  # the mirror changed: the device table follows
         return state
 
+    def rollback_rows(self, state, back):
+        """Take the newest ``k`` entries of each row of ``back`` ({global
+        row: k}) back out of the cache: the row's owned (layer, slot)
+        lengths and its position drop by ``k``.  A replay cuts a committed
+        speculative run so; `trim_rows` then frees the blocks past them."""
+        rows = np.asarray([r for r, k in back.items() if k > 0], np.int64)
+        sel, loc = self._local_rows(rows)
+        if sel.size == 0:
+            return state
+        k = np.asarray([back[int(r)] for r in rows[sel]], np.int32)
+        own = _owner_mask_np(self.pa, rows[sel])[:, self._mine()[0]]  # (L, S, R)
+        cache = state.cache
+        dev = cache.lengths.device
+        idx = torch.as_tensor(loc, device=dev)
+        cache.lengths[:, :, idx] -= torch.as_tensor((own * k).astype(np.int32), device=dev)
+        cache.positions[idx] -= torch.as_tensor(k, device=dev)
+        return state
+
     def migrate_cache(self, cache, old_pa, new_pa, active_rows=None):
         """Trial re-layout for a replan: materialize → migrate → allocate in
         a fresh trial allocator; the device re-pagination waits for
         ``commit`` (a rejected replan never pays it).  ``PoolExhausted``
         from the trial leaves the backend untouched."""
         # dequantized through the live scales, back in the model dtype, so
-        # the re-pagination quantizes from full precision values
-        slot = paged_to_slot(cache, self.capacity, kinds=self._slot_kinds(old_pa),
+        # the re-pagination quantizes from full precision values; a mesh
+        # rank reads its partition through local ids and its slots' kinds,
+        # and the migration gathers the slot dim over the model group
+        sl, rl = self._mine()
+        old_kinds = self._slot_kinds(old_pa)
+        view = cache if self.mesh is None else dataclasses.replace(
+            cache, block_table=torch.from_numpy(
+                self._local_ids(self.table[:, sl, rl])).to(cache.k_pool.device))
+        slot = paged_to_slot(view, self.capacity,
+                             kinds=None if old_kinds is None else old_kinds[:, sl],
                              out_dtype=self.model_dtype)
-        slot2 = migrate_slot_cache(slot, old_pa, new_pa)
-        B = int(cache.positions.shape[0])
+        slot2 = migrate_slots(slot, old_pa, new_pa, self.mesh)
+        lengths = self._host(slot2.lengths)
+        B = self.table.shape[2]
         rows = np.arange(B) if active_rows is None else np.asarray(
             list(active_rows), np.int64)
         own = np.zeros((self.table.shape[0], self.table.shape[1], B), bool)
         if rows.size:
             own[:, :, rows] = _owner_mask_np(new_pa, rows)
-        trial = BlockPool(self.pool.n_layers, self.pool.n_blocks)
+        trial = BlockPool(self.pool.n_layers, self.pool.n_blocks,
+                          n_partitions=self.pool.n_partitions)
         trial.obs = self.obs  # trial allocations are real allocator work
-        table = build_table(slot2.lengths.cpu().numpy(), trial, self.block_size,
-                            self.max_blocks, own=own)
+        table = build_table(lengths, trial, self.block_size, self.max_blocks, own=own,
+                            partitions=self.partitions, n_rows=B)
 
         def commit():
             # re-paginate into the live tensors, emptied as a fresh pool
             # would be: their addresses stay
             reset_cache(cache)
-            paginate_rows(cache, slot2, np.arange(B), table,
-                          kinds=self._slot_kinds(new_pa))
             trial.peak_in_use = max(trial.peak_in_use, self.pool.peak_in_use)
             self.pool, self.table, self.pa = trial, table, new_pa
+            self._paginate(cache, slot2, np.arange(rl.start, rl.stop), table[:, :, rl])
             self._pending_scale_reset.clear()
             self._pending_cow.clear()
             self._table_stale = False
             return cache
 
-        return slot2.lengths, commit
+        return torch.from_numpy(lengths), commit
 
     # ---- admission accounting ----------------------------------------------
 
@@ -435,6 +542,34 @@ class PagedBackend(CacheBackend):
                 out[layer] = tokens // bs + 2 * H  # rounding + 1 growth block/head
         return out
 
+    def _partition_need(self, prompt_len: int, max_new: int,
+                        worst_case: bool) -> np.ndarray:
+        """(L, slot parts) projected block need per (layer, model shard).
+
+        The per-layer token bound splits over the shards in proportion to
+        the plan's occupied slots there (replicas split rows, so a shard's
+        expected share of a request's tokens follows its share of occupied
+        slots); the per-slot growth and rounding slack is charged where the
+        slots sit.  So admission is per model shard: one shard's full
+        partition refuses a request while the pool has room elsewhere."""
+        P = self.pool_partitions
+        sh = self.pa.slot_head.cpu().numpy()  # (L, S)
+        L, S = sh.shape
+        occ = (sh >= 0).reshape(L, P, S // P).sum(axis=2)  # (L, P)
+        frac = occ / np.maximum(occ.sum(axis=1, keepdims=True), 1)
+        H, bs = self.cfg.n_kv_heads, self.block_size
+        out = np.zeros((L, P), np.int64)
+        for layer in range(L):
+            tokens = layer_keep_bound(self.ccfg.policy, self.ccfg, prompt_len, H, layer, L)
+            if worst_case:
+                tokens = min(tokens + H * max_new,
+                             H * min(prompt_len + max_new, self.capacity))
+                slack = occ[layer]
+            else:
+                slack = 2 * occ[layer]  # rounding + 1 growth block per slot
+            out[layer] = np.ceil(tokens * frac[layer] / bs).astype(np.int64) + slack
+        return out
+
     def request_cost(self, req):
         return int(self._layer_blocks(req.prompt_len, req.max_new_tokens,
                                       worst_case=True).sum())
@@ -442,6 +577,16 @@ class PagedBackend(CacheBackend):
     def admissible(self, state, req, pending=()):
         if self.pool is None:
             return True
+        if self.pool.n_partitions > 1:
+            need = self._partition_need(req.prompt_len, req.max_new_tokens, False)
+            for p in pending:
+                need = need + self._partition_need(p.prompt_len, p.max_new_tokens, False)
+            free = self.pool.free_blocks_by_partition()  # (L, P)
+            # the request lands in one row partition, unknown here: the
+            # worst one must fit, so admission never over-commits a shard
+            free = free.reshape(free.shape[0], self.pool_partitions,
+                                self.row_partitions).min(axis=2)
+            return bool((free >= need).all())
         need = np.zeros(self.cfg.n_layers, np.int64)
         for r in (req, *pending):
             need += self._discount_shared(
@@ -459,6 +604,14 @@ class PagedBackend(CacheBackend):
         return np.maximum(need - np.asarray(sh, np.int64), 0)
 
     def never_fits(self, req):
+        if self.pool is not None and self.pool.n_partitions > 1:
+            need = self._partition_need(req.prompt_len, req.max_new_tokens, True)
+            usable = self.pool.part_size - 1
+            if int(need.max()) > usable:
+                return (f"worst-case need of {int(need.max())} blocks in one (layer, "
+                        f"model-shard) partition exceeds the partition ({usable} "
+                        f"usable blocks)")
+            return None
         need = self._layer_blocks(req.prompt_len, req.max_new_tokens,
                                   worst_case=True)
         usable = (self.pool.usable_blocks if self.pool is not None
@@ -475,7 +628,7 @@ class PagedBackend(CacheBackend):
         if self.pool is None:
             return
         self.pool.sample_gauges(self.obs.metrics)
-        live = int(state.cache.lengths.sum())
+        live = int(self.host_lengths(state).sum())
         self.obs.metrics.gauge(
             "cache_live_tokens",
             help="Σ retained KV tokens across the live cache").set(live)
@@ -493,18 +646,19 @@ class PagedBackend(CacheBackend):
 
     def memory_stats(self, state) -> dict:
         c = state.cache
+        lens = self.host_lengths(state)
         if not isinstance(c, PagedCache):
             # prefill leaves the cache in slot layout until generate adopts it
-            L, S, B, C, Dh = c.k.shape
+            (L, S, B), (C, Dh) = lens.shape, c.k.shape[3:]
             return {"backend": self.name, "layout": "slot (pre-adoption)",
                     "block_size": self.block_size,
                     "blocks_in_use": 0, "blocks_total": 0,
                     "peak_blocks_in_use_per_layer": 0,
                     "cache_bytes": int(2 * L * S * B * C * Dh * c.k.element_size()),
                     "pool_bytes": 0, "slot_equivalent_bytes": 0,
-                    "live_tokens": int(c.lengths.sum())}
-        L, N, bs, Dh = c.k_pool.shape
-        _, S, B, M = c.block_table.shape
+                    "live_tokens": int(lens.sum())}
+        bs, Dh = c.k_pool.shape[2:]
+        L, S, B = lens.shape
         # K + V payload (+ the two fp32 scales when quantized); the slot
         # baseline stays in the model dtype: it is the cache the pool replaces
         block_bytes = block_hbm_bytes(bs, Dh, c.k_pool.dtype, c.k_scale is not None)
@@ -521,5 +675,5 @@ class PagedBackend(CacheBackend):
             "cache_bytes": in_use * block_bytes,
             "pool_bytes": L * usable * block_bytes,
             "slot_equivalent_bytes": int(2 * L * S * B * self.capacity * Dh * model_item),
-            "live_tokens": int(c.lengths.sum()),
+            "live_tokens": int(lens.sum()),
         }

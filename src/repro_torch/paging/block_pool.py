@@ -104,45 +104,75 @@ def blocks_for_tokens(tokens: int, block_size: int) -> int:
 class BlockPool:
     """Free lists and refcounts over each layer's block pool.
 
-    Deterministic: each layer's free list is kept in descending order and
-    ``alloc`` pops from its end, so blocks are handed out lowest id first
-    and identical traces give identical tables.  An allocated block starts
-    at refcount 1; prefix reuse shares it (`incref`: the prefix index and
+    Deterministic: each free list is kept in descending order and ``alloc``
+    pops from its end, so blocks are handed out lowest id first and
+    identical traces give identical tables.  An allocated block starts at
+    refcount 1; prefix reuse shares it (`incref`: the prefix index and
     every row that maps it hold one reference each), and it returns to the
     free list when the last reference is dropped (`decref`).
 
+    ``n_partitions > 1`` splits every layer's pool into equal contiguous
+    partitions with independent free lists: the multi-GPU executor's
+    layout, where partition ``p`` is the slice of the pool that lives on
+    the rank of (model shard, data shard) ``divmod(p, row_parts)`` and only
+    its blocks may back that rank's (slot, row) pairs.  Every partition
+    reserves its local block 0 (global id ``p * part_size``) as a null
+    block, so a rank's view of its partition keeps the null-redirect
+    convention.  Ids stay global on the host; the partition of an id is
+    ``id // part_size``.
+
     ``obs`` (the owning backend's handle) counts allocations, frees and
     refusals under the reference's ``pool_*`` names; `sample_gauges`
-    records the pool-pressure gauges.  The port's pool is one partition.
+    records the pool-pressure gauges.
     """
 
-    def __init__(self, n_layers: int, n_blocks: int):
-        if n_blocks < 2:
+    def __init__(self, n_layers: int, n_blocks: int, n_partitions: int = 1):
+        if n_partitions < 1:
+            raise ValueError(f"n_partitions must be >= 1, got {n_partitions}")
+        if n_blocks % n_partitions:
             raise ValueError(
-                f"need >= 2 blocks per layer (1 null + 1 usable), got "
-                f"{n_blocks}")
+                f"{n_blocks} blocks/layer do not split into {n_partitions} "
+                f"equal partitions")
+        part = n_blocks // n_partitions
+        if part < 2:
+            raise ValueError(
+                f"need >= 2 blocks per layer and partition (1 null + 1 usable), "
+                f"got {part} ({n_blocks} blocks / {n_partitions} partitions)")
         self.n_layers = int(n_layers)
         self.n_blocks = int(n_blocks)
+        self.n_partitions = int(n_partitions)
+        self.part_size = part
         self.refcount = np.zeros((n_layers, n_blocks), np.int32)
-        self.refcount[:, 0] = 1  # the null block: pinned forever
-        self._free: List[List[int]] = [list(range(n_blocks - 1, 0, -1))
-                                       for _ in range(n_layers)]
+        self.refcount[:, [p * part for p in range(n_partitions)]] = 1  # nulls: pinned
+        self._free: List[List[List[int]]] = [
+            [list(range((p + 1) * part - 1, p * part, -1)) for p in range(n_partitions)]
+            for _ in range(n_layers)]
         # most blocks one layer has held at once (the realized need)
         self.peak_in_use = 0
         self.obs = NULL_OBS
 
     # ---- introspection -----------------------------------------------------
 
-    def free_blocks(self, layer: Optional[int] = None):
-        """Free count of one layer, or the (L,) array of all layers."""
+    def free_blocks(self, layer: Optional[int] = None, partition: Optional[int] = None):
+        """Free count of one layer (summed over partitions unless one is
+        named), or the (L,) array of all layers."""
         if layer is not None:
-            return len(self._free[layer])
-        return np.asarray([len(f) for f in self._free], np.int64)
+            if partition is not None:
+                return len(self._free[layer][partition])
+            return sum(len(f) for f in self._free[layer])
+        return np.asarray([sum(len(f) for f in fs) for fs in self._free], np.int64)
+
+    def free_blocks_by_partition(self) -> np.ndarray:
+        """(L, n_partitions) free counts."""
+        return np.asarray([[len(f) for f in fs] for fs in self._free], np.int64)
 
     @property
     def usable_blocks(self) -> int:
-        """Allocatable blocks per layer (the null block never is)."""
-        return self.n_blocks - 1
+        """Allocatable blocks per layer (null blocks never are)."""
+        return self.n_blocks - self.n_partitions
+
+    def partition_of(self, block_id: int) -> int:
+        return int(block_id) // self.part_size
 
     def blocks_in_use(self) -> int:
         """Allocated blocks over all layers (null blocks excluded)."""
@@ -151,10 +181,11 @@ class BlockPool:
 
     def sample_gauges(self, metrics) -> None:
         """Record the pool-pressure gauges: free / in-use totals, free
-        blocks per partition (one here), fragmentation (free blocks outside
-        each layer's tightest partition: 0 with one partition) and the
+        blocks per partition, fragmentation (free blocks outside each
+        layer's tightest partition: admission gates on the worst partition,
+        so those are free yet unusable for the next admission) and the
         largest refcount (the sharing depth; 1 = none)."""
-        free = self.free_blocks()[:, None]  # (L, P = 1)
+        free = self.free_blocks_by_partition()  # (L, P)
         metrics.gauge(
             "pool_free_blocks",
             help="free KV blocks, summed over layers and partitions"
@@ -183,22 +214,23 @@ class BlockPool:
 
     # ---- alloc / free ------------------------------------------------------
 
-    def alloc(self, layer: int, n: int) -> List[int]:
-        """Allocate ``n`` blocks of ``layer`` (refcount 1 each).  Atomic:
-        raises ``PoolExhausted`` without handing out anything when fewer
-        than ``n`` are free."""
-        free = self._free[layer]
+    def alloc(self, layer: int, n: int, partition: int = 0) -> List[int]:
+        """Allocate ``n`` blocks in ``layer``'s ``partition`` (refcount 1
+        each); the ids are global.  Atomic: raises ``PoolExhausted`` without
+        handing out anything when fewer than ``n`` are free there."""
+        free = self._free[layer][partition]
         if n > len(free):
             self.obs.metrics.counter(
                 "pool_exhausted_total",
                 help="allocations refused by an empty free list (the "
                      "scheduler's preemption signal)").inc()
             raise PoolExhausted(
-                f"layer {layer}: requested {n} blocks, {len(free)} free "
-                f"(pool {self.usable_blocks}/layer)")
+                f"layer {layer} partition {partition}: requested {n} blocks, "
+                f"{len(free)} free (pool {self.usable_blocks}/layer)")
         ids = [free.pop() for _ in range(n)]
         self.refcount[layer, ids] = 1
-        self.peak_in_use = max(self.peak_in_use, self.usable_blocks - len(free))
+        self.peak_in_use = max(self.peak_in_use,
+                               self.usable_blocks - self.free_blocks(layer))
         self.obs.metrics.counter(
             "pool_alloc_blocks_total",
             help="KV blocks handed out by the pool").inc(n)
@@ -213,13 +245,13 @@ class BlockPool:
             self.refcount[layer, b] += 1
 
     def decref(self, layer: int, ids: Iterable[int]) -> None:
-        """Drop one reference per id; blocks reaching 0 return to the free
-        list.  Over-freeing raises."""
+        """Drop one reference per id; blocks reaching 0 return to their
+        partition's free list.  Over-freeing raises."""
         freed: List[int] = []
         for b in ids:
             b = int(b)
-            if b == 0:
-                raise ValueError("null block 0 cannot be freed")
+            if b % self.part_size == 0:
+                raise ValueError(f"null block {b} cannot be freed")
             rc = int(self.refcount[layer, b])
             if rc <= 0:
                 raise ValueError(
@@ -233,9 +265,10 @@ class BlockPool:
                 "pool_freed_blocks_total",
                 help="KV blocks returned to the pool "
                      "(refcount reached 0)").inc(len(freed))
-            fl = self._free[layer]
-            fl.extend(freed)
-            fl.sort(reverse=True)  # lowest id first via pop()
+            for p in sorted({self.partition_of(b) for b in freed}):
+                fl = self._free[layer][p]
+                fl.extend(b for b in freed if self.partition_of(b) == p)
+                fl.sort(reverse=True)  # lowest id first via pop()
 
     def free_table(self, table: np.ndarray) -> None:
         """Decref every nonzero entry of an (L, ...) id table."""
@@ -246,15 +279,23 @@ class BlockPool:
                 self.decref(layer, ids.tolist())
 
     def check_invariants(self) -> None:
-        """Free lists and refcounts partition each layer's pool."""
+        """Free lists and refcounts partition each layer's pool, and every
+        free id sits in its own partition's list."""
+        nulls = {p * self.part_size for p in range(self.n_partitions)}
         for layer in range(self.n_layers):
-            fl = self._free[layer]
-            free = set(fl)
-            if 0 in free:
-                raise AssertionError(f"layer {layer}: null block in the free list")
-            if len(free) != len(fl):
+            free = set()
+            for p, fl in enumerate(self._free[layer]):
+                if any(self.partition_of(b) != p for b in fl):
+                    raise AssertionError(
+                        f"layer {layer}: a foreign id in partition {p}'s free list")
+                free.update(fl)
+            if free & nulls:
+                raise AssertionError(f"layer {layer}: a null block in a free list")
+            if len(free) != sum(len(f) for f in self._free[layer]):
                 raise AssertionError(f"layer {layer}: duplicate free ids")
-            for b in range(1, self.n_blocks):
+            for b in range(self.n_blocks):
+                if b in nulls:
+                    continue
                 rc = int(self.refcount[layer, b])
                 if rc < 0 or (b in free) != (rc == 0):
                     raise AssertionError(

@@ -71,50 +71,64 @@ def init_paged_cache(
     paging: PagingConfig, dtype=torch.bfloat16,
     partitions: Tuple[int, int] = (1, 1),
     kv_quant: Optional[kvquant.KVQuantSpec] = None, device="cpu",
+    shard: Optional[Tuple[int, int]] = None,
 ) -> Tuple[PagedCache, BlockPool]:
     """Empty paged cache + its allocator.
 
     ``paging.n_blocks == 0`` sizes each layer's pool to the slot-cache
-    worst case (``S·B·M + 1``), which can never preempt;
+    worst case (``S·B·M + 1`` per partition), which can never preempt;
     ``paging.pool_hbm_bytes`` sizes it from a byte budget at the storage
     dtype's block footprint.  ``kv_quant`` switches the pools to int8 codes
     with zeroed (L, N) scale pools; ``dtype`` is then only the model dtype.
-    Pool partitions (one per mesh shard) belong to the multi-GPU executor
-    and are not ported yet.
+
+    ``partitions = (slot_parts, row_parts)`` (the multi-GPU executor)
+    splits each layer's pool into ``slot_parts * row_parts`` equal
+    partitions, ``p = slot_part * row_parts + row_part``: the blocks of
+    (slot s, row r) live in the partition of (s's model shard, r's data
+    shard).  A configured ``paging.n_blocks`` is rounded up to a multiple
+    of the partition count.  ``shard = (slot_part, row_part)`` allocates
+    only that rank's tensors: its partition of the pool and its (S /
+    slot_parts, B / row_parts) corner of the table, lengths and positions
+    (the table holds global block ids); ``None`` allocates every partition.
     """
-    if tuple(partitions) != (1, 1):
-        raise NotImplementedError(
-            f"pool partitions {tuple(partitions)}: the partitioned pool of the "
-            f"multi-GPU executor is not ported yet (ROADMAP Queue A.10)")
+    slot_parts, row_parts = partitions
+    if slot_parts < 1 or n_slots % slot_parts:
+        raise ValueError(f"{n_slots} slots do not split into {slot_parts} partitions")
+    if row_parts < 1 or batch % row_parts:
+        raise ValueError(f"{batch} rows do not split into {row_parts} partitions")
+    n_parts = slot_parts * row_parts
     bs = paging.block_size
     M = max_blocks_per_row(capacity, bs)
     pool_dtype = torch.int8 if kv_quant is not None else dtype
     if paging.n_blocks:
-        n_blocks = paging.n_blocks
+        part = -(-paging.n_blocks // n_parts)  # ceil: round up
     elif paging.pool_hbm_bytes:
         per_block = block_hbm_bytes(bs, head_dim, pool_dtype, kv_quant is not None)
-        n_blocks = max(2, paging.pool_hbm_bytes // (n_layers * per_block))
+        part = max(2, paging.pool_hbm_bytes // (n_layers * per_block) // n_parts)
     else:
-        n_blocks = n_slots * batch * M + 1
+        part = (n_slots // slot_parts) * (batch // row_parts) * M + 1
+    n_local, slots, rows = part * n_parts, n_slots, batch
+    if shard is not None:
+        n_local, slots, rows = part, n_slots // slot_parts, batch // row_parts
     scale = None
     if kv_quant is not None:
-        scale = lambda: torch.zeros((n_layers, n_blocks), dtype=torch.float32,  # noqa: E731
+        scale = lambda: torch.zeros((n_layers, n_local), dtype=torch.float32,  # noqa: E731
                                     device=device)
     cache = PagedCache(
-        k_pool=torch.zeros((n_layers, n_blocks, bs, head_dim), dtype=pool_dtype,
+        k_pool=torch.zeros((n_layers, n_local, bs, head_dim), dtype=pool_dtype,
                            device=device),
-        v_pool=torch.zeros((n_layers, n_blocks, bs, head_dim), dtype=pool_dtype,
+        v_pool=torch.zeros((n_layers, n_local, bs, head_dim), dtype=pool_dtype,
                            device=device),
-        pos_pool=torch.full((n_layers, n_blocks, bs), -1, dtype=torch.int32,
+        pos_pool=torch.full((n_layers, n_local, bs), -1, dtype=torch.int32,
                             device=device),
-        block_table=torch.zeros((n_layers, n_slots, batch, M), dtype=torch.int32,
+        block_table=torch.zeros((n_layers, slots, rows, M), dtype=torch.int32,
                                 device=device),
-        lengths=torch.zeros((n_layers, n_slots, batch), dtype=torch.int32,
+        lengths=torch.zeros((n_layers, slots, rows), dtype=torch.int32,
                             device=device),
-        positions=torch.zeros((batch,), dtype=torch.int32, device=device),
+        positions=torch.zeros((rows,), dtype=torch.int32, device=device),
         k_scale=scale() if scale else None, v_scale=scale() if scale else None,
     )
-    return cache, BlockPool(n_layers, n_blocks)
+    return cache, BlockPool(n_layers, part * n_parts, n_partitions=n_parts)
 
 
 def reset_cache(cache: PagedCache) -> PagedCache:
@@ -192,12 +206,14 @@ def paged_append_token(
     ring: int = 128,
     kinds: Optional[torch.Tensor] = None,  # (S,) per-slot kind codes
     positions: Optional[torch.Tensor] = None,  # (B,) recorded positions
+    table: Optional[torch.Tensor] = None,  # (S, B, M) the layer's table
 ) -> None:
     """Append one token for the owned (slot, row) pairs of ``layer``, in
     place; the slot cache's `append_token`, addressed through the table.
     Each entry records its row's absolute position, ``positions`` when
     given (a speculative window writes several per row), else
-    ``cache.positions``.
+    ``cache.positions``.  ``table`` replaces ``cache.block_table[layer]``
+    (a mesh rank's table with its ids made local to its partition).
 
     The write index (recency ring included) is `ring_write_index`'s; the
     backend must have allocated the block that covers it
@@ -215,7 +231,8 @@ def paged_append_token(
     lengths = cache.lengths[layer]  # (S, B)
     idx = ring_write_index(lengths, decode_step, capacity, ring).long()
     blk, off = idx // bs, idx % bs
-    bid = torch.gather(cache.block_table[layer], 2, blk[..., None])[..., 0].long()
+    table = cache.block_table[layer] if table is None else table
+    bid = torch.gather(table, 2, blk[..., None])[..., 0].long()
     valid = own & (bid > 0)
     bid = torch.where(valid, bid, 0)
     kl, vl, pl = cache.k_pool[layer], cache.v_pool[layer], cache.pos_pool[layer]
@@ -314,16 +331,34 @@ def release_rows(cache: PagedCache, rows: Rows) -> None:
 
 
 def build_table(lengths: np.ndarray, pool: BlockPool, block_size: int,
-                max_blocks: int, own: Optional[np.ndarray] = None) -> np.ndarray:
+                max_blocks: int, own: Optional[np.ndarray] = None,
+                partitions: Tuple[int, int] = (1, 1),
+                rows: Optional[np.ndarray] = None,
+                n_rows: Optional[int] = None) -> np.ndarray:
     """Allocate blocks in proportion to realized lengths → (L, S, B, M)
     table (host numpy).
 
     Owned pairs get at least one block even at length 0, so the first
-    decode append has a home.  Blocks fill each layer in row-major (slot,
-    row, block) order.  Atomic: on ``PoolExhausted`` everything allocated
-    so far is returned before the error propagates.
+    decode append has a home.  Blocks fill each layer and partition in
+    row-major (slot, row, block) order.  Under a partitioned pool a (slot
+    s, global row r) pair draws from partition ``(s // (S / slot_parts)) *
+    row_parts + r // (n_rows / row_parts)``: its (model, data) shard's
+    slice of the pool; ``rows`` are the global row ids of the ``lengths``
+    columns (default arange(B)) and ``n_rows`` the global batch width.
+    Atomic: on ``PoolExhausted`` everything allocated so far is returned
+    before the error propagates.
     """
     L, S, B = lengths.shape
+    slot_parts, row_parts = partitions
+    if pool.n_partitions != slot_parts * row_parts:
+        raise ValueError(f"pool has {pool.n_partitions} partitions, expected "
+                         f"{slot_parts}x{row_parts}")
+    if S % slot_parts:
+        raise ValueError(f"{S} slots do not split into {slot_parts} partitions")
+    s_per = S // slot_parts
+    rows = np.arange(B) if rows is None else np.asarray(rows, np.int64)
+    n_rows = B if n_rows is None else int(n_rows)
+    row_part = rows // -(-n_rows // row_parts)  # (B,) data partition of each column
     need = -(-np.asarray(lengths, np.int64) // block_size)  # ceil
     if own is not None:
         need = np.maximum(need, np.asarray(own, np.int64))
@@ -335,9 +370,20 @@ def build_table(lengths: np.ndarray, pool: BlockPool, block_size: int,
     done = []  # (layer, ids) for rollback
     try:
         for layer in range(L):
-            ids = pool.alloc(layer, int(need[layer].sum()))
-            done.append((layer, ids))
-            table[layer][fill[layer]] = ids
+            for sp in range(slot_parts):
+                sl = slice(sp * s_per, (sp + 1) * s_per)
+                for rp in range(row_parts):
+                    cols = np.nonzero(row_part == rp)[0]
+                    if cols.size == 0:
+                        continue
+                    ids = pool.alloc(layer, int(need[layer, sl][:, cols].sum()),
+                                     partition=sp * row_parts + rp)
+                    done.append((layer, ids))
+                    part = np.zeros((s_per, cols.size, max_blocks), np.int32)
+                    part[fill[layer, sl][:, cols]] = ids
+                    blk = table[layer, sl]
+                    blk[:, cols] = part
+                    table[layer, sl] = blk
     except Exception:
         for layer, ids in done:
             if ids:

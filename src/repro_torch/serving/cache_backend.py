@@ -19,15 +19,24 @@ lengths and a ``commit`` callback, so a replan can be scored and rejected
 without touching the live state.  ``obs`` is the engine's observability
 handle (`NULL_OBS` unless the `Engine` or scheduler sets it), into which
 ``sample_metrics`` records the cache-pressure gauges once per tick.
+
+On a mesh (``mesh``, a `repro_torch.launch.mesh.Mesh`; the multi-GPU
+executor's) a backend keeps its host bookkeeping global and identical on
+every rank while its device state is the rank's shard: the live state
+holds the rank's slots and rows (the last tokens stay global), a
+prefill's sub-state the rank's slots and every sub-batch row.  Every host
+read of device lengths is `host_lengths`, the same gather on every rank.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.api.registry import register_cache_backend
-from repro_torch.cache.slot_cache import PlanArrays, copy_fields_, migrate_cache
+from repro_torch.cache.slot_cache import (PlanArrays, SlotCache, copy_fields_, init_cache,
+                                          insert_rows, migrate_cache, reset_rows, take_rows)
 from repro_torch.compression.base import CompressionConfig
 from repro_torch.compression.policies import layer_keep_bound, projected_request_tokens
 from repro_torch.configs.base import ModelConfig
@@ -37,12 +46,36 @@ from repro_torch.serving import engine as _serve
 from repro_torch.serving.request import Request
 
 
+def migrate_slots(cache: SlotCache, old_pa: PlanArrays, new_pa: PlanArrays,
+                  mesh=None) -> SlotCache:
+    """`migrate_cache` of a live slot cache; on a mesh rank the cache's slot
+    dim is all-gathered over the model group first (a replan moves heads
+    between ranks), the owner rule runs at the rank's global rows, and the
+    rank keeps its slots of the result."""
+    if mesh is None:
+        return migrate_cache(cache, old_pa, new_pa)
+    from repro_torch.distributed import comm
+    g = mesh.model_group
+    full = SlotCache(k=comm.all_gather(cache.k, g, dim=1), v=comm.all_gather(cache.v, g, dim=1),
+                     lengths=comm.all_gather(cache.lengths, g, dim=1),
+                     pos=comm.all_gather(cache.pos, g, dim=1), positions=cache.positions)
+    n = cache.k.shape[2]
+    rows = torch.arange(mesh.data_idx * n, (mesh.data_idx + 1) * n, device=cache.k.device)
+    out = migrate_cache(full, old_pa, new_pa, rows=rows)
+    sl = mesh.slots(out.k.shape[1])
+    return SlotCache(k=out.k[:, sl].contiguous(), v=out.v[:, sl].contiguous(),
+                     lengths=out.lengths[:, sl].contiguous(), pos=out.pos[:, sl].contiguous(),
+                     positions=out.positions)
+
+
 class CacheBackend:
     """Interface; see the module docstring.
 
     ``n_shards`` is the plan's model-shard count, so the slot backend can
-    enforce ``max_live_tokens_per_shard`` per shard.  Pool partitions (one
-    per mesh shard) belong to the multi-GPU executor and are not ported.
+    enforce ``max_live_tokens_per_shard`` per shard; ``pool_partitions`` /
+    ``row_partitions`` split the paged backend's pool into one partition
+    per (model shard, data shard) pair, and ``mesh`` is this rank's place
+    on the multi-GPU executor's mesh (None on one device).
     """
 
     name: str = "?"
@@ -52,6 +85,9 @@ class CacheBackend:
                  paging: Optional[PagingConfig] = None,
                  n_shards: int = 1,
                  max_live_tokens_per_shard: Optional[int] = None,
+                 pool_partitions: int = 1,
+                 row_partitions: int = 1,
+                 mesh=None,
                  obs=None):
         self.cfg = model_cfg
         self.ccfg = ccfg
@@ -59,7 +95,46 @@ class CacheBackend:
         self.paging = paging or PagingConfig()
         self.n_shards = int(n_shards)
         self.max_live_tokens_per_shard = max_live_tokens_per_shard
+        self.pool_partitions = int(pool_partitions)
+        self.row_partitions = int(row_partitions)
+        if mesh is not None and (mesh.model, mesh.data) != (self.pool_partitions,
+                                                             self.row_partitions):
+            raise ValueError(
+                f"partitions ({self.pool_partitions}, {self.row_partitions}) do not "
+                f"match the mesh (model={mesh.model}, data={mesh.data})")
+        self.mesh = mesh
+        self.n_rows: Optional[int] = None  # global batch width of the live state
         self.obs = obs if obs is not None else NULL_OBS
+
+    # ---- the mesh: this rank's shard and the global host view --------------
+
+    def host_lengths(self, state, rows: bool = True) -> np.ndarray:
+        """The state's (L, S, B) retained lengths on the host, global: on a
+        mesh gathered over the model group (and the data group when
+        ``rows``, i.e. for the live state), the same on every rank."""
+        return self._host(state.cache.lengths, rows=rows)
+
+    def _host(self, lengths: torch.Tensor, rows: bool = True) -> np.ndarray:
+        """`host_lengths` of a bare (L, S[/model], B[/data]) lengths tensor."""
+        if self.mesh is None:
+            return lengths.cpu().numpy()
+        return self.mesh.host_lengths(lengths, rows=rows)
+
+    def _shard(self, n_slots: int, n_rows: int) -> Tuple[slice, slice]:
+        """(slots, rows) of the grid this process holds."""
+        if self.mesh is None:
+            return slice(0, n_slots), slice(0, n_rows)
+        return self.mesh.slots(n_slots), self.mesh.rows(n_rows)
+
+    def _local_rows(self, rows) -> Tuple[np.ndarray, np.ndarray]:
+        """(positions in ``rows`` that this process holds, their row ids in
+        its shard of the live state)."""
+        rows = np.asarray(rows, np.int64).reshape(-1)
+        if self.mesh is None:
+            return np.arange(rows.size), rows
+        r = self.mesh.rows(self.n_rows)
+        sel = np.nonzero((rows >= r.start) & (rows < r.stop))[0]
+        return sel, rows[sel] - r.start
 
     # ---- state lifecycle ---------------------------------------------------
 
@@ -139,34 +214,54 @@ class SlotBackend(CacheBackend):
 
     def init_state(self, pa, batch, dtype):
         self.pa = pa
+        self.n_rows = int(batch)
+        dev = pa.slot_head.device
+        cache = None
+        if self.mesh is not None:  # this rank's slots and rows
+            sl, rl = self._shard(int(pa.slot_head.shape[1]), batch)
+            cache = init_cache(self.cfg.n_layers, sl.stop - sl.start, rl.stop - rl.start,
+                               self.ccfg.static_capacity(), self.cfg.head_dim,
+                               dtype=dtype, device=dev)
         return _serve.init_serve_state(self.cfg, pa, batch, self.ccfg,
-                                       dtype=dtype, device=pa.slot_head.device)
+                                       dtype=dtype, device=dev, cache=cache)
 
     def from_prefill(self, state, pa):
         self.pa = pa
+        self.n_rows = int(state.last_tokens.shape[0])
         return state
 
     def splice(self, state, sub, rows):
-        return _serve.splice_state(state, sub, rows)
+        if self.mesh is None:
+            return _serve.splice_state(state, sub, rows)
+        sel, loc = self._local_rows(rows)
+        if sel.size:
+            insert_rows(state.cache, take_rows(sub.cache, sel), loc)
+        return _serve.set_row_tokens(state, rows, sub.last_tokens)
 
     def release_rows(self, state, rows):
-        return _serve.reset_state_rows(state, rows)
+        if self.mesh is None:
+            return _serve.reset_state_rows(state, rows)
+        sel, loc = self._local_rows(rows)
+        if sel.size:
+            reset_rows(state.cache, loc)
+        return _serve.set_row_tokens(state, rows)
 
     def migrate_cache(self, cache, old_pa, new_pa, active_rows=None):
-        migrated = migrate_cache(cache, old_pa, new_pa)
+        migrated = migrate_slots(cache, old_pa, new_pa, self.mesh)
+        lengths = torch.from_numpy(self._host(migrated.lengths))
 
         def commit():
             self.pa = new_pa
             return copy_fields_(cache, migrated)
 
-        return migrated.lengths, commit
+        return lengths, commit
 
     def live_tokens(self, state) -> int:
-        return int(state.cache.lengths.sum())
+        return int(self.host_lengths(state).sum())
 
     def per_shard_live(self, state) -> np.ndarray:
         """(n_shards,) realized Σ lengths per model shard."""
-        per_slot = state.cache.lengths.sum(dim=(0, 2)).cpu().numpy()  # (S,)
+        per_slot = self.host_lengths(state).sum(axis=(0, 2))  # (S,)
         return per_slot.reshape(self.n_shards, -1).sum(axis=1)
 
     def per_shard_cost(self, req) -> np.ndarray:
@@ -225,8 +320,9 @@ class SlotBackend(CacheBackend):
 
     def sample_metrics(self, state) -> None:
         m = self.obs.metrics
-        live = self.live_tokens(state)
-        cap = int(state.cache.lengths.numel()) * self.ccfg.static_capacity()
+        lens = self.host_lengths(state)
+        live = int(lens.sum())
+        cap = int(lens.size) * self.ccfg.static_capacity()
         m.gauge("cache_live_tokens",
                 help="Σ retained KV tokens across the live cache").set(live)
         m.gauge("cache_utilization",
@@ -236,8 +332,9 @@ class SlotBackend(CacheBackend):
 
     def memory_stats(self, state) -> dict:
         c = state.cache
-        L, S, B, C, Dh = c.k.shape
-        live = int(c.lengths.sum())
+        lens = self.host_lengths(state)
+        (L, S, B), (C, Dh) = lens.shape, c.k.shape[3:]
+        live = int(lens.sum())
         return {
             "backend": self.name,
             "cache_bytes": int(2 * L * S * B * C * Dh * c.k.element_size()),
@@ -253,10 +350,12 @@ def make_cache_backend(name: str, model_cfg: ModelConfig,
                        paging: Optional[PagingConfig] = None,
                        n_shards: int = 1,
                        max_live_tokens_per_shard: Optional[int] = None,
-                       obs=None) -> CacheBackend:
+                       pool_partitions: int = 1, row_partitions: int = 1,
+                       mesh=None, obs=None) -> CacheBackend:
     """Instantiate a registered backend by name."""
     from repro_torch.api.registry import get_cache_backend
     return get_cache_backend(name)(
         model_cfg, ccfg, max_live_tokens=max_live_tokens, paging=paging,
         n_shards=n_shards, max_live_tokens_per_shard=max_live_tokens_per_shard,
+        pool_partitions=pool_partitions, row_partitions=row_partitions, mesh=mesh,
         obs=obs)

@@ -42,6 +42,14 @@ Self-speculative decoding on a paged cache: `propose_step` drafts up to
 checks the window in one multi-query pass
 (``kernels.ops.paged_fairkv_decode`` with a 5-D q) and rolls the rejected
 entries back.
+
+On the multi-GPU executor's mesh each step runs on one rank with
+``groups`` (a `repro_torch.launch.mesh.Mesh`, where the reference names
+mesh axes): the rank's slots and rows, the owner rule at global row ids,
+block ids made local to its pool partition, each layer's decode and
+verify o-projection summed over the model group (the decode step's one
+collective), and prefill's and the chunk step's slot weights (and the
+chunk step's cache and plan arrays) all-gathered over it.
 """
 from __future__ import annotations
 
@@ -71,6 +79,7 @@ from repro_torch.compression.policies import select as policy_select
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.placement import HeadPlacement
 from repro_torch.core.planner import draft_plan
+from repro_torch.distributed import comm
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as M
@@ -124,13 +133,16 @@ SLOT_WEIGHTS = ("wq_s", "wk_s", "wv_s", "wo_s")
 
 
 def slotify_params(params: dict, plan: HeadPlacement, cfg: ModelConfig,
-                   out: Optional[dict] = None) -> dict:
+                   out: Optional[dict] = None, slots: Optional[slice] = None) -> dict:
     """Serve-layout params: attention weights per plan; everything else is
     shared with ``params`` (no copy).  With ``out`` (an earlier result for
     the same model and slot grid) the new slot weights are copied into its
     tensors and ``out`` is returned: a replan keeps every address a
-    captured step reads."""
+    captured step reads.  ``slots`` keeps only those slots of the grid (a
+    mesh rank's share of the slot dim)."""
     arrs = plan.as_arrays()["slot_head"]
+    if slots is not None:
+        arrs = arrs[:, slots]
     if out is None:
         out = dict(params)
         out["layers"] = [slotify_layer(pl, arrs[i], cfg)
@@ -143,16 +155,21 @@ def slotify_params(params: dict, plan: HeadPlacement, cfg: ModelConfig,
     return out
 
 
-def first_weights(pl: dict, plan: PlanArrays, layer_idx: int) -> dict:
+def _full_slots(w: torch.Tensor, groups=None) -> torch.Tensor:
+    """A slot-layout weight over the whole slot grid: on a mesh rank, its
+    shard all-gathered over the model group."""
+    return w if groups is None else comm.all_gather(w, groups.model_group, dim=0)
+
+
+def first_weights(pl: dict, plan: PlanArrays, layer_idx: int, groups=None,
+                  keys: Sequence[str] = ("wq", "wk", "wv", "wo")) -> dict:
     """Recover original-layout q/k/v/o weights from each head's replica-0
-    slot (a gather — no second weight copy is stored)."""
+    slot (a gather — no second weight copy is stored): wq (Hkv, D, G, Dh),
+    wk / wv (Hkv, D, Dh), wo (Hkv, G, Dh, D).  ``first_slot`` holds global
+    slot ids, so a mesh rank (``groups``) gathers the slot weights over the
+    model group first."""
     fs = plan.first_slot[layer_idx]  # (Hkv,)
-    return {
-        "wq": pl["wq_s"][fs],  # (Hkv, D, G, Dh)
-        "wk": pl["wk_s"][fs],  # (Hkv, D, Dh)
-        "wv": pl["wv_s"][fs],
-        "wo": pl["wo_s"][fs],  # (Hkv, G, Dh, D)
-    }
+    return {k: _full_slots(pl[k + "_s"], groups)[fs] for k in keys}
 
 
 # ---------------------------------------------------------------------------
@@ -168,6 +185,7 @@ def prefill(
     ccfg: CompressionConfig,
     rows: Optional[torch.Tensor] = None,
     head_importance: Optional[torch.Tensor] = None,
+    groups=None,
 ) -> Tuple[ServeState, torch.Tensor, torch.Tensor]:
     """Run the full prompt, compress each layer's KV into the slot cache.
 
@@ -177,7 +195,11 @@ def prefill(
     sub-batch will occupy in a live cache: ownership is evaluated there, so
     the sub-cache can be spliced in (`splice_state`).  Default arange(B).
     ``head_importance`` ((L, Hkv), optional) feeds the ``headkv`` policy
-    its per-layer head weights; other policies ignore it.
+    its per-layer head weights; other policies ignore it.  ``groups`` (a
+    `repro_torch.launch.mesh.Mesh`) runs it on a mesh rank: ``plan`` and
+    the slot weights hold the rank's slots (``first_slot`` stays global),
+    each layer's slot weights are all-gathered over the model group, and
+    the rank fills only its slots of the cache.
 
     Returns (state, last_logits (B, V) fp32, lengths (L, Hkv, B) — the
     realized per-head retained lengths, the paper's workload observable).
@@ -195,8 +217,8 @@ def prefill(
     for i, pl in enumerate(serve_params["layers"]):
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
         attn_flat, lens = _prefill_attention(pl, hn, positions, cfg, i, cache,
-                                             plan, ccfg, W, rows, head_importance)
-        h = h + _slot_o_proj(pl, attn_flat, cfg, plan, i)
+                                             plan, ccfg, W, rows, head_importance, groups)
+        h = h + _slot_o_proj(pl, attn_flat, cfg, plan, i, groups)
         lengths_all.append(lens)
         hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
         h = h + M.mlp_block(pl, hn2, cfg)
@@ -220,11 +242,11 @@ def _policy_kw(ccfg: CompressionConfig, head_importance, layer_idx: int) -> dict
 
 
 def _prefill_attention(pl, hn, positions, cfg, layer_idx, cache, plan, ccfg,
-                       W, rows=None, head_importance=None):
+                       W, rows=None, head_importance=None, groups=None):
     """Full attention + compression + slot-cache fill for one layer."""
     B, T, D = hn.shape
     Hkv, G, Dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
-    fw = first_weights(pl, plan, layer_idx)
+    fw = first_weights(pl, plan, layer_idx, groups, keys=("wq", "wk", "wv"))
     q = torch.einsum("btd,hdgx->bthgx", hn, fw["wq"])  # (B,T,Hkv,G,Dh)
     k = torch.einsum("btd,hdx->bthx", hn, fw["wk"])
     v = torch.einsum("btd,hdx->bthx", hn, fw["wv"])
@@ -251,10 +273,10 @@ def _prefill_attention(pl, hn, positions, cfg, layer_idx, cache, plan, ccfg,
     return out_flat, keep.T  # lens (Hkv, B)
 
 
-def _slot_o_proj(pl, attn_flat, cfg, plan, layer_idx):
+def _slot_o_proj(pl, attn_flat, cfg, plan, layer_idx, groups=None):
     """(B, T, Hkv·G·Dh) → (B, T, D) via the first-replica o weights."""
     fs = plan.first_slot[layer_idx]
-    wo = pl["wo_s"][fs].reshape(cfg.n_kv_heads * cfg.q_per_kv * cfg.head_dim,
+    wo = _full_slots(pl["wo_s"], groups)[fs].reshape(cfg.n_kv_heads * cfg.q_per_kv * cfg.head_dim,
                                 cfg.d_model)
     return torch.einsum("bte,ed->btd", attn_flat, wo)
 
@@ -277,27 +299,33 @@ def _slot_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _cache_head_view(cache: SlotCache, layer: int, plan: PlanArrays,
-                     rows: torch.Tensor, n_heads: int):
+                     rows: torch.Tensor, n_heads: int, groups=None):
     """Head-layout view of one layer's slot cache at the given global rows:
     ``(k (B, H, C, Dh), v, len_h (B, H), pos_h (B, H, C))``.  Every
     (head, row) pair has exactly one owning slot, whose entries are
     gathered (the reference sums the slots under 0/1 ownership weights,
-    which gives the same values)."""
+    which gives the same values).  On a mesh rank (``groups``) the slot dim
+    of the cache slices and of the plan arrays is all-gathered over the
+    model group first: chunk attention needs every head."""
     B = rows.shape[0]
     dev = cache.k.device
-    own = plan.owner_mask_rows(layer, rows)  # (S, B)
-    hit = ((plan.slot_head[layer][:, None, None]
-            == torch.arange(n_heads, device=dev)[None, None, :])
+    sh, ri, rc = plan.slot_head[layer], plan.replica_idx[layer], plan.replica_count[layer]
+    kl, vl, ln, ps = cache.k[layer], cache.v[layer], cache.lengths[layer], cache.pos[layer]
+    if groups is not None:
+        sh, ri, rc, kl, vl, ln, ps = (comm.all_gather(x, groups.model_group, dim=0)
+                                      for x in (sh, ri, rc, kl, vl, ln, ps))
+    own = (sh >= 0)[:, None] & ((rows.to(torch.int32)[None, :] % rc[:, None])
+                                == ri[:, None])  # (S, B)
+    hit = ((sh[:, None, None] == torch.arange(n_heads, device=dev)[None, None, :])
            & own[:, :, None])  # (S, B, H)
     slot = hit.to(torch.int32).argmax(dim=0)  # (B, H) the owning slot
     b_ix = torch.arange(B, device=dev)[:, None]
     at = (slot, b_ix)
-    return (cache.k[layer][at], cache.v[layer][at], cache.lengths[layer][at],
-            cache.pos[layer][at])
+    return kl[at], vl[at], ln[at], ps[at]
 
 
 def _chunk_attention(pl, hn, positions, valid, cfg, layer_idx, cache, plan,
-                     ccfg, quota_l, rows, head_importance=None):
+                     ccfg, quota_l, rows, head_importance=None, groups=None):
     """Attention over (retained cache ‖ current chunk), then compression at
     the chunk boundary, for one layer.
 
@@ -317,7 +345,7 @@ def _chunk_attention(pl, hn, positions, valid, cfg, layer_idx, cache, plan,
     B, Ck, D = hn.shape
     Hkv, G, Dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
     C = cache.k.shape[3]
-    fw = first_weights(pl, plan, layer_idx)
+    fw = first_weights(pl, plan, layer_idx, groups, keys=("wq", "wk", "wv"))
     x = hn.reshape(B * Ck, D)
     q = _slot_proj(x, fw["wq"]).reshape(Hkv, B, Ck, G, Dh).permute(1, 2, 0, 3, 4)
     k = _slot_proj(x, fw["wk"]).reshape(Hkv, B, Ck, Dh).permute(1, 2, 0, 3)
@@ -327,7 +355,7 @@ def _chunk_attention(pl, hn, positions, valid, cfg, layer_idx, cache, plan,
     k = L.apply_rope(k, positions, cfg.rope_theta)
     window = M.layer_window(cfg, layer_idx)
 
-    k_c, v_c, len_h, pos_h = _cache_head_view(cache, layer_idx, plan, rows, Hkv)
+    k_c, v_c, len_h, pos_h = _cache_head_view(cache, layer_idx, plan, rows, Hkv, groups)
     # (row, head) pairs as the batch: each head's cache holds its own keys
     qh = (q.reshape(B, Ck, Hkv, G, Dh).permute(0, 2, 1, 3, 4)
           .reshape(B * Hkv, Ck, G, Dh))
@@ -387,6 +415,7 @@ def prefill_chunk(
     valid: torch.Tensor,  # (B,) real tokens in this chunk (<= Ck)
     quota: Union[Sequence[int], torch.Tensor],  # (L,) per-head keep cap for this chunk
     head_importance: Optional[torch.Tensor] = None,  # (L, Hkv) headkv weights
+    groups=None,  # a mesh rank (`prefill`'s)
 ) -> Tuple[ServeState, torch.Tensor, torch.Tensor]:
     """Process one fixed-width prompt chunk against an accumulating cache.
 
@@ -423,8 +452,9 @@ def prefill_chunk(
     for i, pl in enumerate(serve_params["layers"]):
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
         attn_flat, lens = _chunk_attention(pl, hn, positions, valid, cfg, i, cache,
-                                           plan, ccfg, quota[i], rows, head_importance)
-        h = h + _slot_o_proj(pl, attn_flat, cfg, plan, i)
+                                           plan, ccfg, quota[i], rows, head_importance,
+                                           groups)
+        h = h + _slot_o_proj(pl, attn_flat, cfg, plan, i, groups)
         lengths_all.append(lens)
         hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
         h = h + M.mlp_block(pl, hn2, cfg)
@@ -457,6 +487,8 @@ def decode_step(
     active: Optional[torch.Tensor] = None,
     kv_kinds: Optional[torch.Tensor] = None,
     phase: Optional[torch.Tensor] = None,
+    rows: Optional[torch.Tensor] = None,
+    groups=None,
 ) -> Tuple[ServeState, torch.Tensor]:
     """One decode step for the whole batch.  Returns (state, logits (B, V)).
 
@@ -470,6 +502,14 @@ def decode_step(
     per-slot kinds follow from the plan's ``slot_head`` at each layer.
     ``phase`` (a device scalar) stands for ``state.decode_steps`` in the
     ring-write index.
+
+    On a mesh rank (``groups``, a `repro_torch.launch.mesh.Mesh`) the step
+    sees the rank's slots and rows: ``plan`` and the slot weights hold its
+    slots, ``rows`` ((B,)) are the global ids of its rows (the strided
+    owner rule keys on them; default arange(B)), the paged table's global
+    block ids are made local to the rank's pool partition, and the
+    o-projection's contraction over the slots ends in the step's one
+    collective per layer, an all-reduce over the model group.
     """
     _check_dense(cfg)
     tokens = state.last_tokens if tokens is None else tokens
@@ -480,8 +520,8 @@ def decode_step(
     for i, pl in enumerate(serve_params["layers"]):
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
         attn = _decode_attention(pl, hn, positions, cfg, i, cache, plan,
-                                 phase, ccfg, active, kv_kinds)
-        h = h + _decode_slot_o(pl, attn, cfg)
+                                 phase, ccfg, active, kv_kinds, rows, groups)
+        h = h + _decode_slot_o(pl, attn, cfg, groups)
         hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
         h = h + M.mlp_block(pl, hn2, cfg)
 
@@ -499,8 +539,24 @@ def decode_step(
     return new_state, logits
 
 
+def _local_table(cache: PagedCache, layer: int, groups=None) -> torch.Tensor:
+    """One layer's (S, B, M) block table as ids into the pool this process
+    holds.  A mesh rank holds one partition of ``n_part`` blocks while the
+    table stores global ids: the partition-aware allocator keeps a rank's
+    blocks in its partition, so subtracting the partition offset localizes
+    them, and anything outside it (the global null block 0 on later
+    partitions) goes to the partition's own null block 0."""
+    table = cache.block_table[layer]
+    if groups is None:
+        return table
+    n_part = cache.k_pool.shape[1]
+    loc = table - groups.part * n_part
+    return torch.where((loc > 0) & (loc < n_part), loc, 0)
+
+
 def _decode_attention(pl, hn, positions, cfg, layer_idx, cache, plan,
-                      decode_steps, ccfg, active=None, kv_kinds=None):
+                      decode_steps, ccfg, active=None, kv_kinds=None, rows=None,
+                      groups=None):
     """Slot-layout attention for one new token; appends to the cache."""
     B = hn.shape[0]
     x = hn[:, 0]  # (B, D)
@@ -510,7 +566,8 @@ def _decode_attention(pl, hn, positions, cfg, layer_idx, cache, plan,
     # RoPE at each row's absolute position
     q = _rope_slots(q, positions, cfg)
     k_new = _rope_slots(k_new[:, :, None, :], positions, cfg)[:, :, 0, :]
-    own = plan.owner_mask(layer_idx, B)  # (S, B)
+    own = (plan.owner_mask(layer_idx, B) if rows is None
+           else plan.owner_mask_rows(layer_idx, rows))  # (S, B)
     if active is not None:
         own = own & active[None, :]
     window = M.layer_window(cfg, layer_idx)
@@ -525,12 +582,13 @@ def _decode_attention(pl, hn, positions, cfg, layer_idx, cache, plan,
                                 device=own.device)
                     if kv_kinds is None else kv_kinds[layer_idx])
             kinds = grid[torch.clamp(plan.slot_head[layer_idx], min=0).long()]
+        table = _local_table(cache, layer_idx, groups)
         paged_append_token(cache, layer_idx, k_new.transpose(0, 1),
                            v_new.transpose(0, 1), own, decode_steps, capacity,
-                           ring=ring, kinds=kinds)
+                           ring=ring, kinds=kinds, table=table)
         return K.paged_fairkv_decode(
             q, cache.k_pool[layer_idx], cache.v_pool[layer_idx],
-            cache.pos_pool[layer_idx], cache.block_table[layer_idx],
+            cache.pos_pool[layer_idx], table,
             cache.lengths[layer_idx], capacity, attn_cap=cfg.attn_softcap,
             q_pos=positions, window=window,
             k_scale=None if kinds is None else cache.k_scale[layer_idx],
@@ -552,14 +610,19 @@ def _rope_slots(q, positions, cfg):
     return q2.reshape(B, S_, G, Dh)
 
 
-def _decode_slot_o(pl, attn, cfg):
+def _decode_slot_o(pl, attn, cfg, groups=None):
     """(B, S, G, Dh) → (B, 1, D): the contraction over slots.  Every
     (head, row) pair has exactly one owning slot and unowned slots give
     exact zeros, so the sum over S reassembles the batch's activation.
     One product over the stored ``(S·G·Dh, D)`` layout (an einsum would
-    copy the whole weight to ``(G, S, Dh, D)`` first)."""
+    copy the whole weight to ``(G, S, Dh, D)`` first).  On a mesh rank the
+    partial contraction over its slots is summed over the model group: the
+    decode step's one collective per layer."""
     wo = pl["wo_s"]
-    return torch.matmul(attn.reshape(attn.shape[0], -1), wo.reshape(-1, wo.shape[-1]))[:, None]
+    out = torch.matmul(attn.reshape(attn.shape[0], -1), wo.reshape(-1, wo.shape[-1]))
+    if groups is not None:
+        out = comm.all_reduce_sum(out, groups.model_group)
+    return out[:, None]
 
 
 # ---------------------------------------------------------------------------
@@ -588,6 +651,8 @@ def propose_step(
     draft_layers: int = 0,  # 0 = full depth (self-check mode)
     max_k: int = 1,
     phase: Optional[torch.Tensor] = None,
+    rows: Optional[torch.Tensor] = None,
+    groups=None,
 ) -> Tuple[ServeState, torch.Tensor]:
     """Draft up to ``max_k`` tokens per row with the layer-truncated draft.
 
@@ -604,7 +669,7 @@ def propose_step(
     stay.  Draft step ``i`` appends at ring phase ``decode_steps + i``
     (``phase + i`` with a device scalar).  Returns (state, proposals
     (B, max_k)); entries past a row's depth are garbage lanes the caller
-    masks.
+    masks.  ``rows`` / ``groups``: a mesh rank's, as in `decode_step`.
     """
     _spec_supported(cfg)
     d = draft_layers if draft_layers > 0 else cfg.n_layers
@@ -620,7 +685,8 @@ def propose_step(
     for i in range(max_k):
         st, _ = decode_step(sp_d, st, cfg, plan_d, ccfg, tokens=st.last_tokens,
                             active=active_b & (i < depths), kv_kinds=kv_kinds,
-                            phase=None if phase is None else phase + i)
+                            phase=None if phase is None else phase + i, rows=rows,
+                            groups=groups)
         proposals.append(st.last_tokens)
     st.cache.positions.copy_(positions)
     props = (torch.stack(proposals, dim=1) if proposals
@@ -641,6 +707,8 @@ def verify_step(
     kv_kinds: Optional[torch.Tensor] = None,
     draft_layers: int = 0,  # layers < d were filled by propose
     phase: Optional[torch.Tensor] = None,
+    rows: Optional[torch.Tensor] = None,
+    groups=None,
 ) -> Tuple[ServeState, torch.Tensor, torch.Tensor, torch.Tensor]:
     """One batched verify pass over the speculative window.
 
@@ -655,7 +723,8 @@ def verify_step(
     ``lengths`` drop by the rejected count and ``positions`` advance by
     ``n_commit`` (live rows only); the backend's `trim_rows` then frees the
     blocks no longer covered.  Returns (state, g (B, Q), n_commit (B,),
-    logits (B, Q, V) fp32).  ``phase`` is `decode_step`'s.
+    logits (B, Q, V) fp32).  ``phase``, ``rows`` and ``groups`` are
+    `decode_step`'s.
     """
     _spec_supported(cfg)
     cache = state.cache
@@ -674,8 +743,8 @@ def verify_step(
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
         attn = _verify_attention(pl, hn, positions_q, q_lens, cfg, i, cache,
                                  plan, phase, ccfg, i < d,
-                                 active_b, kv_kinds)
-        h = h + _verify_slot_o(pl, attn)
+                                 active_b, kv_kinds, rows, groups)
+        h = h + _verify_slot_o(pl, attn, groups)
         hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
         h = h + M.mlp_block(pl, hn2, cfg)
 
@@ -694,7 +763,7 @@ def verify_step(
     # rollback: rejected entries drop out of `lengths` on every owned
     # (layer, slot, row), so the kernels' length masks no longer see them
     trim = torch.where(active_b, q_lens.long() - n_commit, 0)  # (B,)
-    own_all = plan.owner_mask_all(B)  # (L, S, B)
+    own_all = plan.owner_mask_all(B, rows)  # (L, S, B)
     cache.lengths.sub_(torch.where(own_all, trim[None, None, :], 0).to(torch.int32))
     cache.positions.add_(torch.where(active_b, n_commit, 0).to(torch.int32))
     last = torch.gather(g, 1, torch.clamp(n_commit - 1, min=0)[:, None])[:, 0]
@@ -705,7 +774,8 @@ def verify_step(
 
 
 def _verify_attention(pl, hn, positions_q, q_lens, cfg, layer_idx, cache, plan,
-                      decode_steps, ccfg, draft_filled, active, kv_kinds=None):
+                      decode_steps, ccfg, draft_filled, active, kv_kinds=None,
+                      rows=None, groups=None):
     """Multi-query slot attention over the speculative window (one layer).
 
     ``hn`` is (B, Q, D); every token projects and RoPEs at its own absolute
@@ -729,23 +799,25 @@ def _verify_attention(pl, hn, positions_q, q_lens, cfg, layer_idx, cache, plan,
     v_new = _slot_proj(x, pl["wv_s"]).reshape(S, B, Q, -1).transpose(0, 1)
     q = _rope_slots_mq(q, positions_q, cfg)
     k_new = _rope_slots_mq(k_new[:, :, :, None, :], positions_q, cfg)[:, :, :, 0, :]
-    own = plan.owner_mask(layer_idx, B) & active[None, :]  # (S, B)
+    own = (plan.owner_mask(layer_idx, B) if rows is None
+           else plan.owner_mask_rows(layer_idx, rows)) & active[None, :]  # (S, B)
     capacity = ccfg.static_capacity()
     kinds = None
     if cache.k_scale is not None:
         grid = (torch.zeros((cfg.n_kv_heads,), dtype=torch.int32, device=own.device)
                 if kv_kinds is None else kv_kinds[layer_idx])
         kinds = grid[torch.clamp(plan.slot_head[layer_idx], min=0).long()]
+    table = _local_table(cache, layer_idx, groups)
     for qi in range(Q):
         m_q = (q_lens == qi + 1) if draft_filled else (qi < q_lens)
         # each entry records its own token's absolute position
         paged_append_token(cache, layer_idx, k_new[:, :, qi].transpose(0, 1),
                            v_new[:, :, qi].transpose(0, 1), own & m_q[None, :],
                            decode_steps, capacity, ring=max(1, ccfg.decode_margin),
-                           kinds=kinds, positions=positions_q[:, qi])
+                           kinds=kinds, positions=positions_q[:, qi], table=table)
     return K.paged_fairkv_decode(
         q.contiguous(), cache.k_pool[layer_idx], cache.v_pool[layer_idx],
-        cache.pos_pool[layer_idx], cache.block_table[layer_idx],
+        cache.pos_pool[layer_idx], table,
         cache.lengths[layer_idx], capacity, attn_cap=cfg.attn_softcap,
         q_pos=positions_q[:, 0].contiguous(), window=M.layer_window(cfg, layer_idx),
         k_scale=None if kinds is None else cache.k_scale[layer_idx],
@@ -761,13 +833,17 @@ def _rope_slots_mq(q, positions_q, cfg):
     return q2.reshape(B, Q, S_, G, Dh).permute(0, 2, 1, 3, 4)
 
 
-def _verify_slot_o(pl, attn):
+def _verify_slot_o(pl, attn, groups=None):
     """(B, S, Q, G, Dh) → (B, Q, D): the decode o-projection's contraction
-    over slots, per query, as `_decode_slot_o`'s one product."""
+    over slots, per query, as `_decode_slot_o`'s one product (and its one
+    all-reduce over the model group on a mesh rank)."""
     B, S, Q = attn.shape[:3]
     wo = pl["wo_s"]
     x = attn.transpose(1, 2).reshape(B * Q, -1)  # (B·Q, S·G·Dh), a small copy
-    return torch.matmul(x, wo.reshape(-1, wo.shape[-1])).reshape(B, Q, -1)
+    out = torch.matmul(x, wo.reshape(-1, wo.shape[-1]))
+    if groups is not None:
+        out = comm.all_reduce_sum(out, groups.model_group)
+    return out.reshape(B, Q, -1)
 
 
 def init_serve_state(cfg: ModelConfig, plan: PlanArrays, batch: int,

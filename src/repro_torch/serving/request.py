@@ -73,6 +73,9 @@ class Request:
     # (acceptance = spec_accepted / spec_proposed feeds the adaptive depth)
     spec_proposed: int = 0
     spec_accepted: int = 0
+    # tokens produced before a preemption: the replay commits these again
+    # in place of what it computes, since a client may have been sent them
+    replay: List[int] = field(default_factory=list)
 
     @property
     def prompt_len(self) -> int:
@@ -102,9 +105,14 @@ class Request:
 
     def reset_for_requeue(self) -> None:
         """Preemption (recompute policy): drop the generated state so a
-        later admission replays the request from its prompt.  Greedy decode
-        is deterministic, so the replay gives the same tokens; arrival
-        telemetry stays, admission telemetry is stamped again."""
+        later admission replays the request from its prompt.  The tokens
+        produced so far move to ``replay``: greedy decode in another row or
+        batch can round its way to another token (the o-projection sums a
+        row's heads in its owner slots' order), so the replay commits the
+        old tokens and feeds them back, and a token once sent stands.
+        Arrival telemetry stays, admission telemetry is stamped again."""
+        if len(self.generated) > len(self.replay):  # a replay's prefix is `replay`'s
+            self.replay = list(self.generated)
         self.state = RequestState.QUEUED
         self.row = None
         self.generated = []

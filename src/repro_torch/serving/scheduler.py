@@ -26,6 +26,13 @@ tokens per row with the target's first layers, checks them in one
 multi-query verify pass, commits the accepted run (1 to k + 1 tokens) and
 hands the rejected provisional blocks back to the pool.
 
+On the multi-GPU executor's mesh every rank runs this scheduler on the same
+host data: rows, tokens and lengths are global on every rank (the backend's
+`host_lengths` gathers the sharded lengths the same way on all of them),
+so the ranks decide alike; each rank's device state is its shard.  There
+is no prefix index on a partitioned pool: a shared block lives on its
+donor's rank and cannot back another rank's rows.
+
 Chunked prefill (``PrefixConfig.chunk_tokens`` > 0): a prompt longer than
 one chunk reserves its row and runs one chunk per tick in a private B = 1
 sub-state, so live rows keep decoding between its chunks; the final chunk
@@ -56,7 +63,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch.cache.slot_cache import PlanArrays, copy_fields_
+from repro_torch.cache.slot_cache import PlanArrays, copy_fields_, init_cache
 from repro_torch.compression.base import CompressionConfig
 from repro_torch.compression.policies import layer_keep_bound
 from repro_torch.configs.base import ModelConfig
@@ -204,9 +211,12 @@ class Scheduler:
             mode=plan.mode, slots_per_shard=plan.slots_per_shard,
             r_max=plan.r_max, batch_cap=scfg.max_rows)
         self.dtype = dtype
+        # the slots whose weights and cache this process holds (a mesh
+        # rank's share of the slot dim; every slot on one device)
+        self._slots = executor.local_slots(plan.n_shards * plan.slots_per_shard)
         with torch.inference_mode():
             self.sp = (serve_params if serve_params is not None
-                       else slotify_params(params, plan, cfg))
+                       else slotify_params(params, plan, cfg, slots=self._slots))
         self.backend = backend if backend is not None else make_cache_backend(
             "slot", cfg, ccfg, max_live_tokens=scfg.max_live_tokens,
             n_shards=plan.n_shards,
@@ -238,8 +248,8 @@ class Scheduler:
         self._chunk_ok = (self.prefix_cfg.chunk_tokens > 0 and cfg.family == "dense"
                           and not cfg.attention_free)
         self.prefix: Optional[PrefixIndex] = None
-        if (self.prefix_cfg.enabled and self._chunk_ok
-                and self.backend.name == "paged"):
+        if (self.prefix_cfg.enabled and self._chunk_ok and self.backend.name == "paged"
+                and self.backend.pool.n_partitions == 1):
             self.prefix = PrefixIndex(self.prefix_cfg.chunk_tokens,
                                       self.prefix_cfg.max_entries, obs=self.obs)
             self.prefix.pool = self.backend.pool
@@ -292,14 +302,19 @@ class Scheduler:
 
     # ---- load accounting ---------------------------------------------------
 
+    def lengths(self) -> np.ndarray:
+        """The live cache's (L, S, B) retained lengths on the host (on a mesh
+        gathered, the same on every rank)."""
+        return self.backend.host_lengths(self.state)
+
     def live_tokens(self) -> int:
         """Σ retained lengths over the whole live cache (all layers, slots
         and rows)."""
-        return int(self.state.cache.lengths.sum())
+        return int(self.lengths().sum())
 
     def per_shard_load(self) -> np.ndarray:
         """(n_shards,) realized Σ lengths per shard (the Eq. 4 observable)."""
-        per_slot = self.state.cache.lengths.sum(dim=(0, 2)).cpu().numpy()
+        per_slot = self.lengths().sum(axis=(0, 2))
         return per_slot.reshape(self.plan.n_shards, self.plan.slots_per_shard).sum(axis=1)
 
     def _imbalance_from(self, load: np.ndarray) -> float:
@@ -385,7 +400,7 @@ class Scheduler:
         """(L, H) mean retained length per head over the active rows
         (replicas of a head own disjoint rows, so summing over its slots
         recovers each row's full per-head length)."""
-        lens = self.state.cache.lengths.cpu().numpy()  # (L, S, B)
+        lens = self.lengths()  # (L, S, B)
         sh = self.pa.slot_head.cpu().numpy()  # (L, S)
         L = lens.shape[0]
         rows = sorted(self.active)
@@ -446,7 +461,7 @@ class Scheduler:
             req.row = None
             req.admit_step = None
             return None
-        req.generated.append(int(sub.last_tokens[0]))
+        self._commit(req, row, int(sub.last_tokens[0]))
         req.first_token_step = self.step_idx
         req.first_token_time = time.time()
         self._count_admission(req)
@@ -457,6 +472,20 @@ class Scheduler:
         if self._done(req):
             self._retire(req)
         return row
+
+    def _commit(self, req: Request, row: int, tok: int) -> None:
+        """Append ``row``'s new token ``tok`` to ``req``; a replay appends
+        the token it produced before its preemption instead and makes it
+        the row's next input."""
+        k = req.n_generated
+        if k < len(req.replay) and req.replay[k] != tok:
+            tok = req.replay[k]
+            self.state.last_tokens[row] = tok
+            self.obs.metrics.counter(
+                "sched_replay_swaps_total",
+                help="tokens a replay computed otherwise than before its "
+                     "preemption (the earlier token is kept)").inc()
+        req.generated.append(tok)
 
     def _done(self, req: Request) -> bool:
         if req.n_generated >= req.max_new_tokens:
@@ -549,6 +578,15 @@ class Scheduler:
         return init_serve_state(self.cfg, self.pa, 1, self.ccfg, dtype=self.dtype,
                                 device=self.device, cache=slot)
 
+    def sub_state(self, batch: int = 1):
+        """An empty ``batch``-row slot sub-state for a chunked prefill: this
+        process's slots, every row."""
+        return init_serve_state(self.cfg, self.pa, batch, self.ccfg, dtype=self.dtype,
+                                device=self.device, cache=init_cache(
+                                    self.cfg.n_layers, self._slots.stop - self._slots.start,
+                                    batch, self.ccfg.static_capacity(), self.cfg.head_dim,
+                                    dtype=self.dtype, device=self.device))
+
     def _start_chunked(self, req: Request, entry: Optional[PrefixEntry]) -> int:
         """Begin a chunked prefill: reserve the row, seed from the matched
         prefix boundary (if any) and leave the job in ``prefilling``;
@@ -563,8 +601,7 @@ class Scheduler:
             self.prefix.pin(entry)  # immune to eviction while it is read
             start = entry.tokens
         else:
-            sub = init_serve_state(self.cfg, self.pa, 1, self.ccfg, dtype=self.dtype,
-                                   device=self.device)
+            sub = self.sub_state()
             start = 0
         self.prefilling[row] = _ChunkJob(
             req=req, row=row, prompt=np.asarray(req.prompt, np.int32), state=sub,
@@ -634,7 +671,7 @@ class Scheduler:
         del self.prefilling[row]
         if job.entry is not None:
             self.prefix.unpin(job.entry)
-        req.generated.append(int(job.state.last_tokens[0]))
+        self._commit(req, row, int(job.state.last_tokens[0]))
         req.first_token_step = self.step_idx
         req.first_token_time = time.time()
         self._count_admission(req)
@@ -874,9 +911,8 @@ class Scheduler:
         if shard_speeds is not None:
             self.shard_speeds = np.asarray(shard_speeds, float)
         speeds = self.shard_speeds
-        before = self._imbalance_of(self.state.cache.lengths.cpu().numpy(),
-                                    self.plan.n_shards, self.plan.slots_per_shard,
-                                    speeds)
+        before = self._imbalance_of(self.lengths(), self.plan.n_shards,
+                                    self.plan.slots_per_shard, speeds)
         if self.prefilling:
             event = {"step": self.step_idx, "imbalance_before": before,
                      "imbalance_after": before, "accepted": False,
@@ -912,7 +948,7 @@ class Scheduler:
         self.plan = new_plan
         copy_fields_(self.pa, new_pa)
         self.backend.pa = self.pa
-        slotify_params(self.params, new_plan, self.cfg, out=self.sp)
+        slotify_params(self.params, new_plan, self.cfg, out=self.sp, slots=self._slots)
         if self.prefix is not None:
             # the backend rebuilt its pool from the live tables only (shared
             # rows became private copies): the index's references died with
@@ -955,7 +991,7 @@ class Scheduler:
         logits_np = logits.cpu().numpy() if self.scfg.collect_logits else None
         for row in sorted(self.active):
             req = self.active[row]
-            req.generated.append(int(toks[row]))
+            self._commit(req, row, int(toks[row]))
             if logits_np is not None:
                 req.logits.append(logits_np[row])
         self._retire_done(events)
@@ -968,7 +1004,7 @@ class Scheduler:
         its own ``max_new_tokens``) and by cache headroom (an at-capacity
         row degrades to a window of 1, plain decode)."""
         depth = np.zeros(self.scfg.max_rows, np.int32)
-        lens = self.state.cache.lengths.cpu().numpy()
+        lens = self.lengths()
         cap = self.backend.capacity
         for row, req in self.active.items():
             want = self._spec_depth.setdefault(row, self.spec.max_k)
@@ -1005,8 +1041,23 @@ class Scheduler:
         self.propose_s.append(t1 - t0)
         self.verify_s.append(time.perf_counter() - t1)
         self.decode_ticks += 1
-        self.state = self.backend.trim_rows(st, sorted(self.active))
         g_np, nc = g.cpu().numpy(), n_commit.cpu().numpy()
+        # a replay's run stops at the first token that is not the one it
+        # produced before its preemption (`_commit` swaps that one in); the
+        # entries past it leave the cache, and the trim frees their blocks
+        runs, back = {}, {}
+        for row in sorted(self.active):
+            req, run = self.active[row], [int(t) for t in g_np[row, :int(nc[row])]]
+            k = req.n_generated
+            cut = next((i for i, t in enumerate(run)
+                        if k + i < len(req.replay) and req.replay[k + i] != t), None)
+            if cut is not None:
+                back[row] = len(run) - cut - 1
+                run = run[:cut + 1]
+            runs[row] = run
+        if any(back.values()):
+            st = self.backend.rollback_rows(st, back)
+        self.state = self.backend.trim_rows(st, sorted(self.active))
         logits_np = logits.cpu().numpy() if self.scfg.collect_logits else None
         tick_proposed = tick_accepted = 0
         for row in sorted(self.active):
@@ -1019,8 +1070,8 @@ class Scheduler:
             # commit the accepted run, cut at EOS / max_new_tokens (the
             # cache may hold a few tokens past the cut; the row retires
             # right below, which frees them with the row)
-            for i in range(n):
-                req.generated.append(int(g_np[row, i]))
+            for i, tok in enumerate(runs[row]):
+                self._commit(req, row, tok)
                 if logits_np is not None:
                     req.logits.append(logits_np[row, i])
                 if self._done(req):

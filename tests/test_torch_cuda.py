@@ -16,7 +16,10 @@ window and softcap, query chunks, lengths up to 1600 at block sizes 8, 16
 and 32), and both kernels bitwise to themselves on relabelled pool blocks.  The
 score kernel is also held at the chunked-prefill shape, and a shared-prefix
 trace on the card gives the CPU path's tokens.  The HTTP front end over a
-graphed engine gives `Engine.stream`'s tokens and captures nothing.
+graphed engine gives `Engine.stream`'s tokens and captures nothing.  The
+mesh executor on one NCCL rank captures its decode step with the
+all-reduces inside and gives the local executor's tokens and logits
+bitwise; two gloo ranks sharing the card give its tokens.
 """
 import numpy as np
 import pytest
@@ -721,3 +724,47 @@ def test_http_over_graphs_matches_stream(gen):
     pool = eng.scheduler.backend.pool
     pool.check_invariants()
     assert pool.blocks_in_use() == 0
+
+
+def _mesh_ranks():
+    """`tests/_torch_mesh_ranks.py`, imported by its own name (the ranks
+    import it so too; ``tests`` may name another installed package)."""
+    import importlib
+    import sys
+    from pathlib import Path
+    here = str(Path(__file__).resolve().parent)
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    return importlib.import_module("_torch_mesh_ranks")
+
+
+@pytest.mark.parametrize("backend", ["slot", "paged"])
+def test_mesh_nccl_graph_matches_local(gen, backend):
+    """One NCCL rank: the mesh executor's decode is a CUDA graph with its
+    all-reduce inside (one per layer per replay, counted from the
+    capture), and its tokens and logits are the local executor's bitwise
+    (an all-reduce over one rank is the identity)."""
+    from repro_torch.launch.mesh import spawn
+    R = _mesh_ranks()
+    (out,) = spawn(R.card_rank, backend="nccl", args=(backend,), timeout=600)
+    assert out["graphs"] and out["captures"]["decode"] == 1 and out["replays"]["decode"] >= 5
+    assert np.array_equal(out["local"][0], out["mesh"][0])
+    assert np.array_equal(out["local"][1], out["mesh"][1])
+    assert out["collectives"] == {"model": {"all_reduce": {
+        "calls": out["n_layers"], "elements": out["n_layers"] * 4 * 64,
+        "bytes": out["n_layers"] * 4 * 64 * 4}}}
+
+
+def test_mesh_gloo_shared_card_matches_local(gen):
+    """Two gloo ranks sharing the card (model = 2): eager, gloo taking the
+    CUDA tensors and copying them through host memory itself; each rank's
+    tokens equal the local executor's, and the ranks agree bitwise."""
+    from repro_torch.launch.mesh import spawn
+    R = _mesh_ranks()
+    outs = spawn(R.card_rank, model=2, backend="gloo", device="cuda", args=("paged",),
+                 timeout=600)
+    for out in outs:
+        assert not out["graphs"] and set(out["captures"].values()) == {0}
+        assert np.array_equal(out["local"][0], out["mesh"][0])
+        np.testing.assert_allclose(out["mesh"][1], out["local"][1], rtol=1e-4, atol=1e-4)
+        assert np.array_equal(out["mesh"][1], outs[0]["mesh"][1])

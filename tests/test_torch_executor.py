@@ -114,8 +114,12 @@ def test_step_kinds_and_counters():
     assert ex.shard_state(state) is state
     with pytest.raises(ValueError, match="CUDA"):
         LocalExecutor(cfg.model, cfg.compression, device="cpu", graphs=True)
-    with pytest.raises(NotImplementedError, match="A.10"):
-        ex.decode_hlo(None, None, None, None)
+    # the collective audit: one device issues none (the mesh's contract is
+    # held in tests/test_torch_mesh.py)
+    eng = Engine.build(cfg)
+    eng.generate(np.arange(24).reshape(2, 12) % cfg.model.vocab_size, 1)
+    state, coll = eng.executor.decode_collectives(eng.sp, eng.state, eng.pa)
+    assert coll == {} and state.decode_steps == eng.state.decode_steps + 1
 
 
 # ---------------------------------------------------------------------------

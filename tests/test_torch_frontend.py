@@ -24,6 +24,7 @@ minitron-8b smoke in fp32, the reference's weights carried across with
   bitwise; `Scheduler.preempt_lower_priority` choosing the reference's
   victim; `Request.deadline_exceeded` at injected times.
 """
+import dataclasses
 import math
 
 import jax
@@ -822,3 +823,109 @@ def test_idle_counts_a_chunked_prefill(package):
         while not fe.idle:
             fe.pump()
         assert fe.finished[0].n_generated == 3
+
+
+@pytest.mark.parametrize("package", ["port", "reference"])
+def test_preempted_replay_keeps_its_tokens(package):
+    """A batch request is preempted after four tokens, and then the model
+    changes (the final norm's sign flips, and with it every logit), so its
+    replay computes other tokens, as a replay in another row or batch can
+    by rounding on the card.  The reference commits them: the four tokens
+    a client was already sent are replaced.  The port commits the four
+    again and feeds them back; only the tokens after them are new."""
+    eng, _, _, R = _package(package, *configs("slot", rows=2))
+    sched = eng._ensure_scheduler()
+    rng = np.random.default_rng(5)
+    reqs = [R(req_id=i, prompt=rng.integers(1, 250, size=10 + i).astype(np.int32),
+              max_new_tokens=8, priority=2) for i in range(2)]
+    for r in reqs:
+        eng.submit(r)
+    while min(r.n_generated for r in reqs) < 4:
+        eng.step()
+    before = {r.req_id: list(r.generated) for r in reqs}
+    assert sched.preempt_lower_priority(0)
+    victim = next(r for r in reqs if r.n_preemptions)
+    sent = before[victim.req_id]
+    sched.sp["final_norm"] = -2.0 - sched.sp["final_norm"]  # (1 + w) -> -(1 + w)
+    while len(sched.finished) < 2:
+        eng.step()
+    assert victim.n_generated == 8 and len(sent) >= 4
+    if package == "port":
+        assert victim.generated[:len(sent)] == sent and victim.replay == sent
+    else:
+        assert victim.generated[:len(sent)] != sent
+
+
+def _replay_engine(mode):
+    """One-row port engine: the slot backend, chunked prefill (16-token
+    chunks) on it, or paged pools with a full-depth draft."""
+    from repro_torch.api import PrefixConfig, SpeculationConfig
+    _, tcfg = configs("paged" if mode == "speculative" else "slot", rows=1)
+    if mode == "chunked":
+        tcfg = tcfg.replace(prefix=PrefixConfig(chunk_tokens=16))
+    if mode == "speculative":
+        tcfg = tcfg.replace(speculation=SpeculationConfig(enabled=True, max_k=3,
+                                                          draft_layers=0))
+    return Engine.build(tcfg, params=shared_params()[1])
+
+
+def _run_alone(eng, prompt, gen, replay=(), feed=()):
+    """One request alone in ``eng``'s scheduler, with ``replay`` as a
+    preemption leaves it; after every tick the row's next input is its last
+    committed token.  ``feed`` is the oracle: tokens written by hand into
+    the row's input before each decode step (teacher forcing), of which
+    the run's own tokens replace those at the same index."""
+    sched = eng._ensure_scheduler()
+    req = Request(req_id=0, prompt=prompt, max_new_tokens=gen, replay=list(replay))
+    if feed:
+        decode = sched.executor.decode
+
+        def fed(sp, state, pa, tokens, **kw):
+            k = req.n_generated - 1  # the index of the token this step reads
+            if k < len(feed):
+                tokens[req.row] = feed[k]
+            return decode(sp, state, pa, tokens, **kw)
+        sched.executor.decode = fed
+    eng.submit(req)
+    while req.state is not RequestState.FINISHED:
+        eng.step()
+        if not feed and req.state is RequestState.DECODING:
+            assert int(sched.state.last_tokens[req.row]) == req.generated[-1]
+    if feed:
+        return list(feed) + req.generated[len(feed):]
+    return list(req.generated)
+
+
+@pytest.mark.parametrize("mode", ["slot", "chunked", "speculative"])
+def test_replay_is_teacher_forced(mode):
+    """A replay whose tokens 0 and 2 are not what the model computes (the
+    first after prefill, the chunked one's after its last chunk): the run
+    commits the four replayed tokens, then continues exactly as teacher
+    forcing by hand does (plain decode on the same backend).  The
+    speculative run cuts its committed windows at a replayed token and
+    takes the rest back out of the cache; the pool ends empty."""
+    vocab = configs()[1].model.vocab_size
+    prompt = np.random.default_rng(13).integers(1, vocab, size=40).astype(np.int32)
+    gen = 10
+    free = _run_alone(_replay_engine(mode), prompt, gen)
+    replay = free[:4]
+    replay[0], replay[2] = (replay[0] + 1) % vocab, (replay[2] + 1) % vocab
+    eng = _replay_engine(mode)
+    backend = eng._ensure_scheduler().backend
+    cuts = []
+    if mode == "speculative":
+        rollback = backend.rollback_rows
+        backend.rollback_rows = lambda st, back: (cuts.append(dict(back)),
+                                                  rollback(st, back))[1]
+    got = _run_alone(eng, prompt, gen, replay=replay)
+    oracle = _replay_engine("slot" if mode == "slot" else mode)
+    if mode == "speculative":
+        oracle = Engine.build(oracle.cfg.replace(speculation=dataclasses.replace(
+            oracle.cfg.speculation, enabled=False)), params=shared_params()[1])
+    want = _run_alone(oracle, prompt, gen, feed=replay)
+    assert got[:4] == replay and got != free
+    assert got == want
+    if mode == "speculative":
+        assert any(k > 0 for c in cuts for k in c.values()), cuts
+        assert backend.pool.blocks_in_use() == 0
+        backend.pool.check_invariants()

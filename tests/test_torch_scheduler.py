@@ -211,10 +211,21 @@ def test_stream_cancel_drain(runs):
 
 
 def test_unported_features_refuse(runs):
-    """Pool partitions (the multi-GPU executor, A.10) still raise."""
+    """Pool partitions (the multi-GPU executor) are ported: a split is one
+    partition per (slot part, row part), sized for its own worst case, and
+    a split the slots or rows do not divide is refused."""
     from repro_torch.paging.paged_cache import init_paged_cache
-    with pytest.raises(NotImplementedError, match="Queue A.10"):
-        init_paged_cache(1, 4, 2, 16, 8, PagingConfig(), partitions=(2, 1))
+    cache, pool = init_paged_cache(1, 4, 2, 16, 8, PagingConfig(), partitions=(2, 1))
+    M = -(-16 // PagingConfig().block_size)  # blocks per (slot, row) at capacity 16
+    assert (pool.n_partitions, pool.part_size) == (2, 2 * 2 * M + 1)
+    assert tuple(cache.k_pool.shape[:2]) == (1, 2 * pool.part_size)
+    cache, _ = init_paged_cache(1, 4, 2, 16, 8, PagingConfig(), partitions=(2, 1), shard=(1, 0))
+    assert tuple(cache.k_pool.shape[:2]) == (1, pool.part_size)
+    assert tuple(cache.block_table.shape[1:3]) == (2, 2)
+    with pytest.raises(ValueError, match="do not split"):
+        init_paged_cache(1, 4, 2, 16, 8, PagingConfig(), partitions=(3, 1))
+    with pytest.raises(ValueError, match="do not split"):
+        init_paged_cache(1, 4, 2, 16, 8, PagingConfig(), partitions=(1, 4))
 
 
 def test_request_trace_matches_reference():

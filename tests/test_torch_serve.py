@@ -93,7 +93,7 @@ def test_unfinished_requests_fail():
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--executor", "mesh"], "A.10"), (["--data", "2"], "A.10"),
+    (["--executor", "mesh"], "needs a process group"), (["--data", "2"], "--executor mesh"),
     (["--paged-impl", "pallas"], "on purpose")])
 def test_unported_flags_are_refused(capsys, flags, item):
     with pytest.raises(SystemExit) as e:
@@ -242,3 +242,43 @@ def test_http_serves_and_drains_on_sigterm(tmp_path):
     text = metrics.read_text()
     for fam in ("slo_attained_total", "goodput_tokens_total", "frontend_admission_total"):
         assert f'{fam}{{' in text and 'tenant="cli"' in text, fam
+
+
+def test_mesh_executor_under_torchrun(tmp_path):
+    """``--executor mesh --shards 2 --data 1 --device cpu`` as a 2-rank gloo
+    launch (``torchrun --standalone``): exit 0, rank 0 alone prints the run
+    and the collective-audit line (two all-reduces over model for the smoke
+    model's two layers, no all-gather) and writes the metrics, whose decode
+    series carry the executor label "mesh"."""
+    metrics = tmp_path / "m.prom"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+         "2", "-m", "repro_torch.launch.serve", "--arch", "minitron-8b", "--smoke",
+         "--device", "cpu", "--executor", "mesh", "--shards", "2", "--data", "1",
+         "--continuous", "--requests", "4", "--gen", "4", "--metrics-out", str(metrics)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-3000:]
+    audit = [ln for ln in out.stdout.splitlines() if ln.startswith("decode step collectives")]
+    assert audit == ["decode step collectives/rank: model all_reduce x2 (1.0 kB) | "
+                     "2 all-reduce over model for 2 layers, 0 all-gather over model"]
+    assert out.stdout.count("continuous: 4 requests") == 1  # rank 0 prints
+    text = metrics.read_text()
+    assert 'stepfn_wall_s_count{executor="mesh",kind="decode"}' in text
+
+
+@pytest.mark.parametrize("rank", [None, 0, 1])
+def test_export_obs_only_from_rank_zero(tmp_path, rank):
+    """``--metrics-out`` / ``--trace-out`` are written by a single-process
+    engine and by a mesh's rank 0; another rank's registry (its own step
+    timings and spans) never reaches the shared paths."""
+    from types import SimpleNamespace
+
+    eng = SimpleNamespace(mesh=None if rank is None else SimpleNamespace(rank=rank),
+                          metrics_prometheus=lambda: "m 1\n", trace_export=lambda: "{}")
+    args = SimpleNamespace(metrics_out=str(tmp_path / "m.prom"),
+                           trace_out=str(tmp_path / "t.json"))
+    serve._export_obs(eng, args)
+    written = rank in (None, 0)
+    assert (tmp_path / "m.prom").exists() == written
+    assert (tmp_path / "t.json").exists() == written
