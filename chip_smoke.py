@@ -24,7 +24,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    then the paged kernels' bitwise contracts: every query of the multi-query kernel equals the
    single-query kernel at its causal length and q_pos + i (Q 1 to 40, the
    query chunks included), and both kernels are unchanged on pools whose
-   blocks are relabelled through the table;
+   blocks are relabelled through the table; every sweep also at head_dim
+   256 (G 1, 2, 4, 8; gemma2-9b's decode and prefill shapes), at 192, and
+   at the (G, Dh) pairs of the other configs phase 16 serves (the
+   contracts at Dh 256 too);
 4. check the port's CUDA path against its own CPU path on minitron-8b smoke
    (same weights, fp32): identical tokens and lengths, close logits; then
    speculative `run_trace` (full-depth and 1-layer drafts) against the
@@ -81,7 +84,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    median of 25 runs after warmup, L2 flushed before each run; snapkv
    also at B = 1 and at the chunk shape) beside the least time the card
    could take, and print them as one JSON line; the host time per call of
-   kernels 1 and 2;
+   kernels 1 and 2; phase 16 adds kernels 1-3 at gemma2-9b's shapes
+   (``*_gemma2`` keys: kernels 1 and 3 on its one-shot's own cache,
+   kernel 2 at its prefill shape);
 11. after the timings, so that kernel 1 is timed on the main path's own
    cache: the decode step's ops by input shapes under torch.profiler (one
    eager step on the main engine, which fails if it copies a slot weight:
@@ -149,7 +154,32 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    Prints step times, collectives and bytes per step and each rank's
    `max_memory_allocated`, and the phase's time and launches (apart from
    the kernel table);
-16. last line: {"ok": true, "device": {...}}.
+16. (after phase 15, its memory freed) the other configs the port serves,
+   launches stated apart from the kernel table: (a) the smoke variants of
+   gemma2-9b, granite-3-2b, qwen1.5-110b, granite-moe-1b-a400m and
+   qwen3-moe-30b-a3b on the card against the port's CPU path (fp32, same
+   weights): one-shot and continuous on paged pools, speculative (1-layer
+   draft) and chunked for the dense three; identical tokens and lengths,
+   logits within 1e-3.  (b) gemma2-9b at full width and depth (42 layers,
+   head_dim 256, bf16, seed 0): one-shot B = 4 prompts of T = 4608 (past
+   the 4096-token window) under sha and fairkv_dp (lengths bitwise, the
+   logit gap under the bf16 bound, 42 kernel 1 launches per step and one
+   kernel 2 launch per layer, eager == graphed tokens), kernels 1-3 timed
+   at its shapes, then 8 requests of phase 7's trace on bf16 pools, the
+   same with the 8-layer draft, and 4 with 512-token chunks (all finish,
+   pools empty, nothing captured during a trace).  (c) granite-3-2b and
+   (d) granite-moe-1b-a400m at full width and depth: the one-shot of
+   phase 5's shape under both planners and 8 requests on bf16 pools;
+   MoE's eager run bitwise the graphed one, its speculative config
+   refused, its plans' logit gap reported (a plan's bf16 rounding can
+   flip a near-tied expert pick, which the smooth bound does not cover).
+   (e) cut in depth: qwen1.5-110b to 4 of 80 layers with
+   non-zero qkv biases (one-shot under both planners, then a replan
+   between ticks of 4 requests: every live slot holds its head's biases
+   under the new plan, bitwise) and qwen3-moe-30b-a3b to 8 of 48 layers
+   (one-shot).  Prints per config prefill s, step ms host and device,
+   `max_memory_allocated`, launches and seconds;
+17. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -192,6 +222,33 @@ BF16_ULP = 2.0 ** -7  # one bf16 rounding step, relative (8-bit significand)
 PAGED_FP32_TOL = 1e-5
 PAGED_BF16_TOL = 0.03
 BLOCK = 16  # paged block size of the continuous runs
+
+# phase 3's shapes for the other configs the port serves: head_dim 256 at
+# G = 1, 2, 4, 8 (gemma2-9b: G = 2, its one-shot decode at B = 4, C = 576,
+# and its prefill scores at B = 4, T = 4608), a score head dim between 128
+# and 256 (192; the decode kernels take up to 128, and 256, and refuse
+# 192: `check_head_dim_refusals`), and the (G, Dh) pairs of granite-3-2b
+# (4, 64), qwen1.5-110b (8, 128), granite-moe-1b-a400m (2, 64) and
+# qwen3-moe-30b-a3b (8, 128)
+C_MAIN = int(round(ALPHA * BUDGET)) + MARGIN
+FAMILY_DECODE_SHAPES = [  # (B, S, G, Dh, C)
+    (4, 16, 2, 256, C_MAIN), (2, 5, 2, 256, 1600), (3, 4, 1, 256, 200), (2, 4, 4, 256, 96),
+    (2, 3, 8, 256, 300), (4, 8, 4, 64, 200), (2, 8, 8, 128, 300),
+    (4, 8, 2, 64, 150)]
+FAMILY_SCORE_SHAPES = [  # (B, W, Hq, Hkv, Dh, T)
+    (4, OBS, 16, 8, 256, 4608), (1, OBS, 16, 8, 256, 1000), (2, 8, 4, 4, 256, 200),
+    (1, OBS, 64, 8, 256, 500), (1, 8, 8, 2, 192, 130), (1, OBS, 32, 8, 64, 1000),
+    (1, OBS, 64, 8, 128, 1000), (1, OBS, 16, 8, 64, 500), (1, OBS, 32, 4, 128, 500)]
+FAMILY_PAGED_SHAPES = [  # (S, B, G, Dh, C, bs)
+    (16, 4, 2, 256, C_MAIN, BLOCK), (3, 2, 1, 256, 96, 16), (4, 3, 4, 256, 200, 8),
+    (2, 2, 8, 256, 64, 32), (4, 3, 4, 64, 150, 16),
+    (3, 2, 8, 128, 120, 16), (3, 2, 2, 64, 90, 8)]
+FAMILY_MQ_SHAPES = [  # (S, B, G, Dh, C, bs)
+    (3, 2, 2, 256, 200, 16), (2, 2, 8, 256, 64, 32), (3, 2, 1, 256, 96, 16),
+    (2, 3, 4, 256, 100, 16)]
+FAMILY_CONTRACT_SHAPES = [  # (S, B, G, Dh, C, bs, Qs)
+    (3, 2, 2, 256, 200, 16, (1, 5, 9)), (2, 2, 8, 256, 64, 32, (5,)),
+    (3, 2, 1, 256, 96, 16, (1, 5, 40)), (16, 4, 2, 256, C_MAIN, BLOCK, (5,))]
 
 
 def fail(msg: str) -> None:
@@ -269,7 +326,11 @@ def build_kernels():
     dt = time.perf_counter() - t0
     log(f"[build] {len(reports)} kernel libraries built in {dt:.1f} s "
         f"(sources: {', '.join(build.KERNELS)})")
-    for name, rep in reports.items():
+    for name, (_, secs) in reports.items():
+        log(f"[build] {name}: linked {secs:.1f} s after the start, from "
+            f"{len(build.SOURCES[name])} translation units compiled in parallel")
+    bad = []
+    for name, (rep, _) in reports.items():
         rows = ptxas_summary(rep)
         for fn, regs, stack, st, ld in rows:
             log(f"[ptxas {name}] {fn}: {regs} registers, {stack} B stack, "
@@ -278,10 +339,9 @@ def build_kernels():
             log(f"[ptxas {name}] {len(rows)} instantiations: registers "
                 f"{min(r[1] for r in rows)}-{max(r[1] for r in rows)}, max stack "
                 f"{max(r[2] for r in rows)} B, max spill {max(r[3] + r[4] for r in rows)} B")
-        bad = [r for r in rows if r[2] or r[3] or r[4]]
-        if bad:
-            fail(f"{name}: ptxas reports stack or spill in {len(bad)} instantiations "
-                 f"(first: {bad[0]})")
+        bad += [(name, *r) for r in rows if r[2] or r[3] or r[4]]
+    if bad:  # after every library's report, so one run shows them all
+        fail(f"ptxas reports stack or spill in {len(bad)} instantiations: {bad}")
     for name in build.KERNELS:
         build.load(name)
 
@@ -348,6 +408,7 @@ def check_decode(gen):
     shapes = [(4, 8, 8, 64, 256), (2, 16, 1, 128, 200), (3, 5, 4, 32, 96),
               (1, 16, 8, 128, 1600), (2, 4, 2, 16, 64),
               (B, N_SHARDS * SLOTS_PER_SHARD, 4, 128, C_main), (2, 5, 4, 128, 1600)]
+    shapes += FAMILY_DECODE_SHAPES
     worst = 0.0
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -386,6 +447,43 @@ def check_decode(gen):
         f"(lengths 1 to 1600)")
 
 
+def check_head_dim_refusals(gen):
+    """Head dims the kernels are not built for raise on the card (the
+    decode kernels: 192 and 320; the score kernel: 320); nothing falls
+    back to a plain version."""
+    import torch
+    from repro_torch.kernels import ops
+    n = 0
+    for Dh in (192, 320):
+        q = torch.randn((2, 4, 2, Dh), generator=gen, device="cuda")
+        k = torch.randn((4, 2, 16, Dh), generator=gen, device="cuda")
+        ln = torch.full((4, 2), 8, dtype=torch.int32, device="cuda")
+        kp = torch.randn((5, 8, Dh), generator=gen, device="cuda")
+        pp = torch.zeros((5, 8), dtype=torch.int32, device="cuda")
+        tbl = torch.ones((4, 2, 2), dtype=torch.int32, device="cuda")
+        pos = torch.arange(16, dtype=torch.int32, device="cuda")[None]
+        calls = [("fairkv_decode", lambda: ops.fairkv_decode(q, k, k, ln)),
+                 ("paged_fairkv_decode", lambda: ops.paged_fairkv_decode(q, kp, kp, pp, tbl,
+                                                                          ln, 16)),
+                 ("paged_fairkv_decode_mq", lambda: ops.paged_fairkv_decode(
+                     q[:, :, None].contiguous(), kp, kp, pp, tbl, ln, 16))]
+        if Dh > 256:
+            qo = torch.randn((1, 4, 2, Dh), generator=gen, device="cuda")
+            ko = torch.randn((1, 16, 1, Dh), generator=gen, device="cuda")
+            calls.append(("snapkv_scores", lambda: ops.snapkv_scores(
+                qo, ko, pos[:, -4:].contiguous(), pos)))
+        for name, call in calls:
+            try:
+                call()
+            except ValueError as e:
+                if "head_dim" not in str(e):
+                    raise
+                n += 1
+            else:
+                fail(f"{name}: head_dim {Dh} was accepted")
+    log(f"[check] {n} calls at head dims the kernels are not built for (192, 320) raised")
+
+
 def scores_inputs(gen, Bq, W, Hq, Hkv, Dh, Tk, dtype):
     import torch
     dev = "cuda"
@@ -407,6 +505,7 @@ def check_scores(gen):
               (B, OBS, 32, 8, 128, T)]
     shapes += [(1, OBS, 32, 8, 128, Tk) for Tk in (63, 1000, 2047, 2048)]
     shapes += [(1, OBS, 8 * G, 8, 128, 1000) for G in (1, 2, 8)]
+    shapes += FAMILY_SCORE_SHAPES
     worst = 0.0
     n = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -490,6 +589,7 @@ def check_paged():
     C_main = int(round(ALPHA * BUDGET)) + MARGIN
     shapes = [(3, 2, 1, 64, 96, 16), (4, 3, 2, 32, 200, 8), (2, 2, 8, 64, 256, 32),
               (3, 2, 4, 128, 100, 64), (N_SHARDS * SLOTS_PER_SHARD, B, 4, 128, C_main, BLOCK)]
+    shapes += FAMILY_PAGED_SHAPES
     worst = {}  # (pools, output dtype) -> max abs err
     n = 0
     for (S, Bq, G, Dh, C, bs) in shapes:
@@ -565,6 +665,7 @@ def check_paged_mq():
     C_main = int(round(ALPHA * BUDGET)) + MARGIN
     shapes = [(3, 2, 1, 64, 96, 16), (4, 3, 4, 32, 200, 8), (2, 2, 8, 64, 64, 32),
               (N_SHARDS * SLOTS_PER_SHARD, B, 4, 128, C_main, BLOCK)]
+    shapes += FAMILY_MQ_SHAPES
     worst, n, n_bitwise = {}, 0, 0
     for (S, Bq, G, Dh, C, bs) in shapes:
         for Q in (1, 3, 5):
@@ -645,6 +746,7 @@ def check_paged_contracts():
     shapes = [(3, 2, 1, 64, 96, 16, (1, 5, 9, 40)), (4, 3, 4, 32, 200, 8, (3, 5)),
               (2, 2, 8, 64, 64, 32, (5,)), (2, 3, 2, 128, 300, 16, (7,)),
               (N_SHARDS * SLOTS_PER_SHARD, B, 4, 128, C_main, BLOCK, (5,))]
+    shapes += FAMILY_CONTRACT_SHAPES
     n_query = n_perm = 0
     for (S, Bq, G, Dh, C, bs, Qs) in shapes:
         for mode in ("fp32", "bf16", "int8", "fp8", "mixed"):
@@ -3268,6 +3370,442 @@ def mesh_runs(ctx):
                                         if k not in ("trace_tokens", "launches")}))
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the other configs the port serves
+# ---------------------------------------------------------------------------
+
+FAMILY_ARCHS = ("gemma2-9b", "granite-3-2b", "qwen1.5-110b", "granite-moe-1b-a400m",
+                "qwen3-moe-30b-a3b")
+DENSE_FAMILY = ("gemma2-9b", "granite-3-2b", "qwen1.5-110b")
+GEMMA_B, GEMMA_T = 4, 4608  # T past gemma2's 4096-token window, so it binds
+FAMILY_REQS, FAMILY_CHUNK_REQS = 8, 4  # the first requests of phase 7's trace
+# configurations at full width cut in depth (published depth in the model's
+# config): qwen1.5-110b to 4 of 80 layers (~7.9 B parameters, 15.9 GB in
+# bf16), qwen3-moe-30b-a3b to 8 of 48 (~5.6 B)
+FAMILY_CUTS = {"qwen1.5-110b": 4, "qwen3-moe-30b-a3b": 8}
+
+
+def family_smoke_parity():
+    """Phase 16 (a): each config's smoke variant on the card against the
+    port's CPU path (same weights, fp32): one-shot fairkv_dp and the
+    continuous scheduler on paged pools in the engine dtype; the dense
+    configs also speculative (a 1-layer draft) and chunked (8-token
+    chunks).  Identical tokens and lengths, logits within 1e-3 (phase 4's
+    bar: fp32 summed in another order).  Returns the launches of the card
+    runs."""
+    import numpy as np
+    import torch
+    from repro_torch import interop
+    from repro_torch.api import (CompressionConfig, Engine, EngineConfig, PagingConfig,
+                                 PlannerConfig, PrefixConfig, SchedulerConfig,
+                                 SpeculationConfig, synthesize_requests)
+    rng = np.random.default_rng(SEED)
+    toks = rng.integers(0, 256, size=(2, 40)).astype(np.int32)
+    launches = {}
+    runs = [("oneshot", {}), ("continuous", {})]
+    for arch in FAMILY_ARCHS:
+        todo = runs + ([("speculative", {"speculation": SpeculationConfig(
+                            enabled=True, max_k=3, draft_layers=1)}),
+                        ("chunked", {"prefix": PrefixConfig(chunk_tokens=8)})]
+                       if arch in DENSE_FAMILY else [])
+        params = {}
+        for name, extra in todo:
+            out = {}
+            for dev in ("cpu", "cuda"):
+                cfg = EngineConfig.smoke(
+                    arch, n_shards=4, max_seq_len=64, device=dev,
+                    compression=CompressionConfig(policy="ada_snapkv", budget=12,
+                                                  alpha_max=2.0, obs_window=8, sink=2,
+                                                  decode_margin=8),
+                    planner=PlannerConfig(mode="fairkv_dp", extra_copies=4, batch_cap=2),
+                    scheduler=SchedulerConfig(max_rows=2, collect_logits=True),
+                    cache_backend="slot" if name == "oneshot" else "paged",
+                    paging=PagingConfig(block_size=8), **extra)
+                if dev not in params:
+                    params[dev] = (Engine.build(cfg).params if dev == "cpu" else
+                                   interop.to_torch(interop.to_numpy(params["cpu"]), "cuda"))
+                eng = Engine.build(cfg, params=params[dev])
+                if name == "oneshot":
+                    res, got = _count(lambda: eng.generate(toks, 6))
+                    out[dev] = (res.tokens, res.lengths, res.logits)
+                else:
+                    reqs = synthesize_requests(4, 0.5, cfg.model.vocab_size, min_prompt=12,
+                                               max_prompt=24, max_new_tokens=6, seed=0)
+                    summ, got = _count(lambda: eng.run_trace(reqs, max_steps=500))
+                    if summ["finished"] != 4 or eng.scheduler.backend.pool.blocks_in_use():
+                        fail(f"[family] (a) {arch} {name} on {dev}: {summ['finished']}/4 "
+                             f"finished or blocks left in the pool")
+                    out[dev] = ([r.generated for r in reqs], None,
+                                [np.stack(r.logits) for r in reqs])
+                if dev == "cuda":
+                    for k, v in got.items():
+                        launches[k] = launches.get(k, 0) + v
+            (ta, la, ga), (tb, lb, gb) = out["cpu"], out["cuda"]
+            gap = (float(np.abs(ga - gb).max()) if name == "oneshot" else
+                   max(float(np.abs(x - y).max()) for x, y in zip(ga, gb)))
+            same_len = la is None or np.array_equal(la, lb)
+            same_tok = np.array_equal(ta, tb) if name == "oneshot" else ta == tb
+            if not (same_tok and same_len and gap < 1e-3):
+                fail(f"[family] (a) {arch} {name}: card vs CPU tokens equal {same_tok}, "
+                     f"lengths equal {same_len}, max |dlogits| {gap:.3e} (bar 1e-3)")
+            log(f"[family] (a) {arch} smoke {name}: card == CPU tokens"
+                + (" and lengths" if la is not None else "") + f"; max |dlogits| {gap:.3e}")
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launches
+
+
+def family_config(arch, b, t, mode="sha", ch=0):
+    """A full-width config on the card in bf16 with phase 5's compression
+    and slot grid (8 shards x 2 slots); ``FAMILY_CUTS`` cuts the depth."""
+    from repro_torch.api import CompressionConfig, EngineConfig, PlannerConfig
+    cfg = EngineConfig.for_arch(
+        arch, n_shards=N_SHARDS, dtype="bfloat16", max_seq_len=t + GEN, seed=SEED,
+        device="cuda",
+        compression=CompressionConfig(policy="ada_snapkv", budget=BUDGET, alpha_max=ALPHA,
+                                      obs_window=OBS, pool=POOL, sink=SINK,
+                                      decode_margin=MARGIN),
+        planner=PlannerConfig(mode=mode, extra_copies=ch, slots_per_shard=SLOTS_PER_SHARD,
+                              batch_cap=b))
+    if arch in FAMILY_CUTS:
+        cfg = cfg.replace(model=cfg.model.with_overrides(n_layers=FAMILY_CUTS[arch]))
+    return cfg
+
+
+def _n_params(params) -> int:
+    n = 0
+    for v in params.values():
+        if isinstance(v, dict):
+            n += _n_params(v)
+        elif isinstance(v, list):
+            n += sum(_n_params(x) for x in v)
+        else:
+            n += v.numel()
+    return n
+
+
+def family_oneshot(arch, b, t, modes=(("sha", 0), ("fairkv_dp", 4)), bias=False):
+    """One-shot `generate` of a full-width config under each planner (the
+    later ones teacher-forced on the first's tokens), with the launch
+    counters per run; bars: kernel 1 n_layers x GEN and kernel 2 n_layers
+    launches per run, lengths bitwise plan-invariant, the logit gap under
+    n_layers 2^-8 max|logit| (dense; for MoE reported: a plan's rounding
+    can flip a near-tied expert pick), finite logits of the expected shape; then an
+    eager engine (no CUDA graph) teacher-forced alike: tokens equal to the
+    graphed run's (and for MoE its logits bitwise).  ``bias`` draws the
+    qkv biases non-zero (the init's are zeros).  Returns a ctx for
+    `continuous_run` and the record printed."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine
+    from repro_torch.configs.base import InputShape
+    from repro_torch.training.data import SyntheticLM
+    t0 = time.perf_counter()
+    cfg = family_config(arch, b, t, *modes[0])
+    m = cfg.model
+    data = SyntheticLM(m, InputShape("chip_smoke", t, b, "prefill"))
+    prompts = data.get_batch(0)["tokens"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    probe = Engine.build(cfg)
+    params = probe.params
+    if bias:
+        g = torch.Generator(device="cuda")
+        g.manual_seed(SEED + 5)
+        for pl in params["layers"]:
+            for key in ("bq", "bk", "bv"):
+                pl[key].copy_(torch.randn(pl[key].shape, generator=g, device="cuda") * 0.5)
+    profile = probe.measure_profile(data.get_batch(123)["tokens"])
+    del probe
+    rec = {"arch": m.name, "layers": m.n_layers, "cut": arch in FAMILY_CUTS,
+           "params": _n_params(params), "runs": {}}
+    results, eng = {}, None
+    for mode, ch in modes:
+        eng = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = Engine.build(cfg.replace(planner=family_config(arch, b, t, mode, ch).planner),
+                           params=params, profile=profile)
+        teacher = None if not results else results[modes[0][0]].tokens[:, :GEN]
+        res, got = _count(lambda: eng.generate(prompts, GEN, teacher_tokens=teacher))
+        if got["fairkv_decode"] != m.n_layers * GEN or got["snapkv_scores"] != m.n_layers:
+            fail(f"[family] {arch} {mode}: launches {got}, expected fairkv_decode "
+                 f"{m.n_layers} x {GEN}, snapkv_scores {m.n_layers}")
+        if res.logits.shape != (b, GEN + 1, m.padded_vocab) or not np.isfinite(res.logits).all():
+            fail(f"[family] {arch} {mode}: logits {res.logits.shape} or not finite")
+        results[mode] = res
+        dev_ms, k1_ms = _step_times(eng)
+        rec["runs"][mode] = {"prefill_s": res.prefill_s,
+                             "step_ms_host": 1e3 * statistics.median(res.step_s),
+                             "step_ms_device": dev_ms, "kernel1_ms_per_step": k1_ms,
+                             "efficiency": res.efficiency, "launches": got}
+    base = results[modes[0][0]]
+    tol = m.n_layers * 2.0 ** -8 * float(np.abs(base.logits).max())
+    for mode, _ in modes[1:]:
+        r = results[mode]
+        gap = float(np.abs(r.logits - base.logits).max())
+        if not np.array_equal(r.lengths, base.lengths):
+            fail(f"[family] {arch}: lengths under {mode} differ from {modes[0][0]}'s")
+        # MoE: a plan changes the o-projection's bf16 rounding, which can flip
+        # a near-tied top-k expert pick, a discrete change the smooth bound
+        # does not cover; its gap is reported (the CPU tests bar MoE's plan
+        # invariance in fp32, and eager == graphed is bitwise below)
+        if not gap < tol and not m.moe.num_experts:
+            fail(f"[family] {arch}: logit gap {mode} vs {modes[0][0]} {gap} >= {tol}")
+        rec["runs"][mode].update(logit_gap=gap, argmax_agree=float(
+            (r.logits.argmax(-1) == base.logits.argmax(-1)).mean()))
+    rec["logit_bar"] = tol
+    # graphed against eager, the last plan, teacher-forced alike
+    last_mode = modes[-1][0]
+    graphed = results[last_mode]
+    eng.executor = eager_executor(eng.cfg)
+    teacher = None if len(modes) == 1 else base.tokens[:, :GEN]
+    eager = eng.generate(prompts, GEN, teacher_tokens=teacher)
+    same = bool(np.array_equal(eager.tokens, graphed.tokens))
+    bitwise = bool(np.array_equal(eager.logits, graphed.logits))
+    if not same or (m.moe.num_experts and not bitwise):
+        fail(f"[family] {arch}: eager vs graphed tokens equal {same}, logits bitwise {bitwise}")
+    rec.update(graphed_equals_eager_tokens=same, graphed_equals_eager_logits=bitwise,
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               seconds=time.perf_counter() - t0)
+    ctx = {"cfg": cfg.replace(planner=family_config(arch, b, t, *modes[-1]).planner),
+           "params": params, "profile": profile, "prompts": prompts,
+           "cache": eng.state.cache}
+    del eng
+    log(f"[family] {m.name} ({m.n_layers} layers{', cut in depth' if rec['cut'] else ''}, "
+        f"{rec['params'] / 1e9:.2f} B parameters, B={b}, T={t}): "
+        + "; ".join(f"{mode}: prefill {r['prefill_s']:.2f} s, step {r['step_ms_host']:.2f} ms "
+                    f"host / {r['step_ms_device']:.2f} ms device (kernel 1 "
+                    f"{r['kernel1_ms_per_step']:.3f} ms), E={r['efficiency']:.4f}, launches "
+                    f"{r['launches']}" for mode, r in rec["runs"].items())
+        + f"; lengths plan-invariant, logit gaps "
+        f"{[round(r.get('logit_gap', 0.0), 4) for r in rec['runs'].values()]} "
+        f"({'reported, not a bar: expert routing' if m.moe.num_experts else 'bar'} {tol:.4f}), "
+        f"argmax agreement {[r.get('argmax_agree') for r in rec['runs'].values()][1:]}; "
+        f"eager == graphed tokens {same}, logits bitwise {bitwise}; max_memory_allocated "
+        f"{rec['max_memory_allocated'] / 2**30:.2f} GiB; {rec['seconds']:.1f} s")
+    return ctx, rec
+
+
+def time_gemma_kernels(ctx, rows):
+    """Phase 10's table at gemma2-9b's main-path shapes, on its one-shot's
+    own cache (``ctx["cache"]``; layer 1, a global layer, and layer 0, a
+    window layer):
+    kernel 1 at (B 4, S 16, G 2, Dh 256, C 576), kernel 3 on that cache laid
+    out as bf16 pools (identity block table), and kernel 2 at its prefill
+    shape (B 4, W 32, Hq 16, Hkv 8, Dh 256, T 4608); each beside its plain
+    version and the bound (bytes read once at 3.35 TB/s).  Adds the
+    ``*_gemma2`` keys to the rows."""
+    import torch
+    from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda
+    from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
+    from repro_torch.kernels.ref import (fairkv_decode_ref, paged_fairkv_decode_ref,
+                                         snapkv_scores_ref)
+    from repro_torch.kernels.snapkv_select import snapkv_scores_cuda
+    from repro_torch.paging.testing import slot_layer_as_pool
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 7)
+    m = ctx["cfg"].model
+    cache = ctx.pop("cache")  # the one-shot's cache after decode
+    by_name = {r["name"]: r for r in rows}
+    for layer in (1, 0):
+        k, v, ln, kp = cache.k[layer], cache.v[layer], cache.lengths[layer], cache.pos[layer]
+        S, Bq, C, Dh = k.shape
+        G = m.q_per_kv
+        window = m.sliding_window if m.layer_is_local(layer) else 0
+        q = torch.randn((Bq, S, G, Dh), generator=gen, device="cuda").to(k.dtype)
+        qp = torch.full((Bq,), GEMMA_T + GEN, dtype=torch.int32, device="cuda")
+        kw = dict(attn_cap=m.attn_softcap, k_pos=kp, q_pos=qp, window=window)
+        err = _cmp(f"fairkv_decode (gemma2 layer {layer})", fairkv_decode_cuda(q, k, v, ln, **kw),
+                   fairkv_decode_ref(q, k, v, ln, **kw), FP32_TOL, BF16_ULP)
+        kern = time_ms(lambda: fairkv_decode_cuda(q, k, v, ln, **kw), flush)
+        plain = time_ms(lambda: fairkv_decode_ref(q, k, v, ln, **kw), flush)
+        n_ret = int(ln.sum().item())
+        it = k.element_size()
+        nbytes = n_ret * Dh * 2 * it + 2 * q.numel() * it + ln.numel() * 4 + (
+            n_ret * 4 if window else 0)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        kpool, vpool, ppool, tbl = slot_layer_as_pool(k, v, kp, BLOCK)
+        pargs = (q, kpool, vpool, ppool, tbl, ln, C)
+        pkw = dict(attn_cap=m.attn_softcap, q_pos=qp, window=window)
+        perr = _cmp_paged(f"paged_fairkv_decode (gemma2 layer {layer})",
+                          paged_fairkv_decode_cuda(*pargs, **pkw),
+                          paged_fairkv_decode_ref(*pargs, **pkw))
+        pkern = time_ms(lambda: paged_fairkv_decode_cuda(*pargs, **pkw), flush)
+        pplain = time_ms(lambda: paged_fairkv_decode_ref(*pargs, **pkw), flush)
+        n_blk = int(((ln + BLOCK - 1) // BLOCK).sum().item())
+        pbound = 1e3 * (nbytes + n_blk * 4) / HBM_BYTES_PER_S
+        sfx = "_gemma2" if layer == 1 else "_gemma2_window"
+        by_name["fairkv_decode"].update({f"ms{sfx}": kern, f"plain_ms{sfx}": plain,
+                                         f"bound_ms{sfx}": bound, f"max_abs_err{sfx}": err})
+        by_name["paged_fairkv_decode"].update({f"ms{sfx}": pkern, f"plain_ms{sfx}": pplain,
+                                               f"bound_ms{sfx}": pbound,
+                                               f"max_abs_err{sfx}": perr})
+        log(f"[time] gemma2-9b layer {layer} ({'window ' + str(window) if window else 'global'}, "
+            f"softcap {m.attn_softcap}) at (B={Bq}, S={S}, G={G}, C={C}, Dh={Dh}) bf16, "
+            f"sum(lengths)={n_ret}: fairkv_decode {kern:.4f} ms (plain {plain:.4f}, bound "
+            f"{bound:.4f} ms = {nbytes} B / 3.35 TB/s); paged_fairkv_decode over the cache as "
+            f"pools {pkern:.4f} ms (plain {pplain:.4f}, bound {pbound:.4f} ms)")
+    q2 = torch.randn((GEMMA_B, OBS, m.n_heads, m.head_dim), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    k2 = torch.randn((GEMMA_B, GEMMA_T, m.n_kv_heads, m.head_dim), generator=gen,
+                     device="cuda").to(torch.bfloat16)
+    kpos = torch.arange(GEMMA_T, dtype=torch.int32, device="cuda").expand(
+        GEMMA_B, GEMMA_T).contiguous()
+    opos = kpos[:, GEMMA_T - OBS:].contiguous()
+    skw = dict(attn_cap=m.attn_softcap)
+    err2 = _cmp("snapkv_scores (gemma2 prefill shape)",
+                snapkv_scores_cuda(q2, k2, opos, kpos, **skw),
+                snapkv_scores_ref(q2, k2, opos, kpos, **skw), FP32_TOL, 1e-5)
+    kern2 = time_ms(lambda: snapkv_scores_cuda(q2, k2, opos, kpos, **skw), flush)
+    plain2 = time_ms(lambda: snapkv_scores_ref(q2, k2, opos, kpos, **skw), flush)
+    nbytes2, flops2, bound2 = _scores_bound(q2, k2, opos, kpos)
+    by_name["snapkv_scores"].update(ms_gemma2=kern2, plain_ms_gemma2=plain2,
+                                    bound_ms_gemma2=bound2, max_abs_err_gemma2=err2)
+    log(f"[time] gemma2-9b snapkv_scores at (B={GEMMA_B}, W={OBS}, Hq={m.n_heads}, "
+        f"Hkv={m.n_kv_heads}, Dh={m.head_dim}, T={GEMMA_T}) bf16, softcap {m.attn_softcap}: "
+        f"kernel {kern2:.4f} ms, plain {plain2:.4f} ms, bound {bound2:.4f} ms (max of "
+        f"{nbytes2} B / 3.35 TB/s and {flops2} FLOP / 989 TFLOP/s)")
+
+
+def _family_trace(ctx, name, n, **kw):
+    """`continuous_run` on bf16 pools over the first ``n`` requests of
+    phase 7's trace (with ``chunk``: the first ``n`` whose prompts are
+    longer than one chunk)."""
+    reqs = make_trace(ctx["cfg"].model.vocab_size)
+    if kw.get("changes", {}).get("prefix") is not None:
+        reqs = [r for r in reqs if r.prompt_len > kw["changes"]["prefix"].chunk_tokens]
+    return continuous_run(ctx, name, "paged", "fp32", reqs=reqs[:n], **kw)
+
+
+def _bias_replan(ctx):
+    """qwen1.5-110b (cut): 4 requests of phase 7's trace through the
+    scheduler with a replan between ticks (from the realized profile, or,
+    if that one does not lower the imbalance, against a straggler shard at
+    half speed): after the accepted replan every live slot holds its
+    head's biases under the new plan, bitwise, and every request
+    finishes."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine, PagingConfig, SchedulerConfig
+    cfg = ctx["cfg"].replace(cache_backend="paged",
+                             scheduler=SchedulerConfig(max_rows=MAX_ROWS, enable_replan=False),
+                             paging=PagingConfig(block_size=BLOCK))
+    eng = Engine.build(cfg, params=ctx["params"], profile=ctx["profile"])
+    reqs = make_trace(cfg.model.vocab_size)[:4]
+    for r in reqs:
+        r.arrival_step = 0
+        eng.submit(r)
+    for _ in range(3):
+        eng.step()
+    if not eng.scheduler.active:
+        fail("[family] qwen1.5 replan: no request live after 3 ticks")
+    before = eng.pa.slot_head.clone()
+    ev = eng.replan()
+    if not ev["accepted"]:  # a straggler: shard 0 at half speed
+        ev = eng.replan(shard_speeds=[0.5] + [1.0] * (cfg.n_shards - 1))
+    if not ev["accepted"] or torch.equal(before, eng.pa.slot_head):
+        fail(f"[family] qwen1.5 replan: no replan accepted ({ev})")
+    for i, pl in enumerate(eng.sp["layers"]):
+        sh = eng.pa.slot_head[i].long()
+        live = sh >= 0
+        orig = eng.params["layers"][i]
+        bq = orig["bq"].reshape(cfg.model.n_kv_heads, cfg.model.q_per_kv, -1)
+        if not (torch.equal(pl["bq_s"][live], bq[sh[live]])
+                and torch.equal(pl["bk_s"][live], orig["bk"][sh[live]])
+                and torch.equal(pl["bv_s"][live], orig["bv"][sh[live]])):
+            fail(f"[family] qwen1.5 replan: layer {i}'s slot biases are not the new plan's")
+    n = 0
+    while any(not r.is_finished for r in reqs) and n < 2000:
+        eng.step()
+        n += 1
+    if any(not r.is_finished for r in reqs) or eng.scheduler.backend.pool.blocks_in_use():
+        fail("[family] qwen1.5 replan: requests unfinished or blocks left after the replan")
+    log(f"[family] qwen1.5-110b (cut): replan accepted after 3 ticks (shard speeds "
+        f"{ev.get('shard_speeds')}, imbalance "
+        f"{ev['imbalance_before']:.4f} -> {ev['imbalance_after']:.4f}); every live slot's "
+        f"q/k/v biases bitwise its head's under the new plan; 4/4 requests finished, pool empty")
+
+
+def family_runs(rows):
+    """Phase 16: (a) the smoke variants against the CPU path; (b)
+    gemma2-9b at full width and depth; (c) granite-3-2b and (d)
+    granite-moe-1b-a400m at full width and depth; (e) qwen1.5-110b and
+    qwen3-moe-30b-a3b at full width, cut in depth.  Prints each config's
+    record and the phase's time and launches (apart from the kernel
+    table), and adds gemma2's kernel timings to ``rows``."""
+    import torch
+    from repro_torch.api import PrefixConfig, SpeculationConfig
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    add(family_smoke_parity())
+    records = {}
+    # (b) gemma2-9b, full width and depth
+    ctx, rec = family_oneshot("gemma2-9b", GEMMA_B, GEMMA_T)
+    add({k: v for r in rec["runs"].values() for k, v in r["launches"].items()})
+    time_gemma_kernels(ctx, rows)
+    for name, kw in (("gemma2 trace", {}),
+                     ("gemma2 spec", {"spec": SpeculationConfig(**SPEC_E)}),
+                     ("gemma2 chunk", {"changes": {"prefix": PrefixConfig(chunk_tokens=CHUNK)}})):
+        n = FAMILY_CHUNK_REQS if "changes" in kw else FAMILY_REQS
+        got, out = _family_trace(ctx, name, n, **kw)
+        add(got)
+        rec[name] = {k: out[k] for k in ("finished", "decode_ticks", "step_ms_median",
+                                         "tokens_per_s", "acceptance", "chunks")}
+    records["gemma2-9b"] = rec
+    ctx = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (c) granite-3-2b and (d) granite-moe-1b-a400m, full width and depth
+    for arch in ("granite-3-2b", "granite-moe-1b-a400m"):
+        ctx, rec = family_oneshot(arch, B, T)
+        ctx.pop("cache")
+        add({k: v for r in rec["runs"].values() for k, v in r["launches"].items()})
+        got, out = _family_trace(ctx, f"{arch} trace", FAMILY_REQS)
+        add(got)
+        rec["trace"] = {k: out[k] for k in ("finished", "decode_ticks", "step_ms_median",
+                                            "tokens_per_s")}
+        if ctx["cfg"].model.moe.num_experts:
+            try:
+                ctx["cfg"].replace(cache_backend="paged",
+                                   speculation=SpeculationConfig(**SPEC_E))
+            except ValueError as e:
+                if "speculative decoding supports dense attention families only" not in str(e):
+                    raise
+                log(f"[family] {arch}: a speculative engine is refused: {e}")
+            else:
+                fail(f"[family] {arch}: a speculative config was accepted")
+        records[arch] = rec
+        ctx = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (e) full width, cut in depth
+    ctx, rec = family_oneshot("qwen1.5-110b", B, T, bias=True)
+    ctx.pop("cache")
+    add({k: v for r in rec["runs"].values() for k, v in r["launches"].items()})
+    _bias_replan(ctx)
+    records["qwen1.5-110b"] = rec
+    ctx = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    ctx, rec = family_oneshot("qwen3-moe-30b-a3b", B, T)
+    add({k: v for r in rec["runs"].values() for k, v in r["launches"].items()})
+    records["qwen3-moe-30b-a3b"] = rec
+    ctx = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[family] phase 16 took {time.perf_counter() - t0:.1f} s; launches {launches}")
+    log("[family] summary " + json.dumps(records))
+
+
 def main() -> int:
     try:
         import torch
@@ -3295,6 +3833,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     check_decode(gen)
+    check_head_dim_refusals(gen)
     check_scores(gen)
     check_paged()
     check_paged_mq()
@@ -3334,6 +3873,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_runs(ctx)
+    # phase 16 after phase 15: every engine of the phases before is gone
+    ctx = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    family_runs(rows)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -25,6 +25,14 @@
 //     four stages (64 KB at bf16, Dh = 128) in flight while it works on
 //     the fifth; the ring's 80 KB also keep an SM at two blocks, which
 //     spreads the long (slot, row) pairs over more SMs;
+//   - head dims up to 128, and 256: a lane owns J = 4 elements of a row
+//     up to Dh = 128 (a FULL variant for 128 folds the lane guards away)
+//     and J = 8 at Dh = 256 (FULL only: ptxas spilled the generic-Dh
+//     variants of J = 8, and no configuration has a head dim between).
+//     At J = 8 a stage holds 16 entries, so a stage's bytes, the ring's
+//     80 KB (bf16) and the two blocks per SM stay those of Dh = 128, and a
+//     warp scores 4 entries per batch, so its key registers (NB x J
+//     floats) stay 32 (160 KB of ring at fp32: one block per SM);
 //   - G blocks per (slot, row), 8 warps each, so every warp carries exactly
 //     one (column class, head) chain: 128 (slot, row) pairs give 512 blocks
 //     at G = 4.  Each block writes its partial softmax states to scratch;
@@ -63,12 +71,15 @@
 namespace {
 
 constexpr int NWARPS = 8;
-constexpr int MAXJ = 4;   // Dh <= 128: lane owns d = lane + 32 * j, j < MAXJ
+constexpr int MAXJ = 8;   // Dh = 256: lane owns d = lane + 32 * j, j < J <= MAXJ
 constexpr int NCLS = 8;   // column classes c mod 8
-constexpr int ES = 32;    // block entries per ring stage
 constexpr int NST = 5;    // ring stages
-constexpr int NB = 8;     // entries a warp scores before it updates its state
 constexpr float NEG_INF = -1e30f;
+// per lane width J (4: Dh <= 128, 8: Dh = 256): block entries per ring
+// stage (a stage is 32 x 128 elements of K and of V either way), and
+// entries a warp scores before it updates its state (NB x J key registers)
+template <int J> __host__ __device__ constexpr int stage_entries() { return 128 / J; }
+template <int J> __host__ __device__ constexpr int batch_entries() { return 32 / J; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -122,19 +133,19 @@ __host__ __device__ inline size_t align16(size_t x) { return (x + 15) & ~static_
 struct Layout {
   size_t flag, region, total;
 };
-template <typename T>
+template <typename T, int J>
 __host__ __device__ inline Layout layout(int G, int Dh) {
   Layout s;
   s.flag = align16(static_cast<size_t>(NCLS) * G * 2 * sizeof(float));
   s.region = s.flag + 16;
-  s.total = s.region + static_cast<size_t>(NST) * 2 * ES * Dh * sizeof(T);
+  s.total = s.region + static_cast<size_t>(NST) * 2 * stage_entries<J>() * Dh * sizeof(T);
   return s;
 }
 
 // copy ring stage `st` (block entries st*ES ..) of the block's classes into
 // ring slot `slot`: block entry e is column ((e >> LCPB) << 3) + cls0 +
 // (e & (2^LCPB - 1)) of the pair; columns at or past len are not copied
-template <typename T, int LCPB>
+template <typename T, int LCPB, int ES>
 __device__ __forceinline__ void issue_stage(T* ring, const T* __restrict__ kb,
                                             const T* __restrict__ vb, int st, int slot,
                                             int cls0, int len, int Dh, bool vec) {
@@ -169,7 +180,7 @@ __device__ __forceinline__ void issue_stage(T* ring, const T* __restrict__ kb,
   }
 }
 
-template <typename T, int G, bool FULL>
+template <typename T, int G, int J, bool FULL>
 __global__ void __launch_bounds__(NWARPS * 32)
 fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
                      const T* __restrict__ k,          // (S, B, C, Dh)
@@ -187,9 +198,11 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
   // CPB - 1, and warp w the chain (class cls0 + w % CPB, head w / CPB)
   constexpr int CPB = NCLS / G;
   constexpr int LCPB = G == 1 ? 3 : (G == 2 ? 2 : (G == 4 ? 1 : 0));
+  constexpr int ES = stage_entries<J>();
+  constexpr int NB = batch_entries<J>();
   constexpr int PER = ES / CPB;           // a chain's entries in one stage
   constexpr int NBU = PER < NB ? PER : NB;
-  const int Dh = FULL ? 32 * MAXJ : Dh_in;  // FULL: Dh = 128, the lane guards fold away
+  const int Dh = FULL ? 32 * J : Dh_in;  // FULL: Dh = 32 J, the lane guards fold away
   extern __shared__ __align__(16) unsigned char smem[];
   const int sb = blockIdx.x;  // s * B + b
   const int part = blockIdx.y;
@@ -210,7 +223,7 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
   const int cls = cls0 + lw;
   const int g = warp / CPB;
 
-  const Layout L = layout<T>(G, Dh);
+  const Layout L = layout<T, J>(G, Dh);
   float* ml_s = reinterpret_cast<float*>(smem);
   int* flag = reinterpret_cast<int*>(smem + L.flag);
   T* ring = reinterpret_cast<T*>(smem + L.region);
@@ -222,18 +235,18 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
   const int ntiles = (ngroups * CPB + ES - 1) / ES;
 #pragma unroll
   for (int st = 0; st < NST - 1; ++st) {
-    if (st < ntiles) issue_stage<T, LCPB>(ring, kb, vb, st, st, cls0, len, Dh, vec != 0);
+    if (st < ntiles) issue_stage<T, LCPB, ES>(ring, kb, vb, st, st, cls0, len, Dh, vec != 0);
     hk::cp_async_commit();
   }
-  float qv[MAXJ];  // this warp's query head (its loads overlap the first stage's)
+  float qv[J];  // this warp's query head (its loads overlap the first stage's)
 #pragma unroll
-  for (int j = 0; j < MAXJ; ++j) {
+  for (int j = 0; j < J; ++j) {
     const int d = lane + 32 * j;
     qv[j] = d < Dh ? to_f(q[qo + g * Dh + d]) : 0.f;
   }
-  float m = NEG_INF, l = 0.f, acc[MAXJ];
+  float m = NEG_INF, l = 0.f, acc[J];
 #pragma unroll
-  for (int j = 0; j < MAXJ; ++j) acc[j] = 0.f;
+  for (int j = 0; j < J; ++j) acc[j] = 0.f;
   const int qp = window > 0 ? q_pos[b] : 0;
 
   // The control flow around the shuffles depends only on block-uniform
@@ -244,8 +257,8 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
     hk::cp_async_wait<NST - 2>();  // stage t has landed (this thread's copies)
     __syncthreads();               // ... and every thread's; stage t-1 consumed
     if (t + NST - 1 < ntiles)
-      issue_stage<T, LCPB>(ring, kb, vb, t + NST - 1, (t + NST - 1) % NST, cls0, len, Dh,
-                           vec != 0);
+      issue_stage<T, LCPB, ES>(ring, kb, vb, t + NST - 1, (t + NST - 1) % NST, cls0, len, Dh,
+                               vec != 0);
     hk::cp_async_commit();
     const T* ks = ring + static_cast<size_t>(t % NST) * 2 * ES * Dh;
     const T* vs = ks + ES * Dh;
@@ -255,12 +268,12 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
       // scores of the batch (the paged kernel's expressions), in
       // straight-line stages so the 8 entries' loads, products and shuffle
       // trees interleave
-      float kr[NBU][MAXJ], sc[NBU];
+      float kr[NBU][J], sc[NBU];
 #pragma unroll
       for (int u = 0; u < NBU; ++u) {
         const int le = ((i0 + u) << LCPB) + lw;
 #pragma unroll
-        for (int j = 0; j < MAXJ; ++j) {
+        for (int j = 0; j < J; ++j) {
           const int d = lane + 32 * j;
           kr[u][j] = d < Dh ? to_f(ks[le * Dh + d]) : 0.f;
         }
@@ -269,7 +282,7 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
       for (int u = 0; u < NBU; ++u) {
         float part_sum = 0.f;
 #pragma unroll
-        for (int j = 0; j < MAXJ; ++j) {
+        for (int j = 0; j < J; ++j) {
           const int d = lane + 32 * j;
           if (d < Dh) part_sum += qv[j] * kr[u][j];
         }
@@ -314,15 +327,15 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
 #pragma unroll
         for (int u = 0; u < NBU; ++u) {
           const int le = ((i0 + u) << LCPB) + lw;
-          float vr[MAXJ];
+          float vr[J];
 #pragma unroll
-          for (int j = 0; j < MAXJ; ++j) {
+          for (int j = 0; j < J; ++j) {
             const int d = lane + 32 * j;
             vr[j] = d < Dh ? to_f(vs[le * Dh + d]) : 0.f;
           }
           l = l * corr[u] + p[u];
 #pragma unroll
-          for (int j = 0; j < MAXJ; ++j) acc[j] = acc[j] * corr[u] + p[u] * vr[j];
+          for (int j = 0; j < J; ++j) acc[j] = acc[j] * corr[u] + p[u] * vr[j];
         }
       } else {
 #pragma unroll
@@ -331,15 +344,15 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
           const int le = ((i0 + u) << LCPB) + lw;
           const float cu = ok ? corr[u] : 1.f;
           const float pu = ok ? p[u] : 0.f;
-          float vr[MAXJ];
+          float vr[J];
 #pragma unroll
-          for (int j = 0; j < MAXJ; ++j) {
+          for (int j = 0; j < J; ++j) {
             const int d = lane + 32 * j;
             vr[j] = !ok ? -0.f : (d < Dh ? to_f(vs[le * Dh + d]) : 0.f);
           }
           l = l * cu + pu;
 #pragma unroll
-          for (int j = 0; j < MAXJ; ++j) acc[j] = acc[j] * cu + pu * vr[j];
+          for (int j = 0; j < J; ++j) acc[j] = acc[j] * cu + pu * vr[j];
         }
       }
     }
@@ -351,7 +364,7 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
   float* acc_dst = acc_scr + static_cast<size_t>(sb) * NCLS * G * Dh;
   float* ml_dst = ml_scr + static_cast<size_t>(sb) * NCLS * G * 2;
 #pragma unroll
-  for (int j = 0; j < MAXJ; ++j) {
+  for (int j = 0; j < J; ++j) {
     const int d = lane + 32 * j;
     if (d < Dh) acc_dst[(cls * G + g) * Dh + d] = acc[j];
   }
@@ -391,14 +404,14 @@ struct Args {
   int B, S, C, Dh; float attn_cap; int window;
 };
 
-template <typename T, int G, bool FULL>
+template <typename T, int G, int J, bool FULL>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kernel = fairkv_decode_kernel<T, G, FULL>;
+  auto kernel = fairkv_decode_kernel<T, G, J, FULL>;
   static bool opted_in = false;  // the ring needs more than the 48 KB default
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(layout<T>(G, 32 * MAXJ).total));
+        static_cast<int>(layout<T, J>(G, 32 * J).total));
     if (e != cudaSuccess) return e;
     opted_in = true;
   }
@@ -408,23 +421,29 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                   reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
   float* ml_scr = a.scratch + static_cast<size_t>(a.S) * a.B * NCLS * G * a.Dh;
   const dim3 grid(a.S * a.B, G);
-  kernel<<<grid, NWARPS * 32, layout<T>(G, a.Dh).total, stream>>>(
+  kernel<<<grid, NWARPS * 32, layout<T, J>(G, a.Dh).total, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       a.lengths, a.k_pos, a.q_pos, static_cast<T*>(a.out), a.scratch, ml_scr, a.counters,
       a.B, a.S, a.C, a.Dh, scale, a.attn_cap, a.window, vec);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch_g(int G, const Args& a, cudaStream_t st) {
-  const bool full = a.Dh == 32 * MAXJ;
+template <typename T, int J, bool FULL>
+cudaError_t dispatch_j(int G, const Args& a, cudaStream_t st) {
   switch (G) {
-    case 1: return full ? launch<T, 1, true>(a, st) : launch<T, 1, false>(a, st);
-    case 2: return full ? launch<T, 2, true>(a, st) : launch<T, 2, false>(a, st);
-    case 4: return full ? launch<T, 4, true>(a, st) : launch<T, 4, false>(a, st);
-    case 8: return full ? launch<T, 8, true>(a, st) : launch<T, 8, false>(a, st);
+    case 1: return launch<T, 1, J, FULL>(a, st);
+    case 2: return launch<T, 2, J, FULL>(a, st);
+    case 4: return launch<T, 4, J, FULL>(a, st);
+    case 8: return launch<T, 8, J, FULL>(a, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Dh = 256: J = 8; Dh = 128: J = 4, FULL; below: J = 4 with lane guards
+template <typename T>
+cudaError_t dispatch_g(int G, const Args& a, cudaStream_t st) {
+  if (a.Dh == 256) return dispatch_j<T, 8, true>(G, a, st);
+  return a.Dh == 128 ? dispatch_j<T, 4, true>(G, a, st) : dispatch_j<T, 4, false>(G, a, st);
 }
 
 }  // namespace
@@ -446,7 +465,8 @@ int fairkv_decode_launch(const void* q, const void* k, const void* v,
                          void* out, float* scratch, int* counters,
                          int B, int S, int G, int C, int Dh,
                          float attn_cap, int window, int dtype, void* stream) {
-  if (Dh < 1 || Dh > 32 * MAXJ || B < 1 || S < 1 || C < 1) return cudaErrorInvalidValue;
+  if (Dh < 1 || (Dh > 128 && Dh != 32 * MAXJ) || B < 1 || S < 1 || C < 1)
+    return cudaErrorInvalidValue;
   const Args a{q, k, v, lengths, k_pos, q_pos, out, scratch, counters,
                B, S, C, Dh, attn_cap, window};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -48,7 +48,15 @@
 //   - each block writes its chains' states to scratch; the last block of a
 //     (slot, row, chunk) to arrive (a per-pair atomic counter after
 //     __threadfence, reset for the next launch) merges the 8 classes in
-//     order, so one launch suffices.
+//     order, so one launch suffices;
+//   - head dims up to 128, and 256: a lane owns J = 4 elements of a row
+//     up to Dh = 128 and J = 8 at 256 (FULL only), the slot kernel's
+//     split, so the two still reduce in the same order.  At J = 8 a warp's q and acc for its
+//     QW G rows double, so it scores half as many entries per batch, and
+//     with two or more queries per warp it is budgeted one block per SM
+//     (255 registers) rather than spill; a ring stage keeps its 8 entries
+//     (one per column class at G = 1), so the ring's bytes double (64 KB
+//     at bf16).
 // Every (slot, row, query, head) gets the same floating-point operations in
 // the same order as the slot kernel's (slot, row, head): column class
 // c mod 8 is one online-softmax chain (entries in increasing c; lane d =
@@ -81,7 +89,7 @@ namespace {  // internal linkage: each library keeps its own instantiations
 
 
 constexpr int NWARPS = 8;
-constexpr int MAXJ = 4;             // Dh <= 128: lane owns d = lane + 32 * j, j < MAXJ
+constexpr int MAXJ = 8;             // Dh = 256: lane owns d = lane + 32 * j, j < J <= MAXJ
 constexpr int NCLS = 8;             // column classes c mod 8
 constexpr int ES = 8;               // block entries per ring stage
 constexpr int NST = 8;              // ring stages
@@ -274,8 +282,8 @@ __device__ __forceinline__ void issue_stage(unsigned char* ring, const Stage& SL
 // The kernel body.  TQ: query / output type (float, bf16).  TKV: pool
 // element type (float, bf16, or int8 codes, which reads scales and kinds).
 // G: query heads per kv head.  QW: queries per warp (the chunk width).
-// FULL: Dh = 128.
-template <typename TQ, typename TKV, int G, int QW, bool FULL>
+// J: elements of a row per lane (4: Dh <= 128, 8: Dh = 256).  FULL: Dh = 32 J.
+template <typename TQ, typename TKV, int G, int QW, int J, bool FULL>
 __device__ __forceinline__ void
 decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
             const TKV* __restrict__ k_pool,     // (N, bs, Dh)
@@ -300,11 +308,12 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
   constexpr int PER = ES / CPB;  // a chain's entries in one stage
   // entries a warp scores before it updates: fewer as QW grows, so the
   // (query, entry) states fit in the registers without spilling (the
-  // quantized and the generic-Dh paths hold more state)
-  constexpr int NB = QW <= 2 ? 8 : (QW == 3 || !(QUANT || !FULL)) ? 4 : 2;
+  // quantized and the generic-Dh paths hold more state); half at J = 8
+  constexpr int NB = J == 4 ? (QW <= 2 ? 8 : (QW == 3 || !(QUANT || !FULL)) ? 4 : 2)
+                            : (QW <= 2 ? 4 : 2);
   constexpr int NBU = PER < NB ? PER : NB;
-  constexpr int R = QW * G;                 // (query, head) rows of a chunk
-  const int Dh = FULL ? 32 * MAXJ : Dh_in;  // FULL: the lane guards fold away
+  constexpr int R = QW * G;              // (query, head) rows of a chunk
+  const int Dh = FULL ? 32 * J : Dh_in;  // FULL: the lane guards fold away
   extern __shared__ __align__(16) unsigned char smem[];
   const int sb = blockIdx.x;  // s * B + b
   const int part = blockIdx.y;
@@ -362,22 +371,22 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
   // the first stages' copies
   const int limq = lim0 + q0, thrq = qp + q0 - window;
   auto qw = [nq](int i) { return min(i, nq - 1); };
-  float qv[QW][MAXJ];
+  float qv[QW][J];
 #pragma unroll
   for (int i = 0; i < QW; ++i) {
 #pragma unroll
-    for (int j = 0; j < MAXJ; ++j) {
+    for (int j = 0; j < J; ++j) {
       const int d = lane + 32 * j;
       qv[i][j] = d < Dh ? to_f(q[((qrow0 + qw(i)) * G + g) * Dh + d]) : 0.f;
     }
   }
-  float m[QW], l[QW], acc[QW][MAXJ];
+  float m[QW], l[QW], acc[QW][J];
 #pragma unroll
   for (int i = 0; i < QW; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < MAXJ; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < J; ++j) acc[i][j] = 0.f;
   }
 
   // The control flow around the shuffles depends only on block-uniform
@@ -404,13 +413,13 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
       // loads, products and shuffle trees interleave: x = the dot product
       // (no softcap) or tanh(x * scale / cap), and the score s = a * x
       // with a = scale or cap
-      float kr[NBU][MAXJ], x[QW][NBU];
+      float kr[NBU][J], x[QW][NBU];
 #pragma unroll
       for (int u = 0; u < NBU; ++u) {
         const int le = ((i0 + u) << LCPB) + lw;
         const float ksc = QUANT ? kss[le] : 1.f;
 #pragma unroll
-        for (int j = 0; j < MAXJ; ++j) {
+        for (int j = 0; j < J; ++j) {
           const int d = lane + 32 * j;
           kr[u][j] = d < Dh ? pool_f(ks[le * Dh + d], kind, ksc) : 0.f;
         }
@@ -421,7 +430,7 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
         for (int u = 0; u < NBU; ++u) {
           float part_sum = 0.f;
 #pragma unroll
-          for (int j = 0; j < MAXJ; ++j) {
+          for (int j = 0; j < J; ++j) {
             const int d = lane + 32 * j;
             if (d < Dh) part_sum = __fmaf_rn(qv[i][j], kr[u][j], part_sum);
           }
@@ -481,9 +490,9 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
         for (int u = 0; u < NBU; ++u) {
           const int le = ((i0 + u) << LCPB) + lw;
           const float vsc = QUANT ? vss[le] : 1.f;
-          float vr[MAXJ];
+          float vr[J];
 #pragma unroll
-          for (int j = 0; j < MAXJ; ++j) {
+          for (int j = 0; j < J; ++j) {
             const int d = lane + 32 * j;
             vr[j] = d < Dh ? pool_f(vs[le * Dh + d], kind, vsc) : 0.f;
           }
@@ -494,7 +503,7 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
             const float pu = ok ? p[i][u] : 0.f;
             l[i] = __fmaf_rn(l[i], cu, pu);
 #pragma unroll
-            for (int j = 0; j < MAXJ; ++j) {
+            for (int j = 0; j < J; ++j) {
               const float vj = ok ? vr[j] : -0.f;
               acc[i][j] = __fmaf_rn(acc[i][j], cu, __fmul_rn(pu, vj));
             }
@@ -519,7 +528,7 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
     if (i < nq) {
       const int r = cls * R + i * G + g;
 #pragma unroll
-      for (int j = 0; j < MAXJ; ++j) {
+      for (int j = 0; j < J; ++j) {
         const int d = lane + 32 * j;
         if (d < Dh) acc_dst[r * Dh + d] = acc[i][j];
       }
@@ -577,32 +586,33 @@ using KernelFn = void (*)(const TQ*, const TKV*, const TKV*, const int*, const i
                           int, int, float, float, int, int);
 
 // Blocks per SM the registers are budgeted for: two (128 registers a
-// thread), but one for quantized pools at a generic Dh with 4-5 queries per
-// warp, whose state does not fit in 128 registers.
-template <typename TKV, int QW, bool FULL>
+// thread), but one where a warp's state does not fit in 128 registers:
+// quantized pools at a generic Dh with 4-5 queries per warp, and J = 8
+// (Dh > 128) with two or more queries per warp.
+template <typename TKV, int QW, int J, bool FULL>
 constexpr int min_blocks() {
-  return sizeof(TKV) == 1 && !FULL && QW >= 4 ? 1 : 2;
+  return (sizeof(TKV) == 1 && !FULL && QW >= 4) || (J == 8 && QW >= 2) ? 1 : 2;
 }
 
-template <typename TQ, typename TKV, int G, int QW, bool FULL, typename... A>
-__global__ void __launch_bounds__(NWARPS * 32, (min_blocks<TKV, QW, FULL>()))
+template <typename TQ, typename TKV, int G, int QW, int J, bool FULL, typename... A>
+__global__ void __launch_bounds__(NWARPS * 32, (min_blocks<TKV, QW, J, FULL>()))
 paged_decode_kernel(A... args) {
-  decode_body<TQ, TKV, G, QW, FULL>(args...);
+  decode_body<TQ, TKV, G, QW, J, FULL>(args...);
 }
 
-template <typename TQ, typename TKV, int G, int QW, bool FULL, typename... A>
-__global__ void __launch_bounds__(NWARPS * 32, (min_blocks<TKV, QW, FULL>()))
+template <typename TQ, typename TKV, int G, int QW, int J, bool FULL, typename... A>
+__global__ void __launch_bounds__(NWARPS * 32, (min_blocks<TKV, QW, J, FULL>()))
 paged_decode_mq_kernel(A... args) {
-  decode_body<TQ, TKV, G, QW, FULL>(args...);
+  decode_body<TQ, TKV, G, QW, J, FULL>(args...);
 }
 
-template <bool MQ, typename TQ, typename TKV, int G, int QW, bool FULL>
+template <bool MQ, typename TQ, typename TKV, int G, int QW, int J, bool FULL>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   KernelFn<TQ, TKV> kernel;
   if constexpr (MQ)
-    kernel = paged_decode_mq_kernel<TQ, TKV, G, QW, FULL>;
+    kernel = paged_decode_mq_kernel<TQ, TKV, G, QW, J, FULL>;
   else
-    kernel = paged_decode_kernel<TQ, TKV, G, QW, FULL>;
+    kernel = paged_decode_kernel<TQ, TKV, G, QW, J, FULL>;
   const size_t smem = layout<TKV>(QW * G, (a.capacity + a.bs - 1) / a.bs, a.Dh).total;
   static size_t opted = 48 * 1024;  // above 48 KB only as opted-in dynamic shared memory
   if (smem > opted) {
@@ -627,20 +637,24 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <bool MQ, typename TQ, typename TKV, int QW>
-cudaError_t dispatch_g(int G, const Args& a, cudaStream_t st) {
-  const bool full = a.Dh == 32 * MAXJ;
+template <bool MQ, typename TQ, typename TKV, int QW, int J, bool FULL>
+cudaError_t dispatch_j(int G, const Args& a, cudaStream_t st) {
   switch (G) {
-    case 1: return full ? launch<MQ, TQ, TKV, 1, QW, true>(a, st)
-                        : launch<MQ, TQ, TKV, 1, QW, false>(a, st);
-    case 2: return full ? launch<MQ, TQ, TKV, 2, QW, true>(a, st)
-                        : launch<MQ, TQ, TKV, 2, QW, false>(a, st);
-    case 4: return full ? launch<MQ, TQ, TKV, 4, QW, true>(a, st)
-                        : launch<MQ, TQ, TKV, 4, QW, false>(a, st);
-    case 8: return full ? launch<MQ, TQ, TKV, 8, QW, true>(a, st)
-                        : launch<MQ, TQ, TKV, 8, QW, false>(a, st);
+    case 1: return launch<MQ, TQ, TKV, 1, QW, J, FULL>(a, st);
+    case 2: return launch<MQ, TQ, TKV, 2, QW, J, FULL>(a, st);
+    case 4: return launch<MQ, TQ, TKV, 4, QW, J, FULL>(a, st);
+    case 8: return launch<MQ, TQ, TKV, 8, QW, J, FULL>(a, st);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// the slot kernel's variants: Dh = 256: J = 8; Dh = 128: J = 4, FULL;
+// below: J = 4 with lane guards
+template <bool MQ, typename TQ, typename TKV, int QW>
+cudaError_t dispatch_g(int G, const Args& a, cudaStream_t st) {
+  if (a.Dh == 256) return dispatch_j<MQ, TQ, TKV, QW, 8, true>(G, a, st);
+  return a.Dh == 128 ? dispatch_j<MQ, TQ, TKV, QW, 4, true>(G, a, st)
+                     : dispatch_j<MQ, TQ, TKV, QW, 4, false>(G, a, st);
 }
 
 // q_dtype: 0 = float32, 1 = bfloat16 (q and out).  pool_dtype: 0 = float32,
@@ -649,7 +663,7 @@ cudaError_t dispatch_g(int G, const Args& a, cudaStream_t st) {
 // MQ: the multi-query entry point's kernel name
 template <bool MQ, int QW>
 cudaError_t dispatch(int G, const Args& a, int q_dtype, int pool_dtype, cudaStream_t st) {
-  if (a.Dh < 1 || a.Dh > 32 * MAXJ || a.B < 1 || a.S < 1 || a.Q < 1 || a.Q * G > MAX_QUERY_ROWS
+  if (a.Dh < 1 || (a.Dh > 128 && a.Dh != 32 * MAXJ) || a.B < 1 || a.S < 1 || a.Q < 1 || a.Q * G > MAX_QUERY_ROWS
       || a.M < 1 || a.bs < 1 || a.capacity < 1 || a.capacity > a.M * a.bs)
     return cudaErrorInvalidValue;
   if (pool_dtype == 2) {
@@ -666,3 +680,26 @@ cudaError_t dispatch(int G, const Args& a, int q_dtype, int pool_dtype, cudaStre
 
 }  // namespace
 }  // namespace paged
+
+// The multi-query launcher's C signature (paged_fairkv_decode_mq.cu), and
+// its part for one chunk width QW: paged_fairkv_decode_mq_w<QW>.cu each
+// define one, so the multi-query library's instantiations compile as
+// parallel translation units.
+#define PAGED_MQ_PARAMS                                                                    \
+  const void *q, const void *k_pool, const void *v_pool, const int *pos_pool,             \
+      const int *table, const int *lengths, const int *q_pos, const int *q_lens,          \
+      const float *k_scale, const float *v_scale, const int *kinds, void *out,            \
+      float *scratch, int *counters, int B, int S, int Q, int G, int M, int bs, int Dh,   \
+      int capacity, float attn_cap, int window, int q_dtype, int pool_dtype, void *stream
+#define PAGED_MQ_ARGS                                                                      \
+  q, k_pool, v_pool, pos_pool, table, lengths, q_pos, q_lens, k_scale, v_scale, kinds,    \
+      out, scratch, counters, B, S, Q, G, M, bs, Dh, capacity, attn_cap, window, q_dtype, \
+      pool_dtype, stream
+#define PAGED_MQ_PART(QW)                                                                  \
+  extern "C" int paged_fairkv_decode_mq_launch_w##QW(PAGED_MQ_PARAMS) {                    \
+    const paged::Args a{q, k_pool, v_pool, pos_pool, table, lengths, q_pos, q_lens,       \
+                        k_scale, v_scale, kinds, out, scratch, counters,                  \
+                        B, S, Q, M, bs, Dh, capacity, attn_cap, window};                  \
+    return paged::dispatch<true, QW>(G, a, q_dtype, pool_dtype,                           \
+                                     static_cast<cudaStream_t>(stream));                  \
+  }

@@ -5,8 +5,10 @@
 // Replaces the TPU kernel `_paged_decode_pallas_mq` (src/repro/kernels/
 // paged_fairkv_decode.py, body `_mq_kernel`), the 5-D branch of
 // `paged_fairkv_decode_pallas`.  It instantiates the kernel body in
-// paged_decode.cuh for every chunk width up to QMAX queries per warp; its
-// Q = 1 instantiation is the single-query kernel's
+// paged_decode.cuh for every chunk width up to QMAX queries per warp, one
+// translation unit per width (paged_fairkv_decode_mq_w1.cu .. _w5.cu,
+// compiled in parallel and linked into this library); this one picks the
+// width.  Its Q = 1 instantiation is the single-query kernel's
 // (paged_fairkv_decode.cu).  The header notes the semantics, the design and
 // what bounds it.
 #include "paged_decode.cuh"
@@ -22,30 +24,25 @@ int paged_fairkv_decode_mq_counters(int B, int S, int Q) {
   return S * B * paged::n_chunks(Q);
 }
 
+// the parts for each chunk width (paged_fairkv_decode_mq_w<QW>.cu)
+int paged_fairkv_decode_mq_launch_w1(PAGED_MQ_PARAMS);
+int paged_fairkv_decode_mq_launch_w2(PAGED_MQ_PARAMS);
+int paged_fairkv_decode_mq_launch_w3(PAGED_MQ_PARAMS);
+int paged_fairkv_decode_mq_launch_w4(PAGED_MQ_PARAMS);
+int paged_fairkv_decode_mq_launch_w5(PAGED_MQ_PARAMS);
+
 // q (B, S, Q, G, Dh), out likewise; Q * G <= MAX_QUERY_ROWS.  q_lens may
 // be null (every row has Q valid queries); otherwise as
 // paged_fairkv_decode_launch, with counters holding
 // paged_fairkv_decode_mq_counters ints.
-int paged_fairkv_decode_mq_launch(const void* q, const void* k_pool, const void* v_pool,
-                                  const int* pos_pool, const int* table,
-                                  const int* lengths, const int* q_pos,
-                                  const int* q_lens, const float* k_scale,
-                                  const float* v_scale, const int* kinds, void* out,
-                                  float* scratch, int* counters,
-                                  int B, int S, int Q, int G, int M, int bs, int Dh,
-                                  int capacity, float attn_cap, int window, int q_dtype,
-                                  int pool_dtype, void* stream) {
-  const paged::Args a{q, k_pool, v_pool, pos_pool, table, lengths, q_pos, q_lens,
-                      k_scale, v_scale, kinds, out, scratch, counters,
-                      B, S, Q, M, bs, Dh, capacity, attn_cap, window};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+int paged_fairkv_decode_mq_launch(PAGED_MQ_PARAMS) {
   if (Q < 1) return cudaErrorInvalidValue;
   switch (paged::chunk_width(Q)) {
-    case 1: return paged::dispatch<true, 1>(G, a, q_dtype, pool_dtype, st);
-    case 2: return paged::dispatch<true, 2>(G, a, q_dtype, pool_dtype, st);
-    case 3: return paged::dispatch<true, 3>(G, a, q_dtype, pool_dtype, st);
-    case 4: return paged::dispatch<true, 4>(G, a, q_dtype, pool_dtype, st);
-    case 5: return paged::dispatch<true, 5>(G, a, q_dtype, pool_dtype, st);
+    case 1: return paged_fairkv_decode_mq_launch_w1(PAGED_MQ_ARGS);
+    case 2: return paged_fairkv_decode_mq_launch_w2(PAGED_MQ_ARGS);
+    case 3: return paged_fairkv_decode_mq_launch_w3(PAGED_MQ_ARGS);
+    case 4: return paged_fairkv_decode_mq_launch_w4(PAGED_MQ_ARGS);
+    case 5: return paged_fairkv_decode_mq_launch_w5(PAGED_MQ_ARGS);
     default: return cudaErrorInvalidValue;
   }
 }

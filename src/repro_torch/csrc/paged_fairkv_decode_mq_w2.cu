@@ -1,0 +1,7 @@
+// paged_fairkv_decode_mq_w2: the multi-query kernel's instantiations for
+// chunks of 2 queries per warp, a translation unit of its own so that the
+// multi-query library's instantiations compile in parallel;
+// paged_fairkv_decode_mq.cu picks the width and calls it.
+#include "paged_decode.cuh"
+
+PAGED_MQ_PART(2)

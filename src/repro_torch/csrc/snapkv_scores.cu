@@ -34,15 +34,20 @@
 //       Σ_r exp(s - m_r) / l_r, reduced with shuffles inside the fragment
 //       layout and then across warps through shared memory in a fixed
 //       order.
-// In both, a block stages a chunk of 128 query rows in shared memory once
-// and streams K through a 3-stage ring, all with cp.async copies; two
-// blocks fit on an SM (at most 128 registers).  Each of the 8 warps owns
-// 16 rows.  bf16 inputs (the main path) form each 16 x 64 score tile on
-// the tensor cores with mma.sync.m16n8k16 (bf16 products are exact in fp32
-// and summed in fp32), the query fragments held in registers for the whole
-// key range and the key fragments read with ldmatrix; fp32 inputs keep
-// fp32 products on the CUDA cores (TF32 would lose the fp32 bar), in the
-// same fragment layout, so both share the softmax epilogues.  Those work
+// In both, a block streams K through a 3-stage ring with cp.async copies,
+// and each of its 8 warps owns 16 of a chunk of 128 query rows.  bf16
+// inputs (the main path) stage the chunk's rows in shared memory once and
+// form each 16 x 64 score tile on the tensor cores with mma.sync.m16n8k16
+// (bf16 products are exact in fp32 and summed in fp32), the query
+// fragments held in registers for the whole key range (KS k-steps of 16:
+// 8 up to Dh = 128, where two blocks fit on an SM at most 128 registers,
+// and 16 up to Dh = 256, where the 66 KiB chunk and the 100 KiB ring leave
+// room for one, which may use 255 registers) and the key fragments read
+// with ldmatrix; fp32 inputs keep fp32 products on the CUDA cores (TF32
+// would lose the fp32 bar), in the same fragment layout, so both share the
+// softmax epilogues, and read their query rows from global memory through
+// L1: a staged fp32 chunk at Dh = 256 (130 KiB) beside the ring (196 KiB)
+// would not fit in one block's 227 KiB.  Those work
 // in base-2 units (scores times log2 e, one ex2.approx per probability;
 // the statistics never leave the kernel), and a masked score becomes
 // -1e30, whose ex2 against any finite max is 0.  R > 128 loops over row
@@ -62,7 +67,7 @@ constexpr int RT = 128;       // query rows per chunk (8 warps x 16)
 constexpr int NTHREADS = 256;
 constexpr int NWARPS = NTHREADS / 32;
 constexpr int NST = 3;        // K ring stages
-constexpr int MAXKS = 8;      // Dh <= 128: at most 8 k-steps of 16
+constexpr int MAXKS = 16;     // Dh <= 256: at most 16 k-steps of 16
 constexpr int TARGET_BLOCKS = 2 * 132;  // about two blocks per SM
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -80,13 +85,13 @@ __host__ __device__ inline int ld_of(int Dh) {
 struct Layout {
   size_t ring, opos, mrow, inv, red, total;
 };
-// q chunk (RT x ld) | ring NST x (K tile TT x ld, k_pos TT) | obs_pos (W) |
-// merged m, 1/l per row (RT each) | column partials (NWARPS x TT)
+// q chunk (RT x ld, bf16 only) | ring NST x (K tile TT x ld, k_pos TT) |
+// obs_pos (W) | merged m, 1/l per row (RT each) | column partials (NWARPS x TT)
 template <typename T>
 __host__ __device__ inline Layout layout(int Dh, int W) {
   const size_t ld = ld_of<T>(Dh);
   Layout s;
-  s.ring = align16(RT * ld * sizeof(T));
+  s.ring = sizeof(T) == 2 ? align16(RT * ld * sizeof(T)) : 0;
   const size_t slot = align16(TT * ld * sizeof(T)) + TT * sizeof(int);
   s.opos = s.ring + NST * slot;
   s.mrow = s.opos + align16(static_cast<size_t>(W) * sizeof(int));
@@ -163,17 +168,18 @@ __device__ __forceinline__ void issue_tile(unsigned char* ring, const T* __restr
 }
 
 // acc[nt][e] += q row (warp*16 + lane/4 + 8*(e/2)) · key (nt*8 + 2*(lane%4) + e%2)
-// of the staged chunk and key tile (the mma accumulator layout)
-__device__ __forceinline__ void tile_product(float (&acc)[8][4], const uint32_t (&af)[MAXKS][4],
-                                             const float* /*q_s*/, const __nv_bfloat16* ks,
-                                             int ld, int nks) {
+// of the chunk and key tile (the mma accumulator layout)
+template <int KS>
+__device__ __forceinline__ void tile_product(float (&acc)[8][4], const uint32_t (&af)[KS][4],
+                                             const float*, const float*,
+                                             const __nv_bfloat16* ks, int ld, int nks) {
   const int lane = threadIdx.x & 31;
   // ldmatrix.x4: lanes 8i .. 8i+7 address the rows of matrix i = (n-tile
   // nt + i/2, k half i%2), which land in the B fragments of two n-tiles
   const int mi = lane >> 3;
   const __nv_bfloat16* kbase = ks + ((mi >> 1) * 8 + (lane & 7)) * ld + (mi & 1) * 8;
 #pragma unroll
-  for (int kk = 0; kk < MAXKS; ++kk) {
+  for (int kk = 0; kk < KS; ++kk) {
     if (kk >= nks) break;
 #pragma unroll
     for (int nt = 0; nt < 8; nt += 2) {
@@ -185,17 +191,20 @@ __device__ __forceinline__ void tile_product(float (&acc)[8][4], const uint32_t 
   }
 }
 
-__device__ __forceinline__ void tile_product(float (&acc)[8][4], const uint32_t (&)[MAXKS][4],
-                                             const float* q_s, const float* ks, int ld, int Dh) {
+// fp32: qa / qb are this thread's two query rows in global memory, null
+// for a row past R (zeros)
+template <int KS>
+__device__ __forceinline__ void tile_product(float (&acc)[8][4], const uint32_t (&)[KS][4],
+                                             const float* __restrict__ qa,
+                                             const float* __restrict__ qb,
+                                             const float* ks, int ld, int Dh) {
   const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int gid = lane >> 2, tig = lane & 3;
-  const float* qa = q_s + (warp * 16 + gid) * ld;
-  const float* qb = qa + 8 * ld;
+  const int tig = lane & 3;
   const float* kr = ks + (tig * 2) * ld;
 #pragma unroll 2
   for (int d = 0; d < Dh; ++d) {
-    const float a = qa[d], c = qb[d];
+    const float a = qa != nullptr ? __ldg(qa + d) : 0.f;
+    const float c = qb != nullptr ? __ldg(qb + d) : 0.f;
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
       const float k0 = kr[(nt * 8) * ld + d], k1 = kr[(nt * 8 + 1) * ld + d];
@@ -207,8 +216,11 @@ __device__ __forceinline__ void tile_product(float (&acc)[8][4], const uint32_t 
   }
 }
 
-template <typename T, bool EMIT>
-__global__ void __launch_bounds__(NTHREADS, 2)
+// KS: the bf16 query fragments' k-steps (8: Dh <= 128, two blocks per SM;
+// 16: Dh <= 256, one); fp32 instantiates KS = 8 only (no fragments) and is
+// budgeted one block per SM (its global query rows spilled at 128 registers)
+template <typename T, bool EMIT, int KS>
+__global__ void __launch_bounds__(NTHREADS, KS == 8 && sizeof(T) == 2 ? 2 : 1)
 snapkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
               const int* __restrict__ obs_pos, const int* __restrict__ k_pos,
               float* __restrict__ part,  // (B*Hkv, R, nsplit, 2): written, then read
@@ -236,9 +248,10 @@ snapkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = threadIdx.x; i < p.W; i += blockDim.x) opos_s[i] = obs_pos[b * p.W + i];
   for (int r0 = 0; r0 < R; r0 += RT) {
     __syncthreads();  // the previous chunk is done with q_s, the ring and red_s
-    // stage the chunk's query rows (zeros past R and in the padding): the
-    // oldest cp.async group, then the first key tiles
-    {
+    // stage the chunk's query rows (bf16; zeros past R and in the
+    // padding): the oldest cp.async group (empty for fp32), then the first
+    // key tiles
+    if constexpr (sizeof(T) == 2) {
       const int epc = p.vec ? 16 / static_cast<int>(sizeof(T)) : 1;  // elements per copy
       const int cpr = DhP / epc;
       auto stage = [&](int rr, int d) {
@@ -310,10 +323,12 @@ snapkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // rows past R see no key
     const int opa = ra < R ? opos_s[ra / p.G] : INT_MIN;
     const int opb = rb < R ? opos_s[rb / p.G] : INT_MIN;
-    uint32_t af[MAXKS][4];
+    uint32_t af[KS][4];
+    const float* qga = nullptr;  // fp32: this thread's query rows in global memory
+    const float* qgb = nullptr;
     if constexpr (sizeof(T) == 2) {  // query fragments stay in registers
 #pragma unroll
-      for (int kk = 0; kk < MAXKS; ++kk) {
+      for (int kk = 0; kk < KS; ++kk) {
         if (kk * 16 >= DhP) break;
         const T* qa = q_s + (warp * 16 + gid) * ld + kk * 16 + tig * 2;
         af[kk][0] = *reinterpret_cast<const uint32_t*>(qa);
@@ -321,6 +336,15 @@ snapkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
         af[kk][2] = *reinterpret_cast<const uint32_t*>(qa + 8);
         af[kk][3] = *reinterpret_cast<const uint32_t*>(qa + 8 * ld + 8);
       }
+    } else {
+      auto row = [&](int r) -> const float* {
+        if (r >= R) return nullptr;
+        const int w = r / p.G, g = r - w * p.G;
+        return reinterpret_cast<const float*>(q) +
+               ((static_cast<size_t>(b) * p.W + w) * p.Hq + h * p.G + g) * p.Dh;
+      };
+      qga = row(ra);
+      qgb = row(rb);
     }
     float ma = NEG_INF, la = 0.f, mb = NEG_INF, lb = 0.f;  // pass 1 row state
     float mra = 0.f, iva = 0.f, mrb = 0.f, ivb = 0.f;      // emit: merged row stats
@@ -350,9 +374,9 @@ snapkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
       // below): a warp-dependent branch around mma.sync would make the
       // compiler wrap it in convergence barriers
       if constexpr (sizeof(T) == 2)
-        tile_product(acc, af, nullptr, ks, ld, DhP / 16);
+        tile_product<KS>(acc, af, nullptr, nullptr, ks, ld, DhP / 16);
       else
-        tile_product(acc, af, q_s, ks, ld, p.Dh);
+        tile_product<KS>(acc, af, qga, qgb, ks, ld, p.Dh);
       // scale and cap, in base-2 units (one ex2 per probability); a masked
       // score becomes NEG_INF, whose ex2 against any finite max is 0
       int kp[8][2];  // positions of this thread's 16 keys (INT_MAX past T)
@@ -435,7 +459,7 @@ inline void split_plan(int B, int Hkv, int T_len, int* tps, int* splits) {
   *splits = (ntiles + *tps - 1) / *tps;
 }
 
-template <typename T>
+template <typename T, int KS>
 cudaError_t launch(const void* q, const void* k, const int* obs_pos, const int* k_pos,
                    float* part, float* out, int B, int W, int Hq, int Hkv, int T_len,
                    int Dh, float attn_cap, cudaStream_t st) {
@@ -447,20 +471,21 @@ cudaError_t launch(const void* q, const void* k, const int* obs_pos, const int* 
                   reinterpret_cast<uintptr_t>(q) % 16 == 0;
   const Params p{W, Hq, Hkv, T_len, Dh, Hq / Hkv, tps, vec,
                  1.0f / sqrtf(static_cast<float>(Dh)), attn_cap};
-  cudaError_t e = cudaFuncSetAttribute(snapkv_kernel<T, false>,
+  cudaError_t e = cudaFuncSetAttribute(snapkv_kernel<T, false, KS>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        static_cast<int>(smem));
   if (e != cudaSuccess) return e;
-  e = cudaFuncSetAttribute(snapkv_kernel<T, true>,
+  e = cudaFuncSetAttribute(snapkv_kernel<T, true, KS>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (e != cudaSuccess) return e;
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
   const dim3 grid(B * Hkv, splits);
-  snapkv_kernel<T, false><<<grid, NTHREADS, smem, st>>>(qt, kt, obs_pos, k_pos, part, out, p);
+  snapkv_kernel<T, false, KS><<<grid, NTHREADS, smem, st>>>(qt, kt, obs_pos, k_pos, part, out,
+                                                            p);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  snapkv_kernel<T, true><<<grid, NTHREADS, smem, st>>>(qt, kt, obs_pos, k_pos, part, out, p);
+  snapkv_kernel<T, true, KS><<<grid, NTHREADS, smem, st>>>(qt, kt, obs_pos, k_pos, part, out, p);
   return cudaGetLastError();
 }
 
@@ -492,10 +517,14 @@ int snapkv_scores_launch(const void* q, const void* k, const int* obs_pos, const
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, obs_pos, k_pos, part, out, B, W, Hq, Hkv, T_len, Dh, attn_cap, st);
+    return launch<float, 8>(q, k, obs_pos, k_pos, part, out, B, W, Hq, Hkv, T_len, Dh, attn_cap,
+                            st);
+  if (dtype == 1 && Dh <= 128)
+    return launch<__nv_bfloat16, 8>(q, k, obs_pos, k_pos, part, out, B, W, Hq, Hkv, T_len, Dh,
+                                    attn_cap, st);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, obs_pos, k_pos, part, out, B, W, Hq, Hkv, T_len, Dh,
-                                 attn_cap, st);
+    return launch<__nv_bfloat16, 16>(q, k, obs_pos, k_pos, part, out, B, W, Hq, Hkv, T_len, Dh,
+                                     attn_cap, st);
   return cudaErrorInvalidValue;
 }
 

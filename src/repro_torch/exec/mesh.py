@@ -41,11 +41,13 @@ machinery (graphs keyed by their state's storage).  gloo collectives run on
 the host, so on gloo every step is eager and ``graphs=True`` raises.
 
 Constraints, checked: a mesh is required; dense decoder-only models only
-(MoE's capacity-bounded dispatch sizes expert capacity from the global
-token count, so a data-sharded batch would drop differently); slot
-weights unquantized; ``S % model == 0``; the decode and speculative batch
-a multiple of ``data``.  The reference's ``_slot_rms_norm`` all-reduce
-belongs to the families with an attention-output norm (ROADMAP A.11).
+(qwen1.5's slot biases shard over ``model`` with the slot weights and
+prefill gathers them with the weights; MoE's capacity-bounded dispatch
+sizes expert capacity from the global token count, so a data-sharded batch
+would drop differently); slot weights unquantized; ``S % model == 0``; the
+decode and speculative batch a multiple of ``data``.  The reference's
+``_slot_rms_norm`` all-reduce belongs to the hybrid family's
+attention-output norm (ROADMAP A.11.4).
 """
 from __future__ import annotations
 

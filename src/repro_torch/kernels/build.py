@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
-library with a plain C interface and loaded with ``ctypes``.  The build
-happens at first use, from the repository's sources only, into ``build/``
-at the repository root; the file name carries a hash of the source, the
-shared headers and the flags, so an edited source or header is rebuilt and
-an unchanged one is reused.
+Each kernel's sources (``csrc/<name>.cu``, and for the multi-query kernel
+one more translation unit per chunk width) are compiled by ``nvcc`` for
+``sm_90a``, every translation unit of every library in parallel, and linked
+into a shared library with a plain C interface, loaded with ``ctypes``.
+The build happens at first use, from the repository's sources only, into
+``build/`` at the repository root; the file name carries a hash of the
+sources, the shared headers and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused.
 
 ``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that a path went
@@ -19,15 +21,21 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
 KERNELS = ("fairkv_decode", "snapkv_scores", "paged_fairkv_decode",
            "paged_fairkv_decode_mq")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# translation units per library: the multi-query kernel's chunk widths
+# compile apart (its instantiations are most of the build's time)
+SOURCES: Dict[str, Tuple[str, ...]] = {name: (f"{name}.cu",) for name in KERNELS}
+SOURCES["paged_fairkv_decode_mq"] += tuple(
+    f"paged_fairkv_decode_mq_w{w}.cu" for w in range(1, 6))
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -49,41 +57,67 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    """The library of kernel ``name``; its file name hashes the source, every
-    shared header (``csrc/*.cuh``) and the flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """The library of kernel ``name``; its file name hashes its sources,
+    every shared header (``csrc/*.cuh``) and the flags."""
+    h = hashlib.sha256()
+    for src in SOURCES[name]:
+        h.update(src.encode() + b"\0" + (CSRC / src).read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + b"\0" + header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
-def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
-    """Compile every named kernel whose library is missing, one ``nvcc`` per
-    source, all started together.  Returns ``{name: ptxas report}`` for the
-    kernels built by this call; raises with the compiler output on failure."""
+def build(names: Iterable[str] = KERNELS) -> Dict[str, Tuple[str, float]]:
+    """Compile every named kernel whose library is missing: one ``nvcc -c``
+    per translation unit, all started together, then one link per library.
+    Returns ``{name: (ptxas report, seconds from the start to the linked
+    library)}`` for the kernels built by this call; raises with the
+    compiler output on failure."""
     todo = [n for n in names if not lib_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
+    t0 = time.perf_counter()
+    tmpdir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     procs = {}
-    for name in todo:
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
-        procs[name] = (tmp, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    reports, errors = {}, []
-    for name, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            errors.append(f"nvcc failed for {name}.cu:\n{out}")
-            continue
-        # rename is atomic: a concurrent loader sees no half-written library
-        os.replace(tmp, lib_path(name))
-        reports[name] = out
+    try:
+        for name in todo:
+            procs[name] = []
+            for src in SOURCES[name]:
+                obj = tmpdir / (Path(src).stem + ".o")
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)]
+                procs[name].append((src, obj, subprocess.Popen(
+                    cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        reports, errors = {}, []
+        for name, units in procs.items():
+            outs, failed = [], False
+            for src, _, proc in units:
+                out, _ = proc.communicate()
+                outs.append(out)
+                if proc.returncode != 0:
+                    errors.append(f"nvcc failed for {src}:\n{out}")
+                    failed = True
+            if failed:
+                continue
+            lib = tmpdir / f"{name}.so"
+            link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", str(lib),
+                                   *(str(obj) for _, obj, _ in units)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if link.returncode != 0:
+                errors.append(f"nvcc failed to link {name}:\n{link.stdout}")
+                continue
+            # rename is atomic: a concurrent loader sees no half-written library
+            os.replace(lib, lib_path(name))
+            reports[name] = ("".join(outs), time.perf_counter() - t0)
+    finally:
+        for units in procs.values():
+            for _, _, proc in units:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        shutil.rmtree(tmpdir, ignore_errors=True)
     if errors:
         raise RuntimeError("\n".join(errors))
     return reports

@@ -19,7 +19,8 @@ from repro_torch.kernels import build
 NAME = "fairkv_decode"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head the kernel is built for
-MAX_HEAD_DIM = 128
+# head dims the kernel is built for: any up to 128, and 256
+MAX_HEAD_DIM = 256
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -87,7 +88,7 @@ def fairkv_decode_cuda(
     _require(q.is_cuda, "q must be a CUDA tensor, got", q.device)
     _require(q.dtype in _DTYPE_CODES, "dtype not supported:", q.dtype)
     _require(G in GROUP_SIZES, "G not in", GROUP_SIZES)
-    _require(Dh <= MAX_HEAD_DIM, "head_dim >", MAX_HEAD_DIM)
+    _require(Dh <= 128 or Dh == MAX_HEAD_DIM, "head_dim is neither <= 128 nor 256:", Dh)
     _require(k.shape == (S, B, C, Dh) and v.shape == k.shape,
              "k/v shapes do not match q:", k.shape, v.shape, q.shape)
     _require(k.dtype == q.dtype and v.dtype == q.dtype, "q/k/v dtypes differ")

@@ -30,7 +30,7 @@ NAME_MQ = "paged_fairkv_decode_mq"
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head the kernels are built for
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # head dims the kernels are built for: any up to 128, and 256
 MAX_QUERY_ROWS = 40  # Q * G the multi-query kernel is built for
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -81,7 +81,7 @@ def _check(name, q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
     req(q.is_cuda, f"q must be a CUDA tensor, got {q.device}")
     req(q.dtype in _Q_DTYPES, f"q dtype {q.dtype} not supported")
     req(G in GROUP_SIZES, f"G={G} not in {GROUP_SIZES}")
-    req(Dh <= MAX_HEAD_DIM, f"head_dim {Dh} > {MAX_HEAD_DIM}")
+    req(Dh <= 128 or Dh == MAX_HEAD_DIM, f"head_dim {Dh} is neither <= 128 nor {MAX_HEAD_DIM}")
     req(M * bs >= capacity, f"block table spans {M}x{bs} tokens < capacity {capacity}")
     req(k_pool.shape == (N, bs, Dh) and v_pool.shape == k_pool.shape,
         f"pool shapes {tuple(k_pool.shape)}/{tuple(v_pool.shape)} do not "

@@ -20,7 +20,7 @@ from repro_torch.kernels import build
 NAME = "snapkv_scores"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 SMEM_LIMIT = 232_448  # bytes of shared memory one Hopper block may use
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -46,9 +46,12 @@ line: one all-reduce over ``model`` per attention layer, no all-gather)::
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch minitron-8b --smoke --device cpu --executor mesh --shards 2
 
-Refused, each with the ROADMAP item that brings it: the other model
-families (any ``--arch`` but minitron-8b: A.11) and ``--paged-impl`` (the
-port picks the paged decode implementation by device, on purpose).
+``--arch`` takes the dense archs (minitron-8b, gemma2-9b, granite-3-2b,
+qwen1.5-110b) and the MoE archs (granite-moe-1b-a400m, qwen3-moe-30b-a3b).
+Refused, each with the ROADMAP item that brings it: the SSM / hybrid
+archs (A.11.4), encoder-decoder / VLM (A.11.5), weight-only int8 (A.11.6)
+and ``--paged-impl`` (the port picks the paged decode implementation by
+device, on purpose).
 """
 from __future__ import annotations
 
@@ -627,7 +630,8 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         ap.error("one of --arch or --config is required")
     if args.arch and args.arch not in list_archs():
         ap.error(f"--arch {args.arch!r} is not ported: the port runs "
-                 f"{list_archs()}; the other families are ROADMAP Queue A.11")
+                 f"{list_archs()}; SSM / hybrid, encoder-decoder / VLM and "
+                 f"weight-only int8 are ROADMAP Queue A.11.4-6")
     if args.http:
         run_http(args)
     elif args.continuous:

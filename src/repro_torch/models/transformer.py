@@ -1,9 +1,11 @@
 """Dense decoder: parameter init + the block functions serving reuses.
 
 The port's counterpart of ``repro.models.transformer`` for the dense GQA
-family (the other families follow in later slices).  Parameters are a plain
-dict tree in the reference's original (head-unpermuted) layout, so trees
-carry across through `repro_torch.interop` unchanged.
+family (with qkv bias, and gemma2's scaled embedding) and the MoE family
+(``models.moe``); SSM / hybrid and encoder-decoder / VLM follow in later
+slices.  Parameters are a plain dict tree in the reference's original
+(head-unpermuted) layout, so trees carry across through
+`repro_torch.interop` unchanged.
 """
 from __future__ import annotations
 
@@ -14,8 +16,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe_params, moe_block
 
 GLOBAL_WINDOW = 0  # sentinel: no sliding window
+FAMILIES = ("dense", "moe")  # the families the port implements
 
 
 # ---------------------------------------------------------------------------
@@ -40,10 +44,17 @@ def _layer_params(cfg: ModelConfig, gen, dtype, device) -> dict:
         "wk": _normal((D, Hkv, Dh), s, gen, dtype, device),
         "wv": _normal((D, Hkv, Dh), s, gen, dtype, device),
         "wo": _normal((Hq, Dh, D), 1.0 / math.sqrt(Hq * Dh), gen, dtype, device),
-        "w1": _normal((D, F), s, gen, dtype, device),
-        "w3": _normal((D, F), s, gen, dtype, device),
-        "w2": _normal((F, D), 1.0 / math.sqrt(F), gen, dtype, device),
     }
+    if cfg.qkv_bias:
+        p["bq"] = torch.zeros((Hq, Dh), dtype=dtype, device=device)
+        p["bk"] = torch.zeros((Hkv, Dh), dtype=dtype, device=device)
+        p["bv"] = torch.zeros((Hkv, Dh), dtype=dtype, device=device)
+    if cfg.moe.num_experts > 0:
+        p.update(init_moe_params(cfg, gen, dtype, device))
+    else:
+        p["w1"] = _normal((D, F), s, gen, dtype, device)
+        p["w3"] = _normal((D, F), s, gen, dtype, device)
+        p["w2"] = _normal((F, D), 1.0 / math.sqrt(F), gen, dtype, device)
     return p
 
 
@@ -53,10 +64,9 @@ def init_params(cfg: ModelConfig, seed: int, dtype=torch.bfloat16,
     from a ``torch.Generator`` seeded with ``seed``.  Same shapes and
     scales as the reference; not the same numbers (carry those across with
     `repro_torch.interop`)."""
-    if (cfg.family != "dense" or cfg.attention_free or cfg.moe.num_experts
-            or cfg.qkv_bias):
+    if cfg.family not in FAMILIES or cfg.attention_free:
         raise NotImplementedError(
-            f"the port implements the dense family without qkv bias only, "
+            f"the port implements the dense and moe families only, "
             f"got {cfg.family!r} ({cfg.name})")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -97,14 +107,29 @@ def layer_window(cfg: ModelConfig, layer_idx: int) -> int:
 
 
 def mlp_block(pl: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The FFN: SwiGLU, or the MoE block for MoE configs (serving drops
+    its aux loss)."""
+    if cfg.moe.num_experts > 0:
+        return moe_block(pl, h, cfg)[0]
     return L.swiglu(h, pl["w1"], pl["w3"], pl["w2"])
+
+
+def embed_tokens(tokens: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Token embedding, scaled by sqrt(d_model) for gemma2 (the reference's
+    rule, on the config name).  The scalar is cast to the activation dtype
+    before the multiply, as the reference does: in bf16 the factor itself
+    rounds (on the host: a captured step makes no host-to-device copy).
+    Every path that embeds tokens goes through here."""
+    h = L.embed(tokens, params["embed"])
+    if cfg.name.startswith("gemma2"):
+        h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype).item()
+    return h
 
 
 def embed_inputs(params: dict, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token embedding.  Returns (h (B,T,D), positions (B,T) int32)."""
-    tokens = batch["tokens"]
-    h = L.embed(tokens, params["embed"])
+    h = embed_tokens(batch["tokens"], params, cfg)
     B, T = h.shape[:2]
     positions = torch.arange(T, dtype=torch.int32, device=h.device).expand(B, T)
     return h, positions

@@ -1,12 +1,13 @@
 """Serving engine: prefill (+compression) → slot-layout cache → decode.
 
-The port of ``repro.serving.engine`` for dense decoder-only models.  The
-FairKV plan enters the runtime in two places:
+The port of ``repro.serving.engine`` for dense and MoE decoder-only
+models.  The FairKV plan enters the runtime in two places:
 
 1. **Weight layout** — ``slotify_params`` permutes/replicates the attention
    projections into slot layout once at load time: per layer,
-   ``wq: (S, D, G, Dh)``, ``wk/wv: (S, D, Dh)``, ``wo: (S, G, Dh, D)`` with
-   slot s carrying kv-head ``slot_head[l, s]`` (zeros for empty slots).
+   ``wq: (S, D, G, Dh)``, ``wk/wv: (S, D, Dh)``, ``wo: (S, G, Dh, D)`` and,
+   with qkv bias, ``bq: (S, G, Dh)``, ``bk/bv: (S, Dh)``, with slot s
+   carrying kv-head ``slot_head[l, s]`` (zeros for empty slots).
 
 2. **Cache ownership** — replicas split the batch by the strided owner rule;
    unowned (slot, row) pairs keep ``lengths == 0`` forever, so their decode
@@ -99,10 +100,10 @@ class ServeState:
 
 
 def _check_dense(cfg: ModelConfig) -> None:
-    if (cfg.family != "dense" or cfg.attention_free or cfg.moe.num_experts
-            or cfg.is_encoder_decoder or cfg.is_vlm or cfg.qkv_bias):
+    if (cfg.family not in M.FAMILIES or cfg.attention_free
+            or cfg.is_encoder_decoder or cfg.is_vlm):
         raise NotImplementedError(
-            f"the port serves dense decoder-only models without qkv bias, "
+            f"the port serves dense and moe decoder-only models, "
             f"got family={cfg.family!r} ({cfg.name})")
 
 
@@ -112,24 +113,31 @@ def _check_dense(cfg: ModelConfig) -> None:
 
 
 def slotify_layer(pl: dict, slot_head: np.ndarray, cfg: ModelConfig) -> dict:
-    """Build slot-layout q/k/v/o weights for one layer.  The
-    original-layout attention weights are left out of the returned dict
-    (the caller's tree keeps them)."""
+    """Build slot-layout q/k/v/o weights (and q/k/v biases) for one layer.
+    The original-layout attention weights are left out of the returned
+    dict (the caller's tree keeps them)."""
     G, Dh, D = cfg.q_per_kv, cfg.head_dim, cfg.d_model
     dev = pl["wq"].device
     heads = torch.as_tensor(np.maximum(slot_head, 0), dtype=torch.long, device=dev)
     mask = torch.as_tensor(slot_head >= 0, device=dev).to(pl["wq"].dtype)
     wq = pl["wq"].reshape(D, cfg.n_kv_heads, G, Dh)
     wo = pl["wo"].reshape(cfg.n_kv_heads, G, Dh, D)
-    out = {k: v for k, v in pl.items() if k not in ("wq", "wk", "wv", "wo")}
+    out = {k: v for k, v in pl.items() if k not in ORIGINAL_ATTN}
     out["wq_s"] = (wq[:, heads].permute(1, 0, 2, 3) * mask[:, None, None, None]).contiguous()
     out["wk_s"] = (pl["wk"][:, heads].permute(1, 0, 2) * mask[:, None, None]).contiguous()
     out["wv_s"] = (pl["wv"][:, heads].permute(1, 0, 2) * mask[:, None, None]).contiguous()
     out["wo_s"] = (wo[heads] * mask[:, None, None, None]).contiguous()
+    if cfg.qkv_bias and "bq" in pl:
+        bq = pl["bq"].reshape(cfg.n_kv_heads, G, Dh)
+        out["bq_s"] = (bq[heads] * mask[:, None, None]).contiguous()  # (S, G, Dh)
+        out["bk_s"] = (pl["bk"][heads] * mask[:, None]).contiguous()  # (S, Dh)
+        out["bv_s"] = (pl["bv"][heads] * mask[:, None]).contiguous()
     return out
 
 
-SLOT_WEIGHTS = ("wq_s", "wk_s", "wv_s", "wo_s")
+ORIGINAL_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
+# every slot-layout leaf a replan rewrites (the biases where the model has them)
+SLOT_WEIGHTS = ("wq_s", "wk_s", "wv_s", "wo_s", "bq_s", "bk_s", "bv_s")
 
 
 def slotify_params(params: dict, plan: HeadPlacement, cfg: ModelConfig,
@@ -151,7 +159,8 @@ def slotify_params(params: dict, plan: HeadPlacement, cfg: ModelConfig,
     for i, pl in enumerate(params["layers"]):
         new = slotify_layer(pl, arrs[i], cfg)
         for key in SLOT_WEIGHTS:
-            out["layers"][i][key].copy_(new[key])
+            if key in new:
+                out["layers"][i][key].copy_(new[key])
     return out
 
 
@@ -165,11 +174,21 @@ def first_weights(pl: dict, plan: PlanArrays, layer_idx: int, groups=None,
                   keys: Sequence[str] = ("wq", "wk", "wv", "wo")) -> dict:
     """Recover original-layout q/k/v/o weights from each head's replica-0
     slot (a gather — no second weight copy is stored): wq (Hkv, D, G, Dh),
-    wk / wv (Hkv, D, Dh), wo (Hkv, G, Dh, D).  ``first_slot`` holds global
-    slot ids, so a mesh rank (``groups``) gathers the slot weights over the
-    model group first."""
+    wk / wv (Hkv, D, Dh), wo (Hkv, G, Dh, D), and with qkv bias the biases
+    of the q/k/v keys asked for: bq (Hkv, G, Dh), bk / bv (Hkv, Dh).
+    ``first_slot`` holds global slot ids, so a mesh rank (``groups``)
+    gathers the slot weights over the model group first."""
     fs = plan.first_slot[layer_idx]  # (Hkv,)
-    return {k: _full_slots(pl[k + "_s"], groups)[fs] for k in keys}
+    bias = ["b" + k[1] for k in keys if k != "wo" and "b" + k[1] + "_s" in pl]
+    return {k: _full_slots(pl[k + "_s"], groups)[fs] for k in list(keys) + bias}
+
+
+def _add_bias(q, k, v, b: dict):
+    """q/k/v plus their biases when ``b`` (a `first_weights` dict) holds
+    them, each broadcast from the right."""
+    if "bq" in b:
+        return q + b["bq"], k + b["bk"], v + b["bv"]
+    return q, k, v
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +269,7 @@ def _prefill_attention(pl, hn, positions, cfg, layer_idx, cache, plan, ccfg,
     q = torch.einsum("btd,hdgx->bthgx", hn, fw["wq"])  # (B,T,Hkv,G,Dh)
     k = torch.einsum("btd,hdx->bthx", hn, fw["wk"])
     v = torch.einsum("btd,hdx->bthx", hn, fw["wv"])
+    q, k, v = _add_bias(q, k, v, fw)
     q = q.reshape(B, T, Hkv * G, Dh)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -350,6 +370,7 @@ def _chunk_attention(pl, hn, positions, valid, cfg, layer_idx, cache, plan,
     q = _slot_proj(x, fw["wq"]).reshape(Hkv, B, Ck, G, Dh).permute(1, 2, 0, 3, 4)
     k = _slot_proj(x, fw["wk"]).reshape(Hkv, B, Ck, Dh).permute(1, 2, 0, 3)
     v = _slot_proj(x, fw["wv"]).reshape(Hkv, B, Ck, Dh).permute(1, 2, 0, 3)
+    q, k, v = _add_bias(q, k, v, fw)
     q = q.reshape(B, Ck, Hkv * G, Dh)
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
@@ -440,7 +461,7 @@ def prefill_chunk(
         raise ValueError("chunked prefill does not support enc-dec / vlm")
     _check_dense(cfg)
     dev = tokens.device
-    h = L.embed(tokens, serve_params["embed"])  # (B, Ck, D)
+    h = M.embed_tokens(tokens, serve_params, cfg)  # (B, Ck, D)
     B, Ck, _ = h.shape
     start = torch.as_tensor(start, device=dev).to(torch.int32)
     valid = torch.as_tensor(valid, device=dev).to(torch.int32)
@@ -514,7 +535,7 @@ def decode_step(
     _check_dense(cfg)
     tokens = state.last_tokens if tokens is None else tokens
     phase = state.decode_steps if phase is None else phase
-    h = L.embed(tokens[:, None], serve_params["embed"])  # (B, 1, D)
+    h = M.embed_tokens(tokens[:, None], serve_params, cfg)  # (B, 1, D)
     cache = state.cache
     positions = cache.positions
     for i, pl in enumerate(serve_params["layers"]):
@@ -563,6 +584,8 @@ def _decode_attention(pl, hn, positions, cfg, layer_idx, cache, plan,
     q = _slot_proj(x, pl["wq_s"]).transpose(0, 1)  # (B, S, G, Dh)
     k_new = _slot_proj(x, pl["wk_s"]).transpose(0, 1)  # (B, S, Dh)
     v_new = _slot_proj(x, pl["wv_s"]).transpose(0, 1)
+    if "bq_s" in pl:
+        q, k_new, v_new = q + pl["bq_s"], k_new + pl["bk_s"], v_new + pl["bv_s"]
     # RoPE at each row's absolute position
     q = _rope_slots(q, positions, cfg)
     k_new = _rope_slots(k_new[:, :, None, :], positions, cfg)[:, :, 0, :]
@@ -735,7 +758,7 @@ def verify_step(
     dev = tokens.device
     active_b = torch.ones((B,), dtype=torch.bool, device=dev) if active is None else active
     q_lens = torch.as_tensor(q_lens, device=dev).to(torch.int32)
-    h = L.embed(tokens, serve_params["embed"])  # (B, Q, D)
+    h = M.embed_tokens(tokens, serve_params, cfg)  # (B, Q, D)
     positions = cache.positions
     positions_q = positions[:, None] + torch.arange(Q, dtype=torch.int32, device=dev)[None, :]
     phase = state.decode_steps if phase is None else phase
@@ -797,6 +820,9 @@ def _verify_attention(pl, hn, positions_q, q_lens, cfg, layer_idx, cache, plan,
     q = _slot_proj(x, pl["wq_s"]).reshape(S, B, Q, *pl["wq_s"].shape[2:]).transpose(0, 1)
     k_new = _slot_proj(x, pl["wk_s"]).reshape(S, B, Q, -1).transpose(0, 1)  # (B, S, Q, Dh)
     v_new = _slot_proj(x, pl["wv_s"]).reshape(S, B, Q, -1).transpose(0, 1)
+    if "bq_s" in pl:
+        q = q + pl["bq_s"][:, None]
+        k_new, v_new = k_new + pl["bk_s"][:, None], v_new + pl["bv_s"][:, None]
     q = _rope_slots_mq(q, positions_q, cfg)
     k_new = _rope_slots_mq(k_new[:, :, :, None, :], positions_q, cfg)[:, :, :, 0, :]
     own = (plan.owner_mask(layer_idx, B) if rows is None

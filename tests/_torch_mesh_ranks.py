@@ -167,6 +167,31 @@ def oneshot_rank(mesh, wpath, cases, profiles):
     return out
 
 
+def family_cfg(pkg, arch, executor="local"):
+    """`oneshot_cfg`'s slot setting for another dense arch (gemma2-9b,
+    qwen1.5-110b)."""
+    kw = {} if pkg.__name__.startswith("repro.") else {"device": "cpu"}
+    return pkg.EngineConfig.smoke(
+        arch, n_shards=2, max_seq_len=T + GEN + 8,
+        compression=pkg.CompressionConfig(policy="ada_snapkv", budget=16, alpha_max=2.0,
+                                          obs_window=8, sink=2, decode_margin=8),
+        planner=pkg.PlannerConfig(mode="fairkv_dp", extra_copies=4, batch_cap=4),
+        executor=executor, profile_skew=2.0, profile_seed=1, **kw)
+
+
+def family_rank(mesh, wpath, arch):
+    """One-shot `generate` of another dense arch on the mesh, and the decode
+    step's collectives."""
+    eng = Engine.build(family_cfg(PORT, arch, "mesh"), mesh=mesh, params=load_params(wpath))
+    prompts = np.random.default_rng(1).integers(0, 256, (B, T))
+    res = eng.generate(prompts, GEN)
+    idle = torch.zeros((B,), dtype=torch.bool)
+    with torch.inference_mode():
+        _, coll = eng.executor.decode_collectives(eng.sp, eng.state, eng.pa, active=idle)
+    return {"tokens": res.tokens, "logits": res.logits, "lengths": res.lengths,
+            "collectives": coll}
+
+
 def trace_rank(mesh, wpath, backend):
     """tests/test_executor.py's continuous trace on the mesh."""
     eng = Engine.build(oneshot_cfg(PORT, backend, 4, 2.0, 1, "mesh"), mesh=mesh,

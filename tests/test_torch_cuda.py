@@ -49,7 +49,9 @@ def gen():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,G,Dh,C,window,cap", [
     (4, 8, 8, 64, 256, 0, 0.0), (3, 5, 4, 32, 96, 40, 0.0),
-    (8, 16, 4, 128, 576, 0, 50.0)])
+    (8, 16, 4, 128, 576, 0, 50.0),
+    # head_dim 256 (gemma2-9b's main-path shape with its window and softcap)
+    (4, 16, 2, 256, 576, 200, 50.0), (3, 4, 8, 256, 300, 0, 0.0), (2, 5, 1, 256, 150, 0, 30.0)])
 def test_fairkv_decode_kernel(gen, dtype, B, S, G, Dh, C, window, cap):
     from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda
     q = torch.randn((B, S, G, Dh), generator=gen, device="cuda").to(dtype)
@@ -77,7 +79,9 @@ def test_fairkv_decode_kernel(gen, dtype, B, S, G, Dh, C, window, cap):
     (1, 32, 32, 8, 128, 63, 0.0), (1, 32, 32, 8, 128, 1000, 50.0),
     (1, 32, 32, 8, 128, 2047, 0.0), (1, 32, 32, 8, 128, 2048, 0.0),
     (1, 32, 8, 8, 128, 1000, 0.0), (1, 32, 16, 8, 128, 1000, 0.0),
-    (1, 32, 64, 8, 128, 1000, 50.0)])
+    (1, 32, 64, 8, 128, 1000, 50.0),
+    # head_dim 256 (gemma2-9b: G = 2, softcap 50) and 192
+    (1, 32, 16, 8, 256, 1000, 50.0), (2, 32, 16, 8, 256, 300, 0.0), (1, 8, 8, 2, 192, 130, 0.0)])
 def test_snapkv_scores_kernel(gen, dtype, B, W, Hq, Hkv, Dh, T, cap):
     from repro_torch.kernels.snapkv_select import snapkv_scores_cuda
     q = torch.randn((B, W, Hq, Dh), generator=gen, device="cuda").to(dtype)
@@ -153,7 +157,8 @@ def test_prefix_run_trace_cuda_matches_cpu():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,S,G,Dh,C,window,cap", [
     (2, 5, 4, 128, 1600, 0, 0.0), (2, 5, 4, 128, 1600, 500, 30.0),
-    (8, 16, 4, 128, 576, 0, 0.0), (3, 5, 8, 32, 96, 40, 50.0)])
+    (8, 16, 4, 128, 576, 0, 0.0), (3, 5, 8, 32, 96, 40, 50.0),
+    (2, 5, 2, 256, 1600, 500, 50.0), (4, 16, 2, 256, 576, 0, 0.0), (2, 3, 8, 256, 200, 0, 0.0)])
 def test_fairkv_decode_kernel_bitwise_paged(gen, dtype, B, S, G, Dh, C, window, cap):
     """The slot kernel equals the paged kernel bitwise on the same cache
     laid out as pools with an identity block table, at lengths from one
@@ -202,7 +207,8 @@ def test_engine_cuda_matches_cpu(gen):
 @pytest.mark.parametrize("mode", ["fp32", "bf16", "int8", "fp8", "mixed"])
 @pytest.mark.parametrize("S,B,G,Dh,C,bs,window,cap", [
     (3, 2, 1, 64, 96, 16, 0, 0.0), (4, 3, 8, 32, 200, 8, 60, 0.0),
-    (16, 8, 4, 128, 576, 16, 0, 30.0)])
+    (16, 8, 4, 128, 576, 16, 0, 30.0), (16, 4, 2, 256, 576, 16, 200, 50.0),
+    (3, 2, 8, 256, 96, 8, 0, 0.0)])
 def test_paged_fairkv_decode_kernel(gen, mode, S, B, G, Dh, C, bs, window, cap):
     from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
     rng = np.random.default_rng(S * 100 + C)
@@ -265,7 +271,7 @@ def test_paged_run_trace_cuda_matches_cpu(gen, kv):
 @pytest.mark.parametrize("Q", [1, 3, 5])
 @pytest.mark.parametrize("S,B,G,Dh,C,bs,window,cap", [
     (3, 2, 1, 64, 96, 16, 0, 0.0), (4, 3, 4, 32, 200, 8, 60, 30.0),
-    (16, 8, 4, 128, 576, 16, 0, 0.0)])
+    (16, 8, 4, 128, 576, 16, 0, 0.0), (4, 3, 2, 256, 200, 16, 60, 50.0)])
 def test_paged_fairkv_decode_mq_kernel(gen, mode, Q, S, B, G, Dh, C, bs, window, cap):
     from repro_torch.kernels.paged_fairkv_decode import (paged_fairkv_decode_cuda,
                                                          paged_fairkv_decode_mq_cuda)
@@ -327,11 +333,12 @@ def _single_per_query(q, kp, vp, pp, tbl, ln, C, cap, qpos, window, q_lens, kw):
 
 @pytest.mark.parametrize("mode", ["fp32", "bf16", "int8", "fp8", "mixed"])
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (60, 0.0), (0, 30.0), (60, 30.0)])
-def test_paged_fairkv_decode_mq_query_is_single_query(gen, mode, window, cap):
+@pytest.mark.parametrize("G,Dh", [(4, 128), (2, 256)])
+def test_paged_fairkv_decode_mq_query_is_single_query(gen, mode, window, cap, G, Dh):
     """Query i of the multi-query kernel is, bitwise, the single-query
     kernel at the query's causal length and position."""
     from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_mq_cuda
-    S, B, G, Dh, C, bs, Q = 4, 3, 4, 128, 200, 16, 5
+    S, B, C, bs, Q = 4, 3, 200, 16, 5
     rng = np.random.default_rng(70)
     kp, vp, pp, tbl, ln, kw, q_dt = _quant_layer(rng, mode, S, B, C, bs, Dh)
     q = torch.from_numpy(rng.normal(size=(B, S, Q, G, Dh)).astype(np.float32)).to("cuda", q_dt)
@@ -352,12 +359,13 @@ def _permute(kp, vp, pp, tbl, kw, seed):
 
 @pytest.mark.parametrize("mode", ["bf16", "int8", "mixed"])
 @pytest.mark.parametrize("Q", [1, 5])
-def test_paged_kernels_permuted_pools(gen, mode, Q):
+@pytest.mark.parametrize("G,Dh", [(4, 128), (2, 256)])
+def test_paged_kernels_permuted_pools(gen, mode, Q, G, Dh):
     """Kernels 3 and 4 on pools whose blocks are relabelled, through the
     remapped table, give bitwise the output of the original layer."""
     from repro_torch.kernels.paged_fairkv_decode import (paged_fairkv_decode_cuda,
                                                          paged_fairkv_decode_mq_cuda)
-    S, B, G, Dh, C, bs = 16, 8, 4, 128, 576, 16
+    S, B, C, bs = 16, 8, 576, 16
     rng = np.random.default_rng(71 + Q)
     kp, vp, pp, tbl, ln, kw, q_dt = _quant_layer(rng, mode, S, B, C, bs, Dh)
     kp2, vp2, pp2, tbl2, kw2 = _permute(kp, vp, pp, tbl, kw, 72)
@@ -381,12 +389,13 @@ def test_paged_kernels_permuted_pools(gen, mode, Q):
 
 @pytest.mark.parametrize("mode", ["fp32", "bf16", "int8"])
 @pytest.mark.parametrize("G,Q", [(1, 9), (1, 40), (8, 5), (2, 7)])
-def test_paged_fairkv_decode_mq_query_chunks(gen, mode, G, Q):
+@pytest.mark.parametrize("Dh", [64, 256])
+def test_paged_fairkv_decode_mq_query_chunks(gen, mode, G, Q, Dh):
     """Shapes whose queries split over several chunks of the grid (and the
     widest tile, G = 8 at Q = 5): within the plain version's tolerance, and
     every query bitwise equal to the single-query kernel."""
     from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_mq_cuda
-    S, B, Dh, C, bs = 3, 4, 64, 300, 16
+    S, B, C, bs = 3, 4, 300, 16
     rng = np.random.default_rng(73 + G * 100 + Q)
     kp, vp, pp, tbl, ln, kw, q_dt = _quant_layer(rng, mode, S, B, C, bs, Dh)
     q = torch.from_numpy(rng.normal(size=(B, S, Q, G, Dh)).astype(np.float32)).to("cuda", q_dt)
@@ -768,3 +777,57 @@ def test_mesh_gloo_shared_card_matches_local(gen):
         assert np.array_equal(out["local"][0], out["mesh"][0])
         np.testing.assert_allclose(out["mesh"][1], out["local"][1], rtol=1e-4, atol=1e-4)
         assert np.array_equal(out["mesh"][1], outs[0]["mesh"][1])
+
+
+def test_moe_block_graph_equals_eager(gen):
+    """`moe_block` at granite-moe-1b-a400m's width, bf16: captured in a CUDA
+    graph it gives the eager result bitwise (the dispatch has no host sync
+    and no data-dependent shape, and the combine no atomics), and two eager
+    runs agree bitwise."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.moe import init_moe_params, moe_block
+    cfg = get_config("granite-moe-1b-a400m")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(0)
+    pl = init_moe_params(cfg, g, torch.bfloat16, "cuda")
+    h = torch.randn((8, 1, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.inference_mode():
+        eager, _ = moe_block(pl, h, cfg)
+        again, _ = moe_block(pl, h, cfg)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            moe_block(pl, h, cfg)  # warm the allocator outside the capture
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out, _ = moe_block(pl, h, cfg)
+        graph.replay()
+        torch.cuda.synchronize()
+    assert torch.equal(eager, again)
+    assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("Dh", [192, 320])
+def test_decode_kernels_refuse_other_head_dims(gen, Dh):
+    """The decode kernels are built for head dims up to 128 and for 256; any
+    other raises on the card (nothing falls back to the plain version),
+    and the score kernel raises above 256."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.snapkv_select import snapkv_scores_cuda
+    q = torch.randn((2, 4, 2, Dh), generator=gen, device="cuda")
+    k = torch.randn((4, 2, 16, Dh), generator=gen, device="cuda")
+    ln = torch.full((4, 2), 8, dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.fairkv_decode(q, k, k, ln)
+    kp = torch.randn((5, 8, Dh), generator=gen, device="cuda")
+    pp = torch.zeros((5, 8), dtype=torch.int32, device="cuda")
+    tbl = torch.ones((4, 2, 2), dtype=torch.int32, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.paged_fairkv_decode(q, kp, kp, pp, tbl, ln, 16)
+    if Dh > 256:
+        qo = torch.randn((1, 4, 2, Dh), generator=gen, device="cuda")
+        ko = torch.randn((1, 16, 1, Dh), generator=gen, device="cuda")
+        pos = torch.arange(16, dtype=torch.int32, device="cuda")[None]
+        with pytest.raises(ValueError, match="head_dim"):
+            snapkv_scores_cuda(qo, ko, pos[:, -4:].contiguous(), pos)

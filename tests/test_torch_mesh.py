@@ -21,7 +21,11 @@ reference's weights reach every rank through an ``.npz``.  Held here:
   returns the same results bitwise;
 - the decode step's collectives: one all-reduce over ``model`` per layer
   and no all-gather over it; over ``data`` the tokens and logits gather;
-- the continuous trace on 2x4: tokens equal the reference local run's.
+- the continuous trace on 2x4: tokens equal the reference local run's;
+- gemma2-9b (window, softcaps, embedding scale) and qwen1.5-110b (qkv bias,
+  non-zero, its slot biases sharded over ``model``) one-shot on 1x2:
+  tokens and lengths equal the reference local executor's, logits within
+  1e-4, one all-reduce over ``model`` per layer.
 
 (The reference's own mesh run of the paged backend is red in its baseline,
 so the port is held to the reference's local executor throughout.)
@@ -42,11 +46,13 @@ from repro_torch.exec.mesh import MeshExecutor
 from repro_torch.launch.mesh import Group, Mesh, make_host_mesh, spawn
 from repro_torch.paging.block_pool import BlockPool
 from tests import _torch_mesh_ranks as R
+from tests.test_torch_families import shared_params
 
 SPAWN_TIMEOUT = 300
 SLOT_CASES = {"1x2": [("slot", 2, 2.0, 1)],
               "2x4": [("slot", 4, 2.0, 1), ("slot", 4, 3.0, 7)]}
 SHAPES = {"1x2": (2, 1), "2x4": (4, 2)}  # (model, data)
+FAMILY_ARCHS = ["gemma2-9b", "qwen1.5-110b"]
 
 
 def fake_mesh(backend="gloo", model=1, data=1):
@@ -191,9 +197,25 @@ def _profiles(cases, jparams):
 
 
 @pytest.fixture(scope="module")
-def oneshot(weights, tmp_path_factory):
+def family_weights(tmp_path_factory):
+    """The reference's weights of the other dense archs (qwen1.5's biases
+    non-zero), each as an .npz, and the reference local executor's run."""
+    out = {}
+    for arch in FAMILY_ARCHS:
+        jparams, _ = shared_params(R.family_cfg(JAPI, arch))
+        path = tmp_path_factory.mktemp("family") / "params.npz"
+        R.save_params(path, jax.tree.map(np.asarray, jparams))
+        res = JEngine.build(R.family_cfg(JAPI, arch), params=jparams).generate(
+            np.random.default_rng(1).integers(0, 256, (R.B, R.T)), R.GEN)
+        out[arch] = (str(path), res)
+    return out
+
+
+@pytest.fixture(scope="module")
+def oneshot(weights, family_weights, tmp_path_factory):
     """The one-shot cases per mesh shape; the 2x4 spawn also runs the
-    continuous trace (under ``"trace"``)."""
+    continuous trace (under ``"trace"``), the 1x2 spawn the other dense
+    archs (under ``"family"``)."""
     jparams, path = weights
     out = {}
     for shape, cases in SLOT_CASES.items():
@@ -202,12 +224,16 @@ def oneshot(weights, tmp_path_factory):
         jobs = [("oneshot_rank", (path, cases, profiles))]
         if shape == "2x4":
             jobs.append(("trace_rank", (path, "slot")))
+        else:
+            jobs += [("family_rank", (family_weights[a][0], a)) for a in FAMILY_ARCHS]
         ranks = spawn(R.jobs_rank, model=model, data=data, args=(jobs,),
                       init_file=str(tmp_path_factory.mktemp(shape) / "rv"),
                       timeout=SPAWN_TIMEOUT)
         out[shape] = (cases, [r[0] for r in ranks], _reference(cases, jparams, profiles))
         if shape == "2x4":
             out["trace"] = [r[1] for r in ranks]
+        else:
+            out["family"] = {a: [r[1 + i] for r in ranks] for i, a in enumerate(FAMILY_ARCHS)}
     return out
 
 
@@ -280,3 +306,19 @@ def test_continuous_parity_2x4(weights, oneshot):
     for got in oneshot["trace"]:
         assert got["finished"] == got["total"]
         assert got["tokens"] == want
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_family_parity_1x2(oneshot, family_weights, arch):
+    """gemma2-9b and qwen1.5-110b on two gloo ranks: the reference local
+    executor's tokens and lengths, logits within 1e-4, every rank alike,
+    and still one all-reduce over ``model`` per layer."""
+    want = family_weights[arch][1]
+    ranks = oneshot["family"][arch]
+    n_layers = EngineConfig.smoke(arch, device="cpu").model.n_layers
+    for got in ranks:
+        assert np.array_equal(got["tokens"], want.tokens)
+        assert np.array_equal(got["lengths"], np.asarray(want.lengths))
+        np.testing.assert_allclose(got["logits"], want.logits, rtol=1e-4, atol=1e-4)
+        assert got["collectives"]["model"]["all_reduce"]["calls"] == n_layers
+        assert "all_gather" not in got["collectives"]["model"]

@@ -104,7 +104,7 @@ def test_unported_flags_are_refused(capsys, flags, item):
 
 def test_other_archs_are_refused(capsys):
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "gemma2-9b", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu"])
     assert "A.11" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         serve.main(["--smoke"])
