@@ -13,7 +13,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
 3. hold each kernel against its plain PyTorch version on the card over a
    shape sweep plus the main path's shapes: fp32 and bf16, ragged lengths,
    an all-zero slot, window and softcap; for the paged kernels also int8,
-   fp8 and mixed-kind pools, G in {1, 2, 4, 8}, null-block tables and
+   fp8 and mixed-kind pools, G in {1, 2, 4, 5, 7, 8} (5 and 7 split as
+   8 with the missing heads masked: hymba-1.5b's decode shape B 8, S 16,
+   G 5, Dh 64, C 576 and llava-next-34b's B 2, S 16, G 7, Dh 128, each
+   also at the other head dim), null-block tables and
    partial last blocks; for the multi-query (speculative-verify) kernel Q
    in {1, 3, 5} with ragged q_lens, and at Q = 1 bitwise equality with the
    single-query paged kernel; the slot kernel also bitwise against the
@@ -26,8 +29,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    query chunks included), and both kernels are unchanged on pools whose
    blocks are relabelled through the table; every sweep also at head_dim
    256 (G 1, 2, 4, 8; gemma2-9b's decode and prefill shapes), at 192, and
-   at the (G, Dh) pairs of the other configs phase 16 serves (the
-   contracts at Dh 256 too);
+   at the (G, Dh) pairs of the other configs phases 16 and 17 serve (the
+   contracts at Dh 256 too; the score kernel at hymba's and llava's
+   prefill shapes, W*G = 160 and 224); the multi-query kernel must raise
+   at G = 5 and 7;
 4. check the port's CUDA path against its own CPU path on minitron-8b smoke
    (same weights, fp32): identical tokens and lengths, close logits; then
    speculative `run_trace` (full-depth and 1-layer drafts) against the
@@ -165,11 +170,12 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    the 4096-token window) under sha and fairkv_dp (lengths bitwise, the
    logit gap under the bf16 bound, 42 kernel 1 launches per step and one
    kernel 2 launch per layer, eager == graphed tokens), kernels 1-3 timed
-   at its shapes, then 8 requests of phase 7's trace on bf16 pools, the
+   at its shapes, then 4 requests of phase 7's trace on bf16 pools, the
    same with the 8-layer draft, and 4 with 512-token chunks (all finish,
    pools empty, nothing captured during a trace).  (c) granite-3-2b and
    (d) granite-moe-1b-a400m at full width and depth: the one-shot of
-   phase 5's shape under both planners and 8 requests on bf16 pools;
+   phase 5's shape under both planners and 4 requests on bf16 pools
+   (phase 16's traces ran 8 requests until phase 17 needed the time);
    MoE's eager run bitwise the graphed one, its speculative config
    refused, its plans' logit gap reported (a plan's bf16 rounding can
    flip a near-tied expert pick, which the smooth bound does not cover).
@@ -179,7 +185,32 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    under the new plan, bitwise) and qwen3-moe-30b-a3b to 8 of 48 layers
    (one-shot).  Prints per config prefill s, step ms host and device,
    `max_memory_allocated`, launches and seconds;
-17. last line: {"ok": true, "device": {...}}.
+17. (after phase 16, its memory freed) the SSM, hybrid, encoder-decoder and
+   VLM families, bf16, seed 0, 8 shards x 2 slots, phase 5's compression,
+   launches stated apart from the kernel table: (a) the smoke variants of
+   mamba2-1.3b and hymba-1.5b (one-shot and continuous on paged pools),
+   hymba at G = 5 (n_kv_heads 1; both), whisper-small, llava-next-34b and
+   llava at G = 7 (14 / 2 heads; one-shot) on the card against the port's
+   CPU path (fp32, same weights): identical tokens and lengths, logits
+   within 1e-3.  (b) hymba-1.5b at full width and depth (32 layers, 25 / 5
+   heads, G 5, window 1024, SSD 25 x 64 with state 16; ~1.4 B parameters):
+   one-shot B = 8, T = 2048 under sha and fairkv_dp (lengths bitwise, the
+   logit gap under the bf16 bound, 32 kernel 1 launches per step, eager ==
+   graphed tokens, the per-shard load max/mean of both plans: 5 kv heads
+   over 8 shards), kernels 1-3 timed at its shapes, then 8 requests of
+   phase 7's trace on bf16 pools (all finish, pool empty, no capture
+   during the trace).  (c) mamba2-1.3b at full width and depth (48 layers,
+   64 SSD heads x 64, state 128): one-shot B = 8, T = 2048 with no kernel
+   launched, eager == graphed, then 8 requests on the slot backend with
+   imbalance 1.0.  (d) whisper-small at full width and depth (12 + 12
+   layers): one-shot B = 8 over 1500 stub frames with a 256-token decoder
+   prompt under both planners, (b)'s bars.  (e) llava-next-34b at full
+   width cut to 12 of 60 layers (~7.6 B; ~69 GB of weights at full depth
+   leave no room on one card): one-shot B = 2 of 2880 image + 1024 text
+   tokens under both planners, (b)'s bars, kernels 1-3 timed at G 7 and
+   kernel 2 at T 3904.  Prints per config prefill s, step ms host and
+   device, `max_memory_allocated`, launches and seconds;
+18. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -229,20 +260,31 @@ BLOCK = 16  # paged block size of the continuous runs
 # and 256 (192; the decode kernels take up to 128, and 256, and refuse
 # 192: `check_head_dim_refusals`), and the (G, Dh) pairs of granite-3-2b
 # (4, 64), qwen1.5-110b (8, 128), granite-moe-1b-a400m (2, 64) and
-# qwen3-moe-30b-a3b (8, 128)
+# qwen3-moe-30b-a3b (8, 128); and (phase 17) the groups that do not
+# divide 8: G = 5 (hymba-1.5b, Dh 64: its decode shape B 8, S 16, C 576,
+# and its prefill scores at B 8, T 2048, W*G = 160) and G = 7
+# (llava-next-34b, Dh 128: B 2, S 16, C 576; scores at B 2, T 3904, W*G =
+# 224), each also at the other head dim, with the split lengths to 1600
 C_MAIN = int(round(ALPHA * BUDGET)) + MARGIN
 FAMILY_DECODE_SHAPES = [  # (B, S, G, Dh, C)
     (4, 16, 2, 256, C_MAIN), (2, 5, 2, 256, 1600), (3, 4, 1, 256, 200), (2, 4, 4, 256, 96),
     (2, 3, 8, 256, 300), (4, 8, 4, 64, 200), (2, 8, 8, 128, 300),
-    (4, 8, 2, 64, 150)]
+    (4, 8, 2, 64, 150),
+    (8, 16, 5, 64, C_MAIN), (2, 16, 7, 128, C_MAIN), (2, 5, 5, 128, 1600),
+    (2, 5, 7, 64, 1600), (3, 4, 5, 64, 200), (2, 3, 7, 128, 96)]
 FAMILY_SCORE_SHAPES = [  # (B, W, Hq, Hkv, Dh, T)
     (4, OBS, 16, 8, 256, 4608), (1, OBS, 16, 8, 256, 1000), (2, 8, 4, 4, 256, 200),
     (1, OBS, 64, 8, 256, 500), (1, 8, 8, 2, 192, 130), (1, OBS, 32, 8, 64, 1000),
-    (1, OBS, 64, 8, 128, 1000), (1, OBS, 16, 8, 64, 500), (1, OBS, 32, 4, 128, 500)]
+    (1, OBS, 64, 8, 128, 1000), (1, OBS, 16, 8, 64, 500), (1, OBS, 32, 4, 128, 500),
+    (8, OBS, 25, 5, 64, 2048), (2, OBS, 56, 8, 128, 3904), (1, OBS, 12, 12, 64, 256)]
 FAMILY_PAGED_SHAPES = [  # (S, B, G, Dh, C, bs)
     (16, 4, 2, 256, C_MAIN, BLOCK), (3, 2, 1, 256, 96, 16), (4, 3, 4, 256, 200, 8),
     (2, 2, 8, 256, 64, 32), (4, 3, 4, 64, 150, 16),
-    (3, 2, 8, 128, 120, 16), (3, 2, 2, 64, 90, 8)]
+    (3, 2, 8, 128, 120, 16), (3, 2, 2, 64, 90, 8),
+    (16, 8, 5, 64, C_MAIN, BLOCK), (16, 2, 7, 128, C_MAIN, BLOCK), (3, 2, 5, 128, 120, 16),
+    (4, 3, 7, 64, 150, 8)]
+# groups the multi-query kernel is not built for: it must raise there
+MQ_REFUSED_GROUPS = (5, 7)
 FAMILY_MQ_SHAPES = [  # (S, B, G, Dh, C, bs)
     (3, 2, 2, 256, 200, 16), (2, 2, 8, 256, 64, 32), (3, 2, 1, 256, 96, 16),
     (2, 3, 4, 256, 100, 16)]
@@ -449,8 +491,9 @@ def check_decode(gen):
 
 def check_head_dim_refusals(gen):
     """Head dims the kernels are not built for raise on the card (the
-    decode kernels: 192 and 320; the score kernel: 320); nothing falls
-    back to a plain version."""
+    decode kernels: 192 and 320; the score kernel: 320), and so does the
+    multi-query kernel at G = 5 and 7; nothing falls back to a plain
+    version."""
     import torch
     from repro_torch.kernels import ops
     n = 0
@@ -481,7 +524,22 @@ def check_head_dim_refusals(gen):
                 n += 1
             else:
                 fail(f"{name}: head_dim {Dh} was accepted")
-    log(f"[check] {n} calls at head dims the kernels are not built for (192, 320) raised")
+    for G in MQ_REFUSED_GROUPS:  # the multi-query kernel is not built for G = 5, 7
+        q = torch.randn((2, 4, 3, G, 64), generator=gen, device="cuda")
+        kp = torch.randn((5, 8, 64), generator=gen, device="cuda")
+        pp = torch.zeros((5, 8), dtype=torch.int32, device="cuda")
+        tbl = torch.ones((4, 2, 2), dtype=torch.int32, device="cuda")
+        ln = torch.full((4, 2), 8, dtype=torch.int32, device="cuda")
+        try:
+            ops.paged_fairkv_decode(q, kp, kp, pp, tbl, ln, 16)
+        except ValueError as e:
+            if f"G={G}" not in str(e):
+                raise
+            n += 1
+        else:
+            fail(f"paged_fairkv_decode_mq: G = {G} was accepted")
+    log(f"[check] {n} calls at head dims the kernels are not built for (192, 320), and "
+        f"the multi-query kernel at G {MQ_REFUSED_GROUPS}, raised")
 
 
 def scores_inputs(gen, Bq, W, Hq, Hkv, Dh, Tk, dtype):
@@ -1391,7 +1449,8 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
              f"{sum(r.max_new_tokens for r in reqs)}")
     decode_kernel = "paged_fairkv_decode" if backend == "paged" else "fairkv_decode"
     other = "fairkv_decode" if backend == "paged" else "paged_fairkv_decode"
-    expect = {decode_kernel: m.n_layers * ticks, other: 0, "paged_fairkv_decode_mq": 0}
+    n_attn = 0 if m.attention_free else m.n_layers  # layers that launch kernels
+    expect = {decode_kernel: n_attn * ticks, other: 0, "paged_fairkv_decode_mq": 0}
     if spec.enabled:
         # every tick: max_k draft steps over the draft layers (paged kernel),
         # then one verify over every layer (multi-query kernel)
@@ -1402,10 +1461,10 @@ def continuous_run(ctx, name, backend, kv, n_blocks=0, spec=None, logits=False,
         fail(f"{name}: launches {got}, expected {expect} ({ticks} ticks)")
     # one launch per layer of every prefill, or of every chunk when chunked
     prefills = len(sched.chunk_s) if chunk else admissions
-    if got["snapkv_scores"] != m.n_layers * prefills:
+    if got["snapkv_scores"] != n_attn * prefills:
         fail(f"{name}: snapkv_scores launched {got['snapkv_scores']} times, expected "
-             f"{m.n_layers} x {prefills} {'chunks' if chunk else 'prefills'}")
-    if backend == "paged":
+             f"{n_attn} x {prefills} {'chunks' if chunk else 'prefills'}")
+    if backend == "paged" and not m.attention_free:
         pool = sched.backend.pool
         pool.check_invariants()
         if pool.blocks_in_use() != 0:
@@ -3378,36 +3437,62 @@ FAMILY_ARCHS = ("gemma2-9b", "granite-3-2b", "qwen1.5-110b", "granite-moe-1b-a40
                 "qwen3-moe-30b-a3b")
 DENSE_FAMILY = ("gemma2-9b", "granite-3-2b", "qwen1.5-110b")
 GEMMA_B, GEMMA_T = 4, 4608  # T past gemma2's 4096-token window, so it binds
-FAMILY_REQS, FAMILY_CHUNK_REQS = 8, 4  # the first requests of phase 7's trace
+# the first requests of phase 7's trace: phase 16's traces were cut from 8
+# to 4 requests to make room for phase 17 within the 1200 s limit; phase 17
+# runs 8
+FAMILY_REQS, FAMILY_CHUNK_REQS, P17_REQS = 4, 4, 8
 # configurations at full width cut in depth (published depth in the model's
 # config): qwen1.5-110b to 4 of 80 layers (~7.9 B parameters, 15.9 GB in
-# bf16), qwen3-moe-30b-a3b to 8 of 48 (~5.6 B)
-FAMILY_CUTS = {"qwen1.5-110b": 4, "qwen3-moe-30b-a3b": 8}
+# bf16), qwen3-moe-30b-a3b to 8 of 48 (~5.6 B); phase 17's llava-next-34b
+# to 12 of 60 (~7.6 B: at full depth its ~34.4 B parameters, ~69 GB in
+# bf16, leave no room on one 80 GB card for its slot weights and cache)
+FAMILY_CUTS = {"qwen1.5-110b": 4, "qwen3-moe-30b-a3b": 8, "llava-next-34b": 12}
 
 
-def family_smoke_parity():
-    """Phase 16 (a): each config's smoke variant on the card against the
-    port's CPU path (same weights, fp32): one-shot fairkv_dp and the
-    continuous scheduler on paged pools in the engine dtype; the dense
+def _smoke_batch(model, seed=SEED):
+    """Two 40-token prompts (numpy), plus the stub frontends' inputs the
+    model takes: a VLM's image embeddings, an encoder-decoder's frames."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    batch = {"tokens": rng.integers(0, 256, size=(2, 40)).astype(np.int32)}
+    if model.is_vlm:
+        batch["image_embeds"] = (0.02 * rng.standard_normal(
+            (2, model.num_image_tokens, model.d_model))).astype(np.float32)
+    if model.is_encoder_decoder:
+        batch["frames"] = (0.02 * rng.standard_normal(
+            (2, model.encoder_seq_len, model.d_model))).astype(np.float32)
+    return batch
+
+
+def family_smoke_parity(cases=None, tag="[family]"):
+    """Phase 16 (a), and phase 17's: each config's smoke variant on the card
+    against the port's CPU path (same weights, fp32): one-shot fairkv_dp and
+    the continuous scheduler on paged pools in the engine dtype; the dense
     configs also speculative (a 1-layer draft) and chunked (8-token
     chunks).  Identical tokens and lengths, logits within 1e-3 (phase 4's
-    bar: fp32 summed in another order).  Returns the launches of the card
-    runs."""
+    bar: fp32 summed in another order).  ``cases`` are (arch, ModelConfig
+    overrides, run names) (default: phase 16's configs).  Returns the
+    launches of the card runs."""
+    import dataclasses
+
     import numpy as np
     import torch
     from repro_torch import interop
     from repro_torch.api import (CompressionConfig, Engine, EngineConfig, PagingConfig,
                                  PlannerConfig, PrefixConfig, SchedulerConfig,
                                  SpeculationConfig, synthesize_requests)
-    rng = np.random.default_rng(SEED)
-    toks = rng.integers(0, 256, size=(2, 40)).astype(np.int32)
     launches = {}
-    runs = [("oneshot", {}), ("continuous", {})]
-    for arch in FAMILY_ARCHS:
-        todo = runs + ([("speculative", {"speculation": SpeculationConfig(
-                            enabled=True, max_k=3, draft_layers=1)}),
-                        ("chunked", {"prefix": PrefixConfig(chunk_tokens=8)})]
-                       if arch in DENSE_FAMILY else [])
+    extras = {"oneshot": {}, "continuous": {},
+              "speculative": {"speculation": SpeculationConfig(enabled=True, max_k=3,
+                                                               draft_layers=1)},
+              "chunked": {"prefix": PrefixConfig(chunk_tokens=8)}}
+    if cases is None:
+        cases = [(arch, {}, ("oneshot", "continuous")
+                  + (("speculative", "chunked") if arch in DENSE_FAMILY else ()))
+                 for arch in FAMILY_ARCHS]
+    for arch, over, names in cases:
+        todo = [(name, extras[name]) for name in names]
+        label = arch + "".join(f" {k}={v}" for k, v in over.items())
         params = {}
         for name, extra in todo:
             out = {}
@@ -3421,6 +3506,9 @@ def family_smoke_parity():
                     scheduler=SchedulerConfig(max_rows=2, collect_logits=True),
                     cache_backend="slot" if name == "oneshot" else "paged",
                     paging=PagingConfig(block_size=8), **extra)
+                if over:
+                    cfg = cfg.replace(model=dataclasses.replace(cfg.model, **over))
+                toks = _smoke_batch(cfg.model)
                 if dev not in params:
                     params[dev] = (Engine.build(cfg).params if dev == "cpu" else
                                    interop.to_torch(interop.to_numpy(params["cpu"]), "cuda"))
@@ -3432,8 +3520,9 @@ def family_smoke_parity():
                     reqs = synthesize_requests(4, 0.5, cfg.model.vocab_size, min_prompt=12,
                                                max_prompt=24, max_new_tokens=6, seed=0)
                     summ, got = _count(lambda: eng.run_trace(reqs, max_steps=500))
-                    if summ["finished"] != 4 or eng.scheduler.backend.pool.blocks_in_use():
-                        fail(f"[family] (a) {arch} {name} on {dev}: {summ['finished']}/4 "
+                    pool = eng.scheduler.backend.pool  # None without attention
+                    if summ["finished"] != 4 or (pool is not None and pool.blocks_in_use()):
+                        fail(f"{tag} (a) {label} {name} on {dev}: {summ['finished']}/4 "
                              f"finished or blocks left in the pool")
                     out[dev] = ([r.generated for r in reqs], None,
                                 [np.stack(r.logits) for r in reqs])
@@ -3446,9 +3535,9 @@ def family_smoke_parity():
             same_len = la is None or np.array_equal(la, lb)
             same_tok = np.array_equal(ta, tb) if name == "oneshot" else ta == tb
             if not (same_tok and same_len and gap < 1e-3):
-                fail(f"[family] (a) {arch} {name}: card vs CPU tokens equal {same_tok}, "
+                fail(f"{tag} (a) {label} {name}: card vs CPU tokens equal {same_tok}, "
                      f"lengths equal {same_len}, max |dlogits| {gap:.3e} (bar 1e-3)")
-            log(f"[family] (a) {arch} smoke {name}: card == CPU tokens"
+            log(f"{tag} (a) {label} smoke {name}: card == CPU tokens"
                 + (" and lengths" if la is not None else "") + f"; max |dlogits| {gap:.3e}")
         del params
         gc.collect()
@@ -3460,8 +3549,10 @@ def family_config(arch, b, t, mode="sha", ch=0):
     """A full-width config on the card in bf16 with phase 5's compression
     and slot grid (8 shards x 2 slots); ``FAMILY_CUTS`` cuts the depth."""
     from repro_torch.api import CompressionConfig, EngineConfig, PlannerConfig
+    # max_seq_len sizes an encoder-decoder's learned positions: the prompt,
+    # the generated tokens and `_step_times`' further steps
     cfg = EngineConfig.for_arch(
-        arch, n_shards=N_SHARDS, dtype="bfloat16", max_seq_len=t + GEN, seed=SEED,
+        arch, n_shards=N_SHARDS, dtype="bfloat16", max_seq_len=t + 2 * GEN, seed=SEED,
         device="cuda",
         compression=CompressionConfig(policy="ada_snapkv", budget=BUDGET, alpha_max=ALPHA,
                                       obs_window=OBS, pool=POOL, sink=SINK,
@@ -3505,7 +3596,8 @@ def family_oneshot(arch, b, t, modes=(("sha", 0), ("fairkv_dp", 4)), bias=False)
     cfg = family_config(arch, b, t, *modes[0])
     m = cfg.model
     data = SyntheticLM(m, InputShape("chip_smoke", t, b, "prefill"))
-    prompts = data.get_batch(0)["tokens"]
+    prompts = data.get_batch(0)  # tokens, and the stub frontends' inputs
+    n_attn = 0 if m.attention_free else m.n_layers  # layers that launch kernels
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3517,7 +3609,7 @@ def family_oneshot(arch, b, t, modes=(("sha", 0), ("fairkv_dp", 4)), bias=False)
         for pl in params["layers"]:
             for key in ("bq", "bk", "bv"):
                 pl[key].copy_(torch.randn(pl[key].shape, generator=g, device="cuda") * 0.5)
-    profile = probe.measure_profile(data.get_batch(123)["tokens"])
+    profile = probe.measure_profile(data.get_batch(123))
     del probe
     rec = {"arch": m.name, "layers": m.n_layers, "cut": arch in FAMILY_CUTS,
            "params": _n_params(params), "runs": {}}
@@ -3530,9 +3622,9 @@ def family_oneshot(arch, b, t, modes=(("sha", 0), ("fairkv_dp", 4)), bias=False)
                            params=params, profile=profile)
         teacher = None if not results else results[modes[0][0]].tokens[:, :GEN]
         res, got = _count(lambda: eng.generate(prompts, GEN, teacher_tokens=teacher))
-        if got["fairkv_decode"] != m.n_layers * GEN or got["snapkv_scores"] != m.n_layers:
+        if got["fairkv_decode"] != n_attn * GEN or got["snapkv_scores"] != n_attn:
             fail(f"[family] {arch} {mode}: launches {got}, expected fairkv_decode "
-                 f"{m.n_layers} x {GEN}, snapkv_scores {m.n_layers}")
+                 f"{n_attn} x {GEN}, snapkv_scores {n_attn}")
         if res.logits.shape != (b, GEN + 1, m.padded_vocab) or not np.isfinite(res.logits).all():
             fail(f"[family] {arch} {mode}: logits {res.logits.shape} or not finite")
         results[mode] = res
@@ -3541,6 +3633,9 @@ def family_oneshot(arch, b, t, modes=(("sha", 0), ("fairkv_dp", 4)), bias=False)
                              "step_ms_host": 1e3 * statistics.median(res.step_s),
                              "step_ms_device": dev_ms, "kernel1_ms_per_step": k1_ms,
                              "efficiency": res.efficiency, "launches": got}
+        if not m.attention_free:  # Eq. 4: the plan's per-shard load, realized
+            load = eng.plan.per_shard_load(res.realized_profile)
+            rec["runs"][mode]["shard_load_max_over_mean"] = float(load.max() / load.mean())
     base = results[modes[0][0]]
     tol = m.n_layers * 2.0 ** -8 * float(np.abs(base.logits).max())
     for mode, _ in modes[1:]:
@@ -3578,7 +3673,8 @@ def family_oneshot(arch, b, t, modes=(("sha", 0), ("fairkv_dp", 4)), bias=False)
         f"{rec['params'] / 1e9:.2f} B parameters, B={b}, T={t}): "
         + "; ".join(f"{mode}: prefill {r['prefill_s']:.2f} s, step {r['step_ms_host']:.2f} ms "
                     f"host / {r['step_ms_device']:.2f} ms device (kernel 1 "
-                    f"{r['kernel1_ms_per_step']:.3f} ms), E={r['efficiency']:.4f}, launches "
+                    f"{r['kernel1_ms_per_step']:.3f} ms), E={r['efficiency']}, per-shard load "
+                    f"max/mean {r.get('shard_load_max_over_mean')}, launches "
                     f"{r['launches']}" for mode, r in rec["runs"].items())
         + f"; lengths plan-invariant, logit gaps "
         f"{[round(r.get('logit_gap', 0.0), 4) for r in rec['runs'].values()]} "
@@ -3590,17 +3686,29 @@ def family_oneshot(arch, b, t, modes=(("sha", 0), ("fairkv_dp", 4)), bias=False)
 
 
 def time_gemma_kernels(ctx, rows):
-    """Phase 10's table at gemma2-9b's main-path shapes, on its one-shot's
-    own cache (``ctx["cache"]``; layer 1, a global layer, and layer 0, a
-    window layer):
-    kernel 1 at (B 4, S 16, G 2, Dh 256, C 576), kernel 3 on that cache laid
-    out as bf16 pools (identity block table), and kernel 2 at its prefill
-    shape (B 4, W 32, Hq 16, Hkv 8, Dh 256, T 4608); each beside its plain
-    version and the bound (bytes read once at 3.35 TB/s).  Adds the
-    ``*_gemma2`` keys to the rows."""
+    """Phase 10's table at gemma2-9b's main-path shapes (``*_gemma2`` keys):
+    kernels 1 and 3 on its one-shot's own cache (layer 1, a global layer;
+    layer 0, a window layer: ``*_gemma2_window``), kernel 4 on that cache
+    at Q = 5 (head_dim 256), kernel 2 at its prefill shape (B 4, W 32,
+    Hq 16, Hkv 8, Dh 256, T 4608)."""
+    time_config_kernels(ctx, rows, "gemma2-9b", ((1, "_gemma2"), (0, "_gemma2_window")),
+                        GEMMA_B, GEMMA_T, mq_sfx="_gemma2")
+
+
+def time_config_kernels(ctx, rows, label, layers, b, t, mq_sfx=None):
+    """A config's kernel times on its one-shot's own cache (``ctx["cache"]``,
+    after decode), added to the rows as keys with each layer's suffix:
+    kernel 1 on each of ``layers`` ((layer, suffix) pairs, with the layer's
+    window and the model's softcap), kernel 3 on that cache laid out as
+    bf16 pools (identity block table), with ``mq_sfx`` kernel 4 on it at
+    Q = 5 (the last window of each row at its length), and kernel 2 at the
+    prefill shape (B = ``b``, W 32, T = ``t``); each beside its plain
+    version and the bound (the bytes read once at 3.35 TB/s, or the
+    operations at 989 TFLOP/s when larger)."""
     import torch
     from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda
-    from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
+    from repro_torch.kernels.paged_fairkv_decode import (paged_fairkv_decode_cuda,
+                                                         paged_fairkv_decode_mq_cuda)
     from repro_torch.kernels.ref import (fairkv_decode_ref, paged_fairkv_decode_ref,
                                          snapkv_scores_ref)
     from repro_torch.kernels.snapkv_select import snapkv_scores_cuda
@@ -3611,15 +3719,15 @@ def time_gemma_kernels(ctx, rows):
     m = ctx["cfg"].model
     cache = ctx.pop("cache")  # the one-shot's cache after decode
     by_name = {r["name"]: r for r in rows}
-    for layer in (1, 0):
+    for li, (layer, sfx) in enumerate(layers):
         k, v, ln, kp = cache.k[layer], cache.v[layer], cache.lengths[layer], cache.pos[layer]
         S, Bq, C, Dh = k.shape
         G = m.q_per_kv
         window = m.sliding_window if m.layer_is_local(layer) else 0
         q = torch.randn((Bq, S, G, Dh), generator=gen, device="cuda").to(k.dtype)
-        qp = torch.full((Bq,), GEMMA_T + GEN, dtype=torch.int32, device="cuda")
+        qp = torch.full((Bq,), t + GEN, dtype=torch.int32, device="cuda")
         kw = dict(attn_cap=m.attn_softcap, k_pos=kp, q_pos=qp, window=window)
-        err = _cmp(f"fairkv_decode (gemma2 layer {layer})", fairkv_decode_cuda(q, k, v, ln, **kw),
+        err = _cmp(f"fairkv_decode ({label} layer {layer})", fairkv_decode_cuda(q, k, v, ln, **kw),
                    fairkv_decode_ref(q, k, v, ln, **kw), FP32_TOL, BF16_ULP)
         kern = time_ms(lambda: fairkv_decode_cuda(q, k, v, ln, **kw), flush)
         plain = time_ms(lambda: fairkv_decode_ref(q, k, v, ln, **kw), flush)
@@ -3627,46 +3735,75 @@ def time_gemma_kernels(ctx, rows):
         it = k.element_size()
         nbytes = n_ret * Dh * 2 * it + 2 * q.numel() * it + ln.numel() * 4 + (
             n_ret * 4 if window else 0)
-        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, 4 * n_ret * G * Dh / BF16_FLOP_PER_S)
         kpool, vpool, ppool, tbl = slot_layer_as_pool(k, v, kp, BLOCK)
         pargs = (q, kpool, vpool, ppool, tbl, ln, C)
         pkw = dict(attn_cap=m.attn_softcap, q_pos=qp, window=window)
-        perr = _cmp_paged(f"paged_fairkv_decode (gemma2 layer {layer})",
-                          paged_fairkv_decode_cuda(*pargs, **pkw),
+        pout = paged_fairkv_decode_cuda(*pargs, **pkw)
+        perr = _cmp_paged(f"paged_fairkv_decode ({label} layer {layer})", pout,
                           paged_fairkv_decode_ref(*pargs, **pkw))
+        if not torch.equal(pout, fairkv_decode_cuda(q, k, v, ln, **kw)):
+            fail(f"{label} layer {layer}: kernel 3 over the cache as pools is not bitwise "
+                 f"kernel 1's")
         pkern = time_ms(lambda: paged_fairkv_decode_cuda(*pargs, **pkw), flush)
         pplain = time_ms(lambda: paged_fairkv_decode_ref(*pargs, **pkw), flush)
         n_blk = int(((ln + BLOCK - 1) // BLOCK).sum().item())
-        pbound = 1e3 * (nbytes + n_blk * 4) / HBM_BYTES_PER_S
-        sfx = "_gemma2" if layer == 1 else "_gemma2_window"
+        pbound = 1e3 * max((nbytes + n_blk * 4) / HBM_BYTES_PER_S,
+                           4 * n_ret * G * Dh / BF16_FLOP_PER_S)
         by_name["fairkv_decode"].update({f"ms{sfx}": kern, f"plain_ms{sfx}": plain,
                                          f"bound_ms{sfx}": bound, f"max_abs_err{sfx}": err})
         by_name["paged_fairkv_decode"].update({f"ms{sfx}": pkern, f"plain_ms{sfx}": pplain,
                                                f"bound_ms{sfx}": pbound,
                                                f"max_abs_err{sfx}": perr})
-        log(f"[time] gemma2-9b layer {layer} ({'window ' + str(window) if window else 'global'}, "
+        log(f"[time] {label} layer {layer} ({'window ' + str(window) if window else 'global'}, "
             f"softcap {m.attn_softcap}) at (B={Bq}, S={S}, G={G}, C={C}, Dh={Dh}) bf16, "
             f"sum(lengths)={n_ret}: fairkv_decode {kern:.4f} ms (plain {plain:.4f}, bound "
             f"{bound:.4f} ms = {nbytes} B / 3.35 TB/s); paged_fairkv_decode over the cache as "
-            f"pools {pkern:.4f} ms (plain {pplain:.4f}, bound {pbound:.4f} ms)")
-    q2 = torch.randn((GEMMA_B, OBS, m.n_heads, m.head_dim), generator=gen,
+            f"pools {pkern:.4f} ms (plain {pplain:.4f}, bound {pbound:.4f} ms), bitwise "
+            f"kernel 1's")
+        if mq_sfx is not None and li == 0:
+            Q = 5  # a verify window of max_k 4 + 1, every row's full, at its length
+            q4 = torch.randn((Bq, S, Q, G, Dh), generator=gen, device="cuda").to(k.dtype)
+            ql = torch.full((Bq,), Q, dtype=torch.int32, device="cuda")
+            margs = (q4,) + pargs[1:]
+            mkw = dict(pkw, q_lens=ql)
+            merr = _cmp(f"paged_fairkv_decode_mq ({label} layer {layer}, Q={Q})",
+                        paged_fairkv_decode_mq_cuda(*margs, **mkw),
+                        paged_fairkv_decode_ref(*margs, **mkw), FP32_TOL, BF16_ULP)
+            mkern = time_ms(lambda: paged_fairkv_decode_mq_cuda(*margs, **mkw), flush)
+            mplain = time_ms(lambda: paged_fairkv_decode_ref(*margs, **mkw), flush)
+            lnT = ln.T.long()[:, :, None]
+            vis = torch.clamp(torch.minimum(lnT - (Q - 1 - torch.arange(Q, device="cuda")),
+                                            lnT), min=0)
+            n_vis = int(vis.sum().item())
+            mbytes = (n_ret * Dh * 2 * it + n_blk * 4 + 2 * q4.numel() * it + ln.numel() * 4
+                      + Bq * 4 + (n_ret * 4 if window else 0))
+            mbound = 1e3 * max(mbytes / HBM_BYTES_PER_S, 4 * n_vis * G * Dh / BF16_FLOP_PER_S)
+            by_name["paged_fairkv_decode_mq"].update({
+                f"ms{mq_sfx}": mkern, f"plain_ms{mq_sfx}": mplain, f"bound_ms{mq_sfx}": mbound,
+                f"max_abs_err{mq_sfx}": merr})
+            log(f"[time] {label} layer {layer} paged_fairkv_decode_mq at (B={Bq}, S={S}, Q={Q}, "
+                f"G={G}, Dh={Dh}, bs={BLOCK}) bf16 on the cache as pools, {n_vis} visible "
+                f"(query, column) pairs: kernel {mkern:.4f} ms, plain {mplain:.4f} ms, bound "
+                f"{mbound:.4f} ms ({mbytes} B / 3.35 TB/s)")
+    q2 = torch.randn((b, OBS, m.n_heads, m.head_dim), generator=gen,
                      device="cuda").to(torch.bfloat16)
-    k2 = torch.randn((GEMMA_B, GEMMA_T, m.n_kv_heads, m.head_dim), generator=gen,
+    k2 = torch.randn((b, t, m.n_kv_heads, m.head_dim), generator=gen,
                      device="cuda").to(torch.bfloat16)
-    kpos = torch.arange(GEMMA_T, dtype=torch.int32, device="cuda").expand(
-        GEMMA_B, GEMMA_T).contiguous()
-    opos = kpos[:, GEMMA_T - OBS:].contiguous()
+    kpos = torch.arange(t, dtype=torch.int32, device="cuda").expand(b, t).contiguous()
+    opos = kpos[:, t - OBS:].contiguous()
     skw = dict(attn_cap=m.attn_softcap)
-    err2 = _cmp("snapkv_scores (gemma2 prefill shape)",
+    err2 = _cmp(f"snapkv_scores ({label} prefill shape)",
                 snapkv_scores_cuda(q2, k2, opos, kpos, **skw),
                 snapkv_scores_ref(q2, k2, opos, kpos, **skw), FP32_TOL, 1e-5)
     kern2 = time_ms(lambda: snapkv_scores_cuda(q2, k2, opos, kpos, **skw), flush)
     plain2 = time_ms(lambda: snapkv_scores_ref(q2, k2, opos, kpos, **skw), flush)
     nbytes2, flops2, bound2 = _scores_bound(q2, k2, opos, kpos)
-    by_name["snapkv_scores"].update(ms_gemma2=kern2, plain_ms_gemma2=plain2,
-                                    bound_ms_gemma2=bound2, max_abs_err_gemma2=err2)
-    log(f"[time] gemma2-9b snapkv_scores at (B={GEMMA_B}, W={OBS}, Hq={m.n_heads}, "
-        f"Hkv={m.n_kv_heads}, Dh={m.head_dim}, T={GEMMA_T}) bf16, softcap {m.attn_softcap}: "
+    sfx2 = layers[0][1]
+    by_name["snapkv_scores"].update({f"ms{sfx2}": kern2, f"plain_ms{sfx2}": plain2,
+                                     f"bound_ms{sfx2}": bound2, f"max_abs_err{sfx2}": err2})
+    log(f"[time] {label} snapkv_scores at (B={b}, W={OBS}, Hq={m.n_heads}, "
+        f"Hkv={m.n_kv_heads}, Dh={m.head_dim}, T={t}) bf16, softcap {m.attn_softcap}: "
         f"kernel {kern2:.4f} ms, plain {plain2:.4f} ms, bound {bound2:.4f} ms (max of "
         f"{nbytes2} B / 3.35 TB/s and {flops2} FLOP / 989 TFLOP/s)")
 
@@ -3806,6 +3943,100 @@ def family_runs(rows):
     log("[family] summary " + json.dumps(records))
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the SSM, hybrid, encoder-decoder and VLM families
+# ---------------------------------------------------------------------------
+
+# (a)'s smoke variants: (arch, ModelConfig overrides, runs); hymba at G = 5
+# and llava at G = 7 reach the decode kernels' masked-head instantiations
+P17_SMOKE = [("mamba2-1.3b", {}, ("oneshot", "continuous")),
+             ("hymba-1.5b", {}, ("oneshot", "continuous")),
+             ("hymba-1.5b", {"n_kv_heads": 1}, ("oneshot", "continuous")),
+             ("whisper-small", {}, ("oneshot",)),
+             ("llava-next-34b", {}, ("oneshot",)),
+             ("llava-next-34b", {"n_heads": 14, "n_kv_heads": 2}, ("oneshot",))]
+WHISPER_PROMPT = 256  # decoder prompt tokens (its context is 448 positions)
+LLAVA_B, LLAVA_TEXT = 2, 1024  # rows, text tokens after the 2880 image tokens
+
+
+def p17_runs(rows):
+    """Phase 17: (a) the smoke variants against the CPU path; (b)
+    hymba-1.5b at full width and depth (one-shot 8 x 2048 under sha and
+    fairkv_dp, kernels 1-3 on its cache, 8 requests of phase 7's trace on
+    bf16 pools); (c) mamba2-1.3b at full width and depth (one-shot 8 x
+    2048, no kernel launched; 8 requests on the slot backend, imbalance
+    1.0); (d) whisper-small at full width and depth (8 x 1500 stub frames,
+    a 256-token decoder prompt); (e) llava-next-34b at full width, cut to
+    12 of 60 layers (2 x (2880 image + 1024 text tokens)), kernels 1-3 at
+    its shapes.  Prints each config's record and the phase's time and
+    launches (apart from the kernel table); adds the ``*_hymba`` and
+    ``*_llava`` keys to ``rows``."""
+    import torch
+    t0 = time.perf_counter()
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    def oneshot_launches(rec):
+        add({k: v for r in rec["runs"].values() for k, v in r["launches"].items()})
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    add(family_smoke_parity(P17_SMOKE, tag="[p17]"))
+    records = {}
+    # (b) hymba-1.5b: 5 kv heads over 8 shards, G = 5, window 1024 < T
+    ctx, rec = family_oneshot("hymba-1.5b", B, T)
+    oneshot_launches(rec)
+    time_config_kernels(ctx, rows, "hymba-1.5b", ((0, "_hymba"),), B, T)
+    got, out = _family_trace(ctx, "hymba trace", P17_REQS)
+    add(got)
+    rec["trace"] = {k: out[k] for k in ("finished", "decode_ticks", "step_ms_median",
+                                        "tokens_per_s", "replans_accepted")}
+    records["hymba-1.5b"] = rec
+    ctx = None
+    free()
+    # (c) mamba2-1.3b: attention-free, a trivial plan, no kernel
+    ctx, rec = family_oneshot("mamba2-1.3b", B, T, modes=(("sha", 0),))
+    oneshot_launches(rec)
+    if any(rec["runs"]["sha"]["launches"].values()):
+        fail(f"[p17] mamba2-1.3b launched kernels: {rec['runs']['sha']['launches']}")
+    imb = {}
+    got, out = continuous_run(
+        ctx, "mamba2 trace", "slot", "fp32", reqs=make_trace(ctx["cfg"].model.vocab_size)[
+            :P17_REQS], inspect=lambda eng, _: imb.update(v=eng.imbalance()))
+    add(got)
+    if imb["v"] != 1.0 or any(got.values()):
+        fail(f"[p17] mamba2 trace: imbalance {imb['v']} (must be 1.0), launches {got}")
+    rec["trace"] = {k: out[k] for k in ("finished", "decode_ticks", "step_ms_median",
+                                        "tokens_per_s")}
+    rec["trace"]["imbalance"] = imb["v"]
+    records["mamba2-1.3b"] = rec
+    ctx = None
+    free()
+    # (d) whisper-small: 12 encoder + 12 decoder layers over 1500 frames
+    ctx, rec = family_oneshot("whisper-small", B, WHISPER_PROMPT)
+    ctx.pop("cache")
+    oneshot_launches(rec)
+    records["whisper-small"] = rec
+    ctx = None
+    free()
+    # (e) llava-next-34b, cut to 12 of 60 layers: G = 7, 3904-token prompts
+    from repro_torch.configs import get_config
+    t_llava = get_config("llava-next-34b").num_image_tokens + LLAVA_TEXT
+    ctx, rec = family_oneshot("llava-next-34b", LLAVA_B, t_llava)
+    oneshot_launches(rec)
+    time_config_kernels(ctx, rows, "llava-next-34b (cut)", ((0, "_llava"),), LLAVA_B, t_llava)
+    records["llava-next-34b"] = rec
+    ctx = None
+    free()
+    log(f"[p17] phase 17 took {time.perf_counter() - t0:.1f} s; launches {launches}")
+    log("[p17] summary " + json.dumps(records))
+
+
 def main() -> int:
     try:
         import torch
@@ -3827,9 +4058,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
 
+    def mark(what):  # the phases' end times, for the record of where time goes
+        log(f"[time] {what} ended {time.perf_counter() - t_start:.1f} s after the start")
+
     card = card_line()
     log(f"[card] {card}")
     build_kernels()
+    mark("phase 2 (build)")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     check_decode(gen)
@@ -3840,11 +4075,14 @@ def main() -> int:
     check_paged_contracts()
     smoke_parity()
     smoke_spec_parity()
+    mark("phases 3-4")
     engine, launches, ctx = main_path()
     paged = paged_oneshot(ctx)
     cont, mq_inputs = continuous_runs(ctx)
     prefix = prefix_runs(ctx)
+    mark("phases 5-8")
     graphs_vs_eager(ctx)
+    mark("phase 9")
     # phases 12-14 run before the timings, so their launches are in the table
     policies = policy_runs(ctx)
     cli_run()
@@ -3864,9 +4102,11 @@ def main() -> int:
     for name in ("snapkv_scores", "paged_fairkv_decode"):
         if prefix[name] == 0:
             fail(f"kernel {name} was never launched in the chunked / prefix phase")
+    mark("phases 12-14")
     rows = time_kernels(engine, launches, paged, mq_inputs, prefix)
     attribute_elementwise(engine)
     oneshot_beside_scheduler(ctx)
+    mark("phases 10-11")
     # phase 15 last: its second part starts two ranks that each hold a full
     # copy of the weights, so the main path's engines go first
     engine = paged = cont = mq_inputs = prefix = policies = frontend = None
@@ -3877,7 +4117,13 @@ def main() -> int:
     ctx = None
     gc.collect()
     torch.cuda.empty_cache()
+    mark("phase 15")
     family_runs(rows)
+    # phase 17 after phase 16, its memory freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 16")
+    p17_runs(rows)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

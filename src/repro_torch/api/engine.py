@@ -51,7 +51,7 @@ from repro_torch.api.config import DTYPES, EngineConfig
 from repro_torch.api.stats import EngineStats, collect_stats
 from repro_torch.cache.slot_cache import PlanArrays, SlotCache, copy_fields_
 from repro_torch.core.placement import HeadPlacement
-from repro_torch.core.planner import build_plan
+from repro_torch.core.planner import PlannerConfig, build_plan
 from repro_torch.core.profiles import profile_from_lengths, synthetic_profile
 from repro_torch.exec.base import make_executor
 from repro_torch.models import init_params
@@ -80,9 +80,9 @@ class GenerationResult:
     tokens: np.ndarray  # (B, 1 + steps)
     logits: Optional[np.ndarray]  # (B, 1 + steps, V) fp32 when collected
     lengths: np.ndarray  # (L, Hkv, B)
-    realized_profile: np.ndarray  # (L, Hkv)
-    efficiency: float  # plan E (Eq. 5) on the realized profile
-    makespan: float  # plan max-shard load on the realized profile
+    realized_profile: Optional[np.ndarray]  # (L, Hkv); None without attention
+    efficiency: Optional[float]  # plan E (Eq. 5) on the realized profile
+    makespan: Optional[float]  # plan max-shard load on the realized profile
     prefill_s: float
     step_s: List[float] = field(default_factory=list)
 
@@ -196,13 +196,18 @@ class Engine:
         model = cfg.model
         if params is None:
             params = init_params(model, cfg.seed, dtype=DTYPES[cfg.dtype],
-                                 device=device)
-        if profile is None:
-            profile = synthetic_profile(
-                model.n_layers, model.n_kv_heads,
-                budget=cfg.compression.budget, skew=cfg.profile_skew,
-                seed=cfg.profile_seed)
-        plan = build_plan(profile, cfg.n_shards, cfg.planner)
+                                 device=device, max_seq_len=cfg.max_seq_len)
+        if model.attention_free:  # one shard, one slot: nothing to place
+            plan = build_plan(np.ones((model.n_layers, 1)), 1,
+                              PlannerConfig(mode="sha", slots_per_shard=1))
+            profile = None
+        else:
+            if profile is None:
+                profile = synthetic_profile(
+                    model.n_layers, model.n_kv_heads,
+                    budget=cfg.compression.budget, skew=cfg.profile_skew,
+                    seed=cfg.profile_seed)
+            plan = build_plan(profile, cfg.n_shards, cfg.planner)
         return cls(cfg, params, plan, profile, head_importance=head_importance, mesh=mesh)
 
     # ---- one-shot serving --------------------------------------------------
@@ -280,14 +285,16 @@ class Engine:
             if collect_logits:
                 logits_all.append(lg.cpu().numpy())
         lengths_np = lengths.cpu().numpy()
-        realized = profile_from_lengths(lengths_np.astype(np.float64))
+        realized = eff = mk = None  # an attention-free model has no plan metrics
+        if not self.cfg.model.attention_free:
+            realized = profile_from_lengths(lengths_np.astype(np.float64))
+            eff = float(self.plan.efficiency(realized))
+            mk = float(self.plan.makespan(realized))
         return GenerationResult(
             tokens=np.stack(tokens, axis=1),
             logits=(np.stack(logits_all, axis=1) if collect_logits else None),
-            lengths=lengths_np, realized_profile=realized,
-            efficiency=float(self.plan.efficiency(realized)),
-            makespan=float(self.plan.makespan(realized)),
-            prefill_s=prefill_s, step_s=step_s)
+            lengths=lengths_np, realized_profile=realized, efficiency=eff,
+            makespan=mk, prefill_s=prefill_s, step_s=step_s)
 
     def measure_profile(self, batch: Union[Dict, np.ndarray]) -> np.ndarray:
         """Profiling pass (paper §4.1): prefill+compression on a sample
@@ -319,6 +326,8 @@ class Engine:
             event = self._scheduler.replan(profile=profile, shard_speeds=shard_speeds)
             self._sync_from_scheduler()
             return event
+        if self.cfg.model.attention_free:
+            raise ValueError("attention-free models have no head placement to replan")
         prof = self.profile if profile is None else np.asarray(profile)
         speeds = None if shard_speeds is None else np.asarray(shard_speeds, float)
         self.plan = build_plan(prof, self.cfg.n_shards, self.cfg.planner,
@@ -328,7 +337,7 @@ class Engine:
         migrated = False
         # copies into the live tensors (cache, plan arrays, slot weights):
         # captured steps keep their inputs
-        if self.state is not None:
+        if self.state is not None and self.state.cache is not None:
             if isinstance(self.state.cache, SlotCache):
                 # prefill leaves the slot layout whatever the backend
                 copy_fields_(self.state.cache,
@@ -563,7 +572,16 @@ class Engine:
         return pool.detail
 
     def _as_batch(self, batch) -> Dict[str, torch.Tensor]:
+        """A (B, T) token array, or a batch dict (``tokens`` and, for the
+        stub frontends, ``frames`` / ``image_embeds``, cast to the model
+        dtype), as tensors on the device."""
         if isinstance(batch, dict):
-            return {k: torch.as_tensor(v, device=self.device) for k, v in batch.items()}
+            out = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v,
+                                      device=self.device) for k, v in batch.items()}
+            out["tokens"] = out["tokens"].long()
+            for k in ("frames", "image_embeds"):
+                if k in out:
+                    out[k] = out[k].to(DTYPES[self.cfg.dtype])
+            return out
         return {"tokens": torch.as_tensor(np.asarray(batch), dtype=torch.int64,
                                           device=self.device)}

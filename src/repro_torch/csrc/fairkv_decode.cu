@@ -35,7 +35,11 @@
 //     floats) stay 32 (160 KB of ring at fp32: one block per SM);
 //   - G blocks per (slot, row), 8 warps each, so every warp carries exactly
 //     one (column class, head) chain: 128 (slot, row) pairs give 512 blocks
-//     at G = 4.  Each block writes its partial softmax states to scratch;
+//     at G = 4.  A G that does not divide 8 (5 and 7) splits the classes
+//     as G = 8 does, one class per block, and the warps of heads G .. 7
+//     load no q and write no state: the K/V stream, the whole cost, is
+//     that of G = 8, and each live head's chain is unchanged.  Each block
+//     writes its partial softmax states to scratch;
 //     the last block of the pair to finish (a per-pair atomic counter after
 //     __threadfence, reset for the next launch) merges them, so one launch
 //     suffices;
@@ -80,6 +84,9 @@ constexpr float NEG_INF = -1e30f;
 // entries a warp scores before it updates its state (NB x J key registers)
 template <int J> __host__ __device__ constexpr int stage_entries() { return 128 / J; }
 template <int J> __host__ __device__ constexpr int batch_entries() { return 32 / J; }
+// the group a G splits the column classes as: G itself when it divides 8,
+// else 8 with heads G .. 7 masked (G = 5: hymba-1.5b, 7: llava-next-34b)
+__host__ __device__ constexpr int padded_group(int G) { return G <= 2 ? G : (G <= 4 ? 4 : 8); }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -194,10 +201,12 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
                      int* __restrict__ counters,       // (S*B,), zero between launches
                      int B, int S, int C, int Dh_in,
                      float scale, float attn_cap, int window, int vec) {
-  // G blocks per (slot, row); block `part` takes classes cls0 .. cls0 +
-  // CPB - 1, and warp w the chain (class cls0 + w % CPB, head w / CPB)
-  constexpr int CPB = NCLS / G;
-  constexpr int LCPB = G == 1 ? 3 : (G == 2 ? 2 : (G == 4 ? 1 : 0));
+  // GP blocks per (slot, row); block `part` takes classes cls0 .. cls0 +
+  // CPB - 1, and warp w the chain (class cls0 + w % CPB, head w / CPB);
+  // heads G .. GP - 1 of a padded group are masked (no q load, no state)
+  constexpr int GP = padded_group(G);
+  constexpr int CPB = NCLS / GP;
+  constexpr int LCPB = GP == 1 ? 3 : (GP == 2 ? 2 : (GP == 4 ? 1 : 0));
   constexpr int ES = stage_entries<J>();
   constexpr int NB = batch_entries<J>();
   constexpr int PER = ES / CPB;           // a chain's entries in one stage
@@ -222,6 +231,7 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
   const int lw = warp % CPB;
   const int cls = cls0 + lw;
   const int g = warp / CPB;
+  const bool live = g < G;  // a masked head's warp streams K/V with the block
 
   const Layout L = layout<T, J>(G, Dh);
   float* ml_s = reinterpret_cast<float*>(smem);
@@ -242,7 +252,7 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
 #pragma unroll
   for (int j = 0; j < J; ++j) {
     const int d = lane + 32 * j;
-    qv[j] = d < Dh ? to_f(q[qo + g * Dh + d]) : 0.f;
+    qv[j] = live && d < Dh ? to_f(q[qo + g * Dh + d]) : 0.f;
   }
   float m = NEG_INF, l = 0.f, acc[J];
 #pragma unroll
@@ -363,18 +373,20 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
   // (all of them at G = 1) merges from there
   float* acc_dst = acc_scr + static_cast<size_t>(sb) * NCLS * G * Dh;
   float* ml_dst = ml_scr + static_cast<size_t>(sb) * NCLS * G * 2;
+  if (live) {
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    const int d = lane + 32 * j;
-    if (d < Dh) acc_dst[(cls * G + g) * Dh + d] = acc[j];
-  }
-  if (lane == 0) {
-    ml_dst[(cls * G + g) * 2] = m;
-    ml_dst[(cls * G + g) * 2 + 1] = l;
+    for (int j = 0; j < J; ++j) {
+      const int d = lane + 32 * j;
+      if (d < Dh) acc_dst[(cls * G + g) * Dh + d] = acc[j];
+    }
+    if (lane == 0) {
+      ml_dst[(cls * G + g) * 2] = m;
+      ml_dst[(cls * G + g) * 2 + 1] = l;
+    }
   }
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) *flag = atomicAdd(counters + sb, 1) == G - 1;
+  if (threadIdx.x == 0) *flag = atomicAdd(counters + sb, 1) == GP - 1;
   __syncthreads();
   if (!*flag) return;
   __threadfence();
@@ -420,7 +432,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                   reinterpret_cast<uintptr_t>(a.k) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(a.v) % 16 == 0;
   float* ml_scr = a.scratch + static_cast<size_t>(a.S) * a.B * NCLS * G * a.Dh;
-  const dim3 grid(a.S * a.B, G);
+  const dim3 grid(a.S * a.B, padded_group(G));
   kernel<<<grid, NWARPS * 32, layout<T, J>(G, a.Dh).total, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
       a.lengths, a.k_pos, a.q_pos, static_cast<T*>(a.out), a.scratch, ml_scr, a.counters,
@@ -434,6 +446,8 @@ cudaError_t dispatch_j(int G, const Args& a, cudaStream_t st) {
     case 1: return launch<T, 1, J, FULL>(a, st);
     case 2: return launch<T, 2, J, FULL>(a, st);
     case 4: return launch<T, 4, J, FULL>(a, st);
+    case 5: return launch<T, 5, J, FULL>(a, st);
+    case 7: return launch<T, 7, J, FULL>(a, st);
     case 8: return launch<T, 8, J, FULL>(a, st);
     default: return cudaErrorInvalidValue;
   }

@@ -36,7 +36,9 @@
 //   - G blocks per (slot, row) and query chunk, 8 warps each: block `part`
 //     takes column classes part * 8/G .. + 8/G - 1 of all G heads, and
 //     every warp one (class, head) chain for the QW queries of its chunk,
-//     with their (m, l, acc) in registers; each K and V row is read from
+//     with their (m, l, acc) in registers; the single-query kernel also
+//     takes G = 5 and 7 as the slot kernel does: split as G = 8, the warps
+//     of heads G .. 7 masked (no q load, no state written); each K and V row is read from
 //     shared memory once per warp for all QW queries.  Q > QMAX queries
 //     split over the grid's third dimension into chunks of at most QMAX
 //     (each chunk re-reads K/V, from L2);
@@ -96,6 +98,10 @@ constexpr int NST = 8;              // ring stages
 constexpr int QMAX = 5;             // queries per warp (a chunk of the grid)
 constexpr int MAX_QUERY_ROWS = 40;  // Q * G
 constexpr float NEG_INF = -1e30f;
+
+// the group a G splits the column classes as: G itself when it divides 8,
+// else 8 with heads G .. 7 masked (the slot kernel's rule)
+__host__ __device__ constexpr int padded_group(int G) { return G <= 2 ? G : (G <= 4 ? 4 : 8); }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -303,8 +309,9 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
             int B, int S, int Q, int M, int bs, int bs_shift, int capacity,
             int Dh_in, float scale, float attn_cap, int window, int vec) {
   constexpr bool QUANT = sizeof(TKV) == 1;
-  constexpr int CPB = NCLS / G;  // classes per block
-  constexpr int LCPB = G == 1 ? 3 : (G == 2 ? 2 : (G == 4 ? 1 : 0));
+  constexpr int GP = padded_group(G);  // heads G .. GP - 1 are masked
+  constexpr int CPB = NCLS / GP;       // classes per block
+  constexpr int LCPB = GP == 1 ? 3 : (GP == 2 ? 2 : (GP == 4 ? 1 : 0));
   constexpr int PER = ES / CPB;  // a chain's entries in one stage
   // entries a warp scores before it updates: fewer as QW grows, so the
   // (query, entry) states fit in the registers without spilling (the
@@ -343,6 +350,7 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
   const int lw = warp % CPB;
   const int cls = cls0 + lw;
   const int g = warp / CPB;
+  const bool live = g < G;  // a masked head's warp streams K/V with the block
 
   const int n_blk = (len_c + bs - 1) / bs;
   const Layout L = layout<TKV>(R, (capacity + bs - 1) / bs, Dh);
@@ -377,7 +385,7 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       const int d = lane + 32 * j;
-      qv[i][j] = d < Dh ? to_f(q[((qrow0 + qw(i)) * G + g) * Dh + d]) : 0.f;
+      qv[i][j] = live && d < Dh ? to_f(q[((qrow0 + qw(i)) * G + g) * Dh + d]) : 0.f;
     }
   }
   float m[QW], l[QW], acc[QW][J];
@@ -525,7 +533,7 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
   float* ml_dst = ml_scr + pc * NCLS * R * 2;
 #pragma unroll
   for (int i = 0; i < QW; ++i) {
-    if (i < nq) {
+    if (live && i < nq) {
       const int r = cls * R + i * G + g;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
@@ -540,7 +548,7 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
   }
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) *flag = atomicAdd(counters + pc, 1) == G - 1;
+  if (threadIdx.x == 0) *flag = atomicAdd(counters + pc, 1) == GP - 1;
   __syncthreads();
   if (!*flag) return;
   __threadfence();
@@ -628,7 +636,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const int bs_shift = (a.bs & (a.bs - 1)) == 0 ? __builtin_ctz(a.bs) : -1;
   const int nch = n_chunks(a.Q);
   float* ml_scr = a.scratch + static_cast<size_t>(a.S) * a.B * nch * NCLS * QW * G * a.Dh;
-  const dim3 grid(a.S * a.B, G, nch);
+  const dim3 grid(a.S * a.B, padded_group(G), nch);
   kernel<<<grid, NWARPS * 32, smem, stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k_pool),
       static_cast<const TKV*>(a.v_pool), a.pos_pool, a.table, a.lengths, a.q_pos, a.q_lens,
@@ -644,8 +652,15 @@ cudaError_t dispatch_j(int G, const Args& a, cudaStream_t st) {
     case 2: return launch<MQ, TQ, TKV, 2, QW, J, FULL>(a, st);
     case 4: return launch<MQ, TQ, TKV, 4, QW, J, FULL>(a, st);
     case 8: return launch<MQ, TQ, TKV, 8, QW, J, FULL>(a, st);
-    default: return cudaErrorInvalidValue;
+    default: break;
   }
+  // G = 5, 7 (padded to 8): the single-query kernel only, so the
+  // multi-query library keeps its instantiations
+  if constexpr (!MQ) {
+    if (G == 5) return launch<MQ, TQ, TKV, 5, QW, J, FULL>(a, st);
+    if (G == 7) return launch<MQ, TQ, TKV, 7, QW, J, FULL>(a, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // the slot kernel's variants: Dh = 256: J = 8; Dh = 128: J = 4, FULL;

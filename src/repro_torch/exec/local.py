@@ -17,7 +17,8 @@ The first call of a shape is the eager warm-up, run for real on a side
 stream (it also makes each kernel library's first-launch setup happen
 outside a capture); the capture follows and records without running.
 A graph reads and writes fixed storage: the slot weights, plan arrays and
-state it was captured on, plus its own input buffers, into which each call
+state it was captured on (cache, last tokens, and the SSD / conv state and
+cross K / V of the families that carry them), plus its own input buffers, into which each call
 copies its small inputs (active mask, depths, window, chunk tokens,
 positions, quota, the ``headkv`` head weights).  So a graph is keyed by the storage of its state as
 well as by its shape: each live state (the one-shot state of
@@ -85,13 +86,19 @@ def _tensors(obj) -> List[torch.Tensor]:
     return []
 
 
+def _clone(obj):
+    """A copy of a dataclass of tensors in storage of its own."""
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).clone()
+        for f in dataclasses.fields(obj) if torch.is_tensor(getattr(obj, f.name))})
+
+
 def _clone_state(state):
-    """A copy of a ServeState in storage of its own."""
-    cache = dataclasses.replace(state.cache, **{
-        f.name: getattr(state.cache, f.name).clone()
-        for f in dataclasses.fields(state.cache) if getattr(state.cache, f.name) is not None})
-    return _serve.ServeState(cache=cache, last_tokens=state.last_tokens.clone(),
-                             decode_steps=state.decode_steps)
+    """A copy of a ServeState (its cache too) in storage of its own."""
+    out = _clone(state)
+    if state.cache is not None:
+        out.cache = _clone(state.cache)
+    return out
 
 
 @register_executor("local")
@@ -285,8 +292,7 @@ class LocalExecutor(Executor):
         logits, lens = self._run("prefill_chunk", key, fn, sub, sp, pa, inputs)
         if sub is not state:
             _serve.copy_state_(state, sub)
-        return (_serve.ServeState(cache=state.cache, last_tokens=state.last_tokens,
-                                  decode_steps=state.decode_steps), logits, lens)
+        return dataclasses.replace(state), logits, lens
 
     def _decode(self, sp, state, pa, tokens, active):
         if tokens is not None and tokens is not state.last_tokens:
@@ -305,14 +311,12 @@ class LocalExecutor(Executor):
         self.phase.fill_(state.decode_steps)
         inputs = {"active": self._active(active, state.last_tokens.shape[0])}
         (logits,) = self._run("decode", (_serve.state_layout(state),), fn, state, sp, pa, inputs)
-        return (_serve.ServeState(cache=state.cache, last_tokens=state.last_tokens,
-                                  decode_steps=state.decode_steps + 1), logits)
+        return dataclasses.replace(state, decode_steps=state.decode_steps + 1), logits
 
     def _propose(self, sp, state, pa, depths, active, draft_layers, max_k):
         r, rows = self._rows(state.last_tokens.shape[0])
         lpa, kw = self._step_pa(pa), self._step_kw()
-        view = _serve.ServeState(cache=state.cache, last_tokens=state.last_tokens[r],
-                                 decode_steps=state.decode_steps)
+        view = dataclasses.replace(state, last_tokens=state.last_tokens[r])
 
         def fn(depths, active):
             _, props = _serve.propose_step(sp, view, self.cfg, lpa, self.ccfg, depths[r],
@@ -326,14 +330,12 @@ class LocalExecutor(Executor):
                   "active": self._active(active, state.last_tokens.shape[0])}
         key = (draft_layers, max_k, _serve.state_layout(state))
         (props,) = self._run("propose", key, fn, state, sp, pa, inputs)
-        return (_serve.ServeState(cache=state.cache, last_tokens=state.last_tokens,
-                                  decode_steps=state.decode_steps), props)
+        return dataclasses.replace(state), props
 
     def _verify(self, sp, state, pa, tokens, q_lens, active, draft_layers):
         r, rows = self._rows(state.last_tokens.shape[0])
         lpa, kw = self._step_pa(pa), self._step_kw()
-        view = _serve.ServeState(cache=state.cache, last_tokens=state.last_tokens[r],
-                                 decode_steps=state.decode_steps)
+        view = dataclasses.replace(state, last_tokens=state.last_tokens[r])
 
         def fn(tokens, q_lens, active):
             new, g, n_commit, logits = _serve.verify_step(
@@ -349,6 +351,5 @@ class LocalExecutor(Executor):
                   "active": self._active(active, state.last_tokens.shape[0])}
         key = (draft_layers, inputs["tokens"].shape[1], _serve.state_layout(state))
         g, n_commit, logits = self._run("verify", key, fn, state, sp, pa, inputs)
-        return (_serve.ServeState(cache=state.cache, last_tokens=state.last_tokens,
-                                  decode_steps=state.decode_steps + 1),
+        return (dataclasses.replace(state, decode_steps=state.decode_steps + 1),
                 g, n_commit, logits)

@@ -45,9 +45,10 @@ Constraints, checked: a mesh is required; dense decoder-only models only
 prefill gathers them with the weights; MoE's capacity-bounded dispatch
 sizes expert capacity from the global token count, so a data-sharded batch
 would drop differently); slot weights unquantized; ``S % model == 0``; the
-decode and speculative batch a multiple of ``data``.  The reference's
-``_slot_rms_norm`` all-reduce belongs to the hybrid family's
-attention-output norm (ROADMAP A.11.4).
+decode and speculative batch a multiple of ``data``.  The SSM, hybrid,
+encoder-decoder and VLM families are refused with the reference's reason
+(its mesh executor serves the dense family only), so the o-projection
+all-reduce stays the one decode collective.
 """
 from __future__ import annotations
 

@@ -18,7 +18,9 @@ from repro_torch.kernels import build
 
 NAME = "fairkv_decode"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head the kernel is built for
+# query heads per kv head the kernel is built for (5 and 7 split as 8, with
+# the missing heads masked inside the kernel)
+GROUP_SIZES = (1, 2, 4, 5, 7, 8)
 # head dims the kernel is built for: any up to 128, and 256
 MAX_HEAD_DIM = 256
 

@@ -29,7 +29,11 @@ NAME = "paged_fairkv_decode"
 NAME_MQ = "paged_fairkv_decode_mq"
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-GROUP_SIZES = (1, 2, 4, 8)  # query heads per kv head the kernels are built for
+# query heads per kv head the kernels are built for: the single-query kernel
+# also takes 5 and 7 (split as 8, the missing heads masked inside it); the
+# multi-query kernel does not, so its library keeps its instantiations
+GROUP_SIZES = (1, 2, 4, 5, 7, 8)
+MQ_GROUP_SIZES = (1, 2, 4, 8)
 MAX_HEAD_DIM = 256  # head dims the kernels are built for: any up to 128, and 256
 MAX_QUERY_ROWS = 40  # Q * G the multi-query kernel is built for
 
@@ -172,6 +176,7 @@ def paged_fairkv_decode_mq_cuda(
     _check(NAME_MQ, q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
            q_pos, window, k_scale, v_scale, kinds)
     B, S, Q, G, Dh = q.shape
+    _require(G in MQ_GROUP_SIZES, f"G={G} not in {MQ_GROUP_SIZES}", NAME_MQ)
     _require(Q * G <= MAX_QUERY_ROWS,
              f"Q*G = {Q}*{G} > {MAX_QUERY_ROWS} query rows", NAME_MQ)
     if q_lens is not None:

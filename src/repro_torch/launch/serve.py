@@ -46,11 +46,15 @@ line: one all-reduce over ``model`` per attention layer, no all-gather)::
     torchrun --standalone --nproc-per-node 2 -m repro_torch.launch.serve \
         --arch minitron-8b --smoke --device cpu --executor mesh --shards 2
 
-``--arch`` takes the dense archs (minitron-8b, gemma2-9b, granite-3-2b,
-qwen1.5-110b) and the MoE archs (granite-moe-1b-a400m, qwen3-moe-30b-a3b).
-Refused, each with the ROADMAP item that brings it: the SSM / hybrid
-archs (A.11.4), encoder-decoder / VLM (A.11.5), weight-only int8 (A.11.6)
-and ``--paged-impl`` (the port picks the paged decode implementation by
+``--arch`` takes every arch the reference serves: the dense archs
+(minitron-8b, gemma2-9b, granite-3-2b, qwen1.5-110b), the MoE archs
+(granite-moe-1b-a400m, qwen3-moe-30b-a3b), mamba2-1.3b (SSM) and
+hymba-1.5b (hybrid), one-shot and ``--continuous``, and whisper-small
+(encoder-decoder: the one-shot batch carries stub frames) and
+llava-next-34b (VLM: stub image embeddings ahead of the prompt), one-shot
+only (``--continuous`` is refused with the scheduler's error, as the
+reference refuses it).  Not here: weight-only int8 (ROADMAP A.11.6), and
+``--paged-impl`` (the port picks the paged decode implementation by
 device, on purpose).
 """
 from __future__ import annotations
@@ -445,12 +449,16 @@ def run_oneshot(args) -> None:
     eng = _build_engine(args, ecfg)
     data = SyntheticLM(ecfg.model, InputShape("cli", args.prompt_len, args.batch,
                                               "prefill"))
-    res = eng.generate(data.get_batch(0)["tokens"], args.gen, collect_logits=False)
-    lens = np.asarray(res.lengths, np.float64)
-    print(f"prefill {res.prefill_s * 1e3:7.1f} ms | realized per-head budget "
-          f"min/mean/max = {lens.min():.0f}/{lens.mean():.0f}/{lens.max():.0f} | "
-          f"plan E = {res.efficiency:.3f} ({ecfg.planner.mode}, "
-          f"{ecfg.compression.policy}, device {ecfg.device})")
+    res = eng.generate(data.get_batch(0), args.gen, collect_logits=False)
+    if res.lengths.size:  # an attention-free model retains nothing
+        lens = np.asarray(res.lengths, np.float64)
+        print(f"prefill {res.prefill_s * 1e3:7.1f} ms | realized per-head budget "
+              f"min/mean/max = {lens.min():.0f}/{lens.mean():.0f}/{lens.max():.0f} | "
+              f"plan E = {res.efficiency:.3f} ({ecfg.planner.mode}, "
+              f"{ecfg.compression.policy}, device {ecfg.device})")
+    else:
+        print(f"prefill {res.prefill_s * 1e3:7.1f} ms | no KV cache (attention-free), "
+              f"device {ecfg.device}")
     if res.step_s:
         print(f"decode  {np.median(res.step_s) * 1e3:7.1f} ms/step (median of "
               f"{len(res.step_s)}; first {res.step_s[0] * 1e3:.0f} ms incl. "
@@ -629,9 +637,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     if not args.arch and not args.config:
         ap.error("one of --arch or --config is required")
     if args.arch and args.arch not in list_archs():
-        ap.error(f"--arch {args.arch!r} is not ported: the port runs "
-                 f"{list_archs()}; SSM / hybrid, encoder-decoder / VLM and "
-                 f"weight-only int8 are ROADMAP Queue A.11.4-6")
+        ap.error(f"--arch {args.arch!r} is not a registered arch: {list_archs()}")
     if args.http:
         run_http(args)
     elif args.continuous:

@@ -1,25 +1,28 @@
-"""Dense decoder: parameter init + the block functions serving reuses.
+"""Model zoo: parameter init + the block functions serving reuses.
 
-The port's counterpart of ``repro.models.transformer`` for the dense GQA
-family (with qkv bias, and gemma2's scaled embedding) and the MoE family
-(``models.moe``); SSM / hybrid and encoder-decoder / VLM follow in later
-slices.  Parameters are a plain dict tree in the reference's original
-(head-unpermuted) layout, so trees carry across through
-`repro_torch.interop` unchanged.
+The port of ``repro.models.transformer`` for every family the reference
+serves: dense GQA (with qkv bias, and gemma2's scaled embedding), MoE
+(``models.moe``), the Mamba-2 SSD branch (``models.ssm``) of the SSM and
+hybrid families, and the encoder, cross-attention and stub frontends of
+the encoder-decoder and VLM families.  Parameters are a plain dict tree in
+the reference's original (head-unpermuted) layout, with its keys and
+shapes, so trees carry across through `repro_torch.interop` unchanged.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.models.moe import init_moe_params, moe_block
 
 GLOBAL_WINDOW = 0  # sentinel: no sliding window
-FAMILIES = ("dense", "moe")  # the families the port implements
+# the families the port implements (every one the reference serves)
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
 # ---------------------------------------------------------------------------
@@ -33,13 +36,10 @@ def _normal(shape, std: float, gen: torch.Generator, dtype, device) -> torch.Ten
     return torch.randn(shape, generator=gen, dtype=dtype, device=device).mul_(std)
 
 
-def _layer_params(cfg: ModelConfig, gen, dtype, device) -> dict:
-    D, Hq, Hkv, Dh, F = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
-                         cfg.head_dim, cfg.d_ff)
+def _attn_params(cfg: ModelConfig, gen, dtype, device, prefix: str = "") -> dict:
+    D, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     s = 1.0 / math.sqrt(D)
     p = {
-        "ln1": torch.zeros((D,), dtype=dtype, device=device),
-        "ln2": torch.zeros((D,), dtype=dtype, device=device),
         "wq": _normal((D, Hq, Dh), s, gen, dtype, device),
         "wk": _normal((D, Hkv, Dh), s, gen, dtype, device),
         "wv": _normal((D, Hkv, Dh), s, gen, dtype, device),
@@ -49,36 +49,83 @@ def _layer_params(cfg: ModelConfig, gen, dtype, device) -> dict:
         p["bq"] = torch.zeros((Hq, Dh), dtype=dtype, device=device)
         p["bk"] = torch.zeros((Hkv, Dh), dtype=dtype, device=device)
         p["bv"] = torch.zeros((Hkv, Dh), dtype=dtype, device=device)
+    return {prefix + k: v for k, v in p.items()}
+
+
+def _ssm_params(cfg: ModelConfig, gen, dtype, device) -> dict:
+    """The SSD branch: in_proj to (z, x, B, C, dt), the depthwise conv, the
+    decay / skip / dt-bias vectors (fp32, zero / one as the reference
+    initialises them), the gated norm and out_proj."""
+    s, D = cfg.ssm, cfg.d_model
+    d_in = s.d_inner
+    proj = 2 * d_in + 2 * s.n_groups * s.state_size + s.num_heads
+    conv_dim = d_in + 2 * s.n_groups * s.state_size
+    H = s.num_heads
+    return {
+        "in_proj": _normal((D, proj), 1.0 / math.sqrt(D), gen, dtype, device),
+        "conv_w": _normal((s.conv_width, conv_dim), 0.1, gen, dtype, device),
+        "A_log": torch.zeros((H,), dtype=torch.float32, device=device),
+        "ssm_D": torch.ones((H,), dtype=torch.float32, device=device),
+        "dt_bias": torch.zeros((H,), dtype=torch.float32, device=device),
+        "ssm_norm": torch.zeros((d_in,), dtype=dtype, device=device),
+        "out_proj": _normal((d_in, D), 1.0 / math.sqrt(d_in), gen, dtype, device),
+    }
+
+
+def _layer_params(cfg: ModelConfig, gen, dtype, device, cross_attn: bool = False) -> dict:
+    D, F = cfg.d_model, cfg.d_ff
+    s = 1.0 / math.sqrt(D)
+    p = {
+        "ln1": torch.zeros((D,), dtype=dtype, device=device),
+        "ln2": torch.zeros((D,), dtype=dtype, device=device),
+    }
+    if not cfg.attention_free:
+        p.update(_attn_params(cfg, gen, dtype, device))
+    if cfg.family in ("ssm", "hybrid"):
+        p.update(_ssm_params(cfg, gen, dtype, device))
+    if cfg.family == "hybrid":
+        # per-branch output norms; the reference reads only attn_out_norm
+        p["attn_out_norm"] = torch.zeros((cfg.n_heads * cfg.head_dim,), dtype=dtype,
+                                         device=device)
+        p["ssm_out_norm"] = torch.zeros((cfg.ssm.d_inner,), dtype=dtype, device=device)
     if cfg.moe.num_experts > 0:
         p.update(init_moe_params(cfg, gen, dtype, device))
-    else:
+    elif F > 0:
         p["w1"] = _normal((D, F), s, gen, dtype, device)
         p["w3"] = _normal((D, F), s, gen, dtype, device)
         p["w2"] = _normal((F, D), 1.0 / math.sqrt(F), gen, dtype, device)
+    if cross_attn:
+        p.update(_attn_params(cfg, gen, dtype, device, prefix="c_"))
+        p["ln_cross"] = torch.zeros((D,), dtype=dtype, device=device)
     return p
 
 
 def init_params(cfg: ModelConfig, seed: int, dtype=torch.bfloat16,
-                device="cuda") -> dict:
+                device="cuda", max_seq_len: int = 4096) -> dict:
     """Original-layout parameters (heads unpermuted), drawn on ``device``
-    from a ``torch.Generator`` seeded with ``seed``.  Same shapes and
-    scales as the reference; not the same numbers (carry those across with
+    from a ``torch.Generator`` seeded with ``seed``.  Same keys, shapes and
+    scales as the reference (``max_seq_len`` sizes an encoder-decoder's
+    ``dec_pos``); not the same numbers (carry those across with
     `repro_torch.interop`)."""
-    if cfg.family not in FAMILIES or cfg.attention_free:
-        raise NotImplementedError(
-            f"the port implements the dense and moe families only, "
-            f"got {cfg.family!r} ({cfg.name})")
+    if cfg.family not in FAMILIES:
+        raise NotImplementedError(f"unknown family {cfg.family!r} ({cfg.name})")
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     D = cfg.d_model
     params: dict = {
         "embed": _normal((cfg.padded_vocab, D), 0.02, gen, dtype, device),
         "final_norm": torch.zeros((D,), dtype=dtype, device=device),
-        "layers": [_layer_params(cfg, gen, dtype, device)
+        "layers": [_layer_params(cfg, gen, dtype, device, cross_attn=cfg.is_encoder_decoder)
                    for _ in range(cfg.n_layers)],
     }
     if not cfg.tie_embeddings:
         params["head"] = _normal((cfg.padded_vocab, D), 0.02, gen, dtype, device)
+    if cfg.is_encoder_decoder:
+        params["enc_layers"] = [_layer_params(cfg, gen, dtype, device)
+                                for _ in range(cfg.n_encoder_layers)]
+        params["enc_final_norm"] = torch.zeros((D,), dtype=dtype, device=device)
+        params["enc_pos"] = _normal((cfg.encoder_seq_len, D), 0.02, gen, dtype, device)
+        params["dec_pos"] = _normal((max_seq_len, D), 0.02, gen, dtype, device)
     return params
 
 
@@ -128,8 +175,114 @@ def embed_tokens(tokens: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.
 
 def embed_inputs(params: dict, batch: Dict[str, torch.Tensor],
                  cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Token embedding.  Returns (h (B,T,D), positions (B,T) int32)."""
+    """Token embedding, after a VLM's ``image_embeds`` prefix (B, I, D),
+    plus an encoder-decoder's learned ``dec_pos``.  Returns (h (B, T, D),
+    positions (B, T) int32)."""
     h = embed_tokens(batch["tokens"], params, cfg)
+    if cfg.is_vlm:
+        h = torch.cat([batch["image_embeds"].to(h.dtype), h], dim=1)
+    if cfg.is_encoder_decoder:
+        h = h + params["dec_pos"][None, :h.shape[1]]
     B, T = h.shape[:2]
     positions = torch.arange(T, dtype=torch.int32, device=h.device).expand(B, T)
     return h, positions
+
+
+# ---------------------------------------------------------------------------
+# SSD branch (SSM / hybrid)
+# ---------------------------------------------------------------------------
+
+
+def ssm_split(pl: dict, h: torch.Tensor, cfg: ModelConfig):
+    """in_proj → (z, xBC (the conv input), dt (B, T, H) fp32 post-softplus)."""
+    s = cfg.ssm
+    d_in, G, N = s.d_inner, s.n_groups, s.state_size
+    proj = h @ pl["in_proj"]  # (B, T, 2 d_in + 2 G N + H)
+    z, xBC, dt_raw = torch.split(proj, [d_in, d_in + 2 * G * N, s.num_heads], dim=-1)
+    dt = torch.nn.functional.softplus(dt_raw.float() + pl["dt_bias"])
+    return z, xBC, dt
+
+
+def ssm_out(pl: dict, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """The gated norm and out_proj: rms_norm(y · silu(z)) @ out_proj."""
+    y = L.rms_norm(y * torch.nn.functional.silu(z), pl["ssm_norm"])
+    return y @ pl["out_proj"]
+
+
+def ssm_block_full(pl: dict, h: torch.Tensor, cfg: ModelConfig,
+                   conv_state: Optional[torch.Tensor] = None,
+                   init_state: Optional[torch.Tensor] = None):
+    """Full-sequence SSD branch.  Returns (out (B, T, D), (conv_state
+    (B, W-1, conv_dim), ssm_state (B, H, P, N) fp32))."""
+    s = cfg.ssm
+    d_in, G, N, H, P = s.d_inner, s.n_groups, s.state_size, s.num_heads, s.head_dim
+    B, T, _ = h.shape
+    z, xBC, dt = ssm_split(pl, h, cfg)
+    xBC, conv_out = S.conv1d_causal(xBC, pl["conv_w"], conv_state)
+    xBC = torch.nn.functional.silu(xBC)
+    x, B_, C_ = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
+    y, state = S.ssd_chunked(x.reshape(B, T, H, P), dt, pl["A_log"],
+                             B_.reshape(B, T, G, N), C_.reshape(B, T, G, N), pl["ssm_D"],
+                             chunk=s.chunk_size, init_state=init_state)
+    return ssm_out(pl, y.reshape(B, T, d_in), z), (conv_out, state)
+
+
+# ---------------------------------------------------------------------------
+# Encoder and cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+
+def qkv_proj(pl: dict, h: torch.Tensor, cfg: ModelConfig, prefix: str = ""):
+    """(B, T, D) → q (B, T, Hq, Dh), k / v (B, T, Hkv, Dh), pre-RoPE."""
+    q = torch.einsum("btd,dhx->bthx", h, pl[prefix + "wq"])
+    k = torch.einsum("btd,dhx->bthx", h, pl[prefix + "wk"])
+    v = torch.einsum("btd,dhx->bthx", h, pl[prefix + "wv"])
+    if cfg.qkv_bias and (prefix + "bq") in pl:
+        q, k, v = q + pl[prefix + "bq"], k + pl[prefix + "bk"], v + pl[prefix + "bv"]
+    return q, k, v
+
+
+def o_proj(pl: dict, attn_flat: torch.Tensor, cfg: ModelConfig, prefix: str = "") -> torch.Tensor:
+    wo = pl[prefix + "wo"].reshape(cfg.n_heads * cfg.head_dim, cfg.d_model)
+    return torch.einsum("bte,ed->btd", attn_flat, wo)
+
+
+def cross_attn_block(pl: dict, h: torch.Tensor, enc_kv: Tuple[torch.Tensor, torch.Tensor],
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Decoder cross-attention onto precomputed encoder K/V (no RoPE, no
+    mask)."""
+    B, T, _ = h.shape
+    q = torch.einsum("btd,dhx->bthx", h, pl["c_wq"])
+    k, v = enc_kv
+    pos_q = torch.zeros((B, T), dtype=torch.int32, device=h.device)
+    pos_k = torch.zeros((B, k.shape[1]), dtype=torch.int32, device=h.device)
+    out = L.attention(q, k, v, pos_q, pos_k, causal=False)
+    return o_proj(pl, out.reshape(B, T, cfg.n_heads * cfg.head_dim), cfg, prefix="c_")
+
+
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The encoder over stub-frontend frame embeddings (B, T_enc, D)."""
+    h = frames.to(params["enc_pos"].dtype) + params["enc_pos"][None, :frames.shape[1]]
+    B, T = h.shape[:2]
+    positions = torch.arange(T, dtype=torch.int32, device=h.device).expand(B, T)
+    for pl in params["enc_layers"]:
+        hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
+        q, k, v = qkv_proj(pl, hn, cfg)
+        out = L.attention(q, k, v, positions, positions, causal=False)
+        h = h + o_proj(pl, out.reshape(B, T, -1), cfg)
+        hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
+        h = h + L.swiglu(hn2, pl["w1"], pl["w3"], pl["w2"])
+    return L.rms_norm(h, params["enc_final_norm"], cfg.rms_eps)
+
+
+def encoder_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Per decoder layer, the cross K / V (B, T_enc, Hkv, Dh) of the
+    encoder output."""
+    kvs = []
+    for pl in params["layers"]:
+        k = torch.einsum("btd,dhx->bthx", enc_out, pl["c_wk"])
+        v = torch.einsum("btd,dhx->bthx", enc_out, pl["c_wv"])
+        if cfg.qkv_bias and "c_bk" in pl:
+            k, v = k + pl["c_bk"], v + pl["c_bv"]
+        kvs.append((k, v))
+    return kvs

@@ -169,6 +169,9 @@ class PagedBackend(CacheBackend):
         self.n_rows = int(batch)
         self.model_dtype = dtype
         dev = pa.slot_head.device
+        if self.cfg.attention_free:  # no cache, no pool
+            return _serve.init_serve_state(self.cfg, pa, batch, self.ccfg,
+                                           dtype=dtype, device=dev)
         S = int(pa.slot_head.shape[1])
         cache, self.pool = init_paged_cache(
             self.cfg.n_layers, S, batch, self.capacity, self.cfg.head_dim, self.paging,
@@ -186,6 +189,10 @@ class PagedBackend(CacheBackend):
         """One-shot adoption: re-house a full-batch slot prefill in blocks
         sized to its realized lengths (all rows live).  On a mesh the state
         holds this rank's slots and rows (`Executor.shard_state`)."""
+        if state.cache is None:
+            self.pa = pa
+            self.n_rows = int(state.last_tokens.shape[0])
+            return state
         slot = state.cache
         C = slot.k.shape[3]
         if C != self.capacity:
@@ -216,6 +223,8 @@ class PagedBackend(CacheBackend):
         written to the null block, so a hit costs ``need - shared`` new
         blocks and a shared block is never written.
         """
+        if state.cache is None:
+            return _serve.splice_state(state, sub, rows)
         rows_np = np.asarray(rows, np.int64)  # retired rows: no blocks held
         own = _owner_mask_np(self.pa, rows_np)
         lengths = self.host_lengths(sub, rows=False)  # the sub-state's rows are whole
@@ -226,7 +235,7 @@ class PagedBackend(CacheBackend):
             self.table[:, :, rows_np, :] = table_sub
             self._paginate(state.cache, sub.cache, rows_np, table_sub)
             self._observe_quant_error(sub.cache, rows=False)
-            return _serve.set_row_tokens(state, rows_np, sub.last_tokens)
+            return _serve.set_row_state(state, rows_np, sub)
         shared = np.asarray(shared_blocks, np.int32)
         n_sh = (shared > 0).sum(axis=-1)  # (L, S, R) shared full blocks
         fresh = build_table(np.maximum(lengths - n_sh * self.block_size, 0),
@@ -250,7 +259,7 @@ class PagedBackend(CacheBackend):
         table_write = np.where(col < n_sh[..., None], 0, table_full)
         self._paginate(state.cache, sub.cache, rows_np, table_full, table_write=table_write)
         self._observe_quant_error(sub.cache, rows=False)
-        return _serve.set_row_tokens(state, rows_np, sub.last_tokens)
+        return _serve.set_row_state(state, rows_np, sub)
 
     def _observe_quant_error(self, slot, rows: bool = True) -> None:
         """Quantization-error observation: roundtrip the admitted slot-layout
@@ -280,6 +289,8 @@ class PagedBackend(CacheBackend):
         ).set(float((err_k + err_v) / max(den_k + den_v, 1e-9)))
 
     def release_rows(self, state, rows):
+        if state.cache is None:
+            return _serve.reset_state_rows(state, rows)
         rows_np = np.asarray(rows, np.int64)
         self.pool.free_table(
             self.table[:, :, rows_np, :].reshape(self.table.shape[0], -1))
@@ -287,7 +298,7 @@ class PagedBackend(CacheBackend):
         sel, loc = self._local_rows(rows_np)
         if sel.size:
             release_rows(state.cache, loc)
-        return _serve.set_row_tokens(state, rows_np)
+        return _serve.set_row_state(state, rows_np)
 
     def prepare_decode(self, state, active, n_tokens: int = 1):
         """Allocate the blocks backing each active row's next ``n_tokens``
@@ -313,6 +324,8 @@ class PagedBackend(CacheBackend):
         """
         if n_tokens < 1:
             raise ValueError(f"n_tokens must be >= 1, got {n_tokens}")
+        if state.cache is None:
+            return state
         cache = state.cache
         B = self.table.shape[2]
         rows = np.arange(B) if active is None else np.asarray(list(active), np.int64)
@@ -571,6 +584,8 @@ class PagedBackend(CacheBackend):
         return out
 
     def request_cost(self, req):
+        if self.cfg.attention_free:
+            return 0
         return int(self._layer_blocks(req.prompt_len, req.max_new_tokens,
                                       worst_case=True).sum())
 
@@ -604,6 +619,8 @@ class PagedBackend(CacheBackend):
         return np.maximum(need - np.asarray(sh, np.int64), 0)
 
     def never_fits(self, req):
+        if self.cfg.attention_free:
+            return None
         if self.pool is not None and self.pool.n_partitions > 1:
             need = self._partition_need(req.prompt_len, req.max_new_tokens, True)
             usable = self.pool.part_size - 1
@@ -646,6 +663,10 @@ class PagedBackend(CacheBackend):
 
     def memory_stats(self, state) -> dict:
         c = state.cache
+        if c is None:  # attention-free: no cache, no pool
+            return {"backend": self.name, "block_size": self.block_size,
+                    "blocks_in_use": 0, "blocks_total": 0, "cache_bytes": 0,
+                    "pool_bytes": 0, "slot_equivalent_bytes": 0, "live_tokens": 0}
         lens = self.host_lengths(state)
         if not isinstance(c, PagedCache):
             # prefill leaves the cache in slot layout until generate adopts it

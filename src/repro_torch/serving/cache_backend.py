@@ -26,6 +26,10 @@ every rank while its device state is the rank's shard: the live state
 holds the rank's slots and rows (the last tokens stay global), a
 prefill's sub-state the rank's slots and every sub-batch row.  Every host
 read of device lengths is `host_lengths`, the same gather on every rank.
+
+An attention-free model (mamba2) has no cache: its state holds only the
+recurrent rows, it costs nothing at admission, and its lengths read as
+zeros, so its memory and load metrics degrade as the reference's do.
 """
 from __future__ import annotations
 
@@ -111,7 +115,12 @@ class CacheBackend:
     def host_lengths(self, state, rows: bool = True) -> np.ndarray:
         """The state's (L, S, B) retained lengths on the host, global: on a
         mesh gathered over the model group (and the data group when
-        ``rows``, i.e. for the live state), the same on every rank."""
+        ``rows``, i.e. for the live state), the same on every rank.  An
+        attention-free state has no cache: zeros over its one slot."""
+        if state.cache is None:
+            pa = getattr(self, "pa", None)
+            S = 1 if pa is None else int(pa.slot_head.shape[1])
+            return np.zeros((self.cfg.n_layers, S, state.last_tokens.shape[0]), np.int32)
         return self._host(state.cache.lengths, rows=rows)
 
     def _host(self, lengths: torch.Tensor, rows: bool = True) -> np.ndarray:
@@ -236,7 +245,7 @@ class SlotBackend(CacheBackend):
         sel, loc = self._local_rows(rows)
         if sel.size:
             insert_rows(state.cache, take_rows(sub.cache, sel), loc)
-        return _serve.set_row_tokens(state, rows, sub.last_tokens)
+        return _serve.set_row_state(state, rows, sub)
 
     def release_rows(self, state, rows):
         if self.mesh is None:
@@ -244,7 +253,7 @@ class SlotBackend(CacheBackend):
         sel, loc = self._local_rows(rows)
         if sel.size:
             reset_rows(state.cache, loc)
-        return _serve.set_row_tokens(state, rows)
+        return _serve.set_row_state(state, rows)
 
     def migrate_cache(self, cache, old_pa, new_pa, active_rows=None):
         migrated = migrate_slots(cache, old_pa, new_pa, self.mesh)
@@ -283,6 +292,8 @@ class SlotBackend(CacheBackend):
         return cost
 
     def request_cost(self, req):
+        if self.cfg.attention_free:
+            return 0
         return projected_request_tokens(
             self.ccfg.policy, self.ccfg, req.prompt_len, req.max_new_tokens,
             self.cfg.n_layers, self.cfg.n_kv_heads)
@@ -293,7 +304,8 @@ class SlotBackend(CacheBackend):
             if (self.live_tokens(state) + reserved + self.request_cost(req)
                     > self.max_live_tokens):
                 return False
-        if self.max_live_tokens_per_shard is not None and self.pa is not None:
+        if (self.max_live_tokens_per_shard is not None and self.pa is not None
+                and not self.cfg.attention_free):
             # the bottleneck shard gates admission
             load = self.per_shard_live(state) + self.per_shard_cost(req)
             for p in pending:
@@ -309,7 +321,8 @@ class SlotBackend(CacheBackend):
                 return (f"projected cost {cost} tokens exceeds "
                         f"max_live_tokens={self.max_live_tokens} even on "
                         f"an empty cache")
-        if self.max_live_tokens_per_shard is not None and self.pa is not None:
+        if (self.max_live_tokens_per_shard is not None and self.pa is not None
+                and not self.cfg.attention_free):
             worst = self.per_shard_cost(req).max()
             if worst > self.max_live_tokens_per_shard:
                 return (f"projected per-shard cost {worst:.0f} tokens "
@@ -319,6 +332,8 @@ class SlotBackend(CacheBackend):
         return None
 
     def sample_metrics(self, state) -> None:
+        if state.cache is None:
+            return
         m = self.obs.metrics
         lens = self.host_lengths(state)
         live = int(lens.sum())
@@ -332,6 +347,8 @@ class SlotBackend(CacheBackend):
 
     def memory_stats(self, state) -> dict:
         c = state.cache
+        if c is None:
+            return {"backend": self.name, "cache_bytes": 0, "live_tokens": 0}
         lens = self.host_lengths(state)
         (L, S, B), (C, Dh) = lens.shape, c.k.shape[3:]
         live = int(lens.sum())

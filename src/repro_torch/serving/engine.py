@@ -1,12 +1,13 @@
 """Serving engine: prefill (+compression) → slot-layout cache → decode.
 
-The port of ``repro.serving.engine`` for dense and MoE decoder-only
-models.  The FairKV plan enters the runtime in two places:
+The port of ``repro.serving.engine`` for every family the reference
+serves.  The FairKV plan enters the runtime in two places:
 
 1. **Weight layout** — ``slotify_params`` permutes/replicates the attention
    projections into slot layout once at load time: per layer,
    ``wq: (S, D, G, Dh)``, ``wk/wv: (S, D, Dh)``, ``wo: (S, G, Dh, D)`` and,
-   with qkv bias, ``bq: (S, G, Dh)``, ``bk/bv: (S, Dh)``, with slot s
+   with qkv bias, ``bq: (S, G, Dh)``, ``bk/bv: (S, Dh)``, and the hybrid's
+   attention-output norm ``attn_out_norm_s: (S, G, Dh)``, with slot s
    carrying kv-head ``slot_head[l, s]`` (zeros for empty slots).
 
 2. **Cache ownership** — replicas split the batch by the strided owner rule;
@@ -25,12 +26,22 @@ sync, so the executor can capture them as CUDA graphs
 ``phase`` when given, a device scalar the executor refreshes before each
 replay (the host keeps ``ServeState.decode_steps``).
 
+The other families ride on the same state: the SSM and hybrid families
+carry each row's fp32 SSD state and conv window (``ssm_state``,
+``conv_state``), updated in place by every decode step; the hybrid adds
+its attention branch's output, normed over the slot layout
+(`_slot_rms_norm`), to the SSD branch's, halved; the encoder-decoder
+family keeps each layer's cross K / V of the encoder output (``cross_k``,
+``cross_v``), written once at prefill; the VLM family's image embeddings
+enter the prompt ahead of its tokens.  An attention-free model (mamba2)
+has no cache (``cache`` is None) and no plan to speak of.
+
 Continuous batching adds row-level state ops: ``prefill(..., rows=)``
 evaluates ownership at the global rows a request will occupy,
 ``decode_step(..., active=)`` appends and advances positions only on live
 rows, and `splice_state` / `reset_state_rows` admit and retire rows of a
 slot cache (a paged backend does its own cache work, then
-`set_row_tokens`).
+`set_row_state` for the last tokens and the recurrent rows).
 
 Chunked prefill: `prefill_chunk` runs one fixed-width chunk of a prompt
 against the retained entries of the chunks before it and compresses at
@@ -83,6 +94,7 @@ from repro_torch.core.planner import draft_plan
 from repro_torch.distributed import comm
 from repro_torch.kernels import ops as K
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSD
 from repro_torch.models import transformer as M
 from repro_torch.paging.paged_cache import PagedCache, paged_append_token
 
@@ -94,17 +106,17 @@ from repro_torch.paging.paged_cache import PagedCache, paged_append_token
 
 @dataclass
 class ServeState:
-    cache: Union[SlotCache, PagedCache]
+    cache: Optional[Union[SlotCache, PagedCache]]  # None: attention-free
     last_tokens: torch.Tensor  # (B,) int64
     decode_steps: int  # decode ticks since the state began (the ring phase)
+    ssm_state: Optional[torch.Tensor] = None  # (L, B, H, P, N) fp32
+    conv_state: Optional[torch.Tensor] = None  # (L, B, W-1, conv_dim)
+    cross_k: Optional[torch.Tensor] = None  # (L, B, T_enc, Hkv, Dh)
+    cross_v: Optional[torch.Tensor] = None
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if (cfg.family not in M.FAMILIES or cfg.attention_free
-            or cfg.is_encoder_decoder or cfg.is_vlm):
-        raise NotImplementedError(
-            f"the port serves dense and moe decoder-only models, "
-            f"got family={cfg.family!r} ({cfg.name})")
+RECURRENT = ("ssm_state", "conv_state")  # per-row state a splice / retire moves
+STATE_TENSORS = ("last_tokens",) + RECURRENT + ("cross_k", "cross_v")  # beside the cache
 
 
 # ---------------------------------------------------------------------------
@@ -132,12 +144,19 @@ def slotify_layer(pl: dict, slot_head: np.ndarray, cfg: ModelConfig) -> dict:
         out["bq_s"] = (bq[heads] * mask[:, None, None]).contiguous()  # (S, G, Dh)
         out["bk_s"] = (pl["bk"][heads] * mask[:, None]).contiguous()  # (S, Dh)
         out["bv_s"] = (pl["bv"][heads] * mask[:, None]).contiguous()
+    if "attn_out_norm" in pl:  # hybrid: the branch norm's scale per slot
+        # an empty slot takes head 0's scale, as the reference's: its
+        # attention output is zero, so the scale multiplies nothing
+        sc = pl["attn_out_norm"].reshape(cfg.n_kv_heads, G, Dh)
+        out["attn_out_norm_s"] = sc[heads].contiguous()  # (S, G, Dh)
     return out
 
 
 ORIGINAL_ATTN = ("wq", "wk", "wv", "wo", "bq", "bk", "bv")
-# every slot-layout leaf a replan rewrites (the biases where the model has them)
+# every slot-layout leaf a replan rewrites: the weights (the biases where
+# the model has them) and the hybrid's attention-output norm scale
 SLOT_WEIGHTS = ("wq_s", "wk_s", "wv_s", "wo_s", "bq_s", "bk_s", "bv_s")
+SLOT_NORMS = ("attn_out_norm_s",)
 
 
 def slotify_params(params: dict, plan: HeadPlacement, cfg: ModelConfig,
@@ -147,7 +166,10 @@ def slotify_params(params: dict, plan: HeadPlacement, cfg: ModelConfig,
     the same model and slot grid) the new slot weights are copied into its
     tensors and ``out`` is returned: a replan keeps every address a
     captured step reads.  ``slots`` keeps only those slots of the grid (a
-    mesh rank's share of the slot dim)."""
+    mesh rank's share of the slot dim).  An attention-free model has no
+    slot weights: its params are returned as they are."""
+    if cfg.attention_free:
+        return params
     arrs = plan.as_arrays()["slot_head"]
     if slots is not None:
         arrs = arrs[:, slots]
@@ -158,7 +180,7 @@ def slotify_params(params: dict, plan: HeadPlacement, cfg: ModelConfig,
         return out
     for i, pl in enumerate(params["layers"]):
         new = slotify_layer(pl, arrs[i], cfg)
-        for key in SLOT_WEIGHTS:
+        for key in SLOT_WEIGHTS + SLOT_NORMS:
             if key in new:
                 out["layers"][i][key].copy_(new[key])
     return out
@@ -221,35 +243,67 @@ def prefill(
     the rank fills only its slots of the cache.
 
     Returns (state, last_logits (B, V) fp32, lengths (L, Hkv, B) — the
-    realized per-head retained lengths, the paper's workload observable).
+    realized per-head retained lengths, the paper's workload observable;
+    (0, Hkv, B) for an attention-free model).  ``batch`` holds ``tokens``
+    (B, T), and ``frames`` (B, T_enc, D) for an encoder-decoder model or
+    ``image_embeds`` (B, I, D) ahead of the tokens for a VLM.
     """
-    _check_dense(cfg)
     h, positions = M.embed_inputs(serve_params, batch, cfg)
     B, T, D = h.shape
     if rows is not None:
         rows = row_index(rows, h.device)
-    cache = init_cache(cfg.n_layers, plan.slot_head.shape[1], B,
-                       ccfg.static_capacity(), cfg.head_dim, dtype=h.dtype,
-                       device=h.device)
+    cross_k = cross_v = None
+    enc_kvs = None
+    if cfg.is_encoder_decoder:
+        enc_kvs = M.encoder_cross_kv(serve_params, M.encode(serve_params, batch["frames"], cfg),
+                                     cfg)
+        cross_k = torch.stack([kv[0] for kv in enc_kvs])
+        cross_v = torch.stack([kv[1] for kv in enc_kvs])
+    cache = None
+    if not cfg.attention_free:
+        cache = init_cache(cfg.n_layers, plan.slot_head.shape[1], B,
+                           ccfg.static_capacity(), cfg.head_dim, dtype=h.dtype,
+                           device=h.device)
+    ssm_states, conv_states = [], []
     lengths_all = []
     W = min(ccfg.obs_window, T)
     for i, pl in enumerate(serve_params["layers"]):
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
-        attn_flat, lens = _prefill_attention(pl, hn, positions, cfg, i, cache,
-                                             plan, ccfg, W, rows, head_importance, groups)
-        h = h + _slot_o_proj(pl, attn_flat, cfg, plan, i, groups)
-        lengths_all.append(lens)
-        hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
-        h = h + M.mlp_block(pl, hn2, cfg)
+        if not cfg.attention_free:
+            attn_flat, lens = _prefill_attention(pl, hn, positions, cfg, i, cache, plan, ccfg,
+                                                 W, rows, head_importance, groups)
+            lengths_all.append(lens)
+            if cfg.family == "hybrid":
+                attn_flat = L.rms_norm(attn_flat, pl["attn_out_norm"], cfg.rms_eps)
+            attn_out = _slot_o_proj(pl, attn_flat, cfg, plan, i, groups)
+        if cfg.family in ("ssm", "hybrid"):
+            ssm_out, (cs, ss) = M.ssm_block_full(pl, hn, cfg)
+            conv_states.append(cs)
+            ssm_states.append(ss)
+            h = h + (ssm_out if cfg.family == "ssm" else 0.5 * (attn_out + ssm_out))
+        else:
+            h = h + attn_out
+        if enc_kvs is not None:
+            hc = L.rms_norm(h, pl["ln_cross"], cfg.rms_eps)
+            h = h + M.cross_attn_block(pl, hc, enc_kvs[i], cfg)
+        if cfg.d_ff > 0 or cfg.moe.num_experts > 0:
+            hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
+            h = h + M.mlp_block(pl, hn2, cfg)
 
     h_last = L.rms_norm(h[:, -1:], serve_params["final_norm"], cfg.rms_eps)
     table = serve_params.get("head", serve_params["embed"])
     logits = L.unembed(h_last, table, cfg.logit_softcap)[:, 0]
-    cache.positions.fill_(T)
+    if cache is not None:
+        cache.positions.fill_(T)
     state = ServeState(cache=cache,
                        last_tokens=torch.argmax(logits[..., :cfg.vocab_size], dim=-1),
-                       decode_steps=0)
-    return state, logits, torch.stack(lengths_all)
+                       decode_steps=0,
+                       ssm_state=torch.stack(ssm_states) if ssm_states else None,
+                       conv_state=torch.stack(conv_states) if conv_states else None,
+                       cross_k=cross_k, cross_v=cross_v)
+    lengths = (torch.stack(lengths_all) if lengths_all else
+               torch.zeros((0, cfg.n_kv_heads, B), dtype=torch.int32, device=h.device))
+    return state, logits, lengths
 
 
 def _policy_kw(ccfg: CompressionConfig, head_importance, layer_idx: int) -> dict:
@@ -459,7 +513,6 @@ def prefill_chunk(
             f"got family={cfg.family!r}")
     if cfg.is_encoder_decoder or cfg.is_vlm:
         raise ValueError("chunked prefill does not support enc-dec / vlm")
-    _check_dense(cfg)
     dev = tokens.device
     h = M.embed_tokens(tokens, serve_params, cfg)  # (B, Ck, D)
     B, Ck, _ = h.shape
@@ -486,10 +539,8 @@ def prefill_chunk(
     table = serve_params.get("head", serve_params["embed"])
     logits = L.unembed(h_last, table, cfg.logit_softcap)[:, 0]
     cache.positions.copy_(start + valid)
-    new_state = ServeState(
-        cache=cache,
-        last_tokens=torch.argmax(logits[..., :cfg.vocab_size], dim=-1),
-        decode_steps=state.decode_steps)
+    new_state = dataclasses.replace(
+        state, cache=cache, last_tokens=torch.argmax(logits[..., :cfg.vocab_size], dim=-1))
     return new_state, logits, torch.stack(lengths_all)
 
 
@@ -531,33 +582,83 @@ def decode_step(
     block ids are made local to the rank's pool partition, and the
     o-projection's contraction over the slots ends in the step's one
     collective per layer, an all-reduce over the model group.
+
+    The SSM and hybrid families update ``ssm_state`` / ``conv_state`` in
+    place on every row (a retired row's are overwritten by the next
+    splice); the encoder-decoder family reads ``cross_k`` / ``cross_v``
+    and its ``dec_pos`` at each row's position.
     """
-    _check_dense(cfg)
     tokens = state.last_tokens if tokens is None else tokens
     phase = state.decode_steps if phase is None else phase
     h = M.embed_tokens(tokens[:, None], serve_params, cfg)  # (B, 1, D)
     cache = state.cache
-    positions = cache.positions
+    positions = None if cache is None else cache.positions
+    if cfg.is_encoder_decoder:
+        h = h + serve_params["dec_pos"][positions.long()][:, None]
     for i, pl in enumerate(serve_params["layers"]):
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
-        attn = _decode_attention(pl, hn, positions, cfg, i, cache, plan,
-                                 phase, ccfg, active, kv_kinds, rows, groups)
-        h = h + _decode_slot_o(pl, attn, cfg, groups)
-        hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
-        h = h + M.mlp_block(pl, hn2, cfg)
+        if not cfg.attention_free:
+            attn = _decode_attention(pl, hn, positions, cfg, i, cache, plan,
+                                     phase, ccfg, active, kv_kinds, rows, groups)
+            if cfg.family == "hybrid":
+                attn = _slot_rms_norm(attn, pl["attn_out_norm_s"],
+                                      cfg.n_heads * cfg.head_dim, cfg.rms_eps)
+            attn_out = _decode_slot_o(pl, attn, cfg, groups)
+        if cfg.family in ("ssm", "hybrid"):
+            ssm_out = _decode_ssm(pl, hn, cfg, i, state)
+            h = h + (ssm_out if cfg.family == "ssm" else 0.5 * (attn_out + ssm_out))
+        else:
+            h = h + attn_out
+        if cfg.is_encoder_decoder:
+            hc = L.rms_norm(h, pl["ln_cross"], cfg.rms_eps)
+            h = h + M.cross_attn_block(pl, hc, (state.cross_k[i], state.cross_v[i]), cfg)
+        if cfg.d_ff > 0 or cfg.moe.num_experts > 0:
+            hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
+            h = h + M.mlp_block(pl, hn2, cfg)
 
     h = L.rms_norm(h, serve_params["final_norm"], cfg.rms_eps)
     table = serve_params.get("head", serve_params["embed"])
     logits = L.unembed(h, table, cfg.logit_softcap)[:, 0]  # (B, V)
-    if active is None:
-        cache.positions += 1  # in place: every row is live in one-shot decode
-    else:
-        cache.positions += active.to(cache.positions.dtype)
-    new_state = ServeState(
-        cache=cache,
-        last_tokens=torch.argmax(logits[..., :cfg.vocab_size], dim=-1),
+    if cache is not None:
+        if active is None:
+            cache.positions += 1  # in place: every row is live in one-shot decode
+        else:
+            cache.positions += active.to(cache.positions.dtype)
+    new_state = dataclasses.replace(
+        state, last_tokens=torch.argmax(logits[..., :cfg.vocab_size], dim=-1),
         decode_steps=state.decode_steps + 1)
     return new_state, logits
+
+
+def _slot_rms_norm(x: torch.Tensor, scale_slot: torch.Tensor, n_channels: int,
+                   eps: float) -> torch.Tensor:
+    """RMS norm over the slot layout (B, S, G, Dh).  Unowned slot entries
+    are exactly zero (the decode kernels guarantee it) and every head has
+    one owning slot per row, so Σx² over (S, G, Dh) is the original
+    channels' Σx²; the mean divides by the true channel count (Hq·Dh), not
+    the slot width."""
+    xf = x.float()
+    ss = (xf * xf).sum(dim=(1, 2, 3), keepdim=True) / n_channels
+    return (xf * torch.rsqrt(ss + eps) * (1.0 + scale_slot.float())[None]).to(x.dtype)
+
+
+def _decode_ssm(pl: dict, hn: torch.Tensor, cfg: ModelConfig, layer_idx: int,
+                state: ServeState) -> torch.Tensor:
+    """One token through the SSD branch of layer ``layer_idx``; the layer's
+    conv window and SSD state are updated in place.  Returns (B, 1, D)."""
+    s = cfg.ssm
+    d_in, G, N, H, P = s.d_inner, s.n_groups, s.state_size, s.num_heads, s.head_dim
+    B = hn.shape[0]
+    z, xBC, dt = M.ssm_split(pl, hn, cfg)  # (B, 1, ...)
+    xBC, new_cs = SSD.conv1d_causal(xBC, pl["conv_w"], state.conv_state[layer_idx])
+    xBC = torch.nn.functional.silu(xBC)
+    x, B_, C_ = torch.split(xBC[:, 0], [d_in, G * N, G * N], dim=-1)
+    y, new_ss = SSD.ssd_decode_step(x.reshape(B, H, P), dt[:, 0], pl["A_log"],
+                                    B_.reshape(B, G, N), C_.reshape(B, G, N), pl["ssm_D"],
+                                    state.ssm_state[layer_idx])
+    state.conv_state[layer_idx].copy_(new_cs)
+    state.ssm_state[layer_idx].copy_(new_ss)
+    return M.ssm_out(pl, y.reshape(B, 1, d_in), z)
 
 
 def _local_table(cache: PagedCache, layer: int, groups=None) -> torch.Tensor:
@@ -714,8 +815,7 @@ def propose_step(
     st.cache.positions.copy_(positions)
     props = (torch.stack(proposals, dim=1) if proposals
              else torch.zeros((B, 0), dtype=torch.int64, device=dev))
-    return ServeState(cache=st.cache, last_tokens=state.last_tokens,
-                      decode_steps=state.decode_steps), props
+    return dataclasses.replace(state, cache=st.cache), props
 
 
 def verify_step(
@@ -790,9 +890,9 @@ def verify_step(
     cache.lengths.sub_(torch.where(own_all, trim[None, None, :], 0).to(torch.int32))
     cache.positions.add_(torch.where(active_b, n_commit, 0).to(torch.int32))
     last = torch.gather(g, 1, torch.clamp(n_commit - 1, min=0)[:, None])[:, 0]
-    new_state = ServeState(cache=cache,
-                           last_tokens=torch.where(active_b, last, state.last_tokens),
-                           decode_steps=state.decode_steps + 1)
+    new_state = dataclasses.replace(
+        state, cache=cache, last_tokens=torch.where(active_b, last, state.last_tokens),
+        decode_steps=state.decode_steps + 1)
     return new_state, g, n_commit, logits
 
 
@@ -875,27 +975,52 @@ def _verify_slot_o(pl, attn, groups=None):
 def init_serve_state(cfg: ModelConfig, plan: PlanArrays, batch: int,
                      ccfg: CompressionConfig, dtype=torch.float32,
                      device="cpu", cache: Optional[PagedCache] = None) -> ServeState:
-    """Empty B-row ServeState: every row retired (lengths 0, positions 0).
+    """Empty B-row ServeState: every row retired (lengths 0, positions 0,
+    zero SSD and conv state).
 
     The continuous scheduler starts from it and splices requests into rows
     as they are admitted.  ``cache`` lets a cache backend put its own
-    layout (a `PagedCache`) in place of the slot cache."""
-    _check_dense(cfg)
-    if cache is None:
+    layout (a `PagedCache`) in place of the slot cache; an attention-free
+    model has none.  Encoder-decoder models are not supported: their cross
+    K / V depend on each request's encoder input."""
+    if cfg.is_encoder_decoder:
+        raise NotImplementedError(
+            "continuous batching does not support encoder-decoder models")
+    if cache is None and not cfg.attention_free:
         cache = init_cache(cfg.n_layers, int(plan.slot_head.shape[1]), batch,
                            ccfg.static_capacity(), cfg.head_dim, dtype=dtype,
                            device=device)
+    ssm_state = conv_state = None
+    if cfg.family in ("ssm", "hybrid"):
+        s = cfg.ssm
+        ssm_state = torch.zeros((cfg.n_layers, batch, s.num_heads, s.head_dim, s.state_size),
+                                dtype=torch.float32, device=device)
+        conv_state = torch.zeros((cfg.n_layers, batch, s.conv_width - 1,
+                                  s.d_inner + 2 * s.n_groups * s.state_size),
+                                 dtype=dtype, device=device)
     return ServeState(cache=cache,
                       last_tokens=torch.zeros((batch,), dtype=torch.int64, device=device),
-                      decode_steps=0)
+                      decode_steps=0, ssm_state=ssm_state, conv_state=conv_state)
+
+
+def _state_tensors(state: ServeState) -> list:
+    """The state's tensors in a fixed order: the cache's fields (when there
+    is a cache), then `STATE_TENSORS`."""
+    cache = ([] if state.cache is None else
+             [getattr(state.cache, f.name) for f in dataclasses.fields(state.cache)])
+    return cache + [getattr(state, f) for f in STATE_TENSORS]
 
 
 def copy_state_(dst: ServeState, src: ServeState) -> ServeState:
-    """Copy ``src``'s cache tensors, last tokens and ring phase into
-    ``dst`` (same cache layout and shapes), in place; returns ``dst``.  A
-    new state lands in storage a captured step already reads."""
-    copy_fields_(dst.cache, src.cache)
-    dst.last_tokens.copy_(src.last_tokens)
+    """Copy ``src``'s tensors (cache, last tokens, recurrent and cross
+    state) and ring phase into ``dst`` (same layout and shapes), in place;
+    returns ``dst``.  A new state lands in storage a captured step already
+    reads."""
+    if dst.cache is not None:
+        copy_fields_(dst.cache, src.cache)
+    for name in STATE_TENSORS:
+        if getattr(dst, name) is not None:
+            getattr(dst, name).copy_(getattr(src, name))
     dst.decode_steps = src.decode_steps
     return dst
 
@@ -904,23 +1029,30 @@ def state_layout(state: ServeState) -> tuple:
     """The cache type and the shapes and dtypes of a state's tensors: two
     states with equal layouts fit `copy_state_`, and one captured step
     serves both."""
-    tensors = [getattr(state.cache, f.name) for f in dataclasses.fields(state.cache)]
     return (type(state.cache).__name__,) + tuple(
-        None if t is None else (tuple(t.shape), t.dtype)
-        for t in tensors + [state.last_tokens])
+        None if t is None else (tuple(t.shape), t.dtype) for t in _state_tensors(state))
 
 
-def set_row_tokens(state: ServeState, rows: Rows,
-                   tokens: Optional[torch.Tensor] = None) -> ServeState:
-    """Set the last token of ``rows`` in place: ``tokens`` of a spliced
-    sub-batch at int row ids, or 0 for retired rows (int ids or a (B,)
-    bool mask).  Each cache backend does its own cache work and then calls
-    this."""
+def set_row_state(state: ServeState, rows: Rows, sub: Optional[ServeState] = None
+                  ) -> ServeState:
+    """Set the last token and the recurrent state (SSD, conv) of ``rows`` in
+    place: those of a spliced sub-batch ``sub`` at int row ids, or zero for
+    retired rows (int ids or a (B,) bool mask).  Each cache backend does
+    its own cache work and then calls this."""
     dev = state.last_tokens.device
-    if tokens is None:
-        state.last_tokens[rows_to_mask(rows, state.last_tokens.shape[0], dev)] = 0
+    if sub is None:
+        m = rows_to_mask(rows, state.last_tokens.shape[0], dev)
+        state.last_tokens[m] = 0
+        for name in RECURRENT:
+            if getattr(state, name) is not None:
+                getattr(state, name)[:, m] = 0
     else:
-        state.last_tokens[row_index(rows, dev)] = tokens.to(state.last_tokens.dtype)
+        ix = row_index(rows, dev)
+        state.last_tokens[ix] = sub.last_tokens.to(state.last_tokens.dtype)
+        for name in RECURRENT:
+            if getattr(state, name) is not None:
+                dst = getattr(state, name)
+                dst[:, ix] = getattr(sub, name).to(dst.dtype)
     return state
 
 
@@ -929,13 +1061,15 @@ def splice_state(state: ServeState, sub: ServeState, rows: Rows) -> ServeState:
     state, in place.  ``sub`` must come from ``prefill(..., rows=rows)``.
     ``decode_steps`` keeps the live value: the ring-write phase is global,
     not per request."""
-    insert_rows(state.cache, sub.cache, rows)
-    return set_row_tokens(state, rows, sub.last_tokens)
+    if state.cache is not None:
+        insert_rows(state.cache, sub.cache, rows)
+    return set_row_state(state, rows, sub)
 
 
 def reset_state_rows(state: ServeState, rows: Rows) -> ServeState:
-    """Retire rows of a slot-cache state in place: clear their cache rows,
-    so their decode output is exactly zero and the rows can return to the
-    freelist."""
-    reset_rows(state.cache, rows)
-    return set_row_tokens(state, rows)
+    """Retire rows of a slot-cache state in place: clear their cache rows
+    and recurrent state, so their decode output is exactly zero and the
+    rows can return to the freelist."""
+    if state.cache is not None:
+        reset_rows(state.cache, rows)
+    return set_row_state(state, rows)

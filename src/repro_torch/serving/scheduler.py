@@ -44,6 +44,15 @@ skips those chunks, and maps the shared blocks into its row instead of
 copying them.  Index-only entries are the first memory reclaimed when the
 pool runs dry, before any preemption.
 
+The SSM and hybrid families carry each row's SSD and conv state beside
+the cache: a splice writes a request's rows of it, a retirement zeroes
+them, and a preempted request's replay rebuilds them from its prompt plus
+its earlier tokens, fed back one decode step at a time.  An attention-free
+model (mamba2) has no cache: nothing to balance (``imbalance()`` is 1.0)
+and no placement to replan.  Chunked prefill falls back to monolithic
+prefill for every family but the dense one.  Encoder-decoder and VLM
+models are refused: their prompts are not token sequences alone.
+
 Observability (``obs``, the engine's `repro_torch.obs.Obs`; `NULL_OBS`
 when constructed alone): the reference's series under the reference's
 names — admissions, retirements, preemptions, cancellations and replans
@@ -199,6 +208,9 @@ class Scheduler:
                  head_importance: Optional[np.ndarray] = None,
                  obs: Optional[Obs] = None,
                  plan_profile: Optional[np.ndarray] = None):
+        if cfg.is_encoder_decoder or cfg.is_vlm:
+            raise NotImplementedError(
+                "continuous batching supports token-prompt decoder models")
         self.cfg = cfg
         self.params = params  # original layout, kept to re-slotify on replan
         self.plan = plan
@@ -908,6 +920,8 @@ class Scheduler:
         return event
 
     def _replan_impl(self, profile, shard_speeds) -> dict:
+        if self.cfg.attention_free:
+            raise ValueError("attention-free models have no head placement to replan")
         if shard_speeds is not None:
             self.shard_speeds = np.asarray(shard_speeds, float)
         speeds = self.shard_speeds

@@ -40,14 +40,33 @@ class SyntheticLM:
         self.dc = data_cfg or DataConfig()
         self._probs = _zipf_probs(cfg.vocab_size, self.dc.zipf_alpha)
 
+    def text_len(self) -> int:
+        """Token positions per row: a VLM's sequence holds its image tokens
+        first."""
+        s = self.shape.seq_len
+        if self.cfg.is_vlm:
+            s = max(1, s - self.cfg.num_image_tokens)
+        return s
+
     def get_batch(self, step: int) -> Dict[str, np.ndarray]:
-        """``{"tokens": (B, T) int32}`` on the host."""
+        """``{"tokens": (B, T) int32}`` on the host, plus the stub
+        frontends' inputs: a VLM's ``image_embeds`` (B, I, D) and an
+        encoder-decoder's ``frames`` (B, T_enc, D), 0.02 · N(0, 1) as the
+        reference draws them (fp32 here; the model casts them)."""
         rng = np.random.default_rng([self.dc.seed, step])
-        B, S = self.shape.global_batch, self.shape.seq_len
+        B, S = self.shape.global_batch, self.text_len()
         base = rng.choice(self.cfg.vocab_size, size=(B, S), p=self._probs)
         # inject short-range repeats (structure for attention stats)
         rep = rng.random((B, S)) < self.dc.repeat_prob
         off = rng.integers(1, self.dc.repeat_window + 1, size=(B, S))
         src = np.maximum(np.arange(S)[None, :] - off, 0)
         tokens = np.where(rep, np.take_along_axis(base, src, axis=1), base)
-        return {"tokens": tokens.astype(np.int32)}
+        batch = {"tokens": tokens.astype(np.int32)}
+        D = self.cfg.d_model
+        if self.cfg.is_vlm:
+            batch["image_embeds"] = (0.02 * rng.standard_normal(
+                (B, self.cfg.num_image_tokens, D))).astype(np.float32)
+        if self.cfg.is_encoder_decoder:
+            batch["frames"] = (0.02 * rng.standard_normal(
+                (B, self.cfg.encoder_seq_len, D))).astype(np.float32)
+        return batch

@@ -13,7 +13,9 @@ to the paged kernel over an identity block table.  The paged kernels share
 one body: every query of the multi-query kernel is held bitwise to the
 single-query kernel at its causal length and position (all pool kinds,
 window and softcap, query chunks, lengths up to 1600 at block sizes 8, 16
-and 32), and both kernels bitwise to themselves on relabelled pool blocks.  The
+and 32), and both kernels bitwise to themselves on relabelled pool blocks.  The slot
+and single-query paged kernels also take G = 5 and 7 (the missing heads
+masked), where the multi-query kernel raises.  The
 score kernel is also held at the chunked-prefill shape, and a shared-prefix
 trace on the card gives the CPU path's tokens.  The HTTP front end over a
 graphed engine gives `Engine.stream`'s tokens and captures nothing.  The
@@ -51,7 +53,11 @@ def gen():
     (4, 8, 8, 64, 256, 0, 0.0), (3, 5, 4, 32, 96, 40, 0.0),
     (8, 16, 4, 128, 576, 0, 50.0),
     # head_dim 256 (gemma2-9b's main-path shape with its window and softcap)
-    (4, 16, 2, 256, 576, 200, 50.0), (3, 4, 8, 256, 300, 0, 0.0), (2, 5, 1, 256, 150, 0, 30.0)])
+    (4, 16, 2, 256, 576, 200, 50.0), (3, 4, 8, 256, 300, 0, 0.0), (2, 5, 1, 256, 150, 0, 30.0),
+    # G = 5 (hymba-1.5b's decode shape, window 1024 past C) and G = 7
+    # (llava-next-34b's), split as G = 8 with the missing heads masked
+    (8, 16, 5, 64, 576, 1024, 0.0), (2, 16, 7, 128, 576, 0, 0.0), (3, 4, 5, 128, 200, 60, 30.0),
+    (2, 5, 7, 64, 150, 0, 50.0)])
 def test_fairkv_decode_kernel(gen, dtype, B, S, G, Dh, C, window, cap):
     from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda
     q = torch.randn((B, S, G, Dh), generator=gen, device="cuda").to(dtype)
@@ -158,7 +164,9 @@ def test_prefix_run_trace_cuda_matches_cpu():
 @pytest.mark.parametrize("B,S,G,Dh,C,window,cap", [
     (2, 5, 4, 128, 1600, 0, 0.0), (2, 5, 4, 128, 1600, 500, 30.0),
     (8, 16, 4, 128, 576, 0, 0.0), (3, 5, 8, 32, 96, 40, 50.0),
-    (2, 5, 2, 256, 1600, 500, 50.0), (4, 16, 2, 256, 576, 0, 0.0), (2, 3, 8, 256, 200, 0, 0.0)])
+    (2, 5, 2, 256, 1600, 500, 50.0), (4, 16, 2, 256, 576, 0, 0.0), (2, 3, 8, 256, 200, 0, 0.0),
+    (2, 5, 5, 64, 1600, 500, 0.0), (2, 5, 7, 128, 1600, 0, 30.0), (8, 16, 5, 64, 576, 0, 0.0),
+    (2, 16, 7, 128, 576, 200, 0.0)])
 def test_fairkv_decode_kernel_bitwise_paged(gen, dtype, B, S, G, Dh, C, window, cap):
     """The slot kernel equals the paged kernel bitwise on the same cache
     laid out as pools with an identity block table, at lengths from one
@@ -208,7 +216,10 @@ def test_engine_cuda_matches_cpu(gen):
 @pytest.mark.parametrize("S,B,G,Dh,C,bs,window,cap", [
     (3, 2, 1, 64, 96, 16, 0, 0.0), (4, 3, 8, 32, 200, 8, 60, 0.0),
     (16, 8, 4, 128, 576, 16, 0, 30.0), (16, 4, 2, 256, 576, 16, 200, 50.0),
-    (3, 2, 8, 256, 96, 8, 0, 0.0)])
+    (3, 2, 8, 256, 96, 8, 0, 0.0),
+    # G = 5 and 7 (hymba-1.5b, llava-next-34b): the masked-head instantiations
+    (16, 8, 5, 64, 576, 16, 200, 0.0), (16, 2, 7, 128, 576, 16, 0, 30.0),
+    (3, 2, 5, 128, 120, 8, 0, 50.0), (4, 3, 7, 64, 150, 8, 60, 0.0)])
 def test_paged_fairkv_decode_kernel(gen, mode, S, B, G, Dh, C, bs, window, cap):
     from repro_torch.kernels.paged_fairkv_decode import paged_fairkv_decode_cuda
     rng = np.random.default_rng(S * 100 + C)
@@ -831,3 +842,53 @@ def test_decode_kernels_refuse_other_head_dims(gen, Dh):
         pos = torch.arange(16, dtype=torch.int32, device="cuda")[None]
         with pytest.raises(ValueError, match="head_dim"):
             snapkv_scores_cuda(qo, ko, pos[:, -4:].contiguous(), pos)
+
+
+@pytest.mark.parametrize("G", [5, 7])
+def test_mq_kernel_refuses_groups_off_eight(gen, G):
+    """The multi-query kernel is not built for G = 5 or 7 (speculation
+    refuses the families that have them): it raises on the card, nothing
+    falls back to the plain version."""
+    from repro_torch.kernels import ops
+    q = torch.randn((2, 4, 3, G, 64), generator=gen, device="cuda")
+    kp = torch.randn((5, 8, 64), generator=gen, device="cuda")
+    pp = torch.zeros((5, 8), dtype=torch.int32, device="cuda")
+    tbl = torch.ones((4, 2, 2), dtype=torch.int32, device="cuda")
+    ln = torch.full((4, 2), 8, dtype=torch.int32, device="cuda")
+    before = build.LAUNCHES["paged_fairkv_decode_mq"]
+    with pytest.raises(ValueError, match=f"G={G}"):
+        ops.paged_fairkv_decode(q, kp, kp, pp, tbl, ln, 16)
+    assert build.LAUNCHES["paged_fairkv_decode_mq"] == before
+
+
+@pytest.mark.parametrize("arch,over", [("hymba-1.5b", {"n_kv_heads": 1}),
+                                       ("llava-next-34b", {"n_heads": 14, "n_kv_heads": 2}),
+                                       ("whisper-small", {}), ("mamba2-1.3b", {})])
+def test_family_generate_cuda_matches_cpu(gen, arch, over):
+    """The SSM, hybrid, encoder-decoder and VLM smoke configs (hymba at
+    G = 5, llava at G = 7) one-shot on the card give the CPU path's tokens
+    and lengths, logits within 1e-3 (fp32, another summation order)."""
+    import dataclasses
+
+    from repro_torch import interop
+    from repro_torch.training.data import SyntheticLM
+    from repro_torch.configs.base import InputShape
+    comp = CompressionConfig(policy="ada_snapkv", budget=12, alpha_max=2.0, obs_window=8,
+                             sink=2, decode_margin=8)
+    plan = PlannerConfig(mode="fairkv_dp", extra_copies=4, batch_cap=2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg = EngineConfig.smoke(arch, n_shards=4, max_seq_len=64, device=dev,
+                                 compression=comp, planner=plan)
+        if over:
+            cfg = cfg.replace(model=dataclasses.replace(cfg.model, **over))
+        if dev == "cpu":
+            params = Engine.build(cfg).params
+            batch = SyntheticLM(cfg.model, InputShape("t", 40, 2, "prefill")).get_batch(0)
+        else:
+            params = interop.to_torch(interop.to_numpy(params), "cuda")
+        out[dev] = Engine.build(cfg, params=params).generate(batch, 6)
+    a, b = out["cpu"], out["cuda"]
+    assert np.array_equal(a.tokens, b.tokens)
+    assert np.array_equal(a.lengths, b.lengths)
+    assert np.abs(a.logits - b.logits).max() < 1e-3

@@ -35,7 +35,8 @@ from repro_torch.models import transformer as M
 torch.set_num_threads(2)
 
 ARCHS = ["gemma2-9b", "granite-3-2b", "qwen1.5-110b"]
-ALL_ARCHS = ARCHS + ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
+ALL_ARCHS = ARCHS + ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "mamba2-1.3b", "hymba-1.5b",
+                     "whisper-small", "llava-next-34b"]
 B, T, GEN = 2, 24, 6
 PLANNERS = [("sha", 0), ("fairkv_dp", 4)]
 COMP = dict(policy="ada_snapkv", budget=12, alpha_max=2.0, obs_window=8, sink=2,
@@ -117,7 +118,9 @@ def test_gemma2_window_binds(runs):
 @pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_init_params_shapes_match_reference(arch):
     """The port's init tree has the reference's keys and shapes (smoke
-    widths): biases with qkv_bias, router and expert weights for MoE."""
+    widths): biases with qkv_bias, router and expert weights for MoE, the
+    SSD branch (and the hybrid's branch norms), the encoder, cross
+    attention and position tables of the encoder-decoder."""
     jcfg = jget_smoke(arch)
     jtree = jax.tree.map(np.shape, JM.init_params(jcfg, jax.random.PRNGKey(0),
                                                   dtype=jnp.float32))

@@ -103,11 +103,29 @@ def test_unported_flags_are_refused(capsys, flags, item):
 
 
 def test_other_archs_are_refused(capsys):
+    """An arch that is not registered is refused (every arch of the
+    reference is registered: `test_new_families_serve`), and so is the
+    continuous scheduler for an encoder-decoder, as the reference refuses
+    it."""
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu"])
-    assert "A.11" in capsys.readouterr().err
+        serve.main(["--arch", "not-an-arch", "--smoke", "--device", "cpu"])
+    assert "not a registered arch" in capsys.readouterr().err
     with pytest.raises(SystemExit):
         serve.main(["--smoke"])
+    with pytest.raises(NotImplementedError, match="token-prompt decoder models"):
+        serve.main(["--arch", "whisper-small", "--smoke", "--device", "cpu", "--continuous"])
+
+
+@pytest.mark.parametrize("arch,extra", [("mamba2-1.3b", ["--continuous", "--requests", "2"]),
+                                        ("hymba-1.5b", []), ("whisper-small", []),
+                                        ("llava-next-34b", [])])
+def test_new_families_serve(capsys, arch, extra):
+    """The SSM, hybrid, encoder-decoder and VLM archs serve through the CLI
+    (the one-shot batch carries whisper's frames and llava's images)."""
+    serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--gen", "3",
+                "--prompt-len", "24", *extra])
+    out = capsys.readouterr().out
+    assert ("mid-stream admissions" if extra else "decode") in out
 
 
 def test_signal_drains_the_engine():
