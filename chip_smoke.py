@@ -37,8 +37,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    (same weights, fp32): identical tokens and lengths, close logits; then
    speculative `run_trace` (full-depth and 1-layer drafts) against the
    card's plain paged run and the CPU's spec run: identical tokens;
-5. the main path at full width: minitron-8b (32 layers, d_model 4096, 32/8
-   heads, vocab 256000) in bf16 with random weights from a seed, 8 shards x 2
+5. the main path at full width: minitron-8b (d_model 4096, 32/8 heads,
+   vocab 256000; phases 5-15 cut to 8 of its 32 layers, ``MAIN_LAYERS``, to
+   keep the script inside its time limit) in bf16 with random weights from
+   a seed, 8 shards x 2
    slots, Ada-SnapKV (budget 256 -> capacity 576), B=8 prompts of T=2048
    tokens, 32 new tokens: `measure_profile`, then `generate` under sha,
    fairkv_nodp and fairkv_dp.  Launch counters are zeroed just before and
@@ -57,7 +59,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    undersized fp8 pool that must preempt; every request must finish, every
    pool end empty, and the slot and bf16-pool runs give identical tokens
    and replan decisions; then self-speculative decoding on the same trace:
-   (e) an 8-layer draft with adaptive depth, (f) the full-depth self-draft
+   (e) a 2-layer draft with adaptive depth, (f) the full-depth self-draft
    (acceptance >= 0.90) on bf16 pools, (g) (e)'s draft on int8 pools;
    (e) against the bf16 run: logit gap under the bf16 bound while the
    tokens agree and every divergence a near-tie; one profiler pass over
@@ -120,8 +122,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    that parse; the tick medians) and (c)'s int8 pools with
    `plan_kv_dtypes` overrides (every request finishes, the pool ends empty);
 13. `python -m repro_torch.launch.serve --arch minitron-8b --continuous
-   --policy headkv --cache-backend paged` in a subprocess at full width
-   with a few requests, metrics and trace written under chiprun_out/: exit
+   --policy headkv --cache-backend paged` in a subprocess at full width and
+   depth with a few requests, metrics and trace written under chiprun_out/: exit
    0, both files parse; then `serve --http --port 0` (paged pools, 4 rows)
    in a subprocess: the script waits for its `serving on` line, sends two
    requests, then SIGTERM: exit 0, the drain line, metrics that parse;
@@ -210,7 +212,34 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    tokens under both planners, (b)'s bars, kernels 1-3 timed at G 7 and
    kernel 2 at T 3904.  Prints per config prefill s, step ms host and
    device, `max_memory_allocated`, launches and seconds;
-18. last line: {"ok": true, "device": {...}}.
+18. (after phase 17, its memory freed) weight-only int8 and training,
+   launches stated apart from the kernel table: (a) the widened
+   minitron-8b smoke config (d_model 256, vocab 128) with int8 weights on
+   the card against the port's CPU path (tokens and lengths equal, logits
+   within 1e-3); then minitron-8b at full width and depth with
+   `quantize_serve_params` on each engine's serve tree, phase 5's plan
+   and compression, one-shot B = 8 x T = 2048, 32 new tokens through the
+   local executor and kernels 1 and 2: a bf16 sha run, whose tokens
+   teacher-force int8 runs under sha and fairkv_dp (launches, lengths
+   bitwise across the plans, their logit gap under the bf16 bound, eager
+   == graphed tokens and lengths, the mesh executor refusing the tree);
+   prints argmax agreement and logit gap against bf16, the weights' bytes
+   in int8 and bf16, step host / device ms, kernel 1's ms and
+   `max_memory_allocated`; kernels 1 and 2 timed on the int8 run's cache
+   (``*_int8w`` keys).  (b) the flash-attention backward against autograd
+   through `dense_attention` at one of granite-3-2b's layers (B 1, T
+   4096, 32 / 8 heads, Dh 64, fp32, windows 0 / 1024, softcaps 0 / 50;
+   within 1e-3 max|grad|), the six families' smoke training on the card
+   against the CPU (loss after two steps within 1e-3), and granite-3-2b
+   training at full width and depth (40 layers, 2.53 B, bf16 params and
+   fp32 master / mu / nu, B 2 x S 4096, remat, 4 steps of
+   `make_train_step` through `TrainingSupervisor.run`: finite loss and
+   grad norm, params bf16, master fp32; prints step s, tokens/s, 6 N
+   tokens / step / 989 TFLOP/s, memory, the losses).  (c) `python -m
+   repro_torch.launch.train --arch granite-3-2b --smoke --steps 6
+   --ckpt-every 3` in a subprocess, then `--resume` from its step-3
+   checkpoint: the step-6 tree bitwise the uninterrupted run's;
+19. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -230,6 +259,11 @@ ROOT = Path(__file__).resolve().parent
 
 # main-path configuration (phase 5)
 ARCH = "minitron-8b"
+# phases 5-15 run minitron-8b at full width cut to 8 of its 32 layers, so
+# that the whole script ends well inside its time limit (at full depth it
+# took 1036 s of the 1200); phase 13's CLI and phase 18 (a) run it at full
+# depth
+MAIN_LAYERS = 8
 N_SHARDS, SLOTS_PER_SHARD = 8, 2
 B, T, GEN = 8, 2048, 32
 BUDGET, ALPHA, OBS, POOL, SINK, MARGIN = 256, 2.0, 32, 7, 4, 64
@@ -967,17 +1001,21 @@ def planner(mode, ch):
                          batch_cap=B)
 
 
-def main_config():
+def main_config(full_depth=False):
     """minitron-8b at full width in bf16 on the card, Ada-SnapKV budget 256
-    (capacity 576), 8 shards x 2 slots; planner sha (callers replace it)."""
+    (capacity 576), 8 shards x 2 slots; planner sha (callers replace it);
+    cut to ``MAIN_LAYERS`` layers unless ``full_depth``."""
     from repro_torch.api import CompressionConfig, EngineConfig
-    return EngineConfig.for_arch(
+    cfg = EngineConfig.for_arch(
         ARCH, n_shards=N_SHARDS, dtype="bfloat16", max_seq_len=T + GEN,
         seed=SEED, device="cuda",
         compression=CompressionConfig(policy="ada_snapkv", budget=BUDGET,
                                       alpha_max=ALPHA, obs_window=OBS, pool=POOL,
                                       sink=SINK, decode_margin=MARGIN),
         planner=planner("sha", 0))
+    if full_depth:
+        return cfg
+    return cfg.replace(model=cfg.model.with_overrides(n_layers=MAIN_LAYERS))
 
 
 def main_path():
@@ -990,7 +1028,7 @@ def main_path():
 
     cfg = main_config()
     m = cfg.model
-    log(f"[main] {m.name}: {m.n_layers} layers (full depth), d_model {m.d_model}, "
+    log(f"[main] {m.name}: {m.n_layers} layers (cut in depth), d_model {m.d_model}, "
         f"{m.n_heads}/{m.n_kv_heads} heads, head_dim {m.head_dim}, d_ff {m.d_ff}, "
         f"vocab {m.vocab_size}, bf16; S={N_SHARDS * SLOTS_PER_SHARD} slots, "
         f"capacity {cfg.compression.static_capacity()}, B={B}, T={T}, {GEN} new tokens")
@@ -1505,11 +1543,13 @@ def undersized_blocks(ctx, factor: float) -> int:
     return max(int(factor * admit), worst) + 1
 
 
-# speculative runs of the continuous trace: (e) an 8-layer draft (a quarter
-# of the stack) with adaptive depth, (f) the full-depth self-draft, whose
-# acceptance would be 1.0 in exact arithmetic; in bf16 the draft's
-# single-row projections and the verify's B*Q-row ones may round apart
-SPEC_E = dict(enabled=True, max_k=4, draft_layers=8)
+# speculative runs of the continuous trace: (e) a draft of a quarter of the
+# stack (2 of phases 5-15's 8 layers) with adaptive depth, (f) the
+# full-depth self-draft, whose acceptance would be 1.0 in exact arithmetic;
+# in bf16 the draft's single-row projections and the verify's B*Q-row ones
+# may round apart; gemma2-9b (phase 16) drafts with 8 of its 42 layers
+SPEC_E = dict(enabled=True, max_k=4, draft_layers=MAIN_LAYERS // 4)
+SPEC_GEMMA = dict(SPEC_E, draft_layers=8)
 SPEC_F = dict(enabled=True, max_k=4, draft_layers=0)
 SPEC_F_ACCEPTANCE = 0.90
 
@@ -1551,7 +1591,7 @@ def continuous_runs(ctx):
     """The same trace on (a) the slot backend, (b) bf16 pools at worst-case
     size, (c) int8 pools at worst-case size, (d) fp8 pools sized below the
     realized need (`undersized_blocks`), which must preempt; then
-    speculative decoding on (e) bf16 pools with an 8-layer draft, (f) bf16
+    speculative decoding on (e) bf16 pools with a 2-layer draft, (f) bf16
     pools with the full-depth self-draft and (g) int8 pools with (e)'s
     draft.  Returns (launches, the mq kernel's inputs at a verify tick)."""
     from repro_torch.api import SpeculationConfig
@@ -1585,31 +1625,31 @@ def continuous_runs(ctx):
     if a["replan_decisions"] != b["replan_decisions"]:
         fail("slot vs paged bf16: the replan decisions differ")
 
-    for name, kv, spec, logits in (("spec d=8", "fp32", SPEC_E, True),
-                                   ("spec d=32", "fp32", SPEC_F, False),
-                                   ("spec int8", "int8", SPEC_E, False)):
+    for name, kv, spec, logits in (("spec (e)", "fp32", SPEC_E, True),
+                                   ("spec (f)", "fp32", SPEC_F, False),
+                                   ("spec (g)", "int8", SPEC_E, False)):
         got, runs[name] = continuous_run(ctx, name, "paged", kv,
                                          spec=SpeculationConfig(**spec), logits=logits)
         add(got)
-    plain, e, f, g = (runs[k] for k in ("paged bf16", "spec d=8", "spec d=32", "spec int8"))
+    plain, e, f, g = (runs[k] for k in ("paged bf16", "spec (e)", "spec (f)", "spec (g)"))
     if not f["acceptance"] >= SPEC_F_ACCEPTANCE:
-        fail(f"spec d=32 (full-depth self-draft): acceptance {f['acceptance']:.4f} < "
+        fail(f"spec (f) (full-depth self-draft): acceptance {f['acceptance']:.4f} < "
              f"{SPEC_F_ACCEPTANCE}")
     same_e, gap, bound, margins = near_tie_check(plain, e, m)
     same_f = sum(x == y for x, y in zip(plain["tokens"], f["tokens"]))
     same_g = sum(x == y for x, y in zip(runs["paged int8"]["tokens"], g["tokens"]))
     tok_g = sum(sum(p == q for p, q in zip(x, y))
                 for x, y in zip(runs["paged int8"]["tokens"], g["tokens"]))
-    log(f"[cont] spec d=8 vs paged bf16: {same_e}/{N_REQ} requests identical; max logit gap "
+    log(f"[cont] spec (e) vs paged bf16: {same_e}/{N_REQ} requests identical; max logit gap "
         f"while the tokens agree {gap:.4f} (bound {bound:.4f}); top-2 margins of the plain "
         f"run at the {len(margins)} divergences: "
         + ", ".join(f"{x:.4f}" for x in sorted(margins)) + " (all under the bound)")
-    log(f"[cont] spec d=32 vs paged bf16: {same_f}/{N_REQ} requests identical; acceptance "
+    log(f"[cont] spec (f) vs paged bf16: {same_f}/{N_REQ} requests identical; acceptance "
         f"{f['acceptance']:.4f} (bar {SPEC_F_ACCEPTANCE})")
-    log(f"[cont] spec int8 vs paged int8: {same_g}/{N_REQ} requests identical, {tok_g} of "
+    log(f"[cont] spec (g) vs paged int8: {same_g}/{N_REQ} requests identical, {tok_g} of "
         f"{sum(len(x) for x in g['tokens'])} tokens at equal positions (reported, not a bar)")
-    for name in ("spec d=8", "spec d=32", "spec int8"):
-        base = runs["paged int8" if "int8" in name else "paged bf16"]
+    for name in ("spec (e)", "spec (f)", "spec (g)"):
+        base = runs["paged int8" if name == "spec (g)" else "paged bf16"]
         log(f"[cont] {name}: {runs[name]['tokens_per_s']:.1f} tokens/s = "
             f"{runs[name]['tokens_per_s'] / base['tokens_per_s']:.3f} x its plain run; "
             f"decode ticks {runs[name]['decode_ticks']} vs {base['decode_ticks']}")
@@ -1620,7 +1660,7 @@ def continuous_runs(ctx):
                         if k not in ("tokens", "logits")}
     # what phase 9 holds the eager runs to
     ctx["graphed"] = {"(b)": {k: runs["paged bf16"][k] for k in ("tokens", "replan_decisions")},
-                      "(e)": {k: runs["spec d=8"][k] for k in ("tokens", "acceptance")}}
+                      "(e)": {k: runs["spec (e)"][k] for k in ("tokens", "acceptance")}}
     del runs, a, b, plain, e, f, g
     gc.collect()
     profile_continuous(ctx)
@@ -1750,8 +1790,9 @@ def profile_speculative(ctx, steps=4, eager=False):
     if total <= 0:
         log("[profile] torch.profiler recorded no device time for the speculative ticks")
     else:
-        log(f"[profile] graphs: speculative paged bf16 (draft 8 layers, max_k 4), {MAX_ROWS} live "
-            f"rows: un-profiled tick {tick_ms:.2f} ms; host ms per tick: prepare "
+        log(f"[profile] graphs: speculative paged bf16 (draft {SPEC_E['draft_layers']} layers, "
+            f"max_k {SPEC_E['max_k']}), {MAX_ROWS} live rows: un-profiled tick {tick_ms:.2f} "
+            f"ms; host ms per tick: prepare "
             f"{host['prepare_s']:.3f}, propose {host['propose_s']:.2f}, verify "
             f"{host['verify_s']:.2f}; profiled {steps} ticks: device busy {total / 1e3:.2f} ms "
             f"of {wall * 1e3:.2f} ms wall ({100 * total / 1e6 / wall:.1f}%), device time per "
@@ -3890,7 +3931,7 @@ def family_runs(rows):
     add({k: v for r in rec["runs"].values() for k, v in r["launches"].items()})
     time_gemma_kernels(ctx, rows)
     for name, kw in (("gemma2 trace", {}),
-                     ("gemma2 spec", {"spec": SpeculationConfig(**SPEC_E)}),
+                     ("gemma2 spec", {"spec": SpeculationConfig(**SPEC_GEMMA)}),
                      ("gemma2 chunk", {"changes": {"prefix": PrefixConfig(chunk_tokens=CHUNK)}})):
         n = FAMILY_CHUNK_REQS if "changes" in kw else FAMILY_REQS
         got, out = _family_trace(ctx, name, n, **kw)
@@ -4036,6 +4077,409 @@ def p17_runs(rows):
     log(f"[p17] phase 17 took {time.perf_counter() - t0:.1f} s; launches {launches}")
     log("[p17] summary " + json.dumps(records))
 
+# ---------------------------------------------------------------------------
+# phase 18: weight-only int8 serving, training, the training CLI
+# ---------------------------------------------------------------------------
+
+# the int8 smoke variant (card against CPU): minitron-8b's smoke config
+# widened until its projections cross quantize_serve_params' 2^16-element
+# threshold; vocab 128 keeps the embedding and head plain, so the run stays
+# fp32 (a quantized embedding makes the activations bf16)
+INT8_SMOKE = dict(d_model=256, d_ff=512, head_dim=64, vocab_size=128)
+TRAIN_ARCH = "granite-3-2b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4  # train_4k's sequence length
+TRAIN_SMOKE = ("granite-3-2b", "granite-moe-1b-a400m", "mamba2-1.3b", "hymba-1.5b",
+               "whisper-small", "llava-next-34b")
+# the flash backward against autograd through dense_attention at one of
+# granite-3-2b's layers: (window, softcap)
+FLASH_CASES = ((0, 0.0), (1024, 0.0), (0, 50.0), (1024, 50.0))
+
+
+def _tree_bytes(tree) -> int:
+    """Bytes of a serve tree's tensors (an int8 weight: codes and scale)."""
+    from repro_torch.serving.quant import QTensor
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_bytes(v) for v in tree)
+    if isinstance(tree, QTensor):
+        return _tree_bytes(tree.q) + _tree_bytes(tree.scale)
+    return tree.numel() * tree.element_size()
+
+
+def int8_smoke_parity():
+    """Phase 18 (a), first part: the widened minitron-8b smoke config
+    (`INT8_SMOKE`, fp32) with int8 serve params on the card against the
+    port's CPU path, same weights: one-shot fairkv_dp, identical tokens and
+    lengths, logits within 1e-3.  Returns the card run's launches."""
+    import numpy as np
+    from repro_torch import interop
+    from repro_torch.api import CompressionConfig, Engine, EngineConfig, PlannerConfig
+    from repro_torch.serving.quant import has_qtensor, quantize_serve_params
+    out, params, got = {}, None, {}
+    for dev in ("cpu", "cuda"):
+        cfg = EngineConfig.smoke(
+            ARCH, n_shards=4, max_seq_len=64, device=dev,
+            compression=CompressionConfig(policy="ada_snapkv", budget=12, alpha_max=2.0,
+                                          obs_window=8, sink=2, decode_margin=8),
+            planner=PlannerConfig(mode="fairkv_dp", extra_copies=4, batch_cap=2))
+        cfg = cfg.replace(model=cfg.model.with_overrides(**INT8_SMOKE))
+        if params is None:
+            params = Engine.build(cfg).params
+        eng = Engine.build(cfg, params=interop.to_torch(interop.to_numpy(params), dev))
+        eng.sp = quantize_serve_params(eng.sp)
+        if not has_qtensor(eng.sp):
+            fail("[p18] (a) the int8 smoke config quantized nothing")
+        toks = np.random.default_rng(SEED).integers(0, 128, size=(2, 40)).astype(np.int32)
+        res, launches = _count(lambda: eng.generate(toks, 6))
+        out[dev] = res
+        if dev == "cuda":
+            got = launches
+    a, b = out["cpu"], out["cuda"]
+    gap = float(np.abs(a.logits - b.logits).max())
+    if not (np.array_equal(a.tokens, b.tokens) and np.array_equal(a.lengths, b.lengths)
+            and gap < 1e-3):
+        fail(f"[p18] (a) int8 smoke: card vs CPU tokens equal "
+             f"{np.array_equal(a.tokens, b.tokens)}, lengths equal "
+             f"{np.array_equal(a.lengths, b.lengths)}, max |dlogits| {gap:.3e} (bar 1e-3)")
+    log(f"[p18] (a) int8 smoke ({INT8_SMOKE}): card == CPU tokens and lengths; "
+        f"max |dlogits| {gap:.3e}")
+    return got
+
+
+def int8_main_path(rows):
+    """Phase 18 (a): minitron-8b at full width and depth with int8 weights
+    (`quantize_serve_params` on each engine's serve tree), phase 5's plan
+    and compression, one-shot B = 8 x T = 2048, 32 new tokens, through the
+    local executor (graphed decode) and kernels 1 and 2.  The bf16 sha run
+    comes first and its tokens teacher-force the int8 runs under sha and
+    fairkv_dp.  Bars: launches (kernel 1 n_layers x GEN, kernel 2 n_layers
+    per run), lengths bitwise across the planners, the int8 plans' logit
+    gap under n_layers 2^-8 max|logit|, eager == graphed tokens and
+    lengths, the mesh executor refusing the tree.  Reported: argmax
+    agreement and logit gap against bf16, the weights' bytes in int8 and
+    bf16, step host / device ms, kernel 1's ms, max_memory_allocated.
+    Kernels 1 and 2 timed on the int8 run's cache and at its prefill shape
+    (``*_int8w`` keys).  Returns the launches."""
+    import numpy as np
+    import torch
+    from repro_torch.api import Engine
+    from repro_torch.configs.base import InputShape
+    from repro_torch.exec.mesh import MeshExecutor
+    from repro_torch.launch.mesh import Group, Mesh
+    from repro_torch.serving.quant import quantize_serve_params
+    from repro_torch.training.data import SyntheticLM
+    t0 = time.perf_counter()
+    cfg = main_config(full_depth=True)
+    m = cfg.model
+    data = SyntheticLM(m, InputShape("chip_smoke", T, B, "prefill"))
+    prompts = data.get_batch(0)["tokens"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    probe = Engine.build(cfg)
+    params = probe.params
+    profile = probe.measure_profile(data.get_batch(123)["tokens"])
+    del probe
+    launches, runs, rec = {}, {}, {"runs": {}}
+    eng = None
+    for name, mode, ch, quant in (("bf16 sha", "sha", 0, False), ("int8 sha", "sha", 0, True),
+                                  ("int8 fairkv_dp", "fairkv_dp", 4, True)):
+        eng = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        eng = Engine.build(cfg.replace(planner=planner(mode, ch)), params=params,
+                           profile=profile)
+        if quant:
+            rec["weights_bytes_bf16"] = _tree_bytes(eng.sp)
+            eng.sp = quantize_serve_params(eng.sp)
+            rec["weights_bytes_int8"] = _tree_bytes(eng.sp)
+        teacher = None if not runs else runs["bf16 sha"].tokens[:, :GEN]
+        res, got = _count(lambda: eng.generate(prompts, GEN, teacher_tokens=teacher))
+        if got["fairkv_decode"] != m.n_layers * GEN or got["snapkv_scores"] != m.n_layers:
+            fail(f"[p18] (a) {name}: launches {got}, expected fairkv_decode {m.n_layers} x "
+                 f"{GEN}, snapkv_scores {m.n_layers}")
+        if res.logits.shape != (B, GEN + 1, m.padded_vocab) or not np.isfinite(res.logits).all():
+            fail(f"[p18] (a) {name}: logits {res.logits.shape} or not finite")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        runs[name] = res
+        dev_ms, k1_ms = _step_times(eng)
+        rec["runs"][name] = {"prefill_s": res.prefill_s,
+                             "step_ms_host": 1e3 * statistics.median(res.step_s),
+                             "step_ms_device": dev_ms, "kernel1_ms_per_step": k1_ms}
+    a, b = runs["int8 sha"], runs["int8 fairkv_dp"]
+    if not np.array_equal(a.lengths, b.lengths):
+        fail("[p18] (a) int8: lengths differ between sha and fairkv_dp")
+    tol = m.n_layers * 2.0 ** -8 * float(np.abs(a.logits).max())
+    gap = float(np.abs(a.logits - b.logits).max())
+    if not gap < tol:
+        fail(f"[p18] (a) int8: logit gap fairkv_dp vs sha {gap} >= {tol}")
+    ref = runs["bf16 sha"]
+    for name in ("int8 sha", "int8 fairkv_dp"):
+        r = runs[name]
+        rec["runs"][name].update(
+            gap_to_bf16=float(np.abs(r.logits - ref.logits).max()),
+            argmax_agree_bf16=float((r.logits.argmax(-1) == ref.logits.argmax(-1)).mean()))
+    rec.update(plan_gap=gap, plan_bar=tol)
+    # the mesh executor refuses a quantized tree (checked before any step)
+    fake = Mesh(rank=0, world=1, model=1, data=1, model_idx=0, data_idx=0,
+                model_group=Group(None, "model", 1, 0, "gloo"),
+                data_group=Group(None, "data", 1, 0, "gloo"), device=torch.device("cuda"),
+                backend="gloo")
+    try:
+        MeshExecutor(m, cfg.compression, mesh=fake)._check(eng.sp, eng.pa)
+    except NotImplementedError as e:
+        rec["mesh_refusal"] = str(e)
+    else:
+        fail("[p18] (a) the mesh executor accepted int8 slot weights")
+    # eager against graphed, fairkv_dp, teacher-forced alike
+    eng.executor = eager_executor(eng.cfg)
+    eager, got = _count(lambda: eng.generate(prompts, GEN, teacher_tokens=ref.tokens[:, :GEN]))
+    for k, v in got.items():
+        launches[k] = launches.get(k, 0) + v
+    if not (np.array_equal(eager.tokens, b.tokens) and np.array_equal(eager.lengths, b.lengths)):
+        fail("[p18] (a) int8: eager tokens or lengths differ from the graphed run's")
+    rec.update(eager_logits_bitwise=bool(np.array_equal(eager.logits, b.logits)),
+               eager_logit_gap=float(np.abs(eager.logits - b.logits).max()),
+               max_memory_allocated=torch.cuda.max_memory_allocated(),
+               seconds=time.perf_counter() - t0)
+    ctx = {"cfg": eng.cfg, "cache": eng.state.cache}
+    del eng
+    time_config_kernels(ctx, rows, "minitron-8b int8 weights", ((0, "_int8w"),), B, T)
+    log(f"[p18] (a) minitron-8b int8 weights (32 layers, B={B}, T={T}, {GEN} new tokens): "
+        + "; ".join(f"{n}: prefill {r['prefill_s']:.2f} s, step {r['step_ms_host']:.2f} ms "
+                    f"host / {r['step_ms_device']:.2f} ms device (kernel 1 "
+                    f"{r['kernel1_ms_per_step']:.3f} ms)"
+                    + (f", vs bf16: logit gap {r['gap_to_bf16']:.4f}, argmax agreement "
+                       f"{r['argmax_agree_bf16']:.4f}" if "gap_to_bf16" in r else "")
+                    for n, r in rec["runs"].items())
+        + f"; lengths plan-invariant, plan logit gap {gap:.4f} (bar {tol:.4f}); weights "
+        f"{rec['weights_bytes_int8'] / 2**30:.2f} GiB int8 vs "
+        f"{rec['weights_bytes_bf16'] / 2**30:.2f} GiB bf16; eager == graphed tokens and "
+        f"lengths (logits bitwise {rec['eager_logits_bitwise']}, gap "
+        f"{rec['eager_logit_gap']:.4f}); mesh refuses: {rec['mesh_refusal']!r}; "
+        f"max_memory_allocated {rec['max_memory_allocated'] / 2**30:.2f} GiB; "
+        f"{rec['seconds']:.1f} s")
+    log("[p18] (a) summary " + json.dumps(rec))
+    return launches
+
+
+def flash_backward_check():
+    """Phase 18 (b), first part: `flash_attention_vjp`'s dq / dk / dv on the
+    card against autograd through `dense_attention`, fp32 inputs at one of
+    granite-3-2b's layers (B 1, T 4096, 32 / 8 heads, Dh 64), each
+    (window, softcap) of `FLASH_CASES`; bar: each within 1e-3 max|grad|."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    m = get_config(TRAIN_ARCH)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 11)
+    Tq, Hq, Hkv, Dh = TRAIN_S, m.n_heads, m.n_kv_heads, m.head_dim
+    q = torch.randn((1, Tq, Hq, Dh), generator=gen, device="cuda")
+    k = torch.randn((1, Tq, Hkv, Dh), generator=gen, device="cuda")
+    v = torch.randn((1, Tq, Hkv, Dh), generator=gen, device="cuda")
+    w = torch.randn((1, Tq, Hq, Dh), generator=gen, device="cuda")
+    pos = torch.arange(Tq, dtype=torch.int32, device="cuda")[None]
+    errs = []
+    for window, cap in FLASH_CASES:
+        grads = []
+        for fn in (lambda *a: L.flash_attention_vjp(*a, window, cap, True, 1024),
+                   lambda *a: L.dense_attention(*a, window=window, attn_cap=cap)):
+            xs = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            (fn(*xs, pos, pos) * w).sum().backward()
+            grads.append([x.grad for x in xs])
+            del xs
+        for name, g, d in zip(("dq", "dk", "dv"), *grads):
+            err = float((g - d).abs().max())
+            bar = 1e-3 * float(d.abs().max())
+            if not err < bar:
+                fail(f"[p18] (b) flash backward, window {window}, softcap {cap}: {name} "
+                     f"differs by {err} >= {bar}")
+            errs.append(err / float(d.abs().max()))
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    log(f"[p18] (b) flash_attention_vjp backward vs autograd through dense_attention at "
+        f"(B 1, T {Tq}, {Hq}/{Hkv} heads, Dh {Dh}) fp32, (window, softcap) in {FLASH_CASES}: "
+        f"max |d grad| / max |grad| = {max(errs):.3e} (bar 1e-3)")
+
+
+def train_smoke_parity():
+    """Phase 18 (b), second part: the smoke variants of the six families'
+    training (fp32, same initial weights) on the card against the CPU: the
+    loss after two steps of `make_train_step` within 1e-3."""
+    import torch
+    from repro_torch import interop
+    from repro_torch.configs import InputShape, get_smoke_config
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import init_params
+    from repro_torch.training import (OptimizerConfig, SyntheticLM, init_optimizer,
+                                      make_train_step)
+    gaps = {}
+    for arch in TRAIN_SMOKE:
+        cfg = get_smoke_config(arch)
+        data = SyntheticLM(cfg, InputShape("chip_smoke", 32, 2, "train"))
+        host = init_params(cfg, SEED, dtype=torch.float32, device="cpu")
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            params = interop.to_torch(interop.to_numpy(host), dev)
+            opt = init_optimizer(params)
+            step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                        total_steps=2), remat=True)
+            for s in range(2):
+                params, opt, met = step(params, opt, device_batch(data.get_batch(s), dev))
+            losses[dev] = float(met["loss"])
+        gaps[arch] = abs(losses["cpu"] - losses["cuda"])
+        if not gaps[arch] < 1e-3:
+            fail(f"[p18] (b) {arch} smoke training: card loss {losses['cuda']} vs CPU "
+                 f"{losses['cpu']} after 2 steps (bar 1e-3)")
+    log(f"[p18] (b) smoke training, card == CPU loss after 2 steps: "
+        f"{ {a: float(f'{g:.3e}') for a, g in gaps.items()} }")
+
+
+def train_full_width():
+    """Phase 18 (b): granite-3-2b at full width and depth, bf16 params,
+    fp32 master / mu / nu, B = 2 x S = 4096 (past flash_threshold, so the
+    recomputing flash backward runs), `SyntheticLM` batches, remat, 4
+    steps of `make_train_step` through `TrainingSupervisor.run` (no
+    checkpoint).  Bars: finite loss and grad norm at every step, params
+    still bf16, master still fp32.  Reports step s, tokens/s, 6 N tokens /
+    step / 989e12, max_memory_allocated and the loss per step."""
+    import math
+    import os
+    import tempfile
+
+    import torch
+    from repro_torch.configs import InputShape, get_config
+    from repro_torch.launch.train import device_batch
+    from repro_torch.models import init_params
+    from repro_torch.training import (OptimizerConfig, SupervisorConfig, SyntheticLM,
+                                      TrainingSupervisor, init_optimizer, make_train_step)
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, SEED, dtype=torch.bfloat16, device="cuda",
+                         max_seq_len=TRAIN_S)
+    n_params = _n_params(params)
+    state = {"params": params, "opt": init_optimizer(params)}
+    del params
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-3, warmup_steps=1,
+                                                total_steps=TRAIN_STEPS), remat=True)
+    data = SyntheticLM(cfg, InputShape("chip_smoke", TRAIN_S, TRAIN_B, "train"))
+    times, mets = [], []
+
+    def one_step(st, batch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, o, met = step(st["params"], st["opt"], device_batch(batch, "cuda"))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        mets.append({k: float(v) for k, v in met.items()})
+        return {"params": p, "opt": o}, met
+
+    with tempfile.TemporaryDirectory() as d:
+        sup = TrainingSupervisor(SupervisorConfig(checkpoint_dir=os.path.join(d, "ck"),
+                                                  checkpoint_every=TRAIN_STEPS + 1))
+        _, state, _ = sup.run(state, one_step, data.get_batch, TRAIN_STEPS)
+    for i, met in enumerate(mets):
+        if not (math.isfinite(met["loss"]) and math.isfinite(met["grad_norm"])):
+            fail(f"[p18] (b) step {i + 1}: loss {met['loss']}, grad norm {met['grad_norm']}")
+    leaves = [x for pl in state["params"]["layers"] for x in pl.values()]
+    if any(x.dtype != torch.bfloat16 for x in leaves + [state["params"]["embed"]]):
+        fail("[p18] (b) params are not all bf16 after the steps")
+    if any(x.dtype != torch.float32 for x in state["opt"].master["layers"][0].values()):
+        fail("[p18] (b) the master weights are not fp32 after the steps")
+    step_s = statistics.median(times[1:])
+    tokens = TRAIN_B * TRAIN_S
+    rec = {"arch": cfg.name, "layers": cfg.n_layers, "params": n_params, "batch": TRAIN_B,
+           "seq": TRAIN_S, "step_s": times, "step_s_median_after_first": step_s,
+           "tokens_per_s": tokens / step_s,
+           "model_flops_share_bf16_peak": 6 * n_params * tokens / step_s / BF16_FLOP_PER_S,
+           "loss": [mt["loss"] for mt in mets], "grad_norm": [mt["grad_norm"] for mt in mets],
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t0}
+    log(f"[p18] (b) {cfg.name} training at full width and depth ({cfg.n_layers} layers, "
+        f"{n_params / 1e9:.2f} B parameters, bf16 params, fp32 master / mu / nu, B={TRAIN_B} "
+        f"x S={TRAIN_S}, remat): step {step_s:.3f} s (median of steps 2-{TRAIN_STEPS}; "
+        f"first {times[0]:.3f} s), {rec['tokens_per_s']:.0f} tokens/s, 6 N tokens / step = "
+        f"{100 * rec['model_flops_share_bf16_peak']:.2f}% of 989 TFLOP/s, loss "
+        f"{[round(x, 4) for x in rec['loss']]}, max_memory_allocated "
+        f"{rec['max_memory_allocated'] / 2**30:.2f} GiB; {rec['seconds']:.1f} s")
+    log("[p18] (b) summary " + json.dumps(rec))
+
+
+def train_cli_restart():
+    """Phase 18 (c): ``python -m repro_torch.launch.train --arch
+    granite-3-2b --smoke --steps 6 --ckpt-every 3`` on the card in a
+    subprocess, then again with ``--resume`` after the checkpoints past
+    step 3 are removed: the step-6 tree bitwise the uninterrupted run's.
+    ``CUBLAS_WORKSPACE_CONFIG`` is set in the subprocess's environment (the
+    CLI turns on deterministic algorithms: on the card the embedding's
+    backward otherwise accumulates with atomics)."""
+    import shutil
+
+    import numpy as np
+    ckpt = ROOT / "build" / "p18_train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--arch", TRAIN_ARCH, "--smoke",
+           "--steps", "6", "--ckpt-every", "3", "--ckpt-dir", str(ckpt)]
+
+    def run(*extra):
+        t = time.perf_counter()
+        out = subprocess.run(cmd + list(extra), capture_output=True, text=True, timeout=300,
+                             env=env, cwd=str(ROOT))
+        if out.returncode != 0:
+            fail(f"[p18] (c) {' '.join(cmd[2:] + list(extra))} exited {out.returncode}: "
+                 f"{out.stderr[-3000:]}")
+        return out.stdout, time.perf_counter() - t
+
+    def leaves(step_dir):
+        with open(step_dir / "manifest.json") as f:
+            names = [x["name"] for x in json.load(f)["leaves"]]
+        return {n: np.load(step_dir / (n + ".npy")) for n in names}
+
+    first, s1 = run()
+    full = leaves(ckpt / "step_00000006")
+    shutil.rmtree(ckpt / "step_00000006")
+    second, s2 = run("--resume")
+    if "resumed from step 3" not in second:
+        fail(f"[p18] (c) the resumed run did not start at step 3: {second[-500:]}")
+    again = leaves(ckpt / "step_00000006")
+    differ = [n for n in full if n not in again or not np.array_equal(full[n], again[n])]
+    if differ or len(again) != len(full):
+        fail(f"[p18] (c) the resumed step-6 tree differs from the uninterrupted run's in "
+             f"{len(differ)} leaves, e.g. {differ[:3]}")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"[p18] (c) launch.train --smoke on the card: {first.strip().splitlines()[-1]} "
+        f"({s1:.1f} s); resumed from step 3 ({s2:.1f} s): the step-6 tree bitwise equal "
+        f"({len(full)} leaves)")
+
+
+def p18_runs(rows):
+    """Phase 18: (a) int8 weights on the main path; (b) training at full
+    width and depth, with the flash backward and the families' smoke
+    variants checked on the card; (c) the training CLI and a restart.
+    Prints the phase's time and launches (apart from the kernel table)."""
+    import torch
+    t0 = time.perf_counter()
+    launches = int8_smoke_parity()
+    for k, v in int8_main_path(rows).items():
+        launches[k] = launches.get(k, 0) + v
+    gc.collect()
+    torch.cuda.empty_cache()
+    flash_backward_check()
+    train_smoke_parity()
+    train_full_width()
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_cli_restart()
+    log(f"[p18] phase 18 took {time.perf_counter() - t0:.1f} s; launches {launches}")
+
 
 def main() -> int:
     try:
@@ -4124,6 +4568,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("phase 16")
     p17_runs(rows)
+    # phase 18 after phase 17, its memory freed
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 17")
+    p18_runs(rows)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -59,6 +59,7 @@ from repro_torch.obs import Obs
 from repro_torch.paging.block_pool import PoolExhausted
 from repro_torch.serving import engine as _serve
 from repro_torch.serving.cache_backend import make_cache_backend, migrate_slots
+from repro_torch.serving.quant import has_qtensor
 from repro_torch.serving.request import Request
 from repro_torch.serving.scheduler import Scheduler
 
@@ -349,8 +350,11 @@ class Engine:
             migrated = True
         copy_fields_(self.pa, new_pa)
         self.backend.pa = self.pa
+        quantized = has_qtensor(self.sp)
         _serve.slotify_params(self.params, self.plan, self.cfg.model, out=self.sp,
                               slots=self._slots)
+        if quantized:  # rebuilt in bf16: new tensors
+            self.executor.drop_graphs()
         return {"plan": self.plan, "migrated_cache": migrated,
                 "shard_speeds": None if speeds is None else list(speeds)}
 

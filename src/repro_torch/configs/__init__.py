@@ -2,8 +2,7 @@
 the port serves: the dense family (minitron-8b, gemma2-9b, granite-3-2b,
 qwen1.5-110b with its qkv bias), the MoE family (granite-moe-1b-a400m,
 qwen3-moe-30b-a3b), the SSM and hybrid families (mamba2-1.3b, hymba-1.5b)
-and the encoder-decoder and VLM families (whisper-small, llava-next-34b).
-Weight-only int8 follows in a later slice (ROADMAP Queue A.11.6)."""
+and the encoder-decoder and VLM families (whisper-small, llava-next-34b)."""
 from repro_torch.configs.base import (  # noqa: F401
     SHAPES,
     InputShape,

@@ -162,6 +162,12 @@ class Executor:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def drop_graphs(self) -> None:
+        """Forget every captured step (the next call of each captures
+        again): for a replan that put new tensors into the slot weights'
+        tree (one of int8 weights, rebuilt in bf16).  A no-op without
+        graphs."""
+
     # ---- StepFns -----------------------------------------------------------
 
     def prefill(self, sp: dict, batch: dict, pa,

@@ -130,6 +130,9 @@ class LocalExecutor(Executor):
 
     # ---- graph machinery ---------------------------------------------------
 
+    def drop_graphs(self) -> None:
+        self._graphs.clear()
+
     def _run(self, kind: str, key: tuple, fn: Callable, state, sp, pa,
              inputs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         """Run one step: ``fn(**inputs)`` eagerly, or through the graph of

@@ -62,6 +62,7 @@ from repro_torch.cache.slot_cache import (PlanArrays, SlotCache, copy_fields_, r
 from repro_torch.distributed import comm
 from repro_torch.exec.local import LocalExecutor
 from repro_torch.serving import engine as _serve
+from repro_torch.serving.quant import has_qtensor
 
 _FAMILIES = ("dense",)
 
@@ -123,9 +124,9 @@ class MeshExecutor(LocalExecutor):
     def _check(self, sp, pa) -> None:
         S = int(pa.slot_head.shape[1])
         sl = self.mesh.slots(S)  # raises unless S splits over model
+        if has_qtensor(sp):
+            raise NotImplementedError("mesh executor does not support quantized slot weights yet")
         w = sp["layers"][0]["wq_s"]
-        if w.dtype in (torch.int8, torch.uint8):
-            raise NotImplementedError("mesh executor does not support quantized slot weights")
         if w.shape[0] != sl.stop - sl.start:
             raise ValueError(
                 f"slot weights hold {w.shape[0]} slots; this rank's share of {S} is "

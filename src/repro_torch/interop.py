@@ -10,6 +10,13 @@ bf16 and fp8-e4m3 need a detour: numpy has neither, JAX exports them as
 ``torch.from_numpy`` rejects those dtypes — so the bits travel as 16- or
 8-bit integers and are reinterpreted on the torch side (and the reverse on
 the way back).  int8 leaves (the paged pools' codes) cross as they are.
+
+Two node types cross by their fields, so no reference class is imported:
+an int8 weight (an object with ``q`` and ``scale``, the reference's
+``QTensor``) becomes `repro_torch.serving.quant.QTensor`, and an optimizer
+state (a named tuple called ``AdamWState``) becomes
+`repro_torch.training.optimizer.AdamWState`; other named tuples keep
+their type.
 """
 from __future__ import annotations
 
@@ -43,20 +50,30 @@ def _leaf_to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
+def _map(fn, tree: Any, leaf) -> Any:
+    """``tree`` with ``leaf`` applied to every array, rebuilt node by node
+    (``fn`` is the recursion)."""
+    from repro_torch.serving.quant import QTensor
+    from repro_torch.training.optimizer import AdamWState
+
+    if isinstance(tree, dict):
+        return {k: fn(v) for k, v in tree.items()}
+    if hasattr(tree, "q") and hasattr(tree, "scale"):
+        return QTensor(q=fn(tree.q), scale=fn(tree.scale))
+    if hasattr(tree, "_fields"):  # a named tuple
+        cls = AdamWState if type(tree).__name__ == "AdamWState" else type(tree)
+        return cls(*(fn(v) for v in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(fn(v) for v in tree)
+    return leaf(tree)
+
+
 def to_torch(tree: Any, device="cpu") -> Any:
     """Array tree (numpy or anything ``np.asarray`` accepts) → tensors on
     ``device``, bit-for-bit."""
-    if isinstance(tree, dict):
-        return {k: to_torch(v, device) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(to_torch(v, device) for v in tree)
-    return _leaf_to_torch(tree, device)
+    return _map(lambda t: to_torch(t, device), tree, lambda a: _leaf_to_torch(a, device))
 
 
 def to_numpy(tree: Any) -> Any:
     """Tensor tree → numpy arrays on the host (bf16 as ``ml_dtypes``)."""
-    if isinstance(tree, dict):
-        return {k: to_numpy(v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(to_numpy(v) for v in tree)
-    return _leaf_to_numpy(tree)
+    return _map(to_numpy, tree, _leaf_to_numpy)

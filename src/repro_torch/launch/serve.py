@@ -53,9 +53,11 @@ hymba-1.5b (hybrid), one-shot and ``--continuous``, and whisper-small
 (encoder-decoder: the one-shot batch carries stub frames) and
 llava-next-34b (VLM: stub image embeddings ahead of the prompt), one-shot
 only (``--continuous`` is refused with the scheduler's error, as the
-reference refuses it).  Not here: weight-only int8 (ROADMAP A.11.6), and
-``--paged-impl`` (the port picks the paged decode implementation by
-device, on purpose).
+reference refuses it).  Not here: ``--paged-impl`` (the port picks the
+paged decode implementation by device, on purpose).  Weight-only int8 has
+no flag here, as in the reference: apply
+`repro_torch.serving.quant.quantize_serve_params` to an engine's serve
+tree (``engine.sp``) from Python.
 """
 from __future__ import annotations
 

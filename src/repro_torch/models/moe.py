@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.serving.quant import operands
 
 
 def expert_capacity(n_tokens: int, cfg: ModelConfig) -> int:
@@ -51,7 +52,7 @@ def route(x: torch.Tensor, router: torch.Tensor, top_k: int
     The router product runs in the weights' dtype, the softmax in fp32;
     ties in ``probs`` go to the lower expert id (a stable descending sort,
     as ``jax.lax.top_k``).  ``gate`` is renormalized over the K picks."""
-    probs = torch.softmax((x @ router).float(), dim=-1)
+    probs = torch.softmax(torch.matmul(*operands(x, router)).float(), dim=-1)
     srt = torch.sort(probs, dim=-1, descending=True, stable=True)
     gate, top_idx = srt.values[:, :top_k], srt.indices[:, :top_k]
     gate = gate / torch.clamp(gate.sum(dim=-1, keepdim=True), min=1e-9)
@@ -102,8 +103,9 @@ def moe_block(pl: dict, h: torch.Tensor, cfg: ModelConfig
     wgt = gate.reshape(-1)[src] * valid
 
     xg = x[tok]  # (E, Ce, D)
-    h1 = F.silu(torch.matmul(xg, pl["we1"])) * torch.matmul(xg, pl["we3"])
-    y = torch.matmul(h1, pl["we2"])  # (E, Ce, D)
+    h1 = (F.silu(torch.matmul(*operands(xg, pl["we1"])))
+          * torch.matmul(*operands(xg, pl["we3"])))
+    y = torch.matmul(*operands(h1, pl["we2"]))  # (E, Ce, D)
     y = y * wgt[..., None].to(y.dtype)
 
     # deterministic combine: each kept replica lands on its own flat id

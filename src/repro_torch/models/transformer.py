@@ -1,4 +1,5 @@
-"""Model zoo: parameter init + the block functions serving reuses.
+"""Model zoo: parameter init, the block functions serving reuses, and the
+training forward.
 
 The port of ``repro.models.transformer`` for every family the reference
 serves: dense GQA (with qkv bias, and gemma2's scaled embedding), MoE
@@ -7,6 +8,11 @@ hybrid families, and the encoder, cross-attention and stub frontends of
 the encoder-decoder and VLM families.  Parameters are a plain dict tree in
 the reference's original (head-unpermuted) layout, with its keys and
 shapes, so trees carry across through `repro_torch.interop` unchanged.
+Every product that reads a weight takes it through
+`repro_torch.serving.quant.operands`, so int8 serve trees run too.
+`forward_train` is the reference's full-sequence causal-LM forward
+(``apply_layer_full`` per layer, each under ``torch.utils.checkpoint``
+with ``remat``), differentiable by ``torch.autograd``.
 """
 from __future__ import annotations
 
@@ -14,11 +20,13 @@ import math
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.moe import init_moe_params, moe_block
+from repro_torch.serving.quant import operands
 
 GLOBAL_WINDOW = 0  # sentinel: no sliding window
 # the families the port implements (every one the reference serves)
@@ -197,7 +205,8 @@ def ssm_split(pl: dict, h: torch.Tensor, cfg: ModelConfig):
     """in_proj → (z, xBC (the conv input), dt (B, T, H) fp32 post-softplus)."""
     s = cfg.ssm
     d_in, G, N = s.d_inner, s.n_groups, s.state_size
-    proj = h @ pl["in_proj"]  # (B, T, 2 d_in + 2 G N + H)
+    x, w = operands(h, pl["in_proj"])
+    proj = x @ w  # (B, T, 2 d_in + 2 G N + H)
     z, xBC, dt_raw = torch.split(proj, [d_in, d_in + 2 * G * N, s.num_heads], dim=-1)
     dt = torch.nn.functional.softplus(dt_raw.float() + pl["dt_bias"])
     return z, xBC, dt
@@ -205,8 +214,9 @@ def ssm_split(pl: dict, h: torch.Tensor, cfg: ModelConfig):
 
 def ssm_out(pl: dict, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     """The gated norm and out_proj: rms_norm(y · silu(z)) @ out_proj."""
-    y = L.rms_norm(y * torch.nn.functional.silu(z), pl["ssm_norm"])
-    return y @ pl["out_proj"]
+    y, w = operands(L.rms_norm(y * torch.nn.functional.silu(z), pl["ssm_norm"]),
+                    pl["out_proj"])
+    return y @ w
 
 
 def ssm_block_full(pl: dict, h: torch.Tensor, cfg: ModelConfig,
@@ -234,17 +244,17 @@ def ssm_block_full(pl: dict, h: torch.Tensor, cfg: ModelConfig,
 
 def qkv_proj(pl: dict, h: torch.Tensor, cfg: ModelConfig, prefix: str = ""):
     """(B, T, D) → q (B, T, Hq, Dh), k / v (B, T, Hkv, Dh), pre-RoPE."""
-    q = torch.einsum("btd,dhx->bthx", h, pl[prefix + "wq"])
-    k = torch.einsum("btd,dhx->bthx", h, pl[prefix + "wk"])
-    v = torch.einsum("btd,dhx->bthx", h, pl[prefix + "wv"])
+    q = torch.einsum("btd,dhx->bthx", *operands(h, pl[prefix + "wq"]))
+    k = torch.einsum("btd,dhx->bthx", *operands(h, pl[prefix + "wk"]))
+    v = torch.einsum("btd,dhx->bthx", *operands(h, pl[prefix + "wv"]))
     if cfg.qkv_bias and (prefix + "bq") in pl:
         q, k, v = q + pl[prefix + "bq"], k + pl[prefix + "bk"], v + pl[prefix + "bv"]
     return q, k, v
 
 
 def o_proj(pl: dict, attn_flat: torch.Tensor, cfg: ModelConfig, prefix: str = "") -> torch.Tensor:
-    wo = pl[prefix + "wo"].reshape(cfg.n_heads * cfg.head_dim, cfg.d_model)
-    return torch.einsum("bte,ed->btd", attn_flat, wo)
+    x, wo = operands(attn_flat, pl[prefix + "wo"])
+    return torch.einsum("bte,ed->btd", x, wo.reshape(cfg.n_heads * cfg.head_dim, cfg.d_model))
 
 
 def cross_attn_block(pl: dict, h: torch.Tensor, enc_kv: Tuple[torch.Tensor, torch.Tensor],
@@ -252,7 +262,7 @@ def cross_attn_block(pl: dict, h: torch.Tensor, enc_kv: Tuple[torch.Tensor, torc
     """Decoder cross-attention onto precomputed encoder K/V (no RoPE, no
     mask)."""
     B, T, _ = h.shape
-    q = torch.einsum("btd,dhx->bthx", h, pl["c_wq"])
+    q = torch.einsum("btd,dhx->bthx", *operands(h, pl["c_wq"]))
     k, v = enc_kv
     pos_q = torch.zeros((B, T), dtype=torch.int32, device=h.device)
     pos_k = torch.zeros((B, k.shape[1]), dtype=torch.int32, device=h.device)
@@ -280,9 +290,87 @@ def encoder_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig):
     encoder output."""
     kvs = []
     for pl in params["layers"]:
-        k = torch.einsum("btd,dhx->bthx", enc_out, pl["c_wk"])
-        v = torch.einsum("btd,dhx->bthx", enc_out, pl["c_wv"])
+        k = torch.einsum("btd,dhx->bthx", *operands(enc_out, pl["c_wk"]))
+        v = torch.einsum("btd,dhx->bthx", *operands(enc_out, pl["c_wv"]))
         if cfg.qkv_bias and "c_bk" in pl:
             k, v = k + pl["c_bk"], v + pl["c_bv"]
         kvs.append((k, v))
     return kvs
+
+
+# ---------------------------------------------------------------------------
+# Training forward (full sequence, original layout)
+# ---------------------------------------------------------------------------
+
+
+def attn_block_full(pl: dict, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                    layer_idx: int, kv_mask: Optional[torch.Tensor] = None,
+                    return_kv: bool = False):
+    """Full-sequence causal attention over a normed (B, T, D) input.
+    Returns (attn_out_flat (B, T, Hq·Dh), (k_rot, v) if ``return_kv``)."""
+    q, k, v = qkv_proj(pl, h, cfg)
+    q = L.apply_rope(q, positions, cfg.rope_theta)
+    k = L.apply_rope(k, positions, cfg.rope_theta)
+    out = L.attention(q, k, v, positions, positions, window=layer_window(cfg, layer_idx),
+                      attn_cap=cfg.attn_softcap, kv_mask=kv_mask, causal=True)
+    B, T = h.shape[:2]
+    out = out.reshape(B, T, cfg.n_heads * cfg.head_dim)
+    return out, ((k, v) if return_kv else None)
+
+
+def apply_layer_full(pl: dict, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
+                     layer_idx: int, enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                     kv_mask: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer over the full sequence.  Returns (h, aux loss):
+    MoE's Switch load-balancing loss, 0 for the other families."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
+    if cfg.family == "hybrid":
+        attn_flat, _ = attn_block_full(pl, hn, positions, cfg, layer_idx, kv_mask)
+        attn_out = o_proj(pl, L.rms_norm(attn_flat, pl["attn_out_norm"], cfg.rms_eps), cfg)
+        ssm_out, _ = ssm_block_full(pl, hn, cfg)
+        h = h + 0.5 * (attn_out + ssm_out)
+    elif cfg.family == "ssm":
+        h = h + ssm_block_full(pl, hn, cfg)[0]
+    elif not cfg.attention_free:
+        attn_flat, _ = attn_block_full(pl, hn, positions, cfg, layer_idx, kv_mask)
+        h = h + o_proj(pl, attn_flat, cfg)
+    if enc_kv is not None:
+        hc = L.rms_norm(h, pl["ln_cross"], cfg.rms_eps)
+        h = h + cross_attn_block(pl, hc, enc_kv, cfg)
+    if cfg.d_ff > 0 or cfg.moe.num_experts > 0:
+        hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
+        if cfg.moe.num_experts > 0:
+            mlp_out, aux = moe_block(pl, hn2, cfg)
+        else:
+            mlp_out = L.swiglu(hn2, pl["w1"], pl["w3"], pl["w2"])
+        h = h + mlp_out
+    return h, aux
+
+
+def forward_train(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                  remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Causal-LM (or encoder-decoder) logits.  Returns (logits (B, S, V)
+    fp32, the summed aux loss).  A VLM's image positions are cut from the
+    logits (they carry no next-token loss).  With ``remat`` each layer
+    runs under ``torch.utils.checkpoint`` (non-reentrant): its activations
+    are recomputed in the backward instead of stored."""
+    h, positions = embed_inputs(params, batch, cfg)
+    enc_kvs = None
+    if cfg.is_encoder_decoder:
+        enc_kvs = encoder_cross_kv(params, encode(params, batch["frames"], cfg), cfg)
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i, pl in enumerate(params["layers"]):
+        enc_kv = enc_kvs[i] if enc_kvs is not None else None
+        if remat:
+            h, aux = checkpoint(apply_layer_full, pl, h, positions, cfg, i, enc_kv,
+                                use_reentrant=False)
+        else:
+            h, aux = apply_layer_full(pl, h, positions, cfg, i, enc_kv)
+        aux_total = aux_total + aux
+    h = L.rms_norm(h, params["final_norm"], cfg.rms_eps)
+    logits = L.unembed(h, params.get("head", params["embed"]), cfg.logit_softcap)
+    if cfg.is_vlm:
+        logits = logits[:, batch["image_embeds"].shape[1]:]
+    return logits, aux_total

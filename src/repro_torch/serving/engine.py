@@ -97,6 +97,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSD
 from repro_torch.models import transformer as M
 from repro_torch.paging.paged_cache import PagedCache, paged_append_token
+from repro_torch.serving.quant import deq, has_qtensor, operands, take0
 
 
 # ---------------------------------------------------------------------------
@@ -167,12 +168,23 @@ def slotify_params(params: dict, plan: HeadPlacement, cfg: ModelConfig,
     tensors and ``out`` is returned: a replan keeps every address a
     captured step reads.  ``slots`` keeps only those slots of the grid (a
     mesh rank's share of the slot dim).  An attention-free model has no
-    slot weights: its params are returned as they are."""
+    slot weights: its params are returned as they are.
+
+    An ``out`` holding int8 leaves (`repro_torch.serving.quant`) is rebuilt
+    from ``params`` instead, in place: the reference's replan re-slotifies
+    the original-layout weights, so the serve tree comes back in bf16.  Its
+    tensors are then new, so the caller drops captured steps
+    (`Executor.drop_graphs`)."""
     if cfg.attention_free:
         return params
     arrs = plan.as_arrays()["slot_head"]
     if slots is not None:
         arrs = arrs[:, slots]
+    if out is not None and has_qtensor(out):
+        fresh = slotify_params(params, plan, cfg, slots=slots)
+        out.clear()
+        out.update(fresh)
+        return out
     if out is None:
         out = dict(params)
         out["layers"] = [slotify_layer(pl, arrs[i], cfg)
@@ -199,10 +211,12 @@ def first_weights(pl: dict, plan: PlanArrays, layer_idx: int, groups=None,
     wk / wv (Hkv, D, Dh), wo (Hkv, G, Dh, D), and with qkv bias the biases
     of the q/k/v keys asked for: bq (Hkv, G, Dh), bk / bv (Hkv, Dh).
     ``first_slot`` holds global slot ids, so a mesh rank (``groups``)
-    gathers the slot weights over the model group first."""
+    gathers the slot weights over the model group first.
+    An int8 slot weight (a `QTensor`) is gathered with its per-slot scale
+    and dequantized to bf16 (the reference's ``_take0`` then ``deq``)."""
     fs = plan.first_slot[layer_idx]  # (Hkv,)
     bias = ["b" + k[1] for k in keys if k != "wo" and "b" + k[1] + "_s" in pl]
-    return {k: _full_slots(pl[k + "_s"], groups)[fs] for k in list(keys) + bias}
+    return {k: deq(take0(_full_slots(pl[k + "_s"], groups), fs)) for k in list(keys) + bias}
 
 
 def _add_bias(q, k, v, b: dict):
@@ -320,9 +334,9 @@ def _prefill_attention(pl, hn, positions, cfg, layer_idx, cache, plan, ccfg,
     B, T, D = hn.shape
     Hkv, G, Dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
     fw = first_weights(pl, plan, layer_idx, groups, keys=("wq", "wk", "wv"))
-    q = torch.einsum("btd,hdgx->bthgx", hn, fw["wq"])  # (B,T,Hkv,G,Dh)
-    k = torch.einsum("btd,hdx->bthx", hn, fw["wk"])
-    v = torch.einsum("btd,hdx->bthx", hn, fw["wv"])
+    q = torch.einsum("btd,hdgx->bthgx", *operands(hn, fw["wq"]))  # (B,T,Hkv,G,Dh)
+    k = torch.einsum("btd,hdx->bthx", *operands(hn, fw["wk"]))
+    v = torch.einsum("btd,hdx->bthx", *operands(hn, fw["wv"]))
     q, k, v = _add_bias(q, k, v, fw)
     q = q.reshape(B, T, Hkv * G, Dh)
     q = L.apply_rope(q, positions, cfg.rope_theta)
@@ -350,9 +364,9 @@ def _prefill_attention(pl, hn, positions, cfg, layer_idx, cache, plan, ccfg,
 def _slot_o_proj(pl, attn_flat, cfg, plan, layer_idx, groups=None):
     """(B, T, Hkv·G·Dh) → (B, T, D) via the first-replica o weights."""
     fs = plan.first_slot[layer_idx]
-    wo = _full_slots(pl["wo_s"], groups)[fs].reshape(cfg.n_kv_heads * cfg.q_per_kv * cfg.head_dim,
-                                cfg.d_model)
-    return torch.einsum("bte,ed->btd", attn_flat, wo)
+    x, wo = operands(attn_flat, take0(_full_slots(pl["wo_s"], groups), fs))
+    return torch.einsum("bte,ed->btd", x,
+                        wo.reshape(cfg.n_kv_heads * cfg.q_per_kv * cfg.head_dim, cfg.d_model))
 
 
 def _slot_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -363,6 +377,7 @@ def _slot_proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     the weight to ``(D, S·...)``, a strided copy of the whole weight on
     every step."""
     S, D = w.shape[:2]
+    x, w = operands(x, w)
     out = torch.matmul(x, w.reshape(S, D, -1))  # (S, R, N)
     return out.reshape(S, x.shape[0], *w.shape[2:])
 
@@ -742,8 +757,8 @@ def _decode_slot_o(pl, attn, cfg, groups=None):
     copy the whole weight to ``(G, S, Dh, D)`` first).  On a mesh rank the
     partial contraction over its slots is summed over the model group: the
     decode step's one collective per layer."""
-    wo = pl["wo_s"]
-    out = torch.matmul(attn.reshape(attn.shape[0], -1), wo.reshape(-1, wo.shape[-1]))
+    x, wo = operands(attn.reshape(attn.shape[0], -1), pl["wo_s"])
+    out = torch.matmul(x, wo.reshape(-1, wo.shape[-1]))
     if groups is not None:
         out = comm.all_reduce_sum(out, groups.model_group)
     return out[:, None]
@@ -964,8 +979,8 @@ def _verify_slot_o(pl, attn, groups=None):
     over slots, per query, as `_decode_slot_o`'s one product (and its one
     all-reduce over the model group on a mesh rank)."""
     B, S, Q = attn.shape[:3]
-    wo = pl["wo_s"]
-    x = attn.transpose(1, 2).reshape(B * Q, -1)  # (B·Q, S·G·Dh), a small copy
+    # (B·Q, S·G·Dh), a small copy
+    x, wo = operands(attn.transpose(1, 2).reshape(B * Q, -1), pl["wo_s"])
     out = torch.matmul(x, wo.reshape(-1, wo.shape[-1]))
     if groups is not None:
         out = comm.all_reduce_sum(out, groups.model_group)

@@ -85,6 +85,7 @@ from repro_torch.paging.paged_cache import PagedCache, paged_to_slot
 from repro_torch.prefix import PrefixConfig, PrefixEntry, PrefixIndex
 from repro_torch.serving.cache_backend import CacheBackend, make_cache_backend
 from repro_torch.serving.engine import _spec_supported, init_serve_state, slotify_params
+from repro_torch.serving.quant import has_qtensor
 from repro_torch.serving.request import Request, RequestState, latency_percentiles
 from repro_torch.serving.speculation import SpeculationConfig
 
@@ -962,7 +963,10 @@ class Scheduler:
         self.plan = new_plan
         copy_fields_(self.pa, new_pa)
         self.backend.pa = self.pa
+        quantized = has_qtensor(self.sp)
         slotify_params(self.params, new_plan, self.cfg, out=self.sp, slots=self._slots)
+        if quantized:  # rebuilt in bf16: new tensors
+            self.executor.drop_graphs()
         if self.prefix is not None:
             # the backend rebuilt its pool from the live tables only (shared
             # rows became private copies): the index's references died with

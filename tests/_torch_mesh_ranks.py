@@ -293,6 +293,18 @@ def oversubscribe_rank(mesh):
     return None
 
 
+def compress_rank(mesh, grads, errs):
+    """`compressed_all_reduce` of this rank's gradient tree (``grads`` and
+    ``errs`` hold one numpy tree per rank of ``model``) over the model
+    group: the summed tree and this rank's new error tree, as numpy."""
+    from repro_torch.training.grad_compress import compressed_all_reduce
+
+    r = mesh.model_idx
+    summed, err = compressed_all_reduce(interop.to_torch(grads[r]), interop.to_torch(errs[r]),
+                                        mesh.model_group)
+    return interop.to_numpy(summed), interop.to_numpy(err)
+
+
 def jobs_rank(mesh, jobs):
     """Several of this module's rank functions in one spawn (a spawn of
     eight ranks costs seconds): ``jobs`` is a list of (name, args)."""

@@ -31,6 +31,7 @@ reference's weights reach every rank through an ``.npz``.  Held here:
 so the port is held to the reference's local executor throughout.)
 """
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -53,6 +54,20 @@ SLOT_CASES = {"1x2": [("slot", 2, 2.0, 1)],
               "2x4": [("slot", 4, 2.0, 1), ("slot", 4, 3.0, 7)]}
 SHAPES = {"1x2": (2, 1), "2x4": (4, 2)}  # (model, data)
 FAMILY_ARCHS = ["gemma2-9b", "qwen1.5-110b"]
+
+
+def _compress_case(n_ranks=2, seed=11):
+    """One gradient tree and one error tree per rank (numpy)."""
+    rng = np.random.default_rng(seed)
+
+    def tree(scale):
+        return {"a": (scale * rng.standard_normal((5, 6))).astype(np.float32),
+                "layers": [{"w": (scale * rng.standard_normal((7,))).astype(np.float32)}]}
+
+    return [tree(2.0) for _ in range(n_ranks)], [tree(0.01) for _ in range(n_ranks)]
+
+
+COMPRESS_CASE = _compress_case()
 
 
 def fake_mesh(backend="gloo", model=1, data=1):
@@ -226,6 +241,7 @@ def oneshot(weights, family_weights, tmp_path_factory):
             jobs.append(("trace_rank", (path, "slot")))
         else:
             jobs += [("family_rank", (family_weights[a][0], a)) for a in FAMILY_ARCHS]
+            jobs.append(("compress_rank", COMPRESS_CASE))
         ranks = spawn(R.jobs_rank, model=model, data=data, args=(jobs,),
                       init_file=str(tmp_path_factory.mktemp(shape) / "rv"),
                       timeout=SPAWN_TIMEOUT)
@@ -234,6 +250,7 @@ def oneshot(weights, family_weights, tmp_path_factory):
             out["trace"] = [r[1] for r in ranks]
         else:
             out["family"] = {a: [r[1 + i] for r in ranks] for i, a in enumerate(FAMILY_ARCHS)}
+            out["compress"] = [r[-1] for r in ranks]
     return out
 
 
@@ -322,3 +339,26 @@ def test_family_parity_1x2(oneshot, family_weights, arch):
         np.testing.assert_allclose(got["logits"], want.logits, rtol=1e-4, atol=1e-4)
         assert got["collectives"]["model"]["all_reduce"]["calls"] == n_layers
         assert "all_gather" not in got["collectives"]["model"]
+
+
+def test_compressed_all_reduce_1x2(oneshot):
+    """`compressed_all_reduce` over two gloo ranks: every rank holds the sum
+    of the ranks' dequantized int8 grads, bitwise the reference's
+    ``compress_tree`` / ``decompress_tree`` summed over the ranks (what its
+    ``compressed_psum`` computes), and its own error-feedback residual."""
+    from repro.training import grad_compress as jgc
+
+    grads, errs = COMPRESS_CASE
+    jt = [jgc.compress_tree(jax.tree.map(jnp.asarray, g), jax.tree.map(jnp.asarray, e))
+          for g, e in zip(grads, errs)]
+    deq = [jax.tree.leaves(jgc.decompress_tree(q, s)) for q, s, _ in jt]
+    want_sum = [np.asarray(a) + np.asarray(b) for a, b in zip(*deq)]
+    ranks = oneshot["compress"]
+    assert len(ranks) == 2
+    for r, (summed, err) in enumerate(ranks):
+        got = jax.tree.leaves(summed)
+        assert len(got) == len(want_sum)
+        for x, y in zip(got, want_sum):
+            assert np.array_equal(x, y)
+        for x, y in zip(jax.tree.leaves(err), jax.tree.leaves(jt[r][2])):
+            assert np.array_equal(x, np.asarray(y))
