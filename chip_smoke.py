@@ -239,7 +239,27 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    repro_torch.launch.train --arch granite-3-2b --smoke --steps 6
    --ckpt-every 3` in a subprocess, then `--resume` from its step-3
    checkpoint: the step-6 tree bitwise the uninterrupted run's;
-19. last line: {"ok": true, "device": {...}}.
+19. (after phase 18; host only apart from (b)) the production dry run
+   (`repro_torch.launch.dryrun`) on fake tensors under a fake process
+   group: first the kernels' fake implementations' scratch sizes against
+   their libraries' at the main path's and the dry run's shapes; (a) the
+   mesh executor's decode step at decode_32k on the (data 16, model 16)
+   mesh for minitron-8b and qwen1.5-110b at full depth: exactly n_layers
+   all-reduces over model of B / 16 x d_model bf16 each, no all-gather
+   over model, and over data only the step's two output gathers (tokens
+   and logits); prints rank 0's argument and peak bytes and whether they
+   fit the card; (b) the dry run's prediction against the card: the peak
+   bytes of phase 5's one-shot at a (1, 1) mesh (minitron-8b at
+   ``MAIN_LAYERS`` layers, B 8 x T 2048, capacity 576), prefill and one
+   eager decode step through the mesh executor, predicted on fake tensors
+   and measured by ``torch.cuda.max_memory_allocated`` over the same real
+   steps on one gloo rank (reset before each, counted from the memory
+   allocated before the step's arguments), within 10%; (c) the
+   single-mesh sweep of all ten archs at decode_32k (the fake 32k
+   prefills take tens of seconds a cell): every cell ``ok``,
+   ``args_only`` or ``skipped``, none ``fail``; prints the counts and
+   the phase's seconds;
+20. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -4481,6 +4501,178 @@ def p18_runs(rows):
     log(f"[p18] phase 18 took {time.perf_counter() - t0:.1f} s; launches {launches}")
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the production dry run on fake tensors
+# ---------------------------------------------------------------------------
+
+P19_AUDITS = ("minitron-8b", "qwen1.5-110b")
+P19_PREDICTION_TOL = 0.10  # predicted peak bytes within 10% of the card's
+
+
+def p19_scratch_formulas():
+    """The fake implementations' scratch sizes equal the libraries' at the
+    main path's, the families' and the dry run's shapes."""
+    from repro_torch.kernels import fairkv_decode as K1
+    from repro_torch.kernels import paged_fairkv_decode as KP
+    from repro_torch.kernels import snapkv_select as K2
+    lib1, libp, libq, lib2 = (K1._launcher(), KP._launcher(KP.NAME), KP._launcher(KP.NAME_MQ),
+                              K2._launcher())
+    n = 0
+    for Bq, S, G, Dh in ((B, 16, 4, 128), (8, 1, 4, 128), (8, 1, 8, 128), (4, 16, 2, 256),
+                         (8, 16, 5, 64), (2, 16, 7, 128)):
+        want = (lib1.fairkv_decode_scratch_floats(Bq, S, G, Dh),
+                libp.paged_fairkv_decode_scratch_floats(Bq, S, G, Dh))
+        if want != (K1.scratch_floats(Bq, S, G, Dh), KP.scratch_floats(Bq, S, 1, G, Dh)):
+            fail(f"fake scratch size differs from the library's at {(Bq, S, G, Dh)}: {want}")
+        for Q in range(1, 41 // G + 1):
+            if (libq.paged_fairkv_decode_mq_scratch_floats(Bq, S, Q, G, Dh),
+                    libq.paged_fairkv_decode_mq_counters(Bq, S, Q)) != (
+                    KP.scratch_floats(Bq, S, Q, G, Dh), S * Bq * KP.n_chunks(Q)):
+                fail(f"fake multi-query scratch differs from the library's at "
+                     f"{(Bq, S, Q, G, Dh)}")
+            n += 1
+    for Bq, Hkv, Tk in ((B, 8, T), (1, 8, T), (2, 8, 32768), (1, 8, 512), (4, 8, 4608),
+                        (8, 5, 2048), (2, 8, 3904), (1, 1, 64)):
+        if lib2.snapkv_scores_splits(Bq, Hkv, Tk) != K2.splits(Bq, Hkv, Tk):
+            fail(f"fake snapkv splits differ from the library's at {(Bq, Hkv, Tk)}")
+        n += 1
+    log(f"[p19] fake implementations' scratch equals the libraries' at {n} shapes")
+
+
+def p19_audits():
+    """Phase 19 (a): the executor audit on the production mesh."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    for arch in P19_AUDITS:
+        m = get_config(arch)
+        rec = dryrun.run_executor_audit(arch)
+        g = rec["collectives_by_group"]
+        per = SHAPES["decode_32k"].global_batch // 16 * m.d_model * 2
+        ar = g.get("model", {}).get("all_reduce", {})
+        if ar.get("calls") != m.n_layers or ar.get("bytes") != m.n_layers * per:
+            fail(f"[p19] {arch}: {ar} all-reduce over model, expected {m.n_layers} calls of "
+                 f"{per} B")
+        if "all_gather" in g.get("model", {}):
+            fail(f"[p19] {arch}: an all-gather over model in the decode step: {g['model']}")
+        data = g.get("data", {})
+        if set(data) != {"all_gather"} or data["all_gather"]["calls"] != 2:
+            fail(f"[p19] {arch}: over data the decode step should gather its tokens and "
+                 f"logits only, got {data}")
+        mem = rec["memory"]
+        log(f"[p19] (a) {arch} decode_32k on (data 16, model 16): {ar['calls']} all-reduces "
+            f"over model of {per} B ({ar['bytes']} B), no all-gather over model, data "
+            f"{data['all_gather']['calls']} output gathers ({data['all_gather']['bytes']} B); "
+            f"rank 0 args {mem['argument_bytes']} B, peak {mem['peak_bytes']} B, fits "
+            f"{rec['fits']} ({rec['device_bytes']} B)")
+
+
+def p19_prediction():
+    """Phase 19 (b): predicted peak bytes of phase 5's one-shot steps on a
+    (1, 1) mesh against the card's."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.cache.slot_cache import PlanArrays
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.planner import build_plan
+    from repro_torch.core.profiles import synthetic_profile
+    from repro_torch.distributed import step_stats
+    from repro_torch.exec.mesh import MeshExecutor
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import fake_process_group, make_host_mesh, make_production_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as S
+
+    cfg = main_config().replace(planner=planner("fairkv_dp", 4))
+    m, ccfg = cfg.model, cfg.compression
+    plan = build_plan(synthetic_profile(m.n_layers, m.n_kv_heads, budget=BUDGET, skew=1.0,
+                                        seed=SEED), N_SHARDS, cfg.planner)
+    with fake_process_group(1), step_stats.fake_tensors(), torch.inference_mode():
+        mesh = make_production_mesh(model=1, data=1)
+        ex = dryrun._executor(m, mesh, ccfg)
+        a = specs.executor_args(m, InputShape("p19", T, B, "prefill"), mesh, ex, plan, ccfg)
+        (state, _, _), pre = step_stats.measure(ex._prefill, (a["sp"], a["pa"], a["batch"]),
+                                                a["sp"], a["batch"], a["pa"], None, None)
+        _, dec = step_stats.measure(ex._decode, (a["sp"], state, a["pa"]), a["sp"], state,
+                                    a["pa"], None, None)
+        del a, state
+    predicted = {"prefill": pre.peak_bytes, "decode": dec.peak_bytes}
+
+    tokens = np.random.default_rng(SEED).integers(0, m.vocab_size, (B, T))
+    dist.init_process_group("gloo", init_method=f"file://{tempfile.mkdtemp()}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, 1, device="cuda")
+        ex = MeshExecutor(m, ccfg, mesh=mesh, graphs=False)
+        gc.collect()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        params = init_params(m, SEED, torch.bfloat16, device="cuda")
+        sp = S.slotify_params(params, plan, m, slots=ex.local_slots(plan.n_slots))
+        del params
+        pa = PlanArrays.from_plan(plan, device="cuda")
+        batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int64, device="cuda")}
+        real = {}
+        with torch.inference_mode():
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            state, logits, lengths = ex._prefill(sp, batch, pa, None, None)
+            torch.cuda.synchronize()
+            real["prefill"] = torch.cuda.max_memory_allocated() - base
+            if not torch.isfinite(logits).all():
+                fail("[p19] (b) the real prefill's logits are not finite")
+            del batch, logits, lengths
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _, logits = ex._decode(sp, state, pa, None, None)
+            torch.cuda.synchronize()
+            real["decode"] = torch.cuda.max_memory_allocated() - base
+            if not torch.isfinite(logits).all():
+                fail("[p19] (b) the real decode step's logits are not finite")
+        del sp, pa, state, logits
+    finally:
+        dist.destroy_process_group()
+    gc.collect()
+    torch.cuda.empty_cache()
+    for step in ("prefill", "decode"):
+        gap = abs(predicted[step] - real[step]) / real[step]
+        log(f"[p19] (b) {step}: predicted peak {predicted[step]} B on fake tensors, "
+            f"max_memory_allocated {real[step]} B on the card (above the memory allocated "
+            f"before the step's arguments): gap {100 * gap:.2f}% (bar "
+            f"{100 * P19_PREDICTION_TOL:.0f}%)")
+        if gap > P19_PREDICTION_TOL:
+            fail(f"[p19] (b) {step}: predicted peak {predicted[step]} B is {100 * gap:.1f}% "
+                 f"off the card's {real[step]} B")
+
+
+def p19_runs():
+    """Phase 19: the dry run's audit, its prediction against the card, and
+    the single-mesh sweep at decode_32k."""
+    from repro_torch.configs import ALL_ARCHS
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    p19_scratch_formulas()
+    p19_audits()
+    p19_prediction()
+    t1 = time.perf_counter()
+    res = dryrun.sweep(ALL_ARCHS, ["decode_32k"], [False], "fairkv_dp", None)
+    c = res["counts"]
+    for rec in res["records"]:
+        ex = rec.get("executed", {}).get("memory", {})
+        log(f"[p19] (c) {rec['arch']} decode_32k single: {rec['status']}, rules args "
+            f"{rec.get('memory', {}).get('argument_bytes')} B, executor peak "
+            f"{ex.get('peak_bytes')} B, fits {rec.get('fits')}")
+    log(f"[p19] (c) sweep of {len(ALL_ARCHS)} archs at decode_32k on (data 16, model 16): "
+        f"{c} in {time.perf_counter() - t1:.1f} s")
+    if c["fail"]:
+        fail(f"[p19] (c) {c['fail']} dry-run cells failed")
+    log(f"[p19] phase 19 took {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -4573,6 +4765,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     mark("phase 17")
     p18_runs(rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    mark("phase 18")
+    p19_runs()
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

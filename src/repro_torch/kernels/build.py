@@ -12,6 +12,14 @@ rebuilt and an unchanged one is reused.
 ``LAUNCHES`` counts kernel launches per wrapper: each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that a path went
 through the kernels (``reset_launches`` before, read after).
+
+Each entry point is a ``torch.library`` custom op (``repro_torch::<name>``)
+whose CUDA body is the launch; its fake implementation (for fake tensors,
+`repro_torch.distributed.step_stats`) allocates the output and the
+scratch the launch would use and hands them to `note_alloc`, which
+passes it to every listener in ``ALLOC_LISTENERS`` (the dry run's memory
+tracker): allocations inside a fake implementation are out of a dispatch
+mode's sight.
 """
 from __future__ import annotations
 
@@ -23,7 +31,7 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, List, Tuple
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -38,6 +46,8 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# called with each tensor allocated out of a dispatch mode's sight
+ALLOC_LISTENERS: List[Callable] = []
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -45,6 +55,14 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+def note_alloc(*tensors) -> None:
+    """Report tensors allocated out of a dispatch mode's sight (a fake
+    implementation's scratch) to every listener."""
+    for fn in ALLOC_LISTENERS:
+        for t in tensors:
+            fn(t)
 
 
 def _nvcc() -> str:

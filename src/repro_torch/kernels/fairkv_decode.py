@@ -6,6 +6,10 @@ Hopper kernel ``csrc/fairkv_decode.cu`` (the port of the TPU kernel
 `repro_torch.kernels.ref.fairkv_decode_ref`, which the CPU path runs and
 the card is checked against.  The source notes the kernel's design and
 what bounds it.
+
+The launch is the CUDA body of the custom op ``repro_torch::fairkv_decode``;
+its fake implementation gives the output and the split merge's scratch
+and counters, and its FLOP formula counts the plain version's products.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import ctypes
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
 
@@ -23,6 +28,15 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 GROUP_SIZES = (1, 2, 4, 5, 7, 8)
 # head dims the kernel is built for: any up to 128, and 256
 MAX_HEAD_DIM = 256
+
+
+NCLS = 8  # column classes of the split merge (csrc/fairkv_decode.cu)
+
+
+def scratch_floats(B: int, S: int, G: int, Dh: int) -> int:
+    """The merge scratch of one launch, in floats (the library's
+    ``fairkv_decode_scratch_floats``)."""
+    return S * B * NCLS * G * (Dh + 2)
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -85,6 +99,12 @@ def fairkv_decode_cuda(
     window: int = 0,
 ) -> torch.Tensor:
     """Launch the CUDA kernel; returns (B, S, G, Dh) in q's dtype."""
+    _validate(q, k, v, lengths, k_pos, q_pos, window)
+    return torch.ops.repro_torch.fairkv_decode(q, k, v, lengths, float(attn_cap), k_pos,
+                                               q_pos, int(window))
+
+
+def _validate(q, k, v, lengths, k_pos, q_pos, window) -> None:
     B, S, G, Dh = q.shape
     C = k.shape[2]
     _require(q.is_cuda, "q must be a CUDA tensor, got", q.device)
@@ -108,6 +128,14 @@ def fairkv_decode_cuda(
     for t in tensors:
         _require(t.device == q.device, "all inputs must be on one device")
         _require(t.is_contiguous(), "inputs must be contiguous")
+
+
+@torch.library.custom_op("repro_torch::fairkv_decode", mutates_args=(), device_types="cuda")
+def _fairkv_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor, attn_cap: float, k_pos: Optional[torch.Tensor],
+                      q_pos: Optional[torch.Tensor], window: int) -> torch.Tensor:
+    B, S, G, Dh = q.shape
+    C = k.shape[2]
     out = torch.empty_like(q)
     lib = _launcher()
     scratch = _buffer(_SCRATCH, q.device, lib.fairkv_decode_scratch_floats(B, S, G, Dh),
@@ -124,3 +152,20 @@ def fairkv_decode_cuda(
     build.check(lib, NAME, err)
     build.LAUNCHES[NAME] += 1
     return out
+
+
+@_fairkv_decode_op.register_fake
+def _(q, k, v, lengths, attn_cap, k_pos, q_pos, window):
+    B, S, G, Dh = q.shape
+    out = torch.empty_like(q)
+    build.note_alloc(out, q.new_empty((scratch_floats(B, S, G, Dh),), dtype=torch.float32),
+                     q.new_empty((S * B,), dtype=torch.int32))
+    return out
+
+
+@register_flop_formula(torch.ops.repro_torch.fairkv_decode)
+def _flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """q·k and p·v over every one of the C cache columns, as the plain
+    version's two products count."""
+    B, S, G, Dh = q_shape
+    return 4 * B * S * G * k_shape[2] * Dh

@@ -14,6 +14,11 @@ entry points, one per query shape:
 Their plain version is `repro_torch.kernels.ref.paged_fairkv_decode_ref`,
 which the CPU path runs and the card is checked against.  The header notes
 the kernel's design and what bounds it.
+
+Each launch is the CUDA body of a custom op (``repro_torch::paged_fairkv_decode``,
+``repro_torch::paged_fairkv_decode_mq``); their fake implementations give
+the output and the merge's scratch and counters, and their FLOP formulas
+count the plain version's products.
 """
 from __future__ import annotations
 
@@ -21,9 +26,10 @@ import ctypes
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fairkv_decode import _buffer
+from repro_torch.kernels.fairkv_decode import NCLS, _buffer
 
 NAME = "paged_fairkv_decode"
 NAME_MQ = "paged_fairkv_decode_mq"
@@ -36,6 +42,20 @@ GROUP_SIZES = (1, 2, 4, 5, 7, 8)
 MQ_GROUP_SIZES = (1, 2, 4, 8)
 MAX_HEAD_DIM = 256  # head dims the kernels are built for: any up to 128, and 256
 MAX_QUERY_ROWS = 40  # Q * G the multi-query kernel is built for
+
+QMAX = 5  # queries per warp: a chunk of the multi-query grid
+
+
+def n_chunks(Q: int) -> int:
+    return -(-Q // QMAX)
+
+
+def scratch_floats(B: int, S: int, Q: int, G: int, Dh: int) -> int:
+    """The merge scratch of one launch, in floats (``paged::scratch_floats``
+    of ``csrc/paged_decode.cuh``; Q = 1 for the single-query kernel)."""
+    n = n_chunks(Q)
+    return S * B * n * NCLS * (-(-Q // n)) * G * (Dh + 2)
+
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -150,8 +170,9 @@ def paged_fairkv_decode_cuda(
     _require(q.dim() == 4, f"q must be (B, S, G, Dh), got {tuple(q.shape)}")
     _check(NAME, q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
            q_pos, window, k_scale, v_scale, kinds)
-    return _launch(NAME, q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
-                   attn_cap, q_pos, window, k_scale, v_scale, kinds, None)
+    return torch.ops.repro_torch.paged_fairkv_decode(
+        q, k_pool, v_pool, pos_pool, block_table, lengths, int(capacity), float(attn_cap),
+        q_pos, int(window), k_scale, v_scale, kinds)
 
 
 def paged_fairkv_decode_mq_cuda(
@@ -183,8 +204,62 @@ def paged_fairkv_decode_mq_cuda(
         _require(q_lens.shape == (B,) and q_lens.dtype == torch.int32
                  and q_lens.device == q.device and q_lens.is_contiguous(),
                  "q_lens must be (B,) int32 on q's device", NAME_MQ)
+    return torch.ops.repro_torch.paged_fairkv_decode_mq(
+        q, k_pool, v_pool, pos_pool, block_table, lengths, int(capacity), float(attn_cap),
+        q_pos, int(window), k_scale, v_scale, kinds, q_lens)
+
+
+_T = torch.Tensor
+_OT = Optional[torch.Tensor]
+
+
+@torch.library.custom_op("repro_torch::paged_fairkv_decode", mutates_args=(),
+                         device_types="cuda")
+def _paged_op(q: _T, k_pool: _T, v_pool: _T, pos_pool: _T, block_table: _T, lengths: _T,
+              capacity: int, attn_cap: float, q_pos: _OT, window: int, k_scale: _OT,
+              v_scale: _OT, kinds: _OT) -> _T:
+    return _launch(NAME, q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
+                   attn_cap, q_pos, window, k_scale, v_scale, kinds, None)
+
+
+@torch.library.custom_op("repro_torch::paged_fairkv_decode_mq", mutates_args=(),
+                         device_types="cuda")
+def _paged_mq_op(q: _T, k_pool: _T, v_pool: _T, pos_pool: _T, block_table: _T, lengths: _T,
+                 capacity: int, attn_cap: float, q_pos: _OT, window: int, k_scale: _OT,
+                 v_scale: _OT, kinds: _OT, q_lens: _OT) -> _T:
     return _launch(NAME_MQ, q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
                    attn_cap, q_pos, window, k_scale, v_scale, kinds, q_lens)
+
+
+def _fake(q):
+    """The output of either kernel, after reporting its scratch and counters."""
+    B, S, Dh, G = q.shape[0], q.shape[1], q.shape[-1], q.shape[-2]
+    Q = q.shape[2] if q.dim() == 5 else 1
+    out = torch.empty_like(q)
+    build.note_alloc(out, q.new_empty((scratch_floats(B, S, Q, G, Dh),), dtype=torch.float32),
+                     q.new_empty((S * B * n_chunks(Q),), dtype=torch.int32))
+    return out
+
+
+@_paged_op.register_fake
+def _(q, *args):
+    return _fake(q)
+
+
+@_paged_mq_op.register_fake
+def _(q, *args):
+    return _fake(q)
+
+
+@register_flop_formula([torch.ops.repro_torch.paged_fairkv_decode,
+                        torch.ops.repro_torch.paged_fairkv_decode_mq])
+def _flops(q_shape, k_shape, v_shape, pos_shape, table_shape, lengths_shape, capacity,
+           *args, out_shape=None, **kwargs) -> int:
+    """q·k and p·v of every query over the ``capacity`` columns of the
+    gathered view, as the plain version's two products count."""
+    B, S, Dh, G = q_shape[0], q_shape[1], q_shape[-1], q_shape[-2]
+    Q = q_shape[2] if len(q_shape) == 5 else 1
+    return 4 * B * S * Q * G * capacity * Dh
 
 
 def _launch(name, q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,

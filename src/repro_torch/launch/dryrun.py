@@ -1,0 +1,266 @@
+"""Production dry run of the port: every (arch × shape × mesh) cell on fake
+tensors under a fake process group (port of ``repro.launch.dryrun``).
+
+For each cell this records, per rank:
+
+- ``memory.argument_bytes``: the cell's arguments laid out by the
+  reference's logical-axis rules (`repro_torch.launch.specs.build_cell`),
+  always;
+- ``executed``: where the port has a step for the cell, that step run once
+  on rank 0 of the mesh on fake tensors (`MeshExecutor`'s decode or
+  prefill: the dense family at decode_32k and prefill_32k), with its own
+  argument, output, temp and peak bytes, FLOPs, bytes read and written and
+  collectives (`repro_torch.distributed.step_stats`);
+- ``fits``: the executed step's peak (else the rules' arguments) within
+  ``device_bytes``, the card's memory when one is present, else
+  ``--device-bytes``.
+
+Cells the port has no step for are ``args_only``, with the ROADMAP item
+that would run them; cells an arch skips are ``skipped`` with its reason.
+``--executor-audit`` records the mesh executor's decode collectives on the
+production (data 16, model 16) mesh: one all-reduce over ``model`` per
+attention layer (the o-projection) and no all-gather over it.  The
+executor then gathers the step's tokens and logits over ``data``, where
+the reference leaves its outputs sharded.
+
+The fake group has 256 or 512 ranks in this one process; its collectives
+move nothing.  Nothing allocates device memory: fake ``cuda`` tensors need
+no card.  Records land in ``experiments/dryrun_torch/<tag>.json``.
+
+Usage:
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A] [--shape S]
+        [--mesh single|multi|both] [--planner fairkv_dp|sha|fairkv_nodp]
+        [--executor-audit] [--out DIR] [--device-bytes N]
+"""
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import time
+import traceback
+from typing import Optional
+
+import torch
+
+from repro_torch.configs import ALL_ARCHS, SHAPES, get_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import step_stats
+from repro_torch.launch import specs
+from repro_torch.launch.mesh import fake_process_group, make_production_mesh
+
+OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments",
+                       "dryrun_torch")
+# torch.cuda.get_device_properties(0).total_memory of an NVIDIA H100 80GB
+# HBM3 (power limit 700.00 W), the default when no card is present
+H100_BYTES = 85_017_493_504
+EXECUTED_SHAPES = ("decode_32k", "prefill_32k")
+# the later slice that would run each kind of args-only cell (ROADMAP.md)
+TODO = {
+    "tp": "A.13: a tensor-parallel serve step per serve_rules (ff / vocab over model, "
+          "weights_2d)",
+    "long": "A.14: long_500k's split-S decode (cache_len over data)",
+    "train": "A.15: the sharded train step per train_rules (FSDP x TP)",
+    "family": "A.16: the non-dense families on the mesh (MoE needs expert parallelism)",
+}
+
+
+def device_bytes(default: int = H100_BYTES) -> int:
+    """The card's memory when one is present, else ``default``."""
+    if torch.cuda.is_available():
+        return torch.cuda.get_device_properties(0).total_memory
+    return default
+
+
+def executes(cfg: ModelConfig, shape_name: str) -> bool:
+    """Whether the port has a step for the cell: `MeshExecutor` serves the
+    dense decoder family, at decode_32k and prefill_32k."""
+    return (cfg.family == "dense" and not cfg.moe.num_experts
+            and shape_name in EXECUTED_SHAPES)
+
+
+def _todo(cfg: ModelConfig, shape_name: str) -> str:
+    if shape_name == "train_4k":
+        return TODO["train"]
+    if cfg.family != "dense" or cfg.moe.num_experts:
+        return TODO["family"]
+    if shape_name == "long_500k":
+        return TODO["long"]
+    return TODO["tp"]
+
+
+def _executor(cfg, mesh, ccfg):
+    """The port's mesh executor on the fake mesh, eager (a graph capture
+    needs a real stream) and without its device synchronize."""
+    from repro_torch.exec.mesh import MeshExecutor
+
+    ex = MeshExecutor(cfg, ccfg, mesh=mesh, graphs=False)
+    ex.synchronize = lambda: None
+    return ex
+
+
+def run_step(cfg: ModelConfig, shape_name: str, mesh, planner_mode: str = "fairkv_dp",
+             extra_copies: int = 4):
+    """One `MeshExecutor` step of the cell on ``mesh`` (fake tensors
+    inside): returns (its `StepStats`, its output)."""
+    shape = SHAPES[shape_name]
+    ccfg = specs.cell_ccfg(cfg, shape)
+    plan = specs.cell_plan(cfg, mesh.model, planner_mode, extra_copies,
+                           batch_cap=shape.global_batch)
+    ex = _executor(cfg, mesh, ccfg)
+    a = specs.executor_args(cfg, shape, mesh, ex, plan, ccfg)
+    with torch.inference_mode():
+        if shape.kind == "prefill":
+            out, st = step_stats.measure(ex._prefill, (a["sp"], a["pa"], a["batch"]),
+                                         a["sp"], a["batch"], a["pa"], None, None)
+        else:
+            out, st = step_stats.measure(ex._decode, (a["sp"], a["state"], a["pa"]),
+                                         a["sp"], a["state"], a["pa"], None, None)
+    return st, out
+
+
+def run_cell(arch: str, shape_name: str, multi_pod: bool, planner_mode: str = "fairkv_dp",
+             dev_bytes: Optional[int] = None) -> dict:
+    """One cell's record (see the module docstring)."""
+    cfg = get_config(arch)
+    shape = SHAPES[shape_name]
+    rec = {"arch": arch, "shape": shape_name, "mesh": "multi" if multi_pod else "single",
+           "planner": planner_mode}
+    if shape_name in cfg.shape_skips:
+        return {**rec, "status": "skipped", "reason": cfg.shape_skips[shape_name]}
+    dev_bytes = dev_bytes or device_bytes()
+    t0 = time.time()
+    with fake_process_group(512 if multi_pod else 256), step_stats.fake_tensors():
+        mesh = make_production_mesh(multi_pod=multi_pod)
+        cell = specs.build_cell(cfg, shape, mesh, planner_mode=planner_mode)
+        t_build = time.time() - t0
+        arg = cell.arg_bytes_per_rank
+        rec.update(kind=cell.kind, weights_2d=bool(cell.meta.get("weights_2d", False)),
+                   quantize=bool(cell.meta.get("quantize", False)),
+                   memory={"argument_bytes": arg}, device_bytes=dev_bytes,
+                   build_s=round(t_build, 2))
+        del cell
+        if executes(cfg, shape_name):
+            t0 = time.time()
+            st, _ = run_step(cfg, shape_name, mesh, planner_mode)
+            rec["executed"] = {"step": f"MeshExecutor._{shape.kind}",
+                               "seconds": round(time.time() - t0, 2), **st.record()}
+            rec.update(status="ok", fits=st.peak_bytes <= dev_bytes)
+        else:
+            rec.update(status="args_only", fits=arg <= dev_bytes, todo=_todo(cfg, shape_name))
+    line = f"  rules args {arg / 1e9:8.2f} GB/rank"
+    ex = rec.get("executed")
+    if ex is not None:
+        m, c = ex["memory"], ex["collectives"]
+        line += (f" | executor args {m['argument_bytes'] / 1e9:.2f} GB temp "
+                 f"{m['temp_bytes'] / 1e9:.2f} GB peak {m['peak_per_device_gb']:.2f} GB "
+                 f"| flops/rank {ex['cost']['flops_per_device']:.3e} | " + ", ".join(
+                     f"{k}x{v['count']} ({v['bytes'] / 1e6:.1f} MB)"
+                     for k, v in sorted(c.items())))
+    print(line + f" | fits {rec['fits']} ({dev_bytes / 1e9:.1f} GB)")
+    return rec
+
+
+def run_executor_audit(arch: str, out_dir: Optional[str] = None,
+                       planner_mode: str = "fairkv_dp", cfg: Optional[ModelConfig] = None,
+                       model: int = 16, data: int = 16, dev_bytes: Optional[int] = None) -> dict:
+    """The mesh executor's decode step at decode_32k on a fake (data,
+    model) mesh (the production (16, 16) by default): its collectives by
+    group, and rank 0's argument and peak bytes.  ``cfg`` overrides the
+    arch's config (a smoke config for tests).  Writes
+    ``<arch>__executor_decode.json`` under ``out_dir`` when given."""
+    cfg = cfg or get_config(arch)
+    dev_bytes = dev_bytes or device_bytes()
+    t0 = time.time()
+    with fake_process_group(model * data), step_stats.fake_tensors():
+        mesh = make_production_mesh(model=model, data=data)
+        st, _ = run_step(cfg, "decode_32k", mesh, planner_mode)
+    g = st.by_group
+    rec = {"arch": arch, "kind": "executor_decode", "planner": planner_mode,
+           "mesh": {"data": data, "model": model}, "shape": "decode_32k", "status": "ok",
+           "seconds": round(time.time() - t0, 2), "n_layers": cfg.n_layers,
+           **st.record(), "device_bytes": dev_bytes, "fits": st.peak_bytes <= dev_bytes,
+           "contract": {
+               "model_all_reduce_per_layer": g.get("model", {}).get(
+                   "all_reduce", {}).get("calls", 0) == cfg.n_layers,
+               "no_all_gather_over_model": "all_gather" not in g.get("model", {})}}
+    parts = [f"{grp} {kind} x{v['calls']} ({v['bytes']} B)"
+             for grp in ("model", "data") for kind, v in sorted(g.get(grp, {}).items())]
+    print(f"  executor decode step collectives/rank: {', '.join(parts) or 'none'} | "
+          f"args {st.argument_bytes / 1e9:.2f} GB peak {st.peak_bytes / 1e9:.2f} GB/rank | "
+          f"fits {rec['fits']} ({dev_bytes / 1e9:.1f} GB)")
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, f"{arch}__executor_decode.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+    return rec
+
+
+def sweep(archs, shapes, meshes, planner: str, out_dir: Optional[str],
+          dev_bytes: Optional[int] = None) -> dict:
+    """Every cell; returns ``{"ok", "args_only", "skipped", "fail"}`` counts
+    and the records.  A cell that raises is recorded as ``fail``."""
+    counts = {"ok": 0, "args_only": 0, "skipped": 0, "fail": 0}
+    records = []
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+    for shape_name in shapes:
+        for arch in archs:
+            for multi in meshes:
+                tag = f"{arch}__{shape_name}__{'multi' if multi else 'single'}"
+                print(f"[{tag}] planner={planner}")
+                try:
+                    rec = run_cell(arch, shape_name, multi, planner, dev_bytes=dev_bytes)
+                except Exception as e:  # record failures, keep going
+                    traceback.print_exc()
+                    rec = {"arch": arch, "shape": shape_name,
+                           "mesh": "multi" if multi else "single", "status": "fail",
+                           "error": f"{type(e).__name__}: {e}"}
+                counts[rec["status"]] += 1
+                if rec["status"] == "skipped":
+                    print(f"  SKIP: {rec['reason'][:100]}")
+                records.append(rec)
+                if out_dir:
+                    with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+                        json.dump(rec, f, indent=1)
+                gc.collect()
+    return {"counts": counts, "records": records}
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default=None, help="default: all")
+    ap.add_argument("--shape", default=None, help="default: all applicable")
+    ap.add_argument("--mesh", default="both", choices=["single", "multi", "both"])
+    ap.add_argument("--planner", default="fairkv_dp",
+                    choices=["sha", "fairkv_nodp", "fairkv_dp"])
+    ap.add_argument("--executor-audit", action="store_true",
+                    help="audit the mesh executor's decode step collectives on the "
+                         "(data 16, model 16) mesh instead of the cell sweep "
+                         "(requires --arch; dense archs)")
+    ap.add_argument("--out", default=OUT_DIR)
+    ap.add_argument("--device-bytes", type=int, default=H100_BYTES,
+                    help="a rank's device memory when no card is present (default: an "
+                         "NVIDIA H100 80GB HBM3's, power limit 700.00 W)")
+    args = ap.parse_args(argv)
+    dev_bytes = device_bytes(args.device_bytes)
+    if args.executor_audit:
+        if not args.arch:
+            raise SystemExit("--executor-audit requires --arch")
+        run_executor_audit(args.arch, args.out, args.planner, dev_bytes=dev_bytes)
+        return
+    archs = [args.arch] if args.arch else ALL_ARCHS
+    shapes = [args.shape] if args.shape else ["decode_32k", "long_500k", "prefill_32k",
+                                              "train_4k"]
+    meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
+    res = sweep(archs, shapes, meshes, args.planner, args.out, dev_bytes)
+    c = res["counts"]
+    print(f"\ndone: {c['ok']} ok, {c['args_only']} args only, {c['skipped']} skipped "
+          f"(documented), {c['fail']} failed")
+    if c["fail"]:
+        raise SystemExit(1)
+
+
+if __name__ == "__main__":
+    main()

@@ -21,15 +21,23 @@ with more ranks than cards raises.
 `spawn` starts the ranks of a mesh on this host with ``torch.multiprocessing``
 and a ``file://`` rendezvous (no port to clash on), runs ``fn(mesh, *args)``
 in each and returns their results in rank order.
+
+The production meshes (`make_production_mesh`: (data 16, model 16), or
+(pod 2, data 16, model 16) with ``pod`` folded into ``data``) exist for
+the dry run (`repro_torch.launch.dryrun`): it builds them over
+`fake_process_group`, a ``"fake"`` backend of 256 or 512 ranks in one
+process whose collectives move nothing, and runs rank 0's steps on fake
+tensors.  Only these two accept the fake backend.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import pickle
 import tempfile
 import time
 from dataclasses import dataclass
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,6 +69,15 @@ class Mesh:
     data_group: Group
     device: torch.device
     backend: str
+    pods: int = 1  # the data axis folds (pod, data) when > 1
+
+    @property
+    def axes(self) -> Dict[str, int]:
+        """Mesh axis sizes by name, in mesh order: ``{"data", "model"}``, or
+        ``{"pod", "data", "model"}`` when the data axis folds pods."""
+        if self.pods > 1:
+            return {"pod": self.pods, "data": self.data // self.pods, "model": self.model}
+        return {"data": self.data, "model": self.model}
 
     @property
     def part(self) -> int:
@@ -110,6 +127,41 @@ def make_host_mesh(model: int = 1, data: int = 1, device=None) -> Mesh:
     exactly ``model * data`` ranks.  ``device``: the tensors' device under
     gloo (default the CPU; ``"cuda"`` / ``"cuda:N"`` to share a card);
     NCCL ranks take ``cuda:{LOCAL_RANK}`` and may not name another."""
+    return _make_mesh(model, data, device)
+
+
+@contextlib.contextmanager
+def fake_process_group(world: int):
+    """A default process group of ``world`` ranks on the ``"fake"`` backend,
+    this process being rank 0: collectives return at once and move nothing.
+    Refuses when a default group exists; destroys the group on exit."""
+    if dist.is_initialized():
+        raise RuntimeError(
+            "fake_process_group: a default process group already exists "
+            f"(backend {dist.get_backend()!r}); destroy it first")
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def make_production_mesh(multi_pod: bool = False, device="cuda", model: int = 16,
+                         data: int = 16) -> Mesh:
+    """The production mesh over the initialised default group: (data 16,
+    model 16) = 256 ranks, or with ``multi_pod`` (pod 2, data 16, model 16)
+    = 512 ranks, ``pod`` folded into a data axis of 32 (``model`` / ``data``
+    give a smaller mesh of the same layout).  On the fake backend
+    (`fake_process_group`) the tensors go on ``device`` without touching it."""
+    pods = 2 if multi_pod else 1
+    return _make_mesh(model, data * pods, device, pods=pods)
+
+
+def _make_mesh(model: int, data: int, device, pods: Optional[int] = None) -> Mesh:
+    """`make_host_mesh`; ``pods`` is given by `make_production_mesh` only,
+    the one caller that accepts the fake backend."""
     if model < 1 or data < 1:
         raise ValueError(f"mesh sizes must be >= 1, got model={model}, data={data}")
     if not dist.is_available() or not dist.is_initialized():
@@ -142,8 +194,13 @@ def make_host_mesh(model: int = 1, data: int = 1, device=None) -> Mesh:
             if dev.index is None:
                 dev = torch.device("cuda", torch.cuda.current_device())
             torch.cuda.set_device(dev)
+    elif backend == "fake" and pods is not None:
+        dev = torch.device(device or "cuda")
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", 0)
     else:
-        raise ValueError(f"unsupported process-group backend {backend!r} (nccl or gloo)")
+        raise ValueError(f"unsupported process-group backend {backend!r} (nccl or gloo; "
+                         f"'fake' only through make_production_mesh)")
     data_idx, model_idx = divmod(rank, model)
     model_group = data_group = None
     # every rank creates every group, in the same order
@@ -157,7 +214,7 @@ def make_host_mesh(model: int = 1, data: int = 1, device=None) -> Mesh:
             data_group = Group(pg, "data", data, data_idx, backend)
     return Mesh(rank=rank, world=world, model=model, data=data, model_idx=model_idx,
                 data_idx=data_idx, model_group=model_group, data_group=data_group,
-                device=dev, backend=backend)
+                device=dev, backend=backend, pods=pods or 1)
 
 
 def _rank_main(rank: int, fn, args, model: int, data: int, backend: str,

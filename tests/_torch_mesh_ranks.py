@@ -305,6 +305,17 @@ def compress_rank(mesh, grads, errs):
     return interop.to_numpy(summed), interop.to_numpy(err)
 
 
+def audit_rank(mesh):
+    """The dry run's decode step (`repro_torch.launch.dryrun.run_step`:
+    minitron-8b's smoke config at decode_32k, the mesh executor eager) on
+    this gloo mesh's real tensors: its collectives by group."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun
+
+    stats, _ = dryrun.run_step(get_smoke_config(ARCH), "decode_32k", mesh)
+    return stats.by_group
+
+
 def jobs_rank(mesh, jobs):
     """Several of this module's rank functions in one spawn (a spawn of
     eight ranks costs seconds): ``jobs`` is a list of (name, args)."""

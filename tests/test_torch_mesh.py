@@ -230,7 +230,8 @@ def family_weights(tmp_path_factory):
 def oneshot(weights, family_weights, tmp_path_factory):
     """The one-shot cases per mesh shape; the 2x4 spawn also runs the
     continuous trace (under ``"trace"``), the 1x2 spawn the other dense
-    archs (under ``"family"``)."""
+    archs (under ``"family"``), `compressed_all_reduce` (``"compress"``)
+    and the dry run's decode step on real tensors (``"audit"``)."""
     jparams, path = weights
     out = {}
     for shape, cases in SLOT_CASES.items():
@@ -242,6 +243,7 @@ def oneshot(weights, family_weights, tmp_path_factory):
         else:
             jobs += [("family_rank", (family_weights[a][0], a)) for a in FAMILY_ARCHS]
             jobs.append(("compress_rank", COMPRESS_CASE))
+            jobs.append(("audit_rank", ()))
         ranks = spawn(R.jobs_rank, model=model, data=data, args=(jobs,),
                       init_file=str(tmp_path_factory.mktemp(shape) / "rv"),
                       timeout=SPAWN_TIMEOUT)
@@ -250,7 +252,8 @@ def oneshot(weights, family_weights, tmp_path_factory):
             out["trace"] = [r[1] for r in ranks]
         else:
             out["family"] = {a: [r[1 + i] for r in ranks] for i, a in enumerate(FAMILY_ARCHS)}
-            out["compress"] = [r[-1] for r in ranks]
+            out["compress"] = [r[-2] for r in ranks]
+            out["audit"] = [r[-1] for r in ranks]
     return out
 
 
@@ -362,3 +365,20 @@ def test_compressed_all_reduce_1x2(oneshot):
             assert np.array_equal(x, y)
         for x, y in zip(jax.tree.leaves(err), jax.tree.leaves(jt[r][2])):
             assert np.array_equal(x, np.asarray(y))
+
+
+def test_dryrun_audit_counts_match_gloo_1x2(oneshot):
+    """The dry run's audit of the mesh executor's decode step (minitron-8b's
+    smoke config at decode_32k) on a fake (data 1, model 2) mesh counts
+    what the same step issues on two real gloo ranks: calls, elements and
+    bytes per kind and group."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch import dryrun
+
+    cfg = get_smoke_config(R.ARCH)
+    fake = dryrun.run_executor_audit(R.ARCH, cfg=cfg, model=2, data=1)
+    ranks = oneshot["audit"]
+    assert len(ranks) == 2
+    for got in ranks:
+        assert got == fake["collectives_by_group"]
+    assert got["model"]["all_reduce"]["calls"] == cfg.n_layers
