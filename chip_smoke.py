@@ -257,9 +257,28 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    allocated before the step's arguments), within 10%; (c) the
    single-mesh sweep of all ten archs at decode_32k (the fake 32k
    prefills take tens of seconds a cell): every cell ``ok``,
-   ``args_only`` or ``skipped``, none ``fail``; prints the counts and
+   ``args_only`` or ``skipped``, none ``fail`` (the dense archs' cells
+   execute the cell step: phase 20 (c) reads them); prints the counts and
    the phase's seconds;
-20. last line: {"ok": true, "device": {...}}.
+20. (after phase 19) the serve cells' step under ``serve_rules``
+   (`repro_torch.launch.specs.serve_step`: `prefill` / `decode_step` on a
+   rank's shards, ff and vocab split over model), launches stated apart
+   from the kernel table: (a) one NCCL rank (model 1, data 1) runs phase
+   5's fairkv_dp one-shot (``MAIN_LAYERS`` layers, B 8 x 2048, 32 tokens
+   fed phase 5's teacher tokens) through it, seed weights rebuilt: tokens
+   equal, lengths bitwise, logit gap under the plan bar against phase 5's
+   local executor run (prints whether bitwise), the decode contract (2·L +
+   1 all-reduces over model, one argmax pair gather, nothing over data);
+   (b) the same on two gloo ranks sharing the card (model 2, eager;
+   spawned from a thread, so (a) runs meanwhile): the plan bar, argmax
+   agreement printed, the contract, each rank's MLP and
+   vocab weights half the whole tree's, and each rank's
+   ``max_memory_allocated`` over the prefill and the first decode step
+   within 10% of the fake-tensor prediction of the same (model 2) steps;
+   (c) phase 19 (c)'s records of the four dense archs: each executed the
+   cell step and held the contract, qwen1.5-110b's peak fits the card;
+   prints args, peak and collectives and the phase's seconds;
+21. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -4664,13 +4683,331 @@ def p19_runs():
     for rec in res["records"]:
         ex = rec.get("executed", {}).get("memory", {})
         log(f"[p19] (c) {rec['arch']} decode_32k single: {rec['status']}, rules args "
-            f"{rec.get('memory', {}).get('argument_bytes')} B, executor peak "
+            f"{rec.get('memory', {}).get('argument_bytes')} B, cell step peak "
             f"{ex.get('peak_bytes')} B, fits {rec.get('fits')}")
     log(f"[p19] (c) sweep of {len(ALL_ARCHS)} archs at decode_32k on (data 16, model 16): "
         f"{c} in {time.perf_counter() - t1:.1f} s")
     if c["fail"]:
         fail(f"[p19] (c) {c['fail']} dry-run cells failed")
     log(f"[p19] phase 19 took {time.perf_counter() - t0:.1f} s")
+    return res["records"]
+
+
+# ---------------------------------------------------------------------------
+# phase 20: the serve cells' step under serve_rules
+# ---------------------------------------------------------------------------
+
+P20_MODEL = 2  # (b): two gloo ranks sharing the card
+
+
+def p20_build(mesh, ref, init_device=None):
+    """Phase 5's one-shot (its config, plan, prompts) as the serve cells'
+    step on ``mesh``'s rank under ``serve_rules``: this rank's shards of
+    the seed weights (built on ``init_device``, default the mesh's device,
+    then moved there), plan arrays and prompt rows, and the prefill and
+    decode steps (`repro_torch.launch.specs.serve_step`).  Also returns the
+    bytes of the rank's MLP and vocab weights and of the whole tree's."""
+    import dataclasses
+
+    import torch
+    from repro_torch.cache.slot_cache import PlanArrays
+    from repro_torch.core.planner import build_plan
+    from repro_torch.distributed.param_specs import local_shard, tree_specs
+    from repro_torch.distributed.sharding import serve_rules
+    from repro_torch.launch import specs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as S
+
+    cfg = ref["cfg"]
+    m, ccfg = cfg.model, cfg.compression
+    plan = build_plan(ref["profile"], cfg.n_shards, cfg.planner)
+    rules = serve_rules(mesh)
+    params = init_params(m, cfg.seed, torch.bfloat16, device=init_device or mesh.device)
+    sp = S.slotify_params(params, plan, m)
+    del params
+    sp_spec = tree_specs(sp, rules, "serve")
+
+    def mlp_vocab(tree):
+        leaves = [tree["embed"], tree.get("head")] + [pl[k] for pl in tree["layers"]
+                                                     for k in ("w1", "w2", "w3")]
+        return sum(t.numel() * t.element_size() for t in leaves if t is not None)
+
+    whole = mlp_vocab(sp)
+    sp = local_shard(sp, sp_spec, mesh)
+    pa = PlanArrays.from_plan(plan, device=sp["final_norm"].device)
+    pa = local_shard({f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)},
+                     specs.plan_specs(plan, rules), mesh)
+    batch = {"tokens": torch.as_tensor(ref["prompts"], dtype=torch.int64,
+                                       device=sp["final_norm"].device)}
+    batch = local_shard(batch, specs.batch_specs(batch, rules), mesh)
+    if init_device is not None:  # fake tensors built on the host: to the mesh's device
+        sp, pa, batch = (specs._to_device(x, mesh.device) for x in (sp, pa, batch))
+    steps = {k: specs.serve_step(k, m, ccfg, mesh, rules, sp_spec, plan.n_slots, B)
+             for k in ("prefill", "decode")}
+    return {"sp": sp, "pa": pa, "batch": batch, "steps": steps,
+            "mlp_vocab_bytes": (mlp_vocab(sp), whole)}
+
+
+def p20_oneshot(mesh, ref, memory=False):
+    """Phase 5's one-shot (prefill, then ``GEN`` steps fed phase 5's teacher
+    tokens) through the cell step on ``mesh``'s rank.  Returns its tokens,
+    logits (the rank's vocab columns), lengths, one decode step's
+    collectives, the launches and, with ``memory``, each step's
+    ``max_memory_allocated`` above the memory allocated before its
+    arguments (prefill, then the first decode step)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import build
+
+    base = torch.cuda.memory_allocated() if memory else 0
+    a = p20_build(mesh, ref)
+    sp, pa, steps = a["sp"], a["pa"], a["steps"]
+    teacher = torch.as_tensor(ref["teacher"], dtype=torch.int64, device=mesh.device)
+    rows = mesh.rows(B)
+    out = {"mlp_vocab_bytes": a["mlp_vocab_bytes"], "peak": {}}
+    build.reset_launches()
+    with torch.inference_mode():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, logits, lengths = steps["prefill"](sp, a["batch"], pa)
+        torch.cuda.synchronize()
+        out["prefill_s"] = time.perf_counter() - t0
+        out["peak"]["prefill"] = torch.cuda.max_memory_allocated() - base
+        tokens, logit_rows = [state.last_tokens.cpu().numpy()], [logits.cpu().numpy()]
+        out["lengths"] = lengths.cpu().numpy()
+        del a, logits, lengths
+        step_s = []
+        for t in range(GEN):
+            state = dataclasses.replace(state, last_tokens=teacher[rows, t])
+            if t == 0:
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            before = comm.snapshot()
+            t0 = time.perf_counter()
+            state, lg = steps["decode"](sp, state, pa)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if t == 0:
+                out["peak"]["decode"] = torch.cuda.max_memory_allocated() - base
+                out["collectives"] = comm.by_kind(comm.since(before))
+            tokens.append(state.last_tokens.cpu().numpy())
+            logit_rows.append(lg.cpu().numpy())
+    out.update(tokens=np.stack(tokens, axis=1), logits=np.stack(logit_rows, axis=1),
+               step_ms=1e3 * statistics.median(step_s), launches=dict(build.LAUNCHES))
+    return out
+
+
+def p20_contract(name, coll, m, model):
+    """The decode contract on one rank (``B`` rows, data 1): 2·L + 1
+    all-reduces of (B, d_model) over model, one all-gather of (B, 2 x
+    model) argmax pairs, nothing over data."""
+    from repro_torch.launch import dryrun
+    got = dryrun.decode_contract(coll, m, B, model)
+    if not all(got.values()):
+        fail(f"[p20] {name}: decode collectives {coll} break the contract {got}")
+
+
+def p20_compare(name, run, ref, m):
+    """Tokens equal, lengths bitwise and the logit gap under the plan bar
+    against phase 5's local fairkv_dp run; returns (bitwise, gap, bar)."""
+    import numpy as np
+    slot = ref["slot_dp"]
+    if run["logits"].shape != slot.logits.shape or not np.isfinite(run["logits"]).all():
+        fail(f"[p20] {name}: logits of shape {run['logits'].shape} (want "
+             f"{slot.logits.shape}) or not finite")
+    tol = m.n_layers * 2.0 ** -8 * float(np.abs(slot.logits).max())
+    gap = float(np.abs(run["logits"] - slot.logits).max())
+    if not gap < tol:
+        fail(f"[p20] {name}: logit gap {gap} >= the plan bar {tol}")
+    bitwise = (np.array_equal(run["logits"], slot.logits)
+               and np.array_equal(run["tokens"], slot.tokens))
+    return bitwise, gap, tol
+
+
+def p20_nccl(ref):
+    """Phase 20 (a): phase 5's one-shot through the cell step on one NCCL
+    rank (model 1, data 1) against the local executor's run."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    m = ref["cfg"].model
+    dist.init_process_group("nccl", init_method=f"file://{tempfile.mkdtemp()}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        run = p20_oneshot(make_host_mesh(model=1, data=1), ref)
+    finally:
+        dist.destroy_process_group()
+    bitwise, gap, tol = p20_compare("(a)", run, ref, m)
+    slot = ref["slot_dp"]
+    if not np.array_equal(run["tokens"], slot.tokens):
+        fail("[p20] (a): tokens differ from the local executor's")
+    if not np.array_equal(run["lengths"], slot.lengths):
+        fail("[p20] (a): prefill lengths differ from the local executor's")
+    p20_contract("(a)", run["collectives"], m, 1)
+    if run["launches"]["fairkv_decode"] != m.n_layers * GEN or \
+            run["launches"]["snapkv_scores"] != m.n_layers:
+        fail(f"[p20] (a): launches {run['launches']}")
+    log(f"[p20] (a) one NCCL rank, the cell step on phase 5's one-shot (fairkv_dp, "
+        f"{m.n_layers} layers, B {B} x {T}, {GEN} tokens): tokens equal, lengths bitwise, "
+        f"logit gap {gap:.6f} (bar {tol:.4f}); {'bitwise' if bitwise else 'not bitwise'} the "
+        f"local executor's; prefill {run['prefill_s']:.2f} s, eager decode step median "
+        f"{run['step_ms']:.2f} ms (local graphed "
+        f"{1e3 * statistics.median(slot.step_s):.2f}); per decode step "
+        f"{run['collectives']}; launches {run['launches']}")
+    return run["launches"]
+
+
+def p20_gloo_rank(mesh, ref):
+    """One rank of phase 20 (b)."""
+    import torch
+    if mesh.rank:
+        sys.stdout = open(os.devnull, "w")  # rank 0 logs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return p20_oneshot(mesh, ref, memory=True)
+
+
+def p20_prediction(ref):
+    """Phase 20 (b)'s predicted peaks: the same steps on fake tensors on a
+    fake (data 1, model ``P20_MODEL``) mesh, rank 0's (every rank's shapes
+    are the same): the prefill's, then the first decode step's."""
+    import torch
+    from repro_torch.distributed import step_stats
+    from repro_torch.launch.mesh import fake_process_group, make_production_mesh
+    with fake_process_group(P20_MODEL), step_stats.fake_tensors(), torch.inference_mode():
+        mesh = make_production_mesh(model=P20_MODEL, data=1)
+        a = p20_build(mesh, ref, init_device="cpu")
+        sp, pa, batch = a["sp"], a["pa"], a["batch"]
+        (state, _, _), pre = step_stats.measure(a["steps"]["prefill"], (sp, batch, pa),
+                                                sp, batch, pa)
+        _, dec = step_stats.measure(a["steps"]["decode"], (sp, state, pa), sp, state, pa)
+    return {"prefill": pre.peak_bytes, "decode": dec.peak_bytes}
+
+
+def p20_gloo_start(ref):
+    """Phase 20 (b)'s ranks: two gloo ranks sharing the card (model
+    ``P20_MODEL``, data 1, eager) run the same one-shot, spawned from a
+    thread so that (a) runs meanwhile; returns ``join()``, which gives
+    the ranks' results (or raises what the spawn raised)."""
+    import tempfile
+    import threading
+
+    from repro_torch.launch.mesh import spawn
+    box = {}
+    # the ranks rebuild the seed weights; phase 5's logits stay here
+    sent = {k: ref[k] for k in ("cfg", "profile", "prompts", "teacher")}
+
+    def run():
+        try:
+            box["ranks"] = spawn(p20_gloo_rank, model=P20_MODEL, data=1, backend="gloo",
+                                 device="cuda", args=(sent,),
+                                 init_file=f"{tempfile.mkdtemp()}/rendezvous", timeout=600)
+        except BaseException as e:  # handed to the caller by join()
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def join():
+        th.join()
+        if "error" in box:
+            raise box["error"]
+        return box["ranks"]
+
+    return join
+
+
+def p20_gloo(ref, ranks, predicted):
+    """Phase 20 (b)'s checks on the ranks' results: the plan bar, argmax
+    agreement, the contract, each rank's peaks within
+    `P19_PREDICTION_TOL` of the fake-tensor prediction, and the MLP's and
+    vocab's bytes halved."""
+    import numpy as np
+    m = ref["cfg"].model
+    n_v = m.padded_vocab // P20_MODEL
+    run = dict(ranks[0])
+    run["logits"] = np.concatenate([r["logits"] for r in ranks], axis=-1)
+    problems = []  # every rank's numbers are logged before the phase fails
+    for r, got in enumerate(ranks):
+        if got["logits"].shape[-1] != n_v or not np.array_equal(got["tokens"], ranks[0]["tokens"]):
+            problems.append(f"rank {r}: logits of {got['logits'].shape[-1]} columns (want "
+                            f"{n_v}) or tokens unlike rank 0's")
+        mine, whole = got["mlp_vocab_bytes"]
+        if 2 * mine != whole:
+            problems.append(f"rank {r}: MLP and vocab weights {mine} B, not half of {whole} B")
+        gaps = {step: abs(predicted[step] - got["peak"][step]) / got["peak"][step]
+                for step in ("prefill", "decode")}
+        problems += [f"rank {r} {step}: predicted peak {predicted[step]} B is "
+                     f"{100 * gap:.1f}% off max_memory_allocated {got['peak'][step]} B"
+                     for step, gap in gaps.items() if gap > P19_PREDICTION_TOL]
+        log(f"[p20] (b) rank {r}: MLP + vocab weights {mine} B (the whole tree's {whole} B); "
+            + "; ".join(f"{step} peak {got['peak'][step]} B, predicted {predicted[step]} B "
+                        f"({100 * gaps[step]:.2f}%)" for step in ("prefill", "decode"))
+            + f"; per decode step {got['collectives']}")
+    slot = ref["slot_dp"]
+    tol = m.n_layers * 2.0 ** -8 * float(np.abs(slot.logits).max())
+    gap = float(np.abs(run["logits"] - slot.logits).max())
+    agree = float((run["tokens"] == slot.tokens).mean())
+    same_len = bool(np.array_equal(run["lengths"], slot.lengths))
+    log(f"[p20] (b) two gloo ranks (model {P20_MODEL}): logit gap {gap:.4f} (bar {tol:.4f}); "
+        f"argmax equal to the local run at {100 * agree:.1f}% of positions; prefill lengths "
+        f"{'bitwise' if same_len else 'not bitwise'} the local's (the MLP's partial sums round "
+        f"apart in bf16; reported, not a bar); prefill {run['prefill_s']:.2f} s, decode step "
+        f"median {run['step_ms']:.2f} ms; rank 0 launches {run['launches']}")
+    if problems:
+        fail("[p20] (b) " + "; ".join(problems))
+    for r, got in enumerate(ranks):
+        p20_contract(f"(b) rank {r}", got["collectives"], m, P20_MODEL)
+    p20_compare("(b)", run, ref, m)
+    return run["launches"]
+
+
+P20_DENSE = ("minitron-8b", "gemma2-9b", "granite-3-2b", "qwen1.5-110b")
+
+
+def p20_sweep(records):
+    """Phase 20 (c): phase 19 (c)'s decode_32k records of the dense archs,
+    which executed the cell step: args, peak and collectives; fails unless
+    each ran to the end, held the contract, and qwen1.5-110b's fits."""
+    by_arch = {r["arch"]: r for r in records}
+    for arch in P20_DENSE:
+        rec = by_arch.get(arch, {})
+        ex = rec.get("executed")
+        if rec.get("status") != "ok" or ex is None:
+            fail(f"[p20] (c) {arch} decode_32k did not execute its step: {rec.get('status')}")
+        if not all(ex["contract"].values()):
+            fail(f"[p20] (c) {arch}: decode contract {ex['contract']}")
+        g = ex["collectives_by_group"]
+        log(f"[p20] (c) {arch} decode_32k on (data 16, model 16), {ex['step']}: args "
+            f"{ex['memory']['argument_bytes']} B, peak {ex['memory']['peak_bytes']} B, fits "
+            f"{rec['fits']} ({rec['device_bytes']} B); collectives {g}")
+    if not by_arch["qwen1.5-110b"]["fits"]:
+        fail("[p20] (c) qwen1.5-110b's decode_32k cell does not fit the card")
+
+
+def p20_runs(ref, records):
+    """Phase 20: the serve cells' step on the card, (a) while (b)'s ranks
+    run (the card holds both); prints the seconds and the launches (apart
+    from the kernel table)."""
+    t0 = time.perf_counter()
+    # the prediction's fake process group and (a)'s NCCL one are this
+    # process's default group in turn, so the prediction goes first
+    predicted = p20_prediction(ref)
+    join = p20_gloo_start(ref)
+    t1 = time.perf_counter()
+    a = p20_nccl(ref)
+    t2 = time.perf_counter()
+    b = p20_gloo(ref, join(), predicted)
+    p20_sweep(records)
+    log(f"[p20] phase 20 took {time.perf_counter() - t0:.1f} s (prediction {t1 - t0:.1f} s, "
+        f"(a) {t2 - t1:.1f} s beside (b)'s ranks); launches (a) {a}, (b) rank 0 {b}")
 
 
 def main() -> int:
@@ -4749,6 +5086,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mesh_runs(ctx)
+    # phase 20 reruns phase 5's one-shot; its weights come again from the seed
+    p20_ref = {k: ctx[k] for k in ("cfg", "profile", "prompts", "slot_dp", "teacher")}
     # phase 16 after phase 15: every engine of the phases before is gone
     ctx = None
     gc.collect()
@@ -4768,7 +5107,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 18")
-    p19_runs()
+    records = p19_runs()
+    mark("phase 19")
+    p20_runs(p20_ref, records)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -8,12 +8,24 @@ dim divides their product (hymba's 25 query heads cannot split 16 ways, so
 they stay whole), so every arch gets a spec on every mesh.  A
 `repro_torch.serving.quant.QTensor`'s codes take their parent weight's
 spec and its scale stays whole, as in the reference.
+
+`local_shard` slices a real tree to one rank's shards (the counterpart of
+placing arrays with a ``NamedSharding``).  There a `QTensor`'s scale takes
+the slice matching its codes along every dim split over ``model`` (the
+``kv_slot`` slots, ``w1`` / ``w3``'s ``ff`` columns, the int8 embedding's
+rows over ``vocab``), so that the shard dequantizes by itself; a dim
+split over ``data`` (``weights_2d``'s ``fsdp_w``) is all-gathered whole
+before every product, so its scale stays whole.  `localize_scales` does
+the same to shards whose scales are whole (the dry run's arguments, which
+keep the rules' layout).
 """
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
 
-from repro_torch.distributed.sharding import MeshAxes, ShardingRules
+import torch
+
+from repro_torch.distributed.sharding import MeshAxes, ShardingRules, mesh_group
 from repro_torch.serving.quant import QTensor
 
 Spec = Tuple[MeshAxes, ...]
@@ -21,12 +33,7 @@ Spec = Tuple[MeshAxes, ...]
 
 def guarded(rules: ShardingRules, dim: int, logical: Optional[str]) -> MeshAxes:
     """``logical``'s mesh axes if ``dim`` divides their extent, else None."""
-    if logical is None:
-        return None
-    phys = rules.rules.get(logical)
-    if phys is None or dim % rules.size(phys) != 0:
-        return None
-    return phys
+    return rules.guarded(dim, logical)
 
 
 def spec_for(rules: ShardingRules, shape: Tuple[int, ...],
@@ -135,3 +142,83 @@ def tree_specs(tree: Any, rules: ShardingRules, mode: str = "train", key: str = 
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_specs(v, rules, mode, key) for v in tree)
     return _one(key, tree.shape, rules, table)
+
+
+# ---------------------------------------------------------------------------
+# One rank's shards of a real tree
+# ---------------------------------------------------------------------------
+
+
+def _narrow(t: torch.Tensor, dim: int, phys: MeshAxes, mesh) -> torch.Tensor:
+    """The rank's slice of ``t`` along ``dim``, split over ``phys`` (a view)."""
+    g = mesh_group(mesh, phys)
+    n = t.shape[dim] // g.size
+    return t.narrow(dim, g.rank * n, n)
+
+
+def _scale_shard(scale: torch.Tensor, spec: Spec, q_whole: Tuple[int, ...], mesh):
+    """A `QTensor` scale narrowed to the rank's slice along the dims its
+    codes split over ``model`` where the scale spans the codes' whole
+    extent ``q_whole`` (a scale of 1 along a dim broadcasts)."""
+    for d, phys in enumerate(spec):
+        if phys == "model" and scale.shape[d] > 1 and scale.shape[d] == q_whole[d]:
+            scale = _narrow(scale, d, phys, mesh)
+    return scale
+
+
+def _walk(fn, tree, specs):
+    """``fn(leaf, spec)`` over a dict / list / tuple / NamedTuple tree and
+    its spec tree; `QTensor` leaves go to ``fn`` whole, None stays."""
+    if tree is None or isinstance(tree, (QTensor, torch.Tensor)):
+        return None if tree is None else fn(tree, specs)
+    if isinstance(tree, dict):
+        return {k: _walk(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_walk(fn, v, s) for v, s in zip(tree, specs)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_walk(fn, v, s) for v, s in zip(tree, specs))
+    raise TypeError(f"local_shard: unsupported node {type(tree).__name__}")
+
+
+def local_shard(tree: Any, specs: Any, mesh) -> Any:
+    """``mesh``'s rank's shards of a whole ``tree`` (tensors or `QTensor`
+    leaves under dict / list / tuple / NamedTuple nodes) under ``specs``
+    (`tree_specs`, or a spec tree of the same structure): each dim split
+    over ``model`` or ``data`` cut to the rank's index in that group
+    (``shard_shape`` of the leaf).  A cut leaf is a contiguous copy that
+    owns its elements only (a view would keep the whole tensor's storage
+    alive); a whole leaf is the tree's own tensor.  A `QTensor`'s scale is
+    cut along the dims its codes split over ``model`` (module
+    docstring)."""
+    def own(view, t):
+        return t.contiguous() if view is t else view.clone(
+            memory_format=torch.contiguous_format)
+
+    def cut(t, spec):
+        out = t
+        for d, phys in enumerate(spec):
+            if phys is not None:
+                out = _narrow(out, d, phys, mesh)
+        return own(out, t)
+
+    def one(leaf, spec):
+        if isinstance(leaf, QTensor):
+            scale = _scale_shard(leaf.scale, spec.q, tuple(leaf.q.shape), mesh)
+            return QTensor(q=cut(leaf.q, spec.q), scale=own(scale, leaf.scale))
+        return cut(leaf, spec)
+
+    return _walk(one, tree, specs)
+
+
+def localize_scales(tree: Any, specs: Any, mesh) -> Any:
+    """A tree of the rank's shards (``specs`` its spec tree) whose `QTensor`
+    scales are whole, as the rules lay them out, with each scale narrowed
+    as `local_shard` cuts it (views: no bytes); scales already cut pass."""
+    def one(leaf, spec):
+        if not isinstance(leaf, QTensor):
+            return leaf
+        whole = tuple(n * (mesh_group(mesh, p).size if p == "model" else 1)
+                      for n, p in zip(leaf.q.shape, spec.q))
+        return QTensor(q=leaf.q, scale=_scale_shard(leaf.scale, spec.q, whole, mesh))
+
+    return _walk(one, tree, specs)

@@ -6,22 +6,28 @@ For each cell this records, per rank:
 - ``memory.argument_bytes``: the cell's arguments laid out by the
   reference's logical-axis rules (`repro_torch.launch.specs.build_cell`),
   always;
-- ``executed``: where the port has a step for the cell, that step run once
-  on rank 0 of the mesh on fake tensors (`MeshExecutor`'s decode or
-  prefill: the dense family at decode_32k and prefill_32k), with its own
-  argument, output, temp and peak bytes, FLOPs, bytes read and written and
-  collectives (`repro_torch.distributed.step_stats`);
+- ``executed``: where the port has a step for the cell, the cell's own
+  step (``build_cell(...).fn``, the reference's: `decode_step` or
+  `prefill` on the rank's shards under ``serve_rules``, for the dense
+  family at decode_32k and prefill_32k) run once on rank 0 of the mesh on
+  fake tensors, on the cell's arguments, with its argument, output, temp
+  and peak bytes, FLOPs, bytes read and written and collectives
+  (`repro_torch.distributed.step_stats`); for a decode cell also its
+  ``contract``: 2·L + 1 all-reduces of (B / data, d_model) over ``model``
+  (the embedding, each layer's o-projection and MLP), one all-gather of
+  the argmax's (B / data, 2) pairs over it, nothing over ``data``;
 - ``fits``: the executed step's peak (else the rules' arguments) within
   ``device_bytes``, the card's memory when one is present, else
   ``--device-bytes``.
 
 Cells the port has no step for are ``args_only``, with the ROADMAP item
-that would run them; cells an arch skips are ``skipped`` with its reason.
-``--executor-audit`` records the mesh executor's decode collectives on the
-production (data 16, model 16) mesh: one all-reduce over ``model`` per
-attention layer (the o-projection) and no all-gather over it.  The
-executor then gathers the step's tokens and logits over ``data``, where
-the reference leaves its outputs sharded.
+that would run them (`repro_torch.launch.specs.cell_todo`); cells an arch
+skips are ``skipped`` with its reason.  ``--executor-audit`` records the
+mesh executor's decode collectives on the production (data 16, model 16)
+mesh instead: one all-reduce over ``model`` per attention layer (the
+o-projection) and no all-gather over it; that executor keeps the MLP and
+the vocab whole on every rank (as the reference's does) and gathers the
+step's tokens and logits over ``data``.
 
 The fake group has 256 or 512 ranks in this one process; its collectives
 move nothing.  Nothing allocates device memory: fake ``cuda`` tensors need
@@ -55,15 +61,6 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments
 # torch.cuda.get_device_properties(0).total_memory of an NVIDIA H100 80GB
 # HBM3 (power limit 700.00 W), the default when no card is present
 H100_BYTES = 85_017_493_504
-EXECUTED_SHAPES = ("decode_32k", "prefill_32k")
-# the later slice that would run each kind of args-only cell (ROADMAP.md)
-TODO = {
-    "tp": "A.13: a tensor-parallel serve step per serve_rules (ff / vocab over model, "
-          "weights_2d)",
-    "long": "A.14: long_500k's split-S decode (cache_len over data)",
-    "train": "A.15: the sharded train step per train_rules (FSDP x TP)",
-    "family": "A.16: the non-dense families on the mesh (MoE needs expert parallelism)",
-}
 
 
 def device_bytes(default: int = H100_BYTES) -> int:
@@ -74,20 +71,23 @@ def device_bytes(default: int = H100_BYTES) -> int:
 
 
 def executes(cfg: ModelConfig, shape_name: str) -> bool:
-    """Whether the port has a step for the cell: `MeshExecutor` serves the
-    dense decoder family, at decode_32k and prefill_32k."""
-    return (cfg.family == "dense" and not cfg.moe.num_experts
-            and shape_name in EXECUTED_SHAPES)
+    """Whether the port has a step for the cell: the cell step serves the
+    dense family at decode_32k and prefill_32k."""
+    return specs.cell_todo(cfg, SHAPES[shape_name]) is None
 
 
-def _todo(cfg: ModelConfig, shape_name: str) -> str:
-    if shape_name == "train_4k":
-        return TODO["train"]
-    if cfg.family != "dense" or cfg.moe.num_experts:
-        return TODO["family"]
-    if shape_name == "long_500k":
-        return TODO["long"]
-    return TODO["tp"]
+def decode_contract(by_group: dict, cfg: ModelConfig, rows: int, model: int) -> dict:
+    """The dense decode cell step's collectives on a rank (``rows`` = B /
+    data, ``model`` ranks; the module docstring's contract), checked on a
+    `StepStats.by_group` record."""
+    over_model = by_group.get("model", {})
+    ar, ag = over_model.get("all_reduce", {}), over_model.get("all_gather", {})
+    return {"model_all_reduce_2L_plus_1":
+            ar.get("calls") == 2 * cfg.n_layers + 1
+            and ar.get("elements") == ar["calls"] * rows * cfg.d_model,
+            "model_one_argmax_gather":
+            ag.get("calls") == 1 and ag.get("elements") == rows * 2 * model,
+            "nothing_over_data": not by_group.get("data")}
 
 
 def _executor(cfg, mesh, ccfg):
@@ -140,24 +140,33 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, planner_mode: str = "f
                    quantize=bool(cell.meta.get("quantize", False)),
                    memory={"argument_bytes": arg}, device_bytes=dev_bytes,
                    build_s=round(t_build, 2))
-        del cell
         if executes(cfg, shape_name):
             t0 = time.time()
-            st, _ = run_step(cfg, shape_name, mesh, planner_mode)
-            rec["executed"] = {"step": f"MeshExecutor._{shape.kind}",
+            with torch.inference_mode():
+                _, st = step_stats.measure(cell.fn, cell.args, *cell.args)
+            step = "prefill" if cell.kind == "prefill" else "decode_step"
+            rec["executed"] = {"step": f"repro_torch.serving.engine.{step} (build_cell(...).fn)",
                                "seconds": round(time.time() - t0, 2), **st.record()}
+            if cell.kind == "decode":
+                rec["executed"]["contract"] = decode_contract(
+                    st.by_group, cfg, shape.global_batch // mesh.data, mesh.model)
             rec.update(status="ok", fits=st.peak_bytes <= dev_bytes)
         else:
-            rec.update(status="args_only", fits=arg <= dev_bytes, todo=_todo(cfg, shape_name))
+            rec.update(status="args_only", fits=arg <= dev_bytes,
+                       todo=specs.cell_todo(cfg, shape))
+        del cell
     line = f"  rules args {arg / 1e9:8.2f} GB/rank"
     ex = rec.get("executed")
     if ex is not None:
         m, c = ex["memory"], ex["collectives"]
-        line += (f" | executor args {m['argument_bytes'] / 1e9:.2f} GB temp "
+        line += (f" | step args {m['argument_bytes'] / 1e9:.2f} GB temp "
                  f"{m['temp_bytes'] / 1e9:.2f} GB peak {m['peak_per_device_gb']:.2f} GB "
                  f"| flops/rank {ex['cost']['flops_per_device']:.3e} | " + ", ".join(
                      f"{k}x{v['count']} ({v['bytes'] / 1e6:.1f} MB)"
                      for k, v in sorted(c.items())))
+        if "contract" in ex:
+            ok = all(ex["contract"].values())
+            line += f" | decode contract {'held' if ok else ex['contract']}"
     print(line + f" | fits {rec['fits']} ({dev_bytes / 1e9:.1f} GB)")
     return rec
 

@@ -1,5 +1,5 @@
 """Cell builders of the dry run (port of ``repro.launch.specs``): an
-(arch × shape × mesh) cell → rank 0's fake arguments.
+(arch × shape × mesh) cell → rank 0's fake arguments and the cell's step.
 
 Every cell has the reference's arguments, laid out by its logical-axis
 rules (`repro_torch.distributed.sharding`):
@@ -16,6 +16,13 @@ leaf's shard shape.  ``arg_bytes_per_rank`` sums them: the reference's
 Σ ``sharding.shard_shape(leaf.shape)`` x itemsize.  Dtypes follow the
 reference's arguments (int32 tokens, positions and plan arrays).
 
+The cell's step, ``CellArtifacts.fn`` (the reference's), is `serve_step`
+for the dense family's decode_32k and prefill_32k cells: the port's own
+`decode_step` / `prefill` on the rank's shards, explicit SPMD in place of
+the reference's GSPMD partition (`repro_torch.serving.engine`'s module
+docstring has its collectives).  The other cells' ``fn`` refuses them
+with the ROADMAP item that would run them (`cell_todo`).
+
 `executor_args` builds what the port's `MeshExecutor` itself holds on a
 rank of a mesh (its slot weights, the rest replicated, its cache corner),
 for the steps the dry run runs.  Nothing here allocates device memory: call
@@ -24,7 +31,7 @@ inside `repro_torch.distributed.step_stats.fake_tensors`.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -34,9 +41,10 @@ from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core.placement import HeadPlacement
 from repro_torch.core.planner import PlannerConfig, build_plan
 from repro_torch.core.profiles import synthetic_profile
-from repro_torch.distributed.param_specs import guarded, shard_shape, tree_specs
+from repro_torch.distributed.param_specs import (guarded, localize_scales, shard_shape,
+                                                tree_specs)
 from repro_torch.distributed.sharding import (ShardingRules, mesh_axes, serve_rules,
-                                              train_rules)
+                                              step_shards, train_rules)
 from repro_torch.models.transformer import init_params
 from repro_torch.serving import engine as _serve
 from repro_torch.serving.quant import QTensor, quantize_serve_params
@@ -168,15 +176,21 @@ def serve_state_fake(cfg: ModelConfig, shape: InputShape, plan: Optional[HeadPla
     return state, specs
 
 
+def plan_specs(plan: HeadPlacement, rules: ShardingRules) -> dict:
+    """The plan arrays' specs as the reference places them: the (L, S)
+    arrays over the slot dim, ``first_slot`` (L, Hkv) whole."""
+    slot = (None, guarded(rules, plan.n_slots, "kv_slot"))
+    return {"slot_head": slot, "replica_idx": slot, "replica_count": slot,
+            "first_slot": (None, None)}
+
+
 def plan_arrays_fake(plan: HeadPlacement, rules: ShardingRules):
-    """(arrays, specs) of the plan as the reference passes it: (L, S) int32
-    over the slot dim, ``first_slot`` (L, Hkv) whole."""
+    """(arrays, specs) of the plan as the reference passes it: (L, S)
+    int32 arrays and ``first_slot`` (`plan_specs`)."""
     L, S = len(plan.layers), plan.n_slots
-    slot = (None, guarded(rules, S, "kv_slot"))
     arrs = {k: _leaf((L, S), I32) for k in ("slot_head", "replica_idx", "replica_count")}
     arrs["first_slot"] = _leaf((L, plan.n_heads), I32)
-    return arrs, {"slot_head": slot, "replica_idx": slot, "replica_count": slot,
-                  "first_slot": (None, None)}
+    return arrs, plan_specs(plan, rules)
 
 
 def _map(fn, tree, *rest, is_leaf=None):
@@ -223,6 +237,72 @@ def tree_bytes(tree) -> int:
 # ---------------------------------------------------------------------------
 
 
+# the later slice that would run each kind of cell the port has no step for
+TODO = {
+    "long": "A.14: long_500k's split-S decode (cache_len over data)",
+    "train": "A.15: the sharded train step per train_rules (FSDP x TP)",
+    "family": "A.16: the non-dense families on the mesh (MoE needs expert parallelism)",
+}
+
+
+def cell_todo(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
+    """The ROADMAP item a cell waits for, or None when `serve_step` runs it
+    (the dense family at decode_32k and prefill_32k)."""
+    if shape.kind == "train":
+        return TODO["train"]
+    if cfg.family != "dense" or cfg.moe.num_experts or cfg.attention_free:
+        return TODO["family"]
+    if shape.name == "long_500k":
+        return TODO["long"]
+    return None
+
+
+def _as_plan(pa) -> PlanArrays:
+    return pa if isinstance(pa, PlanArrays) else PlanArrays(**pa)
+
+
+def _as_state(st) -> _serve.ServeState:
+    """A dense cell's state: a `ServeState`, or the cell's tree of it."""
+    if isinstance(st, _serve.ServeState):
+        return st
+    return _serve.ServeState(cache=SlotCache(**st["cache"]), last_tokens=st["last_tokens"],
+                             decode_steps=st["decode_steps"])
+
+
+def serve_step(kind: str, cfg: ModelConfig, ccfg: CompressionConfig, mesh,
+               rules: ShardingRules, sp_spec, n_slots: int, batch: int) -> Callable:
+    """A serve cell's step on ``mesh``'s rank (a `repro_torch.launch.mesh.Mesh`)
+    under ``rules``: ``fn(serve_params, batch | state, plan_arrays)`` on the
+    rank's shards (``sp_spec`` the serve tree's specs; its `QTensor` scales
+    may be whole, as the rules lay them out), returning the reference's
+    outputs: (state, logits shard) for ``"decode"``, (state, logits shard,
+    lengths) for ``"prefill"``.  ``n_slots`` and ``batch`` are the global
+    slot and row counts.  The state and plan arrays may be the cell's
+    trees or `ServeState` / `PlanArrays`."""
+    if cfg.family != "dense" or cfg.moe.num_experts or cfg.attention_free:
+        raise NotImplementedError(f"{cfg.name}: {TODO['family']}")
+    shards = step_shards(rules, mesh, vocab=cfg.padded_vocab, ff=cfg.d_ff,
+                         d_model=cfg.d_model, n_slots=n_slots, batch=batch)
+    if kind == "prefill":
+        def fn(serve_params, batch, plan_arrays):
+            return _serve.prefill(localize_scales(serve_params, sp_spec, mesh), batch, cfg,
+                                  _as_plan(plan_arrays), ccfg, shards=shards)
+    elif kind == "decode":
+        def fn(serve_params, state, plan_arrays):
+            return _serve.decode_step(localize_scales(serve_params, sp_spec, mesh),
+                                      _as_state(state), cfg, _as_plan(plan_arrays), ccfg,
+                                      shards=shards)
+    else:
+        raise ValueError(f"serve_step: kind {kind!r} is not prefill or decode")
+    return fn
+
+
+def _refused(why: str) -> Callable:
+    def fn(*args):
+        raise NotImplementedError(why)
+    return fn
+
+
 @dataclass
 class CellArtifacts:
     kind: str  # train | prefill | decode
@@ -231,6 +311,9 @@ class CellArtifacts:
     rules: ShardingRules
     arg_bytes_per_rank: int
     meta: Dict[str, Any] = field(default_factory=dict)
+    # the cell's step on ``args`` (`serve_step`), or a callable that raises
+    # with the ROADMAP item that would run the cell
+    fn: Optional[Callable] = None
 
 
 def build_cell(cfg: ModelConfig, shape: InputShape, mesh, planner_mode: str = "fairkv_dp",
@@ -238,7 +321,7 @@ def build_cell(cfg: ModelConfig, shape: InputShape, mesh, planner_mode: str = "f
                quantize: Optional[bool] = None) -> CellArtifacts:
     """The cell's arguments under the rules, rank 0's shards on the mesh's
     device (``mesh``: a `repro_torch.launch.mesh.Mesh`, or ``{axis: size}``
-    for shards on the CPU)."""
+    for shards on the CPU), and its step ``fn`` (on a `Mesh` only)."""
     axes = mesh_axes(mesh)
     device = "cpu" if isinstance(mesh, dict) else mesh.device
     n_model = axes["model"]
@@ -271,8 +354,17 @@ def build_cell(cfg: ModelConfig, shape: InputShape, mesh, planner_mode: str = "f
             trees, specs = (sp, state, pa), (sp_spec, st_spec, pa_spec)
         meta = {"ccfg": ccfg, "plan": plan, "weights_2d": weights_2d, "quantize": quantize}
     args = tuple(_shard(t, s, axes, device) for t, s in zip(trees, specs))
+    todo = cell_todo(cfg, shape)
+    if todo is not None:
+        fn = _refused(f"{cfg.name} {shape.name}: {todo}")
+    elif isinstance(mesh, dict):
+        fn = _refused("a cell built for axis sizes has no ranks: build it on a "
+                      "repro_torch.launch.mesh.Mesh to run its step")
+    else:
+        fn = serve_step(shape.kind, cfg, ccfg, mesh, rules, specs[0], plan.n_slots,
+                        shape.global_batch)
     return CellArtifacts(kind=shape.kind, args=args, specs=specs, rules=rules,
-                         arg_bytes_per_rank=tree_bytes(args), meta=meta)
+                         arg_bytes_per_rank=tree_bytes(args), meta=meta, fn=fn)
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,16 @@ chunked online-softmax forward and, for training, the reference's
 recomputing backward (O(Q·chunk) memory, no stored score matrix).
 Weights read by a product may be int8 `repro_torch.serving.quant.QTensor`
 leaves, dequantized at the use.
+
+`embed`, `unembed` and `swiglu` also run on one rank's shards of a serve
+step under the rules (``shards``, a
+`repro_torch.distributed.sharding.StepShards`; None, the default, is the
+whole-weight function): the embedding over the rank's vocab rows (ids
+outside them give zero rows, then one all-reduce over the vocab's group),
+the unembedding into the rank's vocab columns, the SwiGLU over its ``ff``
+columns of ``w1`` / ``w3`` and rows of ``w2`` (one all-reduce over the ff
+group); under ``weights_2d`` each weight is gathered whole along d_model
+just before its product.
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import comm
 from repro_torch.serving.quant import QTensor, operands
 
 NEG_INF = -1e30
@@ -135,11 +146,16 @@ def _flash_fwd(q, k, v, q_pos, k_pos, window, attn_cap, causal, chunk):
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k_i.float()) / math.sqrt(Dh)
         s = softcap(s, attn_cap)
         msk = _chunk_mask(q_pos, pos_i, window, causal, B, Q, chunk)
-        s = torch.where(msk, s, NEG_INF)
+        # in place on the (B, Hkv, G, Q, chunk) fp32 score buffer when no
+        # autograd graph is built (the values are the same): at a 32k
+        # prefill it is 17 GB a layer for 64 query heads on two rows
+        grad = torch.is_grad_enabled() and s.requires_grad
+        s = torch.where(msk, s, NEG_INF) if grad else s.masked_fill_(~msk, NEG_INF)
         m_new = torch.maximum(m_run, s.amax(dim=-1))
         # explicit mask: a fully-masked chunk keeps m_new at NEG_INF, where
         # exp(NEG_INF - NEG_INF) would be 1 — the mask zeroes it instead
-        p = torch.where(msk, torch.exp(s - m_new[..., None]), 0.0)
+        p = (torch.where(msk, torch.exp(s - m_new[..., None]), 0.0) if grad
+             else s.sub_(m_new[..., None]).exp_().masked_fill_(~msk, 0.0))
         corr = torch.exp(m_run - m_new)
         l_run = l_run * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, v_i.float())
@@ -265,7 +281,9 @@ def attention(q, k, v, q_pos, k_pos, *, window=0, attn_cap=0.0, kv_mask=None,
 # ---------------------------------------------------------------------------
 
 
-def swiglu(x: torch.Tensor, w1, w3, w2) -> torch.Tensor:
+def swiglu(x: torch.Tensor, w1, w3, w2, shards=None) -> torch.Tensor:
+    if shards is not None:
+        return _swiglu_shard(x, w1, w3, w2, shards)
     x1, w1 = operands(x, w1)
     x3, w3 = operands(x, w3)
     h = F.silu(x1 @ w1) * (x3 @ w3)
@@ -273,9 +291,33 @@ def swiglu(x: torch.Tensor, w1, w3, w2) -> torch.Tensor:
     return h @ w2
 
 
-def embed(tokens: torch.Tensor, table) -> torch.Tensor:
+def _swiglu_shard(x, w1, w3, w2, shards) -> torch.Tensor:
+    """`swiglu` over the rank's ``ff`` shard: its partial sum over the
+    hidden dim, summed over the ff group."""
+    x1, w = operands(x, shards.weight(w1, 0))
+    a = x1 @ w
+    x3, w = operands(x, shards.weight(w3, 0))
+    h = F.silu(a) * (x3 @ w)
+    h, w = operands(h, shards.weight(w2, 1))
+    out = h @ w
+    if shards.ff.group is not None:
+        out = comm.all_reduce_sum(out, shards.ff.group)
+    return out
+
+
+def embed(tokens: torch.Tensor, table, shards=None) -> torch.Tensor:
     """Rows of the table; an int8 table's rows times their per-row scale
-    (the id clamped into the scale's rows), rounded to bf16."""
+    (the id clamped into the scale's rows), rounded to bf16.  On a rank's
+    vocab shard (``shards``) an id outside its rows gives a zero row and
+    the rows are summed over the vocab's group."""
+    if shards is not None:
+        table = shards.weight(table, 1)
+        n, v = table.shape[0], shards.vocab
+        local = tokens - v.offset(n)
+        hit = (local >= 0) & (local < n)
+        rows = embed(torch.where(hit, local, 0), table)
+        rows = torch.where(hit[..., None], rows, 0)
+        return rows if v.group is None else comm.all_reduce_sum(rows, v.group)
     if isinstance(table, QTensor):
         rows = table.q[tokens].float()
         sc = table.scale
@@ -285,7 +327,11 @@ def embed(tokens: torch.Tensor, table) -> torch.Tensor:
     return table[tokens]
 
 
-def unembed(x: torch.Tensor, table, cap: float = 0.0) -> torch.Tensor:
+def unembed(x: torch.Tensor, table, cap: float = 0.0, shards=None) -> torch.Tensor:
+    """Logits (softcapped by ``cap``) of ``x`` against the table's rows: on
+    a rank's vocab shard (``shards``) its columns of the logits."""
+    if shards is not None:
+        table = shards.weight(table, 1)
     x, table = operands(x, table)
     logits = torch.einsum("bsd,vd->bsv", x, table).float()
     return softcap(logits, cap)

@@ -161,32 +161,37 @@ def layer_window(cfg: ModelConfig, layer_idx: int) -> int:
     return cfg.sliding_window if cfg.layer_is_local(layer_idx) else GLOBAL_WINDOW
 
 
-def mlp_block(pl: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def mlp_block(pl: dict, h: torch.Tensor, cfg: ModelConfig, shards=None) -> torch.Tensor:
     """The FFN: SwiGLU, or the MoE block for MoE configs (serving drops
-    its aux loss)."""
+    its aux loss).  ``shards``: a rank's `L.swiglu` shard (dense only)."""
     if cfg.moe.num_experts > 0:
+        if shards is not None:
+            raise NotImplementedError("the MoE block on a mesh rank's shards needs expert "
+                                      "parallelism (ROADMAP A.16)")
         return moe_block(pl, h, cfg)[0]
-    return L.swiglu(h, pl["w1"], pl["w3"], pl["w2"])
+    return L.swiglu(h, pl["w1"], pl["w3"], pl["w2"], shards)
 
 
-def embed_tokens(tokens: torch.Tensor, params: dict, cfg: ModelConfig) -> torch.Tensor:
+def embed_tokens(tokens: torch.Tensor, params: dict, cfg: ModelConfig,
+                 shards=None) -> torch.Tensor:
     """Token embedding, scaled by sqrt(d_model) for gemma2 (the reference's
     rule, on the config name).  The scalar is cast to the activation dtype
     before the multiply, as the reference does: in bf16 the factor itself
     rounds (on the host: a captured step makes no host-to-device copy).
-    Every path that embeds tokens goes through here."""
-    h = L.embed(tokens, params["embed"])
+    Every path that embeds tokens goes through here; ``shards``: over a
+    rank's vocab shard (`L.embed`)."""
+    h = L.embed(tokens, params["embed"], shards)
     if cfg.name.startswith("gemma2"):
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype).item()
     return h
 
 
-def embed_inputs(params: dict, batch: Dict[str, torch.Tensor],
-                 cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def embed_inputs(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                 shards=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token embedding, after a VLM's ``image_embeds`` prefix (B, I, D),
     plus an encoder-decoder's learned ``dec_pos``.  Returns (h (B, T, D),
-    positions (B, T) int32)."""
-    h = embed_tokens(batch["tokens"], params, cfg)
+    positions (B, T) int32).  ``shards``: `embed_tokens`'."""
+    h = embed_tokens(batch["tokens"], params, cfg, shards)
     if cfg.is_vlm:
         h = torch.cat([batch["image_embeds"].to(h.dtype), h], dim=1)
     if cfg.is_encoder_decoder:

@@ -62,6 +62,18 @@ block ids made local to its pool partition, each layer's decode and
 verify o-projection summed over the model group (the decode step's one
 collective), and prefill's and the chunk step's slot weights (and the
 chunk step's cache and plan arrays) all-gathered over it.
+
+Under the reference's ``serve_rules`` (the dry run's serve cells,
+`repro_torch.launch.specs.serve_step`) `prefill` and `decode_step` take
+``shards`` (a `repro_torch.distributed.sharding.StepShards`) and run on a
+rank's shards of every weight: the slot attention as on the mesh above,
+then the MLP over the rank's ``ff`` shard, the embedding and unembedding
+over its ``vocab`` rows (one all-reduce over ``model`` each for the
+embedding and the MLP) and the next tokens from a distributed argmax
+(`vocab_argmax`); the logits stay the rank's vocab columns, as the
+reference leaves them sharded.  Under ``weights_2d`` each weight is
+all-gathered whole along d_model over ``data`` just before its product.
+The dense family only (A.16 covers the others).
 """
 from __future__ import annotations
 
@@ -97,7 +109,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSD
 from repro_torch.models import transformer as M
 from repro_torch.paging.paged_cache import PagedCache, paged_append_token
-from repro_torch.serving.quant import deq, has_qtensor, operands, take0
+from repro_torch.serving.quant import deq, gather, has_qtensor, operands, take0
 
 
 # ---------------------------------------------------------------------------
@@ -198,14 +210,22 @@ def slotify_params(params: dict, plan: HeadPlacement, cfg: ModelConfig,
     return out
 
 
-def _full_slots(w: torch.Tensor, groups=None) -> torch.Tensor:
-    """A slot-layout weight over the whole slot grid: on a mesh rank, its
-    shard all-gathered over the model group."""
-    return w if groups is None else comm.all_gather(w, groups.model_group, dim=0)
+# the d_model dim of each slot weight (``weights_2d`` splits it over data)
+_SLOT_D_DIM = {"wq": 1, "wk": 1, "wv": 1, "wo": 3}
+
+
+def _full_slots(w, groups=None, shards=None, d_dim: Optional[int] = None):
+    """A slot-layout weight (or `QTensor`) over the whole slot grid: on a
+    mesh rank, its shard all-gathered over the model group; with
+    ``shards`` under ``weights_2d``, first whole along its d_model dim
+    ``d_dim``."""
+    if shards is not None and d_dim is not None:
+        w = shards.weight(w, d_dim)
+    return w if groups is None else gather(w, groups.model_group, 0)
 
 
 def first_weights(pl: dict, plan: PlanArrays, layer_idx: int, groups=None,
-                  keys: Sequence[str] = ("wq", "wk", "wv", "wo")) -> dict:
+                  keys: Sequence[str] = ("wq", "wk", "wv", "wo"), shards=None) -> dict:
     """Recover original-layout q/k/v/o weights from each head's replica-0
     slot (a gather — no second weight copy is stored): wq (Hkv, D, G, Dh),
     wk / wv (Hkv, D, Dh), wo (Hkv, G, Dh, D), and with qkv bias the biases
@@ -213,10 +233,12 @@ def first_weights(pl: dict, plan: PlanArrays, layer_idx: int, groups=None,
     ``first_slot`` holds global slot ids, so a mesh rank (``groups``)
     gathers the slot weights over the model group first.
     An int8 slot weight (a `QTensor`) is gathered with its per-slot scale
-    and dequantized to bf16 (the reference's ``_take0`` then ``deq``)."""
+    and dequantized to bf16 (the reference's ``_take0`` then ``deq``).
+    ``shards``: a serve step's, whose weights may also split over data."""
     fs = plan.first_slot[layer_idx]  # (Hkv,)
     bias = ["b" + k[1] for k in keys if k != "wo" and "b" + k[1] + "_s" in pl]
-    return {k: deq(take0(_full_slots(pl[k + "_s"], groups), fs)) for k in list(keys) + bias}
+    return {k: deq(take0(_full_slots(pl[k + "_s"], groups, shards, _SLOT_D_DIM.get(k)), fs))
+            for k in list(keys) + bias}
 
 
 def _add_bias(q, k, v, b: dict):
@@ -241,6 +263,7 @@ def prefill(
     rows: Optional[torch.Tensor] = None,
     head_importance: Optional[torch.Tensor] = None,
     groups=None,
+    shards=None,
 ) -> Tuple[ServeState, torch.Tensor, torch.Tensor]:
     """Run the full prompt, compress each layer's KV into the slot cache.
 
@@ -254,7 +277,11 @@ def prefill(
     `repro_torch.launch.mesh.Mesh`) runs it on a mesh rank: ``plan`` and
     the slot weights hold the rank's slots (``first_slot`` stays global),
     each layer's slot weights are all-gathered over the model group, and
-    the rank fills only its slots of the cache.
+    the rank fills only its slots of the cache.  ``shards`` (a
+    `repro_torch.distributed.sharding.StepShards`) runs it on a rank's
+    shards under the serve rules (module docstring): ``batch`` holds the
+    rank's rows, the logits are its vocab columns, and the slot split and
+    row ids follow from ``shards`` unless ``groups`` / ``rows`` are given.
 
     Returns (state, last_logits (B, V) fp32, lengths (L, Hkv, B) — the
     realized per-head retained lengths, the paper's workload observable;
@@ -262,8 +289,12 @@ def prefill(
     (B, T), and ``frames`` (B, T_enc, D) for an encoder-decoder model or
     ``image_embeds`` (B, I, D) ahead of the tokens for a VLM.
     """
-    h, positions = M.embed_inputs(serve_params, batch, cfg)
+    if shards is not None:
+        _shards_supported(cfg)
+    h, positions = M.embed_inputs(serve_params, batch, cfg, shards)
     B, T, D = h.shape
+    if shards is not None:
+        groups, rows = _shard_groups_rows(shards, groups, rows, B, h.device)
     if rows is not None:
         rows = row_index(rows, h.device)
     cross_k = cross_v = None
@@ -285,11 +316,11 @@ def prefill(
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
         if not cfg.attention_free:
             attn_flat, lens = _prefill_attention(pl, hn, positions, cfg, i, cache, plan, ccfg,
-                                                 W, rows, head_importance, groups)
+                                                 W, rows, head_importance, groups, shards)
             lengths_all.append(lens)
             if cfg.family == "hybrid":
                 attn_flat = L.rms_norm(attn_flat, pl["attn_out_norm"], cfg.rms_eps)
-            attn_out = _slot_o_proj(pl, attn_flat, cfg, plan, i, groups)
+            attn_out = _slot_o_proj(pl, attn_flat, cfg, plan, i, groups, shards)
         if cfg.family in ("ssm", "hybrid"):
             ssm_out, (cs, ss) = M.ssm_block_full(pl, hn, cfg)
             conv_states.append(cs)
@@ -302,15 +333,14 @@ def prefill(
             h = h + M.cross_attn_block(pl, hc, enc_kvs[i], cfg)
         if cfg.d_ff > 0 or cfg.moe.num_experts > 0:
             hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
-            h = h + M.mlp_block(pl, hn2, cfg)
+            h = h + M.mlp_block(pl, hn2, cfg, shards)
 
     h_last = L.rms_norm(h[:, -1:], serve_params["final_norm"], cfg.rms_eps)
     table = serve_params.get("head", serve_params["embed"])
-    logits = L.unembed(h_last, table, cfg.logit_softcap)[:, 0]
+    logits = L.unembed(h_last, table, cfg.logit_softcap, shards)[:, 0]
     if cache is not None:
         cache.positions.fill_(T)
-    state = ServeState(cache=cache,
-                       last_tokens=torch.argmax(logits[..., :cfg.vocab_size], dim=-1),
+    state = ServeState(cache=cache, last_tokens=_next_tokens(logits, cfg, shards),
                        decode_steps=0,
                        ssm_state=torch.stack(ssm_states) if ssm_states else None,
                        conv_state=torch.stack(conv_states) if conv_states else None,
@@ -329,11 +359,11 @@ def _policy_kw(ccfg: CompressionConfig, head_importance, layer_idx: int) -> dict
 
 
 def _prefill_attention(pl, hn, positions, cfg, layer_idx, cache, plan, ccfg,
-                       W, rows=None, head_importance=None, groups=None):
+                       W, rows=None, head_importance=None, groups=None, shards=None):
     """Full attention + compression + slot-cache fill for one layer."""
     B, T, D = hn.shape
     Hkv, G, Dh = cfg.n_kv_heads, cfg.q_per_kv, cfg.head_dim
-    fw = first_weights(pl, plan, layer_idx, groups, keys=("wq", "wk", "wv"))
+    fw = first_weights(pl, plan, layer_idx, groups, keys=("wq", "wk", "wv"), shards=shards)
     q = torch.einsum("btd,hdgx->bthgx", *operands(hn, fw["wq"]))  # (B,T,Hkv,G,Dh)
     k = torch.einsum("btd,hdx->bthx", *operands(hn, fw["wk"]))
     v = torch.einsum("btd,hdx->bthx", *operands(hn, fw["wv"]))
@@ -361,10 +391,10 @@ def _prefill_attention(pl, hn, positions, cfg, layer_idx, cache, plan, ccfg,
     return out_flat, keep.T  # lens (Hkv, B)
 
 
-def _slot_o_proj(pl, attn_flat, cfg, plan, layer_idx, groups=None):
+def _slot_o_proj(pl, attn_flat, cfg, plan, layer_idx, groups=None, shards=None):
     """(B, T, Hkv·G·Dh) → (B, T, D) via the first-replica o weights."""
     fs = plan.first_slot[layer_idx]
-    x, wo = operands(attn_flat, take0(_full_slots(pl["wo_s"], groups), fs))
+    x, wo = operands(attn_flat, take0(_full_slots(pl["wo_s"], groups, shards, 3), fs))
     return torch.einsum("bte,ed->btd", x,
                         wo.reshape(cfg.n_kv_heads * cfg.q_per_kv * cfg.head_dim, cfg.d_model))
 
@@ -576,6 +606,7 @@ def decode_step(
     phase: Optional[torch.Tensor] = None,
     rows: Optional[torch.Tensor] = None,
     groups=None,
+    shards=None,
 ) -> Tuple[ServeState, torch.Tensor]:
     """One decode step for the whole batch.  Returns (state, logits (B, V)).
 
@@ -596,7 +627,12 @@ def decode_step(
     owner rule keys on them; default arange(B)), the paged table's global
     block ids are made local to the rank's pool partition, and the
     o-projection's contraction over the slots ends in the step's one
-    collective per layer, an all-reduce over the model group.
+    collective per layer, an all-reduce over the model group.  ``shards``
+    (a `repro_torch.distributed.sharding.StepShards`) runs it on a rank's
+    shards under the serve rules (module docstring): per rank, over
+    ``model``, 2·L + 1 all-reduces of (B, d_model) (the embedding, then
+    each layer's o-projection and MLP) and one all-gather of the argmax's
+    (B, 2) pairs; the logits are the rank's vocab columns.
 
     The SSM and hybrid families update ``ssm_state`` / ``conv_state`` in
     place on every row (a retired row's are overwritten by the next
@@ -605,7 +641,11 @@ def decode_step(
     """
     tokens = state.last_tokens if tokens is None else tokens
     phase = state.decode_steps if phase is None else phase
-    h = M.embed_tokens(tokens[:, None], serve_params, cfg)  # (B, 1, D)
+    if shards is not None:
+        _shards_supported(cfg)
+        groups, rows = _shard_groups_rows(shards, groups, rows, tokens.shape[0],
+                                          tokens.device)
+    h = M.embed_tokens(tokens[:, None], serve_params, cfg, shards)  # (B, 1, D)
     cache = state.cache
     positions = None if cache is None else cache.positions
     if cfg.is_encoder_decoder:
@@ -614,11 +654,11 @@ def decode_step(
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
         if not cfg.attention_free:
             attn = _decode_attention(pl, hn, positions, cfg, i, cache, plan,
-                                     phase, ccfg, active, kv_kinds, rows, groups)
+                                     phase, ccfg, active, kv_kinds, rows, groups, shards)
             if cfg.family == "hybrid":
                 attn = _slot_rms_norm(attn, pl["attn_out_norm_s"],
                                       cfg.n_heads * cfg.head_dim, cfg.rms_eps)
-            attn_out = _decode_slot_o(pl, attn, cfg, groups)
+            attn_out = _decode_slot_o(pl, attn, cfg, groups, shards)
         if cfg.family in ("ssm", "hybrid"):
             ssm_out = _decode_ssm(pl, hn, cfg, i, state)
             h = h + (ssm_out if cfg.family == "ssm" else 0.5 * (attn_out + ssm_out))
@@ -629,20 +669,69 @@ def decode_step(
             h = h + M.cross_attn_block(pl, hc, (state.cross_k[i], state.cross_v[i]), cfg)
         if cfg.d_ff > 0 or cfg.moe.num_experts > 0:
             hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
-            h = h + M.mlp_block(pl, hn2, cfg)
+            h = h + M.mlp_block(pl, hn2, cfg, shards)
 
     h = L.rms_norm(h, serve_params["final_norm"], cfg.rms_eps)
     table = serve_params.get("head", serve_params["embed"])
-    logits = L.unembed(h, table, cfg.logit_softcap)[:, 0]  # (B, V)
+    logits = L.unembed(h, table, cfg.logit_softcap, shards)[:, 0]  # (B, V)
     if cache is not None:
         if active is None:
             cache.positions += 1  # in place: every row is live in one-shot decode
         else:
             cache.positions += active.to(cache.positions.dtype)
     new_state = dataclasses.replace(
-        state, last_tokens=torch.argmax(logits[..., :cfg.vocab_size], dim=-1),
+        state, last_tokens=_next_tokens(logits, cfg, shards),
         decode_steps=state.decode_steps + 1)
     return new_state, logits
+
+
+def _shards_supported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense" or cfg.moe.num_experts or cfg.attention_free:
+        raise NotImplementedError(
+            f"the serve step on a rank's shards supports the dense family, got "
+            f"{cfg.family!r} ({cfg.name}): the other families on the mesh are ROADMAP A.16")
+
+
+def _shard_groups_rows(shards, groups, rows, n_rows: int, device):
+    """``groups`` (the mesh when the slot dim splits) and ``rows`` (the
+    rank's global row ids) of a step on ``shards``, unless given."""
+    if groups is None and shards.kv_slot.group is not None:
+        groups = shards.mesh
+    if rows is None:
+        rows = shards.rows(n_rows, device)
+    return groups, rows
+
+
+def _next_tokens(logits: torch.Tensor, cfg: ModelConfig, shards=None) -> torch.Tensor:
+    """Greedy next tokens of (B, V) logits: the argmax over the real vocab,
+    or over a rank's vocab columns (`vocab_argmax`)."""
+    if shards is None:
+        return torch.argmax(logits[..., :cfg.vocab_size], dim=-1)
+    return vocab_argmax(logits, cfg.vocab_size, shards.vocab)
+
+
+def vocab_argmax(logits: torch.Tensor, vocab_size: int, split) -> torch.Tensor:
+    """``torch.argmax(full_logits[..., :vocab_size], -1)`` from the rank's
+    vocab columns ``logits`` (..., n) (``split``: the vocab's
+    `repro_torch.distributed.sharding.Split`): each rank masks its columns
+    at or past ``vocab_size``, takes its (max, global id) pair, the pairs
+    are all-gathered over the vocab's group (one collective of (..., 2)
+    fp32: ids below 2^24 are exact), and the first rank holding the max
+    wins, so ties go to the lowest global id, as ``torch.argmax``'s do."""
+    n = logits.shape[-1]
+    if split.group is None:
+        return torch.argmax(logits[..., :vocab_size], dim=-1)
+    if vocab_size > 1 << 24:
+        raise ValueError(f"vocab {vocab_size} has ids past fp32's exact integers")
+    off = split.offset(n)
+    ids = off + torch.arange(n, device=logits.device)
+    x = torch.where(ids < vocab_size, logits.float(), float("-inf"))
+    idx = torch.argmax(x, dim=-1, keepdim=True)
+    pairs = torch.cat([x.gather(-1, idx), (idx + off).float()], dim=-1)  # (..., 2)
+    allp = comm.all_gather(pairs, split.group, dim=-1)
+    allp = allp.reshape(*allp.shape[:-1], split.size, 2)
+    best = torch.argmax(allp[..., 0], dim=-1, keepdim=True)
+    return allp[..., 1].gather(-1, best)[..., 0].long()
 
 
 def _slot_rms_norm(x: torch.Tensor, scale_slot: torch.Tensor, n_channels: int,
@@ -693,13 +782,17 @@ def _local_table(cache: PagedCache, layer: int, groups=None) -> torch.Tensor:
 
 def _decode_attention(pl, hn, positions, cfg, layer_idx, cache, plan,
                       decode_steps, ccfg, active=None, kv_kinds=None, rows=None,
-                      groups=None):
+                      groups=None, shards=None):
     """Slot-layout attention for one new token; appends to the cache."""
     B = hn.shape[0]
     x = hn[:, 0]  # (B, D)
-    q = _slot_proj(x, pl["wq_s"]).transpose(0, 1)  # (B, S, G, Dh)
-    k_new = _slot_proj(x, pl["wk_s"]).transpose(0, 1)  # (B, S, Dh)
-    v_new = _slot_proj(x, pl["wv_s"]).transpose(0, 1)
+
+    def w(key):  # under weights_2d whole along d_model, for this product
+        return pl[key] if shards is None else shards.weight(pl[key], 1)
+
+    q = _slot_proj(x, w("wq_s")).transpose(0, 1)  # (B, S, G, Dh)
+    k_new = _slot_proj(x, w("wk_s")).transpose(0, 1)  # (B, S, Dh)
+    v_new = _slot_proj(x, w("wv_s")).transpose(0, 1)
     if "bq_s" in pl:
         q, k_new, v_new = q + pl["bq_s"], k_new + pl["bk_s"], v_new + pl["bv_s"]
     # RoPE at each row's absolute position
@@ -749,15 +842,17 @@ def _rope_slots(q, positions, cfg):
     return q2.reshape(B, S_, G, Dh)
 
 
-def _decode_slot_o(pl, attn, cfg, groups=None):
+def _decode_slot_o(pl, attn, cfg, groups=None, shards=None):
     """(B, S, G, Dh) → (B, 1, D): the contraction over slots.  Every
     (head, row) pair has exactly one owning slot and unowned slots give
     exact zeros, so the sum over S reassembles the batch's activation.
     One product over the stored ``(S·G·Dh, D)`` layout (an einsum would
     copy the whole weight to ``(G, S, Dh, D)`` first).  On a mesh rank the
     partial contraction over its slots is summed over the model group: the
-    decode step's one collective per layer."""
-    x, wo = operands(attn.reshape(attn.shape[0], -1), pl["wo_s"])
+    decode step's one collective per layer (under ``shards``, the
+    attention's)."""
+    wo = pl["wo_s"] if shards is None else shards.weight(pl["wo_s"], 3)
+    x, wo = operands(attn.reshape(attn.shape[0], -1), wo)
     out = torch.matmul(x, wo.reshape(-1, wo.shape[-1]))
     if groups is not None:
         out = comm.all_reduce_sum(out, groups.model_group)

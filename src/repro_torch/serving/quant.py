@@ -22,6 +22,8 @@ from typing import Any, Tuple, Union
 
 import torch
 
+from repro_torch.distributed import comm
+
 
 @dataclass
 class QTensor:
@@ -61,6 +63,21 @@ def take0(w: Union[QTensor, torch.Tensor], idx: torch.Tensor):
     if isinstance(w, QTensor):
         return QTensor(q=w.q[idx], scale=w.scale[idx] if w.scale.shape[0] > 1 else w.scale)
     return w[idx]
+
+
+def gather(w: Union[QTensor, torch.Tensor], group, dim: int):
+    """A tensor or `QTensor` shard all-gathered over ``group`` (a
+    `repro_torch.launch.mesh.Group`) along ``dim`` (`comm.all_gather`).  A
+    `QTensor` gathers its codes, and its scale too where the scale's extent
+    along ``dim`` is the codes' (per slot, per column; a broadcast scale
+    over one code a rank gathers into equal copies); a scale that spans
+    the whole dim already stays."""
+    if not isinstance(w, QTensor):
+        return comm.all_gather(w, group, dim=dim)
+    scale = w.scale
+    if scale.shape[dim] == w.q.shape[dim]:
+        scale = comm.all_gather(scale, group, dim=dim)
+    return QTensor(q=comm.all_gather(w.q, group, dim=dim), scale=scale)
 
 
 def has_qtensor(tree: Any) -> bool:

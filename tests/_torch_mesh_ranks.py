@@ -1,5 +1,6 @@
 """The ranks' side of the port's mesh tests (`tests/test_torch_mesh.py`,
-`tests/test_torch_mesh_paged.py`).
+`tests/test_torch_mesh_paged.py`, and the serve cells' step of
+`tests/test_torch_tp.py`, whose ranks run in the mesh tests' spawns).
 
 Each function runs in every rank of a gloo mesh started by
 `repro_torch.launch.mesh.spawn` and returns numpy results, which the test
@@ -10,6 +11,8 @@ tree (`save_params`), every rank loads the whole tree and its engine keeps
 its slots' share.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -314,6 +317,107 @@ def audit_rank(mesh):
 
     stats, _ = dryrun.run_step(get_smoke_config(ARCH), "decode_32k", mesh)
     return stats.by_group
+
+
+# ---- the serve cells' step under serve_rules (tests/test_torch_tp.py) ------
+
+TP_B, TP_T, TP_STEPS = 4, 20, 3  # a prefill of B x T, then TP_STEPS decode steps
+TP_PLAN_SHARDS = 4  # one plan for both spawns: its 4 slots split over model 2 and 4
+TP_COMP = dict(policy="ada_snapkv", budget=12, alpha_max=2.0, obs_window=8, sink=2,
+               decode_margin=8)
+# qwen1.5's smoke config widened so that the projections cross the int8
+# threshold (2^16 elements); vocab 128 keeps the embedding plain and the run fp32
+TP_WIDE = dict(d_model=256, d_ff=512, head_dim=64, vocab_size=128)
+
+
+def tp_model(configs, arch, wide):
+    """The smoke config of ``arch`` (widened by `TP_WIDE` when ``wide``) from
+    a package's ``configs`` module."""
+    cfg = configs.get_smoke_config(arch)
+    return dataclasses.replace(cfg, **TP_WIDE) if wide else cfg
+
+
+def tp_prompts(vocab):
+    return np.random.default_rng(1).integers(0, vocab, (TP_B, TP_T))
+
+
+def _np(t):
+    return t.detach().cpu().numpy().copy()
+
+
+def tp_rank(mesh, wpath, arch, wide, int8, weights_2d):
+    """The serve cells' step (`repro_torch.launch.specs.serve_step`) under
+    ``serve_rules(mesh, weights_2d=...)`` on this rank's shards
+    (`local_shard` of the slotified, optionally int8, tree): a prefill and
+    `TP_STEPS` decode steps.  Returns the rank's tokens, logits (its vocab
+    columns), lengths, final cache corner, the collectives of the prefill
+    and of one decode step, and its slots and rows."""
+    from repro_torch import configs
+    from repro_torch.cache.slot_cache import PlanArrays
+    from repro_torch.compression.base import CompressionConfig
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.param_specs import local_shard, tree_specs
+    from repro_torch.distributed.sharding import serve_rules
+    from repro_torch.launch import specs
+    from repro_torch.serving import engine as E
+    from repro_torch.serving.quant import QTensor, quantize_serve_params
+
+    cfg = tp_model(configs, arch, wide)
+    ccfg = CompressionConfig(**TP_COMP)
+    plan = specs.cell_plan(cfg, TP_PLAN_SHARDS, batch_cap=TP_B)
+    sp = E.slotify_params(load_params(wpath), plan, cfg)
+    if int8:
+        sp = quantize_serve_params(sp)
+    rules = serve_rules(mesh, weights_2d=weights_2d)
+    sp_spec = tree_specs(sp, rules, "serve")
+    pa = PlanArrays.from_plan(plan)
+    pa = {f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)}
+    batch = {"tokens": torch.as_tensor(tp_prompts(cfg.vocab_size))}
+    sp = local_shard(sp, sp_spec, mesh)
+    pa = local_shard(pa, specs.plan_specs(plan, rules), mesh)
+    batch = local_shard(batch, specs.batch_specs(batch, rules), mesh)
+    step = {kind: specs.serve_step(kind, cfg, ccfg, mesh, rules, sp_spec, plan.n_slots, TP_B)
+            for kind in ("prefill", "decode")}
+    sl, rows = mesh.slots(plan.n_slots), mesh.rows(TP_B)
+    with torch.inference_mode():
+        before = comm.snapshot()
+        state, logits, lengths = step["prefill"](sp, batch, pa)
+        out = {"prefill_collectives": comm.by_kind(comm.since(before)),
+               "tokens": [_np(state.last_tokens)], "logits": [_np(logits)],
+               "lengths": _np(lengths), "slots": (sl.start, sl.stop),
+               "rows": (rows.start, rows.stop), "model_idx": mesh.model_idx,
+               "int8": any(isinstance(w, QTensor) for w in sp["layers"][0].values())}
+        for i in range(TP_STEPS):
+            before = comm.snapshot()
+            state, logits = step["decode"](sp, state, pa)
+            if i == 0:
+                out["collectives"] = comm.by_kind(comm.since(before))
+            out["tokens"].append(_np(state.last_tokens))
+            out["logits"].append(_np(logits))
+    out["cache"] = {f: _np(getattr(state.cache, f)) for f in ("k", "v", "lengths", "pos",
+                                                              "positions")}
+    return out
+
+
+def argmax_rank(mesh):
+    """`vocab_argmax` over this rank's columns of fixed logits (16 columns,
+    the last two padded): returns (its picks, the plain argmax over the
+    whole real vocab)."""
+    from repro_torch.distributed.sharding import Split
+    from repro_torch.serving.engine import vocab_argmax
+
+    g = mesh.model_group
+    V, vocab = 16, 14
+    n = V // g.size
+    full = np.random.default_rng(3).standard_normal((4, V)).astype(np.float32)
+    full[0] = 0.0
+    full[0, 3] = full[0, n + 1] = 5.0  # a tie across the shards: the lower id wins
+    full[1, n + 2] = full[1, n + 5] = 9.0  # a tie inside the last shard
+    full[2, V - 1] = 100.0  # the largest logit in a padded column: never picked
+    full[3] = 1.0  # every column tied: id 0
+    got = vocab_argmax(torch.from_numpy(full[:, g.rank * n:(g.rank + 1) * n]), vocab,
+                       Split(g, g.rank, g.size))
+    return _np(got), np.argmax(full[:, :vocab], axis=-1)
 
 
 def jobs_rank(mesh, jobs):

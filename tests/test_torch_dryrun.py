@@ -323,13 +323,26 @@ def test_arg_bytes_per_rank_match_reference(reference, mesh):
     assert n == sum(k.startswith(mesh + "|") for k in want)
 
 
-def test_run_cell_records(tmp_path):
+DENSE = ["minitron-8b", "gemma2-9b", "granite-3-2b", "qwen1.5-110b"]
+
+
+@pytest.fixture(scope="module")
+def dense_sweep(tmp_path_factory):
+    """`dryrun.sweep` of the dense archs and mamba2-1.3b at decode_32k and
+    long_500k on the single production mesh, against an H100's 85.0 GB:
+    its result and the directory of its records."""
+    out = tmp_path_factory.mktemp("dryrun")
+    res = dryrun.sweep(DENSE + ["mamba2-1.3b"], ["decode_32k", "long_500k"], [False],
+                       "fairkv_dp", str(out), dev_bytes=dryrun.H100_BYTES)
+    return res, out
+
+
+def test_run_cell_records(dense_sweep):
     """A cell the port has a step for runs it (``ok``, ``executed`` with the
-    reference's record keys); one it has none for is ``args_only`` with
+    reference's record keys and the cell step's decode contract: 2·L + 1
+    all-reduces over ``model``); one it has none for is ``args_only`` with
     its ROADMAP item; a skipped shape is ``skipped``."""
-    res = dryrun.sweep(["granite-3-2b", "mamba2-1.3b", "minitron-8b"],
-                       ["decode_32k", "long_500k"], [False], "fairkv_dp", str(tmp_path),
-                       dev_bytes=80 * 10**9)
+    res, out = dense_sweep
     recs = {(r["arch"], r["shape"]): r for r in res["records"]}
     assert res["counts"]["fail"] == 0
     ok = recs[("granite-3-2b", "decode_32k")]
@@ -338,12 +351,43 @@ def test_run_cell_records(tmp_path):
     for key in ("argument_bytes", "temp_bytes", "peak_per_device_gb"):
         assert key in ex["memory"]
     assert ex["cost"]["flops_per_device"] > 0 and ex["cost"]["bytes_per_device"] > 0
+    assert ex["step"].startswith("repro_torch.serving.engine.decode_step")
     cfg = get_config("granite-3-2b")
-    assert ex["collectives_by_group"]["model"]["all_reduce"]["calls"] == cfg.n_layers
+    assert ex["collectives_by_group"]["model"]["all_reduce"]["calls"] == 2 * cfg.n_layers + 1
     assert ok["memory"]["argument_bytes"] > 0
     assert recs[("mamba2-1.3b", "decode_32k")]["status"] == "args_only"
     assert recs[("mamba2-1.3b", "decode_32k")]["todo"].startswith("A.16")
+    assert recs[("gemma2-9b", "long_500k")]["status"] == "args_only"
+    assert recs[("gemma2-9b", "long_500k")]["todo"].startswith("A.14")
     assert recs[("granite-3-2b", "long_500k")]["status"] in ("args_only", "skipped")
     assert recs[("minitron-8b", "long_500k")]["status"] == "skipped"
-    written = json.loads((tmp_path / "granite-3-2b__decode_32k__single.json").read_text())
+    written = json.loads((out / "granite-3-2b__decode_32k__single.json").read_text())
     assert written["executed"]["memory"] == ex["memory"]
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_dense_decode_cell_executes_its_step(reference, dense_sweep, arch):
+    """The dense archs' decode_32k cells on the fake (data 16, model 16)
+    mesh execute ``build_cell(...).fn`` on the rules' arguments: its
+    argument bytes are the reference's; per rank, over ``model``, 2·L + 1
+    all-reduces of (B / 16, d_model) bf16 and one all-gather of the
+    argmax's (B / 16, 2) fp32 pairs, nothing over ``data``; its peak fits
+    the card (qwen1.5-110b on int8 weights by the auto rule)."""
+    rec = {(r["arch"], r["shape"]): r for r in dense_sweep[0]["records"]}[arch, "decode_32k"]
+    cfg = get_config(arch)
+    ex = rec["executed"]
+    assert rec["status"] == "ok" and rec["fits"] is True
+    assert ex["memory"]["peak_bytes"] <= dryrun.H100_BYTES
+    want = reference("bytes")[f"16x16|{arch}|decode_32k"]
+    assert rec["memory"]["argument_bytes"] == ex["memory"]["argument_bytes"] == want
+    assert rec["quantize"] == (arch == "qwen1.5-110b")
+    assert ex["contract"] == {"model_all_reduce_2L_plus_1": True,
+                              "model_one_argmax_gather": True, "nothing_over_data": True}
+    rows = SHAPES["decode_32k"].global_batch // 16
+    g = ex["collectives_by_group"]
+    assert set(g) == {"model"}
+    n = 2 * cfg.n_layers + 1
+    assert g["model"]["all_reduce"] == {"calls": n, "elements": n * rows * cfg.d_model,
+                                        "bytes": 2 * n * rows * cfg.d_model}
+    assert g["model"]["all_gather"] == {"calls": 1, "elements": rows * 2 * 16,
+                                        "bytes": 4 * rows * 2 * 16}

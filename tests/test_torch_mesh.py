@@ -25,11 +25,18 @@ reference's weights reach every rank through an ``.npz``.  Held here:
 - gemma2-9b (window, softcaps, embedding scale) and qwen1.5-110b (qkv bias,
   non-zero, its slot biases sharded over ``model``) one-shot on 1x2:
   tokens and lengths equal the reference local executor's, logits within
-  1e-4, one all-reduce over ``model`` per layer.
+  1e-4, one all-reduce over ``model`` per layer;
+- the serve cells' step under ``serve_rules`` (`tests/test_torch_tp.py`
+  holds its reference side and bars): the four dense archs and int8
+  qwen1.5 on 1x2, and on 2x4 with ``weights_2d`` off and on, against the
+  reference's single-device prefill and decode steps; `vocab_argmax`'s
+  tie and padding rules on 1x2.
 
 (The reference's own mesh run of the paged backend is red in its baseline,
 so the port is held to the reference's local executor throughout.)
 """
+import threading
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -47,6 +54,7 @@ from repro_torch.exec.mesh import MeshExecutor
 from repro_torch.launch.mesh import Group, Mesh, make_host_mesh, spawn
 from repro_torch.paging.block_pool import BlockPool
 from tests import _torch_mesh_ranks as R
+from tests import test_torch_tp as TP
 from tests.test_torch_families import shared_params
 
 SPAWN_TIMEOUT = 300
@@ -227,13 +235,40 @@ def family_weights(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def oneshot(weights, family_weights, tmp_path_factory):
+def tp_weights(tmp_path_factory):
+    """The serve cells' step's weight sets (`TP.WEIGHTS`): numpy trees and
+    their .npz paths."""
+    out = {}
+    for arch, wide, _ in TP.WEIGHTS:
+        tree = TP.weights_tree(arch, wide)
+        path = tmp_path_factory.mktemp("tp") / "params.npz"
+        R.save_params(path, tree)
+        out[arch, wide] = (tree, str(path))
+    return out
+
+
+@pytest.fixture(scope="module")
+def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
     """The one-shot cases per mesh shape; the 2x4 spawn also runs the
     continuous trace (under ``"trace"``), the 1x2 spawn the other dense
-    archs (under ``"family"``), `compressed_all_reduce` (``"compress"``)
-    and the dry run's decode step on real tensors (``"audit"``)."""
+    archs (under ``"family"``), `compressed_all_reduce` (``"compress"``),
+    the dry run's decode step on real tensors (``"audit"``) and
+    `vocab_argmax` (``"argmax"``); both run the serve cells' step's cases
+    (``("tp", shape)``, by `TP.case_id`), and the reference's runs they are
+    held to (``"tp_reference"``) are computed in a thread meanwhile."""
     jparams, path = weights
     out = {}
+    refs = {}
+
+    def tp_reference():
+        try:
+            refs.update({(a, w, q): TP.reference_run(tp_weights[a, w][0], a, w, q)
+                         for a, w, q in TP.WEIGHTS})
+        except BaseException as e:  # raised below, in the fixture
+            refs["error"] = e
+
+    th = threading.Thread(target=tp_reference, daemon=True)
+    th.start()
     for shape, cases in SLOT_CASES.items():
         profiles = _profiles(cases, jparams)
         model, data = SHAPES[shape]
@@ -244,16 +279,27 @@ def oneshot(weights, family_weights, tmp_path_factory):
             jobs += [("family_rank", (family_weights[a][0], a)) for a in FAMILY_ARCHS]
             jobs.append(("compress_rank", COMPRESS_CASE))
             jobs.append(("audit_rank", ()))
+            jobs.append(("argmax_rank", ()))
+        n_fixed = len(jobs)
+        jobs += [("tp_rank", (tp_weights[arch, wide][1], arch, wide, int8, w2))
+                 for arch, wide, int8, w2 in TP.CASES[shape]]
         ranks = spawn(R.jobs_rank, model=model, data=data, args=(jobs,),
                       init_file=str(tmp_path_factory.mktemp(shape) / "rv"),
                       timeout=SPAWN_TIMEOUT)
         out[shape] = (cases, [r[0] for r in ranks], _reference(cases, jparams, profiles))
+        out["tp", shape] = {TP.case_id(c): [r[n_fixed + i] for r in ranks]
+                            for i, c in enumerate(TP.CASES[shape])}
         if shape == "2x4":
             out["trace"] = [r[1] for r in ranks]
         else:
             out["family"] = {a: [r[1 + i] for r in ranks] for i, a in enumerate(FAMILY_ARCHS)}
-            out["compress"] = [r[-2] for r in ranks]
-            out["audit"] = [r[-1] for r in ranks]
+            out["compress"] = [r[n_fixed - 3] for r in ranks]
+            out["audit"] = [r[n_fixed - 2] for r in ranks]
+            out["argmax"] = [r[n_fixed - 1] for r in ranks]
+    th.join()
+    if "error" in refs:
+        raise refs["error"]
+    out["tp_reference"] = refs
     return out
 
 
@@ -382,3 +428,24 @@ def test_dryrun_audit_counts_match_gloo_1x2(oneshot):
     for got in ranks:
         assert got == fake["collectives_by_group"]
     assert got["model"]["all_reduce"]["calls"] == cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# the serve cells' step under serve_rules (tests/test_torch_tp.py)
+# ---------------------------------------------------------------------------
+
+TP_IDS = [(shape, c) for shape in TP.CASES for c in TP.CASES[shape]]
+
+
+@pytest.mark.parametrize("shape,case", TP_IDS,
+                         ids=[f"{s}-{TP.case_id(c)}" for s, c in TP_IDS])
+def test_tp_cell_step_parity(oneshot, shape, case):
+    """`serve_step` on every rank of the mesh: the reference's single-device
+    prefill and decode steps (`TP.check_case`)."""
+    model, data = SHAPES[shape]
+    TP.check_case(oneshot["tp", shape][TP.case_id(case)], oneshot["tp_reference"][case[:3]],
+                  case, model, data)
+
+
+def test_tp_vocab_argmax_1x2(oneshot):
+    TP.check_argmax(oneshot["argmax"])

@@ -1,0 +1,324 @@
+"""The serve cells' step (`repro_torch.launch.specs.serve_step`: the port's
+`prefill` / `decode_step` on a rank's shards under the reference's
+``serve_rules``) against the reference's single-device `prefill` /
+`decode_step`, on the CPU.
+
+The ranks run as jobs of `tests/test_torch_mesh.py`'s two gloo spawns
+(``tp_rank`` / ``argmax_rank`` in `tests/_torch_mesh_ranks.py`): the 1x2
+spawn is (model 2, data 1), the 2x4 spawn (model 4, data 2) with
+``weights_2d`` off and on.  A test needs the spawn's results in the module
+that makes the spawn (pytest-xdist hands out whole files), so the parity
+tests are there and call `check_case` / `check_argmax` here; this module
+holds the reference side and the tests that need no ranks.
+
+Setup: fp32 smoke configs of the four dense archs (qwen1.5's qkv biases
+drawn non-zero), the reference's weights through `interop.to_torch` and
+`local_shard`, one plan per arch (`cell_plan` at 4 shards, 4 slots, in
+both packages bitwise), Ada-SnapKV budget 12; a prefill of 4 x 20 tokens,
+then 3 decode steps.  qwen1.5 also runs widened (d_model 256) on int8
+weights against the reference's `quantize_serve_params`.
+
+Bars: tokens and retained lengths equal; the logits (the ranks' vocab
+columns, gathered here only) and the rank's cache corner within 1e-4
+(fp32: the MLP's and o-projection's partial sums add in another order);
+the cache's lengths and positions equal; per decode step over ``model``
+2·L + 1 all-reduces of (B / data, d_model) and one all-gather of (B /
+data, 2) argmax pairs, over ``data`` nothing, or with ``weights_2d`` one
+all-gather per weight read.  `vocab_argmax`: a tie across two vocab shards
+picks the lowest id, a padded column is never picked.
+"""
+from __future__ import annotations
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.cache.slot_cache import PlanArrays as JPlanArrays
+from repro.compression.base import CompressionConfig as JCompression
+from repro.launch import specs as jspecs
+from repro.models import transformer as JM
+from repro.serving import engine as JE
+from repro.serving import quant as jq
+from repro_torch import configs
+from repro_torch.configs import SHAPES, get_config
+from repro_torch.distributed.param_specs import (local_shard, localize_scales, shard_shape,
+                                                 tree_specs)
+from repro_torch.distributed.sharding import Split, StepShards, serve_rules
+from repro_torch.launch import specs
+from repro_torch.launch.mesh import Group, Mesh
+from repro_torch.models import layers as L
+from repro_torch.serving import engine as E
+from repro_torch.serving.quant import QTensor, quantize_serve_params
+from tests import _torch_mesh_ranks as R
+
+torch.set_num_threads(2)
+TOL = 1e-4
+ARCHS = ["minitron-8b", "gemma2-9b", "granite-3-2b", "qwen1.5-110b"]
+# (arch, widened, int8) per weight set; the spawns' cases add weights_2d
+WEIGHTS = [(a, False, False) for a in ARCHS] + [("qwen1.5-110b", True, True)]
+CASES = {"1x2": [w + (False,) for w in WEIGHTS],
+         "2x4": [w + (w2,) for w in WEIGHTS for w2 in (False, True)]}
+
+
+def case_id(case) -> str:
+    arch, wide, int8, w2 = case
+    return arch + ("-int8" if int8 else "") + ("-weights_2d" if w2 else "")
+
+
+# ---------------------------------------------------------------------------
+# the reference side
+# ---------------------------------------------------------------------------
+
+
+def weights_tree(arch: str, wide: bool) -> dict:
+    """The reference's fp32 smoke weights as numpy, qkv biases non-zero."""
+    jcfg = R.tp_model(jconfigs, arch, wide)
+    tree = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0),
+                                                   dtype=jnp.float32))
+    rng = np.random.default_rng(0)
+    for pl in tree["layers"]:
+        for key in ("bq", "bk", "bv"):
+            if key in pl:
+                pl[key] = (0.5 * rng.standard_normal(pl[key].shape)).astype(np.float32)
+    return tree
+
+
+def reference_run(tree: dict, arch: str, wide: bool, int8: bool) -> dict:
+    """The reference's single-device `prefill` then `R.TP_STEPS` decode
+    steps (jitted) on the slotified (and int8) tree: tokens (steps + 1, B),
+    logits (steps + 1, B, V), lengths (L, Hkv, B) and the final cache."""
+    jcfg = R.tp_model(jconfigs, arch, wide)
+    ccfg = JCompression(**R.TP_COMP)
+    plan = jspecs.cell_plan(jcfg, R.TP_PLAN_SHARDS, batch_cap=R.TP_B)
+    sp = JE.slotify_params(jax.tree.map(jnp.asarray, tree), plan, jcfg)
+    if int8:
+        sp = jq.quantize_serve_params(sp)
+    pa = JPlanArrays.from_plan(plan)
+    prefill = jax.jit(lambda sp, t, pa: JE.prefill(sp, {"tokens": t}, jcfg, pa, ccfg))
+    decode = jax.jit(lambda sp, st, pa: JE.decode_step(sp, st, jcfg, pa, ccfg))
+    st, lg, lengths = prefill(sp, jnp.asarray(R.tp_prompts(jcfg.vocab_size), jnp.int32), pa)
+    tokens, logits = [st.last_tokens], [lg]
+    for _ in range(R.TP_STEPS):
+        st, lg = decode(sp, st, pa)
+        tokens.append(st.last_tokens)
+        logits.append(lg)
+    return {"tokens": np.stack(tokens), "logits": np.stack(logits),
+            "lengths": np.asarray(lengths),
+            "cache": {f: np.asarray(getattr(st.cache, f))
+                      for f in ("k", "v", "lengths", "pos", "positions")}}
+
+
+# ---------------------------------------------------------------------------
+# checks of the spawns' results (called by tests/test_torch_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+def check_case(ranks: list, want: dict, case, model: int, data: int) -> None:
+    arch, wide, int8, weights_2d = case
+    cfg = R.tp_model(configs, arch, wide)
+    n_v = cfg.padded_vocab // model
+    logits = np.full(want["logits"].shape, np.nan, np.float32)
+    rows_per, L = R.TP_B // data, cfg.n_layers
+    for got in ranks:
+        r, s = slice(*got["rows"]), slice(*got["slots"])
+        v = slice(got["model_idx"] * n_v, (got["model_idx"] + 1) * n_v)
+        assert got["int8"] == int8
+        assert np.array_equal(np.stack(got["tokens"]), want["tokens"][:, r])
+        assert np.array_equal(got["lengths"], want["lengths"][..., r])
+        logits[:, r, v] = np.stack(got["logits"])
+        c, w = got["cache"], want["cache"]
+        for f in ("lengths", "pos"):
+            assert np.array_equal(c[f], w[f][:, s, r]), f
+        assert np.array_equal(c["positions"], w["positions"][r])
+        for f in ("k", "v"):
+            np.testing.assert_allclose(c[f], w[f][:, s, r], rtol=TOL, atol=TOL)
+        # the decode contract
+        coll = got["collectives"]
+        ar, ag = coll["model"]["all_reduce"], coll["model"]["all_gather"]
+        assert ar["calls"] == 2 * L + 1 and ar["elements"] == ar["calls"] * rows_per * cfg.d_model
+        assert ag["calls"] == 1 and ag["elements"] == rows_per * 2 * model
+        if weights_2d:
+            # every weight read gathers its d_model shards: 4 attention and
+            # 3 MLP weights a layer, the embedding and the head
+            assert set(coll["data"]) == {"all_gather"}
+            assert coll["data"]["all_gather"]["calls"] == 7 * L + 2
+        else:
+            assert "data" not in coll and "data" not in got["prefill_collectives"]
+    np.testing.assert_allclose(logits, want["logits"], rtol=TOL, atol=TOL)
+
+
+def check_argmax(ranks: list) -> None:
+    """`vocab_argmax` over two shards equals the plain argmax over the real
+    vocab: the cross-shard tie goes to id 3, the in-shard tie to id 10, the
+    padded column's 100 is passed over, an all-tied row picks 0."""
+    for got, want in ranks:
+        assert np.array_equal(got, want)
+        assert got[0] == 3 and got[1] == 10 and got[2] < 14 and got[3] == 0
+
+
+# ---------------------------------------------------------------------------
+# tests without ranks
+# ---------------------------------------------------------------------------
+
+
+def rank_meshes(model: int, data: int) -> list:
+    """A `Mesh` value per rank of a (data, model) mesh, without process
+    groups (`local_shard` reads only the ranks' indices)."""
+    out = []
+    for r in range(model * data):
+        d, m = divmod(r, model)
+        out.append(Mesh(rank=r, world=model * data, model=model, data=data, model_idx=m,
+                        data_idx=d, model_group=Group(None, "model", model, m, "gloo"),
+                        data_group=Group(None, "data", data, d, "gloo"),
+                        device=torch.device("cpu"), backend="gloo"))
+    return out
+
+
+def _serve_tree():
+    """A slotified int8 serve tree (the widened qwen1.5 smoke config), its
+    whole-tree leaves by path, and its plan."""
+    cfg = R.tp_model(configs, "qwen1.5-110b", True)
+    plan = specs.cell_plan(cfg, R.TP_PLAN_SHARDS, batch_cap=R.TP_B)
+    from repro_torch.models.transformer import init_params
+    sp = quantize_serve_params(E.slotify_params(init_params(cfg, 0, torch.float32, "cpu"),
+                                                plan, cfg))
+    return cfg, sp, plan
+
+
+def _leaves(tree, spec, prefix=""):
+    """(path, leaf, spec) of a tree and its spec tree; a `QTensor` is one leaf."""
+    if isinstance(tree, (torch.Tensor, QTensor)):
+        yield prefix, tree, spec
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, spec[k], f"{prefix}/{k}")
+    else:
+        for i, v in enumerate(tree):
+            yield from _leaves(v, spec[i], f"{prefix}/{i}")
+
+
+def _place(whole: torch.Tensor, spec, mesh):
+    """The slice of ``whole`` that ``mesh``'s rank holds under ``spec``."""
+    idx = []
+    for d, phys in enumerate(spec):
+        if phys is None:
+            idx.append(slice(None))
+            continue
+        g = mesh.model_group if phys == "model" else mesh.data_group
+        n = whole.shape[d] // g.size
+        idx.append(slice(g.rank * n, (g.rank + 1) * n))
+    return tuple(idx)
+
+
+@pytest.mark.parametrize("weights_2d", [False, True])
+def test_local_shard_tiles_the_tree(weights_2d):
+    """On (data 2, model 4), every rank's `local_shard` of an int8 serve
+    tree has ``shard_shape(spec)`` leaves; put back at their places the
+    shards give the tree again, each element once (a scale along the dims
+    its codes split over ``model``; whole along ``data``), and a cut shard
+    holds no more storage than its elements; `localize_scales`
+    on the rules' layout (whole scales) cuts the same scales."""
+    cfg, sp, plan = _serve_tree()
+    rules = serve_rules({"data": 2, "model": 4}, weights_2d=weights_2d)
+    spec = tree_specs(sp, rules, "serve")
+    axes = {"data": 2, "model": 4}
+    whole = list(_leaves(sp, spec))
+    assert any(isinstance(w, QTensor) for _, w, _ in whole)
+    assert any("data" in s.q for _, w, s in whole if isinstance(w, QTensor)) == weights_2d
+    meshes = rank_meshes(4, 2)
+    back = {path: [torch.full(w.shape, float("nan")) for w in
+                   ((t.q.float(), t.scale) if isinstance(t, QTensor) else (t,))]
+            for path, t, _ in whole}
+    for mesh in meshes:
+        shards = {p: t for p, t, _ in _leaves(local_shard(sp, spec, mesh), spec)}
+        for path, t, s in whole:
+            got = shards[path]
+            if isinstance(t, QTensor):
+                assert tuple(got.q.shape) == shard_shape(tuple(t.q.shape), s.q, axes)
+                back[path][0][_place(t.q, s.q, mesh)] = got.q.float()
+                cut = tuple(p if p == "model" and n > 1 and n == m else None
+                            for p, n, m in zip(s.q, t.scale.shape, t.q.shape))
+                at = _place(t.scale, cut, mesh)
+                back[path][1][at] = got.scale
+                # the rules' layout (the dry run's arguments): codes cut,
+                # scale whole; localized, the same scale as local_shard's
+                ruled = QTensor(q=got.q, scale=t.scale)
+                loc = localize_scales({"w": ruled}, {"w": s}, mesh)["w"]
+                assert torch.equal(loc.scale, got.scale)
+            else:
+                assert tuple(got.shape) == shard_shape(tuple(t.shape), s, axes)
+                back[path][0][_place(t, s, mesh)] = got.to(back[path][0].dtype)
+            q = got.q if isinstance(got, QTensor) else got
+            if any(p is not None for p in (s.q if isinstance(t, QTensor) else s)):
+                # a cut shard owns its elements, not the whole leaf's storage
+                assert q.untyped_storage().nbytes() == q.numel() * q.element_size()
+    for path, t, _ in whole:
+        parts = (t.q.float(), t.scale) if isinstance(t, QTensor) else (t,)
+        for b, w in zip(back[path], parts):
+            assert torch.equal(b, w.to(b.dtype)), path
+
+
+def _split_shards(index: int, size: int) -> StepShards:
+    """`StepShards` of a rank ``index`` of ``size`` over vocab and ff with no
+    group: the layers' partial results, summed by the test."""
+    sp = Split(None, index, size)
+    return StepShards(mesh=None, vocab=sp, ff=sp, fsdp_w=Split(), kv_slot=Split(),
+                      batch=Split())
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_layers_on_shards_sum_to_the_whole(int8):
+    """`embed` / `unembed` / `swiglu` on each of 4 vocab / ff shards (no
+    collective: the test sums): the embedding's rows bitwise the whole
+    table's (an int8 table's per-row scale cut with its rows), the logits'
+    columns and SwiGLU's partial sums within 1e-5."""
+    g = torch.Generator().manual_seed(0)
+    V, D, F, n = 512, 256, 512, 4
+    table = torch.randn((V, D), generator=g) * 0.02
+    w1, w3 = torch.randn((D, F), generator=g) / 16, torch.randn((D, F), generator=g) / 16
+    w2 = torch.randn((F, D), generator=g) / 22
+    if int8:
+        qt = quantize_serve_params({"embed": table, "w1": w1, "w3": w3, "w2": w2})
+        table, w1, w3, w2 = qt["embed"], qt["w1"], qt["w3"], qt["w2"]
+    tokens = torch.randint(0, V, (3, 5), generator=g)
+    x = torch.randn((3, 5, D), generator=g)
+    spec = {"embed": ("model", None), "w1": (None, "model"), "w3": (None, "model"),
+            "w2": ("model", None)}
+    rows = mlp = 0
+    logits = []
+    for mesh in rank_meshes(n, 1):
+        sh = local_shard({"embed": table, "w1": w1, "w3": w3, "w2": w2},
+                         {k: (QTensor(q=v, scale=None) if int8 else v) for k, v in spec.items()},
+                         mesh)
+        s = _split_shards(mesh.model_idx, n)
+        rows = rows + L.embed(tokens, sh["embed"], s)
+        logits.append(L.unembed(x, sh["embed"], 30.0, s))
+        mlp = mlp + L.swiglu(x, sh["w1"], sh["w3"], sh["w2"], s)
+    assert torch.equal(rows, L.embed(tokens, table))
+    torch.testing.assert_close(torch.cat(logits, dim=-1), L.unembed(x, table, 30.0),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(mlp, L.swiglu(x, w1, w3, w2), rtol=1e-5, atol=1e-5)
+
+
+def test_cell_step_refuses_other_cells():
+    """`build_cell(...).fn` refuses the cells A.14–A.16 cover, naming the
+    item, and a cell built for axis sizes only."""
+    from repro_torch.distributed import step_stats
+
+    axes = {"data": 2, "model": 4}
+    with step_stats.fake_tensors():
+        for arch, shape, item in (("granite-3-2b", "train_4k", "A.15"),
+                                  ("gemma2-9b", "long_500k", "A.14"),
+                                  ("granite-moe-1b-a400m", "decode_32k", "A.16"),
+                                  ("mamba2-1.3b", "prefill_32k", "A.16")):
+            cell = specs.build_cell(get_config(arch), SHAPES[shape], axes)
+            with pytest.raises(NotImplementedError, match=item):
+                cell.fn(*cell.args)
+        cell = specs.build_cell(get_config("granite-3-2b"), SHAPES["decode_32k"], axes)
+        with pytest.raises(NotImplementedError, match="axis sizes"):
+            cell.fn(*cell.args)
+    with pytest.raises(NotImplementedError, match="A.16"):
+        specs.serve_step("decode", get_config("mamba2-1.3b"), None, None, None, None, 1, 1)
