@@ -257,8 +257,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    allocated before the step's arguments), within 10%; (c) the
    single-mesh sweep of all ten archs at decode_32k (the fake 32k
    prefills take tens of seconds a cell): every cell ``ok``,
-   ``args_only`` or ``skipped``, none ``fail`` (the dense archs' cells
-   execute the cell step: phase 20 (c) reads them); prints the counts and
+   ``args_only`` or ``skipped``, none ``fail`` (the dense and MoE archs'
+   cells execute the cell step: phases 20 (c) and 21 (c) read them);
+   prints the counts and
    the phase's seconds;
 20. (after phase 19) the serve cells' step under ``serve_rules``
    (`repro_torch.launch.specs.serve_step`: `prefill` / `decode_step` on a
@@ -278,7 +279,36 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    (c) phase 19 (c)'s records of the four dense archs: each executed the
    cell step and held the contract, qwen1.5-110b's peak fits the card;
    prints args, peak and collectives and the phase's seconds;
-21. last line: {"ok": true, "device": {...}}.
+21. (after phase 20) long_500k's split-S decode and the MoE cells'
+   expert parallelism through the cell step, launches stated apart from
+   the kernel table: (a) gemma2-9b at full width cut to 4 of 42 layers
+   (two local, two global), B 1, policy none at capacity 131,072 (+ 64
+   ring columns; the cell's 524,288 cut so the local executor's whole
+   cache fits beside the ranks'), a state from seed 0 with per-(slot,
+   row) lengths from 100,000 to the capacity and each layer's first
+   owned slot full (its appends wrap the ring), 16 decode steps: the
+   local executor (graphed), one NCCL rank (data 1: the full-output
+   kernel) bitwise its tokens, logits, lengths and written entries, two
+   gloo ranks (data 2: the columns split, kernel 1's partial variant,
+   one (o, lse) all-gather a layer) with tokens equal, lengths, the
+   written entries' places, positions and layer 0's K / V bitwise, later
+   layers' K / V and the logits within n_layers 2^-8 max|value|, the
+   contract, first-step peaks within 5% of the fake prediction; the
+   partial kernel against its plain version on the local run's cache
+   (Dh 256, a global and a window layer, empty shards) and timed at C_loc
+   65,536 beside its bound, plain version and the efficient SDPA with
+   log-sum-exp, kernel 1 timed at (B 1, C 131,136); (b) phase 16's
+   granite-moe one-shot (full width and depth, fairkv_dp) through the
+   cell step: one NCCL rank bitwise the local executor, its prefill's
+   dropped replicas per layer equal to the local prefill's; two gloo
+   ranks (model 2, 16 experts a rank): the contract, expert / router /
+   vocab bytes halved, peaks within 5% of the prediction, the logit gap,
+   argmax agreement and drops reported beside phase 16's plan-to-plan
+   gap; (c) the five new dry-run cells' records (the MoE decode cells
+   from phase 19 (c), gemma2-9b long_500k and the MoE prefill_32k cells
+   from a subprocess started before phase 20): each executed its step
+   and held its contract;
+22. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -2632,7 +2662,7 @@ def frontend_goodput(ctx, admission, launches):
     admissions = eng.obs.metrics.counter_value("sched_admissions_total")
     expect = {"paged_fairkv_decode": m.n_layers * sched.decode_ticks,
               "snapkv_scores": m.n_layers * int(admissions), "fairkv_decode": 0,
-              "paged_fairkv_decode_mq": 0}
+              "paged_fairkv_decode_mq": 0, "fairkv_decode_partial": 0}
     if got != expect:
         fail(f"{name}: launches {got}, expected {expect} ({sched.decode_ticks} decode ticks, "
              f"{admissions:.0f} admissions)")
@@ -3747,7 +3777,7 @@ def family_oneshot(arch, b, t, modes=(("sha", 0), ("fairkv_dp", 4)), bias=False)
                seconds=time.perf_counter() - t0)
     ctx = {"cfg": cfg.replace(planner=family_config(arch, b, t, *modes[-1]).planner),
            "params": params, "profile": profile, "prompts": prompts,
-           "cache": eng.state.cache}
+           "cache": eng.state.cache, "results": results}
     del eng
     log(f"[family] {m.name} ({m.n_layers} layers{', cut in depth' if rec['cut'] else ''}, "
         f"{rec['params'] / 1e9:.2f} B parameters, B={b}, T={t}): "
@@ -3964,7 +3994,7 @@ def family_runs(rows):
             launches[k] = launches.get(k, 0) + v
 
     add(family_smoke_parity())
-    records = {}
+    records, p21_moe = {}, None
     # (b) gemma2-9b, full width and depth
     ctx, rec = family_oneshot("gemma2-9b", GEMMA_B, GEMMA_T)
     add({k: v for r in rec["runs"].values() for k, v in r["launches"].items()})
@@ -3991,6 +4021,13 @@ def family_runs(rows):
         rec["trace"] = {k: out[k] for k in ("finished", "decode_ticks", "step_ms_median",
                                             "tokens_per_s")}
         if ctx["cfg"].model.moe.num_experts:
+            # phase 21 (b) runs this one-shot through the cell step
+            res = ctx["results"]
+            p21_moe = {"cfg": ctx["cfg"], "profile": ctx["profile"],
+                       "prompts": ctx["prompts"]["tokens"], "slot_dp": res["fairkv_dp"],
+                       "teacher": res["sha"].tokens[:, :GEN],
+                       "plan_gap": rec["runs"]["fairkv_dp"]["logit_gap"],
+                       "plan_argmax": rec["runs"]["fairkv_dp"]["argmax_agree"]}
             try:
                 ctx["cfg"].replace(cache_backend="paged",
                                    speculation=SpeculationConfig(**SPEC_E))
@@ -4021,6 +4058,7 @@ def family_runs(rows):
     torch.cuda.empty_cache()
     log(f"[family] phase 16 took {time.perf_counter() - t0:.1f} s; launches {launches}")
     log("[family] summary " + json.dumps(records))
+    return p21_moe
 
 
 # ---------------------------------------------------------------------------
@@ -4727,9 +4765,10 @@ def p20_build(mesh, ref, init_device=None):
     del params
     sp_spec = tree_specs(sp, rules, "serve")
 
-    def mlp_vocab(tree):
-        leaves = [tree["embed"], tree.get("head")] + [pl[k] for pl in tree["layers"]
-                                                     for k in ("w1", "w2", "w3")]
+    def mlp_vocab(tree):  # the MLP's (or the experts' and router's) and vocab weights
+        leaves = [tree["embed"], tree.get("head")] + [
+            pl.get(k) for pl in tree["layers"]
+            for k in ("w1", "w2", "w3", "we1", "we2", "we3", "router")]
         return sum(t.numel() * t.element_size() for t in leaves if t is not None)
 
     whole = mlp_vocab(sp)
@@ -4803,14 +4842,15 @@ def p20_oneshot(mesh, ref, memory=False):
     return out
 
 
-def p20_contract(name, coll, m, model):
+def p20_contract(name, coll, m, model, tag="[p20]"):
     """The decode contract on one rank (``B`` rows, data 1): 2·L + 1
     all-reduces of (B, d_model) over model, one all-gather of (B, 2 x
-    model) argmax pairs, nothing over data."""
+    model) argmax pairs (and an MoE config's router gathers), nothing over
+    data."""
     from repro_torch.launch import dryrun
     got = dryrun.decode_contract(coll, m, B, model)
     if not all(got.values()):
-        fail(f"[p20] {name}: decode collectives {coll} break the contract {got}")
+        fail(f"{tag} {name}: decode collectives {coll} break the contract {got}")
 
 
 def p20_compare(name, run, ref, m):
@@ -4830,9 +4870,12 @@ def p20_compare(name, run, ref, m):
     return bitwise, gap, tol
 
 
-def p20_nccl(ref):
+def p20_nccl(ref, tag="[p20] (a)", what="phase 5's one-shot", bitwise_bar=False):
     """Phase 20 (a): phase 5's one-shot through the cell step on one NCCL
-    rank (model 1, data 1) against the local executor's run."""
+    rank (model 1, data 1) against the local executor's run (phase 21 (b):
+    phase 16's granite-moe one-shot, ``tag`` and ``what`` its log's, and
+    ``bitwise_bar`` failing unless tokens and logits are bitwise).  Returns
+    the run's launches and its record."""
     import tempfile
 
     import numpy as np
@@ -4848,21 +4891,23 @@ def p20_nccl(ref):
     bitwise, gap, tol = p20_compare("(a)", run, ref, m)
     slot = ref["slot_dp"]
     if not np.array_equal(run["tokens"], slot.tokens):
-        fail("[p20] (a): tokens differ from the local executor's")
+        fail(f"{tag}: tokens differ from the local executor's")
     if not np.array_equal(run["lengths"], slot.lengths):
-        fail("[p20] (a): prefill lengths differ from the local executor's")
-    p20_contract("(a)", run["collectives"], m, 1)
+        fail(f"{tag}: prefill lengths differ from the local executor's")
+    if bitwise_bar and not bitwise:
+        fail(f"{tag}: logits not bitwise the local executor's (gap {gap})")
+    p20_contract("one NCCL rank", run["collectives"], m, 1, tag)
     if run["launches"]["fairkv_decode"] != m.n_layers * GEN or \
             run["launches"]["snapkv_scores"] != m.n_layers:
-        fail(f"[p20] (a): launches {run['launches']}")
-    log(f"[p20] (a) one NCCL rank, the cell step on phase 5's one-shot (fairkv_dp, "
+        fail(f"{tag}: launches {run['launches']}")
+    log(f"{tag} one NCCL rank, the cell step on {what} (fairkv_dp, "
         f"{m.n_layers} layers, B {B} x {T}, {GEN} tokens): tokens equal, lengths bitwise, "
         f"logit gap {gap:.6f} (bar {tol:.4f}); {'bitwise' if bitwise else 'not bitwise'} the "
         f"local executor's; prefill {run['prefill_s']:.2f} s, eager decode step median "
         f"{run['step_ms']:.2f} ms (local graphed "
         f"{1e3 * statistics.median(slot.step_s):.2f}); per decode step "
         f"{run['collectives']}; launches {run['launches']}")
-    return run["launches"]
+    return run["launches"], run
 
 
 def p20_gloo_rank(mesh, ref):
@@ -4891,22 +4936,25 @@ def p20_prediction(ref):
     return {"prefill": pre.peak_bytes, "decode": dec.peak_bytes}
 
 
-def p20_gloo_start(ref):
+def p20_gloo_start(ref, rank_fn=None, model=P20_MODEL, data=1):
     """Phase 20 (b)'s ranks: two gloo ranks sharing the card (model
     ``P20_MODEL``, data 1, eager) run the same one-shot, spawned from a
     thread so that (a) runs meanwhile; returns ``join()``, which gives
-    the ranks' results (or raises what the spawn raised)."""
+    the ranks' results (or raises what the spawn raised).  Phase 21 passes
+    its own ``rank_fn(mesh, ref)``, mesh shape and ``ref``."""
     import tempfile
     import threading
 
     from repro_torch.launch.mesh import spawn
     box = {}
     # the ranks rebuild the seed weights; phase 5's logits stay here
-    sent = {k: ref[k] for k in ("cfg", "profile", "prompts", "teacher")}
+    sent = {k: ref[k] for k in ("cfg", "profile", "prompts", "teacher") if k in ref}
+    sent.update(ref.get("send", {}))
 
     def run():
         try:
-            box["ranks"] = spawn(p20_gloo_rank, model=P20_MODEL, data=1, backend="gloo",
+            box["ranks"] = spawn(rank_fn or p20_gloo_rank, model=model, data=data,
+                                 backend="gloo",
                                  device="cuda", args=(sent,),
                                  init_file=f"{tempfile.mkdtemp()}/rendezvous", timeout=600)
         except BaseException as e:  # handed to the caller by join()
@@ -5002,12 +5050,646 @@ def p20_runs(ref, records):
     predicted = p20_prediction(ref)
     join = p20_gloo_start(ref)
     t1 = time.perf_counter()
-    a = p20_nccl(ref)
+    a, _ = p20_nccl(ref)
     t2 = time.perf_counter()
     b = p20_gloo(ref, join(), predicted)
     p20_sweep(records)
     log(f"[p20] phase 20 took {time.perf_counter() - t0:.1f} s (prediction {t1 - t0:.1f} s, "
         f"(a) {t2 - t1:.1f} s beside (b)'s ranks); launches (a) {a}, (b) rank 0 {b}")
+
+
+# ---------------------------------------------------------------------------
+# phase 21: long_500k's split-S decode and the MoE cells' expert parallelism
+# ---------------------------------------------------------------------------
+
+# (a) gemma2-9b at full width cut to 4 of 42 layers (0 and 2 local, window
+# 4096; 1 and 3 global), B 1, policy none at capacity 131,072 (+ the
+# 64-column ring): the cell's 524,288 cut so that the local executor's
+# whole cache fits on the card beside the ranks' shards
+P21_LAYERS = 4
+P21_CAP = 131_072
+P21_LEN_MIN = 100_000  # per-(slot, row) lengths from here to the capacity
+P21_STEPS = 16
+P21_DATA = 2  # (a)'s gloo ranks: the columns split over data
+P21_PEAK_TOL = 0.05  # the ranks' peaks within 5% of the fake prediction
+P21_C_LOC = 65_536  # the partial kernel's timed shard
+
+
+def p21_long_setup():
+    """(model config, compression, plan) of (a): the cell's plan rule
+    (`specs.cell_plan`, 8 shards, B 1)."""
+    from repro_torch.compression.base import CompressionConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import specs
+    m = get_config("gemma2-9b").with_overrides(n_layers=P21_LAYERS)
+    ccfg = CompressionConfig(policy="none", budget=P21_CAP, capacity=P21_CAP,
+                             decode_margin=MARGIN)
+    return m, ccfg, specs.cell_plan(m, N_SHARDS, batch_cap=1)
+
+
+def p21_long_state(m, plan, ccfg, device, cols, fill=True):
+    """(a)'s decode state as the cell's tree, its columns ``cols`` (start,
+    stop) of every (slot, row): from seed 0, owned pairs hold lengths in
+    [P21_LEN_MIN, P21_CAP] and each layer's first owned slot is at the
+    static capacity (its first append wraps the ring); entry c sits at
+    position c, the row at position C; unowned pairs are empty.  The K / V
+    of each (layer, slot) come from a generator of their own over all C
+    columns, so every rank builds its columns of one cache.  ``fill=False``
+    leaves them uninitialised (fake tensors)."""
+    import torch
+    from repro_torch.cache.slot_cache import PlanArrays
+    L, S, Dh = m.n_layers, plan.n_slots, m.head_dim
+    C = ccfg.static_capacity()
+    c0, c1 = cols
+    dev = torch.device(device)
+    k = torch.empty((L, S, 1, c1 - c0, Dh), dtype=torch.bfloat16, device=dev)
+    v = torch.empty_like(k)
+    lengths = torch.empty((L, S, 1), dtype=torch.int32, device=dev)
+    pos = torch.empty((L, S, 1, c1 - c0), dtype=torch.int32, device=dev)
+    if fill:
+        own = PlanArrays.from_plan(plan, device=dev).owner_mask_all(1)  # (L, S, 1)
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        ln = torch.randint(P21_LEN_MIN, P21_CAP + 1, (L, S, 1), generator=g, device=dev)
+        first = own[:, :, 0].to(torch.int32).argmax(dim=1)
+        ln[torch.arange(L, device=dev), first, 0] = C
+        lengths.copy_(torch.where(own, ln, 0))
+        cols_ix = torch.arange(c0, c1, dtype=torch.int32, device=dev)
+        pos.copy_(torch.where(cols_ix < lengths[..., None], cols_ix, -1))
+        for i in range(L):
+            for j in range(S):
+                for t, off in ((k, 0), (v, 1)):
+                    g.manual_seed(SEED + 1 + 2 * (i * S + j) + off)
+                    full = torch.randn((C, Dh), generator=g, device=dev, dtype=torch.bfloat16)
+                    t[i, j, 0].copy_(full[c0:c1])
+                    del full
+    return {"cache": {"k": k, "v": v, "lengths": lengths, "pos": pos,
+                      "positions": torch.full((1,), C, dtype=torch.int32, device=dev)},
+            "last_tokens": torch.ones((1,), dtype=torch.int64, device=dev),
+            "decode_steps": 0}
+
+
+def _p21_written(cache, c0, C):
+    """The cache entries this run wrote (position >= C, the row's position
+    at the start): (keys (n, 3) of layer, slot, global column; k, v, pos)
+    as numpy, sorted by key."""
+    import numpy as np
+    import torch
+    at = torch.nonzero(cache.pos[:, :, 0] >= C)  # (n, 3): layer, slot, local column
+    li, si, ci = at.unbind(1)
+    key = torch.stack([li, si, ci + c0], dim=1).cpu().numpy()
+    vals = [cache.k[li, si, 0, ci].float().cpu().numpy(),
+            cache.v[li, si, 0, ci].float().cpu().numpy(), cache.pos[li, si, 0, ci].cpu().numpy()]
+    order = np.lexsort(key.T[::-1])
+    return key[order], [x[order] for x in vals]
+
+
+def p21_long_build(mesh, init_device=None, fill=True):
+    """(a)'s cell step on ``mesh``'s rank under ``serve_rules(long_context=
+    True)``: the rank's shards of the seed weights and plan arrays, its
+    columns of the state (`p21_long_state`) and the decode step."""
+    import dataclasses
+
+    import torch
+    from repro_torch.cache.slot_cache import PlanArrays
+    from repro_torch.distributed.param_specs import local_shard, tree_specs
+    from repro_torch.distributed.sharding import serve_rules, split
+    from repro_torch.launch import specs
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as S
+    m, ccfg, plan = p21_long_setup()
+    rules = serve_rules(mesh, long_context=True)
+    dev = init_device or mesh.device
+    sp = S.slotify_params(init_params(m, SEED, torch.bfloat16, device=dev), plan, m)
+    sp_spec = tree_specs(sp, rules, "serve")
+    sp = local_shard(sp, sp_spec, mesh)
+    pa = PlanArrays.from_plan(plan, device=dev)
+    pa = local_shard({f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)},
+                     specs.plan_specs(plan, rules), mesh)
+    C = ccfg.static_capacity()
+    sc = split(rules, mesh, "cache_len", C)
+    n_loc = C // sc.size
+    cols = (sc.offset(n_loc), sc.offset(n_loc) + n_loc)
+    state = p21_long_state(m, plan, ccfg, mesh.device, cols, fill)
+    if init_device is not None:  # fake tensors built on the host: to the mesh's device
+        sp, pa = (specs._to_device(x, mesh.device) for x in (sp, pa))
+    step = specs.serve_step("decode", m, ccfg, mesh, rules, sp_spec, plan.n_slots, 1)
+    return {"sp": sp, "pa": pa, "state": state, "step": step, "cols": cols, "C": C}
+
+
+def p21_long_steps(mesh, teacher, memory=False):
+    """(a) through the cell step on ``mesh``'s rank: `P21_STEPS` decode
+    steps fed ``teacher`` (the local executor's tokens).  Returns the
+    tokens, logits, lengths, the entries written, one step's collectives,
+    the launches, the median step ms and, with ``memory``, the first
+    step's ``max_memory_allocated`` above the memory allocated before its
+    arguments."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.distributed import comm
+    from repro_torch.kernels import build
+    base = torch.cuda.memory_allocated() if memory else 0
+    a = p21_long_build(mesh)
+    sp, pa, step = a["sp"], a["pa"], a["step"]
+    state = a["state"]
+    teacher = torch.as_tensor(teacher, dtype=torch.int64, device=mesh.device)
+    out, toks, logit_rows, step_s = {}, [], [], []
+    build.reset_launches()
+    with torch.inference_mode():
+        for t in range(P21_STEPS):
+            if t:
+                state = dataclasses.replace(state, last_tokens=teacher[t - 1:t])
+            if t == 0:
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            before = comm.snapshot()
+            t0 = time.perf_counter()
+            state, lg = step(sp, state, pa)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            if t == 0:
+                out["peak"] = torch.cuda.max_memory_allocated() - base
+                out["collectives"] = comm.by_kind(comm.since(before))
+            toks.append(int(state.last_tokens[0]))
+            logit_rows.append(lg[0].float().cpu().numpy())
+    out.update(tokens=np.array(toks), logits=np.stack(logit_rows),
+               lengths=state.cache.lengths.cpu().numpy(),
+               written=_p21_written(state.cache, a["cols"][0], a["C"]),
+               launches=dict(build.LAUNCHES), step_ms=1e3 * statistics.median(step_s),
+               cols=a["cols"])
+    return out
+
+
+def p21_long_local():
+    """(a)'s reference: the local executor's decode steps (graphed) on the
+    whole state, free-running from token 1.  Returns its tokens, logits,
+    lengths, written entries, launches, the final cache and plan arrays
+    (for the kernel checks)."""
+    import numpy as np
+    import torch
+    from repro_torch.cache.slot_cache import PlanArrays, SlotCache
+    from repro_torch.exec.local import LocalExecutor
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as S
+    m, ccfg, plan = p21_long_setup()
+    C = ccfg.static_capacity()
+    sp = S.slotify_params(init_params(m, SEED, torch.bfloat16, device="cuda"), plan, m)
+    pa = PlanArrays.from_plan(plan, device="cuda")
+    st = p21_long_state(m, plan, ccfg, "cuda", (0, C))
+    state = S.ServeState(cache=SlotCache(**st["cache"]), last_tokens=st["last_tokens"],
+                         decode_steps=0)
+    ex = LocalExecutor(m, ccfg, device="cuda")
+    toks, logit_rows = [], []
+    build.reset_launches()
+    with torch.inference_mode():
+        for _ in range(P21_STEPS):
+            state, lg = ex.decode(sp, state, pa)
+            toks.append(int(state.last_tokens[0]))
+            logit_rows.append(lg[0].float().cpu().numpy())
+    return {"tokens": np.array(toks), "logits": np.stack(logit_rows),
+            "lengths": state.cache.lengths.cpu().numpy(),
+            "written": _p21_written(state.cache, 0, C), "launches": dict(build.LAUNCHES),
+            "cache": state.cache, "n_layers": m.n_layers, "C": C}
+
+
+def p21_long_rank(mesh, args):
+    """One gloo rank of (a): the cell step on its columns."""
+    import torch
+    if mesh.rank:
+        sys.stdout = open(os.devnull, "w")  # rank 0 logs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = p21_long_steps(mesh, args["teacher"], memory=True)
+    return out
+
+
+def p21_long_prediction():
+    """(a)'s gloo ranks' peak, predicted on fake tensors on a fake (data
+    ``P21_DATA``, model 1) mesh: rank 0's first decode step."""
+    import torch
+    from repro_torch.distributed import step_stats
+    from repro_torch.launch.mesh import fake_process_group, make_production_mesh
+    with fake_process_group(P21_DATA), step_stats.fake_tensors(), torch.inference_mode():
+        mesh = make_production_mesh(model=1, data=P21_DATA)
+        a = p21_long_build(mesh, init_device="cpu", fill=False)
+        _, st = step_stats.measure(a["step"], (a["sp"], a["state"], a["pa"]), a["sp"],
+                                   a["state"], a["pa"])
+    return st.peak_bytes
+
+
+def _p21_same_written(name, got, want, bitwise=True, tag="[p21] (a)"):
+    """The entries a run wrote against the local executor's: the same
+    (layer, slot, column) keys and positions, and K / V bitwise; without
+    ``bitwise`` (split-S) only layer 0's K / V are bitwise (they come from
+    the fed token alone) and later layers' are within n_layers 2^-8
+    max|entry| (their inputs passed through the merged attention, whose
+    fp32 sums add in another order).  Returns the largest K / V gap."""
+    import numpy as np
+    (gk, gv), (wk, wv) = got, want
+    if not (np.array_equal(gk, wk) and np.array_equal(gv[2], wv[2])):
+        fail(f"{tag} {name}: the written entries' places or positions differ from the local "
+             f"executor's ({len(gk)} against {len(wk)} entries)")
+    first = wk[:, 0] == 0
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(gv[:2], wv[:2]))
+    bar = P21_LAYERS * 2.0 ** -8 * max(float(np.abs(b).max()) for b in wv[:2])
+    exact = all(np.array_equal(a[first if not bitwise else slice(None)],
+                               b[first if not bitwise else slice(None)])
+                for a, b in zip(gv[:2], wv[:2]))
+    if not exact or gap > (0.0 if bitwise else bar):
+        fail(f"{tag} {name}: written K / V differ from the local executor's: gap {gap} "
+             f"(bar {0.0 if bitwise else bar}; layer 0 bitwise {exact})")
+    return gap
+
+
+def p21_long_check(name, run, ref, data, tag="[p21] (a)"):
+    """Bars of a run of (a) against the local executor's: tokens equal,
+    lengths bitwise, the logit gap under n_layers 2^-8 max|logit|, the
+    contract (2·L + 1 all-reduces over model, the pair gather, L split-S
+    gathers over data when ``data`` > 1).  Returns (gap, bar, bitwise)."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+    m = get_config("gemma2-9b").with_overrides(n_layers=P21_LAYERS)
+    if not np.array_equal(run["tokens"], ref["tokens"]):
+        fail(f"{tag} {name}: tokens {run['tokens'].tolist()} differ from the local "
+             f"executor's {ref['tokens'].tolist()}")
+    if not np.array_equal(run["lengths"], ref["lengths"]):
+        fail(f"{tag} {name}: lengths differ from the local executor's")
+    tol = m.n_layers * 2.0 ** -8 * float(np.abs(ref["logits"]).max())
+    gap = float(np.abs(run["logits"] - ref["logits"]).max())
+    if not (np.isfinite(run["logits"]).all() and gap < tol):
+        fail(f"{tag} {name}: logit gap {gap} >= {tol} (or not finite)")
+    got = dryrun.decode_contract(run["collectives"], m, 1, 1, 1, split_s=data > 1)
+    if not all(got.values()):
+        fail(f"{tag} {name}: collectives {run['collectives']} break the contract {got}")
+    return gap, tol, bool(np.array_equal(run["logits"], ref["logits"]))
+
+
+def p21_kernel_rows(ref, rows, launches):
+    """The partial kernel against its plain version on (a)'s final cache
+    (Dh 256, G 2, B 1): the global layer 1 on columns [C_loc, 2 C_loc), the
+    window layer 0 on [0, C_loc) (every entry outside the window: empty
+    shards) and on [C_loc, 2 C_loc); o and lse within FP32_TOL + 1e-5|plain|,
+    the empty pairs' o = 0 and lse = -inf exactly.  Timed on the global
+    layer's shard (C_loc = 65,536) beside its bound, its plain version and
+    the efficient SDPA with log-sum-exp; kernel 1 timed at (B 1, C
+    131,136) on the whole global layer.  Adds the partial kernel's row to
+    ``rows`` and kernel 1's long-context time to its row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.cache.slot_cache import shard_lengths
+    from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda, fairkv_decode_partial_cuda
+    from repro_torch.kernels.ref import fairkv_decode_partial_ref, fairkv_decode_ref
+    from repro_torch.models.transformer import layer_window
+    from repro_torch.configs import get_config
+    m = get_config("gemma2-9b").with_overrides(n_layers=P21_LAYERS)
+    cache, C = ref["cache"], ref["C"]
+    S, G, Dh = cache.k.shape[1], m.q_per_kv, m.head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 21)
+    q = torch.randn((1, S, G, Dh), generator=gen, device="cuda").to(torch.bfloat16)
+    qpos = cache.positions
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    err = 0.0
+    cases = {}
+    for layer, c0 in ((1, P21_C_LOC), (0, 0), (0, P21_C_LOC)):
+        cols = slice(c0, c0 + P21_C_LOC)
+        k, v, kp = (t[layer, :, :, cols].contiguous() for t in (cache.k, cache.v, cache.pos))
+        ln = shard_lengths(cache.lengths[layer], c0, P21_C_LOC)
+        window = layer_window(m, layer)
+        args = (q, k, v, ln, m.attn_softcap)
+        kw = dict(k_pos=kp, q_pos=qpos, window=window)
+        o, lse = fairkv_decode_partial_cuda(*args, **kw)
+        o_ref, lse_ref = fairkv_decode_partial_ref(*args, **kw)
+        torch.cuda.synchronize()
+        empty = torch.isinf(lse_ref)
+        if not (torch.equal(torch.isinf(lse), empty) and bool((o[empty] == 0).all())):
+            fail(f"[p21] partial kernel (layer {layer}, columns {c0}+): empty pairs not "
+                 f"o = 0, lse = -inf")
+        live = ~empty
+        tag = f"fairkv_decode_partial (layer {layer}, window {window}, columns {c0}+)"
+        err = max(err, _cmp(tag, o, o_ref, FP32_TOL, 1e-5),
+                  _cmp(tag + " lse", torch.where(live, lse, 0.0),
+                       torch.where(live, lse_ref, 0.0), FP32_TOL, 1e-5))
+        cases[(layer, c0)] = (args, kw, int(empty.sum()), int(live.sum()))
+    log(f"[p21] partial kernel on (a)'s cache (B 1, S {S}, G {G}, Dh {Dh}, C_loc "
+        f"{P21_C_LOC}): o and lse within {FP32_TOL:g} + 1e-5|plain| of the plain version "
+        f"(max err {err:.3e}); empty / live (slot, head) pairs per case "
+        f"{ {k: (e, l) for k, (_, _, e, l) in cases.items()} }")
+    args, kw, _, _ = cases[(1, P21_C_LOC)]
+    q_, k, v, ln, cap = args
+    kern = time_ms(lambda: fairkv_decode_partial_cuda(*args, **kw), flush)
+    plain = time_ms(lambda: fairkv_decode_partial_ref(*args, **kw), flush)
+    it = k.element_size()
+    n_ret = int(ln.sum().item())
+    nbytes = n_ret * Dh * 2 * it + q.numel() * it + q.numel() * 4 + S * G * 4 + ln.numel() * 4
+    flops = 4 * n_ret * G * Dh
+    bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
+    lib = None
+    try:  # one PyTorch call with the same (o, lse): the efficient SDPA, length-masked
+        qs = q.permute(1, 0, 2, 3).reshape(S, G, 1, Dh)
+        ks = k.reshape(S, 1, P21_C_LOC, Dh).expand(S, G, P21_C_LOC, Dh)
+        vs = v.reshape(S, 1, P21_C_LOC, Dh).expand(S, G, P21_C_LOC, Dh)
+        mask = torch.arange(P21_C_LOC, device="cuda")[None, :] < ln.reshape(-1, 1)
+        bias = torch.where(mask, 0.0, float("-inf")).to(q.dtype)[:, None, None, :].expand(
+            S, G, 1, P21_C_LOC)
+        sdpa = torch.ops.aten._scaled_dot_product_efficient_attention
+
+        def call():
+            return sdpa(qs, ks, vs, bias, True)
+        call()
+        lib = time_ms(call, flush)
+    except Exception as e:  # noqa: BLE001 - no such call on this build: reported
+        log(f"[p21] the efficient SDPA with log-sum-exp did not run here ({type(e).__name__}: "
+            f"{e}); the partial kernel's library_ms is null")
+    rows.append({"name": "fairkv_decode_partial", "route": "cuda",
+                 "source": "src/repro_torch/csrc/fairkv_decode.cu",
+                 "replaces": "src/repro/kernels/fairkv_decode.py:107",
+                 "launches": launches, "max_abs_err": err, "ms": kern, "plain_ms": plain,
+                 "bound_ms": bound,
+                 "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
+                 else "operations", "library_ms": lib})
+    # kernel 1 on the whole global layer at long context
+    k1, v1, p1 = cache.k[1], cache.v[1], cache.pos[1]
+    ln1 = cache.lengths[1]
+    k1_ms = time_ms(lambda: fairkv_decode_cuda(q, k1, v1, ln1, m.attn_softcap), flush)
+    k1_ref = fairkv_decode_ref(q, k1, v1, ln1, m.attn_softcap)
+    _cmp("fairkv_decode (B 1, long context)", fairkv_decode_cuda(q, k1, v1, ln1, m.attn_softcap),
+         k1_ref, FP32_TOL, BF16_ULP)
+    n1 = int(ln1.sum().item())
+    b1 = n1 * Dh * 2 * it + 2 * q.numel() * it + ln1.numel() * 4
+    k1_bound = 1e3 * max(b1 / HBM_BYTES_PER_S, 4 * n1 * G * Dh / BF16_FLOP_PER_S)
+    for row in rows:
+        if row["name"] == "fairkv_decode":
+            row.update(ms_long_b1=k1_ms, bound_ms_long_b1=k1_bound)
+    log(f"[time] fairkv_decode_partial at (B 1, S {S}, G {G}, C_loc {P21_C_LOC}, Dh {Dh}) "
+        f"bf16, sum(lengths) = {n_ret}: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
+        f"efficient SDPA {lib if lib is None else f'{lib:.4f}'} ms, bound {bound:.4f} ms "
+        f"({nbytes} B); kernel 1 at (B 1, S {S}, C {C}): {k1_ms:.4f} ms, bound "
+        f"{k1_bound:.4f} ms (sum(lengths) = {n1})")
+
+
+def p21_long(rows):
+    """Phase 21 (a): the local executor, then the cell step on one NCCL
+    rank (data 1) while two gloo ranks (data ``P21_DATA``) share the card;
+    the partial kernel's checks and times on the local run's cache."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    predicted = p21_long_prediction()
+    ref = p21_long_local()
+    L = ref["n_layers"]
+    if ref["launches"]["fairkv_decode"] != L * P21_STEPS:
+        fail(f"[p21] (a) local executor launches {ref['launches']}")
+    wrapped = int((ref["written"][0][:, 2] >= ref["C"] - MARGIN).sum())
+    if not wrapped:
+        fail("[p21] (a) no append landed in the recency ring: nothing wrapped")
+    join = p20_gloo_start({"send": {"teacher": ref["tokens"]}}, rank_fn=p21_long_rank,
+                          model=1, data=P21_DATA)
+    dist.init_process_group("nccl", init_method=f"file://{tempfile.mkdtemp()}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        one = p21_long_steps(make_host_mesh(model=1, data=1), ref["tokens"])
+    finally:
+        dist.destroy_process_group()
+    gap, tol, bitwise = p21_long_check("one NCCL rank", one, ref, 1)
+    _p21_same_written("one NCCL rank", one["written"], ref["written"])
+    if not bitwise or one["launches"]["fairkv_decode"] != L * P21_STEPS \
+            or one["launches"]["fairkv_decode_partial"]:
+        fail(f"[p21] (a) one NCCL rank: logits bitwise {bitwise}, launches {one['launches']} "
+             f"(want {L * P21_STEPS} of kernel 1, none of the partial variant)")
+    log(f"[p21] (a) one NCCL rank (data 1), gemma2-9b {L} layers, B 1, C {ref['C']}, "
+        f"{P21_STEPS} steps: tokens, lengths, logits and {len(one['written'][0])} written "
+        f"entries ({wrapped} in the ring) bitwise the local executor's; eager step median "
+        f"{one['step_ms']:.2f} ms; per step {one['collectives']}; launches {one['launches']}")
+    ranks = join()
+    problems = []
+    for r, got in enumerate(ranks):
+        gap_r, tol_r, _ = p21_long_check(f"gloo rank {r}", got, ref, P21_DATA)
+        if got["launches"]["fairkv_decode_partial"] != L * P21_STEPS or \
+                got["launches"]["fairkv_decode"]:
+            problems.append(f"rank {r}: launches {got['launches']}")
+        off = abs(predicted - got["peak"]) / got["peak"]
+        if off > P21_PEAK_TOL:
+            problems.append(f"rank {r}: peak {got['peak']} B, predicted {predicted} B "
+                            f"({100 * off:.1f}% off)")
+        log(f"[p21] (a) gloo rank {r} (data {P21_DATA}, columns {got['cols']}): tokens equal, "
+            f"lengths bitwise, logit gap {gap_r:.5f} (bar {tol_r:.4f}); first step peak "
+            f"{got['peak']} B, predicted {predicted} B ({100 * off:.2f}%); eager step median "
+            f"{got['step_ms']:.2f} ms; per step {got['collectives']}; launches "
+            f"{got['launches']}")
+    keys = np.concatenate([g["written"][0] for g in ranks])
+    vals = [np.concatenate([g["written"][1][i] for g in ranks]) for i in range(3)]
+    order = np.lexsort(keys.T[::-1])
+    kv_gap = _p21_same_written("gloo ranks", (keys[order], [x[order] for x in vals]),
+                               ref["written"], bitwise=False)
+    if problems:
+        fail("[p21] (a) " + "; ".join(problems))
+    p21_kernel_rows(ref, rows, ranks[0]["launches"]["fairkv_decode_partial"])
+    ref = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[p21] (a) took {time.perf_counter() - t0:.1f} s; the gloo ranks' written entries: "
+        f"places, positions and layer 0's K / V bitwise the local executor's, later layers' "
+        f"K / V within {kv_gap:.5f}")
+    return ranks[0]["launches"]
+
+
+def _p21_drop_spy(m, n_calls, T_global):
+    """Wrap `repro_torch.models.moe.route` (both MoE blocks call it by name)
+    to record, for its first ``n_calls`` calls (the prefill's layers), the
+    replicas the reference's capacity drops: Σ_e max(0, count_e - Ce) over
+    the call's picks with ``Ce`` from ``T_global`` tokens (the rows are
+    whole: data 1).  Returns (the list it fills, an undo callable)."""
+    import torch
+    from repro_torch.models import moe
+    orig, drops = moe.route, []
+    ce = moe.expert_capacity(T_global, m)
+
+    def spy(x, router, top_k):
+        out = orig(x, router, top_k)
+        if len(drops) < n_calls:
+            counts = torch.bincount(out[2].reshape(-1), minlength=m.moe.num_experts)
+            drops.append(int(torch.clamp(counts - ce, min=0).sum()))
+        return out
+
+    moe.route = spy
+    return drops, lambda: setattr(moe, "route", orig)
+
+
+def p21_moe_rank(mesh, ref):
+    """One gloo rank of (b): phase 16's granite-moe one-shot through the
+    cell step, its prefill's drops recorded."""
+    import torch
+    if mesh.rank:
+        sys.stdout = open(os.devnull, "w")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m = ref["cfg"].model
+    drops, undo = _p21_drop_spy(m, m.n_layers, B * T)
+    try:
+        out = p20_oneshot(mesh, ref, memory=True)
+    finally:
+        undo()
+    out["drops"] = drops
+    return out
+
+
+def p21_moe_local_drops(ref):
+    """The local executor's prefill (eager, as it runs it) of (b)'s
+    one-shot, its drops per layer."""
+    import torch
+    from repro_torch.cache.slot_cache import PlanArrays
+    from repro_torch.core.planner import build_plan
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serving import engine as S
+    cfg = ref["cfg"]
+    m = cfg.model
+    plan = build_plan(ref["profile"], cfg.n_shards, cfg.planner)
+    sp = S.slotify_params(init_params(m, cfg.seed, torch.bfloat16, device="cuda"), plan, m)
+    pa = PlanArrays.from_plan(plan, device="cuda")
+    batch = {"tokens": torch.as_tensor(ref["prompts"], dtype=torch.int64, device="cuda")}
+    drops, undo = _p21_drop_spy(m, m.n_layers, B * T)
+    try:
+        with torch.inference_mode():
+            S.prefill(sp, batch, m, pa, cfg.compression)
+    finally:
+        undo()
+    del sp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return drops
+
+
+def p21_moe(ref):
+    """Phase 21 (b): phase 16's granite-moe one-shot (full width and
+    depth, fairkv_dp, B 8 x 2048, 32 tokens fed its teacher tokens) through
+    the cell step: one NCCL rank bitwise the local executor, two gloo
+    ranks (model 2, 16 experts a rank) with the contract, peaks within 5%
+    of the fake prediction, and the logit gap and argmax agreement beside
+    phase 16's plan-to-plan ones; the prefill's dropped replicas per layer
+    on each side."""
+    import numpy as np
+    t0 = time.perf_counter()
+    m = ref["cfg"].model
+    local_drops = p21_moe_local_drops(ref)
+    predicted = p20_prediction(ref)
+    join = p20_gloo_start(ref, rank_fn=p21_moe_rank)
+    drops, undo = _p21_drop_spy(m, m.n_layers, B * T)
+    try:
+        a, _ = p20_nccl(ref, "[p21] (b)", "phase 16's granite-moe one-shot", bitwise_bar=True)
+    finally:
+        undo()
+    if drops != local_drops:
+        fail(f"[p21] (b) one NCCL rank's dropped replicas per layer {drops} differ from the "
+             f"local executor's {local_drops}")
+    ranks = join()
+    n_v = m.padded_vocab // P20_MODEL
+    run = dict(ranks[0])
+    run["logits"] = np.concatenate([r["logits"] for r in ranks], axis=-1)
+    problems = []
+    for r, got in enumerate(ranks):
+        if got["logits"].shape[-1] != n_v or not np.array_equal(got["tokens"],
+                                                                ranks[0]["tokens"]):
+            problems.append(f"rank {r}: logits of {got['logits'].shape[-1]} columns or tokens "
+                            f"unlike rank 0's")
+        mine, whole = got["mlp_vocab_bytes"]
+        if 2 * mine != whole:
+            problems.append(f"rank {r}: expert, router and vocab weights {mine} B, not half "
+                            f"of {whole} B")
+        gaps = {step: abs(predicted[step] - got["peak"][step]) / got["peak"][step]
+                for step in ("prefill", "decode")}
+        problems += [f"rank {r} {step}: predicted peak {predicted[step]} B is "
+                     f"{100 * g:.1f}% off {got['peak'][step]} B"
+                     for step, g in gaps.items() if g > P21_PEAK_TOL]
+        log(f"[p21] (b) gloo rank {r}: expert, router and vocab weights {mine} B of {whole} B; "
+            + "; ".join(f"{step} peak {got['peak'][step]} B, predicted {predicted[step]} B "
+                        f"({100 * gaps[step]:.2f}%)" for step in ("prefill", "decode"))
+            + f"; per decode step {got['collectives']}; prefill drops per layer "
+            f"{got['drops']}")
+        p20_contract(f"rank {r}", got["collectives"], m, P20_MODEL, "[p21] (b)")
+    slot = ref["slot_dp"]
+    gap = float(np.abs(run["logits"] - slot.logits).max())
+    agree = float((run["logits"].argmax(-1) == slot.logits.argmax(-1)).mean())
+    if not np.isfinite(run["logits"]).all():
+        problems.append("the ranks' logits are not finite")
+    log(f"[p21] (b) two gloo ranks (model {P20_MODEL}): logit gap {gap:.4f} and argmax "
+        f"agreement {100 * agree:.1f}% against the local executor, beside phase 16's "
+        f"plan-to-plan gap {ref['plan_gap']:.4f} and agreement "
+        f"{100 * ref['plan_argmax']:.1f}% (reported, not a bar: bf16 rounding flips "
+        f"near-tied expert picks); prefill drops per layer: local {local_drops}, NCCL "
+        f"rank {drops}, gloo rank 0 {ranks[0]['drops']} "
+        f"({'equal' if ranks[0]['drops'] == local_drops else 'not equal'}); prefill "
+        f"{run['prefill_s']:.2f} s, decode step median {run['step_ms']:.2f} ms")
+    if problems:
+        fail("[p21] (b) " + "; ".join(problems))
+    log(f"[p21] (b) took {time.perf_counter() - t0:.1f} s")
+    return a, ranks[0]["launches"]
+
+
+# (c): the cells this slice adds to the dry run; the MoE decode cells come
+# from phase 19 (c)'s sweep, the others from a subprocess started before
+# phase 20 (fake prefills of 32k tokens take tens of seconds of host time)
+P21_MOE = ("granite-moe-1b-a400m", "qwen3-moe-30b-a3b")
+P21_DRY = ROOT / "chiprun_out" / "dryrun_p21"
+
+
+def p21_dryrun_start():
+    """Start the dry run of gemma2-9b's long_500k and the MoE archs'
+    prefill_32k cells on the single mesh in a subprocess (host only);
+    returns it."""
+    code = ("import sys; from repro_torch.launch import dryrun as d; "
+            f"o = {str(P21_DRY)!r}; "
+            "a = d.sweep(['gemma2-9b'], ['long_500k'], [False], 'fairkv_dp', o, "
+            "dev_bytes=d.H100_BYTES); "
+            f"b = d.sweep({list(P21_MOE)!r}, ['prefill_32k'], [False], 'fairkv_dp', o, "
+            "dev_bytes=d.H100_BYTES); "
+            "sys.exit(a['counts']['fail'] + b['counts']['fail'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def p21_dryrun(proc, records):
+    """Phase 21 (c): the five cells' records: each executed its step and
+    held its decode contract; prints args, peak and collectives."""
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        fail(f"[p21] (c) the dry run of the new cells failed:\n{out[-3000:]}")
+    recs = [r for r in records if r["arch"] in P21_MOE]
+    for name in ("gemma2-9b__long_500k__single.json",) + tuple(
+            f"{a}__prefill_32k__single.json" for a in P21_MOE):
+        recs.append(json.loads((P21_DRY / name).read_text()))
+    for rec in recs:
+        ex = rec.get("executed")
+        if rec.get("status") != "ok" or ex is None:
+            fail(f"[p21] (c) {rec['arch']} {rec['shape']} did not execute its step: "
+                 f"{rec.get('status')}")
+        if "contract" in ex and not all(ex["contract"].values()):
+            fail(f"[p21] (c) {rec['arch']} {rec['shape']}: contract {ex['contract']}")
+        log(f"[p21] (c) {rec['arch']} {rec['shape']} on (data 16, model 16), {ex['step']}: "
+            f"args {ex['memory']['argument_bytes']} B, peak {ex['memory']['peak_bytes']} B, "
+            f"fits {rec['fits']} ({rec['device_bytes']} B); collectives "
+            f"{ex['collectives_by_group']}")
+
+
+def p21_runs(rows, moe_ref, records, dry):
+    """Phase 21: (a) the long cell, (b) the MoE cell, (c) the new dry-run
+    records; prints the seconds and the launches (apart from the kernel
+    table, where the partial kernel's row carries (a)'s)."""
+    t0 = time.perf_counter()
+    la = p21_long(rows)
+    gc.collect()
+    lb_a, lb_b = p21_moe(moe_ref)
+    p21_dryrun(dry, records)
+    log(f"[p21] phase 21 took {time.perf_counter() - t0:.1f} s; launches (a) gloo rank 0 "
+        f"{la}, (b) NCCL {lb_a}, gloo rank 0 {lb_b}")
 
 
 def main() -> int:
@@ -5070,7 +5752,9 @@ def main() -> int:
         f"prefix phase: {prefix}; in the policy phase: {policies}; in the front-end "
         f"phase: {frontend})")
     for name, n in launches.items():
-        if n == 0:
+        # kernel 1's partial variant runs on phase 21's split-S path, which
+        # counts it apart
+        if n == 0 and name != "fairkv_decode_partial":
             fail(f"kernel {name} was never launched on the main path")
     for name in ("snapkv_scores", "paged_fairkv_decode"):
         if prefix[name] == 0:
@@ -5093,7 +5777,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 15")
-    family_runs(rows)
+    p21_moe_ref = family_runs(rows)
     # phase 17 after phase 16, its memory freed
     gc.collect()
     torch.cuda.empty_cache()
@@ -5109,7 +5793,19 @@ def main() -> int:
     mark("phase 18")
     records = p19_runs()
     mark("phase 19")
-    p20_runs(p20_ref, records)
+    # phase 21 (c)'s fake prefills run on the host beside phases 20 and 21
+    dry = p21_dryrun_start()
+    try:
+        p20_runs(p20_ref, records)
+        mark("phase 20")
+        gc.collect()
+        torch.cuda.empty_cache()
+        p21_runs(rows, p21_moe_ref, records, dry)
+    finally:
+        if dry.poll() is None:
+            dry.kill()
+            dry.wait()
+    mark("phase 21")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

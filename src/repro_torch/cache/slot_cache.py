@@ -133,6 +133,8 @@ def append_token(
     own: torch.Tensor,  # (S, B) bool
     decode_step: int,  # appends since prefill
     ring: int = 128,
+    offset: int = 0,
+    capacity: Optional[int] = None,
 ) -> None:
     """Append one token into layer ``layer`` for owned (slot, row) pairs,
     in place.
@@ -143,21 +145,40 @@ def append_token(
     The reference's ``onehot`` mode rewrites the whole (S, B, C, Dh) layer
     slice per step to get the same values; its ``scatter`` mode is this
     write.  Both agree with this bitwise.
+
+    Split-S decode: ``k`` / ``v`` / ``pos`` hold columns ``[offset, offset
+    + C_loc)`` of a cache of ``capacity`` columns, ``lengths`` and
+    ``positions`` are whole on every rank.  The write index is the whole
+    cache's (`ring_write_index` over the whole ``lengths``, so the recency
+    ring, the last ``ring`` columns, wraps on the last shard); only the
+    rank whose columns hold it writes, at ``index - offset``, and every
+    rank advances ``lengths``.
     """
-    L, S, B, C, Dh = cache.k.shape
+    L, S, B, C_loc, Dh = cache.k.shape
+    C = C_loc if capacity is None else capacity
     lengths = cache.lengths[layer]  # (S, B)
-    idx = ring_write_index(lengths, decode_step, C, ring).long()  # (S, B)
+    idx = ring_write_index(lengths, decode_step, C, ring).long() - offset  # (S, B)
+    mine = own & (idx >= 0) & (idx < C_loc)  # == own on a whole cache
+    idx = torch.clamp(idx, 0, C_loc - 1)
     dev = cache.k.device
     s_ix = torch.arange(S, device=dev)[:, None].expand(S, B)
     b_ix = torch.arange(B, device=dev)[None, :].expand(S, B)
     at = (s_ix, b_ix, idx)
     k_l, v_l, p_l = cache.k[layer], cache.v[layer], cache.pos[layer]
-    own_d = own[..., None]
-    k_l.index_put_(at, torch.where(own_d, k_new.to(k_l.dtype), k_l[at]))
-    v_l.index_put_(at, torch.where(own_d, v_new.to(v_l.dtype), v_l[at]))
+    mine_d = mine[..., None]
+    k_l.index_put_(at, torch.where(mine_d, k_new.to(k_l.dtype), k_l[at]))
+    v_l.index_put_(at, torch.where(mine_d, v_new.to(v_l.dtype), v_l[at]))
     p_new = cache.positions[None, :].expand(S, B)
-    p_l.index_put_(at, torch.where(own, p_new, p_l[at]))
+    p_l.index_put_(at, torch.where(mine, p_new, p_l[at]))
     lengths.copy_(torch.where(own, torch.clamp(lengths + 1, max=C), lengths))
+
+
+def shard_lengths(lengths: torch.Tensor, offset: int, n_local: int) -> torch.Tensor:
+    """A rank's valid prefix on its ``[offset, offset + n_local)`` columns
+    of a split-S cache, from the whole ``lengths``: ``clamp(lengths -
+    offset, 0, n_local)`` (int32).  The valid entries of a (slot, row) are
+    a prefix of the whole cache, so they are a prefix of every shard."""
+    return torch.clamp(lengths - offset, 0, n_local).to(torch.int32)
 
 
 def fill_from_selection(

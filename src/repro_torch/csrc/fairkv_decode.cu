@@ -65,6 +65,17 @@
 //     instructions, the shared shuffle trees add the same pairs, and an
 //     entry that is not applied becomes an exact no-op update; none of
 //     these changes a value.
+//
+// The partial variant (template flag PARTIAL, entry point
+// fairkv_decode_partial_launch) is split-S decode's kernel: the cache's
+// columns are split over ranks, each rank runs this kernel on its shard,
+// and the ranks' results merge outside it (merge_partials in
+// src/repro_torch/kernels/ref.py).  It is the same kernel up to the last
+// store: the same chains and the same 8-class merge, which then writes the
+// normalised fp32 output o (not rounded to q's dtype) and the pair's
+// log-sum-exp lse = mx + log(lsum) per head, fp32; a (slot, row) with no
+// valid entry writes o = 0 and lse = -inf.  PARTIAL is a template flag so
+// that the full-output instantiations compile exactly as before.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -92,6 +103,7 @@ __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
+__device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
 
 // warp_sum of N partial sums at once (N a power of two, at most 8), with
 // the same additions as N separate xor trees: at each offset o a lane adds
@@ -187,7 +199,7 @@ __device__ __forceinline__ void issue_stage(T* ring, const T* __restrict__ kb,
   }
 }
 
-template <typename T, int G, int J, bool FULL>
+template <typename T, int G, int J, bool FULL, bool PARTIAL>
 __global__ void __launch_bounds__(NWARPS * 32)
 fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
                      const T* __restrict__ k,          // (S, B, C, Dh)
@@ -195,7 +207,9 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
                      const int* __restrict__ lengths,  // (S, B)
                      const int* __restrict__ k_pos,    // (S, B, C) or null
                      const int* __restrict__ q_pos,    // (B,) or null
-                     T* __restrict__ out,              // (B, S, G, Dh)
+                     T* __restrict__ out,              // (B, S, G, Dh); null if PARTIAL
+                     float* __restrict__ part_o,       // PARTIAL: (B, S, G, Dh) fp32
+                     float* __restrict__ part_lse,     // PARTIAL: (B, S, G) fp32
                      float* __restrict__ acc_scr,      // (S*B, NCLS, G, Dh)
                      float* __restrict__ ml_scr,       // (S*B, NCLS, G, 2)
                      int* __restrict__ counters,       // (S*B,), zero between launches
@@ -222,9 +236,17 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
   const int len = lengths[sb];
   const size_t qo = (static_cast<size_t>(b) * S + s) * G * Dh;
   T* o = out + qo;
+  float* po = PARTIAL ? part_o + qo : nullptr;
+  float* plse = PARTIAL ? part_lse + (static_cast<size_t>(b) * S + s) * G : nullptr;
   if (len <= 0) {  // unowned (slot, row): exact zeros, no K/V traffic
-    if (part == 0)
-      for (int i = threadIdx.x; i < G * Dh; i += blockDim.x) store(o + i, 0.f);
+    if (part == 0) {
+      if constexpr (PARTIAL) {
+        for (int i = threadIdx.x; i < G * Dh; i += blockDim.x) po[i] = 0.f;
+        for (int i = threadIdx.x; i < G; i += blockDim.x) plse[i] = neg_inf();
+      } else {
+        for (int i = threadIdx.x; i < G * Dh; i += blockDim.x) store(o + i, 0.f);
+      }
+    }
     return;
   }
   const int cls0 = part * CPB;
@@ -406,19 +428,37 @@ fairkv_decode_kernel(const T* __restrict__ q,          // (B, S, G, Dh)
       lsum += ml_s[(w * G + gi) * 2 + 1] * f;
       a += __ldcg(acc_dst + w * G * Dh + i) * f;
     }
-    store(o + i, lsum > 0.f ? a / lsum : 0.f);
+    if constexpr (PARTIAL) {
+      po[i] = lsum > 0.f ? a / lsum : 0.f;
+    } else {
+      store(o + i, lsum > 0.f ? a / lsum : 0.f);
+    }
+  }
+  // each head's log-sum-exp, from the same (m, l) states; the loops stay
+  // rolled (unrolled, ptxas spilled the G = 4, Dh < 128 instantiations)
+  if constexpr (PARTIAL) {
+    for (int gi = threadIdx.x; gi < G; gi += blockDim.x) {
+      float mx = NEG_INF;
+#pragma unroll 1
+      for (int w = 0; w < NCLS; ++w) mx = fmaxf(mx, ml_s[(w * G + gi) * 2]);
+      float lsum = 0.f;
+#pragma unroll 1
+      for (int w = 0; w < NCLS; ++w)
+        lsum += ml_s[(w * G + gi) * 2 + 1] * expf(ml_s[(w * G + gi) * 2] - mx);
+      plse[gi] = lsum > 0.f ? mx + logf(lsum) : neg_inf();
+    }
   }
 }
 
 struct Args {
   const void* q; const void* k; const void* v; const int* lengths; const int* k_pos;
-  const int* q_pos; void* out; float* scratch; int* counters;
+  const int* q_pos; void* out; float* part_o; float* part_lse; float* scratch; int* counters;
   int B, S, C, Dh; float attn_cap; int window;
 };
 
-template <typename T, int G, int J, bool FULL>
+template <typename T, int G, int J, bool FULL, bool PARTIAL>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  auto kernel = fairkv_decode_kernel<T, G, J, FULL>;
+  auto kernel = fairkv_decode_kernel<T, G, J, FULL, PARTIAL>;
   static bool opted_in = false;  // the ring needs more than the 48 KB default
   if (!opted_in) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -435,29 +475,41 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   const dim3 grid(a.S * a.B, padded_group(G));
   kernel<<<grid, NWARPS * 32, layout<T, J>(G, a.Dh).total, stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      a.lengths, a.k_pos, a.q_pos, static_cast<T*>(a.out), a.scratch, ml_scr, a.counters,
+      a.lengths, a.k_pos, a.q_pos, static_cast<T*>(a.out), a.part_o, a.part_lse, a.scratch,
+      ml_scr, a.counters,
       a.B, a.S, a.C, a.Dh, scale, a.attn_cap, a.window, vec);
   return cudaGetLastError();
 }
 
-template <typename T, int J, bool FULL>
+template <typename T, int J, bool FULL, bool PARTIAL>
 cudaError_t dispatch_j(int G, const Args& a, cudaStream_t st) {
   switch (G) {
-    case 1: return launch<T, 1, J, FULL>(a, st);
-    case 2: return launch<T, 2, J, FULL>(a, st);
-    case 4: return launch<T, 4, J, FULL>(a, st);
-    case 5: return launch<T, 5, J, FULL>(a, st);
-    case 7: return launch<T, 7, J, FULL>(a, st);
-    case 8: return launch<T, 8, J, FULL>(a, st);
+    case 1: return launch<T, 1, J, FULL, PARTIAL>(a, st);
+    case 2: return launch<T, 2, J, FULL, PARTIAL>(a, st);
+    case 4: return launch<T, 4, J, FULL, PARTIAL>(a, st);
+    case 5: return launch<T, 5, J, FULL, PARTIAL>(a, st);
+    case 7: return launch<T, 7, J, FULL, PARTIAL>(a, st);
+    case 8: return launch<T, 8, J, FULL, PARTIAL>(a, st);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // Dh = 256: J = 8; Dh = 128: J = 4, FULL; below: J = 4 with lane guards
-template <typename T>
+template <typename T, bool PARTIAL>
 cudaError_t dispatch_g(int G, const Args& a, cudaStream_t st) {
-  if (a.Dh == 256) return dispatch_j<T, 8, true>(G, a, st);
-  return a.Dh == 128 ? dispatch_j<T, 4, true>(G, a, st) : dispatch_j<T, 4, false>(G, a, st);
+  if (a.Dh == 256) return dispatch_j<T, 8, true, PARTIAL>(G, a, st);
+  return a.Dh == 128 ? dispatch_j<T, 4, true, PARTIAL>(G, a, st)
+                     : dispatch_j<T, 4, false, PARTIAL>(G, a, st);
+}
+
+template <bool PARTIAL>
+int dispatch(const Args& a, int G, int dtype, void* stream) {
+  if (a.Dh < 1 || (a.Dh > 128 && a.Dh != 32 * MAXJ) || a.B < 1 || a.S < 1 || a.C < 1)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return dispatch_g<float, PARTIAL>(G, a, st);
+  if (dtype == 1) return dispatch_g<__nv_bfloat16, PARTIAL>(G, a, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -479,14 +531,22 @@ int fairkv_decode_launch(const void* q, const void* k, const void* v,
                          void* out, float* scratch, int* counters,
                          int B, int S, int G, int C, int Dh,
                          float attn_cap, int window, int dtype, void* stream) {
-  if (Dh < 1 || (Dh > 128 && Dh != 32 * MAXJ) || B < 1 || S < 1 || C < 1)
-    return cudaErrorInvalidValue;
-  const Args a{q, k, v, lengths, k_pos, q_pos, out, scratch, counters,
+  const Args a{q, k, v, lengths, k_pos, q_pos, out, nullptr, nullptr, scratch, counters,
                B, S, C, Dh, attn_cap, window};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return dispatch_g<float>(G, a, st);
-  if (dtype == 1) return dispatch_g<__nv_bfloat16>(G, a, st);
-  return cudaErrorInvalidValue;
+  return dispatch<false>(a, G, dtype, stream);
+}
+
+// The partial variant (split-S decode): the same inputs, scratch and
+// counters; writes o (B, S, G, Dh) fp32 and lse (B, S, G) fp32 in place of
+// out (header comment).
+int fairkv_decode_partial_launch(const void* q, const void* k, const void* v,
+                                 const int* lengths, const int* k_pos, const int* q_pos,
+                                 float* o, float* lse, float* scratch, int* counters,
+                                 int B, int S, int G, int C, int Dh,
+                                 float attn_cap, int window, int dtype, void* stream) {
+  const Args a{q, k, v, lengths, k_pos, q_pos, nullptr, o, lse, scratch, counters,
+               B, S, C, Dh, attn_cap, window};
+  return dispatch<true>(a, G, dtype, stream);
 }
 
 const char* fairkv_decode_error_string(int err) {

@@ -170,9 +170,11 @@ class StepShards:
     """The splits a serve step needs on one rank, resolved for its dims:
     ``vocab`` (the embedding's and head's rows), ``ff`` (the MLP's hidden
     dim), ``fsdp_w`` (every weight's d_model side, under ``weights_2d``),
-    ``kv_slot`` (the slot dim) and ``batch`` (the rows); ``mesh`` is the
-    rank's `repro_torch.launch.mesh.Mesh`.  The serve step's functions take
-    it as their ``shards`` argument."""
+    ``kv_slot`` (the slot dim), ``batch`` (the rows), ``cache_len`` (the
+    cache's columns: split-S decode under ``long_context``, over the batch
+    axes) and ``expert`` (the MoE experts); ``mesh`` is the rank's
+    `repro_torch.launch.mesh.Mesh`.  The serve step's functions take it as
+    their ``shards`` argument."""
 
     mesh: Any
     vocab: Split
@@ -180,6 +182,8 @@ class StepShards:
     fsdp_w: Split
     kv_slot: Split
     batch: Split
+    cache_len: Split = Split()
+    expert: Split = Split()
 
     def weight(self, w, dim: int):
         """``w`` (a tensor or `QTensor` shard) whole along its d_model dim
@@ -199,11 +203,18 @@ class StepShards:
 
 
 def step_shards(rules: ShardingRules, mesh, *, vocab: int, ff: int, d_model: int,
-                n_slots: int, batch: int) -> StepShards:
+                n_slots: int, batch: int, cache_len: int = 0,
+                experts: int = 0) -> StepShards:
     """`StepShards` of ``mesh``'s rank for a step whose global dims are
-    ``vocab`` (padded rows), ``ff``, ``d_model``, ``n_slots`` and ``batch``."""
+    ``vocab`` (padded rows), ``ff``, ``d_model``, ``n_slots``, ``batch``,
+    ``cache_len`` (the cache's columns) and ``experts`` (0: no such dim)."""
+    def opt(logical, dim):
+        return split(rules, mesh, logical, dim) if dim > 0 else Split()
+
     return StepShards(mesh=mesh, vocab=split(rules, mesh, "vocab", vocab),
                       ff=split(rules, mesh, "ff", ff),
                       fsdp_w=split(rules, mesh, "fsdp_w", d_model),
                       kv_slot=split(rules, mesh, "kv_slot", n_slots),
-                      batch=split(rules, mesh, "batch", batch))
+                      batch=split(rules, mesh, "batch", batch),
+                      cache_len=opt("cache_len", cache_len),
+                      expert=opt("expert", experts))

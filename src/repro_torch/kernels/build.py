@@ -45,7 +45,9 @@ SOURCES["paged_fairkv_decode_mq"] += tuple(
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# launch counters: one per library, and kernel 1's partial variant (split-S
+# decode), which its library also holds
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS + ("fairkv_decode_partial",)}
 # called with each tensor allocated out of a dispatch mode's sight
 ALLOC_LISTENERS: List[Callable] = []
 

@@ -10,11 +10,18 @@ what bounds it.
 The launch is the CUDA body of the custom op ``repro_torch::fairkv_decode``;
 its fake implementation gives the output and the split merge's scratch
 and counters, and its FLOP formula counts the plain version's products.
+
+`fairkv_decode_partial_cuda` (custom op ``repro_torch::fairkv_decode_partial``)
+is the same kernel's partial variant for split-S decode, whose plain
+version is `repro_torch.kernels.ref.fairkv_decode_partial_ref`: on one
+shard of the cache's columns it returns the fp32 output before the
+cross-shard normalisation and its log-sum-exp, which
+`repro_torch.kernels.ref.merge_partials` combines over the shards.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.flop_counter import register_flop_formula
@@ -22,6 +29,7 @@ from torch.utils.flop_counter import register_flop_formula
 from repro_torch.kernels import build
 
 NAME = "fairkv_decode"
+PARTIAL = "fairkv_decode_partial"  # the partial variant's launch counter
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # query heads per kv head the kernel is built for (5 and 7 split as 8, with
 # the missing heads masked inside the kernel)
@@ -50,6 +58,10 @@ def _launcher() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
+        part = lib.fairkv_decode_partial_launch
+        part.restype = ctypes.c_int
+        part.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.fairkv_decode_scratch_floats.restype = ctypes.c_longlong
         lib.fairkv_decode_scratch_floats.argtypes = [ctypes.c_int] * 4
         _LIB = lib
@@ -104,6 +116,23 @@ def fairkv_decode_cuda(
                                                q_pos, int(window))
 
 
+def fairkv_decode_partial_cuda(
+    q: torch.Tensor,  # (B, S, G, Dh) fp32 or bf16
+    k: torch.Tensor,  # (S, B, C_loc, Dh): the rank's shard of the columns
+    v: torch.Tensor,
+    lengths: torch.Tensor,  # (S, B) int32: the shard's valid prefix
+    attn_cap: float = 0.0,
+    k_pos: Optional[torch.Tensor] = None,  # (S, B, C_loc) int32
+    q_pos: Optional[torch.Tensor] = None,  # (B,) int32
+    window: int = 0,
+):
+    """Launch the partial variant; returns (o (B, S, G, Dh) fp32, lse
+    (B, S, G) fp32), `fairkv_decode_partial_ref`'s."""
+    _validate(q, k, v, lengths, k_pos, q_pos, window)
+    return torch.ops.repro_torch.fairkv_decode_partial(q, k, v, lengths, float(attn_cap),
+                                                       k_pos, q_pos, int(window))
+
+
 def _validate(q, k, v, lengths, k_pos, q_pos, window) -> None:
     B, S, G, Dh = q.shape
     C = k.shape[2]
@@ -130,27 +159,36 @@ def _validate(q, k, v, lengths, k_pos, q_pos, window) -> None:
         _require(t.is_contiguous(), "inputs must be contiguous")
 
 
-@torch.library.custom_op("repro_torch::fairkv_decode", mutates_args=(), device_types="cuda")
-def _fairkv_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      lengths: torch.Tensor, attn_cap: float, k_pos: Optional[torch.Tensor],
-                      q_pos: Optional[torch.Tensor], window: int) -> torch.Tensor:
+def _launch(entry: str, counter: str, outs, q, k, v, lengths, attn_cap, k_pos, q_pos,
+            window) -> None:
+    """Launch the library's ``entry`` (the full or partial variant) writing
+    to the pointers ``outs``, with the shared scratch and counters; count
+    the launch under ``counter``."""
     B, S, G, Dh = q.shape
     C = k.shape[2]
-    out = torch.empty_like(q)
     lib = _launcher()
     scratch = _buffer(_SCRATCH, q.device, lib.fairkv_decode_scratch_floats(B, S, G, Dh),
                       torch.float32)
     counters = _buffer(_COUNTERS, q.device, S * B, torch.int32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.fairkv_decode_launch(
+    err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         k_pos.data_ptr() if window > 0 else None,
         q_pos.data_ptr() if window > 0 else None,
-        out.data_ptr(), scratch.data_ptr(), counters.data_ptr(),
+        *outs, scratch.data_ptr(), counters.data_ptr(),
         B, S, G, C, Dh, float(attn_cap), int(window),
         _DTYPE_CODES[q.dtype], stream)
     build.check(lib, NAME, err)
-    build.LAUNCHES[NAME] += 1
+    build.LAUNCHES[counter] += 1
+
+
+@torch.library.custom_op("repro_torch::fairkv_decode", mutates_args=(), device_types="cuda")
+def _fairkv_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      lengths: torch.Tensor, attn_cap: float, k_pos: Optional[torch.Tensor],
+                      q_pos: Optional[torch.Tensor], window: int) -> torch.Tensor:
+    out = torch.empty_like(q)
+    _launch("fairkv_decode_launch", NAME, (out.data_ptr(),), q, k, v, lengths, attn_cap,
+            k_pos, q_pos, window)
     return out
 
 
@@ -163,9 +201,40 @@ def _(q, k, v, lengths, attn_cap, k_pos, q_pos, window):
     return out
 
 
+@torch.library.custom_op("repro_torch::fairkv_decode_partial", mutates_args=(),
+                         device_types="cuda")
+def _fairkv_decode_partial_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              lengths: torch.Tensor, attn_cap: float,
+                              k_pos: Optional[torch.Tensor], q_pos: Optional[torch.Tensor],
+                              window: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    o = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch("fairkv_decode_partial_launch", PARTIAL, (o.data_ptr(), lse.data_ptr()), q, k, v,
+            lengths, attn_cap, k_pos, q_pos, window)
+    return o, lse
+
+
+@_fairkv_decode_partial_op.register_fake
+def _(q, k, v, lengths, attn_cap, k_pos, q_pos, window):
+    B, S, G, Dh = q.shape
+    o = q.new_empty(q.shape, dtype=torch.float32)
+    lse = q.new_empty((B, S, G), dtype=torch.float32)
+    build.note_alloc(o, lse,
+                     q.new_empty((scratch_floats(B, S, G, Dh),), dtype=torch.float32),
+                     q.new_empty((S * B,), dtype=torch.int32))
+    return o, lse
+
+
 @register_flop_formula(torch.ops.repro_torch.fairkv_decode)
 def _flops(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
     """q·k and p·v over every one of the C cache columns, as the plain
     version's two products count."""
+    B, S, G, Dh = q_shape
+    return 4 * B * S * G * k_shape[2] * Dh
+
+
+@register_flop_formula(torch.ops.repro_torch.fairkv_decode_partial)
+def _flops_partial(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    """The full-output kernel's count over the shard's C_loc columns."""
     B, S, G, Dh = q_shape
     return 4 * B * S * G * k_shape[2] * Dh

@@ -32,6 +32,20 @@ def fairkv_decode(q, k, v, lengths, attn_cap: float = 0.0,
                                   q_pos=q_pos, window=window)
 
 
+def fairkv_decode_partial(q, k, v, lengths, attn_cap: float = 0.0,
+                          k_pos: Optional[torch.Tensor] = None,
+                          q_pos: Optional[torch.Tensor] = None, window: int = 0):
+    """Split-S decode attention over one shard of the cache's columns:
+    (o fp32, lse fp32) (see ref.fairkv_decode_partial_ref)."""
+    if q.is_cuda:
+        from repro_torch.kernels.fairkv_decode import fairkv_decode_partial_cuda
+        return fairkv_decode_partial_cuda(q, k, v, lengths, attn_cap, k_pos=k_pos,
+                                          q_pos=q_pos, window=window)
+    _plain_or_raise(q, "fairkv_decode_partial")
+    return _ref.fairkv_decode_partial_ref(q, k, v, lengths, attn_cap, k_pos=k_pos,
+                                          q_pos=q_pos, window=window)
+
+
 def snapkv_scores(q_obs, k, obs_positions, k_positions, attn_cap: float = 0.0):
     """Observation-window importance scores (see ref.snapkv_scores_ref)."""
     if q_obs.is_cuda:

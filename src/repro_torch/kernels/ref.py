@@ -63,6 +63,60 @@ def fairkv_decode_ref(
     return out.to(q.dtype)
 
 
+def fairkv_decode_partial_ref(
+    q: torch.Tensor,  # (B, S, G, Dh)
+    k: torch.Tensor,  # (S, B, C_loc, Dh): one shard of the cache's columns
+    v: torch.Tensor,  # (S, B, C_loc, Dh)
+    lengths: torch.Tensor,  # (S, B) int32: the shard's valid prefix
+    attn_cap: float = 0.0,
+    k_pos: Optional[torch.Tensor] = None,  # (S, B, C_loc)
+    q_pos: Optional[torch.Tensor] = None,  # (B,)
+    window: int = 0,
+):
+    """`fairkv_decode_ref` over one shard of the cache's columns (split-S
+    decode), before the softmax's normalisation across shards: returns the
+    shard's un-rounded fp32 output ``o`` (B, S, G, Dh), the softmax over
+    the shard's valid entries applied to its values, and their log-sum-exp
+    ``lse`` (B, S, G) fp32 of the (softcapped) scores.  A (slot, row) with
+    no valid entry on the shard gives ``o = 0`` and ``lse = -inf``.
+    `merge_partials` of every shard's pair, in shard order, is
+    `fairkv_decode_ref` over the whole cache."""
+    B, S, G, Dh = q.shape
+    C = k.shape[2]
+    scores = torch.einsum("bsgd,sbcd->bsgc", q.float(), k.float()) / math.sqrt(Dh)
+    if attn_cap > 0:
+        scores = attn_cap * torch.tanh(scores / attn_cap)
+    valid = (torch.arange(C, device=q.device)[None, None, :]
+             < lengths.T[..., None])  # (B, S, C)
+    if window > 0:
+        if k_pos is None or q_pos is None:
+            raise ValueError("window > 0 needs k_pos and q_pos")
+        valid &= k_pos.permute(1, 0, 2) > (q_pos[:, None, None] - window)
+    scores = torch.where(valid[:, :, None, :], scores, float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)  # -inf where nothing is valid
+    nonempty = valid.any(dim=-1)[:, :, None]  # (B, S, 1)
+    probs = torch.exp(scores - torch.where(nonempty, lse, 0.0)[..., None])
+    o = torch.einsum("bsgc,sbcd->bsgd", probs, v.float())
+    return o, lse
+
+
+def merge_partials(parts, dtype: torch.dtype) -> torch.Tensor:
+    """The whole cache's decode output from its shards' `fairkv_decode_partial_ref`
+    pairs ``parts`` = [(o_r, lse_r), ...] in shard order:
+    ``Σ_r exp(lse_r - M) o_r / Σ_r exp(lse_r - M)`` with ``M = max_r
+    lse_r``, cast once to ``dtype``.  Where every shard is empty (``M =
+    -inf``) the output is exactly 0, as `fairkv_decode_ref`'s ``nonempty``
+    rule gives, never a NaN."""
+    lse = torch.stack([p[1] for p in parts])  # (n, B, S, G)
+    m = lse.max(dim=0).values
+    live = m > float("-inf")
+    w = torch.exp(lse - torch.where(live, m, 0.0))  # an empty shard weighs 0
+    num = sum(w[r][..., None] * parts[r][0] for r in range(len(parts)))
+    den = w.sum(dim=0)
+    out = torch.where(live[..., None], num / torch.where(live, den, 1.0)[..., None], 0.0)
+    return out.to(dtype)
+
+
 def fairkv_decode_mq_ref(
     q: torch.Tensor,  # (B, S, Q, G, Dh): Q query positions per row per slot
     k: torch.Tensor,  # (S, B, C, Dh) slot-layout cache keys (post-RoPE)

@@ -8,14 +8,18 @@ For each cell this records, per rank:
   always;
 - ``executed``: where the port has a step for the cell, the cell's own
   step (``build_cell(...).fn``, the reference's: `decode_step` or
-  `prefill` on the rank's shards under ``serve_rules``, for the dense
-  family at decode_32k and prefill_32k) run once on rank 0 of the mesh on
-  fake tensors, on the cell's arguments, with its argument, output, temp
-  and peak bytes, FLOPs, bytes read and written and collectives
-  (`repro_torch.distributed.step_stats`); for a decode cell also its
-  ``contract``: 2·L + 1 all-reduces of (B / data, d_model) over ``model``
-  (the embedding, each layer's o-projection and MLP), one all-gather of
-  the argmax's (B / data, 2) pairs over it, nothing over ``data``;
+  `prefill` on the rank's shards under ``serve_rules``, for the dense and
+  MoE families at decode_32k and prefill_32k and gemma2-9b's long_500k)
+  run once on rank 0 of the mesh on fake tensors, on the cell's
+  arguments, with its argument, output, temp and peak bytes, FLOPs, bytes
+  read and written and collectives (`repro_torch.distributed.step_stats`);
+  for a decode cell also its ``contract`` (`decode_contract`): 2·L + 1
+  all-reduces of (B / data, d_model) over ``model`` (the embedding, each
+  layer's o-projection and MLP or experts), one all-gather of the
+  argmax's (B / data, 2) pairs over it, and over ``data`` nothing for a
+  dense cell, the split-S (o, lse) pairs' one all-gather a layer at
+  long_500k, the expert counts' one a layer for MoE (which also gathers
+  its router's columns over ``model`` once a layer);
 - ``fits``: the executed step's peak (else the rules' arguments) within
   ``device_bytes``, the card's memory when one is present, else
   ``--device-bytes``.
@@ -72,22 +76,39 @@ def device_bytes(default: int = H100_BYTES) -> int:
 
 def executes(cfg: ModelConfig, shape_name: str) -> bool:
     """Whether the port has a step for the cell: the cell step serves the
-    dense family at decode_32k and prefill_32k."""
+    dense and MoE families at decode_32k and prefill_32k, and gemma2-9b at
+    long_500k."""
     return specs.cell_todo(cfg, SHAPES[shape_name]) is None
 
 
-def decode_contract(by_group: dict, cfg: ModelConfig, rows: int, model: int) -> dict:
-    """The dense decode cell step's collectives on a rank (``rows`` = B /
-    data, ``model`` ranks; the module docstring's contract), checked on a
-    `StepStats.by_group` record."""
+def decode_contract(by_group: dict, cfg: ModelConfig, rows: int, model: int,
+                    data: int = 1, split_s: bool = False) -> dict:
+    """The decode cell step's collectives on a rank (``rows`` = B / data
+    rows, ``model`` x ``data`` ranks, ``split_s`` under the long-context
+    rules; the module docstring's contract), checked on a
+    `StepStats.by_group` record: over ``model`` 2·L + 1 all-reduces of
+    (rows, d_model) and the argmax's pair gather, plus an MoE config's
+    router gather a layer when its experts split; over ``data`` one
+    all-gather a layer for split-S and one for MoE's counts when the rows
+    split, else nothing."""
+    L, E = cfg.n_layers, cfg.moe.num_experts
     over_model = by_group.get("model", {})
     ar, ag = over_model.get("all_reduce", {}), over_model.get("all_gather", {})
-    return {"model_all_reduce_2L_plus_1":
-            ar.get("calls") == 2 * cfg.n_layers + 1
-            and ar.get("elements") == ar["calls"] * rows * cfg.d_model,
-            "model_one_argmax_gather":
-            ag.get("calls") == 1 and ag.get("elements") == rows * 2 * model,
-            "nothing_over_data": not by_group.get("data")}
+    routers = L if E and model > 1 and E % model == 0 else 0
+    router_elems = routers * cfg.d_model * E
+    n_data = (L if split_s else 0) + (L if E and data > 1 else 0)
+    over_data = by_group.get("data", {})
+    out = {"model_all_reduce_2L_plus_1":
+           ar.get("calls") == 2 * L + 1 and ar.get("elements") == ar["calls"] * rows * cfg.d_model,
+           "model_one_argmax_gather":
+           ag.get("calls") == 1 + routers
+           and ag.get("elements") == rows * 2 * model + router_elems}
+    if n_data:
+        out["data_one_all_gather_per_layer" if n_data == L else "data_all_gathers"] = (
+            set(over_data) == {"all_gather"} and over_data["all_gather"]["calls"] == n_data)
+    else:
+        out["nothing_over_data"] = not over_data
+    return out
 
 
 def _executor(cfg, mesh, ccfg):
@@ -148,8 +169,11 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, planner_mode: str = "f
             rec["executed"] = {"step": f"repro_torch.serving.engine.{step} (build_cell(...).fn)",
                                "seconds": round(time.time() - t0, 2), **st.record()}
             if cell.kind == "decode":
+                long_ctx = shape_name == "long_500k"
+                rows = shape.global_batch // (1 if long_ctx else mesh.data)
                 rec["executed"]["contract"] = decode_contract(
-                    st.by_group, cfg, shape.global_batch // mesh.data, mesh.model)
+                    st.by_group, cfg, rows, mesh.model, 1 if long_ctx else mesh.data,
+                    split_s=long_ctx)
             rec.update(status="ok", fits=st.peak_bytes <= dev_bytes)
         else:
             rec.update(status="args_only", fits=arg <= dev_bytes,

@@ -17,11 +17,13 @@ leaf's shard shape.  ``arg_bytes_per_rank`` sums them: the reference's
 reference's arguments (int32 tokens, positions and plan arrays).
 
 The cell's step, ``CellArtifacts.fn`` (the reference's), is `serve_step`
-for the dense family's decode_32k and prefill_32k cells: the port's own
-`decode_step` / `prefill` on the rank's shards, explicit SPMD in place of
-the reference's GSPMD partition (`repro_torch.serving.engine`'s module
-docstring has its collectives).  The other cells' ``fn`` refuses them
-with the ROADMAP item that would run them (`cell_todo`).
+for the dense and MoE families' decode_32k and prefill_32k cells and the
+dense family's long_500k: the port's own `decode_step` / `prefill` on the
+rank's shards, explicit SPMD in place of the reference's GSPMD partition
+(`repro_torch.serving.engine`'s module docstring has its collectives;
+long_500k is split-S decode, MoE runs expert parallel).  The other cells'
+``fn`` refuses them with the ROADMAP item that would run them
+(`cell_todo`).
 
 `executor_args` builds what the port's `MeshExecutor` itself holds on a
 rank of a mesh (its slot weights, the rest replicated, its cache corner),
@@ -239,21 +241,21 @@ def tree_bytes(tree) -> int:
 
 # the later slice that would run each kind of cell the port has no step for
 TODO = {
-    "long": "A.14: long_500k's split-S decode (cache_len over data)",
     "train": "A.15: the sharded train step per train_rules (FSDP x TP)",
-    "family": "A.16: the non-dense families on the mesh (MoE needs expert parallelism)",
+    "family": "A.16: the SSM, hybrid, encoder-decoder and VLM families on the mesh",
 }
+# the families `serve_step` runs
+STEP_FAMILIES = ("dense", "moe")
 
 
 def cell_todo(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
     """The ROADMAP item a cell waits for, or None when `serve_step` runs it
-    (the dense family at decode_32k and prefill_32k)."""
+    (the dense and MoE families at decode_32k and prefill_32k, and at
+    long_500k where the arch runs it: gemma2-9b)."""
     if shape.kind == "train":
         return TODO["train"]
-    if cfg.family != "dense" or cfg.moe.num_experts or cfg.attention_free:
+    if cfg.family not in STEP_FAMILIES or cfg.attention_free:
         return TODO["family"]
-    if shape.name == "long_500k":
-        return TODO["long"]
     return None
 
 
@@ -278,11 +280,14 @@ def serve_step(kind: str, cfg: ModelConfig, ccfg: CompressionConfig, mesh,
     outputs: (state, logits shard) for ``"decode"``, (state, logits shard,
     lengths) for ``"prefill"``.  ``n_slots`` and ``batch`` are the global
     slot and row counts.  The state and plan arrays may be the cell's
-    trees or `ServeState` / `PlanArrays`."""
-    if cfg.family != "dense" or cfg.moe.num_experts or cfg.attention_free:
+    trees or `ServeState` / `PlanArrays`.  Under the long-context rules
+    the decode step is split-S over the ``cache_len`` group; an MoE
+    config's FFN runs expert parallel."""
+    if cfg.family not in STEP_FAMILIES or cfg.attention_free:
         raise NotImplementedError(f"{cfg.name}: {TODO['family']}")
     shards = step_shards(rules, mesh, vocab=cfg.padded_vocab, ff=cfg.d_ff,
-                         d_model=cfg.d_model, n_slots=n_slots, batch=batch)
+                         d_model=cfg.d_model, n_slots=n_slots, batch=batch,
+                         cache_len=ccfg.static_capacity(), experts=cfg.moe.num_experts)
     if kind == "prefill":
         def fn(serve_params, batch, plan_arrays):
             return _serve.prefill(localize_scales(serve_params, sp_spec, mesh), batch, cfg,

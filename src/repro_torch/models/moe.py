@@ -24,6 +24,13 @@ leaves to its backend:
 
 The expert products are plain batched GEMMs outside any Pallas kernel in the
 reference, so they go to ``torch.matmul`` here.
+
+On a rank's shards of a serve step (``shards``, a
+`repro_torch.distributed.sharding.StepShards`: the reference's
+``serve_rules``, experts over ``model``, tokens over ``data``) `moe_block`
+runs expert parallel and keeps the reference's drops exactly: capacity
+``Ce`` comes from the global token count, and a replica's slot in its
+expert is its place in the global token order (`_moe_block_shards`).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm
 from repro_torch.serving.quant import operands
 
 
@@ -85,39 +93,128 @@ def dispatch(top_idx: torch.Tensor, cfg: ModelConfig
     return order[pos], valid
 
 
-def moe_block(pl: dict, h: torch.Tensor, cfg: ModelConfig
+def moe_block(pl: dict, h: torch.Tensor, cfg: ModelConfig, shards=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, S, D) → (out (B, S, D), Switch load-balancing aux loss, fp32).
 
     ``T = B·S`` counts every row of the call, inactive and padded ones
-    included: the reference routes them too, so they take capacity."""
+    included: the reference routes them too, so they take capacity.
+    ``shards``: on a rank's shards (`_moe_block_shards`); with neither the
+    experts nor the tokens split it is this block, bitwise, and its output
+    goes through the all-reduce over ``model`` (a group of one) that the
+    step counts on every mesh."""
+    if shards is not None:
+        pl = {"router": pl["router"], "we1": shards.weight(pl["we1"], 1),
+              "we3": shards.weight(pl["we3"], 1), "we2": shards.weight(pl["we2"], 2)}
+        if shards.expert.size > 1 or shards.batch.size > 1:
+            return _moe_block_shards(pl, h, cfg, shards)
+        out, aux = moe_block(pl, h, cfg)
+        if shards.expert.group is not None:
+            out = comm.all_reduce_sum(out, shards.expert.group)
+        return out, aux
     B, S, D = h.shape
     E, K = cfg.moe.num_experts, cfg.moe.top_k
     T = B * S
-    dev = h.device
     x = h.reshape(T, D)
     probs, gate, top_idx = route(x, pl["router"], K)
 
     src, valid = dispatch(top_idx, cfg)
-    tok = src // K  # (E, Ce) token ids
-    wgt = gate.reshape(-1)[src] * valid
-
-    xg = x[tok]  # (E, Ce, D)
-    h1 = (F.silu(torch.matmul(*operands(xg, pl["we1"])))
-          * torch.matmul(*operands(xg, pl["we3"])))
-    y = torch.matmul(*operands(h1, pl["we2"]))  # (E, Ce, D)
-    y = y * wgt[..., None].to(y.dtype)
-
-    # deterministic combine: each kept replica lands on its own flat id
-    # (dropped ones on a dummy row), then a token's K replicas are summed
-    dst = torch.where(valid, src, T * K).reshape(-1)
-    buf = torch.zeros((T * K + 1, D), dtype=y.dtype, device=dev)
-    buf[dst] = y.reshape(-1, D)
-    out = buf[:T * K].reshape(T, K, D).sum(dim=1)
+    out = _experts(pl, x, gate, src, valid, K)
 
     # Switch load-balancing loss: E · Σ_e f_e · p̄_e
     f = _count(top_idx[:, 0], E).float() / T  # top-1 dispatch fraction
     aux = E * torch.sum(f * probs.mean(dim=0))
+    return out.reshape(B, S, D).to(h.dtype), aux
+
+
+def _experts(pl: dict, x: torch.Tensor, gate: torch.Tensor, src: torch.Tensor,
+             valid: torch.Tensor, K: int) -> torch.Tensor:
+    """The experts of ``pl`` (their (E', D, Fe) / (E', Fe, D) weights) on
+    their kept replicas: ``src`` (E', Ce') flat replica ids ``t·K + k``
+    into ``x`` (T, D), ``valid`` the kept ones, ``gate`` (T, K) their
+    weights.  Returns (T, D): each token's gate-weighted sum of its kept
+    replicas' outputs."""
+    T, D = x.shape
+    tok = src // K  # (E', Ce') token ids
+    wgt = gate.reshape(-1)[src] * valid
+    xg = x[tok]  # (E', Ce', D)
+    h1 = (F.silu(torch.matmul(*operands(xg, pl["we1"])))
+          * torch.matmul(*operands(xg, pl["we3"])))
+    y = torch.matmul(*operands(h1, pl["we2"]))  # (E', Ce', D)
+    y = y * wgt[..., None].to(y.dtype)
+    # deterministic combine: each kept replica lands on its own flat id
+    # (dropped ones on a dummy row), then a token's K replicas are summed
+    dst = torch.where(valid, src, T * K).reshape(-1)
+    buf = torch.zeros((T * K + 1, D), dtype=y.dtype, device=x.device)
+    buf[dst] = y.reshape(-1, D)
+    return buf[:T * K].reshape(T, K, D).sum(dim=1)
+
+
+def _moe_block_shards(pl: dict, h: torch.Tensor, cfg: ModelConfig, shards
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`moe_block` on one rank: its ``T_loc`` tokens (its batch rows, whole
+    across ``model``), its ``E / |expert|`` experts' weights and its
+    columns of the router.  Per call:
+
+    - the router's weight (D, E / |model|) is all-gathered over ``model``
+      (rather than the (T_loc, E / |model|) logits): it is D x E elements
+      a layer whatever the batch, where the logits grow with the tokens
+      (65,536 a rank at prefill_32k), and every rank then routes with the
+      whole weight, the product the local block computes, so no near-tied
+      pick depends on how the router was split;
+    - each rank counts its replicas per expert and their top-1 picks and
+      sums its probabilities; one all-gather over the batch group of those
+      (3 x E float64, counts exact) gives the global token count ``T``
+      (so the global ``Ce``, as the reference's), each expert's replicas
+      on the ranks before this one, and the global aux loss;
+    - replica (t, k) of expert e holds global slot ``prefix_e +`` its place
+      among the rank's replicas of e in token order (a stable sort, as the
+      reference's); it is kept iff that slot is below ``Ce``.  The batch
+      group's ranks hold consecutive rows, so this is the reference's slot;
+    - the rank runs its experts on its kept replicas (at most ``min(Ce,
+      T_loc)`` a expert: a token picks an expert once), combines them
+      without atomics as the local block does, and one all-reduce over
+      ``model`` sums the experts' outputs (none when the experts do not
+      split over ``model`` and every rank runs them all).
+    """
+    B, S, D = h.shape
+    E, K = cfg.moe.num_experts, cfg.moe.top_k
+    T_loc = B * S
+    dev = h.device
+    x = h.reshape(T_loc, D)
+    ex, rows = shards.expert, shards.batch
+    router = pl["router"]
+    if ex.size > 1:
+        router = comm.all_gather(router, ex.group, dim=1)
+    probs, gate, top_idx = route(x, router, K)
+    flat_e = top_idx.reshape(-1)
+    counts = _count(flat_e, E)
+    stats = torch.cat([counts.double(), _count(top_idx[:, 0], E).double(),
+                       probs.sum(dim=0).double()])  # (3E,)
+    if rows.size > 1:
+        every = comm.all_gather(stats[None], rows.group, dim=0)  # (n, 3E)
+        prefix = every[:rows.index, :E].sum(dim=0).long()
+        total = every.sum(dim=0)
+    else:
+        prefix = torch.zeros((E,), dtype=torch.int64, device=dev)
+        total = stats
+    T = T_loc * rows.size
+    ce = expert_capacity(T, cfg)
+
+    E_loc = E // ex.size
+    mine = slice(ex.index * E_loc, (ex.index + 1) * E_loc)
+    order = torch.sort(flat_e, stable=True).indices
+    starts = torch.cumsum(counts, dim=0) - counts
+    slot = torch.arange(min(ce, T_loc), device=dev)
+    valid = ((slot[None, :] < counts[mine, None])
+             & (prefix[mine, None] + slot[None, :] < ce))  # (E_loc, Ce_loc)
+    pos = torch.clamp(starts[mine, None] + slot[None, :], 0, T_loc * K - 1)
+    out = _experts(pl, x, gate, order[pos], valid, K)
+    if ex.group is not None:  # experts whole on every rank (E % |model| != 0): no sum
+        out = comm.all_reduce_sum(out, ex.group)
+
+    f, pbar = total[E:2 * E] / T, total[2 * E:] / T
+    aux = (E * torch.sum(f * pbar)).float()
     return out.reshape(B, S, D).to(h.dtype), aux
 
 

@@ -163,12 +163,10 @@ def layer_window(cfg: ModelConfig, layer_idx: int) -> int:
 
 def mlp_block(pl: dict, h: torch.Tensor, cfg: ModelConfig, shards=None) -> torch.Tensor:
     """The FFN: SwiGLU, or the MoE block for MoE configs (serving drops
-    its aux loss).  ``shards``: a rank's `L.swiglu` shard (dense only)."""
+    its aux loss).  ``shards``: a rank's shard of either (`L.swiglu` over
+    ``ff``, `moe_block`'s expert parallelism over ``expert``)."""
     if cfg.moe.num_experts > 0:
-        if shards is not None:
-            raise NotImplementedError("the MoE block on a mesh rank's shards needs expert "
-                                      "parallelism (ROADMAP A.16)")
-        return moe_block(pl, h, cfg)[0]
+        return moe_block(pl, h, cfg, shards)[0]
     return L.swiglu(h, pl["w1"], pl["w3"], pl["w2"], shards)
 
 

@@ -73,7 +73,16 @@ embedding and the MLP) and the next tokens from a distributed argmax
 (`vocab_argmax`); the logits stay the rank's vocab columns, as the
 reference leaves them sharded.  Under ``weights_2d`` each weight is
 all-gathered whole along d_model over ``data`` just before its product.
-The dense family only (A.16 covers the others).
+The MoE family runs its FFN expert parallel
+(`repro_torch.models.moe.moe_block` on shards: experts over ``model``,
+each layer's expert counts all-gathered over ``data``).  Under
+``serve_rules(long_context=True)`` (long_500k: B 1, the cache's columns
+split over the batch axes) `decode_step` is split-S decode: each rank
+appends to and attends over its shard of the columns
+(``kernels.ops.fairkv_decode_partial``), the shards' (o, lse) pairs are
+all-gathered over the ``cache_len`` group, one collective a layer, and
+every rank merges them in rank order (`kernels.ref.merge_partials`).
+The dense and MoE families (A.16 covers the others).
 """
 from __future__ import annotations
 
@@ -97,6 +106,7 @@ from repro_torch.cache.slot_cache import (
     reset_rows,
     row_index,
     rows_to_mask,
+    shard_lengths,
 )
 from repro_torch.compression.base import CompressionConfig, pool_scores
 from repro_torch.compression.policies import select as policy_select
@@ -105,6 +115,7 @@ from repro_torch.core.placement import HeadPlacement
 from repro_torch.core.planner import draft_plan
 from repro_torch.distributed import comm
 from repro_torch.kernels import ops as K
+from repro_torch.kernels.ref import merge_partials
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSD
 from repro_torch.models import transformer as M
@@ -632,7 +643,12 @@ def decode_step(
     shards under the serve rules (module docstring): per rank, over
     ``model``, 2·L + 1 all-reduces of (B, d_model) (the embedding, then
     each layer's o-projection and MLP) and one all-gather of the argmax's
-    (B, 2) pairs; the logits are the rank's vocab columns.
+    (B, 2) pairs; the logits are the rank's vocab columns.  Split-S
+    (``shards.cache_len``, the long-context rules) adds one all-gather of
+    the attention's (o, lse) pairs a layer over the ``cache_len`` group;
+    the MoE family's FFN adds one all-gather of its router's columns over
+    ``model`` and one of its expert counts over ``data`` a layer (its
+    outputs' all-reduce over ``model`` takes the MLP's place).
 
     The SSM and hybrid families update ``ssm_state`` / ``conv_state`` in
     place on every row (a retired row's are overwritten by the next
@@ -686,9 +702,9 @@ def decode_step(
 
 
 def _shards_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe.num_experts or cfg.attention_free:
+    if cfg.family not in ("dense", "moe") or cfg.attention_free:
         raise NotImplementedError(
-            f"the serve step on a rank's shards supports the dense family, got "
+            f"the serve step on a rank's shards supports the dense and MoE families, got "
             f"{cfg.family!r} ({cfg.name}): the other families on the mesh are ROADMAP A.16")
 
 
@@ -826,12 +842,37 @@ def _decode_attention(pl, hn, positions, cfg, layer_idx, cache, plan,
             k_scale=None if kinds is None else cache.k_scale[layer_idx],
             v_scale=None if kinds is None else cache.v_scale[layer_idx],
             kinds=kinds)  # (B, S, G, Dh)
+    if shards is not None and shards.cache_len.size > 1:
+        return _split_s_attention(q, k_new, v_new, own, positions, cfg, layer_idx, cache,
+                                  decode_steps, ring, window, shards.cache_len)
     append_token(cache, layer_idx, k_new.transpose(0, 1), v_new.transpose(0, 1),
                  own, decode_steps, ring=ring)
     return K.fairkv_decode(q, cache.k[layer_idx], cache.v[layer_idx],
                            cache.lengths[layer_idx], attn_cap=cfg.attn_softcap,
                            k_pos=cache.pos[layer_idx], q_pos=positions,
                            window=window)  # (B, S, G, Dh)
+
+
+def _split_s_attention(q, k_new, v_new, own, positions, cfg, layer_idx, cache,
+                       decode_steps, ring, window, split):
+    """Split-S decode of one layer on a rank holding columns ``[offset,
+    offset + C_loc)`` of every (slot, row) (``split``: the ``cache_len``
+    `repro_torch.distributed.sharding.Split`; ``lengths`` and positions
+    whole): the append lands on the rank holding the write index, the
+    partial kernel attends over the rank's valid prefix, and the ranks'
+    (o, lse) pairs, gathered in rank order, merge to (B, S, G, Dh) in q's
+    dtype, bitwise the same on every rank."""
+    C_loc = cache.k.shape[3]
+    off = split.offset(C_loc)
+    append_token(cache, layer_idx, k_new.transpose(0, 1), v_new.transpose(0, 1), own,
+                 decode_steps, ring=ring, offset=off, capacity=C_loc * split.size)
+    ln = shard_lengths(cache.lengths[layer_idx], off, C_loc)
+    o, lse = K.fairkv_decode_partial(q, cache.k[layer_idx], cache.v[layer_idx], ln,
+                                     attn_cap=cfg.attn_softcap, k_pos=cache.pos[layer_idx],
+                                     q_pos=positions, window=window)
+    pairs = comm.all_gather(torch.cat([o, lse[..., None]], dim=-1)[None], split.group, dim=0)
+    Dh = o.shape[-1]
+    return merge_partials([(p[..., :Dh], p[..., Dh]) for p in pairs.unbind(0)], q.dtype)
 
 
 def _rope_slots(q, positions, cfg):

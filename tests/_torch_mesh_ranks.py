@@ -399,6 +399,102 @@ def tp_rank(mesh, wpath, arch, wide, int8, weights_2d):
     return out
 
 
+# ---- long_500k's split-S decode step (tests/test_torch_tp.py) ------------
+
+LONG_ARCH = "gemma2-9b"  # its smoke config: layer 0 local (window 16), layer 1 global
+LONG_T, LONG_STEPS = 100, 32  # a prompt of 100 tokens, then 32 decode steps
+# policy none at capacity 120 + margin 8 = 128 columns (64 a shard at data 2):
+# lengths cross the shard boundary at prefill and reach capacity after 28
+# steps, so the ring (the last 8 columns, on the last shard) wraps
+LONG_COMP = dict(policy="none", budget=120, capacity=120, decode_margin=8)
+
+
+def long_rank(mesh, wpath, spath):
+    """The long_500k cell's step (`specs.serve_step("decode")` under
+    ``serve_rules(mesh, long_context=True)``: split-S over ``data``) on this
+    rank's shards of the reference's prefilled state (``spath``, an .npz of
+    its cache, last tokens and ring phase): `LONG_STEPS` decode steps.
+    Returns the tokens, logits (the rank's vocab columns), the final cache
+    corner, one step's collectives, and the rank's slots and columns."""
+    from repro_torch import configs
+    from repro_torch.cache.slot_cache import PlanArrays
+    from repro_torch.compression.base import CompressionConfig
+    from repro_torch.configs.base import InputShape
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.param_specs import local_shard, tree_specs
+    from repro_torch.distributed.sharding import serve_rules
+    from repro_torch.launch import specs
+    from repro_torch.serving import engine as E
+
+    cfg = configs.get_smoke_config(LONG_ARCH)
+    ccfg = CompressionConfig(**LONG_COMP)
+    plan = specs.cell_plan(cfg, TP_PLAN_SHARDS, batch_cap=1)
+    sp = E.slotify_params(load_params(wpath), plan, cfg)
+    rules = serve_rules(mesh, long_context=True)
+    sp_spec = tree_specs(sp, rules, "serve")
+    pa = PlanArrays.from_plan(plan)
+    pa = {f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)}
+    with np.load(spath) as z:
+        st = {k: torch.from_numpy(z[k]) for k in z.files}
+    state = {"cache": {f: st[f] for f in ("k", "v", "lengths", "pos", "positions")},
+             "last_tokens": st["last_tokens"].long(), "decode_steps": st["decode_steps"]}
+    _, st_spec = specs.serve_state_fake(cfg, InputShape("long", LONG_T, 1, "decode"), plan,
+                                        ccfg, rules)
+    sp, pa = local_shard(sp, sp_spec, mesh), local_shard(pa, specs.plan_specs(plan, rules), mesh)
+    state = local_shard(state, st_spec, mesh)
+    step = specs.serve_step("decode", cfg, ccfg, mesh, rules, sp_spec, plan.n_slots, 1)
+    n_cols = state["cache"]["k"].shape[3]
+    out = {"tokens": [], "logits": [], "slots": (mesh.slots(plan.n_slots).start,
+                                                  mesh.slots(plan.n_slots).stop),
+           "cols": (mesh.data_idx * n_cols, (mesh.data_idx + 1) * n_cols),
+           "model_idx": mesh.model_idx}
+    with torch.inference_mode():
+        for i in range(LONG_STEPS):
+            before = comm.snapshot()
+            state, logits = step(sp, state, pa)
+            if i == 0:
+                out["collectives"] = comm.by_kind(comm.since(before))
+            out["tokens"].append(_np(state.last_tokens))
+            out["logits"].append(_np(logits))
+    out["cache"] = {f: _np(getattr(state.cache, f)) for f in ("k", "v", "lengths", "pos",
+                                                              "positions")}
+    return out
+
+
+# ---- the expert-parallel MoE block (tests/test_torch_tp.py) ----------------
+
+# qwen3-moe's smoke width with 8 experts, top-2, at a capacity factor that
+# drops replicas: 48 tokens (8 rows x 6) give Ce = 12 a expert
+MOE_EP = dict(num_experts=8, top_k=2, d_expert=32, capacity_factor=1.0)
+MOE_ROWS, MOE_SEQ = 8, 6
+
+
+def moe_rank(mesh, arrays):
+    """`moe_block` on this rank's shards under ``serve_rules(mesh)``: its
+    rows of ``arrays["h"]`` (B over ``data``) and its experts (over
+    ``model``), the router's columns gathered.  Returns its output rows,
+    the aux loss and its rows."""
+    from repro_torch import configs
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.distributed.param_specs import local_shard, tree_specs
+    from repro_torch.distributed.sharding import serve_rules, step_shards
+    from repro_torch.models.moe import moe_block
+
+    cfg = dataclasses.replace(configs.get_smoke_config("qwen3-moe-30b-a3b"),
+                              moe=MoEConfig(**MOE_EP))
+    rules = serve_rules(mesh)
+    pl = {k: torch.from_numpy(arrays[k]) for k in ("router", "we1", "we3", "we2")}
+    pl = local_shard(pl, tree_specs(pl, rules, "serve"), mesh)
+    h = local_shard({"h": torch.from_numpy(arrays["h"])},
+                    {"h": (rules.guarded(MOE_ROWS, "batch"), None, None)}, mesh)["h"]
+    shards = step_shards(rules, mesh, vocab=cfg.padded_vocab, ff=cfg.d_ff, d_model=cfg.d_model,
+                         n_slots=mesh.model, batch=MOE_ROWS, experts=MOE_EP["num_experts"])
+    with torch.inference_mode():
+        out, aux = moe_block(pl, h, cfg, shards)
+    rows = mesh.rows(MOE_ROWS)
+    return {"out": _np(out), "aux": float(aux), "rows": (rows.start, rows.stop)}
+
+
 def argmax_rank(mesh):
     """`vocab_argmax` over this rank's columns of fixed logits (16 columns,
     the last two padded): returns (its picks, the plain argmax over the

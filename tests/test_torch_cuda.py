@@ -79,6 +79,51 @@ def test_fairkv_decode_kernel(gen, dtype, B, S, G, Dh, C, window, cap):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("G,Dh,window,cap", [(2, 256, 0, 50.0), (2, 256, 300, 50.0),
+                                             (4, 128, 0, 0.0), (8, 64, 100, 30.0)])
+def test_fairkv_decode_partial_kernel(gen, dtype, G, Dh, window, cap):
+    """The partial variant (split-S decode) against its plain version on
+    one shard of the columns: o and lse in fp32 within 1e-4 absolute and
+    1e-5 relative, an empty or all-masked (slot, row) exactly o = 0 and
+    lse = -inf; the shards' pairs merged give the full-output kernel's
+    result within one bf16 step."""
+    from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda, fairkv_decode_partial_cuda
+    from repro_torch.kernels.ref import fairkv_decode_partial_ref, merge_partials
+    B, S, C, n = 1, 6, 1024, 2
+    q = torch.randn((B, S, G, Dh), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((S, B, C, Dh), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((S, B, C, Dh), generator=gen, device="cuda").to(dtype)
+    ln = torch.tensor([[0], [5], [511], [512], [900], [1024]], dtype=torch.int32, device="cuda")
+    kp = torch.arange(C, dtype=torch.int32, device="cuda").expand(S, B, C).contiguous()
+    qp = torch.full((B,), C, dtype=torch.int32, device="cuda")
+    cl = C // n
+    parts = []
+    for r in range(n):
+        cols = slice(r * cl, (r + 1) * cl)
+        kr, vr, pr = (t[:, :, cols].contiguous() for t in (k, v, kp))
+        lr = torch.clamp(ln - r * cl, 0, cl).to(torch.int32)
+        before = build.LAUNCHES["fairkv_decode_partial"]
+        o, lse = fairkv_decode_partial_cuda(q, kr, vr, lr, cap, k_pos=pr, q_pos=qp,
+                                            window=window)
+        torch.cuda.synchronize()
+        assert build.LAUNCHES["fairkv_decode_partial"] == before + 1
+        o_ref, lse_ref = fairkv_decode_partial_ref(q, kr, vr, lr, cap, k_pos=pr, q_pos=qp,
+                                                   window=window)
+        assert o.dtype == lse.dtype == torch.float32
+        empty = torch.isinf(lse_ref)
+        assert torch.equal(torch.isinf(lse), empty) and bool((o[empty] == 0).all())
+        live = ~empty
+        assert bool(((lse - lse_ref).abs()[live] <= 1e-4 + 1e-5 * lse_ref.abs()[live]).all())
+        assert bool(((o - o_ref).abs() <= 1e-4 + 1e-5 * o_ref.abs()).all())
+        parts.append((o, lse))
+    full = fairkv_decode_cuda(q, k, v, ln, cap, k_pos=kp, q_pos=qp, window=window)
+    merged = merge_partials(parts, dtype)
+    rel = 0.0 if dtype == torch.float32 else 2.0 ** -7
+    assert bool(((merged.float() - full.float()).abs()
+                 <= 1e-4 + rel * full.float().abs()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,W,Hq,Hkv,Dh,T,cap", [
     (2, 8, 8, 2, 64, 256, 0.0), (1, 4, 4, 4, 32, 100, 50.0), (2, 32, 32, 8, 128, 512, 0.0),
     # B = 1 with T tails off the 64-key tile; G = 1, 2, 8 at W = 32 (R = 32 ... 256)
@@ -206,7 +251,8 @@ def test_engine_cuda_matches_cpu(gen):
     build.reset_launches()
     a, b = cpu.generate(prompts, 8), gpu.generate(prompts, 8)
     assert build.LAUNCHES == {"fairkv_decode": 2 * 8, "snapkv_scores": 2,
-                              "paged_fairkv_decode": 0, "paged_fairkv_decode_mq": 0}
+                              "paged_fairkv_decode": 0, "paged_fairkv_decode_mq": 0,
+                              "fairkv_decode_partial": 0}
     assert np.array_equal(a.tokens, b.tokens)
     assert np.array_equal(a.lengths, b.lengths)
     assert np.abs(a.logits - b.logits).max() < 1e-3

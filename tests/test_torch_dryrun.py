@@ -324,15 +324,16 @@ def test_arg_bytes_per_rank_match_reference(reference, mesh):
 
 
 DENSE = ["minitron-8b", "gemma2-9b", "granite-3-2b", "qwen1.5-110b"]
+MOE = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
 
 
 @pytest.fixture(scope="module")
 def dense_sweep(tmp_path_factory):
-    """`dryrun.sweep` of the dense archs and mamba2-1.3b at decode_32k and
-    long_500k on the single production mesh, against an H100's 85.0 GB:
-    its result and the directory of its records."""
+    """`dryrun.sweep` of the dense and MoE archs and mamba2-1.3b at
+    decode_32k and long_500k on the single production mesh, against an
+    H100's 85.0 GB: its result and the directory of its records."""
     out = tmp_path_factory.mktemp("dryrun")
-    res = dryrun.sweep(DENSE + ["mamba2-1.3b"], ["decode_32k", "long_500k"], [False],
+    res = dryrun.sweep(DENSE + MOE + ["mamba2-1.3b"], ["decode_32k", "long_500k"], [False],
                        "fairkv_dp", str(out), dev_bytes=dryrun.H100_BYTES)
     return res, out
 
@@ -357,8 +358,8 @@ def test_run_cell_records(dense_sweep):
     assert ok["memory"]["argument_bytes"] > 0
     assert recs[("mamba2-1.3b", "decode_32k")]["status"] == "args_only"
     assert recs[("mamba2-1.3b", "decode_32k")]["todo"].startswith("A.16")
-    assert recs[("gemma2-9b", "long_500k")]["status"] == "args_only"
-    assert recs[("gemma2-9b", "long_500k")]["todo"].startswith("A.14")
+    assert recs[("gemma2-9b", "long_500k")]["status"] == "ok"
+    assert recs[("mamba2-1.3b", "long_500k")]["status"] == "args_only"
     assert recs[("granite-3-2b", "long_500k")]["status"] in ("args_only", "skipped")
     assert recs[("minitron-8b", "long_500k")]["status"] == "skipped"
     written = json.loads((out / "granite-3-2b__decode_32k__single.json").read_text())
@@ -391,3 +392,80 @@ def test_dense_decode_cell_executes_its_step(reference, dense_sweep, arch):
                                         "bytes": 2 * n * rows * cfg.d_model}
     assert g["model"]["all_gather"] == {"calls": 1, "elements": rows * 2 * 16,
                                         "bytes": 4 * rows * 2 * 16}
+
+
+def test_long_cell_executes_split_s(reference, dense_sweep):
+    """gemma2-9b's long_500k cell (B 1, 524,352 columns split 16 ways over
+    ``data``) executes its split-S step on the fake (data 16, model 16)
+    mesh on the reference's arguments (2.80 GB a rank): over ``model`` 2·L
+    + 1 all-reduces of (1, d_model) and the argmax's pair gather, over
+    ``data`` one all-gather a layer of the rank's (o, lse) pairs (16 x (1,
+    S / 16, G, Dh + 1) fp32); the partial kernel's fake implementation runs
+    on every layer."""
+    rec = {(r["arch"], r["shape"]): r for r in dense_sweep[0]["records"]}["gemma2-9b",
+                                                                          "long_500k"]
+    cfg = get_config("gemma2-9b")
+    ex = rec["executed"]
+    assert rec["status"] == "ok" and rec["fits"] is True
+    want = reference("bytes")["16x16|gemma2-9b|long_500k"]
+    assert rec["memory"]["argument_bytes"] == ex["memory"]["argument_bytes"] == want
+    assert round(want / 1e9, 2) == 2.80
+    assert ex["contract"] == {"model_all_reduce_2L_plus_1": True,
+                              "model_one_argmax_gather": True,
+                              "data_one_all_gather_per_layer": True}
+    L, G, Dh = cfg.n_layers, cfg.q_per_kv, cfg.head_dim
+    n_slots = rec["executed"]["collectives_by_group"]["data"]["all_gather"]["elements"] // (
+        L * 16 * G * (Dh + 1))
+    assert n_slots * 16 == specs.cell_plan(cfg, 16, batch_cap=1).n_slots
+    g = ex["collectives_by_group"]
+    assert g["model"]["all_reduce"]["calls"] == 2 * L + 1
+    assert g["data"]["all_gather"]["bytes"] == 4 * L * 16 * n_slots * G * (Dh + 1)
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_decode_cell_executes_expert_parallel(reference, dense_sweep, arch):
+    """The MoE archs' decode_32k cells on the fake (data 16, model 16)
+    mesh execute their step on the reference's arguments: per MoE layer
+    one all-gather of the expert counts over ``data`` (16 x 3E float64),
+    one of the router's columns over ``model`` (D x E) and one all-reduce
+    of the experts' (B / 16, d_model) outputs over it, beside the
+    attention's."""
+    rec = {(r["arch"], r["shape"]): r for r in dense_sweep[0]["records"]}[arch, "decode_32k"]
+    cfg = get_config(arch)
+    ex = rec["executed"]
+    assert rec["status"] == "ok" and rec["fits"] is True
+    want = reference("bytes")[f"16x16|{arch}|decode_32k"]
+    assert rec["memory"]["argument_bytes"] == ex["memory"]["argument_bytes"] == want
+    assert all(ex["contract"].values()) and "data_one_all_gather_per_layer" in ex["contract"]
+    L, E, D = cfg.n_layers, cfg.moe.num_experts, cfg.d_model
+    rows = SHAPES["decode_32k"].global_batch // 16
+    g = ex["collectives_by_group"]
+    assert g["model"]["all_reduce"]["calls"] == 2 * L + 1
+    assert g["model"]["all_gather"] == {"calls": L + 1, "elements": L * D * E + rows * 2 * 16,
+                                        "bytes": 2 * L * D * E + 4 * rows * 2 * 16}
+    assert g["data"]["all_gather"] == {"calls": L, "elements": L * 16 * 3 * E,
+                                       "bytes": 8 * L * 16 * 3 * E}
+
+
+def test_partial_kernel_fake_implementation_and_flops():
+    """The partial variant's custom op on fake CUDA tensors: (o, lse) in
+    fp32 from its fake implementation, which reports the full kernel's
+    scratch and counters as temps; its FLOP formula equals FlopCounterMode's
+    count of its plain version's products."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn(s, generator=g) for s in ((2, 3, 4, 32), (3, 2, 40, 32),
+                                                       (3, 2, 40, 32)))
+    ln = torch.full((3, 2), 7, dtype=torch.int32)
+    want = _flops(lambda: ref.fairkv_decode_partial_ref(q, k, v, ln))
+    with step_stats.fake_tensors():
+        qc = torch.empty((8, 16, 4, 256), dtype=torch.bfloat16, device="cuda")
+        kc = torch.empty((16, 8, 512, 256), dtype=torch.bfloat16, device="cuda")
+        lc = torch.empty((16, 8), dtype=torch.int32, device="cuda")
+        (o, lse), st = step_stats.measure(ops.fairkv_decode_partial, (qc, kc, lc), qc, kc, kc,
+                                          lc)
+        cu = [torch.empty(t.shape, dtype=t.dtype, device="cuda") for t in (q, k, v, ln)]
+        got = _flops(lambda: ops.fairkv_decode_partial(*cu))
+    from repro_torch.kernels.fairkv_decode import scratch_floats
+    assert o.shape == qc.shape and o.dtype == torch.float32 and lse.shape == (8, 16, 4)
+    assert st.temp_bytes == scratch_floats(8, 16, 4, 256) * 4 + 16 * 8 * 4
+    assert got == want == 4 * 2 * 3 * 4 * 40 * 32

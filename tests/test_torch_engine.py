@@ -92,7 +92,7 @@ def test_plan_invariance(runs):
 def test_no_kernel_launch_on_cpu(runs):
     assert runs["launches"] == {"fairkv_decode": 0, "snapkv_scores": 0,
                                 "paged_fairkv_decode": 0,
-                                "paged_fairkv_decode_mq": 0}
+                                "paged_fairkv_decode_mq": 0, "fairkv_decode_partial": 0}
 
 
 def _imports(path: Path):

@@ -108,9 +108,14 @@ def test_ops_dispatch_cpu_runs_plain_and_launches_nothing():
     sq, sk, so, sp = (torch.from_numpy(a) for a in _scores_inputs(4, 1, 4, 4, 2, 16, 40))
     assert torch.equal(ops.snapkv_scores(sq, sk, so, sp),
                        tref.snapkv_scores_ref(sq, sk, so, sp))
+    for got, want in zip(ops.fairkv_decode_partial(*t[:4], 0.0, k_pos=t[4], q_pos=t[5],
+                                                   window=8),
+                         tref.fairkv_decode_partial_ref(*t[:4], 0.0, k_pos=t[4], q_pos=t[5],
+                                                        window=8)):
+        assert torch.equal(got, want)
     assert build.LAUNCHES == {"fairkv_decode": 0, "snapkv_scores": 0,
                               "paged_fairkv_decode": 0,
-                              "paged_fairkv_decode_mq": 0}
+                              "paged_fairkv_decode_mq": 0, "fairkv_decode_partial": 0}
 
 
 def test_cuda_wrappers_reject_cpu_tensors():
@@ -119,6 +124,9 @@ def test_cuda_wrappers_reject_cpu_tensors():
     q, k, v, ln, _, _ = (torch.from_numpy(a) for a in _decode_inputs(5, 2, 4, 2, 16, 64))
     with pytest.raises(ValueError, match="CUDA"):
         fairkv_decode_cuda(q, k, v, ln)
+    from repro_torch.kernels.fairkv_decode import fairkv_decode_partial_cuda
+    with pytest.raises(ValueError, match="CUDA"):
+        fairkv_decode_partial_cuda(q, k, v, ln)
     sq, sk, so, sp = (torch.from_numpy(a) for a in _scores_inputs(6, 1, 4, 4, 2, 16, 40))
     with pytest.raises(ValueError, match="CUDA"):
         snapkv_scores_cuda(sq, sk, so, sp)

@@ -27,10 +27,13 @@ reference's weights reach every rank through an ``.npz``.  Held here:
   tokens and lengths equal the reference local executor's, logits within
   1e-4, one all-reduce over ``model`` per layer;
 - the serve cells' step under ``serve_rules`` (`tests/test_torch_tp.py`
-  holds its reference side and bars): the four dense archs and int8
-  qwen1.5 on 1x2, and on 2x4 with ``weights_2d`` off and on, against the
-  reference's single-device prefill and decode steps; `vocab_argmax`'s
-  tie and padding rules on 1x2.
+  holds its reference side and bars): the four dense archs, the two MoE
+  archs (expert parallel) and int8 qwen1.5 on 1x2, and on 2x4 with
+  ``weights_2d`` off and on, against the reference's single-device
+  prefill and decode steps; long_500k's split-S decode (gemma2-9b smoke,
+  the columns split over ``data`` on 2x4) against its decode steps; the
+  expert-parallel `moe_block` against the reference's at a capacity that
+  drops; `vocab_argmax`'s tie and padding rules on 1x2.
 
 (The reference's own mesh run of the paged backend is red in its baseline,
 so the port is held to the reference's local executor throughout.)
@@ -254,16 +257,25 @@ def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
     archs (under ``"family"``), `compressed_all_reduce` (``"compress"``),
     the dry run's decode step on real tensors (``"audit"``) and
     `vocab_argmax` (``"argmax"``); both run the serve cells' step's cases
-    (``("tp", shape)``, by `TP.case_id`), and the reference's runs they are
-    held to (``"tp_reference"``) are computed in a thread meanwhile."""
+    (``("tp", shape)``, by `TP.case_id`), long_500k's split-S step
+    (``("long", shape)``) and the expert-parallel MoE block (``("moe",
+    shape)``), and the reference's runs they are held to
+    (``"tp_reference"``, ``"long_reference"``) are computed in a thread
+    meanwhile (the long cell's prefill before the spawns: the ranks start
+    from its state)."""
     jparams, path = weights
     out = {}
     refs = {}
+    long_tree, long_wpath = tp_weights[R.LONG_ARCH, False]
+    long_spath = str(tmp_path_factory.mktemp("long") / "state.npz")
+    TP.long_prefill(long_tree, long_spath)
+    moe_arrays = out["moe_arrays"] = TP.moe_arrays()
 
     def tp_reference():
         try:
             refs.update({(a, w, q): TP.reference_run(tp_weights[a, w][0], a, w, q)
                          for a, w, q in TP.WEIGHTS})
+            refs["long"] = TP.long_reference(long_tree, long_spath)
         except BaseException as e:  # raised below, in the fixture
             refs["error"] = e
 
@@ -283,12 +295,15 @@ def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
         n_fixed = len(jobs)
         jobs += [("tp_rank", (tp_weights[arch, wide][1], arch, wide, int8, w2))
                  for arch, wide, int8, w2 in TP.CASES[shape]]
+        jobs += [("long_rank", (long_wpath, long_spath)), ("moe_rank", (moe_arrays,))]
         ranks = spawn(R.jobs_rank, model=model, data=data, args=(jobs,),
                       init_file=str(tmp_path_factory.mktemp(shape) / "rv"),
                       timeout=SPAWN_TIMEOUT)
         out[shape] = (cases, [r[0] for r in ranks], _reference(cases, jparams, profiles))
         out["tp", shape] = {TP.case_id(c): [r[n_fixed + i] for r in ranks]
                             for i, c in enumerate(TP.CASES[shape])}
+        out["long", shape] = [r[-2] for r in ranks]
+        out["moe", shape] = [r[-1] for r in ranks]
         if shape == "2x4":
             out["trace"] = [r[1] for r in ranks]
         else:
@@ -299,6 +314,7 @@ def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
     th.join()
     if "error" in refs:
         raise refs["error"]
+    out["long_reference"] = refs.pop("long")
     out["tp_reference"] = refs
     return out
 
@@ -449,3 +465,20 @@ def test_tp_cell_step_parity(oneshot, shape, case):
 
 def test_tp_vocab_argmax_1x2(oneshot):
     TP.check_argmax(oneshot["argmax"])
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_long_cell_split_s_parity(oneshot, shape):
+    """long_500k's cell step (split-S decode over ``data``; on 1x2 the
+    columns do not split and the step takes the full-output path) against
+    the reference's single-device decode steps (`TP.check_long`)."""
+    model, data = SHAPES[shape]
+    TP.check_long(oneshot["long", shape], oneshot["long_reference"], model, data)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_moe_block_expert_parallel_parity(oneshot, shape):
+    """The expert-parallel `moe_block` (experts over ``model``, rows over
+    ``data``) against the reference's, at a capacity that drops
+    (`TP.check_moe`)."""
+    TP.check_moe(oneshot["moe", shape], oneshot["moe_arrays"], SHAPES[shape][1])

@@ -12,11 +12,25 @@ tests are there and call `check_case` / `check_argmax` here; this module
 holds the reference side and the tests that need no ranks.
 
 Setup: fp32 smoke configs of the four dense archs (qwen1.5's qkv biases
-drawn non-zero), the reference's weights through `interop.to_torch` and
-`local_shard`, one plan per arch (`cell_plan` at 4 shards, 4 slots, in
-both packages bitwise), Ada-SnapKV budget 12; a prefill of 4 x 20 tokens,
-then 3 decode steps.  qwen1.5 also runs widened (d_model 256) on int8
-weights against the reference's `quantize_serve_params`.
+drawn non-zero) and the two MoE archs (granite-moe: 4 experts top-2,
+qwen3-moe: 8 top-2; the reference's capacity factor 1.25, which drops
+replicas at these sizes), the reference's weights through
+`interop.to_torch` and `local_shard`, one plan per arch (`cell_plan` at 4
+shards, 4 slots, in both packages bitwise), Ada-SnapKV budget 12; a
+prefill of 4 x 20 tokens, then 3 decode steps.  qwen1.5 also runs
+widened (d_model 256) on int8 weights against the reference's
+`quantize_serve_params`.
+
+long_500k's split-S step (``long_rank``): gemma2-9b's smoke config (a
+local layer with window 16, a global one), B 1, policy none at capacity
+120 + 8, the reference's prefill of 100 tokens handed to the ranks, then
+32 decode steps past the ring's wrap, against the reference's
+single-device decode steps: tokens and lengths equal, logits and the
+cache within 1e-4, per step L all-gathers over ``data`` (none on 1x2,
+where the columns do not split) beside the dense contract.  The
+expert-parallel `moe_block` (``moe_rank``, 8 experts top-2 at capacity
+factor 1.0) against the reference's `moe_block`, whose drops a per-shard
+capacity would change.
 
 Bars: tokens and retained lengths equal; the logits (the ranks' vocab
 columns, gathered here only) and the rank's cache corner within 1e-4
@@ -28,6 +42,8 @@ all-gather per weight read.  `vocab_argmax`: a tie across two vocab shards
 picks the lowest id, a padded column is never picked.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -57,8 +73,10 @@ from tests import _torch_mesh_ranks as R
 torch.set_num_threads(2)
 TOL = 1e-4
 ARCHS = ["minitron-8b", "gemma2-9b", "granite-3-2b", "qwen1.5-110b"]
+MOE_ARCHS = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
 # (arch, widened, int8) per weight set; the spawns' cases add weights_2d
-WEIGHTS = [(a, False, False) for a in ARCHS] + [("qwen1.5-110b", True, True)]
+WEIGHTS = ([(a, False, False) for a in ARCHS + MOE_ARCHS]
+           + [("qwen1.5-110b", True, True)])
 CASES = {"1x2": [w + (False,) for w in WEIGHTS],
          "2x4": [w + (w2,) for w in WEIGHTS for w2 in (False, True)]}
 
@@ -111,6 +129,69 @@ def reference_run(tree: dict, arch: str, wide: bool, int8: bool) -> dict:
                       for f in ("k", "v", "lengths", "pos", "positions")}}
 
 
+def long_weights() -> dict:
+    return weights_tree(R.LONG_ARCH, False)
+
+
+def long_prefill(tree: dict, path) -> None:
+    """The reference's prefill of the long cell's prompt (B 1, `R.LONG_T`
+    tokens, policy none) on the slotified tree: its state to ``path``
+    (.npz) for the ranks."""
+    jcfg, ccfg, plan, sp, pa = _long_setup(tree)
+    tokens = jnp.asarray(np.random.default_rng(5).integers(0, jcfg.vocab_size,
+                                                            (1, R.LONG_T)), jnp.int32)
+    st, _, _ = jax.jit(lambda sp, t, pa: JE.prefill(sp, {"tokens": t}, jcfg, pa, ccfg))(
+        sp, tokens, pa)
+    np.savez(path, **{f: np.asarray(getattr(st.cache, f))
+                      for f in ("k", "v", "lengths", "pos", "positions")},
+             last_tokens=np.asarray(st.last_tokens), decode_steps=np.asarray(st.decode_steps))
+
+
+def _long_setup(tree):
+    jcfg = jconfigs.get_smoke_config(R.LONG_ARCH)
+    ccfg = JCompression(**R.LONG_COMP)
+    plan = jspecs.cell_plan(jcfg, R.TP_PLAN_SHARDS, batch_cap=1)
+    sp = JE.slotify_params(jax.tree.map(jnp.asarray, tree), plan, jcfg)
+    return jcfg, ccfg, plan, sp, JPlanArrays.from_plan(plan)
+
+
+def long_reference(tree: dict, path) -> dict:
+    """The reference's single-device decode steps (jitted) from the state
+    `long_prefill` wrote: tokens (steps, 1), logits (steps, 1, V), the
+    final cache."""
+    from repro.cache.slot_cache import SlotCache as JSlotCache
+
+    jcfg, ccfg, plan, sp, pa = _long_setup(tree)
+    with np.load(path) as z:
+        st = JE.ServeState(
+            cache=JSlotCache(**{f: jnp.asarray(z[f]) for f in ("k", "v", "lengths", "pos",
+                                                             "positions")}),
+            ssm_state=None, conv_state=None, cross_k=None, cross_v=None,
+            last_tokens=jnp.asarray(z["last_tokens"]),
+            decode_steps=jnp.asarray(z["decode_steps"]))
+    decode = jax.jit(lambda sp, st, pa: JE.decode_step(sp, st, jcfg, pa, ccfg))
+    tokens, logits = [], []
+    for _ in range(R.LONG_STEPS):
+        st, lg = decode(sp, st, pa)
+        tokens.append(np.asarray(st.last_tokens))
+        logits.append(np.asarray(lg))
+    return {"tokens": np.stack(tokens), "logits": np.stack(logits),
+            "cache": {f: np.asarray(getattr(st.cache, f))
+                      for f in ("k", "v", "lengths", "pos", "positions")}}
+
+
+def moe_arrays() -> dict:
+    """`R.moe_rank`'s inputs: the reference's expert weights at `R.MOE_EP`
+    (fp32, seed 3) and (8, 6, 64) activations."""
+    from repro.configs.base import MoEConfig as JMoE
+    from repro.models.moe import init_moe_params
+
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config("qwen3-moe-30b-a3b"),
+                               moe=JMoE(**R.MOE_EP))
+    pl = jax.tree.map(np.asarray, init_moe_params(jax.random.PRNGKey(3), jcfg, jnp.float32))
+    h = np.random.default_rng(4).standard_normal((R.MOE_ROWS, R.MOE_SEQ, jcfg.d_model))
+    return {**pl, "h": h.astype(np.float32)}
+
 # ---------------------------------------------------------------------------
 # checks of the spawns' results (called by tests/test_torch_mesh.py)
 # ---------------------------------------------------------------------------
@@ -135,19 +216,101 @@ def check_case(ranks: list, want: dict, case, model: int, data: int) -> None:
         assert np.array_equal(c["positions"], w["positions"][r])
         for f in ("k", "v"):
             np.testing.assert_allclose(c[f], w[f][:, s, r], rtol=TOL, atol=TOL)
-        # the decode contract
+        # the decode contract; MoE gathers its router's columns over model
+        # and its expert counts over data (when the rows split) each layer
         coll = got["collectives"]
+        moe = cfg.moe.num_experts > 0
         ar, ag = coll["model"]["all_reduce"], coll["model"]["all_gather"]
         assert ar["calls"] == 2 * L + 1 and ar["elements"] == ar["calls"] * rows_per * cfg.d_model
-        assert ag["calls"] == 1 and ag["elements"] == rows_per * 2 * model
+        routers = L if moe else 0
+        assert ag["calls"] == 1 + routers
+        assert ag["elements"] == rows_per * 2 * model + routers * cfg.d_model * cfg.moe.num_experts
+        counts = L if moe and data > 1 else 0
         if weights_2d:
             # every weight read gathers its d_model shards: 4 attention and
-            # 3 MLP weights a layer, the embedding and the head
+            # 3 MLP (or expert) weights a layer, the embedding and the head
             assert set(coll["data"]) == {"all_gather"}
-            assert coll["data"]["all_gather"]["calls"] == 7 * L + 2
+            assert coll["data"]["all_gather"]["calls"] == 7 * L + 2 + counts
+        elif counts:
+            for c in (coll, got["prefill_collectives"]):
+                assert set(c["data"]) == {"all_gather"} and c["data"]["all_gather"]["calls"] == L
         else:
             assert "data" not in coll and "data" not in got["prefill_collectives"]
     np.testing.assert_allclose(logits, want["logits"], rtol=TOL, atol=TOL)
+
+
+def check_long(ranks: list, want: dict, model: int, data: int) -> None:
+    """The long cell's split-S step on every rank against the reference's
+    decode steps: tokens and lengths equal, logits (the ranks' vocab
+    columns put together) and the cache (the ranks' slots and columns put
+    together) within 1e-4, positions equal, every rank's tokens the same;
+    per step over ``model`` the dense contract and over ``data`` one
+    all-gather a layer when the columns split (``data`` > 1), else none."""
+    cfg = R.tp_model(configs, R.LONG_ARCH, False)
+    L, n_v = cfg.n_layers, cfg.padded_vocab // model
+    logits = np.full(want["logits"].shape, np.nan, np.float32)
+    cache = {f: np.full(w.shape, np.nan if f in ("k", "v") else -7, w.dtype)
+             for f, w in want["cache"].items() if f in ("k", "v", "pos")}
+    for got in ranks:
+        s, c = slice(*got["slots"]), slice(*got["cols"])
+        v = slice(got["model_idx"] * n_v, (got["model_idx"] + 1) * n_v)
+        assert np.array_equal(np.stack(got["tokens"]), want["tokens"])
+        logits[:, :, v] = np.stack(got["logits"])
+        for f in cache:
+            cache[f][:, s, :, c] = got["cache"][f]
+        assert np.array_equal(got["cache"]["lengths"], want["cache"]["lengths"][:, s])
+        assert np.array_equal(got["cache"]["positions"], want["cache"]["positions"])
+        coll = got["collectives"]
+        ar, ag = coll["model"]["all_reduce"], coll["model"]["all_gather"]
+        assert ar["calls"] == 2 * L + 1 and ag["calls"] == 1
+        if data > 1:
+            assert set(coll["data"]) == {"all_gather"}
+            assert coll["data"]["all_gather"]["calls"] == L
+        else:
+            assert "data" not in coll
+    assert (want["cache"]["lengths"] == want["cache"]["k"].shape[3]).any()  # at capacity
+    np.testing.assert_allclose(logits, want["logits"], rtol=TOL, atol=TOL)
+    assert np.array_equal(cache["pos"], want["cache"]["pos"])
+    for f in ("k", "v"):
+        np.testing.assert_allclose(cache[f], want["cache"][f], rtol=TOL, atol=TOL)
+
+
+def check_moe(ranks: list, arrays: dict, data: int) -> None:
+    """The expert-parallel `moe_block` against the reference's `moe_block`
+    on the whole batch: outputs within 1e-4 and the aux loss within 1e-6;
+    the reference drops replicas at this capacity, and where the rows split
+    (``data`` > 1) the port's local block on each rank's rows alone
+    (capacity from its own tokens, as a per-shard ``Ce`` would give) is
+    further than 1e-3 from it."""
+    from repro.configs.base import MoEConfig as JMoE
+    from repro.models.moe import moe_block as jmoe_block
+    from repro_torch.configs.base import MoEConfig
+    from repro_torch.models.moe import expert_capacity, moe_block
+
+    jcfg = dataclasses.replace(jconfigs.get_smoke_config("qwen3-moe-30b-a3b"),
+                               moe=JMoE(**R.MOE_EP))
+    pl = {k: jnp.asarray(arrays[k]) for k in ("router", "we1", "we3", "we2")}
+    want, want_aux = (np.asarray(x) for x in jmoe_block(pl, jnp.asarray(arrays["h"]), jcfg))
+    got = np.full(want.shape, np.nan, np.float32)
+    for r in ranks:
+        got[slice(*r["rows"])] = r["out"]
+        np.testing.assert_allclose(r["aux"], want_aux, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    # drops: the reference's top-k picks against its global capacity
+    x = arrays["h"].reshape(-1, arrays["h"].shape[-1])
+    probs = np.asarray(jax.nn.softmax(jnp.asarray(x) @ pl["router"], axis=-1))
+    picks = np.argsort(-probs, axis=-1, kind="stable")[:, :R.MOE_EP["top_k"]]
+    cfg = dataclasses.replace(configs.get_smoke_config("qwen3-moe-30b-a3b"),
+                              moe=MoEConfig(**R.MOE_EP))
+    counts = np.bincount(picks.ravel(), minlength=R.MOE_EP["num_experts"])
+    assert (counts > expert_capacity(x.shape[0], cfg)).any()
+    if data > 1:  # the rows split: a per-shard capacity would drop other replicas
+        tpl = {k: torch.from_numpy(arrays[k]) for k in ("router", "we1", "we3", "we2")}
+        n = R.MOE_ROWS // data
+        per_shard = np.concatenate([moe_block(tpl, torch.from_numpy(arrays["h"][i:i + n]),
+                                              cfg)[0].numpy()
+                                    for i in range(0, R.MOE_ROWS, n)])
+        assert np.abs(per_shard - want).max() > 1e-3
 
 
 def check_argmax(ranks: list) -> None:
@@ -304,15 +467,18 @@ def test_layers_on_shards_sum_to_the_whole(int8):
 
 
 def test_cell_step_refuses_other_cells():
-    """`build_cell(...).fn` refuses the cells A.14–A.16 cover, naming the
-    item, and a cell built for axis sizes only."""
+    """`build_cell(...).fn` refuses the cells A.15–A.16 cover, naming the
+    item (the train step; the SSM, hybrid, encoder-decoder and VLM
+    families, long_500k included), and a cell built for axis sizes only."""
     from repro_torch.distributed import step_stats
 
     axes = {"data": 2, "model": 4}
     with step_stats.fake_tensors():
         for arch, shape, item in (("granite-3-2b", "train_4k", "A.15"),
-                                  ("gemma2-9b", "long_500k", "A.14"),
-                                  ("granite-moe-1b-a400m", "decode_32k", "A.16"),
+                                  ("hymba-1.5b", "long_500k", "A.16"),
+                                  ("mamba2-1.3b", "long_500k", "A.16"),
+                                  ("whisper-small", "decode_32k", "A.16"),
+                                  ("llava-next-34b", "prefill_32k", "A.16"),
                                   ("mamba2-1.3b", "prefill_32k", "A.16")):
             cell = specs.build_cell(get_config(arch), SHAPES[shape], axes)
             with pytest.raises(NotImplementedError, match=item):
