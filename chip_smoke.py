@@ -308,13 +308,42 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    from phase 19 (c), gemma2-9b long_500k and the MoE prefill_32k cells
    from a subprocess started before phase 20): each executed its step
    and held its contract;
-22. last line: {"ok": true, "device": {...}}.
+22. (after phase 21) the SSM, hybrid, encoder-decoder and VLM cells'
+   step, launches stated apart from the kernel table: (a) phase 17's
+   one-shots of mamba2-1.3b and hymba-1.5b (8 x 2048, full width and
+   depth), whisper-small (8 x 256) and llava-next-34b (12 of 60 layers)
+   through the cell step on one NCCL rank: tokens, logits, lengths and
+   the final SSD state, conv window and cross K / V bitwise the local
+   executor's (eager) run, the derived decode collectives, kernel 1 and
+   2's launches; (b) the same archs cut (mamba2 and hymba 4 layers x 512
+   tokens, whisper 4 decoder layers, llava 2 layers x (2880 + 128)) on two
+   gloo ranks sharing the card (model 2: mamba2's in_proj split across
+   its z | xBC | dt boundaries and its heads split; hymba's conv channels
+   and slots split, in_proj and heads whole; whisper's heads split), run
+   beside (a): the logit and state gaps under n_layers 2^-8 max|local|
+   against a local run of the cut config, argmax agreement printed, the
+   derived collectives, peaks within 5% of the fake prediction; (c)
+   hymba-1.5b's long_500k cell at full width cut to 4 of 32 layers (B 1,
+   window 1024 + the 64-column ring, a seed-0 state, 72 steps: the ring
+   wraps), the local executor, one NCCL rank bitwise it (tokens, logits,
+   lengths, written entries, SSD state, conv window), two gloo ranks
+   (data 2: kernel 1's partial variant at G 5, Dh 64, window 1024) with
+   tokens equal and the rest within phase 21's bars; the partial kernel
+   against its plain version on the local run's cache and timed beside
+   its bound, plain version and the efficient SDPA (the ``*_g5`` keys of
+   its row); mamba2-1.3b's long_500k (B 1, no cache, full depth) on one
+   NCCL rank, bitwise; (d) the ten new dry-run cells' records (decode_32k
+   and prefill_32k of the four archs, hymba's and mamba2's long_500k, from
+   a subprocess started after the build): each executed its step and held
+   its derived collectives;
+23. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import atexit
 import gc
 import json
 import os
@@ -3775,9 +3804,12 @@ def family_oneshot(arch, b, t, modes=(("sha", 0), ("fairkv_dp", 4)), bias=False)
     rec.update(graphed_equals_eager_tokens=same, graphed_equals_eager_logits=bitwise,
                max_memory_allocated=torch.cuda.max_memory_allocated(),
                seconds=time.perf_counter() - t0)
+    # phase 22 (a) runs this one-shot through the cell step: the eager run's
+    # result and final state (on the host) are its reference
     ctx = {"cfg": cfg.replace(planner=family_config(arch, b, t, *modes[-1]).planner),
            "params": params, "profile": profile, "prompts": prompts,
-           "cache": eng.state.cache, "results": results}
+           "cache": eng.state.cache, "results": results, "eager": eager,
+           "state": _p22_states(eng.state), "teacher": base.tokens[:, :GEN]}
     del eng
     log(f"[family] {m.name} ({m.n_layers} layers{', cut in depth' if rec['cut'] else ''}, "
         f"{rec['params'] / 1e9:.2f} B parameters, B={b}, T={t}): "
@@ -4088,10 +4120,12 @@ def p17_runs(rows):
     12 of 60 layers (2 x (2880 image + 1024 text tokens)), kernels 1-3 at
     its shapes.  Prints each config's record and the phase's time and
     launches (apart from the kernel table); adds the ``*_hymba`` and
-    ``*_llava`` keys to ``rows``."""
+    ``*_llava`` keys to ``rows``.  Returns each arch's one-shot for phase
+    22 (a) (`_p22_ref`)."""
     import torch
     t0 = time.perf_counter()
     launches = {}
+    p22 = {}
 
     def add(got):
         for k, v in got.items():
@@ -4115,6 +4149,7 @@ def p17_runs(rows):
     rec["trace"] = {k: out[k] for k in ("finished", "decode_ticks", "step_ms_median",
                                         "tokens_per_s", "replans_accepted")}
     records["hymba-1.5b"] = rec
+    p22["hymba-1.5b"] = _p22_ref(ctx)
     ctx = None
     free()
     # (c) mamba2-1.3b: attention-free, a trivial plan, no kernel
@@ -4133,6 +4168,7 @@ def p17_runs(rows):
                                         "tokens_per_s")}
     rec["trace"]["imbalance"] = imb["v"]
     records["mamba2-1.3b"] = rec
+    p22["mamba2-1.3b"] = _p22_ref(ctx)
     ctx = None
     free()
     # (d) whisper-small: 12 encoder + 12 decoder layers over 1500 frames
@@ -4140,6 +4176,7 @@ def p17_runs(rows):
     ctx.pop("cache")
     oneshot_launches(rec)
     records["whisper-small"] = rec
+    p22["whisper-small"] = _p22_ref(ctx)
     ctx = None
     free()
     # (e) llava-next-34b, cut to 12 of 60 layers: G = 7, 3904-token prompts
@@ -4149,10 +4186,12 @@ def p17_runs(rows):
     oneshot_launches(rec)
     time_config_kernels(ctx, rows, "llava-next-34b (cut)", ((0, "_llava"),), LLAVA_B, t_llava)
     records["llava-next-34b"] = rec
+    p22["llava-next-34b"] = _p22_ref(ctx)
     ctx = None
     free()
     log(f"[p17] phase 17 took {time.perf_counter() - t0:.1f} s; launches {launches}")
     log("[p17] summary " + json.dumps(records))
+    return p22
 
 # ---------------------------------------------------------------------------
 # phase 18: weight-only int8 serving, training, the training CLI
@@ -4744,7 +4783,10 @@ def p20_build(mesh, ref, init_device=None):
     the seed weights (built on ``init_device``, default the mesh's device,
     then moved there), plan arrays and prompt rows, and the prefill and
     decode steps (`repro_torch.launch.specs.serve_step`).  Also returns the
-    bytes of the rank's MLP and vocab weights and of the whole tree's."""
+    bytes of the rank's MLP and vocab weights and of the whole tree's, and
+    the global row count.  ``ref["prompts"]`` is the tokens or a batch
+    dict (phase 22: a VLM's image embeddings, an encoder-decoder's
+    frames); an attention-free model has no plan."""
     import dataclasses
 
     import torch
@@ -4758,9 +4800,10 @@ def p20_build(mesh, ref, init_device=None):
 
     cfg = ref["cfg"]
     m, ccfg = cfg.model, cfg.compression
-    plan = build_plan(ref["profile"], cfg.n_shards, cfg.planner)
+    plan = None if m.attention_free else build_plan(ref["profile"], cfg.n_shards, cfg.planner)
     rules = serve_rules(mesh)
-    params = init_params(m, cfg.seed, torch.bfloat16, device=init_device or mesh.device)
+    params = init_params(m, cfg.seed, torch.bfloat16, device=init_device or mesh.device,
+                         max_seq_len=cfg.max_seq_len)
     sp = S.slotify_params(params, plan, m)
     del params
     sp_spec = tree_specs(sp, rules, "serve")
@@ -4773,17 +4816,23 @@ def p20_build(mesh, ref, init_device=None):
 
     whole = mlp_vocab(sp)
     sp = local_shard(sp, sp_spec, mesh)
-    pa = PlanArrays.from_plan(plan, device=sp["final_norm"].device)
-    pa = local_shard({f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)},
-                     specs.plan_specs(plan, rules), mesh)
-    batch = {"tokens": torch.as_tensor(ref["prompts"], dtype=torch.int64,
-                                       device=sp["final_norm"].device)}
+    dev = sp["final_norm"].device
+    pa = None
+    if plan is not None:
+        pa = PlanArrays.from_plan(plan, device=dev)
+        pa = local_shard({f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)},
+                         specs.plan_specs(plan, rules), mesh)
+    prompts = ref["prompts"] if isinstance(ref["prompts"], dict) else {"tokens": ref["prompts"]}
+    batch = {k: torch.as_tensor(v, dtype=torch.int64 if k == "tokens" else None, device=dev)
+             for k, v in prompts.items()}
+    n_rows = batch["tokens"].shape[0]
     batch = local_shard(batch, specs.batch_specs(batch, rules), mesh)
     if init_device is not None:  # fake tensors built on the host: to the mesh's device
         sp, pa, batch = (specs._to_device(x, mesh.device) for x in (sp, pa, batch))
-    steps = {k: specs.serve_step(k, m, ccfg, mesh, rules, sp_spec, plan.n_slots, B)
+    n_slots = 0 if plan is None else plan.n_slots
+    steps = {k: specs.serve_step(k, m, ccfg, mesh, rules, sp_spec, n_slots, n_rows)
              for k in ("prefill", "decode")}
-    return {"sp": sp, "pa": pa, "batch": batch, "steps": steps,
+    return {"sp": sp, "pa": pa, "batch": batch, "steps": steps, "n_rows": n_rows,
             "mlp_vocab_bytes": (mlp_vocab(sp), whole)}
 
 
@@ -4791,9 +4840,11 @@ def p20_oneshot(mesh, ref, memory=False):
     """Phase 5's one-shot (prefill, then ``GEN`` steps fed phase 5's teacher
     tokens) through the cell step on ``mesh``'s rank.  Returns its tokens,
     logits (the rank's vocab columns), lengths, one decode step's
-    collectives, the launches and, with ``memory``, each step's
-    ``max_memory_allocated`` above the memory allocated before its
-    arguments (prefill, then the first decode step)."""
+    collectives, the launches, the final state's SSD, conv and cross
+    attention tensors (the rank's shards, on the host) and, with
+    ``memory``, each step's ``max_memory_allocated`` above the memory
+    allocated before its arguments (prefill, then the first decode
+    step)."""
     import dataclasses
 
     import numpy as np
@@ -4805,7 +4856,7 @@ def p20_oneshot(mesh, ref, memory=False):
     a = p20_build(mesh, ref)
     sp, pa, steps = a["sp"], a["pa"], a["steps"]
     teacher = torch.as_tensor(ref["teacher"], dtype=torch.int64, device=mesh.device)
-    rows = mesh.rows(B)
+    rows = mesh.rows(a["n_rows"])
     out = {"mlp_vocab_bytes": a["mlp_vocab_bytes"], "peak": {}}
     build.reset_launches()
     with torch.inference_mode():
@@ -4838,7 +4889,8 @@ def p20_oneshot(mesh, ref, memory=False):
             tokens.append(state.last_tokens.cpu().numpy())
             logit_rows.append(lg.cpu().numpy())
     out.update(tokens=np.stack(tokens, axis=1), logits=np.stack(logit_rows, axis=1),
-               step_ms=1e3 * statistics.median(step_s), launches=dict(build.LAUNCHES))
+               step_ms=1e3 * statistics.median(step_s), launches=dict(build.LAUNCHES),
+               state=_p22_states(state))
     return out
 
 
@@ -5073,44 +5125,65 @@ P21_STEPS = 16
 P21_DATA = 2  # (a)'s gloo ranks: the columns split over data
 P21_PEAK_TOL = 0.05  # the ranks' peaks within 5% of the fake prediction
 P21_C_LOC = 65_536  # the partial kernel's timed shard
+# a long_500k cell as phases 21 (a) and 22 (c) run it: the arch cut to
+# ``layers``, B 1, policy none at capacity ``cap`` (+ the ring), lengths
+# drawn in [len_min, cap], ``steps`` decode steps, the gloo ranks' ``data``
+P21_CELL = dict(arch="gemma2-9b", layers=P21_LAYERS, cap=P21_CAP, len_min=P21_LEN_MIN,
+                steps=P21_STEPS, data=P21_DATA, tag="[p21] (a)")
 
 
-def p21_long_setup():
-    """(model config, compression, plan) of (a): the cell's plan rule
-    (`specs.cell_plan`, 8 shards, B 1)."""
+def p21_long_setup(cell=P21_CELL):
+    """(model config, compression, plan) of a long cell: the cell's plan rule
+    (`specs.cell_plan`, 8 shards, B 1; None when attention-free)."""
     from repro_torch.compression.base import CompressionConfig
     from repro_torch.configs import get_config
     from repro_torch.launch import specs
-    m = get_config("gemma2-9b").with_overrides(n_layers=P21_LAYERS)
-    ccfg = CompressionConfig(policy="none", budget=P21_CAP, capacity=P21_CAP,
+    m = get_config(cell["arch"]).with_overrides(n_layers=cell["layers"])
+    ccfg = CompressionConfig(policy="none", budget=cell["cap"], capacity=cell["cap"],
                              decode_margin=MARGIN)
     return m, ccfg, specs.cell_plan(m, N_SHARDS, batch_cap=1)
 
 
-def p21_long_state(m, plan, ccfg, device, cols, fill=True):
-    """(a)'s decode state as the cell's tree, its columns ``cols`` (start,
-    stop) of every (slot, row): from seed 0, owned pairs hold lengths in
-    [P21_LEN_MIN, P21_CAP] and each layer's first owned slot is at the
-    static capacity (its first append wraps the ring); entry c sits at
-    position c, the row at position C; unowned pairs are empty.  The K / V
-    of each (layer, slot) come from a generator of their own over all C
-    columns, so every rank builds its columns of one cache.  ``fill=False``
-    leaves them uninitialised (fake tensors)."""
+def p21_long_state(m, plan, ccfg, device, cols, fill=True, cell=P21_CELL):
+    """A long cell's decode state as the cell's tree, its columns ``cols``
+    (start, stop) of every (slot, row): from seed 0, owned pairs hold
+    lengths in [``len_min``, ``cap``] and each layer's first owned slot is
+    at the static capacity (its first append wraps the ring); entry c sits
+    at position c, the row at position C; unowned pairs are empty.  The K /
+    V of each (layer, slot) come from a generator of their own over all C
+    columns, so every rank builds its columns of one cache.  A model with
+    an SSD branch also gets a seed-0 SSD state and conv window (whole: the
+    long cell's gloo ranks split over data only); an attention-free one has
+    no cache.  ``fill=False`` leaves them uninitialised (fake tensors)."""
     import torch
     from repro_torch.cache.slot_cache import PlanArrays
-    L, S, Dh = m.n_layers, plan.n_slots, m.head_dim
+    L, Dh = m.n_layers, m.head_dim
     C = ccfg.static_capacity()
     c0, c1 = cols
     dev = torch.device(device)
+    if fill:
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+    out = {"last_tokens": torch.ones((1,), dtype=torch.int64, device=dev), "decode_steps": 0}
+    if m.family in ("ssm", "hybrid"):
+        sc = m.ssm
+        ss = torch.empty((L, 1, sc.num_heads, sc.head_dim, sc.state_size), device=dev)
+        cs = torch.empty((L, 1, sc.conv_width - 1, sc.d_inner + 2 * sc.n_groups * sc.state_size),
+                         dtype=torch.bfloat16, device=dev)
+        if fill:
+            ss.copy_(0.1 * torch.randn(ss.shape, generator=g, device=dev))
+            cs.copy_(torch.randn(cs.shape, generator=g, device=dev))
+        out.update(ssm_state=ss, conv_state=cs)
+    if plan is None:
+        return out
+    S = plan.n_slots
     k = torch.empty((L, S, 1, c1 - c0, Dh), dtype=torch.bfloat16, device=dev)
     v = torch.empty_like(k)
     lengths = torch.empty((L, S, 1), dtype=torch.int32, device=dev)
     pos = torch.empty((L, S, 1, c1 - c0), dtype=torch.int32, device=dev)
     if fill:
         own = PlanArrays.from_plan(plan, device=dev).owner_mask_all(1)  # (L, S, 1)
-        g = torch.Generator(device=dev)
-        g.manual_seed(SEED)
-        ln = torch.randint(P21_LEN_MIN, P21_CAP + 1, (L, S, 1), generator=g, device=dev)
+        ln = torch.randint(cell["len_min"], cell["cap"] + 1, (L, S, 1), generator=g, device=dev)
         first = own[:, :, 0].to(torch.int32).argmax(dim=1)
         ln[torch.arange(L, device=dev), first, 0] = C
         lengths.copy_(torch.where(own, ln, 0))
@@ -5123,10 +5196,9 @@ def p21_long_state(m, plan, ccfg, device, cols, fill=True):
                     full = torch.randn((C, Dh), generator=g, device=dev, dtype=torch.bfloat16)
                     t[i, j, 0].copy_(full[c0:c1])
                     del full
-    return {"cache": {"k": k, "v": v, "lengths": lengths, "pos": pos,
-                      "positions": torch.full((1,), C, dtype=torch.int32, device=dev)},
-            "last_tokens": torch.ones((1,), dtype=torch.int64, device=dev),
-            "decode_steps": 0}
+    out["cache"] = {"k": k, "v": v, "lengths": lengths, "pos": pos,
+                    "positions": torch.full((1,), C, dtype=torch.int32, device=dev)}
+    return out
 
 
 def _p21_written(cache, c0, C):
@@ -5144,8 +5216,8 @@ def _p21_written(cache, c0, C):
     return key[order], [x[order] for x in vals]
 
 
-def p21_long_build(mesh, init_device=None, fill=True):
-    """(a)'s cell step on ``mesh``'s rank under ``serve_rules(long_context=
+def p21_long_build(mesh, init_device=None, fill=True, cell=P21_CELL):
+    """A long cell's step on ``mesh``'s rank under ``serve_rules(long_context=
     True)``: the rank's shards of the seed weights and plan arrays, its
     columns of the state (`p21_long_state`) and the decode step."""
     import dataclasses
@@ -5157,33 +5229,36 @@ def p21_long_build(mesh, init_device=None, fill=True):
     from repro_torch.launch import specs
     from repro_torch.models.transformer import init_params
     from repro_torch.serving import engine as S
-    m, ccfg, plan = p21_long_setup()
+    m, ccfg, plan = p21_long_setup(cell)
     rules = serve_rules(mesh, long_context=True)
     dev = init_device or mesh.device
     sp = S.slotify_params(init_params(m, SEED, torch.bfloat16, device=dev), plan, m)
     sp_spec = tree_specs(sp, rules, "serve")
     sp = local_shard(sp, sp_spec, mesh)
-    pa = PlanArrays.from_plan(plan, device=dev)
-    pa = local_shard({f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)},
-                     specs.plan_specs(plan, rules), mesh)
+    pa = None
+    if plan is not None:
+        pa = PlanArrays.from_plan(plan, device=dev)
+        pa = local_shard({f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)},
+                         specs.plan_specs(plan, rules), mesh)
     C = ccfg.static_capacity()
     sc = split(rules, mesh, "cache_len", C)
     n_loc = C // sc.size
     cols = (sc.offset(n_loc), sc.offset(n_loc) + n_loc)
-    state = p21_long_state(m, plan, ccfg, mesh.device, cols, fill)
+    state = p21_long_state(m, plan, ccfg, mesh.device, cols, fill, cell)
     if init_device is not None:  # fake tensors built on the host: to the mesh's device
         sp, pa = (specs._to_device(x, mesh.device) for x in (sp, pa))
-    step = specs.serve_step("decode", m, ccfg, mesh, rules, sp_spec, plan.n_slots, 1)
+    step = specs.serve_step("decode", m, ccfg, mesh, rules, sp_spec,
+                            0 if plan is None else plan.n_slots, 1)
     return {"sp": sp, "pa": pa, "state": state, "step": step, "cols": cols, "C": C}
 
 
-def p21_long_steps(mesh, teacher, memory=False):
-    """(a) through the cell step on ``mesh``'s rank: `P21_STEPS` decode
-    steps fed ``teacher`` (the local executor's tokens).  Returns the
-    tokens, logits, lengths, the entries written, one step's collectives,
-    the launches, the median step ms and, with ``memory``, the first
-    step's ``max_memory_allocated`` above the memory allocated before its
-    arguments."""
+def p21_long_steps(mesh, teacher, memory=False, cell=P21_CELL):
+    """A long cell through the cell step on ``mesh``'s rank: its ``steps``
+    decode steps fed ``teacher`` (the local executor's tokens).  Returns
+    the tokens, logits, lengths, the entries written, the final SSD / conv
+    state, one step's collectives, the launches, the median step ms and,
+    with ``memory``, the first step's ``max_memory_allocated`` above the
+    memory allocated before its arguments."""
     import dataclasses
 
     import numpy as np
@@ -5191,14 +5266,14 @@ def p21_long_steps(mesh, teacher, memory=False):
     from repro_torch.distributed import comm
     from repro_torch.kernels import build
     base = torch.cuda.memory_allocated() if memory else 0
-    a = p21_long_build(mesh)
+    a = p21_long_build(mesh, cell=cell)
     sp, pa, step = a["sp"], a["pa"], a["step"]
     state = a["state"]
     teacher = torch.as_tensor(teacher, dtype=torch.int64, device=mesh.device)
     out, toks, logit_rows, step_s = {}, [], [], []
     build.reset_launches()
     with torch.inference_mode():
-        for t in range(P21_STEPS):
+        for t in range(cell["steps"]):
             if t:
                 state = dataclasses.replace(state, last_tokens=teacher[t - 1:t])
             if t == 0:
@@ -5215,72 +5290,94 @@ def p21_long_steps(mesh, teacher, memory=False):
                 out["collectives"] = comm.by_kind(comm.since(before))
             toks.append(int(state.last_tokens[0]))
             logit_rows.append(lg[0].float().cpu().numpy())
+    cache = state.cache
     out.update(tokens=np.array(toks), logits=np.stack(logit_rows),
-               lengths=state.cache.lengths.cpu().numpy(),
-               written=_p21_written(state.cache, a["cols"][0], a["C"]),
+               lengths=None if cache is None else cache.lengths.cpu().numpy(),
+               written=None if cache is None else _p21_written(cache, a["cols"][0], a["C"]),
                launches=dict(build.LAUNCHES), step_ms=1e3 * statistics.median(step_s),
-               cols=a["cols"])
+               cols=a["cols"], state=_p22_states(state))
     return out
 
 
-def p21_long_local():
-    """(a)'s reference: the local executor's decode steps (graphed) on the
-    whole state, free-running from token 1.  Returns its tokens, logits,
-    lengths, written entries, launches, the final cache and plan arrays
-    (for the kernel checks)."""
+def p21_long_local(cell=P21_CELL):
+    """A long cell's reference: the local executor's decode steps (graphed)
+    on the whole state, free-running from token 1 (an attention-free model:
+    the engine's one-slot plan).  Returns its tokens, logits, lengths,
+    written entries, final SSD / conv state, launches, the final cache and
+    plan arrays (for the kernel checks)."""
     import numpy as np
     import torch
     from repro_torch.cache.slot_cache import PlanArrays, SlotCache
+    from repro_torch.core.planner import PlannerConfig, build_plan
     from repro_torch.exec.local import LocalExecutor
     from repro_torch.kernels import build
     from repro_torch.models.transformer import init_params
     from repro_torch.serving import engine as S
-    m, ccfg, plan = p21_long_setup()
+    m, ccfg, plan = p21_long_setup(cell)
     C = ccfg.static_capacity()
     sp = S.slotify_params(init_params(m, SEED, torch.bfloat16, device="cuda"), plan, m)
+    if plan is None:  # the engine's plan of an attention-free model: one slot
+        plan = build_plan(np.ones((m.n_layers, 1)), 1, PlannerConfig(mode="sha",
+                                                                      slots_per_shard=1))
     pa = PlanArrays.from_plan(plan, device="cuda")
-    st = p21_long_state(m, plan, ccfg, "cuda", (0, C))
-    state = S.ServeState(cache=SlotCache(**st["cache"]), last_tokens=st["last_tokens"],
-                         decode_steps=0)
+    st = p21_long_state(m, None if m.attention_free else plan, ccfg, "cuda", (0, C), cell=cell)
+    cache = SlotCache(**st.pop("cache")) if "cache" in st else None
+    state = S.ServeState(cache=cache, **st)
     ex = LocalExecutor(m, ccfg, device="cuda")
     toks, logit_rows = [], []
     build.reset_launches()
     with torch.inference_mode():
-        for _ in range(P21_STEPS):
+        for _ in range(cell["steps"]):
             state, lg = ex.decode(sp, state, pa)
             toks.append(int(state.last_tokens[0]))
             logit_rows.append(lg[0].float().cpu().numpy())
+    cache = state.cache
     return {"tokens": np.array(toks), "logits": np.stack(logit_rows),
-            "lengths": state.cache.lengths.cpu().numpy(),
-            "written": _p21_written(state.cache, 0, C), "launches": dict(build.LAUNCHES),
-            "cache": state.cache, "n_layers": m.n_layers, "C": C}
+            "lengths": None if cache is None else cache.lengths.cpu().numpy(),
+            "written": None if cache is None else _p21_written(cache, 0, C),
+            "launches": dict(build.LAUNCHES), "state": _p22_states(state),
+            "cache": cache, "n_layers": m.n_layers, "C": C}
+
+
+def _cublas_workspace(device) -> None:
+    """One product in each dtype the steps use, so that the process's cuBLAS
+    workspace (allocated at its first product, 32 MiB on this card) exists
+    before a step's memory is measured against the fake prediction, which
+    counts the step's tensors only."""
+    import torch
+    for dt in (torch.bfloat16, torch.float32):
+        x = torch.ones((8, 64), dtype=dt, device=device)
+        x @ x.T
+    torch.cuda.synchronize()
 
 
 def p21_long_rank(mesh, args):
-    """One gloo rank of (a): the cell step on its columns."""
+    """One gloo rank of a long cell: the cell step on its columns."""
     import torch
     if mesh.rank:
         sys.stdout = open(os.devnull, "w")  # rank 0 logs
     torch.backends.cuda.matmul.allow_tf32 = False
-    out = p21_long_steps(mesh, args["teacher"], memory=True)
+    _cublas_workspace(mesh.device)
+    out = p21_long_steps(mesh, args["teacher"], memory=True, cell=args.get("cell", P21_CELL))
+    out["state"] = {k: v.float().numpy() for k, v in out["state"].items()}
     return out
 
 
-def p21_long_prediction():
-    """(a)'s gloo ranks' peak, predicted on fake tensors on a fake (data
-    ``P21_DATA``, model 1) mesh: rank 0's first decode step."""
+def p21_long_prediction(cell=P21_CELL):
+    """A long cell's gloo ranks' peak, predicted on fake tensors on a fake
+    (data ``data``, model 1) mesh: rank 0's first decode step."""
     import torch
     from repro_torch.distributed import step_stats
     from repro_torch.launch.mesh import fake_process_group, make_production_mesh
-    with fake_process_group(P21_DATA), step_stats.fake_tensors(), torch.inference_mode():
-        mesh = make_production_mesh(model=1, data=P21_DATA)
-        a = p21_long_build(mesh, init_device="cpu", fill=False)
+    with fake_process_group(cell["data"]), step_stats.fake_tensors(), torch.inference_mode():
+        mesh = make_production_mesh(model=1, data=cell["data"])
+        a = p21_long_build(mesh, init_device="cpu", fill=False, cell=cell)
         _, st = step_stats.measure(a["step"], (a["sp"], a["state"], a["pa"]), a["sp"],
                                    a["state"], a["pa"])
     return st.peak_bytes
 
 
-def _p21_same_written(name, got, want, bitwise=True, tag="[p21] (a)"):
+def _p21_same_written(name, got, want, bitwise=True, tag="[p21] (a)", n_layers=P21_LAYERS):
     """The entries a run wrote against the local executor's: the same
     (layer, slot, column) keys and positions, and K / V bitwise; without
     ``bitwise`` (split-S) only layer 0's K / V are bitwise (they come from
@@ -5294,7 +5391,7 @@ def _p21_same_written(name, got, want, bitwise=True, tag="[p21] (a)"):
              f"executor's ({len(gk)} against {len(wk)} entries)")
     first = wk[:, 0] == 0
     gap = max(float(np.abs(a - b).max()) for a, b in zip(gv[:2], wv[:2]))
-    bar = P21_LAYERS * 2.0 ** -8 * max(float(np.abs(b).max()) for b in wv[:2])
+    bar = n_layers * 2.0 ** -8 * max(float(np.abs(b).max()) for b in wv[:2])
     exact = all(np.array_equal(a[first if not bitwise else slice(None)],
                                b[first if not bitwise else slice(None)])
                 for a, b in zip(gv[:2], wv[:2]))
@@ -5304,15 +5401,16 @@ def _p21_same_written(name, got, want, bitwise=True, tag="[p21] (a)"):
     return gap
 
 
-def p21_long_check(name, run, ref, data, tag="[p21] (a)"):
-    """Bars of a run of (a) against the local executor's: tokens equal,
-    lengths bitwise, the logit gap under n_layers 2^-8 max|logit|, the
-    contract (2·L + 1 all-reduces over model, the pair gather, L split-S
-    gathers over data when ``data`` > 1).  Returns (gap, bar, bitwise)."""
+def p21_long_check(name, run, ref, data, tag="[p21] (a)", cell=P21_CELL):
+    """Bars of a run of a long cell against the local executor's: tokens
+    equal, lengths bitwise, the logit gap under n_layers 2^-8 max|logit|,
+    the contract (`dryrun.decode_contract`: for gemma2 2·L + 1 all-reduces
+    over model, the pair gather, L split-S gathers over data when ``data``
+    > 1).  Returns (gap, bar, bitwise)."""
     import numpy as np
     from repro_torch.configs import get_config
     from repro_torch.launch import dryrun
-    m = get_config("gemma2-9b").with_overrides(n_layers=P21_LAYERS)
+    m = get_config(cell["arch"]).with_overrides(n_layers=cell["layers"])
     if not np.array_equal(run["tokens"], ref["tokens"]):
         fail(f"{tag} {name}: tokens {run['tokens'].tolist()} differ from the local "
              f"executor's {ref['tokens'].tolist()}")
@@ -5322,10 +5420,52 @@ def p21_long_check(name, run, ref, data, tag="[p21] (a)"):
     gap = float(np.abs(run["logits"] - ref["logits"]).max())
     if not (np.isfinite(run["logits"]).all() and gap < tol):
         fail(f"{tag} {name}: logit gap {gap} >= {tol} (or not finite)")
-    got = dryrun.decode_contract(run["collectives"], m, 1, 1, 1, split_s=data > 1)
+    got = dryrun.decode_contract(run["collectives"], m, 1, 1, data, split_s=True)
     if not all(got.values()):
         fail(f"{tag} {name}: collectives {run['collectives']} break the contract {got}")
     return gap, tol, bool(np.array_equal(run["logits"], ref["logits"]))
+
+
+def _partial_times(args, kw, flush, tag):
+    """Kernel 1's partial variant on one shard (``args`` = (q, k, v, lengths,
+    softcap), ``kw`` its positions and window): its device ms, its plain
+    version's, the efficient SDPA's with log-sum-exp (None where this
+    build has no such call), the bound (the retained entries' K / V, q and
+    the fp32 (o, lse) moved once at 3.35 TB/s, or 4·n·G·Dh operations at
+    989 TFLOP/s, whichever is larger), what binds it, its bytes and the
+    retained entries."""
+    import torch
+    from repro_torch.kernels.fairkv_decode import fairkv_decode_partial_cuda
+    from repro_torch.kernels.ref import fairkv_decode_partial_ref
+    q, k, v, ln, _ = args
+    S, G, Dh = q.shape[1], q.shape[2], q.shape[3]
+    c_loc = k.shape[2]
+    kern = time_ms(lambda: fairkv_decode_partial_cuda(*args, **kw), flush)
+    plain = time_ms(lambda: fairkv_decode_partial_ref(*args, **kw), flush)
+    it = k.element_size()
+    n_ret = int(ln.sum().item())
+    nbytes = n_ret * Dh * 2 * it + q.numel() * it + q.numel() * 4 + S * G * 4 + ln.numel() * 4
+    flops = 4 * n_ret * G * Dh
+    bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
+    lib = None
+    try:  # one PyTorch call with the same (o, lse): the efficient SDPA, length-masked
+        qs = q.permute(1, 0, 2, 3).reshape(S, G, 1, Dh)
+        ks = k.reshape(S, 1, c_loc, Dh).expand(S, G, c_loc, Dh)
+        vs = v.reshape(S, 1, c_loc, Dh).expand(S, G, c_loc, Dh)
+        mask = torch.arange(c_loc, device="cuda")[None, :] < ln.reshape(-1, 1)
+        bias = torch.where(mask, 0.0, float("-inf")).to(q.dtype)[:, None, None, :].expand(
+            S, G, 1, c_loc)
+        sdpa = torch.ops.aten._scaled_dot_product_efficient_attention
+
+        def call():
+            return sdpa(qs, ks, vs, bias, True)
+        call()
+        lib = time_ms(call, flush)
+    except Exception as e:  # noqa: BLE001 - no such call on this build: reported
+        log(f"{tag} the efficient SDPA with log-sum-exp did not run here ({type(e).__name__}: "
+            f"{e}); the partial kernel's library_ms is null")
+    bound_by = "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S else "operations"
+    return kern, plain, lib, bound, bound_by, nbytes, n_ret
 
 
 def p21_kernel_rows(ref, rows, launches):
@@ -5380,38 +5520,13 @@ def p21_kernel_rows(ref, rows, launches):
         f"(max err {err:.3e}); empty / live (slot, head) pairs per case "
         f"{ {k: (e, l) for k, (_, _, e, l) in cases.items()} }")
     args, kw, _, _ = cases[(1, P21_C_LOC)]
-    q_, k, v, ln, cap = args
-    kern = time_ms(lambda: fairkv_decode_partial_cuda(*args, **kw), flush)
-    plain = time_ms(lambda: fairkv_decode_partial_ref(*args, **kw), flush)
-    it = k.element_size()
-    n_ret = int(ln.sum().item())
-    nbytes = n_ret * Dh * 2 * it + q.numel() * it + q.numel() * 4 + S * G * 4 + ln.numel() * 4
-    flops = 4 * n_ret * G * Dh
-    bound = 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S)
-    lib = None
-    try:  # one PyTorch call with the same (o, lse): the efficient SDPA, length-masked
-        qs = q.permute(1, 0, 2, 3).reshape(S, G, 1, Dh)
-        ks = k.reshape(S, 1, P21_C_LOC, Dh).expand(S, G, P21_C_LOC, Dh)
-        vs = v.reshape(S, 1, P21_C_LOC, Dh).expand(S, G, P21_C_LOC, Dh)
-        mask = torch.arange(P21_C_LOC, device="cuda")[None, :] < ln.reshape(-1, 1)
-        bias = torch.where(mask, 0.0, float("-inf")).to(q.dtype)[:, None, None, :].expand(
-            S, G, 1, P21_C_LOC)
-        sdpa = torch.ops.aten._scaled_dot_product_efficient_attention
-
-        def call():
-            return sdpa(qs, ks, vs, bias, True)
-        call()
-        lib = time_ms(call, flush)
-    except Exception as e:  # noqa: BLE001 - no such call on this build: reported
-        log(f"[p21] the efficient SDPA with log-sum-exp did not run here ({type(e).__name__}: "
-            f"{e}); the partial kernel's library_ms is null")
+    kern, plain, lib, bound, bound_by, nbytes, n_ret = _partial_times(args, kw, flush, "[p21]")
     rows.append({"name": "fairkv_decode_partial", "route": "cuda",
                  "source": "src/repro_torch/csrc/fairkv_decode.cu",
                  "replaces": "src/repro/kernels/fairkv_decode.py:107",
                  "launches": launches, "max_abs_err": err, "ms": kern, "plain_ms": plain,
-                 "bound_ms": bound,
-                 "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
-                 else "operations", "library_ms": lib})
+                 "bound_ms": bound, "bound_by": bound_by, "library_ms": lib})
+    it = cache.k.element_size()
     # kernel 1 on the whole global layer at long context
     k1, v1, p1 = cache.k[1], cache.v[1], cache.pos[1]
     ln1 = cache.lengths[1]
@@ -5692,6 +5807,460 @@ def p21_runs(rows, moe_ref, records, dry):
         f"{la}, (b) NCCL {lb_a}, gloo rank 0 {lb_b}")
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the SSM, hybrid, encoder-decoder and VLM serve cells' step
+# ---------------------------------------------------------------------------
+
+P22_ARCHS = ("mamba2-1.3b", "hymba-1.5b", "whisper-small", "llava-next-34b")
+# (b): two gloo ranks move every collective through host memory (phase 20
+# (b)'s 8-layer prefill took ~20 s), so each arch runs with a shorter
+# prompt and, where the plan bar allows, fewer layers: (decoder layers,
+# prompt text tokens, rows); llava's prompts also hold its 2880 image
+# tokens, whisper's encoder keeps its 12 layers over 1500 frames.  The bar
+# n_layers 2^-8 max|logit| narrows with the depth faster than the partial
+# sums' bf16 rounding does: hymba at 4 layers and llava at 4 missed it
+# (0.1172 against 0.0669, 0.3516 against 0.1377 on an NVIDIA H100 80GB
+# HBM3, 700.00 W)
+P22_GLOO = {"mamba2-1.3b": (4, 512, B), "hymba-1.5b": (16, 128, B),
+            "whisper-small": (12, WHISPER_PROMPT, B), "llava-next-34b": (12, 128, LLAVA_B)}
+# (c) hymba-1.5b's long_500k cell at full width cut to 4 of 32 layers: its
+# one window of 1024 (+ the 64-column ring), lengths drawn in [1000, 1024]
+# and each layer's first owned slot full, so its appends wrap the ring,
+# 16 steps (as phase 21's: over 72 steps 2 near-tied tokens of the split-S
+# ranks flipped on the H100); the gloo ranks split the 1088
+# columns over data 2: kernel 1's partial variant at G 5, Dh 64, window
+# 1024.  mamba2-1.3b's long_500k (B 1, no cache) at full width and depth,
+# one NCCL rank
+P22_LONG = dict(arch="hymba-1.5b", layers=4, cap=1024, len_min=1000, steps=16, data=2,
+                tag="[p22] (c)")
+P22_MAMBA_LONG = dict(arch="mamba2-1.3b", layers=48, cap=1024, len_min=0, steps=16, data=1,
+                      tag="[p22] (c)")
+P22_DRY = ROOT / "chiprun_out" / "dryrun_p22"
+
+
+def _p22_states(state) -> dict:
+    """A serve state's SSD, conv window and cross attention tensors, copied
+    to the host in their dtype (absent ones left out)."""
+    out = {}
+    for f in ("ssm_state", "conv_state", "cross_k", "cross_v"):
+        t = getattr(state, f, None)
+        if t is not None:
+            out[f] = t.detach().cpu().clone()
+    return out
+
+
+def _p22_ref(ctx):
+    """Phase 17's one-shot of an arch as phase 22 (a)'s reference: its
+    config, profile and prompts, the local executor's eager run (result and
+    final state) and the tokens that run was fed."""
+    return {"cfg": ctx["cfg"], "profile": ctx["profile"], "prompts": ctx["prompts"],
+            "slot_dp": ctx["eager"], "teacher": ctx["teacher"], "state": ctx["state"]}
+
+
+def _p22_free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def p22_nccl(refs):
+    """(a): each arch's phase-17 one-shot (full width; llava cut to 12 of
+    60 layers) through the cell step on one NCCL rank (model 1, data 1):
+    tokens, logits, lengths and the final SSD state, conv window and cross
+    K / V bitwise the local executor's; the derived decode collectives;
+    kernel 1 n_attn x GEN and kernel 2 n_attn launches (none for mamba2).
+    Returns the launches."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh
+    launches = {}
+    dist.init_process_group("nccl", init_method=f"file://{tempfile.mkdtemp()}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(model=1, data=1)
+        for arch in P22_ARCHS:
+            ref = refs[arch]
+            m, want = ref["cfg"].model, ref["slot_dp"]
+            run = p20_oneshot(mesh, ref)
+            rows = want.tokens.shape[0]
+            same = {"tokens": np.array_equal(run["tokens"], want.tokens),
+                    "logits": np.array_equal(run["logits"], want.logits),
+                    "lengths": np.array_equal(run["lengths"], want.lengths)}
+            same.update({f: f in run["state"] and torch.equal(run["state"][f], t)
+                         for f, t in ref["state"].items()})
+            gap = float(np.abs(run["logits"] - want.logits).max())
+            if not all(same.values()) or set(run["state"]) != set(ref["state"]):
+                fail(f"[p22] (a) {arch}: not bitwise the local executor's: {same} (logit gap "
+                     f"{gap}; state fields {sorted(run['state'])})")
+            held = dryrun.decode_contract(run["collectives"], m, rows, 1, 1)
+            if not all(held.values()):
+                fail(f"[p22] (a) {arch}: decode collectives {run['collectives']} break the "
+                     f"derived count {held}")
+            n_attn = 0 if m.attention_free else m.n_layers
+            got = run["launches"]
+            if got["fairkv_decode"] != n_attn * GEN or got["snapkv_scores"] != n_attn:
+                fail(f"[p22] (a) {arch}: launches {got}, want fairkv_decode {n_attn} x {GEN}, "
+                     f"snapkv_scores {n_attn}")
+            for k, v in got.items():
+                launches[k] = launches.get(k, 0) + v
+            log(f"[p22] (a) {arch} ({m.n_layers} layers, B {rows}, prompt "
+                f"{ref['prompts']['tokens'].shape[1]} tokens, {GEN} steps) on one NCCL rank: "
+                f"tokens, logits, lengths and {sorted(ref['state'])} bitwise the local "
+                f"executor's; prefill {run['prefill_s']:.2f} s, eager decode step median "
+                f"{run['step_ms']:.2f} ms; per decode step {run['collectives']}; launches {got}")
+            run = ref = None
+            _p22_free()
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def p22_gloo_ref(arch):
+    """(b)'s reference: the local executor (eager) on ``arch`` cut as
+    `P22_GLOO`, fairkv_dp, free-running `GEN` tokens from SyntheticLM's
+    prompts."""
+    from repro_torch.api import Engine
+    from repro_torch.configs.base import InputShape
+    from repro_torch.training.data import SyntheticLM
+    layers, t, b = P22_GLOO[arch]
+    cfg = family_config(arch, b, t, "fairkv_dp", 4)
+    m = cfg.model.with_overrides(n_layers=layers)
+    t_all = t + (m.num_image_tokens if m.is_vlm else 0)
+    cfg = family_config(arch, b, t_all, "fairkv_dp", 4).replace(model=m)
+    prompts = SyntheticLM(m, InputShape("chip_smoke", t_all, b, "prefill")).get_batch(0)
+    eng = Engine.build(cfg)
+    eng.executor = eager_executor(cfg)
+    res = eng.generate(prompts, GEN)
+    ref = {"cfg": cfg, "profile": eng.profile, "prompts": prompts, "slot_dp": res,
+           "teacher": res.tokens[:, :GEN], "state": _p22_states(eng.state)}
+    del eng
+    _p22_free()
+    return ref
+
+
+def p22_gloo_rank(mesh, args):
+    """One gloo rank of (b): each arch's cut one-shot through the cell step
+    (its states as fp32 numpy), the cuBLAS workspace made first
+    (`_cublas_workspace`)."""
+    import torch
+    if mesh.rank:
+        sys.stdout = open(os.devnull, "w")  # rank 0 logs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _cublas_workspace(mesh.device)
+    out = {}
+    for arch, ref in args["refs"].items():
+        run = p20_oneshot(mesh, ref, memory=True)
+        run["state"] = {k: v.float().numpy() for k, v in run["state"].items()}
+        out[arch] = run
+        _p22_free()
+    return out
+
+
+def _p22_assemble(parts, want):
+    """The ranks' shards of one state field put together along the dim
+    their shape differs from the whole's (``want``) in, or rank 0's when
+    every rank holds it whole (then every rank's must agree)."""
+    import numpy as np
+    dims = [d for d, (a, b) in enumerate(zip(parts[0].shape, want.shape)) if a != b]
+    if not dims:
+        if any(not np.array_equal(p, parts[0]) for p in parts[1:]):
+            fail("[p22] (b) the ranks' whole state copies differ")
+        return parts[0]
+    return np.concatenate(parts, axis=dims[0])
+
+
+def p22_gloo_check(arch, ref, ranks, predicted):
+    """(b)'s bars for one arch on the two ranks' runs: the logit gap and
+    every state field's gap under n_layers 2^-8 max|local| (the plan bar;
+    for the cross K / V the encoder's layers and the projection's rounding
+    count, n_encoder_layers + 1),
+    each rank's peaks within `P21_PEAK_TOL` of the fake prediction, the
+    derived decode collectives; the tokens' argmax agreement is printed."""
+    import numpy as np
+    from repro_torch.launch import dryrun
+    m, want = ref["cfg"].model, ref["slot_dp"]
+    rows = want.tokens.shape[0]
+    logits = np.concatenate([r["logits"] for r in ranks], axis=-1)
+    tol = m.n_layers * 2.0 ** -8 * float(np.abs(want.logits).max())
+    gap = float(np.abs(logits - want.logits).max())
+    agree = float((logits.argmax(-1) == want.logits.argmax(-1)).mean())
+    problems = []
+    if logits.shape != want.logits.shape or not np.isfinite(logits).all() or not gap < tol:
+        problems.append(f"logits {logits.shape} (want {want.logits.shape}), gap {gap} (bar "
+                        f"{tol}) or not finite")
+    state_gaps, state_bars = {}, {}
+    for f, w in ref["state"].items():
+        wf = w.float().numpy()
+        got = _p22_assemble([r["state"][f] for r in ranks], wf)
+        n = m.n_encoder_layers + 1 if f.startswith("cross") else m.n_layers
+        bar = state_bars[f] = n * 2.0 ** -8 * float(np.abs(wf).max())
+        state_gaps[f] = float(np.abs(got - wf).max()) if got.shape == wf.shape else None
+        if state_gaps[f] is None or not state_gaps[f] <= bar:
+            problems.append(f"{f}: shape {got.shape} (want {wf.shape}), gap {state_gaps[f]} "
+                            f"(bar {bar})")
+    for r, got in enumerate(ranks):
+        held = dryrun.decode_contract(got["collectives"], m, rows, P20_MODEL, 1)
+        if not all(held.values()):
+            problems.append(f"rank {r}: collectives {got['collectives']} break {held}")
+        offs = {step: abs(predicted[step] - got["peak"][step]) / got["peak"][step]
+                for step in ("prefill", "decode")}
+        problems += [f"rank {r} {step}: peak {got['peak'][step]} B, predicted "
+                     f"{predicted[step]} B ({100 * o:.1f}% off)"
+                     for step, o in offs.items() if o > P21_PEAK_TOL]
+        log(f"[p22] (b) {arch} gloo rank {r}: " + "; ".join(
+            f"{step} peak {got['peak'][step]} B, predicted {predicted[step]} B "
+            f"({100 * offs[step]:.2f}%)" for step in ("prefill", "decode"))
+            + f"; per decode step {got['collectives']}; prefill {got['prefill_s']:.2f} s, "
+            f"decode step median {got['step_ms']:.2f} ms")
+    log(f"[p22] (b) {arch} ({m.n_layers} layers, B {rows}, prompt "
+        f"{ref['prompts']['tokens'].shape[1]} tokens) on two gloo ranks (model {P20_MODEL}): "
+        f"logit gap {gap:.5f} (bar {tol:.4f}), argmax agreement with the local run "
+        f"{100 * agree:.1f}%, state gaps {state_gaps} (bars {state_bars}); tokens "
+        f"{ranks[0]['tokens'][0].tolist()}")
+    if problems:
+        fail(f"[p22] (b) {arch}: " + "; ".join(problems))
+
+
+def p22_long_kernel(ref, rows, launches):
+    """Kernel 1's partial variant at hymba's long shape (B 1, G 5, Dh 64,
+    window 1024) on (c)'s local final cache, layer 0, each data-2 shard of
+    its 1088 columns: o and lse within FP32_TOL + 1e-5|plain| of the plain
+    version, empty pairs o = 0, lse = -inf; timed on the second shard
+    beside its bound, its plain version and the efficient SDPA.  Adds
+    the ``*_g5`` keys to the partial kernel's row."""
+    import torch
+    from repro_torch.cache.slot_cache import shard_lengths
+    from repro_torch.kernels.fairkv_decode import fairkv_decode_partial_cuda
+    from repro_torch.kernels.ref import fairkv_decode_partial_ref
+    from repro_torch.configs import get_config
+    m = get_config(P22_LONG["arch"])
+    cache, C = ref["cache"], ref["C"]
+    c_loc = C // P22_LONG["data"]
+    S, G, Dh = cache.k.shape[1], m.q_per_kv, m.head_dim
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(SEED + 22)
+    q = torch.randn((1, S, G, Dh), generator=gen, device="cuda").to(torch.bfloat16)
+    flush = torch.empty(64 * 2**20, dtype=torch.uint8, device="cuda")
+    err, live = 0.0, {}
+    for c0 in (0, c_loc):
+        cols = slice(c0, c0 + c_loc)
+        k, v, kp = (t[0, :, :, cols].contiguous() for t in (cache.k, cache.v, cache.pos))
+        args = (q, k, v, shard_lengths(cache.lengths[0], c0, c_loc), m.attn_softcap)
+        kw = dict(k_pos=kp, q_pos=cache.positions, window=m.sliding_window)
+        o, lse = fairkv_decode_partial_cuda(*args, **kw)
+        o_ref, lse_ref = fairkv_decode_partial_ref(*args, **kw)
+        torch.cuda.synchronize()
+        empty = torch.isinf(lse_ref)
+        if not (torch.equal(torch.isinf(lse), empty) and bool((o[empty] == 0).all())):
+            fail(f"[p22] partial kernel (G {G}, columns {c0}+): empty pairs not o = 0, "
+                 f"lse = -inf")
+        name = f"fairkv_decode_partial (G {G}, Dh {Dh}, window {m.sliding_window}, columns {c0}+)"
+        err = max(err, _cmp(name, o, o_ref, FP32_TOL, 1e-5),
+                  _cmp(name + " lse", torch.where(~empty, lse, 0.0),
+                       torch.where(~empty, lse_ref, 0.0), FP32_TOL, 1e-5))
+        live[c0] = (int(empty.sum()), int((~empty).sum()))
+        last = (args, kw)
+    kern, plain, lib, bound, bound_by, nbytes, n_ret = _partial_times(*last, flush, "[p22]")
+    for row in rows:
+        if row["name"] == "fairkv_decode_partial":
+            row.update(ms_g5=kern, plain_ms_g5=plain, bound_ms_g5=bound, bound_by_g5=bound_by,
+                       library_ms_g5=lib, max_abs_err_g5=err, launches_g5=launches)
+    log(f"[p22] partial kernel on (c)'s cache (B 1, S {S}, G {G}, Dh {Dh}, window "
+        f"{m.sliding_window}, C_loc {c_loc}): o and lse within {FP32_TOL:g} + 1e-5|plain| of "
+        f"the plain version (max err {err:.3e}); empty / live pairs per shard {live}")
+    log(f"[time] fairkv_decode_partial at (B 1, S {S}, G {G}, C_loc {c_loc}, Dh {Dh}, window "
+        f"{m.sliding_window}) bf16, sum(lengths) = {n_ret}: kernel {kern:.4f} ms, plain "
+        f"{plain:.4f} ms, efficient SDPA {lib if lib is None else f'{lib:.4f}'} ms, bound "
+        f"{bound:.4f} ms ({nbytes} B, {bound_by})")
+
+
+def _p22_same_states(name, got, want, tag):
+    """The run's final SSD state and conv window bitwise the local one's."""
+    import torch
+    same = {f: f in got and torch.equal(got[f], t) for f, t in want.items()}
+    if not all(same.values()) or set(got) != set(want):
+        fail(f"{tag} {name}: final state not bitwise the local executor's: {same}")
+
+
+def p22_long(rows):
+    """(c): hymba-1.5b's long_500k cell, the local executor, then the cell
+    step on one NCCL rank (data 1) while two gloo ranks (data 2: the
+    partial kernel) share the card; then mamba2-1.3b's long_500k on one
+    NCCL rank; the partial kernel's checks and times at G 5.  Returns the
+    gloo rank 0's launches."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.perf_counter()
+    cell, tag = P22_LONG, P22_LONG["tag"]
+    predicted = p21_long_prediction(cell)
+    ref = p21_long_local(cell)
+    L, steps = ref["n_layers"], cell["steps"]
+    if ref["launches"]["fairkv_decode"] != L * steps:
+        fail(f"{tag} local executor launches {ref['launches']}")
+    wrapped = int((ref["written"][0][:, 2] >= ref["C"] - MARGIN).sum())
+    mamba = p21_long_local(P22_MAMBA_LONG)
+    if any(mamba["launches"].values()):
+        fail(f"{tag} mamba2's local executor launched kernels: {mamba['launches']}")
+    join = p20_gloo_start({"send": {"teacher": ref["tokens"], "cell": cell}},
+                          rank_fn=p21_long_rank, model=1, data=cell["data"])
+    dist.init_process_group("nccl", init_method=f"file://{tempfile.mkdtemp()}/rendezvous",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(model=1, data=1)
+        one = p21_long_steps(mesh, ref["tokens"], cell=cell)
+        one_m = p21_long_steps(mesh, mamba["tokens"], cell=P22_MAMBA_LONG)
+    finally:
+        dist.destroy_process_group()
+    _, _, bitwise = p21_long_check("one NCCL rank", one, ref, 1, tag, cell)
+    _p21_same_written("one NCCL rank", one["written"], ref["written"], tag=tag, n_layers=L)
+    _p22_same_states("one NCCL rank", one["state"], ref["state"], tag)
+    if not bitwise or one["launches"]["fairkv_decode"] != L * steps \
+            or one["launches"]["fairkv_decode_partial"]:
+        fail(f"{tag} one NCCL rank: logits bitwise {bitwise}, launches {one['launches']} "
+             f"(want {L * steps} of kernel 1, none of the partial variant)")
+    log(f"{tag} hymba-1.5b long_500k, one NCCL rank (data 1), {L} layers, B 1, C {ref['C']}, "
+        f"{steps} steps: tokens, lengths, logits, the SSD state and conv window and "
+        f"{len(one['written'][0])} written entries ({wrapped} in the ring) bitwise the local "
+        f"executor's; eager step median {one['step_ms']:.2f} ms; per step "
+        f"{one['collectives']}; launches {one['launches']}")
+    _, _, bitwise_m = p21_long_check("mamba2 one NCCL rank", one_m, mamba, 1, tag, P22_MAMBA_LONG)
+    _p22_same_states("mamba2 one NCCL rank", one_m["state"], mamba["state"], tag)
+    if not bitwise_m or any(one_m["launches"].values()):
+        fail(f"{tag} mamba2 one NCCL rank: logits bitwise {bitwise_m}, launches "
+             f"{one_m['launches']}")
+    log(f"{tag} mamba2-1.3b long_500k, one NCCL rank, {P22_MAMBA_LONG['layers']} layers, B 1, "
+        f"{P22_MAMBA_LONG['steps']} steps: tokens, logits, the SSD state and conv window "
+        f"bitwise the local executor's; eager step median {one_m['step_ms']:.2f} ms; per step "
+        f"{one_m['collectives']}")
+    ranks = join()
+    problems = []
+    for r, got in enumerate(ranks):
+        gap_r, tol_r, _ = p21_long_check(f"gloo rank {r}", got, ref, cell["data"], tag, cell)
+        if got["launches"]["fairkv_decode_partial"] != L * steps or \
+                got["launches"]["fairkv_decode"]:
+            problems.append(f"rank {r}: launches {got['launches']}")
+        off = abs(predicted - got["peak"]) / got["peak"]
+        if off > P21_PEAK_TOL:
+            problems.append(f"rank {r}: peak {got['peak']} B, predicted {predicted} B "
+                            f"({100 * off:.1f}% off)")
+        sgap = {f: float(np.abs(got["state"][f] - w.float().numpy()).max())
+                for f, w in ref["state"].items()}
+        sbar = {f: L * 2.0 ** -8 * float(w.float().abs().max()) for f, w in ref["state"].items()}
+        problems += [f"rank {r} {f}: gap {sgap[f]} > {sbar[f]}" for f in sgap
+                     if not sgap[f] <= sbar[f]]
+        log(f"{tag} hymba gloo rank {r} (data {cell['data']}, columns {got['cols']}): tokens "
+            f"equal, lengths bitwise, logit gap {gap_r:.5f} (bar {tol_r:.4f}), state gaps "
+            f"{sgap}; first step peak {got['peak']} B, predicted {predicted} B "
+            f"({100 * off:.2f}%); eager step median {got['step_ms']:.2f} ms; per step "
+            f"{got['collectives']}; launches {got['launches']}")
+    keys = np.concatenate([g["written"][0] for g in ranks])
+    vals = [np.concatenate([g["written"][1][i] for g in ranks]) for i in range(3)]
+    order = np.lexsort(keys.T[::-1])
+    kv_gap = _p21_same_written("gloo ranks", (keys[order], [x[order] for x in vals]),
+                               ref["written"], bitwise=False, tag=tag, n_layers=L)
+    if problems:
+        fail(f"{tag} " + "; ".join(problems))
+    p22_long_kernel(ref, rows, ranks[0]["launches"]["fairkv_decode_partial"])
+    ref = mamba = None
+    _p22_free()
+    log(f"{tag} took {time.perf_counter() - t0:.1f} s; the gloo ranks' written entries: "
+        f"places, positions and layer 0's K / V bitwise the local executor's, later layers' "
+        f"K / V within {kv_gap:.5f}")
+    return ranks[0]["launches"]
+
+
+def p22_dryrun_start():
+    """Start the dry run of the ten cells this phase adds (the SSM, hybrid,
+    encoder-decoder and VLM archs at decode_32k and prefill_32k, hymba's
+    and mamba2's long_500k) on the single mesh in a subprocess (host only,
+    two threads; their 32k prefills take minutes); returns it."""
+    code = ("import sys, torch; torch.set_num_threads(2); "
+            "from repro_torch.launch import dryrun as d; "
+            f"o = {str(P22_DRY)!r}; "
+            f"a = d.sweep({list(P22_ARCHS)!r}, ['decode_32k', 'long_500k', 'prefill_32k'], "
+            "[False], 'fairkv_dp', o, dev_bytes=d.H100_BYTES); "
+            "sys.exit(a['counts']['fail'] + a['counts']['args_only'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def p22_dryrun(proc):
+    """(d): the ten cells' records: each executed its step (decode cells:
+    their derived collectives held); prints args and peak GB per rank,
+    fits and the collectives."""
+    out, _ = proc.communicate(timeout=900)
+    if proc.returncode != 0:
+        fail(f"[p22] (d) the dry run of the new cells failed:\n{out[-3000:]}")
+    n = 0
+    for arch in P22_ARCHS:
+        for shape in ("decode_32k", "long_500k", "prefill_32k"):
+            path = P22_DRY / f"{arch}__{shape}__single.json"
+            rec = json.loads(path.read_text())
+            if rec["status"] == "skipped":
+                continue
+            ex = rec.get("executed")
+            if rec["status"] != "ok" or ex is None:
+                fail(f"[p22] (d) {arch} {shape} did not execute its step: {rec['status']}")
+            if "contract" in ex and not all(ex["contract"].values()):
+                fail(f"[p22] (d) {arch} {shape}: contract {ex['contract']}")
+            n += 1
+            log(f"[p22] (d) {arch} {shape} on (data 16, model 16): args "
+                f"{ex['memory']['argument_bytes'] / 1e9:.2f} GB, peak "
+                f"{ex['memory']['peak_bytes'] / 1e9:.2f} GB a rank, fits {rec['fits']} "
+                f"({rec['device_bytes'] / 1e9:.1f} GB); {ex['step']} in {ex['seconds']} s; "
+                f"collectives {ex['collectives_by_group']}")
+    if n != 10:
+        fail(f"[p22] (d) {n} new cells executed, want 10")
+
+
+def p22_runs(rows, refs, dry):
+    """Phase 22: (a) the four archs' one-shots on one NCCL rank while (b)'s
+    two gloo ranks run their cut one-shots, (c) the long cells, (d) the
+    dry-run records; prints the seconds and the launches (apart from the
+    kernel table, where the partial kernel's row carries (c)'s)."""
+    t0 = time.perf_counter()
+    refs_b = {arch: p22_gloo_ref(arch) for arch in P22_ARCHS}
+    # the predictions' fake process group and (a)'s NCCL one are this
+    # process's default group in turn, so the predictions go first
+    predicted = {arch: p20_prediction(r) for arch, r in refs_b.items()}
+    sent = {arch: {k: r[k] for k in ("cfg", "profile", "prompts", "teacher")}
+            for arch, r in refs_b.items()}
+    join = p20_gloo_start({"send": {"refs": sent}}, rank_fn=p22_gloo_rank)
+    t1 = time.perf_counter()
+    la = p22_nccl(refs)
+    refs = None
+    _p22_free()
+    t2 = time.perf_counter()
+    ranks = join()
+    # every arch's bars are checked and logged before (b) fails, and (c),
+    # (d) run first: the phase fails at its end when any did
+    failed = []
+    for arch in P22_ARCHS:
+        try:
+            p22_gloo_check(arch, refs_b[arch], [r[arch] for r in ranks], predicted[arch])
+        except RuntimeError as e:
+            failed.append(str(e))
+    lb = ranks[0]
+    t3 = time.perf_counter()
+    lc = p22_long(rows)
+    t4 = time.perf_counter()
+    p22_dryrun(dry)
+    if failed:
+        fail("; ".join(failed))
+    log(f"[p22] phase 22 took {time.perf_counter() - t0:.1f} s ((b)'s references and "
+        f"predictions {t1 - t0:.1f} s, (a) {t2 - t1:.1f} s beside (b)'s ranks, (b) after it "
+        f"{t3 - t2:.1f} s, (c) {t4 - t3:.1f} s); launches (a) {la}, (b) rank 0 "
+        f"{ {a: r['launches'] for a, r in lb.items()} }, (c) gloo rank 0 {lc}")
+
+
 def main() -> int:
     try:
         import torch
@@ -5720,6 +6289,9 @@ def main() -> int:
     log(f"[card] {card}")
     build_kernels()
     mark("phase 2 (build)")
+    # phase 22 (d)'s fake prefills run on the host from here on
+    dry22 = p22_dryrun_start()
+    atexit.register(lambda: dry22.poll() is None and (dry22.kill(), dry22.wait()))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     check_decode(gen)
@@ -5782,7 +6354,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 16")
-    p17_runs(rows)
+    p22_refs = p17_runs(rows)
     # phase 18 after phase 17, its memory freed
     gc.collect()
     torch.cuda.empty_cache()
@@ -5806,6 +6378,10 @@ def main() -> int:
             dry.kill()
             dry.wait()
     mark("phase 21")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p22_runs(rows, p22_refs, dry22)
+    mark("phase 22")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

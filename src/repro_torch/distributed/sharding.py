@@ -172,9 +172,14 @@ class StepShards:
     dim), ``fsdp_w`` (every weight's d_model side, under ``weights_2d``),
     ``kv_slot`` (the slot dim), ``batch`` (the rows), ``cache_len`` (the
     cache's columns: split-S decode under ``long_context``, over the batch
-    axes) and ``expert`` (the MoE experts); ``mesh`` is the rank's
-    `repro_torch.launch.mesh.Mesh`.  The serve step's functions take it as
-    their ``shards`` argument."""
+    axes), ``expert`` (the MoE experts), the SSD branch's ``ssm_proj``
+    (``in_proj``'s columns, 2·d_inner + 2GN + H), ``ssm_conv`` (the conv
+    channels, d_inner + 2GN), ``ssm_inner`` (``out_proj``'s rows, d_inner)
+    and ``ssm_heads`` (the SSD heads), and ``heads`` / ``kv_heads`` (the
+    encoder's and cross attention's query and K / V heads); each is
+    resolved for its own dim's extent, so each may split or stay whole on
+    its own.  ``mesh`` is the rank's `repro_torch.launch.mesh.Mesh`.  The
+    serve step's functions take it as their ``shards`` argument."""
 
     mesh: Any
     vocab: Split
@@ -184,6 +189,12 @@ class StepShards:
     batch: Split
     cache_len: Split = Split()
     expert: Split = Split()
+    ssm_proj: Split = Split()
+    ssm_conv: Split = Split()
+    ssm_inner: Split = Split()
+    ssm_heads: Split = Split()
+    heads: Split = Split()
+    kv_heads: Split = Split()
 
     def weight(self, w, dim: int):
         """``w`` (a tensor or `QTensor` shard) whole along its d_model dim
@@ -203,18 +214,28 @@ class StepShards:
 
 
 def step_shards(rules: ShardingRules, mesh, *, vocab: int, ff: int, d_model: int,
-                n_slots: int, batch: int, cache_len: int = 0,
-                experts: int = 0) -> StepShards:
+                n_slots: int, batch: int, cache_len: int = 0, experts: int = 0,
+                ssm=None, heads: int = 0, kv_heads: int = 0) -> StepShards:
     """`StepShards` of ``mesh``'s rank for a step whose global dims are
     ``vocab`` (padded rows), ``ff``, ``d_model``, ``n_slots``, ``batch``,
-    ``cache_len`` (the cache's columns) and ``experts`` (0: no such dim)."""
+    ``cache_len`` (the cache's columns), ``experts``, the SSD branch's
+    (``ssm``, an `SSMConfig`) and the attention's ``heads`` / ``kv_heads``
+    (0 or None: no such dim; a model without slots resolves no slot
+    split)."""
     def opt(logical, dim):
         return split(rules, mesh, logical, dim) if dim > 0 else Split()
 
+    extra = {}
+    if ssm is not None and ssm.num_heads > 0:
+        d_in, gn = ssm.d_inner, 2 * ssm.n_groups * ssm.state_size
+        extra = {"ssm_proj": opt("ff", 2 * d_in + gn + ssm.num_heads),
+                 "ssm_conv": opt("ff", d_in + gn), "ssm_inner": opt("ff", d_in),
+                 "ssm_heads": opt("heads", ssm.num_heads)}
     return StepShards(mesh=mesh, vocab=split(rules, mesh, "vocab", vocab),
-                      ff=split(rules, mesh, "ff", ff),
+                      ff=opt("ff", ff),
                       fsdp_w=split(rules, mesh, "fsdp_w", d_model),
-                      kv_slot=split(rules, mesh, "kv_slot", n_slots),
+                      kv_slot=opt("kv_slot", n_slots),
                       batch=split(rules, mesh, "batch", batch),
                       cache_len=opt("cache_len", cache_len),
-                      expert=opt("expert", experts))
+                      expert=opt("expert", experts), heads=opt("heads", heads),
+                      kv_heads=opt("kv_heads", kv_heads), **extra)

@@ -8,25 +8,27 @@ For each cell this records, per rank:
   always;
 - ``executed``: where the port has a step for the cell, the cell's own
   step (``build_cell(...).fn``, the reference's: `decode_step` or
-  `prefill` on the rank's shards under ``serve_rules``, for the dense and
-  MoE families at decode_32k and prefill_32k and gemma2-9b's long_500k)
-  run once on rank 0 of the mesh on fake tensors, on the cell's
-  arguments, with its argument, output, temp and peak bytes, FLOPs, bytes
-  read and written and collectives (`repro_torch.distributed.step_stats`);
-  for a decode cell also its ``contract`` (`decode_contract`): 2·L + 1
+  `prefill` on the rank's shards under ``serve_rules``, for every serve
+  cell: decode_32k, prefill_32k and long_500k of every family) run once
+  on rank 0 of the mesh on fake tensors, on the cell's arguments, with its
+  argument, output, temp and peak bytes, FLOPs, bytes read and written
+  and collectives (`repro_torch.distributed.step_stats`); for a decode
+  cell also its ``contract`` (`decode_contract`), the collectives
+  `decode_collectives` derives from the splits: for a dense cell 2·L + 1
   all-reduces of (B / data, d_model) over ``model`` (the embedding, each
-  layer's o-projection and MLP or experts), one all-gather of the
-  argmax's (B / data, 2) pairs over it, and over ``data`` nothing for a
-  dense cell, the split-S (o, lse) pairs' one all-gather a layer at
-  long_500k, the expert counts' one a layer for MoE (which also gathers
-  its router's columns over ``model`` once a layer);
+  layer's o-projection and MLP), one all-gather of the argmax's (B /
+  data, 2) pairs over it and nothing over ``data``; the split-S (o, lse)
+  pairs' one all-gather a layer over ``data`` at long_500k; MoE's expert
+  counts' one a layer over ``data`` and its router's columns' over
+  ``model``; the SSD branch's gathers and sums, the hybrid's slot-norm Σ
+  and cross attention's o-projection sum where their dims split;
 - ``fits``: the executed step's peak (else the rules' arguments) within
   ``device_bytes``, the card's memory when one is present, else
   ``--device-bytes``.
 
-Cells the port has no step for are ``args_only``, with the ROADMAP item
-that would run them (`repro_torch.launch.specs.cell_todo`); cells an arch
-skips are ``skipped`` with its reason.  ``--executor-audit`` records the
+Cells the port has no step for (the train cells) are ``args_only``, with
+the ROADMAP item that would run them (`repro_torch.launch.specs.cell_todo`);
+cells an arch skips are ``skipped`` with its reason.  ``--executor-audit`` records the
 mesh executor's decode collectives on the production (data 16, model 16)
 mesh instead: one all-reduce over ``model`` per attention layer (the
 o-projection) and no all-gather over it; that executor keeps the MLP and
@@ -75,37 +77,79 @@ def device_bytes(default: int = H100_BYTES) -> int:
 
 
 def executes(cfg: ModelConfig, shape_name: str) -> bool:
-    """Whether the port has a step for the cell: the cell step serves the
-    dense and MoE families at decode_32k and prefill_32k, and gemma2-9b at
-    long_500k."""
+    """Whether the port has a step for the cell: the cell step serves every
+    serve cell (decode_32k, prefill_32k and long_500k) of every family."""
     return specs.cell_todo(cfg, SHAPES[shape_name]) is None
+
+
+def decode_collectives(cfg: ModelConfig, rows: int, model: int, data: int = 1,
+                       split_s: bool = False) -> dict:
+    """The decode cell step's collectives on a rank of a (data, model) mesh
+    under ``serve_rules`` (``rows`` = its B / data rows, ``split_s`` the
+    long-context rules), derived from which dims the rules split (a
+    guarded dim that divides the group's extent has a group, of one rank
+    too): ``{group: {kind: (calls, elements)}}``.  Over ``model``, the
+    all-reduces: the embedding's; a layer's o-projection (attention),
+    ``out_proj`` (SSD), cross attention's o-projection (its heads split)
+    and MLP or experts, each (rows, d_model); a layer's Σx² of the
+    hybrid's slot norm and of the SSD's gated norm (its heads split over
+    more than one rank), each (rows, 1).  Its all-gathers: the argmax's
+    (rows, 2) pairs, an MoE layer's router columns (its experts split),
+    an SSD layer's ``in_proj`` columns and conv channels (each where they
+    split).  Over ``data``: split-S's (o, lse) pairs, one gather an
+    attention layer, and MoE's expert counts, one a layer, when the rows
+    split."""
+    from repro_torch.distributed.sharding import serve_rules
+    rules = serve_rules({"data": data, "model": model}, long_context=split_s)
+
+    def split(logical, n):  # the dim has a group
+        return n > 0 and rules.guarded(n, logical) is not None
+
+    L, D, E = cfg.n_layers, cfg.d_model, cfg.moe.num_experts
+    attn, s = not cfg.attention_free, cfg.ssm
+    ssm = cfg.family in ("ssm", "hybrid")
+    d_in, gn = s.d_inner, 2 * s.n_groups * s.state_size
+    moe_split = E > 0 and model > 1 and split("expert", E)
+    full = 1 + L * (attn + (ssm and split("ff", d_in))
+                    + (cfg.is_encoder_decoder and split("heads", cfg.n_heads))
+                    + (E > 0 or split("ff", cfg.d_ff)))
+    sums = L * ((cfg.family == "hybrid") + (ssm and model > 1 and split("heads", s.num_heads)))
+    proj, conv = 2 * d_in + gn + s.num_heads, d_in + gn
+    gathers = [(1, rows * 2 * model)]
+    if moe_split:
+        gathers.append((L, L * D * E))
+    if ssm and split("ff", proj):
+        gathers.append((L, L * rows * proj))
+    if ssm and split("ff", conv):
+        gathers.append((L, L * rows * conv))
+    out = {"model": {"all_reduce": (full + sums, (full * D + sums) * rows),
+                     "all_gather": tuple(map(sum, zip(*gathers)))}}
+    # over data, one gather a layer: split-S's pairs (the columns split), or
+    # MoE's counts (the rows)
+    if data > 1 and (attn if split_s else E > 0):
+        out["data"] = {"all_gather": (L, None)}
+    return out
 
 
 def decode_contract(by_group: dict, cfg: ModelConfig, rows: int, model: int,
                     data: int = 1, split_s: bool = False) -> dict:
-    """The decode cell step's collectives on a rank (``rows`` = B / data
-    rows, ``model`` x ``data`` ranks, ``split_s`` under the long-context
-    rules; the module docstring's contract), checked on a
-    `StepStats.by_group` record: over ``model`` 2·L + 1 all-reduces of
-    (rows, d_model) and the argmax's pair gather, plus an MoE config's
-    router gather a layer when its experts split; over ``data`` one
-    all-gather a layer for split-S and one for MoE's counts when the rows
-    split, else nothing."""
-    L, E = cfg.n_layers, cfg.moe.num_experts
-    over_model = by_group.get("model", {})
-    ar, ag = over_model.get("all_reduce", {}), over_model.get("all_gather", {})
-    routers = L if E and model > 1 and E % model == 0 else 0
-    router_elems = routers * cfg.d_model * E
-    n_data = (L if split_s else 0) + (L if E and data > 1 else 0)
-    over_data = by_group.get("data", {})
-    out = {"model_all_reduce_2L_plus_1":
-           ar.get("calls") == 2 * L + 1 and ar.get("elements") == ar["calls"] * rows * cfg.d_model,
-           "model_one_argmax_gather":
-           ag.get("calls") == 1 + routers
-           and ag.get("elements") == rows * 2 * model + router_elems}
-    if n_data:
-        out["data_one_all_gather_per_layer" if n_data == L else "data_all_gathers"] = (
-            set(over_data) == {"all_gather"} and over_data["all_gather"]["calls"] == n_data)
+    """The decode cell step's collectives (`decode_collectives`) checked on
+    a `StepStats.by_group` record: over ``model`` the all-reduces' and the
+    all-gathers' calls and elements; over ``data`` one all-gather a layer,
+    or nothing."""
+    want = decode_collectives(cfg, rows, model, data, split_s)
+    over_model, over_data = by_group.get("model", {}), by_group.get("data", {})
+
+    def held(got, calls_elems):
+        calls, elems = calls_elems
+        return got.get("calls") == calls and elems in (None, got.get("elements"))
+
+    out = {f"model_{kind}s": held(over_model.get(kind, {}), want["model"][kind])
+           for kind in ("all_reduce", "all_gather")}
+    if "data" in want:
+        out["data_one_all_gather_per_layer"] = (
+            set(over_data) == {"all_gather"} and held(over_data["all_gather"],
+                                                       want["data"]["all_gather"]))
     else:
         out["nothing_over_data"] = not over_data
     return out
@@ -172,8 +216,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, planner_mode: str = "f
                 long_ctx = shape_name == "long_500k"
                 rows = shape.global_batch // (1 if long_ctx else mesh.data)
                 rec["executed"]["contract"] = decode_contract(
-                    st.by_group, cfg, rows, mesh.model, 1 if long_ctx else mesh.data,
-                    split_s=long_ctx)
+                    st.by_group, cfg, rows, mesh.model, mesh.data, split_s=long_ctx)
             rec.update(status="ok", fits=st.peak_bytes <= dev_bytes)
         else:
             rec.update(status="args_only", fits=arg <= dev_bytes,

@@ -17,13 +17,14 @@ leaf's shard shape.  ``arg_bytes_per_rank`` sums them: the reference's
 reference's arguments (int32 tokens, positions and plan arrays).
 
 The cell's step, ``CellArtifacts.fn`` (the reference's), is `serve_step`
-for the dense and MoE families' decode_32k and prefill_32k cells and the
-dense family's long_500k: the port's own `decode_step` / `prefill` on the
-rank's shards, explicit SPMD in place of the reference's GSPMD partition
-(`repro_torch.serving.engine`'s module docstring has its collectives;
-long_500k is split-S decode, MoE runs expert parallel).  The other cells'
-``fn`` refuses them with the ROADMAP item that would run them
-(`cell_todo`).
+for every serve cell (decode_32k, prefill_32k and long_500k of every
+family: dense, MoE, SSM, hybrid, encoder-decoder and VLM): the port's own
+`decode_step` / `prefill` on the rank's shards, explicit SPMD in place of
+the reference's GSPMD partition (`repro_torch.serving.engine`'s module
+docstring has its collectives; long_500k is split-S decode where the
+model has a cache, MoE runs expert parallel, the SSD branch and the
+encoder and cross attention run on their own splits).  A train cell's
+``fn`` refuses it with the ROADMAP item that would run it (`cell_todo`).
 
 `executor_args` builds what the port's `MeshExecutor` itself holds on a
 rank of a mesh (its slot weights, the rest replicated, its cache corner),
@@ -47,7 +48,7 @@ from repro_torch.distributed.param_specs import (guarded, localize_scales, shard
                                                 tree_specs)
 from repro_torch.distributed.sharding import (ShardingRules, mesh_axes, serve_rules,
                                               step_shards, train_rules)
-from repro_torch.models.transformer import init_params
+from repro_torch.models.transformer import FAMILIES, init_params
 from repro_torch.serving import engine as _serve
 from repro_torch.serving.quant import QTensor, quantize_serve_params
 from repro_torch.training.optimizer import AdamWState
@@ -242,33 +243,35 @@ def tree_bytes(tree) -> int:
 # the later slice that would run each kind of cell the port has no step for
 TODO = {
     "train": "A.15: the sharded train step per train_rules (FSDP x TP)",
-    "family": "A.16: the SSM, hybrid, encoder-decoder and VLM families on the mesh",
 }
-# the families `serve_step` runs
-STEP_FAMILIES = ("dense", "moe")
+# the families `serve_step` runs: every one the port serves
+STEP_FAMILIES = FAMILIES
 
 
 def cell_todo(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
     """The ROADMAP item a cell waits for, or None when `serve_step` runs it
-    (the dense and MoE families at decode_32k and prefill_32k, and at
-    long_500k where the arch runs it: gemma2-9b)."""
+    (every serve cell of every family)."""
     if shape.kind == "train":
         return TODO["train"]
-    if cfg.family not in STEP_FAMILIES or cfg.attention_free:
-        return TODO["family"]
     return None
 
 
-def _as_plan(pa) -> PlanArrays:
-    return pa if isinstance(pa, PlanArrays) else PlanArrays(**pa)
+def _as_plan(pa) -> Optional[PlanArrays]:
+    """The plan arrays (None for an attention-free model, which has none)."""
+    return pa if pa is None or isinstance(pa, PlanArrays) else PlanArrays(**pa)
 
 
 def _as_state(st) -> _serve.ServeState:
-    """A dense cell's state: a `ServeState`, or the cell's tree of it."""
+    """A cell's state: a `ServeState`, or the cell's tree of it (no
+    ``cache`` for an attention-free model; the SSD, conv and cross
+    attention states where the family has them)."""
     if isinstance(st, _serve.ServeState):
         return st
-    return _serve.ServeState(cache=SlotCache(**st["cache"]), last_tokens=st["last_tokens"],
-                             decode_steps=st["decode_steps"])
+    cache = SlotCache(**st["cache"]) if st.get("cache") is not None else None
+    return _serve.ServeState(cache=cache, last_tokens=st["last_tokens"],
+                             decode_steps=st["decode_steps"],
+                             **{k: st.get(k) for k in ("ssm_state", "conv_state", "cross_k",
+                                                      "cross_v")})
 
 
 def serve_step(kind: str, cfg: ModelConfig, ccfg: CompressionConfig, mesh,
@@ -280,14 +283,19 @@ def serve_step(kind: str, cfg: ModelConfig, ccfg: CompressionConfig, mesh,
     outputs: (state, logits shard) for ``"decode"``, (state, logits shard,
     lengths) for ``"prefill"``.  ``n_slots`` and ``batch`` are the global
     slot and row counts.  The state and plan arrays may be the cell's
-    trees or `ServeState` / `PlanArrays`.  Under the long-context rules
-    the decode step is split-S over the ``cache_len`` group; an MoE
-    config's FFN runs expert parallel."""
-    if cfg.family not in STEP_FAMILIES or cfg.attention_free:
-        raise NotImplementedError(f"{cfg.name}: {TODO['family']}")
+    trees or `ServeState` / `PlanArrays` (None and 0 slots for an
+    attention-free model).  Under the long-context rules the decode step
+    is split-S over the ``cache_len`` group; an MoE config's FFN runs
+    expert parallel; the SSD branch and the encoder and cross attention
+    run on their own splits (`step_shards`)."""
+    if cfg.family not in STEP_FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: no serve step for the {cfg.family!r} family")
     shards = step_shards(rules, mesh, vocab=cfg.padded_vocab, ff=cfg.d_ff,
                          d_model=cfg.d_model, n_slots=n_slots, batch=batch,
-                         cache_len=ccfg.static_capacity(), experts=cfg.moe.num_experts)
+                         cache_len=0 if cfg.attention_free else ccfg.static_capacity(),
+                         experts=cfg.moe.num_experts,
+                         ssm=cfg.ssm if cfg.family in ("ssm", "hybrid") else None,
+                         heads=cfg.n_heads, kv_heads=cfg.n_kv_heads)
     if kind == "prefill":
         def fn(serve_params, batch, plan_arrays):
             return _serve.prefill(localize_scales(serve_params, sp_spec, mesh), batch, cfg,
@@ -366,8 +374,8 @@ def build_cell(cfg: ModelConfig, shape: InputShape, mesh, planner_mode: str = "f
         fn = _refused("a cell built for axis sizes has no ranks: build it on a "
                       "repro_torch.launch.mesh.Mesh to run its step")
     else:
-        fn = serve_step(shape.kind, cfg, ccfg, mesh, rules, specs[0], plan.n_slots,
-                        shape.global_batch)
+        fn = serve_step(shape.kind, cfg, ccfg, mesh, rules, specs[0],
+                        0 if plan is None else plan.n_slots, shape.global_batch)
     return CellArtifacts(kind=shape.kind, args=args, specs=specs, rules=rules,
                          arg_bytes_per_rank=tree_bytes(args), meta=meta, fn=fn)
 

@@ -23,6 +23,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import comm
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.moe import init_moe_params, moe_block
@@ -202,99 +203,203 @@ def embed_inputs(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
 # ---------------------------------------------------------------------------
 # SSD branch (SSM / hybrid)
 # ---------------------------------------------------------------------------
+#
+# On a rank's shards (``shards``, a `repro_torch.distributed.sharding.
+# StepShards`) each dim reads its own split: ``in_proj``'s columns
+# (``ssm_proj``: the product's columns are all-gathered, whatever the z |
+# xBC | dt boundaries they cut), the conv's channels (``ssm_conv``: the
+# rank convolves its channels with its ``conv_w`` and conv-window shards,
+# and the activated output is all-gathered), the SSD heads (``ssm_heads``:
+# the scan runs over the rank's heads and their ``ssm_state`` shard) and
+# ``out_proj``'s rows (``ssm_inner``: its partial product is all-reduced).
+# The gated norm spans the whole d_inner: its Σ is all-reduced over the
+# heads' group when y holds the rank's heads only; when the heads stay
+# whole every rank updates the whole state alike and y is cut to the
+# rank's ``out_proj`` rows.
 
 
-def ssm_split(pl: dict, h: torch.Tensor, cfg: ModelConfig):
-    """in_proj → (z, xBC (the conv input), dt (B, T, H) fp32 post-softplus)."""
+def _w(pl: dict, key: str, shards, d_dim: int):
+    """``pl[key]``, under ``weights_2d`` gathered whole along its d_model dim."""
+    return pl[key] if shards is None else shards.weight(pl[key], d_dim)
+
+
+def ssm_split(pl: dict, h: torch.Tensor, cfg: ModelConfig, shards=None):
+    """in_proj → (z, xBC (the conv input), dt (B, T, H) fp32 post-softplus),
+    whole on every rank."""
     s = cfg.ssm
     d_in, G, N = s.d_inner, s.n_groups, s.state_size
-    x, w = operands(h, pl["in_proj"])
-    proj = x @ w  # (B, T, 2 d_in + 2 G N + H)
+    x, w = operands(h, _w(pl, "in_proj", shards, 0))
+    proj = x @ w  # (B, T, 2 d_in + 2 G N + H), or the rank's columns of it
+    if shards is not None and shards.ssm_proj.group is not None:
+        proj = comm.all_gather(proj, shards.ssm_proj.group, dim=-1)
     z, xBC, dt_raw = torch.split(proj, [d_in, d_in + 2 * G * N, s.num_heads], dim=-1)
     dt = torch.nn.functional.softplus(dt_raw.float() + pl["dt_bias"])
     return z, xBC, dt
 
 
-def ssm_out(pl: dict, y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """The gated norm and out_proj: rms_norm(y · silu(z)) @ out_proj."""
-    y, w = operands(L.rms_norm(y * torch.nn.functional.silu(z), pl["ssm_norm"]),
-                    pl["out_proj"])
-    return y @ w
+def ssm_conv(pl: dict, xBC: torch.Tensor, conv_state: Optional[torch.Tensor] = None,
+             shards=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The depthwise causal conv and its SiLU.  Returns (the activated conv
+    output over every channel, the new conv window: the rank's channels
+    under ``shards``)."""
+    sp = None if shards is None else shards.ssm_conv
+    if sp is None or sp.group is None:
+        y, window = S.conv1d_causal(xBC, pl["conv_w"], conv_state)
+        return torch.nn.functional.silu(y), window
+    n = pl["conv_w"].shape[1]
+    c0 = sp.offset(n)
+    y, window = S.conv1d_causal(xBC[..., c0:c0 + n], pl["conv_w"], conv_state)
+    return comm.all_gather(torch.nn.functional.silu(y), sp.group, dim=-1), window
+
+
+def ssd_inputs(pl: dict, xBC: torch.Tensor, dt: torch.Tensor, cfg: ModelConfig, shards=None):
+    """The scan's operands of the rank's SSD heads from the activated conv
+    output (..., conv_dim) and dt (..., H): (x (..., H_l, P), dt, A_log, B
+    (..., G_l, N), C, D, the first head).  A split whose heads cut a B / C
+    group raises."""
+    s = cfg.ssm
+    d_in, G, N, H, P = s.d_inner, s.n_groups, s.state_size, s.num_heads, s.head_dim
+    lead = xBC.shape[:-1]
+    x, B_, C_ = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
+    x, B_, C_ = x.reshape(*lead, H, P), B_.reshape(*lead, G, N), C_.reshape(*lead, G, N)
+    sp = None if shards is None else shards.ssm_heads
+    if sp is None or sp.group is None or sp.size == 1:
+        return x, dt, pl["A_log"], B_, C_, pl["ssm_D"], 0
+    n = H // sp.size
+    h0, rep = sp.offset(n), H // G
+    if n % rep and rep % n:
+        raise ValueError(f"{n} SSD heads a rank cut the B / C groups of {rep} heads")
+    g0, g1 = h0 // rep, -(-(h0 + n) // rep)
+    hs = slice(h0, h0 + n)
+    return (x[..., hs, :], dt[..., hs], pl["A_log"][hs], B_[..., g0:g1, :], C_[..., g0:g1, :],
+            pl["ssm_D"][hs], h0)
+
+
+def ssm_out(pl: dict, y: torch.Tensor, z: torch.Tensor, shards=None,
+            c0: int = 0) -> torch.Tensor:
+    """The gated norm and out_proj: rms_norm(y · silu(z)) @ out_proj.  ``y``
+    holds d_inner channels [c0, c0 + n) (the rank's SSD heads), ``z`` all
+    of them; ``shards``: the norm's Σ all-reduced over the heads' group
+    when y is a slice, the rank's ``out_proj`` rows, their partial product
+    all-reduced."""
+    d_in, n = z.shape[-1], y.shape[-1]
+    if n == d_in:
+        g = L.rms_norm(y * torch.nn.functional.silu(z), pl["ssm_norm"])
+    else:
+        g = (y * torch.nn.functional.silu(z[..., c0:c0 + n])).float()
+        ss = comm.all_reduce_sum((g * g).sum(dim=-1, keepdim=True), shards.ssm_heads.group)
+        g = (g * torch.rsqrt(ss / d_in + 1e-6)
+             * (1.0 + pl["ssm_norm"][c0:c0 + n].float())).to(y.dtype)
+    sp = None if shards is None else shards.ssm_inner
+    if sp is not None and sp.group is not None and g.shape[-1] == d_in:
+        rows = d_in // sp.size
+        g = g[..., sp.offset(rows):sp.offset(rows) + rows]
+    x, w = operands(g, _w(pl, "out_proj", shards, 1))
+    out = x @ w
+    if sp is not None and sp.group is not None:
+        out = comm.all_reduce_sum(out, sp.group)
+    return out
 
 
 def ssm_block_full(pl: dict, h: torch.Tensor, cfg: ModelConfig,
                    conv_state: Optional[torch.Tensor] = None,
-                   init_state: Optional[torch.Tensor] = None):
+                   init_state: Optional[torch.Tensor] = None, shards=None):
     """Full-sequence SSD branch.  Returns (out (B, T, D), (conv_state
-    (B, W-1, conv_dim), ssm_state (B, H, P, N) fp32))."""
+    (B, W-1, conv_dim), ssm_state (B, H, P, N) fp32)): on ``shards`` the
+    rank's conv channels and SSD heads of the two states."""
     s = cfg.ssm
-    d_in, G, N, H, P = s.d_inner, s.n_groups, s.state_size, s.num_heads, s.head_dim
     B, T, _ = h.shape
-    z, xBC, dt = ssm_split(pl, h, cfg)
-    xBC, conv_out = S.conv1d_causal(xBC, pl["conv_w"], conv_state)
-    xBC = torch.nn.functional.silu(xBC)
-    x, B_, C_ = torch.split(xBC, [d_in, G * N, G * N], dim=-1)
-    y, state = S.ssd_chunked(x.reshape(B, T, H, P), dt, pl["A_log"],
-                             B_.reshape(B, T, G, N), C_.reshape(B, T, G, N), pl["ssm_D"],
-                             chunk=s.chunk_size, init_state=init_state)
-    return ssm_out(pl, y.reshape(B, T, d_in), z), (conv_out, state)
+    z, xBC, dt = ssm_split(pl, h, cfg, shards)
+    xBC, conv_out = ssm_conv(pl, xBC, conv_state, shards)
+    x, dt, A_log, B_, C_, D_, h0 = ssd_inputs(pl, xBC, dt, cfg, shards)
+    y, state = S.ssd_chunked(x, dt, A_log, B_, C_, D_, chunk=s.chunk_size,
+                             init_state=init_state)
+    return ssm_out(pl, y.reshape(B, T, -1), z, shards, h0 * s.head_dim), (conv_out, state)
 
 
 # ---------------------------------------------------------------------------
 # Encoder and cross-attention (encoder-decoder)
 # ---------------------------------------------------------------------------
+#
+# On a rank's shards attention runs over the rank's query ``heads`` with
+# its ``kv_heads``' K / V (where the query heads split and the K / V heads
+# stay whole, the rank takes its query heads' K / V heads from the whole
+# tensor), and the o-projection's partial product over its heads is
+# all-reduced over their group.
 
 
-def qkv_proj(pl: dict, h: torch.Tensor, cfg: ModelConfig, prefix: str = ""):
-    """(B, T, D) → q (B, T, Hq, Dh), k / v (B, T, Hkv, Dh), pre-RoPE."""
-    q = torch.einsum("btd,dhx->bthx", *operands(h, pl[prefix + "wq"]))
-    k = torch.einsum("btd,dhx->bthx", *operands(h, pl[prefix + "wk"]))
-    v = torch.einsum("btd,dhx->bthx", *operands(h, pl[prefix + "wv"]))
+def qkv_proj(pl: dict, h: torch.Tensor, cfg: ModelConfig, prefix: str = "", shards=None):
+    """(B, T, D) → q (B, T, Hq, Dh), k / v (B, T, Hkv, Dh), pre-RoPE: the
+    rank's heads of each under ``shards``."""
+    q = torch.einsum("btd,dhx->bthx", *operands(h, _w(pl, prefix + "wq", shards, 0)))
+    k = torch.einsum("btd,dhx->bthx", *operands(h, _w(pl, prefix + "wk", shards, 0)))
+    v = torch.einsum("btd,dhx->bthx", *operands(h, _w(pl, prefix + "wv", shards, 0)))
     if cfg.qkv_bias and (prefix + "bq") in pl:
         q, k, v = q + pl[prefix + "bq"], k + pl[prefix + "bk"], v + pl[prefix + "bv"]
     return q, k, v
 
 
-def o_proj(pl: dict, attn_flat: torch.Tensor, cfg: ModelConfig, prefix: str = "") -> torch.Tensor:
-    x, wo = operands(attn_flat, pl[prefix + "wo"])
-    return torch.einsum("bte,ed->btd", x, wo.reshape(cfg.n_heads * cfg.head_dim, cfg.d_model))
+def kv_for_heads(k: torch.Tensor, v: torch.Tensor, cfg: ModelConfig, shards=None):
+    """K / V (B, T, Hkv_l, Dh) for the rank's query heads: where the query
+    heads split and the K / V heads stay whole, each query head's own K / V
+    head from the whole tensor (one per query head); else as given."""
+    if shards is None or shards.heads.group is None or shards.kv_heads.group is not None:
+        return k, v
+    n = cfg.n_heads // shards.heads.size
+    q0 = shards.heads.offset(n)
+    idx = torch.arange(q0, q0 + n, device=k.device) // cfg.q_per_kv
+    return k[:, :, idx], v[:, :, idx]
+
+
+def o_proj(pl: dict, attn_flat: torch.Tensor, cfg: ModelConfig, prefix: str = "",
+           shards=None) -> torch.Tensor:
+    """(B, T, Hq_l·Dh) → (B, T, D); on ``shards`` the partial product over
+    the rank's heads, all-reduced over their group."""
+    x, wo = operands(attn_flat, _w(pl, prefix + "wo", shards, 2))
+    out = torch.einsum("bte,ed->btd", x, wo.reshape(-1, wo.shape[-1]))
+    if shards is not None and shards.heads.group is not None:
+        out = comm.all_reduce_sum(out, shards.heads.group)
+    return out
 
 
 def cross_attn_block(pl: dict, h: torch.Tensor, enc_kv: Tuple[torch.Tensor, torch.Tensor],
-                     cfg: ModelConfig) -> torch.Tensor:
+                     cfg: ModelConfig, shards=None) -> torch.Tensor:
     """Decoder cross-attention onto precomputed encoder K/V (no RoPE, no
-    mask)."""
+    mask); on ``shards`` over the rank's heads, ``enc_kv`` its K / V heads."""
     B, T, _ = h.shape
-    q = torch.einsum("btd,dhx->bthx", *operands(h, pl["c_wq"]))
-    k, v = enc_kv
+    q = torch.einsum("btd,dhx->bthx", *operands(h, _w(pl, "c_wq", shards, 0)))
+    k, v = kv_for_heads(*enc_kv, cfg, shards)
     pos_q = torch.zeros((B, T), dtype=torch.int32, device=h.device)
     pos_k = torch.zeros((B, k.shape[1]), dtype=torch.int32, device=h.device)
     out = L.attention(q, k, v, pos_q, pos_k, causal=False)
-    return o_proj(pl, out.reshape(B, T, cfg.n_heads * cfg.head_dim), cfg, prefix="c_")
+    return o_proj(pl, out.reshape(B, T, -1), cfg, "c_", shards)
 
 
-def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The encoder over stub-frontend frame embeddings (B, T_enc, D)."""
+def encode(params: dict, frames: torch.Tensor, cfg: ModelConfig, shards=None) -> torch.Tensor:
+    """The encoder over stub-frontend frame embeddings (B, T_enc, D); on
+    ``shards`` its attention over the rank's heads and its SwiGLU over the
+    rank's ``ff`` shard, each summed over their group."""
     h = frames.to(params["enc_pos"].dtype) + params["enc_pos"][None, :frames.shape[1]]
     B, T = h.shape[:2]
     positions = torch.arange(T, dtype=torch.int32, device=h.device).expand(B, T)
     for pl in params["enc_layers"]:
         hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
-        q, k, v = qkv_proj(pl, hn, cfg)
+        q, k, v = qkv_proj(pl, hn, cfg, shards=shards)
+        k, v = kv_for_heads(k, v, cfg, shards)
         out = L.attention(q, k, v, positions, positions, causal=False)
-        h = h + o_proj(pl, out.reshape(B, T, -1), cfg)
+        h = h + o_proj(pl, out.reshape(B, T, -1), cfg, shards=shards)
         hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
-        h = h + L.swiglu(hn2, pl["w1"], pl["w3"], pl["w2"])
+        h = h + L.swiglu(hn2, pl["w1"], pl["w3"], pl["w2"], shards)
     return L.rms_norm(h, params["enc_final_norm"], cfg.rms_eps)
 
 
-def encoder_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig):
+def encoder_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig, shards=None):
     """Per decoder layer, the cross K / V (B, T_enc, Hkv, Dh) of the
-    encoder output."""
+    encoder output: the rank's ``kv_heads`` on ``shards``."""
     kvs = []
     for pl in params["layers"]:
-        k = torch.einsum("btd,dhx->bthx", *operands(enc_out, pl["c_wk"]))
-        v = torch.einsum("btd,dhx->bthx", *operands(enc_out, pl["c_wv"]))
+        k = torch.einsum("btd,dhx->bthx", *operands(enc_out, _w(pl, "c_wk", shards, 0)))
+        v = torch.einsum("btd,dhx->bthx", *operands(enc_out, _w(pl, "c_wv", shards, 0)))
         if cfg.qkv_bias and "c_bk" in pl:
             k, v = k + pl["c_bk"], v + pl["c_bv"]
         kvs.append((k, v))

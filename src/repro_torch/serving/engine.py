@@ -82,7 +82,15 @@ appends to and attends over its shard of the columns
 (``kernels.ops.fairkv_decode_partial``), the shards' (o, lse) pairs are
 all-gathered over the ``cache_len`` group, one collective a layer, and
 every rank merges them in rank order (`kernels.ref.merge_partials`).
-The dense and MoE families (A.16 covers the others).
+Every family runs there: the SSD branch of the SSM and hybrid families on
+its own splits (``in_proj``'s columns and the conv's channels gathered,
+the scan over the rank's heads and its ``ssm_state`` / ``conv_state``
+shards, the gated norm's Σ and ``out_proj``'s partial product summed;
+`repro_torch.models.transformer`'s SSD section), the hybrid's slot norm
+with its Σ summed over ``model``, an attention-free model (mamba2) with no
+plan and no cache, the encoder and cross attention over the rank's heads
+(its ``cross_k`` / ``cross_v`` shards), and the VLM's image embeddings on
+the rank's rows.
 """
 from __future__ import annotations
 
@@ -300,8 +308,6 @@ def prefill(
     (B, T), and ``frames`` (B, T_enc, D) for an encoder-decoder model or
     ``image_embeds`` (B, I, D) ahead of the tokens for a VLM.
     """
-    if shards is not None:
-        _shards_supported(cfg)
     h, positions = M.embed_inputs(serve_params, batch, cfg, shards)
     B, T, D = h.shape
     if shards is not None:
@@ -311,8 +317,8 @@ def prefill(
     cross_k = cross_v = None
     enc_kvs = None
     if cfg.is_encoder_decoder:
-        enc_kvs = M.encoder_cross_kv(serve_params, M.encode(serve_params, batch["frames"], cfg),
-                                     cfg)
+        enc_out = M.encode(serve_params, batch["frames"], cfg, shards)
+        enc_kvs = M.encoder_cross_kv(serve_params, enc_out, cfg, shards)
         cross_k = torch.stack([kv[0] for kv in enc_kvs])
         cross_v = torch.stack([kv[1] for kv in enc_kvs])
     cache = None
@@ -333,7 +339,7 @@ def prefill(
                 attn_flat = L.rms_norm(attn_flat, pl["attn_out_norm"], cfg.rms_eps)
             attn_out = _slot_o_proj(pl, attn_flat, cfg, plan, i, groups, shards)
         if cfg.family in ("ssm", "hybrid"):
-            ssm_out, (cs, ss) = M.ssm_block_full(pl, hn, cfg)
+            ssm_out, (cs, ss) = M.ssm_block_full(pl, hn, cfg, shards=shards)
             conv_states.append(cs)
             ssm_states.append(ss)
             h = h + (ssm_out if cfg.family == "ssm" else 0.5 * (attn_out + ssm_out))
@@ -341,7 +347,7 @@ def prefill(
             h = h + attn_out
         if enc_kvs is not None:
             hc = L.rms_norm(h, pl["ln_cross"], cfg.rms_eps)
-            h = h + M.cross_attn_block(pl, hc, enc_kvs[i], cfg)
+            h = h + M.cross_attn_block(pl, hc, enc_kvs[i], cfg, shards)
         if cfg.d_ff > 0 or cfg.moe.num_experts > 0:
             hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
             h = h + M.mlp_block(pl, hn2, cfg, shards)
@@ -648,7 +654,11 @@ def decode_step(
     the attention's (o, lse) pairs a layer over the ``cache_len`` group;
     the MoE family's FFN adds one all-gather of its router's columns over
     ``model`` and one of its expert counts over ``data`` a layer (its
-    outputs' all-reduce over ``model`` takes the MLP's place).
+    outputs' all-reduce over ``model`` takes the MLP's place).  The other
+    families' counts per layer are `repro_torch.launch.dryrun.
+    decode_collectives`': the SSD branch's gathers of ``in_proj``'s columns
+    and the conv's channels, its gated norm's Σ and ``out_proj``'s sum, the
+    hybrid's slot-norm Σ, cross attention's o-projection sum.
 
     The SSM and hybrid families update ``ssm_state`` / ``conv_state`` in
     place on every row (a retired row's are overwritten by the next
@@ -658,7 +668,7 @@ def decode_step(
     tokens = state.last_tokens if tokens is None else tokens
     phase = state.decode_steps if phase is None else phase
     if shards is not None:
-        _shards_supported(cfg)
+        _shards_supported(state.cache)
         groups, rows = _shard_groups_rows(shards, groups, rows, tokens.shape[0],
                                           tokens.device)
     h = M.embed_tokens(tokens[:, None], serve_params, cfg, shards)  # (B, 1, D)
@@ -673,16 +683,18 @@ def decode_step(
                                      phase, ccfg, active, kv_kinds, rows, groups, shards)
             if cfg.family == "hybrid":
                 attn = _slot_rms_norm(attn, pl["attn_out_norm_s"],
-                                      cfg.n_heads * cfg.head_dim, cfg.rms_eps)
+                                      cfg.n_heads * cfg.head_dim, cfg.rms_eps,
+                                      None if groups is None else groups.model_group)
             attn_out = _decode_slot_o(pl, attn, cfg, groups, shards)
         if cfg.family in ("ssm", "hybrid"):
-            ssm_out = _decode_ssm(pl, hn, cfg, i, state)
+            ssm_out = _decode_ssm(pl, hn, cfg, i, state, shards)
             h = h + (ssm_out if cfg.family == "ssm" else 0.5 * (attn_out + ssm_out))
         else:
             h = h + attn_out
         if cfg.is_encoder_decoder:
             hc = L.rms_norm(h, pl["ln_cross"], cfg.rms_eps)
-            h = h + M.cross_attn_block(pl, hc, (state.cross_k[i], state.cross_v[i]), cfg)
+            h = h + M.cross_attn_block(pl, hc, (state.cross_k[i], state.cross_v[i]), cfg,
+                                       shards)
         if cfg.d_ff > 0 or cfg.moe.num_experts > 0:
             hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
             h = h + M.mlp_block(pl, hn2, cfg, shards)
@@ -701,11 +713,11 @@ def decode_step(
     return new_state, logits
 
 
-def _shards_supported(cfg: ModelConfig) -> None:
-    if cfg.family not in ("dense", "moe") or cfg.attention_free:
+def _shards_supported(cache) -> None:
+    if isinstance(cache, PagedCache):
         raise NotImplementedError(
-            f"the serve step on a rank's shards supports the dense and MoE families, got "
-            f"{cfg.family!r} ({cfg.name}): the other families on the mesh are ROADMAP A.16")
+            "the serve step on a rank's shards runs every family (dense, MoE, SSM, hybrid, "
+            "encoder-decoder, VLM) on the slot cache; a paged cache is the mesh executor's")
 
 
 def _shard_groups_rows(shards, groups, rows, n_rows: int, device):
@@ -751,34 +763,35 @@ def vocab_argmax(logits: torch.Tensor, vocab_size: int, split) -> torch.Tensor:
 
 
 def _slot_rms_norm(x: torch.Tensor, scale_slot: torch.Tensor, n_channels: int,
-                   eps: float) -> torch.Tensor:
+                   eps: float, group=None) -> torch.Tensor:
     """RMS norm over the slot layout (B, S, G, Dh).  Unowned slot entries
     are exactly zero (the decode kernels guarantee it) and every head has
     one owning slot per row, so Σx² over (S, G, Dh) is the original
     channels' Σx²; the mean divides by the true channel count (Hq·Dh), not
-    the slot width."""
+    the slot width.  ``group``: the slot dim splits over it, and the
+    rank's Σ is summed over it (the reference's psum)."""
     xf = x.float()
-    ss = (xf * xf).sum(dim=(1, 2, 3), keepdim=True) / n_channels
+    ss = (xf * xf).sum(dim=(1, 2, 3), keepdim=True)
+    if group is not None:
+        ss = comm.all_reduce_sum(ss, group)
+    ss = ss / n_channels
     return (xf * torch.rsqrt(ss + eps) * (1.0 + scale_slot.float())[None]).to(x.dtype)
 
 
 def _decode_ssm(pl: dict, hn: torch.Tensor, cfg: ModelConfig, layer_idx: int,
-                state: ServeState) -> torch.Tensor:
+                state: ServeState, shards=None) -> torch.Tensor:
     """One token through the SSD branch of layer ``layer_idx``; the layer's
-    conv window and SSD state are updated in place.  Returns (B, 1, D)."""
-    s = cfg.ssm
-    d_in, G, N, H, P = s.d_inner, s.n_groups, s.state_size, s.num_heads, s.head_dim
+    conv window and SSD state (on ``shards`` the rank's channels and heads
+    of them: `models.transformer`'s SSD section) are updated in place.
+    Returns (B, 1, D)."""
     B = hn.shape[0]
-    z, xBC, dt = M.ssm_split(pl, hn, cfg)  # (B, 1, ...)
-    xBC, new_cs = SSD.conv1d_causal(xBC, pl["conv_w"], state.conv_state[layer_idx])
-    xBC = torch.nn.functional.silu(xBC)
-    x, B_, C_ = torch.split(xBC[:, 0], [d_in, G * N, G * N], dim=-1)
-    y, new_ss = SSD.ssd_decode_step(x.reshape(B, H, P), dt[:, 0], pl["A_log"],
-                                    B_.reshape(B, G, N), C_.reshape(B, G, N), pl["ssm_D"],
-                                    state.ssm_state[layer_idx])
+    z, xBC, dt = M.ssm_split(pl, hn, cfg, shards)  # (B, 1, ...)
+    xBC, new_cs = M.ssm_conv(pl, xBC, state.conv_state[layer_idx], shards)
+    x, dt, A_log, B_, C_, D_, h0 = M.ssd_inputs(pl, xBC[:, 0], dt[:, 0], cfg, shards)
+    y, new_ss = SSD.ssd_decode_step(x, dt, A_log, B_, C_, D_, state.ssm_state[layer_idx])
     state.conv_state[layer_idx].copy_(new_cs)
     state.ssm_state[layer_idx].copy_(new_ss)
-    return M.ssm_out(pl, y.reshape(B, 1, d_in), z)
+    return M.ssm_out(pl, y.reshape(B, 1, -1), z, shards, h0 * cfg.ssm.head_dim)
 
 
 def _local_table(cache: PagedCache, layer: int, groups=None) -> torch.Tensor:

@@ -337,8 +337,22 @@ def tp_model(configs, arch, wide):
     return dataclasses.replace(cfg, **TP_WIDE) if wide else cfg
 
 
-def tp_prompts(vocab):
-    return np.random.default_rng(1).integers(0, vocab, (TP_B, TP_T))
+def tp_batch(cfg) -> dict:
+    """The cells' prompt rows (numpy, seed 1): `TP_B` x `TP_T` tokens, and a
+    VLM's image embeddings or an encoder-decoder's frames."""
+    rng = np.random.default_rng(1)
+    out = {"tokens": rng.integers(0, cfg.vocab_size, (TP_B, TP_T))}
+    if cfg.is_vlm:
+        out["image_embeds"] = (0.5 * rng.standard_normal(
+            (TP_B, cfg.num_image_tokens, cfg.d_model))).astype(np.float32)
+    if cfg.is_encoder_decoder:
+        out["frames"] = (0.5 * rng.standard_normal(
+            (TP_B, cfg.encoder_seq_len, cfg.d_model))).astype(np.float32)
+    return out
+
+
+# the serve state's tensors beside the cache (the families that have them)
+STATE_FIELDS = ("ssm_state", "conv_state", "cross_k", "cross_v")
 
 
 def _np(t):
@@ -350,11 +364,14 @@ def tp_rank(mesh, wpath, arch, wide, int8, weights_2d):
     ``serve_rules(mesh, weights_2d=...)`` on this rank's shards
     (`local_shard` of the slotified, optionally int8, tree): a prefill and
     `TP_STEPS` decode steps.  Returns the rank's tokens, logits (its vocab
-    columns), lengths, final cache corner, the collectives of the prefill
-    and of one decode step, and its slots and rows."""
+    columns), lengths, final cache corner and state shards (with their
+    specs), the collectives of the prefill and of one decode step, and its
+    slots and rows.  An attention-free model has no plan, no slots and no
+    cache."""
     from repro_torch import configs
     from repro_torch.cache.slot_cache import PlanArrays
     from repro_torch.compression.base import CompressionConfig
+    from repro_torch.configs.base import InputShape
     from repro_torch.distributed import comm
     from repro_torch.distributed.param_specs import local_shard, tree_specs
     from repro_torch.distributed.sharding import serve_rules
@@ -370,15 +387,20 @@ def tp_rank(mesh, wpath, arch, wide, int8, weights_2d):
         sp = quantize_serve_params(sp)
     rules = serve_rules(mesh, weights_2d=weights_2d)
     sp_spec = tree_specs(sp, rules, "serve")
-    pa = PlanArrays.from_plan(plan)
-    pa = {f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)}
-    batch = {"tokens": torch.as_tensor(tp_prompts(cfg.vocab_size))}
+    n_slots = 0 if plan is None else plan.n_slots
+    pa = None
+    if plan is not None:
+        pa = PlanArrays.from_plan(plan)
+        pa = {f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)}
+        pa = local_shard(pa, specs.plan_specs(plan, rules), mesh)
+    batch = {k: torch.as_tensor(v) for k, v in tp_batch(cfg).items()}
     sp = local_shard(sp, sp_spec, mesh)
-    pa = local_shard(pa, specs.plan_specs(plan, rules), mesh)
     batch = local_shard(batch, specs.batch_specs(batch, rules), mesh)
-    step = {kind: specs.serve_step(kind, cfg, ccfg, mesh, rules, sp_spec, plan.n_slots, TP_B)
+    step = {kind: specs.serve_step(kind, cfg, ccfg, mesh, rules, sp_spec, n_slots, TP_B)
             for kind in ("prefill", "decode")}
-    sl, rows = mesh.slots(plan.n_slots), mesh.rows(TP_B)
+    _, st_spec = specs.serve_state_fake(cfg, InputShape("tp", TP_T, TP_B, "decode"), plan,
+                                        ccfg, rules)
+    sl, rows = mesh.slots(n_slots), mesh.rows(TP_B)
     with torch.inference_mode():
         before = comm.snapshot()
         state, logits, lengths = step["prefill"](sp, batch, pa)
@@ -386,6 +408,7 @@ def tp_rank(mesh, wpath, arch, wide, int8, weights_2d):
                "tokens": [_np(state.last_tokens)], "logits": [_np(logits)],
                "lengths": _np(lengths), "slots": (sl.start, sl.stop),
                "rows": (rows.start, rows.stop), "model_idx": mesh.model_idx,
+               "data_idx": mesh.data_idx,
                "int8": any(isinstance(w, QTensor) for w in sp["layers"][0].values())}
         for i in range(TP_STEPS):
             before = comm.snapshot()
@@ -394,8 +417,10 @@ def tp_rank(mesh, wpath, arch, wide, int8, weights_2d):
                 out["collectives"] = comm.by_kind(comm.since(before))
             out["tokens"].append(_np(state.last_tokens))
             out["logits"].append(_np(logits))
-    out["cache"] = {f: _np(getattr(state.cache, f)) for f in ("k", "v", "lengths", "pos",
-                                                              "positions")}
+    out["cache"] = None if state.cache is None else {
+        f: _np(getattr(state.cache, f)) for f in ("k", "v", "lengths", "pos", "positions")}
+    out["state"] = {f: (_np(getattr(state, f)), st_spec[f]) for f in STATE_FIELDS
+                    if getattr(state, f) is not None}
     return out
 
 
@@ -407,15 +432,27 @@ LONG_T, LONG_STEPS = 100, 32  # a prompt of 100 tokens, then 32 decode steps
 # lengths cross the shard boundary at prefill and reach capacity after 28
 # steps, so the ring (the last 8 columns, on the last shard) wraps
 LONG_COMP = dict(policy="none", budget=120, capacity=120, decode_margin=8)
+# arch: (compression, prompt tokens, decode steps).  hymba's smoke cell holds
+# one window of 16 + a ring of 8 (24 columns, 12 a shard at data 2): its
+# prefill keeps the window's 16, past the shard boundary, and the ring wraps
+# after 8 steps; mamba2 has no cache (nothing splits over data)
+LONG_CELLS = {LONG_ARCH: (LONG_COMP, LONG_T, LONG_STEPS),
+              "hymba-1.5b": (dict(policy="none", budget=16, capacity=16, decode_margin=8),
+                             20, 14),
+              "mamba2-1.3b": (dict(policy="none", budget=16, capacity=16, decode_margin=8),
+                              20, 8)}
+CACHE_FIELDS = ("k", "v", "lengths", "pos", "positions")
 
 
-def long_rank(mesh, wpath, spath):
+def long_rank(mesh, wpath, spath, arch=LONG_ARCH):
     """The long_500k cell's step (`specs.serve_step("decode")` under
-    ``serve_rules(mesh, long_context=True)``: split-S over ``data``) on this
-    rank's shards of the reference's prefilled state (``spath``, an .npz of
-    its cache, last tokens and ring phase): `LONG_STEPS` decode steps.
+    ``serve_rules(mesh, long_context=True)``: split-S over ``data`` where
+    the model has a cache) of ``arch``'s smoke config (`LONG_CELLS`) on
+    this rank's shards of the reference's prefilled state (``spath``, an
+    .npz of its cache and recurrent state, last tokens and ring phase).
     Returns the tokens, logits (the rank's vocab columns), the final cache
-    corner, one step's collectives, and the rank's slots and columns."""
+    corner and state shards (with their specs), one step's collectives, and
+    the rank's slots and columns."""
     from repro_torch import configs
     from repro_torch.cache.slot_cache import PlanArrays
     from repro_torch.compression.base import CompressionConfig
@@ -426,38 +463,47 @@ def long_rank(mesh, wpath, spath):
     from repro_torch.launch import specs
     from repro_torch.serving import engine as E
 
-    cfg = configs.get_smoke_config(LONG_ARCH)
-    ccfg = CompressionConfig(**LONG_COMP)
+    comp, n_prompt, n_steps = LONG_CELLS[arch]
+    cfg = configs.get_smoke_config(arch)
+    ccfg = CompressionConfig(**comp)
     plan = specs.cell_plan(cfg, TP_PLAN_SHARDS, batch_cap=1)
     sp = E.slotify_params(load_params(wpath), plan, cfg)
     rules = serve_rules(mesh, long_context=True)
     sp_spec = tree_specs(sp, rules, "serve")
-    pa = PlanArrays.from_plan(plan)
-    pa = {f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)}
+    n_slots, pa = 0, None
+    if plan is not None:
+        n_slots = plan.n_slots
+        pa = PlanArrays.from_plan(plan)
+        pa = local_shard({f.name: getattr(pa, f.name) for f in dataclasses.fields(pa)},
+                         specs.plan_specs(plan, rules), mesh)
     with np.load(spath) as z:
         st = {k: torch.from_numpy(z[k]) for k in z.files}
-    state = {"cache": {f: st[f] for f in ("k", "v", "lengths", "pos", "positions")},
-             "last_tokens": st["last_tokens"].long(), "decode_steps": st["decode_steps"]}
-    _, st_spec = specs.serve_state_fake(cfg, InputShape("long", LONG_T, 1, "decode"), plan,
+    state = {"last_tokens": st["last_tokens"].long(), "decode_steps": st["decode_steps"],
+             **{f: st[f] for f in STATE_FIELDS if f in st}}
+    if "k" in st:
+        state["cache"] = {f: st[f] for f in CACHE_FIELDS}
+    _, st_spec = specs.serve_state_fake(cfg, InputShape("long", n_prompt, 1, "decode"), plan,
                                         ccfg, rules)
-    sp, pa = local_shard(sp, sp_spec, mesh), local_shard(pa, specs.plan_specs(plan, rules), mesh)
+    sp = local_shard(sp, sp_spec, mesh)
     state = local_shard(state, st_spec, mesh)
-    step = specs.serve_step("decode", cfg, ccfg, mesh, rules, sp_spec, plan.n_slots, 1)
-    n_cols = state["cache"]["k"].shape[3]
-    out = {"tokens": [], "logits": [], "slots": (mesh.slots(plan.n_slots).start,
-                                                  mesh.slots(plan.n_slots).stop),
+    step = specs.serve_step("decode", cfg, ccfg, mesh, rules, sp_spec, n_slots, 1)
+    n_cols = state["cache"]["k"].shape[3] if "cache" in state else 0
+    sl = mesh.slots(n_slots)
+    out = {"tokens": [], "logits": [], "slots": (sl.start, sl.stop),
            "cols": (mesh.data_idx * n_cols, (mesh.data_idx + 1) * n_cols),
-           "model_idx": mesh.model_idx}
+           "model_idx": mesh.model_idx, "data_idx": mesh.data_idx}
     with torch.inference_mode():
-        for i in range(LONG_STEPS):
+        for i in range(n_steps):
             before = comm.snapshot()
             state, logits = step(sp, state, pa)
             if i == 0:
                 out["collectives"] = comm.by_kind(comm.since(before))
             out["tokens"].append(_np(state.last_tokens))
             out["logits"].append(_np(logits))
-    out["cache"] = {f: _np(getattr(state.cache, f)) for f in ("k", "v", "lengths", "pos",
-                                                              "positions")}
+    out["cache"] = None if state.cache is None else {
+        f: _np(getattr(state.cache, f)) for f in CACHE_FIELDS}
+    out["state"] = {f: (_np(getattr(state, f)), st_spec[f]) for f in STATE_FIELDS
+                    if getattr(state, f) is not None}
     return out
 
 

@@ -325,15 +325,17 @@ def test_arg_bytes_per_rank_match_reference(reference, mesh):
 
 DENSE = ["minitron-8b", "gemma2-9b", "granite-3-2b", "qwen1.5-110b"]
 MOE = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
+FAMILY = ["mamba2-1.3b", "hymba-1.5b", "whisper-small", "llava-next-34b"]
 
 
 @pytest.fixture(scope="module")
 def dense_sweep(tmp_path_factory):
-    """`dryrun.sweep` of the dense and MoE archs and mamba2-1.3b at
-    decode_32k and long_500k on the single production mesh, against an
-    H100's 85.0 GB: its result and the directory of its records."""
+    """`dryrun.sweep` of the dense, MoE, SSM, hybrid, encoder-decoder and
+    VLM archs at decode_32k and long_500k on the single production mesh,
+    against an H100's 85.0 GB: its result and the directory of its
+    records."""
     out = tmp_path_factory.mktemp("dryrun")
-    res = dryrun.sweep(DENSE + MOE + ["mamba2-1.3b"], ["decode_32k", "long_500k"], [False],
+    res = dryrun.sweep(DENSE + MOE + FAMILY, ["decode_32k", "long_500k"], [False],
                        "fairkv_dp", str(out), dev_bytes=dryrun.H100_BYTES)
     return res, out
 
@@ -341,8 +343,13 @@ def dense_sweep(tmp_path_factory):
 def test_run_cell_records(dense_sweep):
     """A cell the port has a step for runs it (``ok``, ``executed`` with the
     reference's record keys and the cell step's decode contract: 2·L + 1
-    all-reduces over ``model``); one it has none for is ``args_only`` with
-    its ROADMAP item; a skipped shape is ``skipped``."""
+    all-reduces over ``model`` for a dense arch; for mamba2, attention-free,
+    two all-gathers (``in_proj``'s columns, the conv's channels) and two
+    all-reduces (the gated norm's Σ, ``out_proj``) a layer beside the
+    embedding's all-reduce and the argmax's pair gather, at decode_32k and
+    at long_500k, where nothing splits over ``data``); every serve cell of
+    the sweep runs (only the train cells, which it does not hold, wait
+    for A.15); a skipped shape is ``skipped``."""
     res, out = dense_sweep
     recs = {(r["arch"], r["shape"]): r for r in res["records"]}
     assert res["counts"]["fail"] == 0
@@ -356,11 +363,21 @@ def test_run_cell_records(dense_sweep):
     cfg = get_config("granite-3-2b")
     assert ex["collectives_by_group"]["model"]["all_reduce"]["calls"] == 2 * cfg.n_layers + 1
     assert ok["memory"]["argument_bytes"] > 0
-    assert recs[("mamba2-1.3b", "decode_32k")]["status"] == "args_only"
-    assert recs[("mamba2-1.3b", "decode_32k")]["todo"].startswith("A.16")
+    assert res["counts"]["args_only"] == 0
+    m2 = get_config("mamba2-1.3b")
+    L = m2.n_layers
+    for shape_name, rows in (("decode_32k", SHAPES["decode_32k"].global_batch // 16),
+                             ("long_500k", 1)):
+        rec = recs[("mamba2-1.3b", shape_name)]
+        assert rec["status"] == "ok" and rec["fits"] is True
+        assert all(rec["executed"]["contract"].values())
+        g = rec["executed"]["collectives_by_group"]
+        assert set(g) == {"model"}
+        assert g["model"]["all_reduce"]["calls"] == g["model"]["all_gather"]["calls"] == 2 * L + 1
+        assert g["model"]["all_reduce"]["elements"] == rows * ((L + 1) * m2.d_model + L)
     assert recs[("gemma2-9b", "long_500k")]["status"] == "ok"
-    assert recs[("mamba2-1.3b", "long_500k")]["status"] == "args_only"
-    assert recs[("granite-3-2b", "long_500k")]["status"] in ("args_only", "skipped")
+    assert recs[("granite-3-2b", "long_500k")]["status"] in ("ok", "skipped")
+    assert specs.cell_todo(m2, SHAPES["train_4k"]).startswith("A.15")
     assert recs[("minitron-8b", "long_500k")]["status"] == "skipped"
     written = json.loads((out / "granite-3-2b__decode_32k__single.json").read_text())
     assert written["executed"]["memory"] == ex["memory"]
@@ -382,8 +399,8 @@ def test_dense_decode_cell_executes_its_step(reference, dense_sweep, arch):
     want = reference("bytes")[f"16x16|{arch}|decode_32k"]
     assert rec["memory"]["argument_bytes"] == ex["memory"]["argument_bytes"] == want
     assert rec["quantize"] == (arch == "qwen1.5-110b")
-    assert ex["contract"] == {"model_all_reduce_2L_plus_1": True,
-                              "model_one_argmax_gather": True, "nothing_over_data": True}
+    assert ex["contract"] == {"model_all_reduces": True, "model_all_gathers": True,
+                              "nothing_over_data": True}
     rows = SHAPES["decode_32k"].global_batch // 16
     g = ex["collectives_by_group"]
     assert set(g) == {"model"}
@@ -410,8 +427,7 @@ def test_long_cell_executes_split_s(reference, dense_sweep):
     want = reference("bytes")["16x16|gemma2-9b|long_500k"]
     assert rec["memory"]["argument_bytes"] == ex["memory"]["argument_bytes"] == want
     assert round(want / 1e9, 2) == 2.80
-    assert ex["contract"] == {"model_all_reduce_2L_plus_1": True,
-                              "model_one_argmax_gather": True,
+    assert ex["contract"] == {"model_all_reduces": True, "model_all_gathers": True,
                               "data_one_all_gather_per_layer": True}
     L, G, Dh = cfg.n_layers, cfg.q_per_kv, cfg.head_dim
     n_slots = rec["executed"]["collectives_by_group"]["data"]["all_gather"]["elements"] // (
@@ -469,3 +485,46 @@ def test_partial_kernel_fake_implementation_and_flops():
     assert o.shape == qc.shape and o.dtype == torch.float32 and lse.shape == (8, 16, 4)
     assert st.temp_bytes == scratch_floats(8, 16, 4, 256) * 4 + 16 * 8 * 4
     assert got == want == 4 * 2 * 3 * 4 * 40 * 32
+
+
+@pytest.mark.parametrize("arch", FAMILY)
+def test_family_decode_cells_execute_their_step(reference, dense_sweep, arch):
+    """The SSM, hybrid, encoder-decoder and VLM archs' decode_32k cells (and
+    mamba2's and hymba's long_500k) on the fake (data 16, model 16) mesh
+    execute ``build_cell(...).fn`` on the reference's arguments, within the
+    card, with the derived collectives per rank:
+
+    - mamba2 (in_proj's 8512 columns, the conv's 4352 channels, 64 heads
+      and out_proj's 4096 rows all split 16 ways): per layer over
+      ``model`` two all-gathers (in_proj's columns, the activated conv
+      output) and two all-reduces (the gated norm's Σ, out_proj);
+    - hymba (in_proj's 3257 columns and its 25 heads whole, the conv's
+      1632 channels and out_proj's 1600 rows split): per layer one
+      all-gather (the conv output) and four all-reduces (the slot norm's
+      Σ, the o-projection, out_proj, the MLP); at long_500k also one
+      all-gather of the split-S pairs over ``data`` a layer;
+    - whisper (12 heads whole) and llava: the dense contract;
+
+    beside the embedding's all-reduce and the argmax's pair gather."""
+    recs = {(r["arch"], r["shape"]): r for r in dense_sweep[0]["records"]}
+    cfg = get_config(arch)
+    L = cfg.n_layers
+    per_layer = {"mamba2-1.3b": (2, 2), "hymba-1.5b": (4, 1), "whisper-small": (2, 0),
+                 "llava-next-34b": (2, 0)}[arch]  # (all-reduces, all-gathers) a layer
+    shapes = ["decode_32k"] + (["long_500k"] if arch in ("mamba2-1.3b", "hymba-1.5b") else [])
+    for shape_name in shapes:
+        rec = recs[arch, shape_name]
+        ex = rec["executed"]
+        assert rec["status"] == "ok" and rec["fits"] is True, shape_name
+        want = reference("bytes")[f"16x16|{arch}|{shape_name}"]
+        assert rec["memory"]["argument_bytes"] == ex["memory"]["argument_bytes"] == want
+        assert all(ex["contract"].values()), ex["contract"]
+        assert ex["step"].startswith("repro_torch.serving.engine.decode_step")
+        g = ex["collectives_by_group"]
+        assert g["model"]["all_reduce"]["calls"] == per_layer[0] * L + 1
+        assert g["model"]["all_gather"]["calls"] == per_layer[1] * L + 1
+        split_s = shape_name == "long_500k" and not cfg.attention_free
+        assert set(g) == ({"model", "data"} if split_s else {"model"})
+        if split_s:
+            assert g["data"] == {"all_gather": g["data"]["all_gather"]}
+            assert g["data"]["all_gather"]["calls"] == L

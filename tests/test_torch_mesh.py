@@ -29,11 +29,13 @@ reference's weights reach every rank through an ``.npz``.  Held here:
 - the serve cells' step under ``serve_rules`` (`tests/test_torch_tp.py`
   holds its reference side and bars): the four dense archs, the two MoE
   archs (expert parallel) and int8 qwen1.5 on 1x2, and on 2x4 with
-  ``weights_2d`` off and on, against the reference's single-device
-  prefill and decode steps; long_500k's split-S decode (gemma2-9b smoke,
-  the columns split over ``data`` on 2x4) against its decode steps; the
-  expert-parallel `moe_block` against the reference's at a capacity that
-  drops; `vocab_argmax`'s tie and padding rules on 1x2.
+  ``weights_2d`` off and on, and mamba2, hymba, whisper and llava on 1x2
+  and 2x4, against the reference's single-device prefill and decode
+  steps; long_500k's split-S decode (gemma2-9b smoke, the columns split
+  over ``data`` on 2x4) and hymba's (its window's ring wrapped) and
+  mamba2's long cells against their decode steps; the expert-parallel
+  `moe_block` against the reference's at a capacity that drops;
+  `vocab_argmax`'s tie and padding rules on 1x2.
 
 (The reference's own mesh run of the paged backend is red in its baseline,
 so the port is held to the reference's local executor throughout.)
@@ -257,8 +259,9 @@ def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
     archs (under ``"family"``), `compressed_all_reduce` (``"compress"``),
     the dry run's decode step on real tensors (``"audit"``) and
     `vocab_argmax` (``"argmax"``); both run the serve cells' step's cases
-    (``("tp", shape)``, by `TP.case_id`), long_500k's split-S step
-    (``("long", shape)``) and the expert-parallel MoE block (``("moe",
+    (``("tp", shape)``, by `TP.case_id`), the long_500k cells' steps
+    (``("long", shape)``, by arch: gemma2's split-S, hymba's split-S beside
+    its SSD branch, mamba2's) and the expert-parallel MoE block (``("moe",
     shape)``), and the reference's runs they are held to
     (``"tp_reference"``, ``"long_reference"``) are computed in a thread
     meanwhile (the long cell's prefill before the spawns: the ranks start
@@ -266,16 +269,20 @@ def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
     jparams, path = weights
     out = {}
     refs = {}
-    long_tree, long_wpath = tp_weights[R.LONG_ARCH, False]
-    long_spath = str(tmp_path_factory.mktemp("long") / "state.npz")
-    TP.long_prefill(long_tree, long_spath)
+    longs = {}  # arch: (tree, weights' path, prefilled state's path)
+    for arch in R.LONG_CELLS:
+        tree, wpath = tp_weights[arch, False]
+        spath = str(tmp_path_factory.mktemp("long") / "state.npz")
+        TP.long_prefill(tree, spath, arch)
+        longs[arch] = (tree, wpath, spath)
     moe_arrays = out["moe_arrays"] = TP.moe_arrays()
 
     def tp_reference():
         try:
             refs.update({(a, w, q): TP.reference_run(tp_weights[a, w][0], a, w, q)
                          for a, w, q in TP.WEIGHTS})
-            refs["long"] = TP.long_reference(long_tree, long_spath)
+            refs["long"] = {a: TP.long_reference(tree, spath, a)
+                            for a, (tree, _, spath) in longs.items()}
         except BaseException as e:  # raised below, in the fixture
             refs["error"] = e
 
@@ -295,14 +302,16 @@ def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
         n_fixed = len(jobs)
         jobs += [("tp_rank", (tp_weights[arch, wide][1], arch, wide, int8, w2))
                  for arch, wide, int8, w2 in TP.CASES[shape]]
-        jobs += [("long_rank", (long_wpath, long_spath)), ("moe_rank", (moe_arrays,))]
+        n_tp = len(jobs)
+        jobs += [("long_rank", (wpath, spath, a)) for a, (_, wpath, spath) in longs.items()]
+        jobs.append(("moe_rank", (moe_arrays,)))
         ranks = spawn(R.jobs_rank, model=model, data=data, args=(jobs,),
                       init_file=str(tmp_path_factory.mktemp(shape) / "rv"),
                       timeout=SPAWN_TIMEOUT)
         out[shape] = (cases, [r[0] for r in ranks], _reference(cases, jparams, profiles))
         out["tp", shape] = {TP.case_id(c): [r[n_fixed + i] for r in ranks]
                             for i, c in enumerate(TP.CASES[shape])}
-        out["long", shape] = [r[-2] for r in ranks]
+        out["long", shape] = {a: [r[n_tp + i] for r in ranks] for i, a in enumerate(longs)}
         out["moe", shape] = [r[-1] for r in ranks]
         if shape == "2x4":
             out["trace"] = [r[1] for r in ranks]
@@ -473,7 +482,22 @@ def test_long_cell_split_s_parity(oneshot, shape):
     columns do not split and the step takes the full-output path) against
     the reference's single-device decode steps (`TP.check_long`)."""
     model, data = SHAPES[shape]
-    TP.check_long(oneshot["long", shape], oneshot["long_reference"], model, data)
+    TP.check_long(oneshot["long", shape][R.LONG_ARCH], oneshot["long_reference"][R.LONG_ARCH],
+                  model, data)
+
+
+FAMILY_LONG = [(shape, a) for shape in SHAPES for a in R.LONG_CELLS if a != R.LONG_ARCH]
+
+
+@pytest.mark.parametrize("shape,arch", FAMILY_LONG, ids=[f"{s}-{a}" for s, a in FAMILY_LONG])
+def test_family_long_cell_parity(oneshot, shape, arch):
+    """hymba's long_500k cell (its window's columns split over ``data`` on
+    2x4, the ring wrapped, the SSD branch on its splits over ``model``) and
+    mamba2's (no cache: nothing over ``data``) against the reference's
+    single-device decode steps (`TP.check_long`)."""
+    model, data = SHAPES[shape]
+    TP.check_long(oneshot["long", shape][arch], oneshot["long_reference"][arch], model, data,
+                  arch)
 
 
 @pytest.mark.parametrize("shape", list(SHAPES))

@@ -12,14 +12,19 @@ tests are there and call `check_case` / `check_argmax` here; this module
 holds the reference side and the tests that need no ranks.
 
 Setup: fp32 smoke configs of the four dense archs (qwen1.5's qkv biases
-drawn non-zero) and the two MoE archs (granite-moe: 4 experts top-2,
+drawn non-zero), the two MoE archs (granite-moe: 4 experts top-2,
 qwen3-moe: 8 top-2; the reference's capacity factor 1.25, which drops
-replicas at these sizes), the reference's weights through
-`interop.to_torch` and `local_shard`, one plan per arch (`cell_plan` at 4
-shards, 4 slots, in both packages bitwise), Ada-SnapKV budget 12; a
+replicas at these sizes) and the SSM, hybrid, encoder-decoder and VLM
+archs (mamba2, hymba, whisper, llava; their SSD vectors and norm scales
+drawn non-zero; a VLM's image embeddings and an encoder-decoder's frames
+beside the prompts), the reference's weights through `interop.to_torch`
+and `local_shard`, one plan per arch (`cell_plan` at 4 shards, 4 slots,
+in both packages bitwise; none for mamba2), Ada-SnapKV budget 12; a
 prefill of 4 x 20 tokens, then 3 decode steps.  qwen1.5 also runs
 widened (d_model 256) on int8 weights against the reference's
-`quantize_serve_params`.
+`quantize_serve_params`.  At these sizes mamba2's split cuts every SSD dim
+(in_proj's 84 columns across the z | xBC | dt boundaries), hymba's keeps
+in_proj's 93 columns and its 5 heads whole, and whisper's 4 heads split.
 
 long_500k's split-S step (``long_rank``): gemma2-9b's smoke config (a
 local layer with window 16, a global one), B 1, policy none at capacity
@@ -27,7 +32,9 @@ local layer with window 16, a global one), B 1, policy none at capacity
 32 decode steps past the ring's wrap, against the reference's
 single-device decode steps: tokens and lengths equal, logits and the
 cache within 1e-4, per step L all-gathers over ``data`` (none on 1x2,
-where the columns do not split) beside the dense contract.  The
+where the columns do not split) beside the dense contract; hymba's long
+cell (one window of 16 + a ring of 8, wrapped) and mamba2's (no cache)
+alike, their SSD state and conv window within 1e-4.  The
 expert-parallel `moe_block` (``moe_rank``, 8 experts top-2 at capacity
 factor 1.0) against the reference's `moe_block`, whose drops a per-shard
 capacity would change.
@@ -35,10 +42,13 @@ capacity would change.
 Bars: tokens and retained lengths equal; the logits (the ranks' vocab
 columns, gathered here only) and the rank's cache corner within 1e-4
 (fp32: the MLP's and o-projection's partial sums add in another order);
-the cache's lengths and positions equal; per decode step over ``model``
-2·L + 1 all-reduces of (B / data, d_model) and one all-gather of (B /
-data, 2) argmax pairs, over ``data`` nothing, or with ``weights_2d`` one
-all-gather per weight read.  `vocab_argmax`: a tie across two vocab shards
+the cache's lengths and positions equal; the SSD state, conv window and
+cross K / V shards within 1e-4; per decode step over ``model`` 2·L + 1
+all-reduces of (B / data, d_model) and one all-gather of (B / data, 2)
+argmax pairs, over ``data`` nothing, or with ``weights_2d`` one
+all-gather per weight read (the family archs: the dry run's derived
+count).  In-process (thread ranks, no spawn): the SSD branch and the
+encoder and cross attention on shards sum to the whole.  `vocab_argmax`: a tie across two vocab shards
 picks the lowest id, a padded column is never picked.
 """
 from __future__ import annotations
@@ -74,11 +84,20 @@ torch.set_num_threads(2)
 TOL = 1e-4
 ARCHS = ["minitron-8b", "gemma2-9b", "granite-3-2b", "qwen1.5-110b"]
 MOE_ARCHS = ["granite-moe-1b-a400m", "qwen3-moe-30b-a3b"]
+# the SSM, hybrid, encoder-decoder and VLM archs (no weights_2d case: no
+# production cell of theirs runs it)
+FAMILY_ARCHS = ["mamba2-1.3b", "hymba-1.5b", "whisper-small", "llava-next-34b"]
 # (arch, widened, int8) per weight set; the spawns' cases add weights_2d
-WEIGHTS = ([(a, False, False) for a in ARCHS + MOE_ARCHS]
+WEIGHTS = ([(a, False, False) for a in ARCHS + MOE_ARCHS + FAMILY_ARCHS]
            + [("qwen1.5-110b", True, True)])
 CASES = {"1x2": [w + (False,) for w in WEIGHTS],
-         "2x4": [w + (w2,) for w in WEIGHTS for w2 in (False, True)]}
+         "2x4": [w + (w2,) for w in WEIGHTS for w2 in (False, True)
+                 if not (w2 and w[0] in FAMILY_ARCHS)]}
+# drawn non-zero in the family archs' weights, (scale, offset) of scale·N(0, 1)
+# + offset: the reference's zeros and ones hide a sign error or a dropped term
+NONZERO = {"A_log": (0.5, 0.0), "dt_bias": (0.5, 0.0), "ssm_D": (0.5, 1.0),
+           "ssm_norm": (0.3, 0.0), "attn_out_norm": (0.3, 0.0), "ln1": (0.3, 0.0),
+           "ln2": (0.3, 0.0), "ln_cross": (0.3, 0.0)}
 
 
 def case_id(case) -> str:
@@ -92,7 +111,8 @@ def case_id(case) -> str:
 
 
 def weights_tree(arch: str, wide: bool) -> dict:
-    """The reference's fp32 smoke weights as numpy, qkv biases non-zero."""
+    """The reference's fp32 smoke weights as numpy, qkv biases non-zero (and
+    the family archs' SSD vectors and norm scales, `NONZERO`)."""
     jcfg = R.tp_model(jconfigs, arch, wide)
     tree = jax.tree.map(np.asarray, JM.init_params(jcfg, jax.random.PRNGKey(0),
                                                    dtype=jnp.float32))
@@ -101,6 +121,12 @@ def weights_tree(arch: str, wide: bool) -> dict:
         for key in ("bq", "bk", "bv"):
             if key in pl:
                 pl[key] = (0.5 * rng.standard_normal(pl[key].shape)).astype(np.float32)
+    if arch in FAMILY_ARCHS:
+        for pl in tree["layers"] + tree.get("enc_layers", []):
+            for key, (scale, off) in NONZERO.items():
+                if key in pl:
+                    pl[key] = (scale * rng.standard_normal(pl[key].shape) + off).astype(
+                        np.float32)
     return tree
 
 
@@ -114,10 +140,12 @@ def reference_run(tree: dict, arch: str, wide: bool, int8: bool) -> dict:
     sp = JE.slotify_params(jax.tree.map(jnp.asarray, tree), plan, jcfg)
     if int8:
         sp = jq.quantize_serve_params(sp)
-    pa = JPlanArrays.from_plan(plan)
-    prefill = jax.jit(lambda sp, t, pa: JE.prefill(sp, {"tokens": t}, jcfg, pa, ccfg))
+    pa = None if plan is None else JPlanArrays.from_plan(plan)
+    prefill = jax.jit(lambda sp, b, pa: JE.prefill(sp, b, jcfg, pa, ccfg))
     decode = jax.jit(lambda sp, st, pa: JE.decode_step(sp, st, jcfg, pa, ccfg))
-    st, lg, lengths = prefill(sp, jnp.asarray(R.tp_prompts(jcfg.vocab_size), jnp.int32), pa)
+    batch = {k: jnp.asarray(v, jnp.int32 if k == "tokens" else jnp.float32)
+             for k, v in R.tp_batch(jcfg).items()}
+    st, lg, lengths = prefill(sp, batch, pa)
     tokens, logits = [st.last_tokens], [lg]
     for _ in range(R.TP_STEPS):
         st, lg = decode(sp, st, pa)
@@ -125,59 +153,68 @@ def reference_run(tree: dict, arch: str, wide: bool, int8: bool) -> dict:
         logits.append(lg)
     return {"tokens": np.stack(tokens), "logits": np.stack(logits),
             "lengths": np.asarray(lengths),
-            "cache": {f: np.asarray(getattr(st.cache, f))
-                      for f in ("k", "v", "lengths", "pos", "positions")}}
+            "cache": None if st.cache is None else {
+                f: np.asarray(getattr(st.cache, f))
+                for f in ("k", "v", "lengths", "pos", "positions")},
+            "state": {f: np.asarray(getattr(st, f)) for f in R.STATE_FIELDS
+                      if getattr(st, f) is not None}}
 
 
 def long_weights() -> dict:
     return weights_tree(R.LONG_ARCH, False)
 
 
-def long_prefill(tree: dict, path) -> None:
-    """The reference's prefill of the long cell's prompt (B 1, `R.LONG_T`
-    tokens, policy none) on the slotified tree: its state to ``path``
-    (.npz) for the ranks."""
-    jcfg, ccfg, plan, sp, pa = _long_setup(tree)
+def long_prefill(tree: dict, path, arch: str = R.LONG_ARCH) -> None:
+    """The reference's prefill of ``arch``'s long cell prompt (B 1, its
+    `R.LONG_CELLS` tokens, policy none) on the slotified tree: its state
+    (cache, recurrent state) to ``path`` (.npz) for the ranks."""
+    jcfg, ccfg, plan, sp, pa = _long_setup(tree, arch)
+    n_prompt = R.LONG_CELLS[arch][1]
     tokens = jnp.asarray(np.random.default_rng(5).integers(0, jcfg.vocab_size,
-                                                            (1, R.LONG_T)), jnp.int32)
+                                                            (1, n_prompt)), jnp.int32)
     st, _, _ = jax.jit(lambda sp, t, pa: JE.prefill(sp, {"tokens": t}, jcfg, pa, ccfg))(
         sp, tokens, pa)
-    np.savez(path, **{f: np.asarray(getattr(st.cache, f))
-                      for f in ("k", "v", "lengths", "pos", "positions")},
-             last_tokens=np.asarray(st.last_tokens), decode_steps=np.asarray(st.decode_steps))
+    parts = {f: np.asarray(getattr(st, f)) for f in R.STATE_FIELDS
+             if getattr(st, f) is not None}
+    if st.cache is not None:
+        parts.update({f: np.asarray(getattr(st.cache, f)) for f in R.CACHE_FIELDS})
+    np.savez(path, **parts, last_tokens=np.asarray(st.last_tokens),
+             decode_steps=np.asarray(st.decode_steps))
 
 
-def _long_setup(tree):
-    jcfg = jconfigs.get_smoke_config(R.LONG_ARCH)
-    ccfg = JCompression(**R.LONG_COMP)
+def _long_setup(tree, arch: str = R.LONG_ARCH):
+    jcfg = jconfigs.get_smoke_config(arch)
+    ccfg = JCompression(**R.LONG_CELLS[arch][0])
     plan = jspecs.cell_plan(jcfg, R.TP_PLAN_SHARDS, batch_cap=1)
     sp = JE.slotify_params(jax.tree.map(jnp.asarray, tree), plan, jcfg)
-    return jcfg, ccfg, plan, sp, JPlanArrays.from_plan(plan)
+    return jcfg, ccfg, plan, sp, None if plan is None else JPlanArrays.from_plan(plan)
 
 
-def long_reference(tree: dict, path) -> dict:
+def long_reference(tree: dict, path, arch: str = R.LONG_ARCH) -> dict:
     """The reference's single-device decode steps (jitted) from the state
     `long_prefill` wrote: tokens (steps, 1), logits (steps, 1, V), the
-    final cache."""
+    final cache and recurrent state."""
     from repro.cache.slot_cache import SlotCache as JSlotCache
 
-    jcfg, ccfg, plan, sp, pa = _long_setup(tree)
+    jcfg, ccfg, plan, sp, pa = _long_setup(tree, arch)
     with np.load(path) as z:
         st = JE.ServeState(
-            cache=JSlotCache(**{f: jnp.asarray(z[f]) for f in ("k", "v", "lengths", "pos",
-                                                             "positions")}),
-            ssm_state=None, conv_state=None, cross_k=None, cross_v=None,
+            cache=JSlotCache(**{f: jnp.asarray(z[f]) for f in R.CACHE_FIELDS})
+            if "k" in z.files else None,
+            **{f: jnp.asarray(z[f]) if f in z.files else None for f in R.STATE_FIELDS},
             last_tokens=jnp.asarray(z["last_tokens"]),
             decode_steps=jnp.asarray(z["decode_steps"]))
     decode = jax.jit(lambda sp, st, pa: JE.decode_step(sp, st, jcfg, pa, ccfg))
     tokens, logits = [], []
-    for _ in range(R.LONG_STEPS):
+    for _ in range(R.LONG_CELLS[arch][2]):
         st, lg = decode(sp, st, pa)
         tokens.append(np.asarray(st.last_tokens))
         logits.append(np.asarray(lg))
     return {"tokens": np.stack(tokens), "logits": np.stack(logits),
-            "cache": {f: np.asarray(getattr(st.cache, f))
-                      for f in ("k", "v", "lengths", "pos", "positions")}}
+            "cache": None if st.cache is None else {
+                f: np.asarray(getattr(st.cache, f)) for f in R.CACHE_FIELDS},
+            "state": {f: np.asarray(getattr(st, f)) for f in R.STATE_FIELDS
+                      if getattr(st, f) is not None}}
 
 
 def moe_arrays() -> dict:
@@ -197,7 +234,29 @@ def moe_arrays() -> dict:
 # ---------------------------------------------------------------------------
 
 
+def _cut(whole: np.ndarray, spec, got: dict, model: int, data: int) -> np.ndarray:
+    """The slice of ``whole`` a rank (``got``'s ``model_idx`` / ``data_idx``)
+    holds under ``spec``."""
+    idx = []
+    for n, phys in zip(whole.shape, spec):
+        names = () if phys is None else (phys,) if isinstance(phys, str) else tuple(phys)
+        size, i = (model, got["model_idx"]) if "model" in names else (
+            (data, got["data_idx"]) if names else (1, 0))
+        idx.append(slice(i * (n // size), (i + 1) * (n // size)))
+    return whole[tuple(idx)]
+
+
 def check_case(ranks: list, want: dict, case, model: int, data: int) -> None:
+    """A case of the cell step on every rank against the reference's run:
+    tokens and lengths equal, logits (the ranks' vocab columns put
+    together), the cache corner and each state shard (``ssm_state``,
+    ``conv_state``, ``cross_k`` / ``cross_v``, cut as the state's specs
+    lay them out) within 1e-4, and one decode step's collectives: the dense
+    and MoE archs' below, the family archs' the dry run's derived count
+    (`repro_torch.launch.dryrun.decode_contract`) with nothing over
+    ``data`` at prefill."""
+    from repro_torch.launch import dryrun
+
     arch, wide, int8, weights_2d = case
     cfg = R.tp_model(configs, arch, wide)
     n_v = cfg.padded_vocab // model
@@ -211,14 +270,25 @@ def check_case(ranks: list, want: dict, case, model: int, data: int) -> None:
         assert np.array_equal(got["lengths"], want["lengths"][..., r])
         logits[:, r, v] = np.stack(got["logits"])
         c, w = got["cache"], want["cache"]
-        for f in ("lengths", "pos"):
-            assert np.array_equal(c[f], w[f][:, s, r]), f
-        assert np.array_equal(c["positions"], w["positions"][r])
-        for f in ("k", "v"):
-            np.testing.assert_allclose(c[f], w[f][:, s, r], rtol=TOL, atol=TOL)
+        assert (c is None) == (w is None) == cfg.attention_free
+        if c is not None:
+            for f in ("lengths", "pos"):
+                assert np.array_equal(c[f], w[f][:, s, r]), f
+            assert np.array_equal(c["positions"], w["positions"][r])
+            for f in ("k", "v"):
+                np.testing.assert_allclose(c[f], w[f][:, s, r], rtol=TOL, atol=TOL)
+        assert set(got["state"]) == set(want["state"])
+        for f, (x, spec) in got["state"].items():
+            np.testing.assert_allclose(x, _cut(want["state"][f], spec, got, model, data),
+                                       rtol=TOL, atol=TOL, err_msg=f)
+        coll = got["collectives"]
+        if arch in FAMILY_ARCHS:
+            held = dryrun.decode_contract(coll, cfg, rows_per, model, data)
+            assert all(held.values()), (held, coll)
+            assert "data" not in got["prefill_collectives"]
+            continue
         # the decode contract; MoE gathers its router's columns over model
         # and its expert counts over data (when the rows split) each layer
-        coll = got["collectives"]
         moe = cfg.moe.num_experts > 0
         ar, ag = coll["model"]["all_reduce"], coll["model"]["all_gather"]
         assert ar["calls"] == 2 * L + 1 and ar["elements"] == ar["calls"] * rows_per * cfg.d_model
@@ -239,37 +309,54 @@ def check_case(ranks: list, want: dict, case, model: int, data: int) -> None:
     np.testing.assert_allclose(logits, want["logits"], rtol=TOL, atol=TOL)
 
 
-def check_long(ranks: list, want: dict, model: int, data: int) -> None:
-    """The long cell's split-S step on every rank against the reference's
+def check_long(ranks: list, want: dict, model: int, data: int,
+               arch: str = R.LONG_ARCH) -> None:
+    """``arch``'s long cell step on every rank against the reference's
     decode steps: tokens and lengths equal, logits (the ranks' vocab
-    columns put together) and the cache (the ranks' slots and columns put
-    together) within 1e-4, positions equal, every rank's tokens the same;
-    per step over ``model`` the dense contract and over ``data`` one
-    all-gather a layer when the columns split (``data`` > 1), else none."""
-    cfg = R.tp_model(configs, R.LONG_ARCH, False)
+    columns put together), the cache (the ranks' slots and columns put
+    together) and the recurrent state shards within 1e-4, positions equal,
+    every rank's tokens the same; per step the derived collectives
+    (`repro_torch.launch.dryrun.decode_contract`): for gemma2 over
+    ``model`` the dense contract and over ``data`` one all-gather a layer
+    when the columns split (``data`` > 1), else none."""
+    from repro_torch.launch import dryrun
+
+    cfg = configs.get_smoke_config(arch)
     L, n_v = cfg.n_layers, cfg.padded_vocab // model
     logits = np.full(want["logits"].shape, np.nan, np.float32)
-    cache = {f: np.full(w.shape, np.nan if f in ("k", "v") else -7, w.dtype)
-             for f, w in want["cache"].items() if f in ("k", "v", "pos")}
+    cache = None if want["cache"] is None else {
+        f: np.full(w.shape, np.nan if f in ("k", "v") else -7, w.dtype)
+        for f, w in want["cache"].items() if f in ("k", "v", "pos")}
     for got in ranks:
         s, c = slice(*got["slots"]), slice(*got["cols"])
         v = slice(got["model_idx"] * n_v, (got["model_idx"] + 1) * n_v)
         assert np.array_equal(np.stack(got["tokens"]), want["tokens"])
         logits[:, :, v] = np.stack(got["logits"])
-        for f in cache:
-            cache[f][:, s, :, c] = got["cache"][f]
-        assert np.array_equal(got["cache"]["lengths"], want["cache"]["lengths"][:, s])
-        assert np.array_equal(got["cache"]["positions"], want["cache"]["positions"])
+        assert (got["cache"] is None) == (cache is None)
+        if cache is not None:
+            for f in cache:
+                cache[f][:, s, :, c] = got["cache"][f]
+            assert np.array_equal(got["cache"]["lengths"], want["cache"]["lengths"][:, s])
+            assert np.array_equal(got["cache"]["positions"], want["cache"]["positions"])
+        assert set(got["state"]) == set(want["state"])
+        for f, (x, spec) in got["state"].items():
+            np.testing.assert_allclose(x, _cut(want["state"][f], spec, got, model, data),
+                                       rtol=TOL, atol=TOL, err_msg=f)
         coll = got["collectives"]
-        ar, ag = coll["model"]["all_reduce"], coll["model"]["all_gather"]
-        assert ar["calls"] == 2 * L + 1 and ag["calls"] == 1
-        if data > 1:
-            assert set(coll["data"]) == {"all_gather"}
-            assert coll["data"]["all_gather"]["calls"] == L
-        else:
-            assert "data" not in coll
-    assert (want["cache"]["lengths"] == want["cache"]["k"].shape[3]).any()  # at capacity
+        held = dryrun.decode_contract(coll, cfg, 1, model, data, split_s=True)
+        assert all(held.values()), (held, coll)
+        if arch == R.LONG_ARCH:
+            ar, ag = coll["model"]["all_reduce"], coll["model"]["all_gather"]
+            assert ar["calls"] == 2 * L + 1 and ag["calls"] == 1
+            if data > 1:
+                assert set(coll["data"]) == {"all_gather"}
+                assert coll["data"]["all_gather"]["calls"] == L
+            else:
+                assert "data" not in coll
     np.testing.assert_allclose(logits, want["logits"], rtol=TOL, atol=TOL)
+    if cache is None:
+        return
+    assert (want["cache"]["lengths"] == want["cache"]["k"].shape[3]).any()  # at capacity
     assert np.array_equal(cache["pos"], want["cache"]["pos"])
     for f in ("k", "v"):
         np.testing.assert_allclose(cache[f], want["cache"][f], rtol=TOL, atol=TOL)
@@ -467,24 +554,224 @@ def test_layers_on_shards_sum_to_the_whole(int8):
 
 
 def test_cell_step_refuses_other_cells():
-    """`build_cell(...).fn` refuses the cells A.15–A.16 cover, naming the
-    item (the train step; the SSM, hybrid, encoder-decoder and VLM
-    families, long_500k included), and a cell built for axis sizes only."""
+    """`build_cell(...).fn` refuses the cells A.15 covers (the train step),
+    for archs of every family, naming the item, and a cell built for axis
+    sizes only; `serve_step` refuses a family the port has no step for."""
     from repro_torch.distributed import step_stats
 
     axes = {"data": 2, "model": 4}
     with step_stats.fake_tensors():
-        for arch, shape, item in (("granite-3-2b", "train_4k", "A.15"),
-                                  ("hymba-1.5b", "long_500k", "A.16"),
-                                  ("mamba2-1.3b", "long_500k", "A.16"),
-                                  ("whisper-small", "decode_32k", "A.16"),
-                                  ("llava-next-34b", "prefill_32k", "A.16"),
-                                  ("mamba2-1.3b", "prefill_32k", "A.16")):
-            cell = specs.build_cell(get_config(arch), SHAPES[shape], axes)
-            with pytest.raises(NotImplementedError, match=item):
+        for arch in ("granite-3-2b", "qwen3-moe-30b-a3b", "mamba2-1.3b", "hymba-1.5b",
+                     "whisper-small", "llava-next-34b"):
+            cell = specs.build_cell(get_config(arch), SHAPES["train_4k"], axes)
+            with pytest.raises(NotImplementedError, match="A.15"):
                 cell.fn(*cell.args)
-        cell = specs.build_cell(get_config("granite-3-2b"), SHAPES["decode_32k"], axes)
-        with pytest.raises(NotImplementedError, match="axis sizes"):
-            cell.fn(*cell.args)
-    with pytest.raises(NotImplementedError, match="A.16"):
-        specs.serve_step("decode", get_config("mamba2-1.3b"), None, None, None, None, 1, 1)
+        for arch in ("granite-3-2b", "mamba2-1.3b"):
+            cell = specs.build_cell(get_config(arch), SHAPES["decode_32k"], axes)
+            with pytest.raises(NotImplementedError, match="axis sizes"):
+                cell.fn(*cell.args)
+    with pytest.raises(NotImplementedError, match="no serve step"):
+        specs.serve_step("decode", dataclasses.replace(get_config("mamba2-1.3b"), family="rnn"),
+                         None, None, None, None, 0, 1)
+
+
+# ---------------------------------------------------------------------------
+# the SSD branch and the encoder / cross attention on shards, in-process
+# ---------------------------------------------------------------------------
+
+
+class _ThreadGroup:
+    """``size`` ranks of a group as threads of this process: each collective
+    waits for every rank's part, then sums (in rank order) or concatenates
+    them.  `rank_view` is what one rank's `Mesh` holds."""
+
+    def __init__(self, size: int, name: str = "model"):
+        import threading
+
+        self.size, self.name = size, name
+        self.parts = [None] * size
+        self.barrier = threading.Barrier(size)
+        self.calls = [{"all_reduce": 0, "all_gather": 0} for _ in range(size)]
+
+    def exchange(self, rank: int, x: torch.Tensor, kind: str) -> list:
+        self.calls[rank][kind] += 1
+        self.parts[rank] = x.clone()
+        self.barrier.wait()
+        out = list(self.parts)
+        self.barrier.wait()
+        return out
+
+    def rank_view(self, rank: int):
+        return dataclasses.replace(Group(None, self.name, self.size, rank, "gloo"), pg=(self, rank))
+
+
+def _thread_comm(monkeypatch):
+    """`comm`'s collectives over `_ThreadGroup` ranks (counted per rank in
+    the group's ``calls``)."""
+    from repro_torch.distributed import comm
+
+    def all_reduce_sum(x, group):
+        g, r = group.pg
+        parts = g.exchange(r, x, "all_reduce")
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p
+        return x.copy_(total)
+
+    def all_gather(x, group, dim=0):
+        g, r = group.pg
+        return torch.cat(g.exchange(r, x.contiguous(), "all_gather"), dim=dim)
+
+    monkeypatch.setattr(comm, "all_reduce_sum", all_reduce_sum)
+    monkeypatch.setattr(comm, "all_gather", all_gather)
+
+
+def _run_ranks(n: int, fn) -> list:
+    """``fn(mesh)`` on ``n`` thread ranks of a (data 1, model ``n``) mesh:
+    each rank's (result, its collectives' calls by kind)."""
+    import threading
+
+    g = _ThreadGroup(n)
+    out, errors = [None] * n, []
+
+    def run(r):
+        mesh = Mesh(rank=r, world=n, model=n, data=1, model_idx=r, data_idx=0,
+                    model_group=g.rank_view(r), data_group=Group(None, "data", 1, 0, "gloo"),
+                    device=torch.device("cpu"), backend="gloo")
+        try:
+            with torch.inference_mode():
+                out[r] = fn(mesh)
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+            g.barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(r,)) for r in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return list(zip(out, g.calls))
+
+
+def _ssm_layer(arch: str):
+    """The smoke config and one SSD layer's weights (fp32, seed 0), its
+    decay, skip, dt-bias and norm vectors drawn non-zero."""
+    from repro_torch.models.transformer import _ssm_params
+
+    cfg = configs.get_smoke_config(arch)
+    g = torch.Generator().manual_seed(0)
+    pl = _ssm_params(cfg, g, torch.float32, "cpu")
+    for key, (scale, off) in {"A_log": (0.5, 0.0), "dt_bias": (0.5, 0.0), "ssm_D": (0.5, 1.0),
+                              "ssm_norm": (0.3, 0.0)}.items():
+        pl[key] = scale * torch.randn(pl[key].shape, generator=g) + off
+    return cfg, pl
+
+
+@pytest.mark.parametrize("arch,n", [("mamba2-1.3b", 4), ("hymba-1.5b", 4)],
+                         ids=["mamba2-all-split", "hymba-proj-and-heads-whole"])
+def test_ssd_on_shards_sums_to_the_whole(monkeypatch, arch, n):
+    """The SSD branch on ``n`` thread ranks under ``serve_rules`` (model
+    ``n``) against the whole branch: the full-sequence block (prefill) and
+    two decode steps, outputs within 1e-5 on every rank, each rank's conv
+    window and SSD state bitwise the whole's slices at prefill, within 1e-5
+    after the steps.  mamba2's smoke split cuts every dim (in_proj's 84
+    columns 21 a rank across the z | xBC | dt boundaries, the conv's 48
+    channels, 32 out_proj rows, 4 heads); hymba's keeps in_proj's 93
+    columns and its 5 heads whole and cuts the conv and out_proj."""
+    from repro_torch.distributed.sharding import step_shards
+    from repro_torch.models import transformer as M
+
+    _thread_comm(monkeypatch)
+    cfg, pl = _ssm_layer(arch)
+    s = cfg.ssm
+    g = torch.Generator().manual_seed(1)
+    h = torch.randn((2, 11, cfg.d_model), generator=g)
+    steps = [torch.randn((2, 1, cfg.d_model), generator=g) for _ in range(2)]
+    rules = serve_rules({"data": 1, "model": n})
+    proj = 2 * s.d_inner + 2 * s.n_groups * s.state_size + s.num_heads
+    assert (proj % n == 0, s.num_heads % n == 0) == ((True, True) if arch.startswith("mamba2")
+                                                     else (False, False))
+
+    def branch(shards, p):
+        out, (cs, ss) = M.ssm_block_full(p, h, cfg, shards=shards)
+        state = E.ServeState(cache=None, last_tokens=None, decode_steps=0,
+                             ssm_state=ss[None].clone(), conv_state=cs[None].clone())
+        outs = [out]
+        for x in steps:
+            outs.append(E._decode_ssm(p, x, cfg, 0, state, shards))
+        return outs, (cs, ss), (state.conv_state[0], state.ssm_state[0])
+
+    with torch.inference_mode():
+        want, want_pre, want_end = branch(None, pl)
+
+    def rank(mesh):
+        sp = local_shard(pl, tree_specs(pl, rules, "serve"), mesh)
+        shards = step_shards(rules, mesh, vocab=cfg.padded_vocab, ff=cfg.d_ff,
+                             d_model=cfg.d_model, n_slots=0, batch=2, ssm=s)
+        return branch(shards, sp), shards
+
+    for (got, shards), calls in _run_ranks(n, rank):
+        for a, b in zip(got[0], want):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+        c, hd = shards.ssm_conv, shards.ssm_heads
+        for (cs, ss), (wcs, wss), exact in ((got[1], want_pre, True), (got[2], want_end, False)):
+            nc = wcs.shape[-1] // c.size
+            nh = wss.shape[1] // hd.size
+            wcs = wcs[..., c.offset(nc):c.offset(nc) + nc]
+            wss = wss[:, hd.offset(nh):hd.offset(nh) + nh]
+            if exact:
+                assert torch.equal(cs, wcs)
+            torch.testing.assert_close(cs, wcs, rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(ss, wss, rtol=1e-5, atol=1e-5)
+        # per call: in_proj's and the conv's gathers where they split, the
+        # norm's Σ where the heads split, out_proj's all-reduce
+        split_proj, split_heads = proj % n == 0, s.num_heads % n == 0
+        assert calls == {"all_gather": 3 * (1 + split_proj), "all_reduce": 3 * (1 + split_heads)}
+
+
+def test_encoder_and_cross_attention_on_shards_sum_to_the_whole(monkeypatch):
+    """whisper's smoke encoder, cross K / V and cross attention with G = 2
+    (4 query heads, 2 K / V heads) on thread ranks against the whole: at
+    model 2 both head dims split, at model 4 the query heads split and the
+    K / V heads stay whole (each rank takes its query heads' K / V heads);
+    outputs within 1e-5, each rank's cross K / V its heads' slice."""
+    from repro_torch.distributed.sharding import step_shards
+    from repro_torch.models import transformer as M
+
+    _thread_comm(monkeypatch)
+    cfg = dataclasses.replace(configs.get_smoke_config("whisper-small"), n_kv_heads=2)
+    params = M.init_params(cfg, 0, torch.float32, "cpu")
+    g = torch.Generator().manual_seed(2)
+    frames = 0.5 * torch.randn((2, cfg.encoder_seq_len, cfg.d_model), generator=g)
+    hq = torch.randn((2, 3, cfg.d_model), generator=g)
+
+    def run(shards, p):
+        enc = M.encode(p, frames, cfg, shards)
+        kvs = M.encoder_cross_kv(p, enc, cfg, shards)
+        return enc, kvs, M.cross_attn_block(p["layers"][0], hq, kvs[0], cfg, shards)
+
+    with torch.inference_mode():
+        want = run(None, params)
+    for n in (2, 4):
+        rules = serve_rules({"data": 1, "model": n})
+
+        def rank(mesh):
+            p = local_shard(params, tree_specs(params, rules, "serve"), mesh)
+            shards = step_shards(rules, mesh, vocab=cfg.padded_vocab, ff=cfg.d_ff,
+                                 d_model=cfg.d_model, n_slots=0, batch=2, heads=cfg.n_heads,
+                                 kv_heads=cfg.n_kv_heads)
+            return run(shards, p), shards
+
+        for ((enc, kvs, out), shards), _ in _run_ranks(n, rank):
+            assert shards.heads.size == n and shards.kv_heads.size == (n if n == 2 else 1)
+            torch.testing.assert_close(enc, want[0], rtol=1e-5, atol=1e-5)
+            torch.testing.assert_close(out, want[2], rtol=1e-5, atol=1e-5)
+            kv = shards.kv_heads
+            nk = cfg.n_kv_heads // kv.size
+            for (k, v), (wk, wv) in zip(kvs, want[1]):
+                torch.testing.assert_close(k, wk[:, :, kv.offset(nk):kv.offset(nk) + nk],
+                                           rtol=1e-5, atol=1e-5)
+                torch.testing.assert_close(v, wv[:, :, kv.offset(nk):kv.offset(nk) + nk],
+                                           rtol=1e-5, atol=1e-5)
