@@ -336,7 +336,27 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    and prefill_32k of the four archs, hymba's and mamba2's long_500k, from
    a subprocess started after the build): each executed its step and held
    its derived collectives;
-23. last line: {"ok": true, "device": {...}}.
+23. (after phase 22) the dense train cells' step
+   (`repro_torch.launch.specs.train_step`: `train_step` on a rank's shards
+   under ``train_rules``), TF32 off: (a) granite-3-2b at full width cut to
+   4 of 40 layers, bf16 params, fp32 master / mu / nu, B 2 x 4096 (the
+   flash path), seed-0 weights, two `SyntheticLM` steps at lr 1e-3, remat:
+   the cell step on one NCCL rank (mesh (1, 1)) against the local
+   `make_train_step`, both under deterministic algorithms: every metric
+   of every step and every param and master / mu / nu leaf bitwise, the
+   per-step collectives those `dryrun.train_collectives` derives at (1, 1)
+   (none), both eager step times; (b) the same at 2 layers in fp32, B 2 x
+   2048, on two gloo ranks sharing the card at (data 1, model 2) and
+   (data 2, model 1), beside (a): each step's loss, xent, grad norm and lr
+   within 1e-4 (relative) of the local fp32 step's, each rank's param,
+   master, mu and nu shards within 1e-4 of the local result's slice, its
+   first step's ``max_memory_allocated`` within 5% of the fake-tensor
+   prediction, the derived collectives; (c) the eight dense train_4k
+   records (the four dense archs on both production meshes, from two
+   subprocesses started after the build): each executed its step, held
+   its derived collectives and fits; prints argument / temp / peak GB a
+   rank;
+24. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -6261,6 +6281,349 @@ def p22_runs(rows, refs, dry):
         f"{ {a: r['launches'] for a, r in lb.items()} }, (c) gloo rank 0 {lc}")
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the dense train cells' sharded train step
+# ---------------------------------------------------------------------------
+
+P23_ARCH = "granite-3-2b"
+# (a) one NCCL rank: bf16 params, fp32 master / mu / nu, B 2 x 4096 (past
+# flash_threshold: the flash path and its recomputing backward), 4 of the
+# 40 layers; (b) two gloo ranks sharing the card: fp32, B 2 x 2048, 2
+# layers, at (data 1, model 2) and (data 2, model 1)
+P23_A = dict(layers=4, B=2, T=4096, steps=2)
+P23_B = dict(layers=2, B=2, T=2048, steps=2)
+P23_LAYOUTS = ((1, 2), (2, 1))  # (data, model)
+# lr 1e-3: at 1e-2 Adam's first update lr·g/(|g| + eps) turns the fp32
+# rounding of a gradient near eps into steps past the 1e-4 bar, whatever
+# the order of the sums (the single-process step against the JAX package's
+# misses it at 1e-2 too)
+P23_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3)
+P23_TOL = 1e-4  # (b): metrics relative; shards rtol = atol
+P23_DENSE = ("minitron-8b", "gemma2-9b", "granite-3-2b", "qwen1.5-110b")
+P23_DRY = ROOT / "chiprun_out" / "dryrun_p23"
+P23_METRICS = ("loss", "xent", "aux", "grad_norm", "lr")
+
+
+def p23_config(layers):
+    """granite-3-2b at full width cut to ``layers`` layers."""
+    from repro_torch.configs import get_config
+    return get_config(P23_ARCH).with_overrides(n_layers=layers)
+
+
+def p23_batches(cfg, c):
+    """``c["steps"]`` `SyntheticLM` batches of ``c["B"]`` x ``c["T"]`` (numpy)."""
+    from repro_torch.configs import InputShape
+    from repro_torch.training import SyntheticLM
+    data = SyntheticLM(cfg, InputShape("chip_smoke", c["T"], c["B"], "train"))
+    return [data.get_batch(s) for s in range(c["steps"])]
+
+
+def p23_run(step, params, opt, batches, device, shard_batch=None):
+    """``step`` over ``batches`` from (params, opt): the final (params, opt),
+    each step's metrics (on the card), host-clocked seconds and
+    collectives.  ``shard_batch`` cuts a batch to the rank's rows."""
+    import torch
+    from repro_torch.distributed import comm
+    from repro_torch.launch.train import device_batch
+    mets, times, colls = [], [], []
+    for b in batches:
+        batch = device_batch(b, device)
+        if shard_batch is not None:
+            batch = shard_batch(batch)
+        torch.cuda.synchronize()
+        before = comm.snapshot()
+        t = time.perf_counter()
+        params, opt, met = step(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        colls.append(comm.by_kind(comm.since(before)))
+        mets.append(met)
+    return params, opt, mets, times, colls
+
+
+def p23_nccl():
+    """(a): the cell step (`launch.specs.train_step`) on one NCCL rank (mesh
+    (1, 1)) against the local `make_train_step` from the same seed-0
+    weights and batches, both under deterministic algorithms: every
+    metric of every step and every param and master / mu / nu leaf after
+    the steps bitwise; the per-step collectives those `train_collectives`
+    derives at (1, 1) (a group of one issues nothing).  Prints both
+    steps' host-clocked times."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.param_specs import tree_specs
+    from repro_torch.distributed.sharding import train_rules
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import init_params
+    from repro_torch.training import OptimizerConfig, init_optimizer, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+    c = P23_A
+    cfg = p23_config(c["layers"])
+    batches = p23_batches(cfg, c)
+    ocfg = OptimizerConfig(**P23_OPT)
+
+    def fresh():
+        params = init_params(cfg, SEED, torch.bfloat16, "cuda", max_seq_len=c["T"])
+        return params, init_optimizer(params)
+
+    # the embedding's backward accumulates with atomics unless the
+    # algorithms are deterministic
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        local = p23_run(make_train_step(cfg, ocfg, remat=True), *fresh(), batches, "cuda")
+        dist.init_process_group("nccl", init_method=f"file://{tempfile.mkdtemp()}/rendezvous",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_host_mesh(model=1, data=1)
+            rules = train_rules(mesh)
+            params, opt = fresh()
+            fn = specs.train_step(cfg, mesh, rules, tree_specs(params, rules, "train"), c["B"],
+                                  c["T"], ocfg)
+            cell = p23_run(fn, params, opt, batches, "cuda")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG")
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+    differ = [f"step {i + 1} {k}" for i, (a, b) in enumerate(zip(local[2], cell[2]))
+              for k in P23_METRICS if not torch.equal(a[k], b[k])]
+    for what, a, b in (("params", local[0], cell[0]), ("optimizer state", local[1], cell[1])):
+        la, lb = tree_leaves(a), tree_leaves(b)
+        n = sum(not torch.equal(x, y) for x, y in zip(la, lb))
+        if n or len(la) != len(lb):
+            differ.append(f"{n} of {len(la)} {what} leaves")
+    held = [dryrun.train_contract(g, cfg, c["B"], c["T"], 1, 1, 1) for g in cell[4]]
+    if differ or not all(all(h.values()) for h in held):
+        fail(f"[p23] (a) the cell step on one NCCL rank is not bitwise the local step: "
+             f"{differ}; collectives {cell[4]} against the derived {held}")
+    mets = [{k: float(v) for k, v in m.items()} for m in cell[2]]
+    log(f"[p23] (a) {cfg.name} ({c['layers']} of 40 layers, full width, bf16 params, fp32 "
+        f"master / mu / nu, B {c['B']} x {c['T']}, remat) on one NCCL rank: {c['steps']} cell "
+        f"steps bitwise the local make_train_step (every metric, "
+        f"{len(tree_leaves(cell[0]))} param and {len(tree_leaves(cell[1]))} optimizer leaves); "
+        f"collectives per step {cell[4][0]} = train_collectives at (1, 1); metrics {mets}; "
+        f"eager step s (host clock): cell {[round(t, 4) for t in cell[3]]}, local "
+        f"{[round(t, 4) for t in local[3]]}")
+    return {"cell_s": cell[3], "local_s": local[3]}
+
+
+def _autograd_workspace(device) -> None:
+    """One product's backward in each dtype the step uses, so that the
+    workspace cuBLAS allocates for the backward's thread exists before a
+    step's memory is measured (as `_cublas_workspace` for the forward)."""
+    import torch
+    for dt in (torch.bfloat16, torch.float32):
+        w = torch.ones((64, 64), dtype=dt, device=device, requires_grad=True)
+        (torch.ones((8, 64), dtype=dt, device=device) @ w).sum().backward()
+    torch.cuda.synchronize()
+
+
+def p23_shards(mesh, cfg, c, device, init_device=None):
+    """The cell's arguments on ``mesh``'s rank: its shards of the seed-0 fp32
+    weights (built whole on ``init_device``, default ``device``), a fresh
+    optimizer state, the step, the params' specs and the rows' cut."""
+    import torch
+    from repro_torch.distributed.param_specs import local_shard, tree_specs
+    from repro_torch.distributed.sharding import train_rules
+    from repro_torch.launch import specs
+    from repro_torch.models import init_params
+    from repro_torch.training import OptimizerConfig, init_optimizer
+    from repro_torch.training.optimizer import tree_map
+    rules = train_rules(mesh)
+    whole = init_params(cfg, SEED, torch.float32, init_device or device, max_seq_len=c["T"])
+    spec = tree_specs(whole, rules, "train")
+    params = tree_map(lambda x: x.to(device), local_shard(whole, spec, mesh))
+    del whole
+    fn = specs.train_step(cfg, mesh, rules, spec, c["B"], c["T"], OptimizerConfig(**P23_OPT))
+    bspec = {"tokens": (rules.guarded(c["B"], "batch"), None)}
+    return {"params": params, "opt": init_optimizer(params), "fn": fn, "spec": spec,
+            "rows": lambda b: local_shard(b, bspec, mesh)}
+
+
+def p23_prediction(data, model):
+    """(b)'s predicted peak at (``data``, ``model``): the first cell step
+    on fake tensors on a fake mesh of that layout, rank 0's (the ranks'
+    shapes are the same); a train cell's fake tensors live on the host
+    (`dryrun.TRAIN_FAKE_DEVICE`)."""
+    from repro_torch.distributed import step_stats
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_process_group, make_production_mesh
+    from repro_torch.launch.train import device_batch
+    c = P23_B
+    cfg = p23_config(c["layers"])
+    batch = p23_batches(cfg, dict(c, steps=1))[0]
+    dev = dryrun.TRAIN_FAKE_DEVICE
+    with fake_process_group(data * model), step_stats.fake_tensors():
+        mesh = make_production_mesh(model=model, data=data, device=dev)
+        a = p23_shards(mesh, cfg, c, dev)
+        b = a["rows"](device_batch(batch, dev))
+        _, st = step_stats.measure(a["fn"], (a["params"], a["opt"], b), a["params"], a["opt"], b)
+    return st.peak_bytes
+
+
+def p23_gloo_rank(mesh, args):
+    """One gloo rank of (b): the cell steps on its shards, the first step's
+    ``max_memory_allocated`` above the memory before its arguments and
+    the collectives, then the local fp32 `make_train_step` on the whole
+    tree on this rank's card, and the worst gap of each of the rank's
+    param, master, mu and nu shards to the local result's slice, as a
+    share of ``P23_TOL`` + ``P23_TOL`` |local|."""
+    import torch
+    from repro_torch.distributed.param_specs import local_shard
+    from repro_torch.models import init_params
+    from repro_torch.training import OptimizerConfig, init_optimizer, make_train_step
+    from repro_torch.training.optimizer import tree_leaves
+    if mesh.rank:
+        sys.stdout = open(os.devnull, "w")  # rank 0 logs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _cublas_workspace(mesh.device)
+    _autograd_workspace(mesh.device)
+    c = P23_B
+    cfg = p23_config(c["layers"])
+    batches = p23_batches(cfg, c)
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    a = p23_shards(mesh, cfg, c, mesh.device)
+    peak = {}
+
+    def first_step_peak(params, opt, batch):
+        if not peak:
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        out = a["fn"](params, opt, batch)
+        if not peak:
+            torch.cuda.synchronize()
+            peak["step"] = torch.cuda.max_memory_allocated() - base
+        return out
+
+    params, opt, mets, times, colls = p23_run(first_step_peak, a["params"], a["opt"], batches,
+                                              mesh.device, a["rows"])
+    a = dict(a, params=None, opt=None)
+    whole = init_params(cfg, SEED, torch.float32, mesh.device, max_seq_len=c["T"])
+    lp, lo, lmets, _, _ = p23_run(make_train_step(cfg, OptimizerConfig(**P23_OPT)), whole,
+                                  init_optimizer(whole), batches, mesh.device)
+    gaps = {}
+    for name, mine, ref in (("params", params, lp), ("master", opt.master, lo.master),
+                            ("mu", opt.mu, lo.mu), ("nu", opt.nu, lo.nu)):
+        cut = local_shard(ref, a["spec"], mesh)
+        gaps[name] = max(float(((x - y).abs() / (P23_TOL + P23_TOL * y.abs())).max())
+                         for x, y in zip(tree_leaves(mine), tree_leaves(cut)))
+    return {"mets": [{k: float(v) for k, v in m.items()} for m in mets],
+            "local_mets": [{k: float(v) for k, v in m.items()} for m in lmets],
+            "gaps": gaps, "peak": peak["step"], "collectives": colls[0], "step_s": times,
+            "rank": (mesh.data_idx, mesh.model_idx)}
+
+
+def p23_gloo_check(data, model, ranks, predicted):
+    """(b)'s bars at one layout: every step's loss, xent and grad norm (and
+    lr) within ``P23_TOL`` relative of the local fp32 step's, every shard
+    within ``P23_TOL`` of the local result's slice, each rank's peak within
+    `P21_PEAK_TOL` of the prediction, and the derived collectives."""
+    from repro_torch.launch import dryrun
+    c = P23_B
+    cfg = p23_config(c["layers"])
+    problems = []
+    for r, got in enumerate(ranks):
+        rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
+                  for a, b in zip(got["mets"], got["local_mets"])
+                  for k in ("loss", "xent", "grad_norm", "lr"))
+        off = abs(predicted - got["peak"]) / got["peak"]
+        held = dryrun.train_contract(got["collectives"], cfg, c["B"] // data, c["T"], model,
+                                     data, 1)
+        if not rel <= P23_TOL:
+            problems.append(f"rank {r}: metrics {rel:.3e} off the local step's (relative)")
+        problems += [f"rank {r} {k}: {g:.3f} of the bar" for k, g in got["gaps"].items()
+                     if not g <= 1.0]
+        if off > P21_PEAK_TOL:
+            problems.append(f"rank {r}: peak {got['peak']} B, predicted {predicted} B "
+                            f"({100 * off:.1f}% off)")
+        if not all(held.values()):
+            problems.append(f"rank {r}: collectives {got['collectives']} break {held}")
+        log(f"[p23] (b) (data {data}, model {model}) gloo rank {r} {got['rank']}: metrics "
+            f"within {rel:.2e} (relative) of the local fp32 step's, shards' worst gap "
+            f"{ {k: round(g, 4) for k, g in got['gaps'].items()} } of the {P23_TOL:g} bar; "
+            f"first step peak {got['peak']} B, predicted {predicted} B ({100 * off:.2f}%); "
+            f"steps {[round(t, 3) for t in got['step_s']]} s (host clock); per step "
+            f"{got['collectives']}")
+    log(f"[p23] (b) (data {data}, model {model}): losses "
+        f"{[round(m['loss'], 5) for m in ranks[0]['mets']]}, local "
+        f"{[round(m['loss'], 5) for m in ranks[0]['local_mets']]}")
+    if problems:
+        fail(f"[p23] (b) (data {data}, model {model}): " + "; ".join(problems))
+
+
+def p23_dryrun_start():
+    """Start the dry run of the dense archs' train_4k cells, one subprocess
+    a production mesh (host only, two threads each); returns them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for multi in (False, True):
+        code = ("import sys, torch; torch.set_num_threads(2); "
+                "from repro_torch.launch import dryrun as d; "
+                f"a = d.sweep({list(P23_DENSE)!r}, ['train_4k'], [{multi}], 'fairkv_dp', "
+                f"{str(P23_DRY)!r}, dev_bytes=d.H100_BYTES); "
+                "sys.exit(a['counts']['fail'] + a['counts']['args_only'])")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    return procs
+
+
+def p23_dryrun(procs):
+    """(c): the eight dense train records: each executed the cell step,
+    held its derived collectives and fits; prints argument, temp and peak
+    GB a rank."""
+    for proc in procs:
+        out, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            fail(f"[p23] (c) the dry run of the train cells failed:\n{out[-3000:]}")
+    for mesh in ("single", "multi"):
+        for arch in P23_DENSE:
+            rec = json.loads((P23_DRY / f"{arch}__train_4k__{mesh}.json").read_text())
+            ex = rec.get("executed")
+            if rec["status"] != "ok" or ex is None or not rec["fits"]:
+                fail(f"[p23] (c) {arch} train_4k {mesh}: {rec['status']}, fits "
+                     f"{rec.get('fits')}")
+            if not all(ex["contract"].values()):
+                fail(f"[p23] (c) {arch} train_4k {mesh}: contract {ex['contract']}")
+            m = ex["memory"]
+            log(f"[p23] (c) {arch} train_4k on the {mesh} mesh: args "
+                f"{m['argument_bytes'] / 1e9:.2f} GB, temp {m['temp_bytes'] / 1e9:.2f} GB, "
+                f"peak {m['peak_bytes'] / 1e9:.2f} GB a rank, fits {rec['fits']} "
+                f"({rec['device_bytes'] / 1e9:.1f} GB); contract held; {ex['step']} in "
+                f"{ex['seconds']} s; collectives {ex['collectives_by_group']}")
+
+
+def p23_runs(dry):
+    """Phase 23: (b)'s predictions, then (a) on one NCCL rank while (b)'s
+    two layouts' gloo ranks run, then (b)'s bars and (c)'s records;
+    prints the seconds."""
+    t0 = time.perf_counter()
+    # the predictions' fake process group and (a)'s NCCL one are this
+    # process's default group in turn, so the predictions go first
+    predicted = {lay: p23_prediction(*lay) for lay in P23_LAYOUTS}
+    joins = {lay: p20_gloo_start({}, rank_fn=p23_gloo_rank, model=lay[1], data=lay[0])
+             for lay in P23_LAYOUTS}
+    t1 = time.perf_counter()
+    p23_nccl()
+    t2 = time.perf_counter()
+    for lay, join in joins.items():
+        p23_gloo_check(*lay, join(), predicted[lay])
+    t3 = time.perf_counter()
+    p23_dryrun(dry)
+    log(f"[p23] phase 23 took {time.perf_counter() - t0:.1f} s (predictions {t1 - t0:.1f} s, "
+        f"(a) {t2 - t1:.1f} s beside (b)'s ranks, (b) after it {t3 - t2:.1f} s)")
+
+
 def main() -> int:
     try:
         import torch
@@ -6289,9 +6652,12 @@ def main() -> int:
     log(f"[card] {card}")
     build_kernels()
     mark("phase 2 (build)")
-    # phase 22 (d)'s fake prefills run on the host from here on
+    # phase 22 (d)'s fake prefills and phase 23 (c)'s fake train steps run on
+    # the host from here on
     dry22 = p22_dryrun_start()
-    atexit.register(lambda: dry22.poll() is None and (dry22.kill(), dry22.wait()))
+    dry23 = p23_dryrun_start()
+    for proc in [dry22] + dry23:
+        atexit.register(lambda p=proc: p.poll() is None and (p.kill(), p.wait()))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     check_decode(gen)
@@ -6382,6 +6748,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     p22_runs(rows, p22_refs, dry22)
     mark("phase 22")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p23_runs(dry23)
+    mark("phase 23")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

@@ -1,9 +1,11 @@
-"""The collectives of the multi-GPU executor, counted.
+"""The collectives of the multi-GPU executor and the cell steps, counted.
 
-Every collective the port issues goes through `all_reduce_sum` or
-`all_gather` here, and each call adds to ``COUNTS`` under its kind
-(``"all_reduce"`` / ``"all_gather"``) and the name of its group
-(``"model"`` / ``"data"``): calls, elements and bytes of the result.  The
+Every collective the port issues goes through `all_reduce_sum`,
+`all_reduce_max`, `all_gather` or `reduce_scatter_sum` here, and each call
+adds to ``COUNTS`` under its kind (``"all_reduce"``, ``"all_gather"``,
+``"reduce_scatter"``) and the name of its group (``"model"``, ``"data"``,
+``"data_in_pod"``, ``"pod"``, ``"world"``): calls, elements and bytes of
+the result (a reduce-scatter's is the rank's shard).  The
 count takes the place of the reference's audit of the compiled decode
 step's HLO (``repro.distributed.hlo_stats``): the decode contract, one
 all-reduce over ``model`` per attention layer (the o-projection) and no
@@ -14,11 +16,22 @@ as it does the kernel launch counters.
 Backends.  NCCL takes the card's tensors, inside a captured graph too.
 gloo runs on the host; it takes CPU tensors, and CUDA tensors (several
 ranks sharing one card, the only multi-rank layout a one-card machine
-allows) for both collectives used here: torch 2.11's gloo (the H100
-machine's) ran ``all_reduce`` and ``all_gather`` on CUDA tensors
-correctly, copying them through host memory itself, so no call stages
-them by hand.  A gloo collective synchronizes the device, so a gloo step
-is never captured.
+allows) for every collective used here: torch 2.11's gloo (the H100
+machine's) ran ``all_reduce`` (sum and max), ``all_gather`` and the list
+form of ``reduce_scatter`` on CUDA tensors correctly, fp32 and bf16,
+copying them through host memory itself, so no call stages them by
+hand.  A gloo collective synchronizes the device, so a gloo step is never
+captured.
+
+The train step differentiates through its collectives with four autograd
+pairs, each call of either direction counted like any other:
+`all_gather_diff` (all-gather forward, reduce-scatter backward: FSDP's
+weight gather and the sequence-parallel gather), `reduce_scatter_diff`
+(reduce-scatter forward, all-gather backward: the MLP's and the
+embedding's partial sums onto the rank's sequence slice),
+`all_reduce_grad` (identity forward, all-reduce backward: the gradient of
+a leaf replicated over a group) and `all_reduce_diff` (all-reduce
+forward, identity backward).
 """
 from __future__ import annotations
 
@@ -74,6 +87,14 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
+def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
+    """The elementwise max of ``x`` over ``group``, in place; returns ``x``
+    (counted as an ``"all_reduce"``)."""
+    _count("all_reduce", group, x)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group.pg)
+    return x
+
+
 def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Concatenate every rank's ``x`` along ``dim`` in group-rank order (all
     ranks pass the same shape); returns a new tensor."""
@@ -83,3 +104,94 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     out = torch.cat(parts, dim=dim)
     _count("all_gather", group, out)
     return out
+
+
+def reduce_scatter_sum(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """The sum of every rank's ``x`` over ``group``, cut along ``dim`` into
+    ``group.size`` equal shards; returns the rank's shard (a new tensor).
+    Counted by its result, the shard, as the reference's statistics count a
+    reduce-scatter (`repro_torch.distributed.step_stats.comm_bytes`)."""
+    n = x.shape[dim]
+    if n % group.size:
+        raise ValueError(f"reduce_scatter_sum: dim {dim} of {n} does not split over "
+                         f"{group.size} ranks of {group.name}")
+    parts = [p.contiguous() for p in x.movedim(dim, 0).chunk(group.size)]
+    out = torch.empty_like(parts[0])
+    dist.reduce_scatter(out, parts, group=group.pg)
+    out = out.movedim(0, dim)
+    _count("reduce_scatter", group, out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Differentiable pairs (the train step's)
+# ---------------------------------------------------------------------------
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_sum(g, ctx.group, ctx.dim), None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter_sum(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _AllReduceGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        return all_reduce_sum(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def all_gather_diff(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """`all_gather` whose backward reduce-scatters the gradient over the same
+    group and dim: each rank's shard gets the sum of every rank's partial
+    gradient of the whole."""
+    return _AllGather.apply(x, group, dim)
+
+
+def reduce_scatter_diff(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
+    """`reduce_scatter_sum` whose backward all-gathers the gradient of the
+    rank's shard over the same group and dim."""
+    return _ReduceScatter.apply(x, group, dim)
+
+
+def all_reduce_grad(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` unchanged (a view) whose gradient is summed over ``group`` in
+    the backward: a tensor replicated over the group whose uses differ per
+    rank."""
+    return _AllReduceGrad.apply(x, group)
+
+
+def all_reduce_diff(x: torch.Tensor, group) -> torch.Tensor:
+    """`all_reduce_sum` (of a copy: ``x`` is left as it is) whose backward
+    passes the gradient through unchanged."""
+    return _AllReduce.apply(x, group)

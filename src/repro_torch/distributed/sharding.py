@@ -12,17 +12,28 @@ each logical axis splits there from `split` and `step_shards`: the group
 it splits over and the rank's offset, so that it hard-codes no axis.
 
 Mesh axes are ``pod``, ``data`` and ``model``.  The port's `Mesh` folds
-``pod`` into its data axis, as the rules' ``batch = ("pod", "data")`` does.
+``pod`` into its data axis, as the rules' ``batch = ("pod", "data")`` does;
+the ``data`` axis alone (``fsdp`` under ``train_rules``) is the rank's
+pod's share of it (`Mesh.fsdp_group`).
+
+The train cells' step (`repro_torch.launch.specs.train_step`) reads its
+splits from `train_shards` (a `TrainShards`): the rows over the folded data
+axis, the residual stream's positions (``seq_act``), ``ff`` and ``vocab``
+over ``model``, the weights' ``fsdp`` dim over ``data``.  A split of one
+rank is no split there: a group of one issues no collective, so one rank
+runs the local step's expressions.  Which groups a parameter's gradient is
+summed over comes from its spec (`replicated_over`).
 """
 from __future__ import annotations
 
 import contextlib
 import threading
 from dataclasses import dataclass, field
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 
+from repro_torch.distributed import comm
 from repro_torch.serving.quant import gather as _gather_weight
 
 MeshAxes = Union[None, str, Tuple[str, ...]]
@@ -127,13 +138,18 @@ def serve_rules(mesh, long_context: bool = False, weights_2d: bool = False) -> S
 
 def mesh_group(mesh, phys: MeshAxes):
     """The `repro_torch.launch.mesh.Group` of ``mesh`` that mesh axes
-    ``phys`` name: ``model``, or the data axis (``data``, and ``("pod",
-    "data")``, which the port's mesh folds into it)."""
+    ``phys`` name: ``model``; ``("pod", "data")``, the data axis the port's
+    mesh folds pods into; ``data``, the rank's pod's share of it (the whole
+    data axis on a mesh of one pod); ``pod``."""
     names = (phys,) if isinstance(phys, str) else tuple(phys)
     if names == ("model",):
         return mesh.model_group
-    if names in (("data",), ("pod", "data")):
+    if names == ("pod", "data"):
         return mesh.data_group
+    if names == ("data",):
+        return mesh.fsdp_group
+    if names == ("pod",) and mesh.pod_group is not None:
+        return mesh.pod_group
     raise ValueError(f"no group of the (data, model) mesh spans mesh axes {phys!r}")
 
 
@@ -195,6 +211,7 @@ class StepShards:
     ssm_heads: Split = Split()
     heads: Split = Split()
     kv_heads: Split = Split()
+    seq: Split = Split()  # the sequence: whole in a serve step
 
     def weight(self, w, dim: int):
         """``w`` (a tensor or `QTensor` shard) whole along its d_model dim
@@ -203,6 +220,16 @@ class StepShards:
         if self.fsdp_w.group is None:
             return w
         return _gather_weight(w, self.fsdp_w.group, dim)
+
+    def sum_ff(self, out: torch.Tensor) -> torch.Tensor:
+        """The MLP's partial output over the rank's ``ff`` columns, summed
+        over the ff group."""
+        return out if self.ff.group is None else comm.all_reduce_sum(out, self.ff.group)
+
+    def sum_vocab(self, rows: torch.Tensor) -> torch.Tensor:
+        """The embedding's rows over the rank's vocab shard (zero rows for
+        the ids it does not hold), summed over the vocab's group."""
+        return rows if self.vocab.group is None else comm.all_reduce_sum(rows, self.vocab.group)
 
     def rows(self, n_local: int, device) -> Optional[torch.Tensor]:
         """The global ids of the rank's ``n_local`` batch rows (None when the
@@ -239,3 +266,110 @@ def step_shards(rules: ShardingRules, mesh, *, vocab: int, ff: int, d_model: int
                       cache_len=opt("cache_len", cache_len),
                       expert=opt("expert", experts), heads=opt("heads", heads),
                       kv_heads=opt("kv_heads", kv_heads), **extra)
+
+
+# ---------------------------------------------------------------------------
+# The train cells' splits
+# ---------------------------------------------------------------------------
+
+
+def _many(s: Split) -> Split:
+    """``s``, or no split when it spans one rank."""
+    return s if s.size > 1 else Split()
+
+
+@dataclass(frozen=True)
+class TrainShards:
+    """The splits the train step needs on one rank under ``train_rules``,
+    each resolved for its own dim and none of one rank (a group of one is
+    no split: the local expressions run and nothing is issued): ``batch``
+    (the rows, over the folded data axis), ``seq`` (``seq_act``: the
+    residual stream's positions between layers, over ``model``), ``fsdp``
+    (every weight's d_model dim, over ``data``), ``ff`` (the MLP's hidden
+    dim) and ``vocab`` (the embedding's and head's rows), both over
+    ``model``.  Attention is sequence-parallel, so ``heads`` never splits.
+    ``mesh`` is the rank's `repro_torch.launch.mesh.Mesh`.  The train
+    step's functions take it as their ``shards`` argument."""
+
+    mesh: Any
+    batch: Split
+    seq: Split
+    fsdp: Split
+    ff: Split
+    vocab: Split
+    heads: Split = Split()
+
+    def weight(self, w: torch.Tensor, dim: int) -> torch.Tensor:
+        """``w`` whole along its d_model dim ``dim``: its ``fsdp`` shards
+        all-gathered over ``data`` for the one product about to read it
+        (the backward reduce-scatters the gradient).  Called inside a
+        layer's remat region, so the gathered weight dies with the layer
+        and the backward's recompute gathers it again."""
+        if self.fsdp.group is None:
+            return w
+        return comm.all_gather_diff(w, self.fsdp.group, dim)
+
+    def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """A (B, T/model, ...) slice of the sequence as the whole (B, T,
+        ...) (the backward reduce-scatters the gradient)."""
+        if self.seq.group is None:
+            return x
+        return comm.all_gather_diff(x, self.seq.group, 1)
+
+    def _scatter_seq(self, x: torch.Tensor, s: Split) -> torch.Tensor:
+        """Partial sums over ``s``'s group of the whole (B, T, ...) sequence,
+        summed onto the rank's slice of it."""
+        if s.group is None:
+            return x
+        return comm.reduce_scatter_diff(x, s.group, 1)
+
+    def sum_ff(self, out: torch.Tensor) -> torch.Tensor:
+        """The MLP's partial output over the rank's ``ff`` columns,
+        reduce-scattered onto its sequence slice (Megatron-SP)."""
+        return self._scatter_seq(out, self.ff)
+
+    def sum_vocab(self, rows: torch.Tensor) -> torch.Tensor:
+        """The embedding's rows over the rank's vocab shard (zero rows for
+        the ids it does not hold), reduce-scattered onto its slice."""
+        return self._scatter_seq(rows, self.vocab)
+
+
+def train_shards(rules: ShardingRules, mesh, *, vocab: int, ff: int, d_model: int, seq: int,
+                 batch: int) -> TrainShards:
+    """`TrainShards` of ``mesh``'s rank for a train step whose global dims
+    are ``vocab`` (padded rows), ``ff``, ``d_model``, ``seq`` (the tokens
+    a row) and ``batch`` (the rows).  Refuses a layout the step does not
+    run: rows the data axis does not divide (every rank must hold rows of
+    its own), or, with more than one ``model`` rank, a sequence, vocab or
+    ff dim that stays whole there."""
+    def need(logical, dim, what):
+        s = _many(split(rules, mesh, logical, dim))
+        n = rules.size(rules.rules.get(logical))
+        if n > 1 and s.group is None:
+            raise ValueError(f"the train step splits {what} ({dim}) over {n} ranks "
+                             f"({logical} -> {rules.rules.get(logical)}); {dim} does not divide")
+        return s
+
+    return TrainShards(mesh=mesh, batch=need("batch", batch, "the batch rows"),
+                       seq=need("seq_act", seq, "the sequence"),
+                       fsdp=_many(split(rules, mesh, "fsdp", d_model)),
+                       ff=need("ff", ff, "the MLP's hidden dim"),
+                       vocab=need("vocab", vocab, "the vocabulary"))
+
+
+def replicated_over(spec: Tuple[MeshAxes, ...], mesh) -> List[Any]:
+    """The groups of ``mesh`` (of more than one rank) over which a leaf laid
+    out by ``spec`` is replicated: ``model`` and ``data`` where no dim of
+    the spec splits over them, and ``pod`` always (no parameter splits
+    over pods).  A gradient is summed over these groups; the groups the
+    spec names sum it through their gathers' backward."""
+    named = set()
+    for phys in spec:
+        if phys is not None:
+            named.update((phys,) if isinstance(phys, str) else phys)
+    out = []
+    for axis, group in (("model", mesh.model_group), ("data", mesh.fsdp_group),
+                        ("pod", mesh.pod_group)):
+        if axis not in named and group is not None and group.size > 1:
+            out.append(group)
+    return out

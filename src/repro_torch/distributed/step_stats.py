@@ -4,8 +4,10 @@ with XLA's ``memory_analysis`` / ``cost_analysis``).
 
 - `MemoryTracker`, a dispatch mode that counts the bytes of the live
   storages per device: every op's outputs, the arguments registered with
-  `MemoryTracker.track_args`, and the scratch a kernel's fake
-  implementation allocates (`repro_torch.kernels.build.note_alloc`).  A
+  `MemoryTracker.track_args`, the scratch a kernel's fake
+  implementation allocates (`repro_torch.kernels.build.note_alloc`), and
+  the scratch some aten ops' CUDA implementations allocate and free inside
+  the op, which no dispatch mode sees (`_SCRATCH`, measured on the H100).  A
   storage leaves the count when its last tensor dies (``weakref.finalize``
   on the storage).  It gives argument, output and temp bytes and the peak,
   on fake tensors and real ones alike.  It also sums the bytes every
@@ -14,8 +16,12 @@ with XLA's ``memory_analysis`` / ``cost_analysis``).
   the port's kernels by their registered formulas.
 - The collectives from `repro_torch.distributed.comm`'s counter, by kind
   and group, with `comm_bytes` the reference's per-device convention (an
-  all-reduce moves 2 x its tensor, an all-gather its output), so records
-  compare with the reference's ``collective_stats``.  The reference counts
+  all-reduce moves 2 x its tensor, an all-gather its output, a
+  reduce-scatter its output, the rank's shard), so records compare with
+  the reference's ``collective_stats``.  For a reduce-scatter this
+  follows the reference's code (``hlo_stats._comm_bytes``, which counts
+  every op but an all-reduce by its result), not its module docstring,
+  which says "reduce-scatter → input bytes".  The reference counts
   a scanned layer's collectives once per loop body and scales by the trip
   count; the port has no scan, so its counts are per-step totals.
 - `fake_tensors`, the fake-tensor mode the dry run runs in.  The
@@ -49,7 +55,7 @@ from repro_torch.kernels import fairkv_decode, paged_fairkv_decode, snapkv_selec
 def comm_bytes(kind: str, result_bytes: int) -> int:
     """Per-device bytes a collective moves, by the reference's convention:
     an all-reduce 2 x its tensor (reduce-scatter + all-gather), an
-    all-gather its output."""
+    all-gather and a reduce-scatter their output (the module docstring)."""
     return 2 * result_bytes if kind == "all_reduce" else result_bytes
 
 
@@ -73,6 +79,20 @@ def _is_view(func) -> bool:
     returns = getattr(func, "_schema", None)
     return returns is not None and any(
         r.alias_info is not None and not r.alias_info.is_write for r in returns.returns)
+
+
+# device scratch an op's CUDA implementation allocates beyond its outputs
+# and frees before it returns (so no dispatch mode sees it), by the op's
+# (args, outputs): what max_memory_allocated rose inside the op over its
+# inputs and outputs on an NVIDIA H100 80GB HBM3 (torch 2.11; phase 23's
+# gloo ranks): the softmax backward's a copy of its result, logsumexp's
+# exp(x - max) of its input.  The list-form all-gather's flat buffer (its
+# gathered bytes on gloo ranks sharing the card) is not counted: it set no
+# measured peak.
+_SCRATCH = {
+    torch.ops.aten._softmax_backward_data.default: lambda args, outs: _nbytes(outs[0]),
+    torch.ops.aten.logsumexp.default: lambda args, outs: _nbytes(args[0]),
+}
 
 
 class MemoryTracker(TorchDispatchMode):
@@ -140,6 +160,10 @@ class MemoryTracker(TorchDispatchMode):
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
         for t in outs:
             self.track(t)
+        scratch = _SCRATCH.get(func)
+        if scratch is not None:
+            dev = str(outs[0].device)
+            self.peak[dev] = max(self.peak[dev], self.current[dev] + scratch(args, outs))
         if outs and not _is_view(func):  # ops that make no tensor move nothing
             self.bytes_read += sum(_nbytes(t) for t in tree_leaves((args, kwargs))
                                    if isinstance(t, torch.Tensor))
@@ -194,7 +218,11 @@ def measure(fn, args_tree: Any, *args, **kwargs):
     """Run ``fn(*args, **kwargs)`` once under a `MemoryTracker` and a FLOP
     counter, ``args_tree`` (the tensors the step reads and keeps) counted as
     its arguments; returns ``(fn's result, StepStats)``.  Peak and temp
-    count from the arguments: peak = argument + output + temp."""
+    count from the arguments: peak = argument + output + temp.  It runs in
+    the caller's grad mode: a train step, measured with grad enabled,
+    counts its saved activations, its gradients and its backward's
+    temporaries (the backward of host tensors runs on the calling thread,
+    under the modes)."""
     before = comm.snapshot()
     with FlopCounterMode(display=False) as fc, MemoryTracker() as mem:
         mem.track_args(args_tree)
@@ -239,11 +267,13 @@ class _MetaGuardedMethods(TorchFunctionMode):
             dev = torch.device(kwargs.pop("device"))
             return self._move(func(*args, **kwargs), dev)
         if func is torch.Tensor.to:
-            x, (dev, dtype) = args[0], _parse_to(args, kwargs)
+            rest = {k: v for k, v in kwargs.items() if k != "copy"}
+            x, (dev, dtype) = args[0], _parse_to(args, rest)
             if not _cuda(x) and (dev is None or dev.type != "cuda"):
                 return func(*args, **kwargs)
             dev, dtype = dev or x.device, dtype or x.dtype
-            return x if (dev, dtype) == (x.device, x.dtype) else self._move(x, dev, dtype)
+            same = (dev, dtype) == (x.device, x.dtype) and not kwargs.get("copy", False)
+            return x if same else self._move(x, dev, dtype)
         if func not in _GUARDED or not any(map(_cuda, tree_leaves((args, kwargs)))):
             return func(*args, **kwargs)
         device = next(a.device for a in tree_leaves((args, kwargs)) if _cuda(a))

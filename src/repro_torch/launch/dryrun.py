@@ -47,6 +47,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import gc
 import json
 import os
@@ -67,6 +68,10 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments
 # torch.cuda.get_device_properties(0).total_memory of an NVIDIA H100 80GB
 # HBM3 (power limit 700.00 W), the default when no card is present
 H100_BYTES = 85_017_493_504
+# the device of a train cell's fake tensors: autograd's bookkeeping of a
+# fake CUDA tensor takes a device guard, which a torch built without CUDA
+# lacks; a fake tensor's bytes are the same on either device
+TRAIN_FAKE_DEVICE = "cpu"
 
 
 def device_bytes(default: int = H100_BYTES) -> int:
@@ -155,6 +160,100 @@ def decode_contract(by_group: dict, cfg: ModelConfig, rows: int, model: int,
     return out
 
 
+def train_collectives(cfg: ModelConfig, rows: int, seq: int, model: int, data: int = 1,
+                      pods: int = 1) -> dict:
+    """A dense train cell step's collectives on a rank of a (pod, data,
+    model) mesh under ``train_rules`` (``rows`` = its B / (pods · data)
+    rows of ``seq`` tokens), derived from the splits (with remat; a group
+    of one issues nothing): ``{group: {kind: (calls, elements)}}``, the
+    in-pod data group named ``"data"`` on one pod and ``"data_in_pod"``
+    beside the folded ``"data"`` on more.
+
+    - ``model`` (more than one rank): all-gathers of the whole (rows, T, D)
+      sequence: a layer's ``hn`` and ``hn2`` in the forward and again in
+      the backward's recompute, ``final_norm``'s output, and the backward
+      of the MLP's and the embedding's reduce-scatters; reduce-scatters
+      onto the (rows, T / model, D) slice: the embedding's rows, a
+      layer's MLP output, the backward of the three gathers of the forward
+      (the recompute stops before the MLP's reduce-scatter: nothing after
+      it is saved); all-reduces: the vocab-parallel xent's max and
+      (Σexp, gold) over (rows, T − 1), and the gradient of every leaf
+      whole over ``model`` (the norms, the attention weights and biases).
+    - the in-pod data group (more than one rank), where the weights'
+      d_model dim splits: all-gathers of every weight before its product
+      (the embedding table twice: lookup and logits, tied or not; a
+      layer's seven matrices in the forward and the recompute) and their
+      backward's reduce-scatters; all-reduces of the gradients of the
+      leaves whole over ``data`` (the norms, the biases; every leaf where
+      d_model stays whole).
+    - the rows' group (the data group on one pod, the folded one on more):
+      one all-reduce of the three metrics.
+    - ``pod``: one all-reduce of every leaf's gradient.
+    - ``world``: the global norm's one scalar."""
+    L, D, V, F = cfg.n_layers, cfg.d_model, cfg.padded_vocab, cfg.d_ff
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    fsdp = data > 1 and D % data == 0
+    d_loc = D // data if fsdp else D
+    v_loc, f_loc, t_loc = V // model, F // model, seq // model
+    n_tables = 1 + (not cfg.tie_embeddings)
+    bias = cfg.qkv_bias
+    attn = dh * (2 * hq + 2 * hkv)  # wq, wk, wv, wo per d_model row
+    # per layer: (leaf, elements of the rank's shard, split over model, over data)
+    layer = [("ln1", D, False, False), ("ln2", D, False, False),
+             ("attn", d_loc * attn, False, fsdp), ("mlp", 3 * d_loc * f_loc, True, fsdp)]
+    counts = {"ln1": 1, "ln2": 1, "attn": 4, "mlp": 3}
+    if bias:
+        layer.append(("bias", dh * (hq + 2 * hkv), False, False))
+        counts["bias"] = 3
+    top = [("tables", n_tables * v_loc * d_loc, True, fsdp), ("final_norm", D, False, False)]
+    top_counts = {"tables": n_tables, "final_norm": 1}
+    out: dict = {}
+
+    def add(group, kind, calls, elems):
+        c, e = out.setdefault(group, {}).get(kind, (0, 0))
+        out[group][kind] = (c + calls, e + elems)
+
+    def grads(group, keep):  # all-reduces of the leaves ``keep`` selects
+        for leaves, n, mult in ((layer, counts, L), (top, top_counts, 1)):
+            for name, elems, on_model, on_data in leaves:
+                if keep(on_model, on_data):
+                    add(group, "all_reduce", mult * n[name], mult * elems)
+
+    if model > 1:
+        whole, part = rows * seq * D, rows * t_loc * D
+        add("model", "all_gather", 5 * L + 2, (5 * L + 2) * whole)
+        add("model", "reduce_scatter", 3 * L + 2, (3 * L + 2) * part)
+        add("model", "all_reduce", 2, 3 * rows * (seq - 1))
+        grads("model", lambda on_model, on_data: not on_model)
+    dgroup = "data" if pods == 1 else "data_in_pod"
+    if fsdp:
+        gathered = 2 * v_loc * D + 2 * L * (D * attn + 3 * D * f_loc)
+        shards = 2 * v_loc * d_loc + L * (d_loc * attn + 3 * d_loc * f_loc)
+        add(dgroup, "all_gather", 14 * L + 2, gathered)
+        add(dgroup, "reduce_scatter", 7 * L + 2, shards)
+    if data > 1:
+        grads(dgroup, lambda on_model, on_data: not on_data)
+    if data * pods > 1:
+        add("data", "all_reduce", 1, 3)
+    if pods > 1:
+        grads("pod", lambda on_model, on_data: True)
+    if model * data * pods > 1:
+        add("world", "all_reduce", 1, 1)
+    return out
+
+
+def train_contract(by_group: dict, cfg: ModelConfig, rows: int, seq: int, model: int,
+                   data: int = 1, pods: int = 1) -> dict:
+    """The train cell step's collectives (`train_collectives`) checked on a
+    `StepStats.by_group` record: calls and elements of every (group, kind)
+    either side names."""
+    want = train_collectives(cfg, rows, seq, model, data, pods)
+    keys = {(g, k) for g, kinds in list(want.items()) + list(by_group.items()) for k in kinds}
+    return {f"{g}_{k}": (by_group.get(g, {}).get(k, {}).get("calls"),
+                         by_group.get(g, {}).get(k, {}).get("elements"))
+            == want.get(g, {}).get(k) for g, k in sorted(keys)}
+
+
 def _executor(cfg, mesh, ccfg):
     """The port's mesh executor on the fake mesh, eager (a graph capture
     needs a real stream) and without its device synchronize."""
@@ -196,8 +295,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, planner_mode: str = "f
         return {**rec, "status": "skipped", "reason": cfg.shape_skips[shape_name]}
     dev_bytes = dev_bytes or device_bytes()
     t0 = time.time()
+    train = shape.kind == "train"
     with fake_process_group(512 if multi_pod else 256), step_stats.fake_tensors():
-        mesh = make_production_mesh(multi_pod=multi_pod)
+        mesh = make_production_mesh(multi_pod=multi_pod,
+                                    device=TRAIN_FAKE_DEVICE if train else "cuda")
         cell = specs.build_cell(cfg, shape, mesh, planner_mode=planner_mode)
         t_build = time.time() - t0
         arg = cell.arg_bytes_per_rank
@@ -207,11 +308,19 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, planner_mode: str = "f
                    build_s=round(t_build, 2))
         if executes(cfg, shape_name):
             t0 = time.time()
-            with torch.inference_mode():
+            # a train step differentiates: the saved activations and the
+            # backward's temporaries count toward its peak
+            with contextlib.nullcontext() if train else torch.inference_mode():
                 _, st = step_stats.measure(cell.fn, cell.args, *cell.args)
-            step = "prefill" if cell.kind == "prefill" else "decode_step"
-            rec["executed"] = {"step": f"repro_torch.serving.engine.{step} (build_cell(...).fn)",
+            step = {"train": "repro_torch.training.train_loop.train_step",
+                    "prefill": "repro_torch.serving.engine.prefill"}.get(
+                        cell.kind, "repro_torch.serving.engine.decode_step")
+            rec["executed"] = {"step": f"{step} (build_cell(...).fn)",
                                "seconds": round(time.time() - t0, 2), **st.record()}
+            if train:
+                rec["executed"]["contract"] = train_contract(
+                    st.by_group, cfg, shape.global_batch // mesh.data, shape.seq_len,
+                    mesh.model, mesh.data // mesh.pods, mesh.pods)
             if cell.kind == "decode":
                 long_ctx = shape_name == "long_500k"
                 rows = shape.global_batch // (1 if long_ctx else mesh.data)
@@ -221,6 +330,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, planner_mode: str = "f
         else:
             rec.update(status="args_only", fits=arg <= dev_bytes,
                        todo=specs.cell_todo(cfg, shape))
+        cell_kind = cell.kind
         del cell
     line = f"  rules args {arg / 1e9:8.2f} GB/rank"
     ex = rec.get("executed")
@@ -233,7 +343,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, planner_mode: str = "f
                      for k, v in sorted(c.items())))
         if "contract" in ex:
             ok = all(ex["contract"].values())
-            line += f" | decode contract {'held' if ok else ex['contract']}"
+            line += f" | {cell_kind} contract {'held' if ok else ex['contract']}"
     print(line + f" | fits {rec['fits']} ({dev_bytes / 1e9:.1f} GB)")
     return rec
 

@@ -22,6 +22,15 @@ with more ranks than cards raises.
 and a ``file://`` rendezvous (no port to clash on), runs ``fn(mesh, *args)``
 in each and returns their results in rank order.
 
+A mesh may fold pods into its data axis (``pods`` > 1): rank ``r`` then
+sits at pod ``data_idx // (data / pods)``, and beside the folded ``data``
+group (the rows: ``("pod", "data")`` in the rules) it has the ranks of its
+own pod and model index (``data_pod_group``, named ``"data_in_pod"``: the
+rules' ``"data"`` axis alone, over which FSDP splits the weights) and the
+ranks of its in-pod data and model index (``pod_group``).  With one pod
+the in-pod group is the data group and there is no pod group.
+``world_group`` is every rank of the mesh.
+
 The production meshes (`make_production_mesh`: (data 16, model 16), or
 (pod 2, data 16, model 16) with ``pod`` folded into ``data``) exist for
 the dry run (`repro_torch.launch.dryrun`): it builds them over
@@ -70,6 +79,16 @@ class Mesh:
     device: torch.device
     backend: str
     pods: int = 1  # the data axis folds (pod, data) when > 1
+    # the rank's pod's share of the data axis (None: the data group itself)
+    data_pod_group: Optional[Group] = None
+    pod_group: Optional[Group] = None  # the same in-pod data and model index
+    world_group: Optional[Group] = None  # every rank of the mesh
+
+    @property
+    def fsdp_group(self) -> Group:
+        """The rules' ``"data"`` axis: the ranks of this rank's pod and model
+        index (the data group when the mesh has one pod)."""
+        return self.data_pod_group or self.data_group
 
     @property
     def axes(self) -> Dict[str, int]:
@@ -122,12 +141,15 @@ class Mesh:
         return t.cpu().tolist()
 
 
-def make_host_mesh(model: int = 1, data: int = 1, device=None) -> Mesh:
+def make_host_mesh(model: int = 1, data: int = 1, device=None, pods: int = 1) -> Mesh:
     """The mesh over the initialised default process group, which must hold
     exactly ``model * data`` ranks.  ``device``: the tensors' device under
     gloo (default the CPU; ``"cuda"`` / ``"cuda:N"`` to share a card);
-    NCCL ranks take ``cuda:{LOCAL_RANK}`` and may not name another."""
-    return _make_mesh(model, data, device)
+    NCCL ranks take ``cuda:{LOCAL_RANK}`` and may not name another.
+    ``pods``: the data axis folds that many pods of ``data / pods`` ranks
+    (the module docstring).  Every rank must make the same meshes in the
+    same order: each makes its groups."""
+    return _make_mesh(model, data, device, pods=pods, fake_ok=False)
 
 
 @contextlib.contextmanager
@@ -156,14 +178,17 @@ def make_production_mesh(multi_pod: bool = False, device="cuda", model: int = 16
     give a smaller mesh of the same layout).  On the fake backend
     (`fake_process_group`) the tensors go on ``device`` without touching it."""
     pods = 2 if multi_pod else 1
-    return _make_mesh(model, data * pods, device, pods=pods)
+    return _make_mesh(model, data * pods, device, pods=pods, fake_ok=True)
 
 
-def _make_mesh(model: int, data: int, device, pods: Optional[int] = None) -> Mesh:
-    """`make_host_mesh`; ``pods`` is given by `make_production_mesh` only,
-    the one caller that accepts the fake backend."""
-    if model < 1 or data < 1:
-        raise ValueError(f"mesh sizes must be >= 1, got model={model}, data={data}")
+def _make_mesh(model: int, data: int, device, pods: int = 1, fake_ok: bool = False) -> Mesh:
+    """`make_host_mesh`; ``fake_ok`` is given by `make_production_mesh`
+    only, the one caller that accepts the fake backend."""
+    if model < 1 or data < 1 or pods < 1:
+        raise ValueError(f"mesh sizes must be >= 1, got model={model}, data={data}, "
+                         f"pods={pods}")
+    if data % pods:
+        raise ValueError(f"a data axis of {data} ranks does not fold {pods} pods")
     if not dist.is_available() or not dist.is_initialized():
         raise ValueError(
             f"make_host_mesh(model={model}, data={data}) needs an initialised "
@@ -194,7 +219,7 @@ def _make_mesh(model: int, data: int, device, pods: Optional[int] = None) -> Mes
             if dev.index is None:
                 dev = torch.device("cuda", torch.cuda.current_device())
             torch.cuda.set_device(dev)
-    elif backend == "fake" and pods is not None:
+    elif backend == "fake" and fake_ok:
         dev = torch.device(device or "cuda")
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", 0)
@@ -212,9 +237,25 @@ def _make_mesh(model: int, data: int, device, pods: Optional[int] = None) -> Mes
         pg = dist.new_group([d * model + m for d in range(data)])
         if m == model_idx:
             data_group = Group(pg, "data", data, data_idx, backend)
+    data_pod_group = pod_group = None
+    if pods > 1:
+        per_pod = data // pods
+        pod_idx, d_idx = divmod(data_idx, per_pod)
+        for p in range(pods):
+            for m in range(model):
+                pg = dist.new_group([(p * per_pod + d) * model + m for d in range(per_pod)])
+                if (p, m) == (pod_idx, model_idx):
+                    data_pod_group = Group(pg, "data_in_pod", per_pod, d_idx, backend)
+        for d in range(per_pod):
+            for m in range(model):
+                pg = dist.new_group([(p * per_pod + d) * model + m for p in range(pods)])
+                if (d, m) == (d_idx, model_idx):
+                    pod_group = Group(pg, "pod", pods, pod_idx, backend)
+    world_group = Group(dist.group.WORLD, "world", world, rank, backend)
     return Mesh(rank=rank, world=world, model=model, data=data, model_idx=model_idx,
                 data_idx=data_idx, model_group=model_group, data_group=data_group,
-                device=dev, backend=backend, pods=pods or 1)
+                device=dev, backend=backend, pods=pods, data_pod_group=data_pod_group,
+                pod_group=pod_group, world_group=world_group)
 
 
 def _rank_main(rank: int, fn, args, model: int, data: int, backend: str,

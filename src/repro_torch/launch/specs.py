@@ -23,8 +23,15 @@ family: dense, MoE, SSM, hybrid, encoder-decoder and VLM): the port's own
 the reference's GSPMD partition (`repro_torch.serving.engine`'s module
 docstring has its collectives; long_500k is split-S decode where the
 model has a cache, MoE runs expert parallel, the SSD branch and the
-encoder and cross attention run on their own splits).  A train cell's
-``fn`` refuses it with the ROADMAP item that would run it (`cell_todo`).
+encoder and cross attention run on their own splits).  A dense arch's
+train_4k cell runs `train_step`: the port's `train_step` (remat, the
+reference's default `OptimizerConfig`) on the rank's rows, parameter and
+optimizer state shards under ``train_rules`` (FSDP over ``data``,
+sequence and tensor parallelism over ``model``:
+`repro_torch.models.transformer`'s and
+`repro_torch.training.train_loop`'s module docstrings).  The other
+families' train cells refuse with the ROADMAP item that would run them
+(`cell_todo`).
 
 `executor_args` builds what the port's `MeshExecutor` itself holds on a
 rank of a mesh (its slot weights, the rest replicated, its cache corner),
@@ -47,11 +54,12 @@ from repro_torch.core.profiles import synthetic_profile
 from repro_torch.distributed.param_specs import (guarded, localize_scales, shard_shape,
                                                 tree_specs)
 from repro_torch.distributed.sharding import (ShardingRules, mesh_axes, serve_rules,
-                                              step_shards, train_rules)
+                                              step_shards, train_rules, train_shards)
 from repro_torch.models.transformer import FAMILIES, init_params
 from repro_torch.serving import engine as _serve
 from repro_torch.serving.quant import QTensor, quantize_serve_params
-from repro_torch.training.optimizer import AdamWState
+from repro_torch.training import train_loop as _train
+from repro_torch.training.optimizer import AdamWState, OptimizerConfig
 
 BF16 = torch.bfloat16
 I32 = torch.int32
@@ -242,16 +250,20 @@ def tree_bytes(tree) -> int:
 
 # the later slice that would run each kind of cell the port has no step for
 TODO = {
-    "train": "A.15: the sharded train step per train_rules (FSDP x TP)",
+    "train": "A.15.2: the sharded train step of the MoE, SSM, hybrid, encoder-decoder "
+             "and VLM families per train_rules",
 }
 # the families `serve_step` runs: every one the port serves
 STEP_FAMILIES = FAMILIES
+# the families `train_step` runs
+TRAIN_FAMILIES = ("dense",)
 
 
 def cell_todo(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
-    """The ROADMAP item a cell waits for, or None when `serve_step` runs it
-    (every serve cell of every family)."""
-    if shape.kind == "train":
+    """The ROADMAP item a cell waits for, or None when the port runs it:
+    `serve_step` every serve cell of every family, `train_step` the dense
+    archs' train cells."""
+    if shape.kind == "train" and cfg.family not in TRAIN_FAMILIES:
         return TODO["train"]
     return None
 
@@ -310,6 +322,28 @@ def serve_step(kind: str, cfg: ModelConfig, ccfg: CompressionConfig, mesh,
     return fn
 
 
+def train_step(cfg: ModelConfig, mesh, rules: ShardingRules, p_spec, batch: int, seq: int,
+               ocfg: OptimizerConfig = OptimizerConfig(), remat: bool = True) -> Callable:
+    """A train cell's step on ``mesh``'s rank under ``rules`` (``train_rules``):
+    ``fn(params, opt_state, batch)`` on the rank's shards (``p_spec`` the
+    params' spec tree; the optimizer state's master / mu / nu share it; the
+    batch's ``tokens`` are the rank's rows, every token of them), returning
+    (new params shards, new optimizer state shards, the reference's metrics
+    ``loss`` / ``xent`` / ``aux`` / ``grad_norm`` / ``lr``, global: the same
+    on every rank).  ``batch`` and ``seq`` are the global rows and tokens a
+    row.  Refuses a family other than dense (`cell_todo`) and a layout the
+    step does not run (`train_shards`)."""
+    if cfg.family not in TRAIN_FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: {TODO['train']}")
+    shards = train_shards(rules, mesh, vocab=cfg.padded_vocab, ff=cfg.d_ff,
+                          d_model=cfg.d_model, seq=seq, batch=batch)
+
+    def fn(params, opt_state, batch_):
+        return _train.train_step(params, opt_state, batch_, cfg, ocfg, remat, shards=shards,
+                                 specs=p_spec)
+    return fn
+
+
 def _refused(why: str) -> Callable:
     def fn(*args):
         raise NotImplementedError(why)
@@ -324,7 +358,7 @@ class CellArtifacts:
     rules: ShardingRules
     arg_bytes_per_rank: int
     meta: Dict[str, Any] = field(default_factory=dict)
-    # the cell's step on ``args`` (`serve_step`), or a callable that raises
+    # the cell's step on ``args`` (`serve_step`, `train_step`), or a callable that raises
     # with the ROADMAP item that would run the cell
     fn: Optional[Callable] = None
 
@@ -373,6 +407,8 @@ def build_cell(cfg: ModelConfig, shape: InputShape, mesh, planner_mode: str = "f
     elif isinstance(mesh, dict):
         fn = _refused("a cell built for axis sizes has no ranks: build it on a "
                       "repro_torch.launch.mesh.Mesh to run its step")
+    elif shape.kind == "train":
+        fn = train_step(cfg, mesh, rules, specs[0], shape.global_batch, shape.seq_len)
     else:
         fn = serve_step(shape.kind, cfg, ccfg, mesh, rules, specs[0],
                         0 if plan is None else plan.n_slots, shape.global_batch)

@@ -19,7 +19,11 @@ outside them give zero rows, then one all-reduce over the vocab's group),
 the unembedding into the rank's vocab columns, the SwiGLU over its ``ff``
 columns of ``w1`` / ``w3`` and rows of ``w2`` (one all-reduce over the ff
 group); under ``weights_2d`` each weight is gathered whole along d_model
-just before its product.
+just before its product.  On a train step's shards (a `TrainShards`) the
+same functions read FSDP-gathered weights, and the embedding's rows and
+the SwiGLU's partial output are reduce-scattered over ``model`` onto the
+rank's sequence slice instead of all-reduced (`TrainShards.sum_vocab`,
+`sum_ff`).
 """
 from __future__ import annotations
 
@@ -29,7 +33,6 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed import comm
 from repro_torch.serving.quant import QTensor, operands
 
 NEG_INF = -1e30
@@ -293,31 +296,28 @@ def swiglu(x: torch.Tensor, w1, w3, w2, shards=None) -> torch.Tensor:
 
 def _swiglu_shard(x, w1, w3, w2, shards) -> torch.Tensor:
     """`swiglu` over the rank's ``ff`` shard: its partial sum over the
-    hidden dim, summed over the ff group."""
+    hidden dim, summed over the ff group (`StepShards.sum_ff` /
+    `TrainShards.sum_ff`)."""
     x1, w = operands(x, shards.weight(w1, 0))
     a = x1 @ w
     x3, w = operands(x, shards.weight(w3, 0))
     h = F.silu(a) * (x3 @ w)
     h, w = operands(h, shards.weight(w2, 1))
-    out = h @ w
-    if shards.ff.group is not None:
-        out = comm.all_reduce_sum(out, shards.ff.group)
-    return out
+    return shards.sum_ff(h @ w)
 
 
 def embed(tokens: torch.Tensor, table, shards=None) -> torch.Tensor:
     """Rows of the table; an int8 table's rows times their per-row scale
     (the id clamped into the scale's rows), rounded to bf16.  On a rank's
     vocab shard (``shards``) an id outside its rows gives a zero row and
-    the rows are summed over the vocab's group."""
+    the rows are summed over the vocab's group (``shards.sum_vocab``)."""
     if shards is not None:
         table = shards.weight(table, 1)
         n, v = table.shape[0], shards.vocab
         local = tokens - v.offset(n)
         hit = (local >= 0) & (local < n)
         rows = embed(torch.where(hit, local, 0), table)
-        rows = torch.where(hit[..., None], rows, 0)
-        return rows if v.group is None else comm.all_reduce_sum(rows, v.group)
+        return shards.sum_vocab(torch.where(hit[..., None], rows, 0))
     if isinstance(table, QTensor):
         rows = table.q[tokens].float()
         sc = table.scale

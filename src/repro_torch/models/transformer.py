@@ -13,6 +13,22 @@ Every product that reads a weight takes it through
 `forward_train` is the reference's full-sequence causal-LM forward
 (``apply_layer_full`` per layer, each under ``torch.utils.checkpoint``
 with ``remat``), differentiable by ``torch.autograd``.
+
+On a train step's shards (``shards``, a
+`repro_torch.distributed.sharding.TrainShards`: the train cells' step
+under ``train_rules``) the same functions run the reference's layout
+explicitly.  The residual stream between layers is the rank's slice of the
+sequence (B/data, T/model, D), written by the embedding's reduce-scatter
+over ``model``; ``ln1`` / ``ln2`` run on the slice; attention is
+sequence-parallel: ``q`` from the slice at its global positions, ``k`` /
+``v`` from the normed input all-gathered over ``model``, the output over
+the slice's queries, ``o_proj`` added to the slice with no collective; the
+MLP reads the all-gathered ``hn2`` over its ``ff`` columns and its partial
+output is reduce-scattered onto the slice.  Every weight is all-gathered
+over ``data`` (FSDP) right before its product, inside the layer's remat
+region, so the backward's recompute gathers it again and no layer's
+gathered weights outlive it.  The logits are the rank's vocab columns of
+the whole sequence (``final_norm`` on the slice, then gathered).
 """
 from __future__ import annotations
 
@@ -189,14 +205,17 @@ def embed_inputs(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
                  shards=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Token embedding, after a VLM's ``image_embeds`` prefix (B, I, D),
     plus an encoder-decoder's learned ``dec_pos``.  Returns (h (B, T, D),
-    positions (B, T) int32).  ``shards``: `embed_tokens`'."""
+    positions (B, T) int32).  ``shards``: `embed_tokens`'; on a train
+    step's shards h is the rank's slice of the sequence and the positions
+    are the slice's global ones."""
     h = embed_tokens(batch["tokens"], params, cfg, shards)
     if cfg.is_vlm:
         h = torch.cat([batch["image_embeds"].to(h.dtype), h], dim=1)
     if cfg.is_encoder_decoder:
         h = h + params["dec_pos"][None, :h.shape[1]]
     B, T = h.shape[:2]
-    positions = torch.arange(T, dtype=torch.int32, device=h.device).expand(B, T)
+    t0 = 0 if shards is None else shards.seq.offset(T)
+    positions = torch.arange(t0, t0 + T, dtype=torch.int32, device=h.device).expand(B, T)
     return h, positions
 
 
@@ -328,12 +347,16 @@ def ssm_block_full(pl: dict, h: torch.Tensor, cfg: ModelConfig,
 # all-reduced over their group.
 
 
-def qkv_proj(pl: dict, h: torch.Tensor, cfg: ModelConfig, prefix: str = "", shards=None):
+def qkv_proj(pl: dict, h: torch.Tensor, cfg: ModelConfig, prefix: str = "", shards=None,
+             h_kv: Optional[torch.Tensor] = None):
     """(B, T, D) → q (B, T, Hq, Dh), k / v (B, T, Hkv, Dh), pre-RoPE: the
-    rank's heads of each under ``shards``."""
+    rank's heads of each under ``shards``.  ``h_kv``: the input of k and v
+    when it is not ``h`` (sequence-parallel attention: the whole sequence
+    beside the rank's slice)."""
+    h_kv = h if h_kv is None else h_kv
     q = torch.einsum("btd,dhx->bthx", *operands(h, _w(pl, prefix + "wq", shards, 0)))
-    k = torch.einsum("btd,dhx->bthx", *operands(h, _w(pl, prefix + "wk", shards, 0)))
-    v = torch.einsum("btd,dhx->bthx", *operands(h, _w(pl, prefix + "wv", shards, 0)))
+    k = torch.einsum("btd,dhx->bthx", *operands(h_kv, _w(pl, prefix + "wk", shards, 0)))
+    v = torch.einsum("btd,dhx->bthx", *operands(h_kv, _w(pl, prefix + "wv", shards, 0)))
     if cfg.qkv_bias and (prefix + "bq") in pl:
         q, k, v = q + pl[prefix + "bq"], k + pl[prefix + "bk"], v + pl[prefix + "bv"]
     return q, k, v
@@ -413,13 +436,21 @@ def encoder_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig, shar
 
 def attn_block_full(pl: dict, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                     layer_idx: int, kv_mask: Optional[torch.Tensor] = None,
-                    return_kv: bool = False):
+                    return_kv: bool = False, shards=None):
     """Full-sequence causal attention over a normed (B, T, D) input.
-    Returns (attn_out_flat (B, T, Hq·Dh), (k_rot, v) if ``return_kv``)."""
-    q, k, v = qkv_proj(pl, h, cfg)
+    Returns (attn_out_flat (B, T, Hq·Dh), (k_rot, v) if ``return_kv``).
+    On a train step's shards ``h`` is the rank's slice at ``positions``:
+    its queries attend to the whole sequence, gathered over ``model``, and
+    the weights are FSDP-gathered (the module docstring)."""
+    h_kv, k_pos = h, positions
+    if shards is not None and shards.seq.group is not None:
+        h_kv = shards.gather_seq(h)
+        k_pos = torch.arange(h_kv.shape[1], dtype=positions.dtype,
+                             device=h.device).expand(h.shape[0], -1)
+    q, k, v = qkv_proj(pl, h, cfg, shards=shards, h_kv=h_kv)
     q = L.apply_rope(q, positions, cfg.rope_theta)
-    k = L.apply_rope(k, positions, cfg.rope_theta)
-    out = L.attention(q, k, v, positions, positions, window=layer_window(cfg, layer_idx),
+    k = L.apply_rope(k, k_pos, cfg.rope_theta)
+    out = L.attention(q, k, v, positions, k_pos, window=layer_window(cfg, layer_idx),
                       attn_cap=cfg.attn_softcap, kv_mask=kv_mask, causal=True)
     B, T = h.shape[:2]
     out = out.reshape(B, T, cfg.n_heads * cfg.head_dim)
@@ -428,10 +459,12 @@ def attn_block_full(pl: dict, h: torch.Tensor, positions: torch.Tensor, cfg: Mod
 
 def apply_layer_full(pl: dict, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                      layer_idx: int, enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                     kv_mask: Optional[torch.Tensor] = None
+                     kv_mask: Optional[torch.Tensor] = None, shards=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer over the full sequence.  Returns (h, aux loss):
-    MoE's Switch load-balancing loss, 0 for the other families."""
+    MoE's Switch load-balancing loss, 0 for the other families.  On a
+    train step's shards (a dense layer) ``h`` is the rank's slice of the
+    residual stream, in and out (the module docstring)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
     if cfg.family == "hybrid":
@@ -442,8 +475,9 @@ def apply_layer_full(pl: dict, h: torch.Tensor, positions: torch.Tensor, cfg: Mo
     elif cfg.family == "ssm":
         h = h + ssm_block_full(pl, hn, cfg)[0]
     elif not cfg.attention_free:
-        attn_flat, _ = attn_block_full(pl, hn, positions, cfg, layer_idx, kv_mask)
-        h = h + o_proj(pl, attn_flat, cfg)
+        attn_flat, _ = attn_block_full(pl, hn, positions, cfg, layer_idx, kv_mask,
+                                       shards=shards)
+        h = h + o_proj(pl, attn_flat, cfg, shards=shards)
     if enc_kv is not None:
         hc = L.rms_norm(h, pl["ln_cross"], cfg.rms_eps)
         h = h + cross_attn_block(pl, hc, enc_kv, cfg)
@@ -452,19 +486,26 @@ def apply_layer_full(pl: dict, h: torch.Tensor, positions: torch.Tensor, cfg: Mo
         if cfg.moe.num_experts > 0:
             mlp_out, aux = moe_block(pl, hn2, cfg)
         else:
-            mlp_out = L.swiglu(hn2, pl["w1"], pl["w3"], pl["w2"])
+            if shards is not None and shards.ff.group is not None:
+                hn2 = shards.gather_seq(hn2)
+            mlp_out = L.swiglu(hn2, pl["w1"], pl["w3"], pl["w2"], shards)
         h = h + mlp_out
     return h, aux
 
 
 def forward_train(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
-                  remat: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+                  remat: bool = True, shards=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Causal-LM (or encoder-decoder) logits.  Returns (logits (B, S, V)
     fp32, the summed aux loss).  A VLM's image positions are cut from the
     logits (they carry no next-token loss).  With ``remat`` each layer
     runs under ``torch.utils.checkpoint`` (non-reentrant): its activations
-    are recomputed in the backward instead of stored."""
-    h, positions = embed_inputs(params, batch, cfg)
+    are recomputed in the backward instead of stored.  On a train step's
+    shards (dense configs) ``batch`` holds the rank's rows and the logits
+    are its vocab columns of every position of them."""
+    if shards is not None and cfg.family != "dense":
+        raise NotImplementedError(f"{cfg.name}: the sharded train step runs the dense "
+                                  f"family, not {cfg.family!r} (ROADMAP A.15.2)")
+    h, positions = embed_inputs(params, batch, cfg, shards)
     enc_kvs = None
     if cfg.is_encoder_decoder:
         enc_kvs = encoder_cross_kv(params, encode(params, batch["frames"], cfg), cfg)
@@ -472,13 +513,16 @@ def forward_train(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     for i, pl in enumerate(params["layers"]):
         enc_kv = enc_kvs[i] if enc_kvs is not None else None
         if remat:
-            h, aux = checkpoint(apply_layer_full, pl, h, positions, cfg, i, enc_kv,
-                                use_reentrant=False)
+            # no layer draws random numbers: the recompute needs no RNG state
+            h, aux = checkpoint(apply_layer_full, pl, h, positions, cfg, i, enc_kv, None,
+                                shards, use_reentrant=False, preserve_rng_state=False)
         else:
-            h, aux = apply_layer_full(pl, h, positions, cfg, i, enc_kv)
+            h, aux = apply_layer_full(pl, h, positions, cfg, i, enc_kv, None, shards)
         aux_total = aux_total + aux
     h = L.rms_norm(h, params["final_norm"], cfg.rms_eps)
-    logits = L.unembed(h, params.get("head", params["embed"]), cfg.logit_softcap)
+    if shards is not None:
+        h = shards.gather_seq(h)
+    logits = L.unembed(h, params.get("head", params["embed"]), cfg.logit_softcap, shards)
     if cfg.is_vlm:
         logits = logits[:, batch["image_embeds"].shape[1]:]
     return logits, aux_total

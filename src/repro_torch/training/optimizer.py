@@ -14,6 +14,8 @@ from typing import Any, Callable, Dict, List, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.distributed import comm
+
 
 class AdamWState(NamedTuple):
     step: torch.Tensor  # scalar int32
@@ -77,15 +79,29 @@ def init_optimizer(params: Any) -> AdamWState:
                                                         device=x.device), params))
 
 
-def global_norm(tree: Any) -> torch.Tensor:
-    return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)])))
+def global_norm(tree: Any, owner=None) -> torch.Tensor:
+    """sqrt of Σ x² over every element of ``tree``.  ``owner``: ``tree``
+    holds one rank's shards of a tree laid out over a mesh, and ``owner``
+    is (a tree of bools: whether this rank counts each leaf's shard, which
+    one replica of every shard does; the group whose ranks hold all the
+    shards, `repro_torch.launch.mesh.Group`): the counted leaves' Σ x² is
+    summed over the group, so each element of the whole tree counts
+    once."""
+    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
+    if owner is None:
+        return torch.sqrt(torch.sum(torch.stack(sq)))
+    counts, group = owner
+    mine = [s for s, own in zip(sq, tree_leaves(counts)) if own]
+    total = torch.sum(torch.stack(mine)) if mine else torch.zeros_like(sq[0])
+    return torch.sqrt(comm.all_reduce_sum(total, group))
 
 
-def adamw_update(grads: Any, state: AdamWState, cfg: OptimizerConfig
+def adamw_update(grads: Any, state: AdamWState, cfg: OptimizerConfig, owner=None
                  ) -> Tuple[Any, AdamWState, Dict[str, torch.Tensor]]:
     """Returns (new master weights (fp32; `cast_like` gives the live
-    params), new state, {"grad_norm", "lr"}).
+    params), new state, {"grad_norm", "lr"}).  ``owner``: ``grads`` and
+    ``state`` are one rank's shards (`global_norm`'s ``owner``); the
+    update is elementwise, so it runs on the shards as it is.
 
     The state's mu / nu / master tensors are updated in place and returned
     in the new state: the call consumes ``state``, as the reference's
@@ -94,7 +110,7 @@ def adamw_update(grads: Any, state: AdamWState, cfg: OptimizerConfig
     one card).  Each update is the reference's expression, operation for
     operation (no fused multiply-add), so the numbers are its numbers."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, owner)
     scale = (torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
              if cfg.clip_norm > 0 else torch.ones((), device=gnorm.device))
     lr = lr_schedule(cfg, step)

@@ -1,6 +1,7 @@
 """The ranks' side of the port's mesh tests (`tests/test_torch_mesh.py`,
-`tests/test_torch_mesh_paged.py`, and the serve cells' step of
-`tests/test_torch_tp.py`, whose ranks run in the mesh tests' spawns).
+`tests/test_torch_mesh_paged.py`, and the serve and train cells' steps of
+`tests/test_torch_tp.py` and `tests/test_torch_train_tp.py`, whose ranks
+run in the mesh tests' spawns).
 
 Each function runs in every rank of a gloo mesh started by
 `repro_torch.launch.mesh.spawn` and returns numpy results, which the test
@@ -560,6 +561,75 @@ def argmax_rank(mesh):
     got = vocab_argmax(torch.from_numpy(full[:, g.rank * n:(g.rank + 1) * n]), vocab,
                        Split(g, g.rank, g.size))
     return _np(got), np.argmax(full[:, :vocab], axis=-1)
+
+
+# ---- the dense train cells' step under train_rules (tests/test_torch_train_tp.py)
+
+# lr 1e-3: at 1e-2 Adam's first update lr·g/(|g| + eps) turns the fp32
+# rounding of a gradient near eps into parameter steps past the 1e-4 bar,
+# whatever the order of the sums (the single-process step misses it against
+# the reference at 1e-2 too, `tests/test_torch_train_tp.py`)
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=1, total_steps=3)
+TRAIN_STEPS = 3
+
+
+def train_batches(cfg, B, T) -> list:
+    """The `SyntheticLM` batches (numpy) of the train cases' steps."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.training.data import SyntheticLM
+
+    data = SyntheticLM(cfg, InputShape("test", T, B, "train"))
+    return [data.get_batch(s) for s in range(TRAIN_STEPS)]
+
+
+def train_cfg(configs, arch, layers):
+    """``arch``'s smoke config from a package's ``configs`` module, cut to
+    ``layers`` layers when given."""
+    cfg = configs.get_smoke_config(arch)
+    return cfg if layers is None else dataclasses.replace(cfg, n_layers=layers)
+
+
+def train_rank(mesh, wpath, arch, B, T, layers=None, layout=None):
+    """The train cell's step (`repro_torch.launch.specs.train_step`) under
+    ``train_rules`` on this rank's shards of the reference's fp32 tree
+    (``wpath``): `TRAIN_STEPS` steps over its rows of `train_batches`.
+    ``layout`` (model, data, pods): run on a second mesh of that layout
+    over the spawn's ranks (every rank makes it).  Returns each step's
+    metrics, the final param and optimizer state shards (numpy) with the
+    params' specs, the first step's collectives, and the rank's index in
+    each axis."""
+    from repro_torch import configs
+    from repro_torch.distributed import comm
+    from repro_torch.distributed.param_specs import local_shard, tree_specs
+    from repro_torch.distributed.sharding import train_rules
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.training.optimizer import OptimizerConfig, init_optimizer
+
+    if layout is not None:
+        model, data, pods = layout
+        mesh = make_host_mesh(model=model, data=data, pods=pods)
+    cfg = train_cfg(configs, arch, layers)
+    rules = train_rules(mesh)
+    whole = load_params(wpath)
+    spec = tree_specs(whole, rules, "train")
+    params = local_shard(whole, spec, mesh)
+    opt = init_optimizer(params)
+    step = specs.train_step(cfg, mesh, rules, spec, B, T, OptimizerConfig(**TRAIN_OPT))
+    rows = {"tokens": (rules.guarded(B, "batch"), None)}
+    out = {"metrics": [], "spec": spec, "model_idx": mesh.model_idx,
+           "fsdp_idx": mesh.fsdp_group.rank, "data_idx": mesh.data_idx}
+    for i, b in enumerate(train_batches(cfg, B, T)):
+        batch = local_shard({"tokens": torch.as_tensor(b["tokens"])}, rows, mesh)
+        before = comm.snapshot()
+        params, opt, met = step(params, opt, batch)
+        if i == 0:
+            out["collectives"] = comm.by_kind(comm.since(before))
+        out["metrics"].append({k: float(v) for k, v in met.items()})
+    out["params"] = interop.to_numpy(params)
+    out["opt"] = {k: interop.to_numpy(getattr(opt, k)) for k in ("master", "mu", "nu")}
+    out["opt_step"] = int(opt.step)
+    return out
 
 
 def jobs_rank(mesh, jobs):

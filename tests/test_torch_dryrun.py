@@ -348,8 +348,9 @@ def test_run_cell_records(dense_sweep):
     all-reduces (the gated norm's Σ, ``out_proj``) a layer beside the
     embedding's all-reduce and the argmax's pair gather, at decode_32k and
     at long_500k, where nothing splits over ``data``); every serve cell of
-    the sweep runs (only the train cells, which it does not hold, wait
-    for A.15); a skipped shape is ``skipped``."""
+    the sweep runs (the sweep holds no train cell: a non-dense arch's waits
+    for A.15.2, `tests/test_torch_dryrun_train.py` runs the dense ones); a
+    skipped shape is ``skipped``."""
     res, out = dense_sweep
     recs = {(r["arch"], r["shape"]): r for r in res["records"]}
     assert res["counts"]["fail"] == 0
@@ -377,7 +378,7 @@ def test_run_cell_records(dense_sweep):
         assert g["model"]["all_reduce"]["elements"] == rows * ((L + 1) * m2.d_model + L)
     assert recs[("gemma2-9b", "long_500k")]["status"] == "ok"
     assert recs[("granite-3-2b", "long_500k")]["status"] in ("ok", "skipped")
-    assert specs.cell_todo(m2, SHAPES["train_4k"]).startswith("A.15")
+    assert specs.cell_todo(m2, SHAPES["train_4k"]).startswith("A.15.2")
     assert recs[("minitron-8b", "long_500k")]["status"] == "skipped"
     written = json.loads((out / "granite-3-2b__decode_32k__single.json").read_text())
     assert written["executed"]["memory"] == ex["memory"]

@@ -35,7 +35,12 @@ reference's weights reach every rank through an ``.npz``.  Held here:
   over ``data`` on 2x4) and hymba's (its window's ring wrapped) and
   mamba2's long cells against their decode steps; the expert-parallel
   `moe_block` against the reference's at a capacity that drops;
-  `vocab_argmax`'s tie and padding rules on 1x2.
+  `vocab_argmax`'s tie and padding rules on 1x2;
+- the dense train cells' step under ``train_rules``
+  (`tests/test_torch_train_tp.py` holds its reference side and bars): the
+  four dense archs on 1x2 and 2x4, granite-3-2b past ``flash_threshold``
+  on 1x2 and on the 2x4 spawn's ranks as a (pod 2, data 2, model 2) mesh,
+  three steps against the reference's single-device `train_step`.
 
 (The reference's own mesh run of the paged backend is red in its baseline,
 so the port is held to the reference's local executor throughout.)
@@ -60,6 +65,7 @@ from repro_torch.launch.mesh import Group, Mesh, make_host_mesh, spawn
 from repro_torch.paging.block_pool import BlockPool
 from tests import _torch_mesh_ranks as R
 from tests import test_torch_tp as TP
+from tests import test_torch_train_tp as TT
 from tests.test_torch_families import shared_params
 
 SPAWN_TIMEOUT = 300
@@ -253,7 +259,21 @@ def tp_weights(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
+def train_weights(tmp_path_factory):
+    """The train cases' weights (`TT.weights_tree`): numpy trees and their
+    .npz paths, by (arch, layers)."""
+    out = {}
+    cases = [c for cs in TT.CASES.values() for c in cs] + [TT.POD_CASE]
+    for arch, layers in {(c[0], c[3]) for c in cases}:
+        tree = TT.weights_tree(arch, layers)
+        path = tmp_path_factory.mktemp("train") / "params.npz"
+        R.save_params(path, tree)
+        out[arch, layers] = (tree, str(path))
+    return out
+
+
+@pytest.fixture(scope="module")
+def oneshot(weights, family_weights, tp_weights, train_weights, tmp_path_factory):
     """The one-shot cases per mesh shape; the 2x4 spawn also runs the
     continuous trace (under ``"trace"``), the 1x2 spawn the other dense
     archs (under ``"family"``), `compressed_all_reduce` (``"compress"``),
@@ -262,10 +282,12 @@ def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
     (``("tp", shape)``, by `TP.case_id`), the long_500k cells' steps
     (``("long", shape)``, by arch: gemma2's split-S, hymba's split-S beside
     its SSD branch, mamba2's) and the expert-parallel MoE block (``("moe",
-    shape)``), and the reference's runs they are held to
-    (``"tp_reference"``, ``"long_reference"``) are computed in a thread
-    meanwhile (the long cell's prefill before the spawns: the ranks start
-    from its state)."""
+    shape)``) and the train cells' step (``("train", shape)``, by
+    `TT.case_id`; the 2x4 spawn's ranks also as the (pod 2, data 2, model
+    2) mesh, ``("train", "pod")``), and the reference's runs they are held
+    to (``"tp_reference"``, ``"long_reference"``, ``"train_reference"``)
+    are computed in a thread meanwhile (the long cell's prefill before the
+    spawns: the ranks start from its state)."""
     jparams, path = weights
     out = {}
     refs = {}
@@ -283,6 +305,9 @@ def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
                          for a, w, q in TP.WEIGHTS})
             refs["long"] = {a: TP.long_reference(tree, spath, a)
                             for a, (tree, _, spath) in longs.items()}
+            train_cases = {c for cs in TT.CASES.values() for c in cs} | {TT.POD_CASE}
+            refs["train"] = {c: TT.reference_run(train_weights[c[0], c[3]][0], c)
+                             for c in train_cases}
         except BaseException as e:  # raised below, in the fixture
             refs["error"] = e
 
@@ -305,6 +330,11 @@ def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
         n_tp = len(jobs)
         jobs += [("long_rank", (wpath, spath, a)) for a, (_, wpath, spath) in longs.items()]
         jobs.append(("moe_rank", (moe_arrays,)))
+        n_moe = len(jobs)
+        train = TT.CASES[shape] + ([TT.POD_CASE] if shape == "2x4" else [])
+        jobs += [("train_rank", (train_weights[c[0], c[3]][1], *c,
+                                 TT.POD_LAYOUT if i == len(TT.CASES[shape]) else None))
+                 for i, c in enumerate(train)]
         ranks = spawn(R.jobs_rank, model=model, data=data, args=(jobs,),
                       init_file=str(tmp_path_factory.mktemp(shape) / "rv"),
                       timeout=SPAWN_TIMEOUT)
@@ -312,7 +342,11 @@ def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
         out["tp", shape] = {TP.case_id(c): [r[n_fixed + i] for r in ranks]
                             for i, c in enumerate(TP.CASES[shape])}
         out["long", shape] = {a: [r[n_tp + i] for r in ranks] for i, a in enumerate(longs)}
-        out["moe", shape] = [r[-1] for r in ranks]
+        out["moe", shape] = [r[n_moe - 1] for r in ranks]
+        out["train", shape] = {TT.case_id(c): [r[n_moe + i] for r in ranks]
+                               for i, c in enumerate(TT.CASES[shape])}
+        if shape == "2x4":
+            out["train", "pod"] = [r[-1] for r in ranks]
         if shape == "2x4":
             out["trace"] = [r[1] for r in ranks]
         else:
@@ -324,6 +358,7 @@ def oneshot(weights, family_weights, tp_weights, tmp_path_factory):
     if "error" in refs:
         raise refs["error"]
     out["long_reference"] = refs.pop("long")
+    out["train_reference"] = refs.pop("train")
     out["tp_reference"] = refs
     return out
 
@@ -506,3 +541,32 @@ def test_moe_block_expert_parallel_parity(oneshot, shape):
     ``data``) against the reference's, at a capacity that drops
     (`TP.check_moe`)."""
     TP.check_moe(oneshot["moe", shape], oneshot["moe_arrays"], SHAPES[shape][1])
+
+
+# ---------------------------------------------------------------------------
+# the dense train cells' step under train_rules (tests/test_torch_train_tp.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_IDS = [(shape, c) for shape in TT.CASES for c in TT.CASES[shape]]
+
+
+@pytest.mark.parametrize("shape,case", TRAIN_IDS,
+                         ids=[f"{s}-{TT.case_id(c)}" for s, c in TRAIN_IDS])
+def test_train_cell_step_parity(oneshot, shape, case):
+    """`train_step` on every rank of the mesh (the sequence and the vocab
+    over ``model``, the weights' d_model dim and the rows over ``data``):
+    three steps against the reference's single-device `train_step`
+    (`TT.check_train`)."""
+    model, data = SHAPES[shape]
+    TT.check_train(oneshot["train", shape][TT.case_id(case)],
+                   oneshot["train_reference"][case], case, model, data)
+
+
+def test_train_cell_step_parity_pods(oneshot):
+    """The 2x4 spawn's ranks as a (pod 2, data 2, model 2) mesh: the rows
+    over all four (pod, data) ranks, the weights' d_model dim over the
+    in-pod ``data`` group, every gradient also summed over ``pod``
+    (`TT.check_train`)."""
+    model, data, pods = TT.POD_LAYOUT
+    TT.check_train(oneshot["train", "pod"], oneshot["train_reference"][TT.POD_CASE],
+                   TT.POD_CASE, model, data // pods, pods)

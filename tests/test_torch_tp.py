@@ -554,20 +554,22 @@ def test_layers_on_shards_sum_to_the_whole(int8):
 
 
 def test_cell_step_refuses_other_cells():
-    """`build_cell(...).fn` refuses the cells A.15 covers (the train step),
-    for archs of every family, naming the item, and a cell built for axis
-    sizes only; `serve_step` refuses a family the port has no step for."""
+    """`build_cell(...).fn` refuses the cells A.15.2 covers (the train step
+    of the MoE, SSM, hybrid, encoder-decoder and VLM families), naming the
+    item, and a cell built for axis sizes only (a dense train cell's too);
+    `serve_step` refuses a family the port has no step for."""
     from repro_torch.distributed import step_stats
 
     axes = {"data": 2, "model": 4}
     with step_stats.fake_tensors():
-        for arch in ("granite-3-2b", "qwen3-moe-30b-a3b", "mamba2-1.3b", "hymba-1.5b",
-                     "whisper-small", "llava-next-34b"):
+        for arch in ("qwen3-moe-30b-a3b", "mamba2-1.3b", "hymba-1.5b", "whisper-small",
+                     "llava-next-34b"):
             cell = specs.build_cell(get_config(arch), SHAPES["train_4k"], axes)
-            with pytest.raises(NotImplementedError, match="A.15"):
+            with pytest.raises(NotImplementedError, match="A.15.2"):
                 cell.fn(*cell.args)
-        for arch in ("granite-3-2b", "mamba2-1.3b"):
-            cell = specs.build_cell(get_config(arch), SHAPES["decode_32k"], axes)
+        for arch, shape in (("granite-3-2b", "train_4k"), ("granite-3-2b", "decode_32k"),
+                            ("mamba2-1.3b", "decode_32k")):
+            cell = specs.build_cell(get_config(arch), SHAPES[shape], axes)
             with pytest.raises(NotImplementedError, match="axis sizes"):
                 cell.fn(*cell.args)
     with pytest.raises(NotImplementedError, match="no serve step"):
