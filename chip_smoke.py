@@ -93,7 +93,11 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    could take, and print them as one JSON line; the host time per call of
    kernels 1 and 2; phase 16 adds kernels 1-3 at gemma2-9b's shapes
    (``*_gemma2`` keys: kernels 1 and 3 on its one-shot's own cache,
-   kernel 2 at its prefill shape);
+   kernel 2 at its prefill shape); wherever kernel 1 is timed at another
+   shape (phases 16, 17, 18 and 21: Dh 256 global / window, G 5, G 7, int8
+   weights, B 1 at C 131,136) the efficient SDPA on the same inputs is
+   timed beside it, the same way (``library_ms_*`` keys; without the
+   softcap, which SDPA has not);
 11. after the timings, so that kernel 1 is timed on the main path's own
    cache: the decode step's ops by input shapes under torch.profiler (one
    eager step on the main engine, which fails if it copies a slot weight:
@@ -167,15 +171,16 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    qwen3-moe-30b-a3b on the card against the port's CPU path (fp32, same
    weights): one-shot and continuous on paged pools, speculative (1-layer
    draft) and chunked for the dense three; identical tokens and lengths,
-   logits within 1e-3.  (b) gemma2-9b at full width and depth (42 layers,
-   head_dim 256, bf16, seed 0): one-shot B = 4 prompts of T = 4608 (past
-   the 4096-token window) under sha and fairkv_dp (lengths bitwise, the
-   logit gap under the bf16 bound, 42 kernel 1 launches per step and one
-   kernel 2 launch per layer, eager == graphed tokens), kernels 1-3 timed
-   at its shapes, then 4 requests of phase 7's trace on bf16 pools, the
-   same with the 8-layer draft, and 4 with 512-token chunks (all finish,
-   pools empty, nothing captured during a trace).  (c) granite-3-2b and
-   (d) granite-moe-1b-a400m at full width and depth: the one-shot of
+   logits within 1e-3.  (b) gemma2-9b at full width cut to 10 of 42
+   layers (head_dim 256, bf16, seed 0): one-shot B = 4 prompts of T = 4608
+   (past the 4096-token window) under sha and fairkv_dp (lengths bitwise,
+   the logit gap under the bf16 bound, a kernel 1 launch per layer and
+   step and one kernel 2 launch per layer, eager == graphed tokens),
+   kernels 1-3 timed at its shapes, then 4 requests of phase 7's trace on
+   bf16 pools, the same with a 2-layer draft, and 4 with 512-token chunks
+   (all finish, pools empty, nothing captured during a trace).  (c)
+   granite-3-2b (cut to 10 of 40 layers) and (d) granite-moe-1b-a400m at
+   full width and depth: the one-shot of
    phase 5's shape under both planners and 4 requests on bf16 pools
    (phase 16's traces ran 8 requests until phase 17 needed the time);
    MoE's eager run bitwise the graphed one, its speculative config
@@ -201,8 +206,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    graphed tokens, the per-shard load max/mean of both plans: 5 kv heads
    over 8 shards), kernels 1-3 timed at its shapes, then 8 requests of
    phase 7's trace on bf16 pools (all finish, pool empty, no capture
-   during the trace).  (c) mamba2-1.3b at full width and depth (48 layers,
-   64 SSD heads x 64, state 128): one-shot B = 8, T = 2048 with no kernel
+   during the trace).  (c) mamba2-1.3b at full width cut to 12 of 48
+   layers (64 SSD heads x 64, state 128): one-shot B = 8, T = 2048 with no kernel
    launched, eager == graphed, then 8 requests on the slot backend with
    imbalance 1.0.  (d) whisper-small at full width and depth (12 + 12
    layers): one-shot B = 8 over 1500 stub frames with a 256-token decoder
@@ -231,8 +236,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    4096, 32 / 8 heads, Dh 64, fp32, windows 0 / 1024, softcaps 0 / 50;
    within 1e-3 max|grad|), the six families' smoke training on the card
    against the CPU (loss after two steps within 1e-3), and granite-3-2b
-   training at full width and depth (40 layers, 2.53 B, bf16 params and
-   fp32 master / mu / nu, B 2 x S 4096, remat, 4 steps of
+   training at full width cut to 10 of 40 layers (`TRAIN_LAYERS`), bf16
+   params and fp32 master / mu / nu, B 2 x S 4096, remat, 4 steps of
    `make_train_step` through `TrainingSupervisor.run`: finite loss and
    grad norm, params bf16, master fp32; prints step s, tokens/s, 6 N
    tokens / step / 989 TFLOP/s, memory, the losses).  (c) `python -m
@@ -256,9 +261,10 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    steps on one gloo rank (reset before each, counted from the memory
    allocated before the step's arguments), within 10%; (c) the
    single-mesh sweep of all ten archs at decode_32k (the fake 32k
-   prefills take tens of seconds a cell): every cell ``ok``,
-   ``args_only`` or ``skipped``, none ``fail`` (the dense and MoE archs'
-   cells execute the cell step: phases 20 (c) and 21 (c) read them);
+   prefills take tens of seconds a cell; from a subprocess started after
+   the build): every cell ``ok`` or
+   ``skipped``, none ``fail`` (the dense and MoE archs' cells execute the
+   cell step: phases 20 (c) and 21 (c) read them);
    prints the counts and
    the phase's seconds;
 20. (after phase 19) the serve cells' step under ``serve_rules``
@@ -331,7 +337,7 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    tokens equal and the rest within phase 21's bars; the partial kernel
    against its plain version on the local run's cache and timed beside
    its bound, plain version and the efficient SDPA (the ``*_g5`` keys of
-   its row); mamba2-1.3b's long_500k (B 1, no cache, full depth) on one
+   its row); mamba2-1.3b's long_500k (B 1, no cache, 12 of 48 layers) on one
    NCCL rank, bitwise; (d) the ten new dry-run cells' records (decode_32k
    and prefill_32k of the four archs, hymba's and mamba2's long_500k, from
    a subprocess started after the build): each executed its step and held
@@ -356,7 +362,27 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    subprocesses started after the build): each executed its step, held
    its derived collectives and fits; prints argument / temp / peak GB a
    rank;
-24. last line: {"ok": true, "device": {...}}.
+24. (after phase 23) the MoE, SSM, hybrid, encoder-decoder and VLM train
+   cells' step, TF32 off: (a) granite-moe-1b-a400m, mamba2-1.3b,
+   hymba-1.5b, whisper-small and llava-next-34b at full width cut to 2
+   layers (whisper 2 encoder + 2 decoder), bf16 params, fp32 master / mu /
+   nu, B 2 x the train_4k row (4096 positions; llava's 2880 image + 1216
+   text), two `SyntheticLM` steps at lr 1e-3, remat: the cell step on one
+   NCCL rank (mesh (1, 1)) against the local `make_train_step`, both under
+   deterministic algorithms: every metric and every param and master / mu
+   / nu leaf bitwise, no collective; (b) the same five at 1 layer (whisper
+   1 + 1) in fp32, B 2 x 1024 (llava 2880 + 256), two gloo ranks sharing
+   the card at (data 1, model 2), beside (a), Adam's eps 1e-6
+   (`P24_OPT`): metrics within 1e-4 (relative) of the local fp32 step's,
+   each rank's param, master, mu and nu shards within 1e-4 of the local
+   result's slice (the worst leaf named), the first step's
+   ``max_memory_allocated`` within 5% of the fake prediction, the derived
+   collectives; (c) the twelve new train_4k records (granite-moe,
+   qwen3-moe, mamba2, hymba, whisper and llava on both production meshes,
+   from two subprocesses started after the build): each executed its
+   step, held its derived collectives and fits; prints argument / temp /
+   peak GB a rank;
+25. last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or run from a directory that does not hold the repository's
 `src/repro_torch`, it exits non-zero and prints no result.
@@ -1665,9 +1691,9 @@ def undersized_blocks(ctx, factor: float) -> int:
 # stack (2 of phases 5-15's 8 layers) with adaptive depth, (f) the
 # full-depth self-draft, whose acceptance would be 1.0 in exact arithmetic;
 # in bf16 the draft's single-row projections and the verify's B*Q-row ones
-# may round apart; gemma2-9b (phase 16) drafts with 8 of its 42 layers
+# may round apart; gemma2-9b (phase 16) drafts with 2 of its 10 layers
 SPEC_E = dict(enabled=True, max_k=4, draft_layers=MAIN_LAYERS // 4)
-SPEC_GEMMA = dict(SPEC_E, draft_layers=8)
+SPEC_GEMMA = dict(SPEC_E, draft_layers=2)
 SPEC_F = dict(enabled=True, max_k=4, draft_layers=0)
 SPEC_F_ACCEPTANCE = 0.90
 
@@ -3604,8 +3630,14 @@ FAMILY_REQS, FAMILY_CHUNK_REQS, P17_REQS = 4, 4, 8
 # config): qwen1.5-110b to 4 of 80 layers (~7.9 B parameters, 15.9 GB in
 # bf16), qwen3-moe-30b-a3b to 8 of 48 (~5.6 B); phase 17's llava-next-34b
 # to 12 of 60 (~7.6 B: at full depth its ~34.4 B parameters, ~69 GB in
-# bf16, leave no room on one 80 GB card for its slot weights and cache)
-FAMILY_CUTS = {"qwen1.5-110b": 4, "qwen3-moe-30b-a3b": 8, "llava-next-34b": 12}
+# bf16, leave no room on one 80 GB card for its slot weights and cache);
+# since the script took 1160-1257 s with phase 24 on an NVIDIA H100 80GB
+# HBM3, 700.00 W: mamba2-1.3b to 12 of 48 (no plan: its one-shot's bars do
+# not scale with the depth), gemma2-9b to 10 of 42 and granite-3-2b to 10
+# of 40 (their plan gaps were 0.124 and 0.0781 against bars of 2.4326 and
+# 0.7422 at full depth; the bar scales with the layers)
+FAMILY_CUTS = {"qwen1.5-110b": 4, "qwen3-moe-30b-a3b": 8, "llava-next-34b": 12,
+               "mamba2-1.3b": 12, "gemma2-9b": 10, "granite-3-2b": 10}
 
 
 def _smoke_batch(model, seed=SEED):
@@ -3847,6 +3879,30 @@ def family_oneshot(arch, b, t, modes=(("sha", 0), ("fairkv_dp", 4)), bias=False)
     return ctx, rec
 
 
+def sdpa_decode_ms(q, k, v, ln, flush, k_pos=None, q_pos=None, window=0):
+    """The efficient SDPA (``F.scaled_dot_product_attention``) on kernel 1's
+    inputs (q (B, S, G, Dh), k / v (S, B, C, Dh), lengths (S, B)), each
+    (slot, row) pair a batch entry with its G query heads over its one K / V
+    head, the lengths (and a window's positions) as a boolean mask: its
+    device ms, the same 25-call median after an L2 flush as the kernel's
+    (a softcap, which SDPA has not, is left out: the library's time of the
+    same attention without it)."""
+    import torch
+    import torch.nn.functional as F
+    S, Bq, C, Dh = k.shape
+    G = q.shape[2]
+    qs = q.permute(1, 0, 2, 3).reshape(S * Bq, G, 1, Dh)
+    ks = k.reshape(S * Bq, 1, C, Dh)
+    vs = v.reshape(S * Bq, 1, C, Dh)
+    keep = torch.arange(C, device="cuda")[None, :] < ln.reshape(-1, 1)
+    if window:
+        qp = q_pos[None, :].expand(S, Bq).reshape(-1, 1)
+        keep = keep & (k_pos.reshape(S * Bq, C) > qp - window)
+    mask = keep[:, None, None, :]
+    return time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                          enable_gqa=True), flush)
+
+
 def time_gemma_kernels(ctx, rows):
     """Phase 10's table at gemma2-9b's main-path shapes (``*_gemma2`` keys):
     kernels 1 and 3 on its one-shot's own cache (layer 1, a global layer;
@@ -3893,6 +3949,7 @@ def time_config_kernels(ctx, rows, label, layers, b, t, mq_sfx=None):
                    fairkv_decode_ref(q, k, v, ln, **kw), FP32_TOL, BF16_ULP)
         kern = time_ms(lambda: fairkv_decode_cuda(q, k, v, ln, **kw), flush)
         plain = time_ms(lambda: fairkv_decode_ref(q, k, v, ln, **kw), flush)
+        lib = sdpa_decode_ms(q, k, v, ln, flush, kp, qp, window)
         n_ret = int(ln.sum().item())
         it = k.element_size()
         nbytes = n_ret * Dh * 2 * it + 2 * q.numel() * it + ln.numel() * 4 + (
@@ -3913,14 +3970,16 @@ def time_config_kernels(ctx, rows, label, layers, b, t, mq_sfx=None):
         pbound = 1e3 * max((nbytes + n_blk * 4) / HBM_BYTES_PER_S,
                            4 * n_ret * G * Dh / BF16_FLOP_PER_S)
         by_name["fairkv_decode"].update({f"ms{sfx}": kern, f"plain_ms{sfx}": plain,
-                                         f"bound_ms{sfx}": bound, f"max_abs_err{sfx}": err})
+                                         f"bound_ms{sfx}": bound, f"max_abs_err{sfx}": err,
+                                         f"library_ms{sfx}": lib})
         by_name["paged_fairkv_decode"].update({f"ms{sfx}": pkern, f"plain_ms{sfx}": pplain,
                                                f"bound_ms{sfx}": pbound,
                                                f"max_abs_err{sfx}": perr})
         log(f"[time] {label} layer {layer} ({'window ' + str(window) if window else 'global'}, "
             f"softcap {m.attn_softcap}) at (B={Bq}, S={S}, G={G}, C={C}, Dh={Dh}) bf16, "
-            f"sum(lengths)={n_ret}: fairkv_decode {kern:.4f} ms (plain {plain:.4f}, bound "
-            f"{bound:.4f} ms = {nbytes} B / 3.35 TB/s); paged_fairkv_decode over the cache as "
+            f"sum(lengths)={n_ret}: fairkv_decode {kern:.4f} ms (plain {plain:.4f}, SDPA "
+            f"{lib:.4f} (no softcap), bound {bound:.4f} ms = {nbytes} B / 3.35 TB/s); "
+            f"paged_fairkv_decode over the cache as "
             f"pools {pkern:.4f} ms (plain {pplain:.4f}, bound {pbound:.4f} ms), bitwise "
             f"kernel 1's")
         if mq_sfx is not None and li == 0:
@@ -4224,6 +4283,10 @@ def p17_runs(rows):
 INT8_SMOKE = dict(d_model=256, d_ff=512, head_dim=64, vocab_size=128)
 TRAIN_ARCH = "granite-3-2b"
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 2, 4096, 4  # train_4k's sequence length
+# cut to 10 of its 40 layers since the script took 1160 s with phase 24 (the
+# full depth took 23.1 s: 4.941 s a step on an NVIDIA H100 80GB HBM3,
+# 700.00 W, recorded in PERF.md)
+TRAIN_LAYERS = 10
 TRAIN_SMOKE = ("granite-3-2b", "granite-moe-1b-a400m", "mamba2-1.3b", "hymba-1.5b",
                "whisper-small", "llava-next-34b")
 # the flash backward against autograd through dense_attention at one of
@@ -4494,7 +4557,7 @@ def train_full_width():
     from repro_torch.training import (OptimizerConfig, SupervisorConfig, SyntheticLM,
                                       TrainingSupervisor, init_optimizer, make_train_step)
     t0 = time.perf_counter()
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(TRAIN_ARCH).with_overrides(n_layers=TRAIN_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4538,7 +4601,8 @@ def train_full_width():
            "loss": [mt["loss"] for mt in mets], "grad_norm": [mt["grad_norm"] for mt in mets],
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "seconds": time.perf_counter() - t0}
-    log(f"[p18] (b) {cfg.name} training at full width and depth ({cfg.n_layers} layers, "
+    log(f"[p18] (b) {cfg.name} training at full width ({cfg.n_layers} of "
+        f"{get_config(TRAIN_ARCH).n_layers} layers, "
         f"{n_params / 1e9:.2f} B parameters, bf16 params, fp32 master / mu / nu, B={TRAIN_B} "
         f"x S={TRAIN_S}, remat): step {step_s:.3f} s (median of steps 2-{TRAIN_STEPS}; "
         f"first {times[0]:.3f} s), {rec['tokens_per_s']:.0f} tokens/s, 6 N tokens / step = "
@@ -4765,25 +4829,48 @@ def p19_prediction():
                  f"off the card's {real[step]} B")
 
 
-def p19_runs():
+P19_DRY = ROOT / "chiprun_out" / "dryrun_p19"
+
+
+def p19_sweep_start():
+    """Start (c)'s single-mesh sweep of the ten archs at decode_32k in a
+    subprocess (host only, one thread; ~54 s of host time, off the main
+    process's); returns it."""
+    code = ("import sys, torch; torch.set_num_threads(1); "
+            "from repro_torch.configs import ALL_ARCHS; "
+            "from repro_torch.launch import dryrun as d; "
+            f"a = d.sweep(ALL_ARCHS, ['decode_32k'], [False], 'fairkv_dp', {str(P19_DRY)!r}, "
+            "dev_bytes=d.H100_BYTES); "
+            "sys.exit(a['counts']['fail'])")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def p19_runs(sweep):
     """Phase 19: the dry run's audit, its prediction against the card, and
-    the single-mesh sweep at decode_32k."""
+    the single-mesh sweep at decode_32k (from ``sweep``, `p19_sweep_start`'s
+    subprocess)."""
     from repro_torch.configs import ALL_ARCHS
-    from repro_torch.launch import dryrun
     t0 = time.perf_counter()
     p19_scratch_formulas()
     p19_audits()
     p19_prediction()
     t1 = time.perf_counter()
-    res = dryrun.sweep(ALL_ARCHS, ["decode_32k"], [False], "fairkv_dp", None)
-    c = res["counts"]
+    out, _ = sweep.communicate(timeout=900)
+    records = [json.loads((P19_DRY / f"{arch}__decode_32k__single.json").read_text())
+               for arch in ALL_ARCHS]
+    c = {k: sum(r["status"] == k for r in records) for k in ("ok", "skipped", "fail")}
+    if sweep.returncode != 0 and not c["fail"]:
+        fail(f"[p19] (c) the sweep's subprocess failed:\n{out[-3000:]}")
+    res = {"records": records}
     for rec in res["records"]:
         ex = rec.get("executed", {}).get("memory", {})
         log(f"[p19] (c) {rec['arch']} decode_32k single: {rec['status']}, rules args "
             f"{rec.get('memory', {}).get('argument_bytes')} B, cell step peak "
             f"{ex.get('peak_bytes')} B, fits {rec.get('fits')}")
     log(f"[p19] (c) sweep of {len(ALL_ARCHS)} archs at decode_32k on (data 16, model 16): "
-        f"{c} in {time.perf_counter() - t1:.1f} s")
+        f"{c}, read {time.perf_counter() - t1:.1f} s after the audits")
     if c["fail"]:
         fail(f"[p19] (c) {c['fail']} dry-run cells failed")
     log(f"[p19] phase 19 took {time.perf_counter() - t0:.1f} s")
@@ -5557,14 +5644,15 @@ def p21_kernel_rows(ref, rows, launches):
     n1 = int(ln1.sum().item())
     b1 = n1 * Dh * 2 * it + 2 * q.numel() * it + ln1.numel() * 4
     k1_bound = 1e3 * max(b1 / HBM_BYTES_PER_S, 4 * n1 * G * Dh / BF16_FLOP_PER_S)
+    k1_lib = sdpa_decode_ms(q, k1, v1, ln1, flush)
     for row in rows:
         if row["name"] == "fairkv_decode":
-            row.update(ms_long_b1=k1_ms, bound_ms_long_b1=k1_bound)
+            row.update(ms_long_b1=k1_ms, bound_ms_long_b1=k1_bound, library_ms_long_b1=k1_lib)
     log(f"[time] fairkv_decode_partial at (B 1, S {S}, G {G}, C_loc {P21_C_LOC}, Dh {Dh}) "
         f"bf16, sum(lengths) = {n_ret}: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
         f"efficient SDPA {lib if lib is None else f'{lib:.4f}'} ms, bound {bound:.4f} ms "
-        f"({nbytes} B); kernel 1 at (B 1, S {S}, C {C}): {k1_ms:.4f} ms, bound "
-        f"{k1_bound:.4f} ms (sum(lengths) = {n1})")
+        f"({nbytes} B); kernel 1 at (B 1, S {S}, C {C}): {k1_ms:.4f} ms, SDPA {k1_lib:.4f} "
+        f"ms (no softcap), bound {k1_bound:.4f} ms (sum(lengths) = {n1})")
 
 
 def p21_long(rows):
@@ -5849,11 +5937,11 @@ P22_GLOO = {"mamba2-1.3b": (4, 512, B), "hymba-1.5b": (16, 128, B),
 # 16 steps (as phase 21's: over 72 steps 2 near-tied tokens of the split-S
 # ranks flipped on the H100); the gloo ranks split the 1088
 # columns over data 2: kernel 1's partial variant at G 5, Dh 64, window
-# 1024.  mamba2-1.3b's long_500k (B 1, no cache) at full width and depth,
-# one NCCL rank
+# 1024.  mamba2-1.3b's long_500k (B 1, no cache) at full width, phase 17's
+# 12 of 48 layers, one NCCL rank
 P22_LONG = dict(arch="hymba-1.5b", layers=4, cap=1024, len_min=1000, steps=16, data=2,
                 tag="[p22] (c)")
-P22_MAMBA_LONG = dict(arch="mamba2-1.3b", layers=48, cap=1024, len_min=0, steps=16, data=1,
+P22_MAMBA_LONG = dict(arch="mamba2-1.3b", layers=12, cap=1024, len_min=0, steps=16, data=1,
                       tag="[p22] (c)")
 P22_DRY = ROOT / "chiprun_out" / "dryrun_p22"
 
@@ -6200,13 +6288,13 @@ def p22_dryrun_start():
     """Start the dry run of the ten cells this phase adds (the SSM, hybrid,
     encoder-decoder and VLM archs at decode_32k and prefill_32k, hymba's
     and mamba2's long_500k) on the single mesh in a subprocess (host only,
-    two threads; their 32k prefills take minutes); returns it."""
-    code = ("import sys, torch; torch.set_num_threads(2); "
+    one thread; their 32k prefills take minutes); returns it."""
+    code = ("import sys, torch; torch.set_num_threads(1); "
             "from repro_torch.launch import dryrun as d; "
             f"o = {str(P22_DRY)!r}; "
             f"a = d.sweep({list(P22_ARCHS)!r}, ['decode_32k', 'long_500k', 'prefill_32k'], "
             "[False], 'fairkv_dp', o, dev_bytes=d.H100_BYTES); "
-            "sys.exit(a['counts']['fail'] + a['counts']['args_only'])")
+            "sys.exit(a['counts']['fail'])")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     return subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), env=env,
                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -6341,14 +6429,15 @@ def p23_run(step, params, opt, batches, device, shard_batch=None):
     return params, opt, mets, times, colls
 
 
-def p23_nccl():
+def p23_nccl(cfg=None, c=P23_A, tag="[p23] (a)"):
     """(a): the cell step (`launch.specs.train_step`) on one NCCL rank (mesh
     (1, 1)) against the local `make_train_step` from the same seed-0
     weights and batches, both under deterministic algorithms: every
     metric of every step and every param and master / mu / nu leaf after
     the steps bitwise; the per-step collectives those `train_collectives`
     derives at (1, 1) (a group of one issues nothing).  Prints both
-    steps' host-clocked times."""
+    steps' host-clocked times.  ``cfg`` / ``c``: another config and size
+    (phase 24's), granite-3-2b's at ``P23_A`` by default."""
     import tempfile
 
     import torch
@@ -6359,9 +6448,9 @@ def p23_nccl():
     from repro_torch.launch.mesh import make_host_mesh
     from repro_torch.models import init_params
     from repro_torch.training import OptimizerConfig, init_optimizer, make_train_step
-    from repro_torch.training.optimizer import tree_leaves
-    c = P23_A
-    cfg = p23_config(c["layers"])
+    from repro_torch.configs import get_config
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    cfg = cfg or p23_config(c["layers"])
     batches = p23_batches(cfg, c)
     ocfg = OptimizerConfig(**P23_OPT)
 
@@ -6376,6 +6465,12 @@ def p23_nccl():
     torch.use_deterministic_algorithms(True)
     try:
         local = p23_run(make_train_step(cfg, ocfg, remat=True), *fresh(), batches, "cuda")
+        # the local results wait on the host: two full-width trees with
+        # their fp32 optimizer states need not share the card
+        local = (tree_map(lambda x: x.cpu(), local[0]), tree_map(lambda x: x.cpu(), local[1]),
+                 [{k: v.cpu() for k, v in m.items()} for m in local[2]]) + tuple(local[3:])
+        gc.collect()
+        torch.cuda.empty_cache()
         dist.init_process_group("nccl", init_method=f"file://{tempfile.mkdtemp()}/rendezvous",
                                 rank=0, world_size=1)
         try:
@@ -6394,19 +6489,20 @@ def p23_nccl():
         else:
             os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
     differ = [f"step {i + 1} {k}" for i, (a, b) in enumerate(zip(local[2], cell[2]))
-              for k in P23_METRICS if not torch.equal(a[k], b[k])]
+              for k in P23_METRICS if not torch.equal(a[k], b[k].cpu())]
     for what, a, b in (("params", local[0], cell[0]), ("optimizer state", local[1], cell[1])):
         la, lb = tree_leaves(a), tree_leaves(b)
-        n = sum(not torch.equal(x, y) for x, y in zip(la, lb))
+        n = sum(not torch.equal(x, y.cpu()) for x, y in zip(la, lb))
         if n or len(la) != len(lb):
             differ.append(f"{n} of {len(la)} {what} leaves")
-    held = [dryrun.train_contract(g, cfg, c["B"], c["T"], 1, 1, 1) for g in cell[4]]
+    held = [dryrun.train_contract(g, cfg, c["B"], c["T"], 1, 1, 1, c["T"]) for g in cell[4]]
     if differ or not all(all(h.values()) for h in held):
-        fail(f"[p23] (a) the cell step on one NCCL rank is not bitwise the local step: "
+        fail(f"{tag} {cfg.name}: the cell step on one NCCL rank is not bitwise the local step: "
              f"{differ}; collectives {cell[4]} against the derived {held}")
     mets = [{k: float(v) for k, v in m.items()} for m in cell[2]]
-    log(f"[p23] (a) {cfg.name} ({c['layers']} of 40 layers, full width, bf16 params, fp32 "
-        f"master / mu / nu, B {c['B']} x {c['T']}, remat) on one NCCL rank: {c['steps']} cell "
+    full = get_config(cfg.name)
+    log(f"{tag} {cfg.name} ({c['layers']} of {full.n_layers} layers, full width, bf16 params, "
+        f"fp32 master / mu / nu, B {c['B']} x {c['T']}, remat) on one NCCL rank: {c['steps']} cell "
         f"steps bitwise the local make_train_step (every metric, "
         f"{len(tree_leaves(cell[0]))} param and {len(tree_leaves(cell[1]))} optimizer leaves); "
         f"collectives per step {cell[4][0]} = train_collectives at (1, 1); metrics {mets}; "
@@ -6426,10 +6522,11 @@ def _autograd_workspace(device) -> None:
     torch.cuda.synchronize()
 
 
-def p23_shards(mesh, cfg, c, device, init_device=None):
+def p23_shards(mesh, cfg, c, device, init_device=None, opt=P23_OPT):
     """The cell's arguments on ``mesh``'s rank: its shards of the seed-0 fp32
     weights (built whole on ``init_device``, default ``device``), a fresh
-    optimizer state, the step, the params' specs and the rows' cut."""
+    optimizer state, the step (under ``opt``'s `OptimizerConfig`), the
+    params' specs and the rows' cut."""
     import torch
     from repro_torch.distributed.param_specs import local_shard, tree_specs
     from repro_torch.distributed.sharding import train_rules
@@ -6442,23 +6539,25 @@ def p23_shards(mesh, cfg, c, device, init_device=None):
     spec = tree_specs(whole, rules, "train")
     params = tree_map(lambda x: x.to(device), local_shard(whole, spec, mesh))
     del whole
-    fn = specs.train_step(cfg, mesh, rules, spec, c["B"], c["T"], OptimizerConfig(**P23_OPT))
-    bspec = {"tokens": (rules.guarded(c["B"], "batch"), None)}
+    fn = specs.train_step(cfg, mesh, rules, spec, c["B"], c["T"], OptimizerConfig(**opt))
+    rows = rules.guarded(c["B"], "batch")
+
+    def cut(b):  # the rank's rows of the tokens and the stub frontends' inputs
+        return local_shard(b, {k: (rows,) + (None,) * (v.dim() - 1) for k, v in b.items()}, mesh)
     return {"params": params, "opt": init_optimizer(params), "fn": fn, "spec": spec,
-            "rows": lambda b: local_shard(b, bspec, mesh)}
+            "rows": cut}
 
 
-def p23_prediction(data, model):
+def p23_prediction(data, model, cfg=None, c=P23_B):
     """(b)'s predicted peak at (``data``, ``model``): the first cell step
     on fake tensors on a fake mesh of that layout, rank 0's (the ranks'
     shapes are the same); a train cell's fake tensors live on the host
-    (`dryrun.TRAIN_FAKE_DEVICE`)."""
+    (`dryrun.TRAIN_FAKE_DEVICE`).  ``cfg`` / ``c`` as `p23_nccl`'s."""
     from repro_torch.distributed import step_stats
     from repro_torch.launch import dryrun
     from repro_torch.launch.mesh import fake_process_group, make_production_mesh
     from repro_torch.launch.train import device_batch
-    c = P23_B
-    cfg = p23_config(c["layers"])
+    cfg = cfg or p23_config(c["layers"])
     batch = p23_batches(cfg, dict(c, steps=1))[0]
     dev = dryrun.TRAIN_FAKE_DEVICE
     with fake_process_group(data * model), step_stats.fake_tensors():
@@ -6523,14 +6622,14 @@ def p23_gloo_rank(mesh, args):
             "rank": (mesh.data_idx, mesh.model_idx)}
 
 
-def p23_gloo_check(data, model, ranks, predicted):
+def p23_gloo_check(data, model, ranks, predicted, cfg=None, c=P23_B, tag="[p23] (b)"):
     """(b)'s bars at one layout: every step's loss, xent and grad norm (and
     lr) within ``P23_TOL`` relative of the local fp32 step's, every shard
     within ``P23_TOL`` of the local result's slice, each rank's peak within
-    `P21_PEAK_TOL` of the prediction, and the derived collectives."""
+    `P21_PEAK_TOL` of the prediction, and the derived collectives.
+    ``cfg`` / ``c`` as `p23_nccl`'s."""
     from repro_torch.launch import dryrun
-    c = P23_B
-    cfg = p23_config(c["layers"])
+    cfg = cfg or p23_config(c["layers"])
     problems = []
     for r, got in enumerate(ranks):
         rel = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-30)
@@ -6538,7 +6637,7 @@ def p23_gloo_check(data, model, ranks, predicted):
                   for k in ("loss", "xent", "grad_norm", "lr"))
         off = abs(predicted - got["peak"]) / got["peak"]
         held = dryrun.train_contract(got["collectives"], cfg, c["B"] // data, c["T"], model,
-                                     data, 1)
+                                     data, 1, c["T"])
         if not rel <= P23_TOL:
             problems.append(f"rank {r}: metrics {rel:.3e} off the local step's (relative)")
         problems += [f"rank {r} {k}: {g:.3f} of the bar" for k, g in got["gaps"].items()
@@ -6548,30 +6647,31 @@ def p23_gloo_check(data, model, ranks, predicted):
                             f"({100 * off:.1f}% off)")
         if not all(held.values()):
             problems.append(f"rank {r}: collectives {got['collectives']} break {held}")
-        log(f"[p23] (b) (data {data}, model {model}) gloo rank {r} {got['rank']}: metrics "
+        log(f"{tag} {cfg.name} (data {data}, model {model}) gloo rank {r} {got['rank']}: metrics "
             f"within {rel:.2e} (relative) of the local fp32 step's, shards' worst gap "
-            f"{ {k: round(g, 4) for k, g in got['gaps'].items()} } of the {P23_TOL:g} bar; "
+            f"{ {k: round(g, 4) for k, g in got['gaps'].items()} } of the {P23_TOL:g} bar"
+            f"{' (at ' + str(got['worst']) + ')' if 'worst' in got else ''}; "
             f"first step peak {got['peak']} B, predicted {predicted} B ({100 * off:.2f}%); "
             f"steps {[round(t, 3) for t in got['step_s']]} s (host clock); per step "
             f"{got['collectives']}")
-    log(f"[p23] (b) (data {data}, model {model}): losses "
+    log(f"{tag} {cfg.name} (data {data}, model {model}): losses "
         f"{[round(m['loss'], 5) for m in ranks[0]['mets']]}, local "
         f"{[round(m['loss'], 5) for m in ranks[0]['local_mets']]}")
     if problems:
-        fail(f"[p23] (b) (data {data}, model {model}): " + "; ".join(problems))
+        fail(f"{tag} {cfg.name} (data {data}, model {model}): " + "; ".join(problems))
 
 
 def p23_dryrun_start():
     """Start the dry run of the dense archs' train_4k cells, one subprocess
-    a production mesh (host only, two threads each); returns them."""
+    a production mesh (host only, one thread each); returns them."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     procs = []
     for multi in (False, True):
-        code = ("import sys, torch; torch.set_num_threads(2); "
+        code = ("import sys, torch; torch.set_num_threads(1); "
                 "from repro_torch.launch import dryrun as d; "
                 f"a = d.sweep({list(P23_DENSE)!r}, ['train_4k'], [{multi}], 'fairkv_dp', "
                 f"{str(P23_DRY)!r}, dev_bytes=d.H100_BYTES); "
-                "sys.exit(a['counts']['fail'] + a['counts']['args_only'])")
+                "sys.exit(a['counts']['fail'])")
         procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), env=env,
                                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True))
@@ -6624,6 +6724,223 @@ def p23_runs(dry):
         f"(a) {t2 - t1:.1f} s beside (b)'s ranks, (b) after it {t3 - t2:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the MoE, SSM, hybrid, encoder-decoder and VLM train cells' step
+# ---------------------------------------------------------------------------
+
+P24_ARCHS = ("granite-moe-1b-a400m", "mamba2-1.3b", "hymba-1.5b", "whisper-small",
+             "llava-next-34b")
+# (c)'s dry-run archs: the six non-dense archs' train_4k cells on both meshes
+P24_DRY_ARCHS = ("granite-moe-1b-a400m", "qwen3-moe-30b-a3b", "mamba2-1.3b", "hymba-1.5b",
+                 "whisper-small", "llava-next-34b")
+# (a) one NCCL rank: bf16 params, fp32 master / mu / nu, B 2 x the train_4k
+# row (4096 positions; llava's 2880 image + 1216 text), 2 layers (whisper 2
+# encoder + 2 decoder); (b) two gloo ranks sharing the card at (data 1,
+# model 2): fp32, 1 layer (whisper 1 + 1), B 2 x 1024 (llava 2880 + 256)
+P24_A = dict(layers=2, B=2, T=4096, steps=2)
+P24_B = dict(layers=1, B=2, T=1024, steps=2)
+P24_LLAVA_B_TEXT = 256
+P24_LAYOUT = (1, 2)  # (data, model)
+# (b)'s optimizer: phase 23's with Adam's eps 1e-6 (the reference's 1e-8 in
+# (a)).  The update lr·m̂/(√v̂ + eps) divides a gradient near zero by about
+# eps, so at 1e-8 the fp32 rounding of the sharded products (median 3e-6
+# relative at mamba2's and llava's widths) moved single mamba2 and llava
+# params 4.5x and 2.0x the 1e-4 bar past the local step's; at 1e-6 the
+# update still moves every param with |g| >> 1e-6 by lr, 10x the bar
+P24_OPT = dict(P23_OPT, eps=1e-6)
+# (b)'s local runs take turns when a whole fp32 tree with its master / mu /
+# nu (16 B a parameter) passes this: llava's 1.47 B parameters at 1 layer
+P24_SERIAL_BYTES = 8 * 2**30
+P24_DRY = ROOT / "chiprun_out" / "dryrun_p24"
+
+
+def p24_case(arch, c):
+    """``arch`` at full width cut to ``c["layers"]`` layers (an
+    encoder-decoder's encoder too), and ``c`` with its row's positions
+    (llava's (b): its image prefix and ``P24_LLAVA_B_TEXT`` tokens)."""
+    from repro_torch.configs import get_config
+    full = get_config(arch)
+    over = {"n_layers": c["layers"]}
+    if full.is_encoder_decoder:
+        over["n_encoder_layers"] = c["layers"]
+    if full.is_vlm and c is P24_B:
+        c = dict(c, T=full.num_image_tokens + P24_LLAVA_B_TEXT)
+    return full.with_overrides(**over), c
+
+
+def _named_leaves(tree, path=""):
+    """(path, tensor) of a dict / list tree's leaves, in `tree_leaves`' order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{path}.{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _named_leaves(v, f"{path}.{i}")
+    else:
+        yield path.lstrip("."), tree
+
+
+def p24_gloo_rank(mesh, args):
+    """One gloo rank of (b), every arch in turn: first the local fp32
+    `make_train_step` on the whole tree (one rank at a time where the whole
+    tree with its optimizer state passes `P24_SERIAL_BYTES`, so that two
+    never share the card), its slice of the results kept on the host; then
+    the cell steps on the rank's shards, the first step's
+    ``max_memory_allocated`` above the memory before its arguments, and
+    the worst gap of each param, master, mu and nu shard to the local
+    slice as a share of ``P23_TOL`` + ``P23_TOL`` |local| (on the card)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.param_specs import local_shard, tree_specs
+    from repro_torch.distributed.sharding import train_rules
+    from repro_torch.models import init_params
+    from repro_torch.training import OptimizerConfig, init_optimizer, make_train_step
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    if mesh.rank:
+        sys.stdout = open(os.devnull, "w")  # rank 0 logs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _cublas_workspace(mesh.device)
+    _autograd_workspace(mesh.device)
+    out = {}
+    for arch in P24_ARCHS:
+        cfg, c = p24_case(arch, P24_B)
+        batches = p23_batches(cfg, c)
+        spec = None
+        serial = 16 * cfg.param_count() > P24_SERIAL_BYTES
+        for r in range(mesh.world) if serial else [mesh.rank]:
+            if r == mesh.rank:
+                whole = init_params(cfg, SEED, torch.float32, mesh.device, max_seq_len=c["T"])
+                spec = tree_specs(whole, train_rules(mesh), "train")
+                lp, lo, lmets, _, _ = p23_run(make_train_step(cfg, OptimizerConfig(**P24_OPT)),
+                                              whole, init_optimizer(whole), batches, mesh.device)
+                ref = {k: tree_map(lambda x: x.cpu(), local_shard(t, spec, mesh))
+                       for k, t in (("params", lp), ("master", lo.master), ("mu", lo.mu),
+                                    ("nu", lo.nu))}
+                lmets = [{k: float(v) for k, v in m.items()} for m in lmets]
+                del whole, lp, lo
+                gc.collect()
+                torch.cuda.empty_cache()
+            if serial:
+                dist.barrier()
+        gc.collect()
+        base = torch.cuda.memory_allocated()
+        a = p23_shards(mesh, cfg, c, mesh.device, opt=P24_OPT)
+        peak = {}
+
+        def first_step_peak(params, opt, batch):
+            if not peak:
+                gc.collect()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+            res = a["fn"](params, opt, batch)
+            if not peak:
+                torch.cuda.synchronize()
+                peak["step"] = torch.cuda.max_memory_allocated() - base
+            return res
+
+        params, opt, mets, times, colls = p23_run(first_step_peak, a["params"], a["opt"],
+                                                  batches, mesh.device, a["rows"])
+        a = None
+        gaps, worst = {}, {}
+        names = [k for k, _ in _named_leaves(params)]
+        for name, mine in (("params", params), ("master", opt.master), ("mu", opt.mu),
+                           ("nu", opt.nu)):
+            per = []
+            for x, y in zip(tree_leaves(mine), tree_leaves(ref[name])):
+                y = y.to(x.device)
+                per.append(float(((x - y).abs() / (P23_TOL + P23_TOL * y.abs())).max()))
+            gaps[name] = max(per)
+            worst[name] = names[per.index(gaps[name])]
+        out[arch] = {"mets": [{k: float(v) for k, v in m.items()} for m in mets],
+                     "local_mets": lmets, "gaps": gaps, "worst": worst, "peak": peak["step"],
+                     "collectives": colls[0], "step_s": times,
+                     "rank": (mesh.data_idx, mesh.model_idx)}
+        # nothing of this arch may outlive it: the next arch's peak counts
+        # from the memory allocated before its arguments
+        del params, opt, ref, first_step_peak
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def p24_dryrun_start():
+    """Start the dry run of the six non-dense archs' train_4k cells, one
+    subprocess a production mesh (host only, one thread each)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for multi in (False, True):
+        code = ("import sys, torch; torch.set_num_threads(1); "
+                "from repro_torch.launch import dryrun as d; "
+                f"a = d.sweep({list(P24_DRY_ARCHS)!r}, ['train_4k'], [{multi}], 'fairkv_dp', "
+                f"{str(P24_DRY)!r}, dev_bytes=d.H100_BYTES); "
+                "sys.exit(a['counts']['fail'])")
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=str(ROOT), env=env,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    return procs
+
+
+def p24_dryrun(procs):
+    """(c): the twelve new train records (the six archs on both production
+    meshes): each executed its step, held its derived collectives and
+    fits; prints argument, temp and peak GB a rank."""
+    for proc in procs:
+        out, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            fail(f"[p24] (c) the dry run of the train cells failed:\n{out[-3000:]}")
+    for mesh in ("single", "multi"):
+        for arch in P24_DRY_ARCHS:
+            rec = json.loads((P24_DRY / f"{arch}__train_4k__{mesh}.json").read_text())
+            ex = rec.get("executed")
+            if rec["status"] != "ok" or ex is None or not rec["fits"]:
+                fail(f"[p24] (c) {arch} train_4k {mesh}: {rec['status']}, fits "
+                     f"{rec.get('fits')}")
+            if not all(ex["contract"].values()):
+                fail(f"[p24] (c) {arch} train_4k {mesh}: contract {ex['contract']}")
+            m = ex["memory"]
+            log(f"[p24] (c) {arch} train_4k on the {mesh} mesh: args "
+                f"{m['argument_bytes'] / 1e9:.2f} GB, temp {m['temp_bytes'] / 1e9:.2f} GB, "
+                f"peak {m['peak_bytes'] / 1e9:.2f} GB a rank, fits {rec['fits']} "
+                f"({rec['device_bytes'] / 1e9:.1f} GB); contract held; {ex['step']} in "
+                f"{ex['seconds']} s")
+
+
+def p24_runs(dry):
+    """Phase 24: (b)'s predictions, then (a) for each arch on one NCCL rank
+    while (b)'s two gloo ranks run every arch, then (b)'s bars and (c)'s
+    records; prints the seconds."""
+    import torch
+    t0 = time.perf_counter()
+    data, model = P24_LAYOUT
+    predicted = {arch: p23_prediction(data, model, *p24_case(arch, P24_B))
+                 for arch in P24_ARCHS}
+    join = p20_gloo_start({}, rank_fn=p24_gloo_rank, model=model, data=data)
+    t1 = time.perf_counter()
+    # llava first: its (a) trees and (b)'s whole fp32 llava tree would not
+    # share the card, and (b) takes the archs in the other order
+    for arch in reversed(P24_ARCHS):
+        p23_nccl(*p24_case(arch, P24_A), tag="[p24] (a)")
+        gc.collect()
+        torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    ranks = join()
+    failed = []
+    for arch in P24_ARCHS:  # every arch's bars are printed before a failure
+        cfg, c = p24_case(arch, P24_B)
+        try:
+            p23_gloo_check(data, model, [r[arch] for r in ranks], predicted[arch], cfg, c,
+                           tag="[p24] (b)")
+        except RuntimeError as e:
+            failed.append(str(e))
+    if failed:
+        fail("; ".join(failed))
+    t3 = time.perf_counter()
+    p24_dryrun(dry)
+    log(f"[p24] phase 24 took {time.perf_counter() - t0:.1f} s (predictions {t1 - t0:.1f} s, "
+        f"(a) {t2 - t1:.1f} s beside (b)'s ranks, (b) after it {t3 - t2:.1f} s, (c) after "
+        f"that {time.perf_counter() - t3:.1f} s)")
+
+
 def main() -> int:
     try:
         import torch
@@ -6652,11 +6969,13 @@ def main() -> int:
     log(f"[card] {card}")
     build_kernels()
     mark("phase 2 (build)")
-    # phase 22 (d)'s fake prefills and phase 23 (c)'s fake train steps run on
-    # the host from here on
+    # phase 19 (c)'s fake decode steps, phase 22 (d)'s fake prefills and
+    # phases 23 (c)'s and 24 (c)'s fake train steps run on the host from here on
+    dry19 = p19_sweep_start()
     dry22 = p22_dryrun_start()
     dry23 = p23_dryrun_start()
-    for proc in [dry22] + dry23:
+    dry24 = p24_dryrun_start()
+    for proc in [dry19, dry22] + dry23 + dry24:
         atexit.register(lambda p=proc: p.poll() is None and (p.kill(), p.wait()))
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
@@ -6729,7 +7048,7 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 18")
-    records = p19_runs()
+    records = p19_runs(dry19)
     mark("phase 19")
     # phase 21 (c)'s fake prefills run on the host beside phases 20 and 21
     dry = p21_dryrun_start()
@@ -6752,6 +7071,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     p23_runs(dry23)
     mark("phase 23")
+    gc.collect()
+    torch.cuda.empty_cache()
+    p24_runs(dry24)
+    mark("phase 24")
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(card)
     print(json.dumps({"kernels": rows}))

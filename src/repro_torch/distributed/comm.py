@@ -30,8 +30,12 @@ weight gather and the sequence-parallel gather), `reduce_scatter_diff`
 (reduce-scatter forward, all-gather backward: the MLP's and the
 embedding's partial sums onto the rank's sequence slice),
 `all_reduce_grad` (identity forward, all-reduce backward: the gradient of
-a leaf replicated over a group) and `all_reduce_diff` (all-reduce
-forward, identity backward).
+a leaf replicated over a group), `all_reduce_diff` (all-reduce
+forward, identity backward: a sum every rank then uses whole, once, as
+the MoE aux loss's router probabilities) and `all_reduce_partial`
+(all-reduce both ways: a sum each rank uses for its own share only, as
+the SSD gated norm's Σx² over the rank's heads and the encoder's MLP
+over its ``ff`` columns, so each holds a partial gradient).
 """
 from __future__ import annotations
 
@@ -73,6 +77,13 @@ def by_kind(counts: Counter) -> Dict[str, Dict[str, Dict[str, int]]]:
     return out
 
 
+def _moves(group) -> bool:
+    """Whether a collective over ``group`` moves anything: the dry run's
+    ``"fake"`` backend moves nothing (its collectives return at once), so
+    the call is counted and its output allocated, but not issued."""
+    return group.backend != "fake"
+
+
 def _count(kind: str, group, out: torch.Tensor) -> None:
     COUNTS[(kind, group.name, "calls")] += 1
     COUNTS[(kind, group.name, "elements")] += out.numel()
@@ -83,7 +94,8 @@ def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
     """Sum ``x`` over ``group`` (a `repro_torch.launch.mesh.Group`), in place;
     returns ``x``.  Every rank ends with the same values."""
     _count("all_reduce", group, x)
-    dist.all_reduce(x, group=group.pg)
+    if _moves(group):
+        dist.all_reduce(x, group=group.pg)
     return x
 
 
@@ -91,7 +103,8 @@ def all_reduce_max(x: torch.Tensor, group) -> torch.Tensor:
     """The elementwise max of ``x`` over ``group``, in place; returns ``x``
     (counted as an ``"all_reduce"``)."""
     _count("all_reduce", group, x)
-    dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group.pg)
+    if _moves(group):
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group.pg)
     return x
 
 
@@ -100,7 +113,8 @@ def all_gather(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     ranks pass the same shape); returns a new tensor."""
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(group.size)]
-    dist.all_gather(parts, x, group=group.pg)
+    if _moves(group):
+        dist.all_gather(parts, x, group=group.pg)
     out = torch.cat(parts, dim=dim)
     _count("all_gather", group, out)
     return out
@@ -117,7 +131,8 @@ def reduce_scatter_sum(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
                          f"{group.size} ranks of {group.name}")
     parts = [p.contiguous() for p in x.movedim(dim, 0).chunk(group.size)]
     out = torch.empty_like(parts[0])
-    dist.reduce_scatter(out, parts, group=group.pg)
+    if _moves(group):
+        dist.reduce_scatter(out, parts, group=group.pg)
     out = out.movedim(0, dim)
     _count("reduce_scatter", group, out)
     return out
@@ -171,6 +186,17 @@ class _AllReduce(torch.autograd.Function):
         return g, None
 
 
+class _AllReducePartial(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum(x.clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum(g.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
 def all_gather_diff(x: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """`all_gather` whose backward reduce-scatters the gradient over the same
     group and dim: each rank's shard gets the sum of every rank's partial
@@ -195,3 +221,10 @@ def all_reduce_diff(x: torch.Tensor, group) -> torch.Tensor:
     """`all_reduce_sum` (of a copy: ``x`` is left as it is) whose backward
     passes the gradient through unchanged."""
     return _AllReduce.apply(x, group)
+
+
+def all_reduce_partial(x: torch.Tensor, group) -> torch.Tensor:
+    """`all_reduce_sum` (of a copy) whose backward sums the gradient over
+    ``group`` too: the ranks use the sum each for a share of their own, so
+    the gradient of a rank's term is the sum of every rank's."""
+    return _AllReducePartial.apply(x, group)

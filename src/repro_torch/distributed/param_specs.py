@@ -126,6 +126,11 @@ def _one(key: str, shape, rules: ShardingRules, table: dict) -> Spec:
     return spec_for(rules, tuple(shape), logical)
 
 
+def leaf_spec(key: str, shape: Tuple[int, ...], rules: ShardingRules, mode: str = "train") -> Spec:
+    """The spec of a leaf named ``key`` of ``shape`` (`tree_specs`' rule)."""
+    return _one(key, tuple(shape), rules, _TRAIN_MAP if mode == "train" else _SERVE_MAP)
+
+
 def tree_specs(tree: Any, rules: ShardingRules, mode: str = "train", key: str = "root") -> Any:
     """The spec tree matching ``tree`` (a dict / list / tuple / NamedTuple
     tree of tensors or `QTensor` leaves); a leaf's

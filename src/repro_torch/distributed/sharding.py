@@ -18,8 +18,9 @@ pod's share of it (`Mesh.fsdp_group`).
 
 The train cells' step (`repro_torch.launch.specs.train_step`) reads its
 splits from `train_shards` (a `TrainShards`): the rows over the folded data
-axis, the residual stream's positions (``seq_act``), ``ff`` and ``vocab``
-over ``model``, the weights' ``fsdp`` dim over ``data``.  A split of one
+axis, the residual stream's positions (``seq_act``), ``ff``, ``vocab``, the
+experts and the SSD branch's dims over ``model``, the weights' ``fsdp`` dim
+over ``data``.  A split of one
 rank is no split there: a group of one issues no collective, so one rank
 runs the local step's expressions.  Which groups a parameter's gradient is
 summed over comes from its spec (`replicated_over`).
@@ -28,7 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
@@ -213,6 +214,20 @@ class StepShards:
     kv_heads: Split = Split()
     seq: Split = Split()  # the sequence: whole in a serve step
 
+    def gather(self, x: torch.Tensor, s: Split, dim: int) -> torch.Tensor:
+        """The rank's shard ``x`` along ``dim`` gathered whole over ``s``'s
+        group (``x`` when ``s`` is whole)."""
+        return x if s.group is None else comm.all_gather(x, s.group, dim=dim)
+
+    def psum(self, x: torch.Tensor, s: Split) -> torch.Tensor:
+        """``x`` summed over ``s``'s group (``x`` when ``s`` is whole)."""
+        return x if s.group is None else comm.all_reduce_sum(x, s.group)
+
+    def sum_partial(self, x: torch.Tensor, s: Split) -> torch.Tensor:
+        """A product's partial sum over the rank's share of ``s``'s dim (an
+        o-projection, ``out_proj``, the experts), summed over its group."""
+        return self.psum(x, s)
+
     def weight(self, w, dim: int):
         """``w`` (a tensor or `QTensor` shard) whole along its d_model dim
         ``dim``: under ``weights_2d`` its ``fsdp_w`` shards all-gathered
@@ -224,12 +239,12 @@ class StepShards:
     def sum_ff(self, out: torch.Tensor) -> torch.Tensor:
         """The MLP's partial output over the rank's ``ff`` columns, summed
         over the ff group."""
-        return out if self.ff.group is None else comm.all_reduce_sum(out, self.ff.group)
+        return self.sum_partial(out, self.ff)
 
     def sum_vocab(self, rows: torch.Tensor) -> torch.Tensor:
         """The embedding's rows over the rank's vocab shard (zero rows for
         the ids it does not hold), summed over the vocab's group."""
-        return rows if self.vocab.group is None else comm.all_reduce_sum(rows, self.vocab.group)
+        return self.sum_partial(rows, self.vocab)
 
     def rows(self, n_local: int, device) -> Optional[torch.Tensor]:
         """The global ids of the rank's ``n_local`` batch rows (None when the
@@ -286,10 +301,18 @@ class TrainShards:
     (the rows, over the folded data axis), ``seq`` (``seq_act``: the
     residual stream's positions between layers, over ``model``), ``fsdp``
     (every weight's d_model dim, over ``data``), ``ff`` (the MLP's hidden
-    dim) and ``vocab`` (the embedding's and head's rows), both over
-    ``model``.  Attention is sequence-parallel, so ``heads`` never splits.
-    ``mesh`` is the rank's `repro_torch.launch.mesh.Mesh`.  The train
-    step's functions take it as their ``shards`` argument."""
+    dim), ``vocab`` (the embedding's and head's rows) and ``expert`` (the
+    MoE experts), over ``model``, and the SSD branch's ``ssm_proj`` /
+    ``ssm_conv`` / ``ssm_inner`` / ``ssm_heads`` (`StepShards`'), under
+    ``train_rules``.  Attention is sequence-parallel, so ``heads`` never
+    splits.  ``mesh`` is the rank's `repro_torch.launch.mesh.Mesh`.  The
+    train step's functions take it as their ``shards`` argument.
+
+    Every value a rank computes whole (the gathered sequence, the routing,
+    a scan whose heads stay whole, the encoder) is used by each rank for its
+    own share only (its positions, columns, rows or experts), so the
+    gradients the ranks hold of it are partial sums that the backward of
+    the gather, or of `psum`, adds up."""
 
     mesh: Any
     batch: Split
@@ -298,6 +321,11 @@ class TrainShards:
     ff: Split
     vocab: Split
     heads: Split = Split()
+    expert: Split = Split()
+    ssm_proj: Split = Split()
+    ssm_conv: Split = Split()
+    ssm_inner: Split = Split()
+    ssm_heads: Split = Split()
 
     def weight(self, w: torch.Tensor, dim: int) -> torch.Tensor:
         """``w`` whole along its d_model dim ``dim``: its ``fsdp`` shards
@@ -312,37 +340,67 @@ class TrainShards:
     def gather_seq(self, x: torch.Tensor) -> torch.Tensor:
         """A (B, T/model, ...) slice of the sequence as the whole (B, T,
         ...) (the backward reduce-scatters the gradient)."""
+        return self.gather(x, self.seq, 1)
+
+    def slice_seq(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's slice (B, T/model, ...) of a whole (B, T, ...)."""
         if self.seq.group is None:
             return x
-        return comm.all_gather_diff(x, self.seq.group, 1)
+        n = x.shape[1] // self.seq.size
+        return x[:, self.seq.offset(n):self.seq.offset(n) + n]
 
-    def _scatter_seq(self, x: torch.Tensor, s: Split) -> torch.Tensor:
+    def gather(self, x: torch.Tensor, s: Split, dim: int) -> torch.Tensor:
+        """`StepShards.gather`, differentiable: the backward reduce-scatters
+        the ranks' partial gradients of the whole onto the shard."""
+        return x if s.group is None else comm.all_gather_diff(x, s.group, dim)
+
+    def psum(self, x: torch.Tensor, s: Split) -> torch.Tensor:
+        """`StepShards.psum`, differentiable: each rank uses the sum for its
+        own share, so the backward sums the ranks' gradients too."""
+        return x if s.group is None else comm.all_reduce_partial(x, s.group)
+
+    def sum_partial(self, x: torch.Tensor, s: Split) -> torch.Tensor:
         """Partial sums over ``s``'s group of the whole (B, T, ...) sequence,
-        summed onto the rank's slice of it."""
+        summed onto the rank's slice of it (or summed whole, where the
+        sequence is whole on every rank: the encoder's)."""
         if s.group is None:
             return x
+        if self.seq.group is None:
+            return comm.all_reduce_partial(x, s.group)
         return comm.reduce_scatter_diff(x, s.group, 1)
 
     def sum_ff(self, out: torch.Tensor) -> torch.Tensor:
         """The MLP's partial output over the rank's ``ff`` columns,
         reduce-scattered onto its sequence slice (Megatron-SP)."""
-        return self._scatter_seq(out, self.ff)
+        return self.sum_partial(out, self.ff)
 
     def sum_vocab(self, rows: torch.Tensor) -> torch.Tensor:
         """The embedding's rows over the rank's vocab shard (zero rows for
         the ids it does not hold), reduce-scattered onto its slice."""
-        return self._scatter_seq(rows, self.vocab)
+        return self.sum_partial(rows, self.vocab)
+
+    def whole_seq(self) -> "TrainShards":
+        """These splits for a sequence whole on every rank (the encoder's
+        frames): partial sums are all-reduced, not scattered."""
+        return replace(self, seq=Split())
 
 
 def train_shards(rules: ShardingRules, mesh, *, vocab: int, ff: int, d_model: int, seq: int,
-                 batch: int) -> TrainShards:
+                 batch: int, experts: int = 0, ssm=None) -> TrainShards:
     """`TrainShards` of ``mesh``'s rank for a train step whose global dims
-    are ``vocab`` (padded rows), ``ff``, ``d_model``, ``seq`` (the tokens
-    a row) and ``batch`` (the rows).  Refuses a layout the step does not
-    run: rows the data axis does not divide (every rank must hold rows of
-    its own), or, with more than one ``model`` rank, a sequence, vocab or
-    ff dim that stays whole there."""
+    are ``vocab`` (padded rows), ``ff`` (0: no MLP), ``d_model``, ``seq``
+    (the positions a row: a VLM's image prefix and text), ``batch`` (the
+    rows), ``experts`` (0: no MoE) and the SSD branch's (``ssm``, an
+    `SSMConfig`, or None).  Refuses a layout the step does not run, naming
+    the dim: rows the data axis does not divide (every rank must hold rows
+    of its own), or, with more than one ``model`` rank, a sequence, vocab,
+    ff, expert or ``out_proj`` row dim (d_inner) that stays whole there
+    (the partial sums onto the sequence slice need them split).
+    ``in_proj``'s columns, the conv's channels and the SSD heads may stay
+    whole."""
     def need(logical, dim, what):
+        if dim <= 0:
+            return Split()
         s = _many(split(rules, mesh, logical, dim))
         n = rules.size(rules.rules.get(logical))
         if n > 1 and s.group is None:
@@ -350,11 +408,22 @@ def train_shards(rules: ShardingRules, mesh, *, vocab: int, ff: int, d_model: in
                              f"({logical} -> {rules.rules.get(logical)}); {dim} does not divide")
         return s
 
+    def opt(logical, dim):
+        return _many(split(rules, mesh, logical, dim)) if dim > 0 else Split()
+
+    extra = {}
+    if ssm is not None and ssm.num_heads > 0:
+        d_in, gn = ssm.d_inner, 2 * ssm.n_groups * ssm.state_size
+        extra = {"ssm_proj": opt("ff", 2 * d_in + gn + ssm.num_heads),
+                 "ssm_conv": opt("ff", d_in + gn),
+                 "ssm_inner": need("ff", d_in, "the SSD's inner dim"),
+                 "ssm_heads": opt("heads", ssm.num_heads)}
     return TrainShards(mesh=mesh, batch=need("batch", batch, "the batch rows"),
                        seq=need("seq_act", seq, "the sequence"),
                        fsdp=_many(split(rules, mesh, "fsdp", d_model)),
                        ff=need("ff", ff, "the MLP's hidden dim"),
-                       vocab=need("vocab", vocab, "the vocabulary"))
+                       vocab=need("vocab", vocab, "the vocabulary"),
+                       expert=need("expert", experts, "the experts"), **extra)
 
 
 def replicated_over(spec: Tuple[MeshAxes, ...], mesh) -> List[Any]:

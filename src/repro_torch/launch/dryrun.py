@@ -6,14 +6,16 @@ For each cell this records, per rank:
 - ``memory.argument_bytes``: the cell's arguments laid out by the
   reference's logical-axis rules (`repro_torch.launch.specs.build_cell`),
   always;
-- ``executed``: where the port has a step for the cell, the cell's own
-  step (``build_cell(...).fn``, the reference's: `decode_step` or
-  `prefill` on the rank's shards under ``serve_rules``, for every serve
-  cell: decode_32k, prefill_32k and long_500k of every family) run once
-  on rank 0 of the mesh on fake tensors, on the cell's arguments, with its
-  argument, output, temp and peak bytes, FLOPs, bytes read and written
-  and collectives (`repro_torch.distributed.step_stats`); for a decode
-  cell also its ``contract`` (`decode_contract`), the collectives
+- ``executed``: the cell's own step (``build_cell(...).fn``, the
+  reference's: `decode_step` or `prefill` on the rank's shards under
+  ``serve_rules`` for every serve cell, decode_32k, prefill_32k and
+  long_500k, and `train_step` under ``train_rules`` for every train_4k
+  cell, of every family) run once on rank 0 of the mesh on fake tensors,
+  on the cell's arguments, with its argument, output, temp and peak
+  bytes, FLOPs, bytes read and written and collectives
+  (`repro_torch.distributed.step_stats`); for a train cell also its
+  ``contract`` (`train_contract`), for a decode cell its ``contract``
+  (`decode_contract`), the collectives
   `decode_collectives` derives from the splits: for a dense cell 2·L + 1
   all-reduces of (B / data, d_model) over ``model`` (the embedding, each
   layer's o-projection and MLP), one all-gather of the argmax's (B /
@@ -26,9 +28,8 @@ For each cell this records, per rank:
   ``device_bytes``, the card's memory when one is present, else
   ``--device-bytes``.
 
-Cells the port has no step for (the train cells) are ``args_only``, with
-the ROADMAP item that would run them (`repro_torch.launch.specs.cell_todo`);
-cells an arch skips are ``skipped`` with its reason.  ``--executor-audit`` records the
+Every cell the port builds executes its step; cells an arch skips are
+``skipped`` with its reason.  ``--executor-audit`` records the
 mesh executor's decode collectives on the production (data 16, model 16)
 mesh instead: one all-reduce over ``model`` per attention layer (the
 o-projection) and no all-gather over it; that executor keeps the MLP and
@@ -50,6 +51,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import os
 import time
 import traceback
@@ -79,12 +81,6 @@ def device_bytes(default: int = H100_BYTES) -> int:
     if torch.cuda.is_available():
         return torch.cuda.get_device_properties(0).total_memory
     return default
-
-
-def executes(cfg: ModelConfig, shape_name: str) -> bool:
-    """Whether the port has a step for the cell: the cell step serves every
-    serve cell (decode_32k, prefill_32k and long_500k) of every family."""
-    return specs.cell_todo(cfg, SHAPES[shape_name]) is None
 
 
 def decode_collectives(cfg: ModelConfig, rows: int, model: int, data: int = 1,
@@ -160,94 +156,183 @@ def decode_contract(by_group: dict, cfg: ModelConfig, rows: int, model: int,
     return out
 
 
-def train_collectives(cfg: ModelConfig, rows: int, seq: int, model: int, data: int = 1,
-                      pods: int = 1) -> dict:
-    """A dense train cell step's collectives on a rank of a (pod, data,
-    model) mesh under ``train_rules`` (``rows`` = its B / (pods · data)
-    rows of ``seq`` tokens), derived from the splits (with remat; a group
-    of one issues nothing): ``{group: {kind: (calls, elements)}}``, the
-    in-pod data group named ``"data"`` on one pod and ``"data_in_pod"``
-    beside the folded ``"data"`` on more.
+def _train_leaves(cfg: ModelConfig, max_seq_len: int = 4096) -> list:
+    """Every parameter leaf of ``cfg``'s tree (`init_params`' layout) as
+    (where, name, shape, uses): ``where`` is ``"layer"`` (one a decoder
+    layer), ``"enc"`` (one an encoder layer) or ``"top"``; ``uses`` counts
+    the products that read a weight in one forward, as (inside the layer's
+    remat region, outside it); a leaf the forward never reads (mamba2's
+    ``ln2``, the hybrid's ``ssm_out_norm``) has None."""
+    D, F, E = cfg.d_model, cfg.d_ff, cfg.moe.num_experts
+    hq, hkv, dh, s = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.ssm
+    one, no = (1, 0), (0, 0)
 
-    - ``model`` (more than one rank): all-gathers of the whole (rows, T, D)
-      sequence: a layer's ``hn`` and ``hn2`` in the forward and again in
-      the backward's recompute, ``final_norm``'s output, and the backward
-      of the MLP's and the embedding's reduce-scatters; reduce-scatters
-      onto the (rows, T / model, D) slice: the embedding's rows, a
-      layer's MLP output, the backward of the three gathers of the forward
-      (the recompute stops before the MLP's reduce-scatter: nothing after
-      it is saved); all-reduces: the vocab-parallel xent's max and
-      (Σexp, gold) over (rows, T − 1), and the gradient of every leaf
-      whole over ``model`` (the norms, the attention weights and biases).
-    - the in-pod data group (more than one rank), where the weights'
-      d_model dim splits: all-gathers of every weight before its product
-      (the embedding table twice: lookup and logits, tied or not; a
-      layer's seven matrices in the forward and the recompute) and their
-      backward's reduce-scatters; all-reduces of the gradients of the
-      leaves whole over ``data`` (the norms, the biases; every leaf where
-      d_model stays whole).
-    - the rows' group (the data group on one pod, the folded one on more):
-      one all-reduce of the three metrics.
+    def attn(prefix="", uses=(one,) * 4):
+        out = [(prefix + "wq", (D, hq, dh), uses[0]), (prefix + "wk", (D, hkv, dh), uses[1]),
+               (prefix + "wv", (D, hkv, dh), uses[2]), (prefix + "wo", (hq, dh, D), uses[3])]
+        if cfg.qkv_bias:
+            out += [(prefix + "bq", (hq, dh), no), (prefix + "bk", (hkv, dh), no),
+                    (prefix + "bv", (hkv, dh), no)]
+        return out
+
+    layer = [("ln1", (D,), no)]
+    ffn = F > 0 or E > 0
+    layer.append(("ln2", (D,), no if ffn else None))
+    if not cfg.attention_free:
+        layer += attn()
+    if cfg.family in ("ssm", "hybrid"):
+        d_in, H = s.d_inner, s.num_heads
+        gn = 2 * s.n_groups * s.state_size
+        layer += [("in_proj", (D, 2 * d_in + gn + H), one),
+                  ("conv_w", (s.conv_width, d_in + gn), no), ("A_log", (H,), no),
+                  ("ssm_D", (H,), no), ("dt_bias", (H,), no), ("ssm_norm", (d_in,), no),
+                  ("out_proj", (d_in, D), one)]
+    if cfg.family == "hybrid":
+        layer += [("attn_out_norm", (hq * dh,), no), ("ssm_out_norm", (s.d_inner,), None)]
+    if E > 0:
+        Fe = cfg.moe.d_expert
+        layer += [("router", (D, E), no), ("we1", (E, D, Fe), one), ("we3", (E, D, Fe), one),
+                  ("we2", (E, Fe, D), one)]
+    elif F > 0:
+        layer += [("w1", (D, F), one), ("w3", (D, F), one), ("w2", (F, D), one)]
+    if cfg.is_encoder_decoder:  # cross K / V are made outside the layers
+        layer += attn("c_", (one, (0, 1), (0, 1), one)) + [("ln_cross", (D,), no)]
+    V = cfg.padded_vocab
+    out = [("layer",) + leaf for leaf in layer]
+    out += [("top", "embed", (V, D), (0, 2 if cfg.tie_embeddings else 1)),
+            ("top", "final_norm", (D,), no)]
+    if not cfg.tie_embeddings:
+        out.append(("top", "head", (V, D), (0, 1)))
+    if cfg.is_encoder_decoder:
+        enc = [("ln1", (D,), no), ("ln2", (D,), no)] + [
+            (n, shape, (0, 1) if u else u) for n, shape, u in attn()] + [
+            ("w1", (D, F), (0, 1)), ("w3", (D, F), (0, 1)), ("w2", (F, D), (0, 1))]
+        out += [("enc",) + leaf for leaf in enc]
+        out += [("top", "enc_final_norm", (D,), no),
+                ("top", "enc_pos", (cfg.encoder_seq_len, D), no),
+                ("top", "dec_pos", (max_seq_len, D), no)]
+    return out
+
+
+def train_collectives(cfg: ModelConfig, rows: int, seq: int, model: int, data: int = 1,
+                      pods: int = 1, max_seq_len: int = 4096) -> dict:
+    """A train cell step's collectives on a rank of a (pod, data, model)
+    mesh under ``train_rules`` (``rows`` = its B / (pods · data) rows of
+    ``seq`` positions, a VLM's image prefix and text; ``max_seq_len`` the
+    rows of an encoder-decoder's ``dec_pos``), derived from the splits and
+    the leaves' specs (with remat; a group of one issues nothing):
+    ``{group: {kind: (calls, elements)}}``, the in-pod data group named
+    ``"data"`` on one pod and ``"data_in_pod"`` beside the folded
+    ``"data"`` on more.  A layer's collectives run in the forward and
+    again in the backward's recompute, but for the last partial sum of a
+    layer, after which nothing is saved (the non-reentrant checkpoint's
+    early stop skips it); each differentiable one issues its pair in the
+    backward (`repro_torch.distributed.comm`).
+
+    - ``model`` (more than one rank), over the whole (rows, T, D)
+      sequence and the (rows, T / model, D) slice: a layer's gathers of
+      its normed input for attention's K / V or the SSD scan (one, shared
+      by the hybrid's two branches) and of ``hn2`` for the MLP or the
+      experts; its partial sums reduce-scattered onto the slice (the MLP's,
+      the experts', ``out_proj``'s); the MoE router's columns and the
+      SSD's ``in_proj`` columns and conv channels gathered where they
+      split, and the gated norm's Σx² summed where the SSD heads split;
+      the encoder's MLP summed whole (its frames do not split); the
+      embedding's reduce-scatter, ``final_norm``'s gather, the
+      vocab-parallel xent's max and (Σexp, gold) over the (rows, text − 1)
+      labels; the gradient of every leaf whole over ``model``.
+    - the in-pod data group (more than one rank), where a weight's d_model
+      dim splits: a gather before each product that reads it (the
+      embedding table twice: lookup and logits) and its backward's
+      reduce-scatter; the gradients of the leaves whole over ``data``.
+    - the rows' group (the data group on one pod, the folded one on
+      more): an MoE layer's expert counts gathered, and one all-reduce of
+      the xent metric.
     - ``pod``: one all-reduce of every leaf's gradient.
-    - ``world``: the global norm's one scalar."""
-    L, D, V, F = cfg.n_layers, cfg.d_model, cfg.padded_vocab, cfg.d_ff
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    fsdp = data > 1 and D % data == 0
-    d_loc = D // data if fsdp else D
-    v_loc, f_loc, t_loc = V // model, F // model, seq // model
-    n_tables = 1 + (not cfg.tie_embeddings)
-    bias = cfg.qkv_bias
-    attn = dh * (2 * hq + 2 * hkv)  # wq, wk, wv, wo per d_model row
-    # per layer: (leaf, elements of the rank's shard, split over model, over data)
-    layer = [("ln1", D, False, False), ("ln2", D, False, False),
-             ("attn", d_loc * attn, False, fsdp), ("mlp", 3 * d_loc * f_loc, True, fsdp)]
-    counts = {"ln1": 1, "ln2": 1, "attn": 4, "mlp": 3}
-    if bias:
-        layer.append(("bias", dh * (hq + 2 * hkv), False, False))
-        counts["bias"] = 3
-    top = [("tables", n_tables * v_loc * d_loc, True, fsdp), ("final_norm", D, False, False)]
-    top_counts = {"tables": n_tables, "final_norm": 1}
+    - ``world``: an MoE layer's router probabilities summed (the aux
+      loss's P̄) and the global norm's one scalar."""
+    from repro_torch.distributed.param_specs import leaf_spec
+    from repro_torch.distributed.sharding import train_rules
+
+    axes = {"pod": pods, "data": data, "model": model} if pods > 1 else {
+        "data": data, "model": model}
+    rules = train_rules(axes)
+    L, Le, D, E = cfg.n_layers, cfg.n_encoder_layers, cfg.d_model, cfg.moe.num_experts
+    mult = {"layer": L, "enc": Le, "top": 1}
+    t_loc = seq // model
+    whole, part = rows * seq * D, rows * t_loc * D
+    text = seq - cfg.num_image_tokens if cfg.is_vlm else seq
+    s, ssm = cfg.ssm, cfg.family in ("ssm", "hybrid")
+    dgroup = "data" if pods == 1 else "data_in_pod"
+    world = model * data * pods
     out: dict = {}
 
     def add(group, kind, calls, elems):
         c, e = out.setdefault(group, {}).get(kind, (0, 0))
         out[group][kind] = (c + calls, e + elems)
 
-    def grads(group, keep):  # all-reduces of the leaves ``keep`` selects
-        for leaves, n, mult in ((layer, counts, L), (top, top_counts, 1)):
-            for name, elems, on_model, on_data in leaves:
-                if keep(on_model, on_data):
-                    add(group, "all_reduce", mult * n[name], mult * elems)
+    def splits(logical, dim):
+        return model > 1 and dim > 0 and rules.guarded(dim, logical) is not None
+
+    for where, name, shape, uses in _train_leaves(cfg, max_seq_len):
+        if uses is None:
+            continue
+        spec = leaf_spec(name, shape, rules)
+        named = {a for phys in spec if phys is not None
+                 for a in ((phys,) if isinstance(phys, str) else phys)}
+        n = math.prod(shape) // math.prod(rules.size(phys) for phys in spec)
+        k = mult[where]
+        inside, outside = uses
+        if data > 1 and "data" in named:  # FSDP: a gather per product, its reduce-scatter
+            add(dgroup, "all_gather", k * (2 * inside + outside), k * (2 * inside + outside)
+                * n * data)
+            add(dgroup, "reduce_scatter", k * (inside + outside), k * (inside + outside) * n)
+        for group, on, size in (("model", "model", model), (dgroup, "data", data),
+                                ("pod", None, pods)):
+            if size > 1 and on not in named:
+                add(group, "all_reduce", k, k * n)
 
     if model > 1:
-        whole, part = rows * seq * D, rows * t_loc * D
-        add("model", "all_gather", 5 * L + 2, (5 * L + 2) * whole)
-        add("model", "reduce_scatter", 3 * L + 2, (3 * L + 2) * part)
-        add("model", "all_reduce", 2, 3 * rows * (seq - 1))
-        grads("model", lambda on_model, on_data: not on_model)
-    dgroup = "data" if pods == 1 else "data_in_pod"
-    if fsdp:
-        gathered = 2 * v_loc * D + 2 * L * (D * attn + 3 * D * f_loc)
-        shards = 2 * v_loc * d_loc + L * (d_loc * attn + 3 * d_loc * f_loc)
-        add(dgroup, "all_gather", 14 * L + 2, gathered)
-        add(dgroup, "reduce_scatter", 7 * L + 2, shards)
-    if data > 1:
-        grads(dgroup, lambda on_model, on_data: not on_data)
+        seq_gathers = (not cfg.attention_free or ssm) + (cfg.d_ff > 0 or E > 0)
+        # (calls in the forward and the recompute) of the layer's partial sums
+        # onto the slice: the last one runs once
+        sums = (ssm + (cfg.d_ff > 0 or E > 0)) if cfg.family == "hybrid" else 1
+        fwd_sums = 2 * sums - 1
+        add("model", "all_gather", L * (2 * seq_gathers + sums) + 2,
+            (L * (2 * seq_gathers + sums) + 2) * whole)
+        add("model", "reduce_scatter", L * (fwd_sums + seq_gathers) + 2,
+            (L * (fwd_sums + seq_gathers) + 2) * part)
+        add("model", "all_reduce", 2, 3 * rows * (text - 1))
+        if E > 0 and splits("expert", E):  # the router's columns
+            add("model", "all_gather", 2 * L, 2 * L * D * E)
+            add("model", "reduce_scatter", L, L * D * E // model)
+        if ssm:
+            d_in, gn = s.d_inner, 2 * s.n_groups * s.state_size
+            for dim in (2 * d_in + gn + s.num_heads, d_in + gn):  # in_proj, conv
+                if splits("ff", dim):
+                    add("model", "all_gather", 2 * L, 2 * L * rows * seq * dim)
+                    add("model", "reduce_scatter", L, L * rows * seq * dim // model)
+            if splits("heads", s.num_heads):  # the gated norm's Σx²
+                add("model", "all_reduce", 3 * L, 3 * L * rows * seq)
+        if Le and splits("ff", cfg.d_ff):  # the encoder's MLP, summed whole both ways
+            add("model", "all_reduce", 2 * Le, 2 * Le * rows * cfg.encoder_seq_len * D)
     if data * pods > 1:
-        add("data", "all_reduce", 1, 3)
-    if pods > 1:
-        grads("pod", lambda on_model, on_data: True)
-    if model * data * pods > 1:
+        if E > 0:  # the expert counts
+            add("data", "all_gather", 2 * L, 2 * L * data * pods * 2 * E)
+        add("data", "all_reduce", 1, 1)
+    if world > 1:
+        if E > 0:
+            add("world", "all_reduce", 2 * L, 2 * L * E)
         add("world", "all_reduce", 1, 1)
     return out
 
 
 def train_contract(by_group: dict, cfg: ModelConfig, rows: int, seq: int, model: int,
-                   data: int = 1, pods: int = 1) -> dict:
+                   data: int = 1, pods: int = 1, max_seq_len: int = 4096) -> dict:
     """The train cell step's collectives (`train_collectives`) checked on a
     `StepStats.by_group` record: calls and elements of every (group, kind)
     either side names."""
-    want = train_collectives(cfg, rows, seq, model, data, pods)
+    want = train_collectives(cfg, rows, seq, model, data, pods, max_seq_len)
     keys = {(g, k) for g, kinds in list(want.items()) + list(by_group.items()) for k in kinds}
     return {f"{g}_{k}": (by_group.get(g, {}).get(k, {}).get("calls"),
                          by_group.get(g, {}).get(k, {}).get("elements"))
@@ -306,44 +391,37 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, planner_mode: str = "f
                    quantize=bool(cell.meta.get("quantize", False)),
                    memory={"argument_bytes": arg}, device_bytes=dev_bytes,
                    build_s=round(t_build, 2))
-        if executes(cfg, shape_name):
-            t0 = time.time()
-            # a train step differentiates: the saved activations and the
-            # backward's temporaries count toward its peak
-            with contextlib.nullcontext() if train else torch.inference_mode():
-                _, st = step_stats.measure(cell.fn, cell.args, *cell.args)
-            step = {"train": "repro_torch.training.train_loop.train_step",
-                    "prefill": "repro_torch.serving.engine.prefill"}.get(
-                        cell.kind, "repro_torch.serving.engine.decode_step")
-            rec["executed"] = {"step": f"{step} (build_cell(...).fn)",
-                               "seconds": round(time.time() - t0, 2), **st.record()}
-            if train:
-                rec["executed"]["contract"] = train_contract(
-                    st.by_group, cfg, shape.global_batch // mesh.data, shape.seq_len,
-                    mesh.model, mesh.data // mesh.pods, mesh.pods)
-            if cell.kind == "decode":
-                long_ctx = shape_name == "long_500k"
-                rows = shape.global_batch // (1 if long_ctx else mesh.data)
-                rec["executed"]["contract"] = decode_contract(
-                    st.by_group, cfg, rows, mesh.model, mesh.data, split_s=long_ctx)
-            rec.update(status="ok", fits=st.peak_bytes <= dev_bytes)
-        else:
-            rec.update(status="args_only", fits=arg <= dev_bytes,
-                       todo=specs.cell_todo(cfg, shape))
+        t0 = time.time()
+        # a train step differentiates: the saved activations and the
+        # backward's temporaries count toward its peak
+        with contextlib.nullcontext() if train else torch.inference_mode():
+            _, st = step_stats.measure(cell.fn, cell.args, *cell.args)
+        step = {"train": "repro_torch.training.train_loop.train_step",
+                "prefill": "repro_torch.serving.engine.prefill"}.get(
+                    cell.kind, "repro_torch.serving.engine.decode_step")
+        rec["executed"] = {"step": f"{step} (build_cell(...).fn)",
+                           "seconds": round(time.time() - t0, 2), **st.record()}
+        if train:
+            rec["executed"]["contract"] = train_contract(
+                st.by_group, cfg, shape.global_batch // mesh.data, shape.seq_len,
+                mesh.model, mesh.data // mesh.pods, mesh.pods, specs._max_seq(cfg, shape))
+        if cell.kind == "decode":
+            long_ctx = shape_name == "long_500k"
+            rows = shape.global_batch // (1 if long_ctx else mesh.data)
+            rec["executed"]["contract"] = decode_contract(
+                st.by_group, cfg, rows, mesh.model, mesh.data, split_s=long_ctx)
+        rec.update(status="ok", fits=st.peak_bytes <= dev_bytes)
         cell_kind = cell.kind
         del cell
-    line = f"  rules args {arg / 1e9:8.2f} GB/rank"
-    ex = rec.get("executed")
-    if ex is not None:
-        m, c = ex["memory"], ex["collectives"]
-        line += (f" | step args {m['argument_bytes'] / 1e9:.2f} GB temp "
-                 f"{m['temp_bytes'] / 1e9:.2f} GB peak {m['peak_per_device_gb']:.2f} GB "
-                 f"| flops/rank {ex['cost']['flops_per_device']:.3e} | " + ", ".join(
-                     f"{k}x{v['count']} ({v['bytes'] / 1e6:.1f} MB)"
-                     for k, v in sorted(c.items())))
-        if "contract" in ex:
-            ok = all(ex["contract"].values())
-            line += f" | {cell_kind} contract {'held' if ok else ex['contract']}"
+    ex = rec["executed"]
+    m, c = ex["memory"], ex["collectives"]
+    line = (f"  rules args {arg / 1e9:8.2f} GB/rank | step args {m['argument_bytes'] / 1e9:.2f} "
+            f"GB temp {m['temp_bytes'] / 1e9:.2f} GB peak {m['peak_per_device_gb']:.2f} GB "
+            f"| flops/rank {ex['cost']['flops_per_device']:.3e} | " + ", ".join(
+                f"{k}x{v['count']} ({v['bytes'] / 1e6:.1f} MB)" for k, v in sorted(c.items())))
+    if "contract" in ex:
+        ok = all(ex["contract"].values())
+        line += f" | {cell_kind} contract {'held' if ok else ex['contract']}"
     print(line + f" | fits {rec['fits']} ({dev_bytes / 1e9:.1f} GB)")
     return rec
 
@@ -385,9 +463,9 @@ def run_executor_audit(arch: str, out_dir: Optional[str] = None,
 
 def sweep(archs, shapes, meshes, planner: str, out_dir: Optional[str],
           dev_bytes: Optional[int] = None) -> dict:
-    """Every cell; returns ``{"ok", "args_only", "skipped", "fail"}`` counts
-    and the records.  A cell that raises is recorded as ``fail``."""
-    counts = {"ok": 0, "args_only": 0, "skipped": 0, "fail": 0}
+    """Every cell; returns ``{"ok", "skipped", "fail"}`` counts and the
+    records.  A cell that raises is recorded as ``fail``."""
+    counts = {"ok": 0, "skipped": 0, "fail": 0}
     records = []
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
@@ -442,8 +520,7 @@ def main(argv=None) -> None:
     meshes = {"single": [False], "multi": [True], "both": [False, True]}[args.mesh]
     res = sweep(archs, shapes, meshes, args.planner, args.out, dev_bytes)
     c = res["counts"]
-    print(f"\ndone: {c['ok']} ok, {c['args_only']} args only, {c['skipped']} skipped "
-          f"(documented), {c['fail']} failed")
+    print(f"\ndone: {c['ok']} ok, {c['skipped']} skipped (documented), {c['fail']} failed")
     if c["fail"]:
         raise SystemExit(1)
 

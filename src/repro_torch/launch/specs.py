@@ -23,15 +23,14 @@ family: dense, MoE, SSM, hybrid, encoder-decoder and VLM): the port's own
 the reference's GSPMD partition (`repro_torch.serving.engine`'s module
 docstring has its collectives; long_500k is split-S decode where the
 model has a cache, MoE runs expert parallel, the SSD branch and the
-encoder and cross attention run on their own splits).  A dense arch's
-train_4k cell runs `train_step`: the port's `train_step` (remat, the
-reference's default `OptimizerConfig`) on the rank's rows, parameter and
-optimizer state shards under ``train_rules`` (FSDP over ``data``,
-sequence and tensor parallelism over ``model``:
-`repro_torch.models.transformer`'s and
-`repro_torch.training.train_loop`'s module docstrings).  The other
-families' train cells refuse with the ROADMAP item that would run them
-(`cell_todo`).
+encoder and cross attention run on their own splits).  Every train_4k
+cell runs `train_step`: the port's `train_step` (remat, the reference's
+default `OptimizerConfig`) on the rank's rows, parameter and optimizer
+state shards under ``train_rules`` (FSDP over ``data``, sequence and
+tensor parallelism over ``model``, MoE experts over ``model``, the SSD
+branch on its splits over the gathered sequence, the encoder over whole
+frames: `repro_torch.models.transformer`'s and
+`repro_torch.training.train_loop`'s module docstrings).
 
 `executor_args` builds what the port's `MeshExecutor` itself holds on a
 rank of a mesh (its slot weights, the rest replicated, its cache corner),
@@ -248,24 +247,8 @@ def tree_bytes(tree) -> int:
 # ---------------------------------------------------------------------------
 
 
-# the later slice that would run each kind of cell the port has no step for
-TODO = {
-    "train": "A.15.2: the sharded train step of the MoE, SSM, hybrid, encoder-decoder "
-             "and VLM families per train_rules",
-}
-# the families `serve_step` runs: every one the port serves
+# the families `serve_step` and `train_step` run: every one the port serves
 STEP_FAMILIES = FAMILIES
-# the families `train_step` runs
-TRAIN_FAMILIES = ("dense",)
-
-
-def cell_todo(cfg: ModelConfig, shape: InputShape) -> Optional[str]:
-    """The ROADMAP item a cell waits for, or None when the port runs it:
-    `serve_step` every serve cell of every family, `train_step` the dense
-    archs' train cells."""
-    if shape.kind == "train" and cfg.family not in TRAIN_FAMILIES:
-        return TODO["train"]
-    return None
 
 
 def _as_plan(pa) -> Optional[PlanArrays]:
@@ -331,12 +314,15 @@ def train_step(cfg: ModelConfig, mesh, rules: ShardingRules, p_spec, batch: int,
     (new params shards, new optimizer state shards, the reference's metrics
     ``loss`` / ``xent`` / ``aux`` / ``grad_norm`` / ``lr``, global: the same
     on every rank).  ``batch`` and ``seq`` are the global rows and tokens a
-    row.  Refuses a family other than dense (`cell_todo`) and a layout the
-    step does not run (`train_shards`)."""
-    if cfg.family not in TRAIN_FAMILIES:
-        raise NotImplementedError(f"{cfg.name}: {TODO['train']}")
-    shards = train_shards(rules, mesh, vocab=cfg.padded_vocab, ff=cfg.d_ff,
-                          d_model=cfg.d_model, seq=seq, batch=batch)
+    row (a VLM's image prefix and text).  Refuses a family the port has no
+    step for and a layout the step does not run (`train_shards`)."""
+    if cfg.family not in STEP_FAMILIES:
+        raise NotImplementedError(f"{cfg.name}: no train step for the {cfg.family!r} family")
+    moe = cfg.moe.num_experts > 0
+    shards = train_shards(rules, mesh, vocab=cfg.padded_vocab, ff=0 if moe else cfg.d_ff,
+                          d_model=cfg.d_model, seq=seq, batch=batch,
+                          experts=cfg.moe.num_experts,
+                          ssm=cfg.ssm if cfg.family in ("ssm", "hybrid") else None)
 
     def fn(params, opt_state, batch_):
         return _train.train_step(params, opt_state, batch_, cfg, ocfg, remat, shards=shards,
@@ -359,7 +345,7 @@ class CellArtifacts:
     arg_bytes_per_rank: int
     meta: Dict[str, Any] = field(default_factory=dict)
     # the cell's step on ``args`` (`serve_step`, `train_step`), or a callable that raises
-    # with the ROADMAP item that would run the cell
+    # (a cell built for axis sizes, with no ranks)
     fn: Optional[Callable] = None
 
 
@@ -401,10 +387,7 @@ def build_cell(cfg: ModelConfig, shape: InputShape, mesh, planner_mode: str = "f
             trees, specs = (sp, state, pa), (sp_spec, st_spec, pa_spec)
         meta = {"ccfg": ccfg, "plan": plan, "weights_2d": weights_2d, "quantize": quantize}
     args = tuple(_shard(t, s, axes, device) for t, s in zip(trees, specs))
-    todo = cell_todo(cfg, shape)
-    if todo is not None:
-        fn = _refused(f"{cfg.name} {shape.name}: {todo}")
-    elif isinstance(mesh, dict):
+    if isinstance(mesh, dict):
         fn = _refused("a cell built for axis sizes has no ranks: build it on a "
                       "repro_torch.launch.mesh.Mesh to run its step")
     elif shape.kind == "train":

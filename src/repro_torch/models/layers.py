@@ -306,18 +306,22 @@ def _swiglu_shard(x, w1, w3, w2, shards) -> torch.Tensor:
     return shards.sum_ff(h @ w)
 
 
-def embed(tokens: torch.Tensor, table, shards=None) -> torch.Tensor:
+def embed(tokens: torch.Tensor, table, shards=None, prefix=None) -> torch.Tensor:
     """Rows of the table; an int8 table's rows times their per-row scale
     (the id clamped into the scale's rows), rounded to bf16.  On a rank's
     vocab shard (``shards``) an id outside its rows gives a zero row and
-    the rows are summed over the vocab's group (``shards.sum_vocab``)."""
+    the rows are summed over the vocab's group (``shards.sum_vocab``);
+    ``prefix`` (B, I, D), the same on every rank, is put before the rows
+    (the first vocab rank's, zeros elsewhere) ahead of that sum."""
     if shards is not None:
         table = shards.weight(table, 1)
         n, v = table.shape[0], shards.vocab
         local = tokens - v.offset(n)
         hit = (local >= 0) & (local < n)
-        rows = embed(torch.where(hit, local, 0), table)
-        return shards.sum_vocab(torch.where(hit[..., None], rows, 0))
+        rows = torch.where(hit[..., None], embed(torch.where(hit, local, 0), table), 0)
+        if prefix is not None:
+            rows = torch.cat([prefix if v.index == 0 else torch.zeros_like(prefix), rows], 1)
+        return shards.sum_vocab(rows)
     if isinstance(table, QTensor):
         rows = table.q[tokens].float()
         sc = table.scale

@@ -27,10 +27,12 @@ reference, so they go to ``torch.matmul`` here.
 
 On a rank's shards of a serve step (``shards``, a
 `repro_torch.distributed.sharding.StepShards`: the reference's
-``serve_rules``, experts over ``model``, tokens over ``data``) `moe_block`
-runs expert parallel and keeps the reference's drops exactly: capacity
-``Ce`` comes from the global token count, and a replica's slot in its
-expert is its place in the global token order (`_moe_block_shards`).
+``serve_rules``, experts over ``model``, tokens over ``data``) or of a
+train step (a `TrainShards` under ``train_rules``: the same, the tokens
+the rank's rows with their whole sequence) `moe_block` runs expert
+parallel and keeps the reference's drops exactly: capacity ``Ce`` comes
+from the global token count, and a replica's slot in its expert is its
+place in the global token order (`_moe_block_shards`).
 """
 from __future__ import annotations
 
@@ -42,6 +44,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import comm
+from repro_torch.distributed.sharding import TrainShards
 from repro_torch.serving.quant import operands
 
 
@@ -176,6 +179,15 @@ def _moe_block_shards(pl: dict, h: torch.Tensor, cfg: ModelConfig, shards
       without atomics as the local block does, and one all-reduce over
       ``model`` sums the experts' outputs (none when the experts do not
       split over ``model`` and every rank runs them all).
+
+    In a train step (``shards`` a `TrainShards`) ``h`` is the rank's rows
+    with their whole sequence (gathered over ``model``), the router's
+    columns are gathered with autograd (their gradient reduce-scattered),
+    the counts exchange as above without the probabilities, the aux loss's
+    P̄ sums the probabilities of the rank's own sequence slice over every
+    rank (`comm.all_reduce_diff`: the rank's aux back-propagates into its
+    own positions only), and the experts' outputs are reduce-scattered onto
+    the rank's slice (`TrainShards.sum_partial`).
     """
     B, S, D = h.shape
     E, K = cfg.moe.num_experts, cfg.moe.top_k
@@ -183,14 +195,15 @@ def _moe_block_shards(pl: dict, h: torch.Tensor, cfg: ModelConfig, shards
     dev = h.device
     x = h.reshape(T_loc, D)
     ex, rows = shards.expert, shards.batch
-    router = pl["router"]
-    if ex.size > 1:
-        router = comm.all_gather(router, ex.group, dim=1)
+    train = isinstance(shards, TrainShards)
+    router = shards.gather(pl["router"], ex, 1) if ex.size > 1 else pl["router"]
     probs, gate, top_idx = route(x, router, K)
     flat_e = top_idx.reshape(-1)
     counts = _count(flat_e, E)
-    stats = torch.cat([counts.double(), _count(top_idx[:, 0], E).double(),
-                       probs.sum(dim=0).double()])  # (3E,)
+    stats = [counts.double(), _count(top_idx[:, 0], E).double()]
+    if not train:
+        stats.append(probs.sum(dim=0).double())
+    stats = torch.cat(stats)  # (3E,), or (2E,) in a train step
     if rows.size > 1:
         every = comm.all_gather(stats[None], rows.group, dim=0)  # (n, 3E)
         prefix = every[:rows.index, :E].sum(dim=0).long()
@@ -200,6 +213,17 @@ def _moe_block_shards(pl: dict, h: torch.Tensor, cfg: ModelConfig, shards
         total = stats
     T = T_loc * rows.size
     ce = expert_capacity(T, cfg)
+    f = total[E:2 * E] / T
+    if train:
+        # P̄ from the probabilities of the rank's own positions, summed over
+        # every rank: each rank's aux then gives the gradient of its
+        # positions' probabilities only, once over the mesh
+        pbar = shards.slice_seq(probs.reshape(B, S, E)).sum(dim=(0, 1))
+        if shards.mesh.world > 1:
+            pbar = comm.all_reduce_diff(pbar, shards.mesh.world_group)
+        aux = E * torch.sum(f.float() * (pbar / T))
+    else:
+        aux = (E * torch.sum(f * (total[2 * E:] / T))).float()
 
     E_loc = E // ex.size
     mine = slice(ex.index * E_loc, (ex.index + 1) * E_loc)
@@ -210,12 +234,9 @@ def _moe_block_shards(pl: dict, h: torch.Tensor, cfg: ModelConfig, shards
              & (prefix[mine, None] + slot[None, :] < ce))  # (E_loc, Ce_loc)
     pos = torch.clamp(starts[mine, None] + slot[None, :], 0, T_loc * K - 1)
     out = _experts(pl, x, gate, order[pos], valid, K)
-    if ex.group is not None:  # experts whole on every rank (E % |model| != 0): no sum
-        out = comm.all_reduce_sum(out, ex.group)
-
-    f, pbar = total[E:2 * E] / T, total[2 * E:] / T
-    aux = (E * torch.sum(f * pbar)).float()
-    return out.reshape(B, S, D).to(h.dtype), aux
+    # experts whole on every rank (E % |model| != 0): no sum
+    out = shards.sum_partial(out.reshape(B, S, D), ex)
+    return out.to(h.dtype), aux
 
 
 def init_moe_params(cfg: ModelConfig, gen: torch.Generator, dtype, device) -> dict:

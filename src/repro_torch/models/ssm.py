@@ -3,7 +3,9 @@
 The port of ``repro.models.ssm`` (arXiv:2405.21060 §6, the chunked SSD
 algorithm), plain PyTorch as the reference is plain ``jnp``: within a
 chunk the quadratic dual form, across chunks the (H, P, N) state carried
-by a loop over chunks (the reference's ``lax.scan``).  B / C are shared
+by a loop over chunks (the reference's ``lax.scan``; the terms that do not
+read the state run batched over chunks, so the loop holds two ops a
+chunk).  B / C are shared
 across the heads of a group (n_groups = 1 in every config).  The state is
 fp32 and the terms are summed in the reference's order: intra-chunk,
 plus inter-chunk, plus D·x.
@@ -19,6 +21,24 @@ import torch
 import torch.nn.functional as F
 
 
+# chunks whose intra-chunk dual form runs as one batched pass: it does not
+# read the carried state, so only the state's recurrence loops per chunk
+# (a bound on the pass's (B, chunks, H, Q, Q) temporaries)
+CHUNK_BATCH = 16
+
+
+def _prefix_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive prefix sum along ``dim`` by doubling steps: elementwise
+    adds, where ``torch.cumsum`` of floats on CUDA has no deterministic
+    implementation (deterministic algorithms refuse it)."""
+    n, step = x.shape[dim], 1
+    while step < n:
+        x = torch.cat([x.narrow(dim, 0, step),
+                       x.narrow(dim, step, n - step) + x.narrow(dim, 0, n - step)], dim)
+        step *= 2
+    return x
+
+
 def ssd_chunked(
     x: torch.Tensor,  # (B, T, H, P)
     dt: torch.Tensor,  # (B, T, H), post-softplus
@@ -30,7 +50,10 @@ def ssd_chunked(
     init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, T, H, P) in x's dtype, final_state (B, H, P, N) fp32).
-    A T off the chunk is padded with zeros (zero dt: no decay, no input)."""
+    A T off the chunk is padded with zeros (zero dt: no decay, no input).
+    Up to `CHUNK_BATCH` chunks at a time: their intra-chunk terms and state
+    contributions in one batched pass, then the state carried across them
+    in order, then their inter-chunk terms."""
     Bsz, T, H, P = x.shape
     G, N = B_.shape[2], B_.shape[3]
     assert H % G == 0
@@ -49,31 +72,45 @@ def ssd_chunked(
     dtc = dt.reshape(Bsz, nc, chunk, H).float()
     Bh = B_.reshape(Bsz, nc, chunk, G, N).float().repeat_interleave(rep, dim=3)
     Ch = C_.reshape(Bsz, nc, chunk, G, N).float().repeat_interleave(rep, dim=3)
-    cum = torch.cumsum(dtc * A, dim=2)  # (B, nc, Q, H) inclusive log decay
+    dA = dtc * A  # (B, nc, Q, H)
+    cum = _prefix_sum(dA, 2)  # (B, nc, Q, H) inclusive log decay from the chunk's start
     mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=x.device))
+    strict = torch.tril(mask, -1)  # j < i
 
     S = (torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
          if init_state is None else init_state.float())
     ys = []
-    for c in range(nc):
-        xq, dtq, bq, cq, cumq = xc[:, c], dtc[:, c], Bh[:, c], Ch[:, c], cum[:, c]
-        # inter-chunk: y[i] = (C_i · S_{c-1}) exp(cum_i); then the state
-        # S_c = S_{c-1} exp(Σ dA) + Σ_j B_j (dt_j x_j) exp(Σ - cum_j)
-        # (the products are pairwise contractions, so no operand product of
-        # all the indices is ever formed: at mamba2's width that would be
-        # gigabytes per chunk)
-        y_inter = torch.einsum("bihn,bhpn->bihp", cq, S) * torch.exp(cumq)[..., None]
-        total = torch.exp(cumq[:, -1, :])  # (B, H)
-        wx = (dtq * torch.exp(cumq[:, -1:, :] - cumq))[..., None] * xq  # (B, Q, H, P)
-        contrib = torch.einsum("bjhn,bjhp->bhpn", bq, wx)
-        S = S * total[:, :, None, None] + contrib
-        # intra-chunk dual form: y[i] = Σ_{j<=i} (C_i·B_j) exp(cum_i - cum_j) dt_j x_j
-        s = torch.einsum("bihn,bjhn->bhij", cq, bq)  # (B, H, Q, Q)
-        seg = (cumq[:, :, None, :] - cumq[:, None, :, :]).permute(0, 3, 1, 2)
-        w = s * torch.where(mask, torch.exp(seg), 0.0)
-        y_intra = torch.einsum("bhij,bjhp->bihp", w, dtq[..., None] * xq)
+    for c0 in range(0, nc, CHUNK_BATCH):
+        cs = slice(c0, min(c0 + CHUNK_BATCH, nc))
+        xq, dtq, bq, cq, cumq = xc[:, cs], dtc[:, cs], Bh[:, cs], Ch[:, cs], cum[:, cs]
+        # the segment sums seg[i, j] = Σ_{j<k<=i} dA_k = cum_i - cum_j, summed
+        # from their own terms: as a difference of two running sums near
+        # -180 (a chunk of 256 at mamba2's decay) a short segment would carry
+        # their rounding (1e-5 relative after the exp) where its weight is
+        # largest
+        seg = _prefix_sum(torch.where(strict, dA[:, cs].permute(0, 1, 3, 2)[..., None], 0.0), 3)
+        # intra-chunk dual form: y[i] = Σ_{j<=i} (C_i·B_j) exp(seg[i, j]) dt_j x_j
+        s = torch.einsum("bcihn,bcjhn->bchij", cq, bq)  # (B, c, H, Q, Q)
+        # masked before the exp: above the diagonal the gradient of
+        # where(mask, exp(seg), 0) is 0 · exp(seg), NaN where exp overflows
+        w = s * torch.exp(torch.where(mask, seg, float("-inf")))
+        y_intra = torch.einsum("bchij,bcjhp->bcihp", w, dtq[..., None] * xq)
+        # each chunk's own state contribution Σ_j B_j (dt_j x_j) exp(seg[Q-1, j])
+        # and decay exp(Σ dA) (pairwise contractions: no operand product of
+        # all the indices is ever formed, which at mamba2's width would be
+        # gigabytes a chunk)
+        total = torch.exp(cumq[:, :, -1, :])  # (B, c, H)
+        wx = (dtq * torch.exp(seg[..., -1, :]).transpose(2, 3))[..., None] * xq  # (B, c, Q, H, P)
+        contrib = torch.einsum("bcjhn,bcjhp->bchpn", bq, wx)
+        prev = []  # S_{c-1} of every chunk: the state carried in order
+        for c in range(cumq.shape[1]):
+            prev.append(S)
+            S = S * total[:, c, :, None, None] + contrib[:, c]
+        # inter-chunk: y[i] = (C_i · S_{c-1}) exp(cum_i)
+        y_inter = (torch.einsum("bcihn,bchpn->bcihp", cq, torch.stack(prev, dim=1))
+                   * torch.exp(cumq)[..., None])
         ys.append(y_intra + y_inter)
-    y = torch.stack(ys, dim=1).reshape(Bsz, Tp, H, P)
+    y = torch.cat(ys, dim=1).reshape(Bsz, Tp, H, P)
     y = y + x.reshape(Bsz, Tp, H, P).float() * D_.float()[None, None, :, None]
     return y[:, :T].to(x.dtype), S
 

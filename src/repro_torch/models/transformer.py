@@ -28,7 +28,15 @@ output is reduce-scattered onto the slice.  Every weight is all-gathered
 over ``data`` (FSDP) right before its product, inside the layer's remat
 region, so the backward's recompute gathers it again and no layer's
 gathered weights outlive it.  The logits are the rank's vocab columns of
-the whole sequence (``final_norm`` on the slice, then gathered).
+the whole sequence (``final_norm`` on the slice, then gathered).  The
+other families: the MoE block runs expert parallel on the gathered
+``hn2`` (`repro_torch.models.moe`); the SSD branch scans the gathered
+normed input on its own splits (the recurrence crosses the slices' edges;
+the hybrid's attention reads the same gather) and ``out_proj``'s partial
+product is reduce-scattered onto the slice; an encoder runs over the
+rank's rows' whole frames, its MLP's partial sums all-reduced, and cross
+attention reads its K / V from the decoder's slice; a VLM's image prefix
+and text are cut into the slices together (`embed_inputs`).
 """
 from __future__ import annotations
 
@@ -193,8 +201,9 @@ def embed_tokens(tokens: torch.Tensor, params: dict, cfg: ModelConfig,
     rule, on the config name).  The scalar is cast to the activation dtype
     before the multiply, as the reference does: in bf16 the factor itself
     rounds (on the host: a captured step makes no host-to-device copy).
-    Every path that embeds tokens goes through here; ``shards``: over a
-    rank's vocab shard (`L.embed`)."""
+    Every path that embeds tokens goes through here but a VLM's train
+    step on a split sequence (`embed_inputs`); ``shards``: over a rank's
+    vocab shard (`L.embed`)."""
     h = L.embed(tokens, params["embed"], shards)
     if cfg.name.startswith("gemma2"):
         h = h * torch.tensor(math.sqrt(cfg.d_model), dtype=h.dtype).item()
@@ -206,15 +215,21 @@ def embed_inputs(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
     """Token embedding, after a VLM's ``image_embeds`` prefix (B, I, D),
     plus an encoder-decoder's learned ``dec_pos``.  Returns (h (B, T, D),
     positions (B, T) int32).  ``shards``: `embed_tokens`'; on a train
-    step's shards h is the rank's slice of the sequence and the positions
-    are the slice's global ones."""
-    h = embed_tokens(batch["tokens"], params, cfg, shards)
-    if cfg.is_vlm:
-        h = torch.cat([batch["image_embeds"].to(h.dtype), h], dim=1)
-    if cfg.is_encoder_decoder:
-        h = h + params["dec_pos"][None, :h.shape[1]]
+    step's shards h is the rank's slice of the sequence (a VLM's prefix ‖
+    text: the image rows ride the first vocab rank's partial rows into the
+    reduce-scatter that cuts the slice), ``dec_pos`` is read at the slice's
+    global positions and the positions are those."""
+    if cfg.is_vlm and shards is not None and shards.seq.group is not None:
+        prefix = batch["image_embeds"].to(params["embed"].dtype)
+        h = L.embed(batch["tokens"], params["embed"], shards, prefix=prefix)
+    else:
+        h = embed_tokens(batch["tokens"], params, cfg, shards)
+        if cfg.is_vlm:
+            h = torch.cat([batch["image_embeds"].to(h.dtype), h], dim=1)
     B, T = h.shape[:2]
     t0 = 0 if shards is None else shards.seq.offset(T)
+    if cfg.is_encoder_decoder:
+        h = h + params["dec_pos"][None, t0:t0 + T]
     positions = torch.arange(t0, t0 + T, dtype=torch.int32, device=h.device).expand(B, T)
     return h, positions
 
@@ -249,8 +264,8 @@ def ssm_split(pl: dict, h: torch.Tensor, cfg: ModelConfig, shards=None):
     d_in, G, N = s.d_inner, s.n_groups, s.state_size
     x, w = operands(h, _w(pl, "in_proj", shards, 0))
     proj = x @ w  # (B, T, 2 d_in + 2 G N + H), or the rank's columns of it
-    if shards is not None and shards.ssm_proj.group is not None:
-        proj = comm.all_gather(proj, shards.ssm_proj.group, dim=-1)
+    if shards is not None:
+        proj = shards.gather(proj, shards.ssm_proj, -1)
     z, xBC, dt_raw = torch.split(proj, [d_in, d_in + 2 * G * N, s.num_heads], dim=-1)
     dt = torch.nn.functional.softplus(dt_raw.float() + pl["dt_bias"])
     return z, xBC, dt
@@ -268,7 +283,7 @@ def ssm_conv(pl: dict, xBC: torch.Tensor, conv_state: Optional[torch.Tensor] = N
     n = pl["conv_w"].shape[1]
     c0 = sp.offset(n)
     y, window = S.conv1d_causal(xBC[..., c0:c0 + n], pl["conv_w"], conv_state)
-    return comm.all_gather(torch.nn.functional.silu(y), sp.group, dim=-1), window
+    return shards.gather(torch.nn.functional.silu(y), sp, -1), window
 
 
 def ssd_inputs(pl: dict, xBC: torch.Tensor, dt: torch.Tensor, cfg: ModelConfig, shards=None):
@@ -306,7 +321,7 @@ def ssm_out(pl: dict, y: torch.Tensor, z: torch.Tensor, shards=None,
         g = L.rms_norm(y * torch.nn.functional.silu(z), pl["ssm_norm"])
     else:
         g = (y * torch.nn.functional.silu(z[..., c0:c0 + n])).float()
-        ss = comm.all_reduce_sum((g * g).sum(dim=-1, keepdim=True), shards.ssm_heads.group)
+        ss = shards.psum((g * g).sum(dim=-1, keepdim=True), shards.ssm_heads)
         g = (g * torch.rsqrt(ss / d_in + 1e-6)
              * (1.0 + pl["ssm_norm"][c0:c0 + n].float())).to(y.dtype)
     sp = None if shards is None else shards.ssm_inner
@@ -315,9 +330,7 @@ def ssm_out(pl: dict, y: torch.Tensor, z: torch.Tensor, shards=None,
         g = g[..., sp.offset(rows):sp.offset(rows) + rows]
     x, w = operands(g, _w(pl, "out_proj", shards, 1))
     out = x @ w
-    if sp is not None and sp.group is not None:
-        out = comm.all_reduce_sum(out, sp.group)
-    return out
+    return out if sp is None else shards.sum_partial(out, sp)
 
 
 def ssm_block_full(pl: dict, h: torch.Tensor, cfg: ModelConfig,
@@ -436,15 +449,16 @@ def encoder_cross_kv(params: dict, enc_out: torch.Tensor, cfg: ModelConfig, shar
 
 def attn_block_full(pl: dict, h: torch.Tensor, positions: torch.Tensor, cfg: ModelConfig,
                     layer_idx: int, kv_mask: Optional[torch.Tensor] = None,
-                    return_kv: bool = False, shards=None):
+                    return_kv: bool = False, shards=None, h_all: Optional[torch.Tensor] = None):
     """Full-sequence causal attention over a normed (B, T, D) input.
     Returns (attn_out_flat (B, T, Hq·Dh), (k_rot, v) if ``return_kv``).
     On a train step's shards ``h`` is the rank's slice at ``positions``:
-    its queries attend to the whole sequence, gathered over ``model``, and
-    the weights are FSDP-gathered (the module docstring)."""
+    its queries attend to the whole sequence, gathered over ``model``
+    (``h_all`` when the caller has gathered it), and the weights are
+    FSDP-gathered (the module docstring)."""
     h_kv, k_pos = h, positions
     if shards is not None and shards.seq.group is not None:
-        h_kv = shards.gather_seq(h)
+        h_kv = shards.gather_seq(h) if h_all is None else h_all
         k_pos = torch.arange(h_kv.shape[1], dtype=positions.dtype,
                              device=h.device).expand(h.shape[0], -1)
     q, k, v = qkv_proj(pl, h, cfg, shards=shards, h_kv=h_kv)
@@ -463,31 +477,37 @@ def apply_layer_full(pl: dict, h: torch.Tensor, positions: torch.Tensor, cfg: Mo
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One decoder layer over the full sequence.  Returns (h, aux loss):
     MoE's Switch load-balancing loss, 0 for the other families.  On a
-    train step's shards (a dense layer) ``h`` is the rank's slice of the
-    residual stream, in and out (the module docstring)."""
+    train step's shards ``h`` is the rank's slice of the residual stream,
+    in and out (the module docstring)."""
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     hn = L.rms_norm(h, pl["ln1"], cfg.rms_eps)
+    if cfg.family in ("ssm", "hybrid"):
+        # the SSD recurrence crosses the sequence slices' edges: it scans
+        # the whole sequence (the hybrid's attention reads the same gather)
+        hn_all = hn if shards is None else shards.gather_seq(hn)
     if cfg.family == "hybrid":
-        attn_flat, _ = attn_block_full(pl, hn, positions, cfg, layer_idx, kv_mask)
-        attn_out = o_proj(pl, L.rms_norm(attn_flat, pl["attn_out_norm"], cfg.rms_eps), cfg)
-        ssm_out, _ = ssm_block_full(pl, hn, cfg)
+        attn_flat, _ = attn_block_full(pl, hn, positions, cfg, layer_idx, kv_mask,
+                                       shards=shards, h_all=hn_all)
+        attn_out = o_proj(pl, L.rms_norm(attn_flat, pl["attn_out_norm"], cfg.rms_eps), cfg,
+                          shards=shards)
+        ssm_out, _ = ssm_block_full(pl, hn_all, cfg, shards=shards)
         h = h + 0.5 * (attn_out + ssm_out)
     elif cfg.family == "ssm":
-        h = h + ssm_block_full(pl, hn, cfg)[0]
+        h = h + ssm_block_full(pl, hn_all, cfg, shards=shards)[0]
     elif not cfg.attention_free:
         attn_flat, _ = attn_block_full(pl, hn, positions, cfg, layer_idx, kv_mask,
                                        shards=shards)
         h = h + o_proj(pl, attn_flat, cfg, shards=shards)
     if enc_kv is not None:
         hc = L.rms_norm(h, pl["ln_cross"], cfg.rms_eps)
-        h = h + cross_attn_block(pl, hc, enc_kv, cfg)
+        h = h + cross_attn_block(pl, hc, enc_kv, cfg, shards)
     if cfg.d_ff > 0 or cfg.moe.num_experts > 0:
         hn2 = L.rms_norm(h, pl["ln2"], cfg.rms_eps)
+        if shards is not None:
+            hn2 = shards.gather_seq(hn2)
         if cfg.moe.num_experts > 0:
-            mlp_out, aux = moe_block(pl, hn2, cfg)
+            mlp_out, aux = moe_block(pl, hn2, cfg, shards)
         else:
-            if shards is not None and shards.ff.group is not None:
-                hn2 = shards.gather_seq(hn2)
             mlp_out = L.swiglu(hn2, pl["w1"], pl["w3"], pl["w2"], shards)
         h = h + mlp_out
     return h, aux
@@ -500,15 +520,14 @@ def forward_train(params: dict, batch: Dict[str, torch.Tensor], cfg: ModelConfig
     logits (they carry no next-token loss).  With ``remat`` each layer
     runs under ``torch.utils.checkpoint`` (non-reentrant): its activations
     are recomputed in the backward instead of stored.  On a train step's
-    shards (dense configs) ``batch`` holds the rank's rows and the logits
-    are its vocab columns of every position of them."""
-    if shards is not None and cfg.family != "dense":
-        raise NotImplementedError(f"{cfg.name}: the sharded train step runs the dense "
-                                  f"family, not {cfg.family!r} (ROADMAP A.15.2)")
+    shards ``batch`` holds the rank's rows and the logits are its vocab
+    columns of every position of them; an encoder runs over the rank's
+    rows' whole frames (not split: `TrainShards.whole_seq`)."""
     h, positions = embed_inputs(params, batch, cfg, shards)
     enc_kvs = None
     if cfg.is_encoder_decoder:
-        enc_kvs = encoder_cross_kv(params, encode(params, batch["frames"], cfg), cfg)
+        enc = encode(params, batch["frames"], cfg, None if shards is None else shards.whole_seq())
+        enc_kvs = encoder_cross_kv(params, enc, cfg, shards)
     aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i, pl in enumerate(params["layers"]):
         enc_kv = enc_kvs[i] if enc_kvs is not None else None

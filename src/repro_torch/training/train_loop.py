@@ -18,6 +18,9 @@ shards:
   rank's columns of the logits, and the mean is over the global B·(T−1)
   tokens: the rank's sum over its rows, divided by the global count (its
   metric summed over the rows' group, outside autograd);
+- an MoE's aux loss is global on every rank and back-propagates into the
+  rank's own positions only (`repro_torch.models.moe`), so each rank's
+  loss carries it whole and the metrics count it once;
 - a parameter's gradient is summed over the groups its spec replicates it
   on (`replicated_over`: ``model`` and ``data`` where no dim splits over
   them, ``pod`` always) by an all-reduce in the backward
@@ -132,9 +135,11 @@ def train_step(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor],
     master, opt_state, opt_metrics = adamw_update(grads, opt_state, ocfg, owner)
     new_params = cast_like(master, params)
     metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
-    if shards is not None and shards.batch.group is not None:  # one sum over the rows
-        summed = comm.all_reduce_sum(torch.stack(list(metrics.values())), shards.batch.group)
-        metrics = dict(zip(metrics, summed.unbind()))
+    if shards is not None and shards.batch.group is not None:
+        # the xent shares summed over the rows; the aux is global already
+        xent = comm.all_reduce_sum(metrics["xent"].clone(), shards.batch.group)
+        metrics = {"loss": xent + cfg.moe.router_aux_coef * metrics["aux"], "xent": xent,
+                   "aux": metrics["aux"]}
     return new_params, opt_state, {**metrics, **opt_metrics}
 
 

@@ -563,7 +563,7 @@ def argmax_rank(mesh):
     return _np(got), np.argmax(full[:, :vocab], axis=-1)
 
 
-# ---- the dense train cells' step under train_rules (tests/test_torch_train_tp.py)
+# ---- the train cells' step under train_rules (tests/test_torch_train_tp.py)
 
 # lr 1e-3: at 1e-2 Adam's first update lr·g/(|g| + eps) turns the fp32
 # rounding of a gradient near eps into parameter steps past the 1e-4 bar,
@@ -592,7 +592,8 @@ def train_cfg(configs, arch, layers):
 def train_rank(mesh, wpath, arch, B, T, layers=None, layout=None):
     """The train cell's step (`repro_torch.launch.specs.train_step`) under
     ``train_rules`` on this rank's shards of the reference's fp32 tree
-    (``wpath``): `TRAIN_STEPS` steps over its rows of `train_batches`.
+    (``wpath``): `TRAIN_STEPS` steps over its rows of `train_batches` (``T``
+    the positions a row: a VLM's image prefix and text).
     ``layout`` (model, data, pods): run on a second mesh of that layout
     over the spawn's ranks (every rank makes it).  Returns each step's
     metrics, the final param and optimizer state shards (numpy) with the
@@ -616,11 +617,12 @@ def train_rank(mesh, wpath, arch, B, T, layers=None, layout=None):
     params = local_shard(whole, spec, mesh)
     opt = init_optimizer(params)
     step = specs.train_step(cfg, mesh, rules, spec, B, T, OptimizerConfig(**TRAIN_OPT))
-    rows = {"tokens": (rules.guarded(B, "batch"), None)}
     out = {"metrics": [], "spec": spec, "model_idx": mesh.model_idx,
            "fsdp_idx": mesh.fsdp_group.rank, "data_idx": mesh.data_idx}
     for i, b in enumerate(train_batches(cfg, B, T)):
-        batch = local_shard({"tokens": torch.as_tensor(b["tokens"])}, rows, mesh)
+        # the rank's rows of the tokens and of the stub frontends' inputs
+        rows = {k: (rules.guarded(B, "batch"),) + (None,) * (v.ndim - 1) for k, v in b.items()}
+        batch = local_shard({k: torch.as_tensor(v) for k, v in b.items()}, rows, mesh)
         before = comm.snapshot()
         params, opt, met = step(params, opt, batch)
         if i == 0:

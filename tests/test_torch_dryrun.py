@@ -347,10 +347,11 @@ def test_run_cell_records(dense_sweep):
     two all-gathers (``in_proj``'s columns, the conv's channels) and two
     all-reduces (the gated norm's Σ, ``out_proj``) a layer beside the
     embedding's all-reduce and the argmax's pair gather, at decode_32k and
-    at long_500k, where nothing splits over ``data``); every serve cell of
-    the sweep runs (the sweep holds no train cell: a non-dense arch's waits
-    for A.15.2, `tests/test_torch_dryrun_train.py` runs the dense ones); a
-    skipped shape is ``skipped``."""
+    at long_500k, where nothing splits over ``data``); every cell of the
+    sweep runs: a record is ``ok``, ``skipped`` or ``fail``, no cell is
+    only sized (the train cells of every family execute their step:
+    `tests/test_torch_dryrun_train*.py`); a skipped shape is
+    ``skipped``."""
     res, out = dense_sweep
     recs = {(r["arch"], r["shape"]): r for r in res["records"]}
     assert res["counts"]["fail"] == 0
@@ -364,7 +365,8 @@ def test_run_cell_records(dense_sweep):
     cfg = get_config("granite-3-2b")
     assert ex["collectives_by_group"]["model"]["all_reduce"]["calls"] == 2 * cfg.n_layers + 1
     assert ok["memory"]["argument_bytes"] > 0
-    assert res["counts"]["args_only"] == 0
+    assert set(res["counts"]) == {"ok", "skipped", "fail"}
+    assert all(r["status"] != "ok" or "executed" in r for r in res["records"])
     m2 = get_config("mamba2-1.3b")
     L = m2.n_layers
     for shape_name, rows in (("decode_32k", SHAPES["decode_32k"].global_batch // 16),
@@ -378,7 +380,6 @@ def test_run_cell_records(dense_sweep):
         assert g["model"]["all_reduce"]["elements"] == rows * ((L + 1) * m2.d_model + L)
     assert recs[("gemma2-9b", "long_500k")]["status"] == "ok"
     assert recs[("granite-3-2b", "long_500k")]["status"] in ("ok", "skipped")
-    assert specs.cell_todo(m2, SHAPES["train_4k"]).startswith("A.15.2")
     assert recs[("minitron-8b", "long_500k")]["status"] == "skipped"
     written = json.loads((out / "granite-3-2b__decode_32k__single.json").read_text())
     assert written["executed"]["memory"] == ex["memory"]

@@ -1,6 +1,8 @@
 """The dense archs' train_4k cells of the port's dry run
 (`repro_torch.launch.dryrun`), in a file of their own: a cell's forward,
-recompute and backward on fake tensors take ~40-55 s of host time.
+recompute and backward on fake tensors take ~40-55 s of host time
+(`executed_train_cell` is the bar the other families' files,
+`tests/test_torch_dryrun_train_*.py`, hold their cells to).
 
 Each cell executes ``build_cell(...).fn`` (`repro_torch.launch.specs.
 train_step`: the port's `train_step` on rank 0's shards under
@@ -24,9 +26,10 @@ CELLS = [("granite-3-2b", False), ("gemma2-9b", False), ("granite-3-2b", True)]
 AXES = {False: {"data": 16, "model": 16}, True: {"pod": 2, "data": 16, "model": 16}}
 
 
-@pytest.mark.parametrize("arch,multi", CELLS,
-                         ids=[f"{a}-{'multi' if m else 'single'}" for a, m in CELLS])
-def test_dense_train_cell_executes_its_step(arch, multi):
+def executed_train_cell(arch: str, multi: bool) -> dict:
+    """The train_4k cell's record, held to what every train cell holds:
+    executed, fits, the rules' argument bytes, its derived contract, a peak
+    above the arguments plus the gradients.  Returns the record."""
     cfg = get_config(arch)
     rec = dryrun.run_cell(arch, "train_4k", multi, dev_bytes=dryrun.H100_BYTES)
     with step_stats.fake_tensors():
@@ -40,7 +43,14 @@ def test_dense_train_cell_executes_its_step(arch, multi):
     # the gradients alone take the params' bytes beside the arguments
     assert ex["memory"]["argument_bytes"] + params < ex["memory"]["peak_bytes"]
     assert ex["memory"]["peak_bytes"] <= dryrun.H100_BYTES
-    g = ex["collectives_by_group"]
+    return rec
+
+
+@pytest.mark.parametrize("arch,multi", CELLS,
+                         ids=[f"{a}-{'multi' if m else 'single'}" for a, m in CELLS])
+def test_dense_train_cell_executes_its_step(arch, multi):
+    cfg = get_config(arch)
+    g = executed_train_cell(arch, multi)["executed"]["collectives_by_group"]
     fsdp = "data_in_pod" if multi else "data"
     assert g[fsdp]["all_gather"]["calls"] == 14 * cfg.n_layers + 2
     assert g["model"]["reduce_scatter"]["calls"] == 3 * cfg.n_layers + 2

@@ -36,11 +36,12 @@ reference's weights reach every rank through an ``.npz``.  Held here:
   mamba2's long cells against their decode steps; the expert-parallel
   `moe_block` against the reference's at a capacity that drops;
   `vocab_argmax`'s tie and padding rules on 1x2;
-- the dense train cells' step under ``train_rules``
-  (`tests/test_torch_train_tp.py` holds its reference side and bars): the
-  four dense archs on 1x2 and 2x4, granite-3-2b past ``flash_threshold``
-  on 1x2 and on the 2x4 spawn's ranks as a (pod 2, data 2, model 2) mesh,
-  three steps against the reference's single-device `train_step`.
+- the train cells' step under ``train_rules``
+  (`tests/test_torch_train_tp.py` holds its reference side and bars): all
+  ten archs (dense, MoE, SSM, hybrid, encoder-decoder, VLM) on 1x2 and
+  2x4, granite-3-2b past ``flash_threshold`` on 1x2 and on the 2x4 spawn's
+  ranks as a (pod 2, data 2, model 2) mesh, three steps against the
+  reference's single-device `train_step`.
 
 (The reference's own mesh run of the paged backend is red in its baseline,
 so the port is held to the reference's local executor throughout.)
@@ -544,7 +545,7 @@ def test_moe_block_expert_parallel_parity(oneshot, shape):
 
 
 # ---------------------------------------------------------------------------
-# the dense train cells' step under train_rules (tests/test_torch_train_tp.py)
+# the train cells' step under train_rules (tests/test_torch_train_tp.py)
 # ---------------------------------------------------------------------------
 
 TRAIN_IDS = [(shape, c) for shape in TT.CASES for c in TT.CASES[shape]]

@@ -78,6 +78,7 @@ from repro_torch.launch.mesh import Group, Mesh
 from repro_torch.models import layers as L
 from repro_torch.serving import engine as E
 from repro_torch.serving.quant import QTensor, quantize_serve_params
+from repro_torch.training.optimizer import tree_leaves
 from tests import _torch_mesh_ranks as R
 
 torch.set_num_threads(2)
@@ -554,19 +555,29 @@ def test_layers_on_shards_sum_to_the_whole(int8):
 
 
 def test_cell_step_refuses_other_cells():
-    """`build_cell(...).fn` refuses the cells A.15.2 covers (the train step
-    of the MoE, SSM, hybrid, encoder-decoder and VLM families), naming the
-    item, and a cell built for axis sizes only (a dense train cell's too);
-    `serve_step` refuses a family the port has no step for."""
+    """The train cells of the MoE, SSM, hybrid, encoder-decoder and VLM
+    families execute their step: each arch's train_4k cell, cut to one
+    layer (whisper: one encoder layer too), built on a fake (data 2, model
+    2) mesh runs ``build_cell(...).fn`` to the reference's metrics and its
+    shards' shapes; `build_cell(...).fn` refuses a cell built for axis
+    sizes only (a train cell's too); `serve_step` refuses a family the port
+    has no step for."""
     from repro_torch.distributed import step_stats
+    from repro_torch.launch.mesh import fake_process_group, make_production_mesh
 
     axes = {"data": 2, "model": 4}
-    with step_stats.fake_tensors():
+    with fake_process_group(4), step_stats.fake_tensors():
+        mesh = make_production_mesh(model=2, data=2, device="cpu")
         for arch in ("qwen3-moe-30b-a3b", "mamba2-1.3b", "hymba-1.5b", "whisper-small",
                      "llava-next-34b"):
-            cell = specs.build_cell(get_config(arch), SHAPES["train_4k"], axes)
-            with pytest.raises(NotImplementedError, match="A.15.2"):
-                cell.fn(*cell.args)
+            cfg = dataclasses.replace(get_config(arch), n_layers=1,
+                                      n_encoder_layers=min(1, get_config(arch).n_encoder_layers))
+            cell = specs.build_cell(cfg, SHAPES["train_4k"], mesh)
+            params, opt, metrics = cell.fn(*cell.args)
+            assert set(metrics) == {"loss", "xent", "aux", "grad_norm", "lr"}, arch
+            assert [p.shape for p in tree_leaves(params)] == [
+                p.shape for p in tree_leaves(cell.args[0])], arch
+    with step_stats.fake_tensors():
         for arch, shape in (("granite-3-2b", "train_4k"), ("granite-3-2b", "decode_32k"),
                             ("mamba2-1.3b", "decode_32k")):
             cell = specs.build_cell(get_config(arch), SHAPES[shape], axes)

@@ -1,7 +1,7 @@
-"""The dense train cells' step (`repro_torch.launch.specs.train_step`: the
+"""The train cells' step (`repro_torch.launch.specs.train_step`: the
 port's `train_step` on a rank's shards under the reference's
-``train_rules``) against the reference's single-device `train_step`, on
-the CPU.
+``train_rules``) of every family against the reference's single-device
+`train_step`, on the CPU.
 
 The ranks run as jobs of `tests/test_torch_mesh.py`'s two gloo spawns
 (``train_rank`` in `tests/_torch_mesh_ranks.py`): the 1x2 spawn is (model
@@ -12,11 +12,17 @@ module that makes the spawn (pytest-xdist hands out whole files), so the
 parity tests are there and call `check_train` here; this module holds the
 reference side and the tests that need no ranks.
 
-Setup: fp32 smoke configs of the four dense archs (every norm scale and
+Setup: fp32 smoke configs of the four dense archs and of the MoE pair,
+mamba2, hymba, whisper and llava (every norm scale, SSD vector and
 qwen1.5's qkv biases drawn non-zero, `tests/test_torch_training.py`'s
 ``ref_params``), B 2 x T 32 (gemma2's window of 16 and the sequence
-slices' edges, 16 or 8 positions, cross each other), three steps of
-`SyntheticLM` batches with remat; granite-3-2b at B 4 on the pod mesh and,
+slices' edges, 16 or 8 positions, cross each other; mamba2's and hymba's
+SSD chunk of 8, so the scan's state crosses every slice edge; hymba's 5
+SSD heads and 93 ``in_proj`` columns stay whole at model 2 and 4; llava's
+16 image positions fill whole slices at model 4; the MoE capacity is
+global over both data ranks' rows on 2x4), three steps of `SyntheticLM`
+batches (the stub frontends' frames and image embeddings fed to both
+packages) with remat; granite-3-2b at B 4 on the pod mesh and,
 one layer, at B 1 x T 2056 on 1x2 (past ``flash_threshold``: the
 sequence-parallel flash attention and its recomputing backward, 1028
 queries a rank over the 2056 keys).  The optimizer runs at lr 1e-3
@@ -31,14 +37,17 @@ master, mu and nu shards within 1e-4 of the reference's results cut to the
 rank's shard; the optimizer's step 3; the first step's collectives those
 `repro_torch.launch.dryrun.train_collectives` derives for the mesh.  In
 process: the autograd pairs of `repro_torch.distributed.comm` and the
-vocab-parallel cross-entropy on thread ranks; the groups a leaf's gradient
-is summed over; the step's refusals; on a mesh of one rank the cell step
-is bitwise the local step.
+vocab-parallel cross-entropy on thread ranks; the expert-parallel MoE
+block's output, aux loss and gradients on (data 2, model 2) thread ranks
+against the whole block's; the groups a leaf's gradient is summed over;
+the splits of every family and the step's refusals; on a mesh of one rank
+the cell step is bitwise the local step, for every family.
 """
 from __future__ import annotations
 
 import dataclasses
 import threading
+import types
 
 import jax
 import jax.numpy as jnp
@@ -65,7 +74,8 @@ from tests.test_torch_training import ref_params
 
 torch.set_num_threads(2)
 TOL = 1e-4
-ARCHS = ["minitron-8b", "gemma2-9b", "granite-3-2b", "qwen1.5-110b"]
+ARCHS = ["minitron-8b", "gemma2-9b", "granite-3-2b", "qwen1.5-110b", "granite-moe-1b-a400m",
+         "qwen3-moe-30b-a3b", "mamba2-1.3b", "hymba-1.5b", "whisper-small", "llava-next-34b"]
 # (arch, B, T, layers) per spawn; the pod case runs as a second mesh of the
 # 2x4 spawn's ranks, (model, data, pods)
 CASES = {"1x2": [(a, 2, 32, None) for a in ARCHS] + [("granite-3-2b", 1, 2056, 1)],
@@ -101,7 +111,7 @@ def reference_run(tree: dict, case) -> dict:
     o = jopt.init_optimizer(p)
     metrics = []
     for b in R.train_batches(R.train_cfg(configs, arch, layers), B, T):
-        p, o, m = step(p, o, {"tokens": jnp.asarray(b["tokens"])})
+        p, o, m = step(p, o, {k: jnp.asarray(v) for k, v in b.items()})
         metrics.append({k: float(v) for k, v in m.items()})
     return {"metrics": metrics, "params": jax.tree.map(np.asarray, p),
             "opt": {k: jax.tree.map(np.asarray, getattr(o, k)) for k in ("master", "mu", "nu")},
@@ -336,10 +346,31 @@ def test_groups_a_gradient_is_summed_over():
     assert not any(topt.tree_leaves(ttl._owner(params, spec, _pod_mesh(pod_idx=1))[0]))
 
 
+def _mesh(model: int, data: int) -> Mesh:
+    """A (data, model) `Mesh` value of rank 0 without process groups."""
+    def grp(name, size):
+        return Group(None, name, size, 0, "gloo")
+
+    return Mesh(rank=0, world=model * data, model=model, data=data, model_idx=0, data_idx=0,
+                model_group=grp("model", model), data_group=grp("data", data),
+                device=torch.device("cpu"), backend="gloo", world_group=grp("world", model * data))
+
+
+def _shards(arch: str, mesh, seq: int = 32, batch: int = 4, **over):
+    cfg = dataclasses.replace(configs.get_smoke_config(arch), **over)
+    moe = cfg.moe.num_experts > 0
+    return train_shards(train_rules(mesh), mesh, vocab=cfg.padded_vocab,
+                        ff=0 if moe else cfg.d_ff, d_model=cfg.d_model, seq=seq, batch=batch,
+                        experts=cfg.moe.num_experts,
+                        ssm=cfg.ssm if cfg.family in ("ssm", "hybrid") else None)
+
+
 def test_train_step_refusals():
     """The cell step refuses rows the data axis does not divide (every rank
-    must hold rows of its own), a sequence ``model`` does not divide, and
-    the families A.15.2 covers."""
+    must hold rows of its own), a sequence ``model`` does not divide, and,
+    with more than one ``model`` rank, experts or an SSD inner dim that
+    would stay whole there, naming the dim; a family the port has no step
+    for."""
     mesh = _pod_mesh()
     rules = train_rules(mesh)
     cfg = configs.get_smoke_config("granite-3-2b")
@@ -351,17 +382,147 @@ def test_train_step_refusals():
     s = train_shards(rules, mesh, seq=32, batch=4, **kw)
     assert (s.batch.size, s.seq.size, s.fsdp.size, s.ff.size, s.vocab.size) == (4, 2, 2, 2, 2)
     assert s.heads == Split()
-    with pytest.raises(NotImplementedError, match="A.15.2"):
-        specs.train_step(configs.get_smoke_config("granite-moe-1b-a400m"), mesh, rules, None,
-                         4, 32)
+    with pytest.raises(ValueError, match=r"the experts \(4\) over 8 ranks"):
+        _shards("granite-moe-1b-a400m", _mesh(8, 1))
+    ssm = configs.get_smoke_config("mamba2-1.3b").ssm  # d_inner 4 x 8
+    with pytest.raises(ValueError, match=r"the SSD's inner dim \(24\)"):
+        _shards("mamba2-1.3b", _mesh(16, 1), ssm=dataclasses.replace(ssm, num_heads=3))
+    with pytest.raises(NotImplementedError, match="no train step"):
+        specs.train_step(dataclasses.replace(cfg, family="rnn"), mesh, rules, None, 4, 32)
 
 
-@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen1.5-110b"])
+@pytest.mark.parametrize("model,data", [(2, 2), (4, 1)])
+def test_train_shards_of_every_family(model, data):
+    """`train_shards` resolves every family's splits under ``train_rules``:
+    the experts over ``model``, no MLP split for mamba2 (d_ff 0); the SSD's
+    ``in_proj`` columns, conv channels and heads split where they divide
+    (mamba2's 84 / 48 / 4; hymba's 93 columns and 5 heads stay whole, its
+    48 channels and 40 inner rows split), the inner rows always."""
+    mesh = _mesh(model, data)
+    sizes = {}
+    for arch in ARCHS:
+        s = _shards(arch, mesh)
+        sizes[arch] = {k: getattr(s, k).size for k in ("batch", "seq", "ff", "vocab", "expert",
+                                                      "ssm_proj", "ssm_conv", "ssm_inner",
+                                                      "ssm_heads")}
+    m, d = model, data
+    assert sizes["qwen3-moe-30b-a3b"] == dict(batch=d, seq=m, ff=1, vocab=m, expert=m,
+                                              ssm_proj=1, ssm_conv=1, ssm_inner=1, ssm_heads=1)
+    assert sizes["mamba2-1.3b"] == dict(batch=d, seq=m, ff=1, vocab=m, expert=1, ssm_proj=m,
+                                        ssm_conv=m, ssm_inner=m, ssm_heads=m)
+    assert sizes["hymba-1.5b"] == dict(batch=d, seq=m, ff=m, vocab=m, expert=1, ssm_proj=1,
+                                       ssm_conv=m, ssm_inner=m, ssm_heads=1)
+    for arch in ("whisper-small", "llava-next-34b", "granite-3-2b"):
+        assert sizes[arch] == dict(batch=d, seq=m, ff=m, vocab=m, expert=1, ssm_proj=1,
+                                   ssm_conv=1, ssm_inner=1, ssm_heads=1)
+
+
+def _thread_mesh_groups(model: int, data: int):
+    """Per rank (d, m) of a (data, model) mesh of thread ranks: its model,
+    rows and world `Group`s (each ``pg`` the (exchange, index) pair)."""
+    mex = [_Exchange(model) for _ in range(data)]
+    dex = [_Exchange(data) for _ in range(model)]
+    wex = _Exchange(model * data)
+    out = {}
+    for d in range(data):
+        for m in range(model):
+            out[d, m] = (Group((mex[d], m), "model", model, m, "threads"),
+                         Group((dex[m], d), "data", data, d, "threads"),
+                         Group((wex, d * model + m), "world", model * data, d * model + m,
+                               "threads"))
+    return out
+
+
+def _run_grid(model: int, data: int, fn) -> dict:
+    """``fn(d, m, groups)`` on a thread per rank of a (data, model) mesh."""
+    groups, out, errors = _thread_mesh_groups(model, data), {}, []
+    exchanges = {id(g.pg[0]): g.pg[0] for gs in groups.values() for g in gs}
+
+    def run(key):
+        try:
+            out[key] = fn(*key, groups[key])
+        except BaseException as e:  # re-raised below
+            errors.append(e)
+            for ex in exchanges.values():
+                ex.barrier.abort()
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in groups]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        raise errors[0]
+    return out
+
+
+def test_moe_block_on_train_shards_matches_whole(monkeypatch):
+    """The expert-parallel MoE block of a train step on (data 2, model 2)
+    thread ranks (the rank's rows with their whole sequence in, its
+    experts and router columns, out onto its sequence slice) against the
+    whole block at a capacity that drops (factor 0.5): every rank's output
+    slice and aux loss, and, from a loss Σ out·w + 3·aux on every rank,
+    the gradients of the input (summed over ``model``, as the sequence
+    gather's backward sums them), of the router's and the experts' shards
+    (summed over ``data``, as their replication does), within 1e-5; the aux
+    is global (the same on every rank) and its gradient the whole one's."""
+    from repro_torch.distributed.sharding import TrainShards
+    from repro_torch.models import moe as tmoe
+
+    _thread_collectives(monkeypatch)
+    base = configs.get_smoke_config("qwen3-moe-30b-a3b")  # 8 experts, top 2
+    cfg = dataclasses.replace(base, moe=dataclasses.replace(base.moe, capacity_factor=0.5))
+    model, data, B, S, D = 2, 2, 4, 8, base.d_model
+    g = torch.Generator().manual_seed(3)
+    pl = tmoe.init_moe_params(cfg, g, torch.float32, "cpu")
+    x = torch.randn((B, S, D), generator=g)
+    w = torch.randn((B, S, D), generator=g)
+    whole = {k: v.clone().requires_grad_(True) for k, v in pl.items()}
+    xw = x.clone().requires_grad_(True)
+    out, aux = tmoe.moe_block(whole, xw, cfg)
+    ((out * w).sum() + 3.0 * aux).backward()
+    E, b, t, e = cfg.moe.num_experts, B // data, S // model, cfg.moe.num_experts // model
+
+    def rank(d, m, groups):
+        gm, gd, gw = groups
+        mesh = types.SimpleNamespace(world=model * data, world_group=gw)
+        shards = TrainShards(mesh=mesh, batch=Split(gd, d, data), seq=Split(gm, m, model),
+                             fsdp=Split(), ff=Split(), vocab=Split(),
+                             expert=Split(gm, m, model))
+        mine = {"router": pl["router"][:, m * e:(m + 1) * e],
+                **{k: pl[k][m * e:(m + 1) * e] for k in ("we1", "we3", "we2")}}
+        mine = {k: v.clone().requires_grad_(True) for k, v in mine.items()}
+        xr = x[d * b:(d + 1) * b].clone().requires_grad_(True)
+        o, a = tmoe.moe_block(mine, xr, cfg, shards)
+        ((o * w[d * b:(d + 1) * b, m * t:(m + 1) * t]).sum() + 3.0 * a).backward()
+        return o.detach(), a.detach(), xr.grad, {k: v.grad for k, v in mine.items()}
+
+    got = _run_grid(model, data, rank)
+    close = dict(rtol=1e-5, atol=1e-5)
+    for (d, m), (o, a, _, _) in got.items():
+        torch.testing.assert_close(o, out.detach()[d * b:(d + 1) * b, m * t:(m + 1) * t], **close)
+        torch.testing.assert_close(a, aux.detach(), **close)
+    for d in range(data):
+        gx = sum(got[d, m][2] for m in range(model))
+        torch.testing.assert_close(gx, xw.grad[d * b:(d + 1) * b], **close)
+    for m in range(model):
+        # the router's columns (the gather's backward summed the model ranks')
+        gr = sum(got[d, m][3]["router"] for d in range(data))
+        torch.testing.assert_close(gr, whole["router"].grad[:, m * e:(m + 1) * e], **close)
+        for k in ("we1", "we3", "we2"):
+            gk = sum(got[d, m][3][k] for d in range(data))
+            torch.testing.assert_close(gk, whole[k].grad[m * e:(m + 1) * e], **close)
+    assert E == 8 and cfg.moe.top_k == 2
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "qwen1.5-110b", "granite-moe-1b-a400m",
+                                  "mamba2-1.3b", "hymba-1.5b", "whisper-small",
+                                  "llava-next-34b"])
 def test_one_rank_cell_step_is_the_local_step(arch):
     """On a mesh of one rank every group is of one and issues nothing: the
     cell step's metrics, params and optimizer state are bitwise the local
     `train_step`'s over three steps (real tensors under the one-rank fake
-    group, which no collective reaches)."""
+    group, which no collective reaches), for every family."""
     cfg = configs.get_smoke_config(arch)
     ocfg = topt.OptimizerConfig(**R.TRAIN_OPT)
     batches = R.train_batches(cfg, 2, 32)
@@ -370,7 +531,7 @@ def test_one_rank_cell_step_is_the_local_step(arch):
         params = init_params(cfg, 0, torch.float32, "cpu")
         opt, mets = topt.init_optimizer(params), []
         for b in batches:
-            params, opt, m = step(params, opt, {"tokens": torch.as_tensor(b["tokens"])})
+            params, opt, m = step(params, opt, {k: torch.as_tensor(v) for k, v in b.items()})
             mets.append(m)
         return params, opt, mets
 
@@ -407,9 +568,8 @@ def test_adam_amplifies_rounding_near_eps():
 
 def test_dense_train_cell_builds_its_step():
     """A dense arch's train_4k cell built on a (fake) mesh runs the train
-    step; a non-dense arch's waits for A.15.2 (`cell_todo`)."""
-    assert specs.cell_todo(get_config("granite-3-2b"), SHAPES["train_4k"]) is None
-    assert specs.cell_todo(get_config("hymba-1.5b"), SHAPES["train_4k"]).startswith("A.15.2")
+    step, as every family's does (`tests/test_torch_tp.py`'s
+    ``test_cell_step_refuses_other_cells``, the dry run's train files)."""
     cfg = dataclasses.replace(get_config("granite-3-2b"), n_layers=1)
     with fake_process_group(4):
         mesh = make_production_mesh(model=2, data=2, device="cpu")
