@@ -91,8 +91,9 @@ def ssd_chunked(
         seg = _prefix_sum(torch.where(strict, dA[:, cs].permute(0, 1, 3, 2)[..., None], 0.0), 3)
         # intra-chunk dual form: y[i] = Σ_{j<=i} (C_i·B_j) exp(seg[i, j]) dt_j x_j
         s = torch.einsum("bcihn,bcjhn->bchij", cq, bq)  # (B, c, H, Q, Q)
-        # masked before the exp: above the diagonal the gradient of
-        # where(mask, exp(seg), 0) is 0 · exp(seg), NaN where exp overflows
+        # masked before the exp, so no masked entry reaches the gradient (as
+        # cum_i - cum_j, seg above the diagonal overflowed exp at a chunk of
+        # 256, and where(mask, exp(seg), 0)'s gradient there was 0 · inf)
         w = s * torch.exp(torch.where(mask, seg, float("-inf")))
         y_intra = torch.einsum("bchij,bcjhp->bcihp", w, dtq[..., None] * xq)
         # each chunk's own state contribution Σ_j B_j (dt_j x_j) exp(seg[Q-1, j])
