@@ -243,7 +243,9 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    tokens / step / 989 TFLOP/s, memory, the losses).  (c) `python -m
    repro_torch.launch.train --arch granite-3-2b --smoke --steps 6
    --ckpt-every 3` in a subprocess, then `--resume` from its step-3
-   checkpoint: the step-6 tree bitwise the uninterrupted run's;
+   checkpoint: the step-6 tree bitwise the uninterrupted run's (the two
+   subprocesses run beside phases 19 and 20, which time nothing on the
+   card; their line comes after phase 20's);
 19. (after phase 18; host only apart from (b)) the production dry run
    (`repro_torch.launch.dryrun`) on fake tensors under a fake process
    group: first the kernels' fake implementations' scratch sizes against
@@ -372,7 +374,8 @@ Phases (any failure exits non-zero; no phase carries on past its own):
    deterministic algorithms: every metric and every param and master / mu
    / nu leaf bitwise, no collective; (b) the same five at 1 layer (whisper
    1 + 1) in fp32, B 2 x 1024 (llava 2880 + 256), two gloo ranks sharing
-   the card at (data 1, model 2), beside (a), Adam's eps 1e-6
+   the card at (data 1, model 2), beside (a) (llava's, whose whole tree
+   takes turns, only once (a)'s llava has left the card), Adam's eps 1e-6
    (`P24_OPT`): metrics within 1e-4 (relative) of the local fp32 step's,
    each rank's param, master, mu and nu shards within 1e-4 of the local
    result's slice (the worst leaf named), the first step's
@@ -4612,14 +4615,41 @@ def train_full_width():
     log("[p18] (b) summary " + json.dumps(rec))
 
 
-def train_cli_restart():
-    """Phase 18 (c): ``python -m repro_torch.launch.train --arch
-    granite-3-2b --smoke --steps 6 --ckpt-every 3`` on the card in a
-    subprocess, then again with ``--resume`` after the checkpoints past
-    step 3 are removed: the step-6 tree bitwise the uninterrupted run's.
-    ``CUBLAS_WORKSPACE_CONFIG`` is set in the subprocess's environment (the
-    CLI turns on deterministic algorithms: on the card the embedding's
-    backward otherwise accumulates with atomics)."""
+def train_cli_restart_start():
+    """Phase 18 (c), started from a thread: ``python -m
+    repro_torch.launch.train --arch granite-3-2b --smoke --steps 6
+    --ckpt-every 3`` on the card in a subprocess, then again with
+    ``--resume`` after the checkpoints past step 3 are removed: the step-6
+    tree bitwise the uninterrupted run's.  Returns ``join()``, which logs
+    the result (or raises what the runs raised).  ``CUBLAS_WORKSPACE_CONFIG``
+    is set in the subprocesses' environment (the CLI turns on deterministic
+    algorithms: on the card the embedding's backward otherwise accumulates
+    with atomics)."""
+    import threading
+
+    box, procs = {}, []
+    atexit.register(lambda: [(p.kill(), p.wait()) for p in procs if p.poll() is None])
+
+    def work():
+        try:
+            train_cli_restart(procs)
+        except BaseException as e:  # handed to the caller by join()
+            box["error"] = e
+
+    th = threading.Thread(target=work, daemon=True)
+    th.start()
+
+    def join():
+        th.join()
+        if "error" in box:
+            raise box["error"]
+
+    return join
+
+
+def train_cli_restart(procs):
+    """Phase 18 (c)'s two runs and check (see `train_cli_restart_start`);
+    each subprocess is appended to ``procs``."""
     import shutil
 
     import numpy as np
@@ -4631,12 +4661,14 @@ def train_cli_restart():
 
     def run(*extra):
         t = time.perf_counter()
-        out = subprocess.run(cmd + list(extra), capture_output=True, text=True, timeout=300,
-                             env=env, cwd=str(ROOT))
-        if out.returncode != 0:
-            fail(f"[p18] (c) {' '.join(cmd[2:] + list(extra))} exited {out.returncode}: "
-                 f"{out.stderr[-3000:]}")
-        return out.stdout, time.perf_counter() - t
+        proc = subprocess.Popen(cmd + list(extra), stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True, env=env, cwd=str(ROOT))
+        procs.append(proc)
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            fail(f"[p18] (c) {' '.join(cmd[2:] + list(extra))} exited {proc.returncode}: "
+                 f"{err[-3000:]}")
+        return out, time.perf_counter() - t
 
     def leaves(step_dir):
         with open(step_dir / "manifest.json") as f:
@@ -4663,8 +4695,9 @@ def train_cli_restart():
 def p18_runs(rows):
     """Phase 18: (a) int8 weights on the main path; (b) training at full
     width and depth, with the flash backward and the families' smoke
-    variants checked on the card; (c) the training CLI and a restart.
-    Prints the phase's time and launches (apart from the kernel table)."""
+    variants checked on the card; (c) the training CLI and a restart,
+    started last and left running: returns its ``join()``.  Prints the
+    phase's time and launches (apart from the kernel table)."""
     import torch
     t0 = time.perf_counter()
     launches = int8_smoke_parity()
@@ -4677,8 +4710,9 @@ def p18_runs(rows):
     train_full_width()
     gc.collect()
     torch.cuda.empty_cache()
-    train_cli_restart()
-    log(f"[p18] phase 18 took {time.perf_counter() - t0:.1f} s; launches {launches}")
+    join = train_cli_restart_start()
+    log(f"[p18] phase 18 took {time.perf_counter() - t0:.1f} s before (c); launches {launches}")
+    return join
 
 
 # ---------------------------------------------------------------------------
@@ -6436,7 +6470,8 @@ def p23_nccl(cfg=None, c=P23_A, tag="[p23] (a)"):
     metric of every step and every param and master / mu / nu leaf after
     the steps bitwise; the per-step collectives those `train_collectives`
     derives at (1, 1) (a group of one issues nothing).  Prints both
-    steps' host-clocked times.  ``cfg`` / ``c``: another config and size
+    steps' host-clocked times and the process's peak allocation over both
+    runs.  ``cfg`` / ``c``: another config and size
     (phase 24's), granite-3-2b's at ``P23_A`` by default."""
     import tempfile
 
@@ -6453,6 +6488,7 @@ def p23_nccl(cfg=None, c=P23_A, tag="[p23] (a)"):
     cfg = cfg or p23_config(c["layers"])
     batches = p23_batches(cfg, c)
     ocfg = OptimizerConfig(**P23_OPT)
+    torch.cuda.reset_peak_memory_stats()
 
     def fresh():
         params = init_params(cfg, SEED, torch.bfloat16, "cuda", max_seq_len=c["T"])
@@ -6507,7 +6543,8 @@ def p23_nccl(cfg=None, c=P23_A, tag="[p23] (a)"):
         f"{len(tree_leaves(cell[0]))} param and {len(tree_leaves(cell[1]))} optimizer leaves); "
         f"collectives per step {cell[4][0]} = train_collectives at (1, 1); metrics {mets}; "
         f"eager step s (host clock): cell {[round(t, 4) for t in cell[3]]}, local "
-        f"{[round(t, 4) for t in local[3]]}")
+        f"{[round(t, 4) for t in local[3]]}; peak {torch.cuda.max_memory_allocated()} B "
+        f"allocated")
     return {"cell_s": cell[3], "local_s": local[3]}
 
 
@@ -6749,8 +6786,11 @@ P24_LAYOUT = (1, 2)  # (data, model)
 # update still moves every param with |g| >> 1e-6 by lr, 10x the bar
 P24_OPT = dict(P23_OPT, eps=1e-6)
 # (b)'s local runs take turns when a whole fp32 tree with its master / mu /
-# nu (16 B a parameter) passes this: llava's 1.47 B parameters at 1 layer
+# nu (16 B a parameter) passes this: llava's 1.47 B parameters at 1 layer.
+# Such an arch also waits until (a)'s llava has left the card: beside (a)'s
+# llava trees (52.3 GB allocated) its ranks ran out of the card's 80 GB
 P24_SERIAL_BYTES = 8 * 2**30
+P24_GATE_S = 900
 P24_DRY = ROOT / "chiprun_out" / "dryrun_p24"
 
 
@@ -6784,7 +6824,8 @@ def p24_gloo_rank(mesh, args):
     """One gloo rank of (b), every arch in turn: first the local fp32
     `make_train_step` on the whole tree (one rank at a time where the whole
     tree with its optimizer state passes `P24_SERIAL_BYTES`, so that two
-    never share the card), its slice of the results kept on the host; then
+    never share the card, and not before ``args["gate"]`` exists: (a)'s
+    llava has left the card), its slice of the results kept on the host; then
     the cell steps on the rank's shards, the first step's
     ``max_memory_allocated`` above the memory before its arguments, and
     the worst gap of each param, master, mu and nu shard to the local
@@ -6807,6 +6848,13 @@ def p24_gloo_rank(mesh, args):
         batches = p23_batches(cfg, c)
         spec = None
         serial = 16 * cfg.param_count() > P24_SERIAL_BYTES
+        if serial:
+            waited = time.perf_counter()
+            while not os.path.exists(args["gate"]):
+                if time.perf_counter() - waited > P24_GATE_S:
+                    fail(f"[p24] (b) {arch}: (a)'s llava did not leave the card in "
+                         f"{P24_GATE_S} s")
+                time.sleep(0.2)
         for r in range(mesh.world) if serial else [mesh.rank]:
             if r == mesh.rank:
                 whole = init_params(cfg, SEED, torch.float32, mesh.device, max_seq_len=c["T"])
@@ -6909,19 +6957,33 @@ def p24_runs(dry):
     """Phase 24: (b)'s predictions, then (a) for each arch on one NCCL rank
     while (b)'s two gloo ranks run every arch, then (b)'s bars and (c)'s
     records; prints the seconds."""
+    import tempfile
+
     import torch
     t0 = time.perf_counter()
     data, model = P24_LAYOUT
     predicted = {arch: p23_prediction(data, model, *p24_case(arch, P24_B))
                  for arch in P24_ARCHS}
-    join = p20_gloo_start({}, rank_fn=p24_gloo_rank, model=model, data=data)
+    gate = f"{tempfile.mkdtemp()}/a_done"
+    join = p20_gloo_start({"send": {"gate": gate}}, rank_fn=p24_gloo_rank, model=model,
+                          data=data)
     t1 = time.perf_counter()
-    # llava first: its (a) trees and (b)'s whole fp32 llava tree would not
-    # share the card, and (b) takes the archs in the other order
-    for arch in reversed(P24_ARCHS):
-        p23_nccl(*p24_case(arch, P24_A), tag="[p24] (a)")
-        gc.collect()
-        torch.cuda.empty_cache()
+    # (a)'s largest arch (llava) first, while (b) runs the small archs;
+    # then the gate opens and (b)'s llava, whose whole fp32 tree would not
+    # share the card with (a)'s llava trees, runs beside (a)'s small archs
+    order = sorted(P24_ARCHS, key=lambda a: -p24_case(a, P24_A)[0].param_count())
+    took = {}
+    try:
+        for arch in order:
+            t = time.perf_counter()
+            p23_nccl(*p24_case(arch, P24_A), tag="[p24] (a)")
+            gc.collect()
+            torch.cuda.empty_cache()
+            took[arch] = round(time.perf_counter() - t, 1)
+            if arch == order[0]:
+                Path(gate).touch()
+    finally:
+        Path(gate).touch()
     t2 = time.perf_counter()
     ranks = join()
     failed = []
@@ -6937,8 +6999,8 @@ def p24_runs(dry):
     t3 = time.perf_counter()
     p24_dryrun(dry)
     log(f"[p24] phase 24 took {time.perf_counter() - t0:.1f} s (predictions {t1 - t0:.1f} s, "
-        f"(a) {t2 - t1:.1f} s beside (b)'s ranks, (b) after it {t3 - t2:.1f} s, (c) after "
-        f"that {time.perf_counter() - t3:.1f} s)")
+        f"(a) {t2 - t1:.1f} s beside (b)'s ranks ({took}), (b) after it {t3 - t2:.1f} s, (c) "
+        f"after that {time.perf_counter() - t3:.1f} s)")
 
 
 def main() -> int:
@@ -7044,7 +7106,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 17")
-    p18_runs(rows)
+    # phase 18 (c)'s training CLI runs beside phases 19 and 20
+    p18_cli = p18_runs(rows)
     gc.collect()
     torch.cuda.empty_cache()
     mark("phase 18")
@@ -7054,7 +7117,8 @@ def main() -> int:
     dry = p21_dryrun_start()
     try:
         p20_runs(p20_ref, records)
-        mark("phase 20")
+        p18_cli()
+        mark("phase 20 (and 18 (c))")
         gc.collect()
         torch.cuda.empty_cache()
         p21_runs(rows, p21_moe_ref, records, dry)
