@@ -394,6 +394,7 @@ from __future__ import annotations
 
 import atexit
 import gc
+import itertools
 import json
 import os
 import statistics
@@ -471,7 +472,8 @@ FAMILY_MQ_SHAPES = [  # (S, B, G, Dh, C, bs)
     (2, 3, 4, 256, 100, 16)]
 FAMILY_CONTRACT_SHAPES = [  # (S, B, G, Dh, C, bs, Qs)
     (3, 2, 2, 256, 200, 16, (1, 5, 9)), (2, 2, 8, 256, 64, 32, (5,)),
-    (3, 2, 1, 256, 96, 16, (1, 5, 40)), (16, 4, 2, 256, C_MAIN, BLOCK, (5,))]
+    (3, 2, 1, 256, 96, 16, (1, 5, 40)), (16, 4, 2, 256, C_MAIN, BLOCK, (5,)),
+    (2, 2, 2, 128, 2 * 4096 + 300, 16, (5,))]  # past two of kernel 1's segments
 
 
 def fail(msg: str) -> None:
@@ -668,6 +670,113 @@ def check_decode(gen):
         f"(tol {FP32_TOL:g} fp32; + one bf16 step {BF16_ULP:g}|plain| for bf16); "
         f"all {n} bitwise equal to paged_fairkv_decode_cuda over an identity block table "
         f"(lengths 1 to 1600)")
+
+
+SEG_WINDOW = 5000  # keeps positions > C + 7 - 5000: masks the first segment whole
+
+
+def seg_lengths(seg):
+    """(slot, row) lengths past kernel 1's segments (``seg`` columns each)
+    in a cache of 3 seg + 100 columns: one column, one whole segment, one
+    column into the second, a partial third and fourth segment, and 1000
+    (the segments after it empty)."""
+    return (1, seg, seg + 1, 2 * seg + 37, 3 * seg + 100, 1000)
+
+
+def check_decode_segments(gen):
+    """Kernel 1 past one segment: against its plain version (fp32 and bf16)
+    at G 1, 2, 4, 5, 7, 8 and Dh 64, 128, 256 over `seg_lengths`, plain and
+    with a window that masks whole segments and softcap; the partial
+    variant's o and lse (empty pairs o = 0, lse = -inf exactly); slot ≡
+    paged bitwise at every G and Dh, and ≡ multi-query (Q = 1) but at G 5
+    and 7, at lengths past two segments, over an identity table with block
+    sizes 16 and 48 (a table block across a segment's edge); two launches bitwise equal with the counters left at 0;
+    one graph replay at the long shape equal to eager."""
+    import torch
+    from repro_torch.kernels import fairkv_decode as K1
+    from repro_torch.kernels.paged_fairkv_decode import (paged_fairkv_decode_cuda,
+                                                         paged_fairkv_decode_mq_cuda)
+    from repro_torch.kernels.ref import fairkv_decode_partial_ref, fairkv_decode_ref
+    from repro_torch.paging.testing import slot_layer_as_pool
+    seg = K1.SEG
+    lengths = seg_lengths(seg)
+    C = max(lengths)
+    S, Bq = 3, 2
+    ln0 = torch.tensor(lengths, dtype=torch.int32, device="cuda").reshape(S, Bq)
+    t0 = time.perf_counter()
+    worst = 0.0
+    n = n_part = n_bit = n_mq = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        tol_rel = 0.0 if dtype == torch.float32 else BF16_ULP
+        for G, Dh in itertools.product(K1.GROUP_SIZES, (64, 128, 256)):
+            q, k, v, ln, kp, qp = decode_inputs(gen, Bq, S, G, Dh, C, dtype,
+                                                lengths=ln0.clone())
+            for window, cap in ((0, 0.0), (SEG_WINDOW, 50.0)):
+                kw = dict(k_pos=kp, q_pos=qp, window=window)
+                tag = f"fairkv_decode segments {dtype} {(Bq, S, G, Dh, C)} w={window} cap={cap}"
+                out = K1.fairkv_decode_cuda(q, k, v, ln, cap, **kw)
+                worst = max(worst, _cmp(tag, out, fairkv_decode_ref(q, k, v, ln, cap, **kw),
+                                        FP32_TOL, tol_rel))
+                n += 1
+                if (G, Dh) in ((2, 256), (5, 64), (8, 128)):
+                    o, lse = K1.fairkv_decode_partial_cuda(q, k, v, ln, cap, **kw)
+                    o_ref, lse_ref = fairkv_decode_partial_ref(q, k, v, ln, cap, **kw)
+                    torch.cuda.synchronize()
+                    empty = torch.isinf(lse_ref)
+                    if not (torch.equal(torch.isinf(lse), empty)
+                            and bool((o[empty] == 0).all())):
+                        fail(f"{tag} partial: empty pairs not o = 0, lse = -inf")
+                    worst = max(worst, _cmp(tag + " partial", o, o_ref, FP32_TOL, 1e-5),
+                                _cmp(tag + " partial lse", torch.where(empty, 0.0, lse),
+                                     torch.where(empty, 0.0, lse_ref), FP32_TOL, 1e-5))
+                    n_part += 1
+                if dtype == torch.bfloat16:
+                    for bs in (BLOCK, 48):
+                        kpool, vpool, ppool, tbl = slot_layer_as_pool(k, v, kp, bs)
+                        pargs = (kpool, vpool, ppool, tbl, ln, C, cap)
+                        paged = paged_fairkv_decode_cuda(q, *pargs, q_pos=qp, window=window)
+                        if not torch.equal(out, paged):
+                            fail(f"{tag} bs={bs}: the slot and paged kernels differ; they "
+                                 f"must agree bitwise")
+                        n_bit += 1
+                        if G in (5, 7):  # the multi-query kernel refuses them
+                            continue
+                        mq = paged_fairkv_decode_mq_cuda(q[:, :, None].contiguous(), *pargs,
+                                                         q_pos=qp, window=window)[:, :, 0]
+                        if not torch.equal(out, mq):
+                            fail(f"{tag} bs={bs}: the multi-query (Q = 1) kernel differs from "
+                                 f"the slot and paged kernels; the three must agree bitwise")
+                        n_mq += 1
+    # two launches bitwise equal, the arrival counters left at 0, and one
+    # graph replay equal to eager, at the long shape (bf16, G 2, Dh 256)
+    q, k, v, ln, kp, qp = decode_inputs(gen, Bq, S, 2, 256, C, torch.bfloat16,
+                                        lengths=ln0.clone())
+    a = K1.fairkv_decode_cuda(q, k, v, ln, 50.0)
+    b = K1.fairkv_decode_cuda(q, k, v, ln, 50.0)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail("fairkv_decode segments: two launches on the same inputs differ")
+    if any(int(c.abs().sum()) for c in K1._COUNTERS.values()):
+        fail("fairkv_decode segments: the arrival counters are not 0 after the launches")
+    graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        K1.fairkv_decode_cuda(q, k, v, ln, 50.0)
+        with torch.cuda.graph(graph, stream=side):
+            g_out = K1.fairkv_decode_cuda(q, k, v, ln, 50.0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(g_out, a):
+        fail("fairkv_decode segments: a graph replay differs from the eager launch")
+    del graph
+    log(f"[check] fairkv_decode past one segment ({seg} columns; C {C}, lengths {lengths}): "
+        f"{n} cases vs plain (G {K1.GROUP_SIZES}, Dh 64/128/256, fp32 and bf16, a window of "
+        f"{SEG_WINDOW} masking whole segments with softcap 50), {n_part} of the partial "
+        f"variant (o and lse), max abs err {worst:.3e}; {n_bit} cases slot ≡ paged bitwise, "
+        f"{n_mq} of them ≡ multi-query (Q = 1) too (block sizes {BLOCK} and 48); two launches "
+        f"bitwise equal, counters 0; a graph replay equal to eager; {time.perf_counter() - t0:.1f} s")
 
 
 def check_head_dim_refusals(gen):
@@ -4732,18 +4841,25 @@ def p19_scratch_formulas():
     lib1, libp, libq, lib2 = (K1._launcher(), KP._launcher(KP.NAME), KP._launcher(KP.NAME_MQ),
                               K2._launcher())
     n = 0
-    for Bq, S, G, Dh in ((B, 16, 4, 128), (8, 1, 4, 128), (8, 1, 8, 128), (4, 16, 2, 256),
-                         (8, 16, 5, 64), (2, 16, 7, 128)):
-        want = (lib1.fairkv_decode_scratch_floats(Bq, S, G, Dh),
-                libp.paged_fairkv_decode_scratch_floats(Bq, S, G, Dh))
-        if want != (K1.scratch_floats(Bq, S, G, Dh), KP.scratch_floats(Bq, S, 1, G, Dh)):
-            fail(f"fake scratch size differs from the library's at {(Bq, S, G, Dh)}: {want}")
+    if lib1.fairkv_decode_segment_columns() != K1.SEG:
+        fail(f"the library's segment ({lib1.fairkv_decode_segment_columns()} columns) is not "
+             f"the wrapper's {K1.SEG}")
+    for (Bq, S, G, Dh), C in itertools.product(
+            ((B, 16, 4, 128), (8, 1, 4, 128), (8, 1, 8, 128), (4, 16, 2, 256), (8, 16, 5, 64),
+             (2, 16, 7, 128)), (C_MAIN, 1600, K1.SEG, K1.SEG + 1, P21_CAP + MARGIN)):
+        want = (lib1.fairkv_decode_scratch_floats(Bq, S, G, Dh, C),
+                lib1.fairkv_decode_counters(Bq, S, C),
+                libp.paged_fairkv_decode_scratch_floats(Bq, S, G, Dh, C),
+                libp.paged_fairkv_decode_counters(Bq, S, C))
+        if want != (K1.scratch_floats(Bq, S, G, Dh, C), K1.counters(Bq, S, C),
+                    KP.scratch_floats(Bq, S, 1, G, Dh, C), KP.counters(Bq, S, 1, C)):
+            fail(f"fake scratch size differs from the library's at {(Bq, S, G, Dh, C)}: {want}")
         for Q in range(1, 41 // G + 1):
-            if (libq.paged_fairkv_decode_mq_scratch_floats(Bq, S, Q, G, Dh),
-                    libq.paged_fairkv_decode_mq_counters(Bq, S, Q)) != (
-                    KP.scratch_floats(Bq, S, Q, G, Dh), S * Bq * KP.n_chunks(Q)):
+            if (libq.paged_fairkv_decode_mq_scratch_floats(Bq, S, Q, G, Dh, C),
+                    libq.paged_fairkv_decode_mq_counters(Bq, S, Q, C)) != (
+                    KP.scratch_floats(Bq, S, Q, G, Dh, C), KP.counters(Bq, S, Q, C)):
                 fail(f"fake multi-query scratch differs from the library's at "
-                     f"{(Bq, S, Q, G, Dh)}")
+                     f"{(Bq, S, Q, G, Dh, C)}")
             n += 1
     for Bq, Hkv, Tk in ((B, 8, T), (1, 8, T), (2, 8, 32768), (1, 8, 512), (4, 8, 4608),
                         (8, 5, 2048), (2, 8, 3904), (1, 1, 64)):
@@ -5617,8 +5733,10 @@ def p21_kernel_rows(ref, rows, launches):
     the empty pairs' o = 0 and lse = -inf exactly.  Timed on the global
     layer's shard (C_loc = 65,536) beside its bound, its plain version and
     the efficient SDPA with log-sum-exp; kernel 1 timed at (B 1, C
-    131,136) on the whole global layer.  Adds the partial kernel's row to
-    ``rows`` and kernel 1's long-context time to its row."""
+    131,136) on the whole global layer and on the whole window layer 0
+    (``*_long_b1_window``: the window keeps the last 4096 positions).  Adds
+    the partial kernel's row to ``rows`` and kernel 1's long-context times
+    to its row."""
     import torch
     import torch.nn.functional as F
     from repro_torch.cache.slot_cache import shard_lengths
@@ -5679,14 +5797,34 @@ def p21_kernel_rows(ref, rows, launches):
     b1 = n1 * Dh * 2 * it + 2 * q.numel() * it + ln1.numel() * 4
     k1_bound = 1e3 * max(b1 / HBM_BYTES_PER_S, 4 * n1 * G * Dh / BF16_FLOP_PER_S)
     k1_lib = sdpa_decode_ms(q, k1, v1, ln1, flush)
+    # and on the whole window layer 0: the window keeps the last 4096
+    # positions, so the bytes this data needs are every retained entry's
+    # position and the kept entries' K / V
+    k0, v0, p0, ln0 = cache.k[0], cache.v[0], cache.pos[0], cache.lengths[0]
+    w0 = layer_window(m, 0)
+    kw0 = dict(k_pos=p0, q_pos=qpos, window=w0)
+    err0 = _cmp("fairkv_decode (B 1, long context, window layer)",
+                fairkv_decode_cuda(q, k0, v0, ln0, m.attn_softcap, **kw0),
+                fairkv_decode_ref(q, k0, v0, ln0, m.attn_softcap, **kw0), FP32_TOL, BF16_ULP)
+    w_ms = time_ms(lambda: fairkv_decode_cuda(q, k0, v0, ln0, m.attn_softcap, **kw0), flush)
+    n0 = int(ln0.sum().item())
+    kept = int(((torch.arange(k0.shape[2], device="cuda") < ln0[..., None])
+                & (p0 > qpos[0] - w0)).sum().item())
+    b0 = kept * Dh * 2 * it + n0 * 4 + 2 * q.numel() * it + ln0.numel() * 4
+    w_bound = 1e3 * max(b0 / HBM_BYTES_PER_S, 4 * kept * G * Dh / BF16_FLOP_PER_S)
+    w_lib = sdpa_decode_ms(q, k0, v0, ln0, flush, p0, qpos, w0)
     for row in rows:
         if row["name"] == "fairkv_decode":
-            row.update(ms_long_b1=k1_ms, bound_ms_long_b1=k1_bound, library_ms_long_b1=k1_lib)
+            row.update(ms_long_b1=k1_ms, bound_ms_long_b1=k1_bound, library_ms_long_b1=k1_lib,
+                       ms_long_b1_window=w_ms, bound_ms_long_b1_window=w_bound,
+                       library_ms_long_b1_window=w_lib, max_abs_err_long_b1_window=err0)
     log(f"[time] fairkv_decode_partial at (B 1, S {S}, G {G}, C_loc {P21_C_LOC}, Dh {Dh}) "
         f"bf16, sum(lengths) = {n_ret}: kernel {kern:.4f} ms, plain {plain:.4f} ms, "
         f"efficient SDPA {lib if lib is None else f'{lib:.4f}'} ms, bound {bound:.4f} ms "
         f"({nbytes} B); kernel 1 at (B 1, S {S}, C {C}): {k1_ms:.4f} ms, SDPA {k1_lib:.4f} "
-        f"ms (no softcap), bound {k1_bound:.4f} ms (sum(lengths) = {n1})")
+        f"ms (no softcap), bound {k1_bound:.4f} ms (sum(lengths) = {n1}); on the window "
+        f"layer (window {w0}, {kept} of {n0} entries kept): {w_ms:.4f} ms, SDPA {w_lib:.4f} "
+        f"ms, bound {w_bound:.4f} ms ({b0} B)")
 
 
 def p21_long(rows):
@@ -7042,6 +7180,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(SEED)
     check_decode(gen)
+    check_decode_segments(gen)
     check_head_dim_refusals(gen)
     check_scores(gen)
     check_paged()

@@ -27,12 +27,22 @@
 //   - bytes moved = retained bytes: a (slot, row) of length 0 writes zeros
 //     and moves no K/V bytes; the others copy only the columns that some
 //     query of the block sees;
-//   - each block stages its pair's table row in shared memory once; K and
-//     V rows reach shared memory through 16-byte cp.async copies from pool
-//     row id * bs + c % bs (16 codes per copy for int8 / fp8 pools), in
-//     stages of 8 entries through a ring of 8 stages; each entry's two
-//     block scales and (with a window) its position arrive beside it by
-//     4-byte copies; rows that are not 16-byte aligned take plain loads;
+//   - the slot kernel's split over the cache's columns: segments of SEG =
+//     4096 columns (col_segments.cuh, with the segments' merge term, so
+//     the two kernels cannot drift), boundaries on the column index
+//     alone; the grid's third dimension carries (query chunk, segment),
+//     and a block whose segment starts at or past the columns its chunk
+//     sees exits at once, writes nothing and is not waited for.  Every
+//     capacity of the main path and decode_32k (<= 1600 columns) is one
+//     segment;
+//   - each block stages the table entries its segment touches in shared
+//     memory once (at most SEG / bs + 1, so a long capacity needs no long
+//     table row there); K and V rows reach shared memory through 16-byte
+//     cp.async copies from pool row id * bs + c % bs (16 codes per copy
+//     for int8 / fp8 pools), in stages of 8 entries through a ring of 8
+//     stages; each entry's two block scales and (with a window) its
+//     position arrive beside it by 4-byte copies; rows that are not
+//     16-byte aligned take plain loads;
 //   - G blocks per (slot, row) and query chunk, 8 warps each: block `part`
 //     takes column classes part * 8/G .. + 8/G - 1 of all G heads, and
 //     every warp one (class, head) chain for the QW queries of its chunk,
@@ -47,10 +57,13 @@
 //     running max over the batch, every expf at once, then the (l, acc) fma
 //     chains; an entry a query does not see is an exact no-op update, and
 //     the control flow around the shuffles is block-uniform;
-//   - each block writes its chains' states to scratch; the last block of a
-//     (slot, row, chunk) to arrive (a per-pair atomic counter after
-//     __threadfence, reset for the next launch) merges the 8 classes in
-//     order, so one launch suffices;
+//   - each block writes its chains' states to scratch; the last of a
+//     segment's blocks to arrive (an atomic counter after __threadfence,
+//     reset for the next launch) merges the segment's 8 classes, and past
+//     one segment the last of the (slot, row, chunk)'s segments merges
+//     theirs (the slot kernel's two levels), so one launch suffices; the
+//     block's segment record waits in shared memory through the loop,
+//     whose registers the widest chunks use to the last of 128;
 //   - head dims up to 128, and 256: a lane owns J = 4 elements of a row
 //     up to Dh = 128 and J = 8 at 256 (FULL only), the slot kernel's
 //     split, so the two still reduce in the same order.  At J = 8 a warp's q and acc for its
@@ -64,11 +77,15 @@
 // c mod 8 is one online-softmax chain (entries in increasing c; lane d =
 // lane + 32 j partial products, the xor-shuffle tree, * scale, softcap,
 // mn = fmaxf(m, s), corr = expf(m - mn), p = expf(s - mn), l = l*corr + p,
-// acc = acc*corr + p*v), merged over the classes in order 0..7.  So the
-// single-query kernel equals the slot kernel bitwise over an identity
-// table, the multi-query kernel at Q = 1 equals the single-query kernel,
-// and query i of the multi-query kernel equals the single-query kernel at
-// lengths min(len - (qn - 1 - i), len) and q_pos + i.  The chain is written
+// acc = acc*corr + p*v) within each segment, a segment's classes merge in
+// order 0..7, and past one segment the segments below the query's own
+// limit merge in order as the slot kernel merges them (a segment past the
+// limit would add exact zeros, but an fma of -0 and +0 can turn -0 into
+// +0, so they are left out; one segment through that path gives its own
+// values).  So the single-query kernel equals the slot kernel bitwise over an
+// identity table, the multi-query kernel at Q = 1 equals the single-query
+// kernel, and query i of the multi-query kernel equals the single-query
+// kernel at lengths min(len - (qn - 1 - i), len) and q_pos + i.  The chain is written
 // with rounding intrinsics (__fmaf_rn, __fmul_rn, __fsub_rn, __fdiv_rn),
 // which the compiler never contracts, in the form the slot kernel compiles
 // to (s = scale * x rounded before s - mn; acc = fma(acc, corr, p*v)): a
@@ -85,6 +102,7 @@
 #include <type_traits>
 
 #include "async_copy.cuh"
+#include "col_segments.cuh"
 
 namespace paged {
 namespace {  // internal linkage: each library keeps its own instantiations
@@ -98,6 +116,9 @@ constexpr int NST = 8;              // ring stages
 constexpr int QMAX = 5;             // queries per warp (a chunk of the grid)
 constexpr int MAX_QUERY_ROWS = 40;  // Q * G
 constexpr float NEG_INF = -1e30f;
+using colseg::SEG;                  // columns per segment: the slot kernel's (col_segments.cuh)
+using colseg::n_segments;
+static_assert(SEG % (NCLS * ES) == 0, "a segment is whole stages of every class");
 
 // the group a G splits the column classes as: G itself when it divides 8,
 // else 8 with heads G .. 7 masked (the slot kernel's rule)
@@ -175,10 +196,24 @@ __host__ __device__ inline int chunk_width(int Q) {
   return (Q + n - 1) / n;
 }
 
-// fp32 scratch (floats) one launch needs: each (slot, row, chunk)'s 8 class
-// states, (acc, m, l) per (query, head)
-inline long long scratch_floats(int B, int S, int Q, int G, int Dh) {
-  return static_cast<long long>(S) * B * n_chunks(Q) * NCLS * chunk_width(Q) * G * (Dh + 2);
+// fp32 scratch (floats) one launch needs: each (slot, row, chunk)'s states
+// of every (segment, class), (acc, m, l) per (query, head)
+inline long long scratch_floats(int B, int S, int Q, int G, int Dh, int capacity) {
+  return static_cast<long long>(S) * B * n_chunks(Q) * n_segments(capacity) * NCLS *
+         chunk_width(Q) * G * (Dh + 2);
+}
+
+// arrival counters (ints) one launch needs: one per (slot, row, chunk),
+// and past one segment also one per (slot, row, chunk, segment)
+inline long long counters(int B, int S, int Q, int capacity) {
+  const int n = n_segments(capacity);
+  return static_cast<long long>(S) * B * n_chunks(Q) * (n > 1 ? 1 + n : 1);
+}
+
+// entries of a block's staged table row: the blocks one segment's columns
+// can touch
+__host__ __device__ inline int table_entries(int capacity, int bs) {
+  return min((capacity + bs - 1) / bs, (SEG + bs - 1) / bs + 1);
 }
 
 // one ring stage: K rows | V rows | (quantized) K and V block scales |
@@ -198,35 +233,40 @@ __host__ __device__ inline Stage stage_layout(int Dh) {
   return s;
 }
 
-// dynamic shared memory: merge (m, l) | flag | table row | ring
+// dynamic shared memory: merge (m, l) of a segment's classes or of the
+// segments, per row |
+// flag and the block's segment record | the segment's table entries | ring
 struct Layout {
   size_t flag, table, ring, total;
 };
 template <typename TKV>
-__host__ __device__ inline Layout layout(int rows, int n_blk, int Dh) {
+__host__ __device__ inline Layout layout(int rows, int n_blk, int Dh, int nseg) {
   Layout s;
-  s.flag = align16(static_cast<size_t>(NCLS) * rows * 2 * sizeof(float));
-  s.table = s.flag + 16;
+  s.flag = align16(static_cast<size_t>(nseg > NCLS ? nseg : NCLS) * rows * 2 * sizeof(float));
+  s.table = s.flag + 32;
   s.ring = s.table + align16(static_cast<size_t>(n_blk) * sizeof(int));
   s.total = s.ring + NST * stage_layout<TKV>(Dh).bytes;
   return s;
 }
 
 // block entry e of the block's classes is column ((e >> LCPB) << 3) + cls0
-// + (e & (2^LCPB - 1)) of the pair
+// + (e & (2^LCPB - 1)) of its segment
 template <int LCPB>
 __device__ __forceinline__ int column(int e, int cls0) {
   return ((e >> LCPB) << 3) + cls0 + (e & ((1 << LCPB) - 1));
 }
 
-// pool row of column c through the staged table row
-__device__ __forceinline__ size_t pool_row(const int* tbl_s, int c, int bs, int bs_shift) {
-  const int blk = bs_shift >= 0 ? c >> bs_shift : c / bs;
-  return static_cast<size_t>(tbl_s[blk]) * bs + (c - blk * bs);
+// pool row of column c of a segment through its staged table entries:
+// `off` is the segment's first column less the first staged block's
+__device__ __forceinline__ size_t pool_row(const int* tbl_s, int c, int off, int bs,
+                                           int bs_shift) {
+  const int cc = c + off;
+  const int blk = bs_shift >= 0 ? cc >> bs_shift : cc / bs;
+  return static_cast<size_t>(tbl_s[blk]) * bs + (cc - blk * bs);
 }
 
-// copy ring stage `st` (block entries st*ES ..) into ring slot `slot`;
-// columns at or past len are not copied
+// copy ring stage `st` (block entries st*ES .. of a segment) into ring slot
+// `slot`; the segment's columns at or past slen are not copied
 template <typename TKV, int LCPB>
 __device__ __forceinline__ void issue_stage(unsigned char* ring, const Stage& SL,
                                             const TKV* __restrict__ k_pool,
@@ -234,9 +274,9 @@ __device__ __forceinline__ void issue_stage(unsigned char* ring, const Stage& SL
                                             const int* __restrict__ pos_pool,
                                             const float* __restrict__ k_scale,
                                             const float* __restrict__ v_scale,
-                                            const int* tbl_s, int st, int slot, int cls0,
-                                            int len, int bs, int bs_shift, int Dh, bool vec,
-                                            bool want_pos) {
+                                            const int* tbl_s, int off, int st, int slot,
+                                            int cls0, int slen, int bs, int bs_shift, int Dh,
+                                            bool vec, bool want_pos) {
   constexpr bool QUANT = sizeof(TKV) == 1;
   unsigned char* base = ring + static_cast<size_t>(slot) * SL.bytes;
   TKV* ks = reinterpret_cast<TKV*>(base);
@@ -245,8 +285,9 @@ __device__ __forceinline__ void issue_stage(unsigned char* ring, const Stage& SL
   if (QUANT || want_pos) {  // per-entry block scales and positions
     for (int i = threadIdx.x; i < ES; i += blockDim.x) {
       const int c = column<LCPB>(e0 + i, cls0);
-      if (c < len) {
-        const int blk = bs_shift >= 0 ? c >> bs_shift : c / bs;
+      if (c < slen) {
+        const int cc = c + off;
+        const int blk = bs_shift >= 0 ? cc >> bs_shift : cc / bs;
         const int id = tbl_s[blk];
         if (QUANT) {
           hk::cp_async4_zfill(reinterpret_cast<float*>(base + SL.ksc) + i, k_scale + id, 4);
@@ -254,7 +295,7 @@ __device__ __forceinline__ void issue_stage(unsigned char* ring, const Stage& SL
         }
         if (want_pos)
           hk::cp_async4_zfill(reinterpret_cast<int*>(base + SL.pos) + i,
-                              pos_pool + static_cast<size_t>(id) * bs + (c - blk * bs), 4);
+                              pos_pool + static_cast<size_t>(id) * bs + (cc - blk * bs), 4);
       }
     }
   }
@@ -267,17 +308,17 @@ __device__ __forceinline__ void issue_stage(unsigned char* ring, const Stage& SL
       const int ii = isv ? i - n : i;
       const int le = ii / cpr, ch = ii - le * cpr;
       const int c = column<LCPB>(e0 + le, cls0);
-      if (c < len)
+      if (c < slen)
         hk::cp_async16((isv ? vs : ks) + le * Dh + ch * EPC,
-                       (isv ? v_pool : k_pool) + pool_row(tbl_s, c, bs, bs_shift) * Dh
+                       (isv ? v_pool : k_pool) + pool_row(tbl_s, c, off, bs, bs_shift) * Dh
                            + ch * EPC);
     }
   } else {  // rows not 16-byte aligned: plain loads (visible after the next barrier)
     for (int i = threadIdx.x; i < ES * Dh; i += blockDim.x) {
       const int le = i / Dh, d = i - le * Dh;
       const int c = column<LCPB>(e0 + le, cls0);
-      if (c < len) {
-        const size_t row = pool_row(tbl_s, c, bs, bs_shift);
+      if (c < slen) {
+        const size_t row = pool_row(tbl_s, c, off, bs, bs_shift);
         ks[i] = k_pool[row * Dh + d];
         vs[i] = v_pool[row * Dh + d];
       }
@@ -303,9 +344,9 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
             const float* __restrict__ v_scale,  // (N,) or null
             const int* __restrict__ kinds,      // (S,) or null
             TQ* __restrict__ out,               // (B, S, Q, G, Dh)
-            float* __restrict__ acc_scr,        // (S*B*nch, NCLS, QW*G, Dh)
-            float* __restrict__ ml_scr,         // (S*B*nch, NCLS, QW*G, 2)
-            int* __restrict__ counters,         // (S*B*nch,), zero between launches
+            float* __restrict__ acc_scr,        // (S*B*nch, nseg, NCLS, QW*G, Dh)
+            float* __restrict__ ml_scr,         // (S*B*nch, nseg, NCLS, QW*G, 2)
+            int* __restrict__ counters,         // paged::counters, zero between launches
             int B, int S, int Q, int M, int bs, int bs_shift, int capacity,
             int Dh_in, float scale, float attn_cap, int window, int vec) {
   constexpr bool QUANT = sizeof(TKV) == 1;
@@ -324,7 +365,9 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
   extern __shared__ __align__(16) unsigned char smem[];
   const int sb = blockIdx.x;  // s * B + b
   const int part = blockIdx.y;
-  const int chunk = blockIdx.z;
+  const int nsegs = n_segments(capacity);  // the scratch's segments per (slot, row, chunk)
+  const int chunk = blockIdx.z / nsegs;    // z = chunk * nsegs + segment
+  const int seg = blockIdx.z - chunk * nsegs;
   const int s = sb / B;
   const int b = sb - s * B;
   const int warp = threadIdx.x >> 5;
@@ -340,10 +383,14 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
   const size_t qrow0 = (static_cast<size_t>(b) * S + s) * Q + q0;  // chunk's first query
   TQ* o = out + qrow0 * G * Dh;
   if (len_c <= 0) {  // no query of the chunk sees a column: exact zeros, no K/V traffic
-    if (part == 0)
+    if (part == 0 && seg == 0)
       for (int i = threadIdx.x; i < nq * G * Dh; i += blockDim.x) store(o + i, 0.f);
     return;
   }
+  const int seg0 = seg * SEG;
+  if (seg0 >= len_c) return;  // past the chunk's columns: no state, not waited for
+  const int nseg = n_segments(len_c);        // the chunk's segments that hold columns
+  const int slen = min(len_c - seg0, SEG);    // this segment's columns
   const int kind = (QUANT && kinds != nullptr) ? kinds[s] : 0;
   const int qp = window > 0 ? q_pos[b] : 0;
   const int cls0 = part * CPB;
@@ -352,32 +399,44 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
   const int g = warp / CPB;
   const bool live = g < G;  // a masked head's warp streams K/V with the block
 
-  const int n_blk = (len_c + bs - 1) / bs;
-  const Layout L = layout<TKV>(R, (capacity + bs - 1) / bs, Dh);
+  const int blk0 = seg0 / bs;  // the segment's first table block
+  const int n_blk = (seg0 + slen - 1) / bs + 1 - blk0;
+  const int off = seg0 - blk0 * bs;
+  const Layout L = layout<TKV>(R, table_entries(capacity, bs), Dh, nsegs);
   const Stage SL = stage_layout<TKV>(Dh);
   float* ml_s = reinterpret_cast<float*>(smem);
   int* flag = reinterpret_cast<int*>(smem + L.flag);
   int* tbl_s = reinterpret_cast<int*>(smem + L.table);
   unsigned char* ring = smem + L.ring;
   const int* trow = table + static_cast<size_t>(sb) * M;
-  for (int i = threadIdx.x; i < n_blk; i += blockDim.x) tbl_s[i] = max(trow[i], 0);
+  for (int i = threadIdx.x; i < n_blk; i += blockDim.x) tbl_s[i] = max(trow[blk0 + i], 0);
+  // the segment's record, read back where it is used, so that its
+  // registers are free in the loop (the widest chunks use 128)
+  if (threadIdx.x == 0) {
+    flag[1] = off;
+    flag[2] = seg;
+    flag[3] = nseg;
+    flag[4] = chunk;
+    flag[5] = nsegs;
+  }
   __syncthreads();
 
-  const int ngroups = (len_c + NCLS - 1) / NCLS;
+  const int ngroups = (slen + NCLS - 1) / NCLS;
   const int ntiles = (ngroups * CPB + ES - 1) / ES;
   const bool want_pos = window > 0;
 #pragma unroll
   for (int st = 0; st < NST - 1; ++st) {
     if (st < ntiles)
-      issue_stage<TKV, LCPB>(ring, SL, k_pool, v_pool, pos_pool, k_scale, v_scale, tbl_s, st,
-                             st, cls0, len_c, bs, bs_shift, Dh, vec != 0, want_pos);
+      issue_stage<TKV, LCPB>(ring, SL, k_pool, v_pool, pos_pool, k_scale, v_scale, tbl_s,
+                             flag[1], st, st, cls0, slen, bs, bs_shift, Dh, vec != 0, want_pos);
     hk::cp_async_commit();
   }
   // this warp's queries (an idle width repeats the chunk's last query; its
-  // results are not written): query q0 + qw(i) sees columns c < min(limq +
-  // qw(i), len) inside its window, pos > thrq + qw(i); the q loads overlap
+  // results are not written): query q0 + qw(i) sees the segment's columns
+  // c < min(limq + qw(i), lens) inside its window, pos > thrq + qw(i) (limq
+  // and lens counted from the segment's first column); the q loads overlap
   // the first stages' copies
-  const int limq = lim0 + q0, thrq = qp + q0 - window;
+  const int limq = lim0 + q0 - seg0, lens = len - seg0, thrq = qp + q0 - window;
   auto qw = [nq](int i) { return min(i, nq - 1); };
   float qv[QW][J];
 #pragma unroll
@@ -405,8 +464,8 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
     __syncthreads();               // ... and every thread's; stage t-1 consumed
     if (t + NST - 1 < ntiles)
       issue_stage<TKV, LCPB>(ring, SL, k_pool, v_pool, pos_pool, k_scale, v_scale, tbl_s,
-                             t + NST - 1, (t + NST - 1) % NST, cls0, len_c, bs, bs_shift, Dh,
-                             vec != 0, want_pos);
+                             flag[1], t + NST - 1, (t + NST - 1) % NST, cls0, slen, bs,
+                             bs_shift, Dh, vec != 0, want_pos);
     hk::cp_async_commit();
     const unsigned char* base = ring + static_cast<size_t>(t % NST) * SL.bytes;
     const TKV* ks = reinterpret_cast<const TKV*>(base);
@@ -414,7 +473,7 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
     const float* kss = reinterpret_cast<const float*>(base + SL.ksc);
     const float* vss = reinterpret_cast<const float*>(base + SL.vsc);
     const int* pss = reinterpret_cast<const int*>(base + SL.pos);
-    const int gbase = t * PER;  // group (c / 8) of the stage's first entry
+    const int gbase = t * PER;  // group (c / 8, in the segment) of the stage's first entry
 #pragma unroll 1
     for (int i0 = 0; i0 < PER; i0 += NBU) {
       // scores of the batch, in straight-line stages so the entries'
@@ -461,7 +520,7 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
       unsigned vm[QW];
 #pragma unroll
       for (int i = 0; i < QW; ++i) {
-        const int lim = min(limq + qw(i), len);
+        const int lim = min(limq + qw(i), lens);
         const int nv = min(max((lim - c0 + NCLS - 1) / NCLS, 0), NBU);
         vm[i] = (1u << nv) - 1u;
       }
@@ -528,13 +587,15 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
 
   // every block writes its chains' states to scratch; the last block of
   // the (slot, row, chunk) merges from there
-  const size_t pc = static_cast<size_t>(sb) * gridDim.z + chunk;
-  float* acc_dst = acc_scr + pc * NCLS * R * Dh;
-  float* ml_dst = ml_scr + pc * NCLS * R * 2;
+  const int seg_w = flag[2], nseg_w = flag[3], nsegs_w = flag[5];
+  const int seg0_w = seg_w * SEG;
+  const size_t pc = static_cast<size_t>(sb) * (gridDim.z / nsegs_w) + flag[4];
+  float* acc_dst = acc_scr + pc * nsegs_w * NCLS * R * Dh;
+  float* ml_dst = ml_scr + pc * nsegs_w * NCLS * R * 2;
 #pragma unroll
   for (int i = 0; i < QW; ++i) {
     if (live && i < nq) {
-      const int r = cls * R + i * G + g;
+      const int r = (seg_w * NCLS + cls) * R + i * G + g;
 #pragma unroll
       for (int j = 0; j < J; ++j) {
         const int d = lane + 32 * j;
@@ -546,31 +607,86 @@ decode_body(const TQ* __restrict__ q,           // (B, S, Q, G, Dh)
       }
     }
   }
+  // One segment: the chunk's last block merges the 8 classes and writes
+  // the output.  More: each segment's last block merges its 8 classes into
+  // the segment's (mx, lsum, a) per row, and the chunk's last such block
+  // merges the segments in order (the slot kernel's merge).
+  const bool split = nseg_w > 1;
+  const size_t n_pc = static_cast<size_t>(gridDim.x) * (gridDim.z / nsegs_w);
+  int* arrive = split ? counters + n_pc + pc * nsegs_w + seg_w : counters + pc;
   __threadfence();
   __syncthreads();
-  if (threadIdx.x == 0) *flag = atomicAdd(counters + pc, 1) == GP - 1;
+  if (threadIdx.x == 0) *flag = atomicAdd(arrive, 1) == GP - 1;
   __syncthreads();
   if (!*flag) return;
   __threadfence();
-  if (threadIdx.x == 0) counters[pc] = 0;  // ready for the next launch
+  if (threadIdx.x == 0) *arrive = 0;  // ready for the next launch
   const int rn = nq * G;  // rows to write
+  float* acc_seg = acc_dst + static_cast<size_t>(seg_w) * NCLS * R * Dh;
+  float* ml_seg = ml_dst + static_cast<size_t>(seg_w) * NCLS * R * 2;
   for (int i = threadIdx.x; i < NCLS * rn * 2; i += blockDim.x) {
     const int w = i / (rn * 2), k = i - w * rn * 2;
-    ml_s[w * R * 2 + k] = __ldcg(ml_dst + w * R * 2 + k);
+    ml_s[w * R * 2 + k] = __ldcg(ml_seg + w * R * 2 + k);
   }
   __syncthreads();
 
-  // merge the 8 classes in order
+  // the segment's 8 classes in order: per row mx, lsum = the sum of l f
+  // and a = the sum of acc f, f = expf(m - mx)
   for (int i = threadIdx.x; i < rn * Dh; i += blockDim.x) {
     const int r = i / Dh;
     float mx = NEG_INF;
-    for (int w = 0; w < NCLS; ++w) mx = fmaxf(mx, ml_s[(w * R + r) * 2]);
+#pragma unroll
+    for (int c = 0; c < NCLS; ++c) mx = fmaxf(mx, ml_s[(c * R + r) * 2]);
     float lsum = 0.f, a = 0.f;
-    for (int w = 0; w < NCLS; ++w) {
+#pragma unroll
+    for (int c = 0; c < NCLS; ++c) {
       // a class that saw no valid entry has l = 0 and acc = 0: no weight
-      const float f = expf(ml_s[(w * R + r) * 2] - mx);
-      lsum = __fmaf_rn(ml_s[(w * R + r) * 2 + 1], f, lsum);
-      a = __fmaf_rn(__ldcg(acc_dst + w * R * Dh + i), f, a);
+      const float f = expf(ml_s[(c * R + r) * 2] - mx);
+      lsum = __fmaf_rn(ml_s[(c * R + r) * 2 + 1], f, lsum);
+      a = __fmaf_rn(__ldcg(acc_seg + static_cast<size_t>(c) * R * Dh + i), f, a);
+    }
+    if (!split) {
+      store(o + i, lsum > 0.f ? a / lsum : 0.f);
+    } else {  // over class 0's state: the segment's
+      acc_seg[i] = a;
+      if (i - r * Dh == 0) {
+        ml_seg[r * 2] = mx;
+        ml_seg[r * 2 + 1] = lsum;
+      }
+    }
+  }
+  if (!split) return;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *flag = atomicAdd(counters + pc, 1) == nseg_w - 1;
+  __syncthreads();
+  if (!*flag) return;
+  __threadfence();
+  if (threadIdx.x == 0) counters[pc] = 0;
+  for (int i = threadIdx.x; i < nseg_w * rn * 2; i += blockDim.x) {
+    const int sg = i / (rn * 2), k = i - sg * rn * 2;
+    ml_s[sg * R * 2 + k] = __ldcg(ml_dst + static_cast<size_t>(sg) * NCLS * R * 2 + k);
+  }
+  __syncthreads();
+
+  // the segments in order, over those below the query's limit (so query i
+  // merges what the single-query kernel merges at its length): mx = the
+  // max of their mx, g = expf(mx_s - mx), lsum = lsum_0 g_0 then + lsum_s
+  // g_s, a = a_0 g_0 then + a_s g_s
+  for (int i = threadIdx.x; i < rn * Dh; i += blockDim.x) {
+    const int r = i / Dh;
+    const int lim = min(limq + seg0_w + r / G, lens + seg0_w);
+    const int nseg_r = n_segments(lim);
+    float mx = NEG_INF;
+    for (int sg = 0; sg < nseg_r; ++sg) mx = fmaxf(mx, ml_s[(sg * R + r) * 2]);
+    float lsum = 0.f, a = 0.f;
+#pragma unroll 8  // eight segments' loads in flight; the sums keep their order
+    for (int sg = 0; sg < nseg_r; ++sg) {
+      const float gw = expf(ml_s[(sg * R + r) * 2] - mx);
+      const float ls = ml_s[(sg * R + r) * 2 + 1];
+      const float as = __ldcg(acc_dst + static_cast<size_t>(sg) * NCLS * R * Dh + i);
+      lsum = colseg::fold(sg, ls, gw, lsum);
+      a = colseg::fold(sg, as, gw, a);
     }
     store(o + i, lsum > 0.f ? a / lsum : 0.f);
   }
@@ -621,7 +737,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
     kernel = paged_decode_mq_kernel<TQ, TKV, G, QW, J, FULL>;
   else
     kernel = paged_decode_kernel<TQ, TKV, G, QW, J, FULL>;
-  const size_t smem = layout<TKV>(QW * G, (a.capacity + a.bs - 1) / a.bs, a.Dh).total;
+  const int nseg = n_segments(a.capacity);
+  const size_t smem = layout<TKV>(QW * G, table_entries(a.capacity, a.bs), a.Dh, nseg).total;
   static size_t opted = 48 * 1024;  // above 48 KB only as opted-in dynamic shared memory
   if (smem > opted) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -635,8 +752,9 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                   reinterpret_cast<uintptr_t>(a.v_pool) % 16 == 0;
   const int bs_shift = (a.bs & (a.bs - 1)) == 0 ? __builtin_ctz(a.bs) : -1;
   const int nch = n_chunks(a.Q);
-  float* ml_scr = a.scratch + static_cast<size_t>(a.S) * a.B * nch * NCLS * QW * G * a.Dh;
-  const dim3 grid(a.S * a.B, padded_group(G), nch);
+  float* ml_scr =
+      a.scratch + static_cast<size_t>(a.S) * a.B * nch * nseg * NCLS * QW * G * a.Dh;
+  const dim3 grid(a.S * a.B, padded_group(G), nch * nseg);
   kernel<<<grid, NWARPS * 32, smem, stream>>>(
       static_cast<const TQ*>(a.q), static_cast<const TKV*>(a.k_pool),
       static_cast<const TKV*>(a.v_pool), a.pos_pool, a.table, a.lengths, a.q_pos, a.q_lens,

@@ -12,8 +12,13 @@
 extern "C" {
 
 // fp32 scratch (floats) one launch needs
-long long paged_fairkv_decode_scratch_floats(int B, int S, int G, int Dh) {
-  return paged::scratch_floats(B, S, 1, G, Dh);
+long long paged_fairkv_decode_scratch_floats(int B, int S, int G, int Dh, int capacity) {
+  return paged::scratch_floats(B, S, 1, G, Dh, capacity);
+}
+
+// arrival counters (ints) one launch needs
+long long paged_fairkv_decode_counters(int B, int S, int capacity) {
+  return paged::counters(B, S, 1, capacity);
 }
 
 // q (B, S, G, Dh), out likewise.  q_dtype: 0 = float32, 1 = bfloat16.
@@ -21,7 +26,8 @@ long long paged_fairkv_decode_scratch_floats(int B, int S, int G, int Dh) {
 // codes (k_scale, v_scale and kinds are then read; kinds may be null for
 // all-int8).  q_pos is read only when window > 0.  Lengths are clamped to
 // capacity (<= M * bs).  scratch holds paged_fairkv_decode_scratch_floats
-// floats; counters holds S*B ints that are 0 before the launch (the launch
+// floats; counters holds paged_fairkv_decode_counters ints that are 0
+// before the launch (the launch
 // leaves them 0).  Returns cudaGetLastError() after the launch (0 =
 // launched).
 int paged_fairkv_decode_launch(const void* q, const void* k_pool, const void* v_pool,

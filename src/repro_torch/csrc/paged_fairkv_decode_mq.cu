@@ -16,12 +16,13 @@
 extern "C" {
 
 // fp32 scratch (floats) one launch needs, and its arrival counters (ints)
-long long paged_fairkv_decode_mq_scratch_floats(int B, int S, int Q, int G, int Dh) {
-  return paged::scratch_floats(B, S, Q, G, Dh);
+long long paged_fairkv_decode_mq_scratch_floats(int B, int S, int Q, int G, int Dh,
+                                                int capacity) {
+  return paged::scratch_floats(B, S, Q, G, Dh, capacity);
 }
 
-int paged_fairkv_decode_mq_counters(int B, int S, int Q) {
-  return S * B * paged::n_chunks(Q);
+long long paged_fairkv_decode_mq_counters(int B, int S, int Q, int capacity) {
+  return paged::counters(B, S, Q, capacity);
 }
 
 // the parts for each chunk width (paged_fairkv_decode_mq_w<QW>.cu)

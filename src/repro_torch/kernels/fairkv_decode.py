@@ -39,12 +39,27 @@ MAX_HEAD_DIM = 256
 
 
 NCLS = 8  # column classes of the split merge (csrc/fairkv_decode.cu)
+SEG = 4096  # columns per segment of the cache (csrc/col_segments.cuh)
 
 
-def scratch_floats(B: int, S: int, G: int, Dh: int) -> int:
-    """The merge scratch of one launch, in floats (the library's
-    ``fairkv_decode_scratch_floats``)."""
-    return S * B * NCLS * G * (Dh + 2)
+def segments(C: int) -> int:
+    """Segments of a cache of ``C`` columns (the grid's third dimension)."""
+    return -(-C // SEG)
+
+
+def scratch_floats(B: int, S: int, G: int, Dh: int, C: int) -> int:
+    """The merge scratch of one launch over ``C`` cache columns, in floats
+    (the library's ``fairkv_decode_scratch_floats``): the states of every
+    (slot, row, segment, class, head)."""
+    return S * B * segments(C) * NCLS * G * (Dh + 2)
+
+
+def counters(B: int, S: int, C: int) -> int:
+    """The arrival counters of one launch (the library's
+    ``fairkv_decode_counters``): one per (slot, row), and past one segment
+    also one per (slot, row, segment)."""
+    n = segments(C)
+    return S * B * (1 + n if n > 1 else 1)
 
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -63,7 +78,9 @@ def _launcher() -> ctypes.CDLL:
         part.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
                          + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p])
         lib.fairkv_decode_scratch_floats.restype = ctypes.c_longlong
-        lib.fairkv_decode_scratch_floats.argtypes = [ctypes.c_int] * 4
+        lib.fairkv_decode_scratch_floats.argtypes = [ctypes.c_int] * 5
+        lib.fairkv_decode_counters.restype = ctypes.c_longlong
+        lib.fairkv_decode_counters.argtypes = [ctypes.c_int] * 3
         _LIB = lib
     return _LIB
 
@@ -167,15 +184,15 @@ def _launch(entry: str, counter: str, outs, q, k, v, lengths, attn_cap, k_pos, q
     B, S, G, Dh = q.shape
     C = k.shape[2]
     lib = _launcher()
-    scratch = _buffer(_SCRATCH, q.device, lib.fairkv_decode_scratch_floats(B, S, G, Dh),
+    scratch = _buffer(_SCRATCH, q.device, lib.fairkv_decode_scratch_floats(B, S, G, Dh, C),
                       torch.float32)
-    counters = _buffer(_COUNTERS, q.device, S * B, torch.int32)
+    arrivals = _buffer(_COUNTERS, q.device, lib.fairkv_decode_counters(B, S, C), torch.int32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     err = getattr(lib, entry)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         k_pos.data_ptr() if window > 0 else None,
         q_pos.data_ptr() if window > 0 else None,
-        *outs, scratch.data_ptr(), counters.data_ptr(),
+        *outs, scratch.data_ptr(), arrivals.data_ptr(),
         B, S, G, C, Dh, float(attn_cap), int(window),
         _DTYPE_CODES[q.dtype], stream)
     build.check(lib, NAME, err)
@@ -196,8 +213,9 @@ def _fairkv_decode_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _(q, k, v, lengths, attn_cap, k_pos, q_pos, window):
     B, S, G, Dh = q.shape
     out = torch.empty_like(q)
-    build.note_alloc(out, q.new_empty((scratch_floats(B, S, G, Dh),), dtype=torch.float32),
-                     q.new_empty((S * B,), dtype=torch.int32))
+    build.note_alloc(out, q.new_empty((scratch_floats(B, S, G, Dh, k.shape[2]),),
+                                      dtype=torch.float32),
+                     q.new_empty((counters(B, S, k.shape[2]),), dtype=torch.int32))
     return out
 
 
@@ -220,8 +238,9 @@ def _(q, k, v, lengths, attn_cap, k_pos, q_pos, window):
     o = q.new_empty(q.shape, dtype=torch.float32)
     lse = q.new_empty((B, S, G), dtype=torch.float32)
     build.note_alloc(o, lse,
-                     q.new_empty((scratch_floats(B, S, G, Dh),), dtype=torch.float32),
-                     q.new_empty((S * B,), dtype=torch.int32))
+                     q.new_empty((scratch_floats(B, S, G, Dh, k.shape[2]),),
+                                 dtype=torch.float32),
+                     q.new_empty((counters(B, S, k.shape[2]),), dtype=torch.int32))
     return o, lse
 
 

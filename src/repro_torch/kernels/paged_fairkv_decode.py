@@ -29,7 +29,7 @@ import torch
 from torch.utils.flop_counter import register_flop_formula
 
 from repro_torch.kernels import build
-from repro_torch.kernels.fairkv_decode import NCLS, _buffer
+from repro_torch.kernels.fairkv_decode import NCLS, _buffer, segments
 
 NAME = "paged_fairkv_decode"
 NAME_MQ = "paged_fairkv_decode_mq"
@@ -50,11 +50,21 @@ def n_chunks(Q: int) -> int:
     return -(-Q // QMAX)
 
 
-def scratch_floats(B: int, S: int, Q: int, G: int, Dh: int) -> int:
+def scratch_floats(B: int, S: int, Q: int, G: int, Dh: int, capacity: int) -> int:
     """The merge scratch of one launch, in floats (``paged::scratch_floats``
-    of ``csrc/paged_decode.cuh``; Q = 1 for the single-query kernel)."""
+    of ``csrc/paged_decode.cuh``; Q = 1 for the single-query kernel): the
+    states of every (slot, row, query chunk, segment of the ``capacity``
+    columns, class, query, head)."""
     n = n_chunks(Q)
-    return S * B * n * NCLS * (-(-Q // n)) * G * (Dh + 2)
+    return S * B * n * segments(capacity) * NCLS * (-(-Q // n)) * G * (Dh + 2)
+
+
+def counters(B: int, S: int, Q: int, capacity: int) -> int:
+    """The arrival counters of one launch (``paged::counters``): one per
+    (slot, row, query chunk), and past one segment also one per (slot,
+    row, query chunk, segment)."""
+    n = segments(capacity)
+    return S * B * n_chunks(Q) * (1 + n if n > 1 else 1)
 
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -73,10 +83,10 @@ def _launcher(name: str) -> ctypes.CDLL:
                        + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         scratch = getattr(lib, f"{name}_scratch_floats")
         scratch.restype = ctypes.c_longlong
-        scratch.argtypes = [ctypes.c_int] * (5 if mq else 4)
-        if mq:
-            lib.paged_fairkv_decode_mq_counters.restype = ctypes.c_int
-            lib.paged_fairkv_decode_mq_counters.argtypes = [ctypes.c_int] * 3
+        scratch.argtypes = [ctypes.c_int] * (6 if mq else 5)
+        arrivals = getattr(lib, f"{name}_counters")
+        arrivals.restype = ctypes.c_longlong
+        arrivals.argtypes = [ctypes.c_int] * (4 if mq else 3)
         _LIBS[name] = lib
     return lib
 
@@ -231,24 +241,25 @@ def _paged_mq_op(q: _T, k_pool: _T, v_pool: _T, pos_pool: _T, block_table: _T, l
                    attn_cap, q_pos, window, k_scale, v_scale, kinds, q_lens)
 
 
-def _fake(q):
+def _fake(q, capacity):
     """The output of either kernel, after reporting its scratch and counters."""
     B, S, Dh, G = q.shape[0], q.shape[1], q.shape[-1], q.shape[-2]
     Q = q.shape[2] if q.dim() == 5 else 1
     out = torch.empty_like(q)
-    build.note_alloc(out, q.new_empty((scratch_floats(B, S, Q, G, Dh),), dtype=torch.float32),
-                     q.new_empty((S * B * n_chunks(Q),), dtype=torch.int32))
+    build.note_alloc(out, q.new_empty((scratch_floats(B, S, Q, G, Dh, capacity),),
+                                      dtype=torch.float32),
+                     q.new_empty((counters(B, S, Q, capacity),), dtype=torch.int32))
     return out
 
 
 @_paged_op.register_fake
-def _(q, *args):
-    return _fake(q)
+def _(q, k_pool, v_pool, pos_pool, block_table, lengths, capacity, *args):
+    return _fake(q, capacity)
 
 
 @_paged_mq_op.register_fake
-def _(q, *args):
-    return _fake(q)
+def _(q, k_pool, v_pool, pos_pool, block_table, lengths, capacity, *args):
+    return _fake(q, capacity)
 
 
 @register_flop_formula([torch.ops.repro_torch.paged_fairkv_decode,
@@ -272,18 +283,18 @@ def _launch(name, q, k_pool, v_pool, pos_pool, block_table, lengths, capacity,
     G = q.shape[-2]
     Q = q.shape[2] if mq else 1
     if mq:
-        n_scratch = lib.paged_fairkv_decode_mq_scratch_floats(B, S, Q, G, Dh)
-        n_counters = lib.paged_fairkv_decode_mq_counters(B, S, Q)
+        n_scratch = lib.paged_fairkv_decode_mq_scratch_floats(B, S, Q, G, Dh, int(capacity))
+        n_counters = lib.paged_fairkv_decode_mq_counters(B, S, Q, int(capacity))
     else:
-        n_scratch = lib.paged_fairkv_decode_scratch_floats(B, S, G, Dh)
-        n_counters = S * B
+        n_scratch = lib.paged_fairkv_decode_scratch_floats(B, S, G, Dh, int(capacity))
+        n_counters = lib.paged_fairkv_decode_counters(B, S, int(capacity))
     scratch = _buffer(_SCRATCH, q.device, n_scratch, torch.float32)
-    counters = _buffer(_COUNTERS, q.device, n_counters, torch.int32)
+    arrivals = _buffer(_COUNTERS, q.device, n_counters, torch.int32)
     quant = k_scale is not None
     out = torch.empty_like(q)
     ptrs = ([q, k_pool, v_pool, pos_pool, block_table, lengths,
              q_pos if window > 0 else None] + ([q_lens] if mq else [])
-            + [k_scale, v_scale, kinds if quant else None, out, scratch, counters])
+            + [k_scale, v_scale, kinds if quant else None, out, scratch, arrivals])
     ints = [B, S] + ([Q] if mq else []) + [G, block_table.shape[2], k_pool.shape[1], Dh,
                                            int(capacity)]
     err = getattr(lib, f"{name}_launch")(

@@ -57,7 +57,11 @@ def gen():
     # G = 5 (hymba-1.5b's decode shape, window 1024 past C) and G = 7
     # (llava-next-34b's), split as G = 8 with the missing heads masked
     (8, 16, 5, 64, 576, 1024, 0.0), (2, 16, 7, 128, 576, 0, 0.0), (3, 4, 5, 128, 200, 60, 30.0),
-    (2, 5, 7, 64, 150, 0, 50.0)])
+    (2, 5, 7, 64, 150, 0, 50.0),
+    # past one and several of the kernel's 4096-column segments; a window of
+    # 5000 masks the first segments whole
+    (1, 3, 2, 256, 12388, 5000, 50.0), (2, 2, 5, 64, 9000, 0, 0.0),
+    (1, 4, 8, 128, 8500, 5000, 30.0), (2, 3, 1, 128, 4097, 0, 0.0)])
 def test_fairkv_decode_kernel(gen, dtype, B, S, G, Dh, C, window, cap):
     from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda
     q = torch.randn((B, S, G, Dh), generator=gen, device="cuda").to(dtype)
@@ -79,9 +83,13 @@ def test_fairkv_decode_kernel(gen, dtype, B, S, G, Dh, C, window, cap):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("G,Dh,window,cap", [(2, 256, 0, 50.0), (2, 256, 300, 50.0),
-                                             (4, 128, 0, 0.0), (8, 64, 100, 30.0)])
-def test_fairkv_decode_partial_kernel(gen, dtype, G, Dh, window, cap):
+@pytest.mark.parametrize("G,Dh,window,cap,C", [
+    (2, 256, 0, 50.0, 1024), (2, 256, 300, 50.0, 1024), (4, 128, 0, 0.0, 1024),
+    (8, 64, 100, 30.0, 1024),
+    # shards of 2.5 segments (4096 columns each); a window of 6000 masks the
+    # first shard whole and the second's first segment
+    (2, 256, 0, 50.0, 20480), (2, 256, 6000, 50.0, 20480), (5, 64, 6000, 0.0, 20480)])
+def test_fairkv_decode_partial_kernel(gen, dtype, G, Dh, window, cap, C):
     """The partial variant (split-S decode) against its plain version on
     one shard of the columns: o and lse in fp32 within 1e-4 absolute and
     1e-5 relative, an empty or all-masked (slot, row) exactly o = 0 and
@@ -89,11 +97,12 @@ def test_fairkv_decode_partial_kernel(gen, dtype, G, Dh, window, cap):
     result within one bf16 step."""
     from repro_torch.kernels.fairkv_decode import fairkv_decode_cuda, fairkv_decode_partial_cuda
     from repro_torch.kernels.ref import fairkv_decode_partial_ref, merge_partials
-    B, S, C, n = 1, 6, 1024, 2
+    B, S, n = 1, 6, 2
     q = torch.randn((B, S, G, Dh), generator=gen, device="cuda").to(dtype)
     k = torch.randn((S, B, C, Dh), generator=gen, device="cuda").to(dtype)
     v = torch.randn((S, B, C, Dh), generator=gen, device="cuda").to(dtype)
-    ln = torch.tensor([[0], [5], [511], [512], [900], [1024]], dtype=torch.int32, device="cuda")
+    ln = torch.tensor([[0], [5], [C // 2 - 1], [C // 2], [C * 900 // 1024], [C]],
+                      dtype=torch.int32, device="cuda")
     kp = torch.arange(C, dtype=torch.int32, device="cuda").expand(S, B, C).contiguous()
     qp = torch.full((B,), C, dtype=torch.int32, device="cuda")
     cl = C // n
@@ -211,7 +220,10 @@ def test_prefix_run_trace_cuda_matches_cpu():
     (8, 16, 4, 128, 576, 0, 0.0), (3, 5, 8, 32, 96, 40, 50.0),
     (2, 5, 2, 256, 1600, 500, 50.0), (4, 16, 2, 256, 576, 0, 0.0), (2, 3, 8, 256, 200, 0, 0.0),
     (2, 5, 5, 64, 1600, 500, 0.0), (2, 5, 7, 128, 1600, 0, 30.0), (8, 16, 5, 64, 576, 0, 0.0),
-    (2, 16, 7, 128, 576, 200, 0.0)])
+    (2, 16, 7, 128, 576, 200, 0.0),
+    # past two of the kernels' 4096-column segments (a window masking the
+    # first whole)
+    (1, 3, 2, 256, 8492, 5000, 50.0), (2, 2, 4, 128, 9000, 0, 0.0), (1, 2, 5, 64, 8500, 0, 30.0)])
 def test_fairkv_decode_kernel_bitwise_paged(gen, dtype, B, S, G, Dh, C, window, cap):
     """The slot kernel equals the paged kernel bitwise on the same cache
     laid out as pools with an identity block table, at lengths from one

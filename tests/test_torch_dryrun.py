@@ -29,7 +29,7 @@ from repro_torch.distributed import step_stats
 from repro_torch.distributed.param_specs import shard_shape, tree_specs
 from repro_torch.distributed.sharding import serve_rules, train_rules
 from repro_torch.exec.local import LocalExecutor
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.launch import dryrun, specs
 from repro_torch.launch.mesh import fake_process_group, make_production_mesh
 from repro_torch.models.transformer import init_params
@@ -267,8 +267,75 @@ def test_kernel_fake_implementations_count_their_scratch():
         out, st = step_stats.measure(ops.fairkv_decode, (q, k, ln), q, k, k, ln)
     from repro_torch.kernels.fairkv_decode import scratch_floats
     assert out.shape == q.shape and out.device.type == "cuda"
-    assert st.temp_bytes == scratch_floats(8, 16, 4, 128) * 4 + 16 * 8 * 4
+    assert st.temp_bytes == scratch_floats(8, 16, 4, 128, 576) * 4 + 16 * 8 * 4
     assert st.flops == 4 * 8 * 16 * 4 * 576 * 128
+
+
+@pytest.mark.parametrize("C", [576, 4096, 4097, 131_136])
+def test_kernel_scratch_spans_segments(C):
+    """Below, at and past the decode kernels' segment (4096 columns), each
+    fake implementation allocates the scratch and the arrival counters its
+    formulas give: the states of every segment, ceil(C / 4096) times one
+    segment's, and past one segment a counter per segment beside the
+    pair's."""
+    from repro_torch.kernels import fairkv_decode as K1
+    from repro_torch.kernels import paged_fairkv_decode as KP
+    B, S, G, Dh, bs, Q = 1, 8, 2, 256, 16, 5
+    seen = []
+    build.ALLOC_LISTENERS.append(seen.append)
+    try:
+        with step_stats.fake_tensors():
+            q = torch.empty((B, S, G, Dh), dtype=torch.bfloat16, device="cuda")
+            k = torch.empty((S, B, C, Dh), dtype=torch.bfloat16, device="cuda")
+            ln = torch.empty((S, B), dtype=torch.int32, device="cuda")
+            M = -(-C // bs)
+            pool = torch.empty((S * B * M + 1, bs, Dh), dtype=torch.bfloat16, device="cuda")
+            pos = torch.empty((S * B * M + 1, bs), dtype=torch.int32, device="cuda")
+            tbl = torch.empty((S, B, M), dtype=torch.int32, device="cuda")
+            qm = torch.empty((B, S, Q, G, Dh), dtype=torch.bfloat16, device="cuda")
+            got = []
+            for fn in (lambda: ops.fairkv_decode(q, k, k, ln),
+                       lambda: ops.fairkv_decode_partial(q, k, k, ln),
+                       lambda: ops.paged_fairkv_decode(q, pool, pool, pos, tbl, ln, C),
+                       lambda: ops.paged_fairkv_decode(qm, pool, pool, pos, tbl, ln, C)):
+                seen.clear()
+                fn()
+                got.append([(t.numel(), t.dtype) for t in seen if t.dim() == 1])
+    finally:
+        build.ALLOC_LISTENERS.remove(seen.append)
+    want = [(K1.scratch_floats(B, S, G, Dh, C), K1.counters(B, S, C))] * 2 + [
+        (KP.scratch_floats(B, S, 1, G, Dh, C), KP.counters(B, S, 1, C)),
+        (KP.scratch_floats(B, S, Q, G, Dh, C), KP.counters(B, S, Q, C))]
+    assert got == [[(f, torch.float32), (c, torch.int32)] for f, c in want]
+    n = K1.segments(C)
+    assert n == (1 if C <= 4096 else -(-C // 4096))
+    assert want[0][0] == n * K1.scratch_floats(B, S, G, Dh, 1)
+    assert want[3][0] == n * KP.scratch_floats(B, S, Q, G, Dh, 1)
+    assert want[0][1] == S * B * (1 if n == 1 else 1 + n)
+    assert want[3][1] == S * B * KP.n_chunks(Q) * (1 if n == 1 else 1 + n)
+
+
+def test_long_cell_partial_scratch_spans_segments(monkeypatch):
+    """gemma2-9b's long_500k cell on the fake (data 16, model 16) mesh: each
+    rank's 32,772 cache columns are 9 of the partial kernel's segments, so
+    every layer's fake implementation allocates 9 segments' states; the
+    record's temporaries cover them (a step's other temporaries are larger,
+    so the peak is the one-segment kernel's) and the cell fits."""
+    from repro_torch.kernels import fairkv_decode as K1
+    calls = []
+    real = K1.scratch_floats
+    monkeypatch.setattr(K1, "scratch_floats", lambda *a: calls.append(a) or real(*a))
+    rec = dryrun.run_cell("gemma2-9b", "long_500k", False, dev_bytes=dryrun.H100_BYTES)
+    cfg = get_config("gemma2-9b")
+    assert rec["status"] == "ok" and rec["fits"] is True
+    C_loc = -(-(SHAPES["long_500k"].seq_len + CompressionConfig().decode_margin) // 16)
+    assert C_loc == 32_772 and K1.segments(C_loc) == 9
+    assert len(calls) == cfg.n_layers
+    assert {c[2:] for c in calls} == {(cfg.q_per_kv, cfg.head_dim, C_loc)}
+    B, S = calls[0][:2]
+    scratch = 4 * real(B, S, cfg.q_per_kv, cfg.head_dim, C_loc)
+    assert scratch == 9 * 4 * real(B, S, cfg.q_per_kv, cfg.head_dim, 1)
+    assert rec["executed"]["memory"]["temp_bytes"] >= scratch + 4 * K1.counters(B, S, C_loc)
 
 
 def test_executor_audit_matches_reference(reference):
@@ -485,7 +552,7 @@ def test_partial_kernel_fake_implementation_and_flops():
         got = _flops(lambda: ops.fairkv_decode_partial(*cu))
     from repro_torch.kernels.fairkv_decode import scratch_floats
     assert o.shape == qc.shape and o.dtype == torch.float32 and lse.shape == (8, 16, 4)
-    assert st.temp_bytes == scratch_floats(8, 16, 4, 256) * 4 + 16 * 8 * 4
+    assert st.temp_bytes == scratch_floats(8, 16, 4, 256, 512) * 4 + 16 * 8 * 4
     assert got == want == 4 * 2 * 3 * 4 * 40 * 32
 
 

@@ -39,6 +39,7 @@ def _decode_inputs(seed, B, S, G, Dh, C, empty_rows=False):
     (2, 16, 1, 128, 200, 64),  # MHA, ragged capacity
     (3, 5, 4, 32, 96, 32),     # odd slot count
     (2, 4, 2, 16, 64, 64),     # single block
+    (1, 2, 2, 16, 9000, 1024),  # past two of the CUDA kernel's 4096-column segments
 ])
 @pytest.mark.parametrize("window,cap,empty", [
     (0, 0.0, False), (0, 0.0, True), (40, 0.0, False), (0, 50.0, True)])
